@@ -1,0 +1,101 @@
+"""Weight bridge: Flax parameter trees -> the port's ``state_dict``.
+
+:func:`flax_to_state_dict` takes the ``"params"`` collection of a JAX
+``ProgramGenerator``, ``ProgramExecutor`` or any of their blocks, as nested
+dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, variables["params"])``),
+and returns the float32 ``state_dict`` of the port's module of the same
+configuration.  It needs no JAX: the caller passes numpy.
+
+=========================================  ==================================  ============================================
+Flax (linen) parameter                     PyTorch port parameter              conversion
+=========================================  ==================================  ============================================
+``Dense`` kernel (in, out), bias (out,)    ``Dense.weight`` (out, in), bias    transpose the kernel
+``DenseGeneral`` q/k/v kernel (d, H, Dh),  ``attn.{q,k,v}.weight`` (d, d),     reshape to (d, H*Dh), transpose; bias
+bias (H, Dh)                               bias (d,)                           flattened head-major (h*Dh + j)
+``DenseGeneral`` out kernel (H, Dh, d),    ``attn.out.weight`` (d, d),         reshape to (H*Dh, d), transpose
+bias (d,)                                  bias (d,)
+``Embed`` embedding (V, E)                 ``nn.Embedding.weight`` (V, E)      as is
+``LayerNorm`` scale, bias (d,)             ``LayerNorm.weight``, ``.bias``     as is; the port's LayerNorm uses eps 1e-6
+                                                                               (Flax's), not PyTorch's 1e-5
+``OptimizedLSTMCell`` ii/if/ig/io kernel   ``LSTMCell.weight_ih`` (4h, in)     concatenate along out in gate order
+(in, h), no bias                                                               i, f, g, o, then transpose
+``OptimizedLSTMCell`` hi/hf/hg/ho kernel   ``LSTMCell.weight_hh`` (4h, h),     the same; the carry stays Flax's (c, h)
+(h, h), bias (h,)                          ``LSTMCell.bias`` (4h,)
+``cls`` (1, 1, d), ``text_pos`` (3, d),    parameters of the same name,        as is
+``queries`` (Q, d)                         shape and place
+module names ``block_{i}``, ``cell_{i}``,  ``blocks.{i}``, ``cells.{i}``,      renamed
+``Dense_0``, ``Dense_1`` (in ``ffn``)      ``fc1``, ``fc2``
+=========================================  ==================================  ============================================
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["flax_to_state_dict"]
+
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def _rename(name: str) -> str:
+    match = re.fullmatch(r"(block|cell)_(\d+)", name)
+    if match:
+        return f"{match.group(1)}s.{match.group(2)}"
+    return {"Dense_0": "fc1", "Dense_1": "fc2"}.get(name, name)
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable float32 copy
+
+
+def _dense(node: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    kernel = np.asarray(node["kernel"])
+    bias = np.asarray(node["bias"]) if "bias" in node else None
+    if kernel.ndim == 3 and bias is not None and bias.ndim == 2:  # q/k/v: (d, H, Dh)
+        kernel, bias = kernel.reshape(kernel.shape[0], -1), bias.reshape(-1)
+    elif kernel.ndim == 3:  # out projection: (H, Dh, d)
+        kernel = kernel.reshape(-1, kernel.shape[-1])
+    out = {"weight": kernel.T}
+    if bias is not None:
+        out["bias"] = bias
+    return out
+
+
+def _lstm_cell(node: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    return {
+        "weight_ih": np.concatenate([np.asarray(node["i" + g]["kernel"]) for g in _LSTM_GATES], 1).T,
+        "weight_hh": np.concatenate([np.asarray(node["h" + g]["kernel"]) for g in _LSTM_GATES], 1).T,
+        "bias": np.concatenate([np.asarray(node["h" + g]["bias"]) for g in _LSTM_GATES]),
+    }
+
+
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert a Flax ``params`` tree (nested dicts of arrays) to a state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        keys = set(node)
+        if {"i" + g for g in _LSTM_GATES} | {"h" + g for g in _LSTM_GATES} <= keys:
+            leaves = _lstm_cell(node)
+        elif "kernel" in keys:
+            leaves = _dense(node)
+        elif "embedding" in keys:
+            leaves = {"weight": node["embedding"]}
+        elif "scale" in keys:
+            leaves = {"weight": node["scale"], "bias": node["bias"]}
+        else:
+            for name, child in node.items():
+                if isinstance(child, Mapping):
+                    walk(child, prefix + _rename(name) + ".")
+                else:
+                    out[prefix + name] = _tensor(child)
+            return
+        for name, value in leaves.items():
+            out[prefix + name] = _tensor(value)
+
+    walk(params, "")
+    return out

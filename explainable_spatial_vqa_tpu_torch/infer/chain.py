@@ -1,0 +1,271 @@
+"""Vectorized chained program execution, ported from
+``explainable_spatial_vqa_tpu/infer/chain.py`` (the executor half).
+
+Step position k of every question runs in one executor call: the outputs of
+each step (box sets, value tokens) live in dense device caches, and each
+step gathers its dependencies from them.  Program steps are topologically
+ordered (inputs always have smaller indices), so position order is a valid
+schedule.
+
+* :func:`chained_forward` walks the positions of a whole batch.
+* :func:`chained_forward_pool` is continuous batching: a fixed pool of slots,
+  each advancing its own question one step per iteration; a finished slot
+  admits the next question from a deepest-first queue.  Per (row, step) the
+  executor sees the same inputs as in :func:`chained_forward`, so the two
+  give the same caches.
+
+JAX's on-device loops become Python loops here; the pool loop reads one
+scalar per iteration for its exit test.  The caches are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
+from explainable_spatial_vqa_tpu_torch.device import resolve_device
+from explainable_spatial_vqa_tpu_torch.models.layers import Device
+from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
+
+__all__ = ["ChainState", "ExecutorChainRunner", "chained_forward", "chained_forward_pool",
+           "gather_dep_boxes", "gather_dep_token", "gather_step_inputs"]
+
+
+class ChainState(NamedTuple):
+    box_cache: torch.Tensor  # (N, S, Q, 4)
+    box_mask: torch.Tensor  # (N, S, Q) bool: confident predicted boxes
+    conf_cache: torch.Tensor  # (N, S, Q) float32: raw confidences
+    token_cache: torch.Tensor  # (N, S) int32
+    token_branch: torch.Tensor  # (N, S) bool: the step produced a token
+    routing: torch.Tensor  # (N, S) int32: chosen branch per step
+
+
+def _empty_state(n: int, s: int, q: int, device: torch.device) -> ChainState:
+    return ChainState(
+        box_cache=torch.zeros(n, s, q, 4, device=device),
+        box_mask=torch.zeros(n, s, q, dtype=torch.bool, device=device),
+        conf_cache=torch.zeros(n, s, q, device=device),
+        token_cache=torch.zeros(n, s, dtype=torch.int32, device=device),
+        token_branch=torch.zeros(n, s, dtype=torch.bool, device=device),
+        routing=torch.zeros(n, s, dtype=torch.int32, device=device),
+    )
+
+
+def gather_dep_boxes(state: ChainState, dep: torch.Tensor, rows: Optional[torch.Tensor] = None):
+    """A dependency's cached box set: (B, Q, 4) boxes and (B, Q) validity.
+    ``rows`` picks the cache row of each batch element (the pool's slots);
+    by default batch element b reads row b."""
+    if rows is None:
+        rows = torch.arange(state.box_cache.shape[0], device=dep.device)
+    safe = dep.clamp(min=0)
+    return state.box_cache[rows, safe], state.box_mask[rows, safe] & (dep >= 0)[:, None]
+
+
+def gather_dep_token(state: ChainState, dep: torch.Tensor, rows: Optional[torch.Tensor] = None):
+    """A dependency's cached value token: (B,) token (0 where invalid) and validity."""
+    if rows is None:
+        rows = torch.arange(state.token_cache.shape[0], device=dep.device)
+    safe = dep.clamp(min=0)
+    valid = state.token_branch[rows, safe] & (dep >= 0)
+    return torch.where(valid, state.token_cache[rows, safe], 0), valid
+
+
+def gather_step_inputs(state: ChainState, func: torch.Tensor, dep0: torch.Tensor,
+                       dep1: torch.Tensor, max_input_boxes: int,
+                       rows: Optional[torch.Tensor] = None):
+    """One chain step's executor inputs: both dependencies' box sets
+    concatenated, moved valid-first by a stable sort and cut to
+    ``max_input_boxes``; text [function, dep0 value, dep1 value] with its
+    validity mask."""
+    b0, m0 = gather_dep_boxes(state, dep0, rows)
+    b1, m1 = gather_dep_boxes(state, dep1, rows)
+    all_boxes = torch.cat([b0, b1], dim=1)  # (B, 2Q, 4)
+    all_mask = torch.cat([m0, m1], dim=1)
+    order = torch.argsort((~all_mask).to(torch.uint8), dim=-1, stable=True)
+    all_boxes = torch.gather(all_boxes, 1, order[..., None].expand(-1, -1, 4))
+    all_mask = torch.gather(all_mask, 1, order)
+    t0, v0 = gather_dep_token(state, dep0, rows)
+    t1, v1 = gather_dep_token(state, dep1, rows)
+    text = torch.stack([func.long(), t0.long(), t1.long()], dim=1)
+    text_mask = torch.stack([torch.ones_like(v0), v0, v1], dim=1)
+    return (all_boxes[:, :max_input_boxes], all_mask[:, :max_input_boxes], text, text_mask)
+
+
+def _decide(out: Dict[str, torch.Tensor], func: torch.Tensor, cfg: ExecutorConfig,
+            conf_thresholds: Optional[torch.Tensor]):
+    is_box = torch.argmax(out["routing_logits"], dim=-1) == 0
+    pred_token = torch.argmax(out["token_logits"], dim=-1).to(torch.int32)
+    # per-FUNCTION propagation thresholds when a vector is given, else the
+    # config's scalar
+    thr = cfg.conf_threshold if conf_thresholds is None else conf_thresholds[func][:, None]
+    conf_mask = (out["pred_conf"] >= thr) & is_box[:, None]
+    return is_box, pred_token, conf_mask
+
+
+@torch.no_grad()
+def chained_forward(
+    model,
+    image_tokens: torch.Tensor,  # (N, P, C) raw, or (N, P, d) precomputed
+    functions: torch.Tensor,  # (N, S)
+    deps: torch.Tensor,  # (N, S, 2)
+    num_steps: torch.Tensor,  # (N,)
+    cfg: ExecutorConfig,
+    max_steps: int,
+    image_precomputed: bool = False,
+    active_steps: Optional[int] = None,
+    conf_thresholds: Optional[torch.Tensor] = None,
+) -> ChainState:
+    """Run every step position of a batch.  ``active_steps`` bounds the loop
+    (the batch's deepest chain); positions at or past a question's
+    ``num_steps`` write nothing, so any bound >= the deepest chain gives the
+    same caches."""
+    n = image_tokens.shape[0]
+    if not image_precomputed:
+        image_tokens = model.precompute_image(image_tokens)
+    state = _empty_state(n, max_steps, cfg.num_queries, image_tokens.device)
+    rows = torch.arange(n, device=image_tokens.device)
+    upper = max_steps if active_steps is None else min(int(active_steps), max_steps)
+    for k in range(upper):
+        func = functions[:, k]
+        input_boxes, input_mask, text, text_mask = gather_step_inputs(
+            state, func, deps[:, k, 0], deps[:, k, 1], cfg.max_input_boxes)
+        out = model(image_tokens, input_boxes, input_mask, text, text_mask,
+                    image_precomputed=True)
+        is_box, pred_token, conf_mask = _decide(out, func, cfg, conf_thresholds)
+        active = k < num_steps
+        state.box_cache[rows, k] = torch.where(active[:, None, None], out["pred_boxes"], 0.0)
+        state.box_mask[rows, k] = active[:, None] & conf_mask
+        state.conf_cache[rows, k] = torch.where(
+            active[:, None] & is_box[:, None], out["pred_conf"], 0.0)
+        state.token_cache[rows, k] = torch.where(active & ~is_box, pred_token, 0)
+        state.token_branch[rows, k] = active & ~is_box
+        state.routing[rows, k] = torch.where(active, (~is_box).to(torch.int32), 0)
+    return state
+
+
+@torch.no_grad()
+def chained_forward_pool(
+    model,
+    image_features: torch.Tensor,  # (M, P, C) per-IMAGE raw feature cache
+    image_index: torch.Tensor,  # (N,) question -> image row
+    functions: torch.Tensor,  # (N, S)
+    deps: torch.Tensor,  # (N, S, 2)
+    num_steps: torch.Tensor,  # (N,)
+    cfg: ExecutorConfig,
+    max_steps: int,
+    slots: int = 128,
+    return_iterations: bool = False,
+    conf_thresholds: Optional[torch.Tensor] = None,
+):
+    """Continuous-batching chained execution over a pool of ``slots``.
+
+    Admission is deepest-first (stable), so the drain tail is the shallowest
+    work; finished slots refill in slot order from the queue (exclusive
+    cumulative sum of the finished flags).  Only live slots scatter into the
+    caches.  ``return_iterations=True`` also returns the loop trip count."""
+    n = functions.shape[0]
+    b = min(slots, n)
+    device = image_features.device
+    image_pre = model.precompute_image(image_features)  # every image once
+    # row n is a sink: slots that are not live scatter there, as JAX's
+    # mode="drop" drops them, so the scatter needs no host read
+    state = _empty_state(n + 1, max_steps, cfg.num_queries, device)
+
+    order = torch.argsort(-num_steps.long(), stable=True)
+    rows = order[torch.arange(b, device=device).clamp(max=n - 1)]
+    k = torch.zeros(b, dtype=torch.long, device=device)
+    act = torch.arange(b, device=device) < n
+    ptr = torch.tensor(b, dtype=torch.long, device=device)
+    iterations = 0
+    while bool(act.any()):
+        func = functions[rows, k]
+        input_boxes, input_mask, text, text_mask = gather_step_inputs(
+            state, func, deps[rows, k, 0], deps[rows, k, 1], cfg.max_input_boxes, rows=rows)
+        out = model(image_pre[image_index[rows]], input_boxes, input_mask, text, text_mask,
+                    image_precomputed=True)
+        is_box, pred_token, conf_mask = _decide(out, func, cfg, conf_thresholds)
+
+        # scatter the live slots to their rows and the others to the sink;
+        # zero-step rows are never live, as in chained_forward
+        live = act & (k < num_steps[rows])
+        r = torch.where(live, rows, n)
+        state.box_cache[r, k] = out["pred_boxes"]
+        state.box_mask[r, k] = conf_mask
+        state.conf_cache[r, k] = torch.where(is_box[:, None], out["pred_conf"], 0.0)
+        state.token_cache[r, k] = torch.where(~is_box, pred_token, 0)
+        state.token_branch[r, k] = ~is_box
+        state.routing[r, k] = (~is_box).to(torch.int32)
+
+        # retire finished rows, admit from the queue
+        k_next = k + 1
+        finished = act & (k_next >= num_steps[rows])
+        cont = act & ~finished
+        fin = finished.long()
+        cand = ptr + torch.cumsum(fin, 0) - fin  # exclusive: finished slots before me
+        has_new = finished & (cand < n)
+        rows = torch.where(has_new, order[cand.clamp(max=n - 1)], rows)
+        k = torch.where(has_new, 0, torch.where(cont, k_next, k))
+        act = cont | has_new
+        ptr = ptr + fin.sum()
+        iterations += 1
+    state = ChainState(*(t[:n] for t in state))
+    if return_iterations:
+        return state, iterations
+    return state
+
+
+class ExecutorChainRunner:
+    """Chained inference for :class:`ProgramExecutor`: ``run`` walks step
+    positions over the whole batch, ``run_pool`` is the continuous-batching
+    slot pool.  Inputs may be numpy arrays or tensors; outputs are numpy, with
+    the JAX runner's keys."""
+
+    def __init__(self, model, config: ExecutorConfig, max_steps: int = 28,
+                 conf_thresholds=None, device: Device = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model.eval()
+        self.config = config
+        self.max_steps = max_steps
+        # optional per-FUNCTION propagation thresholds indexed by function id;
+        # None = the config's global scalar
+        self.conf_thresholds = (
+            None if conf_thresholds is None
+            else torch.as_tensor(np.asarray(conf_thresholds, np.float32), device=self.device))
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+        return t.to(device=self.device, dtype=dtype)
+
+    def _chain_tensors(self, chains: ChainArrays):
+        return (self._tensor(chains.functions, torch.long), self._tensor(chains.deps, torch.long),
+                self._tensor(chains.num_steps, torch.long))
+
+    def _outputs(self, state: ChainState, num_steps) -> Dict[str, np.ndarray]:
+        host = {name: getattr(state, name).cpu().numpy() for name in (
+            "box_cache", "box_mask", "conf_cache", "token_cache", "token_branch")}
+        last = np.asarray(num_steps) - 1
+        rows = np.arange(len(last))
+        host["final_tokens"] = host["token_cache"][rows, last]
+        host["final_is_token"] = host["token_branch"][rows, last]
+        return host
+
+    def run(self, image_tokens, chains: ChainArrays) -> Dict[str, np.ndarray]:
+        """``image_tokens``: (N, P, C) raw features, one row per question."""
+        functions, deps, num_steps = self._chain_tensors(chains)
+        state = chained_forward(
+            self.model, self._tensor(image_tokens, torch.float32), functions, deps, num_steps,
+            self.config, self.max_steps, conf_thresholds=self.conf_thresholds)
+        return self._outputs(state, chains.num_steps)
+
+    def run_pool(self, image_features, chains: ChainArrays, slots: int = 128) -> Dict[str, np.ndarray]:
+        """``image_features``: the per-IMAGE (M, P, C) feature cache, indexed by
+        ``chains.image_index`` on the device each iteration."""
+        functions, deps, num_steps = self._chain_tensors(chains)
+        state = chained_forward_pool(
+            self.model, self._tensor(image_features, torch.float32),
+            self._tensor(chains.image_index, torch.long), functions, deps, num_steps,
+            self.config, self.max_steps, slots=slots, conf_thresholds=self.conf_thresholds)
+        return self._outputs(state, chains.num_steps)

@@ -1,0 +1,174 @@
+"""Program Generator: question tokens -> program tokens, ported from
+``explainable_spatial_vqa_tpu/models/generator.py``.
+
+The thesis-final generator (§3.4.1 p.16): an embedding, a 3-layer LSTM
+encoder per direction, a 3-layer LSTM decoder with Luong dot attention over
+the encoder states, greedy decoding.  The two encoder directions are two
+separate unidirectional stacks (upper layers take ``h``, not ``2h``); their
+top outputs are concatenated and projected by ``enc_proj``, and the decoder
+starts from the per-layer sum of their final ``(c, h)`` carries.  This is
+not ``nn.LSTM(bidirectional=True)``, which concatenates the directions
+between layers.  The encoder scans run over padding unmasked, as in JAX.
+
+``simple=True`` is the checked-in 1-layer variant without attention.  The
+generator has no TPU kernel, so it is plain PyTorch; recurrences are Python
+loops over time.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from explainable_spatial_vqa_tpu_torch.core.config import GeneratorConfig
+from explainable_spatial_vqa_tpu_torch.device import resolve_device
+from explainable_spatial_vqa_tpu_torch.models.layers import Dense, Device, cached_on_params
+
+__all__ = ["ProgramGenerator", "LSTMCell"]
+
+Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), as in Flax
+
+
+class LSTMCell(nn.Module):
+    """Flax ``OptimizedLSTMCell`` arithmetic: gates i, f, g, o from an input
+    product without bias plus a hidden product with bias, computed in
+    ``dtype``; the carry keeps the type promotion of ``f * c + i * g``.
+    Without autograd the cast weights are kept between calls."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.weight_ih = nn.Parameter(torch.zeros(4 * hidden_dim, input_dim, device=device))
+        self.weight_hh = nn.Parameter(torch.zeros(4 * hidden_dim, hidden_dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(4 * hidden_dim, device=device))
+
+    def _cast(self):
+        dt = self.dtype
+        return self.weight_hh.to(dt), self.bias.to(dt), self.weight_ih.to(dt)
+
+    def forward(self, carry: Carry, x: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
+        c, h = carry
+        dt = self.dtype
+        weight_hh, bias, weight_ih = (self._cast() if torch.is_grad_enabled()
+                                      else cached_on_params(self, self._cast))
+        y = F.linear(h.to(dt), weight_hh, bias) + F.linear(x.to(dt), weight_ih)
+        i, f, g, o = y.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        new_c = f * c + i * g
+        new_h = o * torch.tanh(new_c)
+        return (new_c, new_h), new_h
+
+
+class _LSTMStack(nn.Module):
+    """Multi-layer LSTM cell stack operating on one timestep."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int,
+                 dtype: torch.dtype = torch.float32, device: Device = "cuda"):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.cells = nn.ModuleList(
+            LSTMCell(input_dim if i == 0 else hidden_dim, hidden_dim, dtype, device)
+            for i in range(num_layers))
+
+    def forward(self, carry: Tuple[Carry, ...], x: torch.Tensor):
+        new_carry = []
+        for cell, c in zip(self.cells, carry):
+            c, x = cell(c, x)
+            new_carry.append(c)
+        return tuple(new_carry), x
+
+    def initialize_carry(self, batch: int, device: torch.device) -> Tuple[Carry, ...]:
+        zeros = lambda: torch.zeros(batch, self.hidden_dim, device=device)  # noqa: E731
+        return tuple((zeros(), zeros()) for _ in self.cells)
+
+    def scan(self, carry, xs: torch.Tensor):
+        """Run over (B, T, E) inputs; returns (final carry, (B, T, H) outputs)."""
+        outs: List[torch.Tensor] = []
+        for t in range(xs.shape[1]):
+            carry, h = self(carry, xs[:, t])
+            outs.append(h)
+        return carry, torch.stack(outs, dim=1)
+
+
+class ProgramGenerator(nn.Module):
+    def __init__(self, config: GeneratorConfig, dtype: torch.dtype = torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        cfg = config
+        device = resolve_device(device)
+        self.config = cfg
+        self.dtype = dtype
+        self.bidirectional = cfg.bidirectional and not cfg.simple
+        self.attention = cfg.attention and not cfg.simple
+        enc_layers = 1 if cfg.simple else cfg.encoder_layers
+        dec_layers = 1 if cfg.simple else cfg.decoder_layers
+        e, h = cfg.embed_dim, cfg.hidden_dim
+        self.embed = nn.Embedding(cfg.vocab_size, e, device=device)
+        self.prog_embed = nn.Embedding(cfg.program_vocab_size, e, device=device)
+        self.enc_fwd = _LSTMStack(e, h, enc_layers, dtype, device)
+        if self.bidirectional:
+            self.enc_bwd = _LSTMStack(e, h, enc_layers, dtype, device)
+            self.enc_proj = Dense(2 * h, h, dtype, device)
+        self.decoder = _LSTMStack(e, h, dec_layers, dtype, device)
+        if self.attention:
+            self.attn_combine = Dense(2 * h, h, dtype, device)
+        self.out_proj = Dense(h, cfg.program_vocab_size, torch.float32, device)
+
+    def encode(self, questions: torch.Tensor) -> Tuple[torch.Tensor, Tuple[Carry, ...]]:
+        """questions: (B, L) int (0 = <NULL> pad).  Returns (encoder outputs
+        (B, L, H), the decoder's initial carry)."""
+        emb = self.embed(questions.long()).to(self.dtype)
+        batch = questions.shape[0]
+        carry_f, outs_f = self.enc_fwd.scan(self.enc_fwd.initialize_carry(batch, emb.device), emb)
+        if self.bidirectional:
+            carry_b, outs_b = self.enc_bwd.scan(
+                self.enc_bwd.initialize_carry(batch, emb.device), torch.flip(emb, dims=[1]))
+            outs_b = torch.flip(outs_b, dims=[1])
+            enc_outputs = self.enc_proj(torch.cat([outs_f, outs_b], dim=-1))
+            # decoder init: combine directions per layer (sum of c and h)
+            dec_init = tuple((cf[0] + cb[0], cf[1] + cb[1]) for cf, cb in zip(carry_f, carry_b))
+        else:
+            enc_outputs, dec_init = outs_f, carry_f
+        dec_layers = len(self.decoder.cells)
+        if len(dec_init) < dec_layers:  # decoder deeper than encoder: zero carries
+            extra = self.decoder.initialize_carry(batch, emb.device)
+            dec_init = tuple(dec_init) + tuple(extra[len(dec_init):])
+        return enc_outputs, dec_init[:dec_layers]
+
+    def _decode_step(self, carry, token: torch.Tensor, enc_outputs: torch.Tensor,
+                     enc_mask: Optional[torch.Tensor]):
+        x = self.prog_embed(token.long()).to(self.dtype)
+        carry, h = self.decoder(carry, x)
+        if self.attention:
+            # Luong dot attention over the encoder outputs, softmax in float32
+            common = torch.promote_types(h.dtype, enc_outputs.dtype)
+            scores = torch.einsum("bh,blh->bl", h.to(common), enc_outputs.to(common)).float()
+            if enc_mask is not None:
+                scores = torch.where(enc_mask, scores, torch.full_like(scores, -1e30))
+            weights = torch.softmax(scores, dim=-1).to(self.dtype)
+            context = torch.einsum("bl,blh->bh", weights, enc_outputs.to(self.dtype))
+            common = torch.promote_types(h.dtype, context.dtype)
+            h = torch.tanh(self.attn_combine(torch.cat([h.to(common), context.to(common)], -1)))
+        return carry, self.out_proj(h)
+
+    @torch.no_grad()
+    def generate(self, questions: torch.Tensor, max_len: Optional[int] = None,
+                 start_token: int = 1) -> torch.Tensor:
+        """Greedy decode: (B, L) questions -> (B, T) program tokens, each step
+        fed the previous step's argmax."""
+        length = max_len or self.config.program_len
+        enc_outputs, carry = self.encode(questions)
+        enc_mask = questions != 0
+        token = torch.full((questions.shape[0],), start_token, dtype=torch.long,
+                           device=questions.device)
+        tokens = []
+        for _ in range(length):
+            carry, logits = self._decode_step(carry, token, enc_outputs, enc_mask)
+            token = torch.argmax(logits, dim=-1)
+            tokens.append(token)
+        return torch.stack(tokens, dim=1)

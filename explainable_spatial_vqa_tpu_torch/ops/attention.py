@@ -1,0 +1,47 @@
+"""Scaled dot-product attention, the plain PyTorch path.
+
+Port of ``explainable_spatial_vqa_tpu/ops/attention.py:39-90`` with the same
+arithmetic: scores accumulate in float32, masked keys get a finite ``-1e30``
+fill (so an all-masked row gives uniform weights, never NaNs), the softmax
+runs in float32 with ``+1e-30`` in the denominator, and the weights are cast
+to the compute type before the product with V, which accumulates in float32.
+
+This is the plain version of kernel K1 (:mod:`.fused_attention`) and the
+path of every attention call K1 does not take: cross-attention (``Lq != Lk``)
+and masks other than a key-padding mask.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["dot_product_attention", "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention over (B, T, H, D) tensors.
+
+    q: (B, Tq, H, D); k, v: (B, Tk, H, D); mask: bool, broadcastable to
+    (B, H, Tq, Tk), True = attend.  Returns (B, Tq, H, D) in q's dtype.
+    """
+    dtype = q.dtype
+    # 1/sqrt(D) rounded as float32 arithmetic rounds it, held as a Python
+    # number so that no tensor crosses to the device (a blocking copy)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-30)
+    weights = weights.to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(dtype)

@@ -1,0 +1,101 @@
+"""K1: fused masked self-attention on the card.
+
+Port of ``explainable_spatial_vqa_tpu/ops/pallas_attention.py``
+(``_fused_attention_bhld`` via ``fused_attention``).  The kernel is
+``csrc/fused_attention.cu``; its plain version is
+:func:`explainable_spatial_vqa_tpu_torch.ops.attention.dot_product_attention`,
+which computes the same arithmetic.
+
+:func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
+mask or none, the calls :func:`attention_eligible` accepts.  A CPU tensor runs
+the plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from explainable_spatial_vqa_tpu_torch.ops import _build
+from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+
+__all__ = ["fused_attention", "attention_eligible", "key_mask_f32", "HEAD_DIMS", "MAX_LEN",
+           "DTYPE_CODES"]
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (128,)  # the model's (d=512, 4 heads); instantiated in csrc/attention.cuh
+MAX_LEN = 1024  # the score rows of 32 queries must fit in shared memory
+
+
+def attention_eligible(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
+    """The JAX dispatch rule (``ops/attention.py:51-59``): same length for
+    queries and keys, and a mask that is None or a (B, 1, 1, L) key mask."""
+    key_pad_only = mask is None or (
+        mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1)
+    return q.shape[1] == k.shape[1] and key_pad_only
+
+
+def key_mask_f32(mask: Optional[torch.Tensor], batch: int, length: int) -> Optional[torch.Tensor]:
+    """A (B, L) bool/float key mask or a (B|1, 1, 1, L) one as the kernels'
+    contiguous (B, L) float32 mask (keep where > 0); None stays None."""
+    if mask is None:
+        return None
+    if mask.ndim == 4:
+        mask = mask[:, 0, 0, :]
+    return mask.to(torch.float32).expand(batch, length).contiguous()
+
+
+def _esv_attention():
+    fn = _build.load("fused_attention").esv_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_attention(
+    q: torch.Tensor,  # (B, L, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,  # (B|1, 1, 1, L) bool, True = attend
+) -> torch.Tensor:
+    """Masked self-attention, (B, L, H, D) in and out (the JAX layout)."""
+    if not attention_eligible(q, k, mask):
+        raise ValueError(
+            "fused_attention takes self-attention (Lq == Lk) with a (B, 1, 1, L) "
+            "key mask or none; use dot_product_attention for other calls")
+    if q.device.type == "cpu":
+        return dot_product_attention(q, k, v, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention: unsupported device {q.device}")
+    b, length, heads, head_dim = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"fused_attention: {name} must match q's shape, dtype and device")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"fused_attention: dtype {q.dtype} not in {list(DTYPE_CODES)}")
+    if head_dim not in HEAD_DIMS or length > MAX_LEN or b > 65535 or heads > 65535:
+        raise ValueError(
+            f"fused_attention: head dim {head_dim} must be one of {HEAD_DIMS}, "
+            f"length {length} at most {MAX_LEN}, batch and heads at most 65535")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("fused_attention: q, k and v must be contiguous")
+    mask_f = key_mask_f32(mask, b, length)
+    if mask_f is not None:
+        mask_f = mask_f.to(q.device)
+    out = torch.empty_like(q)
+    strides = (length * heads * head_dim, heads * head_dim)
+    with torch.cuda.device(q.device):
+        fused_attention.launches += 1
+        status = _esv_attention()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
+            b, heads, length, head_dim, *strides, *strides, DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "esv_attention")
+    return out
+
+
+fused_attention.launches = 0

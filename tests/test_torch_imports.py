@@ -1,0 +1,83 @@
+"""The port imports neither JAX nor the JAX package, and its entry points run
+on the card unless asked for the CPU.  Checked in a fresh interpreter: this
+test process has JAX loaded already (tests/conftest.py)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from explainable_spatial_vqa_tpu_torch import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHECK = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import explainable_spatial_vqa_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                           "explainable_spatial_vqa_tpu"))
+    assert not leaked, leaked
+    assert len(names) >= 20, names
+    import torch
+    assert not torch.cuda.is_available()
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    try:
+        ProgramExecutor(ExecutorConfig(d_model=32, num_heads=4))
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err), err
+    else:
+        raise AssertionError("an entry point without device= ran on a host with no GPU")
+    ProgramExecutor(ExecutorConfig(d_model=32, num_heads=4), device="cpu")
+    print("ok", len(names))
+""")
+
+
+def test_port_imports_no_jax_and_defaults_to_cuda():
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", CHECK], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A kernel build with no nvcc anywhere raises and writes nothing."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_HOMES", ())
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["fused_attention", "fused_block"])
+    assert not (tmp_path / "_build").exists()
+
+
+def test_library_path_follows_the_source(monkeypatch, tmp_path):
+    """The built library's name carries a hash of its source and headers, so
+    an edited source builds anew."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+
+    for name in ("fused_attention.cu", "fused_block.cu", "common.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = {n: _build._library_path(n) for n in ("fused_attention", "fused_block")}
+    assert before["fused_attention"] != before["fused_block"]
+    (tmp_path / "common.cuh").write_text("// edited\n")
+    after = {n: _build._library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
