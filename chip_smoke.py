@@ -10,13 +10,18 @@ result:
 2. build the CUDA kernels from ``explainable_spatial_vqa_tpu_torch/csrc`` with
    ``nvcc`` into ``explainable_spatial_vqa_tpu_torch/_build/``;
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
-   float32 (TF32 off), with each error beside its tolerance; in bf16, every
-   element and the mean error are held (``bf16_agreement``), and K2's plain
-   version with bf16 q/k/v, a negative control, must fail that check;
-4. times at the main path's shapes: kernel, plain version, one PyTorch library
-   call computing the same function (a yardstick the port never calls), and
-   the least time the card could take (its bound);
-5. the main path at full width (bench.py's widths, bf16, ``box_roi`` and
+   float32 (TF32 off), with each error beside its tolerance: K1; K2 at the
+   fusion encoder's shape; K3 at the block bench's (L=224, ``batch_tile=2,
+   ffn_chunks=2``).  In bf16, every element and the mean error are held
+   (``bf16_agreement``), and each block kernel's check has a negative control
+   that must fail it: the other block kernel's plain version (K3 rounds q, k
+   and v to bf16, K2 keeps them float32);
+4. times at those shapes: kernel, plain version, one PyTorch library call
+   computing the same function (a yardstick the port never calls), and the
+   least time the card could take (its bound);
+5. the block-bench path: ``bench_block.main`` at B=128, which launches K3
+   through its entry point beside K2 and the unfused ``EncoderBlock``;
+6. the main path at full width (bench.py's widths, bf16, ``box_roi`` and
    per-function thresholds): ``InferencePipeline.run`` end to end through the
    128-slot pool on synthetic questions, timed over a few repeats.  The
    generator's random weights emit programs that mostly do not parse, so the
@@ -25,7 +30,15 @@ result:
    program and answer and that the kernels carried the executor; then one
    more run under ``torch.profiler`` for the card's busy share, the host's
    waits on the card and the kernels by device time;
-6. one float32 executor forward on the card against the same module on the CPU.
+7. the same pipeline in the ``"sorted"`` (the default) and ``"bucketed"``
+   chain modes: questions/s over the same repeats and how many answers agree
+   with the pool's;
+8. one float32 executor forward on the card against the same module on the CPU;
+9. the chain modes in float32 on 64 of the questions: ``"sorted"``,
+   ``"bucketed"`` and ``"pool"`` must give equal answers;
+10. the ``executor_roi_sim_count`` configuration (``roi_sim`` with 4 match
+    maps and ``count_embed``, random non-zero weights): a float32 forward on
+    the card against the CPU, and one ``"sorted"`` pipeline run in bf16.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -41,7 +54,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 
@@ -52,6 +64,8 @@ PEAK_BYTES = 3.35e12
 MAIN_QUESTIONS = 512
 SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
 REPEATS = 5  # of the timed InferencePipeline.run
+MODE_QUESTIONS = 64  # of the float32 comparison of the chain modes
+K3_TILING = dict(batch_tile=2, ffn_chunks=2)
 
 
 def fail(message: str) -> None:
@@ -155,6 +169,35 @@ def bf16_text(stats: dict) -> str:
             f"(tol {MEAN_ULPS})")
 
 
+def qkv_rounding(torch, x, keep, w, heads) -> None:
+    """K3 rounds its float32 QKV sums to bf16, and a key or value rounded the
+    other way moves the attention of every query of its sequence, so the
+    kernel adds its tensor-core slices with Kahan's compensation.  Check on
+    the kernel's own q/k/v (its scratch) that it rounds no more of them the
+    other way from the float64 sum than float32 sums (cuBLAS, TF32 off) do."""
+    from explainable_spatial_vqa_tpu_torch.ops import fused_block
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import DTYPE_CODES
+
+    batch, length, d = x.shape
+    rows, ffn, wdt = batch * length, w.ffn1.shape[0], w.qkv.dtype
+    scratch = [torch.empty(rows, 3 * d, dtype=wdt, device=x.device),
+               torch.empty(rows, d, dtype=wdt, device=x.device),
+               torch.empty(rows, d, device=x.device), torch.empty(rows, d, device=x.device),
+               torch.empty(rows // K3_TILING["ffn_chunks"], ffn, dtype=wdt, device=x.device)]
+    fused_block._launch(fused_block.fused_encoder_block_tiled, "esv_encoder_block_tiled", x, keep,
+                        w, scratch, (batch, length, d, heads, ffn, K3_TILING["ffn_chunks"],
+                                     DTYPE_CODES[x.dtype], DTYPE_CODES[wdt]))
+    xr = x.reshape(rows, d)
+    exact = ((xr.double() @ w.qkv.double().t()).float() + w.qkv_bias).to(wdt)
+    f32 = (xr.float() @ w.qkv.float().t() + w.qkv_bias).to(wdt)
+    kernel_share = float((scratch[0] != exact).float().mean())
+    f32_share = float((f32 != exact).float().mean())
+    say(f"phase 3 K3 q/k/v rounded to bf16 the other way from the float64 sum: kernel "
+        f"{kernel_share:.2e} of them, float32 sums {f32_share:.2e}")
+    if not kernel_share <= f32_share:
+        fail("K3's QKV sums round more q/k/v the other way than float32 sums do")
+
+
 def postfix_ids(chains, token_ids: dict, function_ids: dict, length: int):
     """Each chain's program as the generator spells one: its nodes in postfix
     order (children first, then the node), <END>, then <NULL> padding."""
@@ -191,13 +234,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from explainable_spatial_vqa_tpu_torch.ops import _build
-    from explainable_spatial_vqa_tpu_torch.ops import fused_block as fused_block_module
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         BlockWeights,
         fused_encoder_block,
         fused_encoder_block_plain,
+        fused_encoder_block_tiled,
+        fused_encoder_block_tiled_plain,
     )
 
     dev = torch.device("cuda")
@@ -277,102 +321,119 @@ def main() -> None:
             results[f"K1_L{length}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                                             bound_by=by, library_ms=lib)
 
-    # K2 at the fusion encoder's shape, bf16 and fp32
-    d, ffn, length = 512, 2048, 210
-    keep = ragged_keep(b, length, 13)
-    for dtype in (torch.bfloat16, torch.float32):
-        w = BlockWeights(
-            randn(3 * d, d, scale=d ** -0.5, dtype=dtype), randn(3 * d, scale=0.02),
-            randn(d, d, scale=d ** -0.5, dtype=dtype), randn(d, scale=0.02),
-            randn(ffn, d, scale=d ** -0.5, dtype=dtype), randn(ffn, scale=0.02),
-            randn(d, ffn, scale=ffn ** -0.5, dtype=dtype), randn(d, scale=0.02),
-            1 + randn(d, scale=0.1), randn(d, scale=0.1), 1 + randn(d, scale=0.1),
-            randn(d, scale=0.1))
-        x = randn(b, length, d, dtype=dtype)
-        out = fused_encoder_block(x, keep, w, h)
-        ref = fused_encoder_block_plain(x, keep, w, h)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        head = (f"phase 3 K2 fused_encoder_block {names[dtype]} B={b} L={length} d={d} H={h} "
-                f"ffn={ffn} mask=ragged:")
-        if dtype == torch.bfloat16:
-            stats = bf16_agreement(torch, out, ref)
-            say(f"{head} {bf16_text(stats)}")
-            if not bf16_ok(stats):
-                fail("K2 disagrees with its plain version")
-            # negative control: the plain version with q, k and v rounded to
-            # bf16 before the attention (the tiled TPU kernel's arithmetic, not
-            # _block_kernel's) must fail the same check
-            def rounded_qkv(q, k, v, mask):
-                return dot_product_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
+    # K2 at the fusion encoder's shape and K3 at the block bench's, bf16 and
+    # fp32.  Each block kernel's bf16 check has a negative control, the other
+    # kernel's plain version: K3's arithmetic rounds q, k and v to bf16 after
+    # the bias, K2's keeps them float32; the check must see the difference.
+    def k3(x, keep, w, h):
+        return fused_encoder_block_tiled(x, keep, w, h, **K3_TILING)
 
-            with mock.patch.object(fused_block_module, "dot_product_attention", rounded_qkv):
-                control = bf16_agreement(torch, fused_encoder_block_plain(x, keep, w, h), ref)
-            say(f"phase 3 K2 negative control, plain version with bf16 q/k/v: "
-                f"{bf16_text(control)}: {'passes' if bf16_ok(control) else 'fails'}")
-            if bf16_ok(control):
-                fail("the bf16 check cannot tell bf16 q/k/v from K2's float32 q/k/v")
-        else:
-            # sums of up to 2048 products taken in another order, through four
-            # chained products and two LayerNorms
-            say(f"{head} max_abs_err {err:.3g} (tol 1e-4)")
-            if not err <= 1e-4:
-                fail("K2 disagrees with its plain version")
-        layer = torch.nn.TransformerEncoderLayer(
-            d, h, ffn, dropout=0.0, activation="relu", batch_first=True, norm_first=False,
-            layer_norm_eps=1e-6).eval()
-        with torch.no_grad():
-            layer.self_attn.in_proj_weight.copy_(w.qkv.float())
-            layer.self_attn.in_proj_bias.copy_(w.qkv_bias)
-            layer.self_attn.out_proj.weight.copy_(w.out.float())
-            layer.self_attn.out_proj.bias.copy_(w.out_bias)
-            layer.linear1.weight.copy_(w.ffn1.float())
-            layer.linear1.bias.copy_(w.ffn1_bias)
-            layer.linear2.weight.copy_(w.ffn2.float())
-            layer.linear2.bias.copy_(w.ffn2_bias)
-            layer.norm1.weight.copy_(w.ln1_scale)
-            layer.norm1.bias.copy_(w.ln1_bias)
-            layer.norm2.weight.copy_(w.ln2_scale)
-            layer.norm2.bias.copy_(w.ln2_bias)
-        layer = layer.to(device=dev, dtype=dtype)
-        pad = ~keep
+    def k3_plain(x, keep, w, h):
+        return fused_encoder_block_tiled_plain(x, keep, w, h, **K3_TILING)
 
-        def library():
+    d, ffn = 512, 2048
+    blocks = (
+        # name, kernel, plain, control, L, attention on float32 q/k/v
+        ("K2", "fused_encoder_block", fused_encoder_block, fused_encoder_block_plain, k3_plain,
+         210, True),
+        ("K3", f"fused_encoder_block_tiled {K3_TILING}", k3, k3_plain, fused_encoder_block_plain,
+         224, False),
+    )
+    for key, label, kernel, plain_fn, control_fn, length, f32_attention in blocks:
+        keep = ragged_keep(b, length, 13)
+        for dtype in (torch.bfloat16, torch.float32):
+            w = BlockWeights(
+                randn(3 * d, d, scale=d ** -0.5, dtype=dtype), randn(3 * d, scale=0.02),
+                randn(d, d, scale=d ** -0.5, dtype=dtype), randn(d, scale=0.02),
+                randn(ffn, d, scale=d ** -0.5, dtype=dtype), randn(ffn, scale=0.02),
+                randn(d, ffn, scale=ffn ** -0.5, dtype=dtype), randn(d, scale=0.02),
+                1 + randn(d, scale=0.1), randn(d, scale=0.1), 1 + randn(d, scale=0.1),
+                randn(d, scale=0.1))
+            x = randn(b, length, d, dtype=dtype)
+            out = kernel(x, keep, w, h)
+            ref = plain_fn(x, keep, w, h)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            head = (f"phase 3 {key} {label} {names[dtype]} B={b} L={length} d={d} H={h} "
+                    f"ffn={ffn} mask=ragged:")
+            if dtype == torch.bfloat16:
+                stats = bf16_agreement(torch, out, ref)
+                say(f"{head} {bf16_text(stats)}")
+                if not bf16_ok(stats):
+                    fail(f"{key} disagrees with its plain version")
+                control = bf16_agreement(torch, control_fn(x, keep, w, h), ref)
+                other = "K3" if key == "K2" else "K2"
+                say(f"phase 3 {key} negative control, {other}'s plain version "
+                    f"({'bf16' if key == 'K2' else 'float32'} q/k/v): {bf16_text(control)}: "
+                    f"{'passes' if bf16_ok(control) else 'fails'}")
+                if bf16_ok(control):
+                    fail(f"the bf16 check cannot tell {other}'s arithmetic from {key}'s")
+                if key == "K3":
+                    qkv_rounding(torch, x, keep, w, h)
+            else:
+                # sums of up to 2048 products taken in another order, through
+                # four chained products and two LayerNorms
+                say(f"{head} max_abs_err {err:.3g} (tol 1e-4)")
+                if not err <= 1e-4:
+                    fail(f"{key} disagrees with its plain version")
+            layer = torch.nn.TransformerEncoderLayer(
+                d, h, ffn, dropout=0.0, activation="relu", batch_first=True, norm_first=False,
+                layer_norm_eps=1e-6).eval()
             with torch.no_grad():
-                return layer(x, src_key_padding_mask=pad)
+                layer.self_attn.in_proj_weight.copy_(w.qkv.float())
+                layer.self_attn.in_proj_bias.copy_(w.qkv_bias)
+                layer.self_attn.out_proj.weight.copy_(w.out.float())
+                layer.self_attn.out_proj.bias.copy_(w.out_bias)
+                layer.linear1.weight.copy_(w.ffn1.float())
+                layer.linear1.bias.copy_(w.ffn1_bias)
+                layer.linear2.weight.copy_(w.ffn2.float())
+                layer.linear2.bias.copy_(w.ffn2_bias)
+                layer.norm1.weight.copy_(w.ln1_scale)
+                layer.norm1.bias.copy_(w.ln1_bias)
+                layer.norm2.weight.copy_(w.ln2_scale)
+                layer.norm2.bias.copy_(w.ln2_bias)
+            layer = layer.to(device=dev, dtype=dtype)
+            pad = ~keep
 
-        lib_out = library()
-        lib_err = (bf16_text(bf16_agreement(torch, lib_out, ref)) if dtype == torch.bfloat16
-                   else f"max_abs_err {float((lib_out - ref).abs().max()):.3g}")
-        del lib_out
-        ms = timed_ms(torch, lambda: fused_encoder_block(x, keep, w, h), iters=10)
-        plain = timed_ms(torch, lambda: fused_encoder_block_plain(x, keep, w, h), iters=10)
-        lib = timed_ms(torch, library, iters=10)
-        esize = 2 if dtype == torch.bfloat16 else 4
-        rows = b * length
-        # the four products in the weights' type; the attention on float32 q, k, v
-        # (as _block_kernel computes it) at the float32 rate
-        gemm_ops = rows * (2.0 * d * 3 * d + 2 * d * d + 4 * d * ffn)
-        attn_ops = 4.0 * b * h * length * length * (d // h)
-        ops = {names[dtype]: gemm_ops}
-        ops["fp32"] = ops.get("fp32", 0.0) + attn_ops
-        nbytes = (2 * rows * d * esize + (4 * d * d + 2 * d * ffn) * esize
-                  + (3 * d + d + ffn + d + 4 * d) * 4 + rows * 4)
-        bnd, by = bound_ms(ops, nbytes)
-        say(f"phase 4 K2 fused_encoder_block {names[dtype]}: kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms (against the plain "
-            f"version: {lib_err}), bound {bnd:.4f} ms ({by}; products alone at the "
-            f"{names[dtype]} rate {gemm_ops / PEAK_OPS[names[dtype]] * 1e3:.4f} ms), "
-            f"{(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
-        results[f"K2_{names[dtype]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                             bound_ms=bnd, bound_by=by, library_ms=lib)
-        del layer, x, out, ref, w
+            def library():
+                with torch.no_grad():
+                    return layer(x, src_key_padding_mask=pad)
+
+            lib_out = library()
+            lib_err = (bf16_text(bf16_agreement(torch, lib_out, ref)) if dtype == torch.bfloat16
+                       else f"max_abs_err {float((lib_out - ref).abs().max()):.3g}")
+            del lib_out
+            ms = timed_ms(torch, lambda: kernel(x, keep, w, h), iters=10)
+            plain = timed_ms(torch, lambda: plain_fn(x, keep, w, h), iters=10)
+            lib = timed_ms(torch, library, iters=10)
+            esize = 2 if dtype == torch.bfloat16 else 4
+            rows = b * length
+            # the four products in the weights' type; the attention at the
+            # float32 rate on K2's float32 q, k, v, in the weights' type on K3's
+            gemm_ops = rows * (2.0 * d * 3 * d + 2 * d * d + 4 * d * ffn)
+            attn_ops = 4.0 * b * h * length * length * (d // h)
+            ops = {names[dtype]: gemm_ops}
+            attn_type = "fp32" if f32_attention else names[dtype]
+            ops[attn_type] = ops.get(attn_type, 0.0) + attn_ops
+            nbytes = (2 * rows * d * esize + (4 * d * d + 2 * d * ffn) * esize
+                      + (3 * d + d + ffn + d + 4 * d) * 4 + rows * 4)
+            bnd, by = bound_ms(ops, nbytes)
+            say(f"phase 4 {key} {label} {names[dtype]} L={length}: kernel {ms:.3f} ms, plain "
+                f"{plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms (against the plain "
+                f"version: {lib_err}), bound {bnd:.4f} ms ({by}; {gemm_ops / 1e9:.1f} GFLOP of "
+                f"products at the {names[dtype]} rate {gemm_ops / PEAK_OPS[names[dtype]] * 1e3:.4f}"
+                f" ms, {attn_ops / 1e9:.1f} GFLOP of attention at the {attn_type} rate), "
+                f"{(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
+            results[f"{key}_{names[dtype]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                    bound_ms=bnd, bound_by=by, library_ms=lib)
+            del layer, x, out, ref, w
     torch.cuda.empty_cache()
     main_path(torch, np, dev, results)
 
 
 def main_path(torch, np, dev, results) -> None:
-    """Phases 5 and 6, then the result lines."""
+    """Phases 5 to 10, then the result lines."""
+    from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
     from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
     from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
@@ -385,7 +446,22 @@ def main_path(torch, np, dev, results) -> None:
     from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_block import fused_encoder_block
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fused_encoder_block,
+        fused_encoder_block_tiled,
+    )
+
+    wrappers = {w.__name__: w for w in (fused_attention, fused_encoder_block,
+                                        fused_encoder_block_tiled)}
+
+    def counted(fn):
+        """``fn()`` with every launch count set to 0 just before it, and the
+        counts just after: (its value, {kernel: launches})."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        value = fn()
+        return value, {name: w.launches for name, w in wrappers.items()}
 
     class ScriptedPrograms(torch.nn.Module):
         """The generator, whose random weights emit programs that mostly do not
@@ -402,7 +478,17 @@ def main_path(torch, np, dev, results) -> None:
             decoded = self.generator.generate(questions)
             return torch.as_tensor(self.program_ids, device=decoded.device)
 
-    # ---- 5. the main path at full width ----
+    # ---- 5. the block-bench path: K3 through its entry point ----
+    bench_rows, bench_launches = counted(
+        lambda: bench_block.main(["--batches", "128", "--iters", "5"]))
+    say("phase 5 block bench, bench_block.main --batches 128 --iters 5 (bf16, L=224, no mask): "
+        + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s"
+                    for _b, name, ms, tflops in bench_rows)
+        + f"; launches {bench_launches}")
+    if not bench_launches["fused_encoder_block_tiled"] > 0:
+        fail("the block bench did not launch K3")
+
+    # ---- 6. the main path at full width ----
     gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
     exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True)
     dtype = torch.bfloat16
@@ -412,32 +498,52 @@ def main_path(torch, np, dev, results) -> None:
     runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
                                  device=dev)
     idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
+    token_ids = {t: i for i, t in idx_to_token.items()}
     features, questions, chains = synth_questions(MAIN_QUESTIONS, exe_cfg, max_steps=27, seed=0)
-    scripted = postfix_ids(chains, {t: i for i, t in idx_to_token.items()}, FUNCTION_IDS,
-                           gen_cfg.program_len)
+    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
     pipeline = InferencePipeline(ScriptedPrograms(generator, scripted), runner, idx_to_token,
                                  FUNCTION_IDS, device=dev)
     features_dev = torch.from_numpy(features).to(dev)
     questions_dev = torch.from_numpy(questions).to(dev)
-
-    def run():
-        return pipeline.run(questions, features_dev, chains.image_index, chain_mode="pool")
-
-    run()  # warm-up: the first call also sets up cuBLAS and the allocator's pools
     forwards = [0]
-    hook = executor.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-    torch.cuda.synchronize()
-    fused_attention.launches = 0
-    fused_encoder_block.launches = 0
-    results_run, run_s = [], []  # host clock; run() returns numpy, so its work is done
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        results_run.append(run())
-        run_s.append(time.perf_counter() - t0)
-    launches = {"fused_attention": fused_attention.launches,
-                "fused_encoder_block": fused_encoder_block.launches}
-    main_forwards = forwards[0]
-    hook.remove()
+
+    def count_forwards(module, *_):
+        forwards[0] += 1
+
+    def repeats(mode):
+        """``REPEATS`` timed runs of the pipeline in ``mode`` after a warm-up
+        (the first call also sets up cuBLAS and the allocator's pools): the
+        results, the host-clock seconds of each (run returns numpy, so its
+        work is done), the executor forwards and the launches."""
+        pipeline.run(questions, features_dev, chains.image_index, chain_mode=mode)
+        forwards[0] = 0
+        seconds = []
+
+        def timed_runs():
+            out = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                out.append(pipeline.run(questions, features_dev, chains.image_index,
+                                        chain_mode=mode))
+                seconds.append(time.perf_counter() - t0)
+            return out
+
+        runs, counts = counted(timed_runs)
+        return runs, seconds, forwards[0], counts
+
+    def launch_checks(counts, n_forwards, cfg):
+        return {
+            "K2 launches == 3 x executor forwards": (
+                counts["fused_encoder_block"] == cfg.encoder_layers * n_forwards),
+            "K1 launches == 2 x executor forwards (box decoder self-attention)": (
+                counts["fused_attention"] == cfg.box_decoder_layers * n_forwards > 0),
+        }
+
+    def median(seconds):
+        return sorted(seconds)[len(seconds) // 2]
+
+    hook = executor.register_forward_hook(count_forwards)
+    results_run, run_s, main_forwards, launches = repeats("pool")
     result = results_run[0]
 
     # the same work in its parts, once, for where the time goes
@@ -475,15 +581,11 @@ def main_path(torch, np, dev, results) -> None:
             for k in ("box_cache", "conf_cache")),
         "pool iterations cover every chain step": (
             iterations * REPEATS == main_forwards and iterations >= math.ceil(useful / SLOTS)),
-        "K2 launches == 3 x executor forwards": (
-            launches["fused_encoder_block"] == exe_cfg.encoder_layers * main_forwards),
-        "K1 launches == 2 x executor forwards (box decoder self-attention)": (
-            launches["fused_attention"] == exe_cfg.box_decoder_layers * main_forwards > 0),
+        **launch_checks(launches, main_forwards, exe_cfg),
     }
-    ordered = sorted(run_s)
-    say(f"phase 5 main path: InferencePipeline.run (pool, {SLOTS} slots) on {n} questions, "
+    say(f"phase 6 main path: InferencePipeline.run (pool, {SLOTS} slots) on {n} questions, "
         f"{useful} chain steps (mean depth {useful / n:.2f}), {REPEATS} repeats: median "
-        f"{ordered[REPEATS // 2]:.3f} s = {n / ordered[REPEATS // 2]:.1f} questions/s (all, s: "
+        f"{median(run_s):.3f} s = {n / median(run_s):.1f} questions/s (all, s: "
         f"{', '.join(f'{t:.3f}' for t in run_s)}); its parts, once: generate {t1 - t0:.3f} s, "
         f"decode + parse {t2 - t1:.3f} s, run_pool {t3 - t2:.3f} s; {iterations} pool "
         f"iterations; {int(result.answer_valid.sum())} token answers, "
@@ -495,23 +597,47 @@ def main_path(torch, np, dev, results) -> None:
 
     # where the time goes: one more run under the profiler (its counts of
     # launches are not the main path's and are not read)
-    wall, prof = device_profile(torch, run)
+    wall, prof = device_profile(
+        torch, lambda: pipeline.run(questions, features_dev, chains.image_index,
+                                    chain_mode="pool"))
     if prof is None:
-        say(f"phase 5 profile: InferencePipeline.run {wall:.3f} s under the profiler; device "
+        say(f"phase 6 profile: InferencePipeline.run {wall:.3f} s under the profiler; device "
             f"time not measured (the profiler saw no device activity)")
     else:
         busy, top, syncs = prof
         total = sum(ms for _, ms in top)
-        say(f"phase 5 profile: InferencePipeline.run {wall:.3f} s under the profiler, device "
+        say(f"phase 6 profile: InferencePipeline.run {wall:.3f} s under the profiler, device "
             f"busy {busy:.3f} of it ({total:.1f} ms of kernels and copies), {syncs} host waits "
             f"on the card ({syncs / iterations:.2f} per pool iteration); by device time: "
             + "; ".join(f"{name[:70]} {ms:.1f} ms" for name, ms in top[:10]))
-    del generator, runner, pipeline, executor, features_dev
+
+    # ---- 7. the sorted (default) and bucketed chain modes, bf16 ----
+    for mode in ("sorted", "bucketed"):
+        runs, seconds, mode_forwards, counts = repeats(mode)
+        agree = int(np.sum((runs[0].answers == result.answers)
+                           & (runs[0].answer_valid == result.answer_valid)))
+        say(f"phase 7 {mode}: InferencePipeline.run on {n} questions, {REPEATS} repeats: median "
+            f"{median(seconds):.3f} s = {n / median(seconds):.1f} questions/s (all, s: "
+            f"{', '.join(f'{t:.3f}' for t in seconds)}); {mode_forwards // REPEATS} executor "
+            f"forwards per run; {agree} of {n} answers agree with the pool's (bf16: batches of "
+            f"other sizes may round differently); launches {counts}")
+        mode_checks = {
+            "every answer equal across repeats": all(
+                np.array_equal(r.answers, runs[0].answers)
+                and np.array_equal(r.answer_valid, runs[0].answer_valid) for r in runs),
+            "one answer per question in the token vocabulary": (
+                runs[0].answers.shape == (n,) and 0 <= runs[0].answers.min()
+                and runs[0].answers.max() < exe_cfg.token_classes),
+            **launch_checks(counts, mode_forwards, exe_cfg),
+        }
+        for name, ok in mode_checks.items():
+            if not ok:
+                fail(f"{mode} check failed: {name}")
+    hook.remove()
+    del runner, pipeline, executor
     torch.cuda.empty_cache()
 
-    # ---- 6. float32 forward on the card against the CPU ----
-    executor = init_parameters(ProgramExecutor(exe_cfg, torch.float32, device=dev), seed=4).eval()
-    cpu_executor = copy.deepcopy(executor).to("cpu")
+    # ---- 8. float32 forward on the card against the CPU ----
     rng = np.random.RandomState(5)
     lo = rng.rand(4, exe_cfg.max_input_boxes, 2) * 0.6
     inputs = [
@@ -522,22 +648,109 @@ def main_path(torch, np, dev, results) -> None:
         rng.randint(0, exe_cfg.vocab_size, (4, 3)),
         np.array([[1, 1, 0], [1, 0, 1], [1, 1, 1], [1, 0, 0]], bool),
     ]
-    with torch.no_grad():
-        on_card = executor(*(torch.from_numpy(a).to(dev) for a in inputs))
-        on_cpu = cpu_executor(*(torch.from_numpy(a) for a in inputs))
-    worst = max(float((on_card[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu)
-    # float32 on both sides; only the order of sums differs
-    say(f"phase 6 fp32 executor forward, card vs CPU: max_abs_err {worst:.3g} (tol 1e-4) over "
+
+    def card_vs_cpu(model):
+        """The largest difference over every output of one float32 forward
+        on the card and on the CPU (only the order of sums differs)."""
+        cpu_model = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            on_card = model(*(torch.from_numpy(a).to(dev) for a in inputs))
+            on_cpu = cpu_model(*(torch.from_numpy(a) for a in inputs))
+        return max(float((on_card[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu), on_cpu
+
+    executor = init_parameters(ProgramExecutor(exe_cfg, torch.float32, device=dev), seed=4).eval()
+    worst, on_cpu = card_vs_cpu(executor)
+    say(f"phase 8 fp32 executor forward, card vs CPU: max_abs_err {worst:.3g} (tol 1e-4) over "
         f"{', '.join(sorted(on_cpu))}")
     if not worst <= 1e-4:
         fail(f"fp32 forward on the card disagrees with the CPU: {worst}")
 
-    sources = {"K1": ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
-                      "explainable_spatial_vqa_tpu/ops/pallas_attention.py:45", "K1_L10"),
-               "K2": ("fused_encoder_block", "explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
-                      "explainable_spatial_vqa_tpu/ops/pallas_block.py:113", "K2_bf16")}
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-                    **results[key]) for name, src, rep, key in sources.values()]
+    # ---- 9. the chain modes agree in float32 ----
+    m_features, m_questions, m_chains = synth_questions(MODE_QUESTIONS, exe_cfg, max_steps=27,
+                                                        seed=6)
+    m_runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
+                                   device=dev)
+    m_pipeline = InferencePipeline(
+        ScriptedPrograms(generator, postfix_ids(m_chains, token_ids, FUNCTION_IDS,
+                                                gen_cfg.program_len)),
+        m_runner, idx_to_token, FUNCTION_IDS, device=dev)
+    m_features_dev = torch.from_numpy(m_features).to(dev)
+    by_mode = {mode: m_pipeline.run(m_questions, m_features_dev, m_chains.image_index,
+                                    chain_mode=mode) for mode in ("sorted", "bucketed", "pool")}
+    per_question = m_features_dev[torch.as_tensor(m_chains.image_index, device=dev).long()]
+    steps = {"sorted": m_runner.run_sorted(per_question, m_chains),
+             "bucketed": m_runner.run_bucketed(per_question, m_chains),
+             "pool": m_runner.run_pool(m_features_dev, m_chains)}
+    pool_answers, pool_steps = by_mode["pool"], steps["pool"]
+    answers_equal = all(np.array_equal(r.answers, pool_answers.answers)
+                        and np.array_equal(r.answer_valid, pool_answers.answer_valid)
+                        for r in by_mode.values())
+    decisions_equal = all(np.array_equal(o[k], pool_steps[k]) for o in steps.values()
+                          for k in ("token_branch", "token_cache", "box_mask"))
+    box_err = max(float(np.abs(o[k] - pool_steps[k]).max()) for o in steps.values()
+                  for k in ("box_cache", "conf_cache"))
+    say(f"phase 9 fp32 chain modes on {MODE_QUESTIONS} questions "
+        f"({int(m_chains.num_steps.sum())} steps): sorted, bucketed and pool answers "
+        f"{'equal' if answers_equal else 'DIFFER'} ({int(pool_answers.answer_valid.sum())} token "
+        f"answers); per-step decisions (routing, tokens, box masks: "
+        f"{int(pool_steps['token_branch'].sum())} token steps, "
+        f"{int(pool_steps['box_mask'].sum())} confident boxes) "
+        f"{'equal' if decisions_equal else 'DIFFER'}; boxes and confidences within "
+        f"{box_err:.3g} (tol 1e-4)")
+    if not (answers_equal and decisions_equal and box_err <= 1e-4):
+        fail("the chain modes disagree in float32")
+    del executor, m_runner, m_pipeline, m_features_dev, per_question
+    torch.cuda.empty_cache()
+
+    # ---- 10. the executor_roi_sim_count configuration ----
+    rs_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, roi_sim=True,
+                            roi_sim_heads=4, count_embed=True)
+    rs_executor = init_parameters(ProgramExecutor(rs_cfg, torch.float32, device=dev),
+                                  seed=7).eval()
+    if not (rs_executor.sim_embed.weight.abs().sum() > 0
+            and rs_executor.count_embed.weight.abs().sum() > 0):
+        fail("the roi_sim and count_embed channels are zero")
+    worst, on_cpu = card_vs_cpu(rs_executor)
+    say(f"phase 10 executor_roi_sim_count fp32 forward, card vs CPU: max_abs_err {worst:.3g} "
+        f"(tol 1e-4) over {', '.join(sorted(on_cpu))}")
+    if not worst <= 1e-4:
+        fail(f"the roi_sim_count forward on the card disagrees with the CPU: {worst}")
+    del rs_executor
+    rs_executor = init_parameters(ProgramExecutor(rs_cfg, dtype, device=dev), seed=7)
+    rs_runner = ExecutorChainRunner(rs_executor, rs_cfg, max_steps=27,
+                                    conf_thresholds=thresholds, device=dev)
+    rs_pipeline = InferencePipeline(ScriptedPrograms(generator, scripted), rs_runner,
+                                    idx_to_token, FUNCTION_IDS, device=dev)
+    forwards[0] = 0
+    hook = rs_executor.register_forward_hook(count_forwards)
+    t0 = time.perf_counter()
+    rs_result, rs_counts = counted(
+        lambda: rs_pipeline.run(questions, features_dev, chains.image_index))
+    rs_s = time.perf_counter() - t0
+    hook.remove()
+    say(f"phase 10 executor_roi_sim_count bf16: InferencePipeline.run (default mode, sorted) on "
+        f"{n} questions, one run with no warm-up: {rs_s:.3f} s; {forwards[0]} executor "
+        f"forwards; {int(rs_result.answer_valid.sum())} token answers; launches {rs_counts}")
+    rs_checks = {
+        "one answer per question in the token vocabulary": (
+            rs_result.answers.shape == (n,) and 0 <= rs_result.answers.min()
+            and rs_result.answers.max() < rs_cfg.token_classes),
+        **launch_checks(rs_counts, forwards[0], rs_cfg),
+    }
+    for name, ok in rs_checks.items():
+        if not ok:
+            fail(f"executor_roi_sim_count check failed: {name}")
+
+    sources = (
+        ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
+         "explainable_spatial_vqa_tpu/ops/pallas_attention.py:45", "K1_L10", launches),
+        ("fused_encoder_block", "explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
+         "explainable_spatial_vqa_tpu/ops/pallas_block.py:113", "K2_bf16", launches),
+        ("fused_encoder_block_tiled", "explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
+         "explainable_spatial_vqa_tpu/ops/pallas_block.py:197", "K3_bf16", bench_launches),
+    )
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
+                    **results[key]) for name, src, rep, key, counts in sources]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,12 @@ bias (d,)                                  bias (d,)
 ``queries`` (Q, d)                         shape and place
 module names ``block_{i}``, ``cell_{i}``,  ``blocks.{i}``, ``cells.{i}``,      renamed
 ``Dense_0``, ``Dense_1`` (in ``ffn``)      ``fc1``, ``fc2``
+``sim_roi_proj``, ``sim_img_proj``         ``Dense`` of the same name (d, d)   a ``Dense``: transpose the kernel
+kernels (d, d) (``roi_sim``)
+``sim_embed`` kernel (S*K, d), bias (d,)   ``sim_embed.weight`` (d, S*K)       a ``Dense``; its inputs stay slot-major,
+(``roi_sim``, S box slots, K heads)                                            index s*K + h
+``count_embed`` embedding (S+1, d)         ``count_embed.weight`` (S+1, d)     an ``Embed``: as is
+(``count_embed``)
 =========================================  ==================================  ============================================
 """
 

@@ -67,8 +67,8 @@ class ExecutorConfig:
     # ROI content for input-box tokens: each dependency-box token also gets
     # the coverage-weighted average of the image tokens under its box
     box_roi: bool = False
-    # content-similarity channel and input-box-count embedding; the port
-    # raises on both until they are ported
+    # content-similarity channel (roi_sim_heads match maps per input box;
+    # needs box_roi) and input-box-count embedding on CLS
     roi_sim: bool = False
     roi_sim_heads: int = 1
     count_embed: bool = False

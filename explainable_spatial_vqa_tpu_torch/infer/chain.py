@@ -13,6 +13,10 @@ schedule.
   admits the next question from a deepest-first queue.  Per (row, step) the
   executor sees the same inputs as in :func:`chained_forward`, so the two
   give the same caches.
+* :meth:`ExecutorChainRunner.run_sorted` and :meth:`~ExecutorChainRunner.run_bucketed`
+  run :func:`chained_forward` on batches planned on the host
+  (:mod:`~explainable_spatial_vqa_tpu_torch.infer.plan`): depth-sorted batches
+  that each stop at their deepest chain, or one batch per depth bucket.
 
 JAX's on-device loops become Python loops here; the pool loop reads one
 scalar per iteration for its exit test.  The caches are updated in place.
@@ -20,13 +24,14 @@ scalar per iteration for its exit test.  The caches are updated in place.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
+from explainable_spatial_vqa_tpu_torch.infer.plan import plan_sorted
 from explainable_spatial_vqa_tpu_torch.models.layers import Device
 from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
 
@@ -217,11 +222,15 @@ def chained_forward_pool(
     return state
 
 
+_CACHES = ("box_cache", "box_mask", "conf_cache", "token_cache", "token_branch")
+
+
 class ExecutorChainRunner:
     """Chained inference for :class:`ProgramExecutor`: ``run`` walks step
-    positions over the whole batch, ``run_pool`` is the continuous-batching
-    slot pool.  Inputs may be numpy arrays or tensors; outputs are numpy, with
-    the JAX runner's keys."""
+    positions over the whole batch, ``run_sorted`` and ``run_bucketed`` over
+    host-planned batches, ``run_pool`` is the continuous-batching slot pool.
+    Inputs may be numpy arrays or tensors; outputs are numpy, with the JAX
+    runner's keys."""
 
     def __init__(self, model, config: ExecutorConfig, max_steps: int = 28,
                  conf_thresholds=None, device: Device = "cuda"):
@@ -244,13 +253,53 @@ class ExecutorChainRunner:
                 self._tensor(chains.num_steps, torch.long))
 
     def _outputs(self, state: ChainState, num_steps) -> Dict[str, np.ndarray]:
-        host = {name: getattr(state, name).cpu().numpy() for name in (
-            "box_cache", "box_mask", "conf_cache", "token_cache", "token_branch")}
+        host = {name: getattr(state, name).cpu().numpy() for name in _CACHES}
+        return self._with_finals(host, num_steps)
+
+    @staticmethod
+    def _with_finals(out: Dict[str, np.ndarray], num_steps) -> Dict[str, np.ndarray]:
         last = np.asarray(num_steps) - 1
         rows = np.arange(len(last))
-        host["final_tokens"] = host["token_cache"][rows, last]
-        host["final_is_token"] = host["token_branch"][rows, last]
-        return host
+        out["final_tokens"] = out["token_cache"][rows, last]
+        out["final_is_token"] = out["token_branch"][rows, last]
+        return out
+
+    def _empty_outputs(self, n: int) -> Dict[str, np.ndarray]:
+        """Zero caches of every question for the batched runners to scatter
+        into: steps past a question's depth stay zero or False, as inactive
+        steps do in ``run``."""
+        s, q = self.max_steps, self.config.num_queries
+        return {
+            "box_cache": np.zeros((n, s, q, 4), np.float32),
+            "box_mask": np.zeros((n, s, q), bool),
+            "conf_cache": np.zeros((n, s, q), np.float32),
+            "token_cache": np.zeros((n, s), np.int32),
+            "token_branch": np.zeros((n, s), bool),
+        }
+
+    def _gather(self, image_tokens, idx: np.ndarray) -> torch.Tensor:
+        """Rows ``idx`` of per-question image tokens: a tensor is indexed on
+        its own device, a numpy array on the host."""
+        if isinstance(image_tokens, torch.Tensor):
+            rows = image_tokens.index_select(0, torch.as_tensor(idx, device=image_tokens.device))
+        else:
+            rows = torch.from_numpy(np.asarray(image_tokens)[idx])
+        return rows.to(device=self.device, dtype=torch.float32)
+
+    def _run_part(self, images: torch.Tensor, chains: ChainArrays, part: np.ndarray,
+                  max_steps: int, active_steps: Optional[int] = None) -> ChainState:
+        return chained_forward(
+            self.model, images, self._tensor(chains.functions[part, :max_steps], torch.long),
+            self._tensor(chains.deps[part, :max_steps], torch.long),
+            self._tensor(chains.num_steps[part], torch.long), self.config, max_steps,
+            active_steps=active_steps, conf_thresholds=self.conf_thresholds)
+
+    @staticmethod
+    def _scatter(full: Dict[str, np.ndarray], state: ChainState, idx: np.ndarray) -> None:
+        """The first ``len(idx)`` rows of a batch's caches into questions ``idx``."""
+        width = state.token_cache.shape[1]
+        for name in _CACHES:
+            full[name][idx, :width] = getattr(state, name)[:len(idx)].cpu().numpy()
 
     def run(self, image_tokens, chains: ChainArrays) -> Dict[str, np.ndarray]:
         """``image_tokens``: (N, P, C) raw features, one row per question."""
@@ -269,3 +318,41 @@ class ExecutorChainRunner:
             self._tensor(chains.image_index, torch.long), functions, deps, num_steps,
             self.config, self.max_steps, slots=slots, conf_thresholds=self.conf_thresholds)
         return self._outputs(state, chains.num_steps)
+
+    def run_sorted(self, image_tokens, chains: ChainArrays, batch: int = 128,
+                   min_tail: int = 32) -> Dict[str, np.ndarray]:
+        """Depth-sorted batches (``plan_sorted``), each run to its own deepest
+        chain.  ``image_tokens``: (N, P, C) raw features, one row per
+        question; a tensor is gathered per batch on its device.  Padding rows
+        repeat the batch's last question and are dropped: only the real
+        prefix scatters back."""
+        num_steps = np.asarray(chains.num_steps)
+        full = self._empty_outputs(len(num_steps))
+        for depth, _size, part, real in plan_sorted(num_steps, batch, min_tail):
+            state = self._run_part(self._gather(image_tokens, part), chains, part,
+                                   self.max_steps, active_steps=depth)
+            self._scatter(full, state, part[:real])
+        return self._with_finals(full, num_steps)
+
+    def run_bucketed(self, image_tokens, chains: ChainArrays,
+                     buckets: Sequence[int] = (8, 12, 16, 20, 28)) -> Dict[str, np.ndarray]:
+        """One batch per depth bucket: every question in the shallowest
+        bucket edge that holds its depth, run to that edge.  Edges above
+        ``max_steps`` are dropped and ``max_steps`` closes the list; a bucket
+        with no questions is skipped.  ``image_tokens`` as in
+        :meth:`run_sorted`."""
+        num_steps = np.asarray(chains.num_steps)
+        full = self._empty_outputs(len(num_steps))
+        edges = tuple(b for b in sorted(set(buckets)) if b <= self.max_steps)
+        if not edges or edges[-1] < self.max_steps:
+            edges = edges + (self.max_steps,)
+        assigned = np.zeros(len(num_steps), bool)
+        for depth in edges:
+            select = (~assigned) & (num_steps <= depth)
+            assigned |= select
+            idx = np.flatnonzero(select)
+            if idx.size == 0:
+                continue
+            state = self._run_part(self._gather(image_tokens, idx), chains, idx, depth)
+            self._scatter(full, state, idx)
+        return self._with_finals(full, num_steps)

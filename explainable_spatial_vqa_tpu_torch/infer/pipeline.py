@@ -5,9 +5,11 @@ ported from ``explainable_spatial_vqa_tpu/infer/pipeline.py``.
 2. decoded programs are parsed back to node lists and compiled to
    :class:`ChainArrays` (function ids in the executor's vocabulary, dependency
    indices from the postfix structure);
-3. the :class:`ExecutorChainRunner` executes the chains (``"pool"``: the
-   continuous-batching slot pool; ``"plain"``: every step position over the
-   whole batch);
+3. the :class:`ExecutorChainRunner` executes the chains: ``"sorted"`` (the
+   default, as in the JAX package): depth-sorted batches that each stop at
+   their deepest chain; ``"bucketed"``: one batch per depth bucket;
+   ``"pool"``: the continuous-batching slot pool; ``"plain"``: every step
+   position over the whole batch.  All four give the same answers;
 4. the final step's token is the answer; with ground truth given, the
    faithfulness tally compares (program, answer) correctness jointly.
 """
@@ -34,7 +36,10 @@ from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["decode_program_ids", "programs_to_chains", "InferencePipeline", "PipelineResult"]
+__all__ = ["decode_program_ids", "programs_to_chains", "InferencePipeline", "PipelineResult",
+           "CHAIN_MODES"]
+
+CHAIN_MODES = ("sorted", "bucketed", "pool", "plain")
 
 
 def decode_program_ids(
@@ -134,12 +139,14 @@ class InferencePipeline:
         image_index: np.ndarray,
         gt_answers: Optional[np.ndarray] = None,
         gt_programs: Optional[np.ndarray] = None,
-        chain_mode: str = "pool",
+        chain_mode: str = "sorted",
     ) -> PipelineResult:
         """``image_tokens`` is the per-IMAGE feature cache (M, P, C), numpy or a
-        tensor; ``image_index`` maps each question to its image."""
-        if chain_mode not in ("pool", "plain"):
-            raise ValueError(f"chain_mode {chain_mode!r}: the port runs 'pool' and 'plain'")
+        tensor; ``image_index`` maps each question to its image.  The pool
+        indexes the cache itself; the other modes take one row per question,
+        gathered on the tensor's device or on the host for numpy."""
+        if chain_mode not in CHAIN_MODES:
+            raise ValueError(f"unknown chain_mode {chain_mode!r}; one of {CHAIN_MODES}")
         q = torch.as_tensor(np.asarray(questions), device=self.device)
         program_ids = self.generator.generate(q).cpu().numpy()
         programs = decode_program_ids(program_ids, self.program_idx_to_token, self.mode)
@@ -148,9 +155,15 @@ class InferencePipeline:
         if chain_mode == "pool":
             out = self.runner.run_pool(image_tokens, chains)
         else:
-            feats = torch.as_tensor(image_tokens, device=self.device)
-            index = torch.as_tensor(chains.image_index, dtype=torch.long, device=self.device)
-            out = self.runner.run(feats[index], chains)
+            if isinstance(image_tokens, torch.Tensor):
+                index = torch.as_tensor(chains.image_index, dtype=torch.long,
+                                        device=image_tokens.device)
+                gathered = image_tokens[index]
+            else:
+                gathered = np.asarray(image_tokens)[chains.image_index]
+            run = {"sorted": self.runner.run_sorted, "bucketed": self.runner.run_bucketed,
+                   "plain": self.runner.run}[chain_mode]
+            out = run(gathered, chains)
         result = PipelineResult(
             program_ids=program_ids,
             answers=out["final_tokens"],

@@ -7,7 +7,11 @@ arg2⟩ are fused by a post-LN transformer encoder over
 [CLS | image | boxes | text]; a routing head picks the box branch (a
 DETR-style decoder with ``num_queries`` learned queries) or the token branch
 (a classifier on CLS).  With ``box_roi`` each box token also receives the
-coverage-weighted average of the image tokens under its box.
+coverage-weighted average of the image tokens under its box.  With
+``roi_sim`` every image token also receives a learned embedding of how its
+content matches each box's pooled content (``roi_sim_heads`` match maps per
+box); with ``count_embed`` CLS receives an embedding of the number of valid
+input boxes.  Both channels start at zero, as in the JAX package.
 
 On a CUDA device the fusion encoder's blocks run on K2 and the box decoder's
 query self-attention on K1.
@@ -84,8 +88,11 @@ class ProgramExecutor(nn.Module):
                  device: Device = "cuda"):
         super().__init__()
         cfg = config
-        if cfg.roi_sim or cfg.count_embed:
-            raise ValueError("roi_sim and count_embed are not ported to PyTorch yet")
+        if cfg.roi_sim and not cfg.box_roi:
+            raise ValueError("roi_sim requires box_roi (it reuses the pooled ROI content)")
+        if cfg.roi_sim and cfg.d_model % cfg.roi_sim_heads != 0:
+            raise ValueError(
+                f"roi_sim_heads={cfg.roi_sim_heads} must divide d_model={cfg.d_model}")
         device = resolve_device(device)
         self.config = cfg
         self.dtype = dtype
@@ -100,6 +107,16 @@ class ProgramExecutor(nn.Module):
                                          cfg.dropout, dtype=dtype, device=device)
         if cfg.box_roi:
             self.roi_proj = Dense(d, d, dtype, device)
+        if cfg.count_embed:
+            # indexed by the number of valid input-box slots, 0..max_input_boxes
+            self.count_embed = nn.Embedding(cfg.max_input_boxes + 1, d, device=device)
+            nn.init.zeros_(self.count_embed.weight)
+        if cfg.roi_sim:
+            self.sim_roi_proj = Dense(d, d, dtype, device)
+            self.sim_img_proj = Dense(d, d, dtype, device)
+            # one input per (box slot, match map), slot-major: s * K + h
+            self.sim_embed = Dense(cfg.max_input_boxes * cfg.roi_sim_heads, d, dtype, device)
+            nn.init.zeros_(self.sim_embed.weight)
         self.routing_head = Dense(d, 2, torch.float32, device)
         self.token_head = Dense(d, cfg.token_classes, torch.float32, device)
         self.box_decoder = BoxDecoder(cfg, dtype, device)
@@ -111,9 +128,15 @@ class ProgramExecutor(nn.Module):
 
     def precompute_image(self, image_tokens: torch.Tensor) -> torch.Tensor:
         """Project raw (B, P, C) features to positioned d_model tokens; chained
-        inference does this once per question (the thesis image cache)."""
+        inference does this once per question (the thesis image cache).  With
+        ``roi_sim`` the similarity channel's image-side keys depend on these
+        tokens alone, so they are computed here too and carried along the
+        feature dim: (B, P, 2d) = [tokens | sim keys], split by :meth:`encode`."""
         img = self.image_proj(image_tokens.to(self.dtype))
-        return img + self.image_pos.to(self.dtype)[None]
+        img = img + self.image_pos.to(self.dtype)[None]
+        if self.config.roi_sim:
+            return torch.cat([img, self.sim_img_proj(img)], dim=-1)
+        return img
 
     def encode(
         self,
@@ -124,14 +147,16 @@ class ProgramExecutor(nn.Module):
         text_mask: torch.Tensor,
         image_precomputed: bool = False,
     ) -> Dict[str, torch.Tensor]:
-        """Fuse modalities.  image_tokens: (B, P, C) raw, or (B, P, d) when
-        ``image_precomputed``; input_boxes (B, S, 4); box_mask (B, S) bool;
+        """Fuse modalities.  image_tokens: (B, P, C) raw, or when
+        ``image_precomputed`` what :meth:`precompute_image` returns; input_boxes (B, S, 4); box_mask (B, S) bool;
         text_tokens (B, 3) int; text_mask (B, 3) bool.  Returns memory
         (B, L, d), key_mask (B, 1, 1, L), cls and func_slot (B, d)."""
         cfg = self.config
         dt = self.dtype
         batch = image_tokens.shape[0]
         img = image_tokens.to(dt) if image_precomputed else self.precompute_image(image_tokens)
+        if cfg.roi_sim:
+            img, sim_keys = img[..., :cfg.d_model], img[..., cfg.d_model:]
 
         centers = torch.stack(
             [(input_boxes[..., 0] + input_boxes[..., 2]) * 0.5,
@@ -142,9 +167,15 @@ class ProgramExecutor(nn.Module):
             weights = roi_coverage_weights(input_boxes, self.grid).to(dt)
             pooled = torch.einsum("bsp,bpd->bsd", weights, img)
             box = box + self.roi_proj(pooled)
+            if cfg.roi_sim:
+                img = img + self.sim_embed(self._similarity(pooled, sim_keys, box_mask))
 
         text = self.text_embed(text_tokens.long()).to(dt) + self.text_pos[None].to(dt)
         cls = self.cls.expand(batch, 1, cfg.d_model).to(dt)
+        if cfg.count_embed:
+            # depends on the mask only, never on the boxes' contents
+            count = box_mask.to(torch.int32).sum(dim=1)
+            cls = cls + self.count_embed(count)[:, None, :].to(dt)
         x = torch.cat([cls, img, box, text], dim=1)
 
         valid = torch.cat(
@@ -159,6 +190,24 @@ class ProgramExecutor(nn.Module):
             "cls": memory[:, 0],
             "func_slot": memory[:, func_slot_index],
         }
+
+    def _similarity(self, pooled: torch.Tensor, sim_keys: torch.Tensor,
+                    box_mask: torch.Tensor) -> torch.Tensor:
+        """(B, P, S*K) match maps: for every image token and box slot s, K
+        scaled dot products of the box's projected pooled content with the
+        token's key, one per head of d/K dims, zero for invalid slots,
+        flattened slot-major (index s*K + h)."""
+        heads = self.config.roi_sim_heads
+        dh = self.config.d_model // heads
+        q = self.sim_roi_proj(pooled)
+        q = q.reshape(q.shape[:-1] + (heads, dh))
+        k = sim_keys.reshape(sim_keys.shape[:-1] + (heads, dh))
+        # sqrt(dh) taken in the compute type, as the JAX model takes it
+        # (11.3125 in bf16 for dh = 128), held as a Python number
+        scale = float(torch.tensor(float(dh), dtype=self.dtype).sqrt())
+        sim = torch.einsum("bshd,bphd->bpsh", q, k) / scale
+        sim = sim * box_mask.to(self.dtype)[:, None, :, None]
+        return sim.reshape(sim.shape[:2] + (-1,))
 
     def forward(
         self,

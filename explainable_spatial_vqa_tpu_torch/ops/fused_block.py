@@ -1,7 +1,9 @@
-"""K2: one post-LN transformer encoder block on the card.
+"""K2 and K3: one post-LN transformer encoder block on the card.
 
-Port of ``explainable_spatial_vqa_tpu/ops/pallas_block.py`` (``_block_kernel``
-via ``fused_encoder_block``, with ``fuse_encoder_params`` and ``pad_len``):
+Port of ``explainable_spatial_vqa_tpu/ops/pallas_block.py``: K2 is
+``_block_kernel`` via ``fused_encoder_block``, K3 is ``_tiled_kernel`` via
+``fused_encoder_block_tiled``, both with ``fuse_encoder_params`` and
+``pad_len``:
 
     h  = MHA(x)            (QKV projection, per-head attention, out projection)
     x1 = LN1(x + h)        (float32)
@@ -9,15 +11,28 @@ via ``fused_encoder_block``, with ``fuse_encoder_params`` and ``pad_len``):
     y  = LN2(x1 + f)       (in x's type)
 
 Every product rounds its left operand to the weights' type and accumulates in
-float32; q, k and v stay float32 into the attention, whose weights are
-float32 too; LayerNorm takes float32 statistics with eps 1e-6.
+float32; LayerNorm takes float32 statistics with eps 1e-6.  The two kernels
+differ in one place.  K2 keeps q, k and v float32 into the attention, whose
+weights are float32 too.  K3 rounds q, k and v to the weights' type after the
+bias and runs K1's arithmetic on them: float32 scores and softmax, weights
+rounded to the weights' type, float32 sums.  With float32 weights the two
+compute the same numbers.
+
+K3's ``batch_tile`` and ``ffn_chunks`` keep the JAX contract and do not change
+the result (every step but the attention works row by row, and the attention
+works per sequence).  ``batch_tile`` is checked and otherwise unused: the
+kernels tile all B*L rows at once.  ``ffn_chunks`` splits the FFN's rows into
+that many pairs of launches, so the (rows, ffn) hidden scratch is that many
+times smaller, as the TPU kernel keeps its hidden within VMEM.
 
 The kernels are in ``csrc/fused_block.cu`` (a GEMM with a fused bias/ReLU
 epilogue, the K1 attention kernel, a residual-add + LayerNorm kernel), all
-launched by one C call.  :func:`fused_encoder_block_plain` is their plain
-PyTorch version.  A CPU tensor runs the plain version; a CUDA tensor launches
-the kernels or raises.  There is no backward: the encoder routes here only in
-eval mode.
+launched by one C call per block: ``esv_encoder_block`` for K2,
+``esv_encoder_block_tiled`` for K3.  :func:`fused_encoder_block_plain` and
+:func:`fused_encoder_block_tiled_plain` are their plain PyTorch versions.  A
+CPU tensor runs the plain version; a CUDA tensor launches the kernels or
+raises.  There is no backward: the encoder routes to K2 only in eval mode,
+and nothing in the model routes to K3 (``bench_block`` drives it).
 """
 
 from __future__ import annotations
@@ -37,7 +52,8 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
 )
 
 __all__ = ["BlockWeights", "fuse_encoder_params", "fused_encoder_block",
-           "fused_encoder_block_plain", "pad_len", "LN_EPS"]
+           "fused_encoder_block_plain", "fused_encoder_block_tiled",
+           "fused_encoder_block_tiled_plain", "pad_len", "LN_EPS"]
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default, and ops/pallas_block.py:106
 
@@ -95,36 +111,145 @@ def _layer_norm(t: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
     return (t - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
+def _dense(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """a rounded to the weights' type, times weight^T, float32 sums, plus bias."""
+    return a.to(weight.dtype).float() @ weight.float().t() + bias
+
+
+def _key_mask4(mask: Optional[torch.Tensor], batch: int, length: int) -> Optional[torch.Tensor]:
+    if mask is None:
+        return None
+    return (key_mask_f32(mask, batch, length) > 0)[:, None, None, :]
+
+
 def fused_encoder_block_plain(
     x: torch.Tensor, mask: Optional[torch.Tensor], w: BlockWeights, num_heads: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernels, following ``_block_kernel``'s
+    """Plain PyTorch version of K2's kernels, following ``_block_kernel``'s
     arithmetic (``ops/pallas_block.py:113-160``)."""
     batch, length, d_model = x.shape
-    wdt = w.qkv.dtype
-
-    def dense(a, weight, bias):  # round a to the weight type, accumulate in float32
-        return a.to(wdt).float() @ weight.float().t() + bias
-
     xf = x.float()
-    q, k, v = dense(xf, w.qkv, w.qkv_bias).split(d_model, dim=-1)
+    q, k, v = _dense(xf, w.qkv, w.qkv_bias).split(d_model, dim=-1)
     heads = (batch, length, num_heads, d_model // num_heads)
-    key_mask = None
-    if mask is not None:
-        key_mask = (key_mask_f32(mask, batch, length) > 0)[:, None, None, :]
-    attn = dot_product_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads), key_mask)
-    o = dense(attn.reshape(batch, length, d_model), w.out, w.out_bias)
+    attn = dot_product_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads),
+                                 _key_mask4(mask, batch, length))
+    o = _dense(attn.reshape(batch, length, d_model), w.out, w.out_bias)
     x1 = _layer_norm(xf + o, w.ln1_scale, w.ln1_bias)
-    h1 = torch.relu(dense(x1, w.ffn1, w.ffn1_bias))
-    f = dense(h1, w.ffn2, w.ffn2_bias)
+    h1 = torch.relu(_dense(x1, w.ffn1, w.ffn1_bias))
+    f = _dense(h1, w.ffn2, w.ffn2_bias)
     return _layer_norm(x1 + f, w.ln2_scale, w.ln2_bias).to(x.dtype)
 
 
-def _esv_encoder_block():
-    fn = _build.load("fused_block").esv_encoder_block
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _check_tiled(batch: int, length: int, d_model: int, batch_tile: int,
+                         ffn_chunks: int) -> None:
+    """The JAX wrapper's asserts (``ops/pallas_block.py:286-289``), raised as
+    ValueError."""
+    if length % 8 or d_model % 128:
+        raise ValueError(f"fused_encoder_block_tiled: pad L to 8 and d to 128 "
+                         f"(L={length}, d={d_model})")
+    if batch_tile < 1 or batch % batch_tile:
+        raise ValueError(f"fused_encoder_block_tiled: batch {batch} must divide by "
+                         f"batch_tile {batch_tile}")
+    if ffn_chunks < 1 or (batch_tile * length) % ffn_chunks:
+        raise ValueError(f"fused_encoder_block_tiled: batch_tile * L = {batch_tile * length} "
+                         f"must divide by ffn_chunks {ffn_chunks}")
+
+
+def fused_encoder_block_tiled_plain(
+    x: torch.Tensor, mask: Optional[torch.Tensor], w: BlockWeights, num_heads: int,
+    batch_tile: int = 4, ffn_chunks: int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3's kernels, following ``_tiled_kernel``
+    (``ops/pallas_block.py:197-271``) line by line, with every tile of
+    ``batch_tile`` sequences taken at once: the projections on the flattened
+    rows, q/k/v rounded to the weights' type, the per-sequence attention, and
+    the FFN in row chunks of ``batch_tile * L / ffn_chunks``, the TPU's.
+    Like ``_tiled_kernel`` it needs only that the chunks divide the rows; the
+    padding rules are the wrapper's.
+
+    The QKV sums are taken in float64 and rounded to float32 once: the
+    correctly rounded float32 dot that every float32 accumulation
+    approximates.  q, k and v are rounded to the weights' type next, and a
+    rounding that an order of float32 sums pushes the other way moves the
+    attention of every query of the sequence; the kernel keeps its sums
+    close to exact for the same reason (``csrc/fused_block.cu``)."""
+    batch, length, d_model = x.shape
+    wdt = w.qkv.dtype
+    rows = batch * length
+    xf = x.float().reshape(rows, d_model)
+    qkv = (xf.to(wdt).double() @ w.qkv.double().t()).float() + w.qkv_bias
+    q, k, v = (t.to(wdt) for t in qkv.split(d_model, dim=-1))
+    heads = (batch, length, num_heads, d_model // num_heads)
+    # float32 scores and softmax, weights rounded to V's type (the weights'),
+    # float32 sums; rounding the output to that type here is the rounding the
+    # out projection applies to it
+    attn = dot_product_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads),
+                                 _key_mask4(mask, batch, length))
+    o = _dense(attn.reshape(rows, d_model), w.out, w.out_bias)
+    x1 = _layer_norm(xf + o, w.ln1_scale, w.ln1_bias)
+    chunk = batch_tile * length // ffn_chunks
+    x1c = x1.to(wdt).reshape(rows // chunk, chunk, d_model)  # one FFN chunk per row
+    h1 = torch.relu(x1c.float() @ w.ffn1.float().t() + w.ffn1_bias)
+    f = (h1.to(wdt).float() @ w.ffn2.float().t()).reshape(rows, d_model) + w.ffn2_bias
+    y = _layer_norm(x1 + f, w.ln2_scale, w.ln2_bias)
+    return y.reshape(batch, length, d_model).to(x.dtype)
+
+
+def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: int) -> None:
+    """Raise unless the kernels take these inputs: a contiguous x and
+    weights on one CUDA device, in float32 or bf16, with the shapes of
+    :class:`BlockWeights`, a head dim the attention kernel is built for."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    batch, length, d_model = x.shape
+    wdt = weights.qkv.dtype
+    ffn = weights.ffn1.shape[0]
+    if x.dtype not in DTYPE_CODES or wdt not in DTYPE_CODES:
+        raise ValueError(f"{name}: x and weights must be one of {list(DTYPE_CODES)}")
+    if (d_model % num_heads or d_model // num_heads not in HEAD_DIMS or length > MAX_LEN
+            or batch > 65535 or batch * length > 65535 * 64):
+        raise ValueError(
+            f"{name}: head dim d/H = {d_model}/{num_heads} must be one of "
+            f"{HEAD_DIMS}, length {length} at most {MAX_LEN}, batch at most 65535 and "
+            f"batch * length at most {65535 * 64}")
+    shapes = {"qkv": (3 * d_model, d_model), "out": (d_model, d_model), "ffn1": (ffn, d_model),
+              "ffn2": (d_model, ffn), "qkv_bias": (3 * d_model,), "ffn1_bias": (ffn,)}
+    for key, t in weights._asdict().items():
+        want_dtype = wdt if key in ("qkv", "out", "ffn1", "ffn2") else torch.float32
+        want_shape = shapes.get(key, (d_model,))
+        if (t.dtype != want_dtype or tuple(t.shape) != want_shape or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: weight {key} must be a contiguous {want_shape} "
+                f"{want_dtype} tensor on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+
+
+def _entry(name: str, ints: int):
+    """The C entry point ``name`` of ``csrc/fused_block.cu``: 20 pointers,
+    ``ints`` ints, the stream."""
+    fn = getattr(_build.load("fused_block"), name)
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(wrapper, name: str, x, mask, weights: BlockWeights, scratch, ints) -> torch.Tensor:
+    """Call the C entry point ``name`` once, counting the launch on ``wrapper``."""
+    mask_f = key_mask_f32(mask, x.shape[0], x.shape[1])
+    if mask_f is not None:
+        mask_f = mask_f.to(x.device)
+    out = torch.empty_like(x)
+    ptrs = [x, mask_f, *weights, out, *scratch]
+    fn = _entry(name, len(ints))
+    with torch.cuda.device(x.device):
+        wrapper.launches += 1
+        status = fn(
+            *(None if t is None else t.data_ptr() for t in ptrs), *ints,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, name)
+    return out
 
 
 def fused_encoder_block(
@@ -133,54 +258,50 @@ def fused_encoder_block(
     weights: BlockWeights,
     num_heads: int,
 ) -> torch.Tensor:
-    """One post-LN encoder block: the kernels on CUDA, the plain version on CPU."""
+    """K2, one post-LN encoder block: the kernels on CUDA, the plain version
+    on CPU."""
     if x.device.type == "cpu":
         return fused_encoder_block_plain(x, mask, weights, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_encoder_block: unsupported device {x.device}")
+    _check_launch("fused_encoder_block", x, weights, num_heads)
     batch, length, d_model = x.shape
-    wdt = weights.qkv.dtype
-    ffn = weights.ffn1.shape[0]
-    if x.dtype not in DTYPE_CODES or wdt not in DTYPE_CODES:
-        raise ValueError(f"fused_encoder_block: x and weights must be one of {list(DTYPE_CODES)}")
-    if (d_model % num_heads or d_model // num_heads not in HEAD_DIMS or length > MAX_LEN
-            or batch > 65535 or batch * length > 65535 * 64):
-        raise ValueError(
-            f"fused_encoder_block: head dim d/H = {d_model}/{num_heads} must be one of "
-            f"{HEAD_DIMS}, length {length} at most {MAX_LEN}, batch at most 65535 and "
-            f"batch * length at most {65535 * 64}")
-    shapes = {"qkv": (3 * d_model, d_model), "out": (d_model, d_model), "ffn1": (ffn, d_model),
-              "ffn2": (d_model, ffn), "qkv_bias": (3 * d_model,), "ffn1_bias": (ffn,)}
-    for name, t in weights._asdict().items():
-        want_dtype = wdt if name in ("qkv", "out", "ffn1", "ffn2") else torch.float32
-        want_shape = shapes.get(name, (d_model,))
-        if (t.dtype != want_dtype or tuple(t.shape) != want_shape or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"fused_encoder_block: weight {name} must be a contiguous {want_shape} "
-                f"{want_dtype} tensor on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("fused_encoder_block: x must be contiguous")
-    mask_f = key_mask_f32(mask, batch, length)
-    if mask_f is not None:
-        mask_f = mask_f.to(x.device)
-    rows = batch * length
+    rows, wdt, ffn = batch * length, weights.qkv.dtype, weights.ffn1.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
-    qkv = torch.empty(rows, 3 * d_model, **f32)
-    attn = torch.empty(rows, d_model, **f32)
-    proj = torch.empty(rows, d_model, **f32)
-    x1 = torch.empty(rows, d_model, **f32)
-    hidden = torch.empty(rows, ffn, dtype=wdt, device=x.device)
-    out = torch.empty_like(x)
-    ptrs = [x, mask_f, *weights, out, qkv, attn, proj, x1, hidden]
-    with torch.cuda.device(x.device):
-        fused_encoder_block.launches += 1
-        status = _esv_encoder_block()(
-            *(None if t is None else t.data_ptr() for t in ptrs),
-            batch, length, d_model, num_heads, ffn, DTYPE_CODES[x.dtype], DTYPE_CODES[wdt],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "esv_encoder_block")
-    return out
+    scratch = [torch.empty(rows, 3 * d_model, **f32), torch.empty(rows, d_model, **f32),
+               torch.empty(rows, d_model, **f32), torch.empty(rows, d_model, **f32),
+               torch.empty(rows, ffn, dtype=wdt, device=x.device)]
+    return _launch(fused_encoder_block, "esv_encoder_block", x, mask, weights, scratch,
+                   (batch, length, d_model, num_heads, ffn, DTYPE_CODES[x.dtype],
+                    DTYPE_CODES[wdt]))
 
 
 fused_encoder_block.launches = 0
+
+
+def fused_encoder_block_tiled(
+    x: torch.Tensor,  # (B, L, d)
+    mask: Optional[torch.Tensor],  # (B, L) bool/float key mask or None
+    weights: BlockWeights,
+    num_heads: int,
+    batch_tile: int = 4,
+    ffn_chunks: int = 1,
+) -> torch.Tensor:
+    """K3, the batch-tiled block with q/k/v in the weights' type: the kernels
+    on CUDA, the plain version on CPU.  Raises where the JAX wrapper asserts."""
+    batch, length, d_model = x.shape
+    _check_tiled(batch, length, d_model, batch_tile, ffn_chunks)
+    if x.device.type == "cpu":
+        return fused_encoder_block_tiled_plain(x, mask, weights, num_heads, batch_tile,
+                                               ffn_chunks)
+    _check_launch("fused_encoder_block_tiled", x, weights, num_heads)
+    rows, wdt, ffn = batch * length, weights.qkv.dtype, weights.ffn1.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = [torch.empty(rows, 3 * d_model, dtype=wdt, device=x.device),
+               torch.empty(rows, d_model, dtype=wdt, device=x.device),
+               torch.empty(rows, d_model, **f32), torch.empty(rows, d_model, **f32),
+               torch.empty(rows // ffn_chunks, ffn, dtype=wdt, device=x.device)]
+    return _launch(fused_encoder_block_tiled, "esv_encoder_block_tiled", x, mask, weights, scratch,
+                   (batch, length, d_model, num_heads, ffn, ffn_chunks,
+                    DTYPE_CODES[x.dtype], DTYPE_CODES[wdt]))
+
+
+fused_encoder_block_tiled.launches = 0

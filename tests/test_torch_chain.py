@@ -1,6 +1,8 @@
-"""The port's chain runners (``run`` and ``run_pool``) against the JAX
-ExecutorChainRunner on CLEVR-shaped chains from ``bench.synth_questions``, in
-fp32 on the CPU, with and without a per-function threshold vector."""
+"""The port's chain runners (``run``, ``run_sorted``, ``run_bucketed`` and
+``run_pool``) and batch plans against the JAX ExecutorChainRunner and
+``infer/plan.py`` on CLEVR-shaped chains from ``bench.synth_questions``, in
+fp32 on the CPU, with and without a per-function threshold vector, and with
+the ``roi_sim``/``count_embed`` executor."""
 
 import os
 import sys
@@ -15,11 +17,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
 from explainable_spatial_vqa_tpu.core.config import ExecutorConfig as JaxExecutorConfig  # noqa: E402
+from explainable_spatial_vqa_tpu.infer import plan as jax_plan  # noqa: E402
 from explainable_spatial_vqa_tpu.infer.chain import ExecutorChainRunner as JaxRunner  # noqa: E402
 from explainable_spatial_vqa_tpu.models.executor import ProgramExecutor as JaxExecutor  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.convert import flax_to_state_dict  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig  # noqa: E402
+from explainable_spatial_vqa_tpu_torch.infer import plan  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.infer.chain import (  # noqa: E402
     ExecutorChainRunner,
     chained_forward,
@@ -36,35 +40,48 @@ MAX_STEPS = 27
 TOL = 1e-4  # box_cache / conf_cache atol, and the least margin of every decision
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = JaxExecutorConfig(**CFG)
+def _pair(cfg_kw, seed=0):
+    """The JAX executor with random weights and the port's with the same
+    weights, on 20 synthetic questions.  Random weights put pred_conf =
+    sigmoid(~0) right on the 0.5 threshold and the 2-way routing logits near a
+    tie, so both heads are spread; the roi_sim and count_embed channels, zero
+    at init, get seeded random values."""
+    jcfg = JaxExecutorConfig(**cfg_kw)
     features, _questions, chains = bench.synth_questions(20, jcfg, max_steps=MAX_STEPS, seed=3)
     jmodel = JaxExecutor(jcfg)
     variables = jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((2, 4, 8)), jnp.zeros((2, 4, 4)),
+        jax.random.PRNGKey(seed), jnp.zeros((2, 4, 8)), jnp.zeros((2, 4, 4)),
         jnp.ones((2, 4), bool), jnp.zeros((2, 3), jnp.int32), jnp.ones((2, 3), bool))
     params = jax.tree_util.tree_map(np.array, variables["params"])
-    # random weights put pred_conf = sigmoid(~0) right on the 0.5 threshold and
-    # the 2-way routing logits near a tie: spread both heads before handing the
-    # same weights to both packages
     params["box_decoder"]["head_out"]["kernel"] *= 20.0
     params["routing_head"]["kernel"] *= 20.0
+    rng = np.random.RandomState(seed + 10)
+    if "sim_embed" in params:
+        params["sim_embed"]["kernel"] = rng.randn(*params["sim_embed"]["kernel"].shape).astype(
+            np.float32)
+    if "count_embed" in params:
+        table = params["count_embed"]["embedding"]
+        params["count_embed"]["embedding"] = rng.randn(*table.shape).astype(np.float32)
     jvars = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
-    model = ProgramExecutor(ExecutorConfig(**CFG), device="cpu").eval()
+    model = ProgramExecutor(ExecutorConfig(**cfg_kw), device="cpu").eval()
     model.load_state_dict(flax_to_state_dict(params))
+    return jmodel, jvars, model, features, chains
+
+
+@pytest.fixture(scope="module")
+def setup():
     thresholds = np.linspace(0.3, 0.7, CFG["vocab_size"]).astype(np.float32)
-    return jmodel, jvars, model, features, chains, thresholds
+    return _pair(CFG) + (thresholds,)
 
 
-def _assert_margins(model, features, chains, thresholds):
+def _assert_margins(model, features, chains, thresholds, cfg_kw=CFG):
     """Run the port's plain runner with a hook and check that every decision
     of an executed step (routing, token argmax, box confidence against its
     threshold) clears its threshold by more than TOL."""
     outs = []
     hook = model.register_forward_hook(lambda _m, _i, out: outs.append(out))
     try:
-        ExecutorChainRunner(model, ExecutorConfig(**CFG), MAX_STEPS, thresholds,
+        ExecutorChainRunner(model, ExecutorConfig(**cfg_kw), MAX_STEPS, thresholds,
                             device="cpu").run(features[chains.image_index], chains)
     finally:
         hook.remove()
@@ -157,3 +174,87 @@ def test_loop_bounds_and_pool_packing(setup):
     useful = int(steps.sum())
     assert -(-useful // slots) <= iterations
     assert iterations * slots < len(steps) * MAX_STEPS
+
+
+@pytest.mark.parametrize("per_function", [False, True])
+def test_sorted_and_bucketed_match_jax(setup, per_function):
+    """run_sorted (several batches, a padded power-of-two tail) and
+    run_bucketed (an empty bucket, edges closed by max_steps) equal the JAX
+    runner's and the port's ``run``, on numpy and on tensor image tokens."""
+    jmodel, jvars, model, features, chains, vec = setup
+    thresholds = vec if per_function else None
+    jrunner = JaxRunner(jmodel, jvars, JaxExecutorConfig(**CFG), max_steps=MAX_STEPS,
+                        conf_thresholds=thresholds)
+    runner = ExecutorChainRunner(model, ExecutorConfig(**CFG), MAX_STEPS, thresholds,
+                                 device="cpu")
+    per_question = features[chains.image_index]
+    ref = runner.run(per_question, chains)
+    _depth, size, _part, real = plan.plan_sorted(chains.num_steps, 6, 4)[-1]
+    assert size > real  # the tail batch carries padding
+    buckets = (2, 8, 12, 20)
+    assert not (chains.num_steps <= 2).any()  # the first bucket is empty
+    jax_sorted = jrunner.run_sorted(jnp.asarray(per_question), chains, batch=6, min_tail=4)
+    jax_bucketed = jrunner.run_bucketed(per_question, chains, buckets=buckets)
+    _compare(jax_sorted, ref, "jax sorted vs port run")
+    _compare(jax_bucketed, ref, "jax bucketed vs port run")
+    for images in (per_question, torch.from_numpy(per_question)):
+        _compare(runner.run_sorted(images, chains, batch=6, min_tail=4), jax_sorted, "run_sorted")
+        _compare(runner.run_bucketed(images, chains, buckets=buckets), jax_bucketed,
+                 "run_bucketed")
+    out = runner.run_sorted(per_question, chains, batch=6, min_tail=4)
+    past = np.arange(MAX_STEPS)[None] >= chains.num_steps[:, None]
+    assert not out["token_branch"][past].any() and not out["box_mask"][past].any()
+    assert not out["box_cache"][past].any() and not out["token_cache"][past].any()
+
+
+def test_plans_match_jax():
+    """plan_sorted and plan_buckets equal the JAX package's on random depth
+    mixes, tails and multiples, and raise where it raises."""
+    rng = np.random.RandomState(11)
+    for trial in range(40):
+        num_steps = rng.randint(1, 28, rng.randint(1, 300))
+        batch, min_tail, multiple = rng.choice([4, 16, 64, 128]), rng.choice([1, 4, 32]), rng.choice(
+            [1, 2, 3])
+        edges = tuple(sorted(rng.choice(np.arange(2, 28), rng.randint(1, 5), replace=False)))
+        if trial % 2:
+            edges = edges + (27,)
+        got_sorted = plan.plan_sorted(num_steps, batch, min_tail, multiple)
+        ref_sorted = jax_plan.plan_sorted(num_steps, batch, min_tail, multiple)
+        try:
+            ref_buckets = jax_plan.plan_buckets(num_steps, batch, edges, min_tail, multiple)
+        except ValueError:
+            with pytest.raises(ValueError, match="exceed the deepest bucket"):
+                plan.plan_buckets(num_steps, batch, edges, min_tail, multiple)
+            ref_buckets, got_buckets = [], []
+        else:
+            got_buckets = plan.plan_buckets(num_steps, batch, edges, min_tail, multiple)
+        for got, ref in ((got_sorted, ref_sorted), (got_buckets, ref_buckets)):
+            assert len(got) == len(ref)
+            for g, r in zip(got, ref):
+                assert g[0] == r[0] and g[1] == r[1] and g[3] == r[3]
+                np.testing.assert_array_equal(g[2], r[2])
+
+
+ROI_SIM = dict(CFG, roi_sim=True, count_embed=True)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_roi_sim_count_chains_match_jax(heads):
+    """The roi_sim/count_embed executor, chained: the port's run, run_sorted
+    and run_pool (whose precomputed image cache carries the sim keys, width
+    2d) give the JAX runner's decisions."""
+    cfg_kw = dict(ROI_SIM, roi_sim_heads=heads)
+    jmodel, jvars, model, features, chains = _pair(cfg_kw, seed=2)
+    thresholds = np.linspace(0.3, 0.7, CFG["vocab_size"]).astype(np.float32)
+    _assert_margins(model, features, chains, thresholds, cfg_kw)
+    jrunner = JaxRunner(jmodel, jvars, JaxExecutorConfig(**cfg_kw), max_steps=MAX_STEPS,
+                        conf_thresholds=thresholds)
+    runner = ExecutorChainRunner(model, ExecutorConfig(**cfg_kw), MAX_STEPS, thresholds,
+                                 device="cpu")
+    per_question = features[chains.image_index]
+    ref = jrunner.run(jnp.asarray(per_question), chains)
+    assert ref["box_mask"].any() and ref["token_branch"].any()
+    assert model.precompute_image(torch.from_numpy(features)).shape[-1] == 2 * CFG["d_model"]
+    _compare(runner.run(per_question, chains), ref, "run")
+    _compare(runner.run_sorted(per_question, chains, batch=8, min_tail=4), ref, "run_sorted")
+    _compare(runner.run_pool(features, chains, slots=5), ref, "run_pool")

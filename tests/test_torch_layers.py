@@ -78,8 +78,11 @@ def test_box_decoder_matches_jax():
     np.testing.assert_allclose(out, ref, atol=1e-4)
 
 
-def _executor_pair(box_roi, seed=0):
-    kw = dict(SMALL, box_roi=box_roi)
+def _executor_pair(box_roi, seed=0, **options):
+    """The JAX executor with random weights and the port's with the same
+    weights, plus numpy inputs.  The roi_sim and count_embed channels, zero at
+    init, get seeded random values first."""
+    kw = dict(SMALL, box_roi=box_roi, **options)
     jmodel = jax_executor.ProgramExecutor(JaxExecutorConfig(**kw))
     rng = np.random.RandomState(seed)
     boxes_lo = rng.rand(3, 4, 2) * 0.5
@@ -91,8 +94,14 @@ def _executor_pair(box_roi, seed=0):
         np.array([[1, 1, 0], [1, 0, 1], [1, 1, 1]], bool),
     )
     variables = jmodel.init(jax.random.PRNGKey(seed), *map(jnp.asarray, inputs))
+    params = jax.tree_util.tree_map(np.array, variables["params"])
+    for name, leaf in (("sim_embed", "kernel"), ("count_embed", "embedding")):
+        if name in params:
+            assert not params[name][leaf].any()  # zero at init
+            params[name][leaf] = rng.randn(*params[name][leaf].shape).astype(np.float32)
+    variables = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
     model = ProgramExecutor(ExecutorConfig(**kw), device="cpu").eval()
-    model.load_state_dict(flax_to_state_dict(_numpy_params(variables)))
+    model.load_state_dict(flax_to_state_dict(params))
     return jmodel, variables, model, inputs
 
 
@@ -112,11 +121,52 @@ def test_executor_forward_matches_jax(box_roi):
                                        atol=1e-4, err_msg=key)
 
 
+@pytest.mark.parametrize("heads", [1, 4])
+def test_executor_roi_sim_count_matches_jax(heads):
+    """roi_sim with ``heads`` match maps and count_embed, fp32, atol 2e-5 on
+    logits and boxes; raw and precomputed image paths.  The precomputed
+    cache carries [tokens | sim keys], width 2d, as the JAX one does."""
+    jmodel, variables, model, inputs = _executor_pair(True, seed=heads, roi_sim=True,
+                                                      roi_sim_heads=heads, count_embed=True)
+    ref = jmodel.apply(variables, *map(jnp.asarray, inputs))
+    pre = model.precompute_image(_t(inputs[0]))
+    jpre = jmodel.apply(variables, jnp.asarray(inputs[0]), method=jmodel.precompute_image)
+    assert pre.shape == jpre.shape == (3, 4, 64)
+    np.testing.assert_allclose(pre.detach().numpy(), np.asarray(jpre), atol=1e-5)
+    for got in (model(*map(_t, inputs)), model(pre, *map(_t, inputs[1:]), image_precomputed=True)):
+        for key in ("routing_logits", "token_logits", "pred_boxes", "pred_conf"):
+            np.testing.assert_allclose(got[key].detach().numpy(), np.asarray(ref[key]),
+                                       atol=2e-5, err_msg=key)
+    # the channels are live: zeroing them moves the outputs
+    with torch.no_grad():
+        model.sim_embed.weight.zero_()
+        model.count_embed.weight.zero_()
+    off = model(*map(_t, inputs))
+    assert not np.allclose(off["token_logits"].detach().numpy(), np.asarray(ref["token_logits"]),
+                           atol=1e-3)
+
+
+def test_roi_sim_scale_in_compute_type():
+    """The similarity is divided by sqrt(dh) taken in the compute type: in
+    bf16, sqrt(128) rounds to 11.3125, as jnp.sqrt in bf16 gives."""
+    ref = float(jnp.sqrt(jnp.asarray(128, jnp.bfloat16)))
+    assert ref == 11.3125
+    assert float(torch.tensor(128.0, dtype=torch.bfloat16).sqrt()) == ref
+
+
 def test_executor_rejects_unported_options():
-    for option in ("roi_sim", "count_embed"):
-        with pytest.raises(ValueError, match="not ported"):
-            ProgramExecutor(ExecutorConfig(**dict(SMALL, box_roi=True, **{option: True})),
-                            device="cpu")
+    """Option sets the JAX executor refuses (roi_sim without box_roi, match
+    maps that do not divide d_model) raise in the port too."""
+    for options in (dict(box_roi=False, roi_sim=True), dict(box_roi=True, roi_sim=True,
+                                                            roi_sim_heads=3)):
+        kw = dict(SMALL, **options)
+        jmodel = jax_executor.ProgramExecutor(JaxExecutorConfig(**kw))
+        with pytest.raises(ValueError, match="roi_sim"):
+            jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 8)), jnp.zeros((1, 4, 4)),
+                        jnp.ones((1, 4), bool), jnp.zeros((1, 3), jnp.int32),
+                        jnp.ones((1, 3), bool))
+        with pytest.raises(ValueError, match="roi_sim"):
+            ProgramExecutor(ExecutorConfig(**kw), device="cpu")
 
 
 def _generator_pair():
@@ -128,12 +178,18 @@ def _generator_pair():
     return variables, ProgramGenerator(GeneratorConfig(**kw), device="cpu")
 
 
-@pytest.mark.parametrize("which", ["executor", "executor_roi", "generator"])
+@pytest.mark.parametrize("which", ["executor", "executor_roi", "executor_roi_sim_count",
+                                   "generator"])
 def test_convert_round_trip(which):
     """Converted keys are exactly the module's own (strict load), every tensor
     has the module's shape, and the loaded values are the converted ones."""
     if which == "generator":
         variables, model = _generator_pair()
+    elif which == "executor_roi_sim_count":
+        _, variables, model, _ = _executor_pair(True, roi_sim=True, roi_sim_heads=4,
+                                                count_embed=True)
+        assert {"sim_roi_proj.weight", "sim_img_proj.weight", "sim_embed.weight",
+                "count_embed.weight"} <= set(model.state_dict())
     else:
         _, variables, model, _ = _executor_pair(which == "executor_roi")
     converted = flax_to_state_dict(_numpy_params(variables))

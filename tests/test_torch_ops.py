@@ -1,6 +1,10 @@
-"""The port's K1 (fused attention) and K2 (fused encoder block) on the CPU,
-where each wrapper runs its plain PyTorch version, against the JAX Pallas
-kernels in interpret mode and the JAX XLA paths, on the same numpy inputs."""
+"""The port's K1 (fused attention), K2 (fused encoder block) and K3 (the
+batch-tiled block) on the CPU, where each wrapper runs its plain PyTorch
+version, against the JAX Pallas kernels in interpret mode and the JAX XLA
+paths, on the same numpy inputs."""
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,8 +25,14 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attentio
 from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     fuse_encoder_params,
     fused_encoder_block,
+    fused_encoder_block_plain,
+    fused_encoder_block_tiled,
+    fused_encoder_block_tiled_plain,
     pad_len,
 )
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (its bf16 check; the script imports nothing at the top)
 
 torch.set_num_threads(1)
 
@@ -130,6 +140,97 @@ def test_encoder_block_matches_linen(length, norm):
     # training mode takes the layer-by-layer path (no kernel); dropout 0
     train_out = block.train()(torch.from_numpy(x), torch.from_numpy(mask4)).detach().numpy()
     np.testing.assert_allclose(train_out, ref_xla, atol=2e-5)
+
+
+def _tiled_mask(batch, length):
+    """A distinct mask per sequence, as tests/test_pallas_block.py:50-53 builds
+    it, so that each tile reads its own rows."""
+    keep = np.ones((batch, length), bool)
+    for b in range(batch):
+        keep[b, length - 1 - b:] = False
+    return keep
+
+
+def _k3_pair(masked, batch_tile, ffn_chunks, dtype):
+    """K3: JAX ``fused_encoder_block_tiled`` in interpret mode and the port's
+    wrapper (its plain version on the CPU), weights in ``dtype``."""
+    _jblock, variables, block, x = _blocks(128, 4, 16, 4, seed=1)
+    mask = _tiled_mask(4, 16) if masked else None
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = jax_block.fused_encoder_block_tiled(
+        jnp.asarray(x), None if mask is None else jnp.asarray(mask),
+        jax_block.fuse_encoder_params(variables["params"], dtype=jdtype), 4,
+        batch_tile=batch_tile, ffn_chunks=ffn_chunks, interpret=True)
+    out = fused_encoder_block_tiled(
+        torch.from_numpy(x), None if mask is None else torch.from_numpy(mask),
+        fuse_encoder_params(block, dtype=dtype), 4, batch_tile=batch_tile, ffn_chunks=ffn_chunks)
+    return out.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch_tile,ffn_chunks", [(2, 1), (4, 2)])
+def test_k3_plain_matches_jax_kernel(masked, batch_tile, ffn_chunks):
+    """fp32, atol 2e-5: the tolerance of tests/test_pallas_block.py:64."""
+    out, ref = _k3_pair(masked, batch_tile, ffn_chunks, torch.float32)
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch_tile,ffn_chunks", [(2, 1), (4, 2)])
+def test_k3_plain_matches_jax_kernel_bf16_weights(masked, batch_tile, ffn_chunks):
+    """bf16 weights, fp32 activations, with the limits of the bf16 K2 test
+    above and for the same reason: both sides round the same values to bf16
+    (x, q, k, v, the softmax weights, the attention output, x1, the ReLU
+    output) and differ only where an fp32 sum in another order lands on the
+    other side of a rounding."""
+    out, ref = _k3_pair(masked, batch_tile, ffn_chunks, torch.bfloat16)
+    err = np.abs(out - ref)
+    assert err.max() < 1e-2 and np.median(err) < 1e-6, (err.max(), np.median(err))
+
+
+def test_k3_and_k2_plain_versions_differ_in_bf16():
+    """In bf16, K3's arithmetic (q, k, v rounded to bf16) and K2's (float32
+    q, k, v) each fail the other's check in chip_smoke.py by the mean error,
+    so neither kernel can pass for the other on the card; each passes
+    against itself.  In float32 the two are the same arithmetic, up to K3's
+    QKV sums, which are taken in float64 and rounded once."""
+    _jblock, _variables, block, x = _blocks(128, 4, 16, 4, seed=6)
+    mask = torch.from_numpy(_tiled_mask(4, 16))
+    xb = torch.from_numpy(x).bfloat16()
+    w = fuse_encoder_params(block, dtype=torch.bfloat16)
+    k2 = fused_encoder_block_plain(xb, mask, w, 4)
+    k3 = fused_encoder_block_tiled_plain(xb, mask, w, 4, batch_tile=2, ffn_chunks=2)
+    for out, ref in ((k2, k3), (k3, k2)):
+        stats = chip_smoke.bf16_agreement(torch, out, ref)
+        assert not chip_smoke.bf16_ok(stats), stats
+        assert stats["mean_ulps"] > chip_smoke.MEAN_ULPS, stats
+    assert chip_smoke.bf16_ok(chip_smoke.bf16_agreement(torch, k3, k3))
+    w32 = fuse_encoder_params(block)
+    torch.testing.assert_close(
+        fused_encoder_block_tiled_plain(torch.from_numpy(x), mask, w32, 4, 2, 2),
+        fused_encoder_block_plain(torch.from_numpy(x), mask, w32, 4), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,batch_tile,ffn_chunks,match", [
+    ((3, 16, 128), 2, 1, "batch_tile"),  # batch % batch_tile
+    ((4, 16, 128), 2, 3, "ffn_chunks"),  # (batch_tile * L) % ffn_chunks
+    ((4, 12, 128), 2, 1, "pad L"),  # L % 8
+    ((4, 16, 64), 2, 1, "pad L"),  # d % 128
+])
+def test_k3_contract_errors(shape, batch_tile, ffn_chunks, match):
+    """The port raises where the JAX wrapper asserts
+    (ops/pallas_block.py:286-289), and launches nothing."""
+    batch, length, d_model = shape
+    block = EncoderBlock(d_model, 4, 2 * d_model, dropout=0.0, device="cpu")
+    with pytest.raises(AssertionError):  # asserted on the shapes, before any weight is read
+        jax_block.fused_encoder_block_tiled(
+            jnp.zeros(shape), None, tuple(jnp.zeros(1) for _ in range(16)), 4,
+            batch_tile=batch_tile, ffn_chunks=ffn_chunks, interpret=True)
+    before = fused_encoder_block_tiled.launches
+    with pytest.raises(ValueError, match=match):
+        fused_encoder_block_tiled(torch.zeros(shape), None, fuse_encoder_params(block), 4,
+                                  batch_tile=batch_tile, ffn_chunks=ffn_chunks)
+    assert fused_encoder_block_tiled.launches == before
 
 
 def test_pad_len():

@@ -1,6 +1,7 @@
 """The port's inference pipeline against the JAX pipeline on the CPU: program
 parsing on the tests/data goldens, and end-to-end answers at a small size."""
 
+import inspect
 import json
 import pathlib
 
@@ -86,23 +87,26 @@ PROGRAM_TOKENS = ["scene", "count", "exist", "filter_size[large]", "filter_color
                   "filter_shape[cube]", "same_color"]
 
 
-@pytest.mark.parametrize("chain_mode", ["pool", "plain"])
-def test_pipeline_matches_jax(chain_mode):
-    """Program ids, answers and answer validity equal the JAX pipeline's."""
-    gen_kw = dict(vocab_size=24, program_vocab_size=16, embed_dim=8, hidden_dim=12,
-                  encoder_layers=2, decoder_layers=2, program_len=10, dropout=0.0)
-    exe_kw = dict(vocab_size=16, d_model=32, num_heads=4, encoder_layers=1,
-                  box_decoder_layers=1, num_queries=3, num_image_tokens=4, image_feature_dim=8,
-                  max_input_boxes=4, token_classes=8, box_roi=True)
+GEN_KW = dict(vocab_size=24, program_vocab_size=16, embed_dim=8, hidden_dim=12,
+              encoder_layers=2, decoder_layers=2, program_len=10, dropout=0.0)
+EXE_KW = dict(vocab_size=16, d_model=32, num_heads=4, encoder_layers=1,
+              box_decoder_layers=1, num_queries=3, num_image_tokens=4, image_feature_dim=8,
+              max_input_boxes=4, token_classes=8, box_roi=True)
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    """The JAX pipeline and the port's with the same random weights, and 16
+    questions over 4 images."""
     rng = np.random.RandomState(4)
     questions = rng.randint(4, 24, (16, 7)).astype(np.int32)
     features = rng.rand(4, 4, 8).astype(np.float32)
     image_index = rng.randint(0, 4, 16)
 
-    jgen = JaxGenerator(JaxGeneratorConfig(**gen_kw))
+    jgen = JaxGenerator(JaxGeneratorConfig(**GEN_KW))
     gen_vars = jgen.init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
                          jnp.asarray(questions), jnp.zeros((16, 10), jnp.int32))
-    jexe = JaxExecutor(JaxExecutorConfig(**exe_kw))
+    jexe = JaxExecutor(JaxExecutorConfig(**EXE_KW))
     exe_vars = jexe.init(jax.random.PRNGKey(2), jnp.asarray(features[:2]), jnp.zeros((2, 4, 4)),
                          jnp.ones((2, 4), bool), jnp.zeros((2, 3), jnp.int32),
                          jnp.ones((2, 3), bool))
@@ -117,17 +121,24 @@ def test_pipeline_matches_jax(chain_mode):
     thresholds = np.linspace(0.35, 0.65, 16).astype(np.float32)
     jpipe = jax_pipeline.InferencePipeline(
         jgen, gen_vars,
-        JaxRunner(jexe, exe_vars, JaxExecutorConfig(**exe_kw), max_steps=10,
+        JaxRunner(jexe, exe_vars, JaxExecutorConfig(**EXE_KW), max_steps=10,
                   conf_thresholds=thresholds), inv, fn_vocab)
-    ref = jpipe.run(questions, features, image_index, chain_mode=chain_mode)
 
-    generator = ProgramGenerator(GeneratorConfig(**gen_kw), device="cpu")
+    generator = ProgramGenerator(GeneratorConfig(**GEN_KW), device="cpu")
     generator.load_state_dict(flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, gen_vars["params"])))
-    executor = ProgramExecutor(ExecutorConfig(**exe_kw), device="cpu")
+    executor = ProgramExecutor(ExecutorConfig(**EXE_KW), device="cpu")
     executor.load_state_dict(flax_to_state_dict(params))
-    runner = ExecutorChainRunner(executor, ExecutorConfig(**exe_kw), 10, thresholds, device="cpu")
+    runner = ExecutorChainRunner(executor, ExecutorConfig(**EXE_KW), 10, thresholds, device="cpu")
     pipe = pipeline.InferencePipeline(generator, runner, inv, fn_vocab, device="cpu")
+    return jpipe, pipe, questions, features, image_index, inv, fn_vocab
+
+
+@pytest.mark.parametrize("chain_mode", ["sorted", "bucketed", "pool", "plain"])
+def test_pipeline_matches_jax(pipelines, chain_mode):
+    """Program ids, answers and answer validity equal the JAX pipeline's."""
+    jpipe, pipe, questions, features, image_index, inv, fn_vocab = pipelines
+    ref = jpipe.run(questions, features, image_index, chain_mode=chain_mode)
     gt_programs = np.zeros((16, 10), np.int64)
     got = pipe.run(questions, features, image_index, gt_answers=np.arange(16) % 8,
                    gt_programs=gt_programs, chain_mode=chain_mode)
@@ -141,3 +152,26 @@ def test_pipeline_matches_jax(chain_mode):
     programs = pipeline.decode_program_ids(got.program_ids, inv)
     chains = pipeline.programs_to_chains(programs, image_index, fn_vocab, 10)
     assert (chains.num_steps > 1).sum() >= 2 and chains.num_steps.max() >= 5
+    # a tensor image cache gives the same answers
+    on_tensor = pipe.run(questions, torch.from_numpy(features), image_index,
+                         chain_mode=chain_mode)
+    np.testing.assert_array_equal(on_tensor.answers, ref.answers)
+
+
+def test_pipeline_default_chain_mode_is_sorted(pipelines, monkeypatch):
+    """InferencePipeline.run with no chain_mode runs "sorted", the JAX
+    pipeline's default; an unknown mode raises."""
+    _jpipe, pipe, questions, features, image_index, _inv, _fn_vocab = pipelines
+    default = inspect.signature(pipeline.InferencePipeline.run).parameters["chain_mode"].default
+    assert default == "sorted" == inspect.signature(
+        jax_pipeline.InferencePipeline.run).parameters["chain_mode"].default
+    calls = []
+    run_sorted = pipe.runner.run_sorted
+    monkeypatch.setattr(pipe.runner, "run_sorted",
+                        lambda *a, **k: calls.append(1) or run_sorted(*a, **k))
+    for name in ("run", "run_bucketed", "run_pool"):
+        monkeypatch.setattr(pipe.runner, name, None)  # any other runner would fail
+    result = pipe.run(questions, features, image_index)
+    assert calls == [1] and result.answers.shape == (16,)
+    with pytest.raises(ValueError, match="chain_mode"):
+        pipe.run(questions, features, image_index, chain_mode="streamed")
