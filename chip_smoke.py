@@ -8,14 +8,20 @@ result:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``explainable_spatial_vqa_tpu_torch/csrc`` with
-   ``nvcc`` into ``explainable_spatial_vqa_tpu_torch/_build/``;
+   ``nvcc`` into ``explainable_spatial_vqa_tpu_torch/_build/``; for each
+   kernel function its registers and spills (ptxas) and its HGMMA (wgmma)
+   and HMMA (mma.sync) instructions (``cuobjdump -sass``): the attention
+   kernels must hold HMMA, the block GEMM HGMMA;
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
-   float32 (TF32 off), with each error beside its tolerance: K1; K2 at the
-   fusion encoder's shape; K3 at the block bench's (L=224, ``batch_tile=2,
+   float32 (TF32 off), with each error beside its tolerance: K1; K2's own
+   float32 attention on the (B, L, 3d) projection buffer (3xTF32); the block
+   GEMM alone (``block_gemm``) at K2's four product shapes; K2 at the fusion
+   encoder's shape; K3 at the block bench's (L=224, ``batch_tile=2,
    ffn_chunks=2``).  In bf16, every element and the mean error are held
    (``bf16_agreement``), and each block kernel's check has a negative control
    that must fail it: the other block kernel's plain version (K3 rounds q, k
-   and v to bf16, K2 keeps them float32);
+   and v to bf16, K2 keeps them float32); each block also takes a float32 x
+   with its bf16 weights (x rounded to bf16 in a pass of its own);
 4. times at those shapes: kernel, plain version, one PyTorch library call
    computing the same function (a yardstick the port never calls), and the
    least time the card could take (its bound);
@@ -40,8 +46,10 @@ result:
     maps and ``count_embed``, random non-zero weights): a float32 forward on
     the card against the CPU, and one ``"sorted"`` pipeline run in bf16.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+The line before the last is a JSON object with one entry per kernel
+(``kernels``) and one per measured piece of K2 (``parts``: its float32
+attention and its four products); the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 The script imports nothing of JAX.
 """
 
@@ -57,8 +65,14 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: tensor-core bf16, CUDA-core float32, HBM3.
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+# NVIDIA H100 SXM data sheet, dense: tensor-core bf16 and TF32, CUDA-core
+# float32, HBM3.
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+# four K2 products at the fusion encoder's shape (B=128, L=210, d=512, ffn
+# 2048): name, N, K, ReLU, output type (bf16 for FFN1's hidden)
+K2_GEMMS = (("qkv", 1536, 512, False, "fp32"), ("out", 512, 512, False, "fp32"),
+            ("ffn1", 2048, 512, True, "bf16"), ("ffn2", 512, 2048, False, "fp32"))
+GEMM_REL_TOL = 2e-5  # float32 GEMM outputs, of the largest |ref|
 PEAK_BYTES = 3.35e12
 
 MAIN_QUESTIONS = 512
@@ -180,10 +194,7 @@ def qkv_rounding(torch, x, keep, w, heads) -> None:
 
     batch, length, d = x.shape
     rows, ffn, wdt = batch * length, w.ffn1.shape[0], w.qkv.dtype
-    scratch = [torch.empty(rows, 3 * d, dtype=wdt, device=x.device),
-               torch.empty(rows, d, dtype=wdt, device=x.device),
-               torch.empty(rows, d, device=x.device), torch.empty(rows, d, device=x.device),
-               torch.empty(rows // K3_TILING["ffn_chunks"], ffn, dtype=wdt, device=x.device)]
+    scratch = fused_block.block_scratch(x, w, tiled=True, ffn_chunks=K3_TILING["ffn_chunks"])
     fused_block._launch(fused_block.fused_encoder_block_tiled, "esv_encoder_block_tiled", x, keep,
                         w, scratch, (batch, length, d, heads, ffn, K3_TILING["ffn_chunks"],
                                      DTYPE_CODES[x.dtype], DTYPE_CODES[wdt]))
@@ -196,6 +207,47 @@ def qkv_rounding(torch, x, keep, w, heads) -> None:
         f"{kernel_share:.2e} of them, float32 sums {f32_share:.2e}")
     if not kernel_share <= f32_share:
         fail("K3's QKV sums round more q/k/v the other way than float32 sums do")
+
+
+def kernel_report(libs: dict) -> dict:
+    """Per kernel function of the built libraries: its registers and spilled
+    bytes from ptxas's report (the build logs) and its count of HGMMA (wgmma)
+    and HMMA (mma.sync) instructions in the SASS (``cuobjdump -sass``)."""
+    import re
+
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    filt = Path(_build._nvcc()).with_name("cu++filt")
+    out = {}
+    for name, lib in libs.items():
+        current = None
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                current = out.setdefault(found.group(1), dict(registers=0, spill=0, HGMMA=0,
+                                                              HMMA=0))
+            elif current is not None and "spill stores" in line:
+                current["spill"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+            elif current is not None and "Used" in line and "registers" in line:
+                current["registers"] = int(line.split("Used")[1].split("registers")[0])
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass failed on {lib}: {sass.stderr.strip()[-500:]}")
+        for fn, body in re.findall(r"Function : (\S+)(.*?)(?=\n\s*Function : |\Z)", sass.stdout,
+                                   re.S):
+            entry = out.setdefault(fn, dict(registers=0, spill=0, HGMMA=0, HMMA=0))
+            entry["HGMMA"] = len(re.findall(r"\bHGMMA\.", body))
+            entry["HMMA"] = len(re.findall(r"\bHMMA\.", body))
+    names = list(out)
+    shorts = names
+    if filt.is_file():
+        shorts = subprocess.run([str(filt)], input="\n".join(names), capture_output=True,
+                                text=True, timeout=60).stdout.splitlines()
+    for name, short in zip(names, shorts):
+        out[name]["short"] = short.replace("esv::", "").replace("__nv_bfloat16", "bf16")
+    return out
 
 
 def postfix_ids(chains, token_ids: dict, function_ids: dict, length: int):
@@ -259,18 +311,28 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build(["fused_attention", "fused_block"])
     build_s = time.perf_counter() - t0
-    regs, spills = [], []
-    for name in libs:
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line:
-                regs.append(int(line.split("Used")[1].split("registers")[0]))
-            if "spill stores" in line:
-                spills.append(int(line.split("bytes spill stores")[0].split(",")[-1]))
-    say(f"phase 2 build: {build_s:.1f} s for {', '.join(sorted(libs))} "
-        f"({len(regs)} kernels, at most {max(regs)} registers, {max(spills)} bytes spilled)")
+    kernels = kernel_report(libs)
+    say(f"phase 2 build: {build_s:.1f} s for {', '.join(sorted(libs))} ({len(kernels)} kernels, "
+        f"at most {max(k['registers'] for k in kernels.values())} registers, "
+        f"{max(k['spill'] for k in kernels.values())} bytes spilled)")
+    for name, k in sorted(kernels.items()):
+        say(f"phase 2 kernel {k['short']}: {k['registers']} registers, {k['spill']} bytes "
+            f"spilled, SASS {k['HGMMA']} HGMMA (wgmma) and {k['HMMA']} HMMA (mma.sync)")
+    tensor_core_checks = {
+        "every attention kernel runs HMMA": all(
+            k["HMMA"] > 0 for n, k in kernels.items() if "attention_kernel" in n),
+        "every wgmma GEMM runs HGMMA": all(
+            k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_bf16_wgmma" in n),
+        "both are built": (any("attention_kernel" in n for n in kernels)
+                           and any("gemm_bf16_wgmma" in n for n in kernels)),
+    }
+    for name, ok in tensor_core_checks.items():
+        if not ok:
+            fail(f"phase 2 check failed: {name}")
 
     # ---- 3 and 4. kernels against their plain versions; times ----
     gen = torch.Generator(device=dev).manual_seed(0)
+    x32_gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
@@ -321,6 +383,10 @@ def main() -> None:
             results[f"K1_L{length}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                                             bound_by=by, library_ms=lib)
 
+    parts = []
+    k2_attention(torch, F, dev, randn, ragged_keep, parts)
+    k2_gemms(torch, dev, randn, parts)
+
     # K2 at the fusion encoder's shape and K3 at the block bench's, bf16 and
     # fp32.  Each block kernel's bf16 check has a negative control, the other
     # kernel's plain version: K3's arithmetic rounds q, k and v to bf16 after
@@ -370,6 +436,18 @@ def main() -> None:
                     fail(f"the bf16 check cannot tell {other}'s arithmetic from {key}'s")
                 if key == "K3":
                     qkv_rounding(torch, x, keep, w, h)
+                # float32 x with the bf16 weights: the kernel rounds x to bf16
+                # in a pass of its own for the QKV product's TMA loads.  Drawn
+                # from a generator of its own, so the later checks' inputs do
+                # not move (K3's bf16 check is sensitive to them: PERF.md §6)
+                x32 = torch.randn(b, length, d, generator=x32_gen, device=dev)
+                stats = bf16_agreement(torch, kernel(x32, keep, w, h).bfloat16(),
+                                       plain_fn(x32, keep, w, h).bfloat16())
+                say(f"phase 3 {key} float32 x, bf16 weights, outputs rounded to bf16: "
+                    f"{bf16_text(stats)}")
+                if not bf16_ok(stats):
+                    fail(f"{key} with float32 x disagrees with its plain version")
+                del x32
             else:
                 # sums of up to 2048 products taken in another order, through
                 # four chained products and two LayerNorms
@@ -428,10 +506,114 @@ def main() -> None:
                                                     bound_ms=bnd, bound_by=by, library_ms=lib)
             del layer, x, out, ref, w
     torch.cuda.empty_cache()
-    main_path(torch, np, dev, results)
+    main_path(torch, np, dev, results, parts)
 
 
-def main_path(torch, np, dev, results) -> None:
+def k2_attention(torch, F, dev, randn, ragged_keep, parts) -> None:
+    """Phases 3-4 for K2's own attention: float32 q, k, v read out of the
+    (B, L, 3d) projection buffer at the main path's shape, in 3xTF32.  Checked
+    with a float32 output at the float32 tolerance and with the bf16 output K2
+    writes for its out projection by ``bf16_agreement``; timed in that form."""
+    from explainable_spatial_vqa_tpu_torch.ops import fused_attention as fa
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+
+    b, length, h, d_head = SLOTS, 210, 4, 128
+    d = h * d_head
+    qkv = randn(b, length, 3 * d)
+    keep = ragged_keep(b, length, 13)
+    mask = keep[:, None, None, :]
+    mask_f = keep.float().contiguous()
+    q, k, v = (t.reshape(b, length, h, d_head) for t in qkv.split(d, dim=-1))
+    fn = fa._esv_attention()
+
+    def kernel(out):
+        status = fn(qkv.data_ptr(), qkv.data_ptr() + 4 * d, qkv.data_ptr() + 8 * d,
+                    mask_f.data_ptr(), out.data_ptr(), b, h, length, d_head, length * 3 * d, 3 * d,
+                    length * d, d, fa.DTYPE_CODES[torch.float32], fa.DTYPE_CODES[out.dtype],
+                    torch.cuda.current_stream().cuda_stream)
+        if status:
+            fail(f"K2's attention failed with CUDA error {status}")
+        return out
+
+    out32 = kernel(torch.empty(b, length, d, device=dev))
+    out16 = kernel(torch.empty(b, length, d, dtype=torch.bfloat16, device=dev))
+    ref = dot_product_attention(q, k, v, mask).reshape(b, length, d)
+    torch.cuda.synchronize()
+    err = float((out32 - ref).abs().max())
+    stats = bf16_agreement(torch, out16, ref.bfloat16())
+    say(f"phase 3 K2 attention fp32 q/k/v (3xTF32) B={b} H={h} L={length} D={d_head} "
+        f"mask=ragged, read from the (B, L, 3d) buffer: float32 out max_abs_err {err:.3g} "
+        f"(tol 1e-5); bf16 out (K2's) {bf16_text(stats)}")
+    if not (err <= 1e-5 and bf16_ok(stats)):
+        fail("K2's attention disagrees with its plain version")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q.contiguous(), k.contiguous(), v.contiguous()))
+    ms = timed_ms(torch, lambda: kernel(out16))
+    plain = timed_ms(torch, lambda: dot_product_attention(q, k, v, mask).bfloat16())
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    elems = b * length * d
+    bnd, by = bound_ms({"tf32": 3 * 4.0 * b * h * length * length * d_head},
+                       3 * elems * 4 + elems * 2 + b * length * 4)
+    say(f"phase 4 K2 attention fp32 q/k/v, bf16 out, L={length}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention fp32 {lib:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}: 3 x {4.0 * b * h * length * length * d_head / 1e9:.1f} GFLOP at the TF32 rate)")
+    parts.append(dict(name="attention_fp32_L210", route="cuda",
+                      source="explainable_spatial_vqa_tpu_torch/csrc/attention.cuh",
+                      replaces="explainable_spatial_vqa_tpu/ops/pallas_block.py:135",
+                      inside="fused_encoder_block", max_abs_err=err, ms=ms, plain_ms=plain,
+                      bound_ms=bnd, bound_by=by, library_ms=lib))
+
+
+def k2_gemms(torch, dev, randn, parts) -> None:
+    """Phases 3-4 for the block GEMM alone (``block_gemm``, the blocks' own
+    kernel) at K2's four product shapes, bf16 operands: checked against the
+    plain version (float32 sums, TF32 off; float32 outputs within
+    ``GEMM_REL_TOL`` of the largest |ref|, sums of up to 2048 products taken
+    in another order; bf16 outputs by ``bf16_agreement``), then timed beside
+    ``torch.matmul`` in bf16 and the bound."""
+    from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm, block_gemm_plain
+
+    rows = SLOTS * 210
+    total = 0.0
+    for name, n, k, relu, out_name in K2_GEMMS:
+        out_dtype = torch.bfloat16 if out_name == "bf16" else torch.float32
+        a = randn(rows, k, dtype=torch.bfloat16)
+        w = randn(n, k, scale=k ** -0.5, dtype=torch.bfloat16)
+        bias = randn(n, scale=0.02)
+        out = block_gemm(a, w, bias, relu, out_dtype)
+        ref = block_gemm_plain(a, w, bias, relu, out_dtype)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if out_dtype == torch.bfloat16:
+            stats = bf16_agreement(torch, out, ref)
+            text, ok = bf16_text(stats), bf16_ok(stats)
+        else:
+            rel = err / float(ref.abs().max())
+            text, ok = f"max_abs_err {err:.3g}, {rel:.3g} of max|ref| (tol {GEMM_REL_TOL})", (
+                rel <= GEMM_REL_TOL)
+        shape = f"{rows}x{n}x{k}{' ReLU' if relu else ''} -> {out_name}"
+        say(f"phase 3 block_gemm {name} {shape}: {text}")
+        if not ok:
+            fail(f"block_gemm {name} disagrees with its plain version")
+        ms = timed_ms(torch, lambda: block_gemm(a, w, bias, relu, out_dtype))
+        plain = timed_ms(torch, lambda: block_gemm_plain(a, w, bias, relu, out_dtype), iters=5)
+        lib = timed_ms(torch, lambda: torch.matmul(a, w.t()))
+        flops = 2.0 * rows * n * k
+        bnd, by = bound_ms({"bf16": flops}, (rows * k + n * k) * 2 + n * 4
+                           + rows * n * out.element_size())
+        total += ms
+        say(f"phase 4 block_gemm {name} {shape}: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} "
+            f"TFLOP/s, plain {plain:.4f} ms, torch.matmul bf16 {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        parts.append(dict(name=f"block_gemm_{name}", route="cuda",
+                          source="explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
+                          replaces="explainable_spatial_vqa_tpu/ops/pallas_block.py:126",
+                          inside="fused_encoder_block", max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bnd, bound_by=by, library_ms=lib))
+        del a, w, out, ref
+    say(f"phase 4 block_gemm: K2's four products {total:.4f} ms together")
+
+
+def main_path(torch, np, dev, results, parts) -> None:
     """Phases 5 to 10, then the result lines."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
@@ -751,7 +933,7 @@ def main_path(torch, np, dev, results) -> None:
     )
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **results[key]) for name, src, rep, key, counts in sources]
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

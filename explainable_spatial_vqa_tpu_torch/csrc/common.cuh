@@ -1,5 +1,5 @@
 // Helpers shared by the port's kernels: element loads and stores that widen
-// to float32 and narrow from it, rounding to a storage type, warp reductions,
+// to float32 and narrow from it, a warp sum, shared-memory addresses for PTX,
 // and the dtype codes the ctypes wrappers pass (0 = float32, 1 = bfloat16).
 #pragma once
 
@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 namespace esv {
@@ -25,20 +26,26 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// v rounded to the precision of T and widened back (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// The 32-bit shared-window address of a pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two adjacent elements of a row, stored as one 8-byte (float) or 4-byte
+// (bf16) write; dst must be aligned to that size.
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace esv

@@ -4,44 +4,40 @@
 // the Pallas kernel that computes softmax(mask(Q K^T / sqrt(D))) V for one
 // (batch, head) per grid cell with the whole (L, L) score tile in VMEM.
 //
-// Bound on the H100: the work is 4*L*L*D operations against 4*L*D elements
-// moved per (batch, head), so at the lengths of this model (L = 10 in the box
-// decoder, L = 210 in the fusion encoder, D = 128) it does at most ~105
-// operations per byte in bf16, below the ~295 the card needs to be limited by
-// its tensor cores: the bound is the bytes of q, k, v and the output.
-//
-// Design: one block per (batch, head, 32 queries).  Q and one tile of K or V
-// sit in shared memory in float32; the scores of the block's 32 queries are
-// kept whole in shared memory, so the softmax normalises before the weights
-// are rounded to the input type, exactly as the TPU kernel does.  Products run
-// on the CUDA cores in float32 (fmaf), which keeps the float32 path exact and
-// the kernel simple; moving them to tensor cores is later work.
+// Bound on the H100: the bytes of q, k, v and the output at the model's
+// lengths (L = 10 in the box decoder, L = 210 in the fusion encoder, D = 128);
+// at L = 10 the launch itself dominates.  The kernels are attention.cuh's:
+// mma.sync on the tensor cores (P V in bf16, or both products in 3xTF32 for
+// float32), K and V streamed through a cp.async ring, each warp's 16 rows of
+// scores in registers.  bf16 weights are normalised before they are rounded,
+// exactly as the TPU kernel does; float32 weights are not rounded, and their
+// softmax runs online.
 //
 // C interface, bound with ctypes (every pointer and the stream a void*):
 //   int esv_attention(q, k, v, mask, out, B, H, L, D, in_batch_stride,
-//                     in_row_stride, out_batch_stride, out_row_stride, dtype, stream)
+//                     in_row_stride, out_batch_stride, out_row_stride, dtype,
+//                     out_dtype, stream)
 // mask is a (B, L) float32 key mask (keep where > 0) or null; dtype is 0 for
-// float32, 1 for bfloat16 (q, k, v and out share it).  Returns the CUDA error
-// of the launch (0 on success).
+// float32, 1 for bfloat16 (q, k and v share it); out_dtype is the output's,
+// either float32 or dtype.  q, k, v and their strides must be 16-byte
+// aligned.  Returns the CUDA error of the launch (0 on success).
 
 #include "attention.cuh"
 
 extern "C" int esv_attention(const void* q, const void* k, const void* v, const void* mask,
                              void* out, int B, int H, int L, int D, long long in_bs,
                              long long in_rs, long long out_bs, long long out_rs, int dtype,
-                             void* stream) {
+                             int out_dtype, void* stream) {
+  using bf16 = __nv_bfloat16;
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == esv::kFloat32) {
-    return esv::launch_attention<float>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                        static_cast<const float*>(v), m, static_cast<float*>(out),
-                                        B, H, L, D, in_bs, in_rs, out_bs, out_rs, s);
-  }
-  if (dtype == esv::kBFloat16) {
-    using bf16 = __nv_bfloat16;
-    return esv::launch_attention<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                       static_cast<const bf16*>(v), m, static_cast<bf16*>(out),
-                                       B, H, L, D, in_bs, in_rs, out_bs, out_rs, s);
-  }
+#define ESV_ATTENTION(T, TO)                                                                   \
+  return esv::launch_attention<T, TO>(static_cast<const T*>(q), static_cast<const T*>(k),      \
+                                      static_cast<const T*>(v), m, static_cast<TO*>(out), B, H, \
+                                      L, D, in_bs, in_rs, out_bs, out_rs, s)
+  if (dtype == esv::kFloat32 && out_dtype == esv::kFloat32) { ESV_ATTENTION(float, float); }
+  if (dtype == esv::kFloat32 && out_dtype == esv::kBFloat16) { ESV_ATTENTION(float, bf16); }
+  if (dtype == esv::kBFloat16 && out_dtype == esv::kBFloat16) { ESV_ATTENTION(bf16, bf16); }
+#undef ESV_ATTENTION
   return cudaErrorInvalidValue;
 }

@@ -27,48 +27,79 @@
 // or tile of sequences; an SM has 227 KB of shared memory, so here the block
 // is a short sequence of kernels over all B*L rows at once, with intermediates
 // in device memory (scratch allocated by the caller), not the TPU's grid:
-//   (a) a tiled GEMM with bias and optional ReLU fused into its epilogue, for
-//       the QKV projection (one GEMM against the stacked [Wq; Wk; Wv]), the
-//       out projection and the two FFN products.  With bf16 weights it runs on
-//       the tensor cores through WMMA (16x16x16 bf16 tiles, float32
-//       accumulators, 128x128 block tiles, the next K slice prefetched into
-//       registers); with float32 weights it runs in float32 on the CUDA
-//       cores, so the float32 path is not rounded to TF32;
+//   (a) a GEMM with bias and optional ReLU fused into its epilogue, for the
+//       QKV projection (one GEMM against the stacked [Wq; Wk; Wv]), the out
+//       projection and the two FFN products.  With bf16 weights and a bf16
+//       left operand it is gemm_bf16_wgmma: persistent blocks of one TMA
+//       producer warp and two consumer warpgroups, a 4-stage ring of 128x64
+//       tiles of A and W filled by cp.async.bulk.tensor with mbarrier
+//       full/empty handshakes, wgmma.m64n128k16 (bf16, float32
+//       accumulators) on 128x128 output tiles, bias and ReLU in the
+//       epilogue.  The consumers take whole tiles in turn (ping-pong), so
+//       one's epilogue overlaps the other's products.  It reaches ~320
+//       TFLOP/s on the products with K = 512 and ~560 on FFN2 (K = 2048):
+//       what is left is a cost per tile that a longer K hides (PERF.md §6,
+//       PR 3).  To give TMA bf16 operands, the producers write what each
+//       product rounds its operand to anyway: the attention writes its
+//       output in bf16 (the out projection's rounding), and LN1 writes x1
+//       twice, float32 for the residual and bf16 for FFN1 (x1.astype(w_dtype)
+//       in the TPU kernel).  A float32 x with bf16 weights (a combination
+//       the wrappers accept) is rounded to bf16 by one pass into the x1w
+//       scratch for the QKV product; with float32
+//       weights the product runs in float32 on the CUDA cores
+//       (gemm_f32_simt), so the float32 path is not rounded to TF32.
 //       For K3's QKV product, whose float32 sums are rounded to bf16 next,
 //       each 32-deep slice is summed by the tensor cores into a fresh
-//       fragment and the slices are added with Kahan's compensation.  The
-//       tensor cores' accumulator rounds more coarsely than float32
-//       additions; over all of K it rounded more q, k, v the other way from
-//       the exact sum than float32 sums do, and each such rounding of a key
-//       or value moves the attention of every query of its sequence
-//       (chip_smoke.py phase 3 checks the kernel against float32 sums);
-//   (b) the attention kernel of K1 (attention.cuh): on the float32 q, k, v
-//       for K2, on q, k, v in the weights' type for K3 (the QKV GEMM's
-//       epilogue rounds them);
+//       accumulator (wgmma with scale-d 0) and the slices are added with
+//       Kahan's compensation; the two consumers then share each tile, 64
+//       rows each, for the registers.  The tensor cores' accumulator rounds more
+//       coarsely than float32 additions; over all of K it rounded more q, k, v
+//       the other way from the exact sum than float32 sums do, and each such
+//       rounding of a key or value moves the attention of every query of its
+//       sequence (chip_smoke.py phase 3 checks the kernel against float32
+//       sums);
+//   (b) the attention kernels of K1 (attention.cuh): on K2's float32 q, k, v
+//       both products in 3xTF32 on the tensor cores with an online softmax,
+//       the output written in the weights' type; on K3's q, k, v in the
+//       weights' type (the QKV GEMM's epilogue rounds them) float32 FMA-chain
+//       scores and a bf16 tensor-core P V;
 //   (c) a residual-add + LayerNorm kernel, one warp per row.
 // K3's batch_tile does not reach this file: the GEMMs tile all rows by 128.
 // Its ffn_chunks splits the FFN into that many pairs of GEMMs over row
 // chunks, so the hidden scratch holds B*L/ffn_chunks rows.  Neither changes
-// the result.  No wgmma, TMA or warp specialisation yet, and the attention
-// runs on the CUDA cores even on K3's bf16 q, k, v: those are the next steps.
+// the result.
 //
 // C interface, bound with ctypes (every pointer and the stream a void*):
 //   int esv_encoder_block(x, mask, w_qkv, b_qkv, w_o, b_o, w_1, b_1, w_2, b_2,
 //                         ln1_scale, ln1_bias, ln2_scale, ln2_bias, out,
-//                         qkv, attn, proj, x1, hidden,
+//                         qkv, attn, proj, x1, x1w, hidden,
 //                         B, L, d, H, ffn, x_dtype, w_dtype, stream)
-//   int esv_encoder_block_tiled(the same 20 pointers,
+//   int esv_encoder_block_tiled(the same 21 pointers,
 //                               B, L, d, H, ffn, ffn_chunks, x_dtype, w_dtype, stream)
+//   int esv_block_gemm(A, W, bias, C, M, N, K, a_dtype, w_dtype, c_dtype, relu, stream)
 // Weights are row-major (out_features, in_features) in w_dtype; biases and
 // LayerNorm parameters float32; mask a (B, L) float32 key mask or null.
-// Scratch: proj and x1 (B*L, d) float32; qkv (B*L, 3d) and attn (B*L, d)
-// float32 for K2, in w_dtype for K3; hidden (B*L, ffn) in w_dtype for K2,
-// (B*L/ffn_chunks, ffn) for K3.  out is (B, L, d) in x_dtype.  Returns the
-// first CUDA error of the launches (0 on success).
+// Scratch: proj and x1 (B*L, d) float32; attn (B*L, d) and x1w (B*L, d) in
+// w_dtype (x1w, x1 rounded to bf16 and, before LN1, a float32 x rounded to
+// bf16, is null with float32 weights); qkv (B*L, 3d) float32 for K2, in
+// w_dtype for K3; hidden (B*L, ffn) in w_dtype for K2, (B*L/ffn_chunks, ffn)
+// for K3.  out is (B, L, d) in x_dtype.
+// esv_block_gemm computes C = act(A W^T + bias), A (M, K), W (N, K), C (M, N)
+// in c_dtype, relu 0 or 1: the block's product alone.  With bf16 weights A
+// is bf16 too, and the bases must be 16-byte aligned, K % 8 == 0 and
+// N % 8 == 0 (TMA's rules).
+// Returns the first CUDA error of the launches (0 on success).
 
-#include <mma.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
+#include <algorithm>
+#include <array>
 #include <cstdint>
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "attention.cuh"
 
@@ -78,167 +109,357 @@ using bf16 = __nv_bfloat16;
 
 // ---- (a) GEMM: C[m, n] = act(sum_k round_W(A[m, k]) * W[n, k] + bias[n]) ----
 
-// bf16 weights: tensor cores via WMMA.  A 128x128 tile per block of 8 warps
-// (2 x 4), each warp a 64x32 slice as 4x2 fragments of 16x16; K advances 32 at
-// a time.  Each thread stages 16 elements of one row of A and of W: the next K
-// slice is fetched into registers (16-byte loads where the row is aligned and
-// whole) while the tensor cores work on the current one.
-constexpr int kWmmaTile = 128, kWmmaK = 32, kWmmaThreads = 256, kWmmaLd = kWmmaK + 8;
+// -- bf16 A and W: wgmma fed by TMA --
 
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&p);
+constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 64, kGemmStages = 4;
+constexpr int kGemmConsumers = 2;  // consumer warpgroups
+constexpr int kGemmThreads = 128 * (kGemmConsumers + 1);
+constexpr int kGemmABytes = kGemmBM * kGemmBK * 2, kGemmWBytes = kGemmBN * kGemmBK * 2;
+static_assert(kGemmBK * 2 == 128, "one 128-byte swizzle row per tile row");
+// the ring, its barriers, and 1 KB to align the ring to the swizzle's 1 KB atoms
+constexpr int kGemmSmem = kGemmStages * (kGemmABytes + kGemmWBytes) + 2 * kGemmStages * 8 + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// 16 elements of a row starting at src, rounded to bf16 and packed; elements
-// at and past `valid` read as zero.
-template <typename T>
-__device__ __forceinline__ void fetch16(const T* __restrict__ src, int valid, bool vec,
-                                        uint4 (&dst)[2]) {
-  unsigned w[8];
-  if (vec && valid == 16) {
-    if constexpr (std::is_same<T, bf16>::value) {
-      dst[0] = reinterpret_cast<const uint4*>(src)[0];
-      dst[1] = reinterpret_cast<const uint4*>(src)[1];
-      return;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 f = reinterpret_cast<const float4*>(src)[i];
-        w[2 * i] = pack_bf16x2(f.x, f.y);
-        w[2 * i + 1] = pack_bf16x2(f.z, f.w);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float lo = 2 * i < valid ? to_float(src[2 * i]) : 0.f;
-      const float hi = 2 * i + 1 < valid ? to_float(src[2 * i + 1]) : 0.f;
-      w[i] = pack_bf16x2(lo, hi);
-    }
-  }
-  dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+// box (64 K, 128 rows) at (k0, row0) of a 2-D tensor map into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int k0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
+      : "memory");
 }
 
-template <typename TA, typename TC, bool kRelu, bool kCompensated>
-__global__ void __launch_bounds__(kWmmaThreads) gemm_bf16_wmma(
-    const TA* __restrict__ A, const bf16* __restrict__ W, const float* __restrict__ bias,
-    TC* __restrict__ C, int M, int N, int K, bool vec) {
-  using namespace nvcuda;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-  __shared__ __align__(128) bf16 As[kWmmaTile][kWmmaLd];
-  __shared__ __align__(128) bf16 Ws[kWmmaTile][kWmmaLd];
-  __shared__ __align__(128) float stage[kWmmaThreads / 32][16][16];
+// wgmma descriptor of a K-major tile in TMA's 128-byte swizzle: rows of 128
+// bytes, 8-row atoms 1 KB apart (stride byte offset 64 x 16 B)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
 
-  const int m0 = blockIdx.y * kWmmaTile, n0 = blockIdx.x * kWmmaTile;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  const int lrow = tid / 2, lcol = (tid % 2) * 16;  // this thread's staged row and columns
-  const int am = m0 + lrow, wr = n0 + lrow;
-  const TA* arow = A + (long long)min(am, M - 1) * K;
-  const bf16* wrow = W + (long long)min(wr, N - 1) * K;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that writes them
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  // acc: the running sums; comp: Kahan's compensation, used with kCompensated
-  Acc acc[4][2], comp[kCompensated ? 4 : 1][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  if constexpr (kCompensated) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(comp[i][j], 0.f);
+// d (+)= A[64 x 16] W[128 x 16]^T; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One block per SM walks the 128x128 output tiles (n fastest, so the blocks
+// in flight share rows of A in L2); warpgroup 2's first thread produces, the
+// A and W slices of the block's tiles in order.  Warpgroups 0 and 1 consume:
+//   * ping-pong (uncompensated products): warpgroup w takes the block's tiles
+//     w, w + 2, ..., all 128 rows of each, and the two take turns at the
+//     tensor cores (named barriers 1 and 2), so one writes its epilogue while
+//     the other's products run;
+//   * cooperative (kCompensated, whose Kahan sums need 64 more registers a
+//     thread): both take every tile, 64 rows each.
+template <typename TC, bool kRelu, bool kCompensated>
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma(
+    const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
+    const float* __restrict__ bias, TC* __restrict__ C, int M, int N, int K) {
+  constexpr bool kPingPong = !kCompensated;
+  constexpr int kHalves = kPingPong ? 2 : 1;  // 64-row halves of a tile per warpgroup
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  const uint32_t a_ring = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const uint32_t w_ring = a_ring + kGemmStages * kGemmABytes;
+  const uint32_t bars = w_ring + kGemmStages * kGemmWBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kGemmStages + s); };
+  const int tiles_n = (N + kGemmBN - 1) / kGemmBN;
+  const int tiles = (M + kGemmBM - 1) / kGemmBM * tiles_n;
+  const int kslices = (K + kGemmBK - 1) / kGemmBK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kPingPong ? 1 : kGemmConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  uint4 a_reg[2], w_reg[2];
-  auto fetch = [&](int k0) {
-    const int k = k0 + lcol, left = max(0, min(16, K - k));
-    fetch16(arow + k, am < M ? left : 0, vec, a_reg);
-    fetch16(wrow + k, wr < N ? left : 0, vec, w_reg);
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += kWmmaK) {
-    *reinterpret_cast<uint4*>(&As[lrow][lcol]) = a_reg[0];
-    *reinterpret_cast<uint4*>(&As[lrow][lcol + 8]) = a_reg[1];
-    *reinterpret_cast<uint4*>(&Ws[lrow][lcol]) = w_reg[0];
-    *reinterpret_cast<uint4*>(&Ws[lrow][lcol + 8]) = w_reg[1];
-    __syncthreads();
-    if (k0 + kWmmaK < K) fetch(k0 + kWmmaK);
-    if constexpr (kCompensated) {
-      // the slice's 32 products summed by the tensor cores into a fresh
-      // fragment, then added to the running sum with Kahan's compensation:
-      // the tensor cores' own accumulation rounds more coarsely than float32
-      // additions, and it then spans 32 products instead of all K
-      FragB bfr[2][2];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bfr[kk][j], &Ws[wn + 16 * j][16 * kk], kWmmaLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        FragA af[2];
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          wmma::load_matrix_sync(af[kk], &As[wm + 16 * i][16 * kk], kWmmaLd);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          Acc part;
-          wmma::fill_fragment(part, 0.f);
-          wmma::mma_sync(part, af[0], bfr[0][j], part);
-          wmma::mma_sync(part, af[1], bfr[1][j], part);
-#pragma unroll
-          for (int e = 0; e < part.num_elements; ++e) {
-            const float y = part.x[e] - comp[i][j].x[e];
-            const float t = acc[i][j].x[e] + y;
-            comp[i][j].x[e] = (t - acc[i][j].x[e]) - y;
-            acc[i][j].x[e] = t;
+  if (wg == kGemmConsumers) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kGemmBM, n0 = tile % tiles_n * kGemmBN;
+        for (int ks = 0; ks < kslices; ++ks) {
+          mbar_wait(empty(stage), phase ^ 1);
+          // out-of-bounds zeros count towards the bytes too
+          mbar_expect_tx(full(stage), kGemmABytes + kGemmWBytes);
+          tma_load_2d(a_ring + stage * kGemmABytes, &tma_a, full(stage), ks * kGemmBK, m0);
+          tma_load_2d(w_ring + stage * kGemmWBytes, &tma_w, full(stage), ks * kGemmBK, n0);
+          if (++stage == kGemmStages) {
+            stage = 0;
+            phase ^= 1;
           }
         }
       }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kWmmaK; kk += 16) {
-        FragA af[4];
-        FragB bfr[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(af[i], &As[wm + 16 * i][kk], kWmmaLd);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bfr[j], &Ws[wn + 16 * j][kk], kWmmaLd);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      }
     }
-    __syncthreads();
-  }
-  // epilogue: each fragment through the warp's 16x16 stage, bias and ReLU fused
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+    const int step = kPingPong ? kGemmConsumers : 1;
+    // i: the tile's place in the block's sequence, which fixes the ring
+    // position of its first slice
+    for (int i = kPingPong ? wg : 0, tile = blockIdx.x + i * gridDim.x; tile < tiles;
+         i += step, tile += step * gridDim.x) {
+      const int m0 = tile / tiles_n * kGemmBM, n0 = tile % tiles_n * kGemmBN;
+      int stage = i * kslices % kGemmStages;
+      uint32_t phase = (i * kslices / kGemmStages) & 1;
+      // wait for the other warpgroup to have issued the previous tile: a
+      // stage's full barrier is then at most one phase behind this wait
+      if (kPingPong && i > 0) named_sync(1 + wg, 2 * 128);
+      float acc[kHalves][64];
+      float comp[kCompensated ? 64 : 1];  // Kahan's compensation
+      if constexpr (kCompensated) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 64; ++e) acc[0][e] = comp[e] = 0.f;
+      }
+      int prev = 0;
+      for (int ks = 0; ks < kslices; ++ks) {
+        mbar_wait(full(stage), phase);
+        const uint32_t a_t = a_ring + stage * kGemmABytes + (kPingPong ? 0 : wg * 64 * 128);
+        const uint32_t w_t = w_ring + stage * kGemmWBytes;
+        if constexpr (!kCompensated) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(&stage[warp][0][0], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + wm + 16 * i + e / 16, n = n0 + wn + 16 * j + e % 16;
-        if (m < M && n < N) {
-          float val = stage[warp][e / 16][e % 16] + bias[n];
-          if (kRelu) val = fmaxf(val, 0.f);
-          C[(long long)m * N + n] = from_float<TC>(val);
+          for (int h = 0; h < kHalves; ++h) fence_operands(acc[h]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kGemmBK / 16; ++kk)
+#pragma unroll
+            for (int h = 0; h < kHalves; ++h)
+              wgmma_m64n128k16(acc[h], sw128_desc(a_t + h * 64 * 128 + 32 * kk),
+                               sw128_desc(w_t + 32 * kk), (ks > 0 || kk > 0) ? 1 : 0);
+          wgmma_commit();
+#pragma unroll
+          for (int h = 0; h < kHalves; ++h) fence_operands(acc[h]);
+          if (ks > 0) {  // the previous slice's products are done: free its stage
+            wgmma_wait<1>();
+            if (tid == 0) mbar_arrive(empty(prev));
+          }
+        } else {
+          // each 32-deep slice summed by the tensor cores into a fresh
+          // accumulator, then added to the running sum with Kahan's
+          // compensation
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float part[64];
+            fence_operands(part);
+            wgmma_fence();
+            wgmma_m64n128k16(part, sw128_desc(a_t + 64 * half), sw128_desc(w_t + 64 * half), 0);
+            wgmma_m64n128k16(part, sw128_desc(a_t + 64 * half + 32),
+                             sw128_desc(w_t + 64 * half + 32), 1);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operands(part);
+#pragma unroll
+            for (int e = 0; e < 64; ++e) {
+              const float y = part[e] - comp[e];
+              const float s = acc[0][e] + y;
+              comp[e] = (s - acc[0][e]) - y;
+              acc[0][e] = s;
+            }
+          }
+          if (tid == 0) mbar_arrive(empty(stage));
+        }
+        prev = stage;
+        if (++stage == kGemmStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      __syncwarp();
+      // the other warpgroup's next tile may start, if there is one
+      if (kPingPong && tile + gridDim.x < tiles) named_arrive(2 - wg, 2 * 128);
+      if constexpr (!kCompensated) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) fence_operands(acc[h]);
+        if (tid == 0) mbar_arrive(empty(prev));
+      }
+      // epilogue: acc[h][4j + 2r + e] is row 64 h' + 16 warp + g + 8r, column
+      // 8j + 2t + e, where h' is h (ping-pong) or wg (cooperative)
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        const int row = m0 + (kPingPong ? h : wg) * 64 + warp * 16 + g;
+#pragma unroll
+        for (int j = 0; j < kGemmBN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * t;
+          if (col < N) {  // N % 8 == 0, so col + 1 < N too
+            const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              if (row + 8 * r < M) {
+                float v0 = acc[h][4 * j + 2 * r] + b0, v1 = acc[h][4 * j + 2 * r + 1] + b1;
+                if (kRelu) {
+                  v0 = fmaxf(v0, 0.f);
+                  v1 = fmaxf(v1, 0.f);
+                }
+                store2(C + (long long)(row + 8 * r) * N + col, v0, v1);
+              }
+            }
+          }
+        }
+      }
     }
+  }
 }
 
-// float32 weights: float32 FMAs on the CUDA cores.  256 threads, each a 4x4
-// block of the 64x64 tile; K advances 16 at a time.  A and W tiles are stored
-// k-major so a thread's four rows (columns) are contiguous.
+// Tensor maps, encoded by cuTensorMapEncodeTiled looked up at run time (no
+// link to libcuda) and cached by (base, rows, K): the descriptor depends on
+// nothing else.
+static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  });
+  return fn;
+}
+
+static cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int rows, int K) {
+  static std::mutex lock;
+  static std::map<std::tuple<uintptr_t, int, int>, std::array<uint64_t, 16>> cache;
+  static_assert(sizeof(CUtensorMap) == sizeof(std::array<uint64_t, 16>), "tensor map size");
+  const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(base), rows, K);
+  std::lock_guard<std::mutex> guard(lock);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    std::memcpy(map, hit->second.data(), sizeof(CUtensorMap));
+    return cudaSuccess;
+  }
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
+  cuuint32_t box[2] = {kGemmBK, kGemmBM};  // kGemmBN rows of W, the same
+  cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
+             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  if (cache.size() >= 1024) cache.clear();
+  std::memcpy(cache[key].data(), map, sizeof(CUtensorMap));
+  return cudaSuccess;
+}
+
+template <typename TC, bool kRelu, bool kCompensated>
+cudaError_t gemm_wgmma(const bf16* A, const bf16* W, const float* bias, TC* C, int M, int N, int K,
+                       cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  if (!aligned16(A) || !aligned16(W) || K % 8 || N % 8 ||
+      reinterpret_cast<uintptr_t>(C) % (2 * sizeof(TC)))
+    return cudaErrorMisalignedAddress;
+  alignas(64) CUtensorMap ta, tw;
+  cudaError_t err;
+  if ((err = tensor_map(&ta, A, M, K)) || (err = tensor_map(&tw, W, N, K))) return err;
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  const auto kernel = gemm_bf16_wgmma<TC, kRelu, kCompensated>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem)))
+    return err;
+  const long long tiles =
+      (long long)((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
+  kernel<<<(int)std::min<long long>(tiles, sms), kGemmThreads, kGemmSmem, s>>>(ta, tw, bias, C, M,
+                                                                              N, K);
+  return cudaGetLastError();
+}
+
+// -- float32 A with bf16 W: A rounded to bf16 first, into scratch --
+// TMA reads A as it lies in memory, so a float32 left operand (x in float32
+// for the QKV product, a combination the wrappers accept) is rounded to bf16
+// by this pass, as the product rounds it anyway, and then takes the wgmma path.
+__global__ void round_to_bf16(const float* __restrict__ src, bf16* __restrict__ dst,
+                              long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+// -- float32 W: float32 FMAs on the CUDA cores --
+// 256 threads, each a 4x4 block of the 64x64 tile; K advances 16 at a time.
+// A and W tiles are stored k-major so a thread's four rows (columns) are
+// contiguous.
 constexpr int kTileM = 64, kTileN = 64, kSimtK = 16, kSimtThreads = 256;
 
 template <typename TA, typename TC, bool kRelu>
@@ -290,32 +511,35 @@ __global__ void __launch_bounds__(kSimtThreads) gemm_f32_simt(
 
 // kCompensated (bf16 weights only): each 32-deep slice summed by the tensor
 // cores apart and the slices added with Kahan's compensation, for products
-// whose float32 sums are rounded to bf16 next (K3's q, k, v).
+// whose float32 sums are rounded to bf16 next (K3's q, k, v).  bf16 weights
+// take a bf16 A (a float32 one is rounded by round_to_bf16 first).
 template <typename TA, typename TC, bool kRelu, bool kCompensated = false>
 cudaError_t gemm(const TA* A, const void* W, int w_dtype, const float* bias, TC* C, int M, int N,
                  int K, cudaStream_t s) {
   if (w_dtype == kBFloat16) {
-    // 16-byte loads need 16-byte aligned rows: aligned bases and K % 8 == 0
-    const bool vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(W) % 16 == 0;
-    const dim3 grid((N + kWmmaTile - 1) / kWmmaTile, (M + kWmmaTile - 1) / kWmmaTile);
-    gemm_bf16_wmma<TA, TC, kRelu, kCompensated>
-        <<<grid, kWmmaThreads, 0, s>>>(A, static_cast<const bf16*>(W), bias, C, M, N, K, vec);
+    if constexpr (std::is_same<TA, bf16>::value)
+      return gemm_wgmma<TC, kRelu, kCompensated>(A, static_cast<const bf16*>(W), bias, C, M, N,
+                                                 K, s);
+    else
+      return cudaErrorInvalidValue;
   } else {
     const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    gemm_f32_simt<TA, TC, kRelu><<<grid, kSimtThreads, 0, s>>>(A, static_cast<const float*>(W), bias, C, M, N, K);
+    gemm_f32_simt<TA, TC, kRelu>
+        <<<grid, kSimtThreads, 0, s>>>(A, static_cast<const float*>(W), bias, C, M, N, K);
   }
   return cudaGetLastError();
 }
 
 // ---- (c) out[m] = LN(res[m] + y[m]) * scale + bias, float32 statistics ----
+// out2, where not null, gets the same values rounded to TO2.
 
 constexpr int kLnThreads = 256;
 
-template <typename TR, typename TO>
+template <typename TR, typename TO, typename TO2>
 __global__ void __launch_bounds__(kLnThreads) add_layernorm(
     const TR* __restrict__ res, const float* __restrict__ y, const float* __restrict__ scale,
-    const float* __restrict__ bias, TO* __restrict__ out, int M, int N, float eps) {
+    const float* __restrict__ bias, TO* __restrict__ out, TO2* __restrict__ out2, int M, int N,
+    float eps) {
   const int row = blockIdx.x * (kLnThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
   const TR* r = res + (long long)row * N;
@@ -330,43 +554,72 @@ __global__ void __launch_bounds__(kLnThreads) add_layernorm(
   }
   const float inv = 1.0f / sqrtf(warp_sum(sq) / N + eps);
   TO* o = out + (long long)row * N;
+  TO2* o2 = out2 == nullptr ? nullptr : out2 + (long long)row * N;
   for (int j = lane; j < N; j += 32) {
     const float t = to_float(r[j]) + yr[j];
-    o[j] = from_float<TO>((t - mean) * inv * scale[j] + bias[j]);
+    const float val = (t - mean) * inv * scale[j] + bias[j];
+    o[j] = from_float<TO>(val);
+    if (o2 != nullptr) o2[j] = from_float<TO2>(val);
   }
 }
 
-template <typename TR, typename TO>
+template <typename TR, typename TO, typename TO2 = TO>
 cudaError_t layernorm(const TR* res, const float* y, const float* scale, const float* bias, TO* out,
-                      int M, int N, cudaStream_t s) {
+                      TO2* out2, int M, int N, cudaStream_t s) {
   const int rows_per_block = kLnThreads / 32;
-  add_layernorm<TR, TO><<<(M + rows_per_block - 1) / rows_per_block, kLnThreads, 0, s>>>(
-      res, y, scale, bias, out, M, N, 1e-6f);
+  add_layernorm<TR, TO, TO2><<<(M + rows_per_block - 1) / rows_per_block, kLnThreads, 0, s>>>(
+      res, y, scale, bias, out, out2, M, N, 1e-6f);
   return cudaGetLastError();
 }
 
 // ---- the block ----
 
+// The QKV product, x W_qkv^T + b: with bf16 weights a float32 x is rounded
+// to bf16 into `spare` (the (B*L, d) x1w scratch, free until LN1) first.
+template <bool kCompensated, typename TX, typename TW, typename TC>
+cudaError_t qkv_gemm(const TX* x, TW* spare, const TW* w, const float* b, TC* qkv, int M, int d,
+                     cudaStream_t s) {
+  const int wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
+  if constexpr (std::is_same<TX, float>::value && std::is_same<TW, bf16>::value) {
+    round_to_bf16<<<1024, 256, 0, s>>>(x, spare, (long long)M * d);
+    if (cudaError_t err = cudaGetLastError()) return err;
+    return gemm<bf16, TC, false, kCompensated>(spare, w, wd, b, qkv, M, 3 * d, d, s);
+  } else {
+    return gemm<TX, TC, false, kCompensated>(x, w, wd, b, qkv, M, 3 * d, d, s);
+  }
+}
+
+// x1 as FFN1's left operand: bf16 weights read LN1's bf16 copy, float32
+// weights the float32 x1
+template <typename TW>
+const TW* ffn1_operand(const float* x1, const TW* x1w) {
+  if constexpr (std::is_same<TW, float>::value) return x1;
+  else return x1w;
+}
+
 template <typename TX, typename TW>
 cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const float* b_qkv,
                           const TW* w_o, const float* b_o, const TW* w_1, const float* b_1,
                           const TW* w_2, const float* b_2, const float* ln1_s, const float* ln1_b,
-                          const float* ln2_s, const float* ln2_b, TX* out, float* qkv, float* attn,
-                          float* proj, float* x1, TW* hidden, int B, int L, int d, int H, int ffn,
-                          cudaStream_t s) {
+                          const float* ln2_s, const float* ln2_b, TX* out, float* qkv, TW* attn,
+                          float* proj, float* x1, TW* x1w, TW* hidden, int B, int L, int d, int H,
+                          int ffn, cudaStream_t s) {
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
+  TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
-  if ((err = gemm<TX, float, false>(x, w_qkv, wd, b_qkv, qkv, M, 3 * d, d, s))) return err;
-  // heads read q, k and v straight out of the (B, L, 3d) projection buffer
+  if ((err = qkv_gemm<false>(x, x1w, w_qkv, b_qkv, qkv, M, d, s))) return err;
+  // heads read q, k and v straight out of the (B, L, 3d) projection buffer;
+  // the output is rounded to the weights' type, the out projection's rounding
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_attention<float>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H, qkv_bs,
-                                     qkv_rs, (long long)L * d, d, s)))
+  if ((err = launch_attention<float, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
+                                         qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
-  if ((err = gemm<float, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
-  if ((err = layernorm<TX, float>(x, proj, ln1_s, ln1_b, x1, M, d, s))) return err;
-  if ((err = gemm<float, TW, true>(x1, w_1, wd, b_1, hidden, M, ffn, d, s))) return err;
+  if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
+  if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
+  if ((err = gemm<TW, TW, true>(ffn1_operand(x1, x1w), w_1, wd, b_1, hidden, M, ffn, d, s)))
+    return err;
   if ((err = gemm<TW, float, false>(hidden, w_2, wd, b_2, proj, M, d, ffn, s))) return err;
-  return layernorm<float, TX>(x1, proj, ln2_s, ln2_b, out, M, d, s);
+  return layernorm<float, TX>(x1, proj, ln2_s, ln2_b, out, static_cast<TX*>(nullptr), M, d, s);
 }
 
 // K3: q, k, v and the attention output in the weights' type; the FFN in
@@ -377,48 +630,54 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
                                 const TW* w_1, const float* b_1, const TW* w_2, const float* b_2,
                                 const float* ln1_s, const float* ln1_b, const float* ln2_s,
                                 const float* ln2_b, TX* out, TW* qkv, TW* attn, float* proj,
-                                float* x1, TW* hidden, int B, int L, int d, int H, int ffn,
-                                int chunks, cudaStream_t s) {
+                                float* x1, TW* x1w, TW* hidden, int B, int L, int d, int H,
+                                int ffn, int chunks, cudaStream_t s) {
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
   if (chunks < 1 || M % chunks) return cudaErrorInvalidValue;
+  TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
-  if ((err = gemm<TX, TW, false, true>(x, w_qkv, wd, b_qkv, qkv, M, 3 * d, d, s))) return err;
+  if ((err = qkv_gemm<true>(x, x1w, w_qkv, b_qkv, qkv, M, d, s))) return err;
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_attention<TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H, qkv_bs,
-                                  qkv_rs, (long long)L * d, d, s)))
+  if ((err = launch_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
+                                      qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
-  if ((err = layernorm<TX, float>(x, proj, ln1_s, ln1_b, x1, M, d, s))) return err;
+  if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
+  const TW* x1a = ffn1_operand(x1, x1w);
   const int rows = M / chunks;
   for (int c = 0; c < chunks; ++c) {
     const long long r0 = (long long)c * rows * d;
-    if ((err = gemm<float, TW, true>(x1 + r0, w_1, wd, b_1, hidden, rows, ffn, d, s))) return err;
+    if ((err = gemm<TW, TW, true>(x1a + r0, w_1, wd, b_1, hidden, rows, ffn, d, s))) return err;
     if ((err = gemm<TW, float, false>(hidden, w_2, wd, b_2, proj + r0, rows, d, ffn, s)))
       return err;
   }
-  return layernorm<float, TX>(x1, proj, ln2_s, ln2_b, out, M, d, s);
+  return layernorm<float, TX>(x1, proj, ln2_s, ln2_b, out, static_cast<TX*>(nullptr), M, d, s);
 }
 
 }  // namespace esv
+
+#define ESV_BLOCK_ARGS(TX, TW)                                                              \
+  static_cast<const TX*>(x), f(mask), static_cast<const TW*>(w_qkv), f(b_qkv),              \
+      static_cast<const TW*>(w_o), f(b_o), static_cast<const TW*>(w_1), f(b_1),             \
+      static_cast<const TW*>(w_2), f(b_2), f(ln1_s), f(ln1_b), f(ln2_s), f(ln2_b),          \
+      static_cast<TX*>(out)
 
 extern "C" int esv_encoder_block(const void* x, const void* mask, const void* w_qkv,
                                  const void* b_qkv, const void* w_o, const void* b_o,
                                  const void* w_1, const void* b_1, const void* w_2,
                                  const void* b_2, const void* ln1_s, const void* ln1_b,
                                  const void* ln2_s, const void* ln2_b, void* out, void* qkv,
-                                 void* attn, void* proj, void* x1, void* hidden, int B, int L,
-                                 int d, int H, int ffn, int x_dtype, int w_dtype, void* stream) {
+                                 void* attn, void* proj, void* x1, void* x1w, void* hidden, int B,
+                                 int L, int d, int H, int ffn, int x_dtype, int w_dtype,
+                                 void* stream) {
   using esv::bf16;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ESV_BLOCK(TX, TW)                                                                        \
-  return esv::encoder_block<TX, TW>(                                                             \
-      static_cast<const TX*>(x), f(mask), static_cast<const TW*>(w_qkv), f(b_qkv),               \
-      static_cast<const TW*>(w_o), f(b_o), static_cast<const TW*>(w_1), f(b_1),                  \
-      static_cast<const TW*>(w_2), f(b_2), f(ln1_s), f(ln1_b), f(ln2_s), f(ln2_b),               \
-      static_cast<TX*>(out), static_cast<float*>(qkv), static_cast<float*>(attn),                \
-      static_cast<float*>(proj), static_cast<float*>(x1), static_cast<TW*>(hidden), B, L, d, H, \
-      ffn, s)
+#define ESV_BLOCK(TX, TW)                                                                      \
+  return esv::encoder_block<TX, TW>(ESV_BLOCK_ARGS(TX, TW), static_cast<float*>(qkv),          \
+                                    static_cast<TW*>(attn), static_cast<float*>(proj),         \
+                                    static_cast<float*>(x1), static_cast<TW*>(x1w),            \
+                                    static_cast<TW*>(hidden), B, L, d, H, ffn, s)
   if (x_dtype == esv::kFloat32 && w_dtype == esv::kFloat32) { ESV_BLOCK(float, float); }
   if (x_dtype == esv::kFloat32 && w_dtype == esv::kBFloat16) { ESV_BLOCK(float, bf16); }
   if (x_dtype == esv::kBFloat16 && w_dtype == esv::kFloat32) { ESV_BLOCK(bf16, float); }
@@ -432,24 +691,48 @@ extern "C" int esv_encoder_block_tiled(const void* x, const void* mask, const vo
                                        const void* w_1, const void* b_1, const void* w_2,
                                        const void* b_2, const void* ln1_s, const void* ln1_b,
                                        const void* ln2_s, const void* ln2_b, void* out, void* qkv,
-                                       void* attn, void* proj, void* x1, void* hidden, int B,
-                                       int L, int d, int H, int ffn, int ffn_chunks, int x_dtype,
-                                       int w_dtype, void* stream) {
+                                       void* attn, void* proj, void* x1, void* x1w, void* hidden,
+                                       int B, int L, int d, int H, int ffn, int ffn_chunks,
+                                       int x_dtype, int w_dtype, void* stream) {
   using esv::bf16;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ESV_TILED(TX, TW)                                                                        \
-  return esv::encoder_block_tiled<TX, TW>(                                                       \
-      static_cast<const TX*>(x), f(mask), static_cast<const TW*>(w_qkv), f(b_qkv),               \
-      static_cast<const TW*>(w_o), f(b_o), static_cast<const TW*>(w_1), f(b_1),                  \
-      static_cast<const TW*>(w_2), f(b_2), f(ln1_s), f(ln1_b), f(ln2_s), f(ln2_b),               \
-      static_cast<TX*>(out), static_cast<TW*>(qkv), static_cast<TW*>(attn),                      \
-      static_cast<float*>(proj), static_cast<float*>(x1), static_cast<TW*>(hidden), B, L, d, H,  \
-      ffn, ffn_chunks, s)
+#define ESV_TILED(TX, TW)                                                                      \
+  return esv::encoder_block_tiled<TX, TW>(ESV_BLOCK_ARGS(TX, TW), static_cast<TW*>(qkv),       \
+                                          static_cast<TW*>(attn), static_cast<float*>(proj),   \
+                                          static_cast<float*>(x1), static_cast<TW*>(x1w),      \
+                                          static_cast<TW*>(hidden), B, L, d, H, ffn,           \
+                                          ffn_chunks, s)
   if (x_dtype == esv::kFloat32 && w_dtype == esv::kFloat32) { ESV_TILED(float, float); }
   if (x_dtype == esv::kFloat32 && w_dtype == esv::kBFloat16) { ESV_TILED(float, bf16); }
   if (x_dtype == esv::kBFloat16 && w_dtype == esv::kFloat32) { ESV_TILED(bf16, float); }
   if (x_dtype == esv::kBFloat16 && w_dtype == esv::kBFloat16) { ESV_TILED(bf16, bf16); }
 #undef ESV_TILED
+  return cudaErrorInvalidValue;
+}
+
+#undef ESV_BLOCK_ARGS
+
+extern "C" int esv_block_gemm(const void* A, const void* W, const void* bias, void* C, int M, int N,
+                              int K, int a_dtype, int w_dtype, int c_dtype, int relu,
+                              void* stream) {
+  using esv::bf16;
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((a_dtype != esv::kFloat32 && a_dtype != esv::kBFloat16) ||
+      (w_dtype != esv::kFloat32 && w_dtype != esv::kBFloat16))
+    return cudaErrorInvalidValue;
+#define ESV_GEMM(TA, TC, RELU)                                                            \
+  return esv::gemm<TA, TC, RELU>(static_cast<const TA*>(A), W, w_dtype, b, static_cast<TC*>(C), \
+                                 M, N, K, s)
+#define ESV_GEMM_RELU(TA, TC)    \
+  if (relu) { ESV_GEMM(TA, TC, true); } \
+  ESV_GEMM(TA, TC, false)
+  if (a_dtype == esv::kBFloat16 && c_dtype == esv::kFloat32) { ESV_GEMM_RELU(bf16, float); }
+  if (a_dtype == esv::kBFloat16 && c_dtype == esv::kBFloat16) { ESV_GEMM_RELU(bf16, bf16); }
+  if (a_dtype == esv::kFloat32 && c_dtype == esv::kFloat32) { ESV_GEMM_RELU(float, float); }
+  if (a_dtype == esv::kFloat32 && c_dtype == esv::kBFloat16) { ESV_GEMM_RELU(float, bf16); }
+#undef ESV_GEMM_RELU
+#undef ESV_GEMM
   return cudaErrorInvalidValue;
 }

@@ -21,12 +21,12 @@ import torch
 from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
 
-__all__ = ["fused_attention", "attention_eligible", "key_mask_f32", "HEAD_DIMS", "MAX_LEN",
-           "DTYPE_CODES"]
+__all__ = ["fused_attention", "attention_eligible", "check_attention", "key_mask_f32",
+           "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (128,)  # the model's (d=512, 4 heads); instantiated in csrc/attention.cuh
-MAX_LEN = 1024  # the score rows of 32 queries must fit in shared memory
+MAX_LEN = 1024  # bf16 keeps 224 keys' scores in registers; longer rows take two passes
 
 
 def attention_eligible(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
@@ -47,10 +47,31 @@ def key_mask_f32(mask: Optional[torch.Tensor], batch: int, length: int) -> Optio
     return mask.to(torch.float32).expand(batch, length).contiguous()
 
 
+def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these (B, L, H, D) tensors:
+    one shape, dtype and device, a dtype of :data:`DTYPE_CODES`, a head dim
+    of :data:`HEAD_DIMS`, at most :data:`MAX_LEN` keys, contiguous and
+    16-byte aligned (the kernel copies 16 bytes at a time)."""
+    b, length, heads, head_dim = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"fused_attention: {name} must match q's shape, dtype and device")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"fused_attention: dtype {q.dtype} not in {list(DTYPE_CODES)}")
+    if head_dim not in HEAD_DIMS or length > MAX_LEN or b > 65535 or heads > 65535:
+        raise ValueError(
+            f"fused_attention: head dim {head_dim} must be one of {HEAD_DIMS}, "
+            f"length {length} at most {MAX_LEN}, batch and heads at most 65535")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("fused_attention: q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("fused_attention: q, k and v must start on 16-byte boundaries")
+
+
 def _esv_attention():
     fn = _build.load("fused_attention").esv_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,18 +91,8 @@ def fused_attention(
         return dot_product_attention(q, k, v, mask)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
+    check_attention(q, k, v)
     b, length, heads, head_dim = q.shape
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"fused_attention: {name} must match q's shape, dtype and device")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"fused_attention: dtype {q.dtype} not in {list(DTYPE_CODES)}")
-    if head_dim not in HEAD_DIMS or length > MAX_LEN or b > 65535 or heads > 65535:
-        raise ValueError(
-            f"fused_attention: head dim {head_dim} must be one of {HEAD_DIMS}, "
-            f"length {length} at most {MAX_LEN}, batch and heads at most 65535")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fused_attention: q, k and v must be contiguous")
     mask_f = key_mask_f32(mask, b, length)
     if mask_f is not None:
         mask_f = mask_f.to(q.device)
@@ -93,7 +104,7 @@ def fused_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
             b, heads, length, head_dim, *strides, *strides, DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "esv_attention")
     return out
 

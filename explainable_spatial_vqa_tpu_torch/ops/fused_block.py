@@ -26,9 +26,11 @@ that many pairs of launches, so the (rows, ffn) hidden scratch is that many
 times smaller, as the TPU kernel keeps its hidden within VMEM.
 
 The kernels are in ``csrc/fused_block.cu`` (a GEMM with a fused bias/ReLU
-epilogue, the K1 attention kernel, a residual-add + LayerNorm kernel), all
-launched by one C call per block: ``esv_encoder_block`` for K2,
-``esv_encoder_block_tiled`` for K3.  :func:`fused_encoder_block_plain` and
+epilogue, wgmma fed by TMA for bf16 operands; the K1 attention kernel; a
+residual-add + LayerNorm kernel), all launched by one C call per block:
+``esv_encoder_block`` for K2, ``esv_encoder_block_tiled`` for K3.  The GEMM
+alone is :func:`~explainable_spatial_vqa_tpu_torch.ops.block_gemm.block_gemm`.
+:func:`fused_encoder_block_plain` and
 :func:`fused_encoder_block_tiled_plain` are their plain PyTorch versions.  A
 CPU tensor runs the plain version; a CUDA tensor launches the kernels or
 raises.  There is no backward: the encoder routes to K2 only in eval mode,
@@ -38,7 +40,7 @@ and nothing in the model routes to K3 (``bench_block`` drives it).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -51,7 +53,7 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     key_mask_f32,
 )
 
-__all__ = ["BlockWeights", "fuse_encoder_params", "fused_encoder_block",
+__all__ = ["BlockWeights", "block_scratch", "fuse_encoder_params", "fused_encoder_block",
            "fused_encoder_block_plain", "fused_encoder_block_tiled",
            "fused_encoder_block_tiled_plain", "pad_len", "LN_EPS"]
 
@@ -222,15 +224,37 @@ def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: 
             raise ValueError(
                 f"{name}: weight {key} must be a contiguous {want_shape} "
                 f"{want_dtype} tensor on {x.device}")
+    if ffn % 8:
+        raise ValueError(f"{name}: ffn {ffn} must be a multiple of 8")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, *weights)):
+        raise ValueError(f"{name}: x and the weights must start on 16-byte boundaries")
+
+
+def block_scratch(x: torch.Tensor, weights: BlockWeights, tiled: bool,
+                  ffn_chunks: int = 1) -> List[Optional[torch.Tensor]]:
+    """The scratch of one block launch, in the C interface's order: qkv
+    (B*L, 3d), float32 for K2 and in the weights' type for K3; attn (B*L, d)
+    in the weights' type (the out projection's rounding); proj and x1 (B*L,
+    d) float32; x1w, x1 rounded to bf16 for FFN1's TMA loads (None with
+    float32 weights); hidden (B*L / ffn_chunks, ffn) in the weights' type."""
+    batch, length, d_model = x.shape
+    rows, wdt, ffn = batch * length, weights.qkv.dtype, weights.ffn1.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    w = dict(dtype=wdt, device=x.device)
+    return [torch.empty(rows, 3 * d_model, **(w if tiled else f32)),
+            torch.empty(rows, d_model, **w),
+            torch.empty(rows, d_model, **f32), torch.empty(rows, d_model, **f32),
+            None if wdt == torch.float32 else torch.empty(rows, d_model, **w),
+            torch.empty(rows // ffn_chunks, ffn, **w)]
 
 
 def _entry(name: str, ints: int):
-    """The C entry point ``name`` of ``csrc/fused_block.cu``: 20 pointers,
+    """The C entry point ``name`` of ``csrc/fused_block.cu``: 21 pointers,
     ``ints`` ints, the stream."""
     fn = getattr(_build.load("fused_block"), name)
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -264,14 +288,10 @@ def fused_encoder_block(
         return fused_encoder_block_plain(x, mask, weights, num_heads)
     _check_launch("fused_encoder_block", x, weights, num_heads)
     batch, length, d_model = x.shape
-    rows, wdt, ffn = batch * length, weights.qkv.dtype, weights.ffn1.shape[0]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    scratch = [torch.empty(rows, 3 * d_model, **f32), torch.empty(rows, d_model, **f32),
-               torch.empty(rows, d_model, **f32), torch.empty(rows, d_model, **f32),
-               torch.empty(rows, ffn, dtype=wdt, device=x.device)]
+    scratch = block_scratch(x, weights, tiled=False)
     return _launch(fused_encoder_block, "esv_encoder_block", x, mask, weights, scratch,
-                   (batch, length, d_model, num_heads, ffn, DTYPE_CODES[x.dtype],
-                    DTYPE_CODES[wdt]))
+                   (batch, length, d_model, num_heads, weights.ffn1.shape[0],
+                    DTYPE_CODES[x.dtype], DTYPE_CODES[weights.qkv.dtype]))
 
 
 fused_encoder_block.launches = 0
@@ -293,15 +313,10 @@ def fused_encoder_block_tiled(
         return fused_encoder_block_tiled_plain(x, mask, weights, num_heads, batch_tile,
                                                ffn_chunks)
     _check_launch("fused_encoder_block_tiled", x, weights, num_heads)
-    rows, wdt, ffn = batch * length, weights.qkv.dtype, weights.ffn1.shape[0]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    scratch = [torch.empty(rows, 3 * d_model, dtype=wdt, device=x.device),
-               torch.empty(rows, d_model, dtype=wdt, device=x.device),
-               torch.empty(rows, d_model, **f32), torch.empty(rows, d_model, **f32),
-               torch.empty(rows // ffn_chunks, ffn, dtype=wdt, device=x.device)]
+    scratch = block_scratch(x, weights, tiled=True, ffn_chunks=ffn_chunks)
     return _launch(fused_encoder_block_tiled, "esv_encoder_block_tiled", x, mask, weights, scratch,
-                   (batch, length, d_model, num_heads, ffn, ffn_chunks,
-                    DTYPE_CODES[x.dtype], DTYPE_CODES[wdt]))
+                   (batch, length, d_model, num_heads, weights.ffn1.shape[0], ffn_chunks,
+                    DTYPE_CODES[x.dtype], DTYPE_CODES[weights.qkv.dtype]))
 
 
 fused_encoder_block_tiled.launches = 0

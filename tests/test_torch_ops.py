@@ -21,8 +21,15 @@ from explainable_spatial_vqa_tpu.ops.pallas_attention import fused_attention as 
 from explainable_spatial_vqa_tpu_torch.convert import flax_to_state_dict
 from explainable_spatial_vqa_tpu_torch.models.layers import EncoderBlock
 from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm, block_gemm_plain
+from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+    HEAD_DIMS,
+    MAX_LEN,
+    check_attention,
+    fused_attention,
+)
 from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+    block_scratch,
     fuse_encoder_params,
     fused_encoder_block,
     fused_encoder_block_plain,
@@ -46,10 +53,12 @@ def _key_mask(batch, length, seed):
     return keep
 
 
-@pytest.mark.parametrize("length", [10, 16])
+@pytest.mark.parametrize("length", [10, 16, 210])
 @pytest.mark.parametrize("masked", [False, True])
 def test_k1_plain_matches_jax(length, masked):
-    """fp32, atol 1e-5: the tolerance of tests/test_pallas_attention.py."""
+    """fp32, atol 1e-5: the tolerance of tests/test_pallas_attention.py.  L=210
+    is the fusion encoder's length, where the kernel holds a whole row of
+    scores in registers before it normalises them."""
     rng = np.random.RandomState(length)
     q, k, v = (rng.randn(2, length, 2, 8).astype(np.float32) for _ in range(3))
     mask = _key_mask(2, length, 1)[:, None, None, :] if masked else None
@@ -236,3 +245,134 @@ def test_k3_contract_errors(shape, batch_tile, ffn_chunks, match):
 def test_pad_len():
     assert [pad_len(n) for n in (210, 216, 1, 14)] == [
         jax_block.pad_len(n) for n in (210, 216, 1, 14)] == [216, 216, 8, 16]
+
+
+def _gemm_inputs(m, n, k, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(m, k).astype(np.float32), (rng.randn(n, k) / np.sqrt(k)).astype(np.float32),
+            (0.02 * rng.randn(n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", [(37, 48, 64), (130, 136, 72)])
+def test_block_gemm_plain_matches_jax(w_dtype, relu, shape):
+    """The block GEMM's plain version (the wrapper on the CPU) against the TPU
+    kernel's product, jnp.dot(a.astype(w_dtype), w, preferred_element_type=
+    float32) + b with ReLU where asked (ops/pallas_block.py:126, :154-156);
+    the wrapper takes a in the weights' type (bf16 weights need a bf16 a).
+    atol 1e-5: float32 sums of at most 72 products, in another order (bf16
+    products are exact in float32).  A bf16 output is the float32 one rounded."""
+    a, w, b = _gemm_inputs(*shape, seed=sum(shape))
+    jdt = jnp.bfloat16 if w_dtype == torch.bfloat16 else jnp.float32
+    ref = jnp.dot(jnp.asarray(a).astype(jdt), jnp.asarray(w).astype(jdt).T,
+                  preferred_element_type=jnp.float32) + jnp.asarray(b)
+    ref = np.asarray(jnp.maximum(ref, 0.0) if relu else ref)
+    ta, tw = (torch.from_numpy(t).to(w_dtype) for t in (a, w))
+    tb = torch.from_numpy(b)
+    out = block_gemm(ta, tw, tb, relu)
+    assert out.dtype == torch.float32 and out.shape == (shape[0], shape[1])
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    torch.testing.assert_close(block_gemm(ta, tw, tb, relu, torch.bfloat16), out.bfloat16(),
+                               rtol=0, atol=0)
+    assert block_gemm.launches == 0  # the CPU runs the plain version
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 8, dtype=dtype)
+    return flat[1:1 + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("meta", "device"),
+    ("mixed_device", "device"),
+    ("float16", "one of"),
+    ("float32_a_bf16_w", "a must be bf16"),
+    ("bias_float64", "bias float32"),
+    ("k_mismatch", "shapes"),
+    ("bias_shape", "shapes"),
+    ("three_d", "shapes"),
+    ("not_contiguous", "contiguous"),
+    ("misaligned", "16-byte"),
+    ("k_not_multiple_of_8", "multiples of 8"),
+    ("n_not_multiple_of_8", "multiples of 8"),
+])
+def test_block_gemm_contract_errors(case, match):
+    """The wrapper raises before any launch on operands the kernel does not
+    take: device, type, shape, contiguity and TMA's alignment rules."""
+    bf = torch.bfloat16
+    a, w, b = torch.zeros(32, 64, dtype=bf), torch.zeros(48, 64, dtype=bf), torch.zeros(48)
+    out_dtype = torch.float32
+    if case == "meta":
+        a, w, b = (t.to("meta") for t in (a, w, b))
+    elif case == "mixed_device":
+        a = a.to("meta")
+    elif case == "float16":
+        a = a.half()
+    elif case == "float32_a_bf16_w":
+        a = a.float()
+    elif case == "bias_float64":
+        b = b.double()
+    elif case == "k_mismatch":
+        a = torch.zeros(32, 72, dtype=bf)
+    elif case == "bias_shape":
+        b = torch.zeros(40)
+    elif case == "three_d":
+        a = torch.zeros(2, 16, 64, dtype=bf)
+    elif case == "not_contiguous":
+        a = torch.zeros(64, 32, dtype=bf).t()
+    elif case == "misaligned":
+        a = _misaligned((32, 64), bf)
+    elif case == "k_not_multiple_of_8":
+        a, w = torch.zeros(32, 60, dtype=bf), torch.zeros(48, 60, dtype=bf)
+    elif case == "n_not_multiple_of_8":
+        w, b = torch.zeros(44, 64, dtype=bf), torch.zeros(44)
+    before = block_gemm.launches
+    with pytest.raises(ValueError, match=match):
+        block_gemm(a, w, b, out_dtype=out_dtype)
+    assert block_gemm.launches == before
+
+
+def test_block_gemm_float32_weights_take_any_alignment():
+    """TMA's rules bind only the bf16 path: float32 weights run on the CUDA
+    cores with any K, N and alignment."""
+    a = _misaligned((5, 12), torch.float32)
+    out = block_gemm(a, torch.ones(6, 12), torch.zeros(6))
+    torch.testing.assert_close(out, a.sum(1, keepdim=True).expand(5, 6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_limits_accept_what_they_did(dtype):
+    """MAX_LEN and HEAD_DIMS did not shrink: the kernel's checks take 1024
+    keys at head dim 128 and refuse one key more, another head dim, and q/k/v
+    that do not start on a 16-byte boundary (cp.async copies 16 bytes)."""
+    assert MAX_LEN == 1024 and HEAD_DIMS == (128,)
+    q = torch.zeros(1, MAX_LEN, 1, 128, dtype=dtype)
+    check_attention(q, q, q)
+    for bad, match in ((torch.zeros(1, MAX_LEN + 1, 1, 128, dtype=dtype), "length"),
+                       (torch.zeros(1, 16, 1, 64, dtype=dtype), "head dim"),
+                       (_misaligned((1, 16, 1, 128), dtype), "16-byte")):
+        with pytest.raises(ValueError, match=match):
+            check_attention(bad, bad, bad)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_block_scratch_layout(w_dtype, tiled):
+    """The scratch of one block launch, in the C interface's order: the
+    attention output in the weights' type (the out projection's rounding),
+    a bf16 copy of x1 for FFN1's TMA loads only with bf16 weights, q/k/v in
+    the weights' type for K3 and float32 for K2."""
+    block = EncoderBlock(128, 4, 256, dropout=0.0, device="cpu")
+    w = fuse_encoder_params(block, dtype=w_dtype)
+    x = torch.zeros(4, 16, 128)
+    qkv, attn, proj, x1, x1w, hidden = block_scratch(x, w, tiled=tiled, ffn_chunks=2)
+    assert qkv.shape == (64, 384) and qkv.dtype == (w_dtype if tiled else torch.float32)
+    assert attn.shape == (64, 128) and attn.dtype == w_dtype
+    assert proj.dtype == x1.dtype == torch.float32 and proj.shape == x1.shape == (64, 128)
+    if w_dtype == torch.float32:
+        assert x1w is None
+    else:
+        assert x1w.shape == (64, 128) and x1w.dtype == torch.bfloat16
+    assert hidden.shape == (32, 256) and hidden.dtype == w_dtype
