@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py        (from the root of a checkout; needs one CUDA card)
+    python3 chip_smoke.py --k3-draws 0:64      (K3's bf16 check alone on those draws)
 
 Phases, each printing its own line; the first failure exits non-zero with no
 result:
@@ -13,18 +14,25 @@ result:
    and HMMA (mma.sync) instructions (``cuobjdump -sass``): the attention
    kernels must hold HMMA, the block GEMM HGMMA;
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
-   float32 (TF32 off), with each error beside its tolerance: K1; K2's own
+   float32 (TF32 off), with each error beside its tolerance: K1, and at L=210
+   beside it ``esv_attention_tensor_scores`` (its scores on the tensor cores,
+   a variant no wrapper launches) on three draws, with the outputs each puts
+   outside the bf16 check's element-wise limit (reported, not held), and so
+   does the plain version with its score or P V sums in float64; K2's own
    float32 attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes; K2 at the fusion
-   encoder's shape; K3 at the block bench's (L=224, ``batch_tile=2,
-   ffn_chunks=2``).  In bf16, every element and the mean error are held
-   (``bf16_agreement``), and each block kernel's check has a negative control
-   that must fail it: the other block kernel's plain version (K3 rounds q, k
-   and v to bf16, K2 keeps them float32); each block also takes a float32 x
-   with its bf16 weights (x rounded to bf16 in a pass of its own);
+   encoder's shape on the draws ``BLOCK_DRAWS``; K3 at the block bench's
+   (L=224, ``batch_tile=2, ffn_chunks=2``) on ``K3_DRAWS``.  In bf16, every
+   element and the mean error are held (``bf16_agreement``), and each block
+   kernel's check has a negative control that must fail it: the other block
+   kernel's plain version (K3 rounds q, k and v to bf16, K2 keeps them
+   float32); K3's own q, k and v must equal its plain version's (``k3_qkv``,
+   which also prints how far its compensated sums lie from the exact ones);
+   each block also takes a float32 x with its bf16 weights (x rounded to
+   bf16 in a pass of its own);
 4. times at those shapes: kernel, plain version, one PyTorch library call
    computing the same function (a yardstick the port never calls), and the
-   least time the card could take (its bound);
+   least time the card could take (its bound: ``bound_ms``, ``dot_ops``);
 5. the block-bench path: ``bench_block.main`` at B=128, which launches K3
    through its entry point beside K2 and the unfused ``EncoderBlock``;
 6. the main path at full width (bench.py's widths, bf16, ``box_roi`` and
@@ -47,8 +55,8 @@ result:
     the card against the CPU, and one ``"sorted"`` pipeline run in bf16.
 
 The line before the last is a JSON object with one entry per kernel
-(``kernels``) and one per measured piece of K2 (``parts``: its float32
-attention and its four products); the last line is
+(``kernels``) and one per piece timed apart (``parts``: K2's float32
+attention and four products, and the tensor-score variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 The script imports nothing of JAX.
 """
@@ -65,15 +73,25 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: tensor-core bf16 and TF32, CUDA-core
-# float32, HBM3.
-PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+# NVIDIA H100 SXM data sheet, dense: tensor-core bf16 and TF32, HBM3.  A
+# float32 dot product's least time is its 3xTF32 form's (three TF32 products
+# for each, at 495 TFLOP/s, keep float32's accuracy, as the attention kernels
+# show), not the CUDA cores' 67 TFLOP/s: see dot_ops.
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12}
 # four K2 products at the fusion encoder's shape (B=128, L=210, d=512, ffn
 # 2048): name, N, K, ReLU, output type (bf16 for FFN1's hidden)
 K2_GEMMS = (("qkv", 1536, 512, False, "fp32"), ("out", 512, 512, False, "fp32"),
             ("ffn1", 2048, 512, True, "bf16"), ("ffn2", 512, 2048, False, "fp32"))
 GEMM_REL_TOL = 2e-5  # float32 GEMM outputs, of the largest |ref|
 PEAK_BYTES = 3.35e12
+
+# seeds of the blocks' inputs (block_inputs): bf16 on each, float32 on the
+# first.  K3 also takes (0, 1184), seed 0's stream from offset 1184: on it
+# K3's q/k/v, rounded from compensated float32 sums, put one output an ulp
+# outside the bf16 check, and so did the plain arithmetic on those q/k/v
+# (PERF.md §6); correctly rounded q/k/v pass.
+BLOCK_DRAWS = (0, 1, 2)
+K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 
 MAIN_QUESTIONS = 512
 SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
@@ -113,6 +131,20 @@ def bound_ms(ops: dict, nbytes: float):
     t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items()) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dot_ops(kind: str, n: float) -> dict:
+    """``n`` operations of dot products whose operands are of ``kind`` ("bf16"
+    or "fp32") as ``bound_ms`` counts them: float32 as 3xTF32, three TF32
+    products for each."""
+    return {"tf32": 3.0 * n} if kind == "fp32" else {kind: n}
+
+
+def dot_text(kind: str, n: float) -> str:
+    """How ``dot_ops`` counts ``n`` operations of ``kind``, and their time."""
+    ms = sum(c / PEAK_OPS[k] for k, c in dot_ops(kind, n).items()) * 1e3
+    how = "in 3xTF32 (3 x at the TF32 rate)" if kind == "fp32" else f"at the {kind} rate"
+    return f"{how} {ms:.4f} ms"
 
 
 def device_profile(torch, fn):
@@ -162,7 +194,7 @@ def bf16_agreement(torch, out, ref) -> dict:
     ulp(|ref|): other arithmetic (q, k, v rounded to bf16, say) moves most
     elements a little, and shows in the mean before it does in the largest.
     Returns the largest error, the largest excess over the element-wise
-    limit, and the mean error in ulps."""
+    limit, the number of elements over it, and the mean error in ulps."""
     ref = ref.float()
     err = (out.float() - ref).abs()
     _, exp = torch.frexp(ref)
@@ -170,7 +202,7 @@ def bf16_agreement(torch, out, ref) -> dict:
     _, rms_exp = torch.frexp(ref.square().mean().sqrt())
     limit = 2 * ulp + 2.0 ** (int(rms_exp) - 8)
     return dict(max_abs=float(err.max()), excess=float((err - limit).max()),
-                mean_ulps=float(err.mean() / ulp.mean()))
+                outside=int((err > limit).sum()), mean_ulps=float(err.mean() / ulp.mean()))
 
 
 def bf16_ok(stats: dict) -> bool:
@@ -183,30 +215,169 @@ def bf16_text(stats: dict) -> str:
             f"(tol {MEAN_ULPS})")
 
 
-def qkv_rounding(torch, x, keep, w, heads) -> None:
+def k3_qkv(torch, x, keep, w, heads) -> dict:
     """K3 rounds its float32 QKV sums to bf16, and a key or value rounded the
     other way moves the attention of every query of its sequence, so the
-    kernel adds its tensor-core slices with Kahan's compensation.  Check on
-    the kernel's own q/k/v (its scratch) that it rounds no more of them the
-    other way from the float64 sum than float32 sums (cuBLAS, TF32 off) do."""
+    kernel adds its tensor-core slices with Kahan's compensation.  One more
+    launch keeps the kernel's own q, k and v (its scratch) for: the share of
+    them rounded the other way from the float64 sum (the plain version's),
+    beside that of float32 sums (cuBLAS, TF32 off); the kernel's output
+    against the plain arithmetic on its own q, k and v (``rest``: what the
+    kernels after the QKV product add); and that plain output against the
+    plain version (``qkv``: what the q/k/v roundings alone move)."""
     from explainable_spatial_vqa_tpu_torch.ops import fused_block
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import DTYPE_CODES
 
     batch, length, d = x.shape
     rows, ffn, wdt = batch * length, w.ffn1.shape[0], w.qkv.dtype
     scratch = fused_block.block_scratch(x, w, tiled=True, ffn_chunks=K3_TILING["ffn_chunks"])
-    fused_block._launch(fused_block.fused_encoder_block_tiled, "esv_encoder_block_tiled", x, keep,
-                        w, scratch, (batch, length, d, heads, ffn, K3_TILING["ffn_chunks"],
-                                     DTYPE_CODES[x.dtype], DTYPE_CODES[wdt]))
+    out = fused_block._launch(
+        fused_block.fused_encoder_block_tiled, "esv_encoder_block_tiled", x, keep, w, scratch,
+        (batch, length, d, heads, ffn, K3_TILING["ffn_chunks"], DTYPE_CODES[x.dtype],
+         DTYPE_CODES[wdt]))
     xr = x.reshape(rows, d)
     exact = ((xr.double() @ w.qkv.double().t()).float() + w.qkv_bias).to(wdt)
     f32 = (xr.float() @ w.qkv.float().t() + w.qkv_bias).to(wdt)
-    kernel_share = float((scratch[0] != exact).float().mean())
-    f32_share = float((f32 != exact).float().mean())
-    say(f"phase 3 K3 q/k/v rounded to bf16 the other way from the float64 sum: kernel "
-        f"{kernel_share:.2e} of them, float32 sums {f32_share:.2e}")
-    if not kernel_share <= f32_share:
-        fail("K3's QKV sums round more q/k/v the other way than float32 sums do")
+    after = fused_block.tiled_plain_after_qkv(x, keep, w, heads, scratch[0], **K3_TILING)
+    plain = fused_block.tiled_plain_after_qkv(x, keep, w, heads, exact, **K3_TILING)
+    found = dict(kernel_share=float((scratch[0] != exact).float().mean()),
+                 f32_share=float((f32 != exact).float().mean()),
+                 rest=bf16_agreement(torch, out, after), qkv=bf16_agreement(torch, after, plain))
+    del scratch, out, after, plain, f32, exact
+    found.update(compensated_sums(torch, xr.to(wdt), w))
+    return found
+
+
+K3_SUM_SLACK = 2.0 ** -18  # csrc/fused_block.cu kSumSlack
+
+
+def k3_qkv_times(torch, a, w) -> None:
+    """Phase 4 for K3's QKV product alone (``block_gemm``): correctly rounded
+    to bf16 as K3 takes it (compensated sums, the exact ones near a bf16
+    tie), the compensated sums alone in float32, and the uncompensated
+    product in float32 (K2's)."""
+    from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm
+
+    b = w.qkv_bias
+    exact = timed_ms(torch, lambda: block_gemm(a, w.qkv, b, False, torch.bfloat16, True))
+    comp = timed_ms(torch, lambda: block_gemm(a, w.qkv, b, False, torch.float32, True))
+    plain = timed_ms(torch, lambda: block_gemm(a, w.qkv, b, False, torch.float32))
+    say(f"phase 4 K3 QKV product {a.shape[0]}x{w.qkv.shape[0]}x{a.shape[1]}: correctly rounded "
+        f"to bf16 {exact:.4f} ms, compensated sums in float32 {comp:.4f} ms, uncompensated in "
+        f"float32 {plain:.4f} ms")
+
+
+def compensated_sums(torch, a, w) -> dict:
+    """How far K3's compensated QKV sums (``block_gemm(compensated=True)``
+    with a float32 output: the sums before any exact one is taken) lie from
+    the exact sums, at most, in units of max|a row| max|w row|, against the
+    kernel's slack; and the share of q, k and v close enough to a bf16 tie
+    that the kernel takes their exact sums."""
+    from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm
+
+    sums = block_gemm(a, w.qkv, torch.zeros_like(w.qkv_bias), compensated=True).double()
+    exact = a.double() @ w.qkv.double().t()
+    scale = a.float().abs().amax(1).double()[:, None] * w.qkv.float().abs().amax(1).double()
+    worst = float(((sums - exact).abs() / scale).max())
+    del sums
+    v = exact.float() + w.qkv_bias
+    _, e = torch.frexp(v)
+    tie = ((v.view(torch.int32) & 0xFFFF) - 0x8000).abs().double() * torch.ldexp(
+        torch.ones_like(exact), e.long() - 24)
+    near = tie <= K3_SUM_SLACK * scale + 2.0 ** -20 * v.abs().double()
+    return dict(worst_log2=math.log2(worst) if worst > 0 else -math.inf,
+                near_share=float(near.float().mean()))
+
+
+def k3_qkv_text(found: dict) -> str:
+    return (f"q/k/v rounded to bf16 the other way from the float64 sum: kernel "
+            f"{found['kernel_share']:.2e} of them, float32 sums {found['f32_share']:.2e}; "
+            f"compensated sums within 2^{found['worst_log2']:.2f} of max|x row| max|W row| "
+            f"of the exact ones (the kernel's slack 2^{math.log2(K3_SUM_SLACK):.0f}), "
+            f"{found['near_share']:.2e} of q/k/v within the slack of a bf16 tie (taken "
+            f"exactly); the "
+            f"kernel against the plain arithmetic on its own q/k/v: {bf16_text(found['rest'])}; "
+            f"that against the plain version (the q/k/v roundings alone): "
+            f"{bf16_text(found['qkv'])}")
+
+
+def block_inputs(torch, dev, draw, length: int, dtype, batch: int = SLOTS, d: int = 512,
+                 ffn: int = 2048):
+    """One block's inputs drawn from a generator seeded ``draw`` (a seed, or
+    (seed, offset) to start at that offset of the seed's stream): a ragged
+    key mask over the last 13 keys, weights in ``dtype`` (matrices at
+    1/sqrt(fan in), biases and LayerNorm parameters float32) and x in
+    ``dtype``."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import BlockWeights
+
+    seed, offset = draw if isinstance(draw, tuple) else (draw, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if offset:
+        gen.set_offset(offset)
+
+    def randn(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+    keep = torch.ones(batch, length, dtype=torch.bool, device=dev)
+    keep[:, length - 13:] = torch.rand(batch, 13, generator=gen, device=dev) < 0.6
+    w = BlockWeights(
+        randn(3 * d, d, scale=d ** -0.5, dt=dtype), randn(3 * d, scale=0.02),
+        randn(d, d, scale=d ** -0.5, dt=dtype), randn(d, scale=0.02),
+        randn(ffn, d, scale=d ** -0.5, dt=dtype), randn(ffn, scale=0.02),
+        randn(d, ffn, scale=ffn ** -0.5, dt=dtype), randn(d, scale=0.02),
+        1 + randn(d, scale=0.1), randn(d, scale=0.1), 1 + randn(d, scale=0.1),
+        randn(d, scale=0.1))
+    return keep, w, randn(batch, length, d, dt=dtype)
+
+
+def parse_draws(spec: str) -> list:
+    """Items joined by commas: ``START:STOP`` (those seeds), ``SEED`` or
+    ``SEED@OFFSET``."""
+    draws = []
+    for item in spec.split(","):
+        if ":" in item:
+            start, stop = (int(s) for s in item.split(":"))
+            draws += range(start, stop)
+        else:
+            draws.append(tuple(int(s) for s in item.split("@")) if "@" in item else int(item))
+    return draws
+
+
+def k3_draws(draws) -> None:
+    """``chip_smoke.py --k3-draws SPEC`` (``parse_draws``): K3 in bf16 at the
+    block bench's shape (B=128, L=224, ``K3_TILING``) against its plain
+    version on the inputs of each draw (``block_inputs``), one line per draw
+    with the bf16 check's numbers, then the draws that fail it.  It runs the
+    kernel of the checkout it lies in, so a copy of this file in an older
+    checkout holds that checkout's kernel on the same inputs."""
+    if not (REPO / "explainable_spatial_vqa_tpu_torch" / "csrc").is_dir():
+        fail(f"no checkout of the repository next to {Path(__file__).name}")
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fused_encoder_block_tiled,
+        fused_encoder_block_tiled_plain,
+    )
+
+    from explainable_spatial_vqa_tpu_torch.ops import fused_block
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    failing = []
+    for draw in draws:
+        keep, w, x = block_inputs(torch, dev, draw, 224, torch.bfloat16)
+        out = fused_encoder_block_tiled(x, keep, w, 4, **K3_TILING)
+        stats = bf16_agreement(torch, out, fused_encoder_block_tiled_plain(x, keep, w, 4,
+                                                                           **K3_TILING))
+        say(f"K3 bf16 draw {draw}: {bf16_text(stats)}: {'passes' if bf16_ok(stats) else 'FAILS'}")
+        if hasattr(fused_block, "tiled_plain_after_qkv"):  # not in checkouts before it
+            say(f"K3 bf16 draw {draw}: {k3_qkv_text(k3_qkv(torch, x, keep, w, 4))}")
+        if not bf16_ok(stats):
+            failing.append(draw)
+    say(f"K3 bf16: {len(failing)} of {len(draws)} draws fail {failing}")
 
 
 def kernel_report(libs: dict) -> dict:
@@ -332,7 +503,6 @@ def main() -> None:
 
     # ---- 3 and 4. kernels against their plain versions; times ----
     gen = torch.Generator(device=dev).manual_seed(0)
-    x32_gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
@@ -343,7 +513,7 @@ def main() -> None:
         keep[:, length - tail:] = torch.rand(batch, tail, generator=gen, device=dev) < 0.6
         return keep
 
-    results = {}
+    results, parts = {}, []
     names = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
     # K1 at the box decoder's shape (L=10, no mask: the main path) and the fusion
@@ -382,15 +552,18 @@ def main() -> None:
                 f"({by})")
             results[f"K1_L{length}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                                             bound_by=by, library_ms=lib)
+            if length == 210:
+                tensor_scores(torch, dev, (q, k, v, mask), results["K1_L210"], parts)
 
-    parts = []
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
 
-    # K2 at the fusion encoder's shape and K3 at the block bench's, bf16 and
-    # fp32.  Each block kernel's bf16 check has a negative control, the other
-    # kernel's plain version: K3's arithmetic rounds q, k and v to bf16 after
-    # the bias, K2's keeps them float32; the check must see the difference.
+    # K2 at the fusion encoder's shape and K3 at the block bench's, bf16 on
+    # each of their draws (block_inputs), fp32 on the first; the first draw's
+    # inputs are timed.  Each block kernel's bf16 check has a negative
+    # control, the other kernel's plain version: K3's arithmetic rounds q, k
+    # and v to bf16 after the bias, K2's keeps them float32; the check must
+    # see the difference.
     def k3(x, keep, w, h):
         return fused_encoder_block_tiled(x, keep, w, h, **K3_TILING)
 
@@ -399,34 +572,34 @@ def main() -> None:
 
     d, ffn = 512, 2048
     blocks = (
-        # name, kernel, plain, control, L, attention on float32 q/k/v
+        # name, kernel, plain, control, L, attention on float32 q/k/v, bf16 draws
         ("K2", "fused_encoder_block", fused_encoder_block, fused_encoder_block_plain, k3_plain,
-         210, True),
+         210, True, BLOCK_DRAWS),
         ("K3", f"fused_encoder_block_tiled {K3_TILING}", k3, k3_plain, fused_encoder_block_plain,
-         224, False),
+         224, False, K3_DRAWS),
     )
-    for key, label, kernel, plain_fn, control_fn, length, f32_attention in blocks:
-        keep = ragged_keep(b, length, 13)
+    for key, label, kernel, plain_fn, control_fn, length, f32_attention, draws in blocks:
         for dtype in (torch.bfloat16, torch.float32):
-            w = BlockWeights(
-                randn(3 * d, d, scale=d ** -0.5, dtype=dtype), randn(3 * d, scale=0.02),
-                randn(d, d, scale=d ** -0.5, dtype=dtype), randn(d, scale=0.02),
-                randn(ffn, d, scale=d ** -0.5, dtype=dtype), randn(ffn, scale=0.02),
-                randn(d, ffn, scale=ffn ** -0.5, dtype=dtype), randn(d, scale=0.02),
-                1 + randn(d, scale=0.1), randn(d, scale=0.1), 1 + randn(d, scale=0.1),
-                randn(d, scale=0.1))
-            x = randn(b, length, d, dtype=dtype)
-            out = kernel(x, keep, w, h)
-            ref = plain_fn(x, keep, w, h)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            head = (f"phase 3 {key} {label} {names[dtype]} B={b} L={length} d={d} H={h} "
-                    f"ffn={ffn} mask=ragged:")
-            if dtype == torch.bfloat16:
+            for draw in draws if dtype == torch.bfloat16 else draws[:1]:
+                keep, w, x = block_inputs(torch, dev, draw, length, dtype)
+                out = kernel(x, keep, w, h)
+                ref = plain_fn(x, keep, w, h)
+                torch.cuda.synchronize()
+                if draw == draws[0]:
+                    err = float((out.float() - ref.float()).abs().max())
+                head = (f"phase 3 {key} {label} {names[dtype]} B={b} L={length} d={d} H={h} "
+                        f"ffn={ffn} mask=ragged, draw {draw}:")
+                if dtype == torch.float32:
+                    # sums of up to 2048 products taken in another order,
+                    # through four chained products and two LayerNorms
+                    say(f"{head} max_abs_err {err:.3g} (tol 1e-4)")
+                    if not err <= 1e-4:
+                        fail(f"{key} disagrees with its plain version")
+                    continue
                 stats = bf16_agreement(torch, out, ref)
                 say(f"{head} {bf16_text(stats)}")
                 if not bf16_ok(stats):
-                    fail(f"{key} disagrees with its plain version")
+                    fail(f"{key} disagrees with its plain version on draw {draw}")
                 control = bf16_agreement(torch, control_fn(x, keep, w, h), ref)
                 other = "K3" if key == "K2" else "K2"
                 say(f"phase 3 {key} negative control, {other}'s plain version "
@@ -435,25 +608,26 @@ def main() -> None:
                 if bf16_ok(control):
                     fail(f"the bf16 check cannot tell {other}'s arithmetic from {key}'s")
                 if key == "K3":
-                    qkv_rounding(torch, x, keep, w, h)
-                # float32 x with the bf16 weights: the kernel rounds x to bf16
-                # in a pass of its own for the QKV product's TMA loads.  Drawn
-                # from a generator of its own, so the later checks' inputs do
-                # not move (K3's bf16 check is sensitive to them: PERF.md §6)
-                x32 = torch.randn(b, length, d, generator=x32_gen, device=dev)
-                stats = bf16_agreement(torch, kernel(x32, keep, w, h).bfloat16(),
-                                       plain_fn(x32, keep, w, h).bfloat16())
-                say(f"phase 3 {key} float32 x, bf16 weights, outputs rounded to bf16: "
-                    f"{bf16_text(stats)}")
-                if not bf16_ok(stats):
-                    fail(f"{key} with float32 x disagrees with its plain version")
-                del x32
-            else:
-                # sums of up to 2048 products taken in another order, through
-                # four chained products and two LayerNorms
-                say(f"{head} max_abs_err {err:.3g} (tol 1e-4)")
-                if not err <= 1e-4:
-                    fail(f"{key} disagrees with its plain version")
+                    found = k3_qkv(torch, x, keep, w, h)
+                    say(f"phase 3 K3 draw {draw}: {k3_qkv_text(found)}")
+                    if found["kernel_share"] > 0:
+                        fail("K3 rounds q/k/v otherwise than the correctly rounded float32 sum")
+                    if draw == draws[0]:
+                        k3_qkv_times(torch, x.reshape(-1, d), w)
+                if draw == draws[0]:
+                    # float32 x with the bf16 weights: the kernel rounds x to
+                    # bf16 in a pass of its own for the QKV product's TMA loads
+                    x32 = torch.randn(b, length, d, generator=torch.Generator(
+                        device=dev).manual_seed(100), device=dev)
+                    stats = bf16_agreement(torch, kernel(x32, keep, w, h).bfloat16(),
+                                           plain_fn(x32, keep, w, h).bfloat16())
+                    say(f"phase 3 {key} float32 x, bf16 weights, outputs rounded to bf16: "
+                        f"{bf16_text(stats)}")
+                    if not bf16_ok(stats):
+                        fail(f"{key} with float32 x disagrees with its plain version")
+                    del x32
+            keep, w, x = block_inputs(torch, dev, draws[0], length, dtype)
+            ref = plain_fn(x, keep, w, h)
             layer = torch.nn.TransformerEncoderLayer(
                 d, h, ffn, dropout=0.0, activation="relu", batch_first=True, norm_first=False,
                 layer_norm_eps=1e-6).eval()
@@ -486,27 +660,110 @@ def main() -> None:
             lib = timed_ms(torch, library, iters=10)
             esize = 2 if dtype == torch.bfloat16 else 4
             rows = b * length
-            # the four products in the weights' type; the attention at the
-            # float32 rate on K2's float32 q, k, v, in the weights' type on K3's
+            # the four products in the weights' type, the attention in q, k
+            # and v's (float32 for K2), each type's dot products at its
+            # least time (dot_ops)
             gemm_ops = rows * (2.0 * d * 3 * d + 2 * d * d + 4 * d * ffn)
             attn_ops = 4.0 * b * h * length * length * (d // h)
-            ops = {names[dtype]: gemm_ops}
             attn_type = "fp32" if f32_attention else names[dtype]
-            ops[attn_type] = ops.get(attn_type, 0.0) + attn_ops
+            ops = dot_ops(names[dtype], gemm_ops)
+            for kind, n in dot_ops(attn_type, attn_ops).items():
+                ops[kind] = ops.get(kind, 0.0) + n
             nbytes = (2 * rows * d * esize + (4 * d * d + 2 * d * ffn) * esize
                       + (3 * d + d + ffn + d + 4 * d) * 4 + rows * 4)
             bnd, by = bound_ms(ops, nbytes)
             say(f"phase 4 {key} {label} {names[dtype]} L={length}: kernel {ms:.3f} ms, plain "
                 f"{plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms (against the plain "
                 f"version: {lib_err}), bound {bnd:.4f} ms ({by}; {gemm_ops / 1e9:.1f} GFLOP of "
-                f"products at the {names[dtype]} rate {gemm_ops / PEAK_OPS[names[dtype]] * 1e3:.4f}"
-                f" ms, {attn_ops / 1e9:.1f} GFLOP of attention at the {attn_type} rate), "
+                f"products {dot_text(names[dtype], gemm_ops)}, {attn_ops / 1e9:.1f} GFLOP of "
+                f"attention {dot_text(attn_type, attn_ops)}), "
                 f"{(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
             results[f"{key}_{names[dtype]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                     bound_ms=bnd, bound_by=by, library_ms=lib)
             del layer, x, out, ref, w
     torch.cuda.empty_cache()
     main_path(torch, np, dev, results, parts)
+
+
+def wide_plain_attention(torch, q, k, v, mask, wide_scores: bool):
+    """``dot_product_attention``'s arithmetic (``ops/attention.py``) with the
+    score sums (``wide_scores``) or else the P V sums taken in float64 and
+    rounded to float32 once: how far the plain version itself moves when
+    one of its sums is taken in another order."""
+    import numpy as np
+
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    wide, narrow = (torch.float64, torch.float32) if wide_scores else (torch.float32,
+                                                                       torch.float64)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), k.to(wide)).float() * scale
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    weights = (weights / (weights.sum(dim=-1, keepdim=True) + 1e-30)).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.to(narrow), v.to(narrow)).float().to(q.dtype)
+
+
+def tensor_scores(torch, dev, first, k1: dict, parts) -> None:
+    """Phases 3-4 for ``esv_attention_tensor_scores``, the bf16 attention
+    with its scores summed on the tensor cores (16-deep slices) instead of
+    in FMA chains, a variant no wrapper launches: beside K1 (FMA chains) at
+    L=210 on K1's inputs and two more draws, how far each lies from the plain
+    version (cuBLAS scores) and how many outputs fall outside the bf16
+    check's element-wise limit, beside the same count for the plain version
+    with its score sums, or its P V sums, in float64 (``wide_plain_attention``);
+    then its time beside K1's.  It fails only if the variant does not launch
+    or misses the check's mean error."""
+    from explainable_spatial_vqa_tpu_torch.ops import fused_attention as fa
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+
+    fn = fa._esv_attention("esv_attention_tensor_scores")
+
+    def variant(q, k, v, mask):
+        b, length, h, d_head = q.shape
+        out = torch.empty_like(q)
+        mask_f = fa.key_mask_f32(mask, b, length)
+        strides = (length * h * d_head, h * d_head)
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_f.data_ptr(), out.data_ptr(),
+                    b, h, length, d_head, *strides, *strides, 1, 1,
+                    torch.cuda.current_stream().cuda_stream)
+        if status:
+            fail(f"esv_attention_tensor_scores failed with CUDA error {status}")
+        return out
+
+    b, length, h, d_head = first[0].shape
+    for draw in range(3):
+        if draw == 0:
+            q, k, v, mask = first
+        else:
+            gen = torch.Generator(device=dev).manual_seed(10 + draw)
+            q, k, v = (torch.randn(b, length, h, d_head, generator=gen, device=dev).bfloat16()
+                       for _ in range(3))
+            keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+            keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+            mask = keep[:, None, None, :]
+        ref = dot_product_attention(q, k, v, mask)
+        chains = bf16_agreement(torch, fa.fused_attention(q, k, v, mask), ref)
+        tensor = bf16_agreement(torch, variant(q, k, v, mask), ref)
+        wide = [bf16_agreement(torch, wide_plain_attention(torch, q, k, v, mask, scores), ref)
+                for scores in (True, False)]
+        say(f"phase 3 K1 bf16 L={length} draw {draw}, {ref.numel()} outputs: FMA-chain scores "
+            f"(K1) {bf16_text(chains)}, {chains['outside']} outside the element-wise limit; "
+            f"tensor-core scores (esv_attention_tensor_scores) {bf16_text(tensor)}, "
+            f"{tensor['outside']} outside; the plain version with float64 score sums "
+            f"{wide[0]['outside']} outside (mean {wide[0]['mean_ulps']:.4f} ulp), with float64 "
+            f"P V sums {wide[1]['outside']} (mean {wide[1]['mean_ulps']:.4f} ulp)")
+        if not tensor["mean_ulps"] <= MEAN_ULPS:
+            fail("the tensor-core scores miss the bf16 check's mean error")
+        if draw == 0:
+            err = float((variant(q, k, v, mask).float() - ref.float()).abs().max())
+            ms = timed_ms(torch, lambda: variant(q, k, v, mask))
+            say(f"phase 4 K1 bf16 L={length} with tensor-core scores: {ms:.4f} ms (FMA-chain "
+                f"scores {k1['ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms)")
+            parts.append(dict(name="attention_bf16_tensor_scores_L210", route="cuda",
+                              source="explainable_spatial_vqa_tpu_torch/csrc/attention.cuh",
+                              replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+                              inside=None, max_abs_err=err, ms=ms,
+                              **{key: k1[key] for key in ("plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")}))
 
 
 def k2_attention(torch, F, dev, randn, ragged_keep, parts) -> None:
@@ -551,7 +808,7 @@ def k2_attention(torch, F, dev, randn, ragged_keep, parts) -> None:
     plain = timed_ms(torch, lambda: dot_product_attention(q, k, v, mask).bfloat16())
     lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
     elems = b * length * d
-    bnd, by = bound_ms({"tf32": 3 * 4.0 * b * h * length * length * d_head},
+    bnd, by = bound_ms(dot_ops("fp32", 4.0 * b * h * length * length * d_head),
                        3 * elems * 4 + elems * 2 + b * length * 4)
     say(f"phase 4 K2 attention fp32 q/k/v, bf16 out, L={length}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, scaled_dot_product_attention fp32 {lib:.4f} ms, bound {bnd:.4f} ms "
@@ -940,4 +1197,9 @@ def main_path(torch, np, dev, results, parts) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--k3-draws"] and len(sys.argv) == 3:
+        k3_draws(parse_draws(sys.argv[2]))
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--k3-draws START:STOP | SEED[@OFFSET],...]")
+    else:
+        main()

@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels: element loads and stores that widen
 // to float32 and narrow from it, a warp sum, shared-memory addresses for PTX,
-// and the dtype codes the ctypes wrappers pass (0 = float32, 1 = bfloat16).
+// the dtype codes the ctypes wrappers pass (0 = float32, 1 = bfloat16), and
+// launch set-up kept per device.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +9,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 namespace esv {
@@ -47,5 +49,28 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Launch set-up that need not run on every launch (attribute queries,
+// cudaFuncSetAttribute) runs once per device and Site: setup(device) on the
+// first launch there, its result kept for the later ones, which cost a
+// cudaGetDevice.  Site is a type of the caller's, one per kernel.  The
+// function is static, so each library keeps its own state for its own copy
+// of a kernel (the statics of an inline function are one for the whole
+// process, whichever library set them).
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel>
+struct KernelSite {};
+
+template <typename Site, typename F>
+static cudaError_t once_per_device(int* device, F&& setup) {
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t result[kMaxDevices];
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device < 0 || *device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[*device], [&] { result[*device] = setup(*device); });
+  return result[*device];
+}
 
 }  // namespace esv

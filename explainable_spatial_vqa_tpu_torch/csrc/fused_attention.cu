@@ -21,6 +21,11 @@
 // float32, 1 for bfloat16 (q, k and v share it); out_dtype is the output's,
 // either float32 or dtype.  q, k, v and their strides must be 16-byte
 // aligned.  Returns the CUDA error of the launch (0 on success).
+//   int esv_attention_tensor_scores(the same arguments)
+// is the bf16 kernel (bf16 q, k, v and output only) with its scores summed
+// on the tensor cores instead of in FMA chains: a variant that no wrapper
+// launches, kept so that chip_smoke.py can time it and hold it against the
+// plain version beside the kernel (PERF.md §6).
 
 #include "attention.cuh"
 
@@ -40,4 +45,17 @@ extern "C" int esv_attention(const void* q, const void* k, const void* v, const 
   if (dtype == esv::kBFloat16 && out_dtype == esv::kBFloat16) { ESV_ATTENTION(bf16, bf16); }
 #undef ESV_ATTENTION
   return cudaErrorInvalidValue;
+}
+
+extern "C" int esv_attention_tensor_scores(const void* q, const void* k, const void* v,
+                                           const void* mask, void* out, int B, int H, int L,
+                                           int D, long long in_bs, long long in_rs,
+                                           long long out_bs, long long out_rs, int dtype,
+                                           int out_dtype, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (dtype != esv::kBFloat16 || out_dtype != esv::kBFloat16) return cudaErrorInvalidValue;
+  return esv::launch_attention<bf16, bf16, true>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(mask), static_cast<bf16*>(out), B, H, L, D, in_bs, in_rs, out_bs,
+      out_rs, static_cast<cudaStream_t>(stream));
 }

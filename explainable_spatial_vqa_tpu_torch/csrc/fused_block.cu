@@ -38,8 +38,8 @@
 //       epilogue.  The consumers take whole tiles in turn (ping-pong), so
 //       one's epilogue overlaps the other's products.  It reaches ~320
 //       TFLOP/s on the products with K = 512 and ~560 on FFN2 (K = 2048):
-//       what is left is a cost per tile that a longer K hides (PERF.md §6,
-//       PR 3).  To give TMA bf16 operands, the producers write what each
+//       what is left is a cost per tile that a longer K hides (PERF.md
+//       §6).  To give TMA bf16 operands, the producers write what each
 //       product rounds its operand to anyway: the attention writes its
 //       output in bf16 (the out projection's rounding), and LN1 writes x1
 //       twice, float32 for the residual and bf16 for FFN1 (x1.astype(w_dtype)
@@ -52,12 +52,11 @@
 //       each 32-deep slice is summed by the tensor cores into a fresh
 //       accumulator (wgmma with scale-d 0) and the slices are added with
 //       Kahan's compensation; the two consumers then share each tile, 64
-//       rows each, for the registers.  The tensor cores' accumulator rounds more
-//       coarsely than float32 additions; over all of K it rounded more q, k, v
-//       the other way from the exact sum than float32 sums do, and each such
-//       rounding of a key or value moves the attention of every query of its
-//       sequence (chip_smoke.py phase 3 checks the kernel against float32
-//       sums);
+//       rows each, for the registers.  A key or value rounded the other way
+//       from the plain version's moves the attention of every query of its
+//       sequence, so each q, k, v is the correctly rounded one: where its
+//       compensated sum lies close to a bf16 tie, exact_fixup rounds it from
+//       the exact sum (float64) instead (see "K3's q, k and v" below);
 //   (b) the attention kernels of K1 (attention.cuh): on K2's float32 q, k, v
 //       both products in 3xTF32 on the tensor cores with an online softmax,
 //       the output written in the weights' type; on K3's q, k, v in the
@@ -76,7 +75,8 @@
 //                         B, L, d, H, ffn, x_dtype, w_dtype, stream)
 //   int esv_encoder_block_tiled(the same 21 pointers,
 //                               B, L, d, H, ffn, ffn_chunks, x_dtype, w_dtype, stream)
-//   int esv_block_gemm(A, W, bias, C, M, N, K, a_dtype, w_dtype, c_dtype, relu, stream)
+//   int esv_block_gemm(A, W, bias, C, absmax, M, N, K, a_dtype, w_dtype, c_dtype, relu,
+//                      compensated, stream)
 // Weights are row-major (out_features, in_features) in w_dtype; biases and
 // LayerNorm parameters float32; mask a (B, L) float32 key mask or null.
 // Scratch: proj and x1 (B*L, d) float32; attn (B*L, d) and x1w (B*L, d) in
@@ -87,7 +87,10 @@
 // esv_block_gemm computes C = act(A W^T + bias), A (M, K), W (N, K), C (M, N)
 // in c_dtype, relu 0 or 1: the block's product alone.  With bf16 weights A
 // is bf16 too, and the bases must be 16-byte aligned, K % 8 == 0 and
-// N % 8 == 0 (TMA's rules).
+// N % 8 == 0 (TMA's rules).  compensated 1 (bf16 weights only) takes K3's
+// QKV product: compensated sums, and with a bf16 C the correctly rounded
+// ones, with absmax (M + N floats and ceil(M N / 32) words) as scratch;
+// absmax is null otherwise.
 // Returns the first CUDA error of the launches (0 on success).
 
 #include <cuda.h>
@@ -201,6 +204,115 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// -- K3's q, k and v, correctly rounded --
+// K3 rounds its QKV sums to bf16, as the plain version rounds the float32
+// value of the exact sum (its float64 sum).  The compensated tensor-core sum
+// lies close to it, so the two round apart only where the sum lies close to
+// a bf16 rounding boundary (a tie between two bf16 numbers).  The epilogue
+// flags those elements in a bitmap, and exact_fixup then rounds each of them
+// from its exact sum, in float64 from A's row and W's row.  "Close" is
+// kSumSlack * max|A row| * max|W row| plus 2^-20 |v| (the float32 roundings
+// after the sum).  On 68 draws of K3's inputs at the block bench's shape
+// (d = 512) the compensated sums lay within 2^-19.37 of max|A row| max|W
+// row| of the exact ones (chip_smoke.py phase 3 and --k3-draws print the
+// largest error of each draw and check that no q, k or v rounds otherwise
+// than the plain version's); kSumSlack is 2^-18, and about 0.5% of q, k and
+// v then take the exact sum.
+
+constexpr float kSumSlack = 1.0f / 262144;
+
+struct ExactRounding {
+  const bf16* a;       // A (M, K) and W (N, K), for the exact sums
+  const bf16* w;
+  const float* amax;   // max |A[m, :]| (M) and max |W[n, :]| (N)
+  const float* wmax;
+  uint32_t* flags;     // one bit per element of C, row-major, zeroed first
+};
+
+// the largest |element| of each row of a (rows, K) bf16 matrix, a warp a row,
+// 8 elements a load (K % 8 == 0, rows 16-byte aligned)
+__global__ void __launch_bounds__(256) row_absmax(const bf16* __restrict__ a, int rows, int K,
+                                                  float* __restrict__ out) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const uint4* r = reinterpret_cast<const uint4*>(a + (long long)row * K);
+  uint32_t m = 0;  // of the magnitudes' bits: they order as the magnitudes do
+  for (int c = lane; c < K / 8; c += 32) {
+    const uint4 v = r[c];
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      m = max(m, max((words[j] << 16) & 0x7fff0000u, words[j] & 0x7fff0000u));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) out[row] = __uint_as_float(m);
+}
+
+// how far float32 v lies from the nearest tie between two bf16 numbers (its
+// low 16 bits 0x8000), for a normal v
+__device__ __forceinline__ float bf16_tie_distance(float v) {
+  const uint32_t bits = __float_as_uint(v);
+  const float ulp = __uint_as_float(bits & 0x7f800000u) * 1.1920928955078125e-7f;  // 2^-23
+  return fabsf((float)((int)(bits & 0xffffu) - 0x8000)) * ulp;
+}
+
+// flags element (m, n) of C if v, its compensated sum + bias, lies close to
+// a bf16 tie
+__device__ __forceinline__ void flag_if_near(float v, int m, int n, int N,
+                                             const ExactRounding& ex) {
+  if (bf16_tie_distance(v) <= kSumSlack * ex.amax[m] * ex.wmax[n] +
+                                  9.5367431640625e-7f * fabsf(v)) {  // 2^-20
+    const long long i = (long long)m * N + n;
+    atomicOr(ex.flags + i / 32, 1u << (i % 32));
+  }
+}
+
+// C[m, n] = sum_k A[m, k] W[n, k] rounded once to float32, plus the bias,
+// for each flagged element.  A product of two bf16 numbers has 16
+// significant bits, so the products are exact in float64 and so are their
+// sums while they span less than 2^37: the order does not matter.  Each warp
+// reads 32 words of the bitmap at a time and takes their elements one by
+// one, each lane 8 products of every 256 (K % 8 == 0, rows 16-byte aligned),
+// so a row's loads are coalesced.
+template <typename TC>
+__global__ void __launch_bounds__(256) exact_fixup(const ExactRounding ex,
+                                                   const float* __restrict__ bias,
+                                                   TC* __restrict__ C, int M, int N, int K) {
+  const long long words = ((long long)M * N + 31) / 32;
+  const long long warps = (long long)gridDim.x * blockDim.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (long long base = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32 * 32;
+       base < words; base += warps * 32) {
+    const uint32_t word = base + lane < words ? ex.flags[base + lane] : 0u;
+    for (unsigned todo = __ballot_sync(0xffffffffu, word != 0); todo != 0; todo &= todo - 1) {
+      const int src = __ffs(todo) - 1;
+      for (uint32_t bits = __shfl_sync(0xffffffffu, word, src); bits != 0; bits &= bits - 1) {
+        const long long i = (base + src) * 32 + __ffs(bits) - 1;
+        const long long m = i / N, n = i % N;
+        const uint4* a4 = reinterpret_cast<const uint4*>(ex.a + m * K);
+        const uint4* w4 = reinterpret_cast<const uint4*>(ex.w + n * K);
+        double s = 0.0;
+#pragma unroll 2
+        for (int c = lane; c < K / 8; c += 32) {
+          const uint4 av = a4[c], wv = w4[c];
+          const uint32_t aw[4] = {av.x, av.y, av.z, av.w}, ww[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // two bf16 a word, the lower first
+            s = fma((double)__uint_as_float(aw[j] << 16), (double)__uint_as_float(ww[j] << 16),
+                    s);
+            s = fma((double)__uint_as_float(aw[j] & 0xffff0000u),
+                    (double)__uint_as_float(ww[j] & 0xffff0000u), s);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) C[i] = from_float<TC>((float)s + bias[n]);
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -216,12 +328,15 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 //     tensor cores (named barriers 1 and 2), so one writes its epilogue while
 //     the other's products run;
 //   * cooperative (kCompensated, whose Kahan sums need 64 more registers a
-//     thread): both take every tile, 64 rows each.
+//     thread): both take every tile, 64 rows each; with a bf16 output, the
+//     elements close to a bf16 tie flagged for exact_fixup (ex).
 template <typename TC, bool kRelu, bool kCompensated>
 __global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma(
     const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
-    const float* __restrict__ bias, TC* __restrict__ C, int M, int N, int K) {
+    const float* __restrict__ bias, TC* __restrict__ C, int M, int N, int K,
+    const ExactRounding ex) {
   constexpr bool kPingPong = !kCompensated;
+  constexpr bool kExact = kCompensated && std::is_same<TC, bf16>::value;
   constexpr int kHalves = kPingPong ? 2 : 1;  // 64-row halves of a tile per warpgroup
   extern __shared__ __align__(1024) unsigned char gemm_smem[];
   const uint32_t a_ring = (smem_u32(gemm_smem) + 1023) & ~1023u;
@@ -358,6 +473,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma(
             for (int r = 0; r < 2; ++r) {
               if (row + 8 * r < M) {
                 float v0 = acc[h][4 * j + 2 * r] + b0, v1 = acc[h][4 * j + 2 * r + 1] + b1;
+                if constexpr (kExact) {
+                  flag_if_near(v0, row + 8 * r, col, N, ex);
+                  flag_if_near(v1, row + 8 * r, col + 1, N, ex);
+                }
                 if (kRelu) {
                   v0 = fmaxf(v0, 0.f);
                   v1 = fmaxf(v1, 0.f);
@@ -421,27 +540,52 @@ static cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int rows, int 
   return cudaSuccess;
 }
 
+// absmax: scratch for the correctly rounded product (kCompensated with a
+// bf16 C), null otherwise: M + N floats (the row maxima of A and W), then
+// ceil(M N / 32) words (the flags).  The SM count and the kernel's
+// shared-memory attribute are set once per device.
 template <typename TC, bool kRelu, bool kCompensated>
 cudaError_t gemm_wgmma(const bf16* A, const bf16* W, const float* bias, TC* C, int M, int N, int K,
-                       cudaStream_t s) {
-  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+                       float* absmax, cudaStream_t s) {
+  constexpr bool kExact = kCompensated && std::is_same<TC, bf16>::value;
+  if (M < 1 || N < 1 || K < 1 || (kExact && absmax == nullptr)) return cudaErrorInvalidValue;
   if (!aligned16(A) || !aligned16(W) || K % 8 || N % 8 ||
       reinterpret_cast<uintptr_t>(C) % (2 * sizeof(TC)))
     return cudaErrorMisalignedAddress;
   alignas(64) CUtensorMap ta, tw;
   cudaError_t err;
   if ((err = tensor_map(&ta, A, M, K)) || (err = tensor_map(&tw, W, N, K))) return err;
-  int dev, sms;
-  if ((err = cudaGetDevice(&dev)) ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
   const auto kernel = gemm_bf16_wgmma<TC, kRelu, kCompensated>;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem)))
-    return err;
+  static int sms[kMaxDevices];
+  int dev;
+  using Site = KernelSite<gemm_bf16_wgmma<TC, kRelu, kCompensated> >;
+  err = once_per_device<Site>(&dev, [&](int d) {
+    const cudaError_t e = cudaDeviceGetAttribute(&sms[d], cudaDevAttrMultiProcessorCount, d);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kGemmSmem);
+  });
+  if (err != cudaSuccess) return err;
+  ExactRounding ex{A, W, absmax, nullptr, nullptr};
+  const long long words = ((long long)M * N + 31) / 32;
+  if constexpr (kExact) {
+    ex.wmax = absmax + M;
+    ex.flags = reinterpret_cast<uint32_t*>(absmax + M + N);
+    row_absmax<<<(M + 7) / 8, 256, 0, s>>>(A, M, K, absmax);
+    row_absmax<<<(N + 7) / 8, 256, 0, s>>>(W, N, K, absmax + M);
+    if ((err = cudaGetLastError()) || (err = cudaMemsetAsync(ex.flags, 0, words * 4, s)))
+      return err;
+  }
   const long long tiles =
       (long long)((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
-  kernel<<<(int)std::min<long long>(tiles, sms), kGemmThreads, kGemmSmem, s>>>(ta, tw, bias, C, M,
-                                                                              N, K);
+  kernel<<<(int)std::min<long long>(tiles, sms[dev]), kGemmThreads, kGemmSmem, s>>>(
+      ta, tw, bias, C, M, N, K, ex);
+  if constexpr (kExact) {
+    if ((err = cudaGetLastError())) return err;
+    exact_fixup<TC><<<(int)std::min<long long>((words + 255) / 256, 8LL * sms[dev]), 256, 0, s>>>(
+        ex, bias, C, M, N, K);
+  }
   return cudaGetLastError();
 }
 
@@ -511,15 +655,17 @@ __global__ void __launch_bounds__(kSimtThreads) gemm_f32_simt(
 
 // kCompensated (bf16 weights only): each 32-deep slice summed by the tensor
 // cores apart and the slices added with Kahan's compensation, for products
-// whose float32 sums are rounded to bf16 next (K3's q, k, v).  bf16 weights
-// take a bf16 A (a float32 one is rounded by round_to_bf16 first).
+// whose float32 sums are rounded to bf16 next (K3's q, k, v); with a bf16 C
+// each element is rounded from the exact sum where the two could round
+// apart, with absmax (gemm_wgmma) as scratch.  bf16 weights take a bf16 A
+// (a float32 one is rounded by round_to_bf16 first).
 template <typename TA, typename TC, bool kRelu, bool kCompensated = false>
 cudaError_t gemm(const TA* A, const void* W, int w_dtype, const float* bias, TC* C, int M, int N,
-                 int K, cudaStream_t s) {
+                 int K, cudaStream_t s, float* absmax = nullptr) {
   if (w_dtype == kBFloat16) {
     if constexpr (std::is_same<TA, bf16>::value)
       return gemm_wgmma<TC, kRelu, kCompensated>(A, static_cast<const bf16*>(W), bias, C, M, N,
-                                                 K, s);
+                                                 K, absmax, s);
     else
       return cudaErrorInvalidValue;
   } else {
@@ -576,16 +722,17 @@ cudaError_t layernorm(const TR* res, const float* y, const float* scale, const f
 
 // The QKV product, x W_qkv^T + b: with bf16 weights a float32 x is rounded
 // to bf16 into `spare` (the (B*L, d) x1w scratch, free until LN1) first.
+// absmax: the correctly rounded product's scratch (gemm), or null.
 template <bool kCompensated, typename TX, typename TW, typename TC>
 cudaError_t qkv_gemm(const TX* x, TW* spare, const TW* w, const float* b, TC* qkv, int M, int d,
-                     cudaStream_t s) {
+                     float* absmax, cudaStream_t s) {
   const int wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
   if constexpr (std::is_same<TX, float>::value && std::is_same<TW, bf16>::value) {
     round_to_bf16<<<1024, 256, 0, s>>>(x, spare, (long long)M * d);
     if (cudaError_t err = cudaGetLastError()) return err;
-    return gemm<bf16, TC, false, kCompensated>(spare, w, wd, b, qkv, M, 3 * d, d, s);
+    return gemm<bf16, TC, false, kCompensated>(spare, w, wd, b, qkv, M, 3 * d, d, s, absmax);
   } else {
-    return gemm<TX, TC, false, kCompensated>(x, w, wd, b, qkv, M, 3 * d, d, s);
+    return gemm<TX, TC, false, kCompensated>(x, w, wd, b, qkv, M, 3 * d, d, s, absmax);
   }
 }
 
@@ -607,7 +754,7 @@ cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
-  if ((err = qkv_gemm<false>(x, x1w, w_qkv, b_qkv, qkv, M, d, s))) return err;
+  if ((err = qkv_gemm<false>(x, x1w, w_qkv, b_qkv, qkv, M, d, nullptr, s))) return err;
   // heads read q, k and v straight out of the (B, L, 3d) projection buffer;
   // the output is rounded to the weights' type, the out projection's rounding
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
@@ -636,7 +783,10 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
   if (chunks < 1 || M % chunks) return cudaErrorInvalidValue;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
-  if ((err = qkv_gemm<true>(x, x1w, w_qkv, b_qkv, qkv, M, d, s))) return err;
+  // proj, free until the out projection, holds the row maxima of x and W_qkv
+  // and the flags of the correctly rounded product (M + 3d floats and
+  // ceil(3 M d / 32) words, within M d for M >= 8)
+  if ((err = qkv_gemm<true>(x, x1w, w_qkv, b_qkv, qkv, M, d, proj, s))) return err;
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
   if ((err = launch_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
                                       qkv_bs, qkv_rs, (long long)L * d, d, s)))
@@ -713,20 +863,25 @@ extern "C" int esv_encoder_block_tiled(const void* x, const void* mask, const vo
 
 #undef ESV_BLOCK_ARGS
 
-extern "C" int esv_block_gemm(const void* A, const void* W, const void* bias, void* C, int M, int N,
-                              int K, int a_dtype, int w_dtype, int c_dtype, int relu,
-                              void* stream) {
+extern "C" int esv_block_gemm(const void* A, const void* W, const void* bias, void* C,
+                              void* absmax, int M, int N, int K, int a_dtype, int w_dtype,
+                              int c_dtype, int relu, int compensated, void* stream) {
   using esv::bf16;
   const float* b = static_cast<const float*>(bias);
+  float* mx = static_cast<float*>(absmax);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a_dtype != esv::kFloat32 && a_dtype != esv::kBFloat16) ||
-      (w_dtype != esv::kFloat32 && w_dtype != esv::kBFloat16))
+      (w_dtype != esv::kFloat32 && w_dtype != esv::kBFloat16) ||
+      (compensated && (w_dtype != esv::kBFloat16 || relu)))
     return cudaErrorInvalidValue;
-#define ESV_GEMM(TA, TC, RELU)                                                            \
+#define ESV_GEMM(TA, TC, RELU)                                                               \
   return esv::gemm<TA, TC, RELU>(static_cast<const TA*>(A), W, w_dtype, b, static_cast<TC*>(C), \
                                  M, N, K, s)
-#define ESV_GEMM_RELU(TA, TC)    \
-  if (relu) { ESV_GEMM(TA, TC, true); } \
+#define ESV_GEMM_RELU(TA, TC)                                                                \
+  if (compensated)                                                                         \
+    return esv::gemm<TA, TC, false, true>(static_cast<const TA*>(A), W, w_dtype, b,         \
+                                          static_cast<TC*>(C), M, N, K, s, mx);            \
+  if (relu) { ESV_GEMM(TA, TC, true); }                                                    \
   ESV_GEMM(TA, TC, false)
   if (a_dtype == esv::kBFloat16 && c_dtype == esv::kFloat32) { ESV_GEMM_RELU(bf16, float); }
   if (a_dtype == esv::kBFloat16 && c_dtype == esv::kBFloat16) { ESV_GEMM_RELU(bf16, bf16); }

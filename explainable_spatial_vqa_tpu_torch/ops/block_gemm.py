@@ -10,8 +10,12 @@ wgmma fed by TMA where ``w`` is bf16, which takes ``a`` in bf16 too (TMA reads
 an operand as it lies in memory; the blocks round a float32 ``x`` to bf16 in a
 pass of their own), float32 on the CUDA cores where ``w`` is float32.  It
 lets a product be timed and checked apart from its block; nothing in the
-model calls it.  A CPU tensor runs :func:`block_gemm_plain`; a CUDA tensor
-launches the kernel or raises.
+model calls it.  ``compensated=True`` takes K3's QKV product instead (bf16
+weights, no ReLU): its sums are the float32 value of the exact sum, which
+the kernel approaches with tensor-core slices added with Kahan's
+compensation and, for a bf16 output, reaches by taking the exact sum where
+the two could round apart.  A CPU tensor runs :func:`block_gemm_plain`; a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,19 +31,27 @@ __all__ = ["block_gemm", "block_gemm_plain", "check_gemm"]
 
 
 def block_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain PyTorch version: a rounded to w's type, float32 sums, plus bias,
-    ReLU where asked, rounded to ``out_dtype``."""
-    c = a.to(w.dtype).float() @ w.float().t() + bias
+                     out_dtype: torch.dtype = torch.float32,
+                     compensated: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: a rounded to w's type, float32 sums (with
+    ``compensated``, float64 sums rounded to float32 once, as K3's plain
+    version takes its QKV product), plus bias, ReLU where asked, rounded to
+    ``out_dtype``."""
+    a = a.to(w.dtype)
+    if compensated:
+        c = (a.double() @ w.double().t()).float() + bias
+    else:
+        c = a.float() @ w.float().t() + bias
     return (torch.relu(c) if relu else c).to(out_dtype)
 
 
 def check_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-               out_dtype: torch.dtype) -> None:
+               out_dtype: torch.dtype, relu: bool = False, compensated: bool = False) -> None:
     """Raise ValueError unless the kernel takes these operands: a (M, K) and
     w (N, K) in float32 or bf16, bias (N,) float32, out_dtype float32 or
     bf16, all contiguous on one CPU or CUDA device; with bf16 weights, a in
-    bf16 and TMA's rules: 16-byte aligned bases, K and N multiples of 8."""
+    bf16 and TMA's rules: 16-byte aligned bases, K and N multiples of 8;
+    ``compensated`` with bf16 weights and no ReLU only."""
     devices = {t.device for t in (a, w, bias)}
     if len(devices) != 1 or a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"block_gemm: unsupported device(s) {sorted(map(str, devices))}")
@@ -59,29 +71,36 @@ def check_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                                       or w.shape[1] % 8 or w.shape[0] % 8):
         raise ValueError("block_gemm: with bf16 weights a and w must start on 16-byte "
                          "boundaries and K and N be multiples of 8")
+    if compensated and (w.dtype != torch.bfloat16 or relu):
+        raise ValueError("block_gemm: compensated takes bf16 weights and no ReLU")
 
 
 def _esv_block_gemm():
     fn = _build.load("fused_block").esv_block_gemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False,
-               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               out_dtype: torch.dtype = torch.float32, compensated: bool = False) -> torch.Tensor:
     """``act(a @ w.T + bias)`` as the encoder block computes it: the kernel
     on CUDA, the plain version on CPU."""
-    check_gemm(a, w, bias, out_dtype)
+    check_gemm(a, w, bias, out_dtype, relu, compensated)
     if a.device.type == "cpu":
-        return block_gemm_plain(a, w, bias, relu, out_dtype)
+        return block_gemm_plain(a, w, bias, relu, out_dtype, compensated)
     (m, k), n = a.shape, w.shape[0]
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    # the correctly rounded bf16 output's scratch: the row maxima of a and w,
+    # then one flag bit per element
+    absmax = (torch.empty(m + n + (m * n + 31) // 32, device=a.device)
+              if compensated and out_dtype == torch.bfloat16 else None)
     with torch.cuda.device(a.device):
         block_gemm.launches += 1
         status = _esv_block_gemm()(
-            a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
-            DTYPE_CODES[a.dtype], DTYPE_CODES[w.dtype], DTYPE_CODES[out_dtype], int(relu),
+            a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            None if absmax is None else absmax.data_ptr(), m, n, k, DTYPE_CODES[a.dtype],
+            DTYPE_CODES[w.dtype], DTYPE_CODES[out_dtype], int(relu), int(compensated),
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(status, "esv_block_gemm")
     return out

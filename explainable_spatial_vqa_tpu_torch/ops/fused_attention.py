@@ -68,8 +68,11 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("fused_attention: q, k and v must start on 16-byte boundaries")
 
 
-def _esv_attention():
-    fn = _build.load("fused_attention").esv_attention
+def _esv_attention(entry: str = "esv_attention"):
+    """The C entry ``entry`` of ``csrc/fused_attention.cu``: ``esv_attention``,
+    or ``esv_attention_tensor_scores`` (its bf16 kernel with tensor-core
+    scores, which no wrapper launches)."""
+    fn = getattr(_build.load("fused_attention"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int

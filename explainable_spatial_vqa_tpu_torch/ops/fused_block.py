@@ -55,7 +55,7 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
 
 __all__ = ["BlockWeights", "block_scratch", "fuse_encoder_params", "fused_encoder_block",
            "fused_encoder_block_plain", "fused_encoder_block_tiled",
-           "fused_encoder_block_tiled_plain", "pad_len", "LN_EPS"]
+           "fused_encoder_block_tiled_plain", "tiled_plain_after_qkv", "pad_len", "LN_EPS"]
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default, and ops/pallas_block.py:106
 
@@ -175,12 +175,24 @@ def fused_encoder_block_tiled_plain(
     rounding that an order of float32 sums pushes the other way moves the
     attention of every query of the sequence; the kernel keeps its sums
     close to exact for the same reason (``csrc/fused_block.cu``)."""
+    wdt = w.qkv.dtype
+    xf = x.float().reshape(-1, x.shape[-1])
+    qkv = ((xf.to(wdt).double() @ w.qkv.double().t()).float() + w.qkv_bias).to(wdt)
+    return tiled_plain_after_qkv(x, mask, w, num_heads, qkv, batch_tile, ffn_chunks)
+
+
+def tiled_plain_after_qkv(
+    x: torch.Tensor, mask: Optional[torch.Tensor], w: BlockWeights, num_heads: int,
+    qkv: torch.Tensor, batch_tile: int = 4, ffn_chunks: int = 1,
+) -> torch.Tensor:
+    """The rest of :func:`fused_encoder_block_tiled_plain` from ``qkv``, its
+    q, k and v as a (B*L, 3d) tensor in the weights' type: so K3's output can
+    be held against the plain arithmetic on the kernel's own q, k and v."""
     batch, length, d_model = x.shape
     wdt = w.qkv.dtype
     rows = batch * length
     xf = x.float().reshape(rows, d_model)
-    qkv = (xf.to(wdt).double() @ w.qkv.double().t()).float() + w.qkv_bias
-    q, k, v = (t.to(wdt) for t in qkv.split(d_model, dim=-1))
+    q, k, v = qkv.split(d_model, dim=-1)
     heads = (batch, length, num_heads, d_model // num_heads)
     # float32 scores and softmax, weights rounded to V's type (the weights'),
     # float32 sums; rounding the output to that type here is the rounding the

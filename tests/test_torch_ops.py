@@ -297,13 +297,17 @@ def _misaligned(shape, dtype):
     ("misaligned", "16-byte"),
     ("k_not_multiple_of_8", "multiples of 8"),
     ("n_not_multiple_of_8", "multiples of 8"),
+    ("compensated_float32_w", "compensated"),
+    ("compensated_relu", "compensated"),
 ])
 def test_block_gemm_contract_errors(case, match):
     """The wrapper raises before any launch on operands the kernel does not
-    take: device, type, shape, contiguity and TMA's alignment rules."""
+    take: device, type, shape, contiguity, TMA's alignment rules, and the
+    compensated product's bf16 weights without ReLU."""
     bf = torch.bfloat16
     a, w, b = torch.zeros(32, 64, dtype=bf), torch.zeros(48, 64, dtype=bf), torch.zeros(48)
     out_dtype = torch.float32
+    options = {}
     if case == "meta":
         a, w, b = (t.to("meta") for t in (a, w, b))
     elif case == "mixed_device":
@@ -328,10 +332,31 @@ def test_block_gemm_contract_errors(case, match):
         a, w = torch.zeros(32, 60, dtype=bf), torch.zeros(48, 60, dtype=bf)
     elif case == "n_not_multiple_of_8":
         w, b = torch.zeros(44, 64, dtype=bf), torch.zeros(44)
+    elif case == "compensated_float32_w":
+        a, w = a.float(), w.float()
+        options = dict(compensated=True)
+    elif case == "compensated_relu":
+        options = dict(compensated=True, relu=True)
     before = block_gemm.launches
     with pytest.raises(ValueError, match=match):
-        block_gemm(a, w, b, out_dtype=out_dtype)
+        block_gemm(a, w, b, out_dtype=out_dtype, **options)
     assert block_gemm.launches == before
+
+
+@pytest.mark.parametrize("shape", [(37, 48, 64), (130, 136, 72)])
+def test_block_gemm_compensated_is_the_rounded_exact_sum(shape):
+    """compensated=True is K3's QKV product: the float32 value of the exact
+    sum (float64 here: bf16 products and their sums are exact in it), plus
+    bias, as K3's plain version takes it; its bf16 output is that rounded."""
+    a, w, b = _gemm_inputs(*shape, seed=sum(shape))
+    ta, tw = (torch.from_numpy(t).bfloat16() for t in (a, w))
+    exact = (ta.double().numpy() @ tw.double().numpy().T).astype(np.float32) + b
+    out = block_gemm(ta, tw, torch.from_numpy(b), compensated=True)
+    np.testing.assert_array_equal(out.numpy(), exact)
+    torch.testing.assert_close(
+        block_gemm(ta, tw, torch.from_numpy(b), out_dtype=torch.bfloat16, compensated=True),
+        out.bfloat16(), rtol=0, atol=0)
+    assert block_gemm.launches == 0
 
 
 def test_block_gemm_float32_weights_take_any_alignment():
