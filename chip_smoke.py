@@ -14,12 +14,15 @@ result:
    and HMMA (mma.sync) instructions (``cuobjdump -sass``): the attention
    kernels must hold HMMA, the block GEMM HGMMA;
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
-   float32 (TF32 off), with each error beside its tolerance: K1, and at L=210
-   beside it ``esv_attention_tensor_scores`` (its scores on the tensor cores,
-   a variant no wrapper launches) on three draws, with the outputs each puts
-   outside the bf16 check's element-wise limit (reported, not held), and so
-   does the plain version with its score or P V sums in float64; K2's own
-   float32 attention on the (B, L, 3d) projection buffer (3xTF32); the block
+   float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
+   outputs are held by ``attention_agreement`` (against float64 scores and
+   softmax, weights rounded to bf16: any float32 score order passes), with
+   beside it ``esv_attention_fma_scores`` (its scores in FMA chains on the
+   CUDA cores, a variant no wrapper launches) held the same way on three
+   L=210 draws and at L=10 (the shipped tensor-core form fails the phase if
+   it misses a draw; the other's verdict is printed), both timed through the
+   same call, by events and by the kernel's device time; K2's own float32
+   attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes; K2 at the fusion
    encoder's shape on the draws ``BLOCK_DRAWS``; K3 at the block bench's
    (L=224, ``batch_tile=2, ffn_chunks=2``) on ``K3_DRAWS``.  In bf16, every
@@ -52,7 +55,20 @@ result:
    ``"bucketed"`` and ``"pool"`` must give equal answers;
 10. the ``executor_roi_sim_count`` configuration (``roi_sim`` with 4 match
     maps and ``count_embed``, random non-zero weights): a float32 forward on
-    the card against the CPU, and one ``"sorted"`` pipeline run in bf16.
+    the card against the CPU, and one ``"sorted"`` pipeline run in bf16;
+11. generator training: the ``generator`` preset at full width, bf16, batch
+    64, on ``bench_data``'s questions and programs: ms per step, and the
+    loss of one fixed batch after 100 updates below 0.8 of its first;
+12. executor training: ``executor_roi`` at full width, bf16, through
+    ``executor_pipeline_from_arrays`` and ``Trainer.fit`` for one epoch (K1
+    and K2 launch in no train forward, and 3 and 2 times in each
+    validation forward); ms per step at batch 16 and 128 in parts
+    (forward, loss, the matcher's host round trip, backward, optimizer) and
+    the peak memory; a fixed batch's loss below 0.8 of its first within 100
+    updates; an eval forward after a step equal, bit for bit, to a fresh
+    module's loaded with the stepped weights;
+13. one float32 training step of ``executor_roi`` and ``generator`` on the
+    card against the CPU: loss, every gradient, the assignments.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``) and one per piece timed apart (``parts``: K2's float32
@@ -64,6 +80,7 @@ The script imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -77,7 +94,8 @@ REPO = Path(__file__).resolve().parent
 # float32 dot product's least time is its 3xTF32 form's (three TF32 products
 # for each, at 495 TFLOP/s, keep float32's accuracy, as the attention kernels
 # show), not the CUDA cores' 67 TFLOP/s: see dot_ops.
-PEAK_OPS = {"bf16": 989e12, "tf32": 495e12}
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12,
+            "fp64": 34e12}  # float64 on the CUDA cores (K3's exact q/k/v fix-up)
 # four K2 products at the fusion encoder's shape (B=128, L=210, d=512, ffn
 # 2048): name, N, K, ReLU, output type (bf16 for FFN1's hidden)
 K2_GEMMS = (("qkv", 1536, 512, False, "fp32"), ("out", 512, 512, False, "fp32"),
@@ -98,6 +116,11 @@ SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
 REPEATS = 5  # of the timed InferencePipeline.run
 MODE_QUESTIONS = 64  # of the float32 comparison of the chain modes
 K3_TILING = dict(batch_tile=2, ffn_chunks=2)
+GENERATOR_STEPS = 100  # updates of phase 11's fixed batch
+EXECUTOR_ROWS = 800  # phase 12's synthetic steps: 640 train (40 steps of 16), 80 validation
+EXECUTOR_STEPS = 100  # updates of phase 12's fixed batch
+CARD_VS_CPU_ROWS = 4  # phase 13's batch
+SCORE_ROUNDS = 10  # alternating timing rounds of the two bf16 score forms
 
 
 def fail(message: str) -> None:
@@ -150,8 +173,9 @@ def dot_text(kind: str, n: float) -> str:
 def device_profile(torch, fn):
     """Run ``fn`` once under torch.profiler: (wall s, (share of the wall time in
     which a kernel or copy ran on the card, [(name, device ms)] by time, the
-    number of times the host waited for the card)), or None for the profile
-    when the profiler saw no device activity."""
+    number of times the host waited for the card, the number of kernels and
+    copies)), or None for the profile when the profiler saw no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,7 +200,7 @@ def device_profile(torch, fn):
     top = sorted(((n, us / 1e3) for n, us in by_name.items()), key=lambda t: -t[1])
     syncs = sum(1 for e in prof.events()
                 if e.device_type != DeviceType.CUDA and "Synchronize" in e.name)
-    return wall, (busy / 1e6 / wall, top, syncs)
+    return wall, (busy / 1e6 / wall, top, syncs, len(spans))
 
 
 MEAN_ULPS = 0.05  # bf16 check: the largest mean error, in ulps of the reference
@@ -210,9 +234,44 @@ def bf16_ok(stats: dict) -> bool:
 
 
 def bf16_text(stats: dict) -> str:
-    return (f"max_abs_err {stats['max_abs']:.3g}, largest excess over 2 ulp(|ref|) + "
-            f"ulp(rms) {stats['excess']:.3g} (tol 0), mean error {stats['mean_ulps']:.4f} ulp "
-            f"(tol {MEAN_ULPS})")
+    return (f"max_abs_err {stats['max_abs']:.3g}, largest excess over "
+            f"{stats.get('limit', '2 ulp(|ref|) + ulp(rms)')} {stats['excess']:.3g} (tol 0), "
+            f"mean error {stats['mean_ulps']:.4f} ulp (tol {MEAN_ULPS})")
+
+
+def attention_agreement(torch, out, q, k, v, mask) -> dict:
+    """How far a bf16 attention output lies from the plain version with its
+    scores and softmax in float64, its weights then rounded to bf16 (the TPU
+    kernel normalises, then rounds) and P V summed in float64 and rounded
+    once: no float32 score order is baked into the reference.  A score a few
+    float32 ulps off moves a weight by at most one bf16 ulp, so each output
+    may lie within sum_j ulp(w_j) |v_j| (every weight one ulp off) +
+    ulp(|ref|) (the output's rounding) + ulp(rms(ref)) of it, for any float32
+    score order; and the mean error within ``MEAN_ULPS`` of the mean
+    ulp(|ref|).  The keys of ``bf16_agreement``."""
+    import numpy as np
+
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    w = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    del scores
+    w = (w / (w.sum(dim=-1, keepdim=True) + 1e-30)).to(q.dtype)
+    ref = torch.einsum("bhqk,bkhd->bqhd", w.double(), v.double()).float().to(q.dtype).float()
+    _, w_exp = torch.frexp(w.float())
+    w_ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w, dtype=torch.float64),
+                                                 w_exp - 8))
+    room = torch.einsum("bhqk,bkhd->bqhd", w_ulp, v.double().abs()).float()
+    del w, w_ulp
+    err = (out.float() - ref).abs()
+    _, exp = torch.frexp(ref)
+    ulp = torch.where(ref == 0, 0.0, torch.ldexp(torch.ones_like(ref), exp - 8))
+    _, rms_exp = torch.frexp(ref.square().mean().sqrt())
+    limit = room + ulp + 2.0 ** (int(rms_exp) - 8)
+    return dict(max_abs=float(err.max()), excess=float((err - limit).max()),
+                outside=int((err > limit).sum()), mean_ulps=float(err.mean() / ulp.mean()),
+                limit="sum ulp(w)|v| + ulp(|ref|) + ulp(rms)")
 
 
 def k3_qkv(torch, x, keep, w, heads) -> dict:
@@ -251,20 +310,31 @@ def k3_qkv(torch, x, keep, w, heads) -> dict:
 K3_SUM_SLACK = 2.0 ** -18  # csrc/fused_block.cu kSumSlack
 
 
-def k3_qkv_times(torch, a, w) -> None:
+def k3_qkv_times(torch, a, w, near_share: float) -> None:
     """Phase 4 for K3's QKV product alone (``block_gemm``): correctly rounded
     to bf16 as K3 takes it (compensated sums, the exact ones near a bf16
     tie), the compensated sums alone in float32, and the uncompensated
-    product in float32 (K2's)."""
+    product in float32 (K2's), beside ``torch.matmul`` in bf16 and the
+    bound of the correctly rounded product: its bf16 product, plus the
+    float64 dot products of the ``near_share`` of outputs the fix-up takes
+    again, at the float64 rate; a, the weights and the bias read once, the
+    bf16 output written once."""
     from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm
 
     b = w.qkv_bias
+    rows, n, k = a.shape[0], w.qkv.shape[0], a.shape[1]
     exact = timed_ms(torch, lambda: block_gemm(a, w.qkv, b, False, torch.bfloat16, True))
     comp = timed_ms(torch, lambda: block_gemm(a, w.qkv, b, False, torch.float32, True))
     plain = timed_ms(torch, lambda: block_gemm(a, w.qkv, b, False, torch.float32))
-    say(f"phase 4 K3 QKV product {a.shape[0]}x{w.qkv.shape[0]}x{a.shape[1]}: correctly rounded "
-        f"to bf16 {exact:.4f} ms, compensated sums in float32 {comp:.4f} ms, uncompensated in "
-        f"float32 {plain:.4f} ms")
+    lib = timed_ms(torch, lambda: torch.matmul(a, w.qkv.t()))
+    fixup = near_share * rows * n * 2.0 * k
+    bnd, by = bound_ms({"bf16": 2.0 * rows * n * k, "fp64": fixup},
+                       (rows * k + n * k) * 2 + n * 4 + rows * n * 2)
+    say(f"phase 4 K3 QKV product {rows}x{n}x{k}: correctly rounded to bf16 {exact:.4f} ms, "
+        f"compensated sums in float32 {comp:.4f} ms, uncompensated in float32 {plain:.4f} ms, "
+        f"torch.matmul bf16 {lib:.4f} ms; bound {bnd:.4f} ms ({by}; the fix-up's "
+        f"{fixup / 1e9:.3f} GFLOP of float64 dot products for {near_share:.2e} of the outputs "
+        f"{fixup / PEAK_OPS['fp64'] * 1e3:.4f} ms of it)")
 
 
 def compensated_sums(torch, a, w) -> dict:
@@ -530,7 +600,7 @@ def main() -> None:
             head = (f"phase 3 K1 fused_attention {names[dtype]} B={b} H={h} L={length} "
                     f"D={d_head} mask={'ragged' if masked else 'none'}:")
             if dtype == torch.bfloat16:
-                stats = bf16_agreement(torch, out, ref)
+                stats = attention_agreement(torch, out, q, k, v, mask)
                 say(f"{head} {bf16_text(stats)}")
                 ok = bf16_ok(stats)
             else:
@@ -552,8 +622,10 @@ def main() -> None:
                 f"({by})")
             results[f"K1_L{length}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                                             bound_by=by, library_ms=lib)
-            if length == 210:
-                tensor_scores(torch, dev, (q, k, v, mask), results["K1_L210"], parts)
+            if length == 10:
+                l10_inputs = (q, k, v)
+            else:
+                score_forms(torch, dev, l10_inputs, (q, k, v, mask), results, parts)
 
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
@@ -613,7 +685,7 @@ def main() -> None:
                     if found["kernel_share"] > 0:
                         fail("K3 rounds q/k/v otherwise than the correctly rounded float32 sum")
                     if draw == draws[0]:
-                        k3_qkv_times(torch, x.reshape(-1, d), w)
+                        k3_qkv_times(torch, x.reshape(-1, d), w, found["near_share"])
                 if draw == draws[0]:
                     # float32 x with the bf16 weights: the kernel rounds x to
                     # bf16 in a pass of its own for the QKV product's TMA loads
@@ -685,85 +757,98 @@ def main() -> None:
     main_path(torch, np, dev, results, parts)
 
 
-def wide_plain_attention(torch, q, k, v, mask, wide_scores: bool):
-    """``dot_product_attention``'s arithmetic (``ops/attention.py``) with the
-    score sums (``wide_scores``) or else the P V sums taken in float64 and
-    rounded to float32 once: how far the plain version itself moves when
-    one of its sums is taken in another order."""
-    import numpy as np
-
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
-    wide, narrow = (torch.float64, torch.float32) if wide_scores else (torch.float32,
-                                                                       torch.float64)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), k.to(wide)).float() * scale
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    weights = (weights / (weights.sum(dim=-1, keepdim=True) + 1e-30)).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", weights.to(narrow), v.to(narrow)).float().to(q.dtype)
-
-
-def tensor_scores(torch, dev, first, k1: dict, parts) -> None:
-    """Phases 3-4 for ``esv_attention_tensor_scores``, the bf16 attention
-    with its scores summed on the tensor cores (16-deep slices) instead of
-    in FMA chains, a variant no wrapper launches: beside K1 (FMA chains) at
-    L=210 on K1's inputs and two more draws, how far each lies from the plain
-    version (cuBLAS scores) and how many outputs fall outside the bf16
-    check's element-wise limit, beside the same count for the plain version
-    with its score sums, or its P V sums, in float64 (``wide_plain_attention``);
-    then its time beside K1's.  It fails only if the variant does not launch
-    or misses the check's mean error."""
+def score_forms(torch, dev, l10, first, results: dict, parts) -> None:
+    """Phases 3-4 for the two forms of the bf16 attention's scores: sums on
+    the tensor cores (K1 and K3, the shipped form) and float32 FMA chains on
+    the CUDA cores (``esv_attention_fma_scores``, which no wrapper
+    launches).  Both are held by ``attention_agreement`` on three draws at
+    L=210 (K1's inputs and two more) and at L=10 (the box decoder's shape):
+    the shipped form fails the phase if it misses any; the other's verdict
+    is printed beside it.  Both are timed at L=10 and L=210 through the same
+    ctypes call (the wrapper's checks cost the host more than an L=10
+    kernel takes), in alternating rounds: CUDA events around 50 calls, and
+    the kernel's own device time from torch.profiler."""
     from explainable_spatial_vqa_tpu_torch.ops import fused_attention as fa
-    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
 
-    fn = fa._esv_attention("esv_attention_tensor_scores")
+    def direct(entry):
+        fn = fa._esv_attention(entry)
 
-    def variant(q, k, v, mask):
-        b, length, h, d_head = q.shape
-        out = torch.empty_like(q)
-        mask_f = fa.key_mask_f32(mask, b, length)
-        strides = (length * h * d_head, h * d_head)
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_f.data_ptr(), out.data_ptr(),
-                    b, h, length, d_head, *strides, *strides, 1, 1,
-                    torch.cuda.current_stream().cuda_stream)
-        if status:
-            fail(f"esv_attention_tensor_scores failed with CUDA error {status}")
-        return out
+        def call(q, k, v, mask):
+            b, length, h, d_head = q.shape
+            out = torch.empty_like(q)
+            mask_f = fa.key_mask_f32(mask, b, length)
+            strides = (length * h * d_head, h * d_head)
+            status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
+                        b, h, length, d_head, *strides, *strides, 1, 1,
+                        torch.cuda.current_stream().cuda_stream)
+            if status:
+                fail(f"{entry} failed with CUDA error {status}")
+            return out
 
+        return call
+
+    tensor_call, chains_call = direct("esv_attention"), direct("esv_attention_fma_scores")
     b, length, h, d_head = first[0].shape
-    for draw in range(3):
-        if draw == 0:
-            q, k, v, mask = first
-        else:
-            gen = torch.Generator(device=dev).manual_seed(10 + draw)
-            q, k, v = (torch.randn(b, length, h, d_head, generator=gen, device=dev).bfloat16()
-                       for _ in range(3))
-            keep = torch.ones(b, length, dtype=torch.bool, device=dev)
-            keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
-            mask = keep[:, None, None, :]
-        ref = dot_product_attention(q, k, v, mask)
-        chains = bf16_agreement(torch, fa.fused_attention(q, k, v, mask), ref)
-        tensor = bf16_agreement(torch, variant(q, k, v, mask), ref)
-        wide = [bf16_agreement(torch, wide_plain_attention(torch, q, k, v, mask, scores), ref)
-                for scores in (True, False)]
-        say(f"phase 3 K1 bf16 L={length} draw {draw}, {ref.numel()} outputs: FMA-chain scores "
-            f"(K1) {bf16_text(chains)}, {chains['outside']} outside the element-wise limit; "
-            f"tensor-core scores (esv_attention_tensor_scores) {bf16_text(tensor)}, "
-            f"{tensor['outside']} outside; the plain version with float64 score sums "
-            f"{wide[0]['outside']} outside (mean {wide[0]['mean_ulps']:.4f} ulp), with float64 "
-            f"P V sums {wide[1]['outside']} (mean {wide[1]['mean_ulps']:.4f} ulp)")
-        if not tensor["mean_ulps"] <= MEAN_ULPS:
-            fail("the tensor-core scores miss the bf16 check's mean error")
-        if draw == 0:
-            err = float((variant(q, k, v, mask).float() - ref.float()).abs().max())
-            ms = timed_ms(torch, lambda: variant(q, k, v, mask))
-            say(f"phase 4 K1 bf16 L={length} with tensor-core scores: {ms:.4f} ms (FMA-chain "
-                f"scores {k1['ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms)")
-            parts.append(dict(name="attention_bf16_tensor_scores_L210", route="cuda",
-                              source="explainable_spatial_vqa_tpu_torch/csrc/attention.cuh",
-                              replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
-                              inside=None, max_abs_err=err, ms=ms,
-                              **{key: k1[key] for key in ("plain_ms", "bound_ms", "bound_by",
-                                                          "library_ms")}))
+    inputs = [first]
+    for draw in (1, 2):
+        gen = torch.Generator(device=dev).manual_seed(10 + draw)
+        q, k, v = (torch.randn(b, length, h, d_head, generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+        inputs.append((q, k, v, keep[:, None, None, :]))
+    inputs.append((*l10, None))
+    chains_passes = 0
+    for draw, (q, k, v, mask) in enumerate(inputs):
+        shape = f"L={q.shape[1]}{'' if mask is None else ' ragged mask'}"
+        tensor = attention_agreement(torch, fa.fused_attention(q, k, v, mask), q, k, v, mask)
+        chains = attention_agreement(torch, chains_call(q, k, v, mask), q, k, v, mask)
+        chains_passes += bf16_ok(chains)
+        say(f"phase 3 bf16 attention {shape} draw {draw}, {q.numel()} outputs: tensor-core "
+            f"scores (K1, shipped) {bf16_text(tensor)}, {tensor['outside']} outside: "
+            f"{'passes' if bf16_ok(tensor) else 'FAILS'}; FMA-chain scores "
+            f"(esv_attention_fma_scores) {bf16_text(chains)}, {chains['outside']} outside: "
+            f"{'passes' if bf16_ok(chains) else 'fails'}")
+        if not bf16_ok(tensor):
+            fail(f"K1's shipped score form misses the bf16 attention check on draw {draw}")
+    q, k, v, mask = first
+    err = float((chains_call(q, k, v, mask).float()
+                 - fa.dot_product_attention(q, k, v, mask).float()).abs().max())
+    ms = timed_ms(torch, lambda: chains_call(q, k, v, mask))
+    parts.append(dict(name="attention_bf16_fma_scores_L210", route="cuda",
+                      source="explainable_spatial_vqa_tpu_torch/csrc/attention.cuh",
+                      replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+                      inside=None, max_abs_err=err, ms=ms,
+                      **{key: results["K1_L210"][key] for key in (
+                          "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+
+    def kernel_ms(call, q, k, v, mask, calls=50):
+        """The attention kernel's device time per call, by torch.profiler."""
+        _, prof = device_profile(torch, lambda: [call(q, k, v, mask) for _ in range(calls)])
+        if prof is None:
+            return math.nan
+        return sum(t for name, t in prof[1] if "attention_kernel" in name) / calls
+
+    timings = []
+    for q, k, v, mask in (inputs[-1], first):
+        found = {measure: ([], []) for measure in ("events", "device")}
+        for r in range(SCORE_ROUNDS):  # alternating: F T, T F, F T, ...
+            for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+                call = (chains_call, tensor_call)[i]
+                found["events"][i].append(timed_ms(torch, lambda: call(q, k, v, mask), iters=50,
+                                                   warmup=2))
+                found["device"][i].append(kernel_ms(call, q, k, v, mask))
+        mid = SCORE_ROUNDS // 2
+        for measure, (chains_ms, tensor_ms) in found.items():
+            wins = sum(t < c for t, c in zip(tensor_ms, chains_ms))
+            timings.append(f"L={q.shape[1]} {measure}: FMA chains {sorted(chains_ms)[mid]:.4f} ms, "
+                           f"tensor cores {sorted(tensor_ms)[mid]:.4f} ms, the tensor cores "
+                           f"faster in {wins} of {SCORE_ROUNDS} rounds")
+    say(f"phase 4 bf16 attention score forms, through the same call, medians of {SCORE_ROUNDS} "
+        f"alternating rounds of 50 calls (events: CUDA events around the calls; device: the "
+        f"kernel's device time per call, torch.profiler): {'; '.join(timings)}; the "
+        f"FMA-chain form passes {chains_passes} of {len(inputs)} draws")
 
 
 def k2_attention(torch, F, dev, randn, ragged_keep, parts) -> None:
@@ -1043,7 +1128,7 @@ def main_path(torch, np, dev, results, parts) -> None:
         say(f"phase 6 profile: InferencePipeline.run {wall:.3f} s under the profiler; device "
             f"time not measured (the profiler saw no device activity)")
     else:
-        busy, top, syncs = prof
+        busy, top, syncs, _ = prof
         total = sum(ms for _, ms in top)
         say(f"phase 6 profile: InferencePipeline.run {wall:.3f} s under the profiler, device "
             f"busy {busy:.3f} of it ({total:.1f} ms of kernels and copies), {syncs} host waits "
@@ -1180,6 +1265,12 @@ def main_path(torch, np, dev, results, parts) -> None:
         if not ok:
             fail(f"executor_roi_sim_count check failed: {name}")
 
+    del rs_runner, rs_pipeline, rs_executor, generator, features_dev, questions_dev
+    torch.cuda.empty_cache()
+    generator_training(torch, dev)
+    executor_training(torch, np, dev)
+    card_vs_cpu_step(torch, np, dev)
+
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
          "explainable_spatial_vqa_tpu/ops/pallas_attention.py:45", "K1_L10", launches),
@@ -1194,6 +1285,334 @@ def main_path(torch, np, dev, results, parts) -> None:
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def step_profile(torch, name: str, fn) -> None:
+    """One training step under torch.profiler: its wall time, the card's busy
+    share of it and its count of kernels and copies."""
+    wall, prof = device_profile(torch, fn)
+    if prof is None:
+        say(f"{name} profile: {wall * 1e3:.1f} ms under the profiler; device time not measured "
+            f"(the profiler saw no device activity)")
+        return
+    busy, top, _syncs, launches = prof
+    say(f"{name} profile: one step {wall * 1e3:.1f} ms under the profiler, device busy "
+        f"{busy:.3f} of it, {launches} kernels and copies; by device time: "
+        + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top[:5]))
+
+
+def generator_training(torch, dev) -> None:
+    """Phase 11: the ``generator`` preset at full width (3+3 LSTM layers,
+    hidden 512), bf16, batch 64, teacher forcing 0.5 and dropout 0.3, on
+    ``bench_data``'s questions and programs: ``GENERATOR_STEPS`` + 1 updates
+    of one fixed batch through ``Trainer.train_step``, each between CUDA
+    events.  The loss at step ``GENERATOR_STEPS`` must be below 0.8 of step
+    0's; the step time is the median of 20 steps after 3 warm-ups."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_generator_batch
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import generator_pipeline_from_arrays
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = get_preset("generator")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=0))
+    pipe = generator_pipeline_from_arrays(cfg, *synth_generator_batch(128, cfg.model, seed=11),
+                                          device=dev)
+    trainer = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                      checkpoint_dir=False, device=dev)
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    gen = torch.Generator().manual_seed(0)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(GENERATOR_STEPS + 1)]
+    losses = []
+    for start, end in marks:
+        start.record()
+        losses.append(trainer.train_step(batch, gen)["loss_sum"])
+        end.record()
+    losses = torch.stack(losses).tolist()  # waits for the card
+    ms = sorted(start.elapsed_time(end) for start, end in marks[3:23])[10]
+    say(f"phase 11 generator training ({cfg.model.encoder_layers}+{cfg.model.decoder_layers} "
+        f"LSTM layers, hidden {cfg.model.hidden_dim}, bf16, batch {cfg.train.batch_size}, "
+        f"teacher forcing {cfg.model.teacher_forcing}, dropout {cfg.model.dropout}, lr "
+        f"{cfg.optim.learning_rate}): {ms:.2f} ms per step (median of 20 after 3 warm-ups); "
+        f"fixed-batch loss step 0 {losses[0]:.4f}, step {GENERATOR_STEPS} {losses[-1]:.4f} "
+        f"({losses[-1] / losses[0]:.3f} of step 0, tol 0.8); {time.perf_counter() - t0:.1f} s")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < 0.8 * losses[0]):
+        fail("the generator's fixed-batch loss did not fall below 0.8 of its first value")
+    step_profile(torch, "phase 11 generator train step", lambda: trainer.train_step(batch, gen))
+    del trainer, pipe, batch
+    torch.cuda.empty_cache()
+
+
+def executor_training(torch, np, dev) -> None:
+    """Phase 12: the ``executor_roi`` preset at full width, bf16, on
+    ``bench_data``'s executor steps (features on the card):
+
+    - ``Trainer.fit`` for one epoch (about 40 steps at the preset's batch
+      16, then a validation pass), with the kernels' launches counted per
+      forward by mode: none in train mode, K2 3 and K1 2 per eval forward;
+    - a separate timed loop at batch 16 and 128: each step's forward, loss
+      (with the matcher), backward and optimizer between CUDA events, the
+      matcher's host round trip alone on the step's cost, and the peak
+      memory at 128;
+    - ``EXECUTOR_STEPS`` updates of one fixed batch of 16 at the preset's
+      learning rate: the loss must fall below 0.8 of its first value;
+    - after an optimizer step, an eval forward equal, bit for bit, to that
+      of a fresh ``ProgramExecutor`` loaded with the stepped ``state_dict``.
+    """
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_executor_steps
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import fused_encoder_block
+    from explainable_spatial_vqa_tpu_torch.ops.matching import hungarian_assignment
+    from explainable_spatial_vqa_tpu_torch.train.losses import executor_set_loss, matching_cost
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = get_preset("executor_roi")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=1, log_every=0))
+    arrays, features = synth_executor_steps(EXECUTOR_ROWS, cfg.model, seed=12)
+    features = torch.from_numpy(features).to(dev)
+
+    def pipeline():
+        return executor_pipeline_from_arrays(cfg, arrays, features, device=dev)
+
+    def trainer_of(pipe):
+        return Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                       checkpoint_dir=False, device=dev)
+
+    pipe = pipeline()
+    model = pipe.model
+    trainer = trainer_of(pipe)
+    wrappers = (fused_encoder_block, fused_attention)
+    counts = {mode: dict(forwards=0, K2=0, K1=0) for mode in ("train", "eval")}
+    before = {}
+
+    def pre_hook(module, _args):
+        before["launches"] = [w.launches for w in wrappers]
+
+    def post_hook(module, _args, _out):
+        c = counts["train" if module.training else "eval"]
+        c["forwards"] += 1
+        for key, w, n in zip(("K2", "K1"), wrappers, before["launches"]):
+            c[key] += w.launches - n
+
+    hooks = [model.register_forward_pre_hook(pre_hook), model.register_forward_hook(post_hook)]
+    t1 = time.perf_counter()
+    history = trainer.fit(pipe.train_batches, pipe.val_batches, pipe.monitor, num_epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    for hook in hooks:
+        hook.remove()
+    train, val = history["train"][0], history["val"][0]
+    tr, ev = counts["train"], counts["eval"]
+    say(f"phase 12 executor training, Trainer.fit one epoch (executor_roi, d={cfg.model.d_model}, "
+        f"{cfg.model.encoder_layers}+{cfg.model.box_decoder_layers} layers, bf16, batch "
+        f"{cfg.train.batch_size}, {EXECUTOR_ROWS} synthetic steps, "
+        f"{float(arrays['is_box_branch'].mean()):.3f} spatial): {fit_s:.2f} s for "
+        f"{int(train['batches'])} train steps and {int(val['batches'])} validation batches; "
+        f"train loss {train['loss_sum'] / train['batches']:.4f}, validation loss "
+        f"{val['loss_sum'] / val['batches']:.4f}, routing accuracy "
+        f"{val['routing_correct'] / val['routing_total']:.3f}; launches in train forwards "
+        f"{tr}, in eval forwards {ev}")
+    launch_checks = {
+        "K1 and K2 launch zero times in train steps": (
+            tr["forwards"] == train["batches"] and tr["K2"] == 0 and tr["K1"] == 0),
+        "K2 3 and K1 2 launches per validation forward": (
+            ev["forwards"] == val["batches"] > 0 and ev["K2"] == 3 * ev["forwards"]
+            and ev["K1"] == 2 * ev["forwards"]),
+    }
+    for name, ok in launch_checks.items():
+        if not ok:
+            fail(f"executor training check failed: {name}")
+
+    # fresh weights in eval: the model's kept weights were filled by the
+    # validation pass; one more step must not leave them stale
+    val_batch = to_device(next(iter(pipe.val_batches())), dev)
+    inputs = [val_batch[k] for k in ("image", "input_boxes", "input_box_mask", "text",
+                                     "text_mask")]
+
+    def eval_forward(m):
+        m.eval()
+        with torch.no_grad():
+            return m(*inputs)
+
+    stale = eval_forward(model)
+    trainer.train_step(val_batch, torch.Generator().manual_seed(1))
+    after = eval_forward(model)
+    fresh = ProgramExecutor(cfg.model, model.dtype, device=dev)
+    fresh.load_state_dict(model.state_dict())
+    reference = eval_forward(fresh)
+    equal = all(torch.equal(after[k], reference[k]) for k in reference)
+    moved = not torch.equal(after["pred_boxes"], stale["pred_boxes"])
+    say(f"phase 12 eval forward after an optimizer step: {'equal' if equal else 'NOT EQUAL'} "
+        f"to a fresh ProgramExecutor loaded with the stepped state_dict, bit for bit "
+        f"({'moved' if moved else 'did NOT move'} from the forward before the step)")
+    if not (equal and moved):
+        fail("an eval forward after an optimizer step does not use the stepped weights")
+    del fresh, trainer, pipe, model
+
+    # each step's parts, at batch 16 and 128, in a loop of their own
+    for batch_size in (16, 128):
+        pipe = pipeline()
+        trainer = trainer_of(pipe)
+        model = pipe.model
+        batch = to_device({k: v[:batch_size] for k, v in arrays.items()}, dev)
+        batch["image"] = features[batch["image_index"].long()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(7)] for _ in range(23)]
+        model.train()
+        for ev_ in marks:
+            ev_[0].record()
+            out = model(batch["image"], batch["input_boxes"], batch["input_box_mask"],
+                        batch["text"], batch["text_mask"])
+            ev_[1].record()
+            loss = executor_set_loss(out, batch["target_boxes"], batch["target_box_mask"],
+                                     batch["token_target"], batch["is_box_branch"],
+                                     cfg.model)["loss"]
+            ev_[2].record()
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev_[3].record()
+            trainer.apply_gradients()
+            ev_[4].record()
+            cost = matching_cost(out["pred_boxes"].detach(), out["pred_conf"].detach(),
+                                 batch["target_boxes"], cfg.model)
+            ev_[5].record()
+            hungarian_assignment(cost, batch["target_box_mask"])
+            ev_[6].record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def med(i, j):
+            ms = sorted(e[i].elapsed_time(e[j]) for e in marks[3:])
+            return ms[len(ms) // 2]
+
+        parts = dict(step=med(0, 4), forward=med(0, 1), loss=med(1, 2), backward=med(2, 3),
+                     optimizer=med(3, 4), matcher=med(5, 6))
+        say(f"phase 12 executor train step, batch {batch_size}: {parts['step']:.2f} ms (median "
+            f"of 20 after 3 warm-ups); parts: forward {parts['forward']:.2f} ms, loss with the "
+            f"matcher {parts['loss']:.2f} ms (the matcher's host round trip alone "
+            f"{parts['matcher']:.2f} ms), backward {parts['backward']:.2f} ms, optimizer "
+            f"{parts['optimizer']:.2f} ms; peak memory {peak:.2f} GiB")
+        if not math.isfinite(float(loss.detach())):
+            fail(f"the executor's loss at batch {batch_size} is not finite")
+        step_profile(torch, f"phase 12 executor train step, batch {batch_size},",
+                     lambda: trainer.train_step(batch, torch.Generator().manual_seed(0)))
+        del trainer, pipe, model, batch, out, loss, cost
+        torch.cuda.empty_cache()
+
+    # the loss of one fixed batch of 16 at the preset's learning rate
+    pipe = pipeline()
+    trainer = trainer_of(pipe)
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    gen = torch.Generator().manual_seed(2)
+    losses = torch.stack([trainer.train_step(batch, gen)["loss_sum"]
+                          for _ in range(EXECUTOR_STEPS + 1)]).tolist()
+    below = [i for i, x in enumerate(losses) if x < 0.8 * losses[0]]
+    say(f"phase 12 executor fixed-batch loss (batch {cfg.train.batch_size}, lr "
+        f"{cfg.optim.learning_rate}): step 0 {losses[0]:.4f}, step {EXECUTOR_STEPS} "
+        f"{losses[-1]:.4f}, lowest {min(losses):.4f}; first below 0.8 of step 0 at step "
+        f"{below[0] if below else None}; phase 12 took {time.perf_counter() - t0:.1f} s")
+    if not (all(math.isfinite(x) for x in losses) and below):
+        fail(f"the executor's fixed-batch loss did not fall below 0.8 of its first value within "
+             f"{EXECUTOR_STEPS} steps")
+    del trainer, pipe, batch, features
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu_step(torch, np, dev) -> None:
+    """Phase 13: one float32 training step (TF32 off, dropout 0) of
+    ``executor_roi`` and of ``generator`` at full width, the same weights
+    and batch on the card and on the CPU: the loss within 1e-5 relative,
+    every gradient within 1e-4 of its tensor's max |g|, and the executor's
+    Hungarian assignments equal.  An attention key bias's exact gradient is
+    zero (the softmax ignores a constant added to a query's scores); those
+    are held within 1e-6 of the model's largest gradient instead."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import (
+        synth_executor_steps,
+        synth_generator_batch,
+    )
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.train.losses import executor_set_loss
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import (
+        executor_pipeline_from_arrays,
+        generator_pipeline_from_arrays,
+    )
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def step(model, batch, run):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, extra = run(model, to_device(batch, next(model.parameters()).device))
+        loss.backward()
+        return (float(loss.detach()), extra,
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+    def compare(name, model, batch, run):
+        cpu_model = copy.deepcopy(model).to(cpu)
+        loss, extra, grads = step(model, batch, run)
+        cpu_loss, cpu_extra, cpu_grads = step(cpu_model, batch, run)
+        largest = max(float(g.abs().max()) for g in cpu_grads.values())
+        worst, worst_name = 0.0, None
+        for key, g in cpu_grads.items():
+            diff = float((grads[key] - g).abs().max())
+            if key.endswith(".k.bias"):
+                ok = max(float(grads[key].abs().max()), float(g.abs().max())) <= 1e-6 * largest
+                rel = 0.0 if ok else math.inf
+            else:
+                rel = diff / max(float(g.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, key
+        rel_loss = abs(loss - cpu_loss) / abs(cpu_loss)
+        same = extra is None or torch.equal(extra.cpu(), cpu_extra.cpu())
+        say(f"phase 13 {name} fp32 train step, card vs CPU: loss {loss:.6f} vs {cpu_loss:.6f} "
+            f"({rel_loss:.2e} relative, tol 1e-5); largest gradient difference "
+            f"{worst:.2e} of its tensor's max |g| ({worst_name}; tol 1e-4) over "
+            f"{len(grads)} tensors" + ("" if extra is None else
+                                      f"; Hungarian assignments {'equal' if same else 'DIFFER'}"))
+        if not (rel_loss <= 1e-5 and worst <= 1e-4 and same):
+            fail(f"the {name} fp32 training step on the card disagrees with the CPU")
+
+    cfg = get_preset("executor_roi")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0),
+                      train=dataclasses.replace(cfg.train, dtype="float32"))
+    arrays, features = synth_executor_steps(CARD_VS_CPU_ROWS, cfg.model, seed=13)
+    pipe = executor_pipeline_from_arrays(cfg, arrays, features, device=dev)
+    batch = {k: v[:CARD_VS_CPU_ROWS] for k, v in arrays.items()}
+    batch["image"] = features[batch["image_index"]]
+
+    def run_executor(model, b):
+        out = model(b["image"], b["input_boxes"], b["input_box_mask"], b["text"], b["text_mask"])
+        losses = executor_set_loss(out, b["target_boxes"], b["target_box_mask"],
+                                   b["token_target"], b["is_box_branch"], cfg.model)
+        return losses["loss"], losses["assignment"]
+
+    compare("executor_roi", pipe.model, batch, run_executor)
+    del pipe
+
+    cfg = get_preset("generator")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0),
+                      train=dataclasses.replace(cfg.train, dtype="float32"))
+    questions, programs, image_index = synth_generator_batch(CARD_VS_CPU_ROWS, cfg.model, seed=13)
+    pipe = generator_pipeline_from_arrays(cfg, questions, programs, image_index, device=dev)
+
+    def run_generator(model, b):
+        # teacher forcing 0.5: the same coins on both sides
+        loss, _ = pipe.loss_fn(model, b, torch.Generator().manual_seed(3), True)
+        return loss, None
+
+    compare("generator", pipe.model, {"questions": questions, "programs": programs},
+            run_generator)
+    say(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,18 @@
-"""CLEVR-shaped synthetic questions, a numpy-only copy of ``bench.py:83-180``.
+"""CLEVR-shaped synthetic data at full width, made from a seed with numpy.
 
-Programs are drawn from CLEVR's structural question families (filter chains,
-relate and same_* hops, two-branch attribute and number comparisons joined
-by a 2-input node), with depths up to 27 steps.  Given the same seed this
-draws the same features, questions, depths and dependencies as
+:func:`synth_questions` is a numpy-only copy of ``bench.py:83-180``: programs
+drawn from CLEVR's structural question families (filter chains, relate and
+same_* hops, two-branch attribute and number comparisons joined by a
+2-input node), with depths up to 27 steps.  Given the same seed this draws
+the same features, questions, depths and dependencies as
 ``bench.synth_questions``.  Function ids come from a fixed table,
 :data:`FUNCTION_IDS` (1-based), where the bench numbers names in order of
 first appearance in the process; the names behind the ids agree.
+
+The two training sets are built on those programs:
+:func:`synth_generator_batch` (questions and postfix programs, the questions
+h5's layout) and :func:`synth_executor_steps` (one record per program step,
+``executor_step_arrays``' layout, with random image features).
 """
 
 from __future__ import annotations
@@ -15,10 +21,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
-from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
+from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
+from explainable_spatial_vqa_tpu_torch.train.datasets import NON_SPATIAL_FUNCTIONS, ChainArrays
 
-__all__ = ["synth_questions", "FUNCTION_IDS"]
+__all__ = ["synth_questions", "FUNCTION_IDS", "PROGRAM_TOKENS", "postfix_ids",
+           "synth_generator_batch", "synth_executor_steps"]
 
 _ATTRS = ("size", "color", "material", "shape")
 FUNCTION_IDS: Dict[str, int] = {
@@ -27,6 +34,9 @@ FUNCTION_IDS: Dict[str, int] = {
          "equal_integer"]
         + [f"{kind}_{a}" for kind in ("filter", "same", "query", "equal") for a in _ATTRS])
 }
+
+# the generator's program vocabulary: specials, then the function names
+PROGRAM_TOKENS: Tuple[str, ...] = ("<NULL>", "<START>", "<END>") + tuple(sorted(FUNCTION_IDS))
 
 Node = Tuple[str, int, int]
 
@@ -111,3 +121,107 @@ def synth_questions(n: int, exe_cfg: ExecutorConfig, max_steps: int = 27, seed: 
             deps[i, k, 1] = d1
     image_index = rng.randint(0, num_images, n).astype(np.int32)
     return features, questions, ChainArrays(image_index, functions, deps, num_steps, [""] * n)
+
+
+def postfix_ids(chains: ChainArrays, length: int, start: bool = False) -> np.ndarray:
+    """Each chain's program as the generator spells one, in
+    :data:`PROGRAM_TOKENS` ids: <START> if ``start``, the nodes in postfix
+    order (children first, then the node), <END>, then <NULL> padding, cut
+    at ``length``."""
+    token_ids = {t: i for i, t in enumerate(PROGRAM_TOKENS)}
+    names = {i: name for name, i in FUNCTION_IDS.items()}
+    out = np.zeros((len(chains.num_steps), length), np.int64)
+    for i, steps in enumerate(chains.num_steps):
+        order: List[int] = []
+
+        def visit(step: int) -> None:
+            for dep in chains.deps[i, step]:
+                if dep >= 0:
+                    visit(dep)
+            order.append(step)
+
+        visit(steps - 1)
+        ids = ([token_ids["<START>"]] if start else []) + [
+            token_ids[names[chains.functions[i, s]]] for s in order] + [token_ids["<END>"]]
+        out[i, :min(len(ids), length)] = ids[:length]
+    return out
+
+
+def synth_generator_batch(n: int, cfg: GeneratorConfig, seed: int = 0):
+    """(questions (n, 46) int32, programs (n, program_len) int32, image_index
+    (n,)): random question tokens beside ``synth_questions``' programs, each
+    <START> + postfix + <END> within ``program_len`` (programs of at most
+    ``program_len - 2`` steps), as the questions h5 holds them."""
+    _features, questions, chains = synth_questions(
+        n, ExecutorConfig(num_image_tokens=1, image_feature_dim=1),
+        max_steps=cfg.program_len - 2, seed=seed)
+    programs = postfix_ids(chains, cfg.program_len, start=True).astype(np.int32)
+    return questions, programs, chains.image_index
+
+
+def _random_boxes(rng: np.random.RandomState, k: int) -> np.ndarray:
+    """(k, 4) boxes x0 < x1, y0 < y1 inside [0, 1], sides 0.05-0.25."""
+    lo = rng.uniform(0.0, 0.75, (k, 2))
+    return np.concatenate([lo, lo + rng.uniform(0.05, 0.25, (k, 2))], 1).astype(np.float32)
+
+
+def synth_executor_steps(n: int, cfg: ExecutorConfig, seed: int = 0):
+    """(arrays, features): ``n`` executor step records in
+    ``executor_step_arrays``' layout and image features (M, P, C) float32,
+    M = max(1, n // 100).
+
+    The steps are ``synth_questions``' program steps in order, so the share
+    of spatial steps is CLEVR-shaped.  Each spatial step's targets are 1-10
+    random boxes (1 after ``unique``); each non-spatial step's target is a
+    random value token.  A step's input boxes are its dependencies' target
+    boxes (concatenated, cut at ``max_input_boxes``) and its text the
+    function id and up to two dependency tokens; masks are contiguous from
+    slot 0.
+    """
+    rng = np.random.RandomState(seed)
+    num_images = max(1, n // 100)
+    features = rng.rand(num_images, cfg.num_image_tokens, cfg.image_feature_dim).astype(
+        np.float32)
+    # every program has at least 3 steps, so n // 3 + 1 programs hold n steps
+    _f, _q, chains = synth_questions(n // 3 + 1, ExecutorConfig(num_image_tokens=1,
+                                                                image_feature_dim=1),
+                                     seed=seed + 1)
+    names = {i: name for name, i in FUNCTION_IDS.items()}
+    s_in, s_out = cfg.max_input_boxes, cfg.num_queries
+    records = {
+        "image_index": np.zeros(n, np.int32), "text": np.zeros((n, 3), np.int32),
+        "text_mask": np.zeros((n, 3), bool), "input_boxes": np.zeros((n, s_in, 4), np.float32),
+        "input_box_mask": np.zeros((n, s_in), bool),
+        "target_boxes": np.zeros((n, s_out, 4), np.float32),
+        "target_box_mask": np.zeros((n, s_out), bool), "token_target": np.zeros(n, np.int32),
+        "is_box_branch": np.zeros(n, bool),
+    }
+    row = 0
+    for q in range(len(chains.num_steps)):
+        image = rng.randint(num_images)
+        outputs: List[Tuple[str, object]] = []  # each step's ("box", boxes) or ("token", id)
+        for k in range(chains.num_steps[q]):
+            if row == n:
+                return records, features
+            name = names[chains.functions[q, k]]
+            deps = [d for d in chains.deps[q, k] if d >= 0]
+            dep_boxes = [outputs[d][1] for d in deps if outputs[d][0] == "box"]
+            dep_tokens = [outputs[d][1] for d in deps if outputs[d][0] == "token"][:2]
+            records["image_index"][row] = image
+            records["text"][row, :1 + len(dep_tokens)] = [chains.functions[q, k]] + dep_tokens
+            records["text_mask"][row, :1 + len(dep_tokens)] = True
+            inputs = (np.concatenate(dep_boxes) if dep_boxes else np.zeros((0, 4)))[:s_in]
+            records["input_boxes"][row, :len(inputs)] = inputs
+            records["input_box_mask"][row, :len(inputs)] = True
+            if name in NON_SPATIAL_FUNCTIONS:
+                token = int(rng.randint(1, cfg.token_classes))
+                records["token_target"][row] = token
+                outputs.append(("token", token))
+            else:
+                boxes = _random_boxes(rng, 1 if name == "unique" else rng.randint(1, s_out + 1))
+                records["target_boxes"][row, :len(boxes)] = boxes
+                records["target_box_mask"][row, :len(boxes)] = True
+                records["is_box_branch"][row] = True
+                outputs.append(("box", boxes))
+            row += 1
+    return records, features

@@ -1,12 +1,55 @@
-"""Model configurations: copies of the JAX package's ``GeneratorConfig`` and
-``ExecutorConfig`` (``explainable_spatial_vqa_tpu/core/config.py``), field for
-field, so one set of keyword arguments builds both packages' models."""
+"""Configurations: copies of the JAX package's ``DataConfig``,
+``OptimConfig``, ``GeneratorConfig``, ``ExecutorConfig``, ``TrainConfig`` and
+``ExperimentConfig`` (``explainable_spatial_vqa_tpu/core/config.py``), field
+for field, so one set of keyword arguments builds both packages' models and
+trainers, with the presets of the families the port trains: ``generator``
+and the five executor presets.  ``TrainConfig.mesh_shape`` and
+``mesh_axes`` are kept for that reason; the port trains on one card and
+reads neither."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["GeneratorConfig", "ExecutorConfig"]
+__all__ = ["DataConfig", "OptimConfig", "GeneratorConfig", "ExecutorConfig", "TrainConfig",
+           "ExperimentConfig", "PRESETS", "get_preset"]
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    features_h5: str = "data/train_features.h5"
+    questions_h5: str = "data/train_questions.h5"
+    annotated_h5: str = "data/annotated_questions.h5"
+    mapped_sequences_h5: str = "data/mapped_sequences.h5"
+    scenes_h5: str = ""  # GT boxes for the iqap_bb variant (optional)
+    string_vocab_json: str = "data/string_vocab.json"
+    vocab_json: str = "data/vocab.json"
+    split_vocab_json: str = "data/vocab3.json"
+    image_dir: str = ""  # raw PNGs for the from-pixels YOLO variant
+    max_question_len: int = 46
+    max_program_len: int = 27
+    max_src_len: int = 50
+    max_tgt_len: int = 20
+    max_input_boxes: int = 18
+    max_output_boxes: int = 10
+    subset_fraction: float = 1.0
+    validation_split: float = 0.1
+    test_split: float = 0.1
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    learning_rate: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    grad_clip_norm: Optional[float] = None
+    lr_step_size: Optional[int] = None  # epochs between step decays
+    lr_gamma: float = 0.1
+    weight_decay: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -72,3 +115,77 @@ class ExecutorConfig:
     roi_sim: bool = False
     roi_sim_heads: int = 1
     count_embed: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 16
+    num_epochs: int = 100
+    patience: int = 10
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_interval: int = 10
+    log_every: int = 50
+    eval_every: int = 1
+    # compute dtype for model matmuls; params/softmax/layernorm stay float32.
+    # "auto" = bfloat16 on the card, float32 on the CPU (train.pipelines)
+    dtype: str = "auto"
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    seed: int = 42
+    resume: bool = True
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    name: str
+    model_family: str  # generator | executor (the families the port trains)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    model: Any = None
+
+    def replace(self, **kwargs: Any) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kwargs)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+
+def _preset_map() -> Dict[str, ExperimentConfig]:
+    """The thesis pair (hyperparameters of record, thesis Table 4.1) and the
+    executor's beyond-reference channels, as in the JAX package's presets."""
+    executor = dict(model_family="executor", optim=OptimConfig(learning_rate=1e-4),
+                    train=TrainConfig(batch_size=16, num_epochs=100, patience=10))
+    presets = {
+        "generator": ExperimentConfig(
+            name="generator", model_family="generator", model=GeneratorConfig(),
+            optim=OptimConfig(learning_rate=1e-3),
+            train=TrainConfig(batch_size=64, num_epochs=20, patience=5)),
+        "executor": ExperimentConfig(name="executor", model=ExecutorConfig(), **executor),
+        # the shipped recipe's model: ROI content for the dependency-box tokens
+        "executor_roi": ExperimentConfig(
+            name="executor_roi", model=ExecutorConfig(box_roi=True), **executor),
+        "executor_roi_count": ExperimentConfig(
+            name="executor_roi_count", model=ExecutorConfig(box_roi=True, count_embed=True),
+            **executor),
+        "executor_roi_sim": ExperimentConfig(
+            name="executor_roi_sim", model=ExecutorConfig(box_roi=True, roi_sim=True),
+            **executor),
+        "executor_roi_sim_count": ExperimentConfig(
+            name="executor_roi_sim_count",
+            model=ExecutorConfig(box_roi=True, roi_sim=True, roi_sim_heads=4, count_embed=True),
+            **executor),
+    }
+    return presets
+
+
+PRESETS: Dict[str, ExperimentConfig] = _preset_map()
+
+
+def get_preset(name: str, **overrides: Any) -> ExperimentConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; the port has {sorted(PRESETS)}")
+    config = PRESETS[name]
+    if overrides:
+        config = config.replace(**overrides)
+    return config

@@ -104,7 +104,8 @@ class ProgramExecutor(nn.Module):
         self.text_pos = nn.Parameter(torch.zeros(cfg.num_text_tokens, d, device=device))
         self.cls = nn.Parameter(torch.zeros(1, 1, d, device=device))
         self.fusion = TransformerEncoder(cfg.encoder_layers, d, cfg.num_heads, d * 4,
-                                         cfg.dropout, dtype=dtype, device=device)
+                                         cfg.dropout, dtype=dtype, device=device,
+                                         remat=cfg.remat)
         if cfg.box_roi:
             self.roi_proj = Dense(d, d, dtype, device)
         if cfg.count_embed:

@@ -12,12 +12,14 @@ between layers.  The encoder scans run over padding unmasked, as in JAX.
 
 ``simple=True`` is the checked-in 1-layer variant without attention.  The
 generator has no TPU kernel, so it is plain PyTorch; recurrences are Python
-loops over time.
+loops over time.  :meth:`ProgramGenerator.forward` is the training forward
+(teacher forcing with scheduled sampling, dropout on the embeddings in
+training mode); :meth:`ProgramGenerator.generate` the greedy decode.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -119,10 +121,14 @@ class ProgramGenerator(nn.Module):
             self.attn_combine = Dense(2 * h, h, dtype, device)
         self.out_proj = Dense(h, cfg.program_vocab_size, torch.float32, device)
 
-    def encode(self, questions: torch.Tensor) -> Tuple[torch.Tensor, Tuple[Carry, ...]]:
+    def _dropout(self, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+        return F.dropout(x, self.config.dropout, training=not deterministic)
+
+    def encode(self, questions: torch.Tensor,
+               deterministic: bool = True) -> Tuple[torch.Tensor, Tuple[Carry, ...]]:
         """questions: (B, L) int (0 = <NULL> pad).  Returns (encoder outputs
         (B, L, H), the decoder's initial carry)."""
-        emb = self.embed(questions.long()).to(self.dtype)
+        emb = self._dropout(self.embed(questions.long()).to(self.dtype), deterministic)
         batch = questions.shape[0]
         carry_f, outs_f = self.enc_fwd.scan(self.enc_fwd.initialize_carry(batch, emb.device), emb)
         if self.bidirectional:
@@ -141,8 +147,8 @@ class ProgramGenerator(nn.Module):
         return enc_outputs, dec_init[:dec_layers]
 
     def _decode_step(self, carry, token: torch.Tensor, enc_outputs: torch.Tensor,
-                     enc_mask: Optional[torch.Tensor]):
-        x = self.prog_embed(token.long()).to(self.dtype)
+                     enc_mask: Optional[torch.Tensor], deterministic: bool = True):
+        x = self._dropout(self.prog_embed(token.long()).to(self.dtype), deterministic)
         carry, h = self.decoder(carry, x)
         if self.attention:
             # Luong dot attention over the encoder outputs, softmax in float32
@@ -155,6 +161,43 @@ class ProgramGenerator(nn.Module):
             common = torch.promote_types(h.dtype, context.dtype)
             h = torch.tanh(self.attn_combine(torch.cat([h.to(common), context.to(common)], -1)))
         return carry, self.out_proj(h)
+
+    def forward(self, questions: torch.Tensor, program_targets: Optional[torch.Tensor] = None,
+                start_token: int = 1, teacher_forcing: Optional[float] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced / scheduled-sampling training forward (JAX
+        ``ProgramGenerator.__call__``): questions (B, L); program_targets
+        (B, T), or None for pure greedy self-feeding over ``program_len``.
+
+        Step t+1 is fed gold token t where step t's coin says so, else step
+        t's argmax.  In training mode the coins are one Bernoulli draw per
+        step, shared across the batch, with probability ``teacher_forcing``
+        (the config's by default), drawn from ``generator`` (a CPU
+        generator: the coins steer the host's loop); in eval mode every coin
+        is ``teacher_forcing >= 1``.  Returns {"logits": (B, T, V) float32,
+        "tokens": (B, T) the argmaxes}."""
+        cfg = self.config
+        deterministic = not self.training
+        enc_outputs, carry = self.encode(questions, deterministic)
+        enc_mask = questions != 0
+        length = cfg.program_len if program_targets is None else program_targets.shape[1]
+        tf_ratio = cfg.teacher_forcing if teacher_forcing is None else teacher_forcing
+        if program_targets is None:
+            tf_ratio = 0.0
+        if not deterministic and tf_ratio > 0.0:
+            coins = (torch.rand(length, generator=generator) < tf_ratio).tolist()
+        else:
+            coins = [tf_ratio >= 1.0] * length
+        token = torch.full((questions.shape[0],), start_token, dtype=torch.long,
+                           device=questions.device)
+        logits_t, tokens = [], []
+        for t in range(length):
+            carry, logits = self._decode_step(carry, token, enc_outputs, enc_mask, deterministic)
+            pred = torch.argmax(logits, dim=-1)
+            token = program_targets[:, t].long() if coins[t] else pred
+            logits_t.append(logits)
+            tokens.append(pred)
+        return {"logits": torch.stack(logits_t, dim=1), "tokens": torch.stack(tokens, dim=1)}
 
     @torch.no_grad()
     def generate(self, questions: torch.Tensor, max_len: Optional[int] = None,

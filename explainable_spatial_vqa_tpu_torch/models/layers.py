@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
 from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
@@ -244,17 +245,24 @@ class DecoderBlock(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
+    """A stack of :class:`EncoderBlock`.  With ``remat``, a training forward
+    that records a graph keeps no block's activations: the backward runs
+    each block again (``torch.utils.checkpoint``, dropout replayed), trading
+    compute for memory as ``nn.remat`` does in the JAX package."""
+
     def __init__(self, num_layers: int, d_model: int, num_heads: int, ffn_dim: int,
                  dropout: float = 0.1, norm: str = "post", dtype: torch.dtype = torch.float32,
-                 device: Device = "cuda"):
+                 device: Device = "cuda", remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList(
             EncoderBlock(d_model, num_heads, ffn_dim, dropout, norm, dtype, device)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, mask)
+            x = checkpoint(block, x, mask, use_reentrant=False) if remat else block(x, mask)
         return x
 
 

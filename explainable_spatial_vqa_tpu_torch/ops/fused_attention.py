@@ -70,8 +70,8 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _esv_attention(entry: str = "esv_attention"):
     """The C entry ``entry`` of ``csrc/fused_attention.cu``: ``esv_attention``,
-    or ``esv_attention_tensor_scores`` (its bf16 kernel with tensor-core
-    scores, which no wrapper launches)."""
+    or ``esv_attention_fma_scores`` (its bf16 kernel with FMA-chain scores on
+    the CUDA cores, which no wrapper launches)."""
     fn = getattr(_build.load("fused_attention"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

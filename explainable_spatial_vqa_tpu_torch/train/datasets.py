@@ -1,13 +1,31 @@
-"""``ChainArrays``, copied from ``explainable_spatial_vqa_tpu/train/datasets.py``."""
+"""Dataset assembly, copied from ``explainable_spatial_vqa_tpu/train/datasets.py``:
+``ChainArrays`` for chained inference, and the thesis executor's per-step
+training records (:func:`executor_step_arrays`) with the parsers they need."""
 
 from __future__ import annotations
 
+import logging
+import re
 from dataclasses import dataclass
-from typing import List
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["ChainArrays"]
+from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["ChainArrays", "NON_SPATIAL_FUNCTIONS", "parse_boxes", "executor_step_arrays"]
+
+# CLEVR functions that emit a value token; every other function emits an
+# object set, annotated as boxes (explainable_spatial_vqa_tpu/clevr/executor.py)
+NON_SPATIAL_FUNCTIONS = frozenset({
+    "count", "exist", "query_color", "query_shape", "query_material",
+    "query_size", "equal_integer", "less_than", "greater_than", "equal_color",
+    "equal_shape", "equal_size", "equal_material", "equal_object",
+})
+
+_BOX_RE = re.compile(r"\[([^\]]+)\]")
 
 
 @dataclass
@@ -22,3 +40,162 @@ class ChainArrays:
     # programs deeper than the serving bound whose tails were dropped (their
     # final step then reads a mid-chain value)
     truncated: int = 0
+
+
+def parse_boxes(text: str) -> np.ndarray:
+    """Parse '[x y x y] [x y x y] ...' into (K, 4) float32."""
+    rows = []
+    for group in _BOX_RE.findall(text or ""):
+        values = [float(x) for x in group.split()]
+        if len(values) == 4:
+            rows.append(values)
+    if not rows:
+        return np.zeros((0, 4), np.float32)
+    return np.asarray(rows, np.float32)
+
+
+def _parse_question_steps(
+    q: Dict[str, Any],
+    function_vocab: Mapping[str, int],
+    value_vocab: Mapping[str, int],
+) -> List[Dict[str, Any]]:
+    """Parse one annotated question into per-step records.
+
+    Records are raw (function names, bbox strings) or vocab-converted (id
+    strings; numerals pass through conversion verbatim).  ``valid`` marks the
+    steps that survive the degenerate-step rules; every step is parsed so
+    later steps' dependency positions stay right.
+    """
+    inv_function = {v: k for k, v in function_vocab.items()}
+    step_outputs: List[Tuple[str, Any]] = []  # (kind, value) per step
+    parsed_steps: List[Dict[str, Any]] = []
+    for step in q["annotated_program"]:
+        function = step["function"]
+        converted = False
+        unresolved = False
+        if function not in function_vocab and function.strip().isdigit():
+            fid = int(function)
+            if fid in inv_function:
+                function = inv_function[fid]
+                converted = True
+            else:
+                # a converted record whose id this vocab does not know: keep
+                # its position but never train on it
+                unresolved = True
+        base = function.split("[")[0]
+        is_box = base not in NON_SPATIAL_FUNCTIONS
+        out_text = step["output_values"].strip()
+
+        # dependencies from the recorded ground-truth outputs
+        dep_boxes: List[np.ndarray] = []
+        dep_tokens: List[int] = []
+        for dep in step.get("inputs", []):
+            if dep >= len(step_outputs):
+                continue
+            kind, value = step_outputs[dep]
+            if kind == "box":
+                dep_boxes.append(value)
+            elif kind == "token" and value >= 0:
+                dep_tokens.append(value)
+
+        target_boxes = np.zeros((0, 4), np.float32)
+        if is_box:
+            target_boxes = parse_boxes(out_text)
+            step_outputs.append(("box", target_boxes))
+            token_id = -1
+        else:
+            can = canonicalize(out_text)
+            if converted and base != "count" and can.isdigit():
+                token_id = int(can)
+            else:
+                token_id = value_vocab.get(can, -1)
+            step_outputs.append(("token", token_id))
+
+        valid = not (
+            unresolved
+            or (is_box and len(target_boxes) == 0 and out_text == "")
+            or (not is_box and token_id < 0)
+        )
+        parsed_steps.append({
+            "function": function,
+            "function_id": function_vocab.get(function, 0),
+            "is_box": is_box,
+            "inputs": list(step.get("inputs", [])),
+            "dep_boxes": dep_boxes,
+            "dep_tokens": dep_tokens,
+            "target_boxes": target_boxes,
+            "token_id": token_id,
+            "valid": valid,
+        })
+    return parsed_steps
+
+
+def executor_step_arrays(
+    annotated_questions: Sequence[Dict[str, Any]],
+    function_vocab: Mapping[str, int],
+    value_vocab: Mapping[str, int],
+    max_input_boxes: int = 10,
+    max_output_boxes: int = 10,
+    subset_fraction: float = 1.0,
+) -> Dict[str, np.ndarray]:
+    """Thesis-executor training records, one per valid step:
+
+    - ``text`` (3,) int: the function id, then up to 2 value tokens from
+      non-spatial dependency outputs, 0-padded, with ``text_mask``;
+    - ``input_boxes`` (max_input_boxes, 4) with ``input_box_mask``: the
+      dependencies' boxes, concatenated and truncated;
+    - ``target_boxes`` (max_output_boxes, 4) with ``target_box_mask`` for
+      spatial steps, ``token_target`` for non-spatial ones, ``is_box_branch``;
+    - ``image_index``.
+    """
+    records: Dict[str, List[Any]] = {
+        "image_index": [], "text": [], "text_mask": [], "input_boxes": [],
+        "input_box_mask": [], "target_boxes": [], "target_box_mask": [],
+        "token_target": [], "is_box_branch": [],
+    }
+    for q in annotated_questions:
+        for parsed in _parse_question_steps(q, function_vocab, value_vocab):
+            if not parsed["valid"]:
+                continue
+            dep_tokens = parsed["dep_tokens"][:2]
+            text = [parsed["function_id"]] + dep_tokens + [0] * (2 - len(dep_tokens))
+            text_mask = [True] * (1 + len(dep_tokens)) + [False] * (2 - len(dep_tokens))
+
+            dep_boxes = parsed["dep_boxes"]
+            boxes_in = (np.concatenate(dep_boxes, axis=0) if dep_boxes
+                        else np.zeros((0, 4), np.float32))[:max_input_boxes]
+            in_pad = np.zeros((max_input_boxes, 4), np.float32)
+            in_pad[:len(boxes_in)] = boxes_in
+
+            t_pad = np.zeros((max_output_boxes, 4), np.float32)
+            if parsed["is_box"]:
+                target = parsed["target_boxes"][:max_output_boxes]
+                t_pad[:len(target)] = target
+                num_targets, token_target = len(target), 0
+            else:
+                num_targets, token_target = 0, parsed["token_id"]
+
+            records["image_index"].append(q["image_index"])
+            records["text"].append(text)
+            records["text_mask"].append(text_mask)
+            records["input_boxes"].append(in_pad)
+            records["input_box_mask"].append(np.arange(max_input_boxes) < len(boxes_in))
+            records["target_boxes"].append(t_pad)
+            records["target_box_mask"].append(np.arange(max_output_boxes) < num_targets)
+            records["token_target"].append(token_target)
+            records["is_box_branch"].append(parsed["is_box"])
+
+    total = len(records["image_index"])
+    total_steps = sum(len(q["annotated_program"]) for q in annotated_questions)
+    if total_steps and total < total_steps // 2:
+        # more than half the steps failed the parse rules: almost always a
+        # vocab that does not match the annotated h5
+        logger.warning(
+            "executor_step_arrays: only %d of %d annotated steps are usable "
+            "— check that the vocab JSONs match the annotated h5", total, total_steps)
+    if subset_fraction < 1.0:
+        total = int(total * subset_fraction)
+    dtypes = {"image_index": np.int32, "text": np.int32, "text_mask": bool,
+              "input_boxes": np.float32, "input_box_mask": bool, "target_boxes": np.float32,
+              "target_box_mask": bool, "token_target": np.int32, "is_box_branch": bool}
+    return {k: np.asarray(v[:total], dtypes[k]) for k, v in records.items()}

@@ -1,0 +1,226 @@
+"""Training pipelines: artifacts -> (model, loss_fn, batches), ported from
+``explainable_spatial_vqa_tpu/train/pipelines.py`` for the two families of
+the thesis pair, ``generator`` and ``executor`` (presets ``generator``,
+``executor``, ``executor_roi``, ``executor_roi_count``, ``executor_roi_sim``
+and ``executor_roi_sim_count``).
+
+Each family is two functions: ``_<family>_pipeline(config, device)`` reads
+the h5 artifacts named by ``config.data`` and hands the arrays to
+``<family>_pipeline_from_arrays``, which a caller holding its data in memory
+(``bench_data``'s synthetic sets) calls directly.  Splits are sklearn's
+(``train.data``), so both packages train and validate on the same rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from explainable_spatial_vqa_tpu_torch.core.config import ExperimentConfig
+from explainable_spatial_vqa_tpu_torch.device import resolve_device
+from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+from explainable_spatial_vqa_tpu_torch.train.data import Subset, batches, train_val_test_split
+from explainable_spatial_vqa_tpu_torch.train.losses import (
+    cross_entropy,
+    executor_set_loss,
+    perturb_input_boxes,
+)
+from explainable_spatial_vqa_tpu_torch.train.metrics import program_metrics
+
+__all__ = ["Pipeline", "build_pipeline", "model_dtype", "generator_pipeline_from_arrays",
+           "executor_pipeline_from_arrays"]
+
+# a (N, P, C) numpy array or tensor, or core.artifacts.H5Features
+Features = Any
+
+
+@dataclass
+class Pipeline:
+    model: nn.Module
+    loss_fn: Callable
+    train_batches: Callable[[int], Iterable[Dict[str, Any]]]
+    val_batches: Callable[[], Iterable[Dict[str, Any]]]
+    test_batches: Callable[[], Iterable[Dict[str, Any]]]
+    monitor: Tuple[str, str]
+    steps_per_epoch: int
+
+
+def model_dtype(config: ExperimentConfig, device: torch.device) -> torch.dtype:
+    """``TrainConfig.dtype`` as a torch dtype: "auto" is bfloat16 on the card
+    (as the JAX package picks bf16 on its accelerator) and float32 on the
+    CPU; parameters, softmax and LayerNorm stay float32 in the models."""
+    name = config.train.dtype
+    if name == "auto":
+        name = "bfloat16" if device.type == "cuda" else "float32"
+    return getattr(torch, name)
+
+
+class _FeatureGather:
+    """Batch transform attaching image features (B, P, C) by ``image_index``
+    from ``features``: a (N, P, C) array or tensor (a tensor on the card is
+    gathered there), or ``core.artifacts.H5Features``."""
+
+    def __init__(self, features: Features):
+        self.features = features
+
+    def __call__(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        idx = batch["image_index"]
+        if isinstance(self.features, torch.Tensor):
+            idx = torch.as_tensor(idx, dtype=torch.long).to(self.features.device)
+        return {**batch, "image": self.features[idx]}
+
+
+def _batch_factories(arrays: Dict[str, np.ndarray], config: ExperimentConfig, transform=None):
+    n = len(next(iter(arrays.values())))
+    d = config.data
+    train_idx, val_idx, test_idx = train_val_test_split(n, d.test_split, d.validation_split, d.seed)
+    bs = config.train.batch_size
+    train_sub, val_sub, test_sub = (Subset(arrays, i) for i in (train_idx, val_idx, test_idx))
+
+    def train_b(epoch):
+        return batches(train_sub, bs, shuffle=True, seed=d.seed, epoch=epoch, transform=transform)
+
+    def val_b():
+        return batches(val_sub, bs, shuffle=False, transform=transform)
+
+    def test_b():
+        return batches(test_sub, bs, shuffle=False, transform=transform)
+
+    return train_b, val_b, test_b, len(train_sub) // bs
+
+
+# ---------------------------------------------------------------------------
+# generator
+# ---------------------------------------------------------------------------
+
+
+def generator_pipeline_from_arrays(config: ExperimentConfig, questions: np.ndarray,
+                                   programs: np.ndarray, image_index: np.ndarray,
+                                   device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """The generator's pipeline on questions (N, Lq) and programs (N, Lp), in
+    the questions h5's layout.  The vocabulary sizes grow to the data's
+    maxima (max(preset, data)) and the program length is the data's."""
+    device = resolve_device(device)
+    cfg = dataclasses.replace(
+        config.model,
+        vocab_size=max(config.model.vocab_size, int(questions.max()) + 1),
+        program_vocab_size=max(config.model.program_vocab_size, int(programs.max()) + 1),
+        program_len=programs.shape[1],
+    )
+    config = config.replace(model=cfg)
+    model = init_parameters(ProgramGenerator(cfg, model_dtype(config, device), device),
+                            config.train.seed)
+
+    def loss_fn(model, batch, generator, train):
+        out = model(batch["questions"], batch["programs"], generator=generator)
+        loss = cross_entropy(out["logits"], batch["programs"])
+        return loss, program_metrics(torch.argmax(out["logits"], -1), batch["programs"])
+
+    arrays = {"questions": questions, "programs": programs, "image_index": image_index}
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config)
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, ("program_em", "program_em_total"),
+                    spe)
+
+
+def _generator_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_questions_h5
+
+    enc = read_questions_h5(config.data.questions_h5)
+    if enc.programs is None:
+        raise ValueError(f"{config.data.questions_h5} holds no programs to train on")
+    return generator_pipeline_from_arrays(config, enc.questions, enc.programs, enc.image_idxs,
+                                          device)
+
+
+# ---------------------------------------------------------------------------
+# executor
+# ---------------------------------------------------------------------------
+
+
+def _init_executor(model: ProgramExecutor, seed: int) -> ProgramExecutor:
+    init_parameters(model, seed)
+    with torch.no_grad():  # zero at init, as in the JAX model: exact no-ops
+        for name in ("sim_embed", "count_embed"):
+            if hasattr(model, name):
+                getattr(model, name).weight.zero_()
+    return model
+
+
+def executor_pipeline_from_arrays(config: ExperimentConfig, arrays: Dict[str, np.ndarray],
+                                  features: Features,
+                                  device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """The executor's pipeline on step records in ``executor_step_arrays``'
+    layout and image features (N_images, P, C) indexed by their
+    ``image_index``.  ``config.model`` is used as it is."""
+    device = resolve_device(device)
+    cfg = config.model
+    model = _init_executor(ProgramExecutor(cfg, model_dtype(config, device), device),
+                           config.train.seed)
+    perturb = cfg.input_box_noise > 0.0 or cfg.input_box_drop > 0.0
+
+    def loss_fn(model, batch, generator, train):
+        boxes, mask = batch["input_boxes"], batch["input_box_mask"]
+        if train and perturb:
+            boxes, mask = perturb_input_boxes(boxes, mask, generator, cfg.input_box_noise,
+                                              cfg.input_box_drop)
+        out = model(batch["image"], boxes, mask, batch["text"], batch["text_mask"])
+        losses = executor_set_loss(out, batch["target_boxes"], batch["target_box_mask"],
+                                   batch["token_target"], batch["is_box_branch"], cfg)
+        is_box = batch["is_box_branch"]
+        routing_pred = torch.argmax(out["routing_logits"], -1)
+        token_pred = torch.argmax(out["token_logits"], -1)
+        metrics = {
+            "routing_correct": (routing_pred == 1 - is_box.long()).sum(),
+            "routing_total": routing_pred.shape[0],
+            "token_correct": ((token_pred == batch["token_target"]) & ~is_box).sum(),
+            "token_total": (~is_box).sum(),
+        }
+        return losses["loss"], metrics
+
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config, _FeatureGather(features))
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, ("routing_correct", "routing_total"),
+                    spe)
+
+
+def _executor_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    """The thesis executor on annotated questions and the split vocabulary."""
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features, read_annotated_h5
+    from explainable_spatial_vqa_tpu_torch.core.vocab import load_vocab
+    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_step_arrays
+
+    annotated = read_annotated_h5(config.data.annotated_h5)
+    vocabs = load_vocab(config.data.split_vocab_json)
+    cfg = dataclasses.replace(
+        config.model,
+        vocab_size=max(config.model.vocab_size, len(vocabs["function"]) + 1),
+        token_classes=max(config.model.token_classes, len(vocabs["other"]) + 1),
+    )
+    arrays = executor_step_arrays(annotated, vocabs["function"], vocabs["other"],
+                                  max_input_boxes=cfg.max_input_boxes,
+                                  max_output_boxes=cfg.num_queries,
+                                  subset_fraction=config.data.subset_fraction)
+    return executor_pipeline_from_arrays(config.replace(model=cfg), arrays,
+                                         H5Features(config.data.features_h5), device)
+
+
+_FAMILIES = {"generator": _generator_pipeline, "executor": _executor_pipeline}
+# the JAX package's other families, not ported yet (ROADMAP.md Queue 1)
+_NOT_PORTED = ("iqap", "lstm_iqap", "step_seq2seq", "executor_scheduled", "iqap_cot",
+               "prototype_step")
+
+
+def build_pipeline(config: ExperimentConfig,
+                   device: Union[str, torch.device] = "cuda") -> Pipeline:
+    if config.model_family in _NOT_PORTED:
+        raise KeyError(f"model family {config.model_family!r} is not ported yet; the port "
+                       f"trains {sorted(_FAMILIES)}")
+    if config.model_family not in _FAMILIES:
+        raise KeyError(f"unknown model family {config.model_family!r}")
+    return _FAMILIES[config.model_family](config, resolve_device(device))

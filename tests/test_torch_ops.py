@@ -401,3 +401,31 @@ def test_block_scratch_layout(w_dtype, tiled):
     else:
         assert x1w.shape == (64, 128) and x1w.dtype == torch.bfloat16
     assert hidden.shape == (32, 256) and hidden.dtype == w_dtype
+
+
+@pytest.mark.parametrize("length,masked", [(10, False), (210, True)])
+def test_attention_agreement_holds_the_bf16_attention_arithmetic(length, masked):
+    """chip_smoke.py's bf16 attention check, on the CPU: the plain version
+    (float32 scores in one order) and the same with float64 scores (another
+    order) both pass; outputs 3 ulps off, and outputs whose softmax weights
+    were never rounded to bf16, fail it through the mean error."""
+    gen = torch.Generator().manual_seed(length)
+    q, k, v = (torch.randn(16, length, 4, 128, generator=gen).bfloat16() for _ in range(3))
+    mask = None
+    if masked:
+        keep = torch.ones(16, length, dtype=torch.bool)
+        keep[:, -13:] = torch.rand(16, 13, generator=gen) < 0.6
+        mask = keep[:, None, None, :]
+    out = dot_product_attention(q, k, v, mask)
+    assert chip_smoke.bf16_ok(chip_smoke.attention_agreement(torch, out, q, k, v, mask))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()).float() / 128 ** 0.5
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    weights = torch.softmax(scores, dim=-1)
+    wide = torch.einsum("bhqk,bkhd->bqhd", weights.bfloat16().float(), v.float()).bfloat16()
+    assert chip_smoke.bf16_ok(chip_smoke.attention_agreement(torch, wide, q, k, v, mask))
+    shifted = (out.float() * (1 + 3 * 2.0 ** -8)).bfloat16()
+    unrounded = torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).bfloat16()
+    for bad in (shifted, unrounded):
+        stats = chip_smoke.attention_agreement(torch, bad, q, k, v, mask)
+        assert not chip_smoke.bf16_ok(stats) and stats["mean_ulps"] > chip_smoke.MEAN_ULPS, stats
