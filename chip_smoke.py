@@ -68,11 +68,31 @@ result:
     updates; an eval forward after a step equal, bit for bit, to a fresh
     module's loaded with the stepped weights;
 13. one float32 training step of ``executor_roi`` and ``generator`` on the
-    card against the CPU: loss, every gradient, the assignments.
+    card against the CPU: loss, every gradient, the assignments;
+14. evaluation at full width, bf16: ``beam_generate`` at beam 4 on 512
+    questions (beam 1 equal to ``generate`` up to its first <END>; in
+    float32 each beam's score its tokens' log-probability); ``evaluate_executor_steps`` over
+    800 executor steps (K2 3 and K1 2 launches per forward); ``run_tally``,
+    the CLI's ``tally`` on arrays, on 512 ``synth_annotated`` questions with
+    per-function calibration (a chain run, the map, a second run gated by
+    it; each run's wall time and launches per forward); then in float32 on
+    64 questions, the first chain run's decisions and the threshold map on
+    the card equal to the CPU's;
+15. scheduled training: ``executor_scheduled`` at full width, bf16, batch
+    16, through ``executor_scheduled_pipeline_from_arrays`` and
+    ``Trainer.fit`` for one epoch at ``p_sample`` 0.5; the K2 and K1
+    launches of one train step (3 and 2 per chained position, none in the
+    loss pass); the step's parts (the chained pass, the loss forward,
+    backward, optimizer), peak memory and busy share; the chained pass after
+    an optimizer step equal, bit for bit, to a fresh module's; a fixed
+    batch's loss below 0.8 of its first within 30 updates; one float32 step
+    at p=1 on the card against the CPU.
 
 The line before the last is a JSON object with one entry per kernel
-(``kernels``) and one per piece timed apart (``parts``: K2's float32
-attention and four products, and the tensor-score variant); the last line is
+(``kernels``, with its launches on the main path and, under
+``launches_by_path``, on phases 14-15's paths) and one per piece timed apart
+(``parts``: K2's float32 attention and four products, and the tensor-score
+variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 The script imports nothing of JAX.
 """
@@ -119,7 +139,13 @@ K3_TILING = dict(batch_tile=2, ffn_chunks=2)
 GENERATOR_STEPS = 100  # updates of phase 11's fixed batch
 EXECUTOR_ROWS = 800  # phase 12's synthetic steps: 640 train (40 steps of 16), 80 validation
 EXECUTOR_STEPS = 100  # updates of phase 12's fixed batch
-CARD_VS_CPU_ROWS = 4  # phase 13's batch
+CARD_VS_CPU_ROWS = 4  # phase 13's and phase 15's float32 batch
+EVAL_QUESTIONS = 512  # phase 14's beam search and tally
+EVAL_STEPS = 800  # phase 14's executor steps, in batches of EVAL_BATCH
+EVAL_BATCH = 128
+FP32_QUESTIONS = 64  # phase 14's float32 tally run, card against the CPU
+SCHEDULED_QUESTIONS = 200  # phase 15: 160 train (10 steps of 16), 20 validation
+SCHEDULED_STEPS = 30  # phase 15's fixed batch: most updates to fall below 0.8
 SCORE_ROUNDS = 10  # alternating timing rounds of the two bf16 score forms
 
 
@@ -1270,6 +1296,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     generator_training(torch, dev)
     executor_training(torch, np, dev)
     card_vs_cpu_step(torch, np, dev)
+    by_path = {**evaluation(torch, np, dev, counted), **scheduled_training(torch, np, dev, counted)}
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -1280,7 +1307,9 @@ def main_path(torch, np, dev, results, parts) -> None:
          "explainable_spatial_vqa_tpu/ops/pallas_block.py:197", "K3_bf16", bench_launches),
     )
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
-                    **results[key]) for name, src, rep, key, counts in sources]
+                    **results[key],
+                    launches_by_path={path: c[name] for path, c in by_path.items()})
+               for name, src, rep, key, counts in sources]
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1364,8 +1393,6 @@ def executor_training(torch, np, dev) -> None:
     from explainable_spatial_vqa_tpu_torch.bench_data import synth_executor_steps
     from explainable_spatial_vqa_tpu_torch.core.config import get_preset
     from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_block import fused_encoder_block
     from explainable_spatial_vqa_tpu_torch.ops.matching import hungarian_assignment
     from explainable_spatial_vqa_tpu_torch.train.losses import executor_set_loss, matching_cost
     from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
@@ -1388,28 +1415,14 @@ def executor_training(torch, np, dev) -> None:
     pipe = pipeline()
     model = pipe.model
     trainer = trainer_of(pipe)
-    wrappers = (fused_encoder_block, fused_attention)
-    counts = {mode: dict(forwards=0, K2=0, K1=0) for mode in ("train", "eval")}
-    before = {}
-
-    def pre_hook(module, _args):
-        before["launches"] = [w.launches for w in wrappers]
-
-    def post_hook(module, _args, _out):
-        c = counts["train" if module.training else "eval"]
-        c["forwards"] += 1
-        for key, w, n in zip(("K2", "K1"), wrappers, before["launches"]):
-            c[key] += w.launches - n
-
-    hooks = [model.register_forward_pre_hook(pre_hook), model.register_forward_hook(post_hook)]
+    log = ForwardLaunches(model)
     t1 = time.perf_counter()
     history = trainer.fit(pipe.train_batches, pipe.val_batches, pipe.monitor, num_epochs=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t1
-    for hook in hooks:
-        hook.remove()
+    log.remove()
     train, val = history["train"][0], history["val"][0]
-    tr, ev = counts["train"], counts["eval"]
+    tr, ev = log.tally(training=True), log.tally(training=False)
     say(f"phase 12 executor training, Trainer.fit one epoch (executor_roi, d={cfg.model.d_model}, "
         f"{cfg.model.encoder_layers}+{cfg.model.box_decoder_layers} layers, bf16, batch "
         f"{cfg.train.batch_size}, {EXECUTOR_ROWS} synthetic steps, "
@@ -1613,6 +1626,580 @@ def card_vs_cpu_step(torch, np, dev) -> None:
     compare("generator", pipe.model, {"questions": questions, "programs": programs},
             run_generator)
     say(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
+class ForwardLaunches:
+    """Hooks on an executor that record, for each forward, when it returned
+    (``time.perf_counter()``), its mode and the K2 and K1 launches made
+    inside it."""
+
+    def __init__(self, module):
+        from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+        from explainable_spatial_vqa_tpu_torch.ops.fused_block import fused_encoder_block
+
+        self.wrappers = (fused_encoder_block, fused_attention)
+        self.records = []  # (end time, training, K2, K1)
+        self._before = None
+        self._hooks = [module.register_forward_pre_hook(self._pre),
+                       module.register_forward_hook(self._post)]
+
+    def _pre(self, _module, _args):
+        self._before = [w.launches for w in self.wrappers]
+
+    def _post(self, module, _args, _out):
+        self.records.append((time.perf_counter(), module.training,
+                             *(w.launches - n for w, n in zip(self.wrappers, self._before))))
+
+    def remove(self):
+        for hook in self._hooks:
+            hook.remove()
+
+    def tally(self, start=-math.inf, end=math.inf, training=None) -> dict:
+        """Forwards and launches of the forwards that returned in [start, end]
+        (in ``training`` mode, or either)."""
+        rows = [r for r in self.records
+                if start <= r[0] <= end and (training is None or r[1] == training)]
+        return dict(forwards=len(rows), K2=sum(r[2] for r in rows), K1=sum(r[3] for r in rows))
+
+
+def per_forward_ok(c: dict, cfg) -> bool:
+    """K2 once per fusion layer and K1 once per box-decoder layer in each forward."""
+    return (c["forwards"] > 0 and c["K2"] == cfg.encoder_layers * c["forwards"]
+            and c["K1"] == cfg.box_decoder_layers * c["forwards"])
+
+
+def evaluation(torch, np, dev, counted) -> dict:
+    """Phase 14, evaluation at full width (generator preset: hidden 512, 3+3
+    layers; executor: d=512, 4 heads, 3 fusion and 2 box-decoder layers, 196
+    image tokens of 1024 features, 10 queries, ``box_roi``), bf16, random
+    weights from seeds:
+
+    - ``beam_generate`` at beam 4 on ``EVAL_QUESTIONS`` questions, timed
+      beside ``generate``; beam 1 must equal ``generate`` up to and including
+      its first <END>; in float32 on ``FP32_QUESTIONS`` questions each beam's
+      score must be its tokens' log-probability under a teacher-forced
+      forward.  How often the best of 4 beams scores below beam 1 is printed:
+      beam search is not monotone in its width (nor is the JAX package's);
+    - ``evaluate_executor_steps`` over ``EVAL_STEPS`` executor steps in
+      batches of ``EVAL_BATCH``: 3 K2 and 2 K1 launches per forward;
+    - ``run_tally`` (the CLI's ``tally`` on arrays) on ``EVAL_QUESTIONS``
+      ``synth_annotated`` questions in the ``"sorted"`` mode with per-function
+      calibration: each executor run's wall time, forwards and launches (3
+      and 2 per forward), the map;
+    - float32 on ``FP32_QUESTIONS`` questions: the first chain run's
+      decisions and the per-function map on the card equal to the CPU's
+      (where a map entry differs, the confidences within 1e-4 of the deciding
+      thresholds are printed, and the phase fails if there are none).
+
+    Returns the launches of each path, for the result line."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import (
+        FUNCTION_IDS,
+        PROGRAM_TOKENS,
+        postfix_ids,
+        synth_annotated,
+        synth_executor_steps,
+        synth_generator_batch,
+    )
+    from explainable_spatial_vqa_tpu_torch.cli.main import run_chains, run_tally
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, get_preset
+    from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize
+    from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import (
+        _collect_chain_detections,
+        calibrate_chain_conf_thresholds_per_function,
+        evaluate_executor_steps,
+    )
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.train.datasets import chain_arrays
+
+    t_phase = time.perf_counter()
+    dtype = torch.bfloat16
+    n = EVAL_QUESTIONS
+
+    # ---- beam search ----
+    gen_cfg = get_preset("generator").model
+    questions, _programs, _index = synth_generator_batch(n, gen_cfg, seed=14)
+    generator = init_parameters(ProgramGenerator(gen_cfg, dtype, device=dev), seed=14)
+    q = torch.from_numpy(questions).to(dev)
+    generator.beam_generate(q[:16], 4)  # first calls: cuBLAS set-up, the allocator's pools
+    generator.generate(q[:16])
+
+    def timed_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (tokens, scores), beam_s = timed_s(lambda: generator.beam_generate(q, 4))
+    greedy, greedy_s = timed_s(lambda: generator.generate(q))
+    single, single_scores = generator.beam_generate(q, 1)
+    tokens, scores, single, single_scores, greedy = (
+        t.cpu().numpy() for t in (tokens, scores, single[:, 0], single_scores[:, 0], greedy))
+
+    def until_end(row):
+        hits = np.flatnonzero(row == PROGRAM_TOKENS.index("<END>"))
+        return row[:hits[0] + 1] if len(hits) else row
+
+    same = sum(np.array_equal(until_end(a), until_end(b)) for a, b in zip(single, greedy))
+    worse = int((scores[:, 0] < single_scores - 1e-5).sum())
+
+    # float32: each beam's score is its tokens' log-probability, rescored by
+    # a teacher-forced forward (nothing after the first <END> but padding,
+    # at no cost)
+    gen32 = init_parameters(ProgramGenerator(gen_cfg, torch.float32, device=dev), seed=14).eval()
+    q32 = q[:FP32_QUESTIONS]
+    toks32, scores32 = gen32.beam_generate(q32, 4)
+    flat = toks32.reshape(-1, gen_cfg.program_len)
+    with torch.no_grad():
+        logits = gen32(q32.repeat_interleave(4, dim=0), flat, teacher_forcing=1.0)["logits"]
+    logp = torch.log_softmax(logits.float(), -1).gather(-1, flat[..., None])[..., 0]
+    is_end = (flat == PROGRAM_TOKENS.index("<END>")).long()
+    after_end = (torch.cumsum(is_end, 1) - is_end) > 0
+    rescored = torch.where(after_end, 0.0, logp).sum(-1).reshape(scores32.shape)
+    rescore_err = float((rescored - scores32).abs().max())
+    del gen32, logits
+    beam_checks = {
+        "beam tokens (N, 4, 27) in the program vocabulary, finite scores best first": (
+            tokens.shape == (n, 4, gen_cfg.program_len) and 0 <= tokens.min()
+            and tokens.max() < gen_cfg.program_vocab_size and np.isfinite(scores).all()
+            and (np.diff(scores, axis=1) <= 0).all()),
+        "beam 1 equal to generate up to and including its first <END>": same == n,
+        "float32: every beam's score its tokens' teacher-forced log-probability (1e-3), "
+        "only padding after <END>": (
+            rescore_err <= 1e-3 and not bool(flat[after_end].any())),
+    }
+    say(f"phase 14 beam_generate, beam 4, on {n} questions (bf16, hidden {gen_cfg.hidden_dim}, "
+        f"{gen_cfg.encoder_layers}+{gen_cfg.decoder_layers} layers, {gen_cfg.program_len} "
+        f"steps): {beam_s * 1e3:.1f} ms = {n / beam_s:.1f} questions/s (generate: "
+        f"{greedy_s * 1e3:.1f} ms = {n / greedy_s:.1f} questions/s); beam 1 equal to generate "
+        f"on {same} of {n}; mean best score {scores[:, 0].mean():.4f}, beam 1's "
+        f"{single_scores.mean():.4f}, the best beam below beam 1's on {worse} (beam search is "
+        f"not monotone in the beam's width, in the JAX package too: "
+        f"tests/test_torch_generator.py); float32 on {FP32_QUESTIONS} questions: scores within "
+        f"{rescore_err:.2e} of the teacher-forced log-probabilities (tol 1e-3)")
+    for name, ok in beam_checks.items():
+        if not ok:
+            fail(f"beam search check failed: {name}")
+
+    # ---- evaluate_executor_steps ----
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True)
+    executor = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=15)
+    arrays, features = synth_executor_steps(EVAL_STEPS, exe_cfg, seed=15)
+    features_dev = torch.from_numpy(features).to(dev)
+    batches = []
+    for start in range(0, EVAL_STEPS, EVAL_BATCH):
+        part = {k: v[start:start + EVAL_BATCH] for k, v in arrays.items()}
+        part["image"] = features_dev[torch.as_tensor(part["image_index"], device=dev).long()]
+        batches.append(part)
+    names = {i: name for name, i in FUNCTION_IDS.items()}
+    evaluate_executor_steps(executor, batches[:1], names, device=dev)  # first calls
+    log = ForwardLaunches(executor)
+    (tally, eval_counts), eval_s = timed_s(
+        lambda: counted(lambda: evaluate_executor_steps(executor, batches, names, device=dev)))
+    log.remove()
+    steps = log.tally()
+    spatial = int(arrays["is_box_branch"].sum())
+    eval_checks = {
+        "one forward per batch, K2 3 and K1 2 launches per forward": (
+            steps["forwards"] == len(batches) and per_forward_ok(steps, exe_cfg)
+            and steps["K2"] == eval_counts["fused_encoder_block"]
+            and steps["K1"] == eval_counts["fused_attention"]),
+        "every step tallied: all target boxes, every token step": (
+            sum(tally.box_gt.values()) == int(arrays["target_box_mask"].sum())
+            and sum(tally.token_total.values()) == EVAL_STEPS - spatial),
+    }
+    say(f"phase 14 evaluate_executor_steps on {EVAL_STEPS} steps ({spatial} spatial) in "
+        f"{len(batches)} batches: {eval_s:.3f} s, {steps['forwards']} forwards, launches "
+        f"{eval_counts}; {sum(tally.box_pred.values())} boxes kept at 0.5 against "
+        f"{sum(tally.box_gt.values())} targets, {sum(tally.box_tp.values())} true positives")
+    for name, ok in eval_checks.items():
+        if not ok:
+            fail(f"evaluate_executor_steps check failed: {name}")
+
+    # ---- run_tally with per-function calibration ----
+    records, feats, fv, vv = synth_annotated(n, exe_cfg, seed=16)
+    chains = chain_arrays(records, fv)
+    gt_programs = postfix_ids(chains, gen_cfg.program_len, start=True).astype(np.int32)
+    gt_answers = np.asarray([vv[canonicalize(r["answer"])] for r in records])
+    image_tokens = torch.from_numpy(feats).to(dev)
+    log = ForwardLaunches(executor)
+    out, tally_counts = counted(lambda: run_tally(
+        generator, executor, exe_cfg, questions, image_tokens, chains.image_index,
+        dict(enumerate(PROGRAM_TOKENS)), fv, vv, gt_answers=gt_answers, programs=gt_programs,
+        annotated=records, chain_mode="sorted", calibrate_conf_per_function=True, device=dev))
+    log.remove()
+    runs = []
+    for run in out.runs:
+        c = log.tally(run["start"], run["start"] + run["seconds"])
+        runs.append(c)
+        say(f"phase 14 run_tally run '{run['name']}': {run['seconds']:.3f} s, {c['forwards']} "
+            f"executor forwards, K2 {c['K2']}, K1 {c['K1']} launches")
+    thr_map = out.conf_threshold
+    total = log.tally()
+    tally_checks = {
+        "three runs: the pipeline, the chains, the chains gated by the map": (
+            [r["name"] for r in out.runs]
+            == ["pipeline", "chains", "chains, per-function thresholds"]),
+        "K2 3 and K1 2 launches per forward in each run, every forward in a run": (
+            all(per_forward_ok(c, exe_cfg) for c in runs)
+            and sum(c["forwards"] for c in runs) == total["forwards"]
+            and total["K2"] == tally_counts["fused_encoder_block"]
+            and total["K1"] == tally_counts["fused_attention"]),
+        "a per-function map with its global fallback, from the grid": (
+            isinstance(thr_map, dict) and "__global__" in thr_map
+            and all(abs(v * 20 - round(v * 20)) < 1e-9 for v in thr_map.values())),
+        "a per-step tally of every annotated function": (
+            len(out.payload["per_function_box_pr"]) > 0
+            and len(out.payload["per_function_token_acc"]) > 0
+            and out.payload["truncated_gt_programs"] == 0),
+        "answers and accuracy by type": (
+            out.pipeline.answers.shape == (n,) and out.accuracy is not None
+            and 0 <= out.accuracy["overall"] <= 1),
+    }
+    say(f"phase 14 run_tally on {n} synth_annotated questions ({int(chains.num_steps.sum())} "
+        f"steps), sorted, per-function calibration: map "
+        f"{ {k: round(v, 2) for k, v in sorted(thr_map.items())} }; launches {tally_counts}; "
+        f"box P/R "
+        + ", ".join(f"{fn} {pr['precision']:.2f}/{pr['recall']:.2f}"
+                    for fn, pr in out.payload["per_function_box_pr"].items()))
+    for name, ok in tally_checks.items():
+        if not ok:
+            fail(f"run_tally check failed: {name}")
+    del executor, generator, features_dev, batches, image_tokens
+    torch.cuda.empty_cache()
+
+    # ---- float32, card against the CPU ----
+    t0 = time.perf_counter()
+    exe32 = init_parameters(ProgramExecutor(exe_cfg, torch.float32, device=dev), seed=17)
+    cpu32 = copy.deepcopy(exe32).to("cpu")
+    sub = records[:FP32_QUESTIONS]
+    sub_chains = chain_arrays(sub, fv)
+
+    def first_run(model, device, feats_t):
+        run_out = run_chains(ExecutorChainRunner(model, exe_cfg, 28, device=device), feats_t,
+                             sub_chains, "sorted")
+        return run_out, calibrate_chain_conf_thresholds_per_function(run_out, sub, fv, vv)[0]
+
+    card_out, card_map = first_run(exe32, dev, torch.from_numpy(feats).to(dev))
+    cpu_out, cpu_map = first_run(cpu32, torch.device("cpu"), torch.from_numpy(feats))
+    decisions = all(np.array_equal(card_out[k], cpu_out[k])
+                    for k in ("box_mask", "token_branch", "token_cache"))
+    box_err = max(float(np.abs(card_out[k] - cpu_out[k]).max()) for k in ("box_cache",
+                                                                        "conf_cache"))
+    conf = cpu_out["conf_cache"][cpu_out["conf_cache"] > 0]
+    say(f"phase 14 fp32 run_chains + per-function calibration on {FP32_QUESTIONS} questions "
+        f"({int(sub_chains.num_steps.sum())} steps), card vs CPU: decisions "
+        f"{'equal' if decisions else 'DIFFER'} ({int(card_out['box_mask'].sum())} confident "
+        f"boxes, {int(card_out['token_branch'].sum())} token steps; the confidence nearest 0.5 "
+        f"is {float(np.abs(conf - 0.5).min()):.2e} from it), boxes and confidences within "
+        f"{box_err:.3g} (tol 1e-4); maps {'equal' if card_map == cpu_map else 'DIFFER'}: "
+        f"{ {k: round(v, 2) for k, v in sorted(card_map.items())} }; {time.perf_counter() - t0:.1f} s")
+    if not (decisions and box_err <= 1e-4):
+        fail("the float32 chain run on the card disagrees with the CPU")
+    if card_map != cpu_map:
+        confs, _tps, fns, _gt = _collect_chain_detections(cpu_out, sub, fv, vv, 0.5, 28)
+        confs, fns = np.asarray(confs), np.asarray(fns)
+        for fn in sorted(set(card_map) | set(cpu_map)):
+            if card_map.get(fn) == cpu_map.get(fn):
+                continue
+            pick = np.ones(len(fns), bool) if fn == "__global__" else fns == fn
+            thresholds = np.asarray([t for t in (card_map.get(fn), cpu_map.get(fn)) if t])
+            near = confs[pick][np.abs(confs[pick][:, None] - thresholds[None]).min(1) < 1e-4]
+            say(f"phase 14 map entry {fn}: card {card_map.get(fn)}, CPU {cpu_map.get(fn)}; "
+                f"confidences within 1e-4 of them: {near.tolist()}")
+            if not len(near):
+                fail(f"the threshold maps differ at {fn} with no confidence near the thresholds")
+    say(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    del exe32, cpu32
+    torch.cuda.empty_cache()
+    return {"evaluate_executor_steps": eval_counts, "tally": tally_counts}
+
+
+def scheduled_training(torch, np, dev, counted) -> dict:
+    """Phase 15, chain-level scheduled sampling: the ``executor_scheduled``
+    preset at full width, bf16, batch 16, ``max_steps`` 28, on
+    ``synth_annotated``'s chain arrays (``executor_chain_step_arrays``):
+
+    - ``Trainer.fit`` for one epoch on the batches of the ramp's last epoch
+      (``p_sample`` = ``scheduled_p_max`` = 0.5), launches counted by mode;
+    - one train step's launches: K2 3 and K1 2 per chained position, none in
+      the loss pass (its forwards are in train mode);
+    - the step's parts between CUDA events (the image projection, the
+      chained pass with the mixture, the loss forward, backward, optimizer),
+      the median over a few steps, the peak memory, and one profiled step;
+    - after an optimizer step, the chained pass equal, bit for bit, to that
+      of a fresh module loaded with the stepped weights;
+    - a fixed batch's loss below 0.8 of its first within
+      ``SCHEDULED_STEPS`` updates;
+    - float32 (TF32 off), dropout 0, p=1: one step on the card against the
+      CPU, the loss within 1e-6 relative and every gradient within 1e-5 of
+      its tensor's max |g| (an attention key bias's, exactly zero, within
+      1e-6 of the largest gradient).
+
+    Returns the train step's launches, for the result line."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_annotated
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.infer.chain import chained_forward
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_chain_step_arrays
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import (
+        executor_scheduled_pipeline_from_arrays,
+    )
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.scheduled import (
+        mixed_chain_state,
+        scheduled_step_loss,
+    )
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_preset("executor_scheduled")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=1, log_every=0))
+    mcfg = cfg.model
+    records, feats, fv, vv = synth_annotated(SCHEDULED_QUESTIONS, mcfg, seed=18)
+    arrays = executor_chain_step_arrays(records, fv, vv, max_steps=28,
+                                        max_output_boxes=mcfg.num_queries)
+    features = torch.from_numpy(feats).to(dev)
+    ramped = mcfg.scheduled_ramp_epochs  # the epoch whose p is p_max
+
+    def pipeline():
+        return executor_scheduled_pipeline_from_arrays(cfg, arrays, features, device=dev)
+
+    def trainer_of(pipe):
+        return Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                       checkpoint_dir=False, device=dev)
+
+    pipe = pipeline()
+    model = pipe.model
+    trainer = trainer_of(pipe)
+    log = ForwardLaunches(model)
+    t0 = time.perf_counter()
+    history = trainer.fit(lambda _epoch: pipe.train_batches(ramped), pipe.val_batches,
+                          pipe.monitor, num_epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    log.remove()
+    train, val = history["train"][0], history["val"][0]
+    in_train, in_eval = log.tally(training=True), log.tally(training=False)
+    p = float(next(iter(pipe.train_batches(ramped)))["p_sample"])
+    say(f"phase 15 scheduled training, Trainer.fit one epoch (executor_scheduled, d={mcfg.d_model}, "
+        f"{mcfg.encoder_layers}+{mcfg.box_decoder_layers} layers, bf16, batch "
+        f"{cfg.train.batch_size}, p_sample {p}, {len(arrays['num_steps'])} synth_annotated "
+        f"questions, {int(arrays['step_valid'].sum())} steps): {fit_s:.2f} s for "
+        f"{int(train['batches'])} train steps and {int(val['batches'])} validation batches; "
+        f"train loss {train['loss_sum'] / train['batches']:.4f}, validation loss "
+        f"{val['loss_sum'] / val['batches']:.4f}, routing accuracy "
+        f"{val['routing_correct'] / val['routing_total']:.3f}; forwards and launches in train "
+        f"mode {in_train}, in eval mode (chained passes, validation) {in_eval}")
+    if not (p > 0 and in_train["forwards"] > 0 and in_train["K2"] == 0 and in_train["K1"] == 0
+            and per_forward_ok(in_eval, mcfg)):
+        fail("scheduled training check failed: p_sample > 0, no K1/K2 launch in train-mode "
+             "forwards, 3 and 2 per eval-mode forward")
+
+    # one train step's launches
+    batch = to_device(next(iter(pipe.train_batches(ramped))), dev)
+    depth = int(batch["num_steps"].max())
+    gen = torch.Generator().manual_seed(1)
+    log = ForwardLaunches(model)
+    _, step_counts = counted(lambda: trainer.train_step(batch, gen))
+    log.remove()
+    chained, loss_pass = log.tally(training=False), log.tally(training=True)
+    say(f"phase 15 one train step, batch {cfg.train.batch_size}, deepest chain {depth}: "
+        f"chained pass {chained}, loss pass {loss_pass}; launches {step_counts}")
+    if not (chained["forwards"] == depth and loss_pass["forwards"] == depth
+            and step_counts["fused_encoder_block"] == mcfg.encoder_layers * depth
+            and step_counts["fused_attention"] == mcfg.box_decoder_layers * depth
+            and loss_pass["K2"] == 0 and loss_pass["K1"] == 0):
+        fail("a scheduled train step's launches are not 3 K2 and 2 K1 per chained position, "
+             "none in the loss pass")
+
+    # the step's parts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(6)] for _ in range(7)]
+    model.train()
+    for ev in marks:
+        ev[0].record()
+        image = model.precompute_image(batch["image"])
+        ev[1].record()
+        state = mixed_chain_state(model, batch, image, mcfg, gen, depth)
+        ev[2].record()
+        loss, _ = scheduled_step_loss(model, batch, image, state, mcfg, gen, True, depth)
+        ev[3].record()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[4].record()
+        trainer.apply_gradients()
+        ev[5].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def med(i, j):
+        ms = sorted(e[i].elapsed_time(e[j]) for e in marks[2:])
+        return ms[len(ms) // 2]
+
+    say(f"phase 15 scheduled train step, batch {cfg.train.batch_size}, {depth} positions: "
+        f"{med(0, 5):.1f} ms (median of 5 after 2 warm-ups); parts: image projection "
+        f"{med(0, 1):.2f} ms, chained pass with the mixture {med(1, 2):.1f} ms, loss forward "
+        f"(with the matcher) {med(2, 3):.1f} ms, backward {med(3, 4):.1f} ms, optimizer "
+        f"{med(4, 5):.2f} ms; peak memory {peak:.2f} GiB")
+    if not math.isfinite(float(loss.detach())):
+        fail("the scheduled loss is not finite")
+    step_profile(torch, "phase 15 scheduled train step", lambda: trainer.train_step(batch, gen))
+
+    # the chained pass after an optimizer step uses the stepped weights
+    def chain(m):
+        return chained_forward(m, batch["image"], batch["functions"], batch["deps"],
+                               batch["num_steps"], mcfg, 28)
+
+    before = chain(model)
+    trainer.train_step(batch, gen)
+    after = chain(model)
+    fresh = ProgramExecutor(mcfg, model.dtype, device=dev)
+    fresh.load_state_dict(model.state_dict())
+    reference = chain(fresh)
+    equal = all(torch.equal(a, b) for a, b in zip(after, reference))
+    moved = not torch.equal(after.box_cache, before.box_cache)
+    say(f"phase 15 chained pass after an optimizer step: {'equal' if equal else 'NOT EQUAL'} "
+        f"to a fresh ProgramExecutor's loaded with the stepped state_dict, bit for bit "
+        f"({'moved' if moved else 'did NOT move'} from the pass before the step)")
+    if not (equal and moved):
+        fail("the chained pass after an optimizer step does not use the stepped weights")
+    del trainer, pipe, model, fresh, state, image, loss
+
+    # a fixed batch's loss
+    pipe = pipeline()
+    trainer = trainer_of(pipe)
+    losses = []
+    while len(losses) <= SCHEDULED_STEPS:  # the same draws of the mixture each step
+        losses.append(float(trainer.train_step(batch, torch.Generator().manual_seed(2))[
+            "loss_sum"]))
+        if losses[-1] < 0.8 * losses[0]:
+            break
+    say(f"phase 15 fixed-batch loss (batch {cfg.train.batch_size}, p_sample {p}, lr "
+        f"{cfg.optim.learning_rate}): step 0 {losses[0]:.4f}, step {len(losses) - 1} "
+        f"{losses[-1]:.4f} ({losses[-1] / losses[0]:.3f} of step 0, tol 0.8 within "
+        f"{SCHEDULED_STEPS} updates)")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < 0.8 * losses[0]):
+        fail(f"the scheduled fixed-batch loss did not fall below 0.8 of its first within "
+             f"{SCHEDULED_STEPS} updates")
+    del trainer, pipe, features
+    torch.cuda.empty_cache()
+
+    # float32, p=1, card against the CPU, in two parts.  The chained pass
+    # (K2, K1): equal decisions, boxes and confidences within 1e-4.  The
+    # loss pass and backward on the CPU's mixed caches, with the CPU's
+    # branch decisions replayed: its matcher assignments (a near-tie in a
+    # cost matrix sends a query's gradient to another target) and the side
+    # each ReLU took (an input within a rounding of 0 flips its unit's
+    # gradient); how many of the card's own decisions differ is printed.
+    # Its own caches' ~1e-6 differences would move every loss-pass input,
+    # and a gradient summed over 10^4 token positions with cancellation
+    # would carry them far above the arithmetic's own differences.
+    from explainable_spatial_vqa_tpu_torch.train import losses as losses_module
+
+    cfg32 = cfg.replace(model=dataclasses.replace(mcfg, dropout=0.0),
+                        train=dataclasses.replace(cfg.train, dtype="float32"))
+    model = executor_scheduled_pipeline_from_arrays(cfg32, arrays, feats, device=dev).model
+    rows = {k: v[:CARD_VS_CPU_ROWS] for k, v in arrays.items()}
+    rows["image"] = feats[rows["image_index"]]
+    rows["p_sample"] = np.float32(1.0)
+    assign = losses_module.assign_targets
+    recorded = {"assignments": [], "signs": [], "state": None}
+    differs = {"assignments": [], "signs": 0}
+
+    def relu_inputs(m):
+        """The layers whose outputs go through a ReLU."""
+        return [mod.fc1 for mod in m.modules() if type(mod).__name__ == "FeedForward"] + [
+            m.box_mlp_1, m.box_decoder.head_hidden]
+
+    def step(m, replay):
+        device = next(m.parameters()).device
+        assignments, signs = iter(recorded["assignments"]), iter(recorded["signs"])
+
+        def assign_targets(cost, mask, config):
+            got = assign(cost, mask, config)
+            if not replay:
+                recorded["assignments"].append(got.cpu())
+                return got
+            ref = next(assignments)
+            differs["assignments"].append(not torch.equal(got.cpu(), ref))
+            return ref.to(device)
+
+        def relu_side(mod, _inputs, out):
+            """In the loss pass: record each unit's side, or move the
+            card's input by a hair onto the CPU's side."""
+            if not mod.training:
+                return None
+            if not replay:
+                recorded["signs"].append((out > 0).cpu())
+                return None
+            side = next(signs).to(device)
+            other = side != (out > 0)
+            differs["signs"] += int(other.sum())
+            # a hair on the CPU's side, with the input's own gradient
+            hair = out - out.detach() + torch.where(side, 1e-30, -1e-30)
+            return torch.where(other, hair, out)
+
+        losses_module.assign_targets = assign_targets
+        hooks = [layer.register_forward_hook(relu_side) for layer in relu_inputs(m)]
+        try:
+            m.train()
+            m.zero_grad(set_to_none=True)
+            b = to_device(rows, device)
+            depth_ = int(b["num_steps"].max())
+            image_ = m.precompute_image(b["image"])
+            state_ = mixed_chain_state(m, b, image_, cfg32.model, torch.Generator().manual_seed(3),
+                                       depth_)
+            own = [t.cpu() for t in state_]
+            if replay:
+                state_ = type(state_)(*(t.to(device) for t in recorded["state"]))
+            else:
+                recorded["state"] = own
+            loss_, _ = scheduled_step_loss(m, b, image_, state_, cfg32.model,
+                                           torch.Generator().manual_seed(3), True, depth_)
+            loss_.backward()
+        finally:
+            losses_module.assign_targets = assign
+            for hook in hooks:
+                hook.remove()
+        return (float(loss_.detach()), {n_: p_.grad.detach().cpu() for n_, p_ in
+                                        m.named_parameters()}, own)
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_loss, cpu_grads, cpu_state = step(cpu_model, replay=False)
+    loss, grads, card_state = step(model, replay=True)
+    decisions = all(torch.equal(a, b) for a, b in zip(card_state, cpu_state)
+                    if a.dtype in (torch.bool, torch.int32))
+    chain_err = max(float((a - b).abs().max()) for a, b in zip(card_state, cpu_state)
+                    if a.dtype == torch.float32)
+    largest = max(float(g.abs().max()) for g in cpu_grads.values())
+    rels = {}
+    for key, g in cpu_grads.items():
+        if key.endswith(".k.bias"):
+            ok = max(float(grads[key].abs().max()), float(g.abs().max())) <= 1e-6 * largest
+            rels[key] = 0.0 if ok else math.inf
+        else:
+            rels[key] = float((grads[key] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+    top = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    worst = top[0][1]
+    rel_loss = abs(loss - cpu_loss) / abs(cpu_loss)
+    units = sum(int(t.numel()) for t in recorded["signs"])
+    say(f"phase 15 fp32 scheduled train step at p=1 (batch {CARD_VS_CPU_ROWS}), card vs CPU: "
+        f"chained pass: decisions {'equal' if decisions else 'DIFFER'}, boxes and confidences "
+        f"within {chain_err:.3g} (tol 1e-4); on the CPU's caches, the card's own decisions "
+        f"that differed and were replayed from the CPU: matcher assignments at "
+        f"{sum(differs['assignments'])} of {len(differs['assignments'])} positions, ReLU sides "
+        f"of {differs['signs']} of {units} units; loss {loss:.6f} vs {cpu_loss:.6f} "
+        f"({rel_loss:.2e} relative, tol 1e-6); largest gradient differences, of each tensor's "
+        f"max |g| (tol 1e-5): " + ", ".join(f"{k} {v:.2e}" for k, v in top)
+        + f" over {len(grads)} tensors; phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    if not (decisions and chain_err <= 1e-4 and rel_loss <= 1e-6 and worst <= 1e-5):
+        fail("the float32 scheduled train step on the card disagrees with the CPU")
+    return {"scheduled_train_step": step_counts}
 
 
 if __name__ == "__main__":

@@ -9,23 +9,25 @@ the same features, questions, depths and dependencies as
 :data:`FUNCTION_IDS` (1-based), where the bench numbers names in order of
 first appearance in the process; the names behind the ids agree.
 
-The two training sets are built on those programs:
+The training and evaluation sets are built on those programs:
 :func:`synth_generator_batch` (questions and postfix programs, the questions
-h5's layout) and :func:`synth_executor_steps` (one record per program step,
-``executor_step_arrays``' layout, with random image features).
+h5's layout), :func:`synth_executor_steps` (one record per program step,
+``executor_step_arrays``' layout, with random image features) and
+:func:`synth_annotated` (raw annotated questions, the annotated h5's layout,
+which ``chain_arrays`` and ``executor_chain_step_arrays`` parse).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
 from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
 from explainable_spatial_vqa_tpu_torch.train.datasets import NON_SPATIAL_FUNCTIONS, ChainArrays
 
-__all__ = ["synth_questions", "FUNCTION_IDS", "PROGRAM_TOKENS", "postfix_ids",
-           "synth_generator_batch", "synth_executor_steps"]
+__all__ = ["synth_questions", "FUNCTION_IDS", "PROGRAM_TOKENS", "VALUE_TOKENS", "postfix_ids",
+           "synth_generator_batch", "synth_executor_steps", "synth_annotated"]
 
 _ATTRS = ("size", "color", "material", "shape")
 FUNCTION_IDS: Dict[str, int] = {
@@ -34,6 +36,14 @@ FUNCTION_IDS: Dict[str, int] = {
          "equal_integer"]
         + [f"{kind}_{a}" for kind in ("filter", "same", "query", "equal") for a in _ATTRS])
 }
+
+# CLEVR's attribute values, by attribute
+_VALUES = {"size": ("large", "small"),
+           "color": ("gray", "red", "blue", "green", "brown", "purple", "cyan", "yellow"),
+           "material": ("rubber", "metal"), "shape": ("cube", "sphere", "cylinder")}
+# the executor's value vocabulary (canonical: yes/no are true/false)
+VALUE_TOKENS: Tuple[str, ...] = (("true", "false") + tuple(str(i) for i in range(11))
+                                 + tuple(v for a in _ATTRS for v in _VALUES[a]))
 
 # the generator's program vocabulary: specials, then the function names
 PROGRAM_TOKENS: Tuple[str, ...] = ("<NULL>", "<START>", "<END>") + tuple(sorted(FUNCTION_IDS))
@@ -225,3 +235,63 @@ def synth_executor_steps(n: int, cfg: ExecutorConfig, seed: int = 0):
                 outputs.append(("box", boxes))
             row += 1
     return records, features
+
+
+def _box_text(boxes: np.ndarray) -> str:
+    return " ".join(f"[{x0:.4f} {y0:.4f} {x1:.4f} {y1:.4f}]" for x0, y0, x1, y1 in boxes)
+
+
+def synth_annotated(n: int, cfg: ExecutorConfig, seed: int = 0, max_steps: int = 27):
+    """(records, features, function vocab, value vocab): ``n`` raw annotated
+    questions on ``synth_questions``' programs and image features, in the
+    layout ``_parse_question_steps`` reads: each question's
+    ``annotated_program`` lists steps with ``function`` (a name of
+    :data:`FUNCTION_IDS`, the function vocabulary), ``inputs`` (dependency
+    steps) and ``output_values``.
+
+    A spatial step outputs 1-10 boxes as '[x0 y0 x1 y1] ...' text: ``scene``
+    3-10 random boxes, a filter a random non-empty subset of its input's,
+    ``unique`` one of its input's, ``relate`` and ``same_*`` 1-10 new ones.
+    A value step outputs a CLEVR value: ``count`` its input's box count,
+    ``exist`` yes, ``query_*`` a random value of the attribute, the
+    comparisons the truth of their inputs' values.  The answer is the last
+    step's value; the value vocabulary is :data:`VALUE_TOKENS`."""
+    features, _questions, chains = synth_questions(n, cfg, max_steps=max_steps, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    names = {i: name for name, i in FUNCTION_IDS.items()}
+    records: List[Dict[str, Any]] = []
+    for q in range(n):
+        outputs: List[Any] = []  # each step's boxes or value string
+        steps = []
+        for k in range(chains.num_steps[q]):
+            name = names[chains.functions[q, k]]
+            inputs = [int(d) for d in chains.deps[q, k] if d >= 0]
+            dep = [outputs[d] for d in inputs]
+            if name == "scene":
+                value: Any = _random_boxes(rng, rng.randint(3, 11))
+            elif name.startswith("filter_"):
+                keep = rng.rand(len(dep[0])) < 0.6
+                keep[rng.randint(len(keep))] = True
+                value = dep[0][keep]
+            elif name == "unique":
+                value = dep[0][rng.randint(len(dep[0]))][None]
+            elif name == "relate" or name.startswith("same_"):
+                value = _random_boxes(rng, rng.randint(1, 11))
+            elif name == "count":
+                value = str(len(dep[0]))
+            elif name == "exist":
+                value = "yes"
+            elif name.startswith("query_"):
+                options = _VALUES[name.split("_")[1]]
+                value = options[rng.randint(len(options))]
+            elif name.startswith("equal_"):
+                value = "yes" if dep[0] == dep[1] else "no"
+            else:  # greater_than, less_than
+                a, b = int(dep[0]), int(dep[1])
+                value = "yes" if (a > b if name == "greater_than" else a < b) else "no"
+            outputs.append(value)
+            steps.append({"function": name, "inputs": inputs,
+                          "output_values": value if isinstance(value, str) else _box_text(value)})
+        records.append({"image_index": int(chains.image_index[q]), "answer": outputs[-1],
+                        "annotated_program": steps})
+    return records, features, dict(FUNCTION_IDS), {v: i for i, v in enumerate(VALUE_TOKENS)}

@@ -1,0 +1,4 @@
+from explainable_spatial_vqa_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    main()

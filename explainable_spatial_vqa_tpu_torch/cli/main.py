@@ -1,0 +1,563 @@
+"""CLI of the port, ported from ``explainable_spatial_vqa_tpu/cli/main.py``
+for the thesis pair, with its flags, printed reports and JSON payloads:
+
+  train           the port's training families (``generator``, the five
+                  ``executor*`` presets, ``executor_scheduled``)
+  presets         the port's preset names
+  eval-generator  greedy program accuracy, teacher-forced and best-beam
+  tally           faithfulness quadrants and answer accuracy by type; with
+                  ``--annotated_h5`` the per-step box P/R and token accuracy
+                  on predicted chains, with confidence calibration
+
+A global ``--device`` (default ``cuda``) places the models; without a card
+the model commands raise unless it is ``cpu``.  Each command reads its
+artifacts (h5, JSON) and parses its flags, and hands arrays and modules to a
+function that does the work (:func:`run_eval_generator`,
+:func:`run_tally`), which callers holding data in memory call directly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("esv_torch.cli")
+
+__all__ = ["TallyResult", "build_parser", "main", "run_chains", "run_eval_generator",
+           "run_tally"]
+
+MAX_STEPS = 28  # the tally's chain depth bound, as in the JAX package's CLI
+
+
+def _device(args: argparse.Namespace) -> torch.device:
+    from explainable_spatial_vqa_tpu_torch.device import resolve_device
+
+    return resolve_device(args.device)
+
+
+def _restore(model: torch.nn.Module, directory: Optional[str], name: str) -> None:
+    """Load the best snapshot a port ``Trainer`` saved in ``directory``."""
+    if not directory:
+        return
+    from explainable_spatial_vqa_tpu_torch.train.checkpoints import CheckpointStore
+
+    store = CheckpointStore(directory)
+    best = store.restore_best()
+    store.close()
+    if best is None:
+        logger.warning("no %s checkpoint at %s (random weights)", name, directory)
+        return
+    model.load_state_dict(best["model"])
+    logger.info("restored %s checkpoint from %s", name, directory)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def cmd_train(args: argparse.Namespace) -> None:
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import build_pipeline
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    if args.plot:
+        raise SystemExit("--plot needs utils/plots.py, which the port does not have yet")
+    device = _device(args)
+    config = get_preset(args.preset)
+    data_overrides = {}
+    for name in ("features_h5", "questions_h5", "annotated_h5", "vocab_json",
+                 "split_vocab_json", "image_dir"):
+        value = getattr(args, name, None)
+        if value:
+            data_overrides[name] = value
+    if args.subset_fraction is not None:
+        data_overrides["subset_fraction"] = args.subset_fraction
+    if data_overrides:
+        config = config.replace(data=dataclasses.replace(config.data, **data_overrides))
+    train_overrides = {}
+    if args.epochs is not None:
+        train_overrides["num_epochs"] = args.epochs
+    if args.batch_size is not None:
+        train_overrides["batch_size"] = args.batch_size
+    if train_overrides:
+        config = config.replace(train=dataclasses.replace(config.train, **train_overrides))
+
+    pipeline = build_pipeline(config, device)
+    trainer = Trainer(pipeline.loss_fn, pipeline.model, config.optim, config.train,
+                      steps_per_epoch=pipeline.steps_per_epoch,
+                      checkpoint_dir=args.checkpoint_dir, device=device)
+    history = trainer.fit(pipeline.train_batches, pipeline.val_batches,
+                          monitor=pipeline.monitor)
+    logger.info("training done; best %s = %.4f", pipeline.monitor, trainer.best_metric)
+    if args.eval_test:
+        acc = trainer.evaluate_best(pipeline.test_batches())
+        logger.info("test: loss %.4f, %s = %.4f", acc.mean("loss_sum"),
+                    "/".join(pipeline.monitor), acc.ratio(*pipeline.monitor))
+        history["test"] = [acc.totals]
+    trainer.store.close()
+    if args.history_json:
+        with open(args.history_json, "w") as f:
+            json.dump(history, f, default=float)
+
+
+# ---------------------------------------------------------------------------
+# eval-generator
+# ---------------------------------------------------------------------------
+
+
+def _batched(fn, batch_size: int, *columns: np.ndarray) -> np.ndarray:
+    """``fn`` over full batches plus a PADDED tail batch, so every sample is
+    scored; padding repeats the last row and is sliced off."""
+    outputs = []
+    n = len(columns[0])
+    for start in range(0, n, batch_size):
+        chunk = [col[start:start + batch_size] for col in columns]
+        if len(chunk[0]) < batch_size:
+            chunk = [np.concatenate([c, np.repeat(c[-1:], batch_size - len(c), axis=0)])
+                     for c in chunk]
+        outputs.append(fn(*chunk).cpu().numpy())
+    return np.concatenate(outputs)[:n]
+
+
+def run_eval_generator(model, questions: np.ndarray, programs: np.ndarray,
+                       batch_size: int = 64, compare_tf: bool = False, beam_size: int = 0,
+                       device="cuda") -> Tuple[Dict[str, Any], np.ndarray]:
+    """Program accuracy of ``model`` (a ``ProgramGenerator``) on encoded
+    questions and their programs: greedy decoding, with ``compare_tf`` the
+    teacher-forced decode (gold prefix at every step), with ``beam_size`` > 1
+    the best beam of ``beam_generate``.  Returns (the JAX CLI's payload, the
+    greedy predictions)."""
+    from explainable_spatial_vqa_tpu_torch.device import resolve_device
+    from explainable_spatial_vqa_tpu_torch.evalsuite.accuracy import program_accuracy
+    from explainable_spatial_vqa_tpu_torch.models.layers import eval_mode
+
+    device = resolve_device(device)
+
+    def on(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    with torch.no_grad(), eval_mode(model):
+        pred = _batched(lambda q: model.generate(on(q)), batch_size, questions)
+        acc: Dict[str, Any] = program_accuracy(pred, programs)
+        if compare_tf:
+            tf_pred = _batched(
+                lambda q, p: model(on(q), on(p), teacher_forcing=1.0)["tokens"], batch_size,
+                questions, programs)
+            acc["teacher_forced"] = program_accuracy(tf_pred, programs)
+        if beam_size and beam_size > 1:
+            beam_pred = _batched(lambda q: model.beam_generate(on(q), beam_size)[0][:, 0],
+                                 batch_size, questions)
+            beam_acc: Dict[str, Any] = program_accuracy(beam_pred, programs)
+            beam_acc["beam_size"] = beam_size
+            acc["beam"] = beam_acc
+    return acc, pred
+
+
+def cmd_eval_generator(args: argparse.Namespace) -> None:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_questions_h5
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.core.vocab import invert_vocab, load_vocab
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import model_dtype
+
+    device = _device(args)
+    enc = read_questions_h5(args.questions_h5)
+    if enc.programs is None:
+        raise SystemExit(f"{args.questions_h5} holds no programs")
+    limit = args.limit or len(enc.questions)
+    questions, programs = enc.questions[:limit], enc.programs[:limit]
+
+    config = get_preset(args.preset)
+    # the training pipeline's max(preset, data) sizing, so train-time
+    # checkpoints restore with matching shapes
+    model_cfg = dataclasses.replace(
+        config.model,
+        vocab_size=max(config.model.vocab_size, int(questions.max()) + 1),
+        program_vocab_size=max(config.model.program_vocab_size, int(programs.max()) + 1),
+        program_len=programs.shape[1],
+    )
+    model = init_parameters(ProgramGenerator(model_cfg, model_dtype(config, device), device), 0)
+    _restore(model, args.checkpoint_dir, "generator")
+
+    acc, pred = run_eval_generator(model, questions, programs, args.batch_size, args.compare_tf,
+                                   args.beam_size, device)
+    print(json.dumps(acc, indent=2))
+
+    if args.show and args.vocab_json:
+        inv = invert_vocab(load_vocab(args.vocab_json)["program_token_to_idx"])
+
+        def decode(row) -> str:
+            return " ".join(inv.get(int(t), "?") for t in row if t != 0)
+
+        for i in range(min(args.show, len(pred))):
+            print(f"[{i}] pred: {decode(pred[i])}")
+            print(f"[{i}] gold: {decode(programs[i])}")
+
+
+# ---------------------------------------------------------------------------
+# tally
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TallyResult:
+    pipeline: Any  # infer.pipeline.PipelineResult on the generated programs
+    accuracy: Optional[Dict[str, float]] = None  # answer accuracy by question type
+    step_tally: Any = None  # evalsuite.detection.DetectionTally on the annotated chains
+    payload: Optional[Dict[str, Any]] = None  # the per-step JSON report
+    conf_threshold: Any = None  # the per-step tally's threshold: a number or a map
+    # one entry per executor run: its name, time.perf_counter() at its start
+    # and its wall seconds (each ends in numpy on the host)
+    runs: List[Dict[str, Any]] = field(default_factory=list)
+
+
+def run_chains(runner, image_tokens, chains, chain_mode: str) -> Dict[str, np.ndarray]:
+    """The annotated chains on ``runner``: the pool takes the per-IMAGE
+    feature cache, every other mode the depth-sorted batches of per-question
+    rows."""
+    from explainable_spatial_vqa_tpu_torch.infer.pipeline import per_question_rows
+
+    if chain_mode == "pool":
+        return runner.run_pool(image_tokens, chains)
+    return runner.run_sorted(per_question_rows(image_tokens, chains.image_index), chains)
+
+
+def _final_functions(programs: np.ndarray, program_inv: Mapping[int, str]) -> List[str]:
+    """Each gold program's last function: the token before <END>."""
+    return [program_inv.get(int(row[row != 0][-2]) if (row != 0).sum() > 1 else 0, "")
+            for row in programs]
+
+
+def run_tally(generator, executor, exe_cfg, questions: np.ndarray, image_tokens,
+              image_index: np.ndarray, program_inv: Mapping[int, str],
+              function_vocab: Mapping[str, int], value_vocab: Mapping[str, int],
+              gt_answers: Optional[np.ndarray] = None, programs: Optional[np.ndarray] = None,
+              annotated: Optional[List[Dict[str, Any]]] = None, chain_mode: str = "sorted",
+              iou_threshold: float = 0.5, calibrate_conf: bool = False,
+              calibrate_conf_per_function: bool = False,
+              conf_thresholds: Optional[Mapping[str, float]] = None,
+              device="cuda") -> TallyResult:
+    """The full pipeline on encoded questions (faithfulness quadrants and,
+    with ``gt_answers`` in the value vocabulary and ``programs``, answer
+    accuracy by question type), then, with ``annotated``, the per-step tally
+    on the executor's predicted chains of the annotated programs.
+
+    ``image_tokens``: the per-IMAGE (M, P, C) feature cache, numpy or a
+    tensor; ``image_index`` maps questions to images.  The per-step tally's
+    confidence threshold is, in order: the pre-fitted ``conf_thresholds``
+    map (which also gates propagation), per-function F1 operating points
+    fitted on a first run (``calibrate_conf_per_function``; the chains run
+    again with them as the gate), one global F1 operating point
+    (``calibrate_conf``; run again if it moved), or the config's."""
+    from explainable_spatial_vqa_tpu_torch.device import resolve_device
+    from explainable_spatial_vqa_tpu_torch.evalsuite.accuracy import answer_accuracy_by_type
+    from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import (
+        build_conf_threshold_vector,
+        calibrate_chain_conf_threshold,
+        calibrate_chain_conf_thresholds_per_function,
+        tally_predicted_chains,
+    )
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
+    from explainable_spatial_vqa_tpu_torch.train.datasets import chain_arrays
+
+    device = resolve_device(device)
+    runs: List[Dict[str, Any]] = []
+
+    def timed(name: str, fn):
+        start = time.perf_counter()
+        out = fn()
+        runs.append({"name": name, "start": start, "seconds": time.perf_counter() - start})
+        return out
+
+    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=MAX_STEPS, device=device)
+    pipeline = InferencePipeline(generator, runner, program_inv, function_vocab, device=device)
+    result = timed("pipeline", lambda: pipeline.run(
+        questions, image_tokens, image_index, gt_answers=gt_answers, gt_programs=programs,
+        chain_mode=chain_mode))
+    accuracy = None
+    if result.tally is not None:
+        pred = np.where(result.answer_valid, result.answers, -1)
+        accuracy = answer_accuracy_by_type(pred, gt_answers,
+                                           _final_functions(programs, program_inv))
+    out = TallyResult(result, accuracy, runs=runs)
+    if annotated is None:
+        return out
+
+    chains = chain_arrays(annotated, function_vocab, max_steps=MAX_STEPS)
+
+    def chain_run(name: str, cfg=exe_cfg, thr_map=None):
+        vec = (None if thr_map is None
+               else build_conf_threshold_vector(function_vocab, thr_map,
+                                                default=exe_cfg.conf_threshold))
+        rnr = ExecutorChainRunner(executor, cfg, max_steps=MAX_STEPS, conf_thresholds=vec,
+                                  device=device)
+        return timed(name, lambda: run_chains(rnr, image_tokens, chains, chain_mode))
+
+    conf_threshold: Any = exe_cfg.conf_threshold
+    if conf_thresholds:
+        conf_threshold = dict(conf_thresholds)
+        run_out = chain_run("chains, pre-fitted thresholds", thr_map=conf_threshold)
+    else:
+        run_out = chain_run("chains")
+        if calibrate_conf_per_function:
+            conf_threshold, _f1 = calibrate_chain_conf_thresholds_per_function(
+                run_out, annotated, function_vocab, value_vocab, iou_threshold=iou_threshold)
+            logger.info("per-function conf thresholds: %s",
+                        {k: round(v, 2) for k, v in sorted(conf_threshold.items())})
+            run_out = chain_run("chains, per-function thresholds", thr_map=conf_threshold)
+        elif calibrate_conf:
+            conf_threshold, f1 = calibrate_chain_conf_threshold(
+                run_out, annotated, function_vocab, value_vocab, iou_threshold=iou_threshold)
+            logger.info("calibrated conf threshold: %.2f (box F1 %.3f)", conf_threshold, f1)
+            if abs(conf_threshold - exe_cfg.conf_threshold) > 1e-9:
+                # the threshold gates box propagation through the chain
+                run_out = chain_run("chains, calibrated threshold", cfg=dataclasses.replace(
+                    exe_cfg, conf_threshold=conf_threshold))
+    out.step_tally = tally_predicted_chains(run_out, annotated, function_vocab, value_vocab,
+                                            conf_threshold=conf_threshold,
+                                            iou_threshold=iou_threshold)
+    out.conf_threshold = conf_threshold
+    out.payload = {
+        "per_function_box_pr": out.step_tally.precision_recall(),
+        "per_function_token_acc": out.step_tally.token_accuracy(),
+        "conf_threshold": conf_threshold,
+        "iou_threshold": iou_threshold,
+        # truncation accounting (generated / GT chains)
+        "truncated_generated_programs": result.truncated,
+        "truncated_gt_programs": chains.truncated,
+    }
+    return out
+
+
+def cmd_tally(args: argparse.Namespace) -> None:
+    import h5py
+
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_questions_h5
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, get_preset
+    from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize, invert_vocab, load_vocab
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import model_dtype
+
+    device = _device(args)
+    enc = read_questions_h5(args.questions_h5)
+    limit = args.limit or len(enc.questions)
+    questions = enc.questions[:limit]
+    answers = enc.answers[:limit] if enc.answers is not None else None
+    programs = enc.programs[:limit] if enc.programs is not None else None
+    image_idxs = enc.image_idxs[:limit]
+
+    clevr_vocab = load_vocab(args.vocab_json)
+    split_vocab = load_vocab(args.split_vocab_json)
+    program_inv = invert_vocab(clevr_vocab["program_token_to_idx"])
+    answer_inv = invert_vocab(clevr_vocab["answer_token_to_idx"])
+    value_vocab = split_vocab["other"]
+
+    # max(preset, data) sizing, as the training pipelines size their models,
+    # so checkpoints written by `train` restore with matching shapes
+    gen_config = get_preset("generator")
+    exe_config = get_preset(args.executor_preset)
+    if not isinstance(exe_config.model, ExecutorConfig):
+        raise SystemExit(f"--executor_preset {args.executor_preset!r} is not an "
+                         "executor-family preset")
+    gen_cfg = dataclasses.replace(
+        gen_config.model,
+        vocab_size=max(gen_config.model.vocab_size, int(questions.max()) + 1),
+        program_vocab_size=max(gen_config.model.program_vocab_size,
+                               (int(programs.max()) + 1) if programs is not None else 0),
+        program_len=programs.shape[1] if programs is not None else 27,
+    )
+    exe_cfg = dataclasses.replace(
+        exe_config.model,
+        vocab_size=max(exe_config.model.vocab_size, len(split_vocab["function"]) + 1),
+        token_classes=max(exe_config.model.token_classes, len(value_vocab) + 1),
+    )
+    generator = init_parameters(
+        ProgramGenerator(gen_cfg, model_dtype(gen_config, device), device), 0)
+    executor = init_parameters(
+        ProgramExecutor(exe_cfg, model_dtype(exe_config, device), device), 2)
+    _restore(generator, args.generator_checkpoint, "generator")
+    _restore(executor, args.executor_checkpoint, "executor")
+
+    with h5py.File(args.features_h5, "r") as f:
+        feats = f["features"][()]
+    n, c, h, w = feats.shape
+    image_tokens = torch.from_numpy(
+        np.ascontiguousarray(feats.reshape(n, c, h * w).transpose(0, 2, 1), np.float32)
+    ).to(device)
+
+    # GT answers in the executor's value-token space
+    gt_value_ids = None
+    if answers is not None:
+        gt_value_ids = np.asarray([value_vocab.get(canonicalize(answer_inv.get(int(a), "")), -2)
+                                   for a in answers])
+    annotated = None
+    if args.annotated_h5:
+        from explainable_spatial_vqa_tpu_torch.core.artifacts import read_annotated_h5
+
+        annotated = read_annotated_h5(args.annotated_h5)[:limit]
+    conf_thresholds = None
+    if args.annotated_h5 and args.conf_thresholds:
+        # PRE-FITTED thresholds (e.g. calibrated on a held-in split with
+        # --save_conf_thresholds): the out-of-sample counterpart of the
+        # in-place --calibrate_conf* modes
+        with open(args.conf_thresholds) as f:
+            conf_thresholds = {k: float(v) for k, v in json.load(f).items()}
+        logger.info("loaded conf thresholds from %s: %s", args.conf_thresholds,
+                    {k: round(v, 2) for k, v in sorted(conf_thresholds.items())})
+
+    out = run_tally(generator, executor, exe_cfg, questions, image_tokens, image_idxs,
+                    program_inv, split_vocab["function"], value_vocab, gt_answers=gt_value_ids,
+                    programs=programs, annotated=annotated, chain_mode=args.chain_mode,
+                    iou_threshold=args.iou_threshold, calibrate_conf=args.calibrate_conf,
+                    calibrate_conf_per_function=args.calibrate_conf_per_function,
+                    conf_thresholds=conf_thresholds, device=device)
+    print(f"truncated_programs: {out.pipeline.truncated} (generated programs deeper than "
+          f"max_steps={MAX_STEPS}; their execution was cut and their answers read a "
+          f"mid-chain value)")
+    if out.pipeline.tally is not None:
+        print(out.pipeline.tally.report())
+        print(json.dumps(out.accuracy, indent=2))
+    if out.step_tally is None:
+        return
+    if args.save_conf_thresholds:
+        # the fitted operating points, for a later tally on another split
+        # (or a serving deployment) through --conf_thresholds
+        thr = out.conf_threshold
+        out_map = thr if isinstance(thr, dict) else {"__global__": float(thr)}
+        with open(args.save_conf_thresholds, "w") as f:
+            json.dump(out_map, f, indent=2, sort_keys=True)
+        logger.info("saved conf thresholds to %s", args.save_conf_thresholds)
+    print(out.step_tally.report())
+    print(json.dumps(out.payload, indent=2))
+
+
+# ---------------------------------------------------------------------------
+# parser
+# ---------------------------------------------------------------------------
+
+
+def _preset_names():
+    from explainable_spatial_vqa_tpu_torch.core.config import PRESETS
+
+    return PRESETS.keys()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="explainable_spatial_vqa_tpu_torch")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the models (default cuda; raises without a "
+                             "card unless cpu)")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train")
+    p.add_argument("--preset", required=True,
+                   help="one of: " + ", ".join(sorted(_preset_names())))
+    p.add_argument("--features_h5")
+    p.add_argument("--questions_h5")
+    p.add_argument("--annotated_h5")
+    p.add_argument("--vocab_json")
+    p.add_argument("--split_vocab_json")
+    p.add_argument("--image_dir", help="raw PNGs (yolo_bb preset)")
+    p.add_argument("--subset_fraction", type=float, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--history_json", default=None)
+    p.add_argument("--eval_test", action="store_true")
+    p.add_argument("--plot", default=None,
+                   help="not available yet: the training-curve plot waits for the port of "
+                        "utils/plots.py, and passing it raises")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("presets", help="list training presets")
+    p.set_defaults(fn=lambda a: print("\n".join(sorted(_preset_names()))))
+
+    p = sub.add_parser("eval-generator")
+    p.add_argument("--questions_h5", required=True)
+    p.add_argument("--preset", default="generator")
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--vocab_json", default=None)
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--show", type=int, default=0)
+    p.add_argument("--beam_size", type=int, default=0,
+                   help=">1: also report best-beam program accuracy")
+    p.add_argument("--compare_tf", action="store_true",
+                   help="also report teacher-forced accuracy "
+                        "(run_model_lstm_qp.py:277-321 comparison)")
+    p.set_defaults(fn=cmd_eval_generator)
+
+    p = sub.add_parser("tally")
+    p.add_argument("--questions_h5", required=True)
+    p.add_argument("--features_h5", required=True)
+    p.add_argument("--vocab_json", required=True)
+    p.add_argument("--split_vocab_json", required=True)
+    p.add_argument("--generator_checkpoint", default=None)
+    p.add_argument("--executor_checkpoint", default=None)
+    p.add_argument("--executor_preset", default="executor",
+                   help="executor-family preset whose model config to build "
+                        "(e.g. executor_roi / executor_roi_sim so checkpoints "
+                        "trained with those presets restore with matching "
+                        "parameters)")
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--annotated_h5", default=None,
+                   help="also compute per-function box P/R + token accuracy "
+                        "on the executor's predicted chains (Tables 4.3/4.4)")
+    p.add_argument("--iou_threshold", type=float, default=0.5)
+    p.add_argument("--calibrate_conf", action="store_true",
+                   help="F1-max confidence-threshold calibration before the "
+                        "per-step tally")
+    p.add_argument("--calibrate_conf_per_function", action="store_true",
+                   help="per-FUNCTION F1 operating points instead of one "
+                        "global threshold (same_* confidences sit far below "
+                        "the filters'); gates both the tally and in-chain "
+                        "box propagation")
+    p.add_argument("--conf_thresholds", default=None,
+                   help="JSON file of pre-fitted conf thresholds "
+                        "({function: thr, '__global__': fallback}) to apply "
+                        "instead of calibrating in place; use with "
+                        "--save_conf_thresholds on a held-in split for "
+                        "out-of-sample operating points")
+    p.add_argument("--save_conf_thresholds", default=None,
+                   help="write the thresholds used for the per-step tally "
+                        "to this JSON file for reuse via --conf_thresholds")
+    p.add_argument("--chain_mode", default="sorted",
+                   choices=("sorted", "pool", "bucketed", "plain"),
+                   help="chained-execution schedule of the generated programs: "
+                        "depth-sorted batches (default), the continuous-batching "
+                        "slot pool, per-depth buckets, or one full-depth batch; the "
+                        "per-step tally runs the pool in pool mode, else sorted")
+    p.set_defaults(fn=cmd_tally)
+    return parser
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(levelname)s - %(name)s: %(message)s",
+                        handlers=[logging.StreamHandler(sys.stderr)], force=True)
+    args = build_parser().parse_args(argv)
+    try:
+        args.fn(args)
+    except BrokenPipeError:
+        # output piped into head/less that exited early: not an error
+        import os
+
+        os.dup2(os.open(os.devnull, os.O_WRONLY), 1)
+
+
+if __name__ == "__main__":
+    main()

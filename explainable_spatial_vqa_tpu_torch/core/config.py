@@ -2,10 +2,10 @@
 ``OptimConfig``, ``GeneratorConfig``, ``ExecutorConfig``, ``TrainConfig`` and
 ``ExperimentConfig`` (``explainable_spatial_vqa_tpu/core/config.py``), field
 for field, so one set of keyword arguments builds both packages' models and
-trainers, with the presets of the families the port trains: ``generator``
-and the five executor presets.  ``TrainConfig.mesh_shape`` and
-``mesh_axes`` are kept for that reason; the port trains on one card and
-reads neither."""
+trainers, with the presets of the families the port trains: ``generator``,
+the five executor presets and ``executor_scheduled``.
+``TrainConfig.mesh_shape`` and ``mesh_axes`` are kept for that reason; the
+port trains on one card and reads neither."""
 
 from __future__ import annotations
 
@@ -138,7 +138,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ExperimentConfig:
     name: str
-    model_family: str  # generator | executor (the families the port trains)
+    model_family: str  # generator | executor | executor_scheduled (the port's families)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -175,6 +175,12 @@ def _preset_map() -> Dict[str, ExperimentConfig]:
             name="executor_roi_sim_count",
             model=ExecutorConfig(box_roi=True, roi_sim=True, roi_sim_heads=4, count_embed=True),
             **executor),
+        # chain-level scheduled sampling (train.scheduled): opt-in, the
+        # shipped recipe trains teacher-forced
+        "executor_scheduled": ExperimentConfig(
+            name="executor_scheduled",
+            model=ExecutorConfig(scheduled_p_max=0.5, scheduled_ramp_epochs=5),
+            **dict(executor, model_family="executor_scheduled")),
     }
     return presets
 

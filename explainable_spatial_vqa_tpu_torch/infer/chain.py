@@ -20,10 +20,16 @@ schedule.
 
 JAX's on-device loops become Python loops here; the pool loop reads one
 scalar per iteration for its exit test.  The caches are updated in place.
+Both passes are deterministic whatever mode the caller left the executor in,
+as JAX's are (``deterministic=True``): they run it in eval mode
+(:func:`~explainable_spatial_vqa_tpu_torch.models.layers.eval_mode`), so on
+the card its fusion blocks run on K2 and its box decoder's self-attention on
+K1, and give the caller its mode back.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -32,7 +38,7 @@ import torch
 from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
 from explainable_spatial_vqa_tpu_torch.infer.plan import plan_sorted
-from explainable_spatial_vqa_tpu_torch.models.layers import Device
+from explainable_spatial_vqa_tpu_torch.models.layers import Device, eval_mode
 from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
 
 __all__ = ["ChainState", "ExecutorChainRunner", "chained_forward", "chained_forward_pool",
@@ -110,7 +116,18 @@ def _decide(out: Dict[str, torch.Tensor], func: torch.Tensor, cfg: ExecutorConfi
     return is_box, pred_token, conf_mask
 
 
-@torch.no_grad()
+def _deterministic(fn):
+    """``fn(model, ...)`` without autograd and with ``model`` in eval mode."""
+
+    @functools.wraps(fn)
+    def run(model, *args, **kwargs):
+        with torch.no_grad(), eval_mode(model):
+            return fn(model, *args, **kwargs)
+
+    return run
+
+
+@_deterministic
 def chained_forward(
     model,
     image_tokens: torch.Tensor,  # (N, P, C) raw, or (N, P, d) precomputed
@@ -151,7 +168,7 @@ def chained_forward(
     return state
 
 
-@torch.no_grad()
+@_deterministic
 def chained_forward_pool(
     model,
     image_features: torch.Tensor,  # (M, P, C) per-IMAGE raw feature cache
@@ -235,7 +252,7 @@ class ExecutorChainRunner:
     def __init__(self, model, config: ExecutorConfig, max_steps: int = 28,
                  conf_thresholds=None, device: Device = "cuda"):
         self.device = resolve_device(device)
-        self.model = model.eval()
+        self.model = model  # every run is deterministic (chained_forward*)
         self.config = config
         self.max_steps = max_steps
         # optional per-FUNCTION propagation thresholds indexed by function id;

@@ -37,7 +37,7 @@ from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
 logger = logging.getLogger(__name__)
 
 __all__ = ["decode_program_ids", "programs_to_chains", "InferencePipeline", "PipelineResult",
-           "CHAIN_MODES"]
+           "CHAIN_MODES", "per_question_rows"]
 
 CHAIN_MODES = ("sorted", "bucketed", "pool", "plain")
 
@@ -104,6 +104,15 @@ def programs_to_chains(
                        truncated=truncated)
 
 
+def per_question_rows(image_tokens, image_index: np.ndarray):
+    """Rows ``image_index`` of the per-IMAGE feature cache: gathered on the
+    tensor's device, or on the host for numpy."""
+    if isinstance(image_tokens, torch.Tensor):
+        index = torch.as_tensor(image_index, dtype=torch.long, device=image_tokens.device)
+        return image_tokens[index]
+    return np.asarray(image_tokens)[image_index]
+
+
 @dataclass
 class PipelineResult:
     program_ids: np.ndarray  # (N, T) generated program tokens
@@ -155,15 +164,9 @@ class InferencePipeline:
         if chain_mode == "pool":
             out = self.runner.run_pool(image_tokens, chains)
         else:
-            if isinstance(image_tokens, torch.Tensor):
-                index = torch.as_tensor(chains.image_index, dtype=torch.long,
-                                        device=image_tokens.device)
-                gathered = image_tokens[index]
-            else:
-                gathered = np.asarray(image_tokens)[chains.image_index]
             run = {"sorted": self.runner.run_sorted, "bucketed": self.runner.run_bucketed,
                    "plain": self.runner.run}[chain_mode]
-            out = run(gathered, chains)
+            out = run(per_question_rows(image_tokens, chains.image_index), chains)
         result = PipelineResult(
             program_ids=program_ids,
             answers=out["final_tokens"],

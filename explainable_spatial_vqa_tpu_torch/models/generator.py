@@ -14,7 +14,9 @@ between layers.  The encoder scans run over padding unmasked, as in JAX.
 generator has no TPU kernel, so it is plain PyTorch; recurrences are Python
 loops over time.  :meth:`ProgramGenerator.forward` is the training forward
 (teacher forcing with scheduled sampling, dropout on the embeddings in
-training mode); :meth:`ProgramGenerator.generate` the greedy decode.
+training mode); :meth:`ProgramGenerator.generate` the greedy decode and
+:meth:`ProgramGenerator.beam_generate` the beam search, both on the device
+with no host read inside the loop.
 """
 
 from __future__ import annotations
@@ -215,3 +217,63 @@ class ProgramGenerator(nn.Module):
             token = torch.argmax(logits, dim=-1)
             tokens.append(token)
         return torch.stack(tokens, dim=1)
+
+    @torch.no_grad()
+    def beam_generate(self, questions: torch.Tensor, beam_size: int = 4,
+                      max_len: Optional[int] = None, start_token: int = 1, end_token: int = 2,
+                      pad_token: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam-search decode (JAX ``ProgramGenerator.beam_generate``): returns
+        (tokens (B, K, T), scores (B, K)), best first.
+
+        The decoder carry is tiled to (B·K, ...) and regathered along the beam
+        axis each step; log-probabilities are float32; a finished beam (one
+        that emitted ``end_token``) can only add ``pad_token`` at no cost.
+        Beams start as one live beam and K-1 at -1e30.  Top-k breaks ties by
+        the lower flat (beam·V + token) index, as ``jax.lax.top_k`` does:
+        a stable descending sort, then the first K."""
+        length = max_len or self.config.program_len
+        k = beam_size
+        enc_outputs, carry = self.encode(questions)
+        enc_mask = questions != 0
+        batch, device = questions.shape[0], questions.device
+        enc_k = enc_outputs.repeat_interleave(k, dim=0)
+        mask_k = enc_mask.repeat_interleave(k, dim=0)
+        carry = tuple((c.repeat_interleave(k, dim=0), h.repeat_interleave(k, dim=0))
+                      for c, h in carry)
+
+        neg_inf = -1e30
+        scores = torch.full((batch, k), neg_inf, device=device)
+        scores[:, 0] = 0.0
+        tokens = torch.full((batch, k), start_token, dtype=torch.long, device=device)
+        finished = torch.zeros(batch, k, dtype=torch.bool, device=device)
+        offsets = torch.arange(batch, device=device)[:, None] * k
+        step_tokens, step_beams = [], []
+        for _ in range(length):
+            carry, logits = self._decode_step(carry, tokens.reshape(-1), enc_k, mask_k)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            vocab = logp.shape[-1]
+            logp = logp.reshape(batch, k, vocab)
+            pad_only = torch.full((vocab,), neg_inf, device=device)
+            pad_only[pad_token] = 0.0
+            logp = torch.where(finished[..., None], pad_only, logp)
+            total = (scores[..., None] + logp).reshape(batch, k * vocab)
+            ordered, index = torch.sort(total, dim=-1, descending=True, stable=True)
+            scores, top_index = ordered[:, :k], index[:, :k]
+            beam_index = torch.div(top_index, vocab, rounding_mode="floor")
+            tokens = top_index % vocab
+            flat = (beam_index + offsets).reshape(-1)
+            carry = tuple((c[flat], h[flat]) for c, h in carry)
+            finished = torch.gather(finished, 1, beam_index) | (tokens == end_token)
+            step_tokens.append(tokens)
+            step_beams.append(beam_index)
+
+        beam = torch.arange(k, device=device).expand(batch, k)
+        rev_tokens = []
+        for step in range(length - 1, -1, -1):
+            rev_tokens.append(torch.gather(step_tokens[step], 1, beam))
+            beam = torch.gather(step_beams[step], 1, beam)
+        out_tokens = torch.stack(rev_tokens[::-1], dim=-1)
+        order = torch.argsort(-scores, dim=-1, stable=True)
+        scores = torch.gather(scores, 1, order)
+        out_tokens = torch.gather(out_tokens, 1, order[..., None].expand_as(out_tokens))
+        return out_tokens, scores

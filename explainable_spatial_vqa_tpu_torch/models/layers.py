@@ -16,8 +16,9 @@ attention dispatch do in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Union
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -49,6 +50,7 @@ __all__ = [
     "DecoderBlock",
     "TransformerEncoder",
     "cached_on_params",
+    "eval_mode",
     "init_parameters",
 ]
 
@@ -106,6 +108,21 @@ def cached_on_params(module: nn.Module, build):
         kept = (key, build())
         module.__dict__["_cached_on_params"] = kept
     return kept[1]
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module) -> Iterator[nn.Module]:
+    """``module`` in eval mode for the ``with`` block (no dropout; the fusion
+    blocks on K2 and the box decoder's self-attention on K1), each
+    submodule's own mode restored after it: the deterministic passes (chained
+    execution, evaluation) run so whatever mode the caller left it in."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 class Dense(nn.Linear):

@@ -1,6 +1,8 @@
 """Dataset assembly, copied from ``explainable_spatial_vqa_tpu/train/datasets.py``:
-``ChainArrays`` for chained inference, and the thesis executor's per-step
-training records (:func:`executor_step_arrays`) with the parsers they need."""
+``ChainArrays`` for chained inference (:func:`chain_arrays`), the thesis
+executor's per-step training records (:func:`executor_step_arrays`), its
+per-question chain records for scheduled sampling
+(:func:`executor_chain_step_arrays`), and the parsers they need."""
 
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ChainArrays", "NON_SPATIAL_FUNCTIONS", "parse_boxes", "executor_step_arrays"]
+__all__ = ["ChainArrays", "NON_SPATIAL_FUNCTIONS", "parse_boxes", "executor_step_arrays",
+           "executor_chain_step_arrays", "chain_arrays"]
 
 # CLEVR functions that emit a value token; every other function emits an
 # object set, annotated as boxes (explainable_spatial_vqa_tpu/clevr/executor.py)
@@ -199,3 +202,114 @@ def executor_step_arrays(
               "input_boxes": np.float32, "input_box_mask": bool, "target_boxes": np.float32,
               "target_box_mask": bool, "token_target": np.int32, "is_box_branch": bool}
     return {k: np.asarray(v[:total], dtypes[k]) for k, v in records.items()}
+
+
+def executor_chain_step_arrays(
+    annotated_questions: Sequence[Dict[str, Any]],
+    function_vocab: Mapping[str, int],
+    value_vocab: Mapping[str, int],
+    max_steps: int = 28,
+    max_output_boxes: int = 10,
+    subset_fraction: float = 1.0,
+) -> Dict[str, np.ndarray]:
+    """Chain-structured executor training arrays, one row per QUESTION.
+
+    Unlike :func:`executor_step_arrays` (flat teacher-forced step records),
+    each question's program stays laid out over step positions, so training
+    can thread dependencies through caches as chained inference does: the
+    substrate of chain-level scheduled sampling (``train.scheduled``).
+
+    Per question: ``functions`` (S,), ``deps`` (S, 2) int64 (-1 = none),
+    ``num_steps``, per-step targets ``target_boxes`` (S, Q, 4) /
+    ``target_box_mask`` (S, Q) / ``token_target`` (S,) / ``is_box_branch``
+    (S,), and ``step_valid`` (S,) masking degenerate steps out of the loss
+    (they still occupy positions so dependency indices stay aligned).
+    Questions with more than ``max_steps`` steps, or none, are skipped.
+    """
+    records: Dict[str, List[Any]] = {k: [] for k in (
+        "image_index", "functions", "deps", "num_steps", "target_boxes",
+        "target_box_mask", "token_target", "is_box_branch", "step_valid",
+    )}
+    skipped_long = 0
+    skipped_empty = 0
+    for q in annotated_questions:
+        parsed = _parse_question_steps(q, function_vocab, value_vocab)
+        s = len(parsed)
+        if s == 0 or s > max_steps:
+            skipped_long += int(s > max_steps)
+            skipped_empty += int(s == 0)
+            continue
+        functions = np.zeros(max_steps, np.int32)
+        deps = np.full((max_steps, 2), -1, np.int64)
+        t_boxes = np.zeros((max_steps, max_output_boxes, 4), np.float32)
+        t_mask = np.zeros((max_steps, max_output_boxes), bool)
+        token_target = np.zeros(max_steps, np.int32)
+        is_box = np.zeros(max_steps, bool)
+        valid = np.zeros(max_steps, bool)
+        for k, p in enumerate(parsed):
+            functions[k] = p["function_id"]
+            for d, dep in enumerate(p["inputs"][:2]):
+                if 0 <= dep < k:  # backwards-only, like the flat parser
+                    deps[k, d] = dep
+            boxes = p["target_boxes"][:max_output_boxes]
+            t_boxes[k, :len(boxes)] = boxes
+            t_mask[k, :len(boxes)] = True
+            token_target[k] = max(p["token_id"], 0)
+            is_box[k] = p["is_box"]
+            valid[k] = p["valid"]
+        records["image_index"].append(q["image_index"])
+        records["functions"].append(functions)
+        records["deps"].append(deps)
+        records["num_steps"].append(s)
+        records["target_boxes"].append(t_boxes)
+        records["target_box_mask"].append(t_mask)
+        records["token_target"].append(token_target)
+        records["is_box_branch"].append(is_box)
+        records["step_valid"].append(valid)
+    if skipped_long or skipped_empty:
+        logger.warning(
+            "executor_chain_step_arrays: skipped %d questions longer than max_steps=%d and %d "
+            "with zero parsed steps", skipped_long, max_steps, skipped_empty)
+    total = len(records["image_index"])
+    if subset_fraction < 1.0:
+        total = int(total * subset_fraction)
+    dtypes = {"image_index": np.int32, "num_steps": np.int32}
+    return {k: np.asarray(v[:total], dtypes.get(k)) for k, v in records.items()}
+
+
+def chain_arrays(
+    annotated_questions: Sequence[Dict[str, Any]],
+    function_vocab: Mapping[str, int],
+    max_steps: int = 28,
+) -> ChainArrays:
+    """Raw annotated questions -> chain-execution metadata, from
+    ``annotated_program``'s own functions and inputs.  Programs deeper than
+    ``max_steps`` are cut and counted in ``truncated``."""
+    n = len(annotated_questions)
+    functions = np.zeros((n, max_steps), np.int32)
+    deps = np.full((n, max_steps, 2), -1, np.int64)
+    num_steps = np.zeros(n, np.int32)
+    image_index = np.zeros(n, np.int32)
+    answers: List[str] = []
+    inv = {v: k for k, v in function_vocab.items()}
+    truncated = 0
+    for i, q in enumerate(annotated_questions):
+        truncated += int(len(q["annotated_program"]) > max_steps)
+        program = q["annotated_program"][:max_steps]
+        num_steps[i] = len(program)
+        image_index[i] = q["image_index"]
+        answers.append(str(q.get("answer", "")))
+        for s, step in enumerate(program):
+            fn = step["function"]
+            if fn not in function_vocab and fn.strip().isdigit() and int(fn) in inv:
+                functions[i, s] = int(fn)  # vocab-converted record: already an id
+            else:
+                functions[i, s] = function_vocab.get(fn, 0)
+            for d, dep in enumerate(step.get("inputs", [])[:2]):
+                deps[i, s, d] = dep
+    if truncated:
+        logger.warning(
+            "chain_arrays: %d questions exceed max_steps=%d and were TRUNCATED: their final "
+            "step is a mid-chain value, so their answers will score wrong; raise max_steps to "
+            "cover them", truncated, max_steps)
+    return ChainArrays(image_index, functions, deps, num_steps, answers, truncated=truncated)

@@ -1,8 +1,9 @@
 """Training pipelines: artifacts -> (model, loss_fn, batches), ported from
-``explainable_spatial_vqa_tpu/train/pipelines.py`` for the two families of
-the thesis pair, ``generator`` and ``executor`` (presets ``generator``,
+``explainable_spatial_vqa_tpu/train/pipelines.py`` for the families of the
+thesis pair, ``generator`` and ``executor`` (presets ``generator``,
 ``executor``, ``executor_roi``, ``executor_roi_count``, ``executor_roi_sim``
-and ``executor_roi_sim_count``).
+and ``executor_roi_sim_count``), and the executor's chain-level scheduled
+sampling, ``executor_scheduled``.
 
 Each family is two functions: ``_<family>_pipeline(config, device)`` reads
 the h5 artifacts named by ``config.data`` and hands the arrays to
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,9 +34,10 @@ from explainable_spatial_vqa_tpu_torch.train.losses import (
     perturb_input_boxes,
 )
 from explainable_spatial_vqa_tpu_torch.train.metrics import program_metrics
+from explainable_spatial_vqa_tpu_torch.train.scheduled import make_scheduled_loss_fn, schedule_p
 
 __all__ = ["Pipeline", "build_pipeline", "model_dtype", "generator_pipeline_from_arrays",
-           "executor_pipeline_from_arrays"]
+           "executor_pipeline_from_arrays", "executor_scheduled_pipeline_from_arrays"]
 
 # a (N, P, C) numpy array or tensor, or core.artifacts.H5Features
 Features = Any
@@ -77,7 +79,11 @@ class _FeatureGather:
         return {**batch, "image": self.features[idx]}
 
 
-def _batch_factories(arrays: Dict[str, np.ndarray], config: ExperimentConfig, transform=None):
+def _batch_factories(arrays: Dict[str, np.ndarray], config: ExperimentConfig, transform=None,
+                     train_transform: Optional[Callable[[int], Callable]] = None):
+    """(train, validation and test batch factories, steps per epoch) over
+    sklearn's splits; ``train_transform(epoch)``, when given, is that
+    epoch's transform of the training batches in place of ``transform``."""
     n = len(next(iter(arrays.values())))
     d = config.data
     train_idx, val_idx, test_idx = train_val_test_split(n, d.test_split, d.validation_split, d.seed)
@@ -85,7 +91,8 @@ def _batch_factories(arrays: Dict[str, np.ndarray], config: ExperimentConfig, tr
     train_sub, val_sub, test_sub = (Subset(arrays, i) for i in (train_idx, val_idx, test_idx))
 
     def train_b(epoch):
-        return batches(train_sub, bs, shuffle=True, seed=d.seed, epoch=epoch, transform=transform)
+        return batches(train_sub, bs, shuffle=True, seed=d.seed, epoch=epoch,
+                       transform=transform if train_transform is None else train_transform(epoch))
 
     def val_b():
         return batches(val_sub, bs, shuffle=False, transform=transform)
@@ -189,11 +196,11 @@ def executor_pipeline_from_arrays(config: ExperimentConfig, arrays: Dict[str, np
                     spe)
 
 
-def _executor_pipeline(config: ExperimentConfig, device) -> Pipeline:
-    """The thesis executor on annotated questions and the split vocabulary."""
-    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features, read_annotated_h5
+def _read_executor_data(config: ExperimentConfig):
+    """(annotated questions, split vocabulary, model config sized to it:
+    max(preset, data) for the function and value vocabularies)."""
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_annotated_h5
     from explainable_spatial_vqa_tpu_torch.core.vocab import load_vocab
-    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_step_arrays
 
     annotated = read_annotated_h5(config.data.annotated_h5)
     vocabs = load_vocab(config.data.split_vocab_json)
@@ -202,6 +209,15 @@ def _executor_pipeline(config: ExperimentConfig, device) -> Pipeline:
         vocab_size=max(config.model.vocab_size, len(vocabs["function"]) + 1),
         token_classes=max(config.model.token_classes, len(vocabs["other"]) + 1),
     )
+    return annotated, vocabs, cfg
+
+
+def _executor_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    """The thesis executor on annotated questions and the split vocabulary."""
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features
+    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_step_arrays
+
+    annotated, vocabs, cfg = _read_executor_data(config)
     arrays = executor_step_arrays(annotated, vocabs["function"], vocabs["other"],
                                   max_input_boxes=cfg.max_input_boxes,
                                   max_output_boxes=cfg.num_queries,
@@ -210,10 +226,56 @@ def _executor_pipeline(config: ExperimentConfig, device) -> Pipeline:
                                          H5Features(config.data.features_h5), device)
 
 
-_FAMILIES = {"generator": _generator_pipeline, "executor": _executor_pipeline}
+# ---------------------------------------------------------------------------
+# executor_scheduled
+# ---------------------------------------------------------------------------
+
+
+def executor_scheduled_pipeline_from_arrays(config: ExperimentConfig,
+                                            arrays: Dict[str, np.ndarray], features: Features,
+                                            device: Union[str, torch.device] = "cuda"
+                                            ) -> Pipeline:
+    """The executor trained with chain-level scheduled sampling
+    (``train.scheduled``) on per-question chain records in
+    ``executor_chain_step_arrays``' layout and image features indexed by
+    their ``image_index``.  Training batches carry ``p_sample`` =
+    ``schedule_p(epoch)``, validation and test batches 0 (the ground-truth
+    caches: the loss without the chained pass).  ``config.model`` is used as
+    it is."""
+    device = resolve_device(device)
+    cfg = config.model
+    model = _init_executor(ProgramExecutor(cfg, model_dtype(config, device), device),
+                           config.train.seed)
+    gather = _FeatureGather(features)
+
+    def with_p(p: float):
+        def transform(batch):
+            return {**gather(batch), "p_sample": np.float32(p)}
+
+        return transform
+
+    train_b, val_b, test_b, spe = _batch_factories(
+        arrays, config, with_p(0.0), lambda epoch: with_p(schedule_p(epoch, cfg)))
+    return Pipeline(model, make_scheduled_loss_fn(cfg), train_b, val_b, test_b,
+                    ("routing_correct", "routing_total"), spe)
+
+
+def _executor_scheduled_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features
+    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_chain_step_arrays
+
+    annotated, vocabs, cfg = _read_executor_data(config)
+    arrays = executor_chain_step_arrays(annotated, vocabs["function"], vocabs["other"],
+                                        max_steps=28, max_output_boxes=cfg.num_queries,
+                                        subset_fraction=config.data.subset_fraction)
+    return executor_scheduled_pipeline_from_arrays(config.replace(model=cfg), arrays,
+                                                   H5Features(config.data.features_h5), device)
+
+
+_FAMILIES = {"generator": _generator_pipeline, "executor": _executor_pipeline,
+             "executor_scheduled": _executor_scheduled_pipeline}
 # the JAX package's other families, not ported yet (ROADMAP.md Queue 1)
-_NOT_PORTED = ("iqap", "lstm_iqap", "step_seq2seq", "executor_scheduled", "iqap_cot",
-               "prototype_step")
+_NOT_PORTED = ("iqap", "lstm_iqap", "step_seq2seq", "iqap_cot", "prototype_step")
 
 
 def build_pipeline(config: ExperimentConfig,

@@ -25,12 +25,14 @@ _SENTINEL = object()
 
 
 def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """numpy arrays (and tensors) of ``batch`` as tensors on ``device``;
-    other values as they are."""
+    """numpy arrays and scalars (and tensors) of ``batch`` as tensors on
+    ``device``; other values as they are."""
     out = {}
     for key, value in batch.items():
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(np.ascontiguousarray(value))
+        elif isinstance(value, np.generic):  # e.g. the scheduled trainer's p_sample
+            value = torch.from_numpy(np.asarray(value))
         if isinstance(value, torch.Tensor) and value.device != device:
             if device.type == "cuda" and value.device.type == "cpu":
                 value = value.pin_memory().to(device, non_blocking=True)

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the JAX package, and its entry points run
-on the card unless asked for the CPU.  Checked in a fresh interpreter: this
-test process has JAX loaded already (tests/conftest.py)."""
+"""The port imports neither JAX nor the JAX package, and its entry points
+(the CLI and the evaluation functions included) run on the card unless asked
+for the CPU.  Checked in a fresh interpreter: this test process has JAX
+loaded already (tests/conftest.py)."""
 
 import os
 import subprocess
@@ -25,17 +26,31 @@ CHECK = textwrap.dedent("""
                                            "explainable_spatial_vqa_tpu"))
     assert not leaked, leaked
     assert len(names) >= 20, names
+    for name in ("cli", "cli.main", "evalsuite.detection", "evalsuite.accuracy",
+                 "evalsuite.executor_eval", "train.scheduled"):
+        assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
+    from explainable_spatial_vqa_tpu_torch.cli.main import main, run_eval_generator, run_tally
     from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
+    from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import evaluate_executor_steps
     from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
-    try:
-        ProgramExecutor(ExecutorConfig(d_model=32, num_heads=4))
-    except RuntimeError as err:
-        assert "device='cpu'" in str(err), err
-    else:
-        raise AssertionError("an entry point without device= ran on a host with no GPU")
-    ProgramExecutor(ExecutorConfig(d_model=32, num_heads=4), device="cpu")
+
+    def needs_cpu_named(call):
+        try:
+            call()
+        except RuntimeError as err:
+            assert "device='cpu'" in str(err), err
+        else:
+            raise AssertionError("an entry point without device= ran on a host with no GPU")
+
+    cfg = ExecutorConfig(d_model=32, num_heads=4)
+    needs_cpu_named(lambda: ProgramExecutor(cfg))
+    executor = ProgramExecutor(cfg, device="cpu")
+    needs_cpu_named(lambda: evaluate_executor_steps(executor, [], {}))
+    needs_cpu_named(lambda: run_eval_generator(None, None, None))
+    needs_cpu_named(lambda: run_tally(None, executor, cfg, None, None, None, {}, {}, {}))
+    needs_cpu_named(lambda: main(["train", "--preset", "executor_scheduled"]))
     print("ok", len(names))
 """)
 
