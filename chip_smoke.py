@@ -86,11 +86,19 @@ result:
     backward, optimizer), peak memory and busy share; the chained pass after
     an optimizer step equal, bit for bit, to a fresh module's; a fixed
     batch's loss below 0.8 of its first within 30 updates; one float32 step
-    at p=1 on the card against the CPU.
+    at p=1 on the card against the CPU;
+16. the CoGenT A->B protocol (``run_cogent_protocol``, float32): eval
+    forwards of the protocol's executor at d_model 96 and 192 (head dims 24
+    and 48) launch no K1 or K2, at 512 they do; the protocol at its flagship
+    width (d_model 192, 3 layers, ``box_roi``, cosine) with each part's wall
+    time, the median ms per train step, the four cells and accuracy by
+    type; its fine-tuned models evaluated on valA on the card and on the
+    CPU, equal; the protocol at d_model 512, whose evaluations launch K2 and
+    K1, and its fine-tuned models on valA, card against CPU, equal.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``, with its launches on the main path and, under
-``launches_by_path``, on phases 14-15's paths) and one per piece timed apart
+``launches_by_path``, on phases 14-16's paths) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
 variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -147,6 +155,13 @@ FP32_QUESTIONS = 64  # phase 14's float32 tally run, card against the CPU
 SCHEDULED_QUESTIONS = 200  # phase 15: 160 train (10 steps of 16), 20 validation
 SCHEDULED_STEPS = 30  # phase 15's fixed batch: most updates to fall below 0.8
 SCORE_ROUNDS = 10  # alternating timing rounds of the two bf16 score forms
+# phase 16: the CoGenT protocol at its flagship width (at the CLI's defaults
+# otherwise), and at d_model 512 with fewer steps; the names of our kernels
+# in a profiler trace
+COGENT_FLAGSHIP = dict(d_model=192, encoder_layers=3, box_roi=True, lr_schedule="cosine")
+COGENT_KERNEL_PATH = dict(d_model=512, encoder_layers=2, box_roi=True, lr_schedule="cosine",
+                          gen_steps=100, exe_steps=100, ft_steps=30)
+OUR_KERNELS = ("attention_kernel", "gemm_bf16_wgmma", "gemm_f32_simt", "add_layernorm")
 
 
 def fail(message: str) -> None:
@@ -1296,7 +1311,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     generator_training(torch, dev)
     executor_training(torch, np, dev)
     card_vs_cpu_step(torch, np, dev)
-    by_path = {**evaluation(torch, np, dev, counted), **scheduled_training(torch, np, dev, counted)}
+    by_path = {**evaluation(torch, np, dev, counted), **scheduled_training(torch, np, dev, counted),
+               **cogent(torch, np, dev, counted)}
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -2200,6 +2216,232 @@ def scheduled_training(torch, np, dev, counted) -> dict:
     if not (decisions and chain_err <= 1e-4 and rel_loss <= 1e-6 and worst <= 1e-5):
         fail("the float32 scheduled train step on the card disagrees with the CPU")
     return {"scheduled_train_step": step_counts}
+
+
+def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str) -> None:
+    """Phase 16's float32 check of a protocol run's final models: the
+    recorded ``evaluate_pipeline_synthetic`` call (valA after the fine-tune)
+    again on the card and on deep copies of the models on the CPU (the plain
+    path).  The generated programs, answers, tally and accuracy by type
+    must be equal; a program that differs must come from a near-tie of the
+    generator's logits (within 1e-4 at the first differing token, printed),
+    and then the answers are compared on the rest.  Fails otherwise."""
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import encode_questions
+    from explainable_spatial_vqa_tpu_torch.infer import pipeline as pipeline_mod
+    from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
+
+    t0 = time.perf_counter()
+    generator, executor, exe_cfg, questions, features = evaluated["args"][:5]
+    rest = evaluated["args"][5:]
+    runs = []  # the card's pipeline result, then the CPU's
+
+    class Recorded(pipeline_mod.InferencePipeline):
+        def run(self, *args, **kwargs):
+            out = super().run(*args, **kwargs)
+            runs.append(out)
+            return out
+
+    real = sp.InferencePipeline
+    sp.InferencePipeline = Recorded
+    try:
+        card = sp.evaluate_pipeline_synthetic(generator, executor, exe_cfg, questions,
+                                              features, *rest, **evaluated["kwargs"])
+        cpu_kwargs = dict(evaluated["kwargs"], device="cpu")
+        cpu_gen, cpu_exe = copy.deepcopy(generator).to("cpu"), copy.deepcopy(executor).to("cpu")
+        cpu = sp.evaluate_pipeline_synthetic(cpu_gen, cpu_exe, exe_cfg, questions,
+                                             features.cpu(), *rest, **cpu_kwargs)
+    finally:
+        sp.InferencePipeline = real
+    card_run, cpu_run = runs
+    differ = np.flatnonzero((card_run.program_ids != cpu_run.program_ids).any(1))
+    encoded = encode_questions(questions, rest[0]).questions
+    margins = []
+    for i in differ:
+        t = int(np.flatnonzero(card_run.program_ids[i] != cpu_run.program_ids[i])[0])
+        q = torch.as_tensor(encoded[i:i + 1])
+        with torch.no_grad():
+            logits = cpu_gen.eval()(q, torch.as_tensor(cpu_run.program_ids[i:i + 1]),
+                                    teacher_forcing=1.0)["logits"][0, t]
+        margins.append(float(logits[cpu_run.program_ids[i, t]]
+                             - logits[card_run.program_ids[i, t]]))
+    same = np.ones(len(questions), bool)
+    same[differ] = False
+    answers_equal = (np.array_equal(card_run.answers[same], cpu_run.answers[same])
+                     and np.array_equal(card_run.answer_valid[same], cpu_run.answer_valid[same]))
+    whole = len(differ) == 0
+    tally_equal = dataclasses.asdict(card[0]) == dataclasses.asdict(cpu[0])
+    say(f"phase 16 {label}: fp32 evaluate_pipeline_synthetic on valA ({len(questions)} "
+        f"questions), card vs CPU: programs {'equal' if whole else f'differ at {len(differ)}'}"
+        + (f" (logit margins at the first differing token {margins})" if margins else "")
+        + f"; answers {'equal' if answers_equal else 'DIFFER'}"
+        f"{'' if whole else ' on the questions whose programs agree'}; tally "
+        f"{'equal' if tally_equal else 'differs'} ({card[0]} vs {cpu[0]}); accuracy by type "
+        f"{'equal' if card[1] == cpu[1] else 'differs'}; {time.perf_counter() - t0:.1f} s")
+    if not answers_equal or any(abs(m) > 1e-4 for m in margins):
+        fail(f"phase 16 {label}: the float32 evaluation on the card disagrees with the CPU")
+    if whole and not (tally_equal and card[1] == cpu[1]):
+        fail(f"phase 16 {label}: the float32 tally or accuracy on the card differs from the CPU's")
+
+
+def cogent(torch, np, dev, counted) -> dict:
+    """Phase 16, the CoGenT A->B protocol (thesis §4.2.2, Table 4.6) through
+    ``evalsuite.cogent.run_cogent_protocol``, float32 as the JAX package
+    trains it (TF32 off):
+
+    1. the routing on the card: eval forwards of the protocol's executor
+       (``make_protocol_executor_config``, 4 heads, ``box_roi``) at d_model
+       96 and 192, head dims 24 and 48, in float32 and bf16, launch no K1
+       or K2 (the wrappers' counts, and no kernel of ours in a
+       ``torch.profiler`` trace); at 512, head dim 128, K2 once per fusion
+       layer and K1 once per forward;
+    2. the protocol at its flagship width (``COGENT_FLAGSHIP``: d_model 192,
+       3 fusion layers, ``box_roi``, cosine) at the CLI's defaults (80 A
+       scenes, 20 per val, a pool of 40 B scenes, 6 questions each; 400
+       generator, 500 executor and 150 fine-tune steps), recorded by
+       ``bench_cogent.ProtocolParts``: the wall time of each part (the card
+       synchronized only at each part's start and end), the median ms per
+       generator and executor train step (CUDA events between optimizer
+       steps), the four cells, accuracy by type and the sizes; every cell
+       in [0, 1], every tally over the val questions, the executor's last
+       A-phase loss below its first (the first step's loss, from the same
+       call cut to one step);
+    3. those fine-tuned models on the CPU (:func:`protocol_card_vs_cpu`):
+       valA, card against CPU, equal;
+    4. the kernel path: the protocol at d_model 512 (``COGENT_KERNEL_PATH``,
+       fewer steps), whose evaluations launch K2 (float32, L=208) and K1
+       (float32, the box decoder's 8 queries), each counted and printed,
+       its four cells, and its fine-tuned models on valA against the CPU as
+       in 3, which holds K2 and K1 against the plain path at exactly these
+       shapes.
+
+    Returns the launches of phase 16's two protocol runs, for the result
+    line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
+    from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
+
+    t_phase = time.perf_counter()
+
+    # ---- 16.1 routing by head dim ----
+    vocabs = {"function": {f"f{i}": i for i in range(40)},
+              "other": {f"o{i}": i for i in range(30)}}
+    gen = torch.Generator(device=dev).manual_seed(160)
+    batch = 64
+    corner = torch.rand(batch, 8, 2, generator=gen, device=dev) * 0.5
+    inputs = (torch.randn(batch, 196, 64, generator=gen, device=dev),
+              torch.cat([corner, corner + 0.4], -1),
+              torch.rand(batch, 8, generator=gen, device=dev) < 0.6,
+              torch.randint(1, 40, (batch, 3), generator=gen, device=dev),
+              torch.ones(batch, 3, dtype=torch.bool, device=dev))
+    routing = {}
+    for d_model in (96, 192, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = sp.make_protocol_executor_config(vocabs, d_model=d_model, encoder_layers=2,
+                                                   box_roi=True)
+            model = init_parameters(ProgramExecutor(cfg, dtype, dev), seed=d_model).eval()
+
+            def forward():
+                with torch.no_grad():
+                    return model(*inputs)
+
+            out, counts = counted(forward)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                forward()
+                torch.cuda.synchronize()
+            ours = sorted({e.name[:40] for e in prof.events() if e.device_type == DeviceType.CUDA
+                           and any(k in e.name for k in OUR_KERNELS)})
+            finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+            key = f"d{d_model} {str(dtype).split('.')[-1]}"
+            routing[key] = (counts, ours, finite)
+            say(f"phase 16 routing: eval forward, d_model {d_model} (head dim {d_model // 4}), "
+                f"{key.split()[1]}, batch {batch}: K2 {counts['fused_encoder_block']}, K1 "
+                f"{counts['fused_attention']} launches; our kernels in its trace: "
+                f"{ours or 'none'}; outputs {'finite' if finite else 'NOT FINITE'}")
+            del model
+    for key, (counts, ours, finite) in routing.items():
+        built = key.startswith("d512")
+        want = (2, 1) if built else (0, 0)
+        got = (counts["fused_encoder_block"], counts["fused_attention"])
+        if got != want or bool(ours) != built or not finite:
+            fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
+                 f"{want}; kernels in the trace {ours}")
+
+    # ---- 16.2 the protocol at the flagship width ----
+    t0 = time.perf_counter()
+    with ProtocolParts() as parts:
+        result, flagship_counts = counted(lambda: run_cogent_protocol(**COGENT_FLAGSHIP,
+                                                                      device=dev))
+    wall = time.perf_counter() - t0
+    report, sizes = result["report"], result["sizes"]
+    rows = part_rows(parts)
+    exes = parts.of("train_executor_synthetic")
+    say(f"phase 16 CoGenT protocol, flagship width ({COGENT_FLAGSHIP}), float32, at the CLI's "
+        f"defaults (80 A scenes, 20 per val, 40 B-pool scenes, 6 questions each; 400 generator, "
+        f"500 executor, 150 fine-tune steps; no cut): {wall:.1f} s; sizes {sizes}")
+    say(f"phase 16 {report.report()}")
+    for row, call in zip(rows, parts.calls):
+        if row["steps"]:
+            say(f"phase 16 part {row['part']}: {row['seconds']:.2f} s, {row['steps']} steps, "
+                f"median {row['median_step_ms']:.2f} ms a step, last loss "
+                f"{call['result'][2]:.4f}")
+        else:
+            say(f"phase 16 part {row['part']}: {row['seconds']:.2f} s, K2 {row['K2']}, K1 "
+                f"{row['K1']} launches; {call['result'][0]}")
+    say(f"phase 16 {'cell':<24}{'overall':>9}{'count':>9}{'exist':>9}{'cmp_num':>9}"
+        f"{'cmp_attr':>9}{'query':>9}")
+    for cell, acc in result["by_type"].items():
+        say(f"phase 16 {cell:<24}" + "".join(
+            f"{acc[k]:>9.3f}" for k in ("overall", "count", "exist", "compare_number",
+                                        "compare_attribute", "query_attribute")))
+    first_call = exes[0]
+    first_kwargs = dict(first_call["kwargs"], steps=1, lr_schedule="constant")
+    first_loss = parts.originals["train_executor_synthetic"](*first_call["args"],
+                                                            **first_kwargs)[2]
+    last_loss = first_call["result"][2]
+    say(f"phase 16 executor loss on A: first step {first_loss:.4f}, last step {last_loss:.4f}")
+    flagship_checks = {
+        "every cell in [0, 1]": all(v is not None and 0.0 <= v <= 1.0
+                                    for v in report.as_dict().values()),
+        "each tally over the val questions": all(
+            t.total == sizes["val_questions"] for t in result["tallies"].values()),
+        "the executor's last loss below its first": last_loss < first_loss,
+        "no K2 or K1 launch at head dim 48": flagship_counts == dict.fromkeys(flagship_counts, 0),
+    }
+    for name, ok in flagship_checks.items():
+        if not ok:
+            fail(f"phase 16 check failed: {name}")
+
+    # ---- 16.3 float32, card against the CPU, on valA ----
+    protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
+                         "flagship (d_model 192, plain path)")
+    del result, parts
+    torch.cuda.empty_cache()
+
+    # ---- 16.4 the kernel path: head dim 128 ----
+    t0 = time.perf_counter()
+    with ProtocolParts() as parts:
+        result, kernel_counts = counted(lambda: run_cogent_protocol(**COGENT_KERNEL_PATH,
+                                                                    device=dev))
+    rows = [r for r in part_rows(parts) if r["part"].startswith("evaluation")]
+    say(f"phase 16 CoGenT protocol, kernel path ({COGENT_KERNEL_PATH}; steps cut from the "
+        f"CLI's 400/500/150), float32: {time.perf_counter() - t0:.1f} s; "
+        f"{result['report'].report()}; launches over the run {kernel_counts}; per evaluation "
+        + ", ".join(f"{r['part'].split()[1]} K2 {r['K2']} K1 {r['K1']}" for r in rows))
+    if not (all(r["K2"] > 0 and r["K1"] > 0 for r in rows)
+            and kernel_counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
+            and kernel_counts["fused_attention"] == sum(r["K1"] for r in rows)
+            and all(0.0 <= v <= 1.0 for v in result["report"].as_dict().values())):
+        fail("phase 16 check failed: the d_model 512 protocol's evaluations launch K2 and K1, "
+             "and only they")
+    protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
+                         "kernel path (d_model 512, K2 and K1)")
+    say(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"cogent_protocol_d192": flagship_counts, "cogent_protocol_d512": kernel_counts}
 
 
 if __name__ == "__main__":

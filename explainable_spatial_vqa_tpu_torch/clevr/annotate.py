@@ -1,0 +1,196 @@
+"""Per-step annotation, the offline ground-truth factory, copied from
+``explainable_spatial_vqa_tpu/clevr/annotate.py`` (the v3 annotation and the
+corpus sweep; the Python executor only).
+
+For every question, the symbolic executor runs the program step by step and
+records, per step:
+
+- ``function``: fused ``name[value,...]`` token,
+- ``input_values``: the ``output_values`` of the steps it consumes (chained),
+- ``output_values``: bbox strings for spatial functions / value tokens for
+  non-spatial functions,
+- plus a question-level ``final_chain_of_thought`` of ``"fn input_idx..."``
+  strings used to drive chained inference.
+
+The reference re-executes the whole program prefix at every step, so
+*every* step positioned after the first INVALID (or erroring) step observes
+a missing output, annotated as ``str(None)`` for non-spatial and empty for
+spatial steps.  That is reproduced with incremental execution plus
+positional poisoning, and the corpus sweep can fan out across processes.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from explainable_spatial_vqa_tpu_torch.clevr.bboxes import format_bbox, scene_bounding_boxes
+from explainable_spatial_vqa_tpu_torch.clevr.executor import (
+    INVALID,
+    NON_SPATIAL_FUNCTIONS,
+    SPATIAL_FUNCTIONS,
+    Executor,
+)
+from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
+
+__all__ = ["annotate_question", "annotate_questions", "step_relevant_objects"]
+
+
+def step_relevant_objects(function: str, output: Any) -> List[int]:
+    """Objects a step grounds to (preprocess_continousv3.py:396-406)."""
+    if function == "scene":
+        # For 'scene' the reference re-lists all objects; output already is that list.
+        return list(output) if isinstance(output, list) else []
+    if (
+        function.startswith("filter_")
+        or function in ("relate", "union", "intersect")
+        or function.startswith("same_")
+    ):
+        return output if isinstance(output, list) else []
+    if function == "unique":
+        return [output] if isinstance(output, int) else []
+    return []
+
+
+def _execute_with_poisoning(
+    scene: Scene, program: Sequence[Dict[str, Any]]
+) -> Tuple[List[Any], List[List[int]]]:
+    """Run the program once; after the first INVALID or error, every later
+    step's output is None and its relevant-object set empty (positional, not
+    dependency-based — matching the reference's re-run-the-prefix behavior).
+
+    The JAX package runs its optional C++ engine here when it is built; its
+    answers equal this Python executor's, so the port keeps this path only.
+    """
+    executor = Executor(scene)
+    node_outputs: List[Any] = []
+    relevant: List[List[int]] = []
+    poisoned = False
+    for idx, step in enumerate(program):
+        function = step.get("function")
+        if function is None or poisoned:
+            node_outputs.append(None)
+            relevant.append([])
+            continue
+        try:
+            inputs = [node_outputs[i] for i in step.get("inputs", [])]
+            output = executor.apply(function, inputs, step.get("value_inputs", []))
+        except Exception:
+            node_outputs.append(None)
+            relevant.append([])
+            poisoned = True
+            continue
+        node_outputs.append(output)
+        relevant.append(step_relevant_objects(function, output))
+        if output == INVALID:
+            # The step itself keeps its INVALID output; all later steps see a
+            # truncated prefix in the reference and read None.
+            poisoned = True
+    return node_outputs, relevant
+
+
+def annotate_question(
+    question: Dict[str, Any],
+    scene: Scene,
+    boxes: Optional[Any] = None,
+) -> Dict[str, Any]:
+    """Annotate one question.  ``boxes`` optionally precomputes the scene's
+    (num_objects, 4) bbox array (4-decimal mode) to share across questions."""
+    program = question["program"]
+    if boxes is None:
+        boxes = scene_bounding_boxes(scene.raw, decimals=4)
+    node_outputs, relevant = _execute_with_poisoning(scene, program)
+
+    annotated_program: List[Dict[str, Any]] = []
+    chain_list: List[str] = []
+    for i, step in enumerate(program):
+        annotated_step = {k: v for k, v in step.items() if k != "value_inputs"}
+        function_name = annotated_step.get("function", "")
+        values = step.get("value_inputs") or []
+        combined = f"{function_name}[{','.join(map(str, values))}]" if values else function_name
+        annotated_step["function"] = combined
+
+        # Chain inputs through the output_values of consumed steps.
+        input_values = [
+            annotated_program[inp]["output_values"]
+            if inp < len(annotated_program)
+            else str(node_outputs[inp])
+            for inp in step.get("inputs", [])
+        ]
+        annotated_step["input_values"] = " ".join(input_values).strip()
+
+        chain_list.append(
+            (f"{combined} " + " ".join(map(str, step.get("inputs", [])))).strip()
+        )
+
+        base = combined.split("[")[0]
+        if base in NON_SPATIAL_FUNCTIONS:
+            text = str(node_outputs[i])
+            if text.startswith("[") and text.endswith("]"):
+                text = text[1:-1]
+            annotated_step["output_values"] = text.strip()
+        elif base in SPATIAL_FUNCTIONS:
+            num_objects = len(scene.objects)
+            annotated_step["output_values"] = " ".join(
+                format_bbox(boxes[obj_idx])
+                for obj_idx in relevant[i]
+                if obj_idx is not None and 0 <= obj_idx < num_objects
+            ).strip()
+        else:
+            annotated_step["output_values"] = ""
+        annotated_program.append(annotated_step)
+
+    annotated = {
+        k: v
+        for k, v in question.items()
+        if k not in ("program", "image_filename", "split", "question_family_index")
+    }
+    annotated["annotated_program"] = annotated_program
+    annotated["final_chain_of_thought"] = chain_list
+    return annotated
+
+
+# ---------------------------------------------------------------------------
+# Corpus sweep (parallel)
+# ---------------------------------------------------------------------------
+
+_WORKER_SCENES: Dict[int, Scene] = {}
+_WORKER_BOXES: Dict[int, Any] = {}
+
+
+def _init_worker(scenes: Dict[int, Scene]) -> None:
+    global _WORKER_SCENES, _WORKER_BOXES
+    _WORKER_SCENES = scenes
+    _WORKER_BOXES = {}
+
+
+def _annotate_one(question: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    image_index = question["image_index"]
+    scene = _WORKER_SCENES.get(image_index)
+    if scene is None:
+        return None
+    boxes = _WORKER_BOXES.get(image_index)
+    if boxes is None:
+        boxes = scene_bounding_boxes(scene.raw, decimals=4)
+        _WORKER_BOXES[image_index] = boxes
+    return annotate_question(question, scene, boxes)
+
+
+def annotate_questions(
+    questions: Sequence[Dict[str, Any]],
+    scenes: Dict[int, Scene],
+    num_workers: int = 0,
+) -> List[Dict[str, Any]]:
+    """Annotate a question corpus; ``num_workers>1`` fans out across
+    processes (the reference's serial sweep over 700k questions is
+    hours-scale).  The workers are spawned, not forked: the caller may hold
+    threads (PyTorch's), and a forked child inherits their locks."""
+    if num_workers <= 1:
+        _init_worker(scenes)
+        out = [_annotate_one(q) for q in questions]
+        return [q for q in out if q is not None]
+
+    ctx = mp.get_context("spawn")
+    with ctx.Pool(num_workers, initializer=_init_worker, initargs=(scenes,)) as pool:
+        out = pool.map(_annotate_one, questions, chunksize=256)
+    return [q for q in out if q is not None]

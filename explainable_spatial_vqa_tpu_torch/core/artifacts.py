@@ -1,5 +1,7 @@
-"""Readers of the training artifacts, copied from
-``explainable_spatial_vqa_tpu/core/artifacts.py``: the questions h5
+"""The training artifacts, copied from
+``explainable_spatial_vqa_tpu/core/artifacts.py``: :func:`encode_questions`
+(question records to the padded id arrays of the questions h5), and the
+readers of the questions h5
 (``questions (N, Lq) int32``, ``programs (N, Lp) int32``, ``answers``,
 ``image_idxs``, ``orig_idxs``, optional ``question_families``), the annotated
 questions h5 (one ``questions`` JSON blob, or one ``q_{i}`` JSON dataset per
@@ -12,11 +14,15 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["EncodedQuestions", "read_questions_h5", "read_annotated_h5", "H5Features"]
+from explainable_spatial_vqa_tpu_torch.core import programs as prog
+from explainable_spatial_vqa_tpu_torch.core.tokenizer import encode, tokenize
+
+__all__ = ["EncodedQuestions", "encode_questions", "read_questions_h5", "read_annotated_h5",
+           "H5Features"]
 
 
 @dataclass
@@ -29,6 +35,62 @@ class EncodedQuestions:
     programs: Optional[np.ndarray] = None  # (N, Lp) int32
     answers: Optional[np.ndarray] = None  # (N,) int
     question_families: Optional[np.ndarray] = None  # (N,) int
+
+
+def encode_questions(
+    questions: Sequence[Dict[str, Any]],
+    vocab: Dict[str, Dict[str, int]],
+    mode: str = "postfix",
+    allow_unk: bool = False,
+) -> EncodedQuestions:
+    """Tokenize+encode CLEVR question records to padded id arrays.
+
+    Question text keeps ';' ',' and strips '?' '.'; programs are linearized in
+    ``mode`` then fused-tokenized; both get <START>/<END> and right-padding
+    with <NULL>=0, as the questions h5 holds them.
+    """
+    q_vocab = vocab["question_token_to_idx"]
+    p_vocab = vocab["program_token_to_idx"]
+    a_vocab = vocab["answer_token_to_idx"]
+
+    questions_encoded: List[List[int]] = []
+    programs_encoded: List[List[int]] = []
+    question_families: List[int] = []
+    orig_idxs: List[int] = []
+    image_idxs: List[int] = []
+    answers: List[int] = []
+
+    for orig_idx, q in enumerate(questions):
+        orig_idxs.append(orig_idx)
+        image_idxs.append(q["image_index"])
+        if "question_family_index" in q:
+            question_families.append(q["question_family_index"])
+        tokens = tokenize(q["question"], punct_to_keep=[";", ","], punct_to_remove=["?", "."])
+        questions_encoded.append(encode(tokens, q_vocab, allow_unk=allow_unk))
+        if "program" in q:
+            program_str = prog.program_to_str(q["program"], mode)
+            program_tokens = tokenize(program_str)
+            programs_encoded.append(encode(program_tokens, p_vocab, allow_unk=allow_unk))
+        if "answer" in q:
+            answers.append(a_vocab[q["answer"]])
+
+    def pad(rows: List[List[int]]) -> np.ndarray:
+        if not rows:
+            return np.zeros((0, 0), dtype=np.int32)
+        max_len = max(len(r) for r in rows)
+        out = np.zeros((len(rows), max_len), dtype=np.int32)
+        for i, r in enumerate(rows):
+            out[i, : len(r)] = r
+        return out
+
+    return EncodedQuestions(
+        questions=pad(questions_encoded),
+        image_idxs=np.asarray(image_idxs),
+        orig_idxs=np.asarray(orig_idxs),
+        programs=pad(programs_encoded) if programs_encoded else None,
+        answers=np.asarray(answers) if answers else None,
+        question_families=np.asarray(question_families) if question_families else None,
+    )
 
 
 def read_questions_h5(path: str) -> EncodedQuestions:

@@ -1,12 +1,26 @@
-"""Vocabulary helpers, copied from ``explainable_spatial_vqa_tpu/core/vocab.py``:
-only what the training pipelines and the CLI read."""
+"""Vocabularies, copied from ``explainable_spatial_vqa_tpu/core/vocab.py``:
+
+1. the CLEVR three-way vocab (question / fused-program / answer),
+   insertion-ordered with the specials 0-3 (:func:`build_clevr_vocab`);
+2. the function/other split vocab over annotated step records, bbox text
+   excluded and booleans canonicalized (:func:`build_split_vocab`,
+   :func:`apply_split_vocab`);
+
+and the helpers the pipelines and the CLI read.  The joint vocabularies of
+the baselines are not ported yet.
+"""
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, Iterable, List, Mapping, Sequence
 
-__all__ = ["load_vocab", "invert_vocab", "canonicalize"]
+from explainable_spatial_vqa_tpu_torch.core.tokenizer import SPECIAL_TOKENS, word_tokenize
+
+__all__ = ["EMPTY_TOKEN", "apply_split_vocab", "build_clevr_vocab", "build_split_vocab",
+           "canonicalize", "invert_vocab", "is_bounding_box_text", "load_vocab",
+           "tokenize_field"]
 
 
 def invert_vocab(token_to_idx: Mapping[str, int]) -> Dict[int, str]:
@@ -18,6 +32,60 @@ def load_vocab(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def build_clevr_vocab(
+    question_collections: Iterable[Sequence[Dict[str, Any]]],
+) -> Dict[str, Dict[str, int]]:
+    """Build the {program, question, answer} vocab from CLEVR question lists.
+
+    ``question_collections`` is an iterable of question-record lists (the
+    reference iterates val, test, train in that order; pass collections in
+    the same order for the same index assignment).
+
+    Program tokens are the fused ``function[value]`` form, one entry per
+    (function, value_input) pair.  Question tokens come from the regex word
+    tokenizer, lowercased.
+    All three vocabs start with specials <NULL>=0 <START>=1 <END>=2 <UNK>=3.
+    """
+    program: Dict[str, int] = dict(SPECIAL_TOKENS)
+    answer: Dict[str, int] = dict(SPECIAL_TOKENS)
+    question: Dict[str, int] = dict(SPECIAL_TOKENS)
+
+    for questions in question_collections:
+        for q in questions:
+            for item in q.get("program", []):
+                fn = item.get("function", "undefined_function")
+                values = item.get("value_inputs") or []
+                if values:
+                    for value in values:
+                        key = f"{fn}[{value}]"
+                        if key not in program:
+                            program[key] = len(program)
+                else:
+                    if fn not in program:
+                        program[fn] = len(program)
+            if "answer" in q and q["answer"] not in answer:
+                answer[q["answer"]] = len(answer)
+            if "question" in q:
+                for word in word_tokenize(q["question"]):
+                    word = word.lower()
+                    if word not in question:
+                        question[word] = len(question)
+
+    return {
+        "program_token_to_idx": program,
+        "question_token_to_idx": question,
+        "answer_token_to_idx": answer,
+    }
+
+
+EMPTY_TOKEN = "<EMPTY>"
+
+# One bracketed 4-float group; a text is "bbox text" iff it is exactly a
+# space-joined sequence of such groups.
+_BBOX_GROUP_RE = re.compile(r"\[\d+\.\d+\s+\d+\.\d+\s+\d+\.\d+\s+\d+\.\d+\]")
+_FIELD_TOKEN_RE = re.compile(r"\[|\]|[^\[\]\s]+")
+
+
 def canonicalize(token: str) -> str:
     """yes/true -> 'true', no/false -> 'false' (case-insensitive), else as-is."""
     low = token.lower()
@@ -26,3 +94,108 @@ def canonicalize(token: str) -> str:
     if low in ("no", "false"):
         return "false"
     return token
+
+
+def tokenize_field(text: str, field: str) -> List[str]:
+    """Function fields are single tokens; others split on brackets/whitespace."""
+    if field == "function":
+        return [text] if text else []
+    return _FIELD_TOKEN_RE.findall(text)
+
+
+def is_bounding_box_text(text: str) -> bool:
+    matches = _BBOX_GROUP_RE.findall(text)
+    if not matches:
+        return False
+    return " ".join(matches).strip() == text.strip()
+
+
+def build_split_vocab(
+    annotated_questions: Sequence[Dict[str, Any]],
+) -> Dict[str, Dict[str, int]]:
+    """Build {'function': .., 'other': ..} vocabs from annotated questions.
+
+    Index assignment order matches the reference: per question — answer,
+    then each
+    chain element's function part, then each step's function / input_values /
+    output_values; bbox-only texts contribute nothing; EMPTY_TOKEN is
+    guaranteed present in 'other'.
+    """
+    vocab_function: Dict[str, int] = {}
+    vocab_other: Dict[str, int] = {}
+
+    def add(text: str, field: str) -> None:
+        if is_bounding_box_text(text):
+            return
+        target = vocab_function if field == "function" else vocab_other
+        for token in tokenize_field(text, field):
+            token = canonicalize(token)
+            if token not in target:
+                target[token] = len(target)
+
+    for q in annotated_questions:
+        add(q.get("answer", ""), "other")
+        for chain in q.get("final_chain_of_thought", []):
+            parts = chain.split(maxsplit=1)
+            add(parts[0] if parts else "", "function")
+        for step in q.get("annotated_program", []):
+            add(step.get("function", ""), "function")
+            add(step.get("input_values", ""), "other")
+            add(step.get("output_values", ""), "other")
+
+    if EMPTY_TOKEN not in vocab_other:
+        vocab_other[EMPTY_TOKEN] = len(vocab_other)
+    return {"function": vocab_function, "other": vocab_other}
+
+
+def apply_split_vocab(
+    annotated_q: Dict[str, Any], vocabs: Mapping[str, Mapping[str, int]]
+) -> Dict[str, Any]:
+    """Convert one annotated question's texts to id strings, in place.
+
+    Numeric tokens (bbox coordinates) pass through verbatim; empty converted
+    fields become the EMPTY_TOKEN id; chain elements convert only their
+    function part.
+    """
+    vocab_function = vocabs["function"]
+    vocab_other = vocabs["other"]
+
+    def convert(text: str, field: str) -> str:
+        out: List[str] = []
+        for token in tokenize_field(text, field):
+            can = canonicalize(token)
+            if field == "other" and token.replace(".", "", 1).isdigit():
+                out.append(token)
+            elif field == "function":
+                if can in vocab_function:
+                    out.append(str(vocab_function[can]))
+            else:
+                if can in vocab_other:
+                    out.append(str(vocab_other[can]))
+        return " ".join(out)
+
+    annotated_q["answer"] = convert(annotated_q.get("answer", ""), "other")
+
+    def convert_chain(chain: str) -> str:
+        parts = chain.split(maxsplit=1)
+        func = convert(parts[0] if parts else "", "function")
+        rest = parts[1] if len(parts) > 1 else ""
+        return f"{func} {rest}".strip() if rest else func
+
+    annotated_q["final_chain_of_thought"] = [
+        convert_chain(c) for c in annotated_q.get("final_chain_of_thought", [])
+    ]
+
+    for step in annotated_q.get("annotated_program", []):
+        step["function"] = convert(step.get("function", ""), "function")
+        for key in ("input_values", "output_values"):
+            value = step.get(key, "")
+            if is_bounding_box_text(value):
+                step[key] = value
+            else:
+                converted = convert(value, "other")
+                if not converted.strip():
+                    converted = convert(EMPTY_TOKEN, "other")
+                step[key] = converted
+
+    return annotated_q

@@ -36,6 +36,17 @@ __all__ = ["ProgramGenerator", "LSTMCell"]
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), as in Flax
 
 
+def _embed_or_nan(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table(ids)``, with a row of NaN for an id outside the table, as
+    Flax's ``Embed`` (``jnp.take`` in fill mode) returns: a question word or
+    program token the model was not sized for poisons its sequence instead
+    of raising (or asserting on the card)."""
+    ids = ids.long()
+    inside = (ids >= 0) & (ids < table.num_embeddings)
+    rows = table(torch.where(inside, ids, torch.zeros_like(ids)))
+    return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan")))
+
+
 class LSTMCell(nn.Module):
     """Flax ``OptimizedLSTMCell`` arithmetic: gates i, f, g, o from an input
     product without bias plus a hidden product with bias, computed in
@@ -130,7 +141,7 @@ class ProgramGenerator(nn.Module):
                deterministic: bool = True) -> Tuple[torch.Tensor, Tuple[Carry, ...]]:
         """questions: (B, L) int (0 = <NULL> pad).  Returns (encoder outputs
         (B, L, H), the decoder's initial carry)."""
-        emb = self._dropout(self.embed(questions.long()).to(self.dtype), deterministic)
+        emb = self._dropout(_embed_or_nan(self.embed, questions).to(self.dtype), deterministic)
         batch = questions.shape[0]
         carry_f, outs_f = self.enc_fwd.scan(self.enc_fwd.initialize_carry(batch, emb.device), emb)
         if self.bidirectional:
@@ -148,9 +159,11 @@ class ProgramGenerator(nn.Module):
             dec_init = tuple(dec_init) + tuple(extra[len(dec_init):])
         return enc_outputs, dec_init[:dec_layers]
 
-    def _decode_step(self, carry, token: torch.Tensor, enc_outputs: torch.Tensor,
+    def _decode_step(self, carry, fed: torch.Tensor, enc_outputs: torch.Tensor,
                      enc_mask: Optional[torch.Tensor], deterministic: bool = True):
-        x = self._dropout(self.prog_embed(token.long()).to(self.dtype), deterministic)
+        """One decoder step on ``fed``, the (B, E) program embedding rows of
+        the tokens fed at this step."""
+        x = self._dropout(fed.to(self.dtype), deterministic)
         carry, h = self.decoder(carry, x)
         if self.attention:
             # Luong dot attention over the encoder outputs, softmax in float32
@@ -190,13 +203,18 @@ class ProgramGenerator(nn.Module):
             coins = (torch.rand(length, generator=generator) < tf_ratio).tolist()
         else:
             coins = [tf_ratio >= 1.0] * length
-        token = torch.full((questions.shape[0],), start_token, dtype=torch.long,
-                           device=questions.device)
+        # a target past the program table reads NaN, as Flax's Embed does;
+        # the start token and the argmaxes always lie inside it
+        gold = None if program_targets is None else _embed_or_nan(self.prog_embed,
+                                                                  program_targets)
+        fed = self.prog_embed(torch.full((questions.shape[0],), start_token, dtype=torch.long,
+                                         device=questions.device))
         logits_t, tokens = [], []
         for t in range(length):
-            carry, logits = self._decode_step(carry, token, enc_outputs, enc_mask, deterministic)
+            carry, logits = self._decode_step(carry, fed, enc_outputs, enc_mask, deterministic)
             pred = torch.argmax(logits, dim=-1)
-            token = program_targets[:, t].long() if coins[t] else pred
+            if t + 1 < length:
+                fed = gold[:, t] if coins[t] else self.prog_embed(pred)
             logits_t.append(logits)
             tokens.append(pred)
         return {"logits": torch.stack(logits_t, dim=1), "tokens": torch.stack(tokens, dim=1)}
@@ -213,7 +231,8 @@ class ProgramGenerator(nn.Module):
                            device=questions.device)
         tokens = []
         for _ in range(length):
-            carry, logits = self._decode_step(carry, token, enc_outputs, enc_mask)
+            carry, logits = self._decode_step(carry, self.prog_embed(token), enc_outputs,
+                                              enc_mask)
             token = torch.argmax(logits, dim=-1)
             tokens.append(token)
         return torch.stack(tokens, dim=1)
@@ -249,7 +268,8 @@ class ProgramGenerator(nn.Module):
         offsets = torch.arange(batch, device=device)[:, None] * k
         step_tokens, step_beams = [], []
         for _ in range(length):
-            carry, logits = self._decode_step(carry, tokens.reshape(-1), enc_k, mask_k)
+            carry, logits = self._decode_step(carry, self.prog_embed(tokens.reshape(-1)), enc_k,
+                                              mask_k)
             logp = torch.log_softmax(logits.float(), dim=-1)
             vocab = logp.shape[-1]
             logp = logp.reshape(batch, k, vocab)

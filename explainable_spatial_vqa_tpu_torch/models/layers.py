@@ -9,9 +9,10 @@ float32.  LayerNorm uses eps 1e-6 (Flax's), not
 PyTorch's 1e-5.
 
 :class:`EncoderBlock` routes eligible calls (post-LN, eval mode, a key-padding
-mask or none) to the fused encoder block K2, and :class:`MultiHeadAttention`
-routes eligible self-attention to K1, as ``_fused_eligible`` and the
-attention dispatch do in the JAX package.
+mask or none, a head dim the kernels are built for) to the fused encoder
+block K2, and :class:`MultiHeadAttention` routes eligible self-attention at
+such a head dim to K1, as ``_fused_eligible`` and the attention dispatch do
+in the JAX package; every other width runs the plain path.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attentio
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     attention_eligible,
     fused_attention,
+    head_dim_built,
 )
 from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     LN_EPS,
@@ -159,8 +161,9 @@ class LayerNorm(nn.LayerNorm):
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with q/k/v/out projections of width d_model.
 
-    Self-attention with a key-padding mask or none runs on K1 in eval mode;
-    every other call takes :func:`dot_product_attention`."""
+    Self-attention with a key-padding mask or none, at a head dim K1 is
+    built for, runs on K1 in eval mode; every other call takes
+    :func:`dot_product_attention`."""
 
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  device: Device = "cuda"):
@@ -180,7 +183,8 @@ class MultiHeadAttention(nn.Module):
         q = self.q(query).view(b, lq, self.num_heads, dh)
         k = self.k(keyvalue).view(b, lk, self.num_heads, dh)
         v = self.v(keyvalue).view(b, lk, self.num_heads, dh)
-        if not self.training and attention_eligible(q, k, mask):
+        if (not self.training and head_dim_built(d, self.num_heads)
+                and attention_eligible(q, k, mask)):
             out = fused_attention(q, k, v, mask)
         else:
             out = dot_product_attention(q, k, v, mask)
@@ -203,6 +207,7 @@ class EncoderBlock(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int, dropout: float = 0.1,
                  norm: str = "post", dtype: torch.dtype = torch.float32, device: Device = "cuda"):
         super().__init__()
+        self.d_model = d_model
         self.num_heads = num_heads
         self.norm = norm
         self.dtype = dtype
@@ -224,9 +229,10 @@ class EncoderBlock(nn.Module):
         return self.norm2(x + self.drop(self.ffn(x))).to(dt)
 
     def _fused_eligible(self, mask: Optional[torch.Tensor]) -> bool:
-        """Route to K2 in eval mode (it has no backward) with a key-padding
-        mask or none; post-LN is checked by the caller."""
-        if self.training:
+        """Route to K2 in eval mode (it has no backward) at a head dim it is
+        built for, with a key-padding mask or none; post-LN is checked by the
+        caller."""
+        if self.training or not head_dim_built(self.d_model, self.num_heads):
             return False
         return mask is None or (mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1)
 

@@ -8,7 +8,9 @@ which computes the same arithmetic.
 
 :func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
 mask or none, the calls :func:`attention_eligible` accepts.  A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernel or raises.  The models
+route to K1 and K2 only at a head dim the kernels are built for
+(:func:`head_dim_built`); every other width takes the plain path.
 """
 
 from __future__ import annotations
@@ -21,12 +23,22 @@ import torch
 from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
 
-__all__ = ["fused_attention", "attention_eligible", "check_attention", "key_mask_f32",
-           "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
+__all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
+           "key_mask_f32", "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (128,)  # the model's (d=512, 4 heads); instantiated in csrc/attention.cuh
 MAX_LEN = 1024  # bf16 keeps 224 keys' scores in registers; longer rows take two passes
+
+
+def head_dim_built(d_model: int, num_heads: int) -> bool:
+    """True when ``d_model`` splits into ``num_heads`` heads of a dim in
+    :data:`HEAD_DIMS`, the only head dims K1 and K2 are built for.  The JAX
+    package routes to its fused block only at MXU-aligned widths
+    (``d_model % 128 == 0`` and a head dim that is a multiple of 128); here
+    the models send K1 and K2 nothing else, and the wrappers still raise on
+    a CUDA tensor of another head dim."""
+    return d_model % num_heads == 0 and d_model // num_heads in HEAD_DIMS
 
 
 def attention_eligible(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:

@@ -38,10 +38,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, ignore_index: Opt
                   label_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token-level CE: logits (..., V), targets (...) int.  Averages over
     positions with ``targets != ignore_index``, each weighted by
-    ``label_weights``, over at least 1."""
+    ``label_weights``, over at least 1.  A target outside the logits gives
+    NaN, as in the JAX package."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     targets = targets.long()
-    nll = -torch.gather(log_probs, -1, targets[..., None])[..., 0]
+    inside = (targets >= 0) & (targets < log_probs.shape[-1])
+    nll = -torch.gather(log_probs, -1, torch.where(inside, targets, 0)[..., None])[..., 0]
+    nll = torch.where(inside, nll, torch.full_like(nll, float("nan")))
     weights = torch.ones_like(nll) if label_weights is None else label_weights.float()
     if ignore_index is not None:
         weights = weights * (targets != ignore_index)

@@ -27,7 +27,9 @@ CHECK = textwrap.dedent("""
     assert not leaked, leaked
     assert len(names) >= 20, names
     for name in ("cli", "cli.main", "evalsuite.detection", "evalsuite.accuracy",
-                 "evalsuite.executor_eval", "train.scheduled"):
+                 "evalsuite.executor_eval", "train.scheduled", "clevr.scenes", "clevr.executor",
+                 "clevr.bboxes", "clevr.annotate", "clevr.synthetic", "core.tokenizer",
+                 "evalsuite.cogent", "evalsuite.report", "train.synthetic_protocol"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
@@ -51,6 +53,14 @@ CHECK = textwrap.dedent("""
     needs_cpu_named(lambda: run_eval_generator(None, None, None))
     needs_cpu_named(lambda: run_tally(None, executor, cfg, None, None, None, {}, {}, {}))
     needs_cpu_named(lambda: main(["train", "--preset", "executor_scheduled"]))
+    needs_cpu_named(lambda: main(["cogent-protocol"]))
+    from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
+    from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
+    needs_cpu_named(lambda: run_cogent_protocol())
+    needs_cpu_named(lambda: sp.train_generator_synthetic([], {}))
+    needs_cpu_named(lambda: sp.train_executor_synthetic([], {}, None))
+    needs_cpu_named(lambda: sp.train_executor_scheduled_synthetic([], {}, None))
+    needs_cpu_named(lambda: sp.evaluate_pipeline_synthetic(None, None, None, [], None, {}, {}))
     print("ok", len(names))
 """)
 

@@ -1,0 +1,89 @@
+"""The port routes to K1 and K2 only at a head dim the kernels are built for,
+as the JAX package routes to its fused block only at MXU-aligned widths
+(``explainable_spatial_vqa_tpu/models/layers.py``, ``_fused_eligible``).
+
+Spies stand in for the ``fused_encoder_block`` and ``fused_attention`` that
+``models/layers.py`` calls: each records its call and returns the wrapper's
+own result (the plain version, on the CPU).  An eval forward of the
+protocol's executor (4 heads) at d_model 96 and 192, head dims 24 and 48,
+must call neither; at 512, head dim 128, every fusion layer calls K2 and the
+box decoder's query self-attention calls K1.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from explainable_spatial_vqa_tpu_torch.models import layers
+from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, head_dim_built
+from explainable_spatial_vqa_tpu_torch.train.synthetic_protocol import (
+    make_protocol_executor_config,
+)
+
+torch.set_num_threads(1)
+
+VOCABS = {"function": {f"f{i}": i for i in range(6)}, "other": {f"o{i}": i for i in range(5)}}
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    calls = {"block": [], "attention": []}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name].append(tuple(args[0].shape))
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    monkeypatch.setattr(layers, "fused_encoder_block", spy("block", layers.fused_encoder_block))
+    monkeypatch.setattr(layers, "fused_attention", spy("attention", layers.fused_attention))
+    return calls
+
+
+def _eval_forward(d_model: int, train: bool = False):
+    cfg = dataclasses.replace(
+        make_protocol_executor_config(VOCABS, d_model=d_model, encoder_layers=2, box_roi=True),
+        num_image_tokens=4, image_feature_dim=8)
+    model = init_parameters(ProgramExecutor(cfg, device="cpu"), 0).train(train)
+    rng = np.random.RandomState(d_model)
+    b, s = 3, cfg.max_input_boxes
+    corner = rng.uniform(0, 0.5, (b, s, 2)).astype(np.float32)
+    boxes = np.concatenate([corner, corner + 0.4], -1)
+    with torch.set_grad_enabled(train):
+        out = model(torch.from_numpy(rng.randn(b, 4, 8).astype(np.float32)),
+                    torch.from_numpy(boxes), torch.from_numpy(rng.rand(b, s) < 0.6),
+                    torch.from_numpy(rng.randint(1, 6, (b, 3))), torch.ones(b, 3, dtype=torch.bool))
+    assert all(torch.isfinite(v).all() for v in out.values())
+    return cfg
+
+
+@pytest.mark.parametrize("d_model", [96, 192])
+def test_unbuilt_head_dims_take_the_plain_path(spies, d_model):
+    cfg = _eval_forward(d_model)
+    assert d_model // cfg.num_heads not in HEAD_DIMS
+    assert spies == {"block": [], "attention": []}
+
+
+def test_head_dim_128_routes_to_k2_and_k1(spies):
+    cfg = _eval_forward(512)
+    # every fusion layer on K2 (L = CLS + 4 image + 8 box + 3 text), and the
+    # box decoder's query self-attention on K1, (B, Q, H, D)
+    assert spies["block"] == [(3, 16, 512)] * cfg.encoder_layers
+    assert spies["attention"] == [(3, cfg.num_queries, 4, 128)] * cfg.box_decoder_layers
+
+
+def test_training_forward_never_routes(spies):
+    _eval_forward(512, train=True)
+    assert spies == {"block": [], "attention": []}
+
+
+@pytest.mark.parametrize("d_model, heads, built", [
+    (512, 4, True), (256, 2, True), (128, 1, True), (96, 4, False), (192, 4, False),
+    (384, 4, False), (512, 2, False), (500, 4, False), (130, 4, False)])
+def test_head_dim_built(d_model, heads, built):
+    assert head_dim_built(d_model, heads) is built

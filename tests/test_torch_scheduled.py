@@ -254,8 +254,8 @@ def test_scheduled_pipeline_batches_match_jax(executor_files):
     assert float(next(iter(tpipe.train_batches(1)))["p_sample"]) == 0.25
 
 
-def _dropout_model(seed=3):
-    cfg = dict(SMALL, dropout=0.5)
+def _dropout_model(seed=3, **model_kw):
+    cfg = dict(SMALL, dropout=0.5, **model_kw)
     model = layers.init_parameters(ProgramExecutor(tconfig.ExecutorConfig(**cfg), device="cpu"),
                                    seed)
     return model, cfg
@@ -316,7 +316,9 @@ def test_scheduled_step_runs_the_kernels_in_its_chained_pass_only(corpus, monkey
 
     monkeypatch.setattr(layers, "fused_encoder_block", counting("K2", layers.fused_encoder_block))
     monkeypatch.setattr(layers, "fused_attention", counting("K1", layers.fused_attention))
-    model, cfg = _dropout_model()
+    # one head of 128: the models route to K2 and K1 only at the head dim they
+    # are built for
+    model, cfg = _dropout_model(d_model=128, num_heads=1)
     batch = to_device({**_batch(corpus), "p_sample": np.float32(0.5)}, CPU)
     depth = int(batch["num_steps"].max())
     loss_fn = tsched.make_scheduled_loss_fn(tconfig.ExecutorConfig(**cfg))
