@@ -32,7 +32,8 @@ result:
    float32); K3's own q, k and v must equal its plain version's (``k3_qkv``,
    which also prints how far its compensated sums lie from the exact ones);
    each block also takes a float32 x with its bf16 weights (x rounded to
-   bf16 in a pass of its own);
+   bf16 in a pass of its own); K2 also at the Transformer IQAP's encoder
+   shape at d 512 (B=64, L=243, no mask, ``K2_IQAP_SHAPE``);
 4. times at those shapes: kernel, plain version, one PyTorch library call
    computing the same function (a yardstick the port never calls), and the
    least time the card could take (its bound: ``bound_ms``, ``dot_ops``);
@@ -94,11 +95,23 @@ result:
     time, the median ms per train step, the four cells and accuracy by
     type; its fine-tuned models evaluated on valA on the card and on the
     CPU, equal; the protocol at d_model 512, whose evaluations launch K2 and
-    K1, and its fine-tuned models on valA, card against CPU, equal.
+    K1, and its fine-tuned models on valA, card against CPU, equal;
+17. the baselines (``baselines``) on the CLEVR factory's questions and
+    chains: ``eval-iqap``'s path (``run_eval_iqap``, ``transformer_iqap``,
+    bf16 and float32: questions/s, encode and decode apart, kernels per
+    decode step, busy share) and float32 card vs CPU; ``infer-chain``'s
+    path (``Seq2SeqChainRunner.run`` and ``run_bucketed_seq2seq``,
+    ``step_seq2seq``: chains/s, encodes and decode steps) and float32 runs
+    equal to each other and to the CPU; both at d 512, where each encode
+    launches K2 once per layer, each block held against K2's plain version,
+    and their float32 decisions card vs CPU; one train step each of
+    ``transformer_iqap``, ``lstm_iqap`` and ``step_seq2seq`` (ms, peak
+    GiB, kernels per step, a fixed batch's falling loss).
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``, with its launches on the main path and, under
-``launches_by_path``, on phases 14-16's paths) and one per piece timed apart
+``launches_by_path``, on phases 14-17's paths; K2's entry also holds its
+IQAP-shape times under ``at_shapes``) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
 variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -111,6 +124,7 @@ import copy
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -162,6 +176,14 @@ COGENT_FLAGSHIP = dict(d_model=192, encoder_layers=3, box_roi=True, lr_schedule=
 COGENT_KERNEL_PATH = dict(d_model=512, encoder_layers=2, box_roi=True, lr_schedule="cosine",
                           gen_steps=100, exe_steps=100, ft_steps=30)
 OUR_KERNELS = ("attention_kernel", "gemm_bf16_wgmma", "gemm_f32_simt", "add_layernorm")
+# phase 17: the baselines on the CLEVR factory's questions (4 per scene)
+BASELINE_SCENES = 128
+BASELINE_IMAGE = (196, 1024)  # image tokens and features of the presets' models
+BASELINE_FP32 = 64  # questions and chains of the float32 card-vs-CPU checks
+BASELINE_D512_CHAINS = 32  # chains of the d 512 step seq2seq's float32 check
+BASELINE_UPDATES = 60  # fixed-batch updates of each baseline's train step
+NEAR_TIE = 1e-4  # a top-2 logit gap below which card and CPU decisions may part
+K2_IQAP_SHAPE = (64, 243)  # B, L: the IQAP encoder at d 512 (1 + 196 + 46 tokens), no mask
 
 
 def fail(message: str) -> None:
@@ -247,7 +269,7 @@ def device_profile(torch, fn):
 MEAN_ULPS = 0.05  # bf16 check: the largest mean error, in ulps of the reference
 
 
-def bf16_agreement(torch, out, ref) -> dict:
+def bf16_agreement(torch, out, ref, rms_rounded: bool = False) -> dict:
     """How far a bf16 output lies from its bf16 plain version.
 
     The kernel and the plain version round the same float32 values, summed
@@ -259,12 +281,18 @@ def bf16_agreement(torch, out, ref) -> dict:
     ulp(|ref|): other arithmetic (q, k, v rounded to bf16, say) moves most
     elements a little, and shows in the mean before it does in the largest.
     Returns the largest error, the largest excess over the element-wise
-    limit, the number of elements over it, and the mean error in ulps."""
+    limit, the number of elements over it, and the mean error in ulps.
+
+    With ``rms_rounded`` the rms is rounded to bf16 before its ulp is taken:
+    the rms of a LayerNorm's output at unit scale lies a hair under 1.0,
+    where ulp(rms) is half that of the typical element of magnitude ~1
+    (phase 17.4; phase 3's draws, with scales 1 + 0.1 N(0, 1), sit above 1)."""
     ref = ref.float()
     err = (out.float() - ref).abs()
     _, exp = torch.frexp(ref)
     ulp = torch.where(ref == 0, 0.0, torch.ldexp(torch.ones_like(ref), exp - 8))
-    _, rms_exp = torch.frexp(ref.square().mean().sqrt())
+    rms = ref.square().mean().sqrt()
+    _, rms_exp = torch.frexp(rms.bfloat16().float() if rms_rounded else rms)
     limit = 2 * ulp + 2.0 ** (int(rms_exp) - 8)
     return dict(max_abs=float(err.max()), excess=float((err - limit).max()),
                 outside=int((err > limit).sum()), mean_ulps=float(err.mean() / ulp.mean()))
@@ -741,23 +769,7 @@ def main() -> None:
                     del x32
             keep, w, x = block_inputs(torch, dev, draws[0], length, dtype)
             ref = plain_fn(x, keep, w, h)
-            layer = torch.nn.TransformerEncoderLayer(
-                d, h, ffn, dropout=0.0, activation="relu", batch_first=True, norm_first=False,
-                layer_norm_eps=1e-6).eval()
-            with torch.no_grad():
-                layer.self_attn.in_proj_weight.copy_(w.qkv.float())
-                layer.self_attn.in_proj_bias.copy_(w.qkv_bias)
-                layer.self_attn.out_proj.weight.copy_(w.out.float())
-                layer.self_attn.out_proj.bias.copy_(w.out_bias)
-                layer.linear1.weight.copy_(w.ffn1.float())
-                layer.linear1.bias.copy_(w.ffn1_bias)
-                layer.linear2.weight.copy_(w.ffn2.float())
-                layer.linear2.bias.copy_(w.ffn2_bias)
-                layer.norm1.weight.copy_(w.ln1_scale)
-                layer.norm1.bias.copy_(w.ln1_bias)
-                layer.norm2.weight.copy_(w.ln2_scale)
-                layer.norm2.bias.copy_(w.ln2_bias)
-            layer = layer.to(device=dev, dtype=dtype)
+            layer = library_layer(torch, w, d, h, ffn, dtype)
             pad = ~keep
 
             def library():
@@ -794,6 +806,7 @@ def main() -> None:
             results[f"{key}_{names[dtype]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                     bound_ms=bnd, bound_by=by, library_ms=lib)
             del layer, x, out, ref, w
+    k2_at_iqap_shape(torch, dev, results)
     torch.cuda.empty_cache()
     main_path(torch, np, dev, results, parts)
 
@@ -1312,7 +1325,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     executor_training(torch, np, dev)
     card_vs_cpu_step(torch, np, dev)
     by_path = {**evaluation(torch, np, dev, counted), **scheduled_training(torch, np, dev, counted),
-               **cogent(torch, np, dev, counted)}
+               **cogent(torch, np, dev, counted), **baselines(torch, np, dev, counted)}
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -1326,6 +1339,7 @@ def main_path(torch, np, dev, results, parts) -> None:
                     **results[key],
                     launches_by_path={path: c[name] for path, c in by_path.items()})
                for name, src, rep, key, counts in sources]
+    kernels[1]["at_shapes"] = {"iqap_encoder_d512": results["K2_bf16_iqap"]}
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -2442,6 +2456,551 @@ def cogent(torch, np, dev, counted) -> dict:
                          "kernel path (d_model 512, K2 and K1)")
     say(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return {"cogent_protocol_d192": flagship_counts, "cogent_protocol_d512": kernel_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the baselines
+# ---------------------------------------------------------------------------
+
+
+def baseline_data(torch, np, dev) -> dict:
+    """Phase 17's inputs from the CLEVR factory: ``BASELINE_SCENES`` scenes
+    with 4 questions each (hops and chains on), encoded to 46-token
+    questions and 27-token postfix programs for the IQAP; the same questions
+    annotated in the "full" style, in the joint vocabulary, as chains (the
+    CLI's identity function ids) for ``infer-chain`` and as
+    ``flatten_steps``' records for the step seq2seq's training; seeded
+    random ``BASELINE_IMAGE`` (196 x 1024) features per image, on the card."""
+    from explainable_spatial_vqa_tpu_torch.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu_torch.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
+    from explainable_spatial_vqa_tpu_torch.cli.main import identity_function_vocab
+    from explainable_spatial_vqa_tpu_torch.core import vocab as voc
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import encode_questions
+    from explainable_spatial_vqa_tpu_torch.train.datasets import chain_arrays, flatten_steps
+
+    def width(a, n):
+        out = np.zeros((len(a), n), np.int64)
+        out[:, :min(n, a.shape[1])] = a[:, :n]
+        return out
+
+    scenes_raw, questions = syn.synthesize_dataset(BASELINE_SCENES, 4, seed=17, hop_prob=0.5,
+                                                   chain_prob=0.5)
+    enc = encode_questions(questions, voc.build_clevr_vocab([questions]))
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    annotated = [ann.annotate_question_full(q, scenes[q["image_index"]]) for q in questions]
+    joint = voc.build_joint_vocab(annotated)
+    annotated = [voc.apply_joint_vocab(q, joint) for q in annotated]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    return dict(
+        questions=width(enc.questions, 46), programs=width(enc.programs, 27),
+        answers=np.asarray(enc.answers), image_index=np.asarray(enc.image_idxs),
+        annotated=annotated, joint_size=len(joint) + 3,
+        chains=chain_arrays(annotated, identity_function_vocab(annotated), max_steps=28),
+        steps=flatten_steps(annotated),
+        features=torch.rand(len(scenes_raw), *BASELINE_IMAGE, generator=gen, device=dev))
+
+
+def decision_gaps(np, card_tokens, cpu_tokens, cpu_logits) -> list:
+    """For each row whose greedy tokens (B, T) differ between card and CPU,
+    the CPU logits' top-2 gap at its first differing step: the step before
+    which both saw the same inputs, up to rounding."""
+    gaps = []
+    for row in np.flatnonzero((card_tokens != cpu_tokens).any(-1)):
+        t = int(np.flatnonzero(card_tokens[row] != cpu_tokens[row])[0])
+        top = np.sort(cpu_logits[row, t])[-2:]
+        gaps.append(float(top[1] - top[0]))
+    return gaps
+
+
+def chain_gaps(np, a_out: dict, b_out: dict, logits: list, steps: int) -> list:
+    """For each chain whose step outputs differ between two chain runs, the
+    top-2 gap of run a's logits at the origin of the difference: the first
+    differing (position k, token t) in order (a position reads only earlier
+    ones), which was decode call k * ``steps`` + t of run a."""
+    gaps = []
+    diff = a_out["step_outputs"] != b_out["step_outputs"]
+    for row in np.flatnonzero(diff.any((1, 2))):
+        k, t = (int(i[0]) for i in np.nonzero(diff[row]))
+        top = np.sort(logits[k * steps + t][row])[-2:]
+        gaps.append(float(top[1] - top[0]))
+    return gaps
+
+
+class LogitsRecorder:
+    """A forward hook on a model's output layer keeping each call's float32
+    logits on the host, in call order."""
+
+    def __init__(self, layer):
+        self.calls = []
+        self._hook = layer.register_forward_hook(
+            lambda _m, _i, out: self.calls.append(out.detach().float().reshape(
+                out.shape[0], -1).cpu().numpy()))
+
+    def remove(self):
+        self._hook.remove()
+
+
+def baselines(torch, np, dev, counted) -> dict:
+    """Phase 17, the baselines (thesis Table 4.2's Transformer IQAP, the
+    step seq2seq of ``infer-chain``, the LSTM IQAP) at their presets'
+    widths, random weights from seeds, on ``baseline_data``:
+
+    1. ``eval-iqap``'s path: ``cli.main.run_eval_iqap`` with
+       ``transformer_iqap`` (d 256, 4 heads, 2+2 layers) in bf16 and float32
+       on all questions: questions/s (the median of ``REPEATS`` after a
+       warm-up), encode+answer and the 27-step greedy decode timed apart by
+       CUDA events, the kernels and copies of one decode, the card's busy
+       share of a run under the profiler;
+    2. float32 on ``BASELINE_FP32`` questions, card against the CPU: answers
+       and programs equal (a row that differs must come from a near-tie,
+       within ``NEAR_TIE`` at its first differing step, printed), the
+       largest logit error within 1e-4;
+    3. ``infer-chain``'s path: ``step_seq2seq`` (d 256) in bf16 on every
+       question's chain through ``Seq2SeqChainRunner.run`` and
+       ``run_bucketed_seq2seq``: chains/s each (median of ``REPEATS``), the
+       encodes and decode steps of a run, the share of chains whose outputs
+       the two agree on; in float32 on ``BASELINE_FP32`` chains the two runs
+       equal on the card, and the card equal to the CPU (a chain that
+       differs must trace to a near-tie);
+    4. K2 on this path: both models at d 512, 4 heads, ffn 2048: K2 once per
+       encoder layer per encode (the wrappers' counts; the phase fails on
+       none), each block's bf16 output against K2's plain version on the
+       same input under phase 3's rule, the float32 decisions card against
+       CPU (``BASELINE_FP32`` questions, ``BASELINE_D512_CHAINS`` chains);
+       the launches of ``run_eval_iqap`` on every question and of a chain
+       run of the first 128 chains (the result line's ``eval_iqap_d512`` and
+       ``infer_chain_d512``);
+    5. one train step of ``transformer_iqap`` (batch 64, its greedy decode
+       inside the loss), ``lstm_iqap`` (batch 64, a 200,704 x 512
+       ``image_fc``) and ``step_seq2seq`` (batch 32) in bf16 through their
+       ``*_pipeline_from_arrays`` and ``Trainer.train_step`` on one fixed
+       batch: ms per step (the median of CUDA events over the updates after
+       3), peak GiB, kernels and copies per step under the profiler; the
+       batch's loss must fall below 0.8 of its first within
+       ``BASELINE_UPDATES`` updates.
+
+    Returns the launches of the d 512 paths, for the result line."""
+    from explainable_spatial_vqa_tpu_torch.cli.main import run_eval_iqap
+    from explainable_spatial_vqa_tpu_torch.core.config import IQAPConfig, StepSeq2SeqConfig
+    from explainable_spatial_vqa_tpu_torch.infer.chain import (
+        Seq2SeqChainRunner,
+        run_bucketed_seq2seq,
+    )
+    from explainable_spatial_vqa_tpu_torch.models.iqap import TransformerIQAP, generate_programs
+    from explainable_spatial_vqa_tpu_torch.models.layers import eval_mode, init_parameters
+    from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorSeq2Seq
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fuse_encoder_params,
+        fused_encoder_block_plain,
+    )
+
+    t_phase = time.perf_counter()
+    data = baseline_data(torch, np, dev)
+    questions, programs, answers = data["questions"], data["programs"], data["answers"]
+    chains, features = data["chains"], data["features"]
+    n = len(questions)
+    say(f"phase 17 data: {n} questions of {BASELINE_SCENES} CLEVR factory scenes (46-token "
+        f"questions, 27-token programs); {len(chains.num_steps)} chains, depth "
+        f"{int(chains.num_steps.min())}-{int(chains.num_steps.max())} (mean "
+        f"{float(chains.num_steps.mean()):.2f}, {chains.truncated} cut at 28); "
+        f"{len(data['steps']['src'])} seq2seq step records; joint vocabulary "
+        f"{data['joint_size']} ids; {time.perf_counter() - t_phase:.1f} s")
+    tokens, width = BASELINE_IMAGE
+    iqap_cfg = IQAPConfig(vocab_size=max(96, int(questions.max()) + 1),
+                          program_vocab_size=max(45, int(programs.max()) + 1),
+                          num_answer_classes=max(32, int(answers.max()) + 1),
+                          num_image_tokens=tokens, image_feature_dim=width)
+    seq_cfg = StepSeq2SeqConfig(vocab_size=max(128, data["joint_size"]),
+                                num_image_tokens=tokens, image_feature_dim=width)
+    iqap_len = 1 + tokens + iqap_cfg.max_question_len
+    q_dev = torch.from_numpy(questions).to(dev)
+    images = features.index_select(0, torch.as_tensor(data["image_index"], device=dev))
+    chain_tokens = features.index_select(0, torch.as_tensor(chains.image_index, device=dev))
+    by_path = {}
+
+    def median_s(fn):
+        fn()  # warm-up
+        seconds = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            seconds.append(time.perf_counter() - t0)
+        return statistics.median(seconds)
+
+    def iqap_decisions(model_card, rows, label):
+        """Float32 answers and greedy programs of ``rows`` questions, card
+        against a CPU copy of ``model_card``."""
+        cpu = TransformerIQAP(model_card.config, torch.float32, "cpu")
+        cpu.load_state_dict(model_card.state_dict())
+        outs = []
+        for model, device in ((model_card, dev), (cpu, torch.device("cpu"))):
+            with torch.no_grad(), eval_mode(model):
+                out = model(images[:rows].to(device), q_dev[:rows].to(device))
+                tokens, logits = generate_programs(model, out["memory"])
+            outs.append((out["answer_logits"].cpu().numpy(), tokens.cpu().numpy(),
+                         logits.cpu().numpy()))
+        (a_card, t_card, l_card), (a_cpu, t_cpu, l_cpu) = outs
+        answer_gaps = decision_gaps(np, a_card.argmax(-1)[:, None], a_cpu.argmax(-1)[:, None],
+                                    a_cpu[:, None])
+        gaps = decision_gaps(np, t_card, t_cpu, l_cpu)
+        same = ~(t_card != t_cpu).any(-1)
+        err = max(float(np.abs(a_card - a_cpu).max()),
+                  float(np.abs(l_card[same] - l_cpu[same]).max()) if same.any() else 0.0)
+        say(f"phase 17 {label}: float32 on {rows} questions, card vs CPU: answers "
+            f"{'equal' if not answer_gaps else f'differ at {len(answer_gaps)} (gaps {answer_gaps})'}"
+            f"; programs {'equal' if not gaps else f'differ at {len(gaps)} (near-ties, top-2 gaps {gaps})'}"
+            f"; max logit error {err:.3g} (tol 1e-4; over the rows that agree)")
+        if err > 1e-4 or any(g > NEAR_TIE for g in answer_gaps + gaps):
+            fail(f"phase 17 {label}: the float32 IQAP on the card disagrees with the CPU")
+
+    # ---- 17.1 eval-iqap, preset width ----
+    fp32_iqap = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        model = init_parameters(TransformerIQAP(iqap_cfg, dtype, dev), seed=171)
+
+        def run():
+            return run_eval_iqap(model, questions, features, data["image_index"], answers,
+                                 programs, device=dev)
+
+        seconds = median_s(run)
+        (summary, pred_answers, pred_programs), counts = counted(run)
+        split = []
+        with torch.no_grad(), eval_mode(model):
+            for _ in range(REPEATS):
+                marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                marks[0].record()
+                out = model(images, q_dev)
+                torch.argmax(out["answer_logits"], -1)
+                marks[1].record()
+                generate_programs(model, out["memory"])
+                marks[2].record()
+                marks[2].synchronize()
+                split.append((marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])))
+            _, decode_prof = device_profile(torch, lambda: generate_programs(model,
+                                                                             out["memory"]))
+        _, run_prof = device_profile(torch, run)
+        enc_ms = statistics.median(s[0] for s in split)
+        dec_ms = statistics.median(s[1] for s in split)
+        per_step = ("not measured" if decode_prof is None
+                    else f"{decode_prof[3] / iqap_cfg.program_len:.1f}")
+        busy = "not measured" if run_prof is None else f"{run_prof[0]:.3f}"
+        say(f"phase 17.1 eval-iqap, transformer_iqap (d {iqap_cfg.embed_dim}, "
+            f"{iqap_cfg.num_heads} heads, {iqap_cfg.encoder_layers}+{iqap_cfg.decoder_layers} "
+            f"layers, L={iqap_len}), {name}, run_eval_iqap on {n} questions: "
+            f"{n / seconds:.1f} questions/s (median of {REPEATS}: {seconds * 1e3:.1f} ms); "
+            f"encode+answer {enc_ms:.2f} ms, {iqap_cfg.program_len}-step greedy decode "
+            f"{dec_ms:.2f} ms (CUDA events, median of {REPEATS}); {per_step} kernels and "
+            f"copies per decode step; card busy {busy} of a run; launches {counts}; "
+            f"answer accuracy {summary['answer_accuracy']:.3f}, program exact match "
+            f"{summary['exact_match']:.3f} (random weights)")
+        if not (pred_answers.shape == (n,) and pred_programs.shape == (n, 27)
+                and sum(counts.values()) == 0):
+            fail("phase 17.1 check failed: an answer and a program per question, and no kernel "
+                 "of ours at head dim 64")
+        if dtype == torch.float32:
+            fp32_iqap = model
+        del model
+    # ---- 17.2 float32, card vs CPU ----
+    iqap_decisions(fp32_iqap, BASELINE_FP32, "17.2 eval-iqap d 256")
+    del fp32_iqap
+
+    # ---- 17.3 infer-chain, preset width ----
+    def chain_run(model, rows, bucketed=False):
+        """The first ``rows`` chains (all with None) through the runner on
+        the model's device."""
+        device = next(model.parameters()).device
+        runner = Seq2SeqChainRunner(model, model.config, max_steps=28, device=device)
+        sub = chains if rows is None else type(chains)(
+            chains.image_index[:rows], chains.functions[:rows], chains.deps[:rows],
+            chains.num_steps[:rows], [])
+        tokens = (chain_tokens if rows is None else chain_tokens[:rows]).to(device)
+        if bucketed:
+            return run_bucketed_seq2seq(runner, tokens, sub)
+        return runner.run(tokens, sub)
+
+    calls = {"encode": 0, "decode_step": 0}
+
+    def counting(model):
+        for name in calls:
+            def wrapped(*a, _f=getattr(model, name), _n=name, **k):
+                calls[_n] += 1
+                return _f(*a, **k)
+            setattr(model, name, wrapped)
+
+    seq = init_parameters(StepExecutorSeq2Seq(seq_cfg, torch.bfloat16, dev), seed=173)
+    counting(seq)
+    outs, rates = {}, {}
+    for mode in ("run", "bucketed"):
+        seconds = median_s(lambda: chain_run(seq, None, mode == "bucketed"))
+        for key in calls:
+            calls[key] = 0
+        outs[mode], counts = counted(lambda: chain_run(seq, None, mode == "bucketed"))
+        rates[mode] = (len(chains.num_steps) / seconds, seconds, dict(calls), counts)
+    agree = float((outs["run"]["step_outputs"] == outs["bucketed"]["step_outputs"])
+                  .all((1, 2)).mean())
+    say(f"phase 17.3 infer-chain, step_seq2seq (d {seq_cfg.d_model}, {seq_cfg.num_heads} heads, "
+        f"{seq_cfg.encoder_layers}+{seq_cfg.decoder_layers} layers, ffn {seq_cfg.ffn_dim}, "
+        f"{seq_cfg.max_tgt_len}-token decodes), bf16, {len(chains.num_steps)} chains: "
+        + "; ".join(f"{mode} {r[0]:.1f} chains/s (median of {REPEATS}: {r[1] * 1e3:.1f} ms), "
+                    f"{r[2]['encode']} encodes and {r[2]['decode_step']} decode steps a run, "
+                    f"launches {r[3]}" for mode, r in rates.items())
+        + f"; the two runs' step outputs agree on {agree:.3f} of the chains (bf16)")
+    if sum(rates["run"][3].values()) or not (outs["run"]["step_outputs"] != 0).any():
+        fail("phase 17.3 check failed: decoded outputs, and no kernel of ours at head dim 64")
+    del seq
+
+    def chains_fp32(cfg, rows, seed, label):
+        """Float32 chain runs of ``rows`` chains: run against bucketed on the
+        card, and the card against a CPU copy."""
+        card = init_parameters(StepExecutorSeq2Seq(cfg, torch.float32, dev), seed=seed)
+        cpu = StepExecutorSeq2Seq(cfg, torch.float32, "cpu")
+        cpu.load_state_dict(card.state_dict())
+        rec_card, rec_cpu = LogitsRecorder(card.output), LogitsRecorder(cpu.output)
+        on_card, counts = counted(lambda: chain_run(card, rows))
+        on_cpu = chain_run(cpu, rows)
+        rec_card.remove()
+        rec_cpu.remove()
+        bucketed = chain_run(card, rows, bucketed=True)
+        steps = cfg.max_tgt_len
+        run_gaps = chain_gaps(np, on_card, bucketed, rec_card.calls, steps)
+        cpu_gaps = chain_gaps(np, on_cpu, on_card, rec_cpu.calls, steps)
+        say(f"phase 17 {label}: float32, {rows} chains: run vs bucketed on the card "
+            f"{'equal' if not run_gaps else f'differ at {len(run_gaps)} (near-ties {run_gaps})'}"
+            f"; card vs CPU {'equal' if not cpu_gaps else f'differ at {len(cpu_gaps)} (near-ties {cpu_gaps})'}"
+            f"; launches on the card {counts}")
+        if any(g > NEAR_TIE for g in run_gaps + cpu_gaps):
+            fail(f"phase 17 {label}: float32 chain outputs differ beyond a near-tie")
+        return counts
+
+    chains_fp32(seq_cfg, BASELINE_FP32, 174, "17.3 infer-chain d 256")
+
+    # ---- 17.4 K2 on this path: d 512 ----
+    iqap512 = dataclasses.replace(iqap_cfg, embed_dim=512)
+    seq512 = dataclasses.replace(seq_cfg, d_model=512, ffn_dim=2048)
+    model = init_parameters(TransformerIQAP(iqap512, torch.bfloat16, dev), seed=175)
+    seq = init_parameters(StepExecutorSeq2Seq(seq512, torch.bfloat16, dev), seed=176)
+
+    def block_agreement(model, encode, label):
+        """Each encoder block's bf16 output on the card (K2) against K2's
+        plain version on the block's own input and key mask, under phase
+        3's rule (printed) and under it with the rms rounded to bf16 (which
+        decides: the block ends in a unit-scale LayerNorm, see
+        ``bf16_agreement``); beside them, the plain version on the card
+        against the plain version on the CPU, which sums in another order."""
+        seen = []
+        hooks = [b.register_forward_hook(lambda m, args, out: seen.append((m, args, out)))
+                 for b in model.encoder.blocks]
+        try:
+            _, counts = counted(lambda: encode())
+        finally:
+            for h in hooks:
+                h.remove()
+        texts, ok = [], True
+        for i, (block, args, out) in enumerate(seen):
+            x, mask = args[0], args[1] if len(args) > 1 else None
+            key_mask = None if mask is None else mask[:, 0, 0, :]
+            x = x.to(block.dtype).contiguous()
+            weights = fuse_encoder_params(block, dtype=block.dtype)
+            ref = fused_encoder_block_plain(x, key_mask, weights, block.num_heads)
+            on_cpu = fused_encoder_block_plain(
+                x.cpu(), None if key_mask is None else key_mask.cpu(),
+                type(weights)(*(t.cpu() for t in weights)), block.num_heads)
+            rule = bf16_agreement(torch, out, ref)
+            stats = bf16_agreement(torch, out, ref, rms_rounded=True)
+            control = bf16_agreement(torch, ref, on_cpu.to(ref.device))
+            ok = ok and bf16_ok(stats)
+            texts.append(f"block {i}: phase 3's rule {bf16_text(rule)}, {rule['outside']} "
+                         f"elements outside; with the rms rounded to bf16 {bf16_text(stats)}, "
+                         f"{stats['outside']} outside; plain card vs CPU "
+                         f"{bf16_text(control)}, {control['outside']} outside")
+        layers = len(model.encoder.blocks)
+        say(f"phase 17.4 {label}, bf16 eval encode: K2 {counts['fused_encoder_block']} launches "
+            f"({layers} layers), K1 {counts['fused_attention']}; against K2's plain version: "
+            + "; ".join(texts))
+        if counts["fused_encoder_block"] != layers or not ok:
+            fail(f"phase 17.4 {label}: K2 must run once per encoder layer and agree with its "
+                 "plain version")
+
+    with torch.no_grad(), eval_mode(model), eval_mode(seq):
+        block_agreement(model, lambda: model.encode(images[:BASELINE_FP32],
+                                                    q_dev[:BASELINE_FP32]),
+                        f"transformer_iqap d 512 (B={BASELINE_FP32}, L={iqap_len}, no mask)")
+        src = torch.from_numpy(data["steps"]["src"][:BASELINE_FP32]).to(dev)
+        step_images = features.index_select(0, torch.as_tensor(
+            data["steps"]["image_index"][:BASELINE_FP32], device=dev))
+        block_agreement(seq, lambda: seq.encode(step_images, src, src != 0),
+                        f"step_seq2seq d 512 (B={BASELINE_FP32}, "
+                        f"L={tokens + seq_cfg.max_src_len}, flatten_steps' ragged src mask)")
+    t0 = time.perf_counter()
+    _, by_path["eval_iqap_d512"] = counted(
+        lambda: run_eval_iqap(model, questions, features, data["image_index"], answers,
+                              programs, device=dev))
+    iqap_s = time.perf_counter() - t0
+    calls.update(encode=0, decode_step=0)
+    counting(seq)
+    rows = min(128, len(chains.num_steps))
+    t0 = time.perf_counter()
+    _, by_path["infer_chain_d512"] = counted(lambda: chain_run(seq, rows))
+    chain_s = time.perf_counter() - t0
+    say(f"phase 17.4 d 512 bf16 paths: run_eval_iqap on {n} questions {iqap_s:.3f} s (no "
+        f"warm-up), launches {by_path['eval_iqap_d512']}; Seq2SeqChainRunner.run on {rows} chains "
+        f"{chain_s:.3f} s, {calls['encode']} encodes (K2 {seq512.encoder_layers} each: "
+        f"{seq512.encoder_layers * calls['encode']}), launches {by_path['infer_chain_d512']}")
+    if not (by_path["eval_iqap_d512"]["fused_encoder_block"] == iqap512.encoder_layers
+            and by_path["infer_chain_d512"]["fused_encoder_block"]
+            == seq512.encoder_layers * calls["encode"] > 0):
+        fail("phase 17.4: K2 must run once per encoder layer of every encode on the d 512 paths")
+    del model, seq
+    torch.cuda.empty_cache()
+    iqap_decisions(init_parameters(TransformerIQAP(iqap512, torch.float32, dev), seed=177),
+                   BASELINE_FP32, "17.4 eval-iqap d 512 (K2 float32)")
+    chains_fp32(seq512, BASELINE_D512_CHAINS, 178, "17.4 infer-chain d 512 (K2 float32)")
+    torch.cuda.empty_cache()
+
+    # ---- 17.5 train steps ----
+    baseline_training(torch, np, dev, data)
+    say(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def baseline_training(torch, np, dev, data) -> None:
+    """Phase 17.5: one fixed batch of each baseline family at its preset's
+    width and batch, bf16, through ``Trainer.train_step``."""
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.train import pipelines
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    features = data["features"]
+    tokens, width = BASELINE_IMAGE
+    side = math.isqrt(tokens)
+    image = dict(num_image_tokens=tokens, image_feature_dim=width)
+    iqap_arrays = {"questions": data["questions"], "answers": data["answers"],
+                   "programs": data["programs"], "image_index": data["image_index"]}
+    vocabs = dict(vocab_size=max(96, int(data["questions"].max()) + 1),
+                  program_vocab_size=max(45, int(data["programs"].max()) + 1),
+                  num_answer_classes=max(32, int(data["answers"].max()) + 1))
+    grid = features.transpose(1, 2).reshape(len(features), width, side, side)
+    families = (
+        ("transformer_iqap", pipelines.iqap_pipeline_from_arrays, iqap_arrays, features,
+         dict(vocabs, **image)),
+        ("lstm_iqap", pipelines.lstm_iqap_pipeline_from_arrays, iqap_arrays, grid,
+         dict(vocabs, image_feature_dim=width, image_spatial=(side, side))),
+        ("step_seq2seq", pipelines.step_seq2seq_pipeline_from_arrays, data["steps"], features,
+         dict(vocab_size=max(128, data["joint_size"]), **image)),
+    )
+    for preset, build, arrays, feats, sizes in families:
+        t0 = time.perf_counter()
+        cfg = get_preset(preset)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **sizes),
+                          train=dataclasses.replace(cfg.train, log_every=0))
+        pipe = build(cfg, arrays, feats, device=dev)
+        trainer = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                          checkpoint_dir=False, device=dev)
+        batch = to_device(next(iter(pipe.train_batches(0))), dev)
+        gen = torch.Generator().manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                 for _ in range(BASELINE_UPDATES + 1)]
+        losses = []
+        for start, end in marks:
+            start.record()
+            losses.append(trainer.train_step(batch, gen)["loss_sum"])
+            end.record()
+        losses = torch.stack(losses).tolist()  # waits for the card
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = statistics.median(start.elapsed_time(end) for start, end in marks[3:])
+        wall, prof = device_profile(torch, lambda: trainer.train_step(batch, gen))
+        kernels = "not measured" if prof is None else f"{prof[3]}"
+        busy = "not measured" if prof is None else f"{prof[0]:.3f}"
+        ratios = [x / losses[0] for x in losses]
+        below = next((i for i, r in enumerate(ratios) if r < 0.8), None)
+        params = sum(p.numel() for p in pipe.model.parameters())
+        say(f"phase 17.5 {preset} training ({str(pipelines.model_dtype(cfg, dev)).split('.')[-1]}, batch {cfg.train.batch_size}, lr "
+            f"{cfg.optim.learning_rate}, {params / 1e6:.1f}M parameters): {ms:.2f} ms per step "
+            f"(median of {BASELINE_UPDATES - 2} after 3, CUDA events); peak {peak:.2f} GiB; "
+            f"{kernels} kernels and copies per step, busy {busy} (one step under the profiler, "
+            f"{wall * 1e3:.1f} ms); fixed-batch loss step 0 {losses[0]:.4f}, step "
+            f"{BASELINE_UPDATES} {losses[-1]:.4f} ({ratios[-1]:.3f} of step 0), below 0.8 "
+            f"at update {below}; {time.perf_counter() - t0:.1f} s")
+        if not (all(math.isfinite(x) for x in losses) and below is not None):
+            fail(f"phase 17.5: the {preset} fixed batch's loss did not fall below 0.8 of its "
+                 f"first within {BASELINE_UPDATES} updates")
+        del trainer, pipe, batch
+        torch.cuda.empty_cache()
+
+
+def k2_at_iqap_shape(torch, dev, results: dict) -> None:
+    """Phase 3 and 4 for K2 at the Transformer IQAP's encoder shape at d 512
+    (``K2_IQAP_SHAPE``: B=64, L=1+196+46=243, no mask), bf16: against its
+    plain version (phase 3's rule), timed beside it, one
+    ``nn.TransformerEncoderLayer`` call and its bound."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fused_encoder_block,
+        fused_encoder_block_plain,
+    )
+
+    b, length = K2_IQAP_SHAPE
+    d, h, ffn = 512, 4, 2048
+    _keep, w, x = block_inputs(torch, dev, 3, length, torch.bfloat16, batch=b)
+    out = fused_encoder_block(x, None, w, h)
+    ref = fused_encoder_block_plain(x, None, w, h)
+    stats = bf16_agreement(torch, out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    say(f"phase 3 K2 fused_encoder_block bf16 at the IQAP shape B={b} L={length} d={d} H={h} "
+        f"ffn={ffn} mask=none: {bf16_text(stats)}")
+    if not bf16_ok(stats):
+        fail("K2 disagrees with its plain version at the IQAP shape")
+    layer = library_layer(torch, w, d, h, ffn, torch.bfloat16)
+
+    def library():
+        with torch.no_grad():
+            return layer(x)
+
+    ms = timed_ms(torch, lambda: fused_encoder_block(x, None, w, h), iters=10)
+    plain = timed_ms(torch, lambda: fused_encoder_block_plain(x, None, w, h), iters=10)
+    lib = timed_ms(torch, library, iters=10)
+    rows = b * length
+    gemm_ops = rows * (2.0 * d * 3 * d + 2 * d * d + 4 * d * ffn)
+    attn_ops = 4.0 * b * h * length * length * (d // h)
+    ops = dot_ops("bf16", gemm_ops)
+    for kind, count in dot_ops("fp32", attn_ops).items():
+        ops[kind] = ops.get(kind, 0.0) + count
+    nbytes = (2 * rows * d * 2 + (4 * d * d + 2 * d * ffn) * 2 + (3 * d + d + ffn + d + 4 * d) * 4)
+    bnd, by = bound_ms(ops, nbytes)
+    say(f"phase 4 K2 fused_encoder_block bf16 at the IQAP shape (B={b}, L={length}, no mask): "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms, "
+        f"bound {bnd:.4f} ms ({by}), {(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
+    results["K2_bf16_iqap"] = dict(shape=f"B={b} L={length} d={d} no mask", max_abs_err=err,
+                                   ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                   library_ms=lib)
+    del layer, x, out, ref, w
+
+
+def library_layer(torch, w, d: int, h: int, ffn: int, dtype):
+    """``nn.TransformerEncoderLayer`` (post-LN, ReLU, eps 1e-6) holding a
+    block's weights ``w``, in ``dtype`` on their device: the library call
+    that computes K2's function."""
+    layer = torch.nn.TransformerEncoderLayer(
+        d, h, ffn, dropout=0.0, activation="relu", batch_first=True, norm_first=False,
+        layer_norm_eps=1e-6).eval()
+    with torch.no_grad():
+        layer.self_attn.in_proj_weight.copy_(w.qkv.float())
+        layer.self_attn.in_proj_bias.copy_(w.qkv_bias)
+        layer.self_attn.out_proj.weight.copy_(w.out.float())
+        layer.self_attn.out_proj.bias.copy_(w.out_bias)
+        layer.linear1.weight.copy_(w.ffn1.float())
+        layer.linear1.bias.copy_(w.ffn1_bias)
+        layer.linear2.weight.copy_(w.ffn2.float())
+        layer.linear2.bias.copy_(w.ffn2_bias)
+        layer.norm1.weight.copy_(w.ln1_scale)
+        layer.norm1.bias.copy_(w.ln1_bias)
+        layer.norm2.weight.copy_(w.ln2_scale)
+        layer.norm2.bias.copy_(w.ln2_bias)
+    return layer.to(device=w.qkv.device, dtype=dtype)
 
 
 if __name__ == "__main__":

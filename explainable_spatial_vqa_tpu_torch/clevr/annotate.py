@@ -1,6 +1,7 @@
 """Per-step annotation, the offline ground-truth factory, copied from
-``explainable_spatial_vqa_tpu/clevr/annotate.py`` (the v3 annotation and the
-corpus sweep; the Python executor only).
+``explainable_spatial_vqa_tpu/clevr/annotate.py`` (the v3 annotation, the
+input-step-grounded "full" annotation of the step seq2seq baseline in both
+its styles, and the corpus sweep; the Python executor only).
 
 For every question, the symbolic executor runs the program step by step and
 records, per step:
@@ -33,7 +34,8 @@ from explainable_spatial_vqa_tpu_torch.clevr.executor import (
 )
 from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
 
-__all__ = ["annotate_question", "annotate_questions", "step_relevant_objects"]
+__all__ = ["annotate_question", "annotate_question_full", "annotate_questions",
+           "step_relevant_objects"]
 
 
 def step_relevant_objects(function: str, output: Any) -> List[int]:
@@ -136,6 +138,96 @@ def annotate_question(
                 for obj_idx in relevant[i]
                 if obj_idx is not None and 0 <= obj_idx < num_objects
             ).strip()
+        else:
+            annotated_step["output_values"] = ""
+        annotated_program.append(annotated_step)
+
+    annotated = {
+        k: v
+        for k, v in question.items()
+        if k not in ("program", "image_filename", "split", "question_family_index")
+    }
+    annotated["annotated_program"] = annotated_program
+    annotated["final_chain_of_thought"] = chain_list
+    return annotated
+
+
+def annotate_question_full(
+    question: Dict[str, Any],
+    scene: Scene,
+    boxes: Optional[Any] = None,
+    style: str = "repr1",
+) -> Dict[str, Any]:
+    """Input-step-grounded annotation variants.
+
+    ``style="repr1"``: the ``full_annotation`` variant consumed by the
+    step-executor trainer — 1-decimal boxes rendered with ``str(float)``
+    (``[0.1 0.2 0.3 0.4]``)
+    (the reference's preprocess_scenes/preprocess_full_annotation.py:232-353).
+    ``style="fixed4"``: the ``continous`` v1 variant — 4-decimal fixed-width
+    boxes (``[0.1234 ...]``), same record structure
+    (preprocess_continous.py annotate, diff vs v3 = input-step grounding).
+
+    Both build ``input_values`` from the *input steps'* relevant objects
+    (spatial) or node outputs (non-spatial) rather than chaining
+    output_values as v3 does.
+    """
+    program = question["program"]
+    if boxes is None:
+        boxes = scene_bounding_boxes(scene.raw, decimals=1 if style == "repr1" else 4)
+    node_outputs, relevant = _execute_with_poisoning(scene, program)
+    num_objects = len(scene.objects)
+
+    if style == "repr1":
+        def fmt(box):
+            return "[%s %s %s %s]" % tuple(map(repr, map(float, box)))
+    else:
+        def fmt(box):
+            return "[%.4f %.4f %.4f %.4f]" % tuple(map(float, box))
+
+    def bbox_strs(obj_indices: Sequence[Any]) -> List[str]:
+        return [
+            fmt(boxes[obj_idx])
+            for obj_idx in obj_indices
+            if obj_idx is not None and 0 <= obj_idx < num_objects
+        ]
+
+    annotated_program: List[Dict[str, Any]] = []
+    chain_list: List[str] = []
+    for i, step in enumerate(program):
+        annotated_step = {k: v for k, v in step.items() if k != "value_inputs"}
+        function_name = annotated_step.get("function", "")
+        values = step.get("value_inputs") or []
+        combined = f"{function_name}[{','.join(map(str, values))}]" if values else function_name
+        annotated_step["function"] = combined
+
+        chain_list.append(
+            (f"{combined} " + " ".join(map(str, step.get("inputs", [])))).strip()
+        )
+
+        base = combined.split("[")[0]
+        if base in NON_SPATIAL_FUNCTIONS:
+            cleaned = []
+            for inp in step.get("inputs", []):
+                text = str(node_outputs[inp])
+                if text.startswith("[") and text.endswith("]"):
+                    text = text[1:-1]
+                cleaned.append(text)
+            annotated_step["input_values"] = " ".join(cleaned).strip()
+        else:
+            all_boxes: List[str] = []
+            for inp in step.get("inputs", []):
+                if inp < len(relevant):
+                    all_boxes.extend(bbox_strs(relevant[inp]))
+            annotated_step["input_values"] = " ".join(all_boxes).strip()
+
+        if base in NON_SPATIAL_FUNCTIONS:
+            text = str(node_outputs[i])
+            if text.startswith("[") and text.endswith("]"):
+                text = text[1:-1]
+            annotated_step["output_values"] = text.strip()
+        elif base in SPATIAL_FUNCTIONS:
+            annotated_step["output_values"] = " ".join(bbox_strs(relevant[i])).strip()
         else:
             annotated_step["output_values"] = ""
         annotated_program.append(annotated_step)

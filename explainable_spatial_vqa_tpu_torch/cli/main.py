@@ -2,7 +2,8 @@
 for the thesis pair, with its flags, printed reports and JSON payloads:
 
   train           the port's training families (``generator``, the five
-                  ``executor*`` presets, ``executor_scheduled``)
+                  ``executor*`` presets, ``executor_scheduled``, and the
+                  baselines ``iqap``, ``lstm_iqap`` and ``step_seq2seq``)
   presets         the port's preset names
   eval-generator  greedy program accuracy, teacher-forced and best-beam
   tally           faithfulness quadrants and answer accuracy by type; with
@@ -11,12 +12,18 @@ for the thesis pair, with its flags, printed reports and JSON payloads:
   cogent-protocol the four-cell CoGenT A->B protocol on synthetic corpora
                   (train on A, evaluate valA/valB, fine-tune on a B subset,
                   evaluate again)
+  eval-iqap       the Transformer IQAP baseline's answers and greedy
+                  programs in one forward: accuracy summary and per-question
+                  records
+  infer-chain     chained inference of the step seq2seq baseline over
+                  annotated questions in the joint vocabulary
 
 A global ``--device`` (default ``cuda``) places the models; without a card
 the model commands raise unless it is ``cpu``.  Each command reads its
 artifacts (h5, JSON) and parses its flags, and hands arrays and modules to a
-function that does the work (:func:`run_eval_generator`,
-:func:`run_tally`), which callers holding data in memory call directly.
+function that does the work (:func:`run_eval_generator`, :func:`run_tally`,
+:func:`run_eval_iqap`, :func:`run_infer_chain`), which callers holding data
+in memory call directly.  ``--data_parallel`` is not ported.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ import torch
 
 logger = logging.getLogger("esv_torch.cli")
 
-__all__ = ["TallyResult", "build_parser", "main", "run_chains", "run_eval_generator",
-           "run_tally"]
+__all__ = ["TallyResult", "build_parser", "identity_function_vocab", "main", "run_chains",
+           "run_eval_generator", "run_eval_iqap", "run_infer_chain", "run_tally"]
 
 MAX_STEPS = 28  # the tally's chain depth bound, as in the JAX package's CLI
 
@@ -118,6 +125,11 @@ def cmd_train(args: argparse.Namespace) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _on(a, device: torch.device, dtype=None) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype)
+
+
 def _batched(fn, batch_size: int, *columns: np.ndarray) -> np.ndarray:
     """``fn`` over full batches plus a PADDED tail batch, so every sample is
     scored; padding repeats the last row and is sliced off."""
@@ -147,7 +159,7 @@ def run_eval_generator(model, questions: np.ndarray, programs: np.ndarray,
     device = resolve_device(device)
 
     def on(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _on(a, device)
 
     with torch.no_grad(), eval_mode(model):
         pred = _batched(lambda q: model.generate(on(q)), batch_size, questions)
@@ -500,6 +512,206 @@ def cmd_cogent_protocol(args: argparse.Namespace) -> None:
 
 
 # ---------------------------------------------------------------------------
+# eval-iqap
+# ---------------------------------------------------------------------------
+
+
+def run_eval_iqap(model, questions: np.ndarray, image_tokens, image_index: np.ndarray,
+                  answers: Optional[np.ndarray] = None, programs: Optional[np.ndarray] = None,
+                  device="cuda") -> Tuple[Dict[str, Any], np.ndarray, Optional[np.ndarray]]:
+    """``model`` (a ``TransformerIQAP``) on the selected questions in one
+    forward: the answers and, with ``programs``, the greedy programs of
+    their length.  ``image_tokens``: the per-IMAGE (M, P, C) features, numpy
+    (gathered on the host) or a tensor (gathered on its device);
+    ``image_index`` maps questions to images.  Returns (the JAX CLI's
+    summary: samples, seconds, answer_accuracy and program accuracy where
+    the ground truth is given; the predicted answers; the predicted
+    programs or None)."""
+    from explainable_spatial_vqa_tpu_torch.device import resolve_device
+    from explainable_spatial_vqa_tpu_torch.evalsuite.accuracy import program_accuracy
+    from explainable_spatial_vqa_tpu_torch.models.iqap import generate_programs
+    from explainable_spatial_vqa_tpu_torch.models.layers import eval_mode
+
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    with torch.no_grad(), eval_mode(model):
+        if isinstance(image_tokens, torch.Tensor):
+            images = image_tokens.index_select(
+                0, torch.as_tensor(image_index, device=image_tokens.device))
+        else:
+            images = np.asarray(image_tokens)[image_index]
+        out = model(_on(images, device, torch.float32), _on(questions, device))
+        pred_answers = torch.argmax(out["answer_logits"], dim=-1).cpu().numpy()
+        pred_programs = None
+        if programs is not None:
+            tokens, _ = generate_programs(model, out["memory"], max_len=programs.shape[1])
+            pred_programs = tokens.cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    summary: Dict[str, Any] = {"samples": len(questions), "seconds": round(elapsed, 3)}
+    if answers is not None:
+        summary["answer_accuracy"] = float(np.mean(pred_answers == answers))
+    if pred_programs is not None:
+        summary.update(program_accuracy(pred_programs, programs))
+    return summary, pred_answers, pred_programs
+
+
+def cmd_eval_iqap(args: argparse.Namespace) -> None:
+    import h5py
+
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_questions_h5
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.core.vocab import invert_vocab, load_vocab
+    from explainable_spatial_vqa_tpu_torch.models.iqap import TransformerIQAP
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import model_dtype
+
+    device = _device(args)
+    enc = read_questions_h5(args.questions_h5)
+    limit = args.limit or len(enc.questions)
+    questions = enc.questions[:limit]
+    answers = enc.answers[:limit] if enc.answers is not None else None
+    programs = enc.programs[:limit] if enc.programs is not None else None
+    image_idxs = enc.image_idxs[:limit]
+
+    vocab = load_vocab(args.vocab_json)
+    q_inv = invert_vocab(vocab["question_token_to_idx"])
+    p_inv = invert_vocab(vocab["program_token_to_idx"])
+    a_inv = invert_vocab(vocab["answer_token_to_idx"])
+
+    config = get_preset(args.preset)
+    with h5py.File(args.features_h5, "r") as f:
+        features = f["features"][()]
+    n, c, h, w = features.shape
+    image_tokens = features.reshape(n, c, h * w).transpose(0, 2, 1).astype(np.float32)
+    # sized to the data, as the JAX CLI sizes it
+    model_cfg = dataclasses.replace(
+        config.model,
+        vocab_size=int(questions.max()) + 1,
+        num_answer_classes=(int(answers.max()) + 1) if answers is not None else 32,
+        program_vocab_size=(int(programs.max()) + 1) if programs is not None else 45,
+        program_len=programs.shape[1] if programs is not None else 27,
+        max_question_len=questions.shape[1],
+        image_feature_dim=int(c),
+        num_image_tokens=int(h * w),
+    )
+    model = init_parameters(TransformerIQAP(model_cfg, model_dtype(config, device), device), 0)
+    _restore(model, args.checkpoint_dir, "IQAP")
+
+    summary, pred_answers, pred_programs = run_eval_iqap(
+        model, questions, image_tokens, image_idxs, answers, programs, device)
+    results = []
+    for i in range(len(questions)):
+        record = {
+            "image_index": int(image_idxs[i]),
+            "question": " ".join(q_inv.get(int(t), "?") for t in questions[i] if t),
+            "predicted_answer": a_inv.get(int(pred_answers[i]), "?"),
+        }
+        if answers is not None:
+            record["gt_answer"] = a_inv.get(int(answers[i]), "?")
+        if pred_programs is not None:
+            record["predicted_program"] = " ".join(
+                p_inv.get(int(t), "?") for t in pred_programs[i] if t)
+        results.append(record)
+    print(json.dumps(summary, indent=2))
+    if args.output_json:
+        with open(args.output_json, "w") as f:
+            json.dump({"summary": summary, "results": results}, f, indent=2)
+        logger.info("wrote %s", args.output_json)
+
+
+# ---------------------------------------------------------------------------
+# infer-chain
+# ---------------------------------------------------------------------------
+
+
+def run_infer_chain(model, chain_tokens, chains, annotated: List[Dict[str, Any]],
+                    rev_vocab: Optional[Mapping[int, str]] = None, max_steps: int = MAX_STEPS,
+                    device="cuda") -> Tuple[Dict[str, np.ndarray], List[Dict[str, Any]]]:
+    """The step seq2seq ``model`` chained over ``chains`` (``chain_arrays``
+    of ``annotated``, joint-vocab records): ``chain_tokens`` (N, P, C), one
+    row of image features per chain, numpy or a tensor.  Returns (the
+    runner's step and final outputs, one record per question: its image,
+    the final step's token ids, their text in ``rev_vocab`` (joint-vocab
+    ids, shifted by the specials) and the ground-truth answer)."""
+    from explainable_spatial_vqa_tpu_torch.device import resolve_device
+    from explainable_spatial_vqa_tpu_torch.infer.chain import Seq2SeqChainRunner
+    from explainable_spatial_vqa_tpu_torch.train.datasets import SPECIALS_OFFSET
+
+    device = resolve_device(device)
+    runner = Seq2SeqChainRunner(model, model.config, max_steps=max_steps, device=device)
+    out = runner.run(chain_tokens, chains)
+    rev_vocab = rev_vocab or {}
+    results = []
+    for i, q in enumerate(annotated):
+        final = [int(t) for t in out["final_outputs"][i] if t != 0]
+        decoded = " ".join(rev_vocab.get(t - SPECIALS_OFFSET, "<unk>") for t in final)
+        results.append({
+            "image_index": int(chains.image_index[i]),
+            "predicted_ids": final,
+            "predicted_text": decoded,
+            "answer": q.get("answer", ""),
+        })
+        if i < 10:
+            logger.info("q%d: predicted %r (gt answer ids %r)", i, decoded, q.get("answer"))
+    return out, results
+
+
+def identity_function_vocab(annotated: List[Dict[str, Any]]) -> Dict[str, int]:
+    """Joint-vocab records' function ids as the chains' function tokens: id
+    + SPECIALS_OFFSET (the step seq2seq's src token ids), 0 for a function
+    that is not an id."""
+    from explainable_spatial_vqa_tpu_torch.train.datasets import SPECIALS_OFFSET
+
+    vocab: Dict[str, int] = {}
+    for q in annotated:
+        for step in q["annotated_program"]:
+            fn = step["function"]
+            vocab.setdefault(fn, int(fn) + SPECIALS_OFFSET if fn.isdigit() else 0)
+    return vocab
+
+
+def cmd_infer_chain(args: argparse.Namespace) -> None:
+    import h5py
+
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_annotated_h5
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorSeq2Seq
+    from explainable_spatial_vqa_tpu_torch.train.datasets import chain_arrays
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import model_dtype
+
+    device = _device(args)
+    config = get_preset("step_seq2seq")
+    rev_vocab = {}
+    if args.vocab_json:
+        with open(args.vocab_json) as f:
+            rev_vocab = {v: k for k, v in json.load(f).items()}
+    annotated = read_annotated_h5(args.annotated_h5)
+    if args.limit:
+        annotated = annotated[:args.limit]
+    chains = chain_arrays(annotated, identity_function_vocab(annotated), max_steps=args.max_steps)
+
+    with h5py.File(args.features_h5, "r") as f:
+        feats = np.stack([f["features"][int(i)] for i in chains.image_index])
+    n, c, h, w = feats.shape
+    chain_tokens = feats.reshape(n, c, h * w).transpose(0, 2, 1).astype(np.float32)
+    model_cfg = dataclasses.replace(config.model, vocab_size=args.vocab_size,
+                                    image_feature_dim=int(c), num_image_tokens=int(h * w))
+    model = init_parameters(StepExecutorSeq2Seq(model_cfg, model_dtype(config, device), device),
+                            0)
+    _restore(model, args.checkpoint_dir, "step seq2seq")
+
+    print(f"truncated_programs: {chains.truncated} "
+          f"(GT chains deeper than --max_steps={args.max_steps})")
+    _, results = run_infer_chain(model, chain_tokens, chains, annotated, rev_vocab,
+                                 args.max_steps, device)
+    if args.output_json:
+        with open(args.output_json, "w") as f:
+            json.dump(results, f, indent=2)
+        logger.info("wrote %s", args.output_json)
+
+
+# ---------------------------------------------------------------------------
 # parser
 # ---------------------------------------------------------------------------
 
@@ -539,6 +751,16 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("presets", help="list training presets")
     p.set_defaults(fn=lambda a: print("\n".join(sorted(_preset_names()))))
+
+    p = sub.add_parser("eval-iqap")
+    p.add_argument("--questions_h5", required=True)
+    p.add_argument("--features_h5", required=True)
+    p.add_argument("--vocab_json", required=True)
+    p.add_argument("--preset", default="transformer_iqap")
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--output_json", default=None)
+    p.set_defaults(fn=cmd_eval_iqap)
 
     p = sub.add_parser("eval-generator")
     p.add_argument("--questions_h5", required=True)
@@ -596,6 +818,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "slot pool, per-depth buckets, or one full-depth batch; the "
                         "per-step tally runs the pool in pool mode, else sorted")
     p.set_defaults(fn=cmd_tally)
+
+    p = sub.add_parser("infer-chain")
+    p.add_argument("--annotated_h5", required=True)
+    p.add_argument("--features_h5", required=True)
+    p.add_argument("--vocab_json", default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--vocab_size", type=int, required=True)
+    p.add_argument("--max_steps", type=int, default=MAX_STEPS)
+    p.add_argument("--limit", type=int, default=10)
+    p.add_argument("--output_json", default=None)
+    p.set_defaults(fn=cmd_infer_chain)
 
     p = sub.add_parser(
         "cogent-protocol",

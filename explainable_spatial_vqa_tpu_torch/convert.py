@@ -1,7 +1,8 @@
 """Weight bridge: Flax parameter trees -> the port's ``state_dict``.
 
 :func:`flax_to_state_dict` takes the ``"params"`` collection of a JAX
-``ProgramGenerator``, ``ProgramExecutor`` or any of their blocks, as nested
+``ProgramGenerator``, ``ProgramExecutor``, ``TransformerIQAP``, ``LstmIQAP``,
+``StepExecutorSeq2Seq`` or any of their blocks, as nested
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, variables["params"])``),
 and returns the float32 ``state_dict`` of the port's module of the same
 configuration.  It needs no JAX: the caller passes numpy.
@@ -31,6 +32,20 @@ kernels (d, d) (``roi_sim``)
 (``roi_sim``, S box slots, K heads)                                            index s*K + h
 ``count_embed`` embedding (S+1, d)         ``count_embed.weight`` (S+1, d)     an ``Embed``: as is
 (``count_embed``)
+the baselines' modules: ``image_proj``,    the same names (``encoder.blocks.   as above by kind: ``Dense``, ``Embed``,
+``embed``, ``cls`` (1, 1, d),              {i}``, ``prog_decoder.blocks.{i}``, ``LayerNorm``, ``DenseGeneral``; ``cls``
+``encoder``/``decoder``/``prog_decoder``   ``decoder.blocks.{i}``)             as is
+``block_{i}`` (``attn``; ``self_attn``,
+``cross_attn``, ``ffn``, ``norm1-3``),
+``answer_hidden``/``answer_out``,
+``prog_embed``/``prog_out``,
+``bbox_hidden``/``bbox_out``, ``output``
+``q_lstm``, ``dec_lstm``                   ``LSTMCell`` of the same name       an ``OptimizedLSTMCell``, as above
+(``OptimizedLSTMCell``)
+``image_fc`` kernel (C*H*W, h)             ``image_fc.weight`` (h, C*H*W)      a ``Dense``; its inputs are the (C, H, W)
+                                                                               grid flattened C-major, as in JAX
+``dec_init_fc``, ``prog_fc``,              ``Dense`` of the same name          a ``Dense``: transpose the kernel
+``answer_fc``
 =========================================  ==================================  ============================================
 """
 

@@ -3,9 +3,10 @@
 (question records to the padded id arrays of the questions h5), and the
 readers of the questions h5
 (``questions (N, Lq) int32``, ``programs (N, Lp) int32``, ``answers``,
-``image_idxs``, ``orig_idxs``, optional ``question_families``), the annotated
-questions h5 (one ``questions`` JSON blob, or one ``q_{i}`` JSON dataset per
-question) and the features h5 (``features`` (N, 1024, 14, 14) float32).
+``image_idxs``, ``orig_idxs``, optional ``question_families``), the scenes h5
+(per-image boxes and class labels), the annotated questions h5 (one
+``questions`` JSON blob, or one ``q_{i}`` JSON dataset per question) and the
+features h5 (``features`` (N, 1024, 14, 14) float32).
 
 ``h5py`` is imported inside the readers: only they need it.
 """
@@ -21,8 +22,8 @@ import numpy as np
 from explainable_spatial_vqa_tpu_torch.core import programs as prog
 from explainable_spatial_vqa_tpu_torch.core.tokenizer import encode, tokenize
 
-__all__ = ["EncodedQuestions", "encode_questions", "read_questions_h5", "read_annotated_h5",
-           "H5Features"]
+__all__ = ["EncodedQuestions", "encode_questions", "read_questions_h5", "read_scenes_h5",
+           "read_annotated_h5", "H5Features"]
 
 
 @dataclass
@@ -107,6 +108,20 @@ def read_questions_h5(path: str) -> EncodedQuestions:
         )
 
 
+def read_scenes_h5(path: str) -> Dict[str, Any]:
+    """The scenes h5's per-image boxes (N, K, 4), class labels (N, K), image
+    indices and file names (the bbox-head IQAP variant's targets)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {
+            "bounding_boxes": f["bounding_boxes"][()],
+            "class_labels": f["class_labels"][()],
+            "image_index": f["image_index"][()],
+            "image_filename": [s.decode("utf8") for s in f["image_filename"][()]],
+        }
+
+
 def read_annotated_h5(path: str) -> List[Dict[str, Any]]:
     import h5py
 
@@ -124,16 +139,20 @@ def read_annotated_h5(path: str) -> List[Dict[str, Any]]:
 
 class H5Features:
     """The features h5's ``features`` (N, C, H, W), read by image index as
-    (B, H*W, C) float32 tokens.  The file stays open until :meth:`close`."""
+    (B, H*W, C) float32 tokens, or with ``as_tokens=False`` as the (B, C, H,
+    W) grid.  The file stays open until :meth:`close`."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, as_tokens: bool = True):
         import h5py
 
         self._file = h5py.File(path, "r")
         self._features = self._file["features"]
+        self.as_tokens = as_tokens
 
     def __getitem__(self, idx: np.ndarray) -> np.ndarray:
         feats = np.stack([self._features[int(i)] for i in idx]).astype(np.float32)
+        if not self.as_tokens:
+            return feats
         n, c, h, w = feats.shape
         return feats.reshape(n, c, h * w).transpose(0, 2, 1)
 

@@ -1,9 +1,12 @@
 """Configurations: copies of the JAX package's ``DataConfig``,
 ``OptimConfig``, ``GeneratorConfig``, ``ExecutorConfig``, ``TrainConfig`` and
-``ExperimentConfig`` (``explainable_spatial_vqa_tpu/core/config.py``), field
-for field, so one set of keyword arguments builds both packages' models and
-trainers, with the presets of the families the port trains: ``generator``,
-the five executor presets and ``executor_scheduled``.
+``ExperimentConfig`` and the baselines' ``IQAPConfig``, ``LstmIQAPConfig``
+and ``StepSeq2SeqConfig`` (``explainable_spatial_vqa_tpu/core/config.py``),
+field for field, so one set of keyword arguments builds both packages'
+models and trainers, with the presets of the families the port trains:
+``generator``, the five executor presets, ``executor_scheduled`` and the
+checked-in reference scripts' ``lstm_qp``, ``transformer_iqap``,
+``transformer_iqap_bb``, ``lstm_iqap``, ``lstm_iqa`` and ``step_seq2seq``.
 ``TrainConfig.mesh_shape`` and ``mesh_axes`` are kept for that reason; the
 port trains on one card and reads neither."""
 
@@ -14,8 +17,9 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["DataConfig", "OptimConfig", "GeneratorConfig", "ExecutorConfig", "TrainConfig",
-           "ExperimentConfig", "PRESETS", "get_preset"]
+__all__ = ["DataConfig", "OptimConfig", "GeneratorConfig", "ExecutorConfig", "IQAPConfig",
+           "LstmIQAPConfig", "StepSeq2SeqConfig", "TrainConfig", "ExperimentConfig", "PRESETS",
+           "get_preset"]
 
 
 @dataclass(frozen=True)
@@ -118,6 +122,64 @@ class ExecutorConfig:
 
 
 @dataclass(frozen=True)
+class IQAPConfig:
+    """Transformer IQAP baseline family (train_transformer_iqap*.py)."""
+
+    vocab_size: int = 96
+    program_vocab_size: int = 45
+    num_answer_classes: int = 32
+    embed_dim: int = 256
+    hidden_dim: int = 256
+    num_heads: int = 4
+    encoder_layers: int = 2
+    decoder_layers: int = 2
+    num_image_tokens: int = 196
+    image_feature_dim: int = 1024
+    program_len: int = 27
+    max_question_len: int = 46
+    dropout: float = 0.1
+    sos_token: int = 1
+    answer_loss_weight: float = 1.0
+    program_loss_weight: float = 1.0
+    with_bbox_head: bool = False
+    num_bbox_slots: int = 10
+
+
+@dataclass(frozen=True)
+class LstmIQAPConfig:
+    """LSTM IQAP/IQA family (train_lstm_iqap.py / train_lstm_iqa.py)."""
+
+    vocab_size: int = 96
+    program_vocab_size: int = 45
+    num_answer_classes: int = 32
+    embed_dim: int = 256
+    hidden_dim: int = 512
+    image_feature_dim: int = 1024
+    image_spatial: Tuple[int, int] = (14, 14)
+    program_len: int = 27
+    with_program_decoder: bool = True
+    teacher_forcing: float = 0.5
+    dropout: float = 0.5
+
+
+@dataclass(frozen=True)
+class StepSeq2SeqConfig:
+    """Step executor seq2seq (train_transformer_full_annotation_new.py:35-76)."""
+
+    vocab_size: int = 128
+    d_model: int = 256
+    num_heads: int = 4
+    encoder_layers: int = 2
+    decoder_layers: int = 2
+    ffn_dim: int = 512
+    dropout: float = 0.1
+    max_src_len: int = 50
+    max_tgt_len: int = 20
+    num_image_tokens: int = 196
+    image_feature_dim: int = 1024
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 16
     num_epochs: int = 100
@@ -138,7 +200,9 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ExperimentConfig:
     name: str
-    model_family: str  # generator | executor | executor_scheduled (the port's families)
+    # the port's families: generator | executor | executor_scheduled | iqap |
+    # lstm_iqap | step_seq2seq
+    model_family: str
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -152,8 +216,9 @@ class ExperimentConfig:
 
 
 def _preset_map() -> Dict[str, ExperimentConfig]:
-    """The thesis pair (hyperparameters of record, thesis Table 4.1) and the
-    executor's beyond-reference channels, as in the JAX package's presets."""
+    """The thesis pair (hyperparameters of record, thesis Table 4.1), the
+    executor's beyond-reference channels and the baselines, as in the JAX
+    package's presets."""
     executor = dict(model_family="executor", optim=OptimConfig(learning_rate=1e-4),
                     train=TrainConfig(batch_size=16, num_epochs=100, patience=10))
     presets = {
@@ -181,6 +246,36 @@ def _preset_map() -> Dict[str, ExperimentConfig]:
             name="executor_scheduled",
             model=ExecutorConfig(scheduled_p_max=0.5, scheduled_ramp_epochs=5),
             **dict(executor, model_family="executor_scheduled")),
+        # the checked-in reference scripts' configurations (the baselines)
+        "lstm_qp": ExperimentConfig(
+            name="lstm_qp", model_family="generator",
+            model=GeneratorConfig(embed_dim=256, hidden_dim=512, encoder_layers=1,
+                                  decoder_layers=1, bidirectional=False, attention=False,
+                                  dropout=0.5, simple=True),
+            optim=OptimConfig(learning_rate=1e-3),
+            train=TrainConfig(batch_size=64, num_epochs=20, patience=5)),
+        "transformer_iqap": ExperimentConfig(
+            name="transformer_iqap", model_family="iqap", model=IQAPConfig(),
+            optim=OptimConfig(learning_rate=1e-3, grad_clip_norm=1.0, lr_step_size=10),
+            train=TrainConfig(batch_size=64, num_epochs=100, patience=10)),
+        "transformer_iqap_bb": ExperimentConfig(
+            name="transformer_iqap_bb", model_family="iqap",
+            model=IQAPConfig(encoder_layers=1, decoder_layers=1, with_bbox_head=True),
+            optim=OptimConfig(learning_rate=1e-3, grad_clip_norm=1.0),
+            train=TrainConfig(batch_size=64, num_epochs=100, patience=10)),
+        "lstm_iqap": ExperimentConfig(
+            name="lstm_iqap", model_family="lstm_iqap", model=LstmIQAPConfig(),
+            optim=OptimConfig(learning_rate=1e-3),
+            train=TrainConfig(batch_size=64, num_epochs=50, patience=5)),
+        "lstm_iqa": ExperimentConfig(
+            name="lstm_iqa", model_family="lstm_iqap",
+            model=LstmIQAPConfig(with_program_decoder=False),
+            optim=OptimConfig(learning_rate=1e-3),
+            train=TrainConfig(batch_size=64, num_epochs=50, patience=5)),
+        "step_seq2seq": ExperimentConfig(
+            name="step_seq2seq", model_family="step_seq2seq", model=StepSeq2SeqConfig(),
+            optim=OptimConfig(learning_rate=1e-4),
+            train=TrainConfig(batch_size=32, num_epochs=10)),
     }
     return presets
 

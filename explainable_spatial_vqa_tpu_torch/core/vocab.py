@@ -6,8 +6,11 @@
    excluded and booleans canonicalized (:func:`build_split_vocab`,
    :func:`apply_split_vocab`);
 
-and the helpers the pipelines and the CLI read.  The joint vocabularies of
-the baselines are not ported yet.
+3. the joint vocab over annotated step records, bbox-coordinate tokens
+   included, read by the step seq2seq baseline (:func:`build_joint_vocab`,
+   :func:`apply_joint_vocab`);
+
+and the helpers the pipelines and the CLI read.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from typing import Any, Dict, Iterable, List, Mapping, Sequence
 
 from explainable_spatial_vqa_tpu_torch.core.tokenizer import SPECIAL_TOKENS, word_tokenize
 
-__all__ = ["EMPTY_TOKEN", "apply_split_vocab", "build_clevr_vocab", "build_split_vocab",
+__all__ = ["EMPTY_TOKEN", "apply_joint_vocab", "apply_split_vocab", "build_clevr_vocab",
+           "build_joint_vocab", "build_split_vocab",
            "canonicalize", "invert_vocab", "is_bounding_box_text", "load_vocab",
            "tokenize_field"]
 
@@ -108,6 +112,69 @@ def is_bounding_box_text(text: str) -> bool:
     if not matches:
         return False
     return " ".join(matches).strip() == text.strip()
+
+
+def build_joint_vocab(
+    annotated_questions: Sequence[Dict[str, Any]],
+) -> Dict[str, int]:
+    """Single joint vocab over annotated records, bbox-coordinate tokens
+    included (the ``full_annotation`` scheme consumed by the step-executor
+    trainer; preprocess_full_annotation.py:378-403).  Indexing starts at 0,
+    no reserved specials — the reference overloads id 0 as CE ignore_index.
+    Chain elements contribute both function and the step-index digits.
+    """
+    vocab: Dict[str, int] = {}
+
+    def add(text: str, field: str) -> None:
+        for token in tokenize_field(text, field):
+            token = canonicalize(token)
+            if token not in vocab:
+                vocab[token] = len(vocab)
+
+    for q in annotated_questions:
+        add(q.get("answer", ""), "other")
+        for chain in q.get("final_chain_of_thought", []):
+            parts = chain.split(maxsplit=1)
+            add(parts[0] if parts else "", "function")
+            if len(parts) > 1:
+                add(parts[1], "other")
+        for step in q.get("annotated_program", []):
+            add(step.get("function", ""), "function")
+            add(step.get("input_values", ""), "other")
+            add(step.get("output_values", ""), "other")
+    return vocab
+
+
+def apply_joint_vocab(
+    annotated_q: Dict[str, Any], vocab: Mapping[str, int]
+) -> Dict[str, Any]:
+    """Convert texts to joint-vocab id strings in place; unknown tokens are
+    silently dropped (preprocess_full_annotation.py:405-426)."""
+
+    def convert(text: str, field: str) -> str:
+        out: List[str] = []
+        for token in tokenize_field(text, field):
+            can = canonicalize(token)
+            if can in vocab:
+                out.append(str(vocab[can]))
+        return " ".join(out)
+
+    annotated_q["answer"] = convert(annotated_q.get("answer", ""), "other")
+
+    def convert_chain(chain: str) -> str:
+        parts = chain.split(maxsplit=1)
+        func = convert(parts[0] if parts else "", "function")
+        rest = convert(parts[1], "other") if len(parts) > 1 else ""
+        return f"{func} {rest}".strip() if rest else func
+
+    annotated_q["final_chain_of_thought"] = [
+        convert_chain(c) for c in annotated_q.get("final_chain_of_thought", [])
+    ]
+    for step in annotated_q.get("annotated_program", []):
+        step["function"] = convert(step.get("function", ""), "function")
+        step["input_values"] = convert(step.get("input_values", ""), "other")
+        step["output_values"] = convert(step.get("output_values", ""), "other")
+    return annotated_q
 
 
 def build_split_vocab(

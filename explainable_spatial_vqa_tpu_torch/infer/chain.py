@@ -18,6 +18,12 @@ schedule.
   (:mod:`~explainable_spatial_vqa_tpu_torch.infer.plan`): depth-sorted batches
   that each stop at their deepest chain, or one batch per depth bucket.
 
+* :class:`Seq2SeqChainRunner` chains the step seq2seq baseline: the caches
+  hold each step's decoded token sequence, step k's source is its function
+  token followed by its dependencies' outputs (valid tokens first,
+  :func:`compact_valid_first`), and each step is one encode and a cached
+  greedy decode; :func:`run_bucketed_seq2seq` runs it per depth bucket.
+
 JAX's on-device loops become Python loops here; the pool loop reads one
 scalar per iteration for its exit test.  The caches are updated in place.
 Both passes are deterministic whatever mode the caller left the executor in,
@@ -35,14 +41,16 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
+from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, StepSeq2SeqConfig
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
 from explainable_spatial_vqa_tpu_torch.infer.plan import plan_sorted
 from explainable_spatial_vqa_tpu_torch.models.layers import Device, eval_mode
+from explainable_spatial_vqa_tpu_torch.ops.decoding import greedy_decode
 from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
 
-__all__ = ["ChainState", "ExecutorChainRunner", "chained_forward", "chained_forward_pool",
-           "gather_dep_boxes", "gather_dep_token", "gather_step_inputs"]
+__all__ = ["ChainState", "ExecutorChainRunner", "Seq2SeqChainRunner", "chained_forward",
+           "chained_forward_pool", "compact_valid_first", "gather_dep_boxes", "gather_dep_token",
+           "gather_step_inputs", "run_bucketed_seq2seq"]
 
 
 class ChainState(NamedTuple):
@@ -373,3 +381,124 @@ class ExecutorChainRunner:
             state = self._run_part(self._gather(image_tokens, idx), chains, idx, depth)
             self._scatter(full, state, idx)
         return self._with_finals(full, num_steps)
+
+
+# ---------------------------------------------------------------------------
+# the step seq2seq baseline
+# ---------------------------------------------------------------------------
+
+
+def compact_valid_first(tokens: torch.Tensor, valid: torch.Tensor):
+    """Valid entries moved to the front along the last axis, in their order:
+    (tokens, valid) -> (compacted tokens, compacted valid)."""
+    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+    return torch.gather(tokens, -1, order), torch.gather(valid, -1, order)
+
+
+def _rows(image_tokens, idx: np.ndarray):
+    """Rows ``idx`` of per-question image tokens, a tensor on its own device."""
+    if isinstance(image_tokens, torch.Tensor):
+        return image_tokens.index_select(0, torch.as_tensor(idx, device=image_tokens.device))
+    return np.asarray(image_tokens)[idx]
+
+
+class Seq2SeqChainRunner:
+    """Chained inference for :class:`~..models.step_executor.StepExecutorSeq2Seq`.
+
+    Step k of every chain runs at once: its source is [function] ++ the
+    output sequences of its (up to two) dependencies, valid tokens first and
+    cut to ``max_src_len``; one encode, then a greedy decode of
+    ``max_tgt_len`` tokens over KV caches, whose <END> and what follows
+    become padding.  Steps past a chain's depth stay zero.  The JAX runner
+    walks all ``max_steps`` positions; this one stops after the deepest
+    chain of the batch (read from ``chains.num_steps`` on the host), which
+    leaves the outputs equal.  Runs are deterministic (eval mode, the
+    caller's mode restored), so on the card the encoder runs on K2 at a head
+    dim the kernels are built for."""
+
+    def __init__(self, model, config: StepSeq2SeqConfig, max_steps: int = 28,
+                 start_token: int = 1, end_token: int = 2, pad_token: int = 0,
+                 device: Device = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.config = config
+        self.max_steps = max_steps
+        self.start_token = start_token
+        self.end_token = end_token
+        self.pad_token = pad_token
+
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+        return t.to(device=self.device, dtype=dtype)
+
+    def _step(self, images: torch.Tensor, cache: torch.Tensor, func: torch.Tensor,
+              deps: torch.Tensor) -> torch.Tensor:
+        """One chain position of every row: its decoded outputs (N, T)."""
+        n = func.shape[0]
+        rows = torch.arange(n, device=func.device)
+        parts = [func[:, None]]
+        masks = [torch.ones(n, 1, dtype=torch.bool, device=func.device)]
+        for d in range(2):
+            dep = deps[:, d]
+            seq = cache[rows, dep.clamp(min=0)]
+            parts.append(seq)
+            masks.append((seq != self.pad_token) & (dep >= 0)[:, None])
+        src, valid = compact_valid_first(torch.cat(parts, 1), torch.cat(masks, 1))
+        width = self.config.max_src_len
+        src = torch.where(valid, src, self.pad_token)[:, :width]
+        memory, key_mask = self.model.encode(images, src, valid[:, :width])
+        decoded = greedy_decode(self.model, memory, key_mask, self.start_token,
+                                self.config.max_tgt_len, self.end_token, self.pad_token)
+        return torch.where(decoded == self.end_token, self.pad_token, decoded).to(torch.int32)
+
+    def run(self, image_tokens, chains: ChainArrays) -> Dict[str, np.ndarray]:
+        """``image_tokens``: (N, P, C) features, one row per chain (numpy or a
+        tensor).  Returns numpy {"step_outputs": (N, max_steps, T),
+        "final_outputs": (N, T), each chain's last step}."""
+        num_steps = np.asarray(chains.num_steps)
+        n, t = len(num_steps), self.config.max_tgt_len
+        cache = torch.zeros(n, self.max_steps, t, dtype=torch.int32, device=self.device)
+        depth = min(self.max_steps, int(num_steps.max())) if n else 0
+        images = self._tensor(image_tokens, torch.float32)
+        functions = self._tensor(chains.functions, torch.long)
+        deps = self._tensor(chains.deps, torch.long)
+        active = self._tensor(num_steps, torch.long)[:, None]
+        with torch.no_grad(), eval_mode(self.model):
+            for k in range(depth):
+                out = self._step(images, cache, functions[:, k], deps[:, k])
+                cache[:, k] = torch.where(active > k, out, 0)
+        step_outputs = cache.cpu().numpy()
+        return {"step_outputs": step_outputs,
+                "final_outputs": step_outputs[np.arange(n), num_steps - 1]}
+
+
+def run_bucketed_seq2seq(runner: Seq2SeqChainRunner, image_tokens, chains: ChainArrays,
+                         buckets: Sequence[int] = (8, 12, 16, 20, 28)) -> Dict[str, np.ndarray]:
+    """Depth-bucketed execution for the seq2seq runner: chains grouped by
+    the shallowest bucket edge that holds their depth (edges above
+    ``max_steps`` dropped, ``max_steps`` closing the list), one run per
+    bucket, outputs scattered back."""
+    num_steps = np.asarray(chains.num_steps)
+    n, t = len(num_steps), runner.config.max_tgt_len
+    step_outputs = np.zeros((n, runner.max_steps, t), np.int32)
+    final_outputs = np.zeros((n, t), np.int32)
+    edges = tuple(b for b in sorted(set(buckets)) if b <= runner.max_steps)
+    if not edges or edges[-1] < runner.max_steps:
+        edges = edges + (runner.max_steps,)
+    assigned = np.zeros(n, bool)
+    for depth in edges:
+        select = (~assigned) & (num_steps <= depth)
+        assigned |= select
+        idx = np.flatnonzero(select)
+        if idx.size == 0:
+            continue
+        sub_runner = Seq2SeqChainRunner(runner.model, runner.config, max_steps=depth,
+                                        start_token=runner.start_token,
+                                        end_token=runner.end_token, pad_token=runner.pad_token,
+                                        device=runner.device)
+        sub = ChainArrays(chains.image_index[idx], chains.functions[idx, :depth],
+                          chains.deps[idx, :depth], num_steps[idx], [])
+        out = sub_runner.run(_rows(image_tokens, idx), sub)
+        step_outputs[idx, :depth] = out["step_outputs"]
+        final_outputs[idx] = out["final_outputs"]
+    return {"step_outputs": step_outputs, "final_outputs": final_outputs}

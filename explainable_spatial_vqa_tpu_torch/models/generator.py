@@ -29,22 +29,16 @@ from torch import nn
 
 from explainable_spatial_vqa_tpu_torch.core.config import GeneratorConfig
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
-from explainable_spatial_vqa_tpu_torch.models.layers import Dense, Device, cached_on_params
+from explainable_spatial_vqa_tpu_torch.models.layers import (
+    Dense,
+    Device,
+    cached_on_params,
+    embed_or_nan,
+)
 
 __all__ = ["ProgramGenerator", "LSTMCell"]
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), as in Flax
-
-
-def _embed_or_nan(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
-    """``table(ids)``, with a row of NaN for an id outside the table, as
-    Flax's ``Embed`` (``jnp.take`` in fill mode) returns: a question word or
-    program token the model was not sized for poisons its sequence instead
-    of raising (or asserting on the card)."""
-    ids = ids.long()
-    inside = (ids >= 0) & (ids < table.num_embeddings)
-    rows = table(torch.where(inside, ids, torch.zeros_like(ids)))
-    return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan")))
 
 
 class LSTMCell(nn.Module):
@@ -141,7 +135,7 @@ class ProgramGenerator(nn.Module):
                deterministic: bool = True) -> Tuple[torch.Tensor, Tuple[Carry, ...]]:
         """questions: (B, L) int (0 = <NULL> pad).  Returns (encoder outputs
         (B, L, H), the decoder's initial carry)."""
-        emb = self._dropout(_embed_or_nan(self.embed, questions).to(self.dtype), deterministic)
+        emb = self._dropout(embed_or_nan(self.embed, questions).to(self.dtype), deterministic)
         batch = questions.shape[0]
         carry_f, outs_f = self.enc_fwd.scan(self.enc_fwd.initialize_carry(batch, emb.device), emb)
         if self.bidirectional:
@@ -205,8 +199,8 @@ class ProgramGenerator(nn.Module):
             coins = [tf_ratio >= 1.0] * length
         # a target past the program table reads NaN, as Flax's Embed does;
         # the start token and the argmaxes always lie inside it
-        gold = None if program_targets is None else _embed_or_nan(self.prog_embed,
-                                                                  program_targets)
+        gold = None if program_targets is None else embed_or_nan(self.prog_embed,
+                                                                 program_targets)
         fed = self.prog_embed(torch.full((questions.shape[0],), start_token, dtype=torch.long,
                                          device=questions.device))
         logits_t, tokens = [], []

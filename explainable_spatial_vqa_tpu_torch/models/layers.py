@@ -13,13 +13,23 @@ mask or none, a head dim the kernels are built for) to the fused encoder
 block K2, and :class:`MultiHeadAttention` routes eligible self-attention at
 such a head dim to K1, as ``_fused_eligible`` and the attention dispatch do
 in the JAX package; every other width runs the plain path.
+
+The decoders (:class:`TransformerDecoder`) run teacher-forced under a causal
+mask, or one token at a time over explicit KV caches (``init_cache`` and
+``decode_step``, as in JAX): a cache is a (B, L, H, D) K/V pair in the
+compute type; step ``index`` writes its K/V at that position out of place
+(``torch.where`` on a one-hot row, so autograd reaches every earlier step's
+projections through the cache) and attends over the whole static cache with
+the keys past ``index`` masked out.  Neither path reaches K1: a causal mask
+is not a key-padding mask, and a step's one query is not its keys' length.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
-from typing import Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
-from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention, make_causal_mask
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     attention_eligible,
     fused_attention,
@@ -46,17 +56,22 @@ __all__ = [
     "posemb_2d_sincos_at",
     "Dense",
     "LayerNorm",
+    "embed_or_nan",
+    "PositionalEncoding",
     "MultiHeadAttention",
     "FeedForward",
     "EncoderBlock",
     "DecoderBlock",
     "TransformerEncoder",
+    "TransformerDecoder",
+    "KVCache",
     "cached_on_params",
     "eval_mode",
     "init_parameters",
 ]
 
 Device = Union[str, torch.device]
+KVCache = Dict[str, torch.Tensor]  # {"k": (B, L, H, D), "v": (B, L, H, D)}
 
 
 def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
@@ -127,6 +142,17 @@ def eval_mode(module: nn.Module) -> Iterator[nn.Module]:
             m.training = training
 
 
+def embed_or_nan(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table(ids)``, with a row of NaN for an id outside the table, as
+    Flax's ``Embed`` (``jnp.take`` in fill mode) returns: a token the model
+    was not sized for poisons its sequence instead of raising (or asserting
+    on the card)."""
+    ids = ids.long()
+    inside = (ids >= 0) & (ids < table.num_embeddings)
+    rows = table(torch.where(inside, ids, torch.zeros_like(ids)))
+    return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan")))
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` with float32 parameters that computes in ``dtype``, like
     a Flax ``Dense(dtype=...)``.  Without autograd the cast parameters are
@@ -158,6 +184,38 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float())
 
 
+class PositionalEncoding(nn.Module):
+    """Adds the fixed sinusoidal table, rounded to x's type first as JAX
+    rounds it (a bf16 forward adds a bf16 table), from position ``offset``
+    (a decode step's index; a slice past the table's end starts earlier, as
+    ``lax.dynamic_slice`` clamps it).  Dropout follows the module's mode
+    unless ``deterministic`` says otherwise."""
+
+    def __init__(self, d_model: int, max_len: int = 5000, dropout: float = 0.1,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.register_buffer("table", torch.from_numpy(sinusoidal_positions(max_len, d_model))
+                             .to(resolve_device(device)), persistent=False)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, offset: int = 0,
+                deterministic: Optional[bool] = None) -> torch.Tensor:
+        length = x.shape[-2]
+        start = max(0, min(offset, self.table.shape[0] - length))
+        x = x + self.table[start:start + length].to(x.dtype)
+        if deterministic is None:
+            deterministic = not self.training
+        return x if deterministic else F.dropout(x, self.dropout, training=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_masks(max_len: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, L) bool identity and lower triangle: row ``index`` is a cache
+    step's one-hot write position and its valid keys (``<= index``)."""
+    eye = torch.eye(max_len, dtype=torch.bool, device=device)
+    return eye, torch.tril(torch.ones(max_len, max_len, dtype=torch.bool, device=device))
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with q/k/v/out projections of width d_model.
 
@@ -178,17 +236,48 @@ class MultiHeadAttention(nn.Module):
     def forward(self, query: torch.Tensor, keyvalue: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, lq, d = query.shape
-        lk = keyvalue.shape[1]
-        dh = d // self.num_heads
-        q = self.q(query).view(b, lq, self.num_heads, dh)
-        k = self.k(keyvalue).view(b, lk, self.num_heads, dh)
-        v = self.v(keyvalue).view(b, lk, self.num_heads, dh)
+        q = self._heads(self.q, query)
+        k, v = self._heads(self.k, keyvalue), self._heads(self.v, keyvalue)
         if (not self.training and head_dim_built(d, self.num_heads)
                 and attention_eligible(q, k, mask)):
             out = fused_attention(q, k, v, mask)
         else:
             out = dot_product_attention(q, k, v, mask)
         return self.out(out.reshape(b, lq, d))
+
+    def _heads(self, proj: Dense, x: torch.Tensor) -> torch.Tensor:
+        b, length, d = x.shape
+        return proj(x).view(b, length, self.num_heads, d // self.num_heads)
+
+    def project_kv(self, keyvalue: torch.Tensor) -> KVCache:
+        """K/V of a sequence, computed once (a decoder's cross-attention)."""
+        return {"k": self._heads(self.k, keyvalue), "v": self._heads(self.v, keyvalue)}
+
+    def attend_precomputed(self, query: torch.Tensor, kv: KVCache,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, lq, d = query.shape
+        out = dot_product_attention(self._heads(self.q, query), kv["k"], kv["v"], mask)
+        return self.out(out.reshape(b, lq, d))
+
+    def decode_step(self, query_token: torch.Tensor, cache: KVCache,
+                    index: int) -> Tuple[torch.Tensor, KVCache]:
+        """query_token (B, 1, d): write its K/V at ``index`` and attend over
+        the cache's keys up to it; returns ((B, 1, d), the new cache)."""
+        b, _, d = query_token.shape
+        eye, tril = _step_masks(cache["k"].shape[1], query_token.device)
+        onehot = eye[index][None, :, None, None]
+        cache = {"k": torch.where(onehot, self._heads(self.k, query_token), cache["k"]),
+                 "v": torch.where(onehot, self._heads(self.v, query_token), cache["v"])}
+        out = dot_product_attention(self._heads(self.q, query_token), cache["k"], cache["v"],
+                                    tril[index][None, None, None, :])
+        return self.out(out.reshape(b, 1, d)), cache
+
+    def init_cache(self, batch: int, max_len: int, device: torch.device) -> KVCache:
+        d = self.q.out_features
+        shape = (batch, max_len, self.num_heads, d // self.num_heads)
+        dt = self.q.compute_dtype
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 class FeedForward(nn.Module):
@@ -199,8 +288,9 @@ class FeedForward(nn.Module):
         self.fc2 = Dense(ffn_dim, d_model, dtype, device)
         self.drop = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.drop(torch.relu(self.fc1(x))))
+    def forward(self, x: torch.Tensor, deterministic: bool = False) -> torch.Tensor:
+        h = torch.relu(self.fc1(x))
+        return self.fc2(h if deterministic else self.drop(h))
 
 
 class EncoderBlock(nn.Module):
@@ -266,6 +356,24 @@ class DecoderBlock(nn.Module):
         x = self.norm2(x + self.drop(self.cross_attn(x, memory, memory_mask))).to(dt)
         return self.norm3(x + self.drop(self.ffn(x))).to(dt)
 
+    def init_cache(self, batch: int, max_len: int, memory: torch.Tensor) -> Dict[str, KVCache]:
+        """The self-attention's KV cache and the cross-attention's K/V of ``memory``."""
+        return {"self": self.self_attn.init_cache(batch, max_len, memory.device),
+                "cross": self.cross_attn.project_kv(memory)}
+
+    def decode_step(self, x: torch.Tensor, cache: Dict[str, KVCache], index: int,
+                    memory_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, KVCache]]:
+        """One token (B, 1, d) through the block, with no dropout in any mode
+        (JAX's ``deterministic=True``)."""
+        dt = self.dtype
+        h, self_cache = self.self_attn.decode_step(x, cache["self"], index)
+        x = self.norm1(x + h).to(dt)
+        x = self.norm2(x + self.cross_attn.attend_precomputed(x, cache["cross"],
+                                                              memory_mask)).to(dt)
+        x = self.norm3(x + self.ffn(x, deterministic=True)).to(dt)
+        return x, {"self": self_cache, "cross": cache["cross"]}
+
 
 class TransformerEncoder(nn.Module):
     """A stack of :class:`EncoderBlock`.  With ``remat``, a training forward
@@ -287,6 +395,38 @@ class TransformerEncoder(nn.Module):
         for block in self.blocks:
             x = checkpoint(block, x, mask, use_reentrant=False) if remat else block(x, mask)
         return x
+
+
+class TransformerDecoder(nn.Module):
+    """A stack of :class:`DecoderBlock`: teacher-forced under a causal mask,
+    or one cached token at a time (``init_cache``, ``decode_step``)."""
+
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            DecoderBlock(d_model, num_heads, ffn_dim, dropout, dtype, device)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        causal = make_causal_mask(x.shape[1], x.device)
+        for block in self.blocks:
+            x = block(x, memory, causal, memory_mask)
+        return x
+
+    def init_cache(self, batch: int, max_len: int,
+                   memory: torch.Tensor) -> Tuple[Dict[str, KVCache], ...]:
+        return tuple(block.init_cache(batch, max_len, memory) for block in self.blocks)
+
+    def decode_step(self, x: torch.Tensor, caches: Tuple[Dict[str, KVCache], ...], index: int,
+                    memory_mask: Optional[torch.Tensor] = None):
+        new_caches = []
+        for block, cache in zip(self.blocks, caches):
+            x, cache = block.decode_step(x, cache, index, memory_mask)
+            new_caches.append(cache)
+        return x, tuple(new_caches)
 
 
 def init_parameters(module: nn.Module, seed: int) -> nn.Module:

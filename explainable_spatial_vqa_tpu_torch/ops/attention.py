@@ -8,7 +8,8 @@ to the compute type before the product with V, which accumulates in float32.
 
 This is the plain version of kernel K1 (:mod:`.fused_attention`) and the
 path of every attention call K1 does not take: cross-attention (``Lq != Lk``)
-and masks other than a key-padding mask.
+and masks other than a key-padding mask, such as the decoders' causal mask
+(:func:`make_causal_mask`) and a cached decode step's one query.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["dot_product_attention", "NEG_INF"]
+__all__ = ["dot_product_attention", "make_causal_mask", "combine_masks", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -45,3 +46,20 @@ def dot_product_attention(
     weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-30)
     weights = weights.to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(dtype)
+
+
+def make_causal_mask(length: int, device=None) -> torch.Tensor:
+    """(1, 1, T, T) lower-triangular boolean mask: query t attends keys <= t."""
+    idx = torch.arange(length, device=device)
+    return (idx[None, :] <= idx[:, None])[None, None, :, :]
+
+
+def combine_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """AND together broadcastable boolean masks, ignoring Nones."""
+    present = [m for m in masks if m is not None]
+    if not present:
+        return None
+    out = present[0]
+    for m in present[1:]:
+        out = torch.logical_and(out, m)
+    return out

@@ -1,5 +1,7 @@
 """Dataset assembly, copied from ``explainable_spatial_vqa_tpu/train/datasets.py``:
-``ChainArrays`` for chained inference (:func:`chain_arrays`), the thesis
+the step seq2seq baseline's per-step (image, src, tgt) records
+(:func:`flatten_steps`), ``ChainArrays`` for chained inference
+(:func:`chain_arrays`), the thesis
 executor's per-step training records (:func:`executor_step_arrays`), its
 per-question chain records for scheduled sampling
 (:func:`executor_chain_step_arrays`), and the parsers they need."""
@@ -17,8 +19,14 @@ from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ChainArrays", "NON_SPATIAL_FUNCTIONS", "parse_boxes", "executor_step_arrays",
-           "executor_chain_step_arrays", "chain_arrays"]
+__all__ = ["ChainArrays", "END", "NON_SPATIAL_FUNCTIONS", "PAD", "SPECIALS_OFFSET", "START",
+           "flatten_steps", "parse_boxes", "executor_step_arrays", "executor_chain_step_arrays",
+           "chain_arrays"]
+
+# the step seq2seq baseline's specials: tokens shift by SPECIALS_OFFSET unless
+# reference_compat (raw ids, id 0 both a token and the loss's ignore index)
+PAD, START, END = 0, 1, 2
+SPECIALS_OFFSET = 3
 
 # CLEVR functions that emit a value token; every other function emits an
 # object set, annotated as boxes (explainable_spatial_vqa_tpu/clevr/executor.py)
@@ -27,6 +35,60 @@ NON_SPATIAL_FUNCTIONS = frozenset({
     "query_size", "equal_integer", "less_than", "greater_than", "equal_color",
     "equal_shape", "equal_size", "equal_material", "equal_object",
 })
+
+
+def _encode_tokens(text: str, offset: int) -> List[int]:
+    return [int(tok) + offset for tok in text.split()]
+
+
+def flatten_steps(
+    annotated_questions: Sequence[Dict[str, Any]],
+    max_src_len: int = 50,
+    max_tgt_len: int = 20,
+    reference_compat: bool = False,
+    subset_fraction: float = 1.0,
+) -> Dict[str, np.ndarray]:
+    """Flatten converted (id-string) annotated questions to step records.
+
+    Returns {"image_index", "src", "tgt"} padded int32 arrays.  With specials
+    (default), tgt = <START> tokens <END>; src/tgt token ids are shifted by
+    SPECIALS_OFFSET.
+    """
+    offset = 0 if reference_compat else SPECIALS_OFFSET
+    image_index: List[int] = []
+    srcs: List[List[int]] = []
+    tgts: List[List[int]] = []
+    for q in annotated_questions:
+        for step in q["annotated_program"]:
+            tgt_text = step["output_values"].strip()
+            if not tgt_text:
+                continue
+            src_text = (step["function"] + " " + step["input_values"]).strip()
+            src = _encode_tokens(src_text, offset)[:max_src_len]
+            tgt = _encode_tokens(tgt_text, offset)
+            if not reference_compat:
+                tgt = [START] + tgt + [END]
+            tgt = tgt[:max_tgt_len]
+            image_index.append(q["image_index"])
+            srcs.append(src)
+            tgts.append(tgt)
+
+    total = len(srcs)
+    if subset_fraction < 1.0:
+        total = int(total * subset_fraction)
+        image_index, srcs, tgts = image_index[:total], srcs[:total], tgts[:total]
+
+    src_arr = np.zeros((total, max_src_len), np.int32)
+    tgt_arr = np.zeros((total, max_tgt_len), np.int32)
+    for i, (s, t) in enumerate(zip(srcs, tgts)):
+        src_arr[i, : len(s)] = s
+        tgt_arr[i, : len(t)] = t
+    return {
+        "image_index": np.asarray(image_index, np.int32),
+        "src": src_arr,
+        "tgt": tgt_arr,
+    }
+
 
 _BOX_RE = re.compile(r"\[([^\]]+)\]")
 

@@ -2,8 +2,11 @@
 ``explainable_spatial_vqa_tpu/train/pipelines.py`` for the families of the
 thesis pair, ``generator`` and ``executor`` (presets ``generator``,
 ``executor``, ``executor_roi``, ``executor_roi_count``, ``executor_roi_sim``
-and ``executor_roi_sim_count``), and the executor's chain-level scheduled
-sampling, ``executor_scheduled``.
+and ``executor_roi_sim_count``), the executor's chain-level scheduled
+sampling, ``executor_scheduled``, and the baselines: ``iqap`` (presets
+``transformer_iqap`` and ``transformer_iqap_bb``), ``lstm_iqap``
+(``lstm_iqap``, ``lstm_iqa``) and ``step_seq2seq``; ``lstm_qp`` is a
+``generator`` preset.
 
 Each family is two functions: ``_<family>_pipeline(config, device)`` reads
 the h5 artifacts named by ``config.data`` and hands the arrays to
@@ -28,18 +31,30 @@ from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
 from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
 from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
 from explainable_spatial_vqa_tpu_torch.train.data import Subset, batches, train_val_test_split
+from explainable_spatial_vqa_tpu_torch.models.iqap import TransformerIQAP, generate_programs
+from explainable_spatial_vqa_tpu_torch.models.lstm_iqap import LstmIQAP
+from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorSeq2Seq
 from explainable_spatial_vqa_tpu_torch.train.losses import (
     cross_entropy,
     executor_set_loss,
+    masked_box_regression_loss,
     perturb_input_boxes,
 )
-from explainable_spatial_vqa_tpu_torch.train.metrics import program_metrics
+from explainable_spatial_vqa_tpu_torch.train.metrics import (
+    answer_metrics,
+    masked_token_metrics,
+    mean_iou,
+    program_metrics,
+)
 from explainable_spatial_vqa_tpu_torch.train.scheduled import make_scheduled_loss_fn, schedule_p
 
 __all__ = ["Pipeline", "build_pipeline", "model_dtype", "generator_pipeline_from_arrays",
-           "executor_pipeline_from_arrays", "executor_scheduled_pipeline_from_arrays"]
+           "executor_pipeline_from_arrays", "executor_scheduled_pipeline_from_arrays",
+           "iqap_pipeline_from_arrays", "lstm_iqap_pipeline_from_arrays",
+           "step_seq2seq_pipeline_from_arrays"]
 
-# a (N, P, C) numpy array or tensor, or core.artifacts.H5Features
+# a (N, P, C) numpy array or tensor, or core.artifacts.H5Features ((N, C, H,
+# W) grids for the LSTM baselines)
 Features = Any
 
 
@@ -272,10 +287,173 @@ def _executor_scheduled_pipeline(config: ExperimentConfig, device) -> Pipeline:
                                                    H5Features(config.data.features_h5), device)
 
 
+# ---------------------------------------------------------------------------
+# iqap (transformer_iqap, transformer_iqap_bb)
+# ---------------------------------------------------------------------------
+
+
+def iqap_pipeline_from_arrays(config: ExperimentConfig, arrays: Dict[str, np.ndarray],
+                              features: Features,
+                              device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """The Transformer IQAP on encoded questions: ``arrays`` holds
+    "questions", "answers", "image_index" and optionally "programs" (then
+    the program is generated greedily, also in training, and its logits'
+    cross-entropy joins the loss) and "target_boxes"/"target_box_mask" (the
+    bbox head's smooth-L1 targets); ``features`` (N_images, P, C) tokens.
+    ``config.model`` is used as it is."""
+    device = resolve_device(device)
+    cfg = config.model
+    model = init_parameters(TransformerIQAP(cfg, model_dtype(config, device), device),
+                            config.train.seed)
+
+    def loss_fn(model, batch, generator, train):
+        out = model(batch["image"], batch["questions"])
+        loss = cross_entropy(out["answer_logits"], batch["answers"])
+        metrics = answer_metrics(out["answer_logits"], batch["answers"])
+        if "programs" in batch:
+            # as the reference: generated without teacher forcing, also in training
+            tokens, logits = generate_programs(model, out["memory"],
+                                               max_len=batch["programs"].shape[1])
+            loss = (cfg.answer_loss_weight * loss
+                    + cfg.program_loss_weight * cross_entropy(logits, batch["programs"]))
+            metrics.update(program_metrics(tokens, batch["programs"]))
+        if "pred_boxes" in out and "target_boxes" in batch:
+            loss = loss + masked_box_regression_loss(out["pred_boxes"], batch["target_boxes"],
+                                                     batch["target_box_mask"])
+            metrics.update(mean_iou(out["pred_boxes"], batch["target_boxes"],
+                                    batch["target_box_mask"]))
+        return loss, metrics
+
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config, _FeatureGather(features))
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, ("answer_correct", "answer_total"),
+                    spe)
+
+
+def _iqap_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features, read_questions_h5
+
+    enc = read_questions_h5(config.data.questions_h5)
+    arrays = {"questions": enc.questions, "answers": enc.answers, "programs": enc.programs,
+              "image_index": enc.image_idxs}
+    arrays = {k: v for k, v in arrays.items() if v is not None}
+    if config.model.with_bbox_head and config.data.scenes_h5:
+        from explainable_spatial_vqa_tpu_torch.core.artifacts import read_scenes_h5
+
+        scenes = read_scenes_h5(config.data.scenes_h5)
+        # by image_index VALUE, not row position: a scenes h5 exported from a
+        # filtered or offset split is not dense 0..N-1
+        row_of = {int(v): i for i, v in enumerate(scenes["image_index"])}
+        missing = sorted({int(i) for i in enc.image_idxs} - set(row_of))
+        if missing:
+            raise ValueError(f"scenes_h5 lacks image indices {missing[:5]}"
+                             f"{'...' if len(missing) > 5 else ''} referenced by questions")
+        rows = np.asarray([row_of[int(i)] for i in enc.image_idxs])
+        slots = config.model.num_bbox_slots
+        gt = scenes["bounding_boxes"][rows][:, :slots]
+        gt_mask = scenes["class_labels"][rows][:, :slots] > 0
+        pad = slots - gt.shape[1]
+        if pad > 0:
+            gt = np.pad(gt, ((0, 0), (0, pad), (0, 0)))
+            gt_mask = np.pad(gt_mask, ((0, 0), (0, pad)))
+        arrays["target_boxes"] = gt.astype(np.float32)
+        arrays["target_box_mask"] = gt_mask
+    return iqap_pipeline_from_arrays(config, arrays, H5Features(config.data.features_h5),
+                                     device)
+
+
+# ---------------------------------------------------------------------------
+# lstm_iqap (lstm_iqap, lstm_iqa)
+# ---------------------------------------------------------------------------
+
+
+def lstm_iqap_pipeline_from_arrays(config: ExperimentConfig, arrays: Dict[str, np.ndarray],
+                                   features: Features,
+                                   device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """The LSTM IQAP/IQA on encoded questions: ``arrays`` holds "questions",
+    "answers", "image_index" and, for the program decoder, "programs"
+    (scheduled teacher forcing, the coins from the trainer's generator);
+    ``features`` (N_images, C, H, W) grids.  ``config.model`` is used as it
+    is."""
+    device = resolve_device(device)
+    cfg = config.model
+    model = init_parameters(LstmIQAP(cfg, model_dtype(config, device), device),
+                            config.train.seed)
+    if not cfg.with_program_decoder:
+        arrays = {k: v for k, v in arrays.items() if k != "programs"}
+
+    def loss_fn(model, batch, generator, train):
+        out = model(batch["image"], batch["questions"], batch.get("programs"),
+                    generator=generator)
+        loss = cross_entropy(out["answer_logits"], batch["answers"])
+        metrics = answer_metrics(out["answer_logits"], batch["answers"])
+        if "program_logits" in out and "programs" in batch:
+            loss = loss + cross_entropy(out["program_logits"], batch["programs"])
+            metrics.update(program_metrics(out["program_tokens"], batch["programs"]))
+        return loss, metrics
+
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config, _FeatureGather(features))
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, ("answer_correct", "answer_total"),
+                    spe)
+
+
+def _lstm_iqap_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features, read_questions_h5
+
+    enc = read_questions_h5(config.data.questions_h5)
+    arrays = {"questions": enc.questions, "answers": enc.answers,
+              "image_index": enc.image_idxs}
+    if enc.programs is not None:
+        arrays["programs"] = enc.programs
+    return lstm_iqap_pipeline_from_arrays(
+        config, arrays, H5Features(config.data.features_h5, as_tokens=False), device)
+
+
+# ---------------------------------------------------------------------------
+# step_seq2seq
+# ---------------------------------------------------------------------------
+
+
+def step_seq2seq_pipeline_from_arrays(config: ExperimentConfig, arrays: Dict[str, np.ndarray],
+                                      features: Features,
+                                      device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """The step seq2seq on ``flatten_steps``' records ("image_index", "src",
+    "tgt"): teacher-forced on tgt[:, :-1] against tgt[:, 1:] with padding
+    ignored, the src padding masked in the encoder; ``features`` (N_images,
+    P, C) tokens.  ``config.model`` is used as it is."""
+    device = resolve_device(device)
+    model = init_parameters(StepExecutorSeq2Seq(config.model, model_dtype(config, device),
+                                                device), config.train.seed)
+
+    def loss_fn(model, batch, generator, train):
+        src, tgt = batch["src"], batch["tgt"]
+        logits = model(batch["image"], src, tgt[:, :-1], src != 0)
+        targets = tgt[:, 1:]
+        loss = cross_entropy(logits, targets, ignore_index=0)
+        return loss, masked_token_metrics(torch.argmax(logits, -1), targets)
+
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config, _FeatureGather(features))
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, ("token_correct", "token_total"),
+                    spe)
+
+
+def _step_seq2seq_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features, read_annotated_h5
+    from explainable_spatial_vqa_tpu_torch.train.datasets import flatten_steps
+
+    arrays = flatten_steps(read_annotated_h5(config.data.annotated_h5),
+                           max_src_len=config.model.max_src_len,
+                           max_tgt_len=config.model.max_tgt_len,
+                           subset_fraction=config.data.subset_fraction)
+    return step_seq2seq_pipeline_from_arrays(config, arrays,
+                                             H5Features(config.data.features_h5), device)
+
+
 _FAMILIES = {"generator": _generator_pipeline, "executor": _executor_pipeline,
-             "executor_scheduled": _executor_scheduled_pipeline}
-# the JAX package's other families, not ported yet (ROADMAP.md Queue 1)
-_NOT_PORTED = ("iqap", "lstm_iqap", "step_seq2seq", "iqap_cot", "prototype_step")
+             "executor_scheduled": _executor_scheduled_pipeline, "iqap": _iqap_pipeline,
+             "lstm_iqap": _lstm_iqap_pipeline, "step_seq2seq": _step_seq2seq_pipeline}
+# the JAX package's families still to port (ROADMAP.md Queue 1): the
+# chain-of-thought IQAP and the prototype step models
+_NOT_PORTED = ("iqap_cot", "prototype_step")
 
 
 def build_pipeline(config: ExperimentConfig,

@@ -12,6 +12,9 @@ monkeypatching both packages' ``get_preset``.
 - ``train --preset executor_scheduled`` trains one epoch and writes the
   history and a checkpoint that ``tally --executor_preset
   executor_scheduled`` restores;
+- ``eval-iqap`` prints the summary the JAX CLI prints (the seconds aside)
+  and writes the same records; ``infer-chain`` on joint-vocab "full"
+  annotations prints what the JAX CLI prints and writes the same records;
 - ``--device`` defaults to cuda and raises without a card; ``--plot``
   raises; ``presets`` lists the port's presets.
 """
@@ -47,6 +50,11 @@ GENERATOR = dict(vocab_size=1, program_vocab_size=1, embed_dim=8, hidden_dim=12,
                  encoder_layers=2, decoder_layers=2, dropout=0.0)
 EXECUTOR = dict(vocab_size=1, token_classes=1, d_model=32, num_heads=4, encoder_layers=2,
                 box_decoder_layers=1, num_image_tokens=4, image_feature_dim=8, dropout=0.0)
+IQAP = dict(embed_dim=32, hidden_dim=24, num_heads=4, encoder_layers=2, decoder_layers=2,
+            dropout=0.0)
+SEQ2SEQ = dict(d_model=32, num_heads=4, encoder_layers=2, decoder_layers=2, ffn_dim=64,
+               dropout=0.0)
+NARROW = {"generator": GENERATOR, "iqap": IQAP, "step_seq2seq": SEQ2SEQ}
 GRID = np.linspace(0.05, 0.95, 19)  # the calibrators' scan; 0.5, the gate, is on it
 MARGIN = 1e-5
 
@@ -56,7 +64,7 @@ _GET_PRESET = {jconfig: jconfig.get_preset, tconfig: tconfig.get_preset}
 
 def _narrow(cfg_mod, name):
     base = _GET_PRESET[cfg_mod](name)
-    kw = GENERATOR if base.model_family == "generator" else EXECUTOR
+    kw = NARROW.get(base.model_family, EXECUTOR)
     return base.replace(model=dataclasses.replace(base.model, **kw),
                         train=dataclasses.replace(base.train, log_every=0))
 
@@ -248,6 +256,89 @@ def test_cli_device_rule_and_presets(files, capsys):
     with pytest.raises(SystemExit, match="utils/plots.py"):
         main(["--device", "cpu"] + train + ["--plot", "curves.png"])
     with pytest.raises(KeyError, match="unknown preset"):
-        main(["--device", "cpu", "train", "--preset", "transformer_iqap"])
+        main(["--device", "cpu", "train", "--preset", "transformer_iqap_cot"])
+    for command in (["eval-iqap", "--questions_h5", paths["questions.h5"], "--features_h5",
+                     paths["features.h5"], "--vocab_json", paths["vocab.json"]],
+                    ["infer-chain", "--annotated_h5", paths["annotated.h5"], "--features_h5",
+                     paths["features.h5"], "--vocab_size", "64"]):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                main(command)
     assert _stdout(capsys, main, ["presets"]).split() == sorted(tconfig.PRESETS)
     assert "executor_scheduled" in tconfig.PRESETS
+    for name in ("lstm_qp", "transformer_iqap", "transformer_iqap_bb", "lstm_iqap", "lstm_iqa",
+                 "step_seq2seq"):
+        assert name in tconfig.PRESETS
+
+
+def _masked_seconds(text):
+    """The eval-iqap summary with its wall-clock seconds blanked."""
+    return "\n".join('  "seconds": …,' if line.startswith('  "seconds":') else line
+                     for line in text.splitlines())
+
+
+def test_eval_iqap_prints_what_jax_prints(files, tmp_path, capsys):
+    from explainable_spatial_vqa_tpu.models.iqap import TransformerIQAP as JaxIQAP
+
+    paths, enc, _ = files
+    questions, answers, programs = enc.questions[:30], enc.answers[:30], enc.programs[:30]
+    cfg = dataclasses.replace(  # sized to the 30 questions, as both CLIs size it
+        _narrow(jconfig, "transformer_iqap").model,
+        vocab_size=int(questions.max()) + 1, num_answer_classes=int(answers.max()) + 1,
+        program_vocab_size=int(programs.max()) + 1, program_len=programs.shape[1],
+        max_question_len=questions.shape[1], image_feature_dim=8, num_image_tokens=4)
+    model = JaxIQAP(cfg)
+    params = model.init(jax.random.PRNGKey(5), jnp.zeros((2, 4, 8)), jnp.asarray(questions[:2]),
+                        method=model.init_all)["params"]
+    jdir, tdir = _save(tmp_path, "iqap", params)
+    args = ["eval-iqap", "--questions_h5", paths["questions.h5"], "--features_h5",
+            paths["features.h5"], "--vocab_json", paths["vocab.json"], "--limit", "30"]
+    ref = _stdout(capsys, jax_main, args + ["--checkpoint_dir", jdir, "--output_json",
+                                            str(tmp_path / "jax_iqap.json")])
+    got = _stdout(capsys, main, ["--device", "cpu"] + args + [
+        "--checkpoint_dir", tdir, "--output_json", str(tmp_path / "iqap.json")])
+    assert _masked_seconds(got) == _masked_seconds(ref)
+    summary = json.loads(got)
+    assert summary["samples"] == 30 and {"answer_accuracy", "exact_match"} <= set(summary)
+    with open(tmp_path / "iqap.json") as f, open(tmp_path / "jax_iqap.json") as g:
+        assert json.load(f)["results"] == json.load(g)["results"]
+
+
+def test_infer_chain_prints_what_jax_prints(files, tmp_path, capsys):
+    """infer-chain on "full" annotations in the joint vocabulary (the step
+    seq2seq's input) and a checkpoint of the same weights on both sides."""
+    from explainable_spatial_vqa_tpu.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu.clevr.scenes import Scene
+    from explainable_spatial_vqa_tpu.core import vocab as voc
+    from explainable_spatial_vqa_tpu.models.step_executor import StepExecutorSeq2Seq
+
+    paths, _, _ = files
+    scenes_raw, questions = syn.synthesize_dataset(16, 3, seed=3)
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    annotated = [ann.annotate_question_full(q, scenes[q["image_index"]]) for q in questions]
+    joint = voc.build_joint_vocab(annotated)
+    annotated = [voc.apply_joint_vocab(q, joint) for q in annotated]
+    jart.write_annotated_h5(annotated, str(tmp_path / "full.h5"))
+    with open(tmp_path / "joint.json", "w") as f:
+        json.dump(joint, f)
+    vocab_size = len(joint) + 3
+    cfg = dataclasses.replace(_narrow(jconfig, "step_seq2seq").model, vocab_size=vocab_size,
+                              image_feature_dim=8, num_image_tokens=4)
+    model = StepExecutorSeq2Seq(cfg)
+    params = model.init(jax.random.PRNGKey(6), jnp.zeros((1, 4, 8)), jnp.zeros((1, 5), jnp.int32),
+                        jnp.zeros((1, 3), jnp.int32))["params"]
+    jdir, tdir = _save(tmp_path, "seq2seq", params)
+    args = ["infer-chain", "--annotated_h5", str(tmp_path / "full.h5"), "--features_h5",
+            paths["features.h5"], "--vocab_json", str(tmp_path / "joint.json"), "--vocab_size",
+            str(vocab_size), "--max_steps", "8", "--limit", "20"]
+    ref = _stdout(capsys, jax_main, args + ["--checkpoint_dir", jdir, "--output_json",
+                                            str(tmp_path / "jax_chain.json")])
+    got = _stdout(capsys, main, ["--device", "cpu"] + args + [
+        "--checkpoint_dir", tdir, "--output_json", str(tmp_path / "chain.json")])
+    assert got == ref and got.startswith("truncated_programs: ")
+    assert int(got.split()[1]) > 0  # chains deeper than --max_steps are counted
+    with open(tmp_path / "chain.json") as f, open(tmp_path / "jax_chain.json") as g:
+        records = json.load(f)
+        assert records == json.load(g)
+    assert len(records) == 20 and any(r["predicted_ids"] for r in records)

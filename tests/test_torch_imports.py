@@ -29,11 +29,13 @@ CHECK = textwrap.dedent("""
     for name in ("cli", "cli.main", "evalsuite.detection", "evalsuite.accuracy",
                  "evalsuite.executor_eval", "train.scheduled", "clevr.scenes", "clevr.executor",
                  "clevr.bboxes", "clevr.annotate", "clevr.synthetic", "core.tokenizer",
-                 "evalsuite.cogent", "evalsuite.report", "train.synthetic_protocol"):
+                 "evalsuite.cogent", "evalsuite.report", "train.synthetic_protocol",
+                 "ops.decoding", "models.iqap", "models.lstm_iqap", "models.step_executor"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
-    from explainable_spatial_vqa_tpu_torch.cli.main import main, run_eval_generator, run_tally
+    from explainable_spatial_vqa_tpu_torch.cli.main import (
+        main, run_eval_generator, run_eval_iqap, run_infer_chain, run_tally)
     from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
     from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import evaluate_executor_steps
     from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
@@ -54,6 +56,25 @@ CHECK = textwrap.dedent("""
     needs_cpu_named(lambda: run_tally(None, executor, cfg, None, None, None, {}, {}, {}))
     needs_cpu_named(lambda: main(["train", "--preset", "executor_scheduled"]))
     needs_cpu_named(lambda: main(["cogent-protocol"]))
+    from explainable_spatial_vqa_tpu_torch.core import config as tconfig
+    from explainable_spatial_vqa_tpu_torch.infer.chain import Seq2SeqChainRunner
+    from explainable_spatial_vqa_tpu_torch.models.iqap import TransformerIQAP
+    from explainable_spatial_vqa_tpu_torch.models.lstm_iqap import LstmIQAP
+    from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorSeq2Seq
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import (
+        iqap_pipeline_from_arrays, lstm_iqap_pipeline_from_arrays,
+        step_seq2seq_pipeline_from_arrays)
+    needs_cpu_named(lambda: TransformerIQAP(tconfig.IQAPConfig(embed_dim=32)))
+    needs_cpu_named(lambda: LstmIQAP(tconfig.LstmIQAPConfig(hidden_dim=8, image_spatial=(1, 1))))
+    needs_cpu_named(lambda: StepExecutorSeq2Seq(tconfig.StepSeq2SeqConfig(d_model=32)))
+    needs_cpu_named(lambda: Seq2SeqChainRunner(None, None))
+    needs_cpu_named(lambda: run_eval_iqap(None, None, None, None))
+    needs_cpu_named(lambda: run_infer_chain(None, None, None, []))
+    for preset, build in (("transformer_iqap", iqap_pipeline_from_arrays),
+                          ("lstm_iqa", lstm_iqap_pipeline_from_arrays),
+                          ("step_seq2seq", step_seq2seq_pipeline_from_arrays)):
+        needs_cpu_named(lambda: build(tconfig.get_preset(preset), {}, None))
+    needs_cpu_named(lambda: main(["train", "--preset", "transformer_iqap"]))
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
     from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
     needs_cpu_named(lambda: run_cogent_protocol())

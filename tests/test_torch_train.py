@@ -428,6 +428,6 @@ def test_entry_points_need_cpu_named_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         executor_pipeline_from_arrays(small, arrays, features)
     with pytest.raises(KeyError, match="not ported yet"):
-        build_pipeline(cfg.replace(model_family="iqap"), device="cpu")
+        build_pipeline(cfg.replace(model_family="iqap_cot"), device="cpu")
     with pytest.raises(KeyError, match="unknown preset"):
-        tconfig.get_preset("transformer_iqap")
+        tconfig.get_preset("transformer_iqap_cot")
