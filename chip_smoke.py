@@ -33,7 +33,8 @@ result:
    which also prints how far its compensated sums lie from the exact ones);
    each block also takes a float32 x with its bf16 weights (x rounded to
    bf16 in a pass of its own); K2 also at the Transformer IQAP's encoder
-   shape at d 512 (B=64, L=243, no mask, ``K2_IQAP_SHAPE``);
+   shape at d 512 (B=64, L=243, no mask, ``K2_IQAP_SHAPE``) and at
+   ``HierarchicalGenerator``'s (B=128, L=196, no mask, ``K2_HIER_SHAPE``);
 4. times at those shapes: kernel, plain version, one PyTorch library call
    computing the same function (a yardstick the port never calls), and the
    least time the card could take (its bound: ``bound_ms``, ``dot_ops``);
@@ -77,8 +78,10 @@ result:
     the CLI's ``tally`` on arrays, on 512 ``synth_annotated`` questions with
     per-function calibration (a chain run, the map, a second run gated by
     it; each run's wall time and launches per forward); then in float32 on
-    64 questions, the first chain run's decisions and the threshold map on
-    the card equal to the CPU's;
+    64 questions, with phase 12's trained executor (whose boxes match some
+    ground truth: the phase fails without a true positive, and prints the
+    functions whose threshold moved off the grid's first), the first chain
+    run's decisions and the threshold map on the card equal to the CPU's;
 15. scheduled training: ``executor_scheduled`` at full width, bf16, batch
     16, through ``executor_scheduled_pipeline_from_arrays`` and
     ``Trainer.fit`` for one epoch at ``p_sample`` 0.5; the K2 and K1
@@ -106,12 +109,25 @@ result:
     launches K2 once per layer, each block held against K2's plain version,
     and their float32 decisions card vs CPU; one train step each of
     ``transformer_iqap``, ``lstm_iqap`` and ``step_seq2seq`` (ms, peak
-    GiB, kernels per step, a fixed batch's falling loss).
+    GiB, kernels per step, a fixed batch's falling loss);
+18. the chain-of-thought IQAP and the prototype step models
+    (``cot_and_prototypes``) on the CLEVR factory's questions, in memory:
+    ``transformer_iqap_cot`` (a bf16 train step at batch 64: ms, peak GiB,
+    kernels, busy share; a fixed batch's falling loss; a float32 step card
+    vs CPU, loss and gradients; the greedy decode of the combined sequence
+    and its IoU report, float32 tokens card vs CPU); each of the eight
+    prototype presets (a bf16 step at its batch, a falling fixed batch, a
+    float32 loss card vs CPU); ``HierarchicalGenerator`` at d 512 (head dim
+    128), whose eval forward launches K2 once per encoder layer and K1 once
+    per decoder layer (the one-token start query), each held against its
+    plain version, float32 card vs CPU, and whose train step launches
+    neither; K2 at its encoder shape (``K2_HIER_SHAPE``) in phases 3-4.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``, with its launches on the main path and, under
-``launches_by_path``, on phases 14-17's paths; K2's entry also holds its
-IQAP-shape times under ``at_shapes``) and one per piece timed apart
+``launches_by_path``, on phases 14-18's paths; K2's entry also holds its
+times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
+``at_shapes``) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
 variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -184,6 +200,14 @@ BASELINE_D512_CHAINS = 32  # chains of the d 512 step seq2seq's float32 check
 BASELINE_UPDATES = 60  # fixed-batch updates of each baseline's train step
 NEAR_TIE = 1e-4  # a top-2 logit gap below which card and CPU decisions may part
 K2_IQAP_SHAPE = (64, 243)  # B, L: the IQAP encoder at d 512 (1 + 196 + 46 tokens), no mask
+# phase 18: the chain-of-thought IQAP and the prototype step models on the
+# CLEVR factory's questions (4 per scene)
+PROTO_SCENES = 128
+PROTO_UPDATES = 100  # fixed-batch updates of each phase 18 train step
+PROTO_FP32_ROWS = 8  # rows of phase 18's float32 card-vs-CPU steps
+COT_DECODE_FP32 = 64  # questions of the CoT's float32 greedy decode, card vs CPU
+HIER_D512 = dict(d_model=512, num_heads=4, num_layers=2)  # head dim 128: K2 in eval
+K2_HIER_SHAPE = (128, 196)  # B, L: HierarchicalGenerator's encoder at d 512, no mask
 
 
 def fail(message: str) -> None:
@@ -807,6 +831,8 @@ def main() -> None:
                                                     bound_ms=bnd, bound_by=by, library_ms=lib)
             del layer, x, out, ref, w
     k2_at_iqap_shape(torch, dev, results)
+    k2_at_iqap_shape(torch, dev, results, K2_HIER_SHAPE, "K2_bf16_hier",
+                     "HierarchicalGenerator's encoder shape")
     torch.cuda.empty_cache()
     main_path(torch, np, dev, results, parts)
 
@@ -1322,10 +1348,12 @@ def main_path(torch, np, dev, results, parts) -> None:
     del rs_runner, rs_pipeline, rs_executor, generator, features_dev, questions_dev
     torch.cuda.empty_cache()
     generator_training(torch, dev)
-    executor_training(torch, np, dev)
+    trained = executor_training(torch, np, dev)
     card_vs_cpu_step(torch, np, dev)
-    by_path = {**evaluation(torch, np, dev, counted), **scheduled_training(torch, np, dev, counted),
-               **cogent(torch, np, dev, counted), **baselines(torch, np, dev, counted)}
+    by_path = {**evaluation(torch, np, dev, counted, trained),
+               **scheduled_training(torch, np, dev, counted),
+               **cogent(torch, np, dev, counted), **baselines(torch, np, dev, counted),
+               **cot_and_prototypes(torch, np, dev, counted)}
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -1339,7 +1367,8 @@ def main_path(torch, np, dev, results, parts) -> None:
                     **results[key],
                     launches_by_path={path: c[name] for path, c in by_path.items()})
                for name, src, rep, key, counts in sources]
-    kernels[1]["at_shapes"] = {"iqap_encoder_d512": results["K2_bf16_iqap"]}
+    kernels[1]["at_shapes"] = {"iqap_encoder_d512": results["K2_bf16_iqap"],
+                               "hierarchical_encoder_d512": results["K2_bf16_hier"]}
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1404,7 +1433,7 @@ def generator_training(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def executor_training(torch, np, dev) -> None:
+def executor_training(torch, np, dev):
     """Phase 12: the ``executor_roi`` preset at full width, bf16, on
     ``bench_data``'s executor steps (features on the card):
 
@@ -1419,6 +1448,9 @@ def executor_training(torch, np, dev) -> None:
       learning rate: the loss must fall below 0.8 of its first value;
     - after an optimizer step, an eval forward equal, bit for bit, to that
       of a fresh ``ProgramExecutor`` loaded with the stepped ``state_dict``.
+
+    Returns the fixed batch's trained executor as (its config, its
+    ``state_dict`` on the host), for phase 14's float32 tally.
     """
     from explainable_spatial_vqa_tpu_torch.bench_data import synth_executor_steps
     from explainable_spatial_vqa_tpu_torch.core.config import get_preset
@@ -1565,8 +1597,10 @@ def executor_training(torch, np, dev) -> None:
     if not (all(math.isfinite(x) for x in losses) and below):
         fail(f"the executor's fixed-batch loss did not fall below 0.8 of its first value within "
              f"{EXECUTOR_STEPS} steps")
+    trained = (cfg.model, {k: v.detach().cpu() for k, v in pipe.model.state_dict().items()})
     del trainer, pipe, batch, features
     torch.cuda.empty_cache()
+    return trained
 
 
 def card_vs_cpu_step(torch, np, dev) -> None:
@@ -1698,7 +1732,7 @@ def per_forward_ok(c: dict, cfg) -> bool:
             and c["K1"] == cfg.box_decoder_layers * c["forwards"])
 
 
-def evaluation(torch, np, dev, counted) -> dict:
+def evaluation(torch, np, dev, counted, trained) -> dict:
     """Phase 14, evaluation at full width (generator preset: hidden 512, 3+3
     layers; executor: d=512, 4 heads, 3 fusion and 2 box-decoder layers, 196
     image tokens of 1024 features, 10 queries, ``box_roi``), bf16, random
@@ -1716,10 +1750,15 @@ def evaluation(torch, np, dev, counted) -> dict:
       ``synth_annotated`` questions in the ``"sorted"`` mode with per-function
       calibration: each executor run's wall time, forwards and launches (3
       and 2 per forward), the map;
-    - float32 on ``FP32_QUESTIONS`` questions: the first chain run's
-      decisions and the per-function map on the card equal to the CPU's
-      (where a map entry differs, the confidences within 1e-4 of the deciding
-      thresholds are printed, and the phase fails if there are none).
+    - float32 on ``FP32_QUESTIONS`` questions, with ``trained``, phase 12's
+      trained executor (its boxes have the data's sizes, so some match a
+      ground-truth box; random weights match none and put every function
+      at the grid's first threshold): the first chain run's decisions and
+      the per-function map on the card equal to the CPU's (where a map
+      entry differs, the confidences within 1e-4 of the deciding thresholds
+      are printed, and the phase fails if there are none); the true
+      positives and the functions whose threshold moved off 0.05 are
+      printed, and the phase fails without a true positive.
 
     Returns the launches of each path, for the result line."""
     from explainable_spatial_vqa_tpu_torch.bench_data import (
@@ -1901,15 +1940,17 @@ def evaluation(torch, np, dev, counted) -> dict:
     del executor, generator, features_dev, batches, image_tokens
     torch.cuda.empty_cache()
 
-    # ---- float32, card against the CPU ----
+    # ---- float32, card against the CPU, with phase 12's trained executor ----
     t0 = time.perf_counter()
-    exe32 = init_parameters(ProgramExecutor(exe_cfg, torch.float32, device=dev), seed=17)
+    trained_cfg, trained_state = trained
+    exe32 = ProgramExecutor(trained_cfg, torch.float32, device=dev)
+    exe32.load_state_dict(trained_state)
     cpu32 = copy.deepcopy(exe32).to("cpu")
     sub = records[:FP32_QUESTIONS]
     sub_chains = chain_arrays(sub, fv)
 
     def first_run(model, device, feats_t):
-        run_out = run_chains(ExecutorChainRunner(model, exe_cfg, 28, device=device), feats_t,
+        run_out = run_chains(ExecutorChainRunner(model, trained_cfg, 28, device=device), feats_t,
                              sub_chains, "sorted")
         return run_out, calibrate_chain_conf_thresholds_per_function(run_out, sub, fv, vv)[0]
 
@@ -1920,6 +1961,15 @@ def evaluation(torch, np, dev, counted) -> dict:
     box_err = max(float(np.abs(card_out[k] - cpu_out[k]).max()) for k in ("box_cache",
                                                                         "conf_cache"))
     conf = cpu_out["conf_cache"][cpu_out["conf_cache"] > 0]
+    hits = [int(np.sum(_collect_chain_detections(o, sub, fv, vv, 0.5, 28)[1]))
+            for o in (card_out, cpu_out)]
+    moved = sorted(fn for fn, v in card_map.items() if abs(v - 0.05) > 1e-9)
+    say(f"phase 14 fp32 tally with phase 12's trained executor: {hits[0]} true positives on "
+        f"the card, {hits[1]} on the CPU (IoU 0.5, every chained box prediction); thresholds "
+        f"off 0.05: {len(moved)} of {len(card_map)} ({', '.join(moved)})")
+    if not hits[1]:
+        fail("phase 14: the float32 tally has no true positive; its maps cannot tell a "
+             "calibration from the grid's first threshold")
     say(f"phase 14 fp32 run_chains + per-function calibration on {FP32_QUESTIONS} questions "
         f"({int(sub_chains.num_steps.sum())} steps), card vs CPU: decisions "
         f"{'equal' if decisions else 'DIFFER'} ({int(card_out['box_mask'].sum())} confident "
@@ -2501,6 +2551,49 @@ def baseline_data(torch, np, dev) -> dict:
         features=torch.rand(len(scenes_raw), *BASELINE_IMAGE, generator=gen, device=dev))
 
 
+def encoder_blocks_agreement(torch, counted, encoder, run):
+    """``counted(run)``, with each of ``encoder``'s blocks' bf16 outputs on
+    the card (K2) held against K2's plain version on the block's own input
+    and key mask, under phase 3's rule (printed) and under it with the rms
+    rounded to bf16 (which decides: the block ends in a unit-scale
+    LayerNorm, see ``bf16_agreement``); beside them, the plain version on
+    the card against the plain version on the CPU, which sums in another
+    order.  Returns ((run's value, launches), a text per block, whether
+    every block agrees)."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fuse_encoder_params,
+        fused_encoder_block_plain,
+    )
+
+    seen = []
+    hooks = [b.register_forward_hook(lambda m, args, out: seen.append((m, args, out)))
+             for b in encoder.blocks]
+    try:
+        result = counted(run)
+    finally:
+        for h in hooks:
+            h.remove()
+    texts, ok = [], True
+    for i, (block, args, out) in enumerate(seen):
+        x, mask = args[0], args[1] if len(args) > 1 else None
+        key_mask = None if mask is None else mask[:, 0, 0, :]
+        x = x.to(block.dtype).contiguous()
+        weights = fuse_encoder_params(block, dtype=block.dtype)
+        ref = fused_encoder_block_plain(x, key_mask, weights, block.num_heads)
+        on_cpu = fused_encoder_block_plain(
+            x.cpu(), None if key_mask is None else key_mask.cpu(),
+            type(weights)(*(t.cpu() for t in weights)), block.num_heads)
+        rule = bf16_agreement(torch, out, ref)
+        stats = bf16_agreement(torch, out, ref, rms_rounded=True)
+        control = bf16_agreement(torch, ref, on_cpu.to(ref.device))
+        ok = ok and bf16_ok(stats)
+        texts.append(f"block {i}: phase 3's rule {bf16_text(rule)}, {rule['outside']} "
+                     f"elements outside; with the rms rounded to bf16 {bf16_text(stats)}, "
+                     f"{stats['outside']} outside; plain card vs CPU "
+                     f"{bf16_text(control)}, {control['outside']} outside")
+    return result, texts, ok
+
+
 def decision_gaps(np, card_tokens, cpu_tokens, cpu_logits) -> list:
     """For each row whose greedy tokens (B, T) differ between card and CPU,
     the CPU logits' top-2 gap at its first differing step: the step before
@@ -2590,10 +2683,6 @@ def baselines(torch, np, dev, counted) -> dict:
     from explainable_spatial_vqa_tpu_torch.models.iqap import TransformerIQAP, generate_programs
     from explainable_spatial_vqa_tpu_torch.models.layers import eval_mode, init_parameters
     from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorSeq2Seq
-    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
-        fuse_encoder_params,
-        fused_encoder_block_plain,
-    )
 
     t_phase = time.perf_counter()
     data = baseline_data(torch, np, dev)
@@ -2783,38 +2872,7 @@ def baselines(torch, np, dev, counted) -> dict:
     seq = init_parameters(StepExecutorSeq2Seq(seq512, torch.bfloat16, dev), seed=176)
 
     def block_agreement(model, encode, label):
-        """Each encoder block's bf16 output on the card (K2) against K2's
-        plain version on the block's own input and key mask, under phase
-        3's rule (printed) and under it with the rms rounded to bf16 (which
-        decides: the block ends in a unit-scale LayerNorm, see
-        ``bf16_agreement``); beside them, the plain version on the card
-        against the plain version on the CPU, which sums in another order."""
-        seen = []
-        hooks = [b.register_forward_hook(lambda m, args, out: seen.append((m, args, out)))
-                 for b in model.encoder.blocks]
-        try:
-            _, counts = counted(lambda: encode())
-        finally:
-            for h in hooks:
-                h.remove()
-        texts, ok = [], True
-        for i, (block, args, out) in enumerate(seen):
-            x, mask = args[0], args[1] if len(args) > 1 else None
-            key_mask = None if mask is None else mask[:, 0, 0, :]
-            x = x.to(block.dtype).contiguous()
-            weights = fuse_encoder_params(block, dtype=block.dtype)
-            ref = fused_encoder_block_plain(x, key_mask, weights, block.num_heads)
-            on_cpu = fused_encoder_block_plain(
-                x.cpu(), None if key_mask is None else key_mask.cpu(),
-                type(weights)(*(t.cpu() for t in weights)), block.num_heads)
-            rule = bf16_agreement(torch, out, ref)
-            stats = bf16_agreement(torch, out, ref, rms_rounded=True)
-            control = bf16_agreement(torch, ref, on_cpu.to(ref.device))
-            ok = ok and bf16_ok(stats)
-            texts.append(f"block {i}: phase 3's rule {bf16_text(rule)}, {rule['outside']} "
-                         f"elements outside; with the rms rounded to bf16 {bf16_text(stats)}, "
-                         f"{stats['outside']} outside; plain card vs CPU "
-                         f"{bf16_text(control)}, {control['outside']} outside")
+        (_, counts), texts, ok = encoder_blocks_agreement(torch, counted, model.encoder, encode)
         layers = len(model.encoder.blocks)
         say(f"phase 17.4 {label}, bf16 eval encode: K2 {counts['fused_encoder_block']} launches "
             f"({layers} layers), K1 {counts['fused_attention']}; against K2's plain version: "
@@ -2933,27 +2991,372 @@ def baseline_training(torch, np, dev, data) -> None:
         torch.cuda.empty_cache()
 
 
-def k2_at_iqap_shape(torch, dev, results: dict) -> None:
-    """Phase 3 and 4 for K2 at the Transformer IQAP's encoder shape at d 512
-    (``K2_IQAP_SHAPE``: B=64, L=1+196+46=243, no mask), bf16: against its
-    plain version (phase 3's rule), timed beside it, one
-    ``nn.TransformerEncoderLayer`` call and its bound."""
+# ---------------------------------------------------------------------------
+# phase 18: the chain-of-thought IQAP and the prototype step models
+# ---------------------------------------------------------------------------
+
+
+def proto_data(torch, np, dev) -> dict:
+    """Phase 18's inputs from the CLEVR factory: ``PROTO_SCENES`` scenes with
+    4 questions each (hops and chains on), annotated as single strings and
+    mapped to the CoT's sequences (20-token questions, programs padded to
+    100), and annotated in v3 to ``executor_step_arrays``' step records (18
+    input and 10 output box slots) in their split vocabulary; seeded random
+    (N, 1024, 14, 14) features (and the same as (N, 196, 1024) tokens) and
+    224 px pixels in [0, 1] per image, on the card.  In memory: no h5, no
+    PNG."""
+    from explainable_spatial_vqa_tpu_torch.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu_torch.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
+    from explainable_spatial_vqa_tpu_torch.core import vocab as voc
+    from explainable_spatial_vqa_tpu_torch.core.annotated_strings import build_mapped_sequences
+    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_step_arrays
+
+    scenes_raw, questions = syn.synthesize_dataset(PROTO_SCENES, 4, seed=18, hop_prob=0.5,
+                                                   chain_prob=0.5)
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    mapped, token_to_id = build_mapped_sequences(
+        [ann.annotate_question_string(q, scenes[q["image_index"]]) for q in questions])
+    annotated = ann.annotate_questions(questions, scenes)
+    vocabs = voc.build_split_vocab(annotated)
+    steps = executor_step_arrays(annotated, vocabs["function"], vocabs["other"],
+                                 max_input_boxes=18, max_output_boxes=10)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n = len(scenes_raw)
+    grid = torch.rand(n, 1024, 14, 14, generator=gen, device=dev)
+    return dict(mapped=mapped, token_to_id=token_to_id, steps=steps, vocabs=vocabs, grid=grid,
+                tokens=grid.flatten(2).transpose(1, 2).contiguous(),
+                pixels=torch.rand(n, 224, 224, 3, generator=gen, device=dev))
+
+
+def timed_fixed_batch(torch, dev, trainer, batch, updates: int) -> dict:
+    """``updates`` + 1 ``Trainer.train_step``s of one fixed batch, each
+    between CUDA events: the median ms of 5 after the first (a warm-up), the
+    peak GiB, the losses and the first update below 0.8 of the first loss;
+    then one step under the profiler (kernels and copies, busy share)."""
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(updates + 1)]
+    losses = []
+    for start, end in marks:
+        start.record()
+        losses.append(trainer.train_step(batch, gen)["loss_sum"])
+        end.record()
+    losses = torch.stack(losses).tolist()  # waits for the card
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(start.elapsed_time(end) for start, end in marks[1:6])
+    wall, prof = device_profile(torch, lambda: trainer.train_step(batch, gen))
+    below = next((i for i, x in enumerate(losses) if x < 0.8 * losses[0]), None)
+    return dict(ms=ms, peak=peak, losses=losses, below=below, wall=wall,
+                kernels="not measured" if prof is None else f"{prof[3]}",
+                busy="not measured" if prof is None else f"{prof[0]:.3f}",
+                finite=all(math.isfinite(x) for x in losses))
+
+
+def card_vs_cpu_loss(torch, dev, pipe, train: bool, grads: bool) -> dict:
+    """A float32 pipeline's first training batch: its loss (and, with
+    ``grads``, every gradient) on the card against a copy of the model on
+    the CPU, each with a generator of the same seed.  Returns the relative
+    loss error, the largest gradient error over its tensor's max |g|, and
+    the largest attention key-bias gradient (exactly zero: softmax ignores
+    a shift of the scores) over the largest gradient of all."""
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    cpu_model = copy.deepcopy(pipe.model).to("cpu")
+    out = []
+    for model, b in ((pipe.model, batch),
+                     (cpu_model, {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                  for k, v in batch.items()})):
+        model.train(train)
+        model.zero_grad(set_to_none=True)
+        loss, _ = pipe.loss_fn(model, b, torch.Generator().manual_seed(0), train)
+        if grads:
+            loss.backward()
+        out.append((float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}))
+    (card, card_g), (cpu, cpu_g) = out
+    worst, key_bias = 0.0, 0.0
+    if grads:
+        largest = max(float(g.abs().max()) for g in cpu_g.values() if g is not None)
+        for name, g in cpu_g.items():
+            if g is None or not float(g.abs().max()):
+                continue
+            if name.endswith(".k.bias"):
+                key_bias = max(key_bias, float(g.abs().max()) / largest,
+                               float(card_g[name].abs().max()) / largest)
+                continue
+            worst = max(worst, float((card_g[name].cpu() - g).abs().max() / g.abs().max()))
+    del cpu_model
+    return dict(card=card, cpu=cpu, rel=abs(card - cpu) / max(abs(cpu), 1e-30), grad=worst,
+                key_bias=key_bias)
+
+
+def cot_and_prototypes(torch, np, dev, counted) -> dict:
+    """Phase 18, the chain-of-thought IQAP and the eight prototype presets at
+    their presets' widths, random weights from seeds, on ``proto_data``:
+
+    1. ``transformer_iqap_cot`` (d 256, 1+1 layers, the string vocabulary):
+       one bf16 train step at batch 64 through
+       ``iqap_cot_pipeline_from_arrays`` and ``Trainer.train_step`` (ms, the
+       median of 5 after a warm-up by CUDA events; peak GiB; kernels and
+       copies; busy share); the fixed batch's loss below 0.8 of its first
+       within ``PROTO_UPDATES`` updates; a float32 step (deterministic) on
+       the card against the CPU (loss within 1e-5 relative, every gradient
+       within 1e-4 of its tensor's max |g|); greedy decoding of the combined
+       sequence (``generate_programs`` at ``program_len``) for every
+       question in bf16 (ms by CUDA events) and ``mean_sequential_iou``;
+       in float32 on ``COT_DECODE_FP32`` questions the tokens equal to the
+       CPU's (a row that differs must come from a near-tie);
+    2. the eight prototype presets through
+       ``prototype_step_pipeline_from_arrays`` (``multihead`` with its
+       200,704 x 256 ``image_fc``, ``yolo_bb`` at 224 px): a bf16 step at
+       the preset's batch (ms, peak GiB), a fixed batch's loss below 0.8
+       of its first within ``PROTO_UPDATES`` updates, a float32 step on the
+       card against the CPU (loss within 1e-5 relative);
+    3. K2 on a new path: ``HierarchicalGenerator`` at d 512, 4 heads (head
+       dim 128), 2 layers, batch 128, 196 image tokens, no mask: an eval
+       forward in bf16 launches K2 once per encoder layer and K1 once per
+       decoder layer (the self-attention on the one-token start query: same
+       length, a (1, 1, 1, 1) mask, JAX's rule), each block held against
+       K2's plain version and the start query's attention against K1's
+       plain version; in float32 ``type_logits``' argmax and ``pred_boxes``
+       on the card against the CPU (1e-4); a train step of the module in
+       train mode launches neither.
+
+    Returns the eval forward's launches, for the result line."""
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.models.cot import mean_sequential_iou
+    from explainable_spatial_vqa_tpu_torch.models.iqap import generate_programs
+    from explainable_spatial_vqa_tpu_torch.models.layers import eval_mode, init_parameters
+    from explainable_spatial_vqa_tpu_torch.models.prototypes import HierarchicalGenerator
+    from explainable_spatial_vqa_tpu_torch.ops.attention import (
+        dot_product_attention,
+        make_causal_mask,
+    )
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.train import pipelines
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    data = proto_data(torch, np, dev)
+    mapped, steps = data["mapped"], data["steps"]
+    lengths = (mapped["program_tokens"] != 0).sum(1)
+    say(f"phase 18 data: {len(mapped['image_index'])} questions of {PROTO_SCENES} CLEVR factory "
+        f"scenes; CoT sequences {mapped['question_tokens'].shape[1]}-token questions, programs "
+        f"of {int(lengths.min())}-{int(lengths.max())} tokens (mean {float(lengths.mean()):.1f}) "
+        f"padded to {mapped['program_tokens'].shape[1]}, string vocabulary "
+        f"{len(data['token_to_id'])} ids; {len(steps['is_box_branch'])} v3 step records "
+        f"({float(steps['is_box_branch'].mean()):.3f} spatial); {time.perf_counter() - t_phase:.1f} s")
+
+    def trainer_of(cfg, pipe):
+        return Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                       checkpoint_dir=False, device=dev)
+
+    def with_train(cfg, **kw):
+        return cfg.replace(train=dataclasses.replace(cfg.train, log_every=0, **kw))
+
+    def step_text(r):
+        return (f"{r['ms']:.2f} ms per step (median of 5 after a warm-up, CUDA events); peak "
+                f"{r['peak']:.2f} GiB; {r['kernels']} kernels and copies per step, busy "
+                f"{r['busy']} (one step under the profiler, {r['wall'] * 1e3:.1f} ms); "
+                f"fixed-batch loss step 0 {r['losses'][0]:.4f}, step {PROTO_UPDATES} "
+                f"{r['losses'][-1]:.4f}, below 0.8 at update {r['below']}")
+
+    # ---- 18.1 the chain-of-thought IQAP ----
+    t0 = time.perf_counter()
+    cot = with_train(get_preset("transformer_iqap_cot"))
+    pipe = pipelines.iqap_cot_pipeline_from_arrays(cot, mapped, data["token_to_id"],
+                                                   data["tokens"], device=dev)
+    mcfg = pipe.model.config
+    trainer = trainer_of(cot, pipe)
+    r = timed_fixed_batch(torch, dev, trainer, to_device(next(iter(pipe.train_batches(0))), dev),
+                          PROTO_UPDATES)
+    say(f"phase 18.1 transformer_iqap_cot training (bf16, d {mcfg.embed_dim}, "
+        f"{mcfg.encoder_layers}+{mcfg.decoder_layers} layers, vocabulary {mcfg.vocab_size}, "
+        f"programs {mcfg.program_len}, batch {cot.train.batch_size}): {step_text(r)}")
+    if not (r["finite"] and r["below"] is not None):
+        fail(f"phase 18.1: the CoT fixed batch's loss did not fall below 0.8 of its first "
+             f"within {PROTO_UPDATES} updates")
+    model = pipe.model
+    questions = torch.from_numpy(mapped["question_tokens"]).to(dev)
+    images = data["tokens"].index_select(0, torch.as_tensor(mapped["image_index"], device=dev))
+    idx_to_token = {v: k for k, v in data["token_to_id"].items()}
+
+    def decode(m, rows, device):
+        with torch.no_grad(), eval_mode(m):
+            out = m(images[:rows].to(device), questions[:rows].to(device))
+            return generate_programs(m, out["memory"], max_len=mcfg.program_len)
+
+    decode(model, 16, dev)  # first calls
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    tokens, _ = decode(model, len(questions), dev)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end)
+    iou = mean_sequential_iou(tokens.cpu().numpy(), mapped["program_tokens"], idx_to_token)
+    del trainer, pipe, model
+
+    cot32 = with_train(cot, dtype="float32", batch_size=PROTO_FP32_ROWS)
+    pipe = pipelines.iqap_cot_pipeline_from_arrays(cot32, mapped, data["token_to_id"],
+                                                   data["tokens"], device=dev)
+    agree = card_vs_cpu_loss(torch, dev, pipe, train=False, grads=True)
+    model32 = pipe.model
+    cpu32 = copy.deepcopy(model32).to("cpu")
+    (t_card, _), (t_cpu, l_cpu) = (decode(model32, COT_DECODE_FP32, dev),
+                                   decode(cpu32, COT_DECODE_FP32, torch.device("cpu")))
+    gaps = decision_gaps(np, t_card.cpu().numpy(), t_cpu.numpy(), l_cpu.numpy())
+    say(f"phase 18.1 CoT greedy decode of the combined sequence, bf16, {len(questions)} "
+        f"questions x {mcfg.program_len} steps: {decode_ms:.2f} ms (CUDA events); "
+        f"mean_sequential_iou {iou['mean_iou']:.4f} over {int(iou['evaluated'])} rows with "
+        f"boxes; float32 step card vs CPU ({PROTO_FP32_ROWS} rows, deterministic): loss "
+        f"{agree['card']:.6f} vs {agree['cpu']:.6f} (rel {agree['rel']:.2e}, tol 1e-5), "
+        f"gradients within {agree['grad']:.2e} of their tensor's max |g| (tol 1e-4), the "
+        f"key biases' (zero) within {agree['key_bias']:.2e} of the largest (tol 1e-6); "
+        f"float32 decode on "
+        f"{COT_DECODE_FP32} questions: tokens "
+        f"{'equal' if not gaps else f'differ at {len(gaps)} (near-ties, top-2 gaps {gaps})'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (agree["rel"] > 1e-5 or agree["grad"] > 1e-4 or agree["key_bias"] > 1e-6
+            or any(g > NEAR_TIE for g in gaps)):
+        fail("phase 18.1: the float32 CoT step or decode on the card disagrees with the CPU")
+    del pipe, model32, cpu32
+    torch.cuda.empty_cache()
+
+    # ---- 18.2 the prototype presets ----
+    fv, vv = data["vocabs"]["function"], data["vocabs"]["other"]
+    for preset in ("token_only", "bb_only", "bb_only_iou", "yolo_bb", "multitask_bb", "bbinout",
+                   "multihead", "hierarchical"):
+        t0 = time.perf_counter()
+        cfg = with_train(get_preset(preset))
+        feats = data["pixels"] if cfg.model.kind == "yolo" else data["grid"]
+        pipe = pipelines.prototype_step_pipeline_from_arrays(cfg, steps, fv, vv, feats,
+                                                             device=dev)
+        params = sum(p.numel() for p in pipe.model.parameters())
+        r = timed_fixed_batch(torch, dev, trainer_of(cfg, pipe),
+                              to_device(next(iter(pipe.train_batches(0))), dev), PROTO_UPDATES)
+        del pipe
+        cfg32 = with_train(cfg, dtype="float32", batch_size=PROTO_FP32_ROWS)
+        agree = card_vs_cpu_loss(torch, dev, pipelines.prototype_step_pipeline_from_arrays(
+            cfg32, steps, fv, vv, feats, device=dev), train=True, grads=False)
+        say(f"phase 18.2 {preset} ({cfg.model.kind}, bf16, batch {cfg.train.batch_size}, lr "
+            f"{cfg.optim.learning_rate}, {params / 1e6:.2f}M parameters): {step_text(r)}; "
+            f"float32 step card vs CPU ({PROTO_FP32_ROWS} rows): loss {agree['card']:.6f} vs "
+            f"{agree['cpu']:.6f} (rel {agree['rel']:.2e}, tol 1e-5); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (r["finite"] and r["below"] is not None):
+            fail(f"phase 18.2: the {preset} fixed batch's loss did not fall below 0.8 of its "
+                 f"first within {PROTO_UPDATES} updates")
+        if agree["rel"] > 1e-5:
+            fail(f"phase 18.2: the {preset} float32 loss on the card disagrees with the CPU")
+        torch.cuda.empty_cache()
+
+    # ---- 18.3 K2 on a new path: HierarchicalGenerator at d 512 ----
+    t0 = time.perf_counter()
+    b = K2_HIER_SHAPE[0]
+    rows = np.flatnonzero(steps["is_box_branch"])[:b]
+    image = data["tokens"].index_select(0, torch.as_tensor(steps["image_index"][rows],
+                                                           device=dev))
+    boxes = torch.from_numpy(steps["target_boxes"][rows]).to(dev)
+    hier = init_parameters(HierarchicalGenerator(**HIER_D512, dtype=torch.bfloat16, device=dev),
+                           seed=183)
+    with torch.no_grad(), eval_mode(hier):
+        hier(image, boxes)  # first calls
+        (_, launches), texts, ok = encoder_blocks_agreement(
+            torch, counted, hier.encoder, lambda: hier(image, boxes))
+        attn = hier.decoder.blocks[0].self_attn
+        start = hier.start_query.expand(b, 1, 512).to(torch.bfloat16)
+        q, k, v = (attn._heads(p, start).contiguous() for p in (attn.q, attn.k, attn.v))
+        mask = make_causal_mask(1, dev)
+        k1 = attention_agreement(torch, fused_attention(q, k, v, mask), q, k, v, mask)
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        for s_, e_ in zip(starts, ends):
+            s_.record()
+            hier(image, boxes)
+            e_.record()
+        torch.cuda.synchronize()
+        forward_ms = statistics.median(s_.elapsed_time(e_) for s_, e_ in zip(starts[1:],
+                                                                                ends[1:]))
+    layers = HIER_D512["num_layers"]
+    say(f"phase 18.3 HierarchicalGenerator d 512, 4 heads, {layers}+{layers} layers, bf16 eval "
+        f"forward at B={b}, L={image.shape[1]}, no mask: {forward_ms:.2f} ms (median of 5 "
+        f"after a warm-up); launches {launches} (K2 {layers} expected, one per encoder layer; "
+        f"K1 {layers}, one per decoder layer's start-query self-attention); against K2's plain "
+        f"version: " + "; ".join(texts) + f"; K1 at B={b}, L=1, H=4, D=128 against its plain "
+        f"version: {bf16_text(k1)}")
+    if not (launches["fused_encoder_block"] == layers and launches["fused_attention"] == layers
+            and ok and bf16_ok(k1)):
+        fail("phase 18.3: the eval forward must run K2 once per encoder layer and K1 once per "
+             "decoder layer, each agreeing with its plain version")
+
+    hier32 = HierarchicalGenerator(**HIER_D512, dtype=torch.float32, device=dev)
+    hier32.load_state_dict(hier.state_dict())
+    cpu32 = copy.deepcopy(hier32).to("cpu")
+    outs = []
+    for m, device in ((hier32, dev), (cpu32, torch.device("cpu"))):
+        with torch.no_grad(), eval_mode(m):
+            out = m(image.to(device), boxes.to(device))
+        outs.append({key: val.cpu() for key, val in out.items()})
+    (card, cpu), err = outs, {}
+    for key in ("type_logits", "pred_boxes", "stop_logits", "nonspatial_value"):
+        err[key] = float((card[key] - cpu[key]).abs().max())
+    same_type = bool(torch.equal(card["type_logits"].argmax(-1), cpu["type_logits"].argmax(-1)))
+    top2 = cpu["type_logits"].sort(-1).values
+    gap = float((top2[:, -1] - top2[:, -2]).min())
+    del cpu32, hier32
+
+    cfg = with_train(get_preset("hierarchical"), batch_size=32)
+    pipe = pipelines.prototype_step_pipeline_from_arrays(cfg, steps, fv, vv, data["grid"],
+                                                         device=dev)
+    trainer = Trainer(pipe.loss_fn, hier, cfg.optim, cfg.train, checkpoint_dir=False,
+                      device=dev)
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    (metrics, train_launches) = counted(
+        lambda: trainer.train_step(batch, torch.Generator().manual_seed(0)))
+    train_loss = float(metrics["loss_sum"])
+    say(f"phase 18.3 float32 eval forward, card (K2, K1) vs CPU: type_logits argmax "
+        f"{'equal' if same_type else 'DIFFER'} (smallest top-2 gap {gap:.3g}), max errors "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in err.items()) + " (tol 1e-4); a bf16 train "
+        f"step in train mode (batch {cfg.train.batch_size}, loss {train_loss:.4f}): launches "
+        f"{train_launches}; 18.3 took {time.perf_counter() - t0:.1f} s")
+    if not (same_type and max(err.values()) <= 1e-4):
+        fail("phase 18.3: the float32 HierarchicalGenerator on the card disagrees with the CPU")
+    if any(train_launches.values()) or not math.isfinite(train_loss):
+        fail("phase 18.3: a train step in train mode must launch neither K2 nor K1")
+    del trainer, pipe, hier, batch, data
+    torch.cuda.empty_cache()
+    say(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"hierarchical_d512": launches}
+
+
+def k2_at_iqap_shape(torch, dev, results: dict, shape=None, key: str = "K2_bf16_iqap",
+                     label: str = "the IQAP shape") -> None:
+    """Phase 3 and 4 for K2 at a d 512 encoder shape of a model that runs it,
+    bf16, no mask: by default the Transformer IQAP's (``K2_IQAP_SHAPE``:
+    B=64, L=1+196+46=243), else ``shape`` (B, L) (``HierarchicalGenerator``'s,
+    ``K2_HIER_SHAPE``): against its plain version (phase 3's rule), timed
+    beside it, one ``nn.TransformerEncoderLayer`` call and its bound, kept
+    under ``results[key]``."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         fused_encoder_block,
         fused_encoder_block_plain,
     )
 
-    b, length = K2_IQAP_SHAPE
+    b, length = shape or K2_IQAP_SHAPE
     d, h, ffn = 512, 4, 2048
     _keep, w, x = block_inputs(torch, dev, 3, length, torch.bfloat16, batch=b)
     out = fused_encoder_block(x, None, w, h)
     ref = fused_encoder_block_plain(x, None, w, h)
     stats = bf16_agreement(torch, out, ref)
     err = float((out.float() - ref.float()).abs().max())
-    say(f"phase 3 K2 fused_encoder_block bf16 at the IQAP shape B={b} L={length} d={d} H={h} "
+    say(f"phase 3 K2 fused_encoder_block bf16 at {label} B={b} L={length} d={d} H={h} "
         f"ffn={ffn} mask=none: {bf16_text(stats)}")
     if not bf16_ok(stats):
-        fail("K2 disagrees with its plain version at the IQAP shape")
+        fail(f"K2 disagrees with its plain version at {label}")
     layer = library_layer(torch, w, d, h, ffn, torch.bfloat16)
 
     def library():
@@ -2971,10 +3374,10 @@ def k2_at_iqap_shape(torch, dev, results: dict) -> None:
         ops[kind] = ops.get(kind, 0.0) + count
     nbytes = (2 * rows * d * 2 + (4 * d * d + 2 * d * ffn) * 2 + (3 * d + d + ffn + d + 4 * d) * 4)
     bnd, by = bound_ms(ops, nbytes)
-    say(f"phase 4 K2 fused_encoder_block bf16 at the IQAP shape (B={b}, L={length}, no mask): "
+    say(f"phase 4 K2 fused_encoder_block bf16 at {label} (B={b}, L={length}, no mask): "
         f"kernel {ms:.3f} ms, plain {plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms, "
         f"bound {bnd:.4f} ms ({by}), {(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
-    results["K2_bf16_iqap"] = dict(shape=f"B={b} L={length} d={d} no mask", max_abs_err=err,
+    results[key] = dict(shape=f"B={b} L={length} d={d} no mask", max_abs_err=err,
                                    ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                    library_ms=lib)
     del layer, x, out, ref, w

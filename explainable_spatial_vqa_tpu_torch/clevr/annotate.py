@@ -1,7 +1,8 @@
 """Per-step annotation, the offline ground-truth factory, copied from
 ``explainable_spatial_vqa_tpu/clevr/annotate.py`` (the v3 annotation, the
 input-step-grounded "full" annotation of the step seq2seq baseline in both
-its styles, and the corpus sweep; the Python executor only).
+its styles, the single-string annotation of the chain-of-thought IQAP, and
+the corpus sweep; the Python executor only).
 
 For every question, the symbolic executor runs the program step by step and
 records, per step:
@@ -34,8 +35,8 @@ from explainable_spatial_vqa_tpu_torch.clevr.executor import (
 )
 from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
 
-__all__ = ["annotate_question", "annotate_question_full", "annotate_questions",
-           "step_relevant_objects"]
+__all__ = ["annotate_question", "annotate_question_full", "annotate_question_string",
+           "annotate_questions", "step_relevant_objects"]
 
 
 def step_relevant_objects(function: str, output: Any) -> List[int]:
@@ -239,6 +240,67 @@ def annotate_question_full(
     }
     annotated["annotated_program"] = annotated_program
     annotated["final_chain_of_thought"] = chain_list
+    return annotated
+
+
+_STRING_COMPARE_FUNCTIONS = frozenset({
+    "count", "exist", "greater_than", "less_than", "equal_color", "equal_shape",
+    "equal_size", "equal_material", "equal_integer", "equal_object",
+})
+
+
+def annotate_question_string(
+    question: Dict[str, Any],
+    scene: Scene,
+    boxes: Optional[Any] = None,
+) -> Dict[str, Any]:
+    """Single-string annotation of the chain-of-thought IQAP: one flat
+    ``annotated_program_string`` per question, steps joined by ' | ', each
+    ``fn[args]:(x,y,x,y) ; ...`` with the boxes' coordinates as
+    ``repr(round(c, 3))`` (so 0.1 prints as ``0.1``) or ``:none``.
+
+    A query or compare step is attributed to the union of its input steps'
+    *attributed* objects; a poisoned step renders as a bare ``fn[]:none``,
+    even when the function has side inputs.
+    """
+    program = question["program"]
+    if boxes is None:
+        boxes = scene_bounding_boxes(scene.raw, decimals=None)
+    node_outputs, relevant = _execute_with_poisoning(scene, program)
+    num_objects = len(scene.objects)
+
+    attributed: List[List[int]] = []
+    for i, step in enumerate(program):
+        function = step.get("function", "")
+        if function in _STRING_COMPARE_FUNCTIONS or function.startswith("query_"):
+            union: List[int] = []
+            for dep in step.get("inputs", []):
+                if 0 <= dep < len(attributed):
+                    union.extend(attributed[dep])
+            attributed.append(sorted(set(union)))
+        else:
+            attributed.append(list(relevant[i]))
+
+    steps_str: List[str] = []
+    for i, step in enumerate(program):
+        function = step.get("function", "")
+        values = step.get("value_inputs") or []
+        if node_outputs[i] is None:  # poisoned: the side inputs are dropped
+            steps_str.append(f"{function}[]:none")
+            continue
+        label = f"{function}[{','.join(map(str, values))}]"
+        objs = [o for o in attributed[i] if 0 <= o < num_objects]
+        if not objs:
+            steps_str.append(f"{label}:none")
+            continue
+        rendered = " ; ".join(
+            "(%s,%s,%s,%s)" % tuple(repr(round(float(c), 3)) for c in boxes[o])
+            for o in objs
+        )
+        steps_str.append(f"{label}:{rendered}")
+
+    annotated = dict(question)
+    annotated["annotated_program_string"] = " | ".join(steps_str)
     return annotated
 
 

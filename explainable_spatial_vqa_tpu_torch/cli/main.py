@@ -1,10 +1,15 @@
 """CLI of the port, ported from ``explainable_spatial_vqa_tpu/cli/main.py``
 for the thesis pair, with its flags, printed reports and JSON payloads:
 
-  train           the port's training families (``generator``, the five
-                  ``executor*`` presets, ``executor_scheduled``, and the
-                  baselines ``iqap``, ``lstm_iqap`` and ``step_seq2seq``)
-  presets         the port's preset names
+  train           every training family of the JAX package (``generator``,
+                  the five ``executor*`` presets, ``executor_scheduled``,
+                  the baselines ``iqap``, ``lstm_iqap`` and
+                  ``step_seq2seq``, the chain-of-thought ``iqap_cot``,
+                  which reads ``DataConfig``'s ``mapped_sequences_h5`` and
+                  ``string_vocab_json`` as JAX's CLI does (no flag), and the
+                  eight ``prototype_step`` presets; ``--image_dir`` for
+                  ``yolo_bb``)
+  presets         the preset names
   eval-generator  greedy program accuracy, teacher-forced and best-beam
   tally           faithfulness quadrants and answer accuracy by type; with
                   ``--annotated_h5`` the per-step box P/R and token accuracy

@@ -2,7 +2,8 @@
 
 :func:`flax_to_state_dict` takes the ``"params"`` collection of a JAX
 ``ProgramGenerator``, ``ProgramExecutor``, ``TransformerIQAP``, ``LstmIQAP``,
-``StepExecutorSeq2Seq`` or any of their blocks, as nested
+``StepExecutorSeq2Seq``, a prototype of ``models/prototypes.py`` or any of
+their blocks, as nested
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, variables["params"])``),
 and returns the float32 ``state_dict`` of the port's module of the same
 configuration.  It needs no JAX: the caller passes numpy.
@@ -46,6 +47,25 @@ the baselines' modules: ``image_proj``,    the same names (``encoder.blocks.   a
                                                                                grid flattened C-major, as in JAX
 ``dec_init_fc``, ``prog_fc``,              ``Dense`` of the same name          a ``Dense``: transpose the kernel
 ``answer_fc``
+the prototypes' ``Dense``s (``img_fc``,    the same names                      a ``Dense``: transpose the kernel
+``func_fc``, ``bbox_fc1/2``, ``head_*``,
+``branch_head``, ``bbox_*``, ``token_*``,
+``box_fc1/2``, ``fc_shared``, ``box_out``,
+``stop_out``, ``input_proj``, ``*_head``,
+``type_head``, ``bbox_embedding``,
+``nonspatial_out``, ``fusion_fc``, ...)
+the prototypes' ``Embed``s (``func_emb``,  ``nn.Embedding.weight``             as is
+``embedding``, ``question_emb``,
+``prog_emb``)
+``text_encoder``, ``dec_cell``             ``LSTMCell`` of the same name       an ``OptimizedLSTMCell``, as above
+(``OptimizedLSTMCell``)
+``start_token`` (h,), ``start_query`` (d,) parameters of the same name         as is
+``HierarchicalGenerator``'s ``encoder``,   ``encoder.blocks.{i}``,             as the baselines' blocks
+``decoder`` ``block_{i}``                  ``decoder.blocks.{i}``
+``Conv_{i}`` kernel (kh, kw, in, out),     ``convs.{i}.weight`` (out, in, kh,  HWIO -> OIHW
+bias (out,) (``YoloDetector``)             kw), bias
+``YoloDetector``'s ``Dense_0``,            ``fc1``, ``fc2``                    renamed; ``fc1``'s inputs are the
+``Dense_1``                                                                    (H, W, C) grid flattened, as in JAX
 =========================================  ==================================  ============================================
 """
 
@@ -63,9 +83,9 @@ _LSTM_GATES = ("i", "f", "g", "o")
 
 
 def _rename(name: str) -> str:
-    match = re.fullmatch(r"(block|cell)_(\d+)", name)
+    match = re.fullmatch(r"(block|cell|Conv)_(\d+)", name)
     if match:
-        return f"{match.group(1)}s.{match.group(2)}"
+        return f"{match.group(1).lower()}s.{match.group(2)}"
     return {"Dense_0": "fc1", "Dense_1": "fc2"}.get(name, name)
 
 
@@ -76,6 +96,11 @@ def _tensor(a: Any) -> torch.Tensor:
 def _dense(node: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     kernel = np.asarray(node["kernel"])
     bias = np.asarray(node["bias"]) if "bias" in node else None
+    if kernel.ndim == 4:  # a convolution: (kh, kw, in, out) -> (out, in, kh, kw)
+        out = {"weight": kernel.transpose(3, 2, 0, 1)}
+        if bias is not None:
+            out["bias"] = bias
+        return out
     if kernel.ndim == 3 and bias is not None and bias.ndim == 2:  # q/k/v: (d, H, Dh)
         kernel, bias = kernel.reshape(kernel.shape[0], -1), bias.reshape(-1)
     elif kernel.ndim == 3:  # out projection: (H, Dh, d)
@@ -104,7 +129,7 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             leaves = _lstm_cell(node)
         elif "kernel" in keys:
             leaves = _dense(node)
-        elif "embedding" in keys:
+        elif "embedding" in keys and not isinstance(node["embedding"], Mapping):
             leaves = {"weight": node["embedding"]}
         elif "scale" in keys:
             leaves = {"weight": node["scale"], "bias": node["bias"]}

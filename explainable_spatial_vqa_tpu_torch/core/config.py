@@ -1,12 +1,14 @@
 """Configurations: copies of the JAX package's ``DataConfig``,
 ``OptimConfig``, ``GeneratorConfig``, ``ExecutorConfig``, ``TrainConfig`` and
-``ExperimentConfig`` and the baselines' ``IQAPConfig``, ``LstmIQAPConfig``
-and ``StepSeq2SeqConfig`` (``explainable_spatial_vqa_tpu/core/config.py``),
-field for field, so one set of keyword arguments builds both packages'
-models and trainers, with the presets of the families the port trains:
-``generator``, the five executor presets, ``executor_scheduled`` and the
-checked-in reference scripts' ``lstm_qp``, ``transformer_iqap``,
-``transformer_iqap_bb``, ``lstm_iqap``, ``lstm_iqa`` and ``step_seq2seq``.
+``ExperimentConfig``, the baselines' ``IQAPConfig``, ``LstmIQAPConfig`` and
+``StepSeq2SeqConfig`` and the prototypes' ``PrototypeStepConfig``
+(``explainable_spatial_vqa_tpu/core/config.py``), field for field, so one
+set of keyword arguments builds both packages' models and trainers, with
+every preset of the JAX package: ``generator``, the five executor presets,
+``executor_scheduled``, the checked-in reference scripts' ``lstm_qp``,
+``transformer_iqap``, ``transformer_iqap_bb``, ``transformer_iqap_cot``,
+``lstm_iqap``, ``lstm_iqa`` and ``step_seq2seq``, and the eight prototype
+presets.
 ``TrainConfig.mesh_shape`` and ``mesh_axes`` are kept for that reason; the
 port trains on one card and reads neither."""
 
@@ -18,8 +20,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["DataConfig", "OptimConfig", "GeneratorConfig", "ExecutorConfig", "IQAPConfig",
-           "LstmIQAPConfig", "StepSeq2SeqConfig", "TrainConfig", "ExperimentConfig", "PRESETS",
-           "get_preset"]
+           "LstmIQAPConfig", "StepSeq2SeqConfig", "PrototypeStepConfig", "TrainConfig",
+           "ExperimentConfig", "PRESETS", "get_preset"]
 
 
 @dataclass(frozen=True)
@@ -180,6 +182,47 @@ class StepSeq2SeqConfig:
 
 
 @dataclass(frozen=True)
+class PrototypeStepConfig:
+    """One config for the prototype step-model families, by ``kind``:
+
+    - ``token_only``   -- TokenOnlyPredictor
+    - ``bb_only``      -- BBoxOnlyPredictor, positional box regression
+                         (iou_weight > 0 adds an IoU term)
+    - ``multitask_bb`` -- MultiTaskBBoxTokenPredictor + the set-matching loss
+    - ``selection``    -- BBoxSelectionPredictor, per-input-box membership
+    - ``multihead``    -- MultiHeadStepModel, 8 typed heads + AR box decoder
+    - ``hierarchical`` -- HierarchicalGenerator
+    - ``yolo``         -- YoloDetector from raw pixels + the grid loss
+    """
+
+    kind: str = "token_only"
+    function_vocab_size: int = 64
+    token_vocab_size: int = 64
+    vocab_size: int = 64  # multihead text vocab
+    max_input_boxes: int = 18
+    max_output_boxes: int = 10
+    image_feature_dim: int = 1024
+    image_spatial: Tuple[int, int] = (14, 14)
+    num_image_tokens: int = 196
+    iou_weight: float = 0.0  # bb_only v2: + iou_weight * (1 - IoU)
+    # multitask_bb's set loss (read by train.losses.executor_set_loss)
+    matcher: str = "sinkhorn"
+    sinkhorn_iters: int = 20
+    sinkhorn_tau: float = 1.0
+    cost_l1: float = 5.0
+    cost_giou: float = 2.0
+    cost_conf: float = 1.0
+    routing_weight: float = 1.0
+    bbox_weight: float = 1.0
+    token_weight: float = 1.0
+    input_box_noise: float = 0.0
+    input_box_drop: float = 0.0
+    # yolo
+    grid: int = 7
+    image_size: int = 224
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 16
     num_epochs: int = 100
@@ -200,8 +243,8 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ExperimentConfig:
     name: str
-    # the port's families: generator | executor | executor_scheduled | iqap |
-    # lstm_iqap | step_seq2seq
+    # generator | executor | executor_scheduled | iqap | lstm_iqap |
+    # step_seq2seq | iqap_cot | prototype_step
     model_family: str
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
@@ -272,11 +315,35 @@ def _preset_map() -> Dict[str, ExperimentConfig]:
             model=LstmIQAPConfig(with_program_decoder=False),
             optim=OptimConfig(learning_rate=1e-3),
             train=TrainConfig(batch_size=64, num_epochs=50, patience=5)),
+        "transformer_iqap_cot": ExperimentConfig(
+            name="transformer_iqap_cot", model_family="iqap_cot",
+            model=IQAPConfig(encoder_layers=1, decoder_layers=1, program_len=100,
+                             max_question_len=20),
+            optim=OptimConfig(learning_rate=1e-3, grad_clip_norm=1.0),
+            train=TrainConfig(batch_size=64, num_epochs=100, patience=10)),
         "step_seq2seq": ExperimentConfig(
             name="step_seq2seq", model_family="step_seq2seq", model=StepSeq2SeqConfig(),
             optim=OptimConfig(learning_rate=1e-4),
             train=TrainConfig(batch_size=32, num_epochs=10)),
     }
+
+    # the prototype step models, each over the annotated-step arrays
+    def proto(name, kind, lr=1e-3, bs=32, epochs=10, clip=None, **kw):
+        presets[name] = ExperimentConfig(
+            name=name, model_family="prototype_step", model=PrototypeStepConfig(kind=kind, **kw),
+            optim=OptimConfig(learning_rate=lr, grad_clip_norm=clip),
+            train=TrainConfig(batch_size=bs, num_epochs=epochs, patience=3))
+
+    proto("token_only", "token_only", lr=1e-3)
+    proto("bb_only", "bb_only")
+    proto("bb_only_iou", "bb_only", iou_weight=1.0)
+    proto("yolo_bb", "yolo", lr=1e-4)
+    proto("multitask_bb", "multitask_bb", lr=1e-3)
+    proto("bbinout", "selection", lr=1e-3)
+    # lr 1e-4 and clipping: the flattened-image Dense (200k fan-in)
+    # diverges at 1e-3 on random features
+    proto("multihead", "multihead", lr=1e-4, clip=1.0)
+    proto("hierarchical", "hierarchical", lr=1e-3)
     return presets
 
 

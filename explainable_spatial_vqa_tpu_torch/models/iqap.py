@@ -86,11 +86,14 @@ class TransformerIQAP(nn.Module):
         out = torch.sigmoid(self.bbox_out(torch.relu(self.bbox_hidden(pooled))))
         return out.reshape(out.shape[0], cfg.num_bbox_slots, 4)
 
-    def decode_programs_tf(self, program_inputs: torch.Tensor,
-                           memory: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced decode: (B, T) program inputs -> (B, T, V) logits."""
-        x = self.pos_decoder(embed_or_nan(self.prog_embed, program_inputs).to(self.dtype))
-        return self.prog_out(self.prog_decoder(x, memory, None))
+    def decode_programs_tf(self, program_inputs: torch.Tensor, memory: torch.Tensor,
+                           deterministic: bool = True) -> torch.Tensor:
+        """Teacher-forced decode: (B, T) program inputs -> (B, T, V) logits,
+        without dropout unless ``deterministic`` is False (then as the
+        module's mode says), as in JAX."""
+        x = self.pos_decoder(embed_or_nan(self.prog_embed, program_inputs).to(self.dtype),
+                             deterministic=deterministic or None)
+        return self.prog_out(self.prog_decoder(x, memory, None, deterministic))
 
     def init_cache(self, memory: torch.Tensor, max_len: int):
         return self.prog_decoder.init_cache(memory.shape[0], max_len, memory)

@@ -350,11 +350,14 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 self_mask: Optional[torch.Tensor] = None,
-                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = False) -> torch.Tensor:
+        """Dropout follows the module's mode unless ``deterministic``."""
         dt = self.dtype
-        x = self.norm1(x + self.drop(self.self_attn(x, x, self_mask))).to(dt)
-        x = self.norm2(x + self.drop(self.cross_attn(x, memory, memory_mask))).to(dt)
-        return self.norm3(x + self.drop(self.ffn(x))).to(dt)
+        drop = (lambda t: t) if deterministic else self.drop
+        x = self.norm1(x + drop(self.self_attn(x, x, self_mask))).to(dt)
+        x = self.norm2(x + drop(self.cross_attn(x, memory, memory_mask))).to(dt)
+        return self.norm3(x + drop(self.ffn(x, deterministic))).to(dt)
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor) -> Dict[str, KVCache]:
         """The self-attention's KV cache and the cross-attention's K/V of ``memory``."""
@@ -410,10 +413,11 @@ class TransformerDecoder(nn.Module):
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
-                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = False) -> torch.Tensor:
         causal = make_causal_mask(x.shape[1], x.device)
         for block in self.blocks:
-            x = block(x, memory, causal, memory_mask)
+            x = block(x, memory, causal, memory_mask, deterministic)
         return x
 
     def init_cache(self, batch: int, max_len: int,
@@ -432,8 +436,8 @@ class TransformerDecoder(nn.Module):
 def init_parameters(module: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from a ``torch.Generator`` seeded with ``seed``:
     LayerNorm scales one and biases zero; other biases zero; embedding tables
-    normal(0, 1); matrices normal with std 1/sqrt(fan_in); the rest (learned
-    queries, positions, CLS) normal(0, 0.02)."""
+    normal(0, 1); matrices and convolution kernels normal with std
+    1/sqrt(fan_in); the rest (learned queries, positions, CLS) normal(0, 0.02)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for mod in module.modules():
@@ -444,8 +448,8 @@ def init_parameters(module: nn.Module, seed: int) -> nn.Module:
                     values = torch.zeros(p.shape)
                 elif isinstance(mod, nn.Embedding):
                     values = torch.randn(p.shape, generator=gen)
-                elif p.ndim == 2 and leaf.startswith("weight"):
-                    values = torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1])
+                elif p.ndim >= 2 and leaf.startswith("weight"):
+                    values = torch.randn(p.shape, generator=gen) / math.sqrt(p[0].numel())
                 else:
                     values = torch.randn(p.shape, generator=gen) * 0.02
                 p.copy_(values)

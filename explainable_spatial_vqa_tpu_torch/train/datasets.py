@@ -4,7 +4,10 @@ the step seq2seq baseline's per-step (image, src, tgt) records
 (:func:`chain_arrays`), the thesis
 executor's per-step training records (:func:`executor_step_arrays`), its
 per-question chain records for scheduled sampling
-(:func:`executor_chain_step_arrays`), and the parsers they need."""
+(:func:`executor_chain_step_arrays`), the parsers they need, and the
+prototype step models' targets derived from the step records
+(:func:`multihead_typed_targets`, :func:`selection_targets`,
+:func:`yolo_grid_targets`)."""
 
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ChainArrays", "END", "NON_SPATIAL_FUNCTIONS", "PAD", "SPECIALS_OFFSET", "START",
-           "flatten_steps", "parse_boxes", "executor_step_arrays", "executor_chain_step_arrays",
-           "chain_arrays"]
+__all__ = ["ChainArrays", "END", "MULTIHEAD_HEADS", "NON_SPATIAL_FUNCTIONS", "PAD",
+           "SPECIALS_OFFSET", "START", "flatten_steps", "parse_boxes", "executor_step_arrays",
+           "executor_chain_step_arrays", "chain_arrays", "multihead_typed_targets",
+           "selection_targets", "yolo_grid_targets"]
 
 # the step seq2seq baseline's specials: tokens shift by SPECIALS_OFFSET unless
 # reference_compat (raw ids, id 0 both a token and the loss's ignore index)
@@ -375,3 +379,93 @@ def chain_arrays(
             "step is a mid-chain value, so their answers will score wrong; raise max_steps to "
             "cover them", truncated, max_steps)
     return ChainArrays(image_index, functions, deps, num_steps, answers, truncated=truncated)
+
+
+# ---------------------------------------------------------------------------
+# The prototype step models' targets, from executor_step_arrays' records
+# ---------------------------------------------------------------------------
+
+MULTIHEAD_HEADS = (
+    "bbox", "integer", "boolean", "size", "color", "shape", "material", "vocab"
+)
+
+_BOOLEAN_BASES = {
+    "exist", "equal_color", "equal_shape", "equal_size", "equal_material",
+    "equal_integer", "less_than", "greater_than",
+}
+_ATTR_HEAD = {
+    "query_size": ("size", ("large", "small")),
+    "query_color": ("color", ("gray", "red", "blue", "green", "brown",
+                              "purple", "cyan", "yellow")),
+    "query_shape": ("shape", ("cube", "sphere", "cylinder")),
+    "query_material": ("material", ("rubber", "metal")),
+}
+
+
+def multihead_typed_targets(
+    arrays: Dict[str, np.ndarray],
+    function_vocab: Mapping[str, int],
+    value_vocab: Mapping[str, int],
+) -> Dict[str, np.ndarray]:
+    """Each record's head and class within it for the 8-head step model:
+    head_id (N,) int32, an index into :data:`MULTIHEAD_HEADS`, by the
+    function's output type, and typed_target (N,) int32 (0 for the bbox
+    head)."""
+    inv_f = {v: k for k, v in function_vocab.items()}
+    inv_v = {v: k for k, v in value_vocab.items()}
+    fids = arrays["text"][:, 0]
+    n = len(fids)
+    head_id = np.zeros(n, np.int32)
+    typed = np.zeros(n, np.int32)
+    for i in range(n):
+        if arrays["is_box_branch"][i]:
+            head_id[i] = MULTIHEAD_HEADS.index("bbox")
+            continue
+        base = inv_f.get(int(fids[i]), "").split("[")[0]
+        value = canonicalize(str(inv_v.get(int(arrays["token_target"][i]), "")))
+        if base == "count":
+            head_id[i] = MULTIHEAD_HEADS.index("integer")
+            try:
+                typed[i] = min(max(int(value), 0), 10)
+            except ValueError:
+                typed[i] = 0
+        elif base in _BOOLEAN_BASES:
+            head_id[i] = MULTIHEAD_HEADS.index("boolean")
+            typed[i] = 1 if value == "true" else 0
+        elif base in _ATTR_HEAD:
+            name, classes = _ATTR_HEAD[base]
+            head_id[i] = MULTIHEAD_HEADS.index(name)
+            typed[i] = classes.index(value) if value in classes else 0
+        else:
+            head_id[i] = MULTIHEAD_HEADS.index("vocab")
+            typed[i] = int(arrays["token_target"][i])
+    return {"head_id": head_id, "typed_target": typed}
+
+
+def selection_targets(arrays: Dict[str, np.ndarray], tol: float = 1e-4) -> np.ndarray:
+    """Per-input-box membership labels of the box-selection predictor: an
+    input box is selected iff it (nearly) equals some output box."""
+    inp = arrays["input_boxes"]  # (N, S, 4)
+    out = arrays["target_boxes"]  # (N, T, 4)
+    diff = np.abs(inp[:, :, None, :] - out[:, None, :, :]).max(-1)  # (N, S, T)
+    match = (diff < tol) & arrays["target_box_mask"][:, None, :]
+    return (match.any(-1) & arrays["input_box_mask"]).astype(np.float32)
+
+
+def yolo_grid_targets(boxes: np.ndarray, mask: np.ndarray, grid: int = 7) -> np.ndarray:
+    """(N, grid, grid, 5) YOLO targets from normalized xyxy box sets: each
+    valid box writes (cx_off, cy_off, w, h, 1) into its center cell."""
+    n = boxes.shape[0]
+    target = np.zeros((n, grid, grid, 5), np.float32)
+    for i in range(n):
+        for b, valid in zip(boxes[i], mask[i]):
+            if not valid:
+                continue
+            cx = (b[0] + b[2]) * 0.5
+            cy = (b[1] + b[3]) * 0.5
+            col = min(int(cx * grid), grid - 1)
+            row = min(int(cy * grid), grid - 1)
+            target[i, row, col] = (
+                cx * grid - col, cy * grid - row, b[2] - b[0], b[3] - b[1], 1.0
+            )
+    return target

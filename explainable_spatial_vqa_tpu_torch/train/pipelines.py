@@ -1,12 +1,16 @@
 """Training pipelines: artifacts -> (model, loss_fn, batches), ported from
-``explainable_spatial_vqa_tpu/train/pipelines.py`` for the families of the
+``explainable_spatial_vqa_tpu/train/pipelines.py``, every family of it: the
 thesis pair, ``generator`` and ``executor`` (presets ``generator``,
 ``executor``, ``executor_roi``, ``executor_roi_count``, ``executor_roi_sim``
 and ``executor_roi_sim_count``), the executor's chain-level scheduled
-sampling, ``executor_scheduled``, and the baselines: ``iqap`` (presets
+sampling, ``executor_scheduled``, the baselines: ``iqap`` (presets
 ``transformer_iqap`` and ``transformer_iqap_bb``), ``lstm_iqap``
 (``lstm_iqap``, ``lstm_iqa``) and ``step_seq2seq``; ``lstm_qp`` is a
-``generator`` preset.
+``generator`` preset; the chain-of-thought IQAP, ``iqap_cot``
+(``transformer_iqap_cot``), and the prototype step models,
+``prototype_step`` (``token_only``, ``bb_only``, ``bb_only_iou``,
+``yolo_bb``, ``multitask_bb``, ``bbinout``, ``multihead``,
+``hierarchical``).
 
 Each family is two functions: ``_<family>_pipeline(config, device)`` reads
 the h5 artifacts named by ``config.data`` and hands the arrays to
@@ -18,6 +22,8 @@ the h5 artifacts named by ``config.data`` and hands the arrays to
 from __future__ import annotations
 
 import dataclasses
+import json
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
@@ -51,7 +57,8 @@ from explainable_spatial_vqa_tpu_torch.train.scheduled import make_scheduled_los
 __all__ = ["Pipeline", "build_pipeline", "model_dtype", "generator_pipeline_from_arrays",
            "executor_pipeline_from_arrays", "executor_scheduled_pipeline_from_arrays",
            "iqap_pipeline_from_arrays", "lstm_iqap_pipeline_from_arrays",
-           "step_seq2seq_pipeline_from_arrays"]
+           "step_seq2seq_pipeline_from_arrays", "iqap_cot_pipeline_from_arrays",
+           "prototype_step_pipeline_from_arrays"]
 
 # a (N, P, C) numpy array or tensor, or core.artifacts.H5Features ((N, C, H,
 # W) grids for the LSTM baselines)
@@ -80,18 +87,26 @@ def model_dtype(config: ExperimentConfig, device: torch.device) -> torch.dtype:
 
 
 class _FeatureGather:
-    """Batch transform attaching image features (B, P, C) by ``image_index``
-    from ``features``: a (N, P, C) array or tensor (a tensor on the card is
-    gathered there), or ``core.artifacts.H5Features``."""
+    """Batch transform attaching image features by ``image_index`` from
+    ``features``: an array or tensor (a tensor on the card is gathered
+    there), ``core.artifacts.H5Features`` or :class:`_ImageGather`.  With
+    ``as_tokens`` a gathered (B, C, H, W) grid becomes (B, H*W, C) tokens."""
 
-    def __init__(self, features: Features):
+    def __init__(self, features: Features, as_tokens: bool = False):
         self.features = features
+        self.as_tokens = as_tokens
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         idx = batch["image_index"]
         if isinstance(self.features, torch.Tensor):
             idx = torch.as_tensor(idx, dtype=torch.long).to(self.features.device)
-        return {**batch, "image": self.features[idx]}
+        image = self.features[idx]
+        if self.as_tokens and image.ndim == 4:
+            n, c, h, w = image.shape
+            image = image.reshape(n, c, h * w).swapaxes(1, 2)
+            if isinstance(image, torch.Tensor):
+                image = image.contiguous()
+        return {**batch, "image": image}
 
 
 def _batch_factories(arrays: Dict[str, np.ndarray], config: ExperimentConfig, transform=None,
@@ -448,19 +463,358 @@ def _step_seq2seq_pipeline(config: ExperimentConfig, device) -> Pipeline:
                                              H5Features(config.data.features_h5), device)
 
 
+# ---------------------------------------------------------------------------
+# iqap_cot (transformer_iqap_cot)
+# ---------------------------------------------------------------------------
+
+
+def iqap_cot_pipeline_from_arrays(config: ExperimentConfig, mapped: Dict[str, np.ndarray],
+                                  token_to_id: Dict[str, int], features: Features,
+                                  device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """The chain-of-thought IQAP on ``build_mapped_sequences``' arrays and
+    vocabulary; ``features`` (N_images, P, C) tokens.  The model is sized to
+    the string vocabulary (vocab, program vocab and answer classes all
+    max(vocabulary, preset)) and to the arrays' question and program
+    lengths; the answer is the first answer token.  The loss is the
+    answer's CE plus the CE of the teacher-forced combined sequence without
+    its box-coordinate tokens, the decode run without dropout in any mode,
+    as in JAX."""
+    from explainable_spatial_vqa_tpu_torch.models.cot import (
+        bbox_token_table,
+        cross_entropy_skip_bbox,
+    )
+
+    device = resolve_device(device)
+    vocab_size = max(len(token_to_id), config.model.program_vocab_size)
+    cfg = dataclasses.replace(
+        config.model, vocab_size=vocab_size, program_vocab_size=vocab_size,
+        num_answer_classes=vocab_size, program_len=int(mapped["program_tokens"].shape[1]),
+        max_question_len=int(mapped["question_tokens"].shape[1]))
+    config = config.replace(model=cfg)
+    idx_to_token = {int(v): k for k, v in token_to_id.items()}
+    bbox_table = torch.from_numpy(bbox_token_table(idx_to_token, vocab_size)).to(device)
+    arrays = {
+        "questions": mapped["question_tokens"].astype(np.int32),
+        "programs": mapped["program_tokens"].astype(np.int32),
+        "answers": mapped["answer_tokens"][:, 0].astype(np.int32),
+        "image_index": mapped["image_index"].astype(np.int32),
+    }
+    model = init_parameters(TransformerIQAP(cfg, model_dtype(config, device), device),
+                            config.train.seed)
+
+    def loss_fn(model, batch, generator, train):
+        out = model(batch["image"], batch["questions"])
+        programs = batch["programs"]
+        # the start id is 1 (<UNK> in the string vocabulary), as in JAX
+        inputs = torch.cat([torch.ones_like(programs[:, :1]), programs[:, :-1]], dim=1)
+        logits = model.decode_programs_tf(inputs, out["memory"])
+        loss = (cross_entropy(out["answer_logits"], batch["answers"])
+                + cross_entropy_skip_bbox(logits, programs, bbox_table, ignore_index=0))
+        metrics = answer_metrics(out["answer_logits"], batch["answers"])
+        metrics.update(masked_token_metrics(torch.argmax(logits, -1), programs))
+        return loss, metrics
+
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config, _FeatureGather(features))
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, ("answer_correct", "answer_total"),
+                    spe)
+
+
+def _iqap_cot_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.annotated_strings import read_mapped_sequences
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features
+
+    mapped = read_mapped_sequences(config.data.mapped_sequences_h5)
+    with open(config.data.string_vocab_json) as f:
+        blob = json.load(f)
+    return iqap_cot_pipeline_from_arrays(config, mapped, blob.get("token_to_id", blob),
+                                         H5Features(config.data.features_h5), device)
+
+
+# ---------------------------------------------------------------------------
+# prototype_step (token_only, bb_only, bb_only_iou, yolo_bb, multitask_bb,
+# bbinout, multihead, hierarchical)
+# ---------------------------------------------------------------------------
+
+
+class _ImageGather:
+    """Decoded raw images by image index, (B, S, S, 3) float32 in [0, 1]
+    (the from-pixels YOLO prototype), from the directory's PNGs; the decoded
+    images stay in a bounded LRU cache (a full CLEVR split would otherwise
+    pin ~40 GB of pixels on the host)."""
+
+    def __init__(self, image_dir: str, size: int = 224, cache_images: int = 2048):
+        from explainable_spatial_vqa_tpu_torch.vision.extract import collect_image_paths
+
+        if not image_dir:
+            raise ValueError("this preset trains from raw pixels: pass --image_dir with the "
+                             "CLEVR PNG directory (DataConfig.image_dir is empty)")
+        self.paths = collect_image_paths(image_dir)
+        self.size = size
+        self._cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._cache_images = cache_images
+
+    def _load(self, idx: int) -> np.ndarray:
+        if idx in self._cache:
+            self._cache.move_to_end(idx)
+            return self._cache[idx]
+        from explainable_spatial_vqa_tpu_torch.vision.extract import _decode_resize_pil
+
+        arr = _decode_resize_pil(self.paths[idx], (self.size, self.size)).astype(np.float32)
+        arr /= 255.0
+        self._cache[idx] = arr
+        if len(self._cache) > self._cache_images:
+            self._cache.popitem(last=False)
+        return arr
+
+    def __getitem__(self, idx: np.ndarray) -> np.ndarray:
+        return np.stack([self._load(int(i)) for i in idx])
+
+
+def _masked_box_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Squared coordinate error over the masked slots, per coordinate."""
+    m = mask.float()
+    return (((pred - target) ** 2) * m[..., None]).sum() / torch.clamp(m.sum() * 4, min=1.0)
+
+
+def _prototype_model(cfg, dtype: torch.dtype, device: torch.device) -> nn.Module:
+    from explainable_spatial_vqa_tpu_torch.models import prototypes as proto
+
+    fused = dict(function_vocab_size=cfg.function_vocab_size,
+                 max_input_boxes=cfg.max_input_boxes,
+                 image_feature_dim=cfg.image_feature_dim, dtype=dtype, device=device)
+    if cfg.kind == "token_only":
+        return proto.TokenOnlyPredictor(token_vocab_size=cfg.token_vocab_size, **fused)
+    if cfg.kind == "bb_only":
+        return proto.BBoxOnlyPredictor(max_output_boxes=cfg.max_output_boxes, **fused)
+    if cfg.kind == "multitask_bb":
+        return proto.MultiTaskBBoxTokenPredictor(max_output_boxes=cfg.max_output_boxes,
+                                                 token_vocab_size=cfg.token_vocab_size, **fused)
+    if cfg.kind == "selection":
+        return proto.BBoxSelectionPredictor(**fused)
+    if cfg.kind == "multihead":
+        return proto.MultiHeadStepModel(
+            vocab_size=cfg.vocab_size, image_feat_dim=cfg.image_feature_dim,
+            image_spatial=tuple(cfg.image_spatial), max_bbox_steps=cfg.max_output_boxes,
+            dtype=dtype, device=device)
+    if cfg.kind == "hierarchical":
+        return proto.HierarchicalGenerator(
+            num_image_tokens=cfg.num_image_tokens, image_feature_dim=cfg.image_feature_dim,
+            max_inner_steps=cfg.max_output_boxes, dtype=dtype, device=device)
+    if cfg.kind == "yolo":
+        return proto.YoloDetector(grid=cfg.grid, image_size=cfg.image_size, dtype=dtype,
+                                  device=device)
+    raise KeyError(f"unknown prototype kind {cfg.kind!r}")
+
+
+def _prototype_loss_fn(cfg):
+    """(loss_fn, monitor) of the prototype ``cfg.kind``, JAX's losses and
+    metric names."""
+    from explainable_spatial_vqa_tpu_torch.models.prototypes import yolo_grid_loss
+    from explainable_spatial_vqa_tpu_torch.ops.matching import box_iou
+    from explainable_spatial_vqa_tpu_torch.train.datasets import MULTIHEAD_HEADS
+    from explainable_spatial_vqa_tpu_torch.train.losses import binary_cross_entropy
+
+    kind = cfg.kind
+
+    def fused_inputs(batch):
+        return batch["image"], batch["text"][:, 0], batch["input_boxes"]
+
+    if kind == "token_only":
+        def loss_fn(model, batch, generator, train):
+            logits = model(*fused_inputs(batch))
+            pred = torch.argmax(logits, -1)
+            return cross_entropy(logits, batch["token_target"]), {
+                "token_correct": (pred == batch["token_target"]).sum(),
+                "token_total": pred.shape[0]}
+
+        return loss_fn, ("token_correct", "token_total")
+
+    if kind == "bb_only":
+        def loss_fn(model, batch, generator, train):
+            out = model(*fused_inputs(batch))
+            boxes, conf = out[..., :4], out[..., 4]
+            mask = batch["target_box_mask"]
+            loss = (_masked_box_mse(boxes, batch["target_boxes"], mask)
+                    + binary_cross_entropy(conf, mask.float()).mean())
+            iou = box_iou(boxes, batch["target_boxes"])
+            if cfg.iou_weight > 0.0:  # v2: + the IoU term
+                loss = loss + cfg.iou_weight * (
+                    ((1.0 - iou) * mask).sum() / torch.clamp(mask.float().sum(), min=1.0))
+            return loss, {"iou_sum": (iou * mask).sum(), "iou_total": mask.sum()}
+
+        return loss_fn, ("iou_sum", "iou_total")
+
+    if kind == "multitask_bb":
+        def loss_fn(model, batch, generator, train):
+            out = model(*fused_inputs(batch))
+            losses = executor_set_loss(out, batch["target_boxes"], batch["target_box_mask"],
+                                       batch["token_target"], batch["is_box_branch"], cfg)
+            routing_pred = torch.argmax(out["routing_logits"], -1)
+            return losses["loss"], {
+                "routing_correct": (routing_pred == 1 - batch["is_box_branch"].long()).sum(),
+                "routing_total": routing_pred.shape[0]}
+
+        return loss_fn, ("routing_correct", "routing_total")
+
+    if kind == "selection":
+        def loss_fn(model, batch, generator, train):
+            logits = model(*fused_inputs(batch))
+            mask = batch["input_box_mask"].float()
+            bce = binary_cross_entropy(torch.sigmoid(logits), batch["selected"])
+            pred = (logits > 0).float()
+            return (bce * mask).sum() / torch.clamp(mask.sum(), min=1.0), {
+                "select_correct": ((pred == batch["selected"]) * mask).sum(),
+                "select_total": mask.sum()}
+
+        return loss_fn, ("select_correct", "select_total")
+
+    if kind == "multihead":
+        def loss_fn(model, batch, generator, train):
+            out = model(batch["text"][:, 0], batch["text"][:, 1:], batch["image"],
+                        batch["target_boxes"], generator=generator)
+            head_id, typed = batch["head_id"], batch["typed_target"]
+            total = torch.zeros((), device=typed.device)
+            correct = torch.zeros((), device=typed.device)
+            count = torch.zeros((), device=typed.device)
+            # each typed head's CE on its rows; the targets clamped into the
+            # head's classes first (another head's target past them would
+            # give NaN, and 0 * NaN poisons the sum)
+            for h, name in enumerate(MULTIHEAD_HEADS):
+                if name == "bbox":
+                    continue
+                sel = head_id == h
+                safe = torch.clamp(typed, max=out[name].shape[-1] - 1)
+                total = total + cross_entropy(out[name], safe, label_weights=sel.float())
+                correct = correct + ((torch.argmax(out[name], -1) == typed) & sel).sum()
+                count = count + sel.sum()
+            # the box branch: the masked coordinate MSE and the stop CE
+            is_box = head_id == 0
+            mask = batch["target_box_mask"] & is_box[:, None]
+            stop_target = (~batch["target_box_mask"]).long()
+            total = total + _masked_box_mse(out["bbox"], batch["target_boxes"], mask)
+            total = total + cross_entropy(
+                out["bbox_stop_logits"], stop_target,
+                label_weights=is_box[:, None].expand(stop_target.shape).float())
+            return total, {"typed_correct": correct, "typed_total": count}
+
+        return loss_fn, ("typed_correct", "typed_total")
+
+    if kind == "hierarchical":
+        def loss_fn(model, batch, generator, train):
+            out = model(batch["image"], batch["target_boxes"])
+            is_box = batch["is_box_branch"]
+            type_target = (~is_box).long()
+            mask = batch["target_box_mask"] & is_box[:, None]
+            loss = (cross_entropy(out["type_logits"], type_target)
+                    + _masked_box_mse(out["pred_boxes"], batch["target_boxes"], mask))
+            stop_target = (~batch["target_box_mask"]).float()
+            stop_bce = binary_cross_entropy(torch.sigmoid(out["stop_logits"]), stop_target)
+            box_rows = is_box[:, None].float()
+            loss = loss + (stop_bce * box_rows).sum() / torch.clamp(
+                box_rows.sum() * stop_target.shape[1], min=1.0)
+            value_err = (out["nonspatial_value"] - batch["token_target"].float()) ** 2
+            value_rows = (~is_box).float()
+            loss = loss + (value_err * value_rows).sum() / torch.clamp(value_rows.sum(), min=1.0)
+            type_pred = torch.argmax(out["type_logits"], -1)
+            return loss, {"type_correct": (type_pred == type_target).sum(),
+                          "type_total": type_pred.shape[0]}
+
+        return loss_fn, ("type_correct", "type_total")
+
+    if kind == "yolo":
+        def loss_fn(model, batch, generator, train):
+            pred = model(batch["image"])
+            hit = (pred[..., 4] > 0.5) == (batch["yolo_target"][..., 4] > 0)
+            return yolo_grid_loss(pred, batch["yolo_target"]), {
+                "cell_correct": hit.sum(), "cell_total": hit.numel()}
+
+        return loss_fn, ("cell_correct", "cell_total")
+
+    raise KeyError(f"unknown prototype kind {kind!r}")
+
+
+def prototype_step_pipeline_from_arrays(config: ExperimentConfig, arrays: Dict[str, np.ndarray],
+                                        function_vocab: Dict[str, int],
+                                        value_vocab: Dict[str, int], features: Features,
+                                        device: Union[str, torch.device] = "cuda") -> Pipeline:
+    """A prototype step model (``config.model.kind``) on step records in
+    ``executor_step_arrays``' layout, built with ``config.model``'s
+    ``max_input_boxes`` and ``max_output_boxes``, and the split vocabulary
+    they were encoded in.  ``features``: the (N_images, C, H, W) grids (as
+    tokens for every kind but ``multihead``), or for ``yolo`` the (N_images,
+    S, S, 3) pixels in [0, 1] or an :class:`_ImageGather`.  The vocabulary
+    sizes grow to the vocabulary's (max(preset, data)); each kind keeps its
+    own samples (``token_only`` the token steps, ``bb_only`` and ``yolo``
+    the box steps, ``selection`` the box steps with input boxes)."""
+    from explainable_spatial_vqa_tpu_torch.train import datasets as ds
+
+    device = resolve_device(device)
+    n_fn, n_val = len(function_vocab) + 1, len(value_vocab) + 1
+    cfg = dataclasses.replace(
+        config.model, function_vocab_size=max(config.model.function_vocab_size, n_fn),
+        token_vocab_size=max(config.model.token_vocab_size, n_val),
+        vocab_size=max(config.model.vocab_size, n_val, n_fn))
+    config = config.replace(model=cfg)
+    kind = cfg.kind
+    arrays = dict(arrays)
+    if kind == "multihead":
+        arrays.update(ds.multihead_typed_targets(arrays, function_vocab, value_vocab))
+    if kind == "selection":
+        arrays["selected"] = ds.selection_targets(arrays)
+    if kind == "yolo":
+        arrays["yolo_target"] = ds.yolo_grid_targets(arrays["target_boxes"],
+                                                     arrays["target_box_mask"], cfg.grid)
+    if kind == "token_only":
+        keep = ~arrays["is_box_branch"]
+    elif kind in ("bb_only", "yolo"):
+        keep = arrays["is_box_branch"]
+    elif kind == "selection":
+        keep = arrays["is_box_branch"] & arrays["input_box_mask"].any(-1)
+    else:
+        keep = np.ones(len(arrays["is_box_branch"]), bool)
+    arrays = {k: v[keep] for k, v in arrays.items()}
+    if len(arrays["is_box_branch"]) < 2:
+        raise ValueError(
+            f"preset kind {kind!r} found {len(arrays['is_box_branch'])} usable step samples: "
+            f"check that the annotated steps and the split vocabulary come from the same "
+            f"annotate run (e.g. `annotate --mode v3 --vocab_output vocab3.json`)")
+
+    model = init_parameters(_prototype_model(cfg, model_dtype(config, device), device),
+                            config.train.seed)
+    loss_fn, monitor = _prototype_loss_fn(cfg)
+    gather = _FeatureGather(features, as_tokens=kind not in ("multihead", "yolo"))
+    train_b, val_b, test_b, spe = _batch_factories(arrays, config, gather)
+    return Pipeline(model, loss_fn, train_b, val_b, test_b, monitor, spe)
+
+
+def _prototype_step_pipeline(config: ExperimentConfig, device) -> Pipeline:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import H5Features, read_annotated_h5
+    from explainable_spatial_vqa_tpu_torch.core.vocab import load_vocab
+    from explainable_spatial_vqa_tpu_torch.train.datasets import executor_step_arrays
+
+    vocabs = load_vocab(config.data.split_vocab_json)
+    cfg = config.model
+    arrays = executor_step_arrays(read_annotated_h5(config.data.annotated_h5),
+                                  vocabs["function"], vocabs["other"],
+                                  max_input_boxes=cfg.max_input_boxes,
+                                  max_output_boxes=cfg.max_output_boxes,
+                                  subset_fraction=config.data.subset_fraction)
+    if cfg.kind == "yolo":
+        features: Features = _ImageGather(config.data.image_dir, cfg.image_size)
+    else:
+        features = H5Features(config.data.features_h5, as_tokens=False)
+    return prototype_step_pipeline_from_arrays(config, arrays, vocabs["function"],
+                                               vocabs["other"], features, device)
+
+
 _FAMILIES = {"generator": _generator_pipeline, "executor": _executor_pipeline,
              "executor_scheduled": _executor_scheduled_pipeline, "iqap": _iqap_pipeline,
-             "lstm_iqap": _lstm_iqap_pipeline, "step_seq2seq": _step_seq2seq_pipeline}
-# the JAX package's families still to port (ROADMAP.md Queue 1): the
-# chain-of-thought IQAP and the prototype step models
-_NOT_PORTED = ("iqap_cot", "prototype_step")
+             "lstm_iqap": _lstm_iqap_pipeline, "step_seq2seq": _step_seq2seq_pipeline,
+             "iqap_cot": _iqap_cot_pipeline, "prototype_step": _prototype_step_pipeline}
 
 
 def build_pipeline(config: ExperimentConfig,
                    device: Union[str, torch.device] = "cuda") -> Pipeline:
-    if config.model_family in _NOT_PORTED:
-        raise KeyError(f"model family {config.model_family!r} is not ported yet; the port "
-                       f"trains {sorted(_FAMILIES)}")
     if config.model_family not in _FAMILIES:
         raise KeyError(f"unknown model family {config.model_family!r}")
     return _FAMILIES[config.model_family](config, resolve_device(device))

@@ -13,12 +13,14 @@ in float32, on h5 artifacts written with the JAX package's own tools:
   coin is drawn);
 - a fixed batch's loss falls, below 0.97 of its first, over eight
   ``Trainer.train_step``s of each baseline family;
-- ``build_pipeline`` still raises for ``iqap_cot`` and ``prototype_step``;
+- ``build_pipeline`` builds ``iqap_cot`` and ``prototype_step`` from their
+  artifacts (the families ported last) and raises for an unknown family;
 - the six baseline presets equal JAX's field for field.
 """
 
 import copy
 import dataclasses
+import json
 
 import h5py
 import jax
@@ -172,9 +174,47 @@ def test_fixed_batch_loss_falls(preset, files):
 
 
 @pytest.mark.parametrize("family", ["iqap_cot", "prototype_step"])
-def test_unported_families_still_raise(family):
-    with pytest.raises(KeyError, match="not ported yet"):
-        build_pipeline(tconfig.ExperimentConfig(name=family, model_family=family), device="cpu")
+def test_unported_families_still_raise(family, files, tmp_path):
+    """The two families ported last build through ``build_pipeline`` from
+    their h5 artifacts (``iqap_cot``: mapped sequences of single-string
+    annotations; ``prototype_step``: v3 annotations, ``token_only``) and
+    take a finite step; an unknown family still raises."""
+    from explainable_spatial_vqa_tpu.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu.clevr.scenes import Scene
+    from explainable_spatial_vqa_tpu.core import annotated_strings as astr
+    from explainable_spatial_vqa_tpu.core import vocab as voc
+
+    paths, _ = files
+    scenes_raw, corpus = syn.synthesize_dataset(8, 3, seed=7)
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    if family == "iqap_cot":
+        arrays, vocab = astr.build_mapped_sequences(
+            [ann.annotate_question_string(q, scenes[q["image_index"]]) for q in corpus])
+        astr.write_mapped_sequences(arrays, str(tmp_path / "mapped.h5"))
+        (tmp_path / "vocab.json").write_text(json.dumps({"token_to_id": vocab}))
+        data = dict(mapped_sequences_h5=str(tmp_path / "mapped.h5"),
+                    string_vocab_json=str(tmp_path / "vocab.json"))
+        base, kw = tconfig.get_preset("transformer_iqap_cot"), IQAP
+    else:
+        annotated = ann.annotate_questions(corpus, scenes)
+        jart.write_annotated_h5(annotated, str(tmp_path / "v3.h5"))
+        voc.save_vocab(voc.build_split_vocab(annotated), str(tmp_path / "vocab3.json"))
+        data = dict(annotated_h5=str(tmp_path / "v3.h5"),
+                    split_vocab_json=str(tmp_path / "vocab3.json"))
+        base = tconfig.get_preset("token_only")
+        kw = dict(image_feature_dim=8, image_spatial=(2, 3), num_image_tokens=6)
+    config = base.replace(model=dataclasses.replace(base.model, **kw),
+                          data=tconfig.DataConfig(features_h5=paths["features_h5"], **data),
+                          train=dataclasses.replace(base.train, batch_size=4, log_every=0))
+    pipe = build_pipeline(config, device="cpu")
+    assert config.model_family == family
+    batch = to_device(next(iter(pipe.train_batches(0))), CPU)
+    pipe.model.eval()
+    loss, metrics = pipe.loss_fn(pipe.model, batch, torch.Generator().manual_seed(0), False)
+    assert np.isfinite(float(loss)) and set(pipe.monitor) <= set(metrics)
+    with pytest.raises(KeyError, match="unknown model family"):
+        build_pipeline(config.replace(model_family=family + "_x"), device="cpu")
 
 
 @pytest.mark.parametrize("name", PRESETS)

@@ -16,7 +16,9 @@ monkeypatching both packages' ``get_preset``.
   and writes the same records; ``infer-chain`` on joint-vocab "full"
   annotations prints what the JAX CLI prints and writes the same records;
 - ``--device`` defaults to cuda and raises without a card; ``--plot``
-  raises; ``presets`` lists the port's presets.
+  raises; ``train --preset transformer_iqap_cot`` trains from
+  ``DataConfig``'s default ``data/`` paths; ``presets`` lists the port's
+  presets, every preset of the JAX package.
 """
 
 import dataclasses
@@ -54,7 +56,8 @@ IQAP = dict(embed_dim=32, hidden_dim=24, num_heads=4, encoder_layers=2, decoder_
             dropout=0.0)
 SEQ2SEQ = dict(d_model=32, num_heads=4, encoder_layers=2, decoder_layers=2, ffn_dim=64,
                dropout=0.0)
-NARROW = {"generator": GENERATOR, "iqap": IQAP, "step_seq2seq": SEQ2SEQ}
+NARROW = {"generator": GENERATOR, "iqap": IQAP, "step_seq2seq": SEQ2SEQ,
+          "iqap_cot": dict(IQAP, num_image_tokens=4, image_feature_dim=8)}
 GRID = np.linspace(0.05, 0.95, 19)  # the calibrators' scan; 0.5, the gate, is on it
 MARGIN = 1e-5
 
@@ -247,7 +250,7 @@ def test_train_then_tally_restores(files, tmp_path, capsys):
     assert '"truncated_gt_programs": 0' in out.out
 
 
-def test_cli_device_rule_and_presets(files, capsys):
+def test_cli_device_rule_and_presets(files, capsys, tmp_path, monkeypatch):
     paths, _, _ = files
     train = ["train", "--preset", "executor_roi", "--annotated_h5", paths["annotated.h5"]]
     if not torch.cuda.is_available():
@@ -255,8 +258,27 @@ def test_cli_device_rule_and_presets(files, capsys):
             main(train)
     with pytest.raises(SystemExit, match="utils/plots.py"):
         main(["--device", "cpu"] + train + ["--plot", "curves.png"])
-    with pytest.raises(KeyError, match="unknown preset"):
-        main(["--device", "cpu", "train", "--preset", "transformer_iqap_cot"])
+    # the chain-of-thought preset resolves and trains from DataConfig's
+    # default data/ paths (the CLI has no flag for them)
+    from explainable_spatial_vqa_tpu.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu.clevr.scenes import Scene
+    from explainable_spatial_vqa_tpu.core import annotated_strings as astr
+
+    scenes_raw, questions = syn.synthesize_dataset(16, 3, seed=3)  # the fixture's corpus
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    records = [ann.annotate_question_string(q, scenes[q["image_index"]]) for q in questions]
+    arrays, vocab = astr.build_mapped_sequences(records)
+    (tmp_path / "data").mkdir()
+    astr.write_mapped_sequences(arrays, str(tmp_path / "data" / "mapped_sequences.h5"))
+    (tmp_path / "data" / "string_vocab.json").write_text(json.dumps({"token_to_id": vocab}))
+    monkeypatch.chdir(tmp_path)
+    history = tmp_path / "cot_history.json"
+    main(["--device", "cpu", "train", "--preset", "transformer_iqap_cot", "--features_h5",
+          paths["features.h5"], "--epochs", "1", "--batch_size", "8", "--checkpoint_dir",
+          str(tmp_path / "cot_ckpt"), "--history_json", str(history)])
+    record = json.loads(history.read_text())
+    assert record["train"][0]["batches"] > 0 and np.isfinite(record["train"][0]["loss_sum"])
     for command in (["eval-iqap", "--questions_h5", paths["questions.h5"], "--features_h5",
                      paths["features.h5"], "--vocab_json", paths["vocab.json"]],
                     ["infer-chain", "--annotated_h5", paths["annotated.h5"], "--features_h5",
@@ -267,8 +289,10 @@ def test_cli_device_rule_and_presets(files, capsys):
     assert _stdout(capsys, main, ["presets"]).split() == sorted(tconfig.PRESETS)
     assert "executor_scheduled" in tconfig.PRESETS
     for name in ("lstm_qp", "transformer_iqap", "transformer_iqap_bb", "lstm_iqap", "lstm_iqa",
-                 "step_seq2seq"):
+                 "step_seq2seq", "transformer_iqap_cot", "token_only", "bb_only", "bb_only_iou",
+                 "yolo_bb", "multitask_bb", "bbinout", "multihead", "hierarchical"):
         assert name in tconfig.PRESETS
+    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
 
 
 def _masked_seconds(text):

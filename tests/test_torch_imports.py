@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package, and its entry points
 (the CLI and the evaluation functions included) run on the card unless asked
-for the CPU.  Checked in a fresh interpreter: this test process has JAX
+for the CPU; no module imports h5py or PIL when it is imported.  Checked in a
+fresh interpreter: this test process has JAX
 loaded already (tests/conftest.py)."""
 
 import os
@@ -25,12 +26,16 @@ CHECK = textwrap.dedent("""
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                            "explainable_spatial_vqa_tpu"))
     assert not leaked, leaked
+    # only the file readers import these, inside the call
+    assert "h5py" not in sys.modules and "PIL" not in sys.modules, "h5py or PIL at import"
     assert len(names) >= 20, names
     for name in ("cli", "cli.main", "evalsuite.detection", "evalsuite.accuracy",
                  "evalsuite.executor_eval", "train.scheduled", "clevr.scenes", "clevr.executor",
                  "clevr.bboxes", "clevr.annotate", "clevr.synthetic", "core.tokenizer",
                  "evalsuite.cogent", "evalsuite.report", "train.synthetic_protocol",
-                 "ops.decoding", "models.iqap", "models.lstm_iqap", "models.step_executor"):
+                 "ops.decoding", "models.iqap", "models.lstm_iqap", "models.step_executor",
+                 "core.annotated_strings", "models.cot", "models.prototypes", "vision",
+                 "vision.extract"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
@@ -75,6 +80,21 @@ CHECK = textwrap.dedent("""
                           ("step_seq2seq", step_seq2seq_pipeline_from_arrays)):
         needs_cpu_named(lambda: build(tconfig.get_preset(preset), {}, None))
     needs_cpu_named(lambda: main(["train", "--preset", "transformer_iqap"]))
+    from explainable_spatial_vqa_tpu_torch.models import prototypes as proto
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import (
+        iqap_cot_pipeline_from_arrays, prototype_step_pipeline_from_arrays)
+    for make in (proto.TokenOnlyPredictor, proto.BBoxOnlyPredictor,
+                 proto.MultiTaskBBoxTokenPredictor, proto.BBoxSelectionPredictor,
+                 proto.MultiHeadStepModel, proto.HierarchicalGenerator, proto.YoloDetector,
+                 proto.CompositionalStepPredictor):
+        needs_cpu_named(make)
+    needs_cpu_named(lambda: iqap_cot_pipeline_from_arrays(
+        tconfig.get_preset("transformer_iqap_cot"), {}, {}, None))
+    needs_cpu_named(lambda: prototype_step_pipeline_from_arrays(
+        tconfig.get_preset("multihead"), {}, {}, {}, None))
+    for preset in ("transformer_iqap_cot", "yolo_bb", "hierarchical"):
+        needs_cpu_named(lambda: main(["train", "--preset", preset]))
+
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
     from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
     needs_cpu_named(lambda: run_cogent_protocol())

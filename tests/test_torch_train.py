@@ -427,7 +427,6 @@ def test_entry_points_need_cpu_named_without_cuda(tmp_path):
     arrays, features = bench_data.synth_executor_steps(16, small.model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         executor_pipeline_from_arrays(small, arrays, features)
-    with pytest.raises(KeyError, match="not ported yet"):
-        build_pipeline(cfg.replace(model_family="iqap_cot"), device="cpu")
-    with pytest.raises(KeyError, match="unknown preset"):
-        tconfig.get_preset("transformer_iqap_cot")
+    for preset in ("transformer_iqap_cot", "multihead"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_pipeline(tconfig.get_preset(preset))
