@@ -121,11 +121,25 @@ result:
     128), whose eval forward launches K2 once per encoder layer and K1 once
     per decoder layer (the one-token start query), each held against its
     plain version, float32 card vs CPU, and whose train step launches
-    neither; K2 at its encoder shape (``K2_HIER_SHAPE``) in phases 3-4.
+    neither; K2 at its encoder shape (``K2_HIER_SHAPE``) in phases 3-4;
+19. data preparation (``data_prep``) on seeded uint8 320x480 images in
+    memory: ``cubic_resize`` (the JAX package's antialiased Keys cubic) on
+    the card against the CPU, down to 224x224 and up 20x30 -> 32x32; the
+    ResNet-101 stage-3 extractor at full depth in float32 (TF32 off, as the
+    CLI runs it), seeded random weights scaled as tests/test_vision.py
+    scales them, card against CPU on 2 images; images/s of
+    ``extract_to_sink`` (the loop of ``extract_features``, copies both ways)
+    at batch 128, median of 5 runs, beside the bound from the convolutions'
+    operations, peak GiB and the busy share of one profiled batch; the
+    forward alone in float32, with cuDNN's TF32 allowed and in bf16; the
+    first batch's features as (128, 196, 1024) tokens through ``run_tally``
+    on 512 CLEVR-factory questions (``executor_roi``, bf16, per-function
+    calibration: K2 3 and K1 2 launches per forward), and in float32 with
+    phase 12's trained executor, card against CPU.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``, with its launches on the main path and, under
-``launches_by_path``, on phases 14-18's paths; K2's entry also holds its
+``launches_by_path``, on phases 14-19's paths; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
 ``at_shapes``) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
@@ -153,6 +167,7 @@ REPO = Path(__file__).resolve().parent
 # for each, at 495 TFLOP/s, keep float32's accuracy, as the attention kernels
 # show), not the CUDA cores' 67 TFLOP/s: see dot_ops.
 PEAK_OPS = {"bf16": 989e12, "tf32": 495e12,
+            "fp32": 67e12,  # float32 on the CUDA cores (the extractor's strict convolutions)
             "fp64": 34e12}  # float64 on the CUDA cores (K3's exact q/k/v fix-up)
 # four K2 products at the fusion encoder's shape (B=128, L=210, d=512, ffn
 # 2048): name, N, K, ReLU, output type (bf16 for FFN1's hidden)
@@ -208,6 +223,10 @@ PROTO_FP32_ROWS = 8  # rows of phase 18's float32 card-vs-CPU steps
 COT_DECODE_FP32 = 64  # questions of the CoT's float32 greedy decode, card vs CPU
 HIER_D512 = dict(d_model=512, num_heads=4, num_layers=2)  # head dim 128: K2 in eval
 K2_HIER_SHAPE = (128, 196)  # B, L: HierarchicalGenerator's encoder at d 512, no mask
+# phase 19: the feature extractor at the CLI's batch on CLEVR-sized images
+PREP_BATCH = 128
+PREP_IMAGE = (320, 480)
+PREP_RUN_BATCHES = 8  # batches of each timed run of the extraction loop
 
 
 def fail(message: str) -> None:
@@ -1353,7 +1372,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     by_path = {**evaluation(torch, np, dev, counted, trained),
                **scheduled_training(torch, np, dev, counted),
                **cogent(torch, np, dev, counted), **baselines(torch, np, dev, counted),
-               **cot_and_prototypes(torch, np, dev, counted)}
+               **cot_and_prototypes(torch, np, dev, counted),
+               **data_prep(torch, np, dev, counted, trained)}
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -3331,6 +3351,318 @@ def cot_and_prototypes(torch, np, dev, counted) -> dict:
     torch.cuda.empty_cache()
     say(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
     return {"hierarchical_d512": launches}
+
+
+def scaled_resnet(torch, model, seed: int):
+    """``model`` (a ``ResNetFeatures``) with seeded random weights scaled as
+    tests/test_vision.py scales them: convolutions x 0.5 and batch-norm
+    statistics and affine near the identity, so activations stay tame over
+    30 blocks and a float32 comparison means something."""
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.vision.resnet import FrozenBatchNorm
+
+    init_parameters(model, seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(0.5)
+            elif isinstance(m, FrozenBatchNorm):
+                n = m.weight.shape
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.05)
+                m.running_var.copy_(0.8 + 0.4 * torch.rand(n, generator=gen))
+                m.weight.copy_(1.0 + 0.05 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.05 * torch.randn(n, generator=gen))
+    return model
+
+
+def conv_flops(torch, model, size) -> float:
+    """Operations (2 per multiply-add) of ``model``'s convolutions on one
+    image of ``size``, from each convolution's output shape."""
+    total = [0.0]
+
+    def hook(conv, _args, out):
+        kh, kw = conv.kernel_size
+        total[0] += 2.0 * out[0].numel() * conv.in_channels * kh * kw / conv.groups
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        model(torch.zeros(1, 3, *size, device=dev))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def data_prep(torch, np, dev, counted, trained) -> dict:
+    """Phase 19, data preparation on the card: ResNet-101 stage 3 (seeded
+    random weights, ``scaled_resnet``) after the antialiased cubic resize, on
+    seeded uint8 320x480 images, then its features through ``run_tally``:
+
+    - 19.1 ``cubic_resize`` on the card against the same function on the CPU,
+      320x480 -> 224x224 and 20x30 -> 32x32, within 1e-3 on 0-255 values;
+    - 19.2 ``make_extract_fn`` at full depth in float32 on 2 images, card
+      against CPU, within 1e-4 * max(|ref|, 1); images/s of
+      ``extract_to_sink`` (the loop of ``extract_features``, the
+      device-to-host copies included) at batch ``PREP_BATCH``, median of
+      ``REPEATS`` runs of ``PREP_RUN_BATCHES`` batches by CUDA events after a
+      warm-up, beside the bound from the convolutions' operations; peak GiB;
+      the busy share of one profiled batch; the forward alone at batch
+      ``PREP_BATCH`` in float32, with cuDNN's TF32 allowed and in bf16;
+    - 19.3 the first batch's features as (128, 196, 1024) tokens, in the
+      tally's order, into ``run_tally`` on 512 CLEVR-factory questions over
+      those 128 images at bench widths (``executor_roi``, bf16, per-function
+      calibration): K2 3 and K1 2 launches per forward, every answer well
+      formed; then in float32 on ``FP32_QUESTIONS`` questions with phase 12's
+      trained executor, the first chain run's decisions and the per-function
+      map on the card equal to the CPU's on the same features, held as phase
+      14 holds them (its true positives are printed; phase 12 trained on
+      other features, so none are required here).
+
+    No h5py, PIL or matplotlib: the images and questions are in memory."""
+    from explainable_spatial_vqa_tpu_torch.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu_torch.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
+    from explainable_spatial_vqa_tpu_torch.cli.main import run_chains, run_tally
+    from explainable_spatial_vqa_tpu_torch.core import vocab as voc
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import encode_questions
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import (
+        _collect_chain_detections,
+        calibrate_chain_conf_thresholds_per_function,
+    )
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.train.datasets import chain_arrays
+    from explainable_spatial_vqa_tpu_torch.vision.extract import (
+        cubic_resize,
+        extract_to_sink,
+        make_extract_fn,
+    )
+    from explainable_spatial_vqa_tpu_torch.vision.resnet import ResNetFeatures
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(19)
+    n_run = PREP_BATCH * PREP_RUN_BATCHES
+    images = rng.randint(0, 256, (n_run, *PREP_IMAGE, 3), dtype=np.uint8)
+
+    # ---- 19.1 the resize ----
+    for shape, size in (((8, *PREP_IMAGE, 3), (224, 224)), ((8, 20, 30, 3), (32, 32))):
+        x = torch.from_numpy(rng.randint(0, 256, shape).astype(np.float32))
+        on_card = cubic_resize(x.to(dev), size).cpu()
+        err = float((on_card - cubic_resize(x, size)).abs().max())
+        say(f"phase 19.1 cubic_resize {shape[1]}x{shape[2]} -> {size[0]}x{size[1]}, card vs CPU: "
+            f"max_abs_err {err:.3g} (tol 1e-3, 0-255 values)")
+        if not err <= 1e-3:
+            fail("phase 19.1: the resize on the card disagrees with the CPU")
+    batch = torch.from_numpy(images[:PREP_BATCH]).to(dev)
+    resize_ms = timed_ms(torch, lambda: cubic_resize(batch.float(), (224, 224)), iters=10)
+    say(f"phase 19.1 cubic_resize of {PREP_BATCH} images, uint8 to float32 and two matmuls: "
+        f"{resize_ms:.3f} ms")
+
+    # ---- 19.2 the extractor at full depth ----
+    cpu_model = scaled_resnet(torch, ResNetFeatures(device="cpu"), 19)
+    model = ResNetFeatures(device=dev)
+    model.load_state_dict(cpu_model.state_dict())
+    extract = make_extract_fn(model)
+    on_card = extract(torch.from_numpy(images[:2]).to(dev)).cpu()
+    ref = make_extract_fn(cpu_model)(torch.from_numpy(images[:2]))
+    err = float((on_card - ref).abs().max())
+    scale = float(ref.abs().max())
+    say(f"phase 19.2 ResNet-101 stage 3 float32 (TF32 off), 2 images 320x480 -> 224, card vs "
+        f"CPU: max_abs_err {err:.3g}, max |ref| {scale:.3g} (tol 1e-4 * max(|ref|, 1) = "
+        f"{1e-4 * max(scale, 1.0):.3g})")
+    if not (tuple(on_card.shape) == (2, 1024, 14, 14) and err <= 1e-4 * max(scale, 1.0)):
+        fail("phase 19.2: the extractor on the card disagrees with the CPU")
+    del cpu_model, on_card, ref
+
+    flops = conv_flops(torch, model, (224, 224))
+    weight_bytes = sum(p.numel() * 4 for p in model.parameters())
+    nbytes = PREP_BATCH * (PREP_IMAGE[0] * PREP_IMAGE[1] * 3 + 1024 * 14 * 14 * 4) + weight_bytes
+    bounds = {kind: bound_ms({kind: flops * PREP_BATCH}, nbytes)
+              for kind in ("fp32", "tf32", "bf16")}
+    kept = []
+
+    def loop(n):
+        extract_to_sink(list(range(n)), lambda i: images[i], extract,
+                        lambda a: kept.append(a.shape), dev, batch_size=PREP_BATCH)
+
+    loop(PREP_BATCH)  # warm-up: cuDNN's algorithm choice, the pinned pools
+    torch.cuda.reset_peak_memory_stats()
+    run_ms = []
+    for _ in range(REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop(n_run)
+        end.record()
+        end.synchronize()
+        run_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_image = statistics.median(run_ms) / n_run
+    wall, prof = device_profile(torch, lambda: loop(PREP_BATCH))
+    busy = "not measured (the profiler saw no device activity)" if prof is None else (
+        f"{prof[0]:.3f} ({prof[3]} kernels and copies; by device time: "
+        + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in prof[1][:4]) + ")")
+    fp32_bound, by = bounds["fp32"]
+    say(f"phase 19.2 extract_to_sink, {REPEATS} runs of {n_run} images in batches of "
+        f"{PREP_BATCH} (uint8 up from pinned memory, resize, normalize, ResNet float32, features "
+        f"down on a side stream): median {statistics.median(run_ms):.1f} ms = "
+        f"{1e3 / per_image:.1f} images/s (all, ms: {', '.join(f'{t:.1f}' for t in run_ms)}); "
+        f"peak {peak:.2f} GiB; one batch under the profiler {wall * 1e3:.1f} ms, device busy "
+        f"{busy}; bound {fp32_bound:.2f} ms a batch = {PREP_BATCH / fp32_bound * 1e3:.0f} "
+        f"images/s ({by}: {flops / 1e9:.2f} GFLOP of convolutions an image, "
+        f"{flops * PREP_BATCH / 1e12:.3f} TFLOP a batch, at 67 TFLOP/s on the CUDA cores)")
+    if not (len(kept) == 1 + REPEATS * PREP_RUN_BATCHES + 1
+            and all(k == (PREP_BATCH, 1024, 14, 14) for k in kept)):
+        fail("phase 19.2: the extraction loop did not sink every batch")
+
+    normalized = torch.randn(PREP_BATCH, 3, 224, 224, generator=torch.Generator(
+        device=dev).manual_seed(19), device=dev)
+    bf16_model = ResNetFeatures(dtype=torch.bfloat16, device=dev)
+    bf16_model.load_state_dict(model.state_dict())
+    forwards = {}
+    with torch.no_grad():
+        forwards["fp32"] = timed_ms(torch, lambda: model(normalized), iters=5, warmup=2)
+        torch.backends.cudnn.allow_tf32 = True
+        forwards["tf32"] = timed_ms(torch, lambda: model(normalized), iters=5, warmup=2)
+        torch.backends.cudnn.allow_tf32 = False
+        forwards["bf16"] = timed_ms(torch, lambda: bf16_model(normalized), iters=5, warmup=2)
+    say("phase 19.2 the forward alone at batch " + str(PREP_BATCH) + ", by CUDA events: "
+        + "; ".join(f"{kind} {ms:.2f} ms = {PREP_BATCH / ms * 1e3:.0f} images/s (bound "
+                    f"{bounds[kind][0]:.2f} ms, {bounds[kind][1]}; "
+                    f"{flops * PREP_BATCH / ms / 1e9:.1f} TFLOP/s)"
+                    for kind, ms in forwards.items())
+        + "; the CLI and this phase's checks run float32 with TF32 off")
+    del bf16_model, normalized
+
+    # ---- 19.3 the features through the tally ----
+    t0 = time.perf_counter()
+    grid = extract(torch.from_numpy(images[:PREP_BATCH]).to(dev))
+    n, c, h, w = grid.shape
+    tokens = grid.reshape(n, c, h * w).transpose(1, 2).contiguous()  # as the tally reads h5
+    del model, extract
+    scenes_raw, questions = syn.synthesize_dataset(PREP_BATCH, 4, seed=19, hop_prob=0.5,
+                                                   chain_prob=0.5)
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    records = ann.annotate_questions(questions, scenes)
+    vocabs = voc.build_split_vocab(records)
+    fv, vv = vocabs["function"], vocabs["other"]
+    clevr_vocab = voc.build_clevr_vocab([questions])
+    enc = encode_questions(questions, clevr_vocab)
+    program_inv = voc.invert_vocab(clevr_vocab["program_token_to_idx"])
+    answer_inv = voc.invert_vocab(clevr_vocab["answer_token_to_idx"])
+    gt_answers = np.asarray([vv.get(voc.canonicalize(answer_inv[int(a)]), -2)
+                             for a in enc.answers])
+    gen_cfg = dataclasses.replace(
+        get_preset("generator").model, vocab_size=len(clevr_vocab["question_token_to_idx"]),
+        program_vocab_size=len(clevr_vocab["program_token_to_idx"]),
+        program_len=enc.programs.shape[1])
+    exe_preset = get_preset("executor_roi").model
+    exe_cfg = dataclasses.replace(exe_preset, vocab_size=max(exe_preset.vocab_size, len(fv) + 1),
+                                  token_classes=max(exe_preset.token_classes, len(vv) + 1))
+    dtype = torch.bfloat16
+    generator = init_parameters(ProgramGenerator(gen_cfg, dtype, device=dev), seed=19)
+    executor = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=19)
+    chains = chain_arrays(records, fv)
+    log = ForwardLaunches(executor)
+    t1 = time.perf_counter()
+    out, launches = counted(lambda: run_tally(
+        generator, executor, exe_cfg, enc.questions, tokens, enc.image_idxs, program_inv, fv, vv,
+        gt_answers=gt_answers, programs=enc.programs, annotated=records, chain_mode="sorted",
+        calibrate_conf_per_function=True, device=dev))
+    tally_s = time.perf_counter() - t1
+    log.remove()
+    runs = [log.tally(r["start"], r["start"] + r["seconds"]) for r in out.runs]
+    total = log.tally()
+    answers = out.pipeline.answers
+    checks = {
+        "features (128, 1024, 14, 14) float32, finite": (
+            tuple(grid.shape) == (PREP_BATCH, 1024, 14, 14) and grid.dtype == torch.float32
+            and bool(torch.isfinite(grid).all())),
+        "three runs: the pipeline, the chains, the chains gated by the map": (
+            [r["name"] for r in out.runs]
+            == ["pipeline", "chains", "chains, per-function thresholds"]),
+        "K2 3 and K1 2 launches per forward in each run, every forward in a run": (
+            all(per_forward_ok(c_, exe_cfg) for c_ in runs)
+            and sum(c_["forwards"] for c_ in runs) == total["forwards"]
+            and total["K2"] == launches["fused_encoder_block"]
+            and total["K1"] == launches["fused_attention"]),
+        "one answer per question in the token vocabulary, accuracy in [0, 1]": (
+            answers.shape == (len(questions),) and 0 <= answers.min()
+            and answers.max() < exe_cfg.token_classes and out.accuracy is not None
+            and 0 <= out.accuracy["overall"] <= 1),
+        "a per-step tally of the annotated functions, no chain cut": (
+            len(out.payload["per_function_box_pr"]) > 0
+            and out.payload["truncated_gt_programs"] == 0),
+    }
+    say(f"phase 19.3 run_tally on the extracted features of {PREP_BATCH} images ((128, 196, 1024) "
+        f"tokens, |x| up to {float(tokens.abs().max()):.3g}), {len(questions)} CLEVR-factory "
+        f"questions ({int(chains.num_steps.sum())} steps), executor_roi bf16, sorted, "
+        f"per-function calibration: {tally_s:.3f} s ("
+        + ", ".join(f"{r['name']} {r['seconds']:.3f} s, {c_['forwards']} forwards"
+                    for r, c_ in zip(out.runs, runs))
+        + f"); launches {launches}; accuracy {out.accuracy['overall']:.3f}; map "
+        f"{ {k: round(v, 2) for k, v in sorted(out.conf_threshold.items())} }")
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"phase 19.3 check failed: {name}")
+    del generator, executor
+
+    trained_cfg, trained_state = trained
+    exe32 = ProgramExecutor(trained_cfg, torch.float32, device=dev)
+    exe32.load_state_dict(trained_state)
+    cpu32 = copy.deepcopy(exe32).to("cpu")
+    sub = records[:FP32_QUESTIONS]
+    sub_chains = chain_arrays(sub, fv)
+
+    def first_run(model, device, feats_t):
+        run_out = run_chains(ExecutorChainRunner(model, trained_cfg, 28, device=device), feats_t,
+                             sub_chains, "sorted")
+        return run_out, calibrate_chain_conf_thresholds_per_function(run_out, sub, fv, vv)[0]
+
+    card_out, card_map = first_run(exe32, dev, tokens)
+    cpu_out, cpu_map = first_run(cpu32, torch.device("cpu"), tokens.cpu())
+    decisions = all(np.array_equal(card_out[k], cpu_out[k])
+                    for k in ("box_mask", "token_branch", "token_cache"))
+    box_err = max(float(np.abs(card_out[k] - cpu_out[k]).max()) for k in ("box_cache",
+                                                                        "conf_cache"))
+    hits = [int(np.sum(_collect_chain_detections(o, sub, fv, vv, 0.5, 28)[1]))
+            for o in (card_out, cpu_out)]
+    conf = cpu_out["conf_cache"][cpu_out["conf_cache"] > 0]
+    say(f"phase 19.3 fp32 run_chains + per-function calibration with phase 12's trained executor "
+        f"on {FP32_QUESTIONS} questions ({int(sub_chains.num_steps.sum())} steps) over the "
+        f"extracted features, card vs CPU: decisions {'equal' if decisions else 'DIFFER'} "
+        f"({int(card_out['box_mask'].sum())} confident boxes, "
+        f"{int(card_out['token_branch'].sum())} token steps; the confidence nearest 0.5 is "
+        f"{float(np.abs(conf - 0.5).min()) if conf.size else float('nan'):.2e} from it), boxes "
+        f"and confidences within {box_err:.3g} (tol 1e-4); {hits[0]} true positives on the "
+        f"card, {hits[1]} on the CPU; maps {'equal' if card_map == cpu_map else 'DIFFER'}: "
+        f"{ {k: round(v, 2) for k, v in sorted(card_map.items())} }; "
+        f"{time.perf_counter() - t0:.1f} s for 19.3")
+    if not (decisions and box_err <= 1e-4):
+        fail("phase 19.3: the float32 chain run on the card disagrees with the CPU")
+    if card_map != cpu_map:
+        confs, _tps, fns, _gt = _collect_chain_detections(cpu_out, sub, fv, vv, 0.5, 28)
+        confs, fns = np.asarray(confs), np.asarray(fns)
+        for fn in sorted(set(card_map) | set(cpu_map)):
+            if card_map.get(fn) == cpu_map.get(fn):
+                continue
+            pick = np.ones(len(fns), bool) if fn == "__global__" else fns == fn
+            thresholds = np.asarray([t for t in (card_map.get(fn), cpu_map.get(fn)) if t])
+            near = confs[pick][np.abs(confs[pick][:, None] - thresholds[None]).min(1) < 1e-4]
+            say(f"phase 19.3 map entry {fn}: card {card_map.get(fn)}, CPU {cpu_map.get(fn)}; "
+                f"confidences within 1e-4 of them: {near.tolist()}")
+            if not len(near):
+                fail(f"phase 19.3: the threshold maps differ at {fn} with no confidence near "
+                     f"the thresholds")
+    del exe32, cpu32, grid, tokens
+    torch.cuda.empty_cache()
+    say(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {"data_prep_tally": launches}
 
 
 def k2_at_iqap_shape(torch, dev, results: dict, shape=None, key: str = "K2_bf16_iqap",

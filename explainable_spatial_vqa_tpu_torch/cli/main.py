@@ -1,6 +1,19 @@
 """CLI of the port, ported from ``explainable_spatial_vqa_tpu/cli/main.py``
-for the thesis pair, with its flags, printed reports and JSON payloads:
+with its flags, defaults, log lines, printed reports and JSON payloads:
 
+  build-vocab     the CLEVR three-way vocab over question JSONs
+  preprocess-questions
+                  question JSON -> questions h5 (encoded questions,
+                  programs, answers)
+  extract-features
+                  PNGs -> features h5: ResNet-101 stage 3 on the device,
+                  after the JAX package's antialiased cubic resize
+                  (``vision/extract.py``); ``--torch-weights`` loads a
+                  torchvision resnet101 state dict
+  export-scenes   scene JSON -> scenes h5 (boxes and class labels, or with
+                  ``--layout attributes`` attribute codes and coordinates)
+  annotate        per-step annotations of questions over their scenes
+                  (``v3`` split vocab, ``full`` joint vocab, ``string``)
   train           every training family of the JAX package (``generator``,
                   the five ``executor*`` presets, ``executor_scheduled``,
                   the baselines ``iqap``, ``lstm_iqap`` and
@@ -22,13 +35,19 @@ for the thesis pair, with its flags, printed reports and JSON payloads:
                   records
   infer-chain     chained inference of the step seq2seq baseline over
                   annotated questions in the joint vocabulary
+  stats           dataset invariants of an annotated h5, as JSON
+  visualize       one scene's boxes drawn over its image
+  inspect         an h5 file's datasets, shapes, types and first rows
+  repro-clevr     the whole chain from a CLEVR download root to REPORT.md
+                  (``cli/repro.py``)
 
 A global ``--device`` (default ``cuda``) places the models; without a card
-the model commands raise unless it is ``cpu``.  Each command reads its
+the model commands and ``extract-features`` raise unless it is ``cpu``.  Each command reads its
 artifacts (h5, JSON) and parses its flags, and hands arrays and modules to a
 function that does the work (:func:`run_eval_generator`, :func:`run_tally`,
 :func:`run_eval_iqap`, :func:`run_infer_chain`), which callers holding data
-in memory call directly.  ``--data_parallel`` is not ported.
+in memory call directly.  ``--platform``, ``--multihost`` and
+``--data_parallel`` are not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +56,6 @@ import argparse
 import dataclasses
 import json
 import logging
-import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -76,6 +94,223 @@ def _restore(model: torch.nn.Module, directory: Optional[str], name: str) -> Non
 
 
 # ---------------------------------------------------------------------------
+# data preparation
+# ---------------------------------------------------------------------------
+
+
+def cmd_build_vocab(args: argparse.Namespace) -> None:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import load_questions_json
+    from explainable_spatial_vqa_tpu_torch.core.vocab import build_clevr_vocab, save_vocab
+
+    vocab = build_clevr_vocab([load_questions_json(p) for p in args.inputs])
+    save_vocab(vocab, args.output)
+    logger.info("wrote %s (%d program / %d question / %d answer tokens)",
+                args.output, len(vocab["program_token_to_idx"]),
+                len(vocab["question_token_to_idx"]), len(vocab["answer_token_to_idx"]))
+
+
+def cmd_preprocess_questions(args: argparse.Namespace) -> None:
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import (
+        encode_questions,
+        load_questions_json,
+        write_questions_h5,
+    )
+    from explainable_spatial_vqa_tpu_torch.core.vocab import load_vocab
+
+    encoded = encode_questions(load_questions_json(args.input_questions_json),
+                               load_vocab(args.input_vocab_json), mode=args.mode,
+                               allow_unk=bool(args.encode_unk))
+    write_questions_h5(encoded, args.output_h5_file)
+    logger.info("wrote %s questions=%s programs=%s", args.output_h5_file,
+                encoded.questions.shape,
+                None if encoded.programs is None else encoded.programs.shape)
+
+
+def cmd_extract_features(args: argparse.Namespace) -> None:
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.vision.extract import (
+        collect_image_paths,
+        extract_features,
+    )
+    from explainable_spatial_vqa_tpu_torch.vision.resnet import (
+        ResNetFeatures,
+        load_torchvision_state_dict,
+    )
+
+    device = _device(args)
+    paths = collect_image_paths(args.input_image_dir, args.max_images)
+    model = ResNetFeatures(num_stages=args.model_stage, device=device)
+    if args.torch_weights:
+        load_torchvision_state_dict(model, torch.load(args.torch_weights, map_location="cpu",
+                                                      weights_only=True))
+        logger.info("loaded torchvision weights from %s", args.torch_weights)
+    else:
+        init_parameters(model, seed=0)
+        logger.warning("no --torch-weights given: using random ResNet weights "
+                       "(features will not match the reference numerically)")
+    extract_features(paths, args.output_h5_file, model=model, batch_size=args.batch_size,
+                     size=(args.image_height, args.image_width), resize=args.resize,
+                     device=device)
+    logger.info("wrote %s (%d images)", args.output_h5_file, len(paths))
+
+
+def cmd_export_scenes(args: argparse.Namespace) -> None:
+    from explainable_spatial_vqa_tpu_torch.clevr.bboxes import export_scenes
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import load_scenes_json, write_scenes_h5
+
+    scenes = load_scenes_json(args.input_scenes_json)
+    if args.layout == "attributes":
+        import h5py
+
+        from explainable_spatial_vqa_tpu_torch.core.reshape import export_scene_attributes
+
+        arrays, vocab = export_scene_attributes(scenes)
+        with h5py.File(args.output_h5_file, "w") as f:
+            for key, value in arrays.items():
+                f.create_dataset(key, data=value)
+        if args.vocab_output:
+            with open(args.vocab_output, "w") as f:
+                json.dump(vocab, f, indent=2)
+        logger.info("wrote %s (attributes layout)", args.output_h5_file)
+        return
+    out = export_scenes(scenes, decimals=args.decimals)
+    write_scenes_h5(args.output_h5_file, out["bounding_boxes"], out["class_labels"],
+                    out["image_index"], out["image_filename"])
+    logger.info("wrote %s (%d scenes, max %d objects)", args.output_h5_file,
+                out["bounding_boxes"].shape[0], out["bounding_boxes"].shape[1])
+
+
+def cmd_annotate(args: argparse.Namespace) -> None:
+    import copy
+
+    from explainable_spatial_vqa_tpu_torch.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu_torch.clevr.scenes import load_scenes
+    from explainable_spatial_vqa_tpu_torch.core import vocab as voc
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import (
+        load_questions_json,
+        write_annotated_h5,
+    )
+
+    scenes = load_scenes(args.scenes)
+    questions = load_questions_json(args.questions)
+    if args.limit:
+        questions = questions[:args.limit]
+    logger.info("annotating %d questions over %d scenes (%s mode, %d workers)",
+                len(questions), len(scenes), args.mode, args.workers)
+    if args.mode == "string":
+        from explainable_spatial_vqa_tpu_torch.core import annotated_strings as astr
+
+        annotated = [ann.annotate_question_string(q, scenes[q["image_index"]])
+                     for q in questions if q["image_index"] in scenes]
+        arrays, token_to_id = astr.build_mapped_sequences(annotated)
+        astr.write_mapped_sequences(arrays, args.output_h5)
+        with open(args.vocab_output, "w") as f:
+            json.dump({"token_to_id": token_to_id,
+                       "id_to_token": {str(v): k for k, v in token_to_id.items()}}, f, indent=2)
+        if args.raw_json:
+            with open(args.raw_json, "w") as f:
+                json.dump({"questions": annotated}, f)
+        logger.info("wrote %s (+ vocab %s)", args.output_h5, args.vocab_output)
+        return
+    if args.mode == "v3":
+        annotated = ann.annotate_questions(questions, scenes, num_workers=args.workers)
+        vocabs = voc.build_split_vocab(annotated)
+        converted = [voc.apply_split_vocab(copy.deepcopy(q), vocabs) for q in annotated]
+        layout = "per_question"
+    else:
+        annotated = [ann.annotate_question_full(q, scenes[q["image_index"]])
+                     for q in questions if q["image_index"] in scenes]
+        vocabs = voc.build_joint_vocab(annotated)
+        converted = [voc.apply_joint_vocab(copy.deepcopy(q), vocabs) for q in annotated]
+        layout = "blob"
+    if args.raw_json:
+        with open(args.raw_json, "w") as f:
+            json.dump({"questions": annotated}, f)
+    with open(args.vocab_output, "w") as f:
+        json.dump(vocabs, f, indent=4)
+    write_annotated_h5(converted, args.output_h5, layout=layout)
+    logger.info("wrote %s (+ vocab %s)", args.output_h5, args.vocab_output)
+
+
+def cmd_stats(args: argparse.Namespace) -> None:
+    """Dataset invariants over annotated questions: max boxes per step, max
+    output tokens, function vocab size, box/token output case counts."""
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import read_annotated_h5
+    from explainable_spatial_vqa_tpu_torch.train.datasets import parse_boxes
+
+    annotated = read_annotated_h5(args.annotated_h5)
+    max_in_boxes = max_out_boxes = max_tokens = max_steps = 0
+    functions = set()
+    box_steps = token_steps = empty_steps = 0
+    for q in annotated:
+        steps = q.get("annotated_program", [])
+        max_steps = max(max_steps, len(steps))
+        for step in steps:
+            functions.add(step.get("function", ""))
+            n_in = len(parse_boxes(step.get("input_values", "")))
+            n_out = len(parse_boxes(step.get("output_values", "")))
+            max_in_boxes = max(max_in_boxes, n_in)
+            max_out_boxes = max(max_out_boxes, n_out)
+            out_text = step.get("output_values", "").strip()
+            max_tokens = max(max_tokens, len(out_text.split()))
+            if n_out:
+                box_steps += 1
+            elif out_text:
+                token_steps += 1
+            else:
+                empty_steps += 1
+    report = {
+        "questions": len(annotated),
+        "max_steps": max_steps,
+        "max_input_boxes": max_in_boxes,
+        "max_output_boxes": max_out_boxes,
+        "max_output_tokens": max_tokens,
+        "function_vocab_size": len(functions),
+        "box_output_steps": box_steps,
+        "token_output_steps": token_steps,
+        "empty_output_steps": empty_steps,
+    }
+    print(json.dumps(report, indent=2))
+
+
+def cmd_visualize(args: argparse.Namespace) -> None:
+    """One scene's approximated ground-truth boxes drawn over its image (a
+    black 480x320 canvas without ``--image``)."""
+    from PIL import Image
+
+    from explainable_spatial_vqa_tpu_torch.clevr.bboxes import scene_bounding_boxes
+    from explainable_spatial_vqa_tpu_torch.core.artifacts import load_scenes_json
+    from explainable_spatial_vqa_tpu_torch.utils.visualize import draw_boxes
+
+    scenes = load_scenes_json(args.input_scenes_json)
+    scene = next(s for s in scenes if s["image_index"] == args.image_index)
+    boxes = scene_bounding_boxes(scene, decimals=None)
+    if args.image:
+        image = Image.open(args.image).convert("RGB")
+    else:
+        image = Image.new("RGB", (480, 320), "black")
+    labels = [f"{o['size']} {o['color']} {o['material']} {o['shape']}" for o in scene["objects"]]
+    draw_boxes(image, boxes.tolist(), labels=labels if args.labels else None)
+    image.save(args.output)
+    logger.info("wrote %s (%d boxes)", args.output, len(boxes))
+
+
+def cmd_inspect(args: argparse.Namespace) -> None:
+    import h5py
+
+    with h5py.File(args.file, "r") as f:
+        print(f"datasets in {args.file}:")
+
+        def show(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                print(f"  {name}: shape={obj.shape} dtype={obj.dtype}")
+                if args.n and obj.shape and obj.shape[0]:
+                    head = obj[: min(args.n, obj.shape[0])]
+                    print(f"    first {args.n}: {np.asarray(head)!r}"[:500])
+        f.visititems(show)
+
+
+# ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
 
@@ -85,8 +320,6 @@ def cmd_train(args: argparse.Namespace) -> None:
     from explainable_spatial_vqa_tpu_torch.train.pipelines import build_pipeline
     from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
 
-    if args.plot:
-        raise SystemExit("--plot needs utils/plots.py, which the port does not have yet")
     device = _device(args)
     config = get_preset(args.preset)
     data_overrides = {}
@@ -123,6 +356,11 @@ def cmd_train(args: argparse.Namespace) -> None:
     if args.history_json:
         with open(args.history_json, "w") as f:
             json.dump(history, f, default=float)
+    if args.plot:
+        from explainable_spatial_vqa_tpu_torch.utils.plots import plot_history
+
+        plot_history(history, args.plot)
+        logger.info("wrote %s", args.plot)
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +972,55 @@ def build_parser() -> argparse.ArgumentParser:
                              "card unless cpu)")
     sub = parser.add_subparsers(dest="command", required=True)
 
+    p = sub.add_parser("build-vocab")
+    p.add_argument("--inputs", nargs="+", required=True,
+                   help="question JSONs, reference order: val test train")
+    p.add_argument("--output", default="vocab.json")
+    p.set_defaults(fn=cmd_build_vocab)
+
+    p = sub.add_parser("preprocess-questions")
+    p.add_argument("--input_questions_json", required=True)
+    p.add_argument("--input_vocab_json", required=True)
+    p.add_argument("--output_h5_file", required=True)
+    p.add_argument("--mode", default="postfix", choices=["chain", "prefix", "postfix"])
+    p.add_argument("--encode_unk", default=0, type=int)
+    p.set_defaults(fn=cmd_preprocess_questions)
+
+    p = sub.add_parser("extract-features")
+    p.add_argument("--input_image_dir", required=True)
+    p.add_argument("--output_h5_file", required=True)
+    p.add_argument("--max_images", type=int, default=None)
+    p.add_argument("--image_height", type=int, default=224)
+    p.add_argument("--image_width", type=int, default=224)
+    p.add_argument("--model_stage", type=int, default=3)
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--torch-weights", default=None,
+                   help="path to torchvision resnet101 .pth for numeric parity")
+    p.add_argument("--resize", choices=["device", "pil"], default="device",
+                   help="device = the antialiased cubic resize on the device; "
+                        "pil = host PIL BICUBIC + uint8 requantization "
+                        "(bit-matches the reference preprocessing)")
+    p.set_defaults(fn=cmd_extract_features)
+
+    p = sub.add_parser("export-scenes")
+    p.add_argument("--input_scenes_json", required=True)
+    p.add_argument("--output_h5_file", required=True)
+    p.add_argument("--decimals", type=int, default=None)
+    p.add_argument("--layout", default="boxes", choices=["boxes", "attributes"])
+    p.add_argument("--vocab_output", default=None)
+    p.set_defaults(fn=cmd_export_scenes)
+
+    p = sub.add_parser("annotate")
+    p.add_argument("--scenes", required=True)
+    p.add_argument("--questions", required=True)
+    p.add_argument("--output_h5", required=True)
+    p.add_argument("--vocab_output", required=True)
+    p.add_argument("--raw_json", default=None)
+    p.add_argument("--mode", default="v3", choices=["v3", "full", "string"])
+    p.add_argument("--workers", type=int, default=0)
+    p.add_argument("--limit", type=int, default=0)
+    p.set_defaults(fn=cmd_annotate)
+
     p = sub.add_parser("train")
     p.add_argument("--preset", required=True,
                    help="one of: " + ", ".join(sorted(_preset_names())))
@@ -749,9 +1036,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--history_json", default=None)
     p.add_argument("--eval_test", action="store_true")
-    p.add_argument("--plot", default=None,
-                   help="not available yet: the training-curve plot waits for the port of "
-                        "utils/plots.py, and passing it raises")
+    p.add_argument("--plot", default=None)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("presets", help="list training presets")
@@ -835,6 +1120,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_json", default=None)
     p.set_defaults(fn=cmd_infer_chain)
 
+    p = sub.add_parser("stats")
+    p.add_argument("--annotated_h5", required=True)
+    p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser("visualize")
+    p.add_argument("--input_scenes_json", required=True)
+    p.add_argument("--image_index", type=int, default=0)
+    p.add_argument("--image", default=None, help="source PNG (black canvas if absent)")
+    p.add_argument("--labels", action="store_true")
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("inspect")
+    p.add_argument("file")
+    p.add_argument("-n", type=int, default=2)
+    p.set_defaults(fn=cmd_inspect)
+
+    from explainable_spatial_vqa_tpu_torch.cli.repro import add_repro_parser
+
+    add_repro_parser(sub)
+
     p = sub.add_parser(
         "cogent-protocol",
         help="four-cell CoGenT A->B protocol on synthetic data "
@@ -884,9 +1190,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(levelname)s - %(name)s: %(message)s",
-                        handlers=[logging.StreamHandler(sys.stderr)], force=True)
+    from explainable_spatial_vqa_tpu_torch.utils.logging import setup_logging
+
+    setup_logging()
     args = build_parser().parse_args(argv)
     try:
         args.fn(args)

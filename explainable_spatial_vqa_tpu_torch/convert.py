@@ -67,6 +67,21 @@ bias (out,) (``YoloDetector``)             kw), bias
 ``YoloDetector``'s ``Dense_0``,            ``fc1``, ``fc2``                    renamed; ``fc1``'s inputs are the
 ``Dense_1``                                                                    (H, W, C) grid flattened, as in JAX
 =========================================  ==================================  ============================================
+
+:func:`resnet_state_from_jax` takes the variables of the JAX package's
+``ResNetFeatures`` and returns the torchvision-named state dict of the
+port's (``vision/resnet.py``):
+
+=========================================  ==================================  ============================================
+Flax (linen) parameter                     PyTorch port parameter or buffer    conversion
+=========================================  ==================================  ============================================
+a ``Conv`` kernel (kh, kw, in, out):      ``.weight`` (out, in, kh, kw)       HWIO -> OIHW
+``conv1``, ``layer{s}_block{b}``'s         of ``conv1``, ``layer{s}.{b}``'s
+``conv1``-``conv3``                        ``conv1``-``conv3``
+``downsample_conv``, ``downsample_bn``     ``downsample.0``, ``downsample.1``  renamed
+``FrozenBatchNorm`` ``scale``, ``bias``,   ``weight``, ``bias``,               as is
+``mean``, ``var``                          ``running_mean``, ``running_var``
+=========================================  ==================================  ============================================
 """
 
 from __future__ import annotations
@@ -77,7 +92,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict"]
+__all__ = ["flax_to_state_dict", "resnet_state_from_jax"]
 
 _LSTM_GATES = ("i", "f", "g", "o")
 
@@ -144,4 +159,32 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[prefix + name] = _tensor(value)
 
     walk(params, "")
+    return out
+
+
+_RESNET_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_RESNET_NAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def resnet_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert the variables of the JAX package's ``ResNetFeatures``, or of
+    one of its ``Bottleneck`` blocks (``{"params": ...}`` or the params tree,
+    arrays of any kind numpy takes), to the port's torchvision-named state
+    dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for name, child in node.items():
+            block = re.fullmatch(r"(layer\d+)_block(\d+)", name)
+            key = prefix + (f"{block.group(1)}.{block.group(2)}" if block
+                            else _RESNET_NAMES.get(name, name))
+            if "kernel" in child:
+                out[key + ".weight"] = _tensor(np.asarray(child["kernel"]).transpose(3, 2, 0, 1))
+            elif "var" in child:
+                for leaf, torch_name in _RESNET_BN.items():
+                    out[f"{key}.{torch_name}"] = _tensor(child[leaf])
+            else:
+                walk(child, key + ".")
+
+    walk(variables.get("params", variables), "")
     return out

@@ -1,14 +1,23 @@
-"""The training artifacts, copied from
-``explainable_spatial_vqa_tpu/core/artifacts.py``: :func:`encode_questions`
-(question records to the padded id arrays of the questions h5), and the
-readers of the questions h5
-(``questions (N, Lq) int32``, ``programs (N, Lp) int32``, ``answers``,
-``image_idxs``, ``orig_idxs``, optional ``question_families``), the scenes h5
-(per-image boxes and class labels), the annotated questions h5 (one
-``questions`` JSON blob, or one ``q_{i}`` JSON dataset per question) and the
-features h5 (``features`` (N, 1024, 14, 14) float32).
+"""Every disk artifact of the pipeline, copied from
+``explainable_spatial_vqa_tpu/core/artifacts.py`` with the same datasets,
+types and layouts, so each package reads the other's files:
 
-``h5py`` is imported inside the readers: only they need it.
+- the question and scene JSONs (:func:`load_questions_json`,
+  :func:`load_scenes_json`);
+- the questions h5 (``questions (N, Lq) int32``, ``programs (N, Lp) int32``,
+  ``answers``, ``image_idxs``, ``orig_idxs``, optional
+  ``question_families``): :func:`encode_questions`,
+  :func:`write_questions_h5`, :func:`read_questions_h5`;
+- the features h5 (``features`` (N, 1024, 14, 14) float32):
+  :class:`FeatureWriter`, :func:`read_features`, :class:`H5Features`;
+- the scenes h5 (per-image boxes (N, K, 4) float32, class labels (N, K)
+  int32, image indices, vlen-bytes file names): :func:`write_scenes_h5`,
+  :func:`read_scenes_h5`;
+- the annotated questions h5 (one ``questions`` JSON blob, or one ``q_{i}``
+  JSON dataset per question): :func:`write_annotated_h5`,
+  :func:`read_annotated_h5`.
+
+``h5py`` is imported inside the functions that need it.
 """
 
 from __future__ import annotations
@@ -22,8 +31,20 @@ import numpy as np
 from explainable_spatial_vqa_tpu_torch.core import programs as prog
 from explainable_spatial_vqa_tpu_torch.core.tokenizer import encode, tokenize
 
-__all__ = ["EncodedQuestions", "encode_questions", "read_questions_h5", "read_scenes_h5",
-           "read_annotated_h5", "H5Features"]
+__all__ = ["EncodedQuestions", "FeatureWriter", "H5Features", "encode_questions",
+           "load_questions_json", "load_scenes_json", "read_annotated_h5", "read_features",
+           "read_questions_h5", "read_scenes_h5", "write_annotated_h5", "write_questions_h5",
+           "write_scenes_h5"]
+
+
+def load_questions_json(path: str) -> List[Dict[str, Any]]:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)["questions"]
+
+
+def load_scenes_json(path: str) -> List[Dict[str, Any]]:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)["scenes"]
 
 
 @dataclass
@@ -94,6 +115,21 @@ def encode_questions(
     )
 
 
+def write_questions_h5(encoded: EncodedQuestions, path: str) -> None:
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("questions", data=encoded.questions)
+        f.create_dataset("image_idxs", data=encoded.image_idxs)
+        f.create_dataset("orig_idxs", data=encoded.orig_idxs)
+        if encoded.programs is not None and encoded.programs.size:
+            f.create_dataset("programs", data=encoded.programs)
+        if encoded.question_families is not None and encoded.question_families.size:
+            f.create_dataset("question_families", data=encoded.question_families)
+        if encoded.answers is not None and encoded.answers.size:
+            f.create_dataset("answers", data=encoded.answers)
+
+
 def read_questions_h5(path: str) -> EncodedQuestions:
     import h5py
 
@@ -106,6 +142,19 @@ def read_questions_h5(path: str) -> EncodedQuestions:
             answers=f["answers"][()] if "answers" in f else None,
             question_families=f["question_families"][()] if "question_families" in f else None,
         )
+
+
+def write_scenes_h5(path: str, bounding_boxes: np.ndarray, class_labels: np.ndarray,
+                    image_index: np.ndarray, image_filenames: Sequence[str]) -> None:
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("bounding_boxes", data=np.asarray(bounding_boxes, dtype=np.float32))
+        f.create_dataset("class_labels", data=np.asarray(class_labels, dtype=np.int32))
+        f.create_dataset("image_index", data=np.asarray(image_index, dtype=np.int32))
+        dset = f.create_dataset("image_filename", (len(image_filenames),),
+                                dtype=h5py.special_dtype(vlen=bytes))
+        dset[...] = [s.encode("utf8") for s in image_filenames]
 
 
 def read_scenes_h5(path: str) -> Dict[str, Any]:
@@ -122,6 +171,25 @@ def read_scenes_h5(path: str) -> Dict[str, Any]:
         }
 
 
+def write_annotated_h5(annotated_questions: Sequence[Dict[str, Any]], path: str,
+                       layout: str = "blob") -> None:
+    """``layout="blob"``: one ``questions`` dataset holding ``{"questions":
+    [...]}`` JSON, the executor-training input; ``"per_question"``: one
+    ``q_{i}`` JSON string dataset per question."""
+    import h5py
+
+    dt = h5py.string_dtype(encoding="utf-8")
+    with h5py.File(path, "w") as f:
+        if layout == "blob":
+            f.create_dataset("questions", data=json.dumps({"questions": list(annotated_questions)}),
+                             dtype=dt)
+        elif layout == "per_question":
+            for i, q in enumerate(annotated_questions):
+                f.create_dataset(f"q_{i}", data=json.dumps(q), dtype=dt)
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+
+
 def read_annotated_h5(path: str) -> List[Dict[str, Any]]:
     import h5py
 
@@ -135,6 +203,48 @@ def read_annotated_h5(path: str) -> List[Dict[str, Any]]:
         while f"q_{len(out)}" in f:
             out.append(json.loads(text(f[f"q_{len(out)}"][()])))
         return out
+
+
+class FeatureWriter:
+    """Streaming writer of the features h5: the ``total``-row float32
+    dataset is created at the first batch, from its shape."""
+
+    def __init__(self, path: str, total: int, dataset: str = "features"):
+        import h5py
+
+        self._file = h5py.File(path, "w")
+        self._dataset_name = dataset
+        self._total = total
+        self._dset = None
+        self._cursor = 0
+
+    def append(self, feats: np.ndarray) -> None:
+        feats = np.asarray(feats, dtype=np.float32)
+        if self._dset is None:
+            self._dset = self._file.create_dataset(
+                self._dataset_name, (self._total,) + feats.shape[1:], dtype=np.float32)
+        end = self._cursor + feats.shape[0]
+        self._dset[self._cursor:end] = feats
+        self._cursor = end
+
+    def close(self) -> None:
+        self._file.close()
+
+    def __enter__(self) -> "FeatureWriter":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+
+def read_features(path: str, indices: Optional[Sequence[int]] = None) -> np.ndarray:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        dset = f["features"]
+        if indices is None:
+            return dset[()]
+        return np.stack([dset[int(i)] for i in indices])
 
 
 class H5Features:

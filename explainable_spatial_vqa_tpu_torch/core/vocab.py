@@ -10,7 +10,8 @@
    included, read by the step seq2seq baseline (:func:`build_joint_vocab`,
    :func:`apply_joint_vocab`);
 
-and the helpers the pipelines and the CLI read.
+and the helpers the pipelines and the CLI read and write
+(:func:`load_vocab`, :func:`save_vocab`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from explainable_spatial_vqa_tpu_torch.core.tokenizer import SPECIAL_TOKENS, wor
 __all__ = ["EMPTY_TOKEN", "apply_joint_vocab", "apply_split_vocab", "build_clevr_vocab",
            "build_joint_vocab", "build_split_vocab",
            "canonicalize", "invert_vocab", "is_bounding_box_text", "load_vocab",
-           "tokenize_field"]
+           "save_vocab", "tokenize_field"]
 
 
 def invert_vocab(token_to_idx: Mapping[str, int]) -> Dict[int, str]:
@@ -34,6 +35,12 @@ def invert_vocab(token_to_idx: Mapping[str, int]) -> Dict[int, str]:
 def load_vocab(path: str) -> Dict[str, Any]:
     with open(path, "r", encoding="utf-8") as f:
         return json.load(f)
+
+
+def save_vocab(vocab: Mapping[str, Any], path: str) -> None:
+    """Write ``vocab`` as the JAX package's files hold it: JSON, indent 4."""
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(vocab, f, indent=4)
 
 
 def build_clevr_vocab(

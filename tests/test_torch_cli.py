@@ -16,7 +16,7 @@ monkeypatching both packages' ``get_preset``.
   and writes the same records; ``infer-chain`` on joint-vocab "full"
   annotations prints what the JAX CLI prints and writes the same records;
 - ``--device`` defaults to cuda and raises without a card; ``--plot``
-  raises; ``train --preset transformer_iqap_cot`` trains from
+  writes the training curves; ``train --preset transformer_iqap_cot`` trains from
   ``DataConfig``'s default ``data/`` paths; ``presets`` lists the port's
   presets, every preset of the JAX package.
 """
@@ -256,8 +256,12 @@ def test_cli_device_rule_and_presets(files, capsys, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(train)
-    with pytest.raises(SystemExit, match="utils/plots.py"):
-        main(["--device", "cpu"] + train + ["--plot", "curves.png"])
+    # --plot draws the history's curves, as the JAX CLI's does
+    main(["--device", "cpu"] + train + [
+        "--features_h5", paths["features.h5"], "--split_vocab_json", paths["vocab3.json"],
+        "--epochs", "1", "--checkpoint_dir", str(tmp_path / "plot_ckpt"), "--plot",
+        str(tmp_path / "curves.png")])
+    assert (tmp_path / "curves.png").stat().st_size > 0
     # the chain-of-thought preset resolves and trains from DataConfig's
     # default data/ paths (the CLI has no flag for them)
     from explainable_spatial_vqa_tpu.clevr import annotate as ann

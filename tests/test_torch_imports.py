@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package, and its entry points
-(the CLI and the evaluation functions included) run on the card unless asked
-for the CPU; no module imports h5py or PIL when it is imported.  Checked in a
+(the CLI, the evaluation functions and the feature extractor included) run on
+the card unless asked for the CPU; no module imports h5py, PIL or matplotlib
+when it is imported.  Checked in a
 fresh interpreter: this test process has JAX
 loaded already (tests/conftest.py)."""
 
@@ -26,8 +27,10 @@ CHECK = textwrap.dedent("""
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                            "explainable_spatial_vqa_tpu"))
     assert not leaked, leaked
-    # only the file readers import these, inside the call
-    assert "h5py" not in sys.modules and "PIL" not in sys.modules, "h5py or PIL at import"
+    # only the file readers and writers, the image decode and the plot import
+    # these, inside the call
+    for lazy in ("h5py", "PIL", "matplotlib"):
+        assert lazy not in sys.modules, lazy + " at import"
     assert len(names) >= 20, names
     for name in ("cli", "cli.main", "evalsuite.detection", "evalsuite.accuracy",
                  "evalsuite.executor_eval", "train.scheduled", "clevr.scenes", "clevr.executor",
@@ -35,7 +38,8 @@ CHECK = textwrap.dedent("""
                  "evalsuite.cogent", "evalsuite.report", "train.synthetic_protocol",
                  "ops.decoding", "models.iqap", "models.lstm_iqap", "models.step_executor",
                  "core.annotated_strings", "models.cot", "models.prototypes", "vision",
-                 "vision.extract"):
+                 "vision.extract", "vision.resnet", "core.reshape", "core.artifacts",
+                 "utils", "utils.logging", "utils.plots", "utils.visualize", "cli.repro"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
@@ -102,6 +106,14 @@ CHECK = textwrap.dedent("""
     needs_cpu_named(lambda: sp.train_executor_synthetic([], {}, None))
     needs_cpu_named(lambda: sp.train_executor_scheduled_synthetic([], {}, None))
     needs_cpu_named(lambda: sp.evaluate_pipeline_synthetic(None, None, None, [], None, {}, {}))
+    from explainable_spatial_vqa_tpu_torch.vision.extract import extract_features
+    from explainable_spatial_vqa_tpu_torch.vision.resnet import Bottleneck, ResNetFeatures
+    needs_cpu_named(lambda: ResNetFeatures())
+    needs_cpu_named(lambda: Bottleneck(64, 16, 64))
+    needs_cpu_named(lambda: extract_features([], "features.h5"))
+    needs_cpu_named(lambda: main(["extract-features", "--input_image_dir", ".",
+                                  "--output_h5_file", "features.h5"]))
+    needs_cpu_named(lambda: main(["repro-clevr", "--clevr_root", ".", "--workdir", "w"]))
     print("ok", len(names))
 """)
 
