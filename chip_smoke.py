@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py        (from the root of a checkout; needs one CUDA card)
     python3 chip_smoke.py --k3-draws 0:64      (K3's bf16 check alone on those draws)
+    python3 chip_smoke.py --dp-rank RANK PORT DIR   (one of phase 20.3's two ranks; phase 20
+                                                     starts them itself)
 
 Phases, each printing its own line; the first failure exits non-zero with no
 result:
@@ -135,11 +137,26 @@ result:
     first batch's features as (128, 196, 1024) tokens through ``run_tally``
     on 512 CLEVR-factory questions (``executor_roi``, bf16, per-function
     calibration: K2 3 and K1 2 launches per forward), and in float32 with
-    phase 12's trained executor, card against CPU.
+    phase 12's trained executor, card against CPU;
+20. the last module slice (``last_slice``): the native CLEVR engine (built
+    with g++ in phase 2) against the Python executor on phase 17's 512
+    questions, both timed; one rank over NCCL: the data-parallel
+    ``Trainer`` step of ``executor_roi`` (full width, batch 16, float32)
+    equal to the plain step, its validation forward on K2 and K1,
+    ``run_pool`` on a one-rank mesh (bf16 and float32) and ``run_tally``
+    through ``--data_parallel``'s path equal to unsharded; two ranks
+    sharing the card over gloo (this script started twice with
+    ``--dp-rank``): the sharded float32 ``run_pool`` against the one-rank
+    decisions, a data-parallel step of 2 x 8 rows against the 16-row step
+    (float32: the loss, with the ReLU inputs that cuBLAS rounds otherwise at
+    8-row batches counted; float64 compute: loss, gradients and parameters
+    within 1e-6); ``ops.lowp``'s serving opt-in off and on (questions/s,
+    equal decisions, launches per forward); a ``utils.profiling`` trace
+    that must name its ``annotate`` regions and the ``esv::`` kernels.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``, with its launches on the main path and, under
-``launches_by_path``, on phases 14-19's paths; K2's entry also holds its
+``launches_by_path``, on phases 14-20's paths; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
 ``at_shapes``) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
@@ -154,6 +171,7 @@ import copy
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -223,6 +241,7 @@ PROTO_FP32_ROWS = 8  # rows of phase 18's float32 card-vs-CPU steps
 COT_DECODE_FP32 = 64  # questions of the CoT's float32 greedy decode, card vs CPU
 HIER_D512 = dict(d_model=512, num_heads=4, num_layers=2)  # head dim 128: K2 in eval
 K2_HIER_SHAPE = (128, 196)  # B, L: HierarchicalGenerator's encoder at d 512, no mask
+DP_TIMEOUT = 300  # s, each of phase 20.3's two ranks
 # phase 19: the feature extractor at the CLI's batch on CLEVR-sized images
 PREP_BATCH = 128
 PREP_IMAGE = (320, 480)
@@ -625,6 +644,24 @@ def postfix_ids(chains, token_ids: dict, function_ids: dict, length: int):
     return out
 
 
+def scripted_programs(torch, generator, program_ids):
+    """The generator, whose random weights emit programs that mostly do not
+    parse, as a module that runs its greedy decode on the card at its full
+    cost and then hands the pipeline the synthetic ``program_ids`` instead,
+    which parse into CLEVR-shaped chains."""
+
+    class ScriptedPrograms(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.generator = generator
+
+        def generate(self, questions):
+            decoded = self.generator.generate(questions)
+            return torch.as_tensor(program_ids, device=decoded.device)
+
+    return ScriptedPrograms()
+
+
 def main() -> None:
     if not (REPO / "explainable_spatial_vqa_tpu_torch" / "csrc").is_dir():
         fail(f"no checkout of the repository next to {Path(__file__).name}")
@@ -683,6 +720,12 @@ def main() -> None:
         if not ok:
             fail(f"phase 2 check failed: {name}")
 
+    from explainable_spatial_vqa_tpu_torch.clevr import native
+
+    t0 = time.perf_counter()
+    say(f"phase 2 native CLEVR engine (g++): {native.build_library().name}")
+    results = {"native_build_s": time.perf_counter() - t0}
+
     # ---- 3 and 4. kernels against their plain versions; times ----
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -695,7 +738,7 @@ def main() -> None:
         keep[:, length - tail:] = torch.rand(batch, tail, generator=gen, device=dev) < 0.6
         return keep
 
-    results, parts = {}, []
+    parts = []
     names = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
     # K1 at the box decoder's shape (L=10, no mask: the main path) and the fusion
@@ -868,6 +911,7 @@ def score_forms(torch, dev, l10, first, results: dict, parts) -> None:
     kernel takes), in alternating rounds: CUDA events around 50 calls, and
     the kernel's own device time from torch.profiler."""
     from explainable_spatial_vqa_tpu_torch.ops import fused_attention as fa
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
 
     def direct(entry):
         fn = fa._esv_attention(entry)
@@ -913,7 +957,7 @@ def score_forms(torch, dev, l10, first, results: dict, parts) -> None:
             fail(f"K1's shipped score form misses the bf16 attention check on draw {draw}")
     q, k, v, mask = first
     err = float((chains_call(q, k, v, mask).float()
-                 - fa.dot_product_attention(q, k, v, mask).float()).abs().max())
+                 - dot_product_attention(q, k, v, mask).float()).abs().max())
     ms = timed_ms(torch, lambda: chains_call(q, k, v, mask))
     parts.append(dict(name="attention_bf16_fma_scores_L210", route="cuda",
                       source="explainable_spatial_vqa_tpu_torch/csrc/attention.cuh",
@@ -1086,21 +1130,6 @@ def main_path(torch, np, dev, results, parts) -> None:
         value = fn()
         return value, {name: w.launches for name, w in wrappers.items()}
 
-    class ScriptedPrograms(torch.nn.Module):
-        """The generator, whose random weights emit programs that mostly do not
-        parse: runs its greedy decode on the card at its full cost, then hands
-        the pipeline the synthetic programs instead, which parse into
-        CLEVR-shaped chains."""
-
-        def __init__(self, generator, program_ids):
-            super().__init__()
-            self.generator = generator
-            self.program_ids = program_ids
-
-        def generate(self, questions):
-            decoded = self.generator.generate(questions)
-            return torch.as_tensor(self.program_ids, device=decoded.device)
-
     # ---- 5. the block-bench path: K3 through its entry point ----
     bench_rows, bench_launches = counted(
         lambda: bench_block.main(["--batches", "128", "--iters", "5"]))
@@ -1124,8 +1153,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     token_ids = {t: i for i, t in idx_to_token.items()}
     features, questions, chains = synth_questions(MAIN_QUESTIONS, exe_cfg, max_steps=27, seed=0)
     scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
-    pipeline = InferencePipeline(ScriptedPrograms(generator, scripted), runner, idx_to_token,
-                                 FUNCTION_IDS, device=dev)
+    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
+                                 idx_to_token, FUNCTION_IDS, device=dev)
     features_dev = torch.from_numpy(features).to(dev)
     questions_dev = torch.from_numpy(questions).to(dev)
     forwards = [0]
@@ -1294,8 +1323,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     m_runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
                                    device=dev)
     m_pipeline = InferencePipeline(
-        ScriptedPrograms(generator, postfix_ids(m_chains, token_ids, FUNCTION_IDS,
-                                                gen_cfg.program_len)),
+        scripted_programs(torch, generator, postfix_ids(m_chains, token_ids, FUNCTION_IDS,
+                                                        gen_cfg.program_len)),
         m_runner, idx_to_token, FUNCTION_IDS, device=dev)
     m_features_dev = torch.from_numpy(m_features).to(dev)
     by_mode = {mode: m_pipeline.run(m_questions, m_features_dev, m_chains.image_index,
@@ -1342,7 +1371,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     rs_executor = init_parameters(ProgramExecutor(rs_cfg, dtype, device=dev), seed=7)
     rs_runner = ExecutorChainRunner(rs_executor, rs_cfg, max_steps=27,
                                     conf_thresholds=thresholds, device=dev)
-    rs_pipeline = InferencePipeline(ScriptedPrograms(generator, scripted), rs_runner,
+    rs_pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), rs_runner,
                                     idx_to_token, FUNCTION_IDS, device=dev)
     forwards[0] = 0
     hook = rs_executor.register_forward_hook(count_forwards)
@@ -1373,7 +1402,8 @@ def main_path(torch, np, dev, results, parts) -> None:
                **scheduled_training(torch, np, dev, counted),
                **cogent(torch, np, dev, counted), **baselines(torch, np, dev, counted),
                **cot_and_prototypes(torch, np, dev, counted),
-               **data_prep(torch, np, dev, counted, trained)}
+               **data_prep(torch, np, dev, counted, trained),
+               **last_slice(torch, np, dev, counted, results)}
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -3738,10 +3768,634 @@ def library_layer(torch, w, d: int, h: int, ffn: int, dtype):
     return layer.to(device=w.qkv.device, dtype=dtype)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the last module slice
+# ---------------------------------------------------------------------------
+
+
+def native_engine(np, results: dict) -> None:
+    """Phase 20.1: the native CLEVR engine (``clevr/native.py``, g++ at first
+    use; phase 2 built it and timed the build) on phase 17's 512 CLEVR-factory
+    questions over 128 scenes: each question's outputs and relevant-object
+    sets through the engine (``annotate._execute_with_poisoning``) and
+    through the Python executor (``annotate._execute_python``) must be
+    equal, the engine must have run every program, and both are timed, with
+    the batched call (one per scene) beside them."""
+    from explainable_spatial_vqa_tpu_torch.clevr import annotate as ann
+    from explainable_spatial_vqa_tpu_torch.clevr import native
+    from explainable_spatial_vqa_tpu_torch.clevr import synthetic as syn
+    from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
+
+    scenes_raw, questions = syn.synthesize_dataset(BASELINE_SCENES, 4, seed=17, hop_prob=0.5,
+                                                   chain_prob=0.5)
+    scenes = {s["image_index"]: Scene.from_raw(s) for s in scenes_raw}
+    runs = [(scenes[q["image_index"]], q["program"]) for q in questions]
+    t0 = time.perf_counter()
+    if not native.native_available():  # loads the library built in phase 2
+        fail("phase 20.1: the native engine did not load")
+    load_s = time.perf_counter() - t0
+    native.execute_native.programs = 0
+    t0 = time.perf_counter()
+    on_engine = [ann._execute_with_poisoning(scene, program) for scene, program in runs]
+    native_s = time.perf_counter() - t0
+    programs = native.execute_native.programs
+    t0 = time.perf_counter()
+    on_python = [ann._execute_python(scene, program) for scene, program in runs]
+    python_s = time.perf_counter() - t0
+    by_scene = {}
+    for scene, program in runs:
+        by_scene.setdefault(scene.image_index, (scene, []))[1].append(program)
+    packed = [(native.PackedScene(scene), [native.pack_program(p) for p in progs])
+              for scene, progs in by_scene.values()]
+    t0 = time.perf_counter()
+    for scene_packed, steps in packed:
+        native.execute_batch_native(scene_packed, steps)
+    batch_s = time.perf_counter() - t0
+    equal = sum(a == b for a, b in zip(on_engine, on_python))
+    say(f"phase 20.1 native engine: g++ build {results['native_build_s']:.2f} s (phase 2), "
+        f"load {load_s * 1e3:.1f} ms; "
+        f"{len(runs)} CLEVR-factory questions over {len(scenes)} scenes, {programs} programs on "
+        f"the engine; outputs and relevant-object sets equal to the Python executor's on "
+        f"{equal} of {len(runs)}; per question: engine {native_s * 1e3:.2f} ms, Python "
+        f"{python_s * 1e3:.2f} ms ({python_s / native_s:.1f}x); batched, one call per scene "
+        f"(packing outside): {batch_s * 1e3:.3f} ms ({python_s / batch_s:.1f}x)")
+    if programs == 0:
+        fail("phase 20.1: no program ran on the native engine")
+    if equal != len(runs):
+        fail("phase 20.1: the native engine disagrees with the Python executor")
+
+
+def dp_executor_config(seed: int, dtype: str):
+    """Phase 20's data-parallel training configuration: ``executor_roi`` at
+    full width and its preset's batch, computing in ``dtype`` and without
+    dropout (two ranks' dropout draws are not one process's), from
+    ``seed``."""
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+
+    cfg = get_preset("executor_roi")
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0),
+                       train=dataclasses.replace(cfg.train, dtype=dtype, seed=seed,
+                                                 num_epochs=1, log_every=0))
+
+
+DP_DTYPES = ("float32", "float64")  # compute types of phase 20's data-parallel steps
+
+
+def dp_batch(np, cfg):
+    """(step arrays, features, one batch of the preset's size): phase 12's
+    synthetic executor steps, the batch ordered so that the two halves hold
+    different counts of box rows and of target boxes."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_executor_steps
+
+    arrays, features = synth_executor_steps(EXECUTOR_ROWS, cfg.model, seed=12)
+    box = np.flatnonzero(arrays["is_box_branch"])
+    token = np.flatnonzero(~arrays["is_box_branch"])
+    half = cfg.train.batch_size // 2
+    idx = np.concatenate([box[:half - 1], token[:1], box[half - 1:half + 3], token[1:half - 3]])
+    batch = {k: v[idx] for k, v in arrays.items()}
+    batch["image"] = features[batch["image_index"]]
+    return arrays, features, batch
+
+
+def step_agreement(torch, model, got_loss, grads, ref: dict) -> dict:
+    """A data-parallel step's loss, gradients and parameters against one
+    process's (``ref``): the loss's relative error, the gradients' largest
+    error over max|g|, the parameters' over max|p| (the attention's key
+    biases apart: their exact gradient is 0, so Adam's first step, g / (|g|
+    + eps), moves them by rounding noise scaled up to the learning rate in
+    either run), and those biases' largest move apart."""
+    state = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    key_bias = {k for k in state if k.endswith("attn.k.bias")}
+    g_scale = max(float(g.abs().max()) for g in ref["grads"].values())
+    p_scale = max(float(v.abs().max()) for v in ref["state"].values())
+    g_err = {k: float((grads[k].float().cpu() - g).abs().max()) for k, g in ref["grads"].items()}
+    p_err = {k: float((state[k] - v).abs().max()) for k, v in ref["state"].items()
+             if k not in key_bias}
+    g_worst, p_worst = max(g_err, key=g_err.get), max(p_err, key=p_err.get)
+    return dict(
+        loss=got_loss, ref_loss=ref["loss"],
+        loss_rel=abs(got_loss - ref["loss"]) / abs(ref["loss"]),
+        grad_rel=g_err[g_worst] / g_scale, grad_worst=g_worst,
+        grad_worst_scale=float(ref["grads"][g_worst].abs().max()) / g_scale,
+        param_rel=p_err[p_worst] / p_scale, param_worst=p_worst,
+        key_bias_apart=max(float((state[k] - ref["state"][k]).abs().max()) for k in key_bias),
+        key_bias_grad=max(float(ref["grads"][k].abs().max()) for k in key_bias) / g_scale)
+
+
+def step_ok(found: dict, lr: float) -> bool:
+    return (found["loss_rel"] <= 1e-6 and found["grad_rel"] <= 1e-6
+            and found["param_rel"] <= 1e-6 and found["key_bias_apart"] <= 2 * lr)
+
+
+def step_text(found: dict) -> str:
+    return (f"loss {found['loss']:.7f} vs {found['ref_loss']:.7f} (rel {found['loss_rel']:.2e}, "
+            f"tol 1e-6); gradients within {found['grad_rel']:.2e} of max|g| (at "
+            f"{found['grad_worst']}, whose max|g| is {found['grad_worst_scale']:.2e} of the "
+            f"largest), parameters within {found['param_rel']:.2e} of max|p| (at "
+            f"{found['param_worst']}); the key biases (gradient {found['key_bias_grad']:.1e} of "
+            f"max|g|) apart by {found['key_bias_apart']:.2e}")
+
+
+def serving_inputs(torch, np, dev):
+    """Phase 6's serving inputs at bench.py's widths: the executor config,
+    per-function thresholds, per-image features on the card and the
+    synthetic chains of ``MAIN_QUESTIONS`` questions."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_questions
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
+
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True)
+    thresholds = np.random.RandomState(3).uniform(0.3, 0.7, exe_cfg.vocab_size).astype(np.float32)
+    features, questions, chains = synth_questions(MAIN_QUESTIONS, exe_cfg, max_steps=27, seed=0)
+    return exe_cfg, thresholds, torch.from_numpy(features).to(dev), questions, chains
+
+
+DECISIONS = ("token_branch", "token_cache", "box_mask")
+
+
+def decision_differences(np, out: dict, ref: dict, thresholds, chains) -> list:
+    """Each chain whose decisions differ between two pool runs: (row, first
+    differing step, what differs, the reference's margin there: |conf -
+    threshold| of the nearest box decision, or None for a routing or token
+    decision, whose logits a run does not keep)."""
+    found = []
+    differ = np.zeros(out["token_branch"].shape, bool)
+    for k in DECISIONS:
+        d = out[k] != ref[k]
+        differ |= d.reshape(d.shape[0], d.shape[1], -1).any(-1)
+    for row in np.flatnonzero(differ.any(1)):
+        step = int(np.flatnonzero(differ[row])[0])
+        what = [k for k in DECISIONS
+                if np.any(np.asarray(out[k][row, step]) != np.asarray(ref[k][row, step]))]
+        margin = None
+        if what == ["box_mask"]:
+            thr = thresholds[chains.functions[row, step]]
+            margin = float(np.abs(ref["conf_cache"][row, step] - thr).min())
+        found.append((int(row), step, what, margin))
+    return found
+
+
+def last_slice(torch, np, dev, counted, results) -> dict:
+    """Phase 20, the last module slice, on the card:
+
+    - 20.1 ``native_engine``;
+    - 20.2 one rank over NCCL (``parallel.multihost.initialize`` on a free
+      localhost port, one process): the data-parallel ``Trainer`` step of
+      ``executor_roi`` at full width and its batch of 16, float32, against
+      the plain ``Trainer``'s step taken before the group existed
+      (``step_agreement``), and its validation forward (K2 3 and K1 2
+      launches); ``run_pool`` on a one-rank mesh at bench.py's widths on
+      ``MAIN_QUESTIONS`` questions in bf16 and float32, decisions equal to
+      the unsharded ``run_pool``'s, K2 3 and K1 2 launches per forward, both
+      timed; ``run_tally`` (sorted mode is the CLI's; here the pool) through
+      ``--data_parallel``'s ``_serve_mesh`` (one process: it warns and
+      serves unsharded) and on the one-rank mesh, equal;
+    - 20.3 two ranks sharing the card over gloo (``dp_rank``, this script
+      started twice): the sharded float32 ``run_pool`` against 20.2's
+      float32 decisions (differences listed with their margins), and one
+      data-parallel step of 2 x 8 rows against 20.2's plain 16-row step;
+    - 20.4 ``ops.lowp``'s serving opt-in: ``InferencePipeline.run`` (pool)
+      on ``MAIN_QUESTIONS`` questions in bf16 with lowp off and on, in
+      turns, questions/s as the median of ``REPEATS``, the share of equal
+      answers and of equal per-step decisions, K2 and K1 launches per
+      forward (equal either way);
+    - 20.5 ``utils.profiling``: ``trace`` around a pipeline run and a pool
+      run in ``annotate`` regions; the trace must name both regions and the
+      ``esv::`` kernels; ``phase_report`` of the phase's timers.
+
+    Returns the launches of each path, for the result line."""
+    import argparse
+    import tempfile
+
+    import torch.distributed as dist
+
+    from explainable_spatial_vqa_tpu_torch.bench_data import (
+        FUNCTION_IDS,
+        PROGRAM_TOKENS,
+        postfix_ids as program_ids,
+        synth_annotated,
+        synth_generator_batch,
+    )
+    from explainable_spatial_vqa_tpu_torch.cli.main import _serve_mesh, run_tally
+    from explainable_spatial_vqa_tpu_torch.core.config import GeneratorConfig, get_preset
+    from explainable_spatial_vqa_tpu_torch.core.vocab import canonicalize
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.ops import lowp
+    from explainable_spatial_vqa_tpu_torch.parallel import multihost
+    from explainable_spatial_vqa_tpu_torch.parallel.mesh import make_mesh
+    from explainable_spatial_vqa_tpu_torch.train.datasets import chain_arrays
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+    from explainable_spatial_vqa_tpu_torch.utils.profiling import (
+        annotate,
+        phase,
+        phase_report,
+        reset_phases,
+        trace,
+    )
+
+    t_phase = time.perf_counter()
+    reset_phases()
+    by_path = {}
+    native_engine(np, results)
+    workdir = Path(tempfile.mkdtemp(prefix="phase20-"))
+
+    # ---- 20.2 the plain references, before any process group ----
+    cfg = dp_executor_config(0, "float32")
+    arrays, features, batch = dp_batch(np, cfg)
+    features = torch.from_numpy(features).to(dev)
+
+    def dp_step(trainer, rows):
+        acc = trainer.train_epoch([rows], seed=0, epoch=0)
+        grads = {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        return acc.totals["loss_sum"], grads
+
+    def plain_trainer(dtype):
+        config = dp_executor_config(0, dtype)
+        pipe = executor_pipeline_from_arrays(config, arrays, features, device=dev)
+        return Trainer(pipe.loss_fn, pipe.model, config.optim, config.train,
+                       checkpoint_dir=False, device=dev)
+
+    for dtype in DP_DTYPES:
+        trainer = plain_trainer(dtype)
+        loss, grads = dp_step(trainer, batch)
+        reference = {"loss": loss, "grads": grads, "state": {
+            k: v.detach().float().cpu() for k, v in trainer.model.state_dict().items()}}
+        torch.save(reference, workdir / f"step_{dtype}.pt")
+        # the same step on the same rows in reverse order: how far sums taken
+        # in another order move one process's step
+        trainer = plain_trainer(dtype)
+        loss, grads = dp_step(trainer, {k: v[::-1].copy() for k, v in batch.items()})
+        say(f"phase 20.2 the plain {dtype} step on its rows in reverse order, against the plain "
+            f"step: {step_text(step_agreement(torch, trainer.model, loss, grads, reference))}")
+    # a float32 forward on the 16 rows and on their two halves of 8: cuBLAS
+    # takes other kernels at 8 x 210 rows than at 16 x 210, so the FFN's
+    # ReLU inputs round otherwise and those within a rounding of 0 flip
+    model = plain_trainer("float32").model.train()
+    taken = []
+    hooks = [blk.ffn.fc1.register_forward_hook(lambda _m, _i, o: taken.append(o.detach()))
+             for blk in model.fusion.blocks]
+    rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+    names_in = ("image", "input_boxes", "input_box_mask", "text", "text_mask")
+    with torch.no_grad():
+        model(*(rows[k] for k in names_in))
+        half = len(batch["text"]) // 2
+        for part in (slice(0, half), slice(half, None)):
+            model(*(rows[k][part] for k in names_in))
+    for h in hooks:
+        h.remove()
+    layers = len(model.fusion.blocks)
+    whole, halves = taken[:layers], [torch.cat(p) for p in zip(taken[layers:2 * layers],
+                                                               taken[2 * layers:])]
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(whole, halves))
+    units = sum(a.numel() for a in whole)
+    apart = max(float((a - b).abs().max()) for a, b in zip(whole, halves))
+    say(f"phase 20.2 float32 train forward on the 16 rows against its two 8-row halves: FFN "
+        f"inputs to ReLU apart by up to {apart:.2e}, {flips} of {units} on the other side of 0")
+    del model, trainer
+
+    exe_cfg, thresholds, feats_dev, questions, chains = serving_inputs(torch, np, dev)
+    executors = {dt: init_parameters(ProgramExecutor(exe_cfg, dt, device=dev), seed=2)
+                 for dt in (torch.bfloat16, torch.float32)}
+    names = {torch.bfloat16: "bf16", torch.float32: "float32"}
+    plain_pool = {}
+    for dt, executor in executors.items():
+        runner = ExecutorChainRunner(executor, exe_cfg, 27, thresholds, device=dev)
+        runner.run_pool(feats_dev, chains)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_pool[dt] = (runner.run_pool(feats_dev, chains), time.perf_counter() - t0)
+    np.savez(workdir / "pool_float32.npz", **plain_pool[torch.float32][0])
+
+    # ---- 20.2 one rank over NCCL ----
+    port = free_port()
+    multihost.initialize(f"localhost:{port}", num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh()
+        say(f"phase 20.2 process group: {dist.get_backend()}, world {dist.get_world_size()}, "
+            f"mesh {mesh}")
+        pipe = executor_pipeline_from_arrays(cfg, arrays, features, device=dev)
+        trainer = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, checkpoint_dir=False,
+                          device=dev)
+        if trainer.mesh is None or trainer.mesh.shape != {"data": 1}:
+            fail(f"phase 20.2: the trainer took no mesh from the process group: {trainer.mesh}")
+        with phase("20.2 data-parallel step"):
+            loss, grads = dp_step(trainer, batch)
+        found = step_agreement(torch, pipe.model, loss, grads,
+                               torch.load(workdir / "step_float32.pt", weights_only=False))
+        say(f"phase 20.2 data-parallel Trainer step, one rank, executor_roi float32 batch "
+            f"{len(batch['text'])}, against the plain step: {step_text(found)}")
+        if not (found["loss_rel"] == found["grad_rel"] == found["param_rel"] == 0.0):
+            fail("phase 20.2: the one-rank data-parallel step differs from the plain step")
+        log = ForwardLaunches(pipe.model)
+        _acc, val_counts = counted(lambda: trainer.evaluate([batch]))
+        log.remove()
+        val = log.tally()
+        say(f"phase 20.2 data-parallel validation: {val['forwards']} forward(s), launches "
+            f"{val_counts}")
+        if not per_forward_ok(val, pipe.model.config):
+            fail("phase 20.2: the data-parallel validation forward missed K2 or K1")
+        by_path["dp_validation"] = val_counts
+        del pipe, trainer
+
+        for dt, executor in executors.items():
+            runner = ExecutorChainRunner(executor, exe_cfg, 27, thresholds, device=dev,
+                                         mesh=mesh)
+            runner.run_pool(feats_dev, chains)  # warm-up
+            log = ForwardLaunches(executor)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: runner.run_pool(feats_dev, chains))
+            mesh_s = time.perf_counter() - t0
+            log.remove()
+            c = log.tally()
+            ref, plain_s = plain_pool[dt]
+            equal = all(np.array_equal(out[k], ref[k]) for k in DECISIONS + ("final_tokens",))
+            say(f"phase 20.2 run_pool on a one-rank mesh, {names[dt]}, {MAIN_QUESTIONS} "
+                f"questions: {mesh_s:.3f} s against {plain_s:.3f} s unsharded; decisions "
+                f"{'equal' if equal else 'DIFFER'}; {c['forwards']} forwards, launches {counts}")
+            if not (equal and per_forward_ok(c, exe_cfg)
+                    and c["K2"] == counts["fused_encoder_block"]):
+                fail(f"phase 20.2: the one-rank mesh's {names[dt]} pool run differs or missed "
+                     "a kernel")
+            if dt == torch.bfloat16:
+                by_path["dp_pool_one_rank"] = counts
+
+        # run_tally through --data_parallel's path, in pool mode
+        gen_cfg = get_preset("generator").model
+        gen_questions, _p, _i = synth_generator_batch(MAIN_QUESTIONS, gen_cfg, seed=14)
+        generator = init_parameters(ProgramGenerator(gen_cfg, torch.bfloat16, device=dev),
+                                    seed=14)
+        records, t_feats, fv, vv = synth_annotated(MAIN_QUESTIONS, exe_cfg, seed=16)
+        t_chains = chain_arrays(records, fv)
+        gt_programs = program_ids(t_chains, gen_cfg.program_len, start=True).astype(np.int32)
+        gt_answers = np.asarray([vv[canonicalize(r["answer"])] for r in records])
+        t_image = torch.from_numpy(t_feats).to(dev)
+        serve_mesh = _serve_mesh(argparse.Namespace(data_parallel=True))
+
+        def tally(mesh_):
+            return run_tally(generator, executors[torch.bfloat16], exe_cfg, gen_questions,
+                             t_image, t_chains.image_index, dict(enumerate(PROGRAM_TOKENS)),
+                             fv, vv, gt_answers=gt_answers, programs=gt_programs,
+                             annotated=records, chain_mode="pool",
+                             calibrate_conf_per_function=True, device=dev, mesh=mesh_)
+
+        plain_tally = tally(None)
+        (served, served_counts) = counted(lambda: tally(serve_mesh))
+        on_mesh, mesh_counts = counted(lambda: tally(mesh))
+        same = all(
+            np.array_equal(t.pipeline.answers, plain_tally.pipeline.answers)
+            and t.conf_threshold == plain_tally.conf_threshold
+            and t.payload["per_function_box_pr"] == plain_tally.payload["per_function_box_pr"]
+            for t in (served, on_mesh))
+        say(f"phase 20.2 run_tally (pool mode, per-function calibration) through "
+            f"--data_parallel's _serve_mesh (one process: {serve_mesh}, served unsharded) and "
+            f"on the one-rank mesh: {' + '.join('%.3f' % r['seconds'] for r in on_mesh.runs)} s; "
+            f"answers, thresholds and box P/R {'equal' if same else 'DIFFER'} to unsharded; "
+            f"launches {mesh_counts}")
+        if not (same and serve_mesh is None and mesh_counts["fused_encoder_block"] > 0
+                and mesh_counts["fused_attention"] > 0):
+            fail("phase 20.2: run_tally on the mesh differs from unsharded or missed a kernel")
+        by_path["dp_tally_one_rank"] = mesh_counts
+        del generator, t_image
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- 20.3 two ranks sharing the card over gloo ----
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(rank), str(port), str(workdir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 20.3: a rank ran past {DP_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            fail(f"phase 20.3: rank {rank} exited {proc.returncode}:\n{text[-3000:]}")
+    reports = [json.loads((workdir / f"rank{rank}.json").read_text()) for rank in range(2)]
+    for r in reports:
+        diffs = r["differences"]
+        say(f"phase 20.3 rank {r['rank']} of 2 (gloo, one card): sharded run_pool float32 on "
+            f"{r['rows']} of {MAIN_QUESTIONS} questions in {r['pool_s']:.3f} s (one rank on the "
+            f"card: {plain_pool[torch.float32][1]:.3f} s), {r['forwards']} forwards, launches "
+            f"{r['counts']}; decisions against 20.2's: "
+            + ("equal" if not diffs else f"{len(diffs)} chains differ: " + "; ".join(
+                f"row {row} step {step} {what} margin "
+                + ("not kept" if m is None else f"{m:.2e}") for row, step, what, m in diffs)))
+        for dtype in DP_DTYPES:
+            say(f"phase 20.3 rank {r['rank']}: data-parallel {dtype} step of {r['step_rows']} "
+                f"rows ({r['box_rows']} box rows, {r['target_boxes']} target boxes) against "
+                f"the 16-row step: {step_text(r['step_' + dtype])}")
+    counts = {k: sum(r["counts"][k] for r in reports) for k in reports[0]["counts"]}
+    if reports[0]["box_rows"] == reports[1]["box_rows"]:
+        fail("phase 20.3: the ranks' halves hold equal counts of box rows")
+    for r in reports:
+        near = all(what == ["box_mask"] and m is not None and m < 1e-5
+                   for _row, _step, what, m in r["differences"])
+        # float32: the loss; float64 (no ReLU input lies within its rounding
+        # of 0 at either batch shape): the loss, gradients and parameters
+        if not (near and r["per_forward_ok"] and r["step_float32"]["loss_rel"] <= 1e-6
+                and step_ok(r["step_float64"], cfg.optim.learning_rate)):
+            fail(f"phase 20.3: rank {r['rank']} disagrees with one process beyond a near-tie, or "
+                 "missed a kernel")
+    by_path["dp_pool_two_ranks"] = counts
+
+    # ---- 20.4 lowp serving ----
+    gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
+    generator = init_parameters(ProgramGenerator(gen_cfg, torch.bfloat16, device=dev), seed=1)
+    idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
+    token_ids = {t: i for i, t in idx_to_token.items()}
+    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
+    executor = executors[torch.bfloat16]
+    runner = ExecutorChainRunner(executor, exe_cfg, 27, thresholds, device=dev)
+    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
+                                 idx_to_token, FUNCTION_IDS, device=dev)
+
+    def serve():
+        return pipeline.run(questions, feats_dev, chains.image_index, chain_mode="pool")
+
+    seconds = {False: [], True: []}
+    answers, steps, counts, per_forward = {}, {}, {}, {}
+    try:
+        for on in (False, True):
+            lowp.use_lowp_serving(on)
+            serve()  # warm-up
+            log = ForwardLaunches(executor)
+            answers[on], counts[on] = counted(serve)
+            log.remove()
+            c = log.tally()
+            per_forward[on] = (c["K2"] / c["forwards"], c["K1"] / c["forwards"])
+            steps[on] = runner.run_pool(feats_dev, chains)
+        for _ in range(REPEATS):
+            for on in (False, True):
+                lowp.use_lowp_serving(on)
+                with phase(f"20.4 pipeline run, lowp {'on' if on else 'off'}"):
+                    t0 = time.perf_counter()
+                    serve()
+                    seconds[on].append(time.perf_counter() - t0)
+    finally:
+        lowp.use_lowp_serving(False)
+    qps = {on: MAIN_QUESTIONS / statistics.median(s) for on, s in seconds.items()}
+    same_answers = float(np.mean((answers[True].answers == answers[False].answers)
+                                 & (answers[True].answer_valid == answers[False].answer_valid)))
+    active = np.arange(steps[False]["token_branch"].shape[1])[None] < chains.num_steps[:, None]
+    same_steps = {k: float(np.mean(np.all(
+        (steps[True][k] == steps[False][k]).reshape(*active.shape, -1), -1)[active]))
+        for k in DECISIONS}
+    say(f"phase 20.4 lowp serving, InferencePipeline.run (pool) on {MAIN_QUESTIONS} questions, "
+        f"bf16, median of {REPEATS} in turns: off {qps[False]:.1f} questions/s, on "
+        f"{qps[True]:.1f} ({qps[True] / qps[False] - 1:+.1%}); runs off "
+        f"{', '.join(f'{t:.3f}' for t in seconds[False])} s, on "
+        f"{', '.join(f'{t:.3f}' for t in seconds[True])} s; answers equal on {same_answers:.4f}; "
+        f"per-step decisions equal on " + ", ".join(f"{k} {v:.4f}" for k, v in same_steps.items())
+        + f"; K2, K1 per forward off {per_forward[False]}, on {per_forward[True]}; launches "
+        f"off {counts[False]}, on {counts[True]}")
+    if not (per_forward[True] == per_forward[False]
+            == (exe_cfg.encoder_layers, exe_cfg.box_decoder_layers)):
+        fail("phase 20.4: lowp changed the kernels' launches per forward")
+    by_path["lowp_serving"] = counts[True]
+
+    # ---- 20.5 the profiler ----
+    trace_dir = workdir / "trace"
+    with phase("20.5 traced pipeline and pool runs"):
+        t0 = time.perf_counter()
+        with trace(str(trace_dir)) as trace_path:
+            with annotate("phase20.pipeline_run"):
+                serve()
+            with annotate("phase20.run_pool"):
+                runner.run_pool(feats_dev, chains)
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    event_names = {e.get("name", "") for e in events}
+    ours = sorted({n.split("(")[0][:60] for n in event_names if "esv::" in n})
+    regions = {"phase20.pipeline_run", "phase20.run_pool"} & event_names
+    size_mb = Path(trace_path).stat().st_size / 1e6
+    untraced = statistics.median(seconds[False]) + plain_pool[torch.bfloat16][1]
+    say(f"phase 20.5 trace: {Path(trace_path).name}, {size_mb:.1f} MB, {len(events)} events "
+        f"in {traced_s:.3f} s (the two runs untraced: {untraced:.3f} s); regions "
+        f"{sorted(regions)}; esv:: kernels {ours}")
+    if len(regions) != 2 or not ours:
+        fail("phase 20.5: the trace misses an annotated region or the esv:: kernels")
+    for line in phase_report().splitlines():
+        say(f"phase 20.5 {line}")
+    shutil.rmtree(workdir)
+    say(f"phase 20 done in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_rank(rank: int, port: int, workdir: str) -> None:
+    """Phase 20.3's rank ``rank`` of 2 (``chip_smoke.py --dp-rank RANK PORT
+    DIR``): joins the gloo group, runs the sharded float32 ``run_pool`` at
+    bench.py's widths (from weights of its own seed: the runner broadcasts
+    rank 0's) and one data-parallel ``executor_roi`` step on its half of
+    phase 20.2's batch (from weights of its own seed: the trainer
+    broadcasts rank 0's), and writes its findings against phase 20.2's
+    references in ``DIR`` to ``DIR/rank<RANK>.json``."""
+    if not (REPO / "explainable_spatial_vqa_tpu_torch" / "csrc").is_dir():
+        fail(f"no checkout of the repository next to {Path(__file__).name}")
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fused_encoder_block,
+        fused_encoder_block_tiled,
+    )
+    from explainable_spatial_vqa_tpu_torch.parallel import multihost
+    from explainable_spatial_vqa_tpu_torch.parallel.mesh import make_mesh
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    workdir = Path(workdir)
+    dev = torch.device("cuda")
+    multihost.initialize(f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
+    mesh = make_mesh()
+    wrappers = (fused_attention, fused_encoder_block, fused_encoder_block_tiled)
+    report = {"rank": rank}
+
+    exe_cfg, thresholds, feats_dev, _questions, chains = serving_inputs(torch, np, dev)
+    executor = init_parameters(ProgramExecutor(exe_cfg, torch.float32, device=dev),
+                               seed=2 + rank)
+    runner = ExecutorChainRunner(executor, exe_cfg, 27, thresholds, device=dev, mesh=mesh)
+    runner.run_pool(feats_dev, chains)  # warm-up: this process's first calls
+    log = ForwardLaunches(executor)
+    for w in wrappers:
+        w.launches = 0
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_pool(feats_dev, chains)
+    report["pool_s"] = time.perf_counter() - t0
+    report["counts"] = {w.__name__: w.launches for w in wrappers}
+    log.remove()
+    c = log.tally()
+    report["forwards"] = c["forwards"]
+    report["per_forward_ok"] = per_forward_ok(c, exe_cfg)
+    report["rows"] = len(chains.num_steps[rank::2])
+    ref = dict(np.load(workdir / "pool_float32.npz"))
+    report["differences"] = decision_differences(np, out, ref, thresholds, chains)
+
+    for dtype in DP_DTYPES:
+        cfg = dp_executor_config(rank, dtype)
+        arrays, features, batch = dp_batch(np, cfg)
+        half = len(batch["text"]) // 2
+        mine = {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()}
+        pipe = executor_pipeline_from_arrays(cfg, arrays, torch.from_numpy(features).to(dev),
+                                             device=dev)
+        trainer = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, checkpoint_dir=False,
+                          device=dev)
+        if not trainer.data_parallel:
+            fail(f"rank {rank}: the trainer is not data parallel")
+        acc = trainer.train_epoch([mine], seed=0, epoch=0)
+        grads = {n: p.grad for n, p in pipe.model.named_parameters() if p.grad is not None}
+        reference = torch.load(workdir / f"step_{dtype}.pt", weights_only=False)
+        report["step_" + dtype] = step_agreement(torch, pipe.model, acc.totals["loss_sum"],
+                                                 grads, reference)
+    report["step_rows"] = half
+    report["box_rows"] = int(mine["is_box_branch"].sum())
+    report["target_boxes"] = int(mine["target_box_mask"].sum())
+    (workdir / f"rank{rank}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-draws"] and len(sys.argv) == 3:
         k3_draws(parse_draws(sys.argv[2]))
+    elif sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 5:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) > 1:
-        fail(f"usage: {sys.argv[0]} [--k3-draws START:STOP | SEED[@OFFSET],...]")
+        fail(f"usage: {sys.argv[0]} [--k3-draws START:STOP | SEED[@OFFSET],... | "
+             "--dp-rank RANK PORT DIR]")
     else:
         main()

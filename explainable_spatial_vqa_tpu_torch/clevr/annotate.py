@@ -1,8 +1,8 @@
 """Per-step annotation, the offline ground-truth factory, copied from
 ``explainable_spatial_vqa_tpu/clevr/annotate.py`` (the v3 annotation, the
 input-step-grounded "full" annotation of the step seq2seq baseline in both
-its styles, the single-string annotation of the chain-of-thought IQAP, and
-the corpus sweep; the Python executor only).
+its styles, the single-string annotation of the chain-of-thought IQAP, the
+structured annotation and the corpus sweep).
 
 For every question, the symbolic executor runs the program step by step and
 records, per step:
@@ -36,7 +36,7 @@ from explainable_spatial_vqa_tpu_torch.clevr.executor import (
 from explainable_spatial_vqa_tpu_torch.clevr.scenes import Scene
 
 __all__ = ["annotate_question", "annotate_question_full", "annotate_question_string",
-           "annotate_questions", "step_relevant_objects"]
+           "annotate_question_structured", "annotate_questions", "step_relevant_objects"]
 
 
 def step_relevant_objects(function: str, output: Any) -> List[int]:
@@ -62,9 +62,35 @@ def _execute_with_poisoning(
     step's output is None and its relevant-object set empty (positional, not
     dependency-based — matching the reference's re-run-the-prefix behavior).
 
-    The JAX package runs its optional C++ engine here when it is built; its
-    answers equal this Python executor's, so the port keeps this path only.
+    Runs the native C++ engine (:mod:`.native`) when it is built and loaded,
+    and the Python executor when it is not, or when the engine raises or
+    returns nothing, as the JAX package does; both give the same outputs
+    (tests/test_torch_native.py).
     """
+    from explainable_spatial_vqa_tpu_torch.clevr import native as native_engine
+
+    if native_engine.native_available():
+        try:
+            outputs = native_engine.execute_native(scene, program)
+        except Exception:
+            outputs = None
+        if outputs is not None:
+            node_outputs: List[Any] = list(outputs)
+            relevant: List[List[int]] = [
+                step_relevant_objects(step.get("function") or step.get("type"), value)
+                for step, value in zip(program, outputs)
+            ]
+            while len(node_outputs) < len(program):
+                node_outputs.append(None)
+                relevant.append([])
+            return node_outputs, relevant
+    return _execute_python(scene, program)
+
+
+def _execute_python(
+    scene: Scene, program: Sequence[Dict[str, Any]]
+) -> Tuple[List[Any], List[List[int]]]:
+    """:func:`_execute_with_poisoning` on the Python executor."""
     executor = Executor(scene)
     node_outputs: List[Any] = []
     relevant: List[List[int]] = []
@@ -348,3 +374,72 @@ def annotate_questions(
     with ctx.Pool(num_workers, initializer=_init_worker, initargs=(scenes,)) as pool:
         out = pool.map(_annotate_one, questions, chunksize=256)
     return [q for q in out if q is not None]
+
+
+def annotate_question_structured(
+    question: Dict[str, Any],
+    scene: Scene,
+    boxes: Optional[Any] = None,
+) -> Dict[str, Any]:
+    """Structured (non-string) annotation
+    (preprocess_scenes/preprocess_one_annotation.py:255-397 of the CLEVR
+    reference): input and output values stay Python objects, spatial values
+    as ``[{'bbox': (x, y, x, y)}]`` with 1-decimal boxes and non-spatial
+    values raw; each step carries a cumulative ``chain_of_thought`` of
+    function tokens; a synthetic terminal ``end`` step holds the question's
+    answer.
+    """
+    program = question["program"]
+    if boxes is None:
+        boxes = scene_bounding_boxes(scene.raw, decimals=1)
+    node_outputs, relevant = _execute_with_poisoning(scene, program)
+    num_objects = len(scene.objects)
+
+    def bbox_dicts(obj_indices: Sequence[Any]) -> List[Dict[str, Any]]:
+        return [
+            {"bbox": tuple(float(c) for c in boxes[obj_idx])}
+            for obj_idx in obj_indices
+            if obj_idx is not None and 0 <= obj_idx < num_objects
+        ]
+
+    annotated_program: List[Dict[str, Any]] = []
+    chain_list: List[str] = []
+    for i, step in enumerate(program):
+        annotated_step = dict(step)
+        function_name = annotated_step.get("function", "")
+        values = step.get("value_inputs") or []
+        combined = f"{function_name}[{','.join(map(str, values))}]" if values else function_name
+        annotated_step["function"] = combined
+
+        chain_list.append(combined)
+        annotated_step["chain_of_thought"] = list(chain_list)
+
+        base = combined.split("[")[0]
+        if base in NON_SPATIAL_FUNCTIONS:
+            annotated_step["input_values"] = [node_outputs[inp] for inp in step.get("inputs", [])]
+            annotated_step["output_values"] = node_outputs[i]
+        elif base in SPATIAL_FUNCTIONS:
+            gathered: List[Dict[str, Any]] = []
+            for inp in step.get("inputs", []):
+                if inp < len(relevant):
+                    gathered.extend(bbox_dicts(relevant[inp]))
+            annotated_step["input_values"] = gathered
+            annotated_step["output_values"] = bbox_dicts(relevant[i])
+        else:
+            annotated_step["input_values"] = []
+            annotated_step["output_values"] = []
+        annotated_program.append(annotated_step)
+
+    if annotated_program:
+        annotated_program.append({
+            "inputs": [len(annotated_program) - 1],
+            "function": "end",
+            "value_inputs": [],
+            "chain_of_thought": list(chain_list) + ["end"],
+            "input_values": annotated_program[-1].get("output_values", []),
+            "output_values": question.get("answer"),
+        })
+
+    annotated = dict(question)
+    annotated["annotated_program"] = annotated_program
+    return annotated

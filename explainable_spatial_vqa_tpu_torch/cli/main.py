@@ -41,13 +41,20 @@ with its flags, defaults, log lines, printed reports and JSON payloads:
   repro-clevr     the whole chain from a CLEVR download root to REPORT.md
                   (``cli/repro.py``)
 
-A global ``--device`` (default ``cuda``) places the models; without a card
-the model commands and ``extract-features`` raise unless it is ``cpu``.  Each command reads its
-artifacts (h5, JSON) and parses its flags, and hands arrays and modules to a
-function that does the work (:func:`run_eval_generator`, :func:`run_tally`,
-:func:`run_eval_iqap`, :func:`run_infer_chain`), which callers holding data
-in memory call directly.  ``--platform``, ``--multihost`` and
-``--data_parallel`` are not ported.
+A global ``--device`` (default ``cuda``) places the models and stands for
+the JAX CLI's ``--platform``; without a card the model commands and
+``extract-features`` raise unless it is ``cpu``.  The global ``--multihost``
+(with ``--coordinator_address``, ``--num_processes`` and ``--process_id``,
+or the environment ``torchrun`` sets) joins the process group before the
+command runs (``parallel.multihost.initialize``): ``train`` then trains data
+parallel, and ``tally`` and ``infer-chain`` with ``--data_parallel`` serve
+their chains data parallel over the processes (one process warns and serves
+unsharded, as JAX does on one device).  Only rank 0 writes the output
+files.  Each command reads its artifacts (h5, JSON) and parses its flags,
+and hands arrays and modules to a function that does the work
+(:func:`run_eval_generator`, :func:`run_tally`, :func:`run_eval_iqap`,
+:func:`run_infer_chain`), which callers holding data in memory call
+directly.
 """
 
 from __future__ import annotations
@@ -75,6 +82,29 @@ def _device(args: argparse.Namespace) -> torch.device:
     from explainable_spatial_vqa_tpu_torch.device import resolve_device
 
     return resolve_device(args.device)
+
+
+def _serve_mesh(args: argparse.Namespace):
+    """The 1-D data mesh of ``--data_parallel`` chained serving over the
+    process group, or None (unsharded: no flag, or one process)."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from explainable_spatial_vqa_tpu_torch.parallel.mesh import make_mesh
+    from explainable_spatial_vqa_tpu_torch.parallel.multihost import process_count
+
+    if process_count() < 2:
+        logger.warning("--data_parallel requested but only 1 process is running; "
+                       "serving unsharded")
+        return None
+    logger.info("serving sharded over %d processes", process_count())
+    return make_mesh((-1,), ("data",))
+
+
+def _writes_files() -> bool:
+    """Whether this process writes the command's output files (rank 0)."""
+    from explainable_spatial_vqa_tpu_torch.parallel.multihost import process_index
+
+    return process_index() == 0
 
 
 def _restore(model: torch.nn.Module, directory: Optional[str], name: str) -> None:
@@ -353,6 +383,8 @@ def cmd_train(args: argparse.Namespace) -> None:
                     "/".join(pipeline.monitor), acc.ratio(*pipeline.monitor))
         history["test"] = [acc.totals]
     trainer.store.close()
+    if not _writes_files():
+        return
     if args.history_json:
         with open(args.history_json, "w") as f:
             json.dump(history, f, default=float)
@@ -505,7 +537,7 @@ def run_tally(generator, executor, exe_cfg, questions: np.ndarray, image_tokens,
               iou_threshold: float = 0.5, calibrate_conf: bool = False,
               calibrate_conf_per_function: bool = False,
               conf_thresholds: Optional[Mapping[str, float]] = None,
-              device="cuda") -> TallyResult:
+              device="cuda", mesh=None) -> TallyResult:
     """The full pipeline on encoded questions (faithfulness quadrants and,
     with ``gt_answers`` in the value vocabulary and ``programs``, answer
     accuracy by question type), then, with ``annotated``, the per-step tally
@@ -517,7 +549,9 @@ def run_tally(generator, executor, exe_cfg, questions: np.ndarray, image_tokens,
     map (which also gates propagation), per-function F1 operating points
     fitted on a first run (``calibrate_conf_per_function``; the chains run
     again with them as the gate), one global F1 operating point
-    (``calibrate_conf``; run again if it moved), or the config's."""
+    (``calibrate_conf``; run again if it moved), or the config's.  With a
+    ``mesh`` every chain runner serves data parallel over it
+    (``--data_parallel``)."""
     from explainable_spatial_vqa_tpu_torch.device import resolve_device
     from explainable_spatial_vqa_tpu_torch.evalsuite.accuracy import answer_accuracy_by_type
     from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import (
@@ -539,7 +573,8 @@ def run_tally(generator, executor, exe_cfg, questions: np.ndarray, image_tokens,
         runs.append({"name": name, "start": start, "seconds": time.perf_counter() - start})
         return out
 
-    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=MAX_STEPS, device=device)
+    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=MAX_STEPS, device=device,
+                                 mesh=mesh)
     pipeline = InferencePipeline(generator, runner, program_inv, function_vocab, device=device)
     result = timed("pipeline", lambda: pipeline.run(
         questions, image_tokens, image_index, gt_answers=gt_answers, gt_programs=programs,
@@ -560,7 +595,7 @@ def run_tally(generator, executor, exe_cfg, questions: np.ndarray, image_tokens,
                else build_conf_threshold_vector(function_vocab, thr_map,
                                                 default=exe_cfg.conf_threshold))
         rnr = ExecutorChainRunner(executor, cfg, max_steps=MAX_STEPS, conf_thresholds=vec,
-                                  device=device)
+                                  device=device, mesh=mesh)
         return timed(name, lambda: run_chains(rnr, image_tokens, chains, chain_mode))
 
     conf_threshold: Any = exe_cfg.conf_threshold
@@ -682,7 +717,7 @@ def cmd_tally(args: argparse.Namespace) -> None:
                     programs=programs, annotated=annotated, chain_mode=args.chain_mode,
                     iou_threshold=args.iou_threshold, calibrate_conf=args.calibrate_conf,
                     calibrate_conf_per_function=args.calibrate_conf_per_function,
-                    conf_thresholds=conf_thresholds, device=device)
+                    conf_thresholds=conf_thresholds, device=device, mesh=_serve_mesh(args))
     print(f"truncated_programs: {out.pipeline.truncated} (generated programs deeper than "
           f"max_steps={MAX_STEPS}; their execution was cut and their answers read a "
           f"mid-chain value)")
@@ -691,7 +726,7 @@ def cmd_tally(args: argparse.Namespace) -> None:
         print(json.dumps(out.accuracy, indent=2))
     if out.step_tally is None:
         return
-    if args.save_conf_thresholds:
+    if args.save_conf_thresholds and _writes_files():
         # the fitted operating points, for a later tally on another split
         # (or a serving deployment) through --conf_thresholds
         thr = out.conf_threshold
@@ -869,19 +904,21 @@ def cmd_eval_iqap(args: argparse.Namespace) -> None:
 
 def run_infer_chain(model, chain_tokens, chains, annotated: List[Dict[str, Any]],
                     rev_vocab: Optional[Mapping[int, str]] = None, max_steps: int = MAX_STEPS,
-                    device="cuda") -> Tuple[Dict[str, np.ndarray], List[Dict[str, Any]]]:
+                    device="cuda", mesh=None) -> Tuple[Dict[str, np.ndarray], List[Dict[str, Any]]]:
     """The step seq2seq ``model`` chained over ``chains`` (``chain_arrays``
     of ``annotated``, joint-vocab records): ``chain_tokens`` (N, P, C), one
     row of image features per chain, numpy or a tensor.  Returns (the
     runner's step and final outputs, one record per question: its image,
     the final step's token ids, their text in ``rev_vocab`` (joint-vocab
-    ids, shifted by the specials) and the ground-truth answer)."""
+    ids, shifted by the specials) and the ground-truth answer).  With a
+    ``mesh`` the runner serves data parallel over it (``--data_parallel``)."""
     from explainable_spatial_vqa_tpu_torch.device import resolve_device
     from explainable_spatial_vqa_tpu_torch.infer.chain import Seq2SeqChainRunner
     from explainable_spatial_vqa_tpu_torch.train.datasets import SPECIALS_OFFSET
 
     device = resolve_device(device)
-    runner = Seq2SeqChainRunner(model, model.config, max_steps=max_steps, device=device)
+    runner = Seq2SeqChainRunner(model, model.config, max_steps=max_steps, device=device,
+                                mesh=mesh)
     out = runner.run(chain_tokens, chains)
     rev_vocab = rev_vocab or {}
     results = []
@@ -947,8 +984,8 @@ def cmd_infer_chain(args: argparse.Namespace) -> None:
     print(f"truncated_programs: {chains.truncated} "
           f"(GT chains deeper than --max_steps={args.max_steps})")
     _, results = run_infer_chain(model, chain_tokens, chains, annotated, rev_vocab,
-                                 args.max_steps, device)
-    if args.output_json:
+                                 args.max_steps, device, mesh=_serve_mesh(args))
+    if args.output_json and _writes_files():
         with open(args.output_json, "w") as f:
             json.dump(results, f, indent=2)
         logger.info("wrote %s", args.output_json)
@@ -969,7 +1006,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="explainable_spatial_vqa_tpu_torch")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the models (default cuda; raises without a "
-                             "card unless cpu)")
+                             "card unless cpu); stands for the JAX CLI's --platform")
+    parser.add_argument(
+        "--multihost", action="store_true",
+        help="join the torch.distributed process group before running the command "
+             "(parallel/multihost.py): one process per card, every process running the "
+             "same command line; under torchrun the rendezvous comes from the environment")
+    parser.add_argument("--coordinator_address", default=None,
+                        help="host:port of process 0 (from the environment if unset)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("build-vocab")
@@ -1107,6 +1153,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "depth-sorted batches (default), the continuous-batching "
                         "slot pool, per-depth buckets, or one full-depth batch; the "
                         "per-step tally runs the pool in pool mode, else sorted")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard chained serving over the processes of --multihost")
     p.set_defaults(fn=cmd_tally)
 
     p = sub.add_parser("infer-chain")
@@ -1118,6 +1166,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_steps", type=int, default=MAX_STEPS)
     p.add_argument("--limit", type=int, default=10)
     p.add_argument("--output_json", default=None)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard chained serving over the processes of --multihost")
     p.set_defaults(fn=cmd_infer_chain)
 
     p = sub.add_parser("stats")
@@ -1194,6 +1244,10 @@ def main(argv=None) -> None:
 
     setup_logging()
     args = build_parser().parse_args(argv)
+    if args.multihost:
+        from explainable_spatial_vqa_tpu_torch.parallel.multihost import initialize
+
+        initialize(args.coordinator_address, args.num_processes, args.process_id)
     try:
         args.fn(args)
     except BrokenPipeError:

@@ -9,8 +9,9 @@ every preset of the JAX package: ``generator``, the five executor presets,
 ``transformer_iqap``, ``transformer_iqap_bb``, ``transformer_iqap_cot``,
 ``lstm_iqap``, ``lstm_iqa`` and ``step_seq2seq``, and the eight prototype
 presets.
-``TrainConfig.mesh_shape`` and ``mesh_axes`` are kept for that reason; the
-port trains on one card and reads neither."""
+``TrainConfig.mesh_shape`` and ``mesh_axes`` give the data-parallel
+trainer its mesh over the process group's ranks (``train.trainer``,
+``parallel.mesh.make_mesh``)."""
 
 from __future__ import annotations
 

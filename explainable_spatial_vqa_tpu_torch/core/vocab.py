@@ -9,6 +9,9 @@
 3. the joint vocab over annotated step records, bbox-coordinate tokens
    included, read by the step seq2seq baseline (:func:`build_joint_vocab`,
    :func:`apply_joint_vocab`);
+4. the joint vocab with bbox-only texts excluded, the CLEVR reference's
+   ``continous`` v1/v2 scheme (:func:`build_joint_noboxes_vocab`,
+   :func:`apply_joint_noboxes_vocab`);
 
 and the helpers the pipelines and the CLI read and write
 (:func:`load_vocab`, :func:`save_vocab`).
@@ -22,8 +25,9 @@ from typing import Any, Dict, Iterable, List, Mapping, Sequence
 
 from explainable_spatial_vqa_tpu_torch.core.tokenizer import SPECIAL_TOKENS, word_tokenize
 
-__all__ = ["EMPTY_TOKEN", "apply_joint_vocab", "apply_split_vocab", "build_clevr_vocab",
-           "build_joint_vocab", "build_split_vocab",
+__all__ = ["EMPTY_TOKEN", "apply_joint_noboxes_vocab", "apply_joint_vocab", "apply_split_vocab",
+           "build_clevr_vocab", "build_joint_noboxes_vocab", "build_joint_vocab",
+           "build_split_vocab",
            "canonicalize", "invert_vocab", "is_bounding_box_text", "load_vocab",
            "save_vocab", "tokenize_field"]
 
@@ -272,4 +276,64 @@ def apply_split_vocab(
                     converted = convert(EMPTY_TOKEN, "other")
                 step[key] = converted
 
+    return annotated_q
+
+
+def build_joint_noboxes_vocab(annotated_questions: Sequence[Dict[str, Any]]) -> Dict[str, int]:
+    """Single joint vocab with bbox-only texts excluded, the ``continous``
+    v1/v2 scheme (preprocess_continous.py:378-403; v2 is code-identical).
+    Chain elements contribute function + (non-bbox) rest tokens.
+    """
+    vocab: Dict[str, int] = {}
+
+    def add(text: str, field: str) -> None:
+        if is_bounding_box_text(text):
+            return
+        for token in tokenize_field(text, field):
+            token = canonicalize(token)
+            if token not in vocab:
+                vocab[token] = len(vocab)
+
+    for q in annotated_questions:
+        add(q.get("answer", ""), "other")
+        for chain in q.get("final_chain_of_thought", []):
+            parts = chain.split(maxsplit=1)
+            add(parts[0] if parts else "", "function")
+            if len(parts) > 1:
+                add(parts[1], "other")
+        for step in q.get("annotated_program", []):
+            add(step.get("function", ""), "function")
+            add(step.get("input_values", ""), "other")
+            add(step.get("output_values", ""), "other")
+    return vocab
+
+
+def apply_joint_noboxes_vocab(annotated_q: Dict[str, Any],
+                              vocab: Mapping[str, int]) -> Dict[str, Any]:
+    """Convert texts to id strings (v1/v2 scheme): bbox texts pass through
+    verbatim, unknown tokens are silently dropped
+    (preprocess_continous.py:405-441)."""
+
+    def convert(text: str, field: str) -> str:
+        return " ".join(str(vocab[canonicalize(t)]) for t in tokenize_field(text, field)
+                        if canonicalize(t) in vocab)
+
+    annotated_q["answer"] = convert(annotated_q.get("answer", ""), "other")
+
+    def convert_chain(chain: str) -> str:
+        parts = chain.split(maxsplit=1)
+        func = convert(parts[0] if parts else "", "function")
+        rest = parts[1] if len(parts) > 1 else ""
+        if rest and not is_bounding_box_text(rest):
+            rest = convert(rest, "other")
+        return f"{func} {rest}".strip() if rest else func
+
+    annotated_q["final_chain_of_thought"] = [
+        convert_chain(c) for c in annotated_q.get("final_chain_of_thought", [])
+    ]
+    for step in annotated_q.get("annotated_program", []):
+        step["function"] = convert(step.get("function", ""), "function")
+        for key in ("input_values", "output_values"):
+            value = step.get(key, "")
+            step[key] = value if is_bounding_box_text(value) else convert(value, "other")
     return annotated_q

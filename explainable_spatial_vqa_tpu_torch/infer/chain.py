@@ -24,6 +24,15 @@ schedule.
   :func:`compact_valid_first`), and each step is one encode and a cached
   greedy decode; :func:`run_bucketed_seq2seq` runs it per depth bucket.
 
+With a ``mesh`` (``parallel.mesh``, one process per card), the runners
+serve data-parallel over its ``data`` axis: the weights are broadcast from
+the axis's first rank, each rank runs its own rows (``run``, ``run_sorted``
+and ``run_bucketed``: contiguous slices of each batch padded to a multiple
+of the axis; ``run_pool``: the rows :func:`deal_deepest_first` deals it,
+drained in a pool of its own), and the outputs are gathered to every rank
+and put back in question order on the host.  A one-rank mesh gives the
+unsharded runner's results.
+
 JAX's on-device loops become Python loops here; the pool loop reads one
 scalar per iteration for its exit test.  The caches are updated in place.
 Both passes are deterministic whatever mode the caller left the executor in,
@@ -46,11 +55,41 @@ from explainable_spatial_vqa_tpu_torch.device import resolve_device
 from explainable_spatial_vqa_tpu_torch.infer.plan import plan_sorted
 from explainable_spatial_vqa_tpu_torch.models.layers import Device, eval_mode
 from explainable_spatial_vqa_tpu_torch.ops.decoding import greedy_decode
+from explainable_spatial_vqa_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_rows,
+    pad_to_multiple,
+    replicated,
+)
 from explainable_spatial_vqa_tpu_torch.train.datasets import ChainArrays
 
 __all__ = ["ChainState", "ExecutorChainRunner", "Seq2SeqChainRunner", "chained_forward",
-           "chained_forward_pool", "compact_valid_first", "gather_dep_boxes", "gather_dep_token",
-           "gather_step_inputs", "run_bucketed_seq2seq"]
+           "chained_forward_pool", "compact_valid_first", "deal_deepest_first", "gather_dep_boxes",
+           "gather_dep_token", "gather_step_inputs", "run_bucketed_seq2seq"]
+
+
+def deal_deepest_first(num_steps: np.ndarray, num_chips: int) -> np.ndarray:
+    """Deal question rows to ranks for the sharded pool: sort by descending
+    chain length, give rank ``c`` rows ``order[c::num_chips]`` (round-robin
+    over the global deepest-first order: near-equal step totals per rank
+    even on skewed depth mixes), and pad every rank to the common length
+    with ``-1`` sentinels.  Returns ``perm`` of shape (num_chips * per,):
+    ``perm[c*per + j]`` is the original row of rank ``c``'s j-th slot, or -1
+    for padding."""
+    num_steps = np.asarray(num_steps)
+    n = num_steps.shape[0]
+    order = np.argsort(-num_steps, kind="stable")
+    per = -(-n // num_chips)  # ceil
+    perm = np.full(num_chips * per, -1, np.int64)
+    for c in range(num_chips):
+        mine = order[c::num_chips]
+        perm[c * per:c * per + len(mine)] = mine
+    return perm
+
+
+def _data_axis(mesh: Optional[Mesh]):
+    """(ranks, this rank) of the mesh's data axis; (1, 0) without a mesh."""
+    return (1, 0) if mesh is None else (mesh.shape["data"], mesh.rank("data"))
 
 
 class ChainState(NamedTuple):
@@ -255,14 +294,21 @@ class ExecutorChainRunner:
     positions over the whole batch, ``run_sorted`` and ``run_bucketed`` over
     host-planned batches, ``run_pool`` is the continuous-batching slot pool.
     Inputs may be numpy arrays or tensors; outputs are numpy, with the JAX
-    runner's keys."""
+    runner's keys.  ``mesh``: data-parallel serving over its ``data`` axis
+    (module docstring); every rank of the axis makes the runner and calls
+    the same runs, and each gets every output."""
 
     def __init__(self, model, config: ExecutorConfig, max_steps: int = 28,
-                 conf_thresholds=None, device: Device = "cuda"):
+                 conf_thresholds=None, device: Device = "cuda", mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.model = model  # every run is deterministic (chained_forward*)
         self.config = config
         self.max_steps = max_steps
+        # data-parallel serving: the weights broadcast from the data axis's
+        # first rank, rows split over the axis, outputs gathered
+        self.mesh = mesh
+        if mesh is not None:
+            replicated(model, mesh)
         # optional per-FUNCTION propagation thresholds indexed by function id;
         # None = the config's global scalar
         self.conf_thresholds = (
@@ -326,8 +372,45 @@ class ExecutorChainRunner:
         for name in _CACHES:
             full[name][idx, :width] = getattr(state, name)[:len(idx)].cpu().numpy()
 
+    def _run_sharded(self, image_tokens, chains: ChainArrays, batches) -> Dict[str, np.ndarray]:
+        """Each batch ``(part, real, width, active_steps)`` (``part``: question
+        rows, a multiple of the data axis long, of which the first ``real``
+        are kept) split over the data axis: this rank runs its contiguous
+        slice of every batch, then every rank's caches are gathered and
+        scattered into question order."""
+        world, rank = _data_axis(self.mesh)
+        num_steps = np.asarray(chains.num_steps)
+        local = {name: [] for name in _CACHES}
+        kept = []  # per rank, the destination row of each local row or -1
+        for part, real, width, active in batches:
+            per = len(part) // world
+            mine = part[rank * per:(rank + 1) * per]
+            state = self._run_part(self._gather(image_tokens, mine), chains, mine, width, active)
+            for name in _CACHES:
+                cache = getattr(state, name).cpu().numpy()
+                pad = [(0, 0), (0, self.max_steps - cache.shape[1])] + [(0, 0)] * (cache.ndim - 2)
+                local[name].append(np.pad(cache, pad))
+        for r in range(world):
+            for part, real, _width, _active in batches:
+                per = len(part) // world
+                slot = np.arange(r * per, (r + 1) * per)
+                kept.append(np.where(slot < real, part[slot], -1))
+        gathered = gather_rows({name: np.concatenate(v) for name, v in local.items()},
+                               self.mesh)
+        dst = np.concatenate(kept)
+        live = dst >= 0
+        full = self._empty_outputs(len(num_steps))
+        for name in _CACHES:
+            full[name][dst[live]] = gathered[name][live]
+        return self._with_finals(full, num_steps)
+
     def run(self, image_tokens, chains: ChainArrays) -> Dict[str, np.ndarray]:
         """``image_tokens``: (N, P, C) raw features, one row per question."""
+        if self.mesh is not None:
+            world, _ = _data_axis(self.mesh)
+            n = len(chains.num_steps)
+            part, _ = pad_to_multiple(np.arange(n), world)
+            return self._run_sharded(image_tokens, chains, [(part, n, self.max_steps, None)])
         functions, deps, num_steps = self._chain_tensors(chains)
         state = chained_forward(
             self.model, self._tensor(image_tokens, torch.float32), functions, deps, num_steps,
@@ -336,13 +419,42 @@ class ExecutorChainRunner:
 
     def run_pool(self, image_features, chains: ChainArrays, slots: int = 128) -> Dict[str, np.ndarray]:
         """``image_features``: the per-IMAGE (M, P, C) feature cache, indexed by
-        ``chains.image_index`` on the device each iteration."""
-        functions, deps, num_steps = self._chain_tensors(chains)
+        ``chains.image_index`` on the device each iteration.
+
+        With a mesh, the rows are dealt deepest-first round-robin over the
+        data axis (:func:`deal_deepest_first`; sentinel rows have no steps),
+        every rank drains its own pool of ``slots`` with the whole image
+        cache and no collective, and the caches are gathered and
+        un-permuted on the host."""
+        if self.mesh is None:
+            functions, deps, num_steps = self._chain_tensors(chains)
+            state = chained_forward_pool(
+                self.model, self._tensor(image_features, torch.float32),
+                self._tensor(chains.image_index, torch.long), functions, deps, num_steps,
+                self.config, self.max_steps, slots=slots, conf_thresholds=self.conf_thresholds)
+            return self._outputs(state, chains.num_steps)
+        world, rank = _data_axis(self.mesh)
+        num_steps = np.asarray(chains.num_steps)
+        perm = deal_deepest_first(num_steps, world)
+        per = len(perm) // world
+        mine = perm[rank * per:(rank + 1) * per]
+        safe, real = np.clip(mine, 0, None), mine >= 0
         state = chained_forward_pool(
             self.model, self._tensor(image_features, torch.float32),
-            self._tensor(chains.image_index, torch.long), functions, deps, num_steps,
+            self._tensor(np.where(real, np.asarray(chains.image_index)[safe], 0), torch.long),
+            self._tensor(np.where(real[:, None], np.asarray(chains.functions)[safe], 0),
+                         torch.long),
+            self._tensor(np.where(real[:, None, None], np.asarray(chains.deps)[safe], -1),
+                         torch.long),
+            self._tensor(np.where(real, num_steps[safe], 0), torch.long),
             self.config, self.max_steps, slots=slots, conf_thresholds=self.conf_thresholds)
-        return self._outputs(state, chains.num_steps)
+        gathered = gather_rows({name: getattr(state, name).cpu().numpy() for name in _CACHES},
+                               self.mesh)
+        live = perm >= 0
+        full = self._empty_outputs(len(num_steps))
+        for name in _CACHES:
+            full[name][perm[live]] = gathered[name][live]
+        return self._with_finals(full, num_steps)
 
     def run_sorted(self, image_tokens, chains: ChainArrays, batch: int = 128,
                    min_tail: int = 32) -> Dict[str, np.ndarray]:
@@ -352,8 +464,13 @@ class ExecutorChainRunner:
         repeat the batch's last question and are dropped: only the real
         prefix scatters back."""
         num_steps = np.asarray(chains.num_steps)
+        world, _ = _data_axis(self.mesh)
+        plan = plan_sorted(num_steps, batch, min_tail, multiple=world)
+        if self.mesh is not None:
+            return self._run_sharded(image_tokens, chains, [
+                (part, real, self.max_steps, depth) for depth, _size, part, real in plan])
         full = self._empty_outputs(len(num_steps))
-        for depth, _size, part, real in plan_sorted(num_steps, batch, min_tail):
+        for depth, _size, part, real in plan:
             state = self._run_part(self._gather(image_tokens, part), chains, part,
                                    self.max_steps, active_steps=depth)
             self._scatter(full, state, part[:real])
@@ -372,14 +489,21 @@ class ExecutorChainRunner:
         if not edges or edges[-1] < self.max_steps:
             edges = edges + (self.max_steps,)
         assigned = np.zeros(len(num_steps), bool)
+        world, _ = _data_axis(self.mesh)
+        sharded = []
         for depth in edges:
             select = (~assigned) & (num_steps <= depth)
             assigned |= select
             idx = np.flatnonzero(select)
             if idx.size == 0:
                 continue
+            if self.mesh is not None:
+                sharded.append((pad_to_multiple(idx, world)[0], idx.size, depth, None))
+                continue
             state = self._run_part(self._gather(image_tokens, idx), chains, idx, depth)
             self._scatter(full, state, idx)
+        if self.mesh is not None:
+            return self._run_sharded(image_tokens, chains, sharded)
         return self._with_finals(full, num_steps)
 
 
@@ -418,7 +542,7 @@ class Seq2SeqChainRunner:
 
     def __init__(self, model, config: StepSeq2SeqConfig, max_steps: int = 28,
                  start_token: int = 1, end_token: int = 2, pad_token: int = 0,
-                 device: Device = "cuda"):
+                 device: Device = "cuda", mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.model = model
         self.config = config
@@ -426,6 +550,11 @@ class Seq2SeqChainRunner:
         self.start_token = start_token
         self.end_token = end_token
         self.pad_token = pad_token
+        # data-parallel serving, as ExecutorChainRunner's: each rank runs its
+        # contiguous rows (padded to a multiple of the data axis)
+        self.mesh = mesh
+        if mesh is not None:
+            replicated(model, mesh)
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
@@ -455,21 +584,44 @@ class Seq2SeqChainRunner:
         """``image_tokens``: (N, P, C) features, one row per chain (numpy or a
         tensor).  Returns numpy {"step_outputs": (N, max_steps, T),
         "final_outputs": (N, T), each chain's last step}."""
+        return self._run(image_tokens, chains, self.max_steps)
+
+    def _run(self, image_tokens, chains: ChainArrays, max_steps: int) -> Dict[str, np.ndarray]:
+        """``run`` with caches ``max_steps`` wide (the chains' arrays at least
+        as wide); with a mesh each rank runs its rows and the step outputs
+        are gathered."""
         num_steps = np.asarray(chains.num_steps)
+        n = len(num_steps)
+        if self.mesh is None:
+            cache = self._run_rows(image_tokens, chains.functions, chains.deps, num_steps,
+                                   max_steps)
+        else:
+            # this rank's contiguous rows of the question rows padded (with
+            # row 0, dropped after the gather) to a multiple of the data axis
+            world, rank = _data_axis(self.mesh)
+            padded, _ = pad_to_multiple(np.arange(n), world)
+            per = len(padded) // world
+            rows = padded[rank * per:(rank + 1) * per]
+            cache = self._run_rows(_rows(image_tokens, rows), np.asarray(chains.functions)[rows],
+                                   np.asarray(chains.deps)[rows], num_steps[rows], max_steps)
+            cache = gather_rows({"cache": cache}, self.mesh)["cache"][:n]
+        return {"step_outputs": cache, "final_outputs": cache[np.arange(n), num_steps - 1]}
+
+    def _run_rows(self, images, functions, deps, num_steps: np.ndarray,
+                  max_steps: int) -> np.ndarray:
+        """(N, max_steps, T) decoded outputs of these rows' chains."""
         n, t = len(num_steps), self.config.max_tgt_len
-        cache = torch.zeros(n, self.max_steps, t, dtype=torch.int32, device=self.device)
-        depth = min(self.max_steps, int(num_steps.max())) if n else 0
-        images = self._tensor(image_tokens, torch.float32)
-        functions = self._tensor(chains.functions, torch.long)
-        deps = self._tensor(chains.deps, torch.long)
+        cache = torch.zeros(n, max_steps, t, dtype=torch.int32, device=self.device)
+        depth = min(max_steps, int(num_steps.max())) if n else 0
+        images = self._tensor(images, torch.float32)
+        functions = self._tensor(functions, torch.long)
+        deps = self._tensor(deps, torch.long)
         active = self._tensor(num_steps, torch.long)[:, None]
         with torch.no_grad(), eval_mode(self.model):
             for k in range(depth):
                 out = self._step(images, cache, functions[:, k], deps[:, k])
                 cache[:, k] = torch.where(active > k, out, 0)
-        step_outputs = cache.cpu().numpy()
-        return {"step_outputs": step_outputs,
-                "final_outputs": step_outputs[np.arange(n), num_steps - 1]}
+        return cache.cpu().numpy()
 
 
 def run_bucketed_seq2seq(runner: Seq2SeqChainRunner, image_tokens, chains: ChainArrays,
@@ -477,7 +629,7 @@ def run_bucketed_seq2seq(runner: Seq2SeqChainRunner, image_tokens, chains: Chain
     """Depth-bucketed execution for the seq2seq runner: chains grouped by
     the shallowest bucket edge that holds their depth (edges above
     ``max_steps`` dropped, ``max_steps`` closing the list), one run per
-    bucket, outputs scattered back."""
+    bucket (on the runner's mesh, if it has one), outputs scattered back."""
     num_steps = np.asarray(chains.num_steps)
     n, t = len(num_steps), runner.config.max_tgt_len
     step_outputs = np.zeros((n, runner.max_steps, t), np.int32)
@@ -492,13 +644,9 @@ def run_bucketed_seq2seq(runner: Seq2SeqChainRunner, image_tokens, chains: Chain
         idx = np.flatnonzero(select)
         if idx.size == 0:
             continue
-        sub_runner = Seq2SeqChainRunner(runner.model, runner.config, max_steps=depth,
-                                        start_token=runner.start_token,
-                                        end_token=runner.end_token, pad_token=runner.pad_token,
-                                        device=runner.device)
         sub = ChainArrays(chains.image_index[idx], chains.functions[idx, :depth],
                           chains.deps[idx, :depth], num_steps[idx], [])
-        out = sub_runner.run(_rows(image_tokens, idx), sub)
+        out = runner._run(_rows(image_tokens, idx), sub, depth)
         step_outputs[idx, :depth] = out["step_outputs"]
         final_outputs[idx] = out["final_outputs"]
     return {"step_outputs": step_outputs, "final_outputs": final_outputs}

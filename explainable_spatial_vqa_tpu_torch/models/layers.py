@@ -5,8 +5,9 @@ As in the JAX package, parameters are float32 and every matmul-bearing
 module computes in its ``dtype`` (the compute type, bfloat16 when serving):
 :class:`Dense` casts its input, weight and bias to ``dtype`` (the cast weights
 are kept between calls without autograd), while LayerNorm and softmax run in
-float32.  LayerNorm uses eps 1e-6 (Flax's), not
-PyTorch's 1e-5.
+float32 (with ``ops.lowp``'s opt-in the blocks' norms return bf16 and the
+plain attention rounds its scores to bf16 first).  LayerNorm uses eps 1e-6
+(Flax's), not PyTorch's 1e-5.
 
 :class:`EncoderBlock` routes eligible calls (post-LN, eval mode, a key-padding
 mask or none, a head dim the kernels are built for) to the fused encoder
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
@@ -49,6 +51,7 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     fuse_encoder_params,
     fused_encoder_block,
 )
+from explainable_spatial_vqa_tpu_torch.ops.lowp import norm_dtype
 
 __all__ = [
     "sinusoidal_positions",
@@ -66,6 +69,7 @@ __all__ = [
     "TransformerDecoder",
     "KVCache",
     "cached_on_params",
+    "has_sharded_params",
     "eval_mode",
     "init_parameters",
 ]
@@ -111,6 +115,13 @@ def posemb_2d_sincos_at(xy: torch.Tensor, d_model: int, temperature: float = 100
     emb = torch.stack([torch.sin(angles), torch.cos(angles)], dim=-1)
     emb = emb.reshape(emb.shape[:-3] + (2, half))
     return emb.reshape(emb.shape[:-2] + (d_model,))
+
+
+def has_sharded_params(module: nn.Module) -> bool:
+    """Whether any parameter of ``module`` is a DTensor (split over ranks by
+    ``parallel.sharding``): such a module holds no whole local weights for
+    K1 or K2, and keeps no cast weights (a DTensor has no data pointer)."""
+    return any(isinstance(p, DTensor) for p in module.parameters())
 
 
 def cached_on_params(module: nn.Module, build):
@@ -169,19 +180,29 @@ class Dense(nn.Linear):
         return self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight, bias = (self._cast() if torch.is_grad_enabled()
-                        else cached_on_params(self, self._cast))
+        uncached = torch.is_grad_enabled() or isinstance(self.weight, DTensor)
+        weight, bias = self._cast() if uncached else cached_on_params(self, self._cast)
         return F.linear(x.to(self.compute_dtype), weight, bias)
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm in float32 with eps 1e-6; returns float32."""
+    """LayerNorm in float32 with eps 1e-6 and float32 parameters.  Returns
+    float32, or ``dtype`` (bf16 under ``ops.lowp``'s norms): then it
+    computes as flax's ``_normalize`` does, float32 statistics (the mean of
+    x and of x², the variance their difference clipped at 0), ``x - mean``
+    and the affine in float32, and rounds once to ``dtype``."""
 
     def __init__(self, d_model: int, device: Device = "cuda"):
         super().__init__(d_model, eps=LN_EPS, device=resolve_device(device), dtype=torch.float32)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = x.float()
+        if dtype == torch.float32:
+            return super().forward(x)
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(dtype)
 
 
 class PositionalEncoding(nn.Module):
@@ -239,15 +260,17 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.q, query)
         k, v = self._heads(self.k, keyvalue), self._heads(self.v, keyvalue)
         if (not self.training and head_dim_built(d, self.num_heads)
-                and attention_eligible(q, k, mask)):
+                and not has_sharded_params(self) and attention_eligible(q, k, mask)):
             out = fused_attention(q, k, v, mask)
         else:
             out = dot_product_attention(q, k, v, mask)
-        return self.out(out.reshape(b, lq, d))
+        return self.out(out.reshape(b, lq, -1))
 
     def _heads(self, proj: Dense, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, heads, head dim): all heads, or this rank's whole heads
+        when ``parallel.sharding`` split the projection's outputs."""
         b, length, d = x.shape
-        return proj(x).view(b, length, self.num_heads, d // self.num_heads)
+        return proj(x).view(b, length, -1, d // self.num_heads)
 
     def project_kv(self, keyvalue: torch.Tensor) -> KVCache:
         """K/V of a sequence, computed once (a decoder's cross-attention)."""
@@ -257,7 +280,7 @@ class MultiHeadAttention(nn.Module):
                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, lq, d = query.shape
         out = dot_product_attention(self._heads(self.q, query), kv["k"], kv["v"], mask)
-        return self.out(out.reshape(b, lq, d))
+        return self.out(out.reshape(b, lq, -1))
 
     def decode_step(self, query_token: torch.Tensor, cache: KVCache,
                     index: int) -> Tuple[torch.Tensor, KVCache]:
@@ -270,7 +293,7 @@ class MultiHeadAttention(nn.Module):
                  "v": torch.where(onehot, self._heads(self.v, query_token), cache["v"])}
         out = dot_product_attention(self._heads(self.q, query_token), cache["k"], cache["v"],
                                     tril[index][None, None, None, :])
-        return self.out(out.reshape(b, 1, d)), cache
+        return self.out(out.reshape(b, 1, -1)), cache
 
     def init_cache(self, batch: int, max_len: int, device: torch.device) -> KVCache:
         d = self.q.out_features
@@ -308,21 +331,24 @@ class EncoderBlock(nn.Module):
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt = self.dtype
+        dt, nt = self.dtype, norm_dtype(self.dtype)
         if self.norm == "pre":
-            h = self.norm1(x).to(dt)
+            h = self.norm1(x, nt).to(dt)
             x = x + self.drop(self.attn(h, h, mask))
-            return x + self.drop(self.ffn(self.norm2(x).to(dt)))
+            return x + self.drop(self.ffn(self.norm2(x, nt).to(dt)))
         if self._fused_eligible(mask):
             return self._fused_forward(x, mask)
-        x = self.norm1(x + self.drop(self.attn(x, x, mask))).to(dt)
-        return self.norm2(x + self.drop(self.ffn(x))).to(dt)
+        x = self.norm1(x + self.drop(self.attn(x, x, mask)), nt).to(dt)
+        return self.norm2(x + self.drop(self.ffn(x)), nt).to(dt)
 
     def _fused_eligible(self, mask: Optional[torch.Tensor]) -> bool:
         """Route to K2 in eval mode (it has no backward) at a head dim it is
-        built for, with a key-padding mask or none; post-LN is checked by the
-        caller."""
-        if self.training or not head_dim_built(self.d_model, self.num_heads):
+        built for, with a key-padding mask or none, and whole local weights
+        (a block split over ranks by ``parallel.sharding`` has DTensor
+        parameters and runs the plain path); post-LN is checked by the
+        caller.  ``ops.lowp`` plays no part, as in the JAX package."""
+        if (self.training or not head_dim_built(self.d_model, self.num_heads)
+                or has_sharded_params(self)):
             return False
         return mask is None or (mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1)
 
@@ -353,11 +379,11 @@ class DecoderBlock(nn.Module):
                 memory_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = False) -> torch.Tensor:
         """Dropout follows the module's mode unless ``deterministic``."""
-        dt = self.dtype
+        dt, nt = self.dtype, norm_dtype(self.dtype)
         drop = (lambda t: t) if deterministic else self.drop
-        x = self.norm1(x + drop(self.self_attn(x, x, self_mask))).to(dt)
-        x = self.norm2(x + drop(self.cross_attn(x, memory, memory_mask))).to(dt)
-        return self.norm3(x + drop(self.ffn(x, deterministic))).to(dt)
+        x = self.norm1(x + drop(self.self_attn(x, x, self_mask)), nt).to(dt)
+        x = self.norm2(x + drop(self.cross_attn(x, memory, memory_mask)), nt).to(dt)
+        return self.norm3(x + drop(self.ffn(x, deterministic)), nt).to(dt)
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor) -> Dict[str, KVCache]:
         """The self-attention's KV cache and the cross-attention's K/V of ``memory``."""
@@ -369,12 +395,12 @@ class DecoderBlock(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, KVCache]]:
         """One token (B, 1, d) through the block, with no dropout in any mode
         (JAX's ``deterministic=True``)."""
-        dt = self.dtype
+        dt, nt = self.dtype, norm_dtype(self.dtype)
         h, self_cache = self.self_attn.decode_step(x, cache["self"], index)
-        x = self.norm1(x + h).to(dt)
+        x = self.norm1(x + h, nt).to(dt)
         x = self.norm2(x + self.cross_attn.attend_precomputed(x, cache["cross"],
-                                                              memory_mask)).to(dt)
-        x = self.norm3(x + self.ffn(x, deterministic=True)).to(dt)
+                                                              memory_mask), nt).to(dt)
+        x = self.norm3(x + self.ffn(x, deterministic=True), nt).to(dt)
         return x, {"self": self_cache, "cross": cache["cross"]}
 
 

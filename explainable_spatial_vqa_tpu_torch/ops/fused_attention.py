@@ -3,7 +3,8 @@
 Port of ``explainable_spatial_vqa_tpu/ops/pallas_attention.py``
 (``_fused_attention_bhld`` via ``fused_attention``).  The kernel is
 ``csrc/fused_attention.cu``; its plain version is
-:func:`explainable_spatial_vqa_tpu_torch.ops.attention.dot_product_attention`,
+:func:`explainable_spatial_vqa_tpu_torch.ops.attention.dot_product_attention`
+with ``ops.lowp``'s softmax off (``scaled_attention(..., bf16_scores=False)``),
 which computes the same arithmetic.
 
 :func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 
 from explainable_spatial_vqa_tpu_torch.ops import _build
-from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 
 __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
            "key_mask_f32", "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
@@ -103,7 +104,7 @@ def fused_attention(
             "fused_attention takes self-attention (Lq == Lk) with a (B, 1, 1, L) "
             "key mask or none; use dot_product_attention for other calls")
     if q.device.type == "cpu":
-        return dot_product_attention(q, k, v, mask)
+        return scaled_attention(q, k, v, mask, bf16_scores=False)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     check_attention(q, k, v)

@@ -45,7 +45,7 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from explainable_spatial_vqa_tpu_torch.ops import _build
-from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     DTYPE_CODES,
     HEAD_DIMS,
@@ -133,8 +133,8 @@ def fused_encoder_block_plain(
     xf = x.float()
     q, k, v = _dense(xf, w.qkv, w.qkv_bias).split(d_model, dim=-1)
     heads = (batch, length, num_heads, d_model // num_heads)
-    attn = dot_product_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads),
-                                 _key_mask4(mask, batch, length))
+    attn = scaled_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads),
+                            _key_mask4(mask, batch, length), bf16_scores=False)
     o = _dense(attn.reshape(batch, length, d_model), w.out, w.out_bias)
     x1 = _layer_norm(xf + o, w.ln1_scale, w.ln1_bias)
     h1 = torch.relu(_dense(x1, w.ffn1, w.ffn1_bias))
@@ -197,8 +197,8 @@ def tiled_plain_after_qkv(
     # float32 scores and softmax, weights rounded to V's type (the weights'),
     # float32 sums; rounding the output to that type here is the rounding the
     # out projection applies to it
-    attn = dot_product_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads),
-                                 _key_mask4(mask, batch, length))
+    attn = scaled_attention(q.reshape(heads), k.reshape(heads), v.reshape(heads),
+                            _key_mask4(mask, batch, length), bf16_scores=False)
     o = _dense(attn.reshape(rows, d_model), w.out, w.out_bias)
     x1 = _layer_norm(xf + o, w.ln1_scale, w.ln1_bias)
     chunk = batch_tile * length // ffn_chunks

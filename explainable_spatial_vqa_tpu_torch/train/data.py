@@ -1,6 +1,5 @@
 """Host-side batching for array datasets, ported from
-``explainable_spatial_vqa_tpu/train/data.py`` (one host: the port has no
-multi-host batch slicing).
+``explainable_spatial_vqa_tpu/train/data.py``.
 
 Split membership reproduces sklearn's ``train_test_split(random_state=seed)``
 with numpy alone, and each epoch's shuffle is
@@ -12,6 +11,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from explainable_spatial_vqa_tpu_torch.parallel.multihost import host_batch_slice
 
 __all__ = ["train_val_test_split", "batches", "Subset"]
 
@@ -55,14 +56,27 @@ def batches(
     epoch: int = 0,
     drop_last: bool = True,
     transform: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield dict batches in the order of ``RandomState(seed + epoch)`` (or in
-    order without ``shuffle``); ``drop_last`` keeps every batch one shape."""
+    order without ``shuffle``); ``drop_last`` keeps every batch one shape.
+
+    Data parallel over ``process_count`` processes: ``batch_size`` is
+    GLOBAL; every process draws the same permutation and gathers only its
+    own contiguous ``parallel.multihost.host_batch_slice`` rows of each
+    global batch, which needs ``drop_last`` (a partial last batch would
+    leave the processes with shards of different sizes).  One process is
+    exactly the single-process behaviour."""
     n = len(data)
     order = np.random.RandomState(seed + epoch).permutation(n) if shuffle else np.arange(n)
+    if process_count > 1 and not drop_last:
+        raise ValueError("multi-host batches() requires drop_last=True")
+    local = (host_batch_slice(batch_size, process_index, process_count) if process_count > 1
+             else slice(None))
     limit = n - (n % batch_size) if drop_last else n
     for start in range(0, limit, batch_size):
-        batch = data.gather(order[start:start + batch_size])
+        batch = data.gather(order[start:start + batch_size][local])
         if transform is not None:
             batch = transform(batch)
         yield batch

@@ -10,6 +10,11 @@
   exact (``matcher="auto"``, ``"hungarian"`` or ``"hungarian_jax"``: scipy on
   the host, :func:`~explainable_spatial_vqa_tpu_torch.ops.matching.hungarian_assignment`)
   or Sinkhorn-relaxed on the device (``"sinkhorn"``).
+
+Each loss that divides a sum by a count (``max(count, 1)``) divides by the
+global batch's count when the trainer runs data parallel
+(``parallel.mesh.global_normaliser``), as JAX's losses do over its global
+batch.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from explainable_spatial_vqa_tpu_torch.ops.matching import (
     pairwise_l1,
     sinkhorn_assignment,
 )
+from explainable_spatial_vqa_tpu_torch.parallel.mesh import global_normaliser
 
 __all__ = ["cross_entropy", "binary_cross_entropy", "matching_cost", "assign_targets",
            "executor_set_loss", "smooth_l1", "masked_box_regression_loss",
@@ -48,7 +54,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, ignore_index: Opt
     weights = torch.ones_like(nll) if label_weights is None else label_weights.float()
     if ignore_index is not None:
         weights = weights * (targets != ignore_index)
-    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (nll * weights).sum() / global_normaliser(weights.sum())
 
 
 def binary_cross_entropy(probs: torch.Tensor, targets: torch.Tensor,
@@ -117,9 +123,9 @@ def executor_set_loss(
     weight = torch.ones_like(is_box) if sample_weight is None else sample_weight.float()
     box_sample = (is_box * weight)[:, None]  # (B, 1)
     matched_f = matched.float()
-    box_reg_loss = (reg * box_sample).sum() / torch.clamp((matched_f * box_sample).sum(), min=1.0)
+    box_reg_loss = (reg * box_sample).sum() / global_normaliser((matched_f * box_sample).sum())
     conf_bce = binary_cross_entropy(pred_conf, matched_f)
-    num_box_queries = torch.clamp(box_sample.sum() * pred_conf.shape[1], min=1.0)
+    num_box_queries = global_normaliser(box_sample.sum() * pred_conf.shape[1])
     conf_loss = (conf_bce * box_sample).sum() / num_box_queries
     box_loss = box_reg_loss + conf_loss
 
@@ -152,7 +158,7 @@ def masked_box_regression_loss(pred_boxes: torch.Tensor, target_boxes: torch.Ten
     """Mean SmoothL1 over valid box slots: (B, S, 4) boxes, (B, S) mask."""
     per_box = smooth_l1(pred_boxes, target_boxes).sum(dim=-1)
     valid = mask.float()
-    return (per_box * valid).sum() / torch.clamp(valid.sum() * 4.0, min=1.0)
+    return (per_box * valid).sum() / global_normaliser(valid.sum() * 4.0)
 
 
 def perturb_input_boxes(boxes: torch.Tensor, mask: torch.Tensor, generator: torch.Generator,

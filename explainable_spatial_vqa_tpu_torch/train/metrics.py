@@ -3,12 +3,14 @@
 Every metric is a sum or a count, so it adds up exactly across batches.
 The sums stay tensors on the batch's device: :class:`MetricAccumulator`
 adds them there and reads them to the host once, when its ``totals`` are
-asked for (once per epoch in the trainer), not once per step.
+asked for (once per epoch in the trainer), not once per step.  A
+data-parallel trainer sums them over its ranks before it reads them
+(:meth:`MetricAccumulator.sum_over`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -78,6 +80,21 @@ class MetricAccumulator:
                 read.update(zip(tensors, values.tolist()))
             self._read = {k: read[k] for k in self._sums}
         return self._read
+
+    def sum_over(self, group, device: torch.device, means: Tuple[str, ...] = ()) -> None:
+        """Replace the totals by their sums over the ranks of ``group`` (one
+        all-reduce on ``device``; every rank must hold the same keys), the
+        keys in ``means`` by their means over the ranks."""
+        import torch.distributed as dist
+
+        totals = self.totals
+        keys = sorted(totals)
+        values = torch.tensor([totals[k] for k in keys], dtype=torch.float64, device=device)
+        dist.all_reduce(values, group=group)
+        world = dist.get_world_size(group)
+        summed = dict(zip(keys, values.tolist()))
+        self._sums = {k: summed[k] / world if k in means else summed[k] for k in totals}
+        self._read = dict(self._sums)
 
     def ratio(self, num: str, den: str) -> float:
         totals = self.totals

@@ -36,6 +36,8 @@ from explainable_spatial_vqa_tpu_torch.device import resolve_device
 from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
 from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
 from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+from explainable_spatial_vqa_tpu_torch.parallel.mesh import global_normaliser
+from explainable_spatial_vqa_tpu_torch.parallel.multihost import process_count, process_index
 from explainable_spatial_vqa_tpu_torch.train.data import Subset, batches, train_val_test_split
 from explainable_spatial_vqa_tpu_torch.models.iqap import TransformerIQAP, generate_programs
 from explainable_spatial_vqa_tpu_torch.models.lstm_iqap import LstmIQAP
@@ -113,22 +115,27 @@ def _batch_factories(arrays: Dict[str, np.ndarray], config: ExperimentConfig, tr
                      train_transform: Optional[Callable[[int], Callable]] = None):
     """(train, validation and test batch factories, steps per epoch) over
     sklearn's splits; ``train_transform(epoch)``, when given, is that
-    epoch's transform of the training batches in place of ``transform``."""
+    epoch's transform of the training batches in place of ``transform``.
+    Under a process group each process reads only its own rows of every
+    global batch (``batches``' ``process_index``/``process_count``), as the
+    JAX factories do across hosts."""
     n = len(next(iter(arrays.values())))
     d = config.data
     train_idx, val_idx, test_idx = train_val_test_split(n, d.test_split, d.validation_split, d.seed)
     bs = config.train.batch_size
     train_sub, val_sub, test_sub = (Subset(arrays, i) for i in (train_idx, val_idx, test_idx))
+    hosts = dict(process_index=process_index(), process_count=process_count())
 
     def train_b(epoch):
         return batches(train_sub, bs, shuffle=True, seed=d.seed, epoch=epoch,
-                       transform=transform if train_transform is None else train_transform(epoch))
+                       transform=transform if train_transform is None else train_transform(epoch),
+                       **hosts)
 
     def val_b():
-        return batches(val_sub, bs, shuffle=False, transform=transform)
+        return batches(val_sub, bs, shuffle=False, transform=transform, **hosts)
 
     def test_b():
-        return batches(test_sub, bs, shuffle=False, transform=transform)
+        return batches(test_sub, bs, shuffle=False, transform=transform, **hosts)
 
     return train_b, val_b, test_b, len(train_sub) // bs
 
@@ -573,7 +580,7 @@ class _ImageGather:
 def _masked_box_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Squared coordinate error over the masked slots, per coordinate."""
     m = mask.float()
-    return (((pred - target) ** 2) * m[..., None]).sum() / torch.clamp(m.sum() * 4, min=1.0)
+    return (((pred - target) ** 2) * m[..., None]).sum() / global_normaliser(m.sum() * 4)
 
 
 def _prototype_model(cfg, dtype: torch.dtype, device: torch.device) -> nn.Module:
@@ -639,7 +646,7 @@ def _prototype_loss_fn(cfg):
             iou = box_iou(boxes, batch["target_boxes"])
             if cfg.iou_weight > 0.0:  # v2: + the IoU term
                 loss = loss + cfg.iou_weight * (
-                    ((1.0 - iou) * mask).sum() / torch.clamp(mask.float().sum(), min=1.0))
+                    ((1.0 - iou) * mask).sum() / global_normaliser(mask.float().sum()))
             return loss, {"iou_sum": (iou * mask).sum(), "iou_total": mask.sum()}
 
         return loss_fn, ("iou_sum", "iou_total")
@@ -662,7 +669,7 @@ def _prototype_loss_fn(cfg):
             mask = batch["input_box_mask"].float()
             bce = binary_cross_entropy(torch.sigmoid(logits), batch["selected"])
             pred = (logits > 0).float()
-            return (bce * mask).sum() / torch.clamp(mask.sum(), min=1.0), {
+            return (bce * mask).sum() / global_normaliser(mask.sum()), {
                 "select_correct": ((pred == batch["selected"]) * mask).sum(),
                 "select_total": mask.sum()}
 
@@ -710,11 +717,11 @@ def _prototype_loss_fn(cfg):
             stop_target = (~batch["target_box_mask"]).float()
             stop_bce = binary_cross_entropy(torch.sigmoid(out["stop_logits"]), stop_target)
             box_rows = is_box[:, None].float()
-            loss = loss + (stop_bce * box_rows).sum() / torch.clamp(
-                box_rows.sum() * stop_target.shape[1], min=1.0)
+            loss = loss + (stop_bce * box_rows).sum() / global_normaliser(
+                box_rows.sum() * stop_target.shape[1])
             value_err = (out["nonspatial_value"] - batch["token_target"].float()) ** 2
             value_rows = (~is_box).float()
-            loss = loss + (value_err * value_rows).sum() / torch.clamp(value_rows.sum(), min=1.0)
+            loss = loss + (value_err * value_rows).sum() / global_normaliser(value_rows.sum())
             type_pred = torch.argmax(out["type_logits"], -1)
             return loss, {"type_correct": (type_pred == type_target).sum(),
                           "type_total": type_pred.shape[0]}

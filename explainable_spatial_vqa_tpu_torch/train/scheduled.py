@@ -36,6 +36,7 @@ from explainable_spatial_vqa_tpu_torch.infer.chain import (
     chained_forward,
     gather_step_inputs,
 )
+from explainable_spatial_vqa_tpu_torch.parallel.mesh import global_count
 from explainable_spatial_vqa_tpu_torch.train.losses import executor_set_loss, perturb_input_boxes
 
 __all__ = ["gt_chain_state", "make_scheduled_loss_fn", "mixed_chain_state", "schedule_p",
@@ -101,6 +102,7 @@ def scheduled_step_loss(model, batch: Dict[str, torch.Tensor], image: torch.Tens
     functions, deps, num_steps = batch["functions"], batch["deps"], batch["num_steps"]
     perturb = train and (cfg.input_box_noise > 0.0 or cfg.input_box_drop > 0.0)
     loss_sum = torch.zeros((), device=image.device)
+    weight_sum = torch.zeros((), device=image.device)  # global active steps (data parallel)
     counts = torch.zeros(4, device=image.device)  # active steps, routing, token hits, tokens
     for k in range(depth):
         input_boxes, input_mask, text, text_mask = gather_step_inputs(
@@ -116,7 +118,11 @@ def scheduled_step_loss(model, batch: Dict[str, torch.Tensor], image: torch.Tens
                                    batch["target_box_mask"][:, k], batch["token_target"][:, k],
                                    is_box, cfg, sample_weight=w)
         n_active = w.sum()
-        loss_sum = loss_sum + losses["loss"] * n_active
+        # each position's loss weighs by its global count of active rows
+        # (this rank's count outside data parallel)
+        n_global = global_count(n_active)
+        loss_sum = loss_sum + losses["loss"] * n_global
+        weight_sum = weight_sum + n_global
         routing_pred = torch.argmax(out["routing_logits"], -1).detach()
         token_pred = torch.argmax(out["token_logits"], -1).detach()
         tok_w = w * ~is_box
@@ -126,7 +132,7 @@ def scheduled_step_loss(model, batch: Dict[str, torch.Tensor], image: torch.Tens
             ((token_pred == batch["token_target"][:, k]) * tok_w).sum(),
             tok_w.sum(),
         ])
-    loss = loss_sum / torch.clamp(counts[0], min=1.0)
+    loss = loss_sum / torch.clamp(weight_sum, min=1.0)
     metrics = {"routing_correct": counts[1], "routing_total": counts[0],
                "token_correct": counts[2], "token_total": counts[3]}
     return loss, metrics

@@ -1,5 +1,4 @@
-"""The trainer, ported from ``explainable_spatial_vqa_tpu/train/trainer.py``
-for one device.
+"""The trainer, ported from ``explainable_spatial_vqa_tpu/train/trainer.py``.
 
 - Optimizer from ``OptimConfig``: Adam, or AdamW when ``weight_decay`` is
   set (β = (0.9, 0.999), eps 1e-8, optax's defaults), global-norm clipping
@@ -20,6 +19,20 @@ for one device.
   for the epoch) and the generator handed to the loss function from
   ``(seed, epoch)``, so a resumed run draws what an uninterrupted run draws.
 - Metrics stay summed on the device and are read once per epoch.
+- Data parallel over the ``data`` axis of a mesh (``parallel.mesh``; by
+  default ``TrainConfig.mesh_shape``/``mesh_axes`` over the process group
+  when one is initialised), one process per card, as JAX's trainer shards
+  its global batch over a mesh: the parameters and buffers are broadcast
+  from the axis's first rank at construction; each rank takes its own rows
+  of every global batch (the pipelines' ``batches`` do the slicing); the
+  losses divide by the global batch's counts (``parallel.mesh.
+  global_normaliser``) and the gradients are averaged by one all-reduce, so
+  a step equals one process's step on the whole batch up to the order of
+  sums; the count-style metrics are summed over the ranks before they are
+  read; only the process group's rank 0 writes checkpoints.  Each rank
+  draws its own dropout and sampling streams (rank 0 draws the
+  single-process ones).  On a one-rank mesh every step is the
+  single-process step.
 """
 
 from __future__ import annotations
@@ -32,10 +45,18 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from explainable_spatial_vqa_tpu_torch.core.config import OptimConfig, TrainConfig
 from explainable_spatial_vqa_tpu_torch.device import resolve_device
+from explainable_spatial_vqa_tpu_torch.parallel.mesh import (
+    Mesh,
+    collective_device,
+    data_parallel,
+    make_mesh,
+    replicated,
+)
 from explainable_spatial_vqa_tpu_torch.train.checkpoints import CheckpointStore
 from explainable_spatial_vqa_tpu_torch.train.metrics import MetricAccumulator
 from explainable_spatial_vqa_tpu_torch.train.prefetch import prefetch
@@ -51,9 +72,11 @@ LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], torch.Generator, bool],
 _DROPOUT, _SAMPLE, _EVAL = range(3)  # the per-epoch random streams
 
 
-def epoch_seed(seed: int, epoch: int, stream: int) -> int:
-    """A 63-bit seed for one random stream of one epoch."""
-    state = np.random.SeedSequence([seed, epoch, stream]).generate_state(2, np.uint32)
+def epoch_seed(seed: int, epoch: int, stream: int, rank: int = 0) -> int:
+    """A 63-bit seed for one random stream of one epoch (of one data-parallel
+    rank; rank 0's are the single-process streams)."""
+    entropy = [seed, epoch, stream] + ([rank] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return (int(state[0]) << 31) ^ int(state[1])
 
 
@@ -95,7 +118,12 @@ class Trainer:
     """Generic loop around a loss function
     ``loss_fn(model, batch, generator, train) -> (loss, metrics)``, whose
     metrics are count-style (summable across batches): numbers, or tensors
-    on the device.  ``checkpoint_dir=False`` keeps no checkpoints."""
+    on the device.  ``checkpoint_dir=False`` keeps no checkpoints.
+
+    ``mesh``: data parallel over its ``data`` axis (module docstring); by
+    default the training config's mesh over the process group when one is
+    initialised, else none.  A mesh with another axis larger than 1 is
+    refused: the trainer replicates the parameters and splits rows only."""
 
     def __init__(
         self,
@@ -107,9 +135,21 @@ class Trainer:
         eval_fn: Optional[LossFn] = None,
         checkpoint_dir: Any = None,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(train_config.mesh_shape, train_config.mesh_axes)
+        if mesh is not None and mesh.shape.get("data", 1) != mesh.size:
+            raise ValueError(f"the trainer splits batches over a mesh's data axis only: {mesh}")
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank("data")
+        self._group = None if mesh is None else mesh.group("data")
+        if mesh is not None:
+            replicated(self.model, mesh)
+        # only the process group's rank 0 writes checkpoints; every rank reads
+        self._writes = not dist.is_initialized() or dist.get_rank() == 0
         self.loss_fn = loss_fn
         self.eval_loss_fn = eval_fn or loss_fn
         self.optim_config = optim_config
@@ -135,22 +175,52 @@ class Trainer:
         self.schedule.step()
         self.step += 1
 
+    @property
+    def data_parallel(self) -> bool:
+        """More than one rank on the mesh's data axis."""
+        return self._group is not None and dist.get_world_size(self._group) > 1
+
     def train_step(self, batch: Dict[str, Any], generator: torch.Generator) -> Dict[str, Any]:
-        """One update on a batch already on the device; returns its metrics
-        (tensors, not read) with ``loss_sum`` and ``batches``."""
+        """One update on a batch already on the device (this rank's rows
+        under data parallel); returns its metrics (tensors, not read) with
+        ``loss_sum`` and ``batches``."""
         self.model.train()
-        loss, metrics = self.loss_fn(self.model, batch, generator, True)
+        with data_parallel(self.mesh):
+            loss, metrics = self.loss_fn(self.model, batch, generator, True)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.data_parallel:
+            self.average_gradients()
         self.apply_gradients()
         return {**metrics, "loss_sum": loss.detach(), "batches": 1}
+
+    def average_gradients(self) -> None:
+        """Replace every gradient by its mean over the data axis's ranks: one
+        all-reduce of the gradients flattened into one buffer.  Each rank's
+        loss is its share of the global batch's (``global_normaliser``), so
+        the mean is the global batch's gradient."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=self._group)
+        flat /= dist.get_world_size(self._group)
+        for g, mean in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(mean)
 
     def eval_step(self, model: nn.Module, batch: Dict[str, Any],
                   generator: torch.Generator) -> Dict[str, Any]:
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), data_parallel(self.mesh):
             loss, metrics = self.eval_loss_fn(model, batch, generator, False)
         return {**metrics, "loss_sum": loss, "batches": 1}
+
+    def _reduced(self, acc: MetricAccumulator) -> MetricAccumulator:
+        """Under data parallel, ``acc``'s totals summed over the ranks, the
+        loss (each rank's share of the global loss) and batch count averaged,
+        as one process on the global batches counts them."""
+        if self.data_parallel:
+            acc.sum_over(self._group, collective_device(self._group),
+                         means=("loss_sum", "batches"))
+        return acc
 
     # -- loops --------------------------------------------------------------
 
@@ -161,14 +231,14 @@ class Trainer:
         if self.device.type == "cuda":
             devices = [torch.cuda.current_device() if self.device.index is None
                        else self.device.index]
-        generator = torch.Generator().manual_seed(epoch_seed(seed, epoch, _SAMPLE))
+        generator = torch.Generator().manual_seed(epoch_seed(seed, epoch, _SAMPLE, self.rank))
         with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(epoch_seed(seed, epoch, _DROPOUT))
+            torch.manual_seed(epoch_seed(seed, epoch, _DROPOUT, self.rank))
             for i, batch in enumerate(prefetch(data, self.device)):
                 acc.update(self.train_step(batch, generator))
                 if self.train_config.log_every and (i + 1) % self.train_config.log_every == 0:
                     logger.info("step %d loss %.4f", i + 1, acc.mean("loss_sum"))
-        return acc
+        return self._reduced(acc)
 
     def evaluate(self, data: Iterable[Dict[str, np.ndarray]], seed: int = 0,
                  model: Optional[nn.Module] = None) -> MetricAccumulator:
@@ -177,7 +247,7 @@ class Trainer:
         acc = MetricAccumulator()
         for batch in prefetch(data, self.device):
             acc.update(self.eval_step(model, batch, generator))
-        return acc
+        return self._reduced(acc)
 
     def fit(
         self,
@@ -222,19 +292,19 @@ class Trainer:
                     self.best_state = {k: v.detach().to("cpu", copy=True)
                                        for k, v in self.model.state_dict().items()}
                     self.stale_epochs = 0
-                    if self.store is not None:
+                    if self.store is not None and self._writes:
                         self.store.save_best({"model": self.best_state})
                 else:
                     self.stale_epochs += 1
 
-            if self.store is not None and (
+            if self.store is not None and self._writes and (
                     (epoch + 1) % cfg.checkpoint_interval == 0 or epoch + 1 == num_epochs):
                 self.store.save(epoch + 1, self._payload())
             if val_batches is not None and self.stale_epochs >= cfg.patience:
                 logger.info("early stopping at epoch %d", epoch)
                 break
 
-        if self.store is not None:
+        if self.store is not None and self._writes:
             self.store.save(self.epoch, self._payload())
             self.store.wait()
         return history

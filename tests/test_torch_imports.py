@@ -1,4 +1,6 @@
-"""The port imports neither JAX nor the JAX package, and its entry points
+"""The port imports neither JAX nor the JAX package (the modules of the
+last slice, the native engine, lowp, parallel/ and the profiler, included),
+and its entry points
 (the CLI, the evaluation functions and the feature extractor included) run on
 the card unless asked for the CPU; no module imports h5py, PIL or matplotlib
 when it is imported.  Checked in a
@@ -39,7 +41,9 @@ CHECK = textwrap.dedent("""
                  "ops.decoding", "models.iqap", "models.lstm_iqap", "models.step_executor",
                  "core.annotated_strings", "models.cot", "models.prototypes", "vision",
                  "vision.extract", "vision.resnet", "core.reshape", "core.artifacts",
-                 "utils", "utils.logging", "utils.plots", "utils.visualize", "cli.repro"):
+                 "utils", "utils.logging", "utils.plots", "utils.visualize", "cli.repro",
+                 "clevr.native", "ops.lowp", "parallel", "parallel.mesh", "parallel.multihost",
+                 "parallel.sharding", "utils.profiling"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
