@@ -152,11 +152,27 @@ result:
     8-row batches counted; float64 compute: loss, gradients and parameters
     within 1e-6); ``ops.lowp``'s serving opt-in off and on (questions/s,
     equal decisions, launches per forward); a ``utils.profiling`` trace
-    that must name its ``annotate`` regions and the ``esv::`` kernels.
+    that must name its ``annotate`` regions and the ``esv::`` kernels;
+21. the matcher kernel and the demos (``demos``): 21.1
+    ``csrc/hungarian.cu`` (JAX's in-jit exact matcher) against its plain
+    version on 10,240 problems at five (Q, T) shapes, half of them with
+    tied optima (equal assignments; matched costs at scipy's optimum), a
+    call under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    synchronisation; scipy's round trip, the control, must raise), times at
+    B=64 (Q=T=8, the demos' steps) and B=16, 128, 2560 (Q=T=10) beside the
+    plain version, scipy's host round trip and the bytes bound; 21.2 one
+    ``executor_roi`` train step at full width, bf16, batch 16 and 128, with
+    ``matcher="auto"`` (the kernel) and ``"hungarian"`` (scipy), in
+    alternating rounds, with the host's waits per step and a falling fixed
+    batch; 21.3 ``demos.accuracy_table`` at d_model 512 (K2 and K1 in its
+    chain runs, one matcher launch per executor step) with its section
+    printed, its trained executor's float32 predicted-chain decisions card
+    vs CPU, and every other demo of ``demos/`` once at a reduced size.
 
 The line before the last is a JSON object with one entry per kernel
-(``kernels``, with its launches on the main path and, under
-``launches_by_path``, on phases 14-20's paths; K2's entry also holds its
+(``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
+(the matcher's: phase 21.3's accuracy table) and, under
+``launches_by_path``, on phases 14-21's paths; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
 ``at_shapes``) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
@@ -167,15 +183,18 @@ The script imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -699,7 +718,7 @@ def main() -> None:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    libs = _build.build(["fused_attention", "fused_block"])
+    libs = _build.build(["fused_attention", "fused_block", "hungarian"])
     build_s = time.perf_counter() - t0
     kernels = kernel_report(libs)
     say(f"phase 2 build: {build_s:.1f} s for {', '.join(sorted(libs))} ({len(kernels)} kernels, "
@@ -1117,9 +1136,10 @@ def main_path(torch, np, dev, results, parts) -> None:
         fused_encoder_block,
         fused_encoder_block_tiled,
     )
+    from explainable_spatial_vqa_tpu_torch.ops.matching import hungarian_assignment_device
 
     wrappers = {w.__name__: w for w in (fused_attention, fused_encoder_block,
-                                        fused_encoder_block_tiled)}
+                                        fused_encoder_block_tiled, hungarian_assignment_device)}
 
     def counted(fn):
         """``fn()`` with every launch count set to 0 just before it, and the
@@ -1404,6 +1424,10 @@ def main_path(torch, np, dev, results, parts) -> None:
                **cot_and_prototypes(torch, np, dev, counted),
                **data_prep(torch, np, dev, counted, trained),
                **last_slice(torch, np, dev, counted, results)}
+    matcher, demo_paths = demos(torch, np, dev, counted)
+    by_path.update(demo_paths)
+    # the matcher's main path is the demos' executor training: phase 21.3's run
+    matcher_launches = demo_paths["demo_accuracy_table_d512"]
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -1412,7 +1436,10 @@ def main_path(torch, np, dev, results, parts) -> None:
          "explainable_spatial_vqa_tpu/ops/pallas_block.py:113", "K2_bf16", launches),
         ("fused_encoder_block_tiled", "explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
          "explainable_spatial_vqa_tpu/ops/pallas_block.py:197", "K3_bf16", bench_launches),
+        ("hungarian_assignment_device", "explainable_spatial_vqa_tpu_torch/csrc/hungarian.cu",
+         "explainable_spatial_vqa_tpu/ops/matching.py:312", "matcher", matcher_launches),
     )
+    results["matcher"] = matcher
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **results[key],
                     launches_by_path={path: c[name] for path, c in by_path.items()})
@@ -2524,7 +2551,9 @@ def cogent(torch, np, dev, counted) -> dict:
         "each tally over the val questions": all(
             t.total == sizes["val_questions"] for t in result["tallies"].values()),
         "the executor's last loss below its first": last_loss < first_loss,
-        "no K2 or K1 launch at head dim 48": flagship_counts == dict.fromkeys(flagship_counts, 0),
+        "no K2 or K1 launch at head dim 48": not any(
+            flagship_counts[k] for k in ("fused_attention", "fused_encoder_block",
+                                         "fused_encoder_block_tiled")),
     }
     for name, ok in flagship_checks.items():
         if not ok:
@@ -4298,6 +4327,416 @@ def last_slice(torch, np, dev, counted, results) -> dict:
     return by_path
 
 
+
+# phase 21: the matcher kernel and the demos
+MATCHER_SHAPES = ((10, 10), (8, 8), (10, 4), (7, 10), (12, 5))  # (Q, T)
+MATCHER_PROBLEMS = 2048  # per shape: 10,240 in all
+MATCHER_TIMED = ((64, 8, 8), (16, 10, 10), (128, 10, 10), (2560, 10, 10))  # (B, Q, T)
+MATCHER_COST_TOL = 1e-5  # matched cost against scipy's optimum, relative: float32 potentials
+STEP_ROUNDS = 10  # alternating timing rounds of 21.2's two matchers
+STEPS_PER_ROUND = 5
+# 21.3: the accuracy table at d 512 (K2 and K1 in its chain runs) and each
+# other demo once, at reduced sizes
+DEMO_D512 = dict(DEMO_SCENES="60", DEMO_QPS="4", DEMO_GEN_STEPS="150", DEMO_EXE_STEPS="150",
+                 DEMO_DMODEL="512", DEMO_LAYERS="3", DEMO_LR_SCHEDULE="cosine")
+DEMO_SMALL = {
+    "end_to_end": dict(DEMO_SCENES="20", DEMO_GEN_STEPS="30", DEMO_EXE_STEPS="30"),
+    "data_efficiency": {},  # no knobs: its STEPS is cut below
+    "executor_data_efficiency": dict(DEMO_SCENES="20", DEMO_QPS="3", DEMO_SIZES="10,40",
+                                     DEMO_EXE_STEPS="30"),
+    "scheduled_sampling": dict(DEMO_SCENES="12", DEMO_GEN_STEPS="20", DEMO_EXE_STEPS="10"),
+    "scheduled_stats": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="10",
+                            DEMO_EXE_STEPS="10", DEMO_EVAL_SCENES="4", DEMO_EVAL_QPS="3"),
+    "scheduled_at_scale": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="10",
+                               DEMO_EXE_STEPS="10", DEMO_EVAL_SCENES="4", DEMO_DMODEL="96",
+                               DEMO_LAYERS="2"),
+    "diag_box_roi": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="30"),
+    "diag_roi_sim": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="30"),
+    "diag_count_embed": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="30"),
+}
+DEMO_DATA_EFFICIENCY_STEPS = 30
+
+
+def matcher_problems(np, seed: int, q: int, t: int, n: int):
+    """``n`` problems at (Q, T): the first half of costs uniform in [0, 30),
+    the second integers in {0, 1, 2} (many tied optima); masks empty on
+    every 8th problem, full on the next, scattered otherwise."""
+    rng = np.random.RandomState(seed)
+    cost = (rng.rand(n, q, t) * 30.0).astype(np.float32)
+    cost[n // 2:] = rng.randint(0, 3, (n - n // 2, q, t))
+    mask = rng.rand(n, t) < rng.rand(n, 1)
+    mask[0::8] = False
+    mask[1::8] = True
+    return cost, mask
+
+
+def matched_costs(np, cost, assign):
+    """Each problem's matched cost in float64: the sum of cost[q, assign[q]]
+    over its matched queries."""
+    rows = np.arange(cost.shape[1])
+    picked = cost[np.arange(len(cost))[:, None], rows, np.clip(assign, 0, None)]
+    return np.where(assign >= 0, picked.astype(np.float64), 0.0).sum(1)
+
+
+def matcher_kernel(torch, np, dev) -> dict:
+    """Phase 21.1: ``csrc/hungarian.cu`` against its plain version on the
+    card on ``MATCHER_PROBLEMS`` problems at each of ``MATCHER_SHAPES``
+    (assignments equal, and each matched cost equal to scipy's optimum
+    within ``MATCHER_COST_TOL``); a call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the host matcher under it
+    must raise, the control); times by CUDA events at ``MATCHER_TIMED``
+    beside the plain version, scipy's host round trip and the bytes bound.
+    Returns the kernels-line entry at the demos' shape (B=64, Q=T=8) with the
+    others under ``at_shapes``."""
+    from explainable_spatial_vqa_tpu_torch.ops.matching import (
+        hungarian_assignment,
+        hungarian_assignment_device,
+        hungarian_assignment_device_plain,
+    )
+
+    t0 = time.perf_counter()
+    problems = differ_scipy = 0
+    worst_gap = worst_index = 0.0
+    mismatched = []
+    for shape_i, (q, t) in enumerate(MATCHER_SHAPES):
+        cost, mask = matcher_problems(np, 2100 + shape_i, q, t, MATCHER_PROBLEMS)
+        c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+        got = hungarian_assignment_device(c, m).cpu().numpy()
+        ref = hungarian_assignment_device_plain(c, m).cpu().numpy()
+        host = hungarian_assignment(c, m).cpu().numpy()
+        bad = np.flatnonzero((got != ref).any(1))
+        mismatched += [(q, t, int(b)) for b in bad[:3]]
+        worst_index = max(worst_index, float(np.abs(got - ref).max()))
+        optimum = matched_costs(np, cost, host)
+        gap = np.abs(matched_costs(np, cost, got) - optimum) / np.maximum(1.0, optimum)
+        worst_gap = max(worst_gap, float(gap.max()))
+        same_count = np.array_equal((got >= 0).sum(1), (host >= 0).sum(1))
+        if not same_count:
+            fail(f"phase 21.1: the kernel matches another number of queries than scipy at {q}x{t}")
+        problems += len(cost)
+        differ_scipy += int((got != host).any(1).sum())
+    say(f"phase 21.1 matcher kernel against its plain version on the card: {problems} problems "
+        f"at (Q, T) {MATCHER_SHAPES}, half with integer costs in {{0, 1, 2}}: assignments "
+        f"{'equal' if not mismatched else f'DIFFER {mismatched}'} (max index difference "
+        f"{worst_index:g}); matched cost against scipy's optimum within {worst_gap:.3g} relative "
+        f"(tol {MATCHER_COST_TOL}); scipy picks another optimal assignment on {differ_scipy} of "
+        f"them (ties); {time.perf_counter() - t0:.1f} s")
+    if mismatched or not worst_gap <= MATCHER_COST_TOL:
+        fail("phase 21.1: the matcher kernel disagrees with its plain version or scipy's optimum")
+
+    # no host synchronisation in a call; scipy's round trip is the control
+    cost, mask = matcher_problems(np, 2199, 10, 10, 128)
+    c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+    hungarian_assignment_device(c, m)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hungarian_assignment_device(c, m)
+        try:
+            hungarian_assignment(c, m)
+            control = "did NOT raise"
+        except RuntimeError:
+            control = "raised"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    say(f"phase 21.1 under set_sync_debug_mode('error'): hungarian_assignment_device made no "
+        f"host synchronisation; the control, scipy's hungarian_assignment, {control}")
+    if control != "raised":
+        fail("phase 21.1: the sync check cannot see a host synchronisation")
+
+    rows = {}
+    for b, q, t in MATCHER_TIMED:
+        cost, mask = matcher_problems(np, 2200 + b, q, t, b)
+        c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+        ms = timed_ms(torch, lambda: hungarian_assignment_device(c, m), iters=200, warmup=10)
+        plain = timed_ms(torch, lambda: hungarian_assignment_device_plain(c, m), iters=3,
+                         warmup=1)
+        scipy_ms = timed_ms(torch, lambda: hungarian_assignment(c, m), iters=10, warmup=2)
+        got = hungarian_assignment_device(c, m)
+        err = float((got - hungarian_assignment_device_plain(c, m)).abs().max())
+        nbytes = b * q * t * 4 + b * t + b * q * 8
+        bnd, by = bound_ms({}, nbytes)
+        say(f"phase 21.1 matcher B={b} Q={q} T={t}: kernel {ms:.4f} ms through the wrapper, "
+            f"plain {plain:.3f} ms, scipy's host round trip {scipy_ms:.3f} ms (no PyTorch call "
+            f"computes it), bound {bnd:.6f} ms ({by}, {nbytes} bytes)")
+        rows[(b, q, t)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                               library_ms=None, scipy_round_trip_ms=scipy_ms)
+    main_shape = rows.pop(MATCHER_TIMED[0])
+    main_shape["at_shapes"] = {f"B{b}_Q{q}_T{t}": r for (b, q, t), r in rows.items()}
+    return main_shape
+
+
+def matcher_step_times(torch, np, dev, counted) -> dict:
+    """Phase 21.2: one ``executor_roi`` train step at full width, bf16, at
+    batch 16 and 128 with ``matcher="auto"`` (the kernel) and
+    ``"hungarian"`` (scipy on the host): ms per step by CUDA events in
+    alternating rounds, the host's waits per step from the profiler, the
+    matcher's launches per step; then the kernel's fixed batch of 16 must
+    fall below 0.8 of its first loss within ``EXECUTOR_STEPS`` updates.
+    Returns the launches of one kernel step at batch 16."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_executor_steps
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    base = get_preset("executor_roi")
+    arrays, features = synth_executor_steps(EXECUTOR_ROWS, base.model, seed=21)
+    features = torch.from_numpy(features).to(dev)
+
+    def trainer(matcher):
+        cfg = base.replace(model=dataclasses.replace(base.model, matcher=matcher))
+        pipe = executor_pipeline_from_arrays(cfg, arrays, features, device=dev)
+        return Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                       checkpoint_dir=False, device=dev), pipe
+
+    step_counts = None
+    for batch_size in (16, 128):
+        batch = to_device({k: v[:batch_size] for k, v in arrays.items()}, dev)
+        batch["image"] = features[batch["image_index"].long()]
+        trainers = {m: trainer(m)[0] for m in ("auto", "hungarian")}
+        gen = torch.Generator().manual_seed(0)
+        for tr in trainers.values():
+            for _ in range(3):
+                tr.train_step(batch, gen)
+        times = {m: [] for m in trainers}
+        for r in range(STEP_ROUNDS):
+            for m in (("auto", "hungarian") if r % 2 == 0 else ("hungarian", "auto")):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(STEPS_PER_ROUND):
+                    trainers[m].train_step(batch, gen)
+                end.record()
+                end.synchronize()
+                times[m].append(start.elapsed_time(end) / STEPS_PER_ROUND)
+        waits, launches = {}, {}
+        for m, tr in trainers.items():
+            _wall, prof = device_profile(torch, lambda: tr.train_step(batch, gen))
+            waits[m] = None if prof is None else prof[2]
+            _, launches[m] = counted(lambda: tr.train_step(batch, gen))
+        # where the kernel's step still synchronises (none of it the matcher's)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainers["auto"].train_step(batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs_at = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                           if "synchronizing" in str(w.message)})
+        med = {m: statistics.median(v) for m, v in times.items()}
+        say(f"phase 21.2 executor_roi train step, bf16, batch {batch_size}: matcher='auto' (the "
+            f"kernel) {med['auto']:.2f} ms, matcher='hungarian' (scipy) {med['hungarian']:.2f} "
+            f"ms per step (median of {STEP_ROUNDS} alternating rounds of {STEPS_PER_ROUND}; all, "
+            f"ms: auto {[round(x, 2) for x in times['auto']]}, hungarian "
+            f"{[round(x, 2) for x in times['hungarian']]}); host waits per profiled step, the "
+            f"profiler's closing synchronize included: auto {waits['auto']}, hungarian "
+            f"{waits['hungarian']}; the kernel step's host synchronisations "
+            f"(set_sync_debug_mode('warn')) at {syncs_at}; launches per step: auto "
+            f"{launches['auto']}, hungarian {launches['hungarian']}")
+        checks = {
+            "one matcher launch per kernel step": (
+                launches["auto"]["hungarian_assignment_device"] == 1),
+            "no matcher launch per scipy step": (
+                launches["hungarian"]["hungarian_assignment_device"] == 0),
+            "the kernel's step waits less on the card than scipy's": (
+                waits["auto"] is None or waits["auto"] < waits["hungarian"]),
+        }
+        for name, ok in checks.items():
+            if not ok:
+                fail(f"phase 21.2 check failed: {name}")
+        if step_counts is None:
+            step_counts = launches["auto"]
+        del trainers, batch
+        torch.cuda.empty_cache()
+
+    tr, pipe = trainer("auto")
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    gen = torch.Generator().manual_seed(2)
+    losses = torch.stack([tr.train_step(batch, gen)["loss_sum"]
+                          for _ in range(EXECUTOR_STEPS + 1)]).tolist()
+    below = [i for i, x in enumerate(losses) if x < 0.8 * losses[0]]
+    say(f"phase 21.2 fixed-batch loss with the kernel matcher (batch {base.train.batch_size}): "
+        f"step 0 {losses[0]:.4f}, step {EXECUTOR_STEPS} {losses[-1]:.4f}; first below 0.8 of "
+        f"step 0 at step {below[0] if below else None}; {time.perf_counter() - t0:.1f} s")
+    if not (all(math.isfinite(x) for x in losses) and below):
+        fail("phase 21.2: the fixed batch's loss did not fall with the kernel matcher")
+    del tr, pipe, batch, features
+    torch.cuda.empty_cache()
+    return step_counts
+
+
+class DemoEnv:
+    """The demos' knobs set for one run (``DEMO_OUT`` and a fresh
+    ``DEMO_CKPT``, files of its own under ``workdir``), the environment
+    restored after; the demo's standard output goes to
+    ``workdir/<name>.log``."""
+
+    def __init__(self, workdir: Path, name: str, knobs: dict):
+        self.log = workdir / f"{name}.log"
+        self.env = {"DEMO_DEVICE": "cuda", "DEMO_OUT": str(workdir / f"{name}.md"),
+                    "DEMO_CKPT": str(workdir / f"{name}_ckpt.json"), **knobs}
+        Path(self.env["DEMO_CKPT"]).unlink(missing_ok=True)  # resume nothing
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        self.stack = contextlib.ExitStack()
+        self.stack.enter_context(contextlib.redirect_stdout(self.stack.enter_context(
+            open(self.log, "w"))))
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def chain_decision_gaps(np, card: dict, cpu: dict, cpu_calls: list, thr: float) -> list:
+    """For each chain whose decisions (routing, token, box mask) differ
+    between the card's and the CPU's plain-mode runs, the CPU's margin at
+    the first differing step k (forward call k of the run; an earlier step
+    saw the same inputs up to rounding): the routing logits' gap, the token
+    logits' top-2 gap, or the closest confidence to the threshold."""
+    gaps = []
+    diff = ((card["token_branch"] != cpu["token_branch"])
+            | (card["token_cache"] != cpu["token_cache"])
+            | (card["box_mask"] != cpu["box_mask"]).any(-1))
+    for row in np.flatnonzero(diff.any(1)):
+        k = int(np.flatnonzero(diff[row])[0])
+        out = cpu_calls[k]
+        if card["token_branch"][row, k] != cpu["token_branch"][row, k]:
+            routing = out["routing_logits"][row]
+            gaps.append(("routing", float(abs(routing[0] - routing[1]))))
+        elif card["token_cache"][row, k] != cpu["token_cache"][row, k]:
+            top = np.sort(out["token_logits"][row])[-2:]
+            gaps.append(("token", float(top[1] - top[0])))
+        else:
+            gaps.append(("box_mask", float(np.abs(out["pred_conf"][row] - thr).min())))
+    return gaps
+
+
+def demos(torch, np, dev, counted) -> tuple:
+    """Phase 21: the matcher kernel (21.1 ``matcher_kernel``), the executor
+    train step with either matcher (21.2 ``matcher_step_times``), and the
+    demos on the card (21.3): the accuracy table at ``DEMO_D512``,
+    with K2, K1 and matcher launches counted and its section printed; its
+    trained models' float32 predicted-chain decisions (the plain chain mode,
+    GT program structure) on the card against deep copies on the CPU, equal
+    but for printed near-ties; then every other demo once at
+    ``DEMO_SMALL``'s sizes, each writing its marked section.  Returns (the
+    matcher's kernels-line entry, launches by path)."""
+    import importlib
+
+    from explainable_spatial_vqa_tpu_torch.demos import accuracy_table
+    from explainable_spatial_vqa_tpu_torch.evalsuite.executor_eval import tally_predicted_chains
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+
+    t_phase = time.perf_counter()
+    matcher = matcher_kernel(torch, np, dev)
+    step_counts = matcher_step_times(torch, np, dev, counted)
+
+    import tempfile
+
+    workdir = Path(tempfile.mkdtemp(prefix="phase21-"))
+    with DemoEnv(workdir, "accuracy_table_d512", DEMO_D512):
+        ckpt = Path(accuracy_table.ckpt_path())
+        ckpt.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        state, d512_counts = counted(accuracy_table.run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ckpt.unlink(missing_ok=True)
+    exe_steps = int(DEMO_D512["DEMO_EXE_STEPS"])
+    say(f"phase 21.3 demos.accuracy_table at {DEMO_D512} on the card: {wall:.1f} s; launches "
+        f"{d512_counts}; its section:")
+    for line in state["section"].splitlines():
+        say(f"phase 21.3 | {line}")
+    d512_checks = {
+        "K2 and K1 launched in the chain runs": (
+            d512_counts["fused_encoder_block"] > 0 and d512_counts["fused_attention"] > 0),
+        "K2 3 times per K1 (3 encoder layers, 1 box-decoder layer)": (
+            d512_counts["fused_encoder_block"] == 3 * d512_counts["fused_attention"]),
+        "one matcher launch per executor train step": (
+            d512_counts["hungarian_assignment_device"] == exe_steps),
+    }
+    for name, ok in d512_checks.items():
+        if not ok:
+            fail(f"phase 21.3 accuracy table check failed: {name}")
+
+    # float32 predicted-chain decisions, card against CPU (plain mode: forward
+    # call k is step k of every chain)
+    exe_cfg, chains = state["exe_cfg"], state["chains"]
+    runs, calls = {}, {}
+    for where, model, images in (
+            ("card", state["executor"], state["image_tokens"]),
+            ("cpu", copy.deepcopy(state["executor"]).to("cpu"), state["image_tokens"].cpu())):
+        calls[where] = []
+        hook = model.register_forward_hook(lambda _m, _i, out, sink=calls[where]: sink.append(
+            {k: out[k].float().cpu().numpy() for k in ("routing_logits", "token_logits",
+                                                       "pred_conf")}))
+        runner = ExecutorChainRunner(model, exe_cfg, max_steps=state["max_steps"],
+                                     device=images.device)
+        runs[where] = runner.run(images, chains)
+        hook.remove()
+    card, cpu = runs["card"], runs["cpu"]
+    gaps = chain_decision_gaps(np, card, cpu, calls["cpu"], exe_cfg.conf_threshold)
+    decisions_equal = not gaps
+    vocabs = state["split_vocab"]
+    tallies = [tally_predicted_chains(r, state["eval_annotated"], vocabs["function"],
+                                      vocabs["other"], max_steps=state["max_steps"])
+               for r in (card, cpu)]
+    tally_equal = dataclasses.asdict(tallies[0]) == dataclasses.asdict(tallies[1])
+    say(f"phase 21.3 fp32 predicted-chain decisions of the trained d 512 executor, card vs CPU, "
+        f"{len(chains.num_steps)} chains ({int(chains.num_steps.sum())} steps): "
+        + ("equal" if decisions_equal else f"differ on {len(gaps)} chains, the CPU's margin at "
+           f"the first differing step {gaps}")
+        + f"; per-function tally {'equal' if tally_equal else 'differs'}")
+    if any(gap > NEAR_TIE for _, gap in gaps) or (decisions_equal and not tally_equal):
+        fail("phase 21.3: the float32 chain decisions on the card disagree with the CPU")
+    del state, runs, calls
+    torch.cuda.empty_cache()
+
+    walls = {"accuracy_table_d512": round(wall, 1)}
+    for name, knobs in DEMO_SMALL.items():
+        module = importlib.import_module(f"explainable_spatial_vqa_tpu_torch.demos.{name}")
+        saved_steps = getattr(module, "STEPS", None)
+        if name == "data_efficiency":
+            module.STEPS = DEMO_DATA_EFFICIENCY_STEPS
+        # executor_data_efficiency resumes the points kept under results/
+        rows = REPO / "results" / f"dataeff_rows_torch_{knobs.get('DEMO_EXE_STEPS')}.json"
+        rows.unlink(missing_ok=True)
+        with DemoEnv(workdir, name, knobs) as env:
+            t0 = time.perf_counter()
+            module.main()
+            torch.cuda.synchronize()
+            walls[name] = round(time.perf_counter() - t0, 1)
+        rows.unlink(missing_ok=True)
+        if saved_steps is not None:
+            module.STEPS = saved_steps
+        out = Path(env.env["DEMO_OUT"])
+        text = out.read_text() if out.exists() else ""
+        if hasattr(module, "BEGIN"):  # a marked section
+            wrote = module.BEGIN in text and module.END in text
+        elif name == "end_to_end":  # its whole report, when DEMO_OUT is set
+            wrote = text.startswith("# End-to-end demonstration")
+        else:  # data_efficiency prints its sweep only
+            wrote = "held-out program EM" in env.log.read_text()
+        if not wrote:
+            fail(f"phase 21.3 {name} wrote no section ({out}, {env.log})")
+    say(f"phase 21.3 every other demo once on the card at reduced sizes (sections under "
+        f"{workdir}): wall s {walls}; phase 21 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(workdir)
+    return matcher, {"demo_accuracy_table_d512": d512_counts, "executor_train_step": step_counts}
+
+
 def free_port() -> int:
     import socket
 
@@ -4332,6 +4771,7 @@ def dp_rank(rank: int, port: int, workdir: str) -> None:
         fused_encoder_block,
         fused_encoder_block_tiled,
     )
+    from explainable_spatial_vqa_tpu_torch.ops.matching import hungarian_assignment_device
     from explainable_spatial_vqa_tpu_torch.parallel import multihost
     from explainable_spatial_vqa_tpu_torch.parallel.mesh import make_mesh
     from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
@@ -4341,7 +4781,8 @@ def dp_rank(rank: int, port: int, workdir: str) -> None:
     dev = torch.device("cuda")
     multihost.initialize(f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
     mesh = make_mesh()
-    wrappers = (fused_attention, fused_encoder_block, fused_encoder_block_tiled)
+    wrappers = (fused_attention, fused_encoder_block, fused_encoder_block_tiled,
+                hungarian_assignment_device)
     report = {"rank": rank}
 
     exe_cfg, thresholds, feats_dev, _questions, chains = serving_inputs(torch, np, dev)

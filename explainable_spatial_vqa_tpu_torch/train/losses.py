@@ -7,9 +7,14 @@
   regression with confidence BCE (weight 5.0) + for token-branch rows a
   value-token CE (weight 1.0).  The matching cost is
   ``5·L1 + 2·(1−GIoU) − log s``, taken without autograd; the assignment is
-  exact (``matcher="auto"``, ``"hungarian"`` or ``"hungarian_jax"``: scipy on
-  the host, :func:`~explainable_spatial_vqa_tpu_torch.ops.matching.hungarian_assignment`)
-  or Sinkhorn-relaxed on the device (``"sinkhorn"``).
+  exact on the tensors' device (``matcher="auto"`` or ``"hungarian_jax"``,
+  as JAX's ``losses.py:89-95`` maps them:
+  :func:`~explainable_spatial_vqa_tpu_torch.ops.matching.hungarian_assignment_device`,
+  the kernel ``csrc/hungarian.cu`` on the card, with JAX's ties), exact on
+  the host (``"hungarian"``: scipy,
+  :func:`~explainable_spatial_vqa_tpu_torch.ops.matching.hungarian_assignment`,
+  one copy to the host and a wait for the card) or Sinkhorn-relaxed on the
+  device (``"sinkhorn"``).
 
 Each loss that divides a sum by a count (``max(count, 1)``) divides by the
 global batch's count when the trainer runs data parallel
@@ -27,6 +32,7 @@ from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
 from explainable_spatial_vqa_tpu_torch.ops.matching import (
     box_giou,
     hungarian_assignment,
+    hungarian_assignment_device,
     pairwise_giou,
     pairwise_l1,
     sinkhorn_assignment,
@@ -78,7 +84,9 @@ def assign_targets(cost: torch.Tensor, target_box_mask: torch.Tensor,
                    config: ExecutorConfig) -> torch.Tensor:
     """(B, Q) int64 target index per query, -1 = unmatched, by the
     configuration's matcher."""
-    if config.matcher in EXACT_MATCHERS:
+    if config.matcher in ("auto", "hungarian_jax"):
+        return hungarian_assignment_device(cost, target_box_mask)
+    if config.matcher == "hungarian":
         return hungarian_assignment(cost, target_box_mask)
     if config.matcher != "sinkhorn":
         raise ValueError(f"unknown matcher {config.matcher!r}; have {EXACT_MATCHERS + ('sinkhorn',)}")

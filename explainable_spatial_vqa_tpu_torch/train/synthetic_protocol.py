@@ -7,7 +7,7 @@ training, the executor's set-loss training (optionally warm-started for
 fine-tuning), and the full generate -> parse -> chained-execute -> tally
 evaluation.  They run the port's production components
 (:class:`ProgramGenerator`, :class:`ProgramExecutor`, ``executor_set_loss``
-with the host matcher, :class:`ExecutorChainRunner`,
+with the device matcher (``matcher="auto"``), :class:`ExecutorChainRunner`,
 :class:`InferencePipeline`); only the corpus is synthetic.
 
 As in the JAX package: the models are float32; each trainer draws its

@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package (the modules of the
-last slice, the native engine, lowp, parallel/ and the profiler, included),
+last slice, the native engine, lowp, parallel/ and the profiler, and the
+demos of demos/ included),
 and its entry points
 (the CLI, the evaluation functions and the feature extractor included) run on
 the card unless asked for the CPU; no module imports h5py, PIL or matplotlib
@@ -43,7 +44,12 @@ CHECK = textwrap.dedent("""
                  "vision.extract", "vision.resnet", "core.reshape", "core.artifacts",
                  "utils", "utils.logging", "utils.plots", "utils.visualize", "cli.repro",
                  "clevr.native", "ops.lowp", "parallel", "parallel.mesh", "parallel.multihost",
-                 "parallel.sharding", "utils.profiling"):
+                 "parallel.sharding", "utils.profiling", "ops.matching", "demos",
+                 "demos.common", "demos.accuracy_table", "demos.end_to_end",
+                 "demos.data_efficiency", "demos.executor_data_efficiency",
+                 "demos.scheduled_sampling", "demos.scheduled_stats",
+                 "demos.scheduled_at_scale", "demos.diag_box_roi", "demos.diag_roi_sim",
+                 "demos.diag_count_embed"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
@@ -118,6 +124,8 @@ CHECK = textwrap.dedent("""
     needs_cpu_named(lambda: main(["extract-features", "--input_image_dir", ".",
                                   "--output_h5_file", "features.h5"]))
     needs_cpu_named(lambda: main(["repro-clevr", "--clevr_root", ".", "--workdir", "w"]))
+    for demo in ("accuracy_table", "end_to_end", "diag_box_roi"):
+        needs_cpu_named(importlib.import_module(pkg.__name__ + ".demos." + demo).main)
     print("ok", len(names))
 """)
 
