@@ -167,12 +167,21 @@ result:
     batch; 21.3 ``demos.accuracy_table`` at d_model 512 (K2 and K1 in its
     chain runs, one matcher launch per executor step) with its section
     printed, its trained executor's float32 predicted-chain decisions card
-    vs CPU, and every other demo of ``demos/`` once at a reduced size.
+    vs CPU, and every other demo of ``demos/`` once at a reduced size;
+22. the measurement drivers (``measurement_drivers``), in this process: the
+    port bench (``python -m explainable_spatial_vqa_tpu_torch.bench``) in the
+    ``pool`` and ``sorted`` modes at ``BENCH_N`` 1024 (the sorted run's
+    float32 baseline on 8 questions, ``BENCH_BASELINE_N``), then
+    ``measure.profile_pipeline``, ``profile_segments``,
+    ``mfu_decomposition`` and ``roofline_step`` at their defaults, each
+    driver's output printed; each last line parses with its driver's keys,
+    times are finite and positive, 0 < MFU <= 1, no program is truncated,
+    and K1 and K2 launch in each bench run and K3 in none.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
 (the matcher's: phase 21.3's accuracy table) and, under
-``launches_by_path``, on phases 14-21's paths; K2's entry also holds its
+``launches_by_path``, on phases 14-22's paths; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
 ``at_shapes``) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
@@ -199,19 +208,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: tensor-core bf16 and TF32, HBM3.  A
-# float32 dot product's least time is its 3xTF32 form's (three TF32 products
-# for each, at 495 TFLOP/s, keep float32's accuracy, as the attention kernels
-# show), not the CUDA cores' 67 TFLOP/s: see dot_ops.
-PEAK_OPS = {"bf16": 989e12, "tf32": 495e12,
-            "fp32": 67e12,  # float32 on the CUDA cores (the extractor's strict convolutions)
-            "fp64": 34e12}  # float64 on the CUDA cores (K3's exact q/k/v fix-up)
 # four K2 products at the fusion encoder's shape (B=128, L=210, d=512, ffn
 # 2048): name, N, K, ReLU, output type (bf16 for FFN1's hidden)
 K2_GEMMS = (("qkv", 1536, 512, False, "fp32"), ("out", 512, 512, False, "fp32"),
             ("ffn1", 2048, 512, True, "bf16"), ("ffn2", 512, 2048, False, "fp32"))
 GEMM_REL_TOL = 2e-5  # float32 GEMM outputs, of the largest |ref|
-PEAK_BYTES = 3.35e12
 
 # seeds of the blocks' inputs (block_inputs): bf16 on each, float32 on the
 # first.  K3 also takes (0, 1184), seed 0's stream from offset 1184: on it
@@ -291,10 +292,20 @@ def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def peaks():
+    """The H100 SXM's operations/s by type and HBM bytes/s, from the package
+    (``device.PEAK_OPS``, ``device.PEAK_BYTES``).  A float32 dot product's
+    least time is its 3xTF32 form's: see ``dot_ops``."""
+    from explainable_spatial_vqa_tpu_torch.device import PEAK_BYTES, PEAK_OPS
+
+    return PEAK_OPS, PEAK_BYTES
+
+
 def bound_ms(ops: dict, nbytes: float):
     """The larger of the operations' time (each type's count, {"bf16": n, ...},
     over that type's peak rate, summed) and the bytes over the memory rate, in
     ms, and which of the two it is."""
+    PEAK_OPS, PEAK_BYTES = peaks()
     t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items()) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -309,7 +320,7 @@ def dot_ops(kind: str, n: float) -> dict:
 
 def dot_text(kind: str, n: float) -> str:
     """How ``dot_ops`` counts ``n`` operations of ``kind``, and their time."""
-    ms = sum(c / PEAK_OPS[k] for k, c in dot_ops(kind, n).items()) * 1e3
+    ms = sum(c / peaks()[0][k] for k, c in dot_ops(kind, n).items()) * 1e3
     how = "in 3xTF32 (3 x at the TF32 rate)" if kind == "fp32" else f"at the {kind} rate"
     return f"{how} {ms:.4f} ms"
 
@@ -484,7 +495,7 @@ def k3_qkv_times(torch, a, w, near_share: float) -> None:
         f"compensated sums in float32 {comp:.4f} ms, uncompensated in float32 {plain:.4f} ms, "
         f"torch.matmul bf16 {lib:.4f} ms; bound {bnd:.4f} ms ({by}; the fix-up's "
         f"{fixup / 1e9:.3f} GFLOP of float64 dot products for {near_share:.2e} of the outputs "
-        f"{fixup / PEAK_OPS['fp64'] * 1e3:.4f} ms of it)")
+        f"{fixup / peaks()[0]['fp64'] * 1e3:.4f} ms of it)")
 
 
 def compensated_sums(torch, a, w) -> dict:
@@ -1426,6 +1437,7 @@ def main_path(torch, np, dev, results, parts) -> None:
                **last_slice(torch, np, dev, counted, results)}
     matcher, demo_paths = demos(torch, np, dev, counted)
     by_path.update(demo_paths)
+    by_path.update(measurement_drivers(torch, counted))
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
 
@@ -4735,6 +4747,135 @@ def demos(torch, np, dev, counted) -> tuple:
         f"{time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(workdir)
     return matcher, {"demo_accuracy_table_d512": d512_counts, "executor_train_step": step_counts}
+
+
+# phase 22: the measurement drivers at their defaults (bench.py's widths,
+# BENCH_N 1024), but the sorted bench's float32 batch-1 baseline: the pool's
+# runs bench.py's 32 questions (~26 s on the chip host's CPU at ~2.5
+# questions/s), the sorted one the same loop on 8
+BENCH_BASELINE_N = {"pool": 32, "sorted": 8}
+
+
+def captured_main(main, argv, knobs: dict, label: str, counted):
+    """``main(argv)`` with the environment ``knobs`` set and its launches
+    counted; its standard output printed after it, each line prefixed with
+    ``label``, whether it returns or raises.  Returns (its value, its
+    launches, its last printed line)."""
+    import io
+
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            value, counts = counted(lambda: main(argv))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for line in out.getvalue().splitlines():
+            say(f"{label} | {line}")
+    lines = out.getvalue().strip().splitlines()
+    return value, counts, lines[-1] if lines else ""
+
+
+def finite_positive(*values) -> bool:
+    return all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in values)
+
+
+def measurement_drivers(torch, counted) -> dict:
+    """Phase 22: the port bench (``bench.main``) in the ``pool`` and
+    ``sorted`` modes at ``BENCH_N`` 1024 (the baseline's size from
+    ``BENCH_BASELINE_N``), then each driver of ``measure/`` at its defaults,
+    all in this process, each driver's output printed with a prefix.  Each
+    last line must parse as JSON with its driver's ``KEYS`` (the JAX
+    counterpart's, pinned by the CPU tests) and equal what ``main``
+    returned; every time finite and positive; 0 < each MFU <= 1; no
+    truncated program; K1 and K2 launched in each bench run and K3 in none.
+    Returns the launches of each run, by path."""
+    from explainable_spatial_vqa_tpu_torch import bench
+    from explainable_spatial_vqa_tpu_torch.measure import (
+        mfu_decomposition,
+        profile_pipeline,
+        profile_segments,
+        roofline_step,
+    )
+
+    t_phase = time.perf_counter()
+    by_path, results = {}, {}
+    for mode in ("pool", "sorted"):
+        knobs = {"BENCH_N": "1024", "BENCH_MODE": mode,
+                 "BENCH_BASELINE_N": str(BENCH_BASELINE_N[mode])}
+        if BENCH_BASELINE_N[mode] != 32:
+            say(f"phase 22 bench {mode}: BENCH_BASELINE_N {BENCH_BASELINE_N[mode]} (bench.py's "
+                f"default 32; the pool's run takes the default)")
+        t0 = time.perf_counter()
+        results[f"bench_{mode}"], by_path[f"bench_{mode}"], last = captured_main(
+            bench.main, [], knobs, f"phase 22 bench {mode}", counted)
+        say(f"phase 22 bench {mode}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{by_path[f'bench_{mode}']}")
+        results[f"bench_{mode}_line"] = last
+    drivers = (("profile_pipeline", profile_pipeline, []),
+               ("profile_segments", profile_segments, []),
+               ("mfu_decomposition", mfu_decomposition, []),
+               ("roofline_step", roofline_step, []))
+    for name, module, argv in drivers:
+        t0 = time.perf_counter()
+        results[name], by_path[name], results[f"{name}_line"] = captured_main(
+            module.main, argv, {}, f"phase 22 {name}", counted)
+        say(f"phase 22 {name}: {time.perf_counter() - t0:.1f} s, launches {by_path[name]}")
+        torch.cuda.empty_cache()
+
+    def parses(name, keys):
+        try:
+            line = json.loads(results[f"{name}_line"])
+        except ValueError:
+            return False
+        return line == results[name] and set(line) == set(keys)
+
+    pool, sorted_, pipe, seg, mfu, roof = (results[k] for k in (
+        "bench_pool", "bench_sorted", "profile_pipeline", "profile_segments",
+        "mfu_decomposition", "roofline_step"))
+    checks = {
+        "every last line parses with its driver's keys": all(
+            parses(f"bench_{m}", bench.KEYS) for m in ("pool", "sorted")) and all(
+            parses(name, module.KEYS) for name, module, _ in drivers),
+        "no truncated program": pool["truncated_programs"] == sorted_["truncated_programs"] == 0,
+        "the bench's rates finite and positive": all(finite_positive(
+            r["value"], r["vs_baseline"], r["baseline_qps"], r["gflops_per_question"])
+            for r in (pool, sorted_)),
+        "0 < mfu <= 1": all(0 < r <= 1 for r in (
+            pool["mfu"], sorted_["mfu"], seg["fwd_mfu_default"], seg["fwd_mfu_lowp"],
+            mfu["measured_e2e_mfu"], mfu["mfu_step_executed"])),
+        "K1 and K2 launched in each bench run, K3 in none": all(
+            by_path[f"bench_{m}"]["fused_attention"] > 0
+            and by_path[f"bench_{m}"]["fused_encoder_block"] > 0
+            and by_path[f"bench_{m}"]["fused_encoder_block_tiled"] == 0
+            for m in ("pool", "sorted")),
+        "the pipeline profile's times finite and positive": finite_positive(
+            *(pipe[k] for k in ("generator_ms", "executor_forward_ms", "chain_ms",
+                                "questions_per_s"))),
+        "the segment profile's times finite and positive": finite_positive(
+            seg["dispatch_ms"], seg["generator_ms"], *seg["chain_ms"].values(),
+            *seg["fwd_ms"].values()),
+        "the MFU factors' times finite and positive, their product the measured MFU": (
+            finite_positive(mfu["t_generator_s"], mfu["t_chain_s"], mfu["t_total_s"])
+            and math.isclose(mfu["predicted_e2e_mfu_product"], mfu["measured_e2e_mfu"],
+                             rel_tol=1e-9)),
+        "the roofline's times finite and positive": finite_positive(
+            roof["composite_bound_ms"], roof["composite_bound_k2_ms"], roof["measured_step_ms"],
+            *(c["ms_per_step"] for c in roof["classes"]), *roof["k2_gemm_ms"].values()),
+    }
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"phase 22 check failed: {name}")
+    say(f"phase 22 measurement drivers: pool {pool['value']} and sorted {sorted_['value']} "
+        f"questions/s, mfu {pool['mfu']} and {sorted_['mfu']}, vs_baseline "
+        f"{pool['vs_baseline']} and {sorted_['vs_baseline']}; phase 22 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return by_path
 
 
 def free_port() -> int:

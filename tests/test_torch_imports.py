@@ -1,6 +1,6 @@
 """The port imports neither JAX nor the JAX package (the modules of the
-last slice, the native engine, lowp, parallel/ and the profiler, and the
-demos of demos/ included),
+last slice, the native engine, lowp, parallel/ and the profiler, the
+demos of demos/, the bench and the drivers of measure/ included),
 and its entry points
 (the CLI, the evaluation functions and the feature extractor included) run on
 the card unless asked for the CPU; no module imports h5py, PIL or matplotlib
@@ -49,7 +49,9 @@ CHECK = textwrap.dedent("""
                  "demos.data_efficiency", "demos.executor_data_efficiency",
                  "demos.scheduled_sampling", "demos.scheduled_stats",
                  "demos.scheduled_at_scale", "demos.diag_box_roi", "demos.diag_roi_sim",
-                 "demos.diag_count_embed"):
+                 "demos.diag_count_embed", "bench", "measure", "measure.profile_pipeline",
+                 "measure.profile_segments", "measure.mfu_decomposition",
+                 "measure.roofline_step"):
         assert pkg.__name__ + "." + name in names, name
     import torch
     assert not torch.cuda.is_available()
@@ -126,6 +128,9 @@ CHECK = textwrap.dedent("""
     needs_cpu_named(lambda: main(["repro-clevr", "--clevr_root", ".", "--workdir", "w"]))
     for demo in ("accuracy_table", "end_to_end", "diag_box_roi"):
         needs_cpu_named(importlib.import_module(pkg.__name__ + ".demos." + demo).main)
+    for driver in ("bench", "measure.profile_pipeline", "measure.profile_segments",
+                   "measure.mfu_decomposition", "measure.roofline_step"):
+        needs_cpu_named(lambda: importlib.import_module(pkg.__name__ + "." + driver).main([]))
     print("ok", len(names))
 """)
 
