@@ -14,7 +14,9 @@ result:
    ``nvcc`` into ``explainable_spatial_vqa_tpu_torch/_build/``; for each
    kernel function its registers and spills (ptxas) and its HGMMA (wgmma)
    and HMMA (mma.sync) instructions (``cuobjdump -sass``): the attention
-   kernels must hold HMMA, the block GEMM HGMMA;
+   kernels must hold HMMA, the block GEMM HGMMA in bf16 and in float32
+   (``gemm_tf32_wgmma``, 3xTF32), and ptxas's notes on serialized wgmma are
+   printed;
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
    float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
    outputs are held by ``attention_agreement`` (against float64 scores and
@@ -25,7 +27,9 @@ result:
    it misses a draw; the other's verdict is printed), both timed through the
    same call, by events and by the kernel's device time; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
-   GEMM alone (``block_gemm``) at K2's four product shapes; K2 at the fusion
+   GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
+   float32 (3xTF32), with a negative control for the float32 tolerance (one
+   TF32 pass, ``torch.matmul`` with TF32 on, must miss it); K2 at the fusion
    encoder's shape on the draws ``BLOCK_DRAWS``; K3 at the block bench's
    (L=224, ``batch_tile=2, ffn_chunks=2``) on ``K3_DRAWS``.  In bf16, every
    element and the mean error are held (``bf16_agreement``), and each block
@@ -198,6 +202,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -244,7 +249,7 @@ SCORE_ROUNDS = 10  # alternating timing rounds of the two bf16 score forms
 COGENT_FLAGSHIP = dict(d_model=192, encoder_layers=3, box_roi=True, lr_schedule="cosine")
 COGENT_KERNEL_PATH = dict(d_model=512, encoder_layers=2, box_roi=True, lr_schedule="cosine",
                           gen_steps=100, exe_steps=100, ft_steps=30)
-OUR_KERNELS = ("attention_kernel", "gemm_bf16_wgmma", "gemm_f32_simt", "add_layernorm")
+OUR_KERNELS = ("attention_kernel", "gemm_bf16_wgmma", "gemm_tf32_wgmma", "add_layernorm")
 # phase 17: the baselines on the CLEVR factory's questions (4 per scene)
 BASELINE_SCENES = 128
 BASELINE_IMAGE = (196, 1024)  # image tokens and features of the presets' models
@@ -273,8 +278,20 @@ def fail(message: str) -> None:
     sys.exit(1)
 
 
+# K2 launches with float32 weights on the main path, by phase: main_path
+# counts them on the model's reference to the wrapper into "pending", and
+# ``say`` puts them down to the next phase that prints (a phase prints after
+# its work)
+FP32_K2 = {"pending": 0, "by_phase": {}}
+
+
 def say(message: str) -> None:
     print(message, flush=True)
+    found = re.match(r"phase (\d+)", message)
+    if found and FP32_K2["pending"]:
+        phase = int(found.group(1))
+        FP32_K2["by_phase"][phase] = FP32_K2["by_phase"].get(phase, 0) + FP32_K2["pending"]
+        FP32_K2["pending"] = 0
 
 
 def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -452,7 +469,8 @@ def k3_qkv(torch, x, keep, w, heads) -> dict:
     rows, ffn, wdt = batch * length, w.ffn1.shape[0], w.qkv.dtype
     scratch = fused_block.block_scratch(x, w, tiled=True, ffn_chunks=K3_TILING["ffn_chunks"])
     out = fused_block._launch(
-        fused_block.fused_encoder_block_tiled, "esv_encoder_block_tiled", x, keep, w, scratch,
+        fused_block.fused_encoder_block_tiled, "esv_encoder_block_tiled", x, keep, w, None,
+        scratch,
         (batch, length, d, heads, ffn, K3_TILING["ffn_chunks"], DTYPE_CODES[x.dtype],
          DTYPE_CODES[wdt]))
     xr = x.reshape(rows, d)
@@ -714,6 +732,7 @@ def main() -> None:
         fused_encoder_block_plain,
         fused_encoder_block_tiled,
         fused_encoder_block_tiled_plain,
+        split_block_weights,
     )
 
     dev = torch.device("cuda")
@@ -738,11 +757,19 @@ def main() -> None:
     for name, k in sorted(kernels.items()):
         say(f"phase 2 kernel {k['short']}: {k['registers']} registers, {k['spill']} bytes "
             f"spilled, SASS {k['HGMMA']} HGMMA (wgmma) and {k['HMMA']} HMMA (mma.sync)")
+    tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
+    say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
+    for name in libs:  # ptxas notes a wgmma it had to wait on before the next
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "wgmma" in line and "serialized" in line:
+                say(f"phase 2 ptxas ({name}): {line.strip()}")
     tensor_core_checks = {
         "every attention kernel runs HMMA": all(
             k["HMMA"] > 0 for n, k in kernels.items() if "attention_kernel" in n),
         "every wgmma GEMM runs HGMMA": all(
             k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_bf16_wgmma" in n),
+        "every float32 GEMM runs HGMMA": bool(tf32_gemms) and all(
+            k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_tf32_wgmma" in n),
         "both are built": (any("attention_kernel" in n for n in kernels)
                            and any("gemm_bf16_wgmma" in n for n in kernels)),
     }
@@ -821,8 +848,8 @@ def main() -> None:
     # control, the other kernel's plain version: K3's arithmetic rounds q, k
     # and v to bf16 after the bias, K2's keeps them float32; the check must
     # see the difference.
-    def k3(x, keep, w, h):
-        return fused_encoder_block_tiled(x, keep, w, h, **K3_TILING)
+    def k3(x, keep, w, h, split=None):
+        return fused_encoder_block_tiled(x, keep, w, h, **K3_TILING, split=split)
 
     def k3_plain(x, keep, w, h):
         return fused_encoder_block_tiled_plain(x, keep, w, h, **K3_TILING)
@@ -839,7 +866,8 @@ def main() -> None:
         for dtype in (torch.bfloat16, torch.float32):
             for draw in draws if dtype == torch.bfloat16 else draws[:1]:
                 keep, w, x = block_inputs(torch, dev, draw, length, dtype)
-                out = kernel(x, keep, w, h)
+                # float32 weights' split, made once as the model keeps it
+                out = kernel(x, keep, w, h, split=split_block_weights(w))
                 ref = plain_fn(x, keep, w, h)
                 torch.cuda.synchronize()
                 if draw == draws[0]:
@@ -884,6 +912,7 @@ def main() -> None:
                         fail(f"{key} with float32 x disagrees with its plain version")
                     del x32
             keep, w, x = block_inputs(torch, dev, draws[0], length, dtype)
+            split = split_block_weights(w)
             ref = plain_fn(x, keep, w, h)
             layer = library_layer(torch, w, d, h, ffn, dtype)
             pad = ~keep
@@ -896,7 +925,7 @@ def main() -> None:
             lib_err = (bf16_text(bf16_agreement(torch, lib_out, ref)) if dtype == torch.bfloat16
                        else f"max_abs_err {float((lib_out - ref).abs().max()):.3g}")
             del lib_out
-            ms = timed_ms(torch, lambda: kernel(x, keep, w, h), iters=10)
+            ms = timed_ms(torch, lambda: kernel(x, keep, w, h, split=split), iters=10)
             plain = timed_ms(torch, lambda: plain_fn(x, keep, w, h), iters=10)
             lib = timed_ms(torch, library, iters=10)
             esize = 2 if dtype == torch.bfloat16 else 4
@@ -921,7 +950,7 @@ def main() -> None:
                 f"{(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
             results[f"{key}_{names[dtype]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                     bound_ms=bnd, bound_by=by, library_ms=lib)
-            del layer, x, out, ref, w
+            del layer, x, out, ref, w, split
     k2_at_iqap_shape(torch, dev, results)
     k2_at_iqap_shape(torch, dev, results, K2_HIER_SHAPE, "K2_bf16_hier",
                      "HierarchicalGenerator's encoder shape")
@@ -1084,7 +1113,8 @@ def k2_gemms(torch, dev, randn, parts) -> None:
     plain version (float32 sums, TF32 off; float32 outputs within
     ``GEMM_REL_TOL`` of the largest |ref|, sums of up to 2048 products taken
     in another order; bf16 outputs by ``bf16_agreement``), then timed beside
-    ``torch.matmul`` in bf16 and the bound."""
+    ``torch.matmul`` in bf16 and the bound.  Then the same four with float32
+    operands (``k2_gemms_fp32``)."""
     from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm, block_gemm_plain
 
     rows = SLOTS * 210
@@ -1126,6 +1156,69 @@ def k2_gemms(torch, dev, randn, parts) -> None:
                           bound_ms=bnd, bound_by=by, library_ms=lib))
         del a, w, out, ref
     say(f"phase 4 block_gemm: K2's four products {total:.4f} ms together")
+    k2_gemms_fp32(torch, randn, parts)
+
+
+def k2_gemms_fp32(torch, randn, parts) -> None:
+    """Phases 3-4 for the block GEMM at K2's four product shapes with float32
+    a and w, as K2 runs them with float32 weights (3xTF32, every output
+    float32, the weights split once as the model keeps them): each within
+    ``GEMM_REL_TOL`` of the largest |ref| of the plain version (float32 sums,
+    TF32 off), timed beside ``torch.matmul`` in float32 with TF32 off and
+    the bound (``dot_ops``: three TF32 products a term).  Negative control:
+    the same product in one TF32 pass (``torch.matmul`` with
+    ``allow_tf32``, restored after) must miss ``GEMM_REL_TOL``, or the
+    tolerance could not tell 3xTF32 from TF32."""
+    from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm, block_gemm_plain
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import split_tf32
+
+    rows = SLOTS * 210
+    total = 0.0
+    for name, n, k, relu, _ in K2_GEMMS:
+        a = randn(rows, k)
+        w = randn(n, k, scale=k ** -0.5)
+        bias = randn(n, scale=0.02)
+        split = split_tf32(w)
+        out = block_gemm(a, w, bias, relu, split=split)
+        ref = block_gemm_plain(a, w, bias, relu)
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_pass = torch.matmul(a, w.t()) + bias
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+        one_pass = torch.relu(one_pass) if relu else one_pass
+        torch.cuda.synchronize()
+        top = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        rel, control = err / top, float((one_pass - ref).abs().max()) / top
+        shape = f"{rows}x{n}x{k}{' ReLU' if relu else ''} -> fp32"
+        say(f"phase 3 block_gemm {name} fp32 (3xTF32) {shape}: max_abs_err {err:.3g}, {rel:.3g} "
+            f"of max|ref| (tol {GEMM_REL_TOL}); negative control, one TF32 pass "
+            f"(torch.matmul, allow_tf32): {control:.3g} of max|ref|: "
+            f"{'passes' if control <= GEMM_REL_TOL else 'fails'}")
+        if not rel <= GEMM_REL_TOL:
+            fail(f"block_gemm {name} in float32 disagrees with its plain version")
+        if control <= GEMM_REL_TOL:
+            fail("the float32 GEMM tolerance cannot tell 3xTF32 from one TF32 pass")
+        del one_pass
+        ms = timed_ms(torch, lambda: block_gemm(a, w, bias, relu, split=split))
+        plain = timed_ms(torch, lambda: block_gemm_plain(a, w, bias, relu), iters=5)
+        lib = timed_ms(torch, lambda: torch.matmul(a, w.t()))
+        flops = 2.0 * rows * n * k
+        bnd, by = bound_ms(dot_ops("fp32", flops), (rows * k + n * k + n + rows * n) * 4)
+        total += ms
+        say(f"phase 4 block_gemm {name} fp32 (3xTF32) {shape}: kernel {ms:.4f} ms = "
+            f"{flops / ms / 1e9:.1f} TFLOP/s useful, {3 * flops / ms / 1e9:.1f} at the TF32 "
+            f"rate (of 495), plain {plain:.4f} ms, torch.matmul fp32 (TF32 off) {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
+        parts.append(dict(name=f"block_gemm_{name}_fp32", route="cuda",
+                          source="explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
+                          replaces="explainable_spatial_vqa_tpu/ops/pallas_block.py:126",
+                          inside="fused_encoder_block", max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bnd, bound_by=by, library_ms=lib))
+        del a, w, split, out, ref
+    say(f"phase 4 block_gemm fp32: K2's four products {total:.4f} ms together")
 
 
 def main_path(torch, np, dev, results, parts) -> None:
@@ -1140,6 +1233,7 @@ def main_path(torch, np, dev, results, parts) -> None:
         programs_to_chains,
     )
     from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models import layers
     from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
@@ -1151,6 +1245,16 @@ def main_path(torch, np, dev, results, parts) -> None:
 
     wrappers = {w.__name__: w for w in (fused_attention, fused_encoder_block,
                                         fused_encoder_block_tiled, hungarian_assignment_device)}
+
+    def k2_observed(x, mask, weights, num_heads, **options):
+        """The model's K2 call, its float32 launches noted in FP32_K2."""
+        before = fused_encoder_block.launches
+        out = fused_encoder_block(x, mask, weights, num_heads, **options)
+        if weights.qkv.dtype == torch.float32:
+            FP32_K2["pending"] += fused_encoder_block.launches - before
+        return out
+
+    layers.fused_encoder_block = k2_observed
 
     def counted(fn):
         """``fn()`` with every launch count set to 0 just before it, and the
@@ -1440,6 +1544,10 @@ def main_path(torch, np, dev, results, parts) -> None:
     by_path.update(measurement_drivers(torch, counted))
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
+    layers.fused_encoder_block = fused_encoder_block
+    fp32_k2 = dict(sorted(FP32_K2["by_phase"].items()))
+    say(f"K2 launches with float32 weights (3xTF32 products) on the main path, by phase: "
+        f"{fp32_k2}, {sum(fp32_k2.values())} in all")
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -1458,6 +1566,7 @@ def main_path(torch, np, dev, results, parts) -> None:
                for name, src, rep, key, counts in sources]
     kernels[1]["at_shapes"] = {"iqap_encoder_d512": results["K2_bf16_iqap"],
                                "hierarchical_encoder_d512": results["K2_bf16_hier"]}
+    kernels[1]["launches_fp32_by_phase"] = fp32_k2
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -45,9 +45,12 @@
 //       twice, float32 for the residual and bf16 for FFN1 (x1.astype(w_dtype)
 //       in the TPU kernel).  A float32 x with bf16 weights (a combination
 //       the wrappers accept) is rounded to bf16 by one pass into the x1w
-//       scratch for the QKV product; with float32
-//       weights the product runs in float32 on the CUDA cores
-//       (gemm_f32_simt), so the float32 path is not rounded to TF32.
+//       scratch for the QKV product.  With float32 weights every product
+//       is gemm_tf32_wgmma, 3xTF32 on the tensor cores (see "float32 A and
+//       W" below): not rounded to TF32 once, but each operand split into
+//       two TF32 parts, which carries ~2^-22 |x| of error per operand, as
+//       K2's float32 attention does; a bf16 x with float32 weights is
+//       widened to float32 into the x1 scratch first.
 //       For K3's QKV product, whose float32 sums are rounded to bf16 next,
 //       each 32-deep slice is summed by the tensor cores into a fresh
 //       accumulator (wgmma with scale-d 0) and the slices are added with
@@ -77,17 +80,23 @@
 //                               B, L, d, H, ffn, ffn_chunks, x_dtype, w_dtype, stream)
 //   int esv_block_gemm(A, W, bias, C, absmax, M, N, K, a_dtype, w_dtype, c_dtype, relu,
 //                      compensated, stream)
-// Weights are row-major (out_features, in_features) in w_dtype; biases and
-// LayerNorm parameters float32; mask a (B, L) float32 key mask or null.
+// Weights are row-major (out_features, in_features) in w_dtype; with float32
+// weights each matrix (N, K) is passed as its TF32 split, a (2N, K) float32
+// array whose rows [0, N) hold the hi parts and [N, 2N) the lo parts
+// (split_tf32's rule, computed once by ops/fused_block.py:split_tf32).
+// Biases and LayerNorm parameters float32; mask a (B, L) float32 key mask or
+// null.
 // Scratch: proj and x1 (B*L, d) float32; attn (B*L, d) and x1w (B*L, d) in
 // w_dtype (x1w, x1 rounded to bf16 and, before LN1, a float32 x rounded to
-// bf16, is null with float32 weights); qkv (B*L, 3d) float32 for K2, in
+// bf16, is null with float32 weights; before LN1 x1 holds a bf16 x widened
+// for float32 weights); qkv (B*L, 3d) float32 for K2, in
 // w_dtype for K3; hidden (B*L, ffn) in w_dtype for K2, (B*L/ffn_chunks, ffn)
 // for K3.  out is (B, L, d) in x_dtype.
 // esv_block_gemm computes C = act(A W^T + bias), A (M, K), W (N, K), C (M, N)
-// in c_dtype, relu 0 or 1: the block's product alone.  With bf16 weights A
-// is bf16 too, and the bases must be 16-byte aligned, K % 8 == 0 and
-// N % 8 == 0 (TMA's rules).  compensated 1 (bf16 weights only) takes K3's
+// in c_dtype, relu 0 or 1: the block's product alone.  A is in the weights'
+// type, W is (N, K) bf16 or, with float32 weights, the (2N, K) split; the
+// bases must be 16-byte aligned and K and N multiples of 8 (bf16) or 4
+// (float32): TMA's rules.  compensated 1 (bf16 weights only) takes K3's
 // QKV product: compensated sums, and with a bf16 C the correctly rounded
 // ones, with absmax (M + N floats and ceil(M N / 32) words) as scratch;
 // absmax is null otherwise.
@@ -513,11 +522,14 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-static cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int rows, int K) {
+// A (rows, K) row-major matrix of bf16 (elem 2) or float32 (elem 4) elements,
+// read in boxes of one 128-byte row (64 bf16 or 32 floats) by kGemmBM rows
+// (kGemmBN rows of W, the same), swizzled 128B.
+static cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int K, int elem) {
   static std::mutex lock;
-  static std::map<std::tuple<uintptr_t, int, int>, std::array<uint64_t, 16>> cache;
+  static std::map<std::tuple<uintptr_t, int, int, int>, std::array<uint64_t, 16>> cache;
   static_assert(sizeof(CUtensorMap) == sizeof(std::array<uint64_t, 16>), "tensor map size");
-  const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(base), rows, K);
+  const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(base), rows, K, elem);
   std::lock_guard<std::mutex> guard(lock);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
@@ -527,12 +539,13 @@ static cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int rows, int 
   const auto encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
-  cuuint32_t box[2] = {kGemmBK, kGemmBM};  // kGemmBN rows of W, the same
+  cuuint64_t strides[1] = {(cuuint64_t)K * elem};
+  cuuint32_t box[2] = {(cuuint32_t)(128 / elem), kGemmBM};
   cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
-             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      encode(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<void*>(base), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   if (cache.size() >= 1024) cache.clear();
@@ -554,7 +567,7 @@ cudaError_t gemm_wgmma(const bf16* A, const bf16* W, const float* bias, TC* C, i
     return cudaErrorMisalignedAddress;
   alignas(64) CUtensorMap ta, tw;
   cudaError_t err;
-  if ((err = tensor_map(&ta, A, M, K)) || (err = tensor_map(&tw, W, N, K))) return err;
+  if ((err = tensor_map(&ta, A, M, K, 2)) || (err = tensor_map(&tw, W, N, K, 2))) return err;
   const auto kernel = gemm_bf16_wgmma<TC, kRelu, kCompensated>;
   static int sms[kMaxDevices];
   int dev;
@@ -589,76 +602,249 @@ cudaError_t gemm_wgmma(const bf16* A, const bf16* W, const float* bias, TC* C, i
   return cudaGetLastError();
 }
 
-// -- float32 A with bf16 W: A rounded to bf16 first, into scratch --
-// TMA reads A as it lies in memory, so a float32 left operand (x in float32
-// for the QKV product, a combination the wrappers accept) is rounded to bf16
-// by this pass, as the product rounds it anyway, and then takes the wgmma path.
-__global__ void round_to_bf16(const float* __restrict__ src, bf16* __restrict__ dst,
-                              long long n) {
+// -- an operand in another type than the product's, converted into scratch --
+// TMA reads an operand as it lies in memory, so a float32 x with bf16 weights
+// is rounded to bf16 by this pass (the product rounds it anyway), and a bf16
+// x with float32 weights is widened to float32 (exactly), before the QKV
+// product.
+template <typename TS, typename TD>
+__global__ void convert_elements(const TS* __restrict__ src, TD* __restrict__ dst, long long n) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
-    dst[i] = __float2bfloat16_rn(src[i]);
+    dst[i] = from_float<TD>(to_float(src[i]));
 }
 
-// -- float32 W: float32 FMAs on the CUDA cores --
-// 256 threads, each a 4x4 block of the 64x64 tile; K advances 16 at a time.
-// A and W tiles are stored k-major so a thread's four rows (columns) are
-// contiguous.
-constexpr int kTileM = 64, kTileN = 64, kSimtK = 16, kSimtThreads = 256;
+// -- float32 A and W: 3xTF32 wgmma fed by TMA --
+// Replaces the float32 products of explainable_spatial_vqa_tpu/ops/pallas_block.py
+// ::_block_kernel (:113) and ::_tiled_kernel (:197), jnp.dot(xc, w,
+// preferred_element_type=float32) with float32 xc and w.  Each operand x is
+// split as split_tf32 does (attention.cuh): hi, x rounded to TF32, and lo =
+// x - hi, of which the tensor cores read the top bits; the product is
+// a_lo w_hi + a_hi w_lo + a_hi w_hi (mma_3xtf32's order), ~2^-22 |x| of error
+// per operand and float32 sums.  Bound on the H100: three TF32 products at
+// 495 TFLOP/s, 2 M N K x 3 operations (0.35 ms for K2's four products at
+// B*L = 26,880, d = 512, ffn 2048), above the bytes at every block shape.
+//
+// The weights are static, so they are split once (ops/fused_block.py:
+// split_tf32, cached with the model's fused weights) into a (2N, K) array,
+// W_hi over W_lo, and TMA feeds both halves to wgmma's B operand straight
+// from shared memory.  The activations change every call: A's float32 slice
+// goes through shared memory into registers, where each consumer splits it
+// and issues wgmma with A from registers for the hi and lo parts.  Writing
+// A_hi and A_lo to device memory from the producing kernels would cost
+// FFN1's hidden alone ~0.9 GB of traffic a block at B = 128.
+//
+// Layout: the producer's ring as gemm_bf16_wgmma's, 4 stages of three 128 x
+// 32 float32 slices (A, W_hi, W_lo; one 128-byte swizzle row per tile row,
+// 48 KB a stage).  Each 32-deep slice is summed by the tensor cores into a
+// fresh accumulator (scale-d 0) and added to the running sum in float32:
+// the tensor cores' accumulation rounds more coarsely than float32
+// additions (see mma_3xtf32_add in attention.cuh), and summing all of K
+// there (~770 of those roundings in a row for K = 2048) puts K2's FFN2
+// product ~7x further from the plain version and saves a few percent of
+// its time at most (PERF.md §6, measure/gemm_variants.py).  The fresh
+// accumulator costs 64 registers a thread, so both consumer warpgroups take
+// every tile, 64 rows each (the compensated bf16 product's arrangement):
+// while one waits for its slice's products and adds them, the other's run.
+constexpr int kTf32BK = 32;                                // floats of a 128-byte row
+constexpr int kTf32Bytes = kGemmBM * kTf32BK * 4;          // one A, W_hi or W_lo slice
+constexpr int kTf32Smem = kGemmStages * 3 * kTf32Bytes + 2 * kGemmStages * 8 + 1024;
+static_assert(kGemmBM == kGemmBN, "A's and W's slices share one tensor-map box");
 
-template <typename TA, typename TC, bool kRelu>
-__global__ void __launch_bounds__(kSimtThreads) gemm_f32_simt(
-    const TA* __restrict__ A, const float* __restrict__ W, const float* __restrict__ bias,
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// d (+)= A[64 x 8] W[128 x 8]^T in TF32, A from registers (this thread's
+// fragment: rows g and g + 8 of its warp's 16, columns t and t + 4), W from
+// shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// One block per SM walks the 128x128 output tiles, n fastest; warpgroup 2's
+// first thread produces, warpgroups 0 and 1 consume rows 0-63 and 64-127 of
+// every tile.  tma_whi and tma_wlo map the two (N, K) halves of W's split.
+template <typename TC, bool kRelu>
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_tf32_wgmma(
+    const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_whi,
+    const __grid_constant__ CUtensorMap tma_wlo, const float* __restrict__ bias,
     TC* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[kSimtK][kTileM + 4];
-  __shared__ __align__(16) float Ws[kSimtK][kTileN + 4];
-  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lrow = tid / 4, lk = (tid % 4) * 4;  // loader: 4 elements of one row
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  const uint32_t a_ring = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const uint32_t hi_ring = a_ring + kGemmStages * kTf32Bytes;
+  const uint32_t lo_ring = hi_ring + kGemmStages * kTf32Bytes;
+  const uint32_t bars = lo_ring + kGemmStages * kTf32Bytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kGemmStages + s); };
+  const int tiles_n = (N + kGemmBN - 1) / kGemmBN;
+  const int tiles = (M + kGemmBM - 1) / kGemmBM * tiles_n;
+  const int kslices = (K + kTf32BK - 1) / kTf32BK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kSimtK) {
-    const int am = m0 + lrow, wnr = n0 + lrow;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int kk = k0 + lk + u;
-      As[lk + u][lrow] = (am < M && kk < K) ? to_float(A[(long long)am * K + kk]) : 0.f;
-      Ws[lk + u][lrow] = (wnr < N && kk < K) ? W[(long long)wnr * K + kk] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kGemmConsumers);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSimtK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (wg == kGemmConsumers) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kGemmBM, n0 = tile % tiles_n * kGemmBN;
+        for (int ks = 0; ks < kslices; ++ks) {
+          mbar_wait(empty(stage), phase ^ 1);
+          // out-of-bounds zeros count towards the bytes too
+          mbar_expect_tx(full(stage), 3 * kTf32Bytes);
+          tma_load_2d(a_ring + stage * kTf32Bytes, &tma_a, full(stage), ks * kTf32BK, m0);
+          tma_load_2d(hi_ring + stage * kTf32Bytes, &tma_whi, full(stage), ks * kTf32BK, n0);
+          tma_load_2d(lo_ring + stage * kTf32Bytes, &tma_wlo, full(stage), ks * kTf32BK, n0);
+          if (++stage == kGemmStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * kGemmBM, n0 = tile % tiles_n * kGemmBN;
+      float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      for (int ks = 0; ks < kslices; ++ks) {
+        mbar_wait(full(stage), phase);
+        // this thread's A elements: tile rows 64 wg + 16 warp + g + 8 r,
+        // columns 8 kk + t + 4 j, in 16-byte chunk (2 kk + j) ^ g of the row
+        // (the 128-byte swizzle; the rows are g modulo 8)
+        const uint32_t a_row =
+            a_ring + stage * kTf32Bytes + (64 * wg + 16 * warp + g) * 128 + 4 * t;
+        uint32_t hi[4][4], lo[4][4];  // [kk][2 j + r]
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (m < M && n < N) {
-        float val = acc[i][j] + bias[n];
-        if (kRelu) val = fmaxf(val, 0.f);
-        C[(long long)m * N + n] = from_float<TC>(val);
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              split_tf32(lds_f32(a_row + r * 8 * 128 + (((2 * kk + j) ^ g) << 4)),
+                         hi[kk][2 * j + r], lo[kk][2 * j + r]);
+        const uint32_t whi = hi_ring + stage * kTf32Bytes, wlo = lo_ring + stage * kTf32Bytes;
+        float part[64];
+        fence_operands(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_m64n128k8_tf32(part, lo[kk], sw128_desc(whi + 32 * kk), kk > 0 ? 1 : 0);
+          wgmma_m64n128k8_tf32(part, hi[kk], sw128_desc(wlo + 32 * kk), 1);
+          wgmma_m64n128k8_tf32(part, hi[kk], sw128_desc(whi + 32 * kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(part);
+        if (tid == 0) mbar_arrive(empty(stage));
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] += part[e];
+        if (++stage == kGemmStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // epilogue: acc[4j + 2r + e] is row 64 wg + 16 warp + g + 8r, column
+      // 8j + 2t + e
+      const int row = m0 + wg * 64 + warp * 16 + g;
+#pragma unroll
+      for (int j = 0; j < kGemmBN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col < N) {  // N % 4 == 0, so col + 1 < N too
+          const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (row + 8 * r < M) {
+              float v0 = acc[4 * j + 2 * r] + b0, v1 = acc[4 * j + 2 * r + 1] + b1;
+              if (kRelu) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+              store2(C + (long long)(row + 8 * r) * N + col, v0, v1);
+            }
+          }
+        }
       }
     }
   }
 }
 
-// kCompensated (bf16 weights only): each 32-deep slice summed by the tensor
-// cores apart and the slices added with Kahan's compensation, for products
-// whose float32 sums are rounded to bf16 next (K3's q, k, v); with a bf16 C
-// each element is rounded from the exact sum where the two could round
-// apart, with absmax (gemm_wgmma) as scratch.  bf16 weights take a bf16 A
-// (a float32 one is rounded by round_to_bf16 first).
+// W is the (2N, K) split: W_hi's rows, then W_lo's.  The SM count and the
+// kernel's shared-memory attribute are set once per device.
+template <typename TC, bool kRelu>
+cudaError_t gemm_tf32(const float* A, const float* W, const float* bias, TC* C, int M, int N,
+                      int K, cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  if (!aligned16(A) || !aligned16(W) || K % 4 || N % 4 ||
+      reinterpret_cast<uintptr_t>(C) % (2 * sizeof(TC)))
+    return cudaErrorMisalignedAddress;
+  alignas(64) CUtensorMap ta, thi, tlo;
+  cudaError_t err;
+  if ((err = tensor_map(&ta, A, M, K, 4)) || (err = tensor_map(&thi, W, N, K, 4)) ||
+      (err = tensor_map(&tlo, W + (long long)N * K, N, K, 4)))
+    return err;
+  const auto kernel = gemm_tf32_wgmma<TC, kRelu>;
+  static int sms[kMaxDevices];
+  int dev;
+  err = once_per_device<KernelSite<gemm_tf32_wgmma<TC, kRelu> > >(&dev, [&](int d) {
+    const cudaError_t e = cudaDeviceGetAttribute(&sms[d], cudaDevAttrMultiProcessorCount, d);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kTf32Smem);
+  });
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      (long long)((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
+  kernel<<<(int)std::min<long long>(tiles, sms[dev]), kGemmThreads, kTf32Smem, s>>>(
+      ta, thi, tlo, bias, C, M, N, K);
+  return cudaGetLastError();
+}
+
+// A in the weights' type: bf16 A and W take gemm_wgmma, float32 A and the
+// (2N, K) split of float32 W gemm_tf32.  kCompensated (bf16 weights only):
+// each 32-deep slice summed by the tensor cores apart and the slices added
+// with Kahan's compensation, for products whose float32 sums are rounded to
+// bf16 next (K3's q, k, v); with a bf16 C each element is rounded from the
+// exact sum where the two could round apart, with absmax (gemm_wgmma) as
+// scratch.  Float32 weights ignore it: their slices are added in float32.
 template <typename TA, typename TC, bool kRelu, bool kCompensated = false>
 cudaError_t gemm(const TA* A, const void* W, int w_dtype, const float* bias, TC* C, int M, int N,
                  int K, cudaStream_t s, float* absmax = nullptr) {
@@ -666,14 +852,11 @@ cudaError_t gemm(const TA* A, const void* W, int w_dtype, const float* bias, TC*
     if constexpr (std::is_same<TA, bf16>::value)
       return gemm_wgmma<TC, kRelu, kCompensated>(A, static_cast<const bf16*>(W), bias, C, M, N,
                                                  K, absmax, s);
-    else
-      return cudaErrorInvalidValue;
-  } else {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    gemm_f32_simt<TA, TC, kRelu>
-        <<<grid, kSimtThreads, 0, s>>>(A, static_cast<const float*>(W), bias, C, M, N, K);
+  } else if (w_dtype == kFloat32) {
+    if constexpr (std::is_same<TA, float>::value)
+      return gemm_tf32<TC, kRelu>(A, static_cast<const float*>(W), bias, C, M, N, K, s);
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 // ---- (c) out[m] = LN(res[m] + y[m]) * scale + bias, float32 statistics ----
@@ -720,17 +903,20 @@ cudaError_t layernorm(const TR* res, const float* y, const float* scale, const f
 
 // ---- the block ----
 
-// The QKV product, x W_qkv^T + b: with bf16 weights a float32 x is rounded
-// to bf16 into `spare` (the (B*L, d) x1w scratch, free until LN1) first.
-// absmax: the correctly rounded product's scratch (gemm), or null.
+// The QKV product, x W_qkv^T + b, with x in the weights' type: with bf16
+// weights a float32 x is rounded to bf16 into `spare` (the (B*L, d) x1w
+// scratch, free until LN1) first, with float32 weights a bf16 x is widened
+// into `spare32` (the x1 scratch, free until LN1).  absmax: the correctly
+// rounded product's scratch (gemm), or null.
 template <bool kCompensated, typename TX, typename TW, typename TC>
-cudaError_t qkv_gemm(const TX* x, TW* spare, const TW* w, const float* b, TC* qkv, int M, int d,
-                     float* absmax, cudaStream_t s) {
+cudaError_t qkv_gemm(const TX* x, TW* spare, float* spare32, const TW* w, const float* b, TC* qkv,
+                     int M, int d, float* absmax, cudaStream_t s) {
   const int wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
-  if constexpr (std::is_same<TX, float>::value && std::is_same<TW, bf16>::value) {
-    round_to_bf16<<<1024, 256, 0, s>>>(x, spare, (long long)M * d);
+  if constexpr (!std::is_same<TX, TW>::value) {
+    TW* xw = std::is_same<TW, bf16>::value ? spare : reinterpret_cast<TW*>(spare32);
+    convert_elements<TX, TW><<<1024, 256, 0, s>>>(x, xw, (long long)M * d);
     if (cudaError_t err = cudaGetLastError()) return err;
-    return gemm<bf16, TC, false, kCompensated>(spare, w, wd, b, qkv, M, 3 * d, d, s, absmax);
+    return gemm<TW, TC, false, kCompensated>(xw, w, wd, b, qkv, M, 3 * d, d, s, absmax);
   } else {
     return gemm<TX, TC, false, kCompensated>(x, w, wd, b, qkv, M, 3 * d, d, s, absmax);
   }
@@ -754,7 +940,7 @@ cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
-  if ((err = qkv_gemm<false>(x, x1w, w_qkv, b_qkv, qkv, M, d, nullptr, s))) return err;
+  if ((err = qkv_gemm<false>(x, x1w, x1, w_qkv, b_qkv, qkv, M, d, nullptr, s))) return err;
   // heads read q, k and v straight out of the (B, L, 3d) projection buffer;
   // the output is rounded to the weights' type, the out projection's rounding
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
@@ -786,7 +972,7 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
   // proj, free until the out projection, holds the row maxima of x and W_qkv
   // and the flags of the correctly rounded product (M + 3d floats and
   // ceil(3 M d / 32) words, within M d for M >= 8)
-  if ((err = qkv_gemm<true>(x, x1w, w_qkv, b_qkv, qkv, M, d, proj, s))) return err;
+  if ((err = qkv_gemm<true>(x, x1w, x1, w_qkv, b_qkv, qkv, M, d, proj, s))) return err;
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
   if ((err = launch_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
                                       qkv_bs, qkv_rs, (long long)L * d, d, s)))

@@ -50,6 +50,7 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     LN_EPS,
     fuse_encoder_params,
     fused_encoder_block,
+    split_block_weights,
 )
 from explainable_spatial_vqa_tpu_torch.ops.lowp import norm_dtype
 
@@ -354,9 +355,13 @@ class EncoderBlock(nn.Module):
 
     def _fused_forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         key_mask = None if mask is None else mask[:, 0, 0, :]
-        weights = cached_on_params(self, lambda: fuse_encoder_params(self, dtype=self.dtype))
+        def fuse():
+            weights = fuse_encoder_params(self, dtype=self.dtype)
+            return weights, split_block_weights(weights)
+
+        weights, split = cached_on_params(self, fuse)
         return fused_encoder_block(x.to(self.dtype).contiguous(), key_mask, weights,
-                                   self.num_heads)
+                                   self.num_heads, split=split)
 
 
 class DecoderBlock(nn.Module):

@@ -6,26 +6,32 @@ operand rounded to the weights' type, as ``jnp.dot(a.astype(w_dtype), w,
 preferred_element_type=float32) + b`` in ``ops/pallas_block.py``, bias and an
 optional ReLU, the result in ``out_dtype``.  The kernel is
 ``esv_block_gemm`` in ``csrc/fused_block.cu``, the same code the blocks launch:
-wgmma fed by TMA where ``w`` is bf16, which takes ``a`` in bf16 too (TMA reads
-an operand as it lies in memory; the blocks round a float32 ``x`` to bf16 in a
-pass of their own), float32 on the CUDA cores where ``w`` is float32.  It
-lets a product be timed and checked apart from its block; nothing in the
-model calls it.  ``compensated=True`` takes K3's QKV product instead (bf16
-weights, no ReLU): its sums are the float32 value of the exact sum, which
-the kernel approaches with tensor-core slices added with Kahan's
-compensation and, for a bf16 output, reaches by taking the exact sum where
-the two could round apart.  A CPU tensor runs :func:`block_gemm_plain`; a
-CUDA tensor launches the kernel or raises.
+wgmma fed by TMA, which reads an operand as it lies in memory, so ``a`` is in
+the weights' type (the blocks convert an ``x`` of the other type in a pass of
+their own).  bf16 operands run in bf16 on the tensor cores; float32 ones in
+3xTF32: ``w`` split once per call here into its TF32 hi and lo parts
+(:func:`~explainable_spatial_vqa_tpu_torch.ops.fused_block.split_tf32`; pass
+``split`` to reuse one), ``a`` split in registers on the card, three TF32
+products a term, ~2^-22 |x| of error per operand.  It lets a product be timed
+and checked apart from its block; nothing in the model calls it.
+``compensated=True`` takes K3's QKV product instead (bf16 weights, no ReLU):
+its sums are the float32 value of the exact sum, which the kernel approaches
+with tensor-core slices added with Kahan's compensation and, for a bf16
+output, reaches by taking the exact sum where the two could round apart.  A
+CPU tensor runs :func:`block_gemm_plain`; a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import DTYPE_CODES
+from explainable_spatial_vqa_tpu_torch.ops.fused_block import split_tf32
 
 __all__ = ["block_gemm", "block_gemm_plain", "check_gemm"]
 
@@ -46,11 +52,13 @@ def block_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu:
 
 
 def check_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-               out_dtype: torch.dtype, relu: bool = False, compensated: bool = False) -> None:
+               out_dtype: torch.dtype, relu: bool = False, compensated: bool = False,
+               split: Optional[torch.Tensor] = None) -> None:
     """Raise ValueError unless the kernel takes these operands: a (M, K) and
-    w (N, K) in float32 or bf16, bias (N,) float32, out_dtype float32 or
-    bf16, all contiguous on one CPU or CUDA device; with bf16 weights, a in
-    bf16 and TMA's rules: 16-byte aligned bases, K and N multiples of 8;
+    w (N, K) in float32 or bf16, a in w's type, bias (N,) float32, out_dtype
+    float32 or bf16, all contiguous on one CPU or CUDA device; TMA's rules:
+    16-byte aligned bases, K and N multiples of 8 (bf16) or 4 (float32);
+    ``split`` only with float32 weights, as (2N, K) float32 alongside them;
     ``compensated`` with bf16 weights and no ReLU only."""
     devices = {t.device for t in (a, w, bias)}
     if len(devices) != 1 or a.device.type not in ("cpu", "cuda"):
@@ -65,12 +73,19 @@ def check_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(bias.shape)} are not (M, K), (N, K), (N,)")
     if not (a.is_contiguous() and w.is_contiguous() and bias.is_contiguous()):
         raise ValueError("block_gemm: a, w and bias must be contiguous")
-    if w.dtype == torch.bfloat16 and a.dtype != torch.bfloat16:
-        raise ValueError("block_gemm: with bf16 weights a must be bf16 too")
-    if w.dtype == torch.bfloat16 and (a.data_ptr() % 16 or w.data_ptr() % 16
-                                      or w.shape[1] % 8 or w.shape[0] % 8):
-        raise ValueError("block_gemm: with bf16 weights a and w must start on 16-byte "
-                         "boundaries and K and N be multiples of 8")
+    wname = "bf16" if w.dtype == torch.bfloat16 else "float32"
+    if a.dtype != w.dtype:
+        raise ValueError(f"block_gemm: with {wname} weights a must be {wname} too")
+    multiple = 16 // w.element_size()
+    if a.data_ptr() % 16 or w.data_ptr() % 16 or w.shape[1] % multiple or w.shape[0] % multiple:
+        raise ValueError(f"block_gemm: with {wname} weights a and w must start on 16-byte "
+                         f"boundaries and K and N be multiples of {multiple}")
+    if split is not None and (
+            w.dtype != torch.float32 or split.dtype != torch.float32
+            or split.shape != (2 * w.shape[0], w.shape[1]) or split.device != w.device
+            or not split.is_contiguous() or split.data_ptr() % 16):
+        raise ValueError("block_gemm: split takes float32 weights, as a contiguous (2N, K) "
+                         "float32 tensor on their device on a 16-byte boundary")
     if compensated and (w.dtype != torch.bfloat16 or relu):
         raise ValueError("block_gemm: compensated takes bf16 weights and no ReLU")
 
@@ -83,13 +98,17 @@ def _esv_block_gemm():
 
 
 def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False,
-               out_dtype: torch.dtype = torch.float32, compensated: bool = False) -> torch.Tensor:
+               out_dtype: torch.dtype = torch.float32, compensated: bool = False,
+               split: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``act(a @ w.T + bias)`` as the encoder block computes it: the kernel
-    on CUDA, the plain version on CPU."""
-    check_gemm(a, w, bias, out_dtype, relu, compensated)
+    on CUDA, the plain version on CPU.  ``split``: float32 ``w``'s
+    :func:`split_tf32`, made here on each call where it is None."""
+    check_gemm(a, w, bias, out_dtype, relu, compensated, split)
     if a.device.type == "cpu":
         return block_gemm_plain(a, w, bias, relu, out_dtype, compensated)
-    (m, k), n = a.shape, w.shape[0]
+    if w.dtype == torch.float32:
+        w = split if split is not None else split_tf32(w)
+    (m, k), n = a.shape, bias.shape[0]
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
     # the correctly rounded bf16 output's scratch: the row maxima of a and w,
     # then one flag bit per element

@@ -11,8 +11,13 @@ Port of ``explainable_spatial_vqa_tpu/ops/pallas_block.py``: K2 is
     y  = LN2(x1 + f)       (in x's type)
 
 Every product rounds its left operand to the weights' type and accumulates in
-float32; LayerNorm takes float32 statistics with eps 1e-6.  The two kernels
-differ in one place.  K2 keeps q, k and v float32 into the attention, whose
+float32; LayerNorm takes float32 statistics with eps 1e-6.  On the card a
+float32 product runs in 3xTF32 on the tensor cores: each operand is split
+into two TF32 parts (:func:`split_tf32`), which carries ~2^-22 |x| of error
+per operand, as K2's float32 attention does; it is not rounded to TF32 once.
+The weights are split once, :func:`split_block_weights`, and the model keeps
+the split with its fused weights (``models.layers.cached_on_params``).  The
+two kernels differ in one place.  K2 keeps q, k and v float32 into the attention, whose
 weights are float32 too.  K3 rounds q, k and v to the weights' type after the
 bias and runs K1's arithmetic on them: float32 scores and softmax, weights
 rounded to the weights' type, float32 sums.  With float32 weights the two
@@ -26,8 +31,9 @@ that many pairs of launches, so the (rows, ffn) hidden scratch is that many
 times smaller, as the TPU kernel keeps its hidden within VMEM.
 
 The kernels are in ``csrc/fused_block.cu`` (a GEMM with a fused bias/ReLU
-epilogue, wgmma fed by TMA for bf16 operands; the K1 attention kernel; a
-residual-add + LayerNorm kernel), all launched by one C call per block:
+epilogue, wgmma fed by TMA: bf16 for bf16 operands, 3xTF32 for float32 ones;
+the K1 attention kernel; a residual-add + LayerNorm kernel), all launched by
+one C call per block:
 ``esv_encoder_block`` for K2, ``esv_encoder_block_tiled`` for K3.  The GEMM
 alone is :func:`~explainable_spatial_vqa_tpu_torch.ops.block_gemm.block_gemm`.
 :func:`fused_encoder_block_plain` and
@@ -53,9 +59,10 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     key_mask_f32,
 )
 
-__all__ = ["BlockWeights", "block_scratch", "fuse_encoder_params", "fused_encoder_block",
-           "fused_encoder_block_plain", "fused_encoder_block_tiled",
-           "fused_encoder_block_tiled_plain", "tiled_plain_after_qkv", "pad_len", "LN_EPS"]
+__all__ = ["BlockWeights", "SplitWeights", "block_scratch", "fuse_encoder_params",
+           "fused_encoder_block", "fused_encoder_block_plain", "fused_encoder_block_tiled",
+           "fused_encoder_block_tiled_plain", "split_block_weights", "split_tf32",
+           "tiled_plain_after_qkv", "pad_len", "LN_EPS"]
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default, and ops/pallas_block.py:106
 
@@ -69,7 +76,9 @@ def pad_len(length: int, multiple: int = 8) -> int:
 class BlockWeights(NamedTuple):
     """One encoder block's parameters in the kernels' layout: matrices are
     (out_features, in_features) in the weight type, q/k/v stacked into one
-    (3d, d) matrix; biases and LayerNorm parameters are float32."""
+    (3d, d) matrix; biases and LayerNorm parameters are float32.  With
+    float32 matrices the kernels read their TF32 split
+    (:class:`SplitWeights`), not the matrices themselves."""
 
     qkv: torch.Tensor  # (3d, d) = [Wq; Wk; Wv]
     qkv_bias: torch.Tensor  # (3d,)
@@ -83,6 +92,38 @@ class BlockWeights(NamedTuple):
     ln1_bias: torch.Tensor
     ln2_scale: torch.Tensor
     ln2_bias: torch.Tensor
+
+
+class SplitWeights(NamedTuple):
+    """The float32 matrices of a :class:`BlockWeights` as the 3xTF32 GEMM
+    reads them: each (N, K) matrix as its (2N, K) :func:`split_tf32`."""
+
+    qkv: torch.Tensor  # (6d, d)
+    out: torch.Tensor  # (2d, d)
+    ffn1: torch.Tensor  # (2 ffn, d)
+    ffn2: torch.Tensor  # (2d, ffn)
+
+
+def split_tf32(w: torch.Tensor) -> torch.Tensor:
+    """A float32 (N, K) matrix as the 3xTF32 GEMM reads it: (2N, K), the hi
+    parts over the lo parts.  hi is w rounded to TF32's 10 mantissa bits
+    (to nearest, ties away from zero: half a TF32 ulp added to the bits,
+    then the low 13 bits cleared) and lo = w - hi, exact in float32, so hi +
+    lo == w and |lo| <= 2^-11 |w| for normal w; the tensor cores read the
+    top bits of lo.  The rule of ``split_tf32`` in ``csrc/attention.cuh``,
+    which the kernel applies to its left operand."""
+    if w.dtype != torch.float32 or w.ndim != 2:
+        raise ValueError(f"split_tf32: needs a float32 matrix, got {w.dtype} {tuple(w.shape)}")
+    hi = ((w.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.cat([hi, w - hi])
+
+
+def split_block_weights(w: BlockWeights) -> Optional[SplitWeights]:
+    """The TF32 split of ``w``'s four matrices where they are float32; None
+    for bf16 weights, which the kernels read as they are."""
+    if w.qkv.dtype != torch.float32:
+        return None
+    return SplitWeights(*(split_tf32(t) for t in (w.qkv, w.out, w.ffn1, w.ffn2)))
 
 
 def fuse_encoder_params(block: torch.nn.Module, dtype: torch.dtype = torch.float32) -> BlockWeights:
@@ -209,10 +250,13 @@ def tiled_plain_after_qkv(
     return y.reshape(batch, length, d_model).to(x.dtype)
 
 
-def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: int) -> None:
+def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: int,
+                  split: Optional[SplitWeights]) -> None:
     """Raise unless the kernels take these inputs: a contiguous x and
     weights on one CUDA device, in float32 or bf16, with the shapes of
-    :class:`BlockWeights`, a head dim the attention kernel is built for."""
+    :class:`BlockWeights`, a head dim the attention kernel is built for,
+    and with float32 weights their split, each matrix (2N, K) float32;
+    every base 16-byte aligned (TMA's rule)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     batch, length, d_model = x.shape
@@ -236,11 +280,18 @@ def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: 
             raise ValueError(
                 f"{name}: weight {key} must be a contiguous {want_shape} "
                 f"{want_dtype} tensor on {x.device}")
+    splits = () if split is None else tuple(split)
+    if (wdt == torch.float32) != (split is not None) or any(
+            s.dtype != torch.float32 or s.shape != (2 * t.shape[0], t.shape[1])
+            or s.device != x.device or not s.is_contiguous()
+            for s, t in zip(splits, (weights.qkv, weights.out, weights.ffn1, weights.ffn2))):
+        raise ValueError(f"{name}: float32 weights, and only they, take their split, each "
+                         f"matrix a contiguous (2N, K) float32 tensor on {x.device}")
     if ffn % 8:
         raise ValueError(f"{name}: ffn {ffn} must be a multiple of 8")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
-    if any(t.data_ptr() % 16 for t in (x, *weights)):
+    if any(t.data_ptr() % 16 for t in (x, *weights, *splits)):
         raise ValueError(f"{name}: x and the weights must start on 16-byte boundaries")
 
 
@@ -249,8 +300,11 @@ def block_scratch(x: torch.Tensor, weights: BlockWeights, tiled: bool,
     """The scratch of one block launch, in the C interface's order: qkv
     (B*L, 3d), float32 for K2 and in the weights' type for K3; attn (B*L, d)
     in the weights' type (the out projection's rounding); proj and x1 (B*L,
-    d) float32; x1w, x1 rounded to bf16 for FFN1's TMA loads (None with
-    float32 weights); hidden (B*L / ffn_chunks, ffn) in the weights' type."""
+    d) float32 (x1 holds a bf16 x widened for the QKV product before LN1
+    where the weights are float32); x1w, x1 rounded to bf16 for FFN1's TMA
+    loads (None with float32 weights, whose products read float32 operands
+    and split them on the card); hidden (B*L / ffn_chunks, ffn) in the
+    weights' type."""
     batch, length, d_model = x.shape
     rows, wdt, ffn = batch * length, weights.qkv.dtype, weights.ffn1.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -271,12 +325,16 @@ def _entry(name: str, ints: int):
     return fn
 
 
-def _launch(wrapper, name: str, x, mask, weights: BlockWeights, scratch, ints) -> torch.Tensor:
-    """Call the C entry point ``name`` once, counting the launch on ``wrapper``."""
+def _launch(wrapper, name: str, x, mask, weights: BlockWeights, split: Optional[SplitWeights],
+            scratch, ints) -> torch.Tensor:
+    """Call the C entry point ``name`` once, counting the launch on ``wrapper``;
+    with float32 weights the kernels read the matrices' split."""
     mask_f = key_mask_f32(mask, x.shape[0], x.shape[1])
     if mask_f is not None:
         mask_f = mask_f.to(x.device)
     out = torch.empty_like(x)
+    if split is not None:
+        weights = weights._replace(**split._asdict())
     ptrs = [x, mask_f, *weights, out, *scratch]
     fn = _entry(name, len(ints))
     with torch.cuda.device(x.device):
@@ -293,15 +351,18 @@ def fused_encoder_block(
     mask: Optional[torch.Tensor],  # (B, L) bool/float key mask or None
     weights: BlockWeights,
     num_heads: int,
+    split: Optional[SplitWeights] = None,
 ) -> torch.Tensor:
     """K2, one post-LN encoder block: the kernels on CUDA, the plain version
-    on CPU."""
+    on CPU.  ``split``: float32 weights' :func:`split_block_weights`, made
+    here on each call where it is None."""
     if x.device.type == "cpu":
         return fused_encoder_block_plain(x, mask, weights, num_heads)
-    _check_launch("fused_encoder_block", x, weights, num_heads)
+    split = split if split is not None else split_block_weights(weights)
+    _check_launch("fused_encoder_block", x, weights, num_heads, split)
     batch, length, d_model = x.shape
     scratch = block_scratch(x, weights, tiled=False)
-    return _launch(fused_encoder_block, "esv_encoder_block", x, mask, weights, scratch,
+    return _launch(fused_encoder_block, "esv_encoder_block", x, mask, weights, split, scratch,
                    (batch, length, d_model, num_heads, weights.ffn1.shape[0],
                     DTYPE_CODES[x.dtype], DTYPE_CODES[weights.qkv.dtype]))
 
@@ -316,17 +377,21 @@ def fused_encoder_block_tiled(
     num_heads: int,
     batch_tile: int = 4,
     ffn_chunks: int = 1,
+    split: Optional[SplitWeights] = None,
 ) -> torch.Tensor:
     """K3, the batch-tiled block with q/k/v in the weights' type: the kernels
-    on CUDA, the plain version on CPU.  Raises where the JAX wrapper asserts."""
+    on CUDA, the plain version on CPU.  Raises where the JAX wrapper asserts.
+    ``split`` as for :func:`fused_encoder_block`."""
     batch, length, d_model = x.shape
     _check_tiled(batch, length, d_model, batch_tile, ffn_chunks)
     if x.device.type == "cpu":
         return fused_encoder_block_tiled_plain(x, mask, weights, num_heads, batch_tile,
                                                ffn_chunks)
-    _check_launch("fused_encoder_block_tiled", x, weights, num_heads)
+    split = split if split is not None else split_block_weights(weights)
+    _check_launch("fused_encoder_block_tiled", x, weights, num_heads, split)
     scratch = block_scratch(x, weights, tiled=True, ffn_chunks=ffn_chunks)
-    return _launch(fused_encoder_block_tiled, "esv_encoder_block_tiled", x, mask, weights, scratch,
+    return _launch(fused_encoder_block_tiled, "esv_encoder_block_tiled", x, mask, weights, split,
+                   scratch,
                    (batch, length, d_model, num_heads, weights.ffn1.shape[0], ffn_chunks,
                     DTYPE_CODES[x.dtype], DTYPE_CODES[weights.qkv.dtype]))
 

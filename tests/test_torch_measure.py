@@ -6,7 +6,9 @@ and the segment profile's FLOP and bytes models equal to the scripts'
 statements (read from their syntax trees and run); each driver's last line
 with its JAX counterpart's keys (the JAX pipeline and roofline scripts print
 text: their quantities under the port's keys) on a small CPU run; and
-without a card each ``main`` raises unless given ``--device cpu``."""
+without a card each ``main`` raises unless given ``--device cpu``.  The
+float32 GEMM's variants (``gemm_variants``) patch the shipped source and
+run on the card only."""
 
 import ast
 import importlib
@@ -28,7 +30,9 @@ from explainable_spatial_vqa_tpu_torch import bench  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.bench_data import synth_questions  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.infer.plan import plan_sorted  # noqa: E402
+from explainable_spatial_vqa_tpu_torch.ops import _build  # noqa: E402
 from explainable_spatial_vqa_tpu_torch.measure import (  # noqa: E402
+    gemm_variants,
     mfu_decomposition,
     profile_pipeline,
     profile_segments,
@@ -205,3 +209,26 @@ def test_main_needs_a_card_or_cpu(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MAINS[name][0].main(MAINS[name][1])
+
+
+@pytest.mark.parametrize("name", sorted(gemm_variants.VARIANTS))
+def test_gemm_variants_patch_the_shipped_source(name):
+    """Each variant of the float32 GEMM is the shipped ``csrc/fused_block.cu``
+    with its replacements, each matching exactly once: a source edit that
+    moves a patched line fails here, not on the card."""
+    source = (_build.CSRC_DIR / "fused_block.cu").read_text()
+    patched = gemm_variants.variant_source(name, source)
+    assert patched != source
+    for old, new in gemm_variants.VARIANTS[name]:
+        assert new in patched or not new
+
+
+def test_gemm_variants_need_a_card(monkeypatch):
+    """The variants run on the card only (they build with nvcc and launch);
+    without one ``main`` raises before building, and an unknown name is
+    refused first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gemm_variants.main(["--variants", "long_chain"])
+    with pytest.raises(ValueError, match="unknown variants"):
+        gemm_variants.main(["--variants", "chain9"])

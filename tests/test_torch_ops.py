@@ -36,6 +36,7 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     fused_encoder_block_tiled,
     fused_encoder_block_tiled_plain,
     pad_len,
+    split_tf32,
 )
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -299,11 +300,18 @@ def _misaligned(shape, dtype):
     ("n_not_multiple_of_8", "multiples of 8"),
     ("compensated_float32_w", "compensated"),
     ("compensated_relu", "compensated"),
+    ("bf16_a_float32_w", "a must be float32"),
+    ("float32_misaligned", "16-byte"),
+    ("float32_k_not_multiple_of_4", "multiples of 4"),
+    ("float32_n_not_multiple_of_4", "multiples of 4"),
+    ("split_bf16_w", "split"),
+    ("split_shape", "split"),
 ])
 def test_block_gemm_contract_errors(case, match):
     """The wrapper raises before any launch on operands the kernel does not
-    take: device, type, shape, contiguity, TMA's alignment rules, and the
-    compensated product's bf16 weights without ReLU."""
+    take: device, type, shape, contiguity, TMA's alignment rules (bf16 and
+    float32), a split only beside float32 weights and of their (2N, K)
+    shape, and the compensated product's bf16 weights without ReLU."""
     bf = torch.bfloat16
     a, w, b = torch.zeros(32, 64, dtype=bf), torch.zeros(48, 64, dtype=bf), torch.zeros(48)
     out_dtype = torch.float32
@@ -337,6 +345,19 @@ def test_block_gemm_contract_errors(case, match):
         options = dict(compensated=True)
     elif case == "compensated_relu":
         options = dict(compensated=True, relu=True)
+    elif case == "bf16_a_float32_w":
+        w = w.float()
+    elif case == "float32_misaligned":
+        a, w = _misaligned((32, 64), torch.float32), w.float()
+    elif case == "float32_k_not_multiple_of_4":
+        a, w = torch.zeros(32, 62), torch.zeros(48, 62)
+    elif case == "float32_n_not_multiple_of_4":
+        a, w, b = a.float(), torch.zeros(46, 64), torch.zeros(46)
+    elif case == "split_bf16_w":
+        options = dict(split=torch.zeros(96, 64))
+    elif case == "split_shape":
+        a, w = a.float(), w.float()
+        options = dict(split=torch.zeros(48, 64))
     before = block_gemm.launches
     with pytest.raises(ValueError, match=match):
         block_gemm(a, w, b, out_dtype=out_dtype, **options)
@@ -360,11 +381,16 @@ def test_block_gemm_compensated_is_the_rounded_exact_sum(shape):
 
 
 def test_block_gemm_float32_weights_take_any_alignment():
-    """TMA's rules bind only the bf16 path: float32 weights run on the CUDA
-    cores with any K, N and alignment."""
-    a = _misaligned((5, 12), torch.float32)
-    out = block_gemm(a, torch.ones(6, 12), torch.zeros(6))
-    torch.testing.assert_close(out, a.sum(1, keepdim=True).expand(5, 6))
+    """Float32 weights take TMA's float32 rules, not bf16's: any M, and K
+    and N multiples of 4 (16 bytes), where bf16 needs multiples of 8; a
+    given split gives the product of the weights it splits."""
+    a = torch.arange(60, dtype=torch.float32).view(5, 12)
+    w = torch.ones(20, 12)
+    out = block_gemm(a, w, torch.zeros(20))
+    torch.testing.assert_close(out, a.sum(1, keepdim=True).expand(5, 20))
+    torch.testing.assert_close(block_gemm(a, w, torch.zeros(20), split=split_tf32(w)), out)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        block_gemm(a.bfloat16(), w.bfloat16(), torch.zeros(20))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
