@@ -25,7 +25,9 @@ result:
    CUDA cores, a variant no wrapper launches) held the same way on three
    L=210 draws and at L=10 (the shipped tensor-core form fails the phase if
    it misses a draw; the other's verdict is printed), both timed through the
-   same call, by events and by the kernel's device time; K2's own float32
+   same call, by events and by the kernel's device time; K1 at head dims
+   24, 48 and 64 at every length the models run (``k1_head_dims``: L = 8,
+   208, 243, 246, both types), then timed at each model's shape; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -99,18 +101,22 @@ result:
     at p=1 on the card against the CPU;
 16. the CoGenT A->B protocol (``run_cogent_protocol``, float32): eval
     forwards of the protocol's executor at d_model 96 and 192 (head dims 24
-    and 48) launch no K1 or K2, at 512 they do; the protocol at its flagship
+    and 48) launch K1 once per fusion and box-decoder layer and no K2, at
+    512 K2 and K1; the protocol at its flagship
     width (d_model 192, 3 layers, ``box_roi``, cosine) with each part's wall
-    time, the median ms per train step, the four cells and accuracy by
-    type; its fine-tuned models evaluated on valA on the card and on the
-    CPU, equal; the protocol at d_model 512, whose evaluations launch K2 and
+    time, the median ms per train step, its K1 launches (in the
+    evaluations only), the four cells and accuracy by
+    type; its fine-tuned models evaluated on valA on the card (K1 at head
+    dim 48) and on the CPU, equal; the protocol at d_model 512, whose evaluations launch K2 and
     K1, and its fine-tuned models on valA, card against CPU, equal;
 17. the baselines (``baselines``) on the CLEVR factory's questions and
     chains: ``eval-iqap``'s path (``run_eval_iqap``, ``transformer_iqap``,
     bf16 and float32: questions/s, encode and decode apart, kernels per
-    decode step, busy share) and float32 card vs CPU; ``infer-chain``'s
+    decode step, busy share; K1 once per encoder layer, head dim 64) and
+    float32 card vs CPU; ``infer-chain``'s
     path (``Seq2SeqChainRunner.run`` and ``run_bucketed_seq2seq``,
-    ``step_seq2seq``: chains/s, encodes and decode steps) and float32 runs
+    ``step_seq2seq``: chains/s, encodes and decode steps; K1 once per
+    encoder layer of each encode) and float32 runs
     equal to each other and to the CPU; both at d 512, where each encode
     launches K2 once per layer, each block held against K2's plain version,
     and their float32 decisions card vs CPU; one train step each of
@@ -123,7 +129,9 @@ result:
     vs CPU, loss and gradients; the greedy decode of the combined sequence
     and its IoU report, float32 tokens card vs CPU); each of the eight
     prototype presets (a bf16 step at its batch, a falling fixed batch, a
-    float32 loss card vs CPU); ``HierarchicalGenerator`` at d 512 (head dim
+    float32 loss card vs CPU, an eval forward's launches: K1 four times in
+    ``hierarchical`` at its preset's head dim 64, none elsewhere; the CoT's
+    decode K1 once); ``HierarchicalGenerator`` at d 512 (head dim
     128), whose eval forward launches K2 once per encoder layer and K1 once
     per decoder layer (the one-token start query), each held against its
     plain version, float32 card vs CPU, and whose train step launches
@@ -144,7 +152,8 @@ result:
     phase 12's trained executor, card against CPU;
 20. the last module slice (``last_slice``): the native CLEVR engine (built
     with g++ in phase 2) against the Python executor on phase 17's 512
-    questions, both timed; one rank over NCCL: the data-parallel
+    questions, both timed in alternating rounds, the engine's packing, C
+    call and decoding apart; one rank over NCCL: the data-parallel
     ``Trainer`` step of ``executor_roi`` (full width, batch 16, float32)
     equal to the plain step, its validation forward on K2 and K1,
     ``run_pool`` on a one-rank mesh (bf16 and float32) and ``run_tally``
@@ -187,7 +196,9 @@ The line before the last is a JSON object with one entry per kernel
 (the matcher's: phase 21.3's accuracy table) and, under
 ``launches_by_path``, on phases 14-22's paths; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
-``at_shapes``) and one per piece timed apart
+``at_shapes``; then K1 at head dims 24, 48 and 64, each at its first
+model's encoder shape with the rest under ``at_shapes`` and its launches
+through the models by phase, which must not be 0) and one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
 variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -226,6 +237,19 @@ GEMM_REL_TOL = 2e-5  # float32 GEMM outputs, of the largest |ref|
 # (PERF.md §6); correctly rounded q/k/v pass.
 BLOCK_DRAWS = (0, 1, 2)
 K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
+
+# K1 at the head dims below 128: each in both types at the lengths the models
+# run (phase 3, B=128, H=4), then timed at each model's shape in its type
+# (phase 4): label, head dim, B, L, key mask, type
+K1_CHECK_LENGTHS = ((8, False), (208, True), (243, True), (246, True))
+K1_MODEL_SHAPES = (
+    ("protocol d 96 box decoder", 24, 128, 8, False, "fp32"),
+    ("protocol d 96 fusion encoder", 24, 128, 208, True, "fp32"),
+    ("protocol d 192 box decoder", 48, 128, 8, False, "fp32"),
+    ("protocol d 192 fusion encoder", 48, 128, 208, True, "fp32"),
+    ("transformer_iqap encoder", 64, 512, 243, False, "bf16"),
+    ("step_seq2seq encoder", 64, 512, 246, True, "bf16"),
+)
 
 MAIN_QUESTIONS = 512
 SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
@@ -278,20 +302,30 @@ def fail(message: str) -> None:
     sys.exit(1)
 
 
-# K2 launches with float32 weights on the main path, by phase: main_path
-# counts them on the model's reference to the wrapper into "pending", and
+# Launches on the main path by kind and phase: K2's with float32 weights
+# ("K2 fp32") and K1's by head dim ("K1 D=24", ...).  main_path counts them on
+# the model's references to the wrappers into "pending" (``note``), and
 # ``say`` puts them down to the next phase that prints (a phase prints after
-# its work)
-FP32_K2 = {"pending": 0, "by_phase": {}}
+# its work).
+TALLIES = {}
+
+
+def note(kind: str, launches: int) -> None:
+    TALLIES.setdefault(kind, {"pending": 0, "by_phase": {}})["pending"] += launches
+
+
+def by_phase(kind: str) -> dict:
+    return dict(sorted(TALLIES.get(kind, {"by_phase": {}})["by_phase"].items()))
 
 
 def say(message: str) -> None:
     print(message, flush=True)
     found = re.match(r"phase (\d+)", message)
-    if found and FP32_K2["pending"]:
-        phase = int(found.group(1))
-        FP32_K2["by_phase"][phase] = FP32_K2["by_phase"].get(phase, 0) + FP32_K2["pending"]
-        FP32_K2["pending"] = 0
+    for tally in TALLIES.values() if found else ():
+        if tally["pending"]:
+            phase = int(found.group(1))
+            tally["by_phase"][phase] = tally["by_phase"].get(phase, 0) + tally["pending"]
+            tally["pending"] = 0
 
 
 def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -839,6 +873,7 @@ def main() -> None:
             else:
                 score_forms(torch, dev, l10_inputs, (q, k, v, mask), results, parts)
 
+    k1_head_dims(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
 
@@ -956,6 +991,76 @@ def main() -> None:
                      "HierarchicalGenerator's encoder shape")
     torch.cuda.empty_cache()
     main_path(torch, np, dev, results, parts)
+
+
+def k1_head_dims(torch, F, dev, results: dict) -> None:
+    """Phases 3-4 for K1 at head dims 24, 48 and 64: the kernel against its
+    plain version (``dot_product_attention``) at every length of
+    ``K1_CHECK_LENGTHS`` in float32 (within 1e-5) and bf16
+    (``attention_agreement``); then at each model's shape of
+    ``K1_MODEL_SHAPES`` the kernel through its wrapper, the plain version and
+    ``scaled_dot_product_attention`` timed, beside the bound (4 L^2 D
+    operations a head, counted by ``dot_ops``; q, k, v, the output and the
+    mask each moved once).  Results go to ``results["K1_D{d}_{label}"]``.
+    The inputs come from a generator of their own, so the draws of the
+    phases after these are what they were without them."""
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def ragged_keep(batch, length, tail):
+        """Key mask keeping all but a random subset of the last ``tail`` keys."""
+        keep = torch.ones(batch, length, dtype=torch.bool, device=dev)
+        keep[:, length - tail:] = torch.rand(batch, tail, generator=gen, device=dev) < 0.6
+        return keep
+
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    b, h = SLOTS, 4
+    for d_head in sorted({d for _, d, *_ in K1_MODEL_SHAPES}):
+        for length, masked in K1_CHECK_LENGTHS:
+            for name, dtype in types.items():
+                q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
+                mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
+                out = fused_attention(q, k, v, mask)
+                ref = dot_product_attention(q, k, v, mask)
+                torch.cuda.synchronize()
+                head = (f"phase 3 K1 fused_attention {name} B={b} H={h} L={length} D={d_head} "
+                        f"mask={'ragged' if masked else 'none'}:")
+                if name == "bf16":
+                    stats = attention_agreement(torch, out, q, k, v, mask)
+                    say(f"{head} {bf16_text(stats)}")
+                    ok = bf16_ok(stats)
+                else:
+                    err = float((out - ref).abs().max())
+                    say(f"{head} max_abs_err {err:.3g} (tol 1e-5)")
+                    ok = err <= 1e-5
+                if not ok:
+                    fail(f"K1 at head dim {d_head} disagrees with its plain version")
+                del q, k, v, out, ref
+    for label, d_head, b, length, masked, name in K1_MODEL_SHAPES:
+        dtype = types[name]
+        q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
+        mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
+        out = fused_attention(q, k, v, mask)
+        err = float((out.float() - dot_product_attention(q, k, v, mask).float()).abs().max())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = timed_ms(torch, lambda: fused_attention(q, k, v, mask))
+        plain = timed_ms(torch, lambda: dot_product_attention(q, k, v, mask))
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        esize = 2 if name == "bf16" else 4
+        bnd, by = bound_ms(dot_ops(name, 4.0 * b * h * length * length * d_head),
+                           4 * b * length * h * d_head * esize + (b * length * 4 if masked else 0))
+        say(f"phase 4 K1 fused_attention {name} D={d_head} at the {label}'s shape (B={b} H={h} "
+            f"L={length} mask={'ragged' if masked else 'none'}): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); max_abs_err {err:.3g}")
+        results[f"K1_D{d_head}_{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                bound_ms=bnd, bound_by=by, library_ms=lib)
+        del q, k, v, qt, kt, vt, out
 
 
 def score_forms(torch, dev, l10, first, results: dict, parts) -> None:
@@ -1236,7 +1341,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     from explainable_spatial_vqa_tpu_torch.models import layers
     from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, fused_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         fused_encoder_block,
         fused_encoder_block_tiled,
@@ -1247,14 +1352,22 @@ def main_path(torch, np, dev, results, parts) -> None:
                                         fused_encoder_block_tiled, hungarian_assignment_device)}
 
     def k2_observed(x, mask, weights, num_heads, **options):
-        """The model's K2 call, its float32 launches noted in FP32_K2."""
+        """The model's K2 call, its float32 launches noted ("K2 fp32")."""
         before = fused_encoder_block.launches
         out = fused_encoder_block(x, mask, weights, num_heads, **options)
         if weights.qkv.dtype == torch.float32:
-            FP32_K2["pending"] += fused_encoder_block.launches - before
+            note("K2 fp32", fused_encoder_block.launches - before)
+        return out
+
+    def k1_observed(q, k, v, mask=None):
+        """The model's K1 call, its launches noted by head dim ("K1 D=...")."""
+        before = fused_attention.launches
+        out = fused_attention(q, k, v, mask)
+        note(f"K1 D={q.shape[-1]}", fused_attention.launches - before)
         return out
 
     layers.fused_encoder_block = k2_observed
+    layers.fused_attention = k1_observed
 
     def counted(fn):
         """``fn()`` with every launch count set to 0 just before it, and the
@@ -1545,9 +1658,13 @@ def main_path(torch, np, dev, results, parts) -> None:
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
     layers.fused_encoder_block = fused_encoder_block
-    fp32_k2 = dict(sorted(FP32_K2["by_phase"].items()))
+    layers.fused_attention = fused_attention
+    fp32_k2 = by_phase("K2 fp32")
     say(f"K2 launches with float32 weights (3xTF32 products) on the main path, by phase: "
         f"{fp32_k2}, {sum(fp32_k2.values())} in all")
+    k1_dims = {d: by_phase(f"K1 D={d}") for d in HEAD_DIMS}
+    say("K1 launches through the models by head dim, by phase: "
+        + "; ".join(f"D={d} {c}, {sum(c.values())} in all" for d, c in k1_dims.items()))
 
     sources = (
         ("fused_attention", "explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
@@ -1567,6 +1684,23 @@ def main_path(torch, np, dev, results, parts) -> None:
     kernels[1]["at_shapes"] = {"iqap_encoder_d512": results["K2_bf16_iqap"],
                                "hierarchical_encoder_d512": results["K2_bf16_hier"]}
     kernels[1]["launches_fp32_by_phase"] = fp32_k2
+    # K1's instantiations at the new head dims, each with its first model
+    # shape's numbers and the rest under at_shapes; their paths are phases
+    # 16-18 (and the demos at d 96): launches through the models, by phase
+    for d_head in sorted({d for _, d, *_ in K1_MODEL_SHAPES}):
+        shapes = [f"K1_D{d_head}_{label}" for label, d, *_ in K1_MODEL_SHAPES if d == d_head]
+        encoder = next(key for key in shapes if "encoder" in key)
+        kernels.append(dict(
+            name=f"fused_attention_d{d_head}", route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/fused_attention.cu",
+            replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            launches=sum(k1_dims[d_head].values()), **results[encoder],
+            shape=encoder.split("_", 2)[2],
+            at_shapes={key.split("_", 2)[2]: results[key] for key in shapes if key != encoder},
+            launches_by_phase=k1_dims[d_head]))
+    unlaunched = [d for d in HEAD_DIMS if not sum(k1_dims[d].values())]
+    if unlaunched:
+        fail(f"K1 at head dims {unlaunched} never launched through the models")
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -2480,6 +2614,63 @@ def scheduled_training(torch, np, dev, counted) -> dict:
     return {"scheduled_train_step": step_counts}
 
 
+K1_AB_ROUNDS = 7  # alternating rounds of phases 16-17's K1-on/off timings
+
+
+def k1_on_off(torch, label: str, fn, profile: bool = False) -> None:
+    """``fn()`` with the models' K1 routing on and off, in ``K1_AB_ROUNDS``
+    rounds that alternate which goes first, after a warm-up of each: off,
+    ``models.layers``' K1 gate refuses every head dim, so each call K1 would
+    take runs the plain path, as before K1 took the head dims 24, 48 and 64.
+    Host-clock ms after a synchronize; medians, the pairs K1 won and every
+    round.  With ``profile``, one run of each under torch.profiler: the
+    device's busy share and time, and K1's.  The launches of these runs are
+    not put down to the phase's tallies."""
+    from explainable_spatial_vqa_tpu_torch.models import layers
+
+    gate, pending = layers.head_dim_built, {k: t["pending"] for k, t in TALLIES.items()}
+    times, profiles = {True: [], False: []}, {}
+
+    def run(on):
+        layers.head_dim_built = gate if on else (lambda d_model, num_heads: False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        for on in (True, False):
+            run(on)
+        for r in range(K1_AB_ROUNDS):
+            for on in ((True, False) if r % 2 == 0 else (False, True)):
+                times[on].append(run(on))
+        for on in (True, False) if profile else ():
+            layers.head_dim_built = gate if on else (lambda d_model, num_heads: False)
+            profiles[on] = device_profile(torch, fn)
+    finally:
+        layers.head_dim_built = gate
+        for kind, tally in TALLIES.items():
+            tally["pending"] = pending.get(kind, 0)
+    on, off = statistics.median(times[True]), statistics.median(times[False])
+    won = sum(a < b for a, b in zip(times[True], times[False]))
+    text = (f"{label}, K1 on / off (the plain path): {on:.2f} / {off:.2f} ms (medians of "
+            f"{K1_AB_ROUNDS} alternating rounds; K1 faster in {won} of {K1_AB_ROUNDS} pairs; "
+            f"on {', '.join(f'{t:.2f}' for t in times[True])}; off "
+            f"{', '.join(f'{t:.2f}' for t in times[False])})")
+    for on, (wall, prof) in profiles.items():
+        if prof is None:
+            text += f"; profiled K1 {'on' if on else 'off'}: device time not measured"
+            continue
+        busy, top, _, kernels = prof
+        k1 = sum(ms for name, ms in top if "attention_kernel" in name)
+        text += (f"; profiled K1 {'on' if on else 'off'}: {wall * 1e3:.1f} ms, busy {busy:.3f}, "
+                 f"{sum(ms for _, ms in top):.2f} ms of {kernels} kernels and copies, K1 "
+                 f"{k1:.2f} ms; by device time: "
+                 + ", ".join(f"{name[:48]} {ms:.2f}" for name, ms in top[:4]))
+    say(text)
+
+
 def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str) -> None:
     """Phase 16's float32 check of a protocol run's final models: the
     recorded ``evaluate_pipeline_synthetic`` call (valA after the fine-tune)
@@ -2552,10 +2743,11 @@ def cogent(torch, np, dev, counted) -> dict:
 
     1. the routing on the card: eval forwards of the protocol's executor
        (``make_protocol_executor_config``, 4 heads, ``box_roi``) at d_model
-       96 and 192, head dims 24 and 48, in float32 and bf16, launch no K1
-       or K2 (the wrappers' counts, and no kernel of ours in a
-       ``torch.profiler`` trace); at 512, head dim 128, K2 once per fusion
-       layer and K1 once per forward;
+       96 and 192, head dims 24 and 48, in float32 and bf16, launch no K2
+       and K1 once per fusion layer and once per box-decoder layer (the
+       wrappers' counts, and ``attention_kernel`` in a ``torch.profiler``
+       trace); at 512, head dim 128, K2 once per fusion layer and K1 once
+       per forward;
     2. the protocol at its flagship width (``COGENT_FLAGSHIP``: d_model 192,
        3 fusion layers, ``box_roi``, cosine) at the CLI's defaults (80 A
        scenes, 20 per val, a pool of 40 B scenes, 6 questions each; 400
@@ -2563,12 +2755,14 @@ def cogent(torch, np, dev, counted) -> dict:
        ``bench_cogent.ProtocolParts``: the wall time of each part (the card
        synchronized only at each part's start and end), the median ms per
        generator and executor train step (CUDA events between optimizer
-       steps), the four cells, accuracy by type and the sizes; every cell
-       in [0, 1], every tally over the val questions, the executor's last
-       A-phase loss below its first (the first step's loss, from the same
-       call cut to one step);
+       steps), the four cells, accuracy by type and the sizes, K1's
+       launches per part; every cell in [0, 1], every tally over the val
+       questions, the executor's last A-phase loss below its first (the
+       first step's loss, from the same call cut to one step), K1 launched
+       in the evaluations (float32, head dim 48) and nowhere else, K2 never;
     3. those fine-tuned models on the CPU (:func:`protocol_card_vs_cpu`):
-       valA, card against CPU, equal;
+       valA, card (K1 at head dim 48) against CPU, equal; that evaluation
+       timed with K1 on and off and profiled (:func:`k1_on_off`);
     4. the kernel path: the protocol at d_model 512 (``COGENT_KERNEL_PATH``,
        fewer steps), whose evaluations launch K2 (float32, L=208) and K1
        (float32, the box decoder's 8 queries), each counted and printed,
@@ -2605,6 +2799,7 @@ def cogent(torch, np, dev, counted) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             cfg = sp.make_protocol_executor_config(vocabs, d_model=d_model, encoder_layers=2,
                                                    box_roi=True)
+            layers_per_forward = (cfg.encoder_layers, cfg.box_decoder_layers)
             model = init_parameters(ProgramExecutor(cfg, dtype, dev), seed=d_model).eval()
 
             def forward():
@@ -2625,11 +2820,14 @@ def cogent(torch, np, dev, counted) -> dict:
                 f"{counts['fused_attention']} launches; our kernels in its trace: "
                 f"{ours or 'none'}; outputs {'finite' if finite else 'NOT FINITE'}")
             del model
+    fusion, box_decoder = layers_per_forward
     for key, (counts, ours, finite) in routing.items():
-        built = key.startswith("d512")
-        want = (2, 1) if built else (0, 0)
+        # K2 on every fusion layer at head dim 128, else K1 in each plain
+        # block; K1 on each box-decoder layer's query self-attention
+        want = (fusion, box_decoder) if key.startswith("d512") else (0, fusion + box_decoder)
         got = (counts["fused_encoder_block"], counts["fused_attention"])
-        if got != want or bool(ours) != built or not finite:
+        if (got != want or not any("attention_kernel" in name for name in ours)
+                or not finite):
             fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
                  f"{want}; kernels in the trace {ours}")
 
@@ -2650,7 +2848,7 @@ def cogent(torch, np, dev, counted) -> dict:
         if row["steps"]:
             say(f"phase 16 part {row['part']}: {row['seconds']:.2f} s, {row['steps']} steps, "
                 f"median {row['median_step_ms']:.2f} ms a step, last loss "
-                f"{call['result'][2]:.4f}")
+                f"{call['result'][2]:.4f}, K1 {row['K1']} launches")
         else:
             say(f"phase 16 part {row['part']}: {row['seconds']:.2f} s, K2 {row['K2']}, K1 "
                 f"{row['K1']} launches; {call['result'][0]}")
@@ -2672,9 +2870,12 @@ def cogent(torch, np, dev, counted) -> dict:
         "each tally over the val questions": all(
             t.total == sizes["val_questions"] for t in result["tallies"].values()),
         "the executor's last loss below its first": last_loss < first_loss,
-        "no K2 or K1 launch at head dim 48": not any(
-            flagship_counts[k] for k in ("fused_attention", "fused_encoder_block",
-                                         "fused_encoder_block_tiled")),
+        "K1 in the evaluations and only there, at head dim 48, and no K2": (
+            all(r["K1"] > 0 for r in rows if r["part"].startswith("evaluation"))
+            and flagship_counts["fused_attention"] == sum(r["K1"] for r in rows)
+            and not any(r["K1"] for r in rows if not r["part"].startswith("evaluation"))
+            and not flagship_counts["fused_encoder_block"]
+            and not flagship_counts["fused_encoder_block_tiled"]),
     }
     for name, ok in flagship_checks.items():
         if not ok:
@@ -2682,8 +2883,12 @@ def cogent(torch, np, dev, counted) -> dict:
 
     # ---- 16.3 float32, card against the CPU, on valA ----
     protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
-                         "flagship (d_model 192, plain path)")
-    del result, parts
+                         "flagship (d_model 192, K1 at head dim 48)")
+    evaluated = parts.of("evaluate_pipeline_synthetic")[2]
+    k1_on_off(torch, "phase 16 flagship evaluate_pipeline_synthetic on valA (float32, d 192)",
+              lambda: sp.evaluate_pipeline_synthetic(*evaluated["args"], **evaluated["kwargs"]),
+              profile=True)
+    del result, parts, evaluated
     torch.cuda.empty_cache()
 
     # ---- 16.4 the kernel path: head dim 128 ----
@@ -2841,7 +3046,10 @@ def baselines(torch, np, dev, counted) -> dict:
 
     1. ``eval-iqap``'s path: ``cli.main.run_eval_iqap`` with
        ``transformer_iqap`` (d 256, 4 heads, 2+2 layers) in bf16 and float32
-       on all questions: questions/s (the median of ``REPEATS`` after a
+       on all questions, its encoder's self-attention on K1 (head dim 64,
+       once per layer) and nothing else of ours, the encode+answer and the
+       whole run also timed with K1 on and off (:func:`k1_on_off`):
+       questions/s (the median of ``REPEATS`` after a
        warm-up), encode+answer and the 27-step greedy decode timed apart by
        CUDA events, the kernels and copies of one decode, the card's busy
        share of a run under the profiler;
@@ -2851,7 +3059,8 @@ def baselines(torch, np, dev, counted) -> dict:
        largest logit error within 1e-4;
     3. ``infer-chain``'s path: ``step_seq2seq`` (d 256) in bf16 on every
        question's chain through ``Seq2SeqChainRunner.run`` and
-       ``run_bucketed_seq2seq``: chains/s each (median of ``REPEATS``), the
+       ``run_bucketed_seq2seq``, K1 once per encoder layer of each encode and
+       nothing else, the run also with K1 on and off: chains/s each (median of ``REPEATS``), the
        encodes and decode steps of a run, the share of chains whose outputs
        the two agree on; in float32 on ``BASELINE_FP32`` chains the two runs
        equal on the card, and the card equal to the CPU (a chain that
@@ -2984,10 +3193,18 @@ def baselines(torch, np, dev, counted) -> dict:
             f"copies per decode step; card busy {busy} of a run; launches {counts}; "
             f"answer accuracy {summary['answer_accuracy']:.3f}, program exact match "
             f"{summary['exact_match']:.3f} (random weights)")
+        # K1 once per encoder layer (one encode of every question), and
+        # nothing from the decoder's causal self-attention or cross-attention
+        want = dict.fromkeys(counts, 0)
+        want["fused_attention"] = iqap_cfg.encoder_layers
         if not (pred_answers.shape == (n,) and pred_programs.shape == (n, 27)
-                and sum(counts.values()) == 0):
-            fail("phase 17.1 check failed: an answer and a program per question, and no kernel "
-                 "of ours at head dim 64")
+                and counts == want):
+            fail(f"phase 17.1 check failed: an answer and a program per question, and K1 once "
+                 f"per encoder layer at head dim 64 and nothing else: launches {counts}")
+        with torch.no_grad(), eval_mode(model):
+            k1_on_off(torch, f"phase 17.1 {name} encode+answer (B={n}, L={iqap_len})",
+                      lambda: model(images, q_dev)["answer_logits"])
+        k1_on_off(torch, f"phase 17.1 {name} run_eval_iqap on {n} questions", run)
         if dtype == torch.float32:
             fp32_iqap = model
         del model
@@ -3036,8 +3253,18 @@ def baselines(torch, np, dev, counted) -> dict:
                     f"{r[2]['encode']} encodes and {r[2]['decode_step']} decode steps a run, "
                     f"launches {r[3]}" for mode, r in rates.items())
         + f"; the two runs' step outputs agree on {agree:.3f} of the chains (bf16)")
-    if sum(rates["run"][3].values()) or not (outs["run"]["step_outputs"] != 0).any():
-        fail("phase 17.3 check failed: decoded outputs, and no kernel of ours at head dim 64")
+    for mode, (_, _, mode_calls, counts) in rates.items():
+        # K1 once per encoder layer of every encode, and nothing else
+        want = dict.fromkeys(counts, 0)
+        want["fused_attention"] = seq_cfg.encoder_layers * mode_calls["encode"]
+        if counts != want or not mode_calls["encode"]:
+            fail(f"phase 17.3 check failed: {mode} must launch K1 once per encoder layer of "
+                 f"each of its {mode_calls['encode']} encodes at head dim 64 and nothing else: "
+                 f"launches {counts}")
+    if not (outs["run"]["step_outputs"] != 0).any():
+        fail("phase 17.3 check failed: no decoded output")
+    k1_on_off(torch, f"phase 17.3 Seq2SeqChainRunner.run, bf16, {len(chains.num_steps)} chains",
+              lambda: chain_run(seq, None))
     del seq
 
     def chains_fp32(cfg, rows, seed, label):
@@ -3315,6 +3542,11 @@ def cot_and_prototypes(torch, np, dev, counted) -> dict:
        the preset's batch (ms, peak GiB), a fixed batch's loss below 0.8
        of its first within ``PROTO_UPDATES`` updates, a float32 step on the
        card against the CPU (loss within 1e-5 relative);
+       Each preset's eval forward (its loss in eval mode, no autograd) is
+       counted: K1 once per encoder layer and once per decoder layer in
+       ``hierarchical`` (d 256, head dim 64), nothing in the others, which
+       hold no attention; the CoT's decode launches K1 once per encoder
+       layer;
     3. K2 on a new path: ``HierarchicalGenerator`` at d 512, 4 heads (head
        dim 128), 2 layers, batch 128, 196 image tokens, no mask: an eval
        forward in bf16 launches K2 once per encoder layer and K1 once per
@@ -3393,7 +3625,7 @@ def cot_and_prototypes(torch, np, dev, counted) -> dict:
     decode(model, 16, dev)  # first calls
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    tokens, _ = decode(model, len(questions), dev)
+    (tokens, _), cot_launches = counted(lambda: decode(model, len(questions), dev))
     end.record()
     torch.cuda.synchronize()
     decode_ms = start.elapsed_time(end)
@@ -3410,7 +3642,9 @@ def cot_and_prototypes(torch, np, dev, counted) -> dict:
                                    decode(cpu32, COT_DECODE_FP32, torch.device("cpu")))
     gaps = decision_gaps(np, t_card.cpu().numpy(), t_cpu.numpy(), l_cpu.numpy())
     say(f"phase 18.1 CoT greedy decode of the combined sequence, bf16, {len(questions)} "
-        f"questions x {mcfg.program_len} steps: {decode_ms:.2f} ms (CUDA events); "
+        f"questions x {mcfg.program_len} steps: {decode_ms:.2f} ms (CUDA events), launches "
+        f"{cot_launches} (K1 {mcfg.encoder_layers} expected: the encoder's self-attention at "
+        f"head dim {mcfg.embed_dim // mcfg.num_heads}, once per layer); "
         f"mean_sequential_iou {iou['mean_iou']:.4f} over {int(iou['evaluated'])} rows with "
         f"boxes; float32 step card vs CPU ({PROTO_FP32_ROWS} rows, deterministic): loss "
         f"{agree['card']:.6f} vs {agree['cpu']:.6f} (rel {agree['rel']:.2e}, tol 1e-5), "
@@ -3423,11 +3657,15 @@ def cot_and_prototypes(torch, np, dev, counted) -> dict:
     if (agree["rel"] > 1e-5 or agree["grad"] > 1e-4 or agree["key_bias"] > 1e-6
             or any(g > NEAR_TIE for g in gaps)):
         fail("phase 18.1: the float32 CoT step or decode on the card disagrees with the CPU")
+    if cot_launches != dict(dict.fromkeys(cot_launches, 0), fused_attention=mcfg.encoder_layers):
+        fail(f"phase 18.1: the CoT decode must launch K1 once per encoder layer and nothing "
+             f"else: {cot_launches}")
     del pipe, model32, cpu32
     torch.cuda.empty_cache()
 
     # ---- 18.2 the prototype presets ----
     fv, vv = data["vocabs"]["function"], data["vocabs"]["other"]
+    proto_launches, proto_k1 = {}, {}
     for preset in ("token_only", "bb_only", "bb_only_iou", "yolo_bb", "multitask_bb", "bbinout",
                    "multihead", "hierarchical"):
         t0 = time.perf_counter()
@@ -3436,23 +3674,36 @@ def cot_and_prototypes(torch, np, dev, counted) -> dict:
         pipe = pipelines.prototype_step_pipeline_from_arrays(cfg, steps, fv, vv, feats,
                                                              device=dev)
         params = sum(p.numel() for p in pipe.model.parameters())
-        r = timed_fixed_batch(torch, dev, trainer_of(cfg, pipe),
-                              to_device(next(iter(pipe.train_batches(0))), dev), PROTO_UPDATES)
-        del pipe
+        batch = to_device(next(iter(pipe.train_batches(0))), dev)
+        with torch.no_grad(), eval_mode(pipe.model):  # an eval forward's launches
+            _, proto_launches[preset] = counted(lambda: pipe.loss_fn(
+                pipe.model, batch, torch.Generator().manual_seed(0), False))
+        if cfg.model.kind == "hierarchical":
+            proto_k1[preset] = len(pipe.model.encoder.blocks) + len(pipe.model.decoder.blocks)
+        r = timed_fixed_batch(torch, dev, trainer_of(cfg, pipe), batch, PROTO_UPDATES)
+        del pipe, batch
         cfg32 = with_train(cfg, dtype="float32", batch_size=PROTO_FP32_ROWS)
         agree = card_vs_cpu_loss(torch, dev, pipelines.prototype_step_pipeline_from_arrays(
             cfg32, steps, fv, vv, feats, device=dev), train=True, grads=False)
         say(f"phase 18.2 {preset} ({cfg.model.kind}, bf16, batch {cfg.train.batch_size}, lr "
             f"{cfg.optim.learning_rate}, {params / 1e6:.2f}M parameters): {step_text(r)}; "
             f"float32 step card vs CPU ({PROTO_FP32_ROWS} rows): loss {agree['card']:.6f} vs "
-            f"{agree['cpu']:.6f} (rel {agree['rel']:.2e}, tol 1e-5); "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{agree['cpu']:.6f} (rel {agree['rel']:.2e}, tol 1e-5); an eval forward's "
+            f"launches {proto_launches[preset]}; {time.perf_counter() - t0:.1f} s")
         if not (r["finite"] and r["below"] is not None):
             fail(f"phase 18.2: the {preset} fixed batch's loss did not fall below 0.8 of its "
                  f"first within {PROTO_UPDATES} updates")
         if agree["rel"] > 1e-5:
             fail(f"phase 18.2: the {preset} float32 loss on the card disagrees with the CPU")
         torch.cuda.empty_cache()
+    # only HierarchicalGenerator holds attention: at its preset (d 256, head
+    # dim 64) K1 once per encoder layer and once per decoder layer's
+    # start-query self-attention, and no K2
+    for preset, launches_ in proto_launches.items():
+        want = dict(fused_attention=proto_k1.get(preset, 0), fused_encoder_block=0,
+                    fused_encoder_block_tiled=0)
+        if any(launches_[k] != n for k, n in want.items()):
+            fail(f"phase 18.2: {preset}'s eval forward launched {launches_}, not {want}")
 
     # ---- 18.3 K2 on a new path: HierarchicalGenerator at d 512 ----
     t0 = time.perf_counter()
@@ -3923,14 +4174,21 @@ def library_layer(torch, w, d: int, h: int, ffn: int, dtype):
 # ---------------------------------------------------------------------------
 
 
+NATIVE_ROUNDS = 5  # phase 20.1's alternating timing rounds
+
+
 def native_engine(np, results: dict) -> None:
     """Phase 20.1: the native CLEVR engine (``clevr/native.py``, g++ at first
     use; phase 2 built it and timed the build) on phase 17's 512 CLEVR-factory
     questions over 128 scenes: each question's outputs and relevant-object
     sets through the engine (``annotate._execute_with_poisoning``) and
     through the Python executor (``annotate._execute_python``) must be
-    equal, the engine must have run every program, and both are timed, with
-    the batched call (one per scene) beside them."""
+    equal, and the engine must have run every program.  Both are timed over
+    all the questions in ``NATIVE_ROUNDS`` rounds that alternate which goes
+    first, with the engine's packing (scene and program), C call and
+    decoding timed apart in a third pass of each round, and the batched
+    call (one per scene, packing outside) beside them; medians, as totals
+    for all the questions and per question."""
     from explainable_spatial_vqa_tpu_torch.clevr import annotate as ann
     from explainable_spatial_vqa_tpu_torch.clevr import native
     from explainable_spatial_vqa_tpu_torch.clevr import synthetic as syn
@@ -3944,14 +4202,41 @@ def native_engine(np, results: dict) -> None:
     if not native.native_available():  # loads the library built in phase 2
         fail("phase 20.1: the native engine did not load")
     load_s = time.perf_counter() - t0
+
+    def engine():
+        return [ann._execute_with_poisoning(scene, program) for scene, program in runs]
+
+    def python():
+        return [ann._execute_python(scene, program) for scene, program in runs]
+
+    def engine_parts():
+        """execute_native's own timing of its three parts, each summed over
+        the programs the engine runs: packing, the C call, decoding."""
+        native.execute_native.parts = [0.0, 0.0, 0.0]
+        try:
+            engine()
+            return native.execute_native.parts
+        finally:
+            native.execute_native.parts = None
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        value = fn()
+        return value, time.perf_counter() - t0
+
     native.execute_native.programs = 0
-    t0 = time.perf_counter()
-    on_engine = [ann._execute_with_poisoning(scene, program) for scene, program in runs]
-    native_s = time.perf_counter() - t0
-    programs = native.execute_native.programs
-    t0 = time.perf_counter()
-    on_python = [ann._execute_python(scene, program) for scene, program in runs]
-    python_s = time.perf_counter() - t0
+    native_s, python_s, parts = [], [], []
+    for r in range(NATIVE_ROUNDS):
+        for which in (("engine", "python") if r % 2 else ("python", "engine")):
+            if which == "engine":
+                on_engine, seconds = timed(engine)
+                native_s.append(seconds)
+                if r == 0:
+                    programs = native.execute_native.programs
+            else:
+                on_python, seconds = timed(python)
+                python_s.append(seconds)
+        parts.append(engine_parts())
     by_scene = {}
     for scene, program in runs:
         by_scene.setdefault(scene.image_index, (scene, []))[1].append(program)
@@ -3962,16 +4247,25 @@ def native_engine(np, results: dict) -> None:
         native.execute_batch_native(scene_packed, steps)
     batch_s = time.perf_counter() - t0
     equal = sum(a == b for a, b in zip(on_engine, on_python))
+    n = len(runs)
+    engine_med, python_med = statistics.median(native_s), statistics.median(python_s)
+    pack_med, call_med, decode_med = (statistics.median(p[i] for p in parts) for i in range(3))
     say(f"phase 20.1 native engine: g++ build {results['native_build_s']:.2f} s (phase 2), "
         f"load {load_s * 1e3:.1f} ms; "
-        f"{len(runs)} CLEVR-factory questions over {len(scenes)} scenes, {programs} programs on "
+        f"{n} CLEVR-factory questions over {len(scenes)} scenes, {programs} programs on "
         f"the engine; outputs and relevant-object sets equal to the Python executor's on "
-        f"{equal} of {len(runs)}; per question: engine {native_s * 1e3:.2f} ms, Python "
-        f"{python_s * 1e3:.2f} ms ({python_s / native_s:.1f}x); batched, one call per scene "
-        f"(packing outside): {batch_s * 1e3:.3f} ms ({python_s / batch_s:.1f}x)")
+        f"{equal} of {n}; medians of {NATIVE_ROUNDS} alternating rounds, for all {n} "
+        f"questions (per question): engine {engine_med * 1e3:.2f} ms "
+        f"({engine_med / n * 1e3:.4f}), Python {python_med * 1e3:.2f} ms "
+        f"({python_med / n * 1e3:.4f}), {python_med / engine_med:.2f}x; the engine's parts: "
+        f"packing {pack_med * 1e3:.2f} ms, C call {call_med * 1e3:.2f} ms, decoding "
+        f"{decode_med * 1e3:.2f} ms; every round, ms: engine "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in native_s)}, Python "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in python_s)}; batched, one call per scene "
+        f"(packing outside): {batch_s * 1e3:.3f} ms ({python_med / batch_s:.1f}x)")
     if programs == 0:
         fail("phase 20.1: no program ran on the native engine")
-    if equal != len(runs):
+    if equal != n:
         fail("phase 20.1: the native engine disagrees with the Python executor")
 
 

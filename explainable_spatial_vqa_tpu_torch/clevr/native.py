@@ -15,7 +15,10 @@ output, and :func:`execute_native` then runs the Python executor, as the
 JAX package does without its library.
 
 ``execute_native.programs`` counts the programs the library ran since it
-was last set to 0 (the Python executor's runs are not counted).
+was last set to 0 (the Python executor's runs are not counted).  Set
+``execute_native.parts`` to ``[0.0, 0.0, 0.0]`` and each program the library
+runs adds its packing, C call and decoding seconds to it; ``None`` (the
+default) times nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from functools import lru_cache
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -223,6 +227,9 @@ def execute_native(scene: Scene, program: Sequence[Dict[str, Any]],
     lib = _load()
     if lib is None:
         return execute_program(scene, program)
+    parts = execute_native.parts
+    if parts is not None:
+        t0 = time.perf_counter()
     if packed is None:
         packed = PackedScene(scene)
     try:
@@ -230,6 +237,8 @@ def execute_native(scene: Scene, program: Sequence[Dict[str, Any]],
     except (ValueError, IndexError):
         return execute_program(scene, program)
     out = np.zeros((len(program), 3), np.int32)
+    if parts is not None:
+        t1 = time.perf_counter()
     rc = lib.clevr_execute(
         packed.n_obj, _ptr(packed.attrs), _ptr(packed.rel_offsets),
         _ptr(packed.rel_values), steps.shape[0], _ptr(steps), _ptr(out),
@@ -237,10 +246,17 @@ def execute_native(scene: Scene, program: Sequence[Dict[str, Any]],
     if rc != 0:
         raise RuntimeError("native execution failed")
     execute_native.programs += 1
-    return _decode(out, program, packed.n_obj)
+    if parts is None:
+        return _decode(out, program, packed.n_obj)
+    t2 = time.perf_counter()
+    values = _decode(out, program, packed.n_obj)
+    for i, dt in enumerate((t1 - t0, t2 - t1, time.perf_counter() - t2)):
+        parts[i] += dt
+    return values
 
 
 execute_native.programs = 0
+execute_native.parts = None
 
 
 def execute_batch_native(packed: PackedScene, programs: Sequence[np.ndarray]) -> np.ndarray:

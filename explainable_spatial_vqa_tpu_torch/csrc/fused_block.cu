@@ -944,8 +944,8 @@ cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const
   // heads read q, k and v straight out of the (B, L, 3d) projection buffer;
   // the output is rounded to the weights' type, the out projection's rounding
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_attention<float, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
-                                         qkv_bs, qkv_rs, (long long)L * d, d, s)))
+  if ((err = launch_attention<float, TW, 128>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L,
+                                              d / H, qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
   if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
@@ -974,8 +974,8 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
   // ceil(3 M d / 32) words, within M d for M >= 8)
   if ((err = qkv_gemm<true>(x, x1w, x1, w_qkv, b_qkv, qkv, M, d, proj, s))) return err;
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
-                                      qkv_bs, qkv_rs, (long long)L * d, d, s)))
+  if ((err = launch_attention<TW, TW, 128>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
+                                           qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
   if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;

@@ -13,8 +13,10 @@ content matches each box's pooled content (``roi_sim_heads`` match maps per
 box); with ``count_embed`` CLS receives an embedding of the number of valid
 input boxes.  Both channels start at zero, as in the JAX package.
 
-On a CUDA device the fusion encoder's blocks run on K2 and the box decoder's
-query self-attention on K1.
+On a CUDA device, in eval mode, the fusion encoder's blocks run on K2 at head
+dim 128 (d_model 512) and the box decoder's query self-attention on K1; at
+the CoGenT protocol's head dims 24 and 48 (d_model 96, 192) the blocks run
+the plain path with their self-attention on K1.
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ memory.  ``answer_out``, ``prog_out`` and ``bbox_out`` compute in float32
 whatever the model's type, as their Flax ``Dense(dtype=float32)`` do.
 
 In eval mode on the card the encoder's blocks run on K2 when their head dim
-is one the kernels are built for (:class:`~.layers.EncoderBlock`); the
-presets' head dim 64 runs the plain path, as in the JAX package.
+is 128 (:class:`~.layers.EncoderBlock`); at the presets' head dim 64 they run
+the plain path, as in the JAX package, with their self-attention on K1.  The
+program decoder's causal self-attention and its cross-attention never reach
+K1.
 """
 
 from __future__ import annotations

@@ -10,10 +10,13 @@ plain attention rounds its scores to bf16 first).  LayerNorm uses eps 1e-6
 (Flax's), not PyTorch's 1e-5.
 
 :class:`EncoderBlock` routes eligible calls (post-LN, eval mode, a key-padding
-mask or none, a head dim the kernels are built for) to the fused encoder
-block K2, and :class:`MultiHeadAttention` routes eligible self-attention at
-such a head dim to K1, as ``_fused_eligible`` and the attention dispatch do
-in the JAX package; every other width runs the plain path.
+mask or none, a head dim of ``ops.fused_block.BLOCK_HEAD_DIMS``, 128) to the
+fused encoder block K2, as ``_fused_eligible`` does in the JAX package (head
+dims that are multiples of 128); :class:`MultiHeadAttention` routes eligible
+self-attention (eval mode with no autograd graph, same length, a key-padding
+mask or none) to K1 at every head dim the models have
+(``ops.fused_attention.HEAD_DIMS``: 24, 48, 64, 128), as JAX's attention
+dispatch does at any.  Every other call runs the plain path.
 
 The decoders (:class:`TransformerDecoder`) run teacher-forced under a causal
 mask, or one token at a time over explicit KV caches (``init_cache`` and
@@ -21,8 +24,10 @@ mask, or one token at a time over explicit KV caches (``init_cache`` and
 compute type; step ``index`` writes its K/V at that position out of place
 (``torch.where`` on a one-hot row, so autograd reaches every earlier step's
 projections through the cache) and attends over the whole static cache with
-the keys past ``index`` masked out.  Neither path reaches K1: a causal mask
-is not a key-padding mask, and a step's one query is not its keys' length.
+the keys past ``index`` masked out.  Neither path reaches K1, but for a
+teacher-forced pass over one token, whose (1, 1, 1, 1) causal mask JAX's rule
+takes: a longer causal mask is not a key-padding mask, and a step's one query
+is not its keys' length.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
 )
 from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     LN_EPS,
+    block_head_dim_built,
     fuse_encoder_params,
     fused_encoder_block,
     split_block_weights,
@@ -242,7 +248,9 @@ class MultiHeadAttention(nn.Module):
     """Multi-head attention with q/k/v/out projections of width d_model.
 
     Self-attention with a key-padding mask or none, at a head dim K1 is
-    built for, runs on K1 in eval mode; every other call takes
+    built for, runs on K1 in eval mode when no autograd graph is recorded
+    (the kernel has no backward: an eval forward that is differentiated
+    takes the plain path, which has); every other call takes
     :func:`dot_product_attention`."""
 
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
@@ -261,6 +269,7 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.q, query)
         k, v = self._heads(self.k, keyvalue), self._heads(self.v, keyvalue)
         if (not self.training and head_dim_built(d, self.num_heads)
+                and not (q.requires_grad or k.requires_grad or v.requires_grad)
                 and not has_sharded_params(self) and attention_eligible(q, k, mask)):
             out = fused_attention(q, k, v, mask)
         else:
@@ -337,19 +346,23 @@ class EncoderBlock(nn.Module):
             h = self.norm1(x, nt).to(dt)
             x = x + self.drop(self.attn(h, h, mask))
             return x + self.drop(self.ffn(self.norm2(x, nt).to(dt)))
-        if self._fused_eligible(mask):
+        if self._fused_eligible(x, mask):
             return self._fused_forward(x, mask)
         x = self.norm1(x + self.drop(self.attn(x, x, mask)), nt).to(dt)
         return self.norm2(x + self.drop(self.ffn(x)), nt).to(dt)
 
-    def _fused_eligible(self, mask: Optional[torch.Tensor]) -> bool:
-        """Route to K2 in eval mode (it has no backward) at a head dim it is
-        built for, with a key-padding mask or none, and whole local weights
-        (a block split over ranks by ``parallel.sharding`` has DTensor
-        parameters and runs the plain path); post-LN is checked by the
-        caller.  ``ops.lowp`` plays no part, as in the JAX package."""
-        if (self.training or not head_dim_built(self.d_model, self.num_heads)
+    def _fused_eligible(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
+        """Route to K2 in eval mode when no autograd graph is recorded (it
+        has no backward), at a head dim it is built for, with a key-padding
+        mask or none, and whole local weights (a block split over ranks by
+        ``parallel.sharding`` has DTensor parameters and runs the plain
+        path); post-LN is checked by the caller.  ``ops.lowp`` plays no
+        part, as in the JAX package."""
+        if (self.training or not block_head_dim_built(self.d_model, self.num_heads)
                 or has_sharded_params(self)):
+            return False
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or any(p.requires_grad for p in self.parameters())):
             return False
         return mask is None or (mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1)
 

@@ -26,8 +26,9 @@ as (B, C, H, W) grids or (B, P, C) tokens where both are accepted; the
 pooled axis follows.  All layers here are plain PyTorch (cuBLAS, cuDNN): the
 JAX package runs none of them in a Pallas kernel.  The encoder of
 :class:`HierarchicalGenerator` is the port's
-:class:`~.layers.TransformerEncoder`, so in eval mode at a head dim the
-kernels are built for its blocks run on K2; in train mode they never do.
+:class:`~.layers.TransformerEncoder`, so in eval mode its blocks run on K2
+at head dim 128 and their self-attention on K1 at the preset's 64; in train
+mode neither runs.
 """
 
 from __future__ import annotations

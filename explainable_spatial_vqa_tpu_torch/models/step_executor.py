@@ -12,8 +12,10 @@ greedily over KV caches in inference (:meth:`~StepExecutorSeq2Seq.init_cache`,
 and :class:`~..infer.chain.Seq2SeqChainRunner`).  The encoder runs once per
 step; decoding does not re-run it.
 
-In eval mode on the card the encoder's blocks run on K2 at a head dim the
-kernels are built for, with the key mask or none.
+In eval mode on the card the encoder's blocks run on K2 at head dim 128, with
+the key mask or none; at the preset's head dim 64 their self-attention runs
+on K1.  The decoder's causal self-attention and its cross-attention never
+reach K1.
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ which computes the same arithmetic.
 
 :func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
 mask or none, the calls :func:`attention_eligible` accepts.  A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.  The models
-route to K1 and K2 only at a head dim the kernels are built for
-(:func:`head_dim_built`); every other width takes the plain path.
+the plain version; a CUDA tensor launches the kernel or raises.  Like the TPU
+kernel, which takes any head dim, K1 is built for every head dim the models
+have (:data:`HEAD_DIMS`); the models route to it at those
+(:func:`head_dim_built`), and other widths take the plain path.  K2 and K3
+have their own, narrower set (``ops.fused_block.BLOCK_HEAD_DIMS``).
 """
 
 from __future__ import annotations
@@ -28,17 +30,18 @@ __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim
            "key_mask_f32", "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (128,)  # the model's (d=512, 4 heads); instantiated in csrc/attention.cuh
+# K1's head dims, each instantiated in csrc/fused_attention.cu: 4 heads of
+# d_model 96 and 192 (the CoGenT protocol's executors), 256 (the baselines,
+# the CoT IQAP, HierarchicalGenerator's preset) and 512 (the thesis executor)
+HEAD_DIMS = (24, 48, 64, 128)
 MAX_LEN = 1024  # bf16 keeps 224 keys' scores in registers; longer rows take two passes
 
 
 def head_dim_built(d_model: int, num_heads: int) -> bool:
-    """True when ``d_model`` splits into ``num_heads`` heads of a dim in
-    :data:`HEAD_DIMS`, the only head dims K1 and K2 are built for.  The JAX
-    package routes to its fused block only at MXU-aligned widths
-    (``d_model % 128 == 0`` and a head dim that is a multiple of 128); here
-    the models send K1 and K2 nothing else, and the wrappers still raise on
-    a CUDA tensor of another head dim."""
+    """True when ``d_model`` splits into ``num_heads`` heads of a dim K1 is
+    built for (:data:`HEAD_DIMS`).  JAX's dispatch (``ops/attention.py:51-59``)
+    has no head-dim condition: its kernel takes any; here the models send K1
+    these, and the wrapper raises on a CUDA tensor of another head dim."""
     return d_model % num_heads == 0 and d_model // num_heads in HEAD_DIMS
 
 

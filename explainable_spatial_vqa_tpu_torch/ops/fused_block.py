@@ -54,7 +54,6 @@ from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     DTYPE_CODES,
-    HEAD_DIMS,
     MAX_LEN,
     key_mask_f32,
 )
@@ -62,9 +61,22 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
 __all__ = ["BlockWeights", "SplitWeights", "block_scratch", "fuse_encoder_params",
            "fused_encoder_block", "fused_encoder_block_plain", "fused_encoder_block_tiled",
            "fused_encoder_block_tiled_plain", "split_block_weights", "split_tf32",
-           "tiled_plain_after_qkv", "pad_len", "LN_EPS"]
+           "tiled_plain_after_qkv", "pad_len", "block_head_dim_built", "BLOCK_HEAD_DIMS",
+           "LN_EPS"]
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default, and ops/pallas_block.py:106
+# the head dims csrc/fused_block.cu instantiates its attention at: the JAX
+# package routes to its fused block only where the head dim is a multiple of
+# 128 (models/layers.py:_fused_eligible)
+BLOCK_HEAD_DIMS = (128,)
+
+
+def block_head_dim_built(d_model: int, num_heads: int) -> bool:
+    """True when ``d_model`` splits into ``num_heads`` heads of a dim in
+    :data:`BLOCK_HEAD_DIMS`, the only head dims K2 and K3 are built for.  The
+    models send K2 nothing else, and the wrappers raise on a CUDA tensor of
+    another head dim."""
+    return d_model % num_heads == 0 and d_model // num_heads in BLOCK_HEAD_DIMS
 
 
 def pad_len(length: int, multiple: int = 8) -> int:
@@ -264,11 +276,11 @@ def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: 
     ffn = weights.ffn1.shape[0]
     if x.dtype not in DTYPE_CODES or wdt not in DTYPE_CODES:
         raise ValueError(f"{name}: x and weights must be one of {list(DTYPE_CODES)}")
-    if (d_model % num_heads or d_model // num_heads not in HEAD_DIMS or length > MAX_LEN
+    if (not block_head_dim_built(d_model, num_heads) or length > MAX_LEN
             or batch > 65535 or batch * length > 65535 * 64):
         raise ValueError(
             f"{name}: head dim d/H = {d_model}/{num_heads} must be one of "
-            f"{HEAD_DIMS}, length {length} at most {MAX_LEN}, batch at most 65535 and "
+            f"{BLOCK_HEAD_DIMS}, length {length} at most {MAX_LEN}, batch at most 65535 and "
             f"batch * length at most {65535 * 64}")
     shapes = {"qkv": (3 * d_model, d_model), "out": (d_model, d_model), "ffn1": (ffn, d_model),
               "ffn2": (d_model, ffn), "qkv_bias": (3 * d_model,), "ffn1_bias": (ffn,)}

@@ -141,6 +141,24 @@ def test_annotation_runs_native_and_matches_jax(corpus, golden_synthetic):
     assert got == want
 
 
+def test_part_timing_leaves_outputs_alone(corpus, golden_synthetic):
+    """``execute_native.parts`` (phase 20.1's packing, C call and decoding
+    times) sums three non-negative times over the programs the engine runs,
+    gives the same outputs as an untimed call, and is off by default."""
+    _, tsc, _, _ = corpus
+    progs = [q["program"] for q in golden_synthetic["questions"]]
+    assert native.execute_native.parts is None
+    want = [native.execute_native(tsc[0], p) for p in progs]
+    native.execute_native.parts = [0.0, 0.0, 0.0]
+    try:
+        got = [native.execute_native(tsc[0], p) for p in progs]
+        parts = native.execute_native.parts
+    finally:
+        native.execute_native.parts = None
+    assert got == want
+    assert len(parts) == 3 and all(t >= 0.0 for t in parts) and sum(parts) > 0.0
+
+
 def test_structured_annotation_equal(corpus, golden_synthetic):
     raw, tsc, jsc, questions = corpus
     by_index = {t.image_index: (t, j) for t, j in zip(tsc, jsc)}

@@ -1,13 +1,16 @@
-"""The port routes to K1 and K2 only at a head dim the kernels are built for,
-as the JAX package routes to its fused block only at MXU-aligned widths
-(``explainable_spatial_vqa_tpu/models/layers.py``, ``_fused_eligible``).
+"""The port routes to K2 only at head dim 128, as the JAX package routes to
+its fused block only at MXU-aligned widths
+(``explainable_spatial_vqa_tpu/models/layers.py``, ``_fused_eligible``), and
+to K1 at every head dim the models have (24, 48, 64, 128), as JAX's attention
+dispatch takes any (``explainable_spatial_vqa_tpu/ops/attention.py:51-59``).
 
 Spies stand in for the ``fused_encoder_block`` and ``fused_attention`` that
 ``models/layers.py`` calls: each records its call and returns the wrapper's
 own result (the plain version, on the CPU).  An eval forward of the
 protocol's executor (4 heads) at d_model 96 and 192, head dims 24 and 48,
-must call neither; at 512, head dim 128, every fusion layer calls K2 and the
-box decoder's query self-attention calls K1.
+calls K1 once per fusion layer (the plain block's self-attention) and once
+per box-decoder layer, and K2 never; at 512, head dim 128, every fusion
+layer calls K2 and the box decoder's query self-attention calls K1.
 """
 
 import dataclasses
@@ -20,6 +23,10 @@ from explainable_spatial_vqa_tpu_torch.models import layers
 from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
 from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, head_dim_built
+from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+    BLOCK_HEAD_DIMS,
+    block_head_dim_built,
+)
 from explainable_spatial_vqa_tpu_torch.train.synthetic_protocol import (
     make_protocol_executor_config,
 )
@@ -64,9 +71,17 @@ def _eval_forward(d_model: int, train: bool = False):
 
 @pytest.mark.parametrize("d_model", [96, 192])
 def test_unbuilt_head_dims_take_the_plain_path(spies, d_model):
+    """Head dims K2 is not built for take the plain block, whose
+    self-attention, like the box decoder's, runs on K1: d 96 and d 192 run
+    K1 and never K2."""
     cfg = _eval_forward(d_model)
-    assert d_model // cfg.num_heads not in HEAD_DIMS
-    assert spies == {"block": [], "attention": []}
+    head_dim = d_model // cfg.num_heads
+    assert head_dim not in BLOCK_HEAD_DIMS and head_dim in HEAD_DIMS
+    assert spies["block"] == []
+    # (B, L, H, D): the fusion layers at L = CLS + 4 image + 8 box + 3 text,
+    # then the box decoder's queries
+    assert spies["attention"] == ([(3, 16, 4, head_dim)] * cfg.encoder_layers
+                                  + [(3, cfg.num_queries, 4, head_dim)] * cfg.box_decoder_layers)
 
 
 def test_head_dim_128_routes_to_k2_and_k1(spies):
@@ -86,4 +101,14 @@ def test_training_forward_never_routes(spies):
     (512, 4, True), (256, 2, True), (128, 1, True), (96, 4, False), (192, 4, False),
     (384, 4, False), (512, 2, False), (500, 4, False), (130, 4, False)])
 def test_head_dim_built(d_model, heads, built):
+    """K2's head dims: 128 only."""
+    assert block_head_dim_built(d_model, heads) is built
+
+
+@pytest.mark.parametrize("d_model, heads, built", [
+    (96, 4, True), (192, 4, True), (256, 4, True), (512, 4, True), (384, 4, False),
+    (512, 2, False), (130, 4, False)])
+def test_k1_head_dim_built(d_model, heads, built):
+    """K1's head dims: 24, 48, 64 and 128; 96 (384/4) and 256 (512/2) are
+    not built, nor a width that does not split into whole heads."""
     assert head_dim_built(d_model, heads) is built
