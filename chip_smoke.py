@@ -16,7 +16,7 @@ result:
    and HMMA (mma.sync) instructions (``cuobjdump -sass``): the attention
    kernels must hold HMMA, the block GEMM HGMMA in bf16 and in float32
    (``gemm_tf32_wgmma``, 3xTF32), and ptxas's notes on serialized wgmma are
-   printed;
+   printed, and the one-pass K1 kernel's on a line of its own;
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
    float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
    outputs are held by ``attention_agreement`` (against float64 scores and
@@ -26,8 +26,12 @@ result:
    L=210 draws and at L=10 (the shipped tensor-core form fails the phase if
    it misses a draw; the other's verdict is printed), both timed through the
    same call, by events and by the kernel's device time; K1 at head dims
-   24, 48 and 64 at every length the models run (``k1_head_dims``: L = 8,
-   208, 243, 246, both types), then timed at each model's shape; K2's own float32
+   24, 48 and 64 at the models' lengths and where the bf16 paths split
+   (``k1_head_dims``: L = 8, 17, 208, 224, 225, 243, 246, 256, 257, both
+   types; each call's kernel function read from the C library's launch
+   counts and held to ``K1_CHECK_LENGTHS``'s, the ring at L=257 also named
+   by a profile), then checked the same way and timed at each model's shape,
+   the one-pass kernel named by a profile at the bf16 shapes; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -46,6 +50,8 @@ result:
 4. times at those shapes: kernel, plain version, one PyTorch library call
    computing the same function (a yardstick the port never calls), and the
    least time the card could take (its bound: ``bound_ms``, ``dot_ops``);
+   K1 at the box decoders' shapes through its wrapper beside the kernel's
+   device time and SDPA (``k1_wrapper_times``);
 5. the block-bench path: ``bench_block.main`` at B=128, which launches K3
    through its entry point beside K2 and the unfused ``EncoderBlock``;
 6. the main path at full width (bench.py's widths, bf16, ``box_roi`` and
@@ -198,7 +204,11 @@ The line before the last is a JSON object with one entry per kernel
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
 ``at_shapes``; then K1 at head dims 24, 48 and 64, each at its first
 model's encoder shape with the rest under ``at_shapes`` and its launches
-through the models by phase, which must not be 0) and one per piece timed apart
+through the models by phase, which must not be 0; then K1's one-pass kernel,
+``fused_attention_onepass``, at the Transformer IQAP's encoder shape with
+the other bf16 shapes under ``at_shapes`` and its launches through the
+models by phase, as the C library counted them, which must not be 0) and
+one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
 variant); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -241,7 +251,18 @@ K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 # K1 at the head dims below 128: each in both types at the lengths the models
 # run (phase 3, B=128, H=4), then timed at each model's shape in its type
 # (phase 4): label, head dim, B, L, key mask, type
-K1_CHECK_LENGTHS = ((8, False), (208, True), (243, True), (246, True))
+# The bf16 paths split at 16 (one warp), 224 (the ring's one-chunk rows),
+# 256 (the one-pass kernel's longest row) and 257 (the ring's two passes):
+# the lengths around each, with the kernel function each bf16 call must
+# launch (read from the C library's launch counts; float32 takes
+# attention_kernel_f32 at every length)
+ONE_PASS, RING = "attention_kernel_onepass", "attention_kernel"
+K1_CHECK_LENGTHS = ((8, False, RING), (17, True, ONE_PASS), (208, True, ONE_PASS),
+                    (224, False, ONE_PASS), (225, True, ONE_PASS), (243, True, ONE_PASS),
+                    (246, True, ONE_PASS), (256, False, ONE_PASS), (257, True, RING))
+RING_PROFILE = (64, 257)  # head dim and length where phase 3 also names the ring from a profile
+# every bf16 shape here must launch the one-pass kernel, named by its launch
+# count and by a profile in phase 4
 K1_MODEL_SHAPES = (
     ("protocol d 96 box decoder", 24, 128, 8, False, "fp32"),
     ("protocol d 96 fusion encoder", 24, 128, 208, True, "fp32"),
@@ -249,7 +270,12 @@ K1_MODEL_SHAPES = (
     ("protocol d 192 fusion encoder", 48, 128, 208, True, "fp32"),
     ("transformer_iqap encoder", 64, 512, 243, False, "bf16"),
     ("step_seq2seq encoder", 64, 512, 246, True, "bf16"),
+    ("hierarchical encoder", 64, 32, 196, False, "bf16"),
+    ("protocol d 192 fusion encoder bf16", 48, 128, 208, True, "bf16"),
 )
+# K1 through its wrapper at the box decoders' shapes, where the host's work
+# around the launch costs more than the kernel: head dim, B, L, type
+K1_WRAPPER_SHAPES = ((24, 128, 8, "fp32"), (48, 128, 8, "fp32"), (128, 128, 10, "bf16"))
 
 MAIN_QUESTIONS = 512
 SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
@@ -791,6 +817,14 @@ def main() -> None:
     for name, k in sorted(kernels.items()):
         say(f"phase 2 kernel {k['short']}: {k['registers']} registers, {k['spill']} bytes "
             f"spilled, SASS {k['HGMMA']} HGMMA (wgmma) and {k['HMMA']} HMMA (mma.sync)")
+    onepass = sorted((re.search(r"attention_kernel_onepass<([^>]*)>", k["short"]).group(1), k)
+                     for n, k in kernels.items() if "attention_kernel_onepass" in n)
+    say("phase 2 one-pass K1 (attention_kernel_onepass<output type, head dim, warps>, up to "
+        "256 keys' scores a warp): " + "; ".join(
+            f"<{args}> {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
+            for args, k in onepass))
+    if len(onepass) != 3:
+        fail("phase 2: the one-pass kernel is not built at head dims 24, 48 and 64")
     tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
     say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
     for name in libs:  # ptxas notes a wgmma it had to wait on before the next
@@ -874,6 +908,7 @@ def main() -> None:
                 score_forms(torch, dev, l10_inputs, (q, k, v, mask), results, parts)
 
     k1_head_dims(torch, F, dev, results)
+    k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
 
@@ -993,21 +1028,64 @@ def main() -> None:
     main_path(torch, np, dev, results, parts)
 
 
+PROFILE_TRIES = 3  # profiles of one K1 call before k1_launched gives up
+
+
+def k1_launched(torch, fn, calls: int = 20):
+    """The kernel functions whose name holds ``attention_kernel`` that
+    ``calls`` calls of ``fn`` ran on the card (torch.profiler), and their
+    device ms per call.  A profile that sees no device activity at all
+    (CUPTI returned none now and then in a run of many profiles) is taken
+    again, up to ``PROFILE_TRIES`` times, and said; then the phase fails."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        _, prof = device_profile(torch, lambda: [fn() for _ in range(calls)])
+        if prof is not None:
+            break
+        say(f"torch.profiler saw no device activity in profile {attempt} of {PROFILE_TRIES}")
+    else:
+        fail("torch.profiler saw no device activity: K1's kernel cannot be named")
+    found = [(name, ms) for name, ms in prof[1] if "attention_kernel" in name]
+    return {re.search(r"(attention_kernel\w*)", n).group(1) for n, _ in found}, \
+        sum(ms for _, ms in found) / calls
+
+
+def k1_kernel_ran(before: dict) -> str:
+    """The K1 kernel function that the one call since ``before`` (a reading
+    of ``ops.fused_attention.kernel_launches``) launched; fails unless
+    exactly one kernel was launched once."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import kernel_launches
+
+    moved = {n: c - before[n] for n, c in kernel_launches().items() if c != before[n]}
+    if list(moved.values()) != [1]:
+        fail(f"one K1 call launched {moved}, not one kernel once")
+    return next(iter(moved))
+
+
 def k1_head_dims(torch, F, dev, results: dict) -> None:
     """Phases 3-4 for K1 at head dims 24, 48 and 64: the kernel against its
     plain version (``dot_product_attention``) at every length of
     ``K1_CHECK_LENGTHS`` in float32 (within 1e-5) and bf16
-    (``attention_agreement``); then at each model's shape of
-    ``K1_MODEL_SHAPES`` the kernel through its wrapper, the plain version and
+    (``attention_agreement``), each call's kernel function read from the C
+    library's launch counts (``ops.fused_attention.kernel_launches``) and
+    held to the table's (the one-pass kernel's edges 17 and 256, the ring's
+    two passes at 257), and at ``RING_PROFILE`` from a profile too; then at
+    each model's shape of ``K1_MODEL_SHAPES`` the same check, the kernel
+    through its wrapper, the plain version and
     ``scaled_dot_product_attention`` timed, beside the bound (4 L^2 D
     operations a head, counted by ``dot_ops``; q, k, v, the output and the
-    mask each moved once).  Results go to ``results["K1_D{d}_{label}"]``.
-    The inputs come from a generator of their own, so the draws of the
-    phases after these are what they were without them."""
+    mask each moved once), and at the bf16 shapes the one-pass kernel named
+    by its launch count and by a profile, which gives its device time.
+    Results go to ``results["K1_D{d}_{label}"]``.  The inputs come from a
+    generator of their own, so the draws of the phases after these are what
+    they were without them."""
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        kernel_launches,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(14)
+    t0 = time.perf_counter()
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -1018,35 +1096,61 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
         keep[:, length - tail:] = torch.rand(batch, tail, generator=gen, device=dev) < 0.6
         return keep
 
+    def checked(name, q, k, v, mask, want, head):
+        """One wrapper call: fail unless it launched ``want`` and agrees with
+        the plain version (bf16: ``attention_agreement``; float32: within
+        1e-5); the output and its largest error against the plain version."""
+        before = kernel_launches()
+        out = fused_attention(q, k, v, mask)
+        ran = k1_kernel_ran(before)
+        ref = dot_product_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if name == "bf16":
+            stats = attention_agreement(torch, out, q, k, v, mask)
+            say(f"{head} ({ran}): {bf16_text(stats)}, {stats['outside']} outside")
+            ok = bf16_ok(stats)
+        else:
+            say(f"{head} ({ran}): max_abs_err {err:.3g} (tol 1e-5)")
+            ok = err <= 1e-5
+        if ran != want:
+            fail(f"{head} launched {ran}, not {want}")
+        if not ok:
+            fail(f"{head}: K1 disagrees with its plain version")
+        return out, err
+
+    def profiled(q, k, v, mask, want, where):
+        """Fail unless a profile of the wrapper's calls names ``want`` alone;
+        its device ms a call."""
+        ran, ms = k1_launched(torch, lambda: fused_attention(q, k, v, mask))
+        say(f"{where}: the profile names {', '.join(sorted(ran))} ({ms:.4f} ms of device time "
+            f"a call)")
+        if ran != {want}:
+            fail(f"{where}: the profile names {sorted(ran)}, not {want}")
+        return ms
+
     types = {"bf16": torch.bfloat16, "fp32": torch.float32}
     b, h = SLOTS, 4
     for d_head in sorted({d for _, d, *_ in K1_MODEL_SHAPES}):
-        for length, masked in K1_CHECK_LENGTHS:
+        for length, masked, bf16_kernel in K1_CHECK_LENGTHS:
             for name, dtype in types.items():
                 q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
                 mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
-                out = fused_attention(q, k, v, mask)
-                ref = dot_product_attention(q, k, v, mask)
-                torch.cuda.synchronize()
                 head = (f"phase 3 K1 fused_attention {name} B={b} H={h} L={length} D={d_head} "
-                        f"mask={'ragged' if masked else 'none'}:")
-                if name == "bf16":
-                    stats = attention_agreement(torch, out, q, k, v, mask)
-                    say(f"{head} {bf16_text(stats)}")
-                    ok = bf16_ok(stats)
-                else:
-                    err = float((out - ref).abs().max())
-                    say(f"{head} max_abs_err {err:.3g} (tol 1e-5)")
-                    ok = err <= 1e-5
-                if not ok:
-                    fail(f"K1 at head dim {d_head} disagrees with its plain version")
-                del q, k, v, out, ref
+                        f"mask={'ragged' if masked else 'none'}")
+                want = bf16_kernel if name == "bf16" else "attention_kernel_f32"
+                out, _ = checked(name, q, k, v, mask, want, head)
+                if name == "bf16" and (d_head, length) == RING_PROFILE:
+                    profiled(q, k, v, mask, want, head)
+                del q, k, v, out
     for label, d_head, b, length, masked, name in K1_MODEL_SHAPES:
         dtype = types[name]
         q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
         mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
-        out = fused_attention(q, k, v, mask)
-        err = float((out.float() - dot_product_attention(q, k, v, mask).float()).abs().max())
+        head = (f"phase 4 K1 fused_attention {name} D={d_head} at the {label}'s shape (B={b} "
+                f"H={h} L={length} mask={'ragged' if masked else 'none'})")
+        want = ONE_PASS if name == "bf16" else "attention_kernel_f32"
+        out, err = checked(name, q, k, v, mask, want, head)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = timed_ms(torch, lambda: fused_attention(q, k, v, mask))
         plain = timed_ms(torch, lambda: dot_product_attention(q, k, v, mask))
@@ -1054,13 +1158,39 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
         esize = 2 if name == "bf16" else 4
         bnd, by = bound_ms(dot_ops(name, 4.0 * b * h * length * length * d_head),
                            4 * b * length * h * d_head * esize + (b * length * 4 if masked else 0))
-        say(f"phase 4 K1 fused_attention {name} D={d_head} at the {label}'s shape (B={b} H={h} "
-            f"L={length} mask={'ragged' if masked else 'none'}): kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}); max_abs_err {err:.3g}")
+        say(f"{head}: kernel {ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
         results[f"K1_D{d_head}_{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                                bound_ms=bnd, bound_by=by, library_ms=lib)
+                                                bound_ms=bnd, bound_by=by, library_ms=lib,
+                                                kernel=want)
+        if name == "bf16":
+            results[f"K1_D{d_head}_{label}"]["device_ms"] = profiled(q, k, v, mask, want, head)
         del q, k, v, qt, kt, vt, out
+    say(f"phases 3-4 K1 at head dims 24, 48 and 64 took {time.perf_counter() - t0:.1f} s")
+
+
+def k1_wrapper_times(torch, F, dev, results: dict) -> None:
+    """Phase 4 for K1 at the box decoders' shapes (``K1_WRAPPER_SHAPES``),
+    where the host's work around the launch costs more than the kernel: the
+    call through the wrapper (CUDA events around 50 calls), the kernel's
+    device time (torch.profiler) and ``scaled_dot_product_attention``'s
+    (events).  Results go to ``results["K1_wrapper_D{d}_L{L}"]``."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for d_head, b, length, name in K1_WRAPPER_SHAPES:
+        q, k, v = (torch.randn(b, length, 4, d_head, generator=gen, device=dev).to(types[name])
+                   for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        wrapper = timed_ms(torch, lambda: fused_attention(q, k, v), iters=50)
+        _, device = k1_launched(torch, lambda: fused_attention(q, k, v), calls=50)
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=50)
+        say(f"phase 4 K1 fused_attention {name} D={d_head} B={b} H=4 L={length}, no mask: "
+            f"through the wrapper {wrapper:.4f} ms, the kernel's device time {device:.4f} ms, "
+            f"scaled_dot_product_attention {lib:.4f} ms")
+        results[f"K1_wrapper_D{d_head}_L{length}"] = dict(wrapper_ms=wrapper, device_ms=device,
+                                                          library_ms=lib)
 
 
 def score_forms(torch, dev, l10, first, results: dict, parts) -> None:
@@ -1079,21 +1209,7 @@ def score_forms(torch, dev, l10, first, results: dict, parts) -> None:
 
     def direct(entry):
         fn = fa._esv_attention(entry)
-
-        def call(q, k, v, mask):
-            b, length, h, d_head = q.shape
-            out = torch.empty_like(q)
-            mask_f = fa.key_mask_f32(mask, b, length)
-            strides = (length * h * d_head, h * d_head)
-            status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
-                        b, h, length, d_head, *strides, *strides, 1, 1,
-                        torch.cuda.current_stream().cuda_stream)
-            if status:
-                fail(f"{entry} failed with CUDA error {status}")
-            return out
-
-        return call
+        return lambda q, k, v, mask: fa.call_entry(fn, q, k, v, mask)
 
     tensor_call, chains_call = direct("esv_attention"), direct("esv_attention_fma_scores")
     b, length, h, d_head = first[0].shape
@@ -1341,7 +1457,11 @@ def main_path(torch, np, dev, results, parts) -> None:
     from explainable_spatial_vqa_tpu_torch.models import layers
     from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        HEAD_DIMS,
+        fused_attention,
+        kernel_launches,
+    )
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         fused_encoder_block,
         fused_encoder_block_tiled,
@@ -1360,10 +1480,15 @@ def main_path(torch, np, dev, results, parts) -> None:
         return out
 
     def k1_observed(q, k, v, mask=None):
-        """The model's K1 call, its launches noted by head dim ("K1 D=...")."""
-        before = fused_attention.launches
+        """The model's K1 call, its launches noted by head dim ("K1 D=...")
+        and by the kernel function the C library counted ("K1
+        attention_kernel...")."""
+        before, by_kernel = fused_attention.launches, kernel_launches()
         out = fused_attention(q, k, v, mask)
         note(f"K1 D={q.shape[-1]}", fused_attention.launches - before)
+        for kernel, count in kernel_launches().items():
+            if count != by_kernel[kernel]:
+                note(f"K1 {kernel}", count - by_kernel[kernel])
         return out
 
     layers.fused_encoder_block = k2_observed
@@ -1698,9 +1823,30 @@ def main_path(torch, np, dev, results, parts) -> None:
             shape=encoder.split("_", 2)[2],
             at_shapes={key.split("_", 2)[2]: results[key] for key in shapes if key != encoder},
             launches_by_phase=k1_dims[d_head]))
+    # the one-pass kernel (bf16 rows of 17-256 keys at head dims up to 64):
+    # the Transformer IQAP's shape's numbers, the other bf16 shapes under
+    # at_shapes, its launches through the models by phase (17-18)
+    onepass_shapes = [f"K1_D{d}_{label}" for label, d, *_ in K1_MODEL_SHAPES
+                      if results[f"K1_D{d}_{label}"]["kernel"] == ONE_PASS]
+    onepass_launches = by_phase(f"K1 {ONE_PASS}")
+    say(f"K1's one-pass kernel launches through the models, by phase: {onepass_launches}, "
+        f"{sum(onepass_launches.values())} in all")
+    kernels.append(dict(
+        name="fused_attention_onepass", route="cuda",
+        source="explainable_spatial_vqa_tpu_torch/csrc/attention.cuh",
+        replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+        launches=sum(onepass_launches.values()), **results[onepass_shapes[0]],
+        shape=onepass_shapes[0].split("_", 2)[2],
+        at_shapes={key.split("_", 2)[2]: results[key] for key in onepass_shapes[1:]},
+        launches_by_phase=onepass_launches))
+    kernels[0]["wrapper_at_shapes"] = {key[len("K1_wrapper_"):]: value
+                                       for key, value in results.items()
+                                       if key.startswith("K1_wrapper_")}
     unlaunched = [d for d in HEAD_DIMS if not sum(k1_dims[d].values())]
     if unlaunched:
         fail(f"K1 at head dims {unlaunched} never launched through the models")
+    if not sum(onepass_launches.values()):
+        fail("K1's one-pass kernel never launched through the models")
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -11,14 +11,16 @@
 // D = 24 take their m16n8k16 products over a depth zero-padded to 32 in
 // shared memory (attention.cuh: attn_depth).
 //
-// Bound on the H100: the bytes of q, k, v and the output at the model's
-// lengths (L = 8 or 10 in the box decoders, 208-246 in the encoders); at
+// Bound on the H100: the bytes of q, k, v and the output at the models'
+// lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
 // L <= 16 the launch itself dominates.  The kernels are attention.cuh's:
 // mma.sync on the tensor cores (P V in bf16, or both products in 3xTF32 for
-// float32), K and V streamed through a cp.async ring, each warp's 16 rows of
-// scores in registers.  bf16 weights are normalised before they are rounded,
-// exactly as the TPU kernel does; float32 weights are not rounded, and their
-// softmax runs online.
+// float32), each warp's 16 rows of scores in registers.  bf16 weights are
+// normalised before they are rounded, exactly as the TPU kernel does: at
+// D <= 64 and 16 < L <= 256 (the d 256 encoders) in one pass over K and V
+// held whole in shared memory (attention_kernel_onepass); otherwise K and V
+// stream through a cp.async ring, in two passes past 224 keys.  float32
+// weights are not rounded, and their softmax runs online.
 //
 // C interface, bound with ctypes (every pointer and the stream a void*):
 //   int esv_attention(q, k, v, mask, out, B, H, L, D, in_batch_stride,
@@ -34,6 +36,13 @@
 // in FMA chains on the CUDA cores instead of on the tensor cores: a variant
 // that no wrapper launches, kept so that chip_smoke.py can time it and hold
 // it against the plain version beside the kernel (PERF.md §6).
+//   const char* esv_attention_kernel(int i)
+//   long long esv_attention_launches(int i)
+// name K1's kernel function i (0: attention_kernel_f32, 1: attention_kernel,
+// 2: attention_kernel_onepass; null and -1 past the last) and count the
+// launches of it that this library's entries have made since it was loaded:
+// which kernel a call takes is decided in launch_attention_dim alone, and
+// the counts say which ran.
 
 #include "attention.cuh"
 
@@ -67,4 +76,12 @@ extern "C" int esv_attention_fma_scores(const void* q, const void* k, const void
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(mask), static_cast<bf16*>(out), B, H, L, in_bs, in_rs, out_bs,
       out_rs, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* esv_attention_kernel(int i) {
+  return i >= 0 && i < esv::kAttnKernels ? esv::kAttnKernelNames[i] : nullptr;
+}
+
+extern "C" long long esv_attention_launches(int i) {
+  return i >= 0 && i < esv::kAttnKernels ? esv::attention_launches()[i].load() : -1;
 }

@@ -19,7 +19,8 @@ have their own, narrower set (``ops.fused_block.BLOCK_HEAD_DIMS``).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import torch
 
@@ -27,14 +28,15 @@ from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 
 __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
-           "key_mask_f32", "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
+           "key_mask_f32", "kernel_launches", "bind_entry", "call_entry", "HEAD_DIMS",
+           "MAX_LEN", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K1's head dims, each instantiated in csrc/fused_attention.cu: 4 heads of
 # d_model 96 and 192 (the CoGenT protocol's executors), 256 (the baselines,
 # the CoT IQAP, HierarchicalGenerator's preset) and 512 (the thesis executor)
 HEAD_DIMS = (24, 48, 64, 128)
-MAX_LEN = 1024  # bf16 keeps 224 keys' scores in registers; longer rows take two passes
+MAX_LEN = 1024
 
 
 def head_dim_built(d_model: int, num_heads: int) -> bool:
@@ -84,15 +86,68 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("fused_attention: q, k and v must start on 16-byte boundaries")
 
 
-def _esv_attention(entry: str = "esv_attention"):
-    """The C entry ``entry`` of ``csrc/fused_attention.cu``: ``esv_attention``,
-    or ``esv_attention_fma_scores`` (its bf16 kernel with FMA-chain scores on
-    the CUDA cores, which no wrapper launches)."""
-    fn = getattr(_build.load("fused_attention"), entry)
+def bind_entry(lib: ctypes.CDLL, entry: str = "esv_attention"):
+    """``lib``'s C entry ``entry`` (``esv_attention`` or, with the same
+    arguments, ``esv_attention_fma_scores``) with its argument and result
+    types set."""
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _esv_attention(entry: str = "esv_attention"):
+    """The C entry ``entry`` of ``csrc/fused_attention.cu``: ``esv_attention``,
+    or ``esv_attention_fma_scores`` (its bf16 kernel with FMA-chain scores on
+    the CUDA cores, which no wrapper launches).  Bound once, on the first
+    call, after ``_build.load`` has built and loaded the library."""
+    return bind_entry(_build.load("fused_attention"), entry)
+
+
+def call_entry(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One call of a bound entry ``fn`` on (B, L, H, D) CUDA tensors that
+    :func:`check_attention` accepts, on the current stream; the output is
+    of q's type.  Raises on a status other than 0."""
+    b, length, heads, head_dim = q.shape
+    mask_f = key_mask_f32(mask, b, length)
+    if mask_f is not None:
+        mask_f = mask_f.to(q.device)
+    out = torch.empty_like(q)
+    strides = (length * heads * head_dim, heads * head_dim)
+    code = DTYPE_CODES[q.dtype]
+    with torch.cuda.device(q.device):
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
+                    b, heads, length, head_dim, *strides, *strides, code, code,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, fn.__name__)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_counters():
+    lib = _build.load("fused_attention")
+    name, count = lib.esv_attention_kernel, lib.esv_attention_launches
+    name.argtypes = count.argtypes = [ctypes.c_int]
+    name.restype, count.restype = ctypes.c_char_p, ctypes.c_longlong
+    names = []
+    while name(len(names)) is not None:
+        names.append(name(len(names)).decode())
+    return names, count
+
+
+def kernel_launches() -> Dict[str, int]:
+    """K1's launches by kernel function, as the C library counts them since
+    it was loaded: ``attention_kernel_f32``, ``attention_kernel`` and
+    ``attention_kernel_onepass``.  Which one a call takes is decided in
+    ``launch_attention_dim`` (``csrc/attention.cuh``) alone; the difference
+    of two readings says which ran.  Needs the library (a card and
+    ``nvcc``)."""
+    names, count = _launch_counters()
+    return {n: count(i) for i, n in enumerate(names)}
 
 
 def fused_attention(
@@ -111,21 +166,9 @@ def fused_attention(
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     check_attention(q, k, v)
-    b, length, heads, head_dim = q.shape
-    mask_f = key_mask_f32(mask, b, length)
-    if mask_f is not None:
-        mask_f = mask_f.to(q.device)
-    out = torch.empty_like(q)
-    strides = (length * heads * head_dim, heads * head_dim)
-    with torch.cuda.device(q.device):
-        fused_attention.launches += 1
-        status = _esv_attention()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
-            b, heads, length, head_dim, *strides, *strides, DTYPE_CODES[q.dtype],
-            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "esv_attention")
-    return out
+    fn = _esv_attention()
+    fused_attention.launches += 1
+    return call_entry(fn, q, k, v, mask)
 
 
 fused_attention.launches = 0
