@@ -5,6 +5,8 @@
     python3 chip_smoke.py --k3-draws 0:64      (K3's bf16 check alone on those draws)
     python3 chip_smoke.py --dp-rank RANK PORT DIR   (one of phase 20.3's two ranks; phase 20
                                                      starts them itself)
+    python3 chip_smoke.py --routing     (phase 16.1 alone: K1's routing at every head dim)
+    python3 chip_smoke.py --matcher     (phases 21.1-21.2 alone: both matcher kernels)
 
 Phases, each printing its own line; the first failure exits non-zero with no
 result:
@@ -16,7 +18,12 @@ result:
    and HMMA (mma.sync) instructions (``cuobjdump -sass``): the attention
    kernels must hold HMMA, the block GEMM HGMMA in bf16 and in float32
    (``gemm_tf32_wgmma``, 3xTF32), and ptxas's notes on serialized wgmma are
-   printed, and the one-pass K1 kernel's on a line of its own;
+   printed, and the one-pass K1 kernel's on a line of its own; K1 must be
+   built, every function with HMMA, at every head dim of ``HEAD_DIMS`` (every
+   multiple of 8 up to 128), the one-pass kernel at each up to 64; the
+   build's wall time beside the single-unit build's and each translation
+   unit's (K1's head dims compile in units of their own,
+   all started together);
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
    float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
    outputs are held by ``attention_agreement`` (against float64 scores and
@@ -30,8 +37,12 @@ result:
    (``k1_head_dims``: L = 8, 17, 208, 224, 225, 243, 246, 256, 257, both
    types; each call's kernel function read from the C library's launch
    counts and held to ``K1_CHECK_LENGTHS``'s, the ring at L=257 also named
-   by a profile), then checked the same way and timed at each model's shape,
-   the one-pass kernel named by a profile at the bf16 shapes; K2's own float32
+   by a profile), and at every other head dim (``K1_NEW_DIMS``) at L = 8,
+   16, 17, 208, 256, 257, masked and not, both types, each call's kernel
+   read the same way; then checked the same way and timed at each model's
+   shape and, at each other head dim, at the protocol's shapes at d_model
+   4 D (the fusion encoder, L=208, in both types; the box decoder, L=8),
+   the one-pass kernel named by a profile at the models' bf16 shapes; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -74,13 +85,13 @@ result:
     the card against the CPU, and one ``"sorted"`` pipeline run in bf16;
 11. generator training: the ``generator`` preset at full width, bf16, batch
     64, on ``bench_data``'s questions and programs: ms per step, and the
-    loss of one fixed batch after 100 updates below 0.8 of its first;
+    loss of one fixed batch after 25 updates below 0.8 of its first;
 12. executor training: ``executor_roi`` at full width, bf16, through
     ``executor_pipeline_from_arrays`` and ``Trainer.fit`` for one epoch (K1
     and K2 launch in no train forward, and 3 and 2 times in each
     validation forward); ms per step at batch 16 and 128 in parts
     (forward, loss, the matcher's host round trip, backward, optimizer) and
-    the peak memory; a fixed batch's loss below 0.8 of its first within 100
+    the peak memory; a fixed batch's loss below 0.8 of its first within 40
     updates; an eval forward after a step equal, bit for bit, to a fresh
     module's loaded with the stepped weights;
 13. one float32 training step of ``executor_roi`` and ``generator`` on the
@@ -106,10 +117,10 @@ result:
     batch's loss below 0.8 of its first within 30 updates; one float32 step
     at p=1 on the card against the CPU;
 16. the CoGenT A->B protocol (``run_cogent_protocol``, float32): eval
-    forwards of the protocol's executor at d_model 96 and 192 (head dims 24
-    and 48) launch K1 once per fusion and box-decoder layer and no K2, at
-    512 K2 and K1; the protocol at its flagship
-    width (d_model 192, 3 layers, ``box_roi``, cosine) with each part's wall
+    forwards of the protocol's executor at every d_model of 4 heads of a K1
+    head dim (32 to 480: head dims 8 to 120) launch K1 once per fusion and
+    box-decoder layer and no K2, at 512 K2 and K1; the protocol at its flagship
+    width (d_model 192, 3 layers, ``box_roi``, cosine; a quarter of the CLI's steps) with each part's wall
     time, the median ms per train step, its K1 launches (in the
     evaluations only), the four cells and accuracy by
     type; its fine-tuned models evaluated on valA on the card (K1 at head
@@ -179,18 +190,27 @@ result:
     call under ``torch.cuda.set_sync_debug_mode("error")`` (no host
     synchronisation; scipy's round trip, the control, must raise), times at
     B=64 (Q=T=8, the demos' steps) and B=16, 128, 2560 (Q=T=10) beside the
-    plain version, scipy's host round trip and the bytes bound; 21.2 one
+    plain version, scipy's host round trip and the bytes bound; the same for
+    the block kernel (one block a problem, m + 1 > 32;
+    ``block_matcher_kernel``): against its plain version at
+    ``BLOCK_MATCHER_SHAPES`` (32x32 to 300x300, a third of the problems
+    tied integers and a third integers with NaNs; the C library's counts
+    showing the block kernel ran), once with its state in global memory,
+    under the sync check too, and timed at (B, Q, T) = (64, 32, 32), (64,
+    100, 100), (16, 300, 300); 21.2 one
     ``executor_roi`` train step at full width, bf16, batch 16 and 128, with
     ``matcher="auto"`` (the kernel) and ``"hungarian"`` (scipy), in
     alternating rounds, with the host's waits per step and a falling fixed
-    batch; 21.3 ``demos.accuracy_table`` at d_model 512 (K2 and K1 in its
+    batch; then ``executor_roi`` with 40 queries (``wide_queries_step``:
+    its step launches the block kernel, its loss is finite and its fixed
+    batch's falls); 21.3 ``demos.accuracy_table`` at d_model 512 (K2 and K1 in its
     chain runs, one matcher launch per executor step) with its section
     printed, its trained executor's float32 predicted-chain decisions card
     vs CPU, and every other demo of ``demos/`` once at a reduced size;
 22. the measurement drivers (``measurement_drivers``), in this process: the
     port bench (``python -m explainable_spatial_vqa_tpu_torch.bench``) in the
-    ``pool`` and ``sorted`` modes at ``BENCH_N`` 1024 (the sorted run's
-    float32 baseline on 8 questions, ``BENCH_BASELINE_N``), then
+    ``pool`` and ``sorted`` modes at ``BENCH_N`` 1024 (each run's
+    float32 baseline on 4 questions, ``BENCH_BASELINE_N``), then
     ``measure.profile_pipeline``, ``profile_segments``,
     ``mfu_decomposition`` and ``roofline_step`` at their defaults, each
     driver's output printed; each last line parses with its driver's keys,
@@ -200,17 +220,21 @@ result:
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
 (the matcher's: phase 21.3's accuracy table) and, under
-``launches_by_path``, on phases 14-22's paths; K2's entry also holds its
+``launches_by_path``, on phases 14-22's paths; the block matcher
+(``hungarian_assignment_device_block``) with its launches in 21.2's
+40-query run and its times under ``at_shapes``; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
-``at_shapes``; then K1 at head dims 24, 48 and 64, each at its first
-model's encoder shape with the rest under ``at_shapes`` and its launches
-through the models by phase, which must not be 0; then K1's one-pass kernel,
+``at_shapes``; then K1 at every head dim below 128 (``fused_attention_d{D}``),
+each at its first model's encoder shape (the protocol's fusion encoder at
+d_model 4 D for the head dims no preset has) with the rest under
+``at_shapes`` and its launches through the models by phase, which must not
+be 0; then K1's one-pass kernel,
 ``fused_attention_onepass``, at the Transformer IQAP's encoder shape with
 the other bf16 shapes under ``at_shapes`` and its launches through the
 models by phase, as the C library counted them, which must not be 0) and
 one per piece timed apart
 (``parts``: K2's float32 attention and four products, and the tensor-score
-variant); the last line is
+variant); before it, the seconds each phase took; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 The script imports nothing of JAX.
 """
@@ -273,45 +297,73 @@ K1_MODEL_SHAPES = (
     ("hierarchical encoder", 64, 32, 196, False, "bf16"),
     ("protocol d 192 fusion encoder bf16", 48, 128, 208, True, "bf16"),
 )
+# K1 at the head dims no preset has (every other multiple of 8 up to 128):
+# phase 3 holds each at these lengths (L <= 16 one warp, 17-256 one pass at
+# D <= 64, 257 the ring's two passes), masked and not, in both types, at
+# B = K1_NEW_DIM_BATCH; phase 4 times each at the protocol's shapes at
+# d_model 4 D: the box decoder (L=8, float32) and the fusion encoder (B=128,
+# L=208, ragged) in float32 and bf16
+K1_MODEL_DIMS = (24, 48, 64)
+K1_NEW_DIMS = (8, 16, 32, 40, 56, 72, 80, 88, 96, 104, 112, 120)
+K1_NEW_DIM_LENGTHS = (8, 16, 17, 208, 256, 257)
+K1_NEW_DIM_BATCH = 32
+K1_MODEL_SHAPES += tuple(
+    shape for d in K1_NEW_DIMS for shape in (
+        (f"protocol d {4 * d} fusion encoder", d, 128, 208, True, "fp32"),
+        (f"protocol d {4 * d} box decoder", d, 128, 8, False, "fp32"),
+        (f"protocol d {4 * d} fusion encoder bf16", d, 128, 208, True, "bf16")))
+
+
+def k1_bf16_kernel(d_head: int, length: int) -> str:
+    """The kernel function a bf16 K1 call launches (``launch_attention_dim``'s
+    routing): one warp's ring kernel at L <= 16, the one-pass kernel at D <=
+    64 and L <= 256, else the ring."""
+    return ONE_PASS if 16 < length <= 256 and d_head <= 64 else RING
 # K1 through its wrapper at the box decoders' shapes, where the host's work
 # around the launch costs more than the kernel: head dim, B, L, type
 K1_WRAPPER_SHAPES = ((24, 128, 8, "fp32"), (48, 128, 8, "fp32"), (128, 128, 10, "bf16"))
+# phase 2's build of the same three libraries on the H100 when K1 was one
+# translation unit at 4 head dims (PERF.md §6), printed beside this build's
+SINGLE_UNIT_BUILD_S = 71.4
 
 MAIN_QUESTIONS = 512
 SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
 REPEATS = 5  # of the timed InferencePipeline.run
 MODE_QUESTIONS = 64  # of the float32 comparison of the chain modes
 K3_TILING = dict(batch_tile=2, ffn_chunks=2)
-GENERATOR_STEPS = 100  # updates of phase 11's fixed batch
+GENERATOR_STEPS = 25  # updates of phase 11's fixed batch (its timing takes steps 3-22)
 EXECUTOR_ROWS = 800  # phase 12's synthetic steps: 640 train (40 steps of 16), 80 validation
-EXECUTOR_STEPS = 100  # updates of phase 12's fixed batch
+EXECUTOR_STEPS = 40  # updates of phases 12's and 21.2's fixed batches
 CARD_VS_CPU_ROWS = 4  # phase 13's and phase 15's float32 batch
 EVAL_QUESTIONS = 512  # phase 14's beam search and tally
 EVAL_STEPS = 800  # phase 14's executor steps, in batches of EVAL_BATCH
 EVAL_BATCH = 128
 FP32_QUESTIONS = 64  # phase 14's float32 tally run, card against the CPU
-SCHEDULED_QUESTIONS = 200  # phase 15: 160 train (10 steps of 16), 20 validation
+SCHEDULED_QUESTIONS = 160  # phase 15: 128 train (8 steps of 16), 16 validation
 SCHEDULED_STEPS = 30  # phase 15's fixed batch: most updates to fall below 0.8
 SCORE_ROUNDS = 10  # alternating timing rounds of the two bf16 score forms
-# phase 16: the CoGenT protocol at its flagship width (at the CLI's defaults
-# otherwise), and at d_model 512 with fewer steps; the names of our kernels
-# in a profiler trace
-COGENT_FLAGSHIP = dict(d_model=192, encoder_layers=3, box_roi=True, lr_schedule="cosine")
+# phase 16: the CoGenT protocol at its flagship width (the CLI's sizes, a
+# quarter of its 400/500/150 steps: the run times the protocol and holds its
+# models card against CPU), and at d_model 512 with fewer steps; the names
+# of our kernels in a profiler trace
+COGENT_FLAGSHIP = dict(d_model=192, encoder_layers=3, box_roi=True, lr_schedule="cosine",
+                       gen_steps=100, exe_steps=125, ft_steps=40)
 COGENT_KERNEL_PATH = dict(d_model=512, encoder_layers=2, box_roi=True, lr_schedule="cosine",
-                          gen_steps=100, exe_steps=100, ft_steps=30)
+                          gen_steps=50, exe_steps=50, ft_steps=15)
 OUR_KERNELS = ("attention_kernel", "gemm_bf16_wgmma", "gemm_tf32_wgmma", "add_layernorm")
 # phase 17: the baselines on the CLEVR factory's questions (4 per scene)
 BASELINE_SCENES = 128
 BASELINE_IMAGE = (196, 1024)  # image tokens and features of the presets' models
 BASELINE_FP32 = 64  # questions and chains of the float32 card-vs-CPU checks
 BASELINE_D512_CHAINS = 32  # chains of the d 512 step seq2seq's float32 check
-BASELINE_UPDATES = 60  # fixed-batch updates of each baseline's train step
+BASELINE_UPDATES = 30  # fixed-batch updates of each baseline's train step
+BASELINE_REPEATS = 3  # timed runs of phase 17's eval paths (each a median)
 NEAR_TIE = 1e-4  # a top-2 logit gap below which card and CPU decisions may part
 K2_IQAP_SHAPE = (64, 243)  # B, L: the IQAP encoder at d 512 (1 + 196 + 46 tokens), no mask
 # phase 18: the chain-of-thought IQAP and the prototype step models on the
 # CLEVR factory's questions (4 per scene)
 PROTO_SCENES = 128
-PROTO_UPDATES = 100  # fixed-batch updates of each phase 18 train step
+PROTO_UPDATES = 30  # fixed-batch updates of each phase 18 train step
 PROTO_FP32_ROWS = 8  # rows of phase 18's float32 card-vs-CPU steps
 COT_DECODE_FP32 = 64  # questions of the CoT's float32 greedy decode, card vs CPU
 HIER_D512 = dict(d_model=512, num_heads=4, num_layers=2)  # head dim 128: K2 in eval
@@ -344,9 +396,21 @@ def by_phase(kind: str) -> dict:
     return dict(sorted(TALLIES.get(kind, {"by_phase": {}})["by_phase"].items()))
 
 
+# seconds by phase: the time from the previous line printed to a "phase N"
+# line goes to phase N (a phase prints after its work); printed at the end
+T_START = time.perf_counter()
+PHASE_SECONDS = {}
+_LAST_SAID = [T_START]
+
+
 def say(message: str) -> None:
     print(message, flush=True)
     found = re.match(r"phase (\d+)", message)
+    now = time.perf_counter()
+    if found:
+        phase = int(found.group(1))
+        PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _LAST_SAID[0]
+        _LAST_SAID[0] = now
     for tally in TALLIES.values() if found else ():
         if tally["pending"]:
             phase = int(found.group(1))
@@ -711,12 +775,8 @@ def kernel_report(libs: dict) -> dict:
                 current["spill"] = int(line.split("bytes spill stores")[0].split(",")[-1])
             elif current is not None and "Used" in line and "registers" in line:
                 current["registers"] = int(line.split("Used")[1].split("registers")[0])
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                              timeout=300)
-        if sass.returncode != 0:
-            fail(f"cuobjdump -sass failed on {lib}: {sass.stderr.strip()[-500:]}")
-        for fn, body in re.findall(r"Function : (\S+)(.*?)(?=\n\s*Function : |\Z)", sass.stdout,
-                                   re.S):
+        for fn, body in re.findall(r"Function : (\S+)(.*?)(?=\n\s*Function : |\Z)",
+                                   library_sass(cuobjdump, lib), re.S):
             entry = out.setdefault(fn, dict(registers=0, spill=0, HGMMA=0, HMMA=0))
             entry["HGMMA"] = len(re.findall(r"\bHGMMA\.", body))
             entry["HMMA"] = len(re.findall(r"\bHMMA\.", body))
@@ -728,6 +788,119 @@ def kernel_report(libs: dict) -> dict:
     for name, short in zip(names, shorts):
         out[name]["short"] = short.replace("esv::", "").replace("__nv_bfloat16", "bf16")
     return out
+
+
+def launch_counter(torch):
+    """``counted(fn)``: ``fn()`` with every wrapper's launch count (K1, K2,
+    K3 and the matcher) set to 0 just before it, and the counts just after:
+    (its value, {kernel: launches})."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fused_encoder_block,
+        fused_encoder_block_tiled,
+    )
+    from explainable_spatial_vqa_tpu_torch.ops.matching import hungarian_assignment_device
+
+    wrappers = {w.__name__: w for w in (fused_attention, fused_encoder_block,
+                                        fused_encoder_block_tiled, hungarian_assignment_device)}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        value = fn()
+        return value, {name: w.launches for name, w in wrappers.items()}
+
+    return counted
+
+
+def alone(which: str) -> None:
+    """``chip_smoke.py --routing``: phase 16.1 alone (the models' routing to
+    K1 at every head dim, K2 at 128); ``--matcher``: phases 21.1-21.2 alone
+    (both matcher kernels against their plain version, their times, the
+    train steps with either matcher and at 40 queries).  Each builds the
+    libraries it needs first and ends with ``ok`` on its last line."""
+    if not (REPO / "explainable_spatial_vqa_tpu_torch" / "csrc").is_dir():
+        fail(f"no checkout of the repository next to {Path(__file__).name}")
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    libs = _build.build(["fused_attention", "fused_block", "hungarian"])
+    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(sorted(libs))}")
+    counted = launch_counter(torch)
+    if which == "routing":
+        head_dim_routing(torch, dev, counted)
+    else:
+        matcher, block = matcher_kernel(torch, np, dev)
+        step_counts, block["launches"] = matcher_step_times(torch, np, dev, counted)
+        say(json.dumps({"matcher": matcher, "block_matcher": block,
+                        "executor_train_step": step_counts}))
+    say("ok")
+
+
+def k1_functions_missing(kernels: dict) -> list:
+    """K1's kernel functions (``kernel_report``'s entries) that each head dim
+    of ``HEAD_DIMS`` must have, as (head dim, kernel, output type, warps),
+    that are not built or run no HMMA: ``attention_kernel_f32`` to float and
+    bf16 at 1 and 14 warps, ``attention_kernel<bf16, bf16, D, W, 0>`` at 1 and
+    8, and ``attention_kernel_onepass<bf16, D, 4>`` up to 64."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS
+
+    built = {}
+    for k in kernels.values():
+        found = re.search(r"(attention_kernel(?:_f32|_onepass)?)<([^>]*)>", k["short"])
+        if not found:
+            continue
+        # cu++filt writes a template's int and bool arguments as (int)128, (bool)0
+        kind = found.group(1)
+        args = [re.sub(r"^\((?:int|bool)\)", "", a.strip()) for a in found.group(2).split(",")]
+        if kind == "attention_kernel":
+            if args[4] not in ("0", "false"):
+                continue  # the FMA-chain variant
+            to, dim, warps = args[1], args[2], args[3]
+        else:
+            to, dim, warps = args
+        built[int(dim), kind, to, warps] = k["HMMA"] > 0
+    missing = []
+    for d in HEAD_DIMS:
+        want = [(d, "attention_kernel_f32", to, w) for to in ("float", "bf16") for w in ("1", "14")]
+        want += [(d, "attention_kernel", "bf16", w) for w in ("1", "8")]
+        want += [(d, "attention_kernel_onepass", "bf16", "4")] if d <= 64 else []
+        missing += [key for key in want if not built.get(key)]
+    return missing
+
+
+def library_sass(cuobjdump, lib) -> str:
+    """The SASS of every kernel in ``lib`` (``cuobjdump -sass``).  A library
+    linked from several translation units holds one cubin each (K1's
+    head-dim units): they are extracted (``-xelf all``) and disassembled by
+    one process each, all at once, which takes a fraction of one pass over
+    the whole library."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(cuobjdump), "-xelf", "all", str(lib)], cwd=tmp, capture_output=True,
+                       timeout=300)
+        targets = sorted(Path(tmp).glob("*.cubin")) or [Path(lib)]
+        procs = []
+        for i, target in enumerate(targets):
+            with open(Path(tmp) / f"{i}.sass", "w") as sink:
+                procs.append(subprocess.Popen([str(cuobjdump), "-sass", str(target)],
+                                              stdout=sink, stderr=subprocess.PIPE, text=True))
+        for proc, target in zip(procs, targets):
+            _, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"cuobjdump -sass failed on {target}: {err.strip()[-500:]}")
+        return "\n".join((Path(tmp) / f"{i}.sass").read_text() for i in range(len(targets)))
 
 
 def postfix_ids(chains, token_ids: dict, function_ids: dict, length: int):
@@ -785,7 +958,7 @@ def main() -> None:
 
     from explainable_spatial_vqa_tpu_torch.ops import _build
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, fused_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         BlockWeights,
         fused_encoder_block,
@@ -813,7 +986,12 @@ def main() -> None:
     kernels = kernel_report(libs)
     say(f"phase 2 build: {build_s:.1f} s for {', '.join(sorted(libs))} ({len(kernels)} kernels, "
         f"at most {max(k['registers'] for k in kernels.values())} registers, "
-        f"{max(k['spill'] for k in kernels.values())} bytes spilled)")
+        f"{max(k['spill'] for k in kernels.values())} bytes spilled; the build of the same "
+        f"three libraries with K1 at 4 head dims in one nvcc process: {SINGLE_UNIT_BUILD_S} s)")
+    for name in sorted(libs):  # each unit's nvcc wall time, all started together
+        heads = re.findall(r"^--- (.*): exit (-?\d+), ([0-9.]+) s ---$",
+                           (_build.BUILD_DIR / f"{name}.log").read_text(), re.M)
+        say(f"phase 2 {name} units: " + "; ".join(f"{what} {sec} s" for what, _, sec in heads))
     for name, k in sorted(kernels.items()):
         say(f"phase 2 kernel {k['short']}: {k['registers']} registers, {k['spill']} bytes "
             f"spilled, SASS {k['HGMMA']} HGMMA (wgmma) and {k['HMMA']} HMMA (mma.sync)")
@@ -823,8 +1001,18 @@ def main() -> None:
         "256 keys' scores a warp): " + "; ".join(
             f"<{args}> {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
             for args, k in onepass))
-    if len(onepass) != 3:
-        fail("phase 2: the one-pass kernel is not built at head dims 24, 48 and 64")
+    onepass_dims = sorted(int(re.sub(r"\D", "", args.split(",")[1])) for args, _ in onepass)
+    if onepass_dims != [d for d in HEAD_DIMS if d <= 64]:
+        fail(f"phase 2: the one-pass kernel is built at head dims {onepass_dims}, not at every "
+             f"head dim up to 64 of {HEAD_DIMS}")
+    missing = k1_functions_missing(kernels)
+    say(f"phase 2 K1 at head dims {HEAD_DIMS[0]}-{HEAD_DIMS[-1]} (every multiple of 8): each "
+        f"built as attention_kernel_f32<float|bf16, "
+        f"D, 1|14>, attention_kernel<bf16, bf16, D, 1|8, 0> and, up to 64, "
+        f"attention_kernel_onepass<bf16, D, 4>, every one with HMMA: "
+        f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
+    if missing:
+        fail("phase 2: K1 is not built with HMMA at every head dim of HEAD_DIMS")
     tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
     say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
     for name in libs:  # ptxas notes a wgmma it had to wait on before the next
@@ -1028,7 +1216,7 @@ def main() -> None:
     main_path(torch, np, dev, results, parts)
 
 
-PROFILE_TRIES = 3  # profiles of one K1 call before k1_launched gives up
+PROFILE_TRIES = 3  # profiles of one K1 call (k1_launched) or one 16.1 forward before giving up
 
 
 def k1_launched(torch, fn, calls: int = 20):
@@ -1062,22 +1250,24 @@ def k1_kernel_ran(before: dict) -> str:
 
 
 def k1_head_dims(torch, F, dev, results: dict) -> None:
-    """Phases 3-4 for K1 at head dims 24, 48 and 64: the kernel against its
-    plain version (``dot_product_attention``) at every length of
-    ``K1_CHECK_LENGTHS`` in float32 (within 1e-5) and bf16
+    """Phases 3-4 for K1 at head dims 24, 48 and 64 (``K1_MODEL_DIMS``): the
+    kernel against its plain version (``dot_product_attention``) at every
+    length of ``K1_CHECK_LENGTHS`` in float32 (within 1e-5) and bf16
     (``attention_agreement``), each call's kernel function read from the C
     library's launch counts (``ops.fused_attention.kernel_launches``) and
     held to the table's (the one-pass kernel's edges 17 and 256, the ring's
-    two passes at 257), and at ``RING_PROFILE`` from a profile too; then at
-    each model's shape of ``K1_MODEL_SHAPES`` the same check, the kernel
-    through its wrapper, the plain version and
-    ``scaled_dot_product_attention`` timed, beside the bound (4 L^2 D
-    operations a head, counted by ``dot_ops``; q, k, v, the output and the
-    mask each moved once), and at the bf16 shapes the one-pass kernel named
-    by its launch count and by a profile, which gives its device time.
-    Results go to ``results["K1_D{d}_{label}"]``.  The inputs come from a
-    generator of their own, so the draws of the phases after these are what
-    they were without them."""
+    two passes at 257), and at ``RING_PROFILE`` from a profile too; the same
+    at the head dims no preset has (``K1_NEW_DIMS``) at
+    ``K1_NEW_DIM_LENGTHS``, masked and not, on draws of their own; then at
+    each shape of ``K1_MODEL_SHAPES`` the same check, the kernel through its
+    wrapper, the plain version and ``scaled_dot_product_attention`` timed,
+    beside the bound (4 L^2 D operations a head, counted by ``dot_ops``; q,
+    k, v, the output and the mask each moved once), and at the models' bf16
+    shapes the one-pass kernel named by its launch count and by a profile,
+    which gives its device time.  Results go to
+    ``results["K1_D{d}_{label}"]``.  The inputs come from generators of their
+    own, so the draws of the phases after these are what they were without
+    them."""
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
         fused_attention,
@@ -1085,15 +1275,16 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
     )
 
     gen = torch.Generator(device=dev).manual_seed(14)
+    gen_new = torch.Generator(device=dev).manual_seed(16)  # phase 3 at the new head dims
     t0 = time.perf_counter()
 
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    def randn(*shape, dtype, g=gen):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    def ragged_keep(batch, length, tail):
+    def ragged_keep(batch, length, tail, g=gen):
         """Key mask keeping all but a random subset of the last ``tail`` keys."""
         keep = torch.ones(batch, length, dtype=torch.bool, device=dev)
-        keep[:, length - tail:] = torch.rand(batch, tail, generator=gen, device=dev) < 0.6
+        keep[:, length - tail:] = torch.rand(batch, tail, generator=g, device=dev) < 0.6
         return keep
 
     def checked(name, q, k, v, mask, want, head):
@@ -1131,7 +1322,7 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
 
     types = {"bf16": torch.bfloat16, "fp32": torch.float32}
     b, h = SLOTS, 4
-    for d_head in sorted({d for _, d, *_ in K1_MODEL_SHAPES}):
+    for d_head in K1_MODEL_DIMS:
         for length, masked, bf16_kernel in K1_CHECK_LENGTHS:
             for name, dtype in types.items():
                 q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
@@ -1143,13 +1334,32 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
                 if name == "bf16" and (d_head, length) == RING_PROFILE:
                     profiled(q, k, v, mask, want, head)
                 del q, k, v, out
+    t_new = time.perf_counter()
+    b = K1_NEW_DIM_BATCH
+    for d_head in K1_NEW_DIMS:
+        for length in K1_NEW_DIM_LENGTHS:
+            for masked in (False, True):
+                for name, dtype in types.items():
+                    q, k, v = (randn(b, length, h, d_head, dtype=dtype, g=gen_new)
+                               for _ in range(3))
+                    mask = (ragged_keep(b, length, min(length, 13), g=gen_new)[:, None, None, :]
+                            if masked else None)
+                    head = (f"phase 3 K1 fused_attention {name} B={b} H={h} L={length} "
+                            f"D={d_head} mask={'ragged' if masked else 'none'}")
+                    want = (k1_bf16_kernel(d_head, length) if name == "bf16"
+                            else "attention_kernel_f32")
+                    out, _ = checked(name, q, k, v, mask, want, head)
+                    del q, k, v, out
+    say(f"phase 3 K1 at the head dims {K1_NEW_DIMS}: {len(K1_NEW_DIMS)} x "
+        f"{len(K1_NEW_DIM_LENGTHS)} lengths x 2 masks x 2 types checked in "
+        f"{time.perf_counter() - t_new:.1f} s")
     for label, d_head, b, length, masked, name in K1_MODEL_SHAPES:
         dtype = types[name]
         q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
         mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
         head = (f"phase 4 K1 fused_attention {name} D={d_head} at the {label}'s shape (B={b} "
                 f"H={h} L={length} mask={'ragged' if masked else 'none'})")
-        want = ONE_PASS if name == "bf16" else "attention_kernel_f32"
+        want = k1_bf16_kernel(d_head, length) if name == "bf16" else "attention_kernel_f32"
         out, err = checked(name, q, k, v, mask, want, head)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = timed_ms(torch, lambda: fused_attention(q, k, v, mask))
@@ -1163,10 +1373,11 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
         results[f"K1_D{d_head}_{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                 bound_ms=bnd, bound_by=by, library_ms=lib,
                                                 kernel=want)
-        if name == "bf16":
+        if name == "bf16" and d_head in K1_MODEL_DIMS:  # the models' shapes: a profile too
             results[f"K1_D{d_head}_{label}"]["device_ms"] = profiled(q, k, v, mask, want, head)
         del q, k, v, qt, kt, vt, out
-    say(f"phases 3-4 K1 at head dims 24, 48 and 64 took {time.perf_counter() - t0:.1f} s")
+    say(f"phases 3-4 K1 at head dims {K1_MODEL_DIMS} and {K1_NEW_DIMS} took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def k1_wrapper_times(torch, F, dev, results: dict) -> None:
@@ -1462,14 +1673,7 @@ def main_path(torch, np, dev, results, parts) -> None:
         fused_attention,
         kernel_launches,
     )
-    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
-        fused_encoder_block,
-        fused_encoder_block_tiled,
-    )
-    from explainable_spatial_vqa_tpu_torch.ops.matching import hungarian_assignment_device
-
-    wrappers = {w.__name__: w for w in (fused_attention, fused_encoder_block,
-                                        fused_encoder_block_tiled, hungarian_assignment_device)}
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import fused_encoder_block
 
     def k2_observed(x, mask, weights, num_heads, **options):
         """The model's K2 call, its float32 launches noted ("K2 fp32")."""
@@ -1494,14 +1698,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     layers.fused_encoder_block = k2_observed
     layers.fused_attention = k1_observed
 
-    def counted(fn):
-        """``fn()`` with every launch count set to 0 just before it, and the
-        counts just after: (its value, {kernel: launches})."""
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        value = fn()
-        return value, {name: w.launches for name, w in wrappers.items()}
+    counted = launch_counter(torch)
 
     # ---- 5. the block-bench path: K3 through its entry point ----
     bench_rows, bench_launches = counted(
@@ -1777,7 +1974,7 @@ def main_path(torch, np, dev, results, parts) -> None:
                **cot_and_prototypes(torch, np, dev, counted),
                **data_prep(torch, np, dev, counted, trained),
                **last_slice(torch, np, dev, counted, results)}
-    matcher, demo_paths = demos(torch, np, dev, counted)
+    matcher, block_matcher, demo_paths = demos(torch, np, dev, counted)
     by_path.update(demo_paths)
     by_path.update(measurement_drivers(torch, counted))
     # the matcher's main path is the demos' executor training: phase 21.3's run
@@ -1809,6 +2006,14 @@ def main_path(torch, np, dev, results, parts) -> None:
     kernels[1]["at_shapes"] = {"iqap_encoder_d512": results["K2_bf16_iqap"],
                                "hierarchical_encoder_d512": results["K2_bf16_hier"]}
     kernels[1]["launches_fp32_by_phase"] = fp32_k2
+    # the matcher past 31 columns: one block a problem; its path is 21.2's
+    # executor of WIDE_QUERIES queries, its launches the C library's count
+    kernels.append(dict(name="hungarian_assignment_device_block", route="cuda",
+                        source="explainable_spatial_vqa_tpu_torch/csrc/hungarian.cu",
+                        replaces="explainable_spatial_vqa_tpu/ops/matching.py:312",
+                        kernel="hungarian_block_kernel", **block_matcher))
+    if not block_matcher["launches"]:
+        fail("the block matcher never launched on its path")
     # K1's instantiations at the new head dims, each with its first model
     # shape's numbers and the rest under at_shapes; their paths are phases
     # 16-18 (and the demos at d 96): launches through the models, by phase
@@ -1847,6 +2052,10 @@ def main_path(torch, np, dev, results, parts) -> None:
         fail(f"K1 at head dims {unlaunched} never launched through the models")
     if not sum(onepass_launches.values()):
         fail("K1's one-pass kernel never launched through the models")
+    total = sum(PHASE_SECONDS.values())
+    say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
+        PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
+        f"since the script started")
     say(json.dumps({"kernels": kernels, "parts": parts}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -2577,7 +2786,7 @@ def scheduled_training(torch, np, dev, counted) -> dict:
     # the step's parts
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(6)] for _ in range(7)]
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(6)] for _ in range(4)]
     model.train()
     for ev in marks:
         ev[0].record()
@@ -2596,11 +2805,11 @@ def scheduled_training(torch, np, dev, counted) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     def med(i, j):
-        ms = sorted(e[i].elapsed_time(e[j]) for e in marks[2:])
+        ms = sorted(e[i].elapsed_time(e[j]) for e in marks[1:])
         return ms[len(ms) // 2]
 
     say(f"phase 15 scheduled train step, batch {cfg.train.batch_size}, {depth} positions: "
-        f"{med(0, 5):.1f} ms (median of 5 after 2 warm-ups); parts: image projection "
+        f"{med(0, 5):.1f} ms (median of 3 after a warm-up); parts: image projection "
         f"{med(0, 1):.2f} ms, chained pass with the mixture {med(1, 2):.1f} ms, loss forward "
         f"(with the matcher) {med(2, 3):.1f} ms, backward {med(3, 4):.1f} ms, optimizer "
         f"{med(4, 5):.2f} ms; peak memory {peak:.2f} GiB")
@@ -2760,7 +2969,7 @@ def scheduled_training(torch, np, dev, counted) -> dict:
     return {"scheduled_train_step": step_counts}
 
 
-K1_AB_ROUNDS = 7  # alternating rounds of phases 16-17's K1-on/off timings
+K1_AB_ROUNDS = 3  # alternating rounds of phases 16-17's K1-on/off timings
 
 
 def k1_on_off(torch, label: str, fn, profile: bool = False) -> None:
@@ -2882,22 +3091,93 @@ def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str) -> None:
         fail(f"phase 16 {label}: the float32 tally or accuracy on the card differs from the CPU's")
 
 
+def head_dim_routing(torch, dev, counted) -> None:
+    """Phase 16.1: eval forwards of the protocol's executor
+    (``make_protocol_executor_config``, 4 heads, 2 fusion layers,
+    ``box_roi``) at d_model 4 D for every K1 head dim D, in float32 and
+    bf16: K1 once per fusion and box-decoder layer and no K2, but at head
+    dim 128 K2 once per fusion layer and K1 once (the wrappers' counts, and
+    ``attention_kernel`` in a ``torch.profiler`` trace), outputs finite."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import block_head_dim_built
+    from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
+
+    t0 = time.perf_counter()
+    vocabs = {"function": {f"f{i}": i for i in range(40)},
+              "other": {f"o{i}": i for i in range(30)}}
+    gen = torch.Generator(device=dev).manual_seed(160)
+    batch = 64
+    corner = torch.rand(batch, 8, 2, generator=gen, device=dev) * 0.5
+    inputs = (torch.randn(batch, 196, 64, generator=gen, device=dev),
+              torch.cat([corner, corner + 0.4], -1),
+              torch.rand(batch, 8, generator=gen, device=dev) < 0.6,
+              torch.randint(1, 40, (batch, 3), generator=gen, device=dev),
+              torch.ones(batch, 3, dtype=torch.bool, device=dev))
+    routing = {}
+    for d_model in [4 * d for d in HEAD_DIMS]:  # every K1 head dim, 4 heads; K2 at 512
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = sp.make_protocol_executor_config(vocabs, d_model=d_model, encoder_layers=2,
+                                                   box_roi=True)
+            layers_per_forward = (cfg.encoder_layers, cfg.box_decoder_layers)
+            model = init_parameters(ProgramExecutor(cfg, dtype, dev), seed=d_model).eval()
+
+            def forward():
+                with torch.no_grad():
+                    return model(*inputs)
+
+            out, counts = counted(forward)
+            for attempt in range(1, PROFILE_TRIES + 1):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    forward()
+                    torch.cuda.synchronize()
+                names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+                if names:
+                    break
+                # CUPTI returns no device activity now and then in a run of
+                # many profiles: take it again, and say so
+                say(f"phase 16 routing: torch.profiler saw no device activity in profile "
+                    f"{attempt} of {PROFILE_TRIES} at d_model {d_model}")
+            ours = sorted({n[:40] for n in names if any(k in n for k in OUR_KERNELS)})
+            finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+            key = f"d{d_model} {str(dtype).split('.')[-1]}"
+            routing[key] = (counts, ours, finite)
+            say(f"phase 16 routing: eval forward, d_model {d_model} (head dim {d_model // 4}), "
+                f"{key.split()[1]}, batch {batch}: K2 {counts['fused_encoder_block']}, K1 "
+                f"{counts['fused_attention']} launches; our kernels in its trace: "
+                f"{ours or 'none'}; outputs {'finite' if finite else 'NOT FINITE'}")
+            del model
+    fusion, box_decoder = layers_per_forward
+    for key, (counts, ours, finite) in routing.items():
+        # K2 on every fusion layer at head dim 128, else K1 in each plain
+        # block; K1 on each box-decoder layer's query self-attention
+        k2 = block_head_dim_built(int(key.split()[0][1:]), 4)
+        want = (fusion, box_decoder) if k2 else (0, fusion + box_decoder)
+        got = (counts["fused_encoder_block"], counts["fused_attention"])
+        if (got != want or not any("attention_kernel" in name for name in ours)
+                or not finite):
+            fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
+                 f"{want}; kernels in the trace {ours}")
+    say(f"phase 16.1 routing at {len(routing)} widths and types took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def cogent(torch, np, dev, counted) -> dict:
     """Phase 16, the CoGenT A->B protocol (thesis §4.2.2, Table 4.6) through
     ``evalsuite.cogent.run_cogent_protocol``, float32 as the JAX package
     trains it (TF32 off):
 
-    1. the routing on the card: eval forwards of the protocol's executor
-       (``make_protocol_executor_config``, 4 heads, ``box_roi``) at d_model
-       96 and 192, head dims 24 and 48, in float32 and bf16, launch no K2
-       and K1 once per fusion layer and once per box-decoder layer (the
-       wrappers' counts, and ``attention_kernel`` in a ``torch.profiler``
-       trace); at 512, head dim 128, K2 once per fusion layer and K1 once
-       per forward;
+    1. the routing on the card at every K1 head dim
+       (:func:`head_dim_routing`);
     2. the protocol at its flagship width (``COGENT_FLAGSHIP``: d_model 192,
-       3 fusion layers, ``box_roi``, cosine) at the CLI's defaults (80 A
-       scenes, 20 per val, a pool of 40 B scenes, 6 questions each; 400
-       generator, 500 executor and 150 fine-tune steps), recorded by
+       3 fusion layers, ``box_roi``, cosine) at the CLI's sizes (80 A
+       scenes, 20 per val, a pool of 40 B scenes, 6 questions each) with
+       a quarter of its steps (100 generator, 125 executor and 40 fine-tune
+       steps of the CLI's 400, 500 and 150), recorded by
        ``bench_cogent.ProtocolParts``: the wall time of each part (the card
        synchronized only at each part's start and end), the median ms per
        generator and executor train step (CUDA events between optimizer
@@ -2918,64 +3198,14 @@ def cogent(torch, np, dev, counted) -> dict:
 
     Returns the launches of phase 16's two protocol runs, for the result
     line."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
-    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
-    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
     from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
 
     t_phase = time.perf_counter()
 
     # ---- 16.1 routing by head dim ----
-    vocabs = {"function": {f"f{i}": i for i in range(40)},
-              "other": {f"o{i}": i for i in range(30)}}
-    gen = torch.Generator(device=dev).manual_seed(160)
-    batch = 64
-    corner = torch.rand(batch, 8, 2, generator=gen, device=dev) * 0.5
-    inputs = (torch.randn(batch, 196, 64, generator=gen, device=dev),
-              torch.cat([corner, corner + 0.4], -1),
-              torch.rand(batch, 8, generator=gen, device=dev) < 0.6,
-              torch.randint(1, 40, (batch, 3), generator=gen, device=dev),
-              torch.ones(batch, 3, dtype=torch.bool, device=dev))
-    routing = {}
-    for d_model in (96, 192, 512):
-        for dtype in (torch.float32, torch.bfloat16):
-            cfg = sp.make_protocol_executor_config(vocabs, d_model=d_model, encoder_layers=2,
-                                                   box_roi=True)
-            layers_per_forward = (cfg.encoder_layers, cfg.box_decoder_layers)
-            model = init_parameters(ProgramExecutor(cfg, dtype, dev), seed=d_model).eval()
-
-            def forward():
-                with torch.no_grad():
-                    return model(*inputs)
-
-            out, counts = counted(forward)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                forward()
-                torch.cuda.synchronize()
-            ours = sorted({e.name[:40] for e in prof.events() if e.device_type == DeviceType.CUDA
-                           and any(k in e.name for k in OUR_KERNELS)})
-            finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
-            key = f"d{d_model} {str(dtype).split('.')[-1]}"
-            routing[key] = (counts, ours, finite)
-            say(f"phase 16 routing: eval forward, d_model {d_model} (head dim {d_model // 4}), "
-                f"{key.split()[1]}, batch {batch}: K2 {counts['fused_encoder_block']}, K1 "
-                f"{counts['fused_attention']} launches; our kernels in its trace: "
-                f"{ours or 'none'}; outputs {'finite' if finite else 'NOT FINITE'}")
-            del model
-    fusion, box_decoder = layers_per_forward
-    for key, (counts, ours, finite) in routing.items():
-        # K2 on every fusion layer at head dim 128, else K1 in each plain
-        # block; K1 on each box-decoder layer's query self-attention
-        want = (fusion, box_decoder) if key.startswith("d512") else (0, fusion + box_decoder)
-        got = (counts["fused_encoder_block"], counts["fused_attention"])
-        if (got != want or not any("attention_kernel" in name for name in ours)
-                or not finite):
-            fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
-                 f"{want}; kernels in the trace {ours}")
+    head_dim_routing(torch, dev, counted)
 
     # ---- 16.2 the protocol at the flagship width ----
     t0 = time.perf_counter()
@@ -2987,8 +3217,8 @@ def cogent(torch, np, dev, counted) -> dict:
     rows = part_rows(parts)
     exes = parts.of("train_executor_synthetic")
     say(f"phase 16 CoGenT protocol, flagship width ({COGENT_FLAGSHIP}), float32, at the CLI's "
-        f"defaults (80 A scenes, 20 per val, 40 B-pool scenes, 6 questions each; 400 generator, "
-        f"500 executor, 150 fine-tune steps; no cut): {wall:.1f} s; sizes {sizes}")
+        f"sizes (80 A scenes, 20 per val, 40 B-pool scenes, 6 questions each; steps cut from "
+        f"the CLI's 400/500/150): {wall:.1f} s; sizes {sizes}")
     say(f"phase 16 {report.report()}")
     for row, call in zip(rows, parts.calls):
         if row["steps"]:
@@ -3195,7 +3425,7 @@ def baselines(torch, np, dev, counted) -> dict:
        on all questions, its encoder's self-attention on K1 (head dim 64,
        once per layer) and nothing else of ours, the encode+answer and the
        whole run also timed with K1 on and off (:func:`k1_on_off`):
-       questions/s (the median of ``REPEATS`` after a
+       questions/s (the median of ``BASELINE_REPEATS`` after a
        warm-up), encode+answer and the 27-step greedy decode timed apart by
        CUDA events, the kernels and copies of one decode, the card's busy
        share of a run under the profiler;
@@ -3206,7 +3436,7 @@ def baselines(torch, np, dev, counted) -> dict:
     3. ``infer-chain``'s path: ``step_seq2seq`` (d 256) in bf16 on every
        question's chain through ``Seq2SeqChainRunner.run`` and
        ``run_bucketed_seq2seq``, K1 once per encoder layer of each encode and
-       nothing else, the run also with K1 on and off: chains/s each (median of ``REPEATS``), the
+       nothing else, the run also with K1 on and off: chains/s each (median of ``BASELINE_REPEATS``), the
        encodes and decode steps of a run, the share of chains whose outputs
        the two agree on; in float32 on ``BASELINE_FP32`` chains the two runs
        equal on the card, and the card equal to the CPU (a chain that
@@ -3266,7 +3496,7 @@ def baselines(torch, np, dev, counted) -> dict:
     def median_s(fn):
         fn()  # warm-up
         seconds = []
-        for _ in range(REPEATS):
+        for _ in range(BASELINE_REPEATS):
             t0 = time.perf_counter()
             fn()
             seconds.append(time.perf_counter() - t0)
@@ -3312,7 +3542,7 @@ def baselines(torch, np, dev, counted) -> dict:
         (summary, pred_answers, pred_programs), counts = counted(run)
         split = []
         with torch.no_grad(), eval_mode(model):
-            for _ in range(REPEATS):
+            for _ in range(BASELINE_REPEATS):
                 marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
                 marks[0].record()
                 out = model(images, q_dev)
@@ -3333,9 +3563,9 @@ def baselines(torch, np, dev, counted) -> dict:
         say(f"phase 17.1 eval-iqap, transformer_iqap (d {iqap_cfg.embed_dim}, "
             f"{iqap_cfg.num_heads} heads, {iqap_cfg.encoder_layers}+{iqap_cfg.decoder_layers} "
             f"layers, L={iqap_len}), {name}, run_eval_iqap on {n} questions: "
-            f"{n / seconds:.1f} questions/s (median of {REPEATS}: {seconds * 1e3:.1f} ms); "
+            f"{n / seconds:.1f} questions/s (median of {BASELINE_REPEATS}: {seconds * 1e3:.1f} ms); "
             f"encode+answer {enc_ms:.2f} ms, {iqap_cfg.program_len}-step greedy decode "
-            f"{dec_ms:.2f} ms (CUDA events, median of {REPEATS}); {per_step} kernels and "
+            f"{dec_ms:.2f} ms (CUDA events, median of {BASELINE_REPEATS}); {per_step} kernels and "
             f"copies per decode step; card busy {busy} of a run; launches {counts}; "
             f"answer accuracy {summary['answer_accuracy']:.3f}, program exact match "
             f"{summary['exact_match']:.3f} (random weights)")
@@ -3395,7 +3625,7 @@ def baselines(torch, np, dev, counted) -> dict:
     say(f"phase 17.3 infer-chain, step_seq2seq (d {seq_cfg.d_model}, {seq_cfg.num_heads} heads, "
         f"{seq_cfg.encoder_layers}+{seq_cfg.decoder_layers} layers, ffn {seq_cfg.ffn_dim}, "
         f"{seq_cfg.max_tgt_len}-token decodes), bf16, {len(chains.num_steps)} chains: "
-        + "; ".join(f"{mode} {r[0]:.1f} chains/s (median of {REPEATS}: {r[1] * 1e3:.1f} ms), "
+        + "; ".join(f"{mode} {r[0]:.1f} chains/s (median of {BASELINE_REPEATS}: {r[1] * 1e3:.1f} ms), "
                     f"{r[2]['encode']} encodes and {r[2]['decode_step']} decode steps a run, "
                     f"launches {r[3]}" for mode, r in rates.items())
         + f"; the two runs' step outputs agree on {agree:.3f} of the chains (bf16)")
@@ -4894,11 +5124,20 @@ MATCHER_SHAPES = ((10, 10), (8, 8), (10, 4), (7, 10), (12, 5))  # (Q, T)
 MATCHER_PROBLEMS = 2048  # per shape: 10,240 in all
 MATCHER_TIMED = ((64, 8, 8), (16, 10, 10), (128, 10, 10), (2560, 10, 10))  # (B, Q, T)
 MATCHER_COST_TOL = 1e-5  # matched cost against scipy's optimum, relative: float32 potentials
-STEP_ROUNDS = 10  # alternating timing rounds of 21.2's two matchers
+# the block kernel (m + 1 > 32): (Q, T, problems) held against the plain
+# version, with NaNs among the costs; then (B, Q, T) timed and held again
+# (the timed call of the plain version gives the reference: at 300 columns
+# one takes ~30 s, as it waits on the card at every step); a shape held
+# once more with its state in global memory (the shared-memory cap set to 0)
+BLOCK_MATCHER_SHAPES = ((32, 32, 192), (33, 12, 192), (12, 40, 192), (64, 64, 96))
+BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (16, 300, 300))
+BLOCK_MATCHER_GLOBAL = (64, 64)
+WIDE_QUERIES = 40  # 21.2's executor_roi step past the warp kernel's 31 columns
+STEP_ROUNDS = 4  # alternating timing rounds of 21.2's two matchers
 STEPS_PER_ROUND = 5
 # 21.3: the accuracy table at d 512 (K2 and K1 in its chain runs) and each
 # other demo once, at reduced sizes
-DEMO_D512 = dict(DEMO_SCENES="60", DEMO_QPS="4", DEMO_GEN_STEPS="150", DEMO_EXE_STEPS="150",
+DEMO_D512 = dict(DEMO_SCENES="60", DEMO_QPS="4", DEMO_GEN_STEPS="60", DEMO_EXE_STEPS="60",
                  DEMO_DMODEL="512", DEMO_LAYERS="3", DEMO_LR_SCHEDULE="cosine")
 DEMO_SMALL = {
     "end_to_end": dict(DEMO_SCENES="20", DEMO_GEN_STEPS="30", DEMO_EXE_STEPS="30"),
@@ -4931,6 +5170,21 @@ def matcher_problems(np, seed: int, q: int, t: int, n: int):
     return cost, mask
 
 
+def block_matcher_problems(np, seed: int, q: int, t: int, n: int):
+    """``n`` problems at (Q, T) for the block kernel: a third of the costs
+    uniform in [0, 30), a third integers in {0, 1, 2} (tied optima), a third
+    such integers with 1% NaN; masks as ``matcher_problems``'s; and which
+    problems hold a NaN."""
+    cost, mask = matcher_problems(np, seed, q, t, n)
+    rng = np.random.RandomState(seed + 1)
+    third = n // 3
+    cost[third:] = rng.randint(0, 3, (n - third, q, t))
+    nan = np.zeros(n, bool)
+    nan[2 * third:] = True
+    cost[2 * third:][rng.rand(n - 2 * third, q, t) < 0.01] = np.nan
+    return cost, mask, nan & np.isnan(cost).any((1, 2))
+
+
 def matched_costs(np, cost, assign):
     """Each problem's matched cost in float64: the sum of cost[q, assign[q]]
     over its matched queries."""
@@ -4939,16 +5193,17 @@ def matched_costs(np, cost, assign):
     return np.where(assign >= 0, picked.astype(np.float64), 0.0).sum(1)
 
 
-def matcher_kernel(torch, np, dev) -> dict:
+def matcher_kernel(torch, np, dev) -> tuple:
     """Phase 21.1: ``csrc/hungarian.cu`` against its plain version on the
     card on ``MATCHER_PROBLEMS`` problems at each of ``MATCHER_SHAPES``
     (assignments equal, and each matched cost equal to scipy's optimum
     within ``MATCHER_COST_TOL``); a call under
     ``torch.cuda.set_sync_debug_mode("error")`` (the host matcher under it
     must raise, the control); times by CUDA events at ``MATCHER_TIMED``
-    beside the plain version, scipy's host round trip and the bytes bound.
-    Returns the kernels-line entry at the demos' shape (B=64, Q=T=8) with the
-    others under ``at_shapes``."""
+    beside the plain version, scipy's host round trip and the bytes bound;
+    then the block kernel (:func:`block_matcher_kernel`).  Returns the warp
+    kernel's kernels-line entry at the demos' shape (B=64, Q=T=8) with the
+    others under ``at_shapes``, and the block kernel's."""
     from explainable_spatial_vqa_tpu_torch.ops.matching import (
         hungarian_assignment,
         hungarian_assignment_device,
@@ -4984,15 +5239,20 @@ def matcher_kernel(torch, np, dev) -> dict:
         f"them (ties); {time.perf_counter() - t0:.1f} s")
     if mismatched or not worst_gap <= MATCHER_COST_TOL:
         fail("phase 21.1: the matcher kernel disagrees with its plain version or scipy's optimum")
+    block = block_matcher_kernel(torch, np, dev)
 
-    # no host synchronisation in a call; scipy's round trip is the control
+    # no host synchronisation in a call of either kernel; scipy's round trip
+    # is the control
     cost, mask = matcher_problems(np, 2199, 10, 10, 128)
     c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+    wide = [torch.from_numpy(a).to(dev) for a in block_matcher_problems(np, 2198, 300, 300, 4)[:2]]
     hungarian_assignment_device(c, m)
+    hungarian_assignment_device(*wide)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         hungarian_assignment_device(c, m)
+        hungarian_assignment_device(*wide)
         try:
             hungarian_assignment(c, m)
             control = "did NOT raise"
@@ -5001,7 +5261,8 @@ def matcher_kernel(torch, np, dev) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     say(f"phase 21.1 under set_sync_debug_mode('error'): hungarian_assignment_device made no "
-        f"host synchronisation; the control, scipy's hungarian_assignment, {control}")
+        f"host synchronisation at Q=T=10 (the warp kernel) or Q=T=300 (the block kernel); the "
+        f"control, scipy's hungarian_assignment, {control}")
     if control != "raised":
         fail("phase 21.1: the sync check cannot see a host synchronisation")
 
@@ -5023,6 +5284,119 @@ def matcher_kernel(torch, np, dev) -> dict:
         rows[(b, q, t)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                library_ms=None, scipy_round_trip_ms=scipy_ms)
     main_shape = rows.pop(MATCHER_TIMED[0])
+    main_shape["at_shapes"] = {f"B{b}_Q{q}_T{t}": r for (b, q, t), r in rows.items()}
+    return main_shape, block
+
+
+def block_matcher_kernel(torch, np, dev) -> dict:
+    """Phase 21.1 for the block kernel (m + 1 > 32, ``hungarian_block_kernel``):
+    against its plain version on the card at ``BLOCK_MATCHER_SHAPES`` (a
+    third of the problems uniform, a third tied integers, a third integers
+    with NaNs) and at ``BLOCK_MATCHER_TIMED`` (half uniform, half tied
+    integers), with assignments equal, the C library's counts showing one
+    block launch a call and no warp launch, and each matched cost of a
+    problem with no NaN within ``MATCHER_COST_TOL`` of scipy's optimum; once
+    more at ``BLOCK_MATCHER_GLOBAL`` with the state in global memory; times
+    at ``BLOCK_MATCHER_TIMED`` beside the plain version (one call: it waits
+    on the card at every step), scipy's host round trip and the bytes bound.
+    Returns the kernels-line entry at the first timed shape with the others
+    under ``at_shapes``."""
+    from explainable_spatial_vqa_tpu_torch.ops.matching import (
+        hungarian_assignment,
+        hungarian_assignment_device,
+        hungarian_assignment_device_plain,
+        kernel_launches,
+        set_shared_limit,
+    )
+
+    t0 = time.perf_counter()
+    found = dict(problems=0, nans=0, worst_gap=0.0, mismatched=[])
+
+    def launched(fn):
+        before = kernel_launches()
+        out = fn()
+        return out, {k: c - before[k] for k, c in kernel_launches().items() if c != before[k]}
+
+    def held(cost, mask, has_nan, got, ref, plain_s):
+        """Fail unless ``got`` is ``ref`` and, where no cost is NaN, at
+        scipy's optimum with as many queries matched; one line."""
+        q, t = cost.shape[1:]
+        bad = np.flatnonzero((got != ref).any(1))
+        found["mismatched"] += [(q, t, int(b)) for b in bad[:3]]
+        finite = ~has_nan
+        host = hungarian_assignment(torch.from_numpy(cost[finite]),
+                                    torch.from_numpy(mask[finite])).numpy()
+        optimum = matched_costs(np, cost[finite], host)
+        gap = np.abs(matched_costs(np, cost[finite], got[finite]) - optimum) / np.maximum(
+            1.0, optimum)
+        found["worst_gap"] = max(found["worst_gap"], float(gap.max()))
+        if not np.array_equal((got[finite] >= 0).sum(1), (host >= 0).sum(1)):
+            fail(f"phase 21.1: the block kernel matches another number of queries than scipy "
+                 f"at {q}x{t}")
+        found["problems"] += len(cost)
+        found["nans"] += int(has_nan.sum())
+        say(f"phase 21.1 block matcher {len(cost)} problems at Q={q} T={t} ({int(has_nan.sum())} "
+            f"with a NaN): assignments {'equal' if not len(bad) else f'DIFFER on {len(bad)}'}; "
+            f"matched cost within {float(gap.max()):.3g} of scipy's optimum on the "
+            f"{int(finite.sum())} without one; the plain version took {plain_s:.2f} s")
+
+    for shape_i, (q, t, n) in enumerate(BLOCK_MATCHER_SHAPES):
+        cost, mask, has_nan = block_matcher_problems(np, 2300 + shape_i, q, t, n)
+        c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+        got, moved = launched(lambda: hungarian_assignment_device(c, m))
+        if moved != {"hungarian_block_kernel": 1}:
+            fail(f"phase 21.1: a {q}x{t} call launched {moved}, not the block kernel once")
+        t1 = time.perf_counter()
+        ref = hungarian_assignment_device_plain(c, m).cpu().numpy()
+        held(cost, mask, has_nan, got.cpu().numpy(), ref, time.perf_counter() - t1)
+    q, t = BLOCK_MATCHER_GLOBAL
+    cost, mask, _ = block_matcher_problems(np, 2399, q, t, 96)
+    c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+    old = set_shared_limit(0)
+    try:
+        got, global_moved = launched(lambda: hungarian_assignment_device(c, m))
+    finally:
+        set_shared_limit(old)
+    global_equal = bool((got == hungarian_assignment_device_plain(c, m)).all())
+    say(f"phase 21.1 block matcher with its state in global memory (shared-memory cap 0) at "
+        f"Q={q} T={t}, 96 problems: launches {global_moved}; assignments "
+        f"{'equal' if global_equal else 'DIFFER'} to the plain version's")
+
+    rows = {}
+    for b, q, t in BLOCK_MATCHER_TIMED:
+        cost, mask = matcher_problems(np, 2400 + b + q, q, t, b)
+        c, m = torch.from_numpy(cost).to(dev), torch.from_numpy(mask).to(dev)
+        got, moved = launched(lambda: hungarian_assignment_device(c, m))
+        if moved != {"hungarian_block_kernel": 1}:
+            fail(f"phase 21.1: a {q}x{t} call launched {moved}, not the block kernel once")
+        ms = timed_ms(torch, lambda: hungarian_assignment_device(c, m), iters=20, warmup=2)
+        plain_out = []
+        plain = timed_ms(torch, lambda: plain_out.append(hungarian_assignment_device_plain(c, m)),
+                         iters=1, warmup=0)
+        held(cost, mask, np.zeros(b, bool), got.cpu().numpy(), plain_out[0].cpu().numpy(),
+             plain / 1e3)
+        scipy_ms = timed_ms(torch, lambda: hungarian_assignment(c, m), iters=3, warmup=1)
+        err = float((got - plain_out[0]).abs().max())
+        nbytes = b * q * t * 4 + b * t + b * q * 8
+        bnd, by = bound_ms({}, nbytes)
+        say(f"phase 21.1 block matcher B={b} Q={q} T={t}: kernel {ms:.4f} ms through the "
+            f"wrapper, plain {plain:.3f} ms (one call), scipy's host round trip {scipy_ms:.3f} "
+            f"ms (no PyTorch call computes it), bound {bnd:.6f} ms ({by}, {nbytes} bytes)")
+        rows[(b, q, t)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                               library_ms=None, scipy_round_trip_ms=scipy_ms)
+    mismatched = found["mismatched"]
+    say(f"phase 21.1 block matcher against its plain version on the card: {found['problems']} "
+        f"problems at (Q, T, problems) {BLOCK_MATCHER_SHAPES} and (B, Q, T) "
+        f"{BLOCK_MATCHER_TIMED}, tied integer costs among them and NaNs in {found['nans']}: "
+        f"assignments {'equal' if not mismatched else f'DIFFER {mismatched}'}; matched cost "
+        f"against scipy's optimum within {found['worst_gap']:.3g} relative (tol "
+        f"{MATCHER_COST_TOL}); {time.perf_counter() - t0:.1f} s")
+    if (mismatched or not found["worst_gap"] <= MATCHER_COST_TOL or not global_equal
+            or global_moved != {"hungarian_block_kernel": 1,
+                                "hungarian_block_kernel_global_state": 1}):
+        fail("phase 21.1: the block matcher disagrees with its plain version or scipy's optimum")
+    main_shape = rows.pop(BLOCK_MATCHER_TIMED[0])
+    main_shape["shape"] = "B{}_Q{}_T{}".format(*BLOCK_MATCHER_TIMED[0])
     main_shape["at_shapes"] = {f"B{b}_Q{q}_T{t}": r for (b, q, t), r in rows.items()}
     return main_shape
 
@@ -5126,7 +5500,60 @@ def matcher_step_times(torch, np, dev, counted) -> dict:
         fail("phase 21.2: the fixed batch's loss did not fall with the kernel matcher")
     del tr, pipe, batch, features
     torch.cuda.empty_cache()
-    return step_counts
+    return step_counts, wide_queries_step(torch, dev, counted)
+
+
+def wide_queries_step(torch, dev, counted) -> int:
+    """Phase 21.2 past the warp kernel: ``executor_roi`` with ``WIDE_QUERIES``
+    queries (and as many target slots: (Q, T) = (40, 40) problems, which
+    JAX's matcher solves in its train step), bf16, at its batch of 16: one
+    counted train step must launch the block kernel once (the C library's
+    counts) and the warp kernel never, its loss finite; then the fixed
+    batch's loss must fall below 0.8 of its first within ``EXECUTOR_STEPS``
+    updates.  Returns the block kernel's launches over the run."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import synth_executor_steps
+    from explainable_spatial_vqa_tpu_torch.core.config import get_preset
+    from explainable_spatial_vqa_tpu_torch.ops.matching import kernel_launches
+    from explainable_spatial_vqa_tpu_torch.train.pipelines import executor_pipeline_from_arrays
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    base = get_preset("executor_roi")
+    cfg = base.replace(model=dataclasses.replace(base.model, num_queries=WIDE_QUERIES))
+    arrays, features = synth_executor_steps(EXECUTOR_ROWS, cfg.model, seed=23)
+    features = torch.from_numpy(features).to(dev)
+    pipe = executor_pipeline_from_arrays(cfg, arrays, features, device=dev)
+    tr = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                 checkpoint_dir=False, device=dev)
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    gen = torch.Generator().manual_seed(4)
+    start = kernel_launches()
+    first, counts = counted(lambda: tr.train_step(batch, gen)["loss_sum"])
+    torch.cuda.synchronize()
+    step = {k: c - start[k] for k, c in kernel_launches().items() if c != start[k]}
+    losses = [float(first)] + torch.stack([tr.train_step(batch, gen)["loss_sum"]
+                                           for _ in range(EXECUTOR_STEPS)]).tolist()
+    block = kernel_launches()["hungarian_block_kernel"] - start["hungarian_block_kernel"]
+    below = [i for i, x in enumerate(losses) if x < 0.8 * losses[0]]
+    say(f"phase 21.2 executor_roi with {WIDE_QUERIES} queries (Q = T = {WIDE_QUERIES}, past the "
+        f"warp kernel's 31), bf16, batch {cfg.train.batch_size}: one train step's launches "
+        f"{counts}, by matcher kernel (the C library's counts) {step}; fixed-batch loss step 0 "
+        f"{losses[0]:.4f}, step {EXECUTOR_STEPS} {losses[-1]:.4f}, first below 0.8 of step 0 at "
+        f"step {below[0] if below else None}; the block kernel launched {block} times; "
+        f"{time.perf_counter() - t0:.1f} s")
+    checks = {
+        "one block-kernel launch and no warp-kernel launch in the step": (
+            step == {"hungarian_block_kernel": 1} and counts["hungarian_assignment_device"] == 1),
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "the fixed batch's loss falls below 0.8 of its first": bool(below),
+    }
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"phase 21.2 check failed at {WIDE_QUERIES} queries: {name}")
+    del tr, pipe, batch, features
+    torch.cuda.empty_cache()
+    return block
 
 
 class DemoEnv:
@@ -5192,7 +5619,8 @@ def demos(torch, np, dev, counted) -> tuple:
     GT program structure) on the card against deep copies on the CPU, equal
     but for printed near-ties; then every other demo once at
     ``DEMO_SMALL``'s sizes, each writing its marked section.  Returns (the
-    matcher's kernels-line entry, launches by path)."""
+    warp matcher's kernels-line entry, the block matcher's with its launches
+    in 21.2's wide run, launches by path)."""
     import importlib
 
     from explainable_spatial_vqa_tpu_torch.demos import accuracy_table
@@ -5200,8 +5628,8 @@ def demos(torch, np, dev, counted) -> tuple:
     from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
 
     t_phase = time.perf_counter()
-    matcher = matcher_kernel(torch, np, dev)
-    step_counts = matcher_step_times(torch, np, dev, counted)
+    matcher, block_matcher = matcher_kernel(torch, np, dev)
+    step_counts, block_matcher["launches"] = matcher_step_times(torch, np, dev, counted)
 
     import tempfile
 
@@ -5295,14 +5723,15 @@ def demos(torch, np, dev, counted) -> tuple:
         f"{workdir}): wall s {walls}; phase 21 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(workdir)
-    return matcher, {"demo_accuracy_table_d512": d512_counts, "executor_train_step": step_counts}
+    return matcher, block_matcher, {"demo_accuracy_table_d512": d512_counts,
+                                    "executor_train_step": step_counts}
 
 
 # phase 22: the measurement drivers at their defaults (bench.py's widths,
-# BENCH_N 1024), but the sorted bench's float32 batch-1 baseline: the pool's
-# runs bench.py's 32 questions (~26 s on the chip host's CPU at ~2.5
-# questions/s), the sorted one the same loop on 8
-BENCH_BASELINE_N = {"pool": 32, "sorted": 8}
+# BENCH_N 1024), but the bench's float32 batch-1 baseline, which runs on 4
+# questions in each mode, not bench.py's 32 (~26 s on the chip host's CPU
+# at ~2.5 questions/s, and slower hosts): it only times, for vs_baseline
+BENCH_BASELINE_N = {"pool": 4, "sorted": 4}
 
 
 def captured_main(main, argv, knobs: dict, label: str, counted):
@@ -5359,7 +5788,7 @@ def measurement_drivers(torch, counted) -> dict:
                  "BENCH_BASELINE_N": str(BENCH_BASELINE_N[mode])}
         if BENCH_BASELINE_N[mode] != 32:
             say(f"phase 22 bench {mode}: BENCH_BASELINE_N {BENCH_BASELINE_N[mode]} (bench.py's "
-                f"default 32; the pool's run takes the default)")
+                f"default 32)")
         t0 = time.perf_counter()
         results[f"bench_{mode}"], by_path[f"bench_{mode}"], last = captured_main(
             bench.main, [], knobs, f"phase 22 bench {mode}", counted)
@@ -5525,8 +5954,10 @@ if __name__ == "__main__":
         k3_draws(parse_draws(sys.argv[2]))
     elif sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 5:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:] in (["--routing"], ["--matcher"]):
+        alone(sys.argv[1][2:])
     elif len(sys.argv) > 1:
         fail(f"usage: {sys.argv[0]} [--k3-draws START:STOP | SEED[@OFFSET],... | "
-             "--dp-rank RANK PORT DIR]")
+             "--dp-rank RANK PORT DIR | --routing | --matcher]")
     else:
         main()

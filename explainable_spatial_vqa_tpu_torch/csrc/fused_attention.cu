@@ -4,12 +4,15 @@
 // the Pallas kernel that computes softmax(mask(Q K^T / sqrt(D))) V for one
 // (batch, head) per grid cell with the whole (L, L) score tile in VMEM.
 //
-// The TPU kernel is generic in the head dim; this one is built for D = 24,
-// 48, 64 and 128, every head dim the models send it (4 heads at d_model 96
-// and 192, the CoGenT protocol's executors; 256, the baselines, the CoT IQAP
-// and HierarchicalGenerator; 512, the thesis executor).  bf16 scores at
-// D = 24 take their m16n8k16 products over a depth zero-padded to 32 in
-// shared memory (attention.cuh: attn_depth).
+// The TPU kernel is generic in the head dim; this one is built for every
+// multiple of 8 from 8 to 128 (ESV_K1_HEAD_DIMS), each head dim its own
+// instantiation of attention.cuh's kernels with its loads and fragment loops
+// folded to constants: the models' 24, 48, 64 and 128 (4 heads at d_model
+// 96 and 192, the CoGenT protocol's executors; 256, the baselines, the CoT
+// IQAP and HierarchicalGenerator; 512, the thesis executor) and every other
+// width a user may give them (4 heads at d_model 32, ..., 480).  bf16 scores
+// at D % 16 == 8 take their m16n8k16 products over a depth zero-padded by 8
+// in shared memory (attention.cuh: attn_depth).
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
@@ -22,6 +25,14 @@
 // stream through a cp.async ring, in two passes past 224 keys.  float32
 // weights are not rounded, and their softmax runs online.
 //
+// Translation units: this file is compiled once for the C entries below and
+// once for each group of one or two head dims (ops/_build.py:
+// K1_DIM_GROUPS), with -DESV_HEAD_DIM_A=<dim> [-DESV_HEAD_DIM_B=<dim>],
+// which instantiates attention_at_dim at those dims for the three type
+// pairs.  The units compile in parallel and link into one
+// library; the launch counts are one for the library (attention.cuh:
+// attention_launches).
+//
 // C interface, bound with ctypes (every pointer and the stream a void*):
 //   int esv_attention(q, k, v, mask, out, B, H, L, D, in_batch_stride,
 //                     in_row_stride, out_batch_stride, out_row_stride, dtype,
@@ -29,7 +40,7 @@
 // mask is a (B, L) float32 key mask (keep where > 0) or null; dtype is 0 for
 // float32, 1 for bfloat16 (q, k and v share it); out_dtype is the output's,
 // either float32 or dtype.  q, k, v and their strides must be 16-byte
-// aligned; D is one of 24, 48, 64 and 128.  Returns the CUDA error of the
+// aligned; D is one of ESV_K1_HEAD_DIMS.  Returns the CUDA error of the
 // launch (0 on success; cudaErrorInvalidValue for another D).
 //   int esv_attention_fma_scores(the same arguments)
 // is the bf16 kernel (bf16 q, k, v and output, D = 128 only) with its scores summed
@@ -46,6 +57,65 @@
 
 #include "attention.cuh"
 
+#define ESV_K1_HEAD_DIMS 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 104, 112, 120, 128
+
+namespace esv {
+
+// K1 at head dim D for q, k, v of type T and an output of type TO: defined
+// and instantiated in the unit of D's group, called from the C entry
+template <int D, typename T, typename TO>
+cudaError_t attention_at_dim(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                             int B, int H, int L, long long in_bs, long long in_rs,
+                             long long out_bs, long long out_rs, cudaStream_t stream);
+
+}  // namespace esv
+
+#ifdef ESV_HEAD_DIM_A
+
+namespace esv {
+
+template <int D, typename T, typename TO>
+cudaError_t attention_at_dim(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                             int B, int H, int L, long long in_bs, long long in_rs,
+                             long long out_bs, long long out_rs, cudaStream_t stream) {
+  return launch_attention_dim<D, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                        out_rs, stream);
+}
+
+#define ESV_AT_DIM(D, T, TO)                                                                   \
+  template cudaError_t attention_at_dim<D, T, TO>(const T*, const T*, const T*, const float*,   \
+                                                  TO*, int, int, int, long long, long long,     \
+                                                  long long, long long, cudaStream_t);
+#define ESV_INSTANTIATE(D)                \
+  ESV_AT_DIM(D, float, float)             \
+  ESV_AT_DIM(D, float, __nv_bfloat16)     \
+  ESV_AT_DIM(D, __nv_bfloat16, __nv_bfloat16)
+ESV_INSTANTIATE(ESV_HEAD_DIM_A)
+#ifdef ESV_HEAD_DIM_B
+ESV_INSTANTIATE(ESV_HEAD_DIM_B)
+#endif
+
+}  // namespace esv
+
+#else
+
+namespace esv {
+
+// The head dims Ds, chosen by D at run time; any other D returns
+// cudaErrorInvalidValue
+template <typename T, typename TO, int... Ds>
+static cudaError_t attention_by_dim(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                                    int B, int H, int L, int D, long long in_bs, long long in_rs,
+                                    long long out_bs, long long out_rs, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((D == Ds && ((err = attention_at_dim<Ds, T, TO>(q, k, v, mask, out, B, H, L, in_bs,
+                                                         in_rs, out_bs, out_rs, stream)),
+                      true)) || ...);
+  return err;
+}
+
+}  // namespace esv
+
 extern "C" int esv_attention(const void* q, const void* k, const void* v, const void* mask,
                              void* out, int B, int H, int L, int D, long long in_bs,
                              long long in_rs, long long out_bs, long long out_rs, int dtype,
@@ -54,7 +124,7 @@ extern "C" int esv_attention(const void* q, const void* k, const void* v, const 
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ESV_ATTENTION(T, TO)                                                                   \
-  return esv::launch_attention<T, TO, 24, 48, 64, 128>(                                        \
+  return esv::attention_by_dim<T, TO, ESV_K1_HEAD_DIMS>(                                       \
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,          \
       static_cast<TO*>(out), B, H, L, D, in_bs, in_rs, out_bs, out_rs, s)
   if (dtype == esv::kFloat32 && out_dtype == esv::kFloat32) { ESV_ATTENTION(float, float); }
@@ -85,3 +155,5 @@ extern "C" const char* esv_attention_kernel(int i) {
 extern "C" long long esv_attention_launches(int i) {
   return i >= 0 && i < esv::kAttnKernels ? esv::attention_launches()[i].load() : -1;
 }
+
+#endif

@@ -17,8 +17,9 @@ Each variant asks one question of the shipped kernel (``VARIANTS``):
   ``div_by``'s reciprocal taken once a row and one correction;
 * ``fast_exp``: ``__expf`` (ex2.approx of x log2 e) instead of ``expf``.
 
-The variants compile in parallel (``nvcc`` with the package's flags and
-``-I csrc``) into ``_build/attention_variants/``.  Each library's
+The variants compile in parallel (``_build.compile_libraries``: every unit
+of ``fused_attention.cu``, its C entries and each group of head dims, with
+the package's flags and ``-I csrc``) into ``_build/attention_variants/``.  Each library's
 ``esv_attention`` runs K1 at the models' bf16 encoder shapes (``CASES``: the
 Transformer IQAP's, the step seq2seq's and ``HierarchicalGenerator``'s at
 head dim 64, the CoGenT protocol's fusion encoders at 48 and 24) through
@@ -35,7 +36,6 @@ import argparse
 import ctypes
 import functools
 import statistics
-import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -81,29 +81,21 @@ def variant_source(name: str, source: str) -> str:
 
 
 def build_variants(names: Sequence[str], out_dir: Path) -> Dict[str, Path]:
-    """Compile ``fused_attention.cu`` against each variant's ``attention.cuh``
-    into ``out_dir``, all at once; {name: library}.  Raises with the
-    compiler's output on a failure."""
+    """Compile the ``fused_attention`` library (``fused_attention.cu`` with
+    its head-dim units, ``_build.units``) against each variant's
+    ``attention.cuh`` into ``out_dir``, every unit of every variant at once;
+    {name: library}.  Raises with the compiler's output on a failure."""
     header = (_build.CSRC_DIR / "attention.cuh").read_text()
     unit = (_build.CSRC_DIR / "fused_attention.cu").read_text()
-    procs = {}
+    jobs = {}
     for name in names:
         src_dir = out_dir / name  # its attention.cuh found first, common.cuh through -I
         src_dir.mkdir(parents=True, exist_ok=True)
         (src_dir / "attention.cuh").write_text(variant_source(name, header))
         (src_dir / "fused_attention.cu").write_text(unit)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
-               str(out_dir / f"{name}.so"), str(src_dir / "fused_attention.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    failed = []
-    for name, proc in procs.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (exit {proc.returncode}) ---\n{output[-4000:]}")
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return {name: out_dir / f"{name}.so" for name in names}
+        jobs[name] = ("fused_attention", out_dir / f"{name}.so", src_dir)
+    _build.compile_libraries(jobs, include=[_build.CSRC_DIR])
+    return {name: path for name, (_, path, _) in jobs.items()}
 
 
 def _inputs(dev: torch.device):

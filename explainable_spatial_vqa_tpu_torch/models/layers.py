@@ -14,9 +14,9 @@ mask or none, a head dim of ``ops.fused_block.BLOCK_HEAD_DIMS``, 128) to the
 fused encoder block K2, as ``_fused_eligible`` does in the JAX package (head
 dims that are multiples of 128); :class:`MultiHeadAttention` routes eligible
 self-attention (eval mode with no autograd graph, same length, a key-padding
-mask or none) to K1 at every head dim the models have
-(``ops.fused_attention.HEAD_DIMS``: 24, 48, 64, 128), as JAX's attention
-dispatch does at any.  Every other call runs the plain path.
+mask or none) to K1 at every head dim that is a multiple of 8 up to 128
+(``ops.fused_attention.HEAD_DIMS``), as JAX's attention dispatch does at
+any.  Every other call runs the plain path.
 
 The decoders (:class:`TransformerDecoder`) run teacher-forced under a causal
 mask, or one token at a time over explicit KV caches (``init_cache`` and

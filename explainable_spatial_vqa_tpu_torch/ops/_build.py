@@ -1,11 +1,15 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
-``_build/<name>-<hash>.so`` inside the package (the directory is gitignored).
-The hash covers the source, the headers in ``csrc/`` and the compiler flags,
-so an edited source builds anew and an unchanged one loads at once.  Builds
-of several sources run as parallel ``nvcc`` processes.  Nothing is compiled
-when a module is imported: the first launch of a kernel builds its library.
+Each library is one shared object with a plain C interface,
+``_build/<name>-<hash>.so`` inside the package (the directory is gitignored),
+built from its translation units (:func:`units`): ``csrc/<name>.cu`` alone,
+or, for K1's ``fused_attention``, its C entries plus one unit per group of
+head dims (:data:`K1_DIM_GROUPS`), each compiled by its own ``nvcc`` process
+and linked into the one library.  The hash covers every unit's source and
+flags, the headers in ``csrc/`` and the compiler flags, so an edited source
+builds anew and an unchanged one loads at once.  Every unit of every library
+being built compiles at once, in parallel.  Nothing is compiled when a
+module is imported: the first launch of a kernel builds its library.
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "K1_DIM_GROUPS", "units", "build",
+           "compile_libraries", "load", "check"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -28,10 +34,31 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# a unit of a library of several is compiled to an object, then linked
+_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 CUDA_HOMES = ("/usr/local/cuda",)  # searched after $CUDA_HOME, before PATH
 
+# K1's head dims (every multiple of 8 up to 128, ``ops.fused_attention.
+# HEAD_DIMS``), two to a unit of ``fused_attention.cu`` compiled with
+# -DESV_HEAD_DIM_A and -DESV_HEAD_DIM_B (nvcc reads a comma in an option
+# as a list): a small and a large dim together, so that the units take
+# about the same time; one nvcc process for all sixteen would compile their
+# kernels one after another
+K1_DIM_GROUPS = ((8, 128), (16, 120), (24, 112), (32, 104), (40, 96), (48, 88), (56, 80),
+                 (64, 72))
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def units(name: str) -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
+    """Library ``name``'s translation units: (source file in ``csrc/``, extra
+    nvcc flags) each."""
+    if name == "fused_attention":
+        return (("fused_attention.cu", ()),) + tuple(
+            ("fused_attention.cu", tuple(f"-DESV_HEAD_DIM_{ab}={d}" for ab, d in zip("AB", group)))
+            for group in K1_DIM_GROUPS)
+    return ((f"{name}.cu", ()),)
 
 
 def _nvcc() -> str:
@@ -49,43 +76,94 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256()
     digest.update(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
+    for source, flags in units(name):
+        digest.update(" ".join((source, *flags)).encode())
+    sources = sorted({source for source, _ in units(name)})
+    for path in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def compile_libraries(jobs: Dict[str, Tuple[str, Path, Path]],
+                      include: Sequence[Path] = ()) -> Dict[str, str]:
+    """Compile each job {key: (library name, output path, source directory)}
+    from the units of that library (:func:`units`), read from the source
+    directory with ``include`` on the header path: every unit at once, then
+    each library of several units linked.  Returns {key: the compiler's output}, each unit's under a
+    heading with its wall time (ptxas's register and shared-memory report).
+    Raises with the output of every failed job."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags_in = [f"-I{d}" for d in include]
+    procs, logs, failed = {}, {}, []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for key, (name, out, src_dir) in jobs.items():
+            parts = units(name)
+            for i, (source, flags) in enumerate(parts):
+                if len(parts) == 1:
+                    cmd = [nvcc, *NVCC_FLAGS, *flags_in, *flags, "-o", str(out),
+                           str(src_dir / source)]
+                else:
+                    cmd = [nvcc, *_COMPILE_FLAGS, *flags_in, *flags, "-o",
+                           str(Path(tmp) / f"{key}.{i}.o"), str(src_dir / source)]
+                log = Path(tmp) / f"{key}.{i}.log"
+                with open(log, "w") as sink:
+                    proc = subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT)
+                procs[key, i] = (proc, time.perf_counter(), " ".join((source, *flags)), log)
+        ended = {}
+        while len(ended) < len(procs):  # each unit's wall time, from its start to its end
+            for unit, (proc, t0, _, _) in procs.items():
+                if unit not in ended and proc.poll() is not None:
+                    ended[unit] = time.perf_counter() - t0
+            time.sleep(0.05)
+        status = {}
+        for (key, i), (proc, _, what, log) in procs.items():
+            logs[key] = logs.get(key, "") + (f"--- {what}: exit {proc.returncode}, "
+                                             f"{ended[key, i]:.1f} s ---\n{log.read_text()}")
+            status[key] = status.get(key, 0) or proc.returncode
+        for key, (name, out, _) in jobs.items():
+            parts = units(name)
+            if status[key] == 0 and len(parts) > 1:
+                objs = [str(Path(tmp) / f"{key}.{i}.o") for i in range(len(parts))]
+                link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out), *objs],
+                                      capture_output=True, text=True)
+                logs[key] += f"--- link: exit {link.returncode} ---\n{link.stdout}{link.stderr}"
+                status[key] = link.returncode
+            if status[key] != 0:
+                failed.append(f"--- {name} ({key}, exit {status[key]}) ---\n{logs[key]}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
 def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every named source that has no up-to-date library, all at once.
+    """Compile every named library that has no up-to-date build, all at once.
 
     Returns {name: library path}.  Raises with the compiler's output if any
     build fails.  Each build writes ``_build/<name>.log`` with ptxas's
-    register and shared-memory report.
+    register and shared-memory report for each of its units.
     """
     paths = {name: _library_path(name) for name in names}
     todo = {name: path for name, path in paths.items() if not path.exists()}
     if not todo:
         return paths
-    nvcc = _nvcc()
+    _nvcc()  # raises before anything is written
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, path in todo.items():
+    jobs = {}
+    for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp)
-    failed = []
-    for name, (proc, tmp) in procs.items():
-        output, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(output)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{output}")
-        else:
-            os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        jobs[name] = (name, Path(tmp), CSRC_DIR)
+    try:
+        logs = compile_libraries(jobs)
+    except RuntimeError:
+        for _, tmp, _ in jobs.values():
+            tmp.unlink(missing_ok=True)
+        raise
+    for name, (_, tmp, _) in jobs.items():
+        (BUILD_DIR / f"{name}.log").write_text(logs[name])
+        os.replace(tmp, todo[name])
     return paths
 
 

@@ -9,11 +9,13 @@ which computes the same arithmetic.
 
 :func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
 mask or none, the calls :func:`attention_eligible` accepts.  A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.  Like the TPU
-kernel, which takes any head dim, K1 is built for every head dim the models
-have (:data:`HEAD_DIMS`); the models route to it at those
-(:func:`head_dim_built`), and other widths take the plain path.  K2 and K3
-have their own, narrower set (``ops.fused_block.BLOCK_HEAD_DIMS``).
+the plain version; a CUDA tensor launches the kernel or raises.  The TPU
+kernel takes any head dim; K1 is built for every multiple of 8 from 8 to 128
+(:data:`HEAD_DIMS`, one instantiation each), which holds every width the
+models have and any d_model of 4 heads up to 512.  The models route to it at
+those (:func:`head_dim_built`); a head dim past 128 or not a multiple of 8
+takes the plain path.  K2 and K3 have their own, narrower set
+(``ops.fused_block.BLOCK_HEAD_DIMS``).
 """
 
 from __future__ import annotations
@@ -28,22 +30,25 @@ from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 
 __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
-           "key_mask_f32", "kernel_launches", "bind_entry", "call_entry", "HEAD_DIMS",
-           "MAX_LEN", "DTYPE_CODES"]
+           "key_mask_f32", "kernel_launches", "bind_entry", "call_entry",
+           "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K1's head dims, each instantiated in csrc/fused_attention.cu: 4 heads of
-# d_model 96 and 192 (the CoGenT protocol's executors), 256 (the baselines,
-# the CoT IQAP, HierarchicalGenerator's preset) and 512 (the thesis executor)
-HEAD_DIMS = (24, 48, 64, 128)
+# K1's head dims, each instantiated in csrc/fused_attention.cu
+# (ESV_K1_HEAD_DIMS; compiled in the groups of ops._build.K1_DIM_GROUPS):
+# every multiple of 8 up to 128, among them 4 heads of d_model 96 and 192
+# (the CoGenT protocol's executors), 256 (the baselines, the CoT IQAP,
+# HierarchicalGenerator's preset) and 512 (the thesis executor)
+HEAD_DIMS = tuple(range(8, 129, 8))
 MAX_LEN = 1024
 
 
 def head_dim_built(d_model: int, num_heads: int) -> bool:
     """True when ``d_model`` splits into ``num_heads`` heads of a dim K1 is
-    built for (:data:`HEAD_DIMS`).  JAX's dispatch (``ops/attention.py:51-59``)
-    has no head-dim condition: its kernel takes any; here the models send K1
-    these, and the wrapper raises on a CUDA tensor of another head dim."""
+    built for (:data:`HEAD_DIMS`: a multiple of 8 up to 128).  JAX's dispatch
+    (``ops/attention.py:51-59``) has no head-dim condition: its kernel takes
+    any; here the models send K1 these, and the wrapper raises on a CUDA
+    tensor of another head dim."""
     return d_model % num_heads == 0 and d_model // num_heads in HEAD_DIMS
 
 

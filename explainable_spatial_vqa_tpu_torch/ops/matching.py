@@ -5,10 +5,11 @@
 - Sinkhorn-relaxed assignment, on the tensor's device;
 - the exact matcher on the device, :func:`hungarian_assignment_device`: the
   JAX package's default, ``hungarian_assignment_jax`` (``:238-340``), the
-  Jonker-Volgenant LAP of ``_lap_single`` batched over problems.  On the card
-  it is the kernel ``csrc/hungarian.cu``, launched on the current stream with
-  no host read and no wait; on the CPU it is
-  :func:`hungarian_assignment_device_plain`, the same float32 operations in
+  Jonker-Volgenant LAP of ``_lap_single`` batched over problems, at any size.
+  On the card it is ``csrc/hungarian.cu``, launched on the current stream with
+  no host read and no wait: one warp per problem while m + 1 <= 32 (m =
+  max(Q, T); :data:`MAX_SIDE`), one block per problem past that; on the CPU it
+  is :func:`hungarian_assignment_device_plain`, the same float32 operations in
   the same order on tensors.  Both break ties among optimal assignments as
   JAX does (the first index of a minimum wins);
 - the exact matcher on the host, :func:`hungarian_assignment`: scipy's
@@ -26,7 +27,8 @@ nothing here is differentiated through them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,9 +38,12 @@ from explainable_spatial_vqa_tpu_torch.ops import _build
 
 __all__ = ["box_area", "box_iou", "box_giou", "pairwise_iou", "pairwise_giou", "pairwise_l1",
            "sinkhorn", "sinkhorn_assignment", "hungarian_assignment",
-           "hungarian_assignment_device", "hungarian_assignment_device_plain", "MAX_SIDE"]
+           "hungarian_assignment_device", "hungarian_assignment_device_plain", "kernel_launches",
+           "set_shared_limit", "MAX_SIDE"]
 
-MAX_SIDE = 31  # the device matcher's largest max(Q, T): one warp lane per column, plus column 0
+# the warp kernel's largest max(Q, T): one lane per column, plus column 0;
+# larger problems take the block kernel
+MAX_SIDE = 31
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -212,11 +217,52 @@ def hungarian_assignment_device_plain(cost: torch.Tensor,
     return torch.where(valid, assign, torch.full_like(assign, -1))
 
 
+@functools.lru_cache(maxsize=None)
 def _esv_hungarian():
-    fn = _build.load("hungarian").esv_hungarian
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The C entries of ``csrc/hungarian.cu``: (``esv_hungarian``,
+    ``esv_hungarian_scratch_bytes``), their types set; bound once, on the
+    first call, after ``_build.load`` has built and loaded the library."""
+    lib = _build.load("hungarian")
+    launch, scratch = lib.esv_hungarian, lib.esv_hungarian_scratch_bytes
+    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return launch, scratch
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The matcher's launches by kernel, as the C library counts them since it
+    was loaded: ``hungarian_kernel`` (a warp a problem, m + 1 <= 32),
+    ``hungarian_block_kernel`` (a block a problem) and, among the latter,
+    ``hungarian_block_kernel_global_state`` (the launches whose state went to
+    global memory).  The kernel is chosen in ``esv_hungarian`` alone; the
+    difference of two readings says which ran.  Needs the library (a card
+    and ``nvcc``)."""
+    names, count = _launch_counters()
+    return {n: count(i) for i, n in enumerate(names)}
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_counters():
+    lib = _build.load("hungarian")
+    name, count = lib.esv_hungarian_kernel, lib.esv_hungarian_launches
+    name.argtypes = count.argtypes = [ctypes.c_int]
+    name.restype, count.restype = ctypes.c_char_p, ctypes.c_longlong
+    names = []
+    while name(len(names)) is not None:
+        names.append(name(len(names)).decode())
+    return names, count
+
+
+def set_shared_limit(nbytes: Optional[int]) -> Optional[int]:
+    """Cap the block kernel's shared memory at ``nbytes`` (None: the card's
+    capacity, the default); the cap it replaces.  Past the cap a launch keeps
+    its state in a global scratch that the wrapper allocates, so a cap of 0
+    exercises that path at any size.  Needs the library."""
+    fn = _build.load("hungarian").esv_hungarian_set_shared_limit
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_longlong
+    old = fn(-1 if nbytes is None else nbytes)
+    return None if old < 0 else old
 
 
 def hungarian_assignment_device(cost: torch.Tensor, target_mask: torch.Tensor) -> torch.Tensor:
@@ -225,10 +271,9 @@ def hungarian_assignment_device(cost: torch.Tensor, target_mask: torch.Tensor) -
     cost (B, Q, T) float; target_mask (B, T) bool, valid targets anywhere.
     Returns (B, Q) int64: the target each query is matched to, -1 for
     unmatched queries (a dummy column when Q > T, an invalid target, or no
-    valid target at all).  A CUDA tensor launches ``csrc/hungarian.cu`` on
-    the current stream (no host read, no wait) and needs max(Q, T) <=
-    :data:`MAX_SIDE`; a CPU tensor runs
-    :func:`hungarian_assignment_device_plain`.
+    valid target at all).  Any Q and T, as JAX's.  A CUDA tensor launches
+    ``csrc/hungarian.cu`` on the current stream (no host read, no wait); a
+    CPU tensor runs :func:`hungarian_assignment_device_plain`.
     """
     if cost.ndim != 3 or target_mask.shape != (cost.shape[0], cost.shape[2]):
         raise ValueError(f"hungarian_assignment_device: cost (B, Q, T) and target_mask (B, T); "
@@ -239,18 +284,20 @@ def hungarian_assignment_device(cost: torch.Tensor, target_mask: torch.Tensor) -
         raise ValueError(f"hungarian_assignment_device: cost on {cost.device}, target_mask on "
                          f"{target_mask.device}; both must be on one CUDA device or the CPU")
     b, q, t = cost.shape
-    if max(q, t) > MAX_SIDE:
-        raise ValueError(f"hungarian_assignment_device: max(Q, T) = {max(q, t)} exceeds "
-                         f"{MAX_SIDE} (one warp lane per column of the padded matrix)")
     if b == 0 or q == 0 or t == 0:
         return torch.full((b, q), -1, dtype=torch.int64, device=cost.device)
     cost = cost.detach().to(torch.float32).contiguous()
     keep = target_mask.to(torch.bool).contiguous()
-    out = torch.empty(b, q, dtype=torch.int64, device=cost.device)
+    out = cost.new_empty((b, q), dtype=torch.int64)
+    launch, scratch_bytes = _esv_hungarian()
     with torch.cuda.device(cost.device):
+        nbytes = scratch_bytes(b, q, t)  # the block kernel's state past shared memory
+        _build.check(-nbytes if nbytes < 0 else 0, "esv_hungarian_scratch_bytes")
+        scratch = cost.new_empty((nbytes,), dtype=torch.uint8) if nbytes else None
         hungarian_assignment_device.launches += 1
-        status = _esv_hungarian()(cost.data_ptr(), keep.data_ptr(), out.data_ptr(), b, q, t,
-                                  torch.cuda.current_stream(cost.device).cuda_stream)
+        status = launch(cost.data_ptr(), keep.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), b, q, t,
+                        torch.cuda.current_stream(cost.device).cuda_stream)
     _build.check(status, "esv_hungarian")
     return out
 

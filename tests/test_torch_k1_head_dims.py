@@ -1,19 +1,24 @@
-"""K1 at every head dim the models use, on the CPU against the JAX package.
+"""K1 at every head dim, on the CPU against the JAX package.
 
 The TPU kernel (``explainable_spatial_vqa_tpu/ops/pallas_attention.py``) takes
-any head dim; the port's K1 is built for 24, 48, 64 and 128.  Here, on the
-same numpy inputs:
+any head dim; the port's K1 is built for every multiple of 8 from 8 to 128
+(``HEAD_DIMS``; the C library's ``ESV_K1_HEAD_DIMS``, compiled in the units
+of ``ops._build.K1_DIM_GROUPS``).  Here, on the same numpy inputs:
 
+- the gates: ``head_dim_built`` and the wrapper's contract follow that set,
+  and the source, the build's groups and ``HEAD_DIMS`` name the same dims;
 - K1's plain version (the wrapper's path for a CPU tensor) against JAX's
-  Pallas kernel in interpret mode and JAX's XLA attention at head dims 24,
-  48 and 64 and the models' lengths (8: the protocol's box decoder; 208: its
-  fusion encoder; 243: the Transformer IQAP's encoder), in float32 within
-  1e-5, the tolerance of ``tests/test_pallas_attention.py``;
-- the CoGenT protocol's executor at d_model 96 and 192 (head dims 24 and 48),
-  JAX's Flax weights carried over by ``convert.py``: an eval forward in both
-  packages agrees, and in the port it calls K1 once per fusion layer and once
-  per box-decoder layer, and K2 never (on the CPU JAX's dispatch takes its
-  XLA path, ``ops/attention.py:57``);
+  Pallas kernel in interpret mode and JAX's XLA attention at head dims 8,
+  16, 24, 32, 48, 64 and 96 and the models' lengths (8: the protocol's box
+  decoder; 208: its fusion encoder; 243: the Transformer IQAP's encoder), in
+  float32 within 1e-5, the tolerance of ``tests/test_pallas_attention.py``;
+- the CoGenT protocol's executor at d_model 32, 64, 96, 128, 192 and 384
+  (head dims 8, 16, 24, 32, 48 and 96), JAX's Flax weights carried over by
+  ``convert.py``: an eval forward in both packages agrees, and in the port
+  it calls K1 once per fusion layer and once per box-decoder layer, and K2
+  never (on the CPU JAX's dispatch takes its XLA path,
+  ``ops/attention.py:57``); a training forward, or an eval forward that
+  records a graph, calls neither;
 - where the d 256 models route: the Transformer IQAP's and the step
   seq2seq's encoders call K1, their decoders' causal self-attention and
   cross-attention do not, and neither does a training forward or an eval
@@ -21,6 +26,7 @@ same numpy inputs:
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +49,17 @@ from explainable_spatial_vqa_tpu_torch.models.layers import eval_mode, init_para
 from explainable_spatial_vqa_tpu_torch.models.prototypes import HierarchicalGenerator
 from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorSeq2Seq
 from explainable_spatial_vqa_tpu_torch.ops.decoding import greedy_decode
-from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, fused_attention
+from explainable_spatial_vqa_tpu_torch.ops import _build
+from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+    HEAD_DIMS,
+    check_attention,
+    fused_attention,
+    head_dim_built,
+)
+from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+    BLOCK_HEAD_DIMS,
+    block_head_dim_built,
+)
 from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol
 
 torch.set_num_threads(1)
@@ -60,7 +76,55 @@ def _key_mask(batch, length, seed):
     return keep
 
 
-@pytest.mark.parametrize("head_dim", [24, 48, 64])
+def test_head_dim_built_is_every_multiple_of_8_to_128():
+    """K1's gate: 4 heads of every multiple of 8 from 8 to 128 (d_model 32
+    to 512), and no head dim of 4, 25 or 136; K2's stays at 128."""
+    assert HEAD_DIMS == tuple(range(8, 129, 8))
+    for head_dim in range(8, 129, 8):
+        assert head_dim_built(4 * head_dim, 4), head_dim
+        assert head_dim_built(2 * head_dim, 2), head_dim
+    for head_dim in (4, 25, 136):
+        assert not head_dim_built(4 * head_dim, 4), head_dim
+    assert not head_dim_built(100, 3)  # no whole head dim
+    assert BLOCK_HEAD_DIMS == (128,)
+    assert [d for d in range(8, 129, 8) if block_head_dim_built(4 * d, 4)] == [128]
+
+
+@pytest.mark.parametrize("head_dim,ok", [(8, True), (72, True), (128, True), (4, False),
+                                          (25, False), (136, False)])
+def test_wrapper_contract_follows_head_dims(head_dim, ok):
+    """The wrapper's contract (checked before any launch on a CUDA tensor)
+    takes exactly the head dims of ``HEAD_DIMS``."""
+    q, k, v = (torch.zeros(2, 5, 2, head_dim) for _ in range(3))
+    if ok:
+        check_attention(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            check_attention(q, k, v)
+
+
+def test_source_and_build_name_the_same_head_dims(monkeypatch):
+    """``csrc/fused_attention.cu``'s dispatch list (ESV_K1_HEAD_DIMS), the
+    build's units (each dim in exactly one group) and ``HEAD_DIMS`` agree;
+    the library's hash covers the units' flags, so regrouping rebuilds."""
+    source = (_build.CSRC_DIR / "fused_attention.cu").read_text()
+    listed = re.search(r"#define ESV_K1_HEAD_DIMS ([0-9, ]+)\n", source).group(1)
+    assert tuple(int(d) for d in listed.split(",")) == HEAD_DIMS
+    grouped = [d for group in _build.K1_DIM_GROUPS for d in group]
+    assert sorted(grouped) == list(HEAD_DIMS)
+    units = _build.units("fused_attention")
+    assert units[0] == ("fused_attention.cu", ())
+    assert [flags for _, flags in units[1:]] == [
+        tuple(f"-DESV_HEAD_DIM_{ab}={d}" for ab, d in zip("AB", group))
+        for group in _build.K1_DIM_GROUPS]
+    assert all(1 <= len(group) <= 2 for group in _build.K1_DIM_GROUPS)
+    assert _build.units("hungarian") == (("hungarian.cu", ()),)
+    before = _build._library_path("fused_attention")
+    monkeypatch.setattr(_build, "K1_DIM_GROUPS", ((8,),) + _build.K1_DIM_GROUPS[1:])
+    assert _build._library_path("fused_attention") != before
+
+
+@pytest.mark.parametrize("head_dim", [8, 16, 24, 32, 48, 64, 96])
 @pytest.mark.parametrize("length", [8, 208, 243])
 @pytest.mark.parametrize("masked", [False, True])
 def test_k1_plain_matches_jax_at_head_dim(head_dim, length, masked):
@@ -100,7 +164,7 @@ def _numpy_params(variables):
     return jax.tree_util.tree_map(np.asarray, variables["params"])
 
 
-@pytest.mark.parametrize("d_model", [96, 192])
+@pytest.mark.parametrize("d_model", [32, 64, 96, 128, 192, 384])
 def test_protocol_executor_matches_jax_through_k1(spies, d_model):
     """The protocol's executor (2 fusion layers, 1 box-decoder layer, 8
     queries, 4 image tokens of 8 features), float32 eval forward: the
@@ -133,6 +197,36 @@ def test_protocol_executor_matches_jax_through_k1(spies, d_model):
     for key in ("routing_logits", "token_logits", "pred_conf"):
         np.testing.assert_array_equal(out[key].numpy().argmax(-1),
                                       np.asarray(ref[key]).argmax(-1), err_msg=key)
+    head_dim = d_model // cfg.num_heads
+    assert spies["block"] == []
+    assert spies["attention"] == ([(b, 16, 4, head_dim)] * cfg.encoder_layers
+                                  + [(b, cfg.num_queries, 4, head_dim)] * cfg.box_decoder_layers)
+
+
+@pytest.mark.parametrize("d_model", [32, 64, 128, 384])
+def test_protocol_executor_no_k1_where_autograd_records(spies, d_model):
+    """The protocol's executor at the new head dims (8, 16, 32, 96): a
+    training forward and an eval forward that records a graph call neither
+    kernel (K1 has no backward); the same eval forward under no_grad calls
+    K1 once per fusion and box-decoder layer."""
+    cfg = dataclasses.replace(synthetic_protocol.make_protocol_executor_config(
+        VOCABS, d_model=d_model, encoder_layers=2, box_roi=True),
+        num_image_tokens=4, image_feature_dim=8)
+    model = init_parameters(ProgramExecutor(cfg, device="cpu"), d_model)
+    rng = np.random.RandomState(d_model + 1)
+    b, s = 2, cfg.max_input_boxes
+    corner = rng.uniform(0, 0.5, (b, s, 2)).astype(np.float32)
+    inputs = [torch.from_numpy(a) for a in (
+        rng.randn(b, 4, 8).astype(np.float32),
+        np.concatenate([corner, corner + 0.4], -1).astype(np.float32),
+        rng.rand(b, s) < 0.6, rng.randint(1, 6, (b, 3)), np.ones((b, 3), bool))]
+    model.train()
+    model(*inputs)["token_logits"].sum().backward()
+    model.eval()
+    model(*inputs)["token_logits"].sum().backward()
+    assert spies == {"block": [], "attention": []}, d_model
+    with torch.no_grad():
+        model(*inputs)
     head_dim = d_model // cfg.num_heads
     assert spies["block"] == []
     assert spies["attention"] == ([(b, 16, 4, head_dim)] * cfg.encoder_layers

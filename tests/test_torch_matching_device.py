@@ -6,9 +6,16 @@ its assignments must equal ``hungarian_assignment_jax``'s exactly: on random
 costs, on integer costs with many tied optima (where scipy picks other optimal
 assignments), with empty and full masks, Q > T and Q < T, and on a NaN cost.
 ``assign_targets`` must send ``"auto"`` and ``"hungarian_jax"`` to it and
-``"hungarian"`` to scipy.  The CUDA kernel itself is held against the plain
-version on the card by ``chip_smoke.py`` phase 21.
+``"hungarian"`` to scipy.  JAX's matcher takes any size, and so does the
+port's: past 31 columns (the warp kernel's range, ``MAX_SIDE``) the plain
+version still equals JAX's, an executor of 40 queries gets JAX's assignment
+through ``assign_targets``, and a CUDA tensor reaches the C entry, which
+launches the block kernel there.  The CUDA kernels themselves are held
+against the plain version on the card by ``chip_smoke.py`` phase 21.
 """
+
+import contextlib
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -126,9 +133,7 @@ def test_nan_cost_matches_jax_and_ends():
 
 def test_contract_limits():
     """Shapes are checked first; a tensor on neither the CPU nor a CUDA
-    device raises; MAX_SIDE binds the kernel only (one warp lane per column
-    of the padded matrix), not the plain version."""
-    assert tm.MAX_SIDE == 31
+    device raises; there is no size limit."""
     with pytest.raises(ValueError, match="cost \\(B, Q, T\\)"):
         tm.hungarian_assignment_device(torch.zeros(2, 3, 4), torch.ones(2, 5, dtype=torch.bool))
     meta = torch.zeros(2, 32, 4, device="meta")
@@ -141,22 +146,103 @@ def test_contract_limits():
     np.testing.assert_array_equal(_device(cost, mask), _jax(cost, mask))
 
 
+class _FakeCuda:
+    """A stand-in for a CUDA tensor on a host with no card: its shape and
+    device, and the calls the wrapper makes before its C entry."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.ndim = len(shape)
+        self.device = torch.device("cuda", 0)
+
+    def detach(self):
+        return self
+
+    def to(self, _dtype):
+        return self
+
+    def contiguous(self):
+        return self
+
+    def data_ptr(self):
+        return 0
+
+    def new_empty(self, shape, dtype):
+        assert dtype in (torch.int64, torch.uint8)
+        return _FakeCuda(shape)
+
+
 def test_side_limit_on_cuda_tensor(monkeypatch):
-    """On a CUDA tensor, m = 32 raises the contract error, not a launch."""
-    calls = []
-    monkeypatch.setattr(tm, "_esv_hungarian", lambda: calls.append(1))
+    """On a CUDA tensor there is no side limit: m = 32 (the first size past
+    the warp kernel's 31) and m = 300 reach the C entry with their (B, Q, T),
+    where ``esv_hungarian`` routes them to the block kernel, with a scratch
+    of the size ``esv_hungarian_scratch_bytes`` asks for."""
+    calls, scratch = [], []
 
-    class FakeCuda:
-        def __init__(self, shape):
-            self.shape = shape
-            self.ndim = len(shape)
-            self.device = torch.device("cuda", 0)
+    def entry(cost, mask, out, scratch_ptr, b, q, t, stream):
+        calls.append((b, q, t))
+        scratch.append(scratch_ptr)
+        return 0
 
-    with pytest.raises(ValueError, match="exceeds 31"):
-        tm.hungarian_assignment_device(FakeCuda((2, 10, 32)), FakeCuda((2, 32)))
-    with pytest.raises(ValueError, match="exceeds 31"):
-        tm.hungarian_assignment_device(FakeCuda((2, 32, 10)), FakeCuda((2, 10)))
-    assert not calls
+    def scratch_bytes(b, q, t):  # the state of a 300-column problem past shared memory
+        return b * 16 if max(q, t) >= 300 else 0
+
+    monkeypatch.setattr(tm, "_esv_hungarian", lambda: (entry, scratch_bytes))
+    monkeypatch.setattr(torch.cuda, "device", lambda _device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda _device=None: types.SimpleNamespace(cuda_stream=0))
+    for b, q, t in ((2, 10, 32), (2, 32, 10), (3, 300, 300), (1, 12, 300)):
+        out = tm.hungarian_assignment_device(_FakeCuda((b, q, t)), _FakeCuda((b, t)))
+        assert out.shape == (b, q)
+    assert calls == [(2, 10, 32), (2, 32, 10), (3, 300, 300), (1, 12, 300)]
+    assert scratch == [None, None, 0, 0]  # a scratch where the C library asks for one
+
+
+@pytest.mark.parametrize("q,t", [(32, 32), (33, 10), (10, 48), (64, 64)])
+def test_plain_matcher_equals_jax_past_the_warp(q, t):
+    """Past the warp kernel's 31 columns the plain version (the block
+    kernel's reference on the card) equals ``hungarian_assignment_jax`` on
+    uniform costs, tied integer costs and integer costs with NaNs, under
+    empty, full and ragged masks."""
+    rng = np.random.RandomState(q * 100 + t)
+    batch = 6
+    mask = rng.rand(3 * batch, t) < rng.rand(3 * batch, 1)
+    mask[0] = False
+    mask[1] = True
+    uniform = (rng.rand(batch, q, t) * 30.0).astype(np.float32)
+    tied = rng.randint(0, 3, (batch, q, t)).astype(np.float32)
+    nan = rng.randint(0, 3, (batch, q, t)).astype(np.float32)
+    nan[rng.rand(batch, q, t) < 0.01] = np.nan
+    for i, cost in enumerate((uniform, tied, nan)):
+        keep = mask[i * batch:(i + 1) * batch]
+        out = _device(cost, keep)
+        np.testing.assert_array_equal(out, _jax(cost, keep))
+        assert (out[0] == -1).all() or i > 0
+    # the matched cost of the uniform draw is the optimum (scipy's)
+    host = tm.hungarian_assignment(torch.from_numpy(uniform),
+                                   torch.from_numpy(mask[:batch])).numpy()
+    out = _device(uniform, mask[:batch])
+    rows = np.arange(q)
+    for b in range(batch):
+        picked = out[b] >= 0
+        assert picked.sum() == (host[b] >= 0).sum()
+        np.testing.assert_allclose(uniform[b, rows[picked], out[b][picked]].sum(),
+                                   uniform[b, rows[host[b] >= 0], host[b][host[b] >= 0]].sum(),
+                                   rtol=1e-5)
+
+
+def test_assign_targets_forty_queries_equals_jax():
+    """An executor of 40 queries (``ExecutorConfig(num_queries=40)``, past
+    the warp kernel's 31) trains in JAX; ``assign_targets`` under the default
+    matcher gives JAX's assignment of its 40 x 12 problems."""
+    cfg = ExecutorConfig(num_queries=40)
+    assert cfg.num_queries == 40 and cfg.matcher == "auto"
+    rng = np.random.RandomState(40)
+    cost = rng.randint(0, 4, (8, cfg.num_queries, 12)).astype(np.float32)
+    mask = rng.rand(8, 12) < 0.7
+    out = losses.assign_targets(torch.from_numpy(cost), torch.from_numpy(mask), cfg)
+    np.testing.assert_array_equal(out.numpy(), _jax(cost, mask))
+    assert ((out.numpy() >= 0).sum(1) == mask.sum(1)).all()  # every valid target matched
 
 
 @pytest.mark.parametrize("matcher,expected", [

@@ -106,9 +106,10 @@ def test_head_dim_built(d_model, heads, built):
 
 
 @pytest.mark.parametrize("d_model, heads, built", [
-    (96, 4, True), (192, 4, True), (256, 4, True), (512, 4, True), (384, 4, False),
-    (512, 2, False), (130, 4, False)])
+    (96, 4, True), (192, 4, True), (256, 4, True), (512, 4, True), (384, 4, True),
+    (512, 2, False), (130, 4, False), (100, 4, False), (544, 4, False), (16, 4, False)])
 def test_k1_head_dim_built(d_model, heads, built):
-    """K1's head dims: 24, 48, 64 and 128; 96 (384/4) and 256 (512/2) are
-    not built, nor a width that does not split into whole heads."""
+    """K1's head dims: every multiple of 8 from 8 to 128, so 96 (384/4) is
+    built; 256 (512/2), 25 (100/4), 136 (544/4) and 4 (16/4) are not, nor a
+    width that does not split into whole heads."""
     assert head_dim_built(d_model, heads) is built
