@@ -19,11 +19,13 @@ result:
    kernels must hold HMMA, the block GEMM HGMMA in bf16 and in float32
    (``gemm_tf32_wgmma``, 3xTF32), and ptxas's notes on serialized wgmma are
    printed, and the one-pass K1 kernel's on a line of its own; K1 must be
-   built, every function with HMMA, at every head dim of ``HEAD_DIMS`` (every
-   multiple of 8 up to 128), the one-pass kernel at each up to 64; the
-   build's wall time beside the single-unit build's and each translation
-   unit's (K1's head dims compile in units of their own,
-   all started together);
+   built, every function with HMMA, at every head dim of ``EXACT_HEAD_DIMS``
+   (every multiple of 8 up to 128), the one-pass kernel at each up to 64,
+   and the padded kernels (every other head dim up to 256) at every depth of
+   ``PADDED_DEPTHS``, each on a line of its own; the build's wall time
+   beside the single-unit build's and each translation unit's (K1's head
+   dims and padded depths compile in units of their own, all started
+   together);
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
    float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
    outputs are held by ``attention_agreement`` (against float64 scores and
@@ -42,13 +44,21 @@ result:
    read the same way; then checked the same way and timed at each model's
    shape and, at each other head dim, at the protocol's shapes at d_model
    4 D (the fusion encoder, L=208, in both types; the box decoder, L=8),
-   the one-pass kernel named by a profile at the models' bf16 shapes; K2's own float32
+   the one-pass kernel named by a profile at the models' bf16 shapes; K1 on
+   the padded kernels (``k1_padded_dims``) at ``K1_PADDED_DIMS`` (ragged
+   head dims and 136-256, one or more at each padded depth) at L = 8, 17,
+   208 and 1025, and every K1 kernel past the old 1024-key cap at
+   ``K1_LONG_ROWS`` (1025 and 4096 keys; float32 within ``k1_f32_tol``),
+   then checked and timed at ``K1_NEW_SHAPES`` (the protocol at d_model 100
+   and 1024, serving at 1024, rows of 1025 and 4096 keys); K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
    TF32 pass, ``torch.matmul`` with TF32 on, must miss it); K2 at the fusion
    encoder's shape on the draws ``BLOCK_DRAWS``; K3 at the block bench's
-   (L=224, ``batch_tile=2, ffn_chunks=2``) on ``K3_DRAWS``.  In bf16, every
+   (L=224, ``batch_tile=2, ffn_chunks=2``) on ``K3_DRAWS``; both again at
+   head dim 256 (``BLOCK_HD256``: d_model 1024, 4 heads, ffn 4096) on
+   ``BLOCK_DRAWS``, K3's exact q/k/v held there too.  In bf16, every
    element and the mean error are held (``bf16_agreement``), and each block
    kernel's check has a negative control that must fail it: the other block
    kernel's plain version (K3 rounds q, k and v to bf16, K2 keeps them
@@ -118,8 +128,11 @@ result:
     at p=1 on the card against the CPU;
 16. the CoGenT A->B protocol (``run_cogent_protocol``, float32): eval
     forwards of the protocol's executor at every d_model of 4 heads of a K1
-    head dim (32 to 480: head dims 8 to 120) launch K1 once per fusion and
-    box-decoder layer and no K2, at 512 K2 and K1; the protocol at its flagship
+    head dim with kernels of its own (32 to 480: head dims 8 to 120) and of
+    ``K1_ROUTING_PADDED`` (d_model 100 to 768: head dims 25 to 192) launch K1
+    once per fusion and box-decoder layer and no K2, at 512 and 1024 K2 and
+    K1, the C libraries' counts naming the padded kernels at every head dim
+    without kernels of its own; the protocol at its flagship
     width (d_model 192, 3 layers, ``box_roi``, cosine; a quarter of the CLI's steps) with each part's wall
     time, the median ms per train step, its K1 launches (in the
     evaluations only), the four cells and accuracy by
@@ -197,7 +210,7 @@ result:
     tied integers and a third integers with NaNs; the C library's counts
     showing the block kernel ran), once with its state in global memory,
     under the sync check too, and timed at (B, Q, T) = (64, 32, 32), (64,
-    100, 100), (16, 300, 300); 21.2 one
+    100, 100), (8, 300, 300); 21.2 one
     ``executor_roi`` train step at full width, bf16, batch 16 and 128, with
     ``matcher="auto"`` (the kernel) and ``"hungarian"`` (scipy), in
     alternating rounds, with the host's waits per step and a falling fixed
@@ -215,7 +228,15 @@ result:
     ``mfu_decomposition`` and ``roofline_step`` at their defaults, each
     driver's output printed; each last line parses with its driver's keys,
     times are finite and positive, 0 < MFU <= 1, no program is truncated,
-    and K1 and K2 launch in each bench run and K3 in none.
+    and K1 and K2 launch in each bench run and K3 in none;
+23. the paths at the head dims without kernels of their own (``new_widths``):
+    ``run_cogent_protocol`` as ``cogent-protocol --d_model 100`` and
+    ``--d_model 1024`` run it (float32, ``NEW_WIDTH_PROTOCOL``'s sizes and
+    steps): K1 on the padded kernel at head dim 25 and 256, K2 at 256, no
+    self-attention K1 takes on the plain path, valA card vs CPU equal; bf16
+    serving (``InferencePipeline.run``) with the executor at d_model 1024: K2
+    3 and K1 2 launches a forward on the padded kernels; the block bench at
+    d_model 1024, which launches K3 at head dim 256.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
@@ -224,7 +245,11 @@ The line before the last is a JSON object with one entry per kernel
 (``hungarian_assignment_device_block``) with its launches in 21.2's
 40-query run and its times under ``at_shapes``; K2's entry also holds its
 times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
-``at_shapes``; then K1 at every head dim below 128 (``fused_attention_d{D}``),
+``at_shapes``; the padded kernels at the ragged head dims and at 136-256
+(``fused_attention_padded_ragged``, ``_wide``) and K2 and K3 at head dim 256
+(``fused_encoder_block_hd256``, ``fused_encoder_block_tiled_hd256``), with
+their launches on phases 16.1 and 23's paths, and K1's rows past 1024 keys
+under ``long_rows``; then K1 at every head dim below 128 (``fused_attention_d{D}``),
 each at its first model's encoder shape (the protocol's fusion encoder at
 d_model 4 D for the head dims no preset has) with the rest under
 ``at_shapes`` and its launches through the models by phase, which must not
@@ -281,6 +306,7 @@ K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 # launch (read from the C library's launch counts; float32 takes
 # attention_kernel_f32 at every length)
 ONE_PASS, RING = "attention_kernel_onepass", "attention_kernel"
+PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
 K1_CHECK_LENGTHS = ((8, False, RING), (17, True, ONE_PASS), (208, True, ONE_PASS),
                     (224, False, ONE_PASS), (225, True, ONE_PASS), (243, True, ONE_PASS),
                     (246, True, ONE_PASS), (256, False, ONE_PASS), (257, True, RING))
@@ -317,8 +343,73 @@ K1_MODEL_SHAPES += tuple(
 def k1_bf16_kernel(d_head: int, length: int) -> str:
     """The kernel function a bf16 K1 call launches (``launch_attention_dim``'s
     routing): one warp's ring kernel at L <= 16, the one-pass kernel at D <=
-    64 and L <= 256, else the ring."""
+    64 and L <= 256, else the ring; the padded kernel at a head dim without
+    kernels of its own (``launch_attention_padded``)."""
+    if d_head % 8 or d_head > 128:
+        return PADDED
     return ONE_PASS if 16 < length <= 256 and d_head <= 64 else RING
+
+
+def k1_kernel(d_head: int, length: int, name: str) -> str:
+    """The kernel function a K1 call of type ``name`` ("bf16" or "fp32")
+    launches."""
+    if name == "bf16":
+        return k1_bf16_kernel(d_head, length)
+    return PADDED_F32 if d_head % 8 or d_head > 128 else "attention_kernel_f32"
+
+
+def k1_f32_tol(length: int) -> float:
+    """K1's float32 tolerance against the plain version: 1e-5 up to 511
+    keys, and 1e-5 for each 256 keys past that.  A 3xTF32 score carries
+    ~2^-22 of its products' magnitudes, which moves a weight by as much;
+    the longest rows hold the most extreme scores (at D = 1 a score is one
+    product q k, up to ~16 among 1025 normal draws), which took the float32
+    kernels at head dims 1 and 4 past 1e-5 on draws of 1025 keys (PERF.md
+    §6)."""
+    return 1e-5 * max(1, length // 256)
+
+
+def k1_f32_tol_text(length: int) -> str:
+    return "1e-5" if length < 512 else f"{length // 256} x 1e-5"
+# K1 at the head dims without kernels of their own: the padded kernels
+# (csrc/attention_padded.cuh), at least one head dim at each padded depth
+# (16, 32, ..., 128 ragged; 160-256 two warps a row group).  Phase 3 holds
+# each at K1_PADDED_LENGTHS in both types (ragged masks; unmasked too at
+# 208), at B = K1_NEW_DIM_BATCH, the kernel function read from the C
+# library's counts
+K1_PADDED_DIMS = (1, 4, 12, 25, 36, 60, 70, 90, 100, 127, 136, 144, 176, 192, 200, 232, 255,
+                  256)
+K1_PADDED_LENGTHS = (8, 17, 208, 1025)
+# rows past the old 1024-key cap, up to MAX_LEN (4096): head dim, B, L, in
+# both types, ragged masks: the models' head dims on their kernels, a ragged
+# and the widest padded one
+K1_LONG_ROWS = ((24, 4, 1025), (48, 4, 1025), (64, 4, 1025), (128, 4, 1025), (25, 4, 1025),
+                (256, 4, 1025), (64, 1, 4096), (128, 1, 4096), (25, 1, 4096), (256, 1, 4096))
+# phase 4 at the new paths' shapes (label, head dim, B, L, key mask, type):
+# the protocol at --d_model 100 (head dim 25) and 1024 (256; its fusion
+# layers run K2, so L = 208 is timed as d_model 1024 with 4 heads would run
+# it without K2), serving at d_model 1024 (the box decoder's L = 10),
+# d_model 544 (136), and rows past 1024 keys
+K1_NEW_SHAPES = (
+    ("protocol d 100 fusion encoder", 25, 128, 208, True, "fp32"),
+    ("protocol d 100 box decoder", 25, 128, 8, False, "fp32"),
+    ("protocol d 100 fusion encoder bf16", 25, 128, 208, True, "bf16"),
+    ("serving d 1024 box decoder bf16", 256, 128, 10, False, "bf16"),
+    ("protocol d 1024 box decoder", 256, 128, 8, False, "fp32"),
+    ("d 1024 encoder", 256, 128, 208, True, "fp32"),
+    ("d 1024 encoder bf16", 256, 128, 208, True, "bf16"),
+    ("d 544 encoder", 136, 128, 208, True, "fp32"),
+    ("1025-key row bf16", 128, 16, 1025, True, "bf16"),
+    ("1025-key row", 64, 16, 1025, True, "fp32"),
+    ("4096-key row", 256, 4, 4096, True, "fp32"),
+)
+# phase 16.1's widths past the head dims with kernels of their own: d_model
+# 4 D at these head dims (the protocol's --d_model 100, 144, 400, 544, 768
+# and 1024; at 1024 the fusion layers run K2 at head dim 256)
+K1_ROUTING_PADDED = (25, 36, 100, 136, 192, 256)
+# K2 and K3 at head dim 256: d_model 1024, 4 heads, ffn 4096 (the executor at
+# d_model 1024), on BLOCK_DRAWS each
+BLOCK_HD256 = dict(d=1024, h=4, ffn=4096)
 # K1 through its wrapper at the box decoders' shapes, where the host's work
 # around the launch costs more than the kernel: head dim, B, L, type
 K1_WRAPPER_SHAPES = ((24, 128, 8, "fp32"), (48, 128, 8, "fp32"), (128, 128, 10, "bf16"))
@@ -531,14 +622,25 @@ def bf16_agreement(torch, out, ref, rms_rounded: bool = False) -> dict:
                 outside=int((err > limit).sum()), mean_ulps=float(err.mean() / ulp.mean()))
 
 
-def bf16_ok(stats: dict) -> bool:
-    return stats["excess"] <= 0 and stats["mean_ulps"] <= MEAN_ULPS
+def bf16_ok(stats: dict, mean_ulps: float = MEAN_ULPS) -> bool:
+    return stats["excess"] <= 0 and stats["mean_ulps"] <= mean_ulps
 
 
-def bf16_text(stats: dict) -> str:
+def bf16_text(stats: dict, mean_ulps: float = MEAN_ULPS) -> str:
     return (f"max_abs_err {stats['max_abs']:.3g}, largest excess over "
             f"{stats.get('limit', '2 ulp(|ref|) + ulp(rms)')} {stats['excess']:.3g} (tol 0), "
-            f"mean error {stats['mean_ulps']:.4f} ulp (tol {MEAN_ULPS})")
+            f"mean error {stats['mean_ulps']:.4f} ulp (tol {mean_ulps:.4g})")
+
+
+def block_mean_ulps(d: int) -> float:
+    """The bf16 block checks' mean-error limit at width d: ``MEAN_ULPS`` at
+    d 512, the width it was set at, times sqrt(d / 512) past it.  The block's
+    float32 sums run over d (and 4 d) products, and a sum taken in another
+    order moves a bf16 rounding the other way at a rate that grows as the
+    square root of its length: K2's mean error was 0.021 ulp at d 512 and
+    0.0484-0.0489 at d 1024 (PERF.md §6), where the negative control
+    (the other block's arithmetic) stays at 0.23."""
+    return MEAN_ULPS * math.sqrt(max(1.0, d / 512))
 
 
 def attention_agreement(torch, out, q, k, v, mask) -> dict:
@@ -849,11 +951,11 @@ def alone(which: str) -> None:
 
 def k1_functions_missing(kernels: dict) -> list:
     """K1's kernel functions (``kernel_report``'s entries) that each head dim
-    of ``HEAD_DIMS`` must have, as (head dim, kernel, output type, warps),
-    that are not built or run no HMMA: ``attention_kernel_f32`` to float and
-    bf16 at 1 and 14 warps, ``attention_kernel<bf16, bf16, D, W, 0>`` at 1 and
-    8, and ``attention_kernel_onepass<bf16, D, 4>`` up to 64."""
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS
+    of ``EXACT_HEAD_DIMS`` must have, as (head dim, kernel, output type,
+    warps), that are not built or run no HMMA: ``attention_kernel_f32`` to
+    float and bf16 at 1 and 14 warps, ``attention_kernel<bf16, bf16, D, W,
+    0>`` at 1 and 8, and ``attention_kernel_onepass<bf16, D, 4>`` up to 64."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import EXACT_HEAD_DIMS
 
     built = {}
     for k in kernels.values():
@@ -871,11 +973,37 @@ def k1_functions_missing(kernels: dict) -> list:
             to, dim, warps = args
         built[int(dim), kind, to, warps] = k["HMMA"] > 0
     missing = []
-    for d in HEAD_DIMS:
+    for d in EXACT_HEAD_DIMS:
         want = [(d, "attention_kernel_f32", to, w) for to in ("float", "bf16") for w in ("1", "14")]
         want += [(d, "attention_kernel", "bf16", w) for w in ("1", "8")]
         want += [(d, "attention_kernel_onepass", "bf16", "4")] if d <= 64 else []
         missing += [key for key in want if not built.get(key)]
+    return missing
+
+
+def k1_padded_missing(kernels: dict) -> list:
+    """The padded kernels (``csrc/attention_padded.cuh``) that each depth of
+    ``PADDED_DEPTHS`` must have, as (kernel, output type, per-warp depth,
+    warps a row group, row groups a block), that are not built or run no
+    HMMA: ``attention_kernel_padded_f32`` to float and bf16 and
+    ``attention_kernel_padded`` to bf16, each with one row group (L <= 16)
+    and with 8 warps."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import PADDED_DEPTHS
+
+    built = {}
+    for k in kernels.values():
+        found = re.search(r"(attention_kernel_padded(?:_f32)?)<([^>]*)>", k["short"])
+        if found:
+            args = [re.sub(r"^\((?:int|bool)\)", "", a.strip()) for a in found.group(2).split(",")]
+            built[(found.group(1), *args)] = k["HMMA"] > 0
+    missing = []
+    for depth in PADDED_DEPTHS:
+        g = 2 if depth > 128 else 1
+        for groups in ("1", str(8 // g)):
+            shape = (str(depth // g), str(g), groups)
+            want = [(PADDED_F32, to, *shape) for to in ("float", "bf16")]
+            want.append((PADDED, "bf16", *shape))
+            missing += [key for key in want if not built.get(key)]
     return missing
 
 
@@ -958,14 +1086,10 @@ def main() -> None:
 
     from explainable_spatial_vqa_tpu_torch.ops import _build
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS, fused_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
-        BlockWeights,
-        fused_encoder_block,
-        fused_encoder_block_plain,
-        fused_encoder_block_tiled,
-        fused_encoder_block_tiled_plain,
-        split_block_weights,
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        EXACT_HEAD_DIMS,
+        PADDED_DEPTHS,
+        fused_attention,
     )
 
     dev = torch.device("cuda")
@@ -1002,17 +1126,31 @@ def main() -> None:
             f"<{args}> {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
             for args, k in onepass))
     onepass_dims = sorted(int(re.sub(r"\D", "", args.split(",")[1])) for args, _ in onepass)
-    if onepass_dims != [d for d in HEAD_DIMS if d <= 64]:
+    if onepass_dims != [d for d in EXACT_HEAD_DIMS if d <= 64]:
         fail(f"phase 2: the one-pass kernel is built at head dims {onepass_dims}, not at every "
-             f"head dim up to 64 of {HEAD_DIMS}")
+             f"head dim up to 64 of {EXACT_HEAD_DIMS}")
     missing = k1_functions_missing(kernels)
-    say(f"phase 2 K1 at head dims {HEAD_DIMS[0]}-{HEAD_DIMS[-1]} (every multiple of 8): each "
+    say(f"phase 2 K1 at head dims {EXACT_HEAD_DIMS[0]}-{EXACT_HEAD_DIMS[-1]} (every multiple of "
+        f"8): each "
         f"built as attention_kernel_f32<float|bf16, "
         f"D, 1|14>, attention_kernel<bf16, bf16, D, 1|8, 0> and, up to 64, "
         f"attention_kernel_onepass<bf16, D, 4>, every one with HMMA: "
         f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
     if missing:
-        fail("phase 2: K1 is not built with HMMA at every head dim of HEAD_DIMS")
+        fail("phase 2: K1 is not built with HMMA at every head dim of EXACT_HEAD_DIMS")
+    padded = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
+                    for n, k in kernels.items() if "attention_kernel_padded" in n)
+    say("phase 2 padded K1 (attention_kernel_padded[_f32]<output type, per-warp depth, warps a "
+        "16-row group, groups a block>, every other head dim up to 256): " + "; ".join(
+            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
+            for name, k in padded))
+    missing = k1_padded_missing(kernels)
+    say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 and to "
+        f"bf16 from bf16, one group and 8 warps a block, every one with HMMA: "
+        f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
+    if missing:
+        fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
+             "PADDED_DEPTHS")
     tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
     say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
     for name in libs:  # ptxas notes a wgmma it had to wait on before the next
@@ -1096,9 +1234,37 @@ def main() -> None:
                 score_forms(torch, dev, l10_inputs, (q, k, v, mask), results, parts)
 
     k1_head_dims(torch, F, dev, results)
+    k1_padded_dims(torch, F, dev, results)
     k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
+
+    block_checks(torch, dev, results, d=512, h=4, ffn=2048, k3_draws=K3_DRAWS)
+    block_checks(torch, dev, results, **BLOCK_HD256, k3_draws=BLOCK_DRAWS, suffix="_hd256")
+    k2_at_iqap_shape(torch, dev, results)
+    k2_at_iqap_shape(torch, dev, results, K2_HIER_SHAPE, "K2_bf16_hier",
+                     "HierarchicalGenerator's encoder shape")
+    torch.cuda.empty_cache()
+    main_path(torch, np, dev, results, parts)
+
+
+def block_checks(torch, dev, results: dict, d: int, h: int, ffn: int, k3_draws,
+                 suffix: str = "") -> None:
+    """Phases 3-4 for K2 at the fusion encoder's shape (B=128, L=210) and K3
+    at the block bench's (L=224, ``K3_TILING``) at width d, h heads, ffn:
+    each against its plain version in bf16 on its draws (K2 on
+    ``BLOCK_DRAWS``, K3 on ``k3_draws``) and in float32 on the first, with
+    each bf16 check's negative control, K3's own q/k/v (``k3_qkv``) and a
+    float32 x with bf16 weights (the mean error within ``block_mean_ulps``); then timed beside
+    ``nn.TransformerEncoderLayer`` and the bound.  Results go to
+    ``results["K2_bf16" + suffix]`` and the like."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
+        fused_encoder_block,
+        fused_encoder_block_plain,
+        fused_encoder_block_tiled,
+        fused_encoder_block_tiled_plain,
+        split_block_weights,
+    )
 
     # K2 at the fusion encoder's shape and K3 at the block bench's, bf16 on
     # each of their draws (block_inputs), fp32 on the first; the first draw's
@@ -1112,18 +1278,19 @@ def main() -> None:
     def k3_plain(x, keep, w, h):
         return fused_encoder_block_tiled_plain(x, keep, w, h, **K3_TILING)
 
-    d, ffn = 512, 2048
+    b, mean = SLOTS, block_mean_ulps(d)  # the bf16 checks' mean-error limit
+    names = {torch.bfloat16: "bf16", torch.float32: "fp32"}
     blocks = (
         # name, kernel, plain, control, L, attention on float32 q/k/v, bf16 draws
         ("K2", "fused_encoder_block", fused_encoder_block, fused_encoder_block_plain, k3_plain,
          210, True, BLOCK_DRAWS),
         ("K3", f"fused_encoder_block_tiled {K3_TILING}", k3, k3_plain, fused_encoder_block_plain,
-         224, False, K3_DRAWS),
+         224, False, k3_draws),
     )
     for key, label, kernel, plain_fn, control_fn, length, f32_attention, draws in blocks:
         for dtype in (torch.bfloat16, torch.float32):
             for draw in draws if dtype == torch.bfloat16 else draws[:1]:
-                keep, w, x = block_inputs(torch, dev, draw, length, dtype)
+                keep, w, x = block_inputs(torch, dev, draw, length, dtype, d=d, ffn=ffn)
                 # float32 weights' split, made once as the model keeps it
                 out = kernel(x, keep, w, h, split=split_block_weights(w))
                 ref = plain_fn(x, keep, w, h)
@@ -1133,22 +1300,22 @@ def main() -> None:
                 head = (f"phase 3 {key} {label} {names[dtype]} B={b} L={length} d={d} H={h} "
                         f"ffn={ffn} mask=ragged, draw {draw}:")
                 if dtype == torch.float32:
-                    # sums of up to 2048 products taken in another order,
+                    # sums of up to ffn products taken in another order,
                     # through four chained products and two LayerNorms
                     say(f"{head} max_abs_err {err:.3g} (tol 1e-4)")
                     if not err <= 1e-4:
                         fail(f"{key} disagrees with its plain version")
                     continue
                 stats = bf16_agreement(torch, out, ref)
-                say(f"{head} {bf16_text(stats)}")
-                if not bf16_ok(stats):
+                say(f"{head} {bf16_text(stats, mean)}")
+                if not bf16_ok(stats, mean):
                     fail(f"{key} disagrees with its plain version on draw {draw}")
                 control = bf16_agreement(torch, control_fn(x, keep, w, h), ref)
                 other = "K3" if key == "K2" else "K2"
                 say(f"phase 3 {key} negative control, {other}'s plain version "
-                    f"({'bf16' if key == 'K2' else 'float32'} q/k/v): {bf16_text(control)}: "
-                    f"{'passes' if bf16_ok(control) else 'fails'}")
-                if bf16_ok(control):
+                    f"({'bf16' if key == 'K2' else 'float32'} q/k/v): {bf16_text(control, mean)}: "
+                    f"{'passes' if bf16_ok(control, mean) else 'fails'}")
+                if bf16_ok(control, mean):
                     fail(f"the bf16 check cannot tell {other}'s arithmetic from {key}'s")
                 if key == "K3":
                     found = k3_qkv(torch, x, keep, w, h)
@@ -1165,11 +1332,11 @@ def main() -> None:
                     stats = bf16_agreement(torch, kernel(x32, keep, w, h).bfloat16(),
                                            plain_fn(x32, keep, w, h).bfloat16())
                     say(f"phase 3 {key} float32 x, bf16 weights, outputs rounded to bf16: "
-                        f"{bf16_text(stats)}")
-                    if not bf16_ok(stats):
+                        f"{bf16_text(stats, mean)}")
+                    if not bf16_ok(stats, mean):
                         fail(f"{key} with float32 x disagrees with its plain version")
                     del x32
-            keep, w, x = block_inputs(torch, dev, draws[0], length, dtype)
+            keep, w, x = block_inputs(torch, dev, draws[0], length, dtype, d=d, ffn=ffn)
             split = split_block_weights(w)
             ref = plain_fn(x, keep, w, h)
             layer = library_layer(torch, w, d, h, ffn, dtype)
@@ -1200,20 +1367,16 @@ def main() -> None:
             nbytes = (2 * rows * d * esize + (4 * d * d + 2 * d * ffn) * esize
                       + (3 * d + d + ffn + d + 4 * d) * 4 + rows * 4)
             bnd, by = bound_ms(ops, nbytes)
-            say(f"phase 4 {key} {label} {names[dtype]} L={length}: kernel {ms:.3f} ms, plain "
-                f"{plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms (against the plain "
-                f"version: {lib_err}), bound {bnd:.4f} ms ({by}; {gemm_ops / 1e9:.1f} GFLOP of "
-                f"products {dot_text(names[dtype], gemm_ops)}, {attn_ops / 1e9:.1f} GFLOP of "
-                f"attention {dot_text(attn_type, attn_ops)}), "
+            width = f" d={d} H={h}" if suffix else ""
+            say(f"phase 4 {key} {label}{width} {names[dtype]} L={length}: kernel {ms:.3f} ms, "
+                f"plain {plain:.3f} ms, nn.TransformerEncoderLayer {lib:.3f} ms (against the "
+                f"plain version: {lib_err}), bound {bnd:.4f} ms ({by}; {gemm_ops / 1e9:.1f} "
+                f"GFLOP of products {dot_text(names[dtype], gemm_ops)}, {attn_ops / 1e9:.1f} "
+                f"GFLOP of attention {dot_text(attn_type, attn_ops)}), "
                 f"{(gemm_ops + attn_ops) / ms / 1e9:.1f} TFLOP/s")
-            results[f"{key}_{names[dtype]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                                    bound_ms=bnd, bound_by=by, library_ms=lib)
+            results[f"{key}_{names[dtype]}{suffix}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
             del layer, x, out, ref, w, split
-    k2_at_iqap_shape(torch, dev, results)
-    k2_at_iqap_shape(torch, dev, results, K2_HIER_SHAPE, "K2_bf16_hier",
-                     "HierarchicalGenerator's encoder shape")
-    torch.cuda.empty_cache()
-    main_path(torch, np, dev, results, parts)
 
 
 PROFILE_TRIES = 3  # profiles of one K1 call (k1_launched) or one 16.1 forward before giving up
@@ -1249,6 +1412,88 @@ def k1_kernel_ran(before: dict) -> str:
     return next(iter(moved))
 
 
+def k1_checked(torch, name, q, k, v, mask, want, head):
+    """One K1 wrapper call: fail unless it launched ``want`` and agrees with
+    the plain version (bf16: ``attention_agreement``; float32: within
+    ``k1_f32_tol``); the output and its largest error against the plain
+    version."""
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        kernel_launches,
+    )
+
+    before = kernel_launches()
+    out = fused_attention(q, k, v, mask)
+    ran = k1_kernel_ran(before)
+    ref = dot_product_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    if name == "bf16":
+        stats = attention_agreement(torch, out, q, k, v, mask)
+        say(f"{head} ({ran}): {bf16_text(stats)}, {stats['outside']} outside")
+        ok = bf16_ok(stats)
+    else:
+        length = q.shape[1]
+        say(f"{head} ({ran}): max_abs_err {err:.3g} (tol {k1_f32_tol_text(length)})")
+        ok = err <= k1_f32_tol(length)
+    if ran != want:
+        fail(f"{head} launched {ran}, not {want}")
+    if not ok:
+        fail(f"{head}: K1 disagrees with its plain version")
+    return out, err
+
+
+def k1_profiled(torch, q, k, v, mask, want, where):
+    """Fail unless a profile of the wrapper's calls names ``want`` alone;
+    its device ms a call."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+
+    ran, ms = k1_launched(torch, lambda: fused_attention(q, k, v, mask))
+    say(f"{where}: the profile names {', '.join(sorted(ran))} ({ms:.4f} ms of device time "
+        f"a call)")
+    if ran != {want}:
+        fail(f"{where}: the profile names {sorted(ran)}, not {want}")
+    return ms
+
+
+def k1_timed_shape(torch, F, randn, ragged_keep, results: dict, shape, profile: bool) -> None:
+    """Phase 4 for K1 at one shape (label, head dim, B, L, key mask, type,
+    as ``K1_MODEL_SHAPES``): ``k1_checked``, then the kernel through its
+    wrapper, the plain version and ``scaled_dot_product_attention`` timed,
+    beside the bound (4 L^2 D operations a head, counted by ``dot_ops``; q,
+    k, v, the output and the mask each moved once); with ``profile`` the
+    kernel named by a profile, which gives its device time.  The result goes
+    to ``results["K1_D{d}_{label}"]``."""
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
+
+    label, d_head, b, length, masked, name = shape
+    h = 4
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
+    q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
+    mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
+    head = (f"phase 4 K1 fused_attention {name} D={d_head} at the {label}'s shape (B={b} "
+            f"H={h} L={length} mask={'ragged' if masked else 'none'})")
+    want = k1_kernel(d_head, length, name)
+    out, err = k1_checked(torch, name, q, k, v, mask, want, head)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = timed_ms(torch, lambda: fused_attention(q, k, v, mask))
+    plain = timed_ms(torch, lambda: dot_product_attention(q, k, v, mask))
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    esize = 2 if name == "bf16" else 4
+    bnd, by = bound_ms(dot_ops(name, 4.0 * b * h * length * length * d_head),
+                       4 * b * length * h * d_head * esize + (b * length * 4 if masked else 0))
+    say(f"{head}: kernel {ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention "
+        f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
+    results[f"K1_D{d_head}_{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                            bound_ms=bnd, bound_by=by, library_ms=lib,
+                                            kernel=want)
+    if profile:
+        results[f"K1_D{d_head}_{label}"]["device_ms"] = k1_profiled(torch, q, k, v, mask, want,
+                                                                   head)
+
+
 def k1_head_dims(torch, F, dev, results: dict) -> None:
     """Phases 3-4 for K1 at head dims 24, 48 and 64 (``K1_MODEL_DIMS``): the
     kernel against its plain version (``dot_product_attention``) at every
@@ -1268,12 +1513,6 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
     ``results["K1_D{d}_{label}"]``.  The inputs come from generators of their
     own, so the draws of the phases after these are what they were without
     them."""
-    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
-        fused_attention,
-        kernel_launches,
-    )
-
     gen = torch.Generator(device=dev).manual_seed(14)
     gen_new = torch.Generator(device=dev).manual_seed(16)  # phase 3 at the new head dims
     t0 = time.perf_counter()
@@ -1287,39 +1526,6 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
         keep[:, length - tail:] = torch.rand(batch, tail, generator=g, device=dev) < 0.6
         return keep
 
-    def checked(name, q, k, v, mask, want, head):
-        """One wrapper call: fail unless it launched ``want`` and agrees with
-        the plain version (bf16: ``attention_agreement``; float32: within
-        1e-5); the output and its largest error against the plain version."""
-        before = kernel_launches()
-        out = fused_attention(q, k, v, mask)
-        ran = k1_kernel_ran(before)
-        ref = dot_product_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        if name == "bf16":
-            stats = attention_agreement(torch, out, q, k, v, mask)
-            say(f"{head} ({ran}): {bf16_text(stats)}, {stats['outside']} outside")
-            ok = bf16_ok(stats)
-        else:
-            say(f"{head} ({ran}): max_abs_err {err:.3g} (tol 1e-5)")
-            ok = err <= 1e-5
-        if ran != want:
-            fail(f"{head} launched {ran}, not {want}")
-        if not ok:
-            fail(f"{head}: K1 disagrees with its plain version")
-        return out, err
-
-    def profiled(q, k, v, mask, want, where):
-        """Fail unless a profile of the wrapper's calls names ``want`` alone;
-        its device ms a call."""
-        ran, ms = k1_launched(torch, lambda: fused_attention(q, k, v, mask))
-        say(f"{where}: the profile names {', '.join(sorted(ran))} ({ms:.4f} ms of device time "
-            f"a call)")
-        if ran != {want}:
-            fail(f"{where}: the profile names {sorted(ran)}, not {want}")
-        return ms
-
     types = {"bf16": torch.bfloat16, "fp32": torch.float32}
     b, h = SLOTS, 4
     for d_head in K1_MODEL_DIMS:
@@ -1330,9 +1536,9 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
                 head = (f"phase 3 K1 fused_attention {name} B={b} H={h} L={length} D={d_head} "
                         f"mask={'ragged' if masked else 'none'}")
                 want = bf16_kernel if name == "bf16" else "attention_kernel_f32"
-                out, _ = checked(name, q, k, v, mask, want, head)
+                out, _ = k1_checked(torch, name, q, k, v, mask, want, head)
                 if name == "bf16" and (d_head, length) == RING_PROFILE:
-                    profiled(q, k, v, mask, want, head)
+                    k1_profiled(torch, q, k, v, mask, want, head)
                 del q, k, v, out
     t_new = time.perf_counter()
     b = K1_NEW_DIM_BATCH
@@ -1348,35 +1554,74 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
                             f"D={d_head} mask={'ragged' if masked else 'none'}")
                     want = (k1_bf16_kernel(d_head, length) if name == "bf16"
                             else "attention_kernel_f32")
-                    out, _ = checked(name, q, k, v, mask, want, head)
+                    out, _ = k1_checked(torch, name, q, k, v, mask, want, head)
                     del q, k, v, out
     say(f"phase 3 K1 at the head dims {K1_NEW_DIMS}: {len(K1_NEW_DIMS)} x "
         f"{len(K1_NEW_DIM_LENGTHS)} lengths x 2 masks x 2 types checked in "
         f"{time.perf_counter() - t_new:.1f} s")
-    for label, d_head, b, length, masked, name in K1_MODEL_SHAPES:
-        dtype = types[name]
-        q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
-        mask = ragged_keep(b, length, 13)[:, None, None, :] if masked else None
-        head = (f"phase 4 K1 fused_attention {name} D={d_head} at the {label}'s shape (B={b} "
-                f"H={h} L={length} mask={'ragged' if masked else 'none'})")
-        want = k1_bf16_kernel(d_head, length) if name == "bf16" else "attention_kernel_f32"
-        out, err = checked(name, q, k, v, mask, want, head)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = timed_ms(torch, lambda: fused_attention(q, k, v, mask))
-        plain = timed_ms(torch, lambda: dot_product_attention(q, k, v, mask))
-        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-        esize = 2 if name == "bf16" else 4
-        bnd, by = bound_ms(dot_ops(name, 4.0 * b * h * length * length * d_head),
-                           4 * b * length * h * d_head * esize + (b * length * 4 if masked else 0))
-        say(f"{head}: kernel {ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention "
-            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
-        results[f"K1_D{d_head}_{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                                bound_ms=bnd, bound_by=by, library_ms=lib,
-                                                kernel=want)
-        if name == "bf16" and d_head in K1_MODEL_DIMS:  # the models' shapes: a profile too
-            results[f"K1_D{d_head}_{label}"]["device_ms"] = profiled(q, k, v, mask, want, head)
-        del q, k, v, qt, kt, vt, out
+    for shape in K1_MODEL_SHAPES:  # the models' bf16 shapes: a profile too
+        k1_timed_shape(torch, F, randn, ragged_keep, results, shape,
+                       profile=shape[5] == "bf16" and shape[1] in K1_MODEL_DIMS)
     say(f"phases 3-4 K1 at head dims {K1_MODEL_DIMS} and {K1_NEW_DIMS} took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def k1_padded_dims(torch, F, dev, results: dict) -> None:
+    """Phases 3-4 for K1 on the padded kernels (``attention_kernel_padded``
+    in bf16, ``attention_kernel_padded_f32`` in float32: every head dim up
+    to 256 without kernels of its own) and past the old 1024-key cap: each
+    head dim of ``K1_PADDED_DIMS`` at ``K1_PADDED_LENGTHS`` in both types
+    (ragged masks; at 208 unmasked too), then ``K1_LONG_ROWS`` (1025 and
+    4096 keys), each call's kernel function read from the C library's
+    launch counts and held by ``k1_checked``; then ``K1_NEW_SHAPES`` checked
+    and timed by ``k1_timed_shape``, the kernel also named by a profile at
+    the protocol's and serving's shapes.  Draws from a generator of their
+    own."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t0 = time.perf_counter()
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def ragged_keep(batch, length, tail):
+        """Key mask keeping all but a random subset of the last ``tail`` keys."""
+        keep = torch.ones(batch, length, dtype=torch.bool, device=dev)
+        keep[:, length - tail:] = torch.rand(batch, tail, generator=gen, device=dev) < 0.6
+        return keep
+
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    h, checks = 4, 0
+    for d_head in K1_PADDED_DIMS:
+        for length in K1_PADDED_LENGTHS:
+            b = K1_NEW_DIM_BATCH if length <= 256 else 8
+            for masked in (False, True) if length == 208 else (True,):
+                for name, dtype in types.items():
+                    q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
+                    mask = (ragged_keep(b, length, min(length, 13))[:, None, None, :]
+                            if masked else None)
+                    head = (f"phase 3 K1 fused_attention {name} B={b} H={h} L={length} "
+                            f"D={d_head} mask={'ragged' if masked else 'none'}")
+                    out, _ = k1_checked(torch, name, q, k, v, mask,
+                                        k1_kernel(d_head, length, name), head)
+                    checks += 1
+                    del q, k, v, out
+    say(f"phase 3 K1 on the padded kernels at the head dims {K1_PADDED_DIMS}: {checks} calls "
+        f"at L = {K1_PADDED_LENGTHS} checked in {time.perf_counter() - t0:.1f} s")
+    t_long = time.perf_counter()
+    for d_head, b, length in K1_LONG_ROWS:
+        for name, dtype in types.items():
+            q, k, v = (randn(b, length, h, d_head, dtype=dtype) for _ in range(3))
+            mask = ragged_keep(b, length, 13)[:, None, None, :]
+            head = (f"phase 3 K1 fused_attention {name} B={b} H={h} L={length} D={d_head} "
+                    f"mask=ragged")
+            out, _ = k1_checked(torch, name, q, k, v, mask, k1_kernel(d_head, length, name), head)
+            del q, k, v, out
+    say(f"phase 3 K1 past 1024 keys (up to MAX_LEN) at {len(K1_LONG_ROWS)} shapes x 2 types "
+        f"checked in {time.perf_counter() - t_long:.1f} s")
+    for shape in K1_NEW_SHAPES:
+        k1_timed_shape(torch, F, randn, ragged_keep, results, shape,
+                       profile=shape[3] <= 208 and shape[1] in (25, 256))
+    say(f"phases 3-4 K1 on the padded kernels and past 1024 keys took "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1669,7 +1914,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
-        HEAD_DIMS,
+        EXACT_HEAD_DIMS,
         fused_attention,
         kernel_launches,
     )
@@ -1977,6 +2222,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     matcher, block_matcher, demo_paths = demos(torch, np, dev, counted)
     by_path.update(demo_paths)
     by_path.update(measurement_drivers(torch, counted))
+    new_paths = new_widths(torch, np, dev, counted)
+    by_path.update(new_paths)
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
     layers.fused_encoder_block = fused_encoder_block
@@ -1984,7 +2231,10 @@ def main_path(torch, np, dev, results, parts) -> None:
     fp32_k2 = by_phase("K2 fp32")
     say(f"K2 launches with float32 weights (3xTF32 products) on the main path, by phase: "
         f"{fp32_k2}, {sum(fp32_k2.values())} in all")
-    k1_dims = {d: by_phase(f"K1 D={d}") for d in HEAD_DIMS}
+    # the head dims the models run on the card: every one with kernels of its
+    # own (phases 16-18, 21) and those of phases 16.1 and 23 on the padded ones
+    model_dims = sorted(set(EXACT_HEAD_DIMS + K1_ROUTING_PADDED))
+    k1_dims = {d: by_phase(f"K1 D={d}") for d in model_dims}
     say("K1 launches through the models by head dim, by phase: "
         + "; ".join(f"D={d} {c}, {sum(c.values())} in all" for d, c in k1_dims.items()))
 
@@ -2047,11 +2297,51 @@ def main_path(torch, np, dev, results, parts) -> None:
     kernels[0]["wrapper_at_shapes"] = {key[len("K1_wrapper_"):]: value
                                        for key, value in results.items()
                                        if key.startswith("K1_wrapper_")}
-    unlaunched = [d for d in HEAD_DIMS if not sum(k1_dims[d].values())]
+    # the padded kernels: K1 at the ragged head dims (the protocol at d_model
+    # 100, its fusion encoder's shape first) and at 136-256 (serving at
+    # d_model 1024, its box decoder's shape first), each with its launches
+    # through the models by phase as the C library counted them; K2 and K3
+    # at head dim 256 (d_model 1024), their launches on phase 23's serving
+    # and block-bench paths
+    padded_launches = {kind: by_phase(f"K1 {kind}") for kind in (PADDED, PADDED_F32)}
+    say(f"K1's padded kernels' launches through the models, by phase: {padded_launches}")
+    for name, takes, first in (
+            ("fused_attention_padded_ragged", lambda d: d % 8 != 0 and d < 128,
+             "K1_D25_protocol d 100 fusion encoder"),
+            ("fused_attention_padded_wide", lambda d: d > 128,
+             "K1_D256_serving d 1024 box decoder bf16")):
+        dims = [d for d in model_dims if takes(d)]
+        shapes = [f"K1_D{d}_{label}" for label, d, _b, length, *_ in K1_NEW_SHAPES
+                  if takes(d) and length <= 1024 and f"K1_D{d}_{label}" != first]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh",
+            replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            launches=sum(sum(k1_dims[d].values()) for d in dims), **results[first],
+            shape=first.split("_", 2)[2], head_dims=dims,
+            at_shapes={key.split("_", 2)[2]: results[key] for key in shapes},
+            launches_by_head_dim={d: k1_dims[d] for d in dims}))
+    # rows past 1024 keys, on the kernels their head dims take
+    kernels[0]["long_rows"] = {f"D{d}_{label}": results[f"K1_D{d}_{label}"]
+                               for label, d, _b, length, *_ in K1_NEW_SHAPES if length > 1024}
+    for name, src_name, key, path in (
+            ("fused_encoder_block_hd256", "fused_encoder_block", "K2_bf16_hd256", "serving_d1024"),
+            ("fused_encoder_block_tiled_hd256", "fused_encoder_block_tiled", "K3_bf16_hd256",
+             "block_bench_d1024")):
+        kernels.append(dict(
+            name=name, route="cuda", source="explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
+            replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:113" if "tiled" not in name
+                      else "explainable_spatial_vqa_tpu/ops/pallas_block.py:197"),
+            launches=new_paths[path][src_name], **results[key], shape=f"d=1024 H=4 ({path})",
+            at_shapes={"fp32": results[key.replace("bf16", "fp32")]},
+            launches_by_path={p: c[src_name] for p, c in new_paths.items()}))
+    unlaunched = [d for d in model_dims if not sum(k1_dims[d].values())]
     if unlaunched:
         fail(f"K1 at head dims {unlaunched} never launched through the models")
     if not sum(onepass_launches.values()):
         fail("K1's one-pass kernel never launched through the models")
+    if not all(k["launches"] for k in kernels[-4:]):
+        fail("a padded kernel, or K2 or K3 at head dim 256, never launched on its path")
     total = sum(PHASE_SECONDS.values())
     say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
         PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
@@ -3026,7 +3316,7 @@ def k1_on_off(torch, label: str, fn, profile: bool = False) -> None:
     say(text)
 
 
-def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str) -> None:
+def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str, phase: int = 16) -> None:
     """Phase 16's float32 check of a protocol run's final models: the
     recorded ``evaluate_pipeline_synthetic`` call (valA after the fine-tune)
     again on the card and on deep copies of the models on the CPU (the plain
@@ -3078,7 +3368,7 @@ def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str) -> None:
                      and np.array_equal(card_run.answer_valid[same], cpu_run.answer_valid[same]))
     whole = len(differ) == 0
     tally_equal = dataclasses.asdict(card[0]) == dataclasses.asdict(cpu[0])
-    say(f"phase 16 {label}: fp32 evaluate_pipeline_synthetic on valA ({len(questions)} "
+    say(f"phase {phase} {label}: fp32 evaluate_pipeline_synthetic on valA ({len(questions)} "
         f"questions), card vs CPU: programs {'equal' if whole else f'differ at {len(differ)}'}"
         + (f" (logit margins at the first differing token {margins})" if margins else "")
         + f"; answers {'equal' if answers_equal else 'DIFFER'}"
@@ -3086,24 +3376,32 @@ def protocol_card_vs_cpu(torch, np, evaluated: dict, label: str) -> None:
         f"{'equal' if tally_equal else 'differs'} ({card[0]} vs {cpu[0]}); accuracy by type "
         f"{'equal' if card[1] == cpu[1] else 'differs'}; {time.perf_counter() - t0:.1f} s")
     if not answers_equal or any(abs(m) > 1e-4 for m in margins):
-        fail(f"phase 16 {label}: the float32 evaluation on the card disagrees with the CPU")
+        fail(f"phase {phase} {label}: the float32 evaluation on the card disagrees with the CPU")
     if whole and not (tally_equal and card[1] == cpu[1]):
-        fail(f"phase 16 {label}: the float32 tally or accuracy on the card differs from the CPU's")
+        fail(f"phase {phase} {label}: the float32 tally or accuracy on the card differs from "
+             f"the CPU's")
 
 
 def head_dim_routing(torch, dev, counted) -> None:
     """Phase 16.1: eval forwards of the protocol's executor
     (``make_protocol_executor_config``, 4 heads, 2 fusion layers,
-    ``box_roi``) at d_model 4 D for every K1 head dim D, in float32 and
-    bf16: K1 once per fusion and box-decoder layer and no K2, but at head
-    dim 128 K2 once per fusion layer and K1 once (the wrappers' counts, and
-    ``attention_kernel`` in a ``torch.profiler`` trace), outputs finite."""
+    ``box_roi``) at d_model 4 D for every K1 head dim D with kernels of its
+    own and those of ``K1_ROUTING_PADDED``, in float32 and bf16: K1 once per
+    fusion and box-decoder layer and no K2, but at head dims 128 and 256 K2
+    once per fusion layer and K1 once (the wrappers' counts, and
+    ``attention_kernel`` in a ``torch.profiler`` trace); the C libraries'
+    counts name the kernel functions, the padded ones at every head dim
+    without kernels of its own; outputs finite."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import HEAD_DIMS
+    from explainable_spatial_vqa_tpu_torch.ops import fused_block
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        EXACT_HEAD_DIMS,
+        kernel_launches,
+    )
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import block_head_dim_built
     from explainable_spatial_vqa_tpu_torch.train import synthetic_protocol as sp
 
@@ -3119,7 +3417,9 @@ def head_dim_routing(torch, dev, counted) -> None:
               torch.randint(1, 40, (batch, 3), generator=gen, device=dev),
               torch.ones(batch, 3, dtype=torch.bool, device=dev))
     routing = {}
-    for d_model in [4 * d for d in HEAD_DIMS]:  # every K1 head dim, 4 heads; K2 at 512
+    # every K1 head dim with kernels of its own and the padded ones of
+    # K1_ROUTING_PADDED, 4 heads; K2 at 512 and 1024
+    for d_model in [4 * d for d in EXACT_HEAD_DIMS + K1_ROUTING_PADDED]:
         for dtype in (torch.float32, torch.bfloat16):
             cfg = sp.make_protocol_executor_config(vocabs, d_model=d_model, encoder_layers=2,
                                                    box_roi=True)
@@ -3130,7 +3430,10 @@ def head_dim_routing(torch, dev, counted) -> None:
                 with torch.no_grad():
                     return model(*inputs)
 
+            before = (kernel_launches(), fused_block.kernel_launches())
             out, counts = counted(forward)
+            ran = [{n: c - was[n] for n, c in now.items() if c != was[n]}
+                   for was, now in zip(before, (kernel_launches(), fused_block.kernel_launches()))]
             for attempt in range(1, PROFILE_TRIES + 1):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     forward()
@@ -3145,23 +3448,32 @@ def head_dim_routing(torch, dev, counted) -> None:
             ours = sorted({n[:40] for n in names if any(k in n for k in OUR_KERNELS)})
             finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
             key = f"d{d_model} {str(dtype).split('.')[-1]}"
-            routing[key] = (counts, ours, finite)
+            routing[key] = (counts, ours, finite, ran)
             say(f"phase 16 routing: eval forward, d_model {d_model} (head dim {d_model // 4}), "
                 f"{key.split()[1]}, batch {batch}: K2 {counts['fused_encoder_block']}, K1 "
                 f"{counts['fused_attention']} launches; our kernels in its trace: "
-                f"{ours or 'none'}; outputs {'finite' if finite else 'NOT FINITE'}")
+                f"{ours or 'none'}; the C libraries' counts: K1 {ran[0]}, K2's attention "
+                f"{ran[1]}; outputs {'finite' if finite else 'NOT FINITE'}")
             del model
     fusion, box_decoder = layers_per_forward
-    for key, (counts, ours, finite) in routing.items():
-        # K2 on every fusion layer at head dim 128, else K1 in each plain
-        # block; K1 on each box-decoder layer's query self-attention
-        k2 = block_head_dim_built(int(key.split()[0][1:]), 4)
+    for key, (counts, ours, finite, ran) in routing.items():
+        # K2 on every fusion layer at head dims 128 and 256, else K1 in each
+        # plain block; K1 on each box-decoder layer's query self-attention;
+        # every K1 launch (and K2's attention, on float32 q/k/v in both
+        # types) on the padded kernels where the head dim has no kernels of
+        # its own
+        d_model, name = int(key.split()[0][1:]), "bf16" if key.endswith("bfloat16") else "fp32"
+        k2 = block_head_dim_built(d_model, 4)
         want = (fusion, box_decoder) if k2 else (0, fusion + box_decoder)
         got = (counts["fused_encoder_block"], counts["fused_attention"])
-        if (got != want or not any("attention_kernel" in name for name in ours)
-                or not finite):
+        padded = PADDED if name == "bf16" else PADDED_F32
+        exact = d_model // 4 in EXACT_HEAD_DIMS
+        if (got != want or not any("attention_kernel" in n for n in ours)
+                or not finite or sum(ran[0].values()) != got[1]
+                or (not exact and (ran[0] != {padded: got[1]}
+                                   or (k2 and ran[1] != {PADDED_F32: got[0]})))):
             fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
-                 f"{want}; kernels in the trace {ours}")
+                 f"{want}; kernels in the trace {ours}; the C libraries' counts {ran}")
     say(f"phase 16.1 routing at {len(routing)} widths and types took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -5130,7 +5442,7 @@ MATCHER_COST_TOL = 1e-5  # matched cost against scipy's optimum, relative: float
 # one takes ~30 s, as it waits on the card at every step); a shape held
 # once more with its state in global memory (the shared-memory cap set to 0)
 BLOCK_MATCHER_SHAPES = ((32, 32, 192), (33, 12, 192), (12, 40, 192), (64, 64, 96))
-BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (16, 300, 300))
+BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (8, 300, 300))
 BLOCK_MATCHER_GLOBAL = (64, 64)
 WIDE_QUERIES = 40  # 21.2's executor_roi step past the warp kernel's 31 columns
 STEP_ROUNDS = 4  # alternating timing rounds of 21.2's two matchers
@@ -5854,6 +6166,215 @@ def measurement_drivers(torch, counted) -> dict:
         f"{pool['vs_baseline']} and {sorted_['vs_baseline']}; phase 22 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the paths at the head dims without kernels of their own
+# ---------------------------------------------------------------------------
+
+# the CoGenT protocol as ``cogent-protocol --d_model N`` runs it (the CLI's
+# defaults: 2 fusion layers, no box_roi, constant lr), its sizes and steps
+# cut so that the d_model 1024 executor's valA evaluation also runs on the
+# CPU within seconds
+NEW_WIDTH_PROTOCOL = dict(num_scenes_a=20, num_scenes_val=2, num_scenes_b_pool=10,
+                          gen_steps=10, exe_steps=10, ft_steps=4)
+NEW_WIDTH_QUESTIONS = 256  # serving at d_model 1024
+
+
+@contextlib.contextmanager
+def plain_self_attention_count():
+    """A list that counts the self-attention calls ``MultiHeadAttention``
+    takes in eval mode without an autograd graph, same length for queries
+    and keys, a key-padding mask or none: the calls K1 takes, so that a path
+    on which this count equals K1's launches ran no such call on the plain
+    attention."""
+    from explainable_spatial_vqa_tpu_torch.models import layers
+
+    forward, calls = layers.MultiHeadAttention.forward, []
+
+    def counted_forward(self, query, keyvalue, mask=None):
+        import torch
+
+        if (not self.training and not torch.is_grad_enabled()
+                and query.shape[1] == keyvalue.shape[1]
+                and (mask is None or (mask.ndim == 4 and mask.shape[1] == mask.shape[2] == 1))):
+            calls.append(query.shape)
+        return forward(self, query, keyvalue, mask)
+
+    layers.MultiHeadAttention.forward = counted_forward
+    try:
+        yield calls
+    finally:
+        layers.MultiHeadAttention.forward = forward
+
+
+def c_counts(torch):
+    """``read()``: the attention launches of K1's and the block library's C
+    counters, by kernel function, since ``c_counts`` was called."""
+    from explainable_spatial_vqa_tpu_torch.ops import fused_block
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import kernel_launches
+
+    torch.cuda.synchronize()
+    before = (kernel_launches(), fused_block.kernel_launches())
+
+    def read():
+        now = (kernel_launches(), fused_block.kernel_launches())
+        return tuple({n: c - was[n] for n, c in cur.items() if c != was[n]}
+                     for was, cur in zip(before, now))
+
+    return read
+
+
+def new_widths(torch, np, dev, counted) -> dict:
+    """Phase 23, the paths at the head dims without kernels of their own:
+
+    1. ``run_cogent_protocol`` (the CLI's ``cogent-protocol``) at d_model 100
+       (4 heads of 25), float32: its evaluations launch K1 on the padded
+       kernel in every fusion layer (the plain block's self-attention, L =
+       208) and in the box decoder (L = 8), and no K2;
+    2. the same at d_model 1024 (4 heads of 256): K2 on every fusion layer,
+       its attention on the padded kernel, and K1 on the padded kernel in the
+       box decoder;
+       each at ``NEW_WIDTH_PROTOCOL``'s sizes and steps, the launches read
+       from the wrappers and the C libraries' counters, no eligible
+       self-attention on the plain path (``plain_self_attention_count``),
+       and its fine-tuned models' valA evaluation on the card equal to the
+       CPU's (``protocol_card_vs_cpu``);
+    3. bf16 serving, ``InferencePipeline.run`` at bench.py's widths but the
+       executor at d_model 1024 (4 heads): K2 3 and K1 2 launches a forward,
+       both on the padded kernels, on ``NEW_WIDTH_QUESTIONS`` synthetic
+       questions; questions/s, median of 3 runs after a warm-up;
+    4. ``bench_block.main`` at d_model 1024 (B=128, K3 at one tiling), which
+       launches K2 and K3 through the block bench's entry point, their
+       attention on the padded kernel.
+
+    Returns each path's wrapper launches, for the result line."""
+    from explainable_spatial_vqa_tpu_torch import bench_block
+    from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
+    from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
+    from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for d_model in (100, 1024):
+        t0 = time.perf_counter()
+        read = c_counts(torch)
+        with ProtocolParts() as parts, plain_self_attention_count() as eligible:
+            result, counts = counted(lambda: run_cogent_protocol(
+                **NEW_WIDTH_PROTOCOL, d_model=d_model, device=dev))
+        k1_c, block_c = read()
+        rows = [r for r in part_rows(parts) if r["part"].startswith("evaluation")]
+        k2 = d_model % 128 == 0
+        say(f"phase 23 cogent-protocol --d_model {d_model} (4 heads of {d_model // 4}), float32, "
+            f"{NEW_WIDTH_PROTOCOL}: {time.perf_counter() - t0:.1f} s; "
+            f"{result['report'].report()}; launches {counts}; per evaluation "
+            + ", ".join(f"{r['part'].split()[1]} K2 {r['K2']} K1 {r['K1']}" for r in rows)
+            + f"; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
+            f"self-attention calls {len(eligible)}")
+        want_k1 = {PADDED_F32: counts["fused_attention"]}
+        if not (all(r["K1"] > 0 and (r["K2"] > 0) == k2 for r in rows)
+                and counts["fused_attention"] == sum(r["K1"] for r in rows)
+                and counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
+                and k1_c == want_k1 and len(eligible) == counts["fused_attention"]
+                and block_c == ({PADDED_F32: counts["fused_encoder_block"]} if k2 else {})):
+            fail(f"phase 23 check failed at d_model {d_model}: the evaluations launch "
+                 f"{'K2 and ' if k2 else ''}K1 on the padded kernels, and only they, and no "
+                 f"self-attention K1 takes runs the plain path")
+        protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
+                             f"cogent-protocol --d_model {d_model}", phase=23)
+        paths[f"cogent_protocol_d{d_model}"] = counts
+        del result, parts
+        torch.cuda.empty_cache()
+
+    # ---- 23.3 bf16 serving with the executor at d_model 1024 ----
+    gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=1024,
+                             num_heads=4)
+    dtype = torch.bfloat16
+    generator = init_parameters(ProgramGenerator(gen_cfg, dtype, device=dev), seed=1)
+    executor = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=2)
+    thresholds = np.random.RandomState(3).uniform(0.3, 0.7, exe_cfg.vocab_size).astype(np.float32)
+    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
+                                 device=dev)
+    idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
+    token_ids = {t: i for i, t in idx_to_token.items()}
+    n = NEW_WIDTH_QUESTIONS
+    features, questions, chains = synth_questions(n, exe_cfg, max_steps=27, seed=0)
+    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
+    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
+                                 idx_to_token, FUNCTION_IDS, device=dev)
+    features_dev = torch.from_numpy(features).to(dev)
+    forwards = [0]
+    hook = executor.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    def run():
+        return pipeline.run(questions, features_dev, chains.image_index, chain_mode="pool")
+
+    run()  # warm-up
+    forwards[0] = 0
+    read = c_counts(torch)
+    with plain_self_attention_count() as eligible:
+        served, counts = counted(run)
+    k1_c, block_c = read()
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    hook.remove()
+    once = forwards[0] // 4  # the counted run and three timed ones
+    median = sorted(seconds)[1]
+    say(f"phase 23 bf16 serving, InferencePipeline.run (pool) at bench.py's widths with the "
+        f"executor at d_model 1024 (4 heads of 256) on {n} questions: median of 3 runs "
+        f"{median:.3f} s = {n / median:.1f} questions/s (s: "
+        f"{', '.join(f'{t:.3f}' for t in seconds)}); {once} executor forwards a run; launches "
+        f"{counts}; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
+        f"self-attention calls {len(eligible)}; {int(served.answer_valid.sum())} token answers")
+    serving_checks = {
+        "K2 3 and K1 2 launches a forward": (
+            counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
+            and counts["fused_attention"] == exe_cfg.box_decoder_layers * once > 0),
+        "both on the padded kernels (K2's on float32 q/k/v)": (
+            k1_c == {PADDED: counts["fused_attention"]}
+            and block_c == {PADDED_F32: counts["fused_encoder_block"]}),
+        "no self-attention K1 takes on the plain path": len(eligible) == counts["fused_attention"],
+        "one answer per question in the token vocabulary": (
+            served.answers.shape == (n,) and 0 <= served.answers.min()
+            and served.answers.max() < exe_cfg.token_classes),
+    }
+    for name, ok in serving_checks.items():
+        if not ok:
+            fail(f"phase 23 serving check failed: {name}")
+    paths["serving_d1024"] = counts
+    del pipeline, runner, executor, generator, features_dev
+    torch.cuda.empty_cache()
+
+    # ---- 23.4 the block bench at d_model 1024: K3 at head dim 256 ----
+    read = c_counts(torch)
+    rows, counts = counted(lambda: bench_block.main(
+        ["--batches", "128", "--iters", "2", "--tiles", "2", "--d_model", "1024", "--heads", "4"]))
+    _, block_c = read()
+    say("phase 23 block bench at d_model 1024, 4 heads (bench_block.main --batches 128 --iters 2 "
+        "--tiles 2 --d_model 1024 --heads 4, bf16, L=224, no mask): "
+        + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s" for _b, name, ms, tflops in rows)
+        + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}")
+    # K2's attention on float32 q/k/v, K3's on bf16
+    if not (counts["fused_encoder_block_tiled"] > 0
+            and block_c == {PADDED_F32: counts["fused_encoder_block"],
+                            PADDED: counts["fused_encoder_block_tiled"]}):
+        fail("phase 23: the block bench at d_model 1024 did not launch K2 and K3 on the padded "
+             "attention")
+    paths["block_bench_d1024"] = counts
+    say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def free_port() -> int:

@@ -2,11 +2,13 @@
 counterpart of ``scripts/bench_pallas_block.py``.
 
     python -m explainable_spatial_vqa_tpu_torch.bench_block [--iters 20]
-        [--batches 128,256,512] [--tiles 2,4,8]
+        [--batches 128,256,512] [--tiles 2,4,8] [--d_model 512] [--heads 4]
 
 Shapes: d=512, 4 heads, ffn 2048, L=224 (the fusion encoder's 210 tokens
 padded to a multiple of 8), bf16 weights and activations, no mask, weights
-drawn from seed 0.  Rows, for each batch size:
+drawn from seed 0; ``--d_model`` and ``--heads`` widen the block (ffn 4 d,
+as at 512: d_model 1024 with 4 heads runs the blocks' attention at head dim
+256).  Rows, for each batch size:
 
 * the port's ``EncoderBlock`` on its unfused path (train mode, dropout 0,
   under ``torch.no_grad``), the counterpart of the script's "xla bf16
@@ -44,11 +46,11 @@ D_MODEL, HEADS, FFN, LENGTH = 512, 4, 2048, 224
 Row = Tuple[int, str, float, float]  # batch, name, ms per application, TFLOP/s
 
 
-def block_flops(batch: int) -> float:
+def block_flops(batch: int, d_model: int = D_MODEL, ffn: int = FFN) -> float:
     """Forward matmul FLOPs (2*MACs) of one encoder block application."""
-    qkvo = 4 * 2 * LENGTH * D_MODEL * D_MODEL
-    attn = 2 * 2 * LENGTH * LENGTH * D_MODEL
-    ffn = 2 * 2 * LENGTH * D_MODEL * FFN
+    qkvo = 4 * 2 * LENGTH * d_model * d_model
+    attn = 2 * 2 * LENGTH * LENGTH * d_model
+    ffn = 2 * 2 * LENGTH * d_model * ffn
     return batch * (qkvo + attn + ffn)
 
 
@@ -83,20 +85,23 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Row]:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--batches", default="128,256,512")
     ap.add_argument("--tiles", default="2,4,8")
+    ap.add_argument("--d_model", type=int, default=D_MODEL)
+    ap.add_argument("--heads", type=int, default=HEADS)
     args = ap.parse_args(argv)
+    d_model, heads, ffn = args.d_model, args.heads, 4 * args.d_model
 
     dev = resolve_device("cuda")
     print(f"device: {torch.cuda.get_device_name(dev)}")
-    block = init_parameters(EncoderBlock(D_MODEL, HEADS, FFN, dropout=0.0,
+    block = init_parameters(EncoderBlock(d_model, heads, ffn, dropout=0.0,
                                          dtype=torch.bfloat16, device=dev), seed=0).train()
     weights = fuse_encoder_params(block, dtype=torch.bfloat16)
     rng = np.random.RandomState(0)
     rows: List[Row] = []
     with torch.no_grad():
         for batch in [int(b) for b in args.batches.split(",")]:
-            x = torch.from_numpy(rng.randn(batch, LENGTH, D_MODEL).astype(np.float32)).to(
+            x = torch.from_numpy(rng.randn(batch, LENGTH, d_model).astype(np.float32)).to(
                 device=dev, dtype=torch.bfloat16)
-            gflop = block_flops(batch) / 1e9
+            gflop = block_flops(batch, d_model, ffn) / 1e9
 
             def report(name, ms, batch=batch, gflop=gflop):
                 rows.append((batch, name, ms, gflop / ms))
@@ -104,12 +109,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Row]:
                       flush=True)
 
             report("EncoderBlock unfused bf16", timed(block, x, args.iters))
-            report("K2 per-seq", timed(lambda y: fused_encoder_block(y, None, weights, HEADS),
+            report("K2 per-seq", timed(lambda y: fused_encoder_block(y, None, weights, heads),
                                        x, args.iters))
             for tb, fc in variants([int(t) for t in args.tiles.split(",")]):
                 report(f"K3 tiled TB={tb} fc={fc}",
                        timed(lambda y, tb=tb, fc=fc: fused_encoder_block_tiled(
-                           y, None, weights, HEADS, batch_tile=tb, ffn_chunks=fc),
+                           y, None, weights, heads, batch_tile=tb, ffn_chunks=fc),
                              x, args.iters))
 
     print("\nsummary (ms/apply):")

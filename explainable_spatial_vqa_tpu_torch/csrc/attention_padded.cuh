@@ -1,0 +1,476 @@
+// K1 at every head dim up to 256 that has no kernel of its own (attention.cuh
+// builds one per multiple of 8 up to 128), and the attention of K2 and K3 at
+// head dim 256.  Replaces, at those head dims,
+// explainable_spatial_vqa_tpu/ops/pallas_attention.py:_fused_attention_bhld,
+// which the JAX package runs at any head dim, and the per-head loops of
+// ops/pallas_block.py:_block_kernel and :_tiled_kernel.
+//
+// Arithmetic: attention.cuh's, on the true head dim D: scores in float32
+// scaled by 1/sqrt(D), -1e30 on masked keys, a float32 softmax with
+// sum + 1e-30; bf16 weights normalised and then rounded to bf16, float32
+// weights not rounded; P V summed in float32.
+//
+// Design.  One instantiation serves every head dim whose padded depth DP
+// (padded_depth: D rounded up to 16, or past 128 two halves each rounded up
+// to 16) is its own: D is a run-time argument, the columns D .. DP - 1 of
+// every row of Q, K and V in shared memory hold zeros (written once a
+// block), which add nothing to a score and make the extra output columns
+// zero, which are not stored.  So 12 depths (16, 32, ..., 128, 160, 192, 224,
+// 256) cover the 256 head dims.
+//   * Loads.  At a head dim whose rows are whole 16-byte chunks (and 16-byte
+//     aligned bases and strides) K and V stream through attention.cuh's ring
+//     of kAttnStages 32-key stages with cp.async, kAttnStages - 1 tiles
+//     ahead.  Elsewhere (D = 25: a bf16 head starts every 50 bytes) a warp
+//     copies a row element by element, synchronously, into the same ring:
+//     the stage it fills was released by the barrier that ended its last
+//     tile.
+//   * Registers.  Each warp holds one 32-key tile's scores (16 floats a
+//     lane) and its share of a 16-row group's output.  Past 128 (DP = 160 to
+//     256) two warps share a group, each a half of the depth (DG = DP / 2,
+//     at most 128 columns, 64 output floats a lane): each sums the scores
+//     over its half of Q's and K's columns, the halves meet in shared memory
+//     (a 2 KB exchange a warp a tile), and both add them in the same order,
+//     so both hold the same scores and softmax state and multiply by their
+//     own half of V's columns.  At DP = 256 the float32 kernel's shared
+//     memory (Q's 64 rows, the ring, the exchange) is 211 KB, under the
+//     H100's 227 KB a block, where attention_kernel_f32's 14 warps would
+//     need 366 KB.
+//   * float32 q, k, v (attention_kernel_padded_f32): the online softmax of
+//     attention_kernel_f32, K's and V's tiles alternating in the ring, both
+//     products in 3xTF32.
+//   * bf16 q, k, v (attention_kernel_padded): the weights are rounded, so
+//     they are normalised first: a first pass over K's tiles takes each
+//     row's max and sum online, one tile at a time; a second recomputes each
+//     tile's scores (the same products in the same order), normalises,
+//     rounds to bf16 and multiplies by V on the tensor cores.
+//   * A block is 8 warps (4 groups of 16 rows past 128, 8 up to it), or one
+//     group where L <= 16 (the box decoders' L = 8 and 10).
+//
+// Bound on the H100: as attention.cuh's kernels, the bytes of q, k, v and the
+// output at the box decoders' lengths, 4 L^2 D operations (in 3xTF32 for
+// float32) at the encoders'.  The padded columns and the element loads cost
+// work the bound does not count; a right kernel first (PERF.md §6).
+#pragma once
+
+#include "attention.cuh"
+
+namespace esv {
+
+// The padded depth of head dim D (1 <= D <= 256): D rounded up to 16, or past
+// 128 twice its half rounded up to 16 (a depth slice of each of two warps)
+__host__ __device__ constexpr int padded_depth(int D) {
+  return D > 128 ? 2 * (((D + 1) / 2 + 15) / 16 * 16) : (D + 15) / 16 * 16;
+}
+
+// warps sharing a 16-row group at depth DP: one up to 128, two past it
+template <int DP>
+__host__ __device__ constexpr int padded_group() {
+  return DP > 128 ? 2 : 1;
+}
+
+// The padded kernels' shared memory: Q's 16 R rows and the ring's stages, of
+// LD elements each, and past 128 the exchange of partial scores (16 x 32
+// floats a warp)
+template <typename T, int DP, int R>
+constexpr size_t padded_smem_bytes() {
+  return sizeof(T) * (size_t)(16 * R + kAttnStages * kAttnKeys) * attn_ld<T, DP>() +
+         (padded_group<DP>() > 1 ? sizeof(float) * 16 * 32 * padded_group<DP>() * R : 0);
+}
+
+// rows [row0, row0 + kRows) of a strided head of D columns into shared memory
+// rows of stride LD, a warp a row; rows at or past L read as zeros.  aligned:
+// 16-byte cp.async copies (D * sizeof(T) % 16 == 0, bases and strides
+// aligned); else element by element, synchronously
+template <typename T, int LD, int kRows, int W>
+__device__ __forceinline__ void padded_load_rows(T* dst, const T* src, long long rs, int row0,
+                                                 int L, int D, bool aligned) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (aligned) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+    const int chunks = D / kPer;
+    for (int r = warp; r < kRows; r += W) {
+      const int row = row0 + r;
+      const bool ok = row < L;
+      const T* s = src + (long long)(ok ? row : 0) * rs;
+      for (int c = lane; c < chunks; c += 32) cp_async16(dst + r * LD + c * kPer, s + c * kPer, ok);
+    }
+  } else {
+    const T zero = from_float<T>(0.f);
+    for (int r = warp; r < kRows; r += W) {
+      const int row = row0 + r;
+      const T* s = src + (long long)row * rs;
+      for (int c = lane; c < D; c += 32) dst[r * LD + c] = row < L ? s[c] : zero;
+    }
+  }
+}
+
+// The columns D .. DP - 1 of `rows` shared-memory rows set to zero
+template <typename T, int LD, int DP, int W>
+__device__ __forceinline__ void padded_zero_cols(T* base, int rows, int D) {
+  const int width = DP - D;
+  if (width <= 0) return;
+  const T zero = from_float<T>(0.f);
+  for (int i = threadIdx.x; i < rows * width; i += 32 * W)
+    base[i / width * LD + D + i % width] = zero;
+}
+
+// K's and V's tiles through the ring, as attention.cuh's AttnStream, with the
+// rows loaded by padded_load_rows: with kAlternate tile i is K's (even i) or
+// V's (odd i) tile i / 2, else K's tile i
+template <typename T, int LD, int W, bool kAlternate>
+struct PaddedStream {
+  T* ring;
+  const T* k;
+  const T* v;
+  long long rs;
+  int L, D, total, issued;
+  bool aligned;
+
+  __device__ __forceinline__ PaddedStream(T* ring_, const T* k_, const T* v_, long long rs_,
+                                          int L_, int D_, int total_, bool aligned_)
+      : ring(ring_), k(k_), v(v_), rs(rs_), L(L_), D(D_), total(total_), issued(0),
+        aligned(aligned_) {
+#pragma unroll
+    for (int i = 0; i < kAttnStages - 1; ++i) issue();
+  }
+
+  __device__ __forceinline__ void issue() {
+    if (issued < total) {
+      const bool is_k = !kAlternate || issued % 2 == 0;
+      const int kt = kAlternate ? issued / 2 : issued;
+      padded_load_rows<T, LD, kAttnKeys, W>(ring + (issued % kAttnStages) * kAttnKeys * LD,
+                                            is_k ? k : v, rs, kt * kAttnKeys, L, D, aligned);
+    }
+    cp_async_commit();
+    ++issued;
+  }
+
+  __device__ __forceinline__ const T* next(int i) {
+    issue();
+    cp_async_wait<kAttnStages - 1>();
+    __syncthreads();
+    return ring + (i % kAttnStages) * kAttnKeys * LD;
+  }
+};
+
+// Past 128 (G = 2): each warp of a group has summed its half of the depth
+// into s; the halves meet in xs ([warps][16][32] floats, fragment order) and
+// both warps take s = half 0 + half 1, the same sum in the same order.  Every
+// thread of the block reaches the barrier.
+template <int G>
+__device__ __forceinline__ void group_scores(float (&s)[4][4], float* xs, bool active) {
+  if constexpr (G > 1) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, first = warp - warp % G;
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xs[(warp * 16 + n * 4 + c) * 32 + lane] = s[n][c];
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float acc = xs[(first * 16 + n * 4 + c) * 32 + lane];
+#pragma unroll
+          for (int j = 1; j < G; ++j) acc += xs[((first + j) * 16 + n * 4 + c) * 32 + lane];
+          s[n][c] = acc;
+        }
+    }
+  }
+}
+
+// s scaled and masked for key tile kt: -inf past L, -1e30 on masked keys
+__device__ __forceinline__ void padded_mask(float (&s)[4][4], const float* mrow, int kt, int L,
+                                            float scale) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = kt * kAttnKeys + n * 8 + 2 * t + (c & 1);
+      float& x = s[n][c];
+      x = key >= L ? -INFINITY : (mrow == nullptr || mrow[key] > 0.f ? x * scale : -1e30f);
+    }
+}
+
+// this warp's rows row and row + 8, if below L, of its output columns col0 +
+// 8 dn + {0, 1} that lie below D, one element a store
+template <int DG, int N, typename TO>
+__device__ __forceinline__ void padded_store(TO* op, long long out_rs, int row, int L, int D,
+                                             int col0, const float (&o)[N][4]) {
+#pragma unroll
+  for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + dn * 8 + e;
+      if (col < D) {
+        if (row < L) op[(long long)row * out_rs + col] = from_float<TO>(o[dn][e]);
+        if (row + 8 < L) op[(long long)(row + 8) * out_rs + col] = from_float<TO>(o[dn][2 + e]);
+      }
+    }
+}
+
+// float32 q, k, v at depth DG * G, R groups of 16 rows a block
+template <typename TO, int DG, int G, int R>
+__global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded_f32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ mask, TO* __restrict__ out, int L, int D, long long in_bs,
+    long long in_rs, long long out_bs, long long out_rs, float scale, int aligned) {
+  constexpr int W = G * R, DP = G * DG, LD = attn_ld<float, DP>();
+  static_assert(DG % 16 == 0 && DP <= 256, "depth");
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  float* qs = reinterpret_cast<float*>(attn_smem);   // [16 R][LD]
+  float* ring = qs + 16 * R * LD;                     // [kAttnStages][32][LD]
+  float* xs = ring + kAttnStages * kAttnKeys * LD;   // [W][16][32], G > 1
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 16 * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int grp = warp / G, part = warp % G;
+  const long long in_off = (long long)b * in_bs + (long long)h * D;
+  const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
+  const bool active = q0 + grp * 16 < L;
+
+  padded_zero_cols<float, LD, DP, W>(qs, 16 * R + kAttnStages * kAttnKeys, D);
+  padded_load_rows<float, LD, 16 * R, W>(qs, q + in_off, in_rs, q0, L, D, aligned);
+  cp_async_commit();
+  const int ntiles = (L + kAttnKeys - 1) / kAttnKeys;
+  PaddedStream<float, LD, W, true> st(ring, k + in_off, v + in_off, in_rs, L, D, 2 * ntiles,
+                                      aligned);
+  const float* qw = qs + grp * 16 * LD + part * DG;
+  AttnOut<float, DG> o;
+  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    float s[4][4];
+    const float* ks = st.next(2 * kt);
+    if (active) tile_scores<DG, LD>(qw, ks + part * DG, s);
+    group_scores<G>(s, xs, active);
+    __syncthreads();
+    if (active) {
+      padded_mask(s, mrow, kt, L, scale);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tm = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) tm = fmaxf(tm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        const float mn = fmaxf(m[r], tm);  // finite: tile kt holds key kt * 32 < L
+        alpha[r] = expf(m[r] - mn);        // 0 on the first tile
+        m[r] = mn;
+        sum[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[n][c] = expf(s[n][c] - m[c / 2]);
+          sum[c / 2] += s[n][c];
+        }
+#pragma unroll
+      for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[dn][c] *= alpha[c / 2];
+    }
+    const float* vs = st.next(2 * kt + 1);
+    if (active) tile_pv<DG, LD>(s, vs + part * DG, o);
+    __syncthreads();
+  }
+  if (!active) return;
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    denom[r] = sum[r] + 1e-30f;
+  }
+#pragma unroll
+  for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] /= denom[c / 2];
+  padded_store<DG>(out + (long long)b * out_bs + (long long)h * D, out_rs, q0 + grp * 16 + g, L,
+                   D, part * DG + 2 * t, o);
+}
+
+// bf16 q, k, v at depth DG * G, R groups of 16 rows a block: the row max and
+// sum in a first pass over K's tiles, the normalised weights rounded to bf16
+// times V in a second
+template <typename TO, int DG, int G, int R>
+__global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask, TO* __restrict__ out,
+    int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
+    float scale, int aligned) {
+  using T = __nv_bfloat16;
+  constexpr int W = G * R, DP = G * DG, LD = attn_ld<T, DP>();
+  static_assert(DG % 16 == 0 && DP <= 256 && attn_depth<T, DG>() == DG, "depth");
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  T* qs = reinterpret_cast<T*>(attn_smem);                                // [16 R][LD]
+  T* ring = qs + 16 * R * LD;                                             // [kAttnStages][32][LD]
+  float* xs = reinterpret_cast<float*>(ring + kAttnStages * kAttnKeys * LD);  // [W][16][32]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 16 * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int grp = warp / G, part = warp % G;
+  const long long in_off = (long long)b * in_bs + (long long)h * D;
+  const T* kb = k + in_off;
+  const T* vb = v + in_off;
+  const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
+  const bool active = q0 + grp * 16 < L;
+
+  padded_zero_cols<T, LD, DP, W>(qs, 16 * R + kAttnStages * kAttnKeys, D);
+  padded_load_rows<T, LD, 16 * R, W>(qs, q + in_off, in_rs, q0, L, D, aligned);
+  cp_async_commit();
+  const int ntiles = (L + kAttnKeys - 1) / kAttnKeys;
+  const T* qw = qs + grp * 16 * LD + part * DG;
+
+  // the scaled, masked scores of the group's 16 rows against key tile kt,
+  // the same in both passes; the barrier after them frees the tile's stage
+  const auto scores = [&](const T* ks, int kt, float (&s)[4][4]) {
+    if (active) tile_scores_tc<DG, LD>(qw, ks + part * DG, s);
+    group_scores<G>(s, xs, active);
+    __syncthreads();
+    if (active) padded_mask(s, mrow, kt, L, scale);
+  };
+
+  // pass 1: each row's max and sum, online over the tiles
+  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  {
+    PaddedStream<T, LD, W, false> st(ring, kb, vb, in_rs, L, D, ntiles, aligned);
+    for (int kt = 0; kt < ntiles; ++kt) {
+      float s[4][4];
+      scores(st.next(kt), kt, s);
+      if (!active) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tm = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) tm = fmaxf(tm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        const float mn = fmaxf(m[r], tm);  // finite: tile kt holds key kt * 32 < L
+        float cs = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) cs += expf(s[n][2 * r] - mn) + expf(s[n][2 * r + 1] - mn);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 1);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 2);
+        sum[r] = sum[r] * expf(m[r] - mn) + cs;  // 0 before the first tile
+        m[r] = mn;
+      }
+    }
+  }
+  const float denom[2] = {sum[0] + 1e-30f, sum[1] + 1e-30f};
+
+  // pass 2: the weights normalised, rounded to bf16 and packed into P V's A
+  // fragments, times this warp's half (or all) of V's columns
+  AttnOut<T, DG> o;
+#pragma unroll
+  for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
+  PaddedStream<T, LD, W, true> st(ring, kb, vb, in_rs, L, D, 2 * ntiles, aligned);
+  for (int kt = 0; kt < ntiles; ++kt) {
+    float s[4][4];
+    scores(st.next(2 * kt), kt, s);
+    uint32_t p[4][2];
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          p[n][r] = pack_bf16x2(expf(s[n][2 * r] - m[r]) / denom[r],
+                                expf(s[n][2 * r + 1] - m[r]) / denom[r]);
+    }
+    const T* vs = st.next(2 * kt + 1);
+    if (active) tile_pv<DG, LD>(p, vs + part * DG, o);
+    __syncthreads();
+  }
+  if (active)
+    padded_store<DG>(out + (long long)b * out_bs + (long long)h * D, out_rs, q0 + grp * 16 + g,
+                     L, D, part * DG + 2 * t, o);
+}
+
+// One instantiation, Kernel, of R groups a block; its shared-memory
+// attribute is set once per device
+template <int DP, int R, auto Kernel, typename T, typename TO>
+static cudaError_t launch_padded_kernel(const T* q, const T* k, const T* v, const float* mask,
+                                        TO* out, int B, int H, int L, int D, long long in_bs,
+                                        long long in_rs, long long out_bs, long long out_rs,
+                                        cudaStream_t stream) {
+  constexpr int G = padded_group<DP>();
+  constexpr size_t smem = padded_smem_bytes<T, DP, R>();
+  int dev;
+  const cudaError_t err = once_per_device<KernelSite<Kernel> >(&dev, [](int) {
+    return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  });
+  if (err != cudaSuccess) return err;
+  // 16-byte copies where every row of every head is whole 16-byte chunks
+  const bool aligned = aligned16(q) && aligned16(k) && aligned16(v) && (D * sizeof(T)) % 16 == 0 &&
+                       (in_bs * sizeof(T)) % 16 == 0 && (in_rs * sizeof(T)) % 16 == 0;
+  const dim3 grid((L + 16 * R - 1) / (16 * R), H, B);
+  const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
+  Kernel<<<grid, 32 * G * R, smem, stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs,
+                                             out_rs, scale, aligned ? 1 : 0);
+  return counted_launch(std::is_same<T, float>::value ? kAttnKernelPaddedF32 : kAttnKernelPadded);
+}
+
+// attention_kernel_padded_f32 for float32 q, k, v, attention_kernel_padded
+// for bf16, at depth DP with R groups a block
+template <int DP, int R, typename T, typename TO>
+static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                                   int B, int H, int L, int D, long long in_bs, long long in_rs,
+                                   long long out_bs, long long out_rs, cudaStream_t stream) {
+  constexpr int G = padded_group<DP>(), DG = DP / G;
+  if constexpr (std::is_same<T, float>::value)
+    return launch_padded_kernel<DP, R, attention_kernel_padded_f32<TO, DG, G, R> >(
+        q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
+  else
+    return launch_padded_kernel<DP, R, attention_kernel_padded<TO, DG, G, R> >(
+        q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
+}
+
+// Head dim D, whose padded depth is DP: one group a block where L <= 16, else
+// 8 warps.  The pointers need only their types' alignment.
+template <int DP, typename T, typename TO>
+static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, const float* mask,
+                                           TO* out, int B, int H, int L, int D, long long in_bs,
+                                           long long in_rs, long long out_bs, long long out_rs,
+                                           cudaStream_t stream) {
+  if (L < 1 || L > kAttnMaxLen || D < 1 || D > 256 || padded_depth(D) != DP)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(q) % sizeof(T) || reinterpret_cast<uintptr_t>(k) % sizeof(T) ||
+      reinterpret_cast<uintptr_t>(v) % sizeof(T) || reinterpret_cast<uintptr_t>(out) % sizeof(TO))
+    return cudaErrorMisalignedAddress;
+  if (L <= 16)
+    return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
+                                         out_rs, stream);
+  return launch_padded_r<DP, 8 / padded_group<DP>(), T, TO>(q, k, v, mask, out, B, H, L, D, in_bs,
+                                                            in_rs, out_bs, out_rs, stream);
+}
+
+// The attention of K2 (float32 q, k, v) and K3 (q, k, v in the weights'
+// type), TO the weights' type: head dim 128 on attention.cuh's kernels, 256 on
+// the padded ones.  Any other D returns cudaErrorInvalidValue.
+template <typename T, typename TO>
+static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, const float* mask,
+                                          TO* out, int B, int H, int L, int D, long long in_bs,
+                                          long long in_rs, long long out_bs, long long out_rs,
+                                          cudaStream_t stream) {
+  if (L > kAttnMaxLen) return cudaErrorInvalidValue;
+  if (D == 128)
+    return launch_attention_dim<128, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                            out_rs, stream);
+  if (D == 256)
+    return launch_attention_padded<256, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                               out_bs, out_rs, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace esv

@@ -4,15 +4,18 @@
 // the Pallas kernel that computes softmax(mask(Q K^T / sqrt(D))) V for one
 // (batch, head) per grid cell with the whole (L, L) score tile in VMEM.
 //
-// The TPU kernel is generic in the head dim; this one is built for every
-// multiple of 8 from 8 to 128 (ESV_K1_HEAD_DIMS), each head dim its own
-// instantiation of attention.cuh's kernels with its loads and fragment loops
-// folded to constants: the models' 24, 48, 64 and 128 (4 heads at d_model
-// 96 and 192, the CoGenT protocol's executors; 256, the baselines, the CoT
-// IQAP and HierarchicalGenerator; 512, the thesis executor) and every other
-// width a user may give them (4 heads at d_model 32, ..., 480).  bf16 scores
-// at D % 16 == 8 take their m16n8k16 products over a depth zero-padded by 8
-// in shared memory (attention.cuh: attn_depth).
+// The TPU kernel is generic in the head dim, and so is this one, from 1 to
+// 256.  Every multiple of 8 from 8 to 128 (ESV_K1_HEAD_DIMS) is an
+// instantiation of its own of attention.cuh's kernels with its loads and
+// fragment loops folded to constants: the models' 24, 48, 64 and 128 (4
+// heads at d_model 96 and 192, the CoGenT protocol's executors; 256, the
+// baselines, the CoT IQAP and HierarchicalGenerator; 512, the thesis
+// executor) and every other multiple a user may give them (4 heads at
+// d_model 32, ..., 480).  bf16 scores at D % 16 == 8 take their m16n8k16
+// products over a depth zero-padded by 8 in shared memory (attention.cuh:
+// attn_depth).  Every other head dim (25 at the protocol's --d_model 100, 256
+// at 1024) takes attention_padded.cuh's kernels at its padded depth
+// (ESV_K1_PAD_DEPTHS), with the head dim a run-time argument.
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
@@ -25,11 +28,14 @@
 // stream through a cp.async ring, in two passes past 224 keys.  float32
 // weights are not rounded, and their softmax runs online.
 //
-// Translation units: this file is compiled once for the C entries below and
+// Translation units: this file is compiled once for the C entries below,
 // once for each group of one or two head dims (ops/_build.py:
 // K1_DIM_GROUPS), with -DESV_HEAD_DIM_A=<dim> [-DESV_HEAD_DIM_B=<dim>],
 // which instantiates attention_at_dim at those dims for the three type
-// pairs.  The units compile in parallel and link into one
+// pairs, and once for each group of one or two padded depths
+// (K1_PAD_GROUPS), with -DESV_PAD_DEPTH_A=<depth> [-DESV_PAD_DEPTH_B=<depth>],
+// which instantiates attention_at_depth.  The units compile in parallel and
+// link into one
 // library; the launch counts are one for the library (attention.cuh:
 // attention_launches).
 //
@@ -39,9 +45,10 @@
 //                     out_dtype, stream)
 // mask is a (B, L) float32 key mask (keep where > 0) or null; dtype is 0 for
 // float32, 1 for bfloat16 (q, k and v share it); out_dtype is the output's,
-// either float32 or dtype.  q, k, v and their strides must be 16-byte
-// aligned; D is one of ESV_K1_HEAD_DIMS.  Returns the CUDA error of the
-// launch (0 on success; cudaErrorInvalidValue for another D).
+// either float32 or dtype.  D is 1 to 256; at D in ESV_K1_HEAD_DIMS q, k, v
+// and their strides must be 16-byte aligned.  L is 1 to kAttnMaxLen.
+// Returns the CUDA error of the launch (0 on success; cudaErrorInvalidValue
+// for another D or L).
 //   int esv_attention_fma_scores(the same arguments)
 // is the bf16 kernel (bf16 q, k, v and output, D = 128 only) with its scores summed
 // in FMA chains on the CUDA cores instead of on the tensor cores: a variant
@@ -50,14 +57,18 @@
 //   const char* esv_attention_kernel(int i)
 //   long long esv_attention_launches(int i)
 // name K1's kernel function i (0: attention_kernel_f32, 1: attention_kernel,
-// 2: attention_kernel_onepass; null and -1 past the last) and count the
+// 2: attention_kernel_onepass, 3: attention_kernel_padded_f32, 4:
+// attention_kernel_padded; null and -1 past the last) and count the
 // launches of it that this library's entries have made since it was loaded:
-// which kernel a call takes is decided in launch_attention_dim alone, and
-// the counts say which ran.
+// which kernel a call takes is decided in launch_attention_dim and
+// launch_attention_padded alone, and the counts say which ran.
+//   int esv_attention_max_len()
+// the longest row the entry takes (kAttnMaxLen).
 
-#include "attention.cuh"
+#include "attention_padded.cuh"
 
 #define ESV_K1_HEAD_DIMS 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 104, 112, 120, 128
+#define ESV_K1_PAD_DEPTHS 16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256
 
 namespace esv {
 
@@ -67,6 +78,13 @@ template <int D, typename T, typename TO>
 cudaError_t attention_at_dim(const T* q, const T* k, const T* v, const float* mask, TO* out,
                              int B, int H, int L, long long in_bs, long long in_rs,
                              long long out_bs, long long out_rs, cudaStream_t stream);
+
+// K1 at a head dim D whose padded depth is DP: defined and instantiated in
+// the unit of DP's group
+template <int DP, typename T, typename TO>
+cudaError_t attention_at_depth(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                               int B, int H, int L, int D, long long in_bs, long long in_rs,
+                               long long out_bs, long long out_rs, cudaStream_t stream);
 
 }  // namespace esv
 
@@ -97,6 +115,34 @@ ESV_INSTANTIATE(ESV_HEAD_DIM_B)
 
 }  // namespace esv
 
+#elif defined(ESV_PAD_DEPTH_A)
+
+namespace esv {
+
+template <int DP, typename T, typename TO>
+cudaError_t attention_at_depth(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                               int B, int H, int L, int D, long long in_bs, long long in_rs,
+                               long long out_bs, long long out_rs, cudaStream_t stream) {
+  return launch_attention_padded<DP, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
+                                            out_rs, stream);
+}
+
+#define ESV_AT_DEPTH(DP, T, TO)                                                                \
+  template cudaError_t attention_at_depth<DP, T, TO>(const T*, const T*, const T*,             \
+                                                     const float*, TO*, int, int, int, int,    \
+                                                     long long, long long, long long,          \
+                                                     long long, cudaStream_t);
+#define ESV_INSTANTIATE_DEPTH(DP)          \
+  ESV_AT_DEPTH(DP, float, float)           \
+  ESV_AT_DEPTH(DP, float, __nv_bfloat16)   \
+  ESV_AT_DEPTH(DP, __nv_bfloat16, __nv_bfloat16)
+ESV_INSTANTIATE_DEPTH(ESV_PAD_DEPTH_A)
+#ifdef ESV_PAD_DEPTH_B
+ESV_INSTANTIATE_DEPTH(ESV_PAD_DEPTH_B)
+#endif
+
+}  // namespace esv
+
 #else
 
 namespace esv {
@@ -114,6 +160,29 @@ static cudaError_t attention_by_dim(const T* q, const T* k, const T* v, const fl
   return err;
 }
 
+// Every other head dim up to 256, at its padded depth (padded_depth) among
+// DPs
+template <typename T, typename TO, int... DPs>
+static cudaError_t attention_by_depth(const T* q, const T* k, const T* v, const float* mask,
+                                      TO* out, int B, int H, int L, int D, long long in_bs,
+                                      long long in_rs, long long out_bs, long long out_rs,
+                                      cudaStream_t stream) {
+  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  const int dp = padded_depth(D);
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((dp == DPs && ((err = attention_at_depth<DPs, T, TO>(q, k, v, mask, out, B, H, L, D,
+                                                              in_bs, in_rs, out_bs, out_rs,
+                                                              stream)),
+                        true)) || ...);
+  return err;
+}
+
+// whether D is one of Ds
+template <int... Ds>
+static bool exact_dim(int D) {
+  return ((D == Ds) || ...);
+}
+
 }  // namespace esv
 
 extern "C" int esv_attention(const void* q, const void* k, const void* v, const void* mask,
@@ -123,10 +192,17 @@ extern "C" int esv_attention(const void* q, const void* k, const void* v, const 
   using bf16 = __nv_bfloat16;
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L > esv::kAttnMaxLen) return cudaErrorInvalidValue;
+  const bool exact = esv::exact_dim<ESV_K1_HEAD_DIMS>(D);
 #define ESV_ATTENTION(T, TO)                                                                   \
-  return esv::attention_by_dim<T, TO, ESV_K1_HEAD_DIMS>(                                       \
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,          \
-      static_cast<TO*>(out), B, H, L, D, in_bs, in_rs, out_bs, out_rs, s)
+  return exact ? esv::attention_by_dim<T, TO, ESV_K1_HEAD_DIMS>(                               \
+                     static_cast<const T*>(q), static_cast<const T*>(k),                        \
+                     static_cast<const T*>(v), m, static_cast<TO*>(out), B, H, L, D, in_bs,     \
+                     in_rs, out_bs, out_rs, s)                                                 \
+               : esv::attention_by_depth<T, TO, ESV_K1_PAD_DEPTHS>(                            \
+                     static_cast<const T*>(q), static_cast<const T*>(k),                        \
+                     static_cast<const T*>(v), m, static_cast<TO*>(out), B, H, L, D, in_bs,     \
+                     in_rs, out_bs, out_rs, s)
   if (dtype == esv::kFloat32 && out_dtype == esv::kFloat32) { ESV_ATTENTION(float, float); }
   if (dtype == esv::kFloat32 && out_dtype == esv::kBFloat16) { ESV_ATTENTION(float, bf16); }
   if (dtype == esv::kBFloat16 && out_dtype == esv::kBFloat16) { ESV_ATTENTION(bf16, bf16); }
@@ -155,5 +231,7 @@ extern "C" const char* esv_attention_kernel(int i) {
 extern "C" long long esv_attention_launches(int i) {
   return i >= 0 && i < esv::kAttnKernels ? esv::attention_launches()[i].load() : -1;
 }
+
+extern "C" int esv_attention_max_len() { return esv::kAttnMaxLen; }
 
 #endif

@@ -60,11 +60,13 @@
 //       sequence, so each q, k, v is the correctly rounded one: where its
 //       compensated sum lies close to a bf16 tie, exact_fixup rounds it from
 //       the exact sum (float64) instead (see "K3's q, k and v" below);
-//   (b) the attention kernels of K1 (attention.cuh): on K2's float32 q, k, v
-//       both products in 3xTF32 on the tensor cores with an online softmax,
-//       the output written in the weights' type; on K3's q, k, v in the
-//       weights' type (the QKV GEMM's epilogue rounds them) float32 FMA-chain
-//       scores and a bf16 tensor-core P V;
+//   (b) the attention kernels of K1 (attention.cuh at head dim 128,
+//       attention_padded.cuh at 256, two warps sharing each 16-row group's
+//       depth): on K2's float32 q, k, v both products in 3xTF32 on the
+//       tensor cores with an online softmax, the output written in the
+//       weights' type; on K3's q, k, v in the weights' type (the QKV GEMM's
+//       epilogue rounds them) float32 tensor-core scores and a bf16
+//       tensor-core P V;
 //   (c) a residual-add + LayerNorm kernel, one warp per row.
 // K3's batch_tile does not reach this file: the GEMMs tile all rows by 128.
 // Its ffn_chunks splits the FFN into that many pairs of GEMMs over row
@@ -100,7 +102,14 @@
 // QKV product: compensated sums, and with a bf16 C the correctly rounded
 // ones, with absmax (M + N floats and ceil(M N / 32) words) as scratch;
 // absmax is null otherwise.
-// Returns the first CUDA error of the launches (0 on success).
+//   const char* esv_block_attention_kernel(int i)
+//   long long esv_block_attention_launches(int i)
+// name the attention kernel function i (attention.cuh's AttnKernel: 0
+// attention_kernel_f32, 1 attention_kernel, 3 attention_kernel_padded_f32,
+// 4 attention_kernel_padded) and count the launches of it that this
+// library's blocks have made since it was loaded.
+// H is d / 128 or d / 256 (the attention's head dims), L at most
+// kAttnMaxLen.  Returns the first CUDA error of the launches (0 on success).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -113,7 +122,7 @@
 #include <mutex>
 #include <tuple>
 
-#include "attention.cuh"
+#include "attention_padded.cuh"
 
 namespace esv {
 
@@ -938,14 +947,16 @@ cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const
                           float* proj, float* x1, TW* x1w, TW* hidden, int B, int L, int d, int H,
                           int ffn, cudaStream_t s) {
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
+  if (L < 1 || L > kAttnMaxLen || H < 1 || d % H || (d / H != 128 && d / H != 256))
+    return cudaErrorInvalidValue;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
   if ((err = qkv_gemm<false>(x, x1w, x1, w_qkv, b_qkv, qkv, M, d, nullptr, s))) return err;
   // heads read q, k and v straight out of the (B, L, 3d) projection buffer;
   // the output is rounded to the weights' type, the out projection's rounding
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_attention<float, TW, 128>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L,
-                                              d / H, qkv_bs, qkv_rs, (long long)L * d, d, s)))
+  if ((err = launch_block_attention<float, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L,
+                                               d / H, qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
   if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
@@ -966,7 +977,9 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
                                 float* x1, TW* x1w, TW* hidden, int B, int L, int d, int H,
                                 int ffn, int chunks, cudaStream_t s) {
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
-  if (chunks < 1 || M % chunks) return cudaErrorInvalidValue;
+  if (chunks < 1 || M % chunks || L < 1 || L > kAttnMaxLen || H < 1 || d % H ||
+      (d / H != 128 && d / H != 256))
+    return cudaErrorInvalidValue;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
   // proj, free until the out projection, holds the row maxima of x and W_qkv
@@ -974,8 +987,8 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
   // ceil(3 M d / 32) words, within M d for M >= 8)
   if ((err = qkv_gemm<true>(x, x1w, x1, w_qkv, b_qkv, qkv, M, d, proj, s))) return err;
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_attention<TW, TW, 128>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
-                                           qkv_bs, qkv_rs, (long long)L * d, d, s)))
+  if ((err = launch_block_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
+                                            qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
   if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
@@ -1076,4 +1089,12 @@ extern "C" int esv_block_gemm(const void* A, const void* W, const void* bias, vo
 #undef ESV_GEMM_RELU
 #undef ESV_GEMM
   return cudaErrorInvalidValue;
+}
+
+extern "C" const char* esv_block_attention_kernel(int i) {
+  return i >= 0 && i < esv::kAttnKernels ? esv::kAttnKernelNames[i] : nullptr;
+}
+
+extern "C" long long esv_block_attention_launches(int i) {
+  return i >= 0 && i < esv::kAttnKernels ? esv::attention_launches()[i].load() : -1;
 }

@@ -10,13 +10,16 @@ plain attention rounds its scores to bf16 first).  LayerNorm uses eps 1e-6
 (Flax's), not PyTorch's 1e-5.
 
 :class:`EncoderBlock` routes eligible calls (post-LN, eval mode, a key-padding
-mask or none, a head dim of ``ops.fused_block.BLOCK_HEAD_DIMS``, 128) to the
-fused encoder block K2, as ``_fused_eligible`` does in the JAX package (head
-dims that are multiples of 128); :class:`MultiHeadAttention` routes eligible
+mask or none, d_model a multiple of 128 and a head dim of
+``ops.fused_block.BLOCK_HEAD_DIMS``, 128 and 256) to the fused encoder block
+K2, as ``_fused_eligible`` does in the JAX package (d_model and head dims
+that are multiples of 128); :class:`MultiHeadAttention` routes eligible
 self-attention (eval mode with no autograd graph, same length, a key-padding
-mask or none) to K1 at every head dim that is a multiple of 8 up to 128
+mask or none) to K1 at every head dim from 1 to 256
 (``ops.fused_attention.HEAD_DIMS``), as JAX's attention dispatch does at
-any.  Every other call runs the plain path.
+any.  Both route only rows the kernels take (``shape_built`` and
+``block_shape_built``, the wrappers' own checks: 1 to ``MAX_LEN`` keys).
+Every other call runs the plain path.
 
 The decoders (:class:`TransformerDecoder`) run teacher-forced under a causal
 mask, or one token at a time over explicit KV caches (``init_cache`` and
@@ -50,10 +53,12 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     attention_eligible,
     fused_attention,
     head_dim_built,
+    shape_built,
 )
 from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     LN_EPS,
     block_head_dim_built,
+    block_shape_built,
     fuse_encoder_params,
     fused_encoder_block,
     split_block_weights,
@@ -247,8 +252,8 @@ def _step_masks(max_len: int, device: torch.device) -> Tuple[torch.Tensor, torch
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with q/k/v/out projections of width d_model.
 
-    Self-attention with a key-padding mask or none, at a head dim K1 is
-    built for, runs on K1 in eval mode when no autograd graph is recorded
+    Self-attention with a key-padding mask or none, at a head dim and a
+    shape K1 takes, runs on K1 in eval mode when no autograd graph is recorded
     (the kernel has no backward: an eval forward that is differentiated
     takes the plain path, which has); every other call takes
     :func:`dot_product_attention`."""
@@ -269,6 +274,7 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.q, query)
         k, v = self._heads(self.k, keyvalue), self._heads(self.v, keyvalue)
         if (not self.training and head_dim_built(d, self.num_heads)
+                and shape_built(b, lq, q.shape[2])
                 and not (q.requires_grad or k.requires_grad or v.requires_grad)
                 and not has_sharded_params(self) and attention_eligible(q, k, mask)):
             out = fused_attention(q, k, v, mask)
@@ -353,13 +359,13 @@ class EncoderBlock(nn.Module):
 
     def _fused_eligible(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
         """Route to K2 in eval mode when no autograd graph is recorded (it
-        has no backward), at a head dim it is built for, with a key-padding
-        mask or none, and whole local weights (a block split over ranks by
+        has no backward), at a head dim and a shape it is built for, with a
+        key-padding mask or none, and whole local weights (a block split over ranks by
         ``parallel.sharding`` has DTensor parameters and runs the plain
         path); post-LN is checked by the caller.  ``ops.lowp`` plays no
         part, as in the JAX package."""
         if (self.training or not block_head_dim_built(self.d_model, self.num_heads)
-                or has_sharded_params(self)):
+                or not block_shape_built(x.shape[0], x.shape[1]) or has_sharded_params(self)):
             return False
         if torch.is_grad_enabled() and (x.requires_grad
                                         or any(p.requires_grad for p in self.parameters())):

@@ -4,12 +4,14 @@ Each library is one shared object with a plain C interface,
 ``_build/<name>-<hash>.so`` inside the package (the directory is gitignored),
 built from its translation units (:func:`units`): ``csrc/<name>.cu`` alone,
 or, for K1's ``fused_attention``, its C entries plus one unit per group of
-head dims (:data:`K1_DIM_GROUPS`), each compiled by its own ``nvcc`` process
-and linked into the one library.  The hash covers every unit's source and
+head dims (:data:`K1_DIM_GROUPS`) and one per group of padded depths
+(:data:`K1_PAD_GROUPS`), each compiled by its own ``nvcc`` process and linked
+into the one library.  The hash covers every unit's source and
 flags, the headers in ``csrc/`` and the compiler flags, so an edited source
 builds anew and an unchanged one loads at once.  Every unit of every library
 being built compiles at once, in parallel.  Nothing is compiled when a
-module is imported: the first launch of a kernel builds its library.
+module is imported: the first launch of a kernel builds its library.  A C
+entry gets its argument types once per loaded library (:func:`entry`).
 """
 
 from __future__ import annotations
@@ -22,10 +24,10 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "K1_DIM_GROUPS", "units", "build",
-           "compile_libraries", "load", "check"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "K1_DIM_GROUPS", "K1_PAD_GROUPS", "units",
+           "build", "compile_libraries", "load", "bind_entry", "entry", "launch_counters", "check"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -39,14 +41,18 @@ _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 CUDA_HOMES = ("/usr/local/cuda",)  # searched after $CUDA_HOME, before PATH
 
-# K1's head dims (every multiple of 8 up to 128, ``ops.fused_attention.
-# HEAD_DIMS``), two to a unit of ``fused_attention.cu`` compiled with
-# -DESV_HEAD_DIM_A and -DESV_HEAD_DIM_B (nvcc reads a comma in an option
-# as a list): a small and a large dim together, so that the units take
-# about the same time; one nvcc process for all sixteen would compile their
-# kernels one after another
+# K1's head dims with kernels of their own (every multiple of 8 up to 128,
+# ``ops.fused_attention.EXACT_HEAD_DIMS``), two to a unit of
+# ``fused_attention.cu`` compiled with -DESV_HEAD_DIM_A and -DESV_HEAD_DIM_B
+# (nvcc reads a comma in an option as a list): a small and a large dim
+# together, so that the units take about the same time; one nvcc process
+# for all sixteen would compile their kernels one after another
 K1_DIM_GROUPS = ((8, 128), (16, 120), (24, 112), (32, 104), (40, 96), (48, 88), (56, 80),
                  (64, 72))
+# the padded kernels' depths (``ops.fused_attention.PADDED_DEPTHS``), which
+# take every other head dim up to 256, two to a unit compiled with
+# -DESV_PAD_DEPTH_A and -DESV_PAD_DEPTH_B, a small and a large one together
+K1_PAD_GROUPS = ((16, 256), (32, 224), (48, 192), (64, 160), (80, 128), (96, 112))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -56,8 +62,9 @@ def units(name: str) -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
     nvcc flags) each."""
     if name == "fused_attention":
         return (("fused_attention.cu", ()),) + tuple(
-            ("fused_attention.cu", tuple(f"-DESV_HEAD_DIM_{ab}={d}" for ab, d in zip("AB", group)))
-            for group in K1_DIM_GROUPS)
+            ("fused_attention.cu", tuple(f"-DESV_{what}_{ab}={d}" for ab, d in zip("AB", group)))
+            for what, groups in (("HEAD_DIM", K1_DIM_GROUPS), ("PAD_DEPTH", K1_PAD_GROUPS))
+            for group in groups)
     return ((f"{name}.cu", ()),)
 
 
@@ -174,6 +181,42 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LIBS[name] = lib
     return lib
+
+
+def bind_entry(lib: ctypes.CDLL, name: str, argtypes: Sequence[Any], restype: Any = ctypes.c_int):
+    """``lib``'s C entry ``name`` with its argument and result types set."""
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+_ENTRIES: Dict[Tuple[int, str], Any] = {}
+
+
+def entry(library: str, name: str, argtypes: Sequence[Any], restype: Any = ctypes.c_int):
+    """The C entry ``name`` of the loaded library ``library`` (:func:`load`),
+    bound by :func:`bind_entry` once for each library loaded under that name
+    (``measure/gemm_variants.py`` swaps other builds into ``_LIBS``)."""
+    lib = load(library)
+    key = (id(lib), name)
+    found = _ENTRIES.get(key)
+    if found is None or found[0] is not lib:
+        found = _ENTRIES[key] = (lib, bind_entry(lib, name, argtypes, restype))
+    return found[1]
+
+
+def launch_counters(library: str, name_entry: str, count_entry: str):
+    """A library's kernel functions and launch counts: (the names its
+    ``const char* name_entry(int i)`` gives, up to the first null, its
+    ``long long count_entry(int i)``)."""
+    lib = load(library)
+    name = bind_entry(lib, name_entry, (ctypes.c_int,), ctypes.c_char_p)
+    count = bind_entry(lib, count_entry, (ctypes.c_int,), ctypes.c_longlong)
+    names = []
+    while name(len(names)) is not None:
+        names.append(name(len(names)).decode())
+    return names, count
 
 
 def check(status: int, what: str) -> None:

@@ -35,6 +35,10 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_block import split_tf32
 
 __all__ = ["block_gemm", "block_gemm_plain", "check_gemm"]
 
+# esv_block_gemm's: A, W, bias, C, absmax; M, N, K, the three types, relu,
+# compensated; the stream
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+
 
 def block_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False,
                      out_dtype: torch.dtype = torch.float32,
@@ -90,13 +94,6 @@ def check_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError("block_gemm: compensated takes bf16 weights and no ReLU")
 
 
-def _esv_block_gemm():
-    fn = _build.load("fused_block").esv_block_gemm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False,
                out_dtype: torch.dtype = torch.float32, compensated: bool = False,
                split: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -116,7 +113,7 @@ def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool 
               if compensated and out_dtype == torch.bfloat16 else None)
     with torch.cuda.device(a.device):
         block_gemm.launches += 1
-        status = _esv_block_gemm()(
+        status = _build.entry("fused_block", "esv_block_gemm", _ARGTYPES)(
             a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
             None if absmax is None else absmax.data_ptr(), m, n, k, DTYPE_CODES[a.dtype],
             DTYPE_CODES[w.dtype], DTYPE_CODES[out_dtype], int(relu), int(compensated),

@@ -10,12 +10,15 @@ which computes the same arithmetic.
 :func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
 mask or none, the calls :func:`attention_eligible` accepts.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises.  The TPU
-kernel takes any head dim; K1 is built for every multiple of 8 from 8 to 128
-(:data:`HEAD_DIMS`, one instantiation each), which holds every width the
-models have and any d_model of 4 heads up to 512.  The models route to it at
-those (:func:`head_dim_built`); a head dim past 128 or not a multiple of 8
-takes the plain path.  K2 and K3 have their own, narrower set
-(``ops.fused_block.BLOCK_HEAD_DIMS``).
+kernel takes any head dim, and so does K1 from 1 to 256 (:data:`HEAD_DIMS`):
+every multiple of 8 up to 128 has kernels of its own
+(:data:`EXACT_HEAD_DIMS`, one instantiation each), every other head dim runs
+the padded kernels at its padded depth (:func:`padded_depth`, one of
+:data:`PADDED_DEPTHS`, the head dim a run-time argument).  Rows take 1 to
+:data:`MAX_LEN` keys, the C library's own cap.  The models route to K1
+exactly where the wrapper takes the call (:func:`head_dim_built` and
+:func:`shape_built`, which :func:`check_attention` applies too).  K2 and K3
+have their own, narrower set (``ops.fused_block.BLOCK_HEAD_DIMS``).
 """
 
 from __future__ import annotations
@@ -30,26 +33,53 @@ from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 
 __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
-           "key_mask_f32", "kernel_launches", "bind_entry", "call_entry",
-           "HEAD_DIMS", "MAX_LEN", "DTYPE_CODES"]
+           "shape_built", "padded_depth", "key_mask_f32", "kernel_launches", "bind_entry",
+           "call_entry", "HEAD_DIMS", "EXACT_HEAD_DIMS", "PADDED_DEPTHS", "MAX_LEN",
+           "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K1's head dims, each instantiated in csrc/fused_attention.cu
+# K1's head dims on the card: every one from 1 to 256
+HEAD_DIMS = tuple(range(1, 257))
+# the head dims with kernels of their own in csrc/fused_attention.cu
 # (ESV_K1_HEAD_DIMS; compiled in the groups of ops._build.K1_DIM_GROUPS):
 # every multiple of 8 up to 128, among them 4 heads of d_model 96 and 192
 # (the CoGenT protocol's executors), 256 (the baselines, the CoT IQAP,
 # HierarchicalGenerator's preset) and 512 (the thesis executor)
-HEAD_DIMS = tuple(range(8, 129, 8))
-MAX_LEN = 1024
+EXACT_HEAD_DIMS = tuple(range(8, 129, 8))
+# the depths of the padded kernels (csrc/attention_padded.cuh;
+# ESV_K1_PAD_DEPTHS, compiled in the groups of ops._build.K1_PAD_GROUPS),
+# which take every other head dim
+PADDED_DEPTHS = tuple(range(16, 129, 16)) + (160, 192, 224, 256)
+# the longest row of keys, csrc/attention.cuh's kAttnMaxLen (the longest row
+# held against the plain version on the card; no kernel needs a cap)
+MAX_LEN = 4096
+
+
+def padded_depth(head_dim: int) -> int:
+    """The depth of the padded kernel that takes ``head_dim``
+    (``attention_padded.cuh: padded_depth``): up to 128 the head dim rounded
+    up to 16; past it two warps share a row group, each half the depth, so
+    twice its half rounded up to 16."""
+    if head_dim > 128:
+        return 2 * (((head_dim + 1) // 2 + 15) // 16 * 16)
+    return (head_dim + 15) // 16 * 16
 
 
 def head_dim_built(d_model: int, num_heads: int) -> bool:
-    """True when ``d_model`` splits into ``num_heads`` heads of a dim K1 is
-    built for (:data:`HEAD_DIMS`: a multiple of 8 up to 128).  JAX's dispatch
+    """True when ``d_model`` splits into ``num_heads`` heads of a dim K1
+    takes (:data:`HEAD_DIMS`: 1 to 256).  JAX's dispatch
     (``ops/attention.py:51-59``) has no head-dim condition: its kernel takes
-    any; here the models send K1 these, and the wrapper raises on a CUDA
-    tensor of another head dim."""
+    any; here every head dim a preset or a CLI width gives (up to d_model
+    1024 at 4 heads) is one."""
     return d_model % num_heads == 0 and d_model // num_heads in HEAD_DIMS
+
+
+def shape_built(batch: int, length: int, heads: int) -> bool:
+    """The kernel's limits past the head dim: 1 to :data:`MAX_LEN` keys, and
+    batch and heads at most 65535 (the grid's y and z).  The models route by
+    it and :func:`check_attention` holds the wrapper to it, so the two agree
+    on every length."""
+    return 1 <= length <= MAX_LEN and batch <= 65535 and heads <= 65535
 
 
 def attention_eligible(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
@@ -73,33 +103,34 @@ def key_mask_f32(mask: Optional[torch.Tensor], batch: int, length: int) -> Optio
 def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ValueError unless the kernel takes these (B, L, H, D) tensors:
     one shape, dtype and device, a dtype of :data:`DTYPE_CODES`, a head dim
-    of :data:`HEAD_DIMS`, at most :data:`MAX_LEN` keys, contiguous and
-    16-byte aligned (the kernel copies 16 bytes at a time)."""
+    of :data:`HEAD_DIMS` and a shape :func:`shape_built` takes, contiguous,
+    and at a head dim of :data:`EXACT_HEAD_DIMS` 16-byte aligned (those
+    kernels copy 16 bytes at a time; the padded ones take any base)."""
     b, length, heads, head_dim = q.shape
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"fused_attention: {name} must match q's shape, dtype and device")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"fused_attention: dtype {q.dtype} not in {list(DTYPE_CODES)}")
-    if head_dim not in HEAD_DIMS or length > MAX_LEN or b > 65535 or heads > 65535:
+    if head_dim not in HEAD_DIMS or not shape_built(b, length, heads):
         raise ValueError(
-            f"fused_attention: head dim {head_dim} must be one of {HEAD_DIMS}, "
-            f"length {length} at most {MAX_LEN}, batch and heads at most 65535")
+            f"fused_attention: head dim {head_dim} must be 1 to {HEAD_DIMS[-1]}, "
+            f"length {length} 1 to {MAX_LEN}, batch and heads at most 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("fused_attention: q, k and v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if head_dim in EXACT_HEAD_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("fused_attention: q, k and v must start on 16-byte boundaries")
+
+
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_longlong,) * 4
+             + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
 def bind_entry(lib: ctypes.CDLL, entry: str = "esv_attention"):
     """``lib``'s C entry ``entry`` (``esv_attention`` or, with the same
     arguments, ``esv_attention_fma_scores``) with its argument and result
     types set."""
-    fn = getattr(lib, entry)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind_entry(lib, entry, _ARGTYPES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,22 +165,19 @@ def call_entry(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _launch_counters():
-    lib = _build.load("fused_attention")
-    name, count = lib.esv_attention_kernel, lib.esv_attention_launches
-    name.argtypes = count.argtypes = [ctypes.c_int]
-    name.restype, count.restype = ctypes.c_char_p, ctypes.c_longlong
-    names = []
-    while name(len(names)) is not None:
-        names.append(name(len(names)).decode())
-    return names, count
+    return _build.launch_counters("fused_attention", "esv_attention_kernel",
+                                  "esv_attention_launches")
 
 
 def kernel_launches() -> Dict[str, int]:
     """K1's launches by kernel function, as the C library counts them since
-    it was loaded: ``attention_kernel_f32``, ``attention_kernel`` and
-    ``attention_kernel_onepass``.  Which one a call takes is decided in
-    ``launch_attention_dim`` (``csrc/attention.cuh``) alone; the difference
-    of two readings says which ran.  Needs the library (a card and
+    it was loaded: ``attention_kernel_f32``, ``attention_kernel``,
+    ``attention_kernel_onepass`` (the head dims of :data:`EXACT_HEAD_DIMS`),
+    ``attention_kernel_padded_f32`` and ``attention_kernel_padded`` (every
+    other head dim).  Which one a call takes is decided in
+    ``launch_attention_dim`` (``csrc/attention.cuh``) and
+    ``launch_attention_padded`` (``csrc/attention_padded.cuh``) alone; the
+    difference of two readings says which ran.  Needs the library (a card and
     ``nvcc``)."""
     names, count = _launch_counters()
     return {n: count(i) for i, n in enumerate(names)}

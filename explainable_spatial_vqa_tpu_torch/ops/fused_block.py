@@ -46,7 +46,8 @@ and nothing in the model routes to K3 (``bench_block`` drives it).
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional
+import functools
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -61,22 +62,33 @@ from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
 __all__ = ["BlockWeights", "SplitWeights", "block_scratch", "fuse_encoder_params",
            "fused_encoder_block", "fused_encoder_block_plain", "fused_encoder_block_tiled",
            "fused_encoder_block_tiled_plain", "split_block_weights", "split_tf32",
-           "tiled_plain_after_qkv", "pad_len", "block_head_dim_built", "BLOCK_HEAD_DIMS",
-           "LN_EPS"]
+           "tiled_plain_after_qkv", "pad_len", "block_head_dim_built", "block_shape_built",
+           "kernel_launches", "BLOCK_HEAD_DIMS", "LN_EPS"]
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default, and ops/pallas_block.py:106
-# the head dims csrc/fused_block.cu instantiates its attention at: the JAX
-# package routes to its fused block only where the head dim is a multiple of
-# 128 (models/layers.py:_fused_eligible)
-BLOCK_HEAD_DIMS = (128,)
+# the head dims csrc/fused_block.cu runs its attention at (attention.cuh's
+# kernels at 128, attention_padded.cuh's at 256): the JAX package routes to
+# its fused block where d_model and the head dim are multiples of 128
+# (models/layers.py:_fused_eligible), which at the presets' 4 heads up to
+# d_model 1024 are these
+BLOCK_HEAD_DIMS = (128, 256)
 
 
 def block_head_dim_built(d_model: int, num_heads: int) -> bool:
-    """True when ``d_model`` splits into ``num_heads`` heads of a dim in
-    :data:`BLOCK_HEAD_DIMS`, the only head dims K2 and K3 are built for.  The
-    models send K2 nothing else, and the wrappers raise on a CUDA tensor of
-    another head dim."""
-    return d_model % num_heads == 0 and d_model // num_heads in BLOCK_HEAD_DIMS
+    """JAX's rule (d_model and the head dim multiples of 128) at the head
+    dims K2 and K3 are built for (:data:`BLOCK_HEAD_DIMS`).  The models send
+    K2 nothing else, and the wrappers raise on a CUDA tensor of another head
+    dim."""
+    return (d_model % 128 == 0 and d_model % num_heads == 0
+            and d_model // num_heads in BLOCK_HEAD_DIMS)
+
+
+def block_shape_built(batch: int, length: int) -> bool:
+    """The kernels' limits past the head dim: 1 to ``MAX_LEN`` keys (the
+    attention's, ``ops.fused_attention.MAX_LEN``), a batch of at most 65535
+    (the attention grid's z) and at most 65535 * 64 rows.  The encoder routes
+    by it and the wrappers hold their inputs to it, so the two agree."""
+    return 1 <= length <= MAX_LEN and batch <= 65535 and batch * length <= 65535 * 64
 
 
 def pad_len(length: int, multiple: int = 8) -> int:
@@ -265,23 +277,22 @@ def tiled_plain_after_qkv(
 def _check_launch(name: str, x: torch.Tensor, weights: BlockWeights, num_heads: int,
                   split: Optional[SplitWeights]) -> None:
     """Raise unless the kernels take these inputs: a contiguous x and
-    weights on one CUDA device, in float32 or bf16, with the shapes of
-    :class:`BlockWeights`, a head dim the attention kernel is built for,
-    and with float32 weights their split, each matrix (2N, K) float32;
-    every base 16-byte aligned (TMA's rule)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
+    weights on one device, in float32 or bf16, with the shapes of
+    :class:`BlockWeights`, a head dim and a shape the kernels are built for
+    (:func:`block_head_dim_built`, :func:`block_shape_built`), and with
+    float32 weights their split, each matrix (2N, K) float32; every base
+    16-byte aligned (TMA's rule).  It reads no device memory, so it runs on
+    CPU tensors too."""
     batch, length, d_model = x.shape
     wdt = weights.qkv.dtype
     ffn = weights.ffn1.shape[0]
     if x.dtype not in DTYPE_CODES or wdt not in DTYPE_CODES:
         raise ValueError(f"{name}: x and weights must be one of {list(DTYPE_CODES)}")
-    if (not block_head_dim_built(d_model, num_heads) or length > MAX_LEN
-            or batch > 65535 or batch * length > 65535 * 64):
+    if not (block_head_dim_built(d_model, num_heads) and block_shape_built(batch, length)):
         raise ValueError(
-            f"{name}: head dim d/H = {d_model}/{num_heads} must be one of "
-            f"{BLOCK_HEAD_DIMS}, length {length} at most {MAX_LEN}, batch at most 65535 and "
-            f"batch * length at most {65535 * 64}")
+            f"{name}: d = {d_model} must be a multiple of 128 and d/H = {d_model}/{num_heads} "
+            f"one of {BLOCK_HEAD_DIMS}, length {length} 1 to {MAX_LEN}, batch at most 65535 "
+            f"and batch * length at most {65535 * 64}")
     shapes = {"qkv": (3 * d_model, d_model), "out": (d_model, d_model), "ffn1": (ffn, d_model),
               "ffn2": (d_model, ffn), "qkv_bias": (3 * d_model,), "ffn1_bias": (ffn,)}
     for key, t in weights._asdict().items():
@@ -328,13 +339,21 @@ def block_scratch(x: torch.Tensor, weights: BlockWeights, tiled: bool,
             torch.empty(rows // ffn_chunks, ffn, **w)]
 
 
-def _entry(name: str, ints: int):
-    """The C entry point ``name`` of ``csrc/fused_block.cu``: 21 pointers,
-    ``ints`` ints, the stream."""
-    fn = getattr(_build.load("fused_block"), name)
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=None)
+def _launch_counters():
+    return _build.launch_counters("fused_block", "esv_block_attention_kernel",
+                                  "esv_block_attention_launches")
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The attention launches of K2 and K3, by kernel function, as the block
+    library counts them since it was loaded: ``attention_kernel_f32`` and
+    ``attention_kernel`` at head dim 128, ``attention_kernel_padded_f32``
+    and ``attention_kernel_padded`` at 256 (``launch_block_attention`` in
+    ``csrc/attention_padded.cuh`` picks).  Needs the library (a card and
+    ``nvcc``)."""
+    names, count = _launch_counters()
+    return {n: count(i) for i, n in enumerate(names)}
 
 
 def _launch(wrapper, name: str, x, mask, weights: BlockWeights, split: Optional[SplitWeights],
@@ -348,7 +367,9 @@ def _launch(wrapper, name: str, x, mask, weights: BlockWeights, split: Optional[
     if split is not None:
         weights = weights._replace(**split._asdict())
     ptrs = [x, mask_f, *weights, out, *scratch]
-    fn = _entry(name, len(ints))
+    # 21 pointers, the ints, the stream; bound once per loaded library
+    fn = _build.entry("fused_block", name, (ctypes.c_void_p,) * 21 + (ctypes.c_int,) * len(ints)
+                      + (ctypes.c_void_p,))
     with torch.cuda.device(x.device):
         wrapper.launches += 1
         status = fn(
@@ -370,6 +391,8 @@ def fused_encoder_block(
     here on each call where it is None."""
     if x.device.type == "cpu":
         return fused_encoder_block_plain(x, mask, weights, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_encoder_block: unsupported device {x.device}")
     split = split if split is not None else split_block_weights(weights)
     _check_launch("fused_encoder_block", x, weights, num_heads, split)
     batch, length, d_model = x.shape
@@ -399,6 +422,8 @@ def fused_encoder_block_tiled(
     if x.device.type == "cpu":
         return fused_encoder_block_tiled_plain(x, mask, weights, num_heads, batch_tile,
                                                ffn_chunks)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_encoder_block_tiled: unsupported device {x.device}")
     split = split if split is not None else split_block_weights(weights)
     _check_launch("fused_encoder_block_tiled", x, weights, num_heads, split)
     scratch = block_scratch(x, weights, tiled=True, ffn_chunks=ffn_chunks)

@@ -223,11 +223,10 @@ def _esv_hungarian():
     ``esv_hungarian_scratch_bytes``), their types set; bound once, on the
     first call, after ``_build.load`` has built and loaded the library."""
     lib = _build.load("hungarian")
-    launch, scratch = lib.esv_hungarian, lib.esv_hungarian_scratch_bytes
-    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    scratch.argtypes, scratch.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    return launch, scratch
+    return (_build.bind_entry(lib, "esv_hungarian",
+                              (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)),
+            _build.bind_entry(lib, "esv_hungarian_scratch_bytes", (ctypes.c_int,) * 3,
+                              ctypes.c_longlong))
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -244,14 +243,7 @@ def kernel_launches() -> Dict[str, int]:
 
 @functools.lru_cache(maxsize=None)
 def _launch_counters():
-    lib = _build.load("hungarian")
-    name, count = lib.esv_hungarian_kernel, lib.esv_hungarian_launches
-    name.argtypes = count.argtypes = [ctypes.c_int]
-    name.restype, count.restype = ctypes.c_char_p, ctypes.c_longlong
-    names = []
-    while name(len(names)) is not None:
-        names.append(name(len(names)).decode())
-    return names, count
+    return _build.launch_counters("hungarian", "esv_hungarian_kernel", "esv_hungarian_launches")
 
 
 def set_shared_limit(nbytes: Optional[int]) -> Optional[int]:

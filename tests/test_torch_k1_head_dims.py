@@ -1,12 +1,16 @@
 """K1 at every head dim, on the CPU against the JAX package.
 
 The TPU kernel (``explainable_spatial_vqa_tpu/ops/pallas_attention.py``) takes
-any head dim; the port's K1 is built for every multiple of 8 from 8 to 128
-(``HEAD_DIMS``; the C library's ``ESV_K1_HEAD_DIMS``, compiled in the units
-of ``ops._build.K1_DIM_GROUPS``).  Here, on the same numpy inputs:
+any head dim; the port's K1 takes every head dim from 1 to 256
+(``HEAD_DIMS``): every multiple of 8 from 8 to 128 has kernels of its own
+(``EXACT_HEAD_DIMS``; the C library's ``ESV_K1_HEAD_DIMS``, compiled in the
+units of ``ops._build.K1_DIM_GROUPS``), every other head dim the padded
+kernels at its padded depth (``PADDED_DEPTHS``; ``ESV_K1_PAD_DEPTHS``, the
+units of ``ops._build.K1_PAD_GROUPS``).  Here, on the same numpy inputs:
 
 - the gates: ``head_dim_built`` and the wrapper's contract follow that set,
-  and the source, the build's groups and ``HEAD_DIMS`` name the same dims;
+  and the source, the build's groups and the Python sets name the same dims
+  and depths;
 - K1's plain version (the wrapper's path for a CPU tensor) against JAX's
   Pallas kernel in interpret mode and JAX's XLA attention at head dims 8,
   16, 24, 32, 48, 64 and 96 and the models' lengths (8: the protocol's box
@@ -51,10 +55,13 @@ from explainable_spatial_vqa_tpu_torch.models.step_executor import StepExecutorS
 from explainable_spatial_vqa_tpu_torch.ops.decoding import greedy_decode
 from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+    EXACT_HEAD_DIMS,
     HEAD_DIMS,
+    PADDED_DEPTHS,
     check_attention,
     fused_attention,
     head_dim_built,
+    padded_depth,
 )
 from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
     BLOCK_HEAD_DIMS,
@@ -77,24 +84,27 @@ def _key_mask(batch, length, seed):
 
 
 def test_head_dim_built_is_every_multiple_of_8_to_128():
-    """K1's gate: 4 heads of every multiple of 8 from 8 to 128 (d_model 32
-    to 512), and no head dim of 4, 25 or 136; K2's stays at 128."""
-    assert HEAD_DIMS == tuple(range(8, 129, 8))
-    for head_dim in range(8, 129, 8):
+    """K1's gate: 4 heads of every head dim from 1 to 256 (d_model 4 to
+    1024), among them every multiple of 8 from 8 to 128 and 4, 25 and 136;
+    none past 256; K2's at 128 and 256."""
+    assert HEAD_DIMS == tuple(range(1, 257))
+    assert EXACT_HEAD_DIMS == tuple(range(8, 129, 8))
+    for head_dim in range(1, 257):
         assert head_dim_built(4 * head_dim, 4), head_dim
         assert head_dim_built(2 * head_dim, 2), head_dim
     for head_dim in (4, 25, 136):
-        assert not head_dim_built(4 * head_dim, 4), head_dim
+        assert head_dim_built(4 * head_dim, 4), head_dim
+    assert not head_dim_built(4 * 257, 4)
     assert not head_dim_built(100, 3)  # no whole head dim
-    assert BLOCK_HEAD_DIMS == (128,)
-    assert [d for d in range(8, 129, 8) if block_head_dim_built(4 * d, 4)] == [128]
+    assert BLOCK_HEAD_DIMS == (128, 256)
+    assert [d for d in range(8, 257, 8) if block_head_dim_built(4 * d, 4)] == [128, 256]
 
 
-@pytest.mark.parametrize("head_dim,ok", [(8, True), (72, True), (128, True), (4, False),
-                                          (25, False), (136, False)])
+@pytest.mark.parametrize("head_dim,ok", [(8, True), (72, True), (128, True), (4, True),
+                                          (25, True), (136, True), (257, False)])
 def test_wrapper_contract_follows_head_dims(head_dim, ok):
     """The wrapper's contract (checked before any launch on a CUDA tensor)
-    takes exactly the head dims of ``HEAD_DIMS``."""
+    takes exactly the head dims of ``HEAD_DIMS``, 1 to 256."""
     q, k, v = (torch.zeros(2, 5, 2, head_dim) for _ in range(3))
     if ok:
         check_attention(q, k, v)
@@ -104,20 +114,28 @@ def test_wrapper_contract_follows_head_dims(head_dim, ok):
 
 
 def test_source_and_build_name_the_same_head_dims(monkeypatch):
-    """``csrc/fused_attention.cu``'s dispatch list (ESV_K1_HEAD_DIMS), the
-    build's units (each dim in exactly one group) and ``HEAD_DIMS`` agree;
-    the library's hash covers the units' flags, so regrouping rebuilds."""
+    """``csrc/fused_attention.cu``'s dispatch lists (ESV_K1_HEAD_DIMS,
+    ESV_K1_PAD_DEPTHS), the build's units (each dim and depth in exactly one
+    group) and ``EXACT_HEAD_DIMS`` and ``PADDED_DEPTHS`` agree, and every
+    other head dim up to 256 has its padded depth among them; the library's
+    hash covers the units' flags, so regrouping rebuilds."""
     source = (_build.CSRC_DIR / "fused_attention.cu").read_text()
     listed = re.search(r"#define ESV_K1_HEAD_DIMS ([0-9, ]+)\n", source).group(1)
-    assert tuple(int(d) for d in listed.split(",")) == HEAD_DIMS
+    assert tuple(int(d) for d in listed.split(",")) == EXACT_HEAD_DIMS
+    depths = re.search(r"#define ESV_K1_PAD_DEPTHS ([0-9, ]+)\n", source).group(1)
+    assert tuple(int(d) for d in depths.split(",")) == PADDED_DEPTHS
+    assert {padded_depth(d) for d in HEAD_DIMS if d not in EXACT_HEAD_DIMS} == set(PADDED_DEPTHS)
     grouped = [d for group in _build.K1_DIM_GROUPS for d in group]
-    assert sorted(grouped) == list(HEAD_DIMS)
+    assert sorted(grouped) == list(EXACT_HEAD_DIMS)
+    assert sorted(d for group in _build.K1_PAD_GROUPS for d in group) == list(PADDED_DEPTHS)
     units = _build.units("fused_attention")
     assert units[0] == ("fused_attention.cu", ())
     assert [flags for _, flags in units[1:]] == [
         tuple(f"-DESV_HEAD_DIM_{ab}={d}" for ab, d in zip("AB", group))
-        for group in _build.K1_DIM_GROUPS]
-    assert all(1 <= len(group) <= 2 for group in _build.K1_DIM_GROUPS)
+        for group in _build.K1_DIM_GROUPS] + [
+        tuple(f"-DESV_PAD_DEPTH_{ab}={d}" for ab, d in zip("AB", group))
+        for group in _build.K1_PAD_GROUPS]
+    assert all(1 <= len(group) <= 2 for group in _build.K1_DIM_GROUPS + _build.K1_PAD_GROUPS)
     assert _build.units("hungarian") == (("hungarian.cu", ()),)
     before = _build._library_path("fused_attention")
     monkeypatch.setattr(_build, "K1_DIM_GROUPS", ((8,),) + _build.K1_DIM_GROUPS[1:])
@@ -129,7 +147,7 @@ def test_source_and_build_name_the_same_head_dims(monkeypatch):
 @pytest.mark.parametrize("masked", [False, True])
 def test_k1_plain_matches_jax_at_head_dim(head_dim, length, masked):
     """B = 2, H = 2, float32, atol 1e-5; the scale is 1/sqrt(head dim)."""
-    assert head_dim in HEAD_DIMS
+    assert head_dim in EXACT_HEAD_DIMS
     rng = np.random.RandomState(head_dim + length)
     q, k, v = (rng.randn(2, length, 2, head_dim).astype(np.float32) for _ in range(3))
     mask = _key_mask(2, length, head_dim)[:, None, None, :] if masked else None

@@ -1,8 +1,8 @@
-"""The port routes to K2 only at head dim 128, as the JAX package routes to
-its fused block only at MXU-aligned widths
+"""The port routes to K2 at head dims 128 and 256 with d_model a multiple of
+128, as the JAX package routes to its fused block only at MXU-aligned widths
 (``explainable_spatial_vqa_tpu/models/layers.py``, ``_fused_eligible``), and
-to K1 at every head dim the models have (24, 48, 64, 128), as JAX's attention
-dispatch takes any (``explainable_spatial_vqa_tpu/ops/attention.py:51-59``).
+to K1 at every head dim from 1 to 256, as JAX's attention dispatch takes any
+(``explainable_spatial_vqa_tpu/ops/attention.py:51-59``).
 
 Spies stand in for the ``fused_encoder_block`` and ``fused_attention`` that
 ``models/layers.py`` calls: each records its call and returns the wrapper's
@@ -99,17 +99,20 @@ def test_training_forward_never_routes(spies):
 
 @pytest.mark.parametrize("d_model, heads, built", [
     (512, 4, True), (256, 2, True), (128, 1, True), (96, 4, False), (192, 4, False),
-    (384, 4, False), (512, 2, False), (500, 4, False), (130, 4, False)])
+    (384, 4, False), (512, 2, True), (500, 4, False), (130, 4, False), (1024, 4, True),
+    (768, 2, False), (640, 5, True)])
 def test_head_dim_built(d_model, heads, built):
-    """K2's head dims: 128 only."""
+    """K2's head dims: 128 and 256 (d_model 512 at 2 heads, 1024 at 4), with
+    d_model a multiple of 128; not 384 (768 at 2 heads), nor 96 or 48."""
     assert block_head_dim_built(d_model, heads) is built
 
 
 @pytest.mark.parametrize("d_model, heads, built", [
     (96, 4, True), (192, 4, True), (256, 4, True), (512, 4, True), (384, 4, True),
-    (512, 2, False), (130, 4, False), (100, 4, False), (544, 4, False), (16, 4, False)])
+    (512, 2, True), (130, 4, False), (100, 4, True), (544, 4, True), (16, 4, True),
+    (1028, 4, False), (100, 3, False)])
 def test_k1_head_dim_built(d_model, heads, built):
-    """K1's head dims: every multiple of 8 from 8 to 128, so 96 (384/4) is
-    built; 256 (512/2), 25 (100/4), 136 (544/4) and 4 (16/4) are not, nor a
-    width that does not split into whole heads."""
+    """K1's head dims: every one from 1 to 256, so 96 (384/4), 256 (512/2),
+    25 (100/4), 136 (544/4) and 4 (16/4) are built; 257 (1028/4) is not, nor
+    a width that does not split into whole heads."""
     assert head_dim_built(d_model, heads) is built
