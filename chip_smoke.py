@@ -22,10 +22,12 @@ result:
    built, every function with HMMA, at every head dim of ``EXACT_HEAD_DIMS``
    (every multiple of 8 up to 128), the one-pass kernel at each up to 64,
    and the padded kernels (every other head dim up to 256) at every depth of
-   ``PADDED_DEPTHS``, each on a line of its own; the build's wall time
-   beside the single-unit build's and each translation unit's (K1's head
-   dims and padded depths compile in units of their own, all started
-   together);
+   ``PADDED_DEPTHS``, each on a line of its own; the head-dim-256 kernels
+   (``attention_wide.cuh``: ``attention_kernel_split_f32`` to float and bf16
+   with HMMA, ``attention_kernel_wgmma`` with HGMMA) on a line of their own;
+   the build's wall time beside the single-unit build's and each
+   translation unit's (K1's head dims and padded depths compile in units of
+   their own, all started together);
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
    float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
    outputs are held by ``attention_agreement`` (against float64 scores and
@@ -50,7 +52,15 @@ result:
    208 and 1025, and every K1 kernel past the old 1024-key cap at
    ``K1_LONG_ROWS`` (1025 and 4096 keys; float32 within ``k1_f32_tol``),
    then checked and timed at ``K1_NEW_SHAPES`` (the protocol at d_model 100
-   and 1024, serving at 1024, rows of 1025 and 4096 keys); K2's own float32
+   and 1024, serving at 1024, rows of 1025 and 4096 keys); the head-dim-256
+   kernels (``wide_kernels``) at ``WIDE_DIMS`` (256, and 232 with zero
+   columns), bf16 at L = 17, 64, 208, 210, 224, 256 and float32 at 208,
+   1025, 4096, ragged and unmasked, in K1's layout and (at 256) K2's and
+   K3's strided (B, L, 3d) buffer through ``esv_block_attention``, each
+   call's kernel read from the C libraries' counts, then timed at
+   ``measure/attention_variants.py``'s ``WIDE_CASES`` beside the plain
+   version, SDPA and the bound (the padded kernels they replace are timed
+   beside them by that driver's variant ``padded``); K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -151,7 +161,9 @@ result:
     launches K2 once per layer, each block held against K2's plain version,
     and their float32 decisions card vs CPU; one train step each of
     ``transformer_iqap``, ``lstm_iqap`` and ``step_seq2seq`` (ms, peak
-    GiB, kernels per step, a fixed batch's falling loss);
+    GiB, kernels per step, a fixed batch's falling loss; each family built
+    and stepped under global generators seeded for it, ``own_rng``, as
+    phase 18's fixed batches are, so that no phase before changes them);
 18. the chain-of-thought IQAP and the prototype step models
     (``cot_and_prototypes``) on the CLEVR factory's questions, in memory:
     ``transformer_iqap_cot`` (a bf16 train step at batch 64: ms, peak GiB,
@@ -210,7 +222,7 @@ result:
     tied integers and a third integers with NaNs; the C library's counts
     showing the block kernel ran), once with its state in global memory,
     under the sync check too, and timed at (B, Q, T) = (64, 32, 32), (64,
-    100, 100), (8, 300, 300); 21.2 one
+    100, 100), (4, 300, 300); 21.2 one
     ``executor_roi`` train step at full width, bf16, batch 16 and 128, with
     ``matcher="auto"`` (the kernel) and ``"hungarian"`` (scipy), in
     alternating rounds, with the host's waits per step and a falling fixed
@@ -232,11 +244,15 @@ result:
 23. the paths at the head dims without kernels of their own (``new_widths``):
     ``run_cogent_protocol`` as ``cogent-protocol --d_model 100`` and
     ``--d_model 1024`` run it (float32, ``NEW_WIDTH_PROTOCOL``'s sizes and
-    steps): K1 on the padded kernel at head dim 25 and 256, K2 at 256, no
-    self-attention K1 takes on the plain path, valA card vs CPU equal; bf16
-    serving (``InferencePipeline.run``) with the executor at d_model 1024: K2
-    3 and K1 2 launches a forward on the padded kernels; the block bench at
-    d_model 1024, which launches K3 at head dim 256.
+    steps): K1 on the padded kernel at head dim 25 and 256 (the box
+    decoders' 8 keys), K2 at 256 with its attention on
+    ``attention_kernel_split_f32``, no self-attention K1 takes on the plain
+    path, valA card vs CPU equal; bf16 serving (``InferencePipeline.run``)
+    with the executor at d_model 1024, questions/s: K2 3 and K1 2 launches a
+    forward, K2's attention on ``attention_kernel_split_f32``; the block
+    bench at d_model 1024, K2's and K3's ms, K3's attention on
+    ``attention_kernel_wgmma``: the head-dim-256 kernels' launches by the C
+    libraries' counts.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
@@ -248,7 +264,11 @@ times at the IQAP's and ``HierarchicalGenerator``'s encoder shapes under
 ``at_shapes``; the padded kernels at the ragged head dims and at 136-256
 (``fused_attention_padded_ragged``, ``_wide``) and K2 and K3 at head dim 256
 (``fused_encoder_block_hd256``, ``fused_encoder_block_tiled_hd256``), with
-their launches on phases 16.1 and 23's paths, and K1's rows past 1024 keys
+their launches on phases 16.1 and 23's paths, the head-dim-256 kernels
+(``attention_kernel_split_f32``: K2's attention at d 1024, L=210;
+``attention_kernel_wgmma``: K3's at L=224; K1's layout under
+``at_shapes``) with their launches on phase 23's paths
+by the C libraries' counts, and K1's rows past 1024 keys
 under ``long_rows``; then K1 at every head dim below 128 (``fused_attention_d{D}``),
 each at its first model's encoder shape (the protocol's fusion encoder at
 d_model 4 D for the head dims no preset has) with the rest under
@@ -307,6 +327,8 @@ K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 # attention_kernel_f32 at every length)
 ONE_PASS, RING = "attention_kernel_onepass", "attention_kernel"
 PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
+# csrc/attention_wide.cuh: the head dims at padded depth 256 past 16 keys
+SPLIT_F32, WGMMA = "attention_kernel_split_f32", "attention_kernel_wgmma"
 K1_CHECK_LENGTHS = ((8, False, RING), (17, True, ONE_PASS), (208, True, ONE_PASS),
                     (224, False, ONE_PASS), (225, True, ONE_PASS), (243, True, ONE_PASS),
                     (246, True, ONE_PASS), (256, False, ONE_PASS), (257, True, RING))
@@ -340,13 +362,30 @@ K1_MODEL_SHAPES += tuple(
         (f"protocol d {4 * d} fusion encoder bf16", d, 128, 208, True, "bf16")))
 
 
+def wide_kernel(d_head: int, length: int, name: str):
+    """The ``attention_wide.cuh`` kernel a call of type ``name`` at a head
+    dim of padded depth 256 (225-256) launches (``launch_attention_padded``'s
+    ``wide_takes``), or None where the padded kernel keeps it: rows of whole
+    16-byte chunks (with aligned bases and strides, as the wrappers' tensors
+    are) past 16 keys, bf16 up to 256."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import padded_depth
+
+    row_bytes = d_head * (2 if name == "bf16" else 4)
+    if padded_depth(d_head) != 256 or row_bytes % 16 or length <= 16:
+        return None
+    if name == "bf16":
+        return WGMMA if length <= 256 else None
+    return SPLIT_F32
+
+
 def k1_bf16_kernel(d_head: int, length: int) -> str:
     """The kernel function a bf16 K1 call launches (``launch_attention_dim``'s
     routing): one warp's ring kernel at L <= 16, the one-pass kernel at D <=
-    64 and L <= 256, else the ring; the padded kernel at a head dim without
-    kernels of its own (``launch_attention_padded``)."""
+    64 and L <= 256, else the ring; at a head dim without kernels of its own
+    ``attention_kernel_wgmma`` where ``wide_kernel`` says so, else the padded
+    kernel (``launch_attention_padded``)."""
     if d_head % 8 or d_head > 128:
-        return PADDED
+        return wide_kernel(d_head, length, "bf16") or PADDED
     return ONE_PASS if 16 < length <= 256 and d_head <= 64 else RING
 
 
@@ -355,7 +394,19 @@ def k1_kernel(d_head: int, length: int, name: str) -> str:
     launches."""
     if name == "bf16":
         return k1_bf16_kernel(d_head, length)
-    return PADDED_F32 if d_head % 8 or d_head > 128 else "attention_kernel_f32"
+    if d_head % 8 or d_head > 128:
+        return wide_kernel(d_head, length, name) or PADDED_F32
+    return "attention_kernel_f32"
+
+
+def block_attention_kernel(d_head: int, length: int, name: str) -> str:
+    """The kernel function the attention of K2 (``name`` "fp32": float32 q,
+    k, v) or K3 ("bf16") launches (``launch_block_attention``): at head dim
+    128 attention.cuh's (``attention_kernel_f32``, the ring), at 256 the
+    wide kernels past 16 keys (bf16 up to 256), else the padded ones."""
+    if d_head == 128:
+        return RING if name == "bf16" else "attention_kernel_f32"
+    return k1_kernel(d_head, length, name)
 
 
 def k1_f32_tol(length: int) -> float:
@@ -448,7 +499,7 @@ BASELINE_IMAGE = (196, 1024)  # image tokens and features of the presets' models
 BASELINE_FP32 = 64  # questions and chains of the float32 card-vs-CPU checks
 BASELINE_D512_CHAINS = 32  # chains of the d 512 step seq2seq's float32 check
 BASELINE_UPDATES = 30  # fixed-batch updates of each baseline's train step
-BASELINE_REPEATS = 3  # timed runs of phase 17's eval paths (each a median)
+BASELINE_REPEATS = 2  # timed runs of phase 17's eval paths (each a median)
 NEAR_TIE = 1e-4  # a top-2 logit gap below which card and CPU decisions may part
 K2_IQAP_SHAPE = (64, 243)  # B, L: the IQAP encoder at d 512 (1 + 196 + 46 tokens), no mask
 # phase 18: the chain-of-thought IQAP and the prototype step models on the
@@ -861,22 +912,17 @@ def kernel_report(libs: dict) -> dict:
     and HMMA (mma.sync) instructions in the SASS (``cuobjdump -sass``)."""
     import re
 
+    from explainable_spatial_vqa_tpu_torch.measure.variants import ptxas_usage
     from explainable_spatial_vqa_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     filt = Path(_build._nvcc()).with_name("cu++filt")
     out = {}
     for name, lib in libs.items():
-        current = None
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            found = re.search(r"Compiling entry function '(\S+)'", line)
-            if found:
-                current = out.setdefault(found.group(1), dict(registers=0, spill=0, HGMMA=0,
-                                                              HMMA=0))
-            elif current is not None and "spill stores" in line:
-                current["spill"] = int(line.split("bytes spill stores")[0].split(",")[-1])
-            elif current is not None and "Used" in line and "registers" in line:
-                current["registers"] = int(line.split("Used")[1].split("registers")[0])
+        for fn, (registers, spill) in ptxas_usage(
+                (_build.BUILD_DIR / f"{name}.log").read_text()).items():
+            out.setdefault(fn, dict(registers=0, spill=0, HGMMA=0, HMMA=0)).update(
+                registers=registers, spill=spill)
         for fn, body in re.findall(r"Function : (\S+)(.*?)(?=\n\s*Function : |\Z)",
                                    library_sass(cuobjdump, lib), re.S):
             entry = out.setdefault(fn, dict(registers=0, spill=0, HGMMA=0, HMMA=0))
@@ -1151,6 +1197,19 @@ def main() -> None:
     if missing:
         fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
              "PADDED_DEPTHS")
+    wide = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
+                  for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n)
+    say("phase 2 head-dim-256 K1, K2 and K3 attention (attention_wide.cuh, built into "
+        "fused_attention and fused_block): " + "; ".join(
+            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HGMMA']} HGMMA, "
+            f"{k['HMMA']} HMMA" for name, k in wide))
+    # the float32 kernel on mma.sync (HMMA) to float and bf16, the bf16 one on wgmma
+    want_wide = {f"{SPLIT_F32}<float>": "HMMA", f"{SPLIT_F32}<bf16>": "HMMA",
+                 f"{WGMMA}<bf16>": "HGMMA"}
+    for fn, unit in want_wide.items():
+        found = [k for name, k in wide if name == fn]
+        if not found or not all(k[unit] > 0 for k in found):
+            fail(f"phase 2: {fn} is not built with {unit}: {found}")
     tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
     say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
     for name in libs:  # ptxas notes a wgmma it had to wait on before the next
@@ -1158,8 +1217,9 @@ def main() -> None:
             if "wgmma" in line and "serialized" in line:
                 say(f"phase 2 ptxas ({name}): {line.strip()}")
     tensor_core_checks = {
-        "every attention kernel runs HMMA": all(
-            k["HMMA"] > 0 for n, k in kernels.items() if "attention_kernel" in n),
+        "every attention kernel runs HMMA (HGMMA: attention_kernel_wgmma)": all(
+            k["HGMMA" if WGMMA in n else "HMMA"] > 0
+            for n, k in kernels.items() if "attention_kernel" in n),
         "every wgmma GEMM runs HGMMA": all(
             k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_bf16_wgmma" in n),
         "every float32 GEMM runs HGMMA": bool(tf32_gemms) and all(
@@ -1235,6 +1295,7 @@ def main() -> None:
 
     k1_head_dims(torch, F, dev, results)
     k1_padded_dims(torch, F, dev, results)
+    wide_kernels(torch, F, dev, results, parts)
     k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
@@ -1623,6 +1684,162 @@ def k1_padded_dims(torch, F, dev, results: dict) -> None:
                        profile=shape[3] <= 208 and shape[1] in (25, 256))
     say(f"phases 3-4 K1 on the padded kernels and past 1024 keys took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+# The head-dim-256 kernels (csrc/attention_wide.cuh), phases 3-4: each held
+# against its plain version at WIDE_DIMS (256, and 232: padded depth 256 with
+# zero columns) at these lengths, ragged and unmasked, in K1's (B, L, H, D)
+# layout through the wrapper and, at 256, in K2's and K3's strided (B, L, 3d)
+# buffer through the block library's esv_block_attention; then timed at
+# measure/attention_variants.py's WIDE_CASES beside the plain version, SDPA
+# and the bound
+WIDE_DIMS = (256, 232)
+WIDE_BF16_LENGTHS = (17, 64, 208, 210, 224, 256)
+WIDE_F32_LENGTHS = (208, 1025, 4096)
+
+
+def wide_batch(length: int) -> int:
+    return 32 if length <= 256 else 8 if length <= 1024 else 2
+
+
+def block_called(torch, fn, name, q, k, v, mask, out_dtype, head, want):
+    """One call of the blocks' attention alone (``esv_block_attention``, bound
+    as ``fn``) on q, k, v, the thirds of a (B, L, 3d) buffer: fail unless it
+    launched ``want`` (the block library's counts) and agrees with the plain
+    version (float32 outputs within ``k1_f32_tol``; bf16 outputs of float32
+    q/k/v by ``bf16_agreement`` against the plain version rounded, of bf16
+    q/k/v by ``attention_agreement``).  The output and its largest error."""
+    from explainable_spatial_vqa_tpu_torch.ops import fused_block
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import call_rows
+
+    b, length, d = q.shape
+    heads = [t.reshape(b, length, 4, d // 4) for t in (q, k, v)]
+    before = fused_block.kernel_launches()
+    out = call_rows(fn, q, k, v, mask, 4, out_dtype)
+    moved = {n: c - before[n] for n, c in fused_block.kernel_launches().items() if c != before[n]}
+    ref = dot_product_attention(*heads, mask).reshape(b, length, d)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    if out_dtype == torch.float32:
+        text = f"max_abs_err {err:.3g} (tol {k1_f32_tol_text(length)})"
+        ok = err <= k1_f32_tol(length)
+    else:
+        stats = (bf16_agreement(torch, out, ref.bfloat16()) if name == "fp32" else
+                 attention_agreement(torch, out.reshape(b, length, 4, d // 4), *heads, mask))
+        text, ok = bf16_text(stats), bf16_ok(stats)
+    say(f"{head} ({moved}): {text}")
+    if moved != {want: 1}:
+        fail(f"{head} launched {moved}, not {want} once")
+    if not ok:
+        fail(f"{head}: the blocks' attention disagrees with its plain version")
+    return out, err
+
+
+def wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
+    """Phases 3-4 for ``attention_kernel_split_f32`` (float32 q, k, v past 16
+    keys) and ``attention_kernel_wgmma`` (bf16, 17-256 keys) at head dim 256:
+    the checks above ``WIDE_DIMS``, each call's kernel read from the C
+    libraries' counts, then each of ``WIDE_CASES`` timed through the
+    wrapper (K1) or ``esv_block_attention`` (K2's and K3's attention) beside
+    the plain version, ``scaled_dot_product_attention`` and the bound.
+    Results go to ``results["wide <label>"]`` and, for K2's and K3's, to
+    ``parts``."""
+    from explainable_spatial_vqa_tpu_torch.measure.attention_variants import WIDE_CASES
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        bind_entry,
+        call_rows,
+        fused_attention,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    t0 = time.perf_counter()
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    block_fn = bind_entry(_build.load("fused_block"), "esv_block_attention")
+
+    def ragged(b, length):
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+        return keep[:, None, None, :]
+
+    checks = 0
+    for d_head in WIDE_DIMS:
+        for name, lengths in (("bf16", WIDE_BF16_LENGTHS), ("fp32", WIDE_F32_LENGTHS)):
+            dtype = types[name]
+            for length in lengths:
+                b = wide_batch(length)
+                for masked in (True, False):
+                    mask = ragged(b, length) if masked else None
+                    where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
+                    q, k, v = (torch.randn(b, length, 4, d_head, generator=gen, device=dev)
+                               .to(dtype) for _ in range(3))
+                    k1_checked(torch, name, q, k, v, mask, k1_kernel(d_head, length, name),
+                               f"phase 3 K1 fused_attention {name} {where}")
+                    checks += 1
+                    del q, k, v
+                    if d_head != 256:
+                        continue
+                    d = 4 * d_head
+                    qkv = torch.randn(b, length, 3 * d, generator=gen, device=dev).to(dtype)
+                    outs = (torch.bfloat16, torch.float32) if name == "fp32" else (torch.bfloat16,)
+                    for out_dtype in outs:
+                        block_called(torch, block_fn, name, *qkv.split(d, dim=-1), mask, out_dtype,
+                                     f"phase 3 {'K2' if name == 'fp32' else 'K3'} attention "
+                                     f"{name} q/k/v from the (B, L, 3d) buffer, "
+                                     f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out, "
+                                     f"{where}",
+                                     block_attention_kernel(d_head, length, name))
+                        checks += 1
+                    del qkv
+    say(f"phase 3 the head-dim-256 kernels: {checks} calls at D = {WIDE_DIMS}, bf16 L = "
+        f"{WIDE_BF16_LENGTHS}, float32 L = {WIDE_F32_LENGTHS} checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    for label, layout, name, out_name, b, length in WIDE_CASES:
+        d = 4 * 256
+        dtype, out_dtype = types[name], types[out_name]
+        mask = ragged(b, length)
+        if layout == "K1":
+            q, k, v = (torch.randn(b, length, d, generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+        else:
+            q, k, v = torch.randn(b, length, 3 * d, generator=gen, device=dev).to(dtype).split(
+                d, dim=-1)
+        heads = [t.reshape(b, length, 4, 256) for t in (q, k, v)]
+        want = (k1_kernel if layout == "K1" else block_attention_kernel)(256, length, name)
+        if layout == "K1":  # the wrapper the models call
+            out, err = k1_checked(torch, name, *heads, mask, want,
+                                  f"phase 4 K1 fused_attention {name} B={b} H=4 L={length} D=256")
+            call = lambda: fused_attention(*heads, mask)  # noqa: E731
+        else:
+            out, err = block_called(torch, block_fn, name, q, k, v, mask, out_dtype,
+                                    f"phase 4 {label} B={b} H=4 D=256", want)
+            call = lambda: call_rows(block_fn, q, k, v, mask, 4, out_dtype)  # noqa: E731
+        ms = timed_ms(torch, call)
+        plain = timed_ms(torch, lambda: dot_product_attention(*heads, mask).to(out_dtype))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in heads)
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        esize, osize = (2 if name == "bf16" else 4), (2 if out_name == "bf16" else 4)
+        bnd, by = bound_ms(dot_ops(name, 4.0 * b * 4 * length * length * 256),
+                           3 * b * length * d * esize + b * length * d * osize + b * length * 4)
+        say(f"phase 4 {label} (B={b} H=4 D=256 ragged, {want}): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, scaled_dot_product_attention {name} {lib:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
+        results[f"wide {label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                        bound_by=by, library_ms=lib,
+                                        kernel=want, shape=f"B={b} H=4 L={length} D=256 ragged")
+        if layout == "block":
+            parts.append(dict(
+                name=f"attention_{name}_hd256_L{length}", route="cuda",
+                source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
+                replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if name == "fp32"
+                          else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
+                inside=("fused_encoder_block" if name == "fp32" else "fused_encoder_block_tiled"),
+                **results[f"wide {label}"]))
+        del q, k, v, heads, qt, kt, vt, out
+    say(f"phases 3-4 the head-dim-256 kernels took {time.perf_counter() - t0:.1f} s")
 
 
 def k1_wrapper_times(torch, F, dev, results: dict) -> None:
@@ -2222,7 +2439,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     matcher, block_matcher, demo_paths = demos(torch, np, dev, counted)
     by_path.update(demo_paths)
     by_path.update(measurement_drivers(torch, counted))
-    new_paths = new_widths(torch, np, dev, counted)
+    new_paths, wide_launches = new_widths(torch, np, dev, counted)
     by_path.update(new_paths)
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
@@ -2335,13 +2552,34 @@ def main_path(torch, np, dev, results, parts) -> None:
             launches=new_paths[path][src_name], **results[key], shape=f"d=1024 H=4 ({path})",
             at_shapes={"fp32": results[key.replace("bf16", "fp32")]},
             launches_by_path={p: c[src_name] for p, c in new_paths.items()}))
+    # the head-dim-256 kernels (attention_wide.cuh): their launches on phase
+    # 23's paths by the C libraries' counts (split_f32: K2's attention in the
+    # d 1024 protocol and serving; wgmma: K3's in the block bench), the
+    # numbers of K2's and K3's attention alone, K1's layout under at_shapes
+    for kernel, main_key, other_key in (
+            (SPLIT_F32, "wide K2 attention fp32 L=210, bf16 out", "wide K1 fp32 L=208"),
+            (WGMMA, "wide K3 attention bf16 L=224", "wide K1 bf16 L=208")):
+        by_wide = {path: c[kernel] for path, c in wide_launches.items()}
+        kernels.append(dict(
+            name=kernel, route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
+            replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if kernel == SPLIT_F32
+                      else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
+            also_replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            launches=sum(by_wide.values()), **results[main_key],
+            at_shapes={other_key[len("wide "):]: results[other_key]},
+            launches_by_path=by_wide))
+    say("the head-dim-256 kernels: " + "; ".join(
+        f"{k['name']} {k['ms']:.4f} ms (scaled_dot_product_attention {k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), "
+        f"{k['launches']} launches on phase 23's paths" for k in kernels[-2:]))
     unlaunched = [d for d in model_dims if not sum(k1_dims[d].values())]
     if unlaunched:
         fail(f"K1 at head dims {unlaunched} never launched through the models")
     if not sum(onepass_launches.values()):
         fail("K1's one-pass kernel never launched through the models")
-    if not all(k["launches"] for k in kernels[-4:]):
-        fail("a padded kernel, or K2 or K3 at head dim 256, never launched on its path")
+    if not all(k["launches"] for k in kernels[-6:]):
+        fail("a padded kernel, K2 or K3 at head dim 256, or a head-dim-256 attention kernel "
+             "never launched on its path")
     total = sum(PHASE_SECONDS.values())
     say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
         PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
@@ -3439,12 +3677,15 @@ def head_dim_routing(torch, dev, counted) -> None:
                     forward()
                     torch.cuda.synchronize()
                 names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-                if names:
+                if any("attention_kernel" in n for n in names):
                     break
                 # CUPTI returns no device activity now and then in a run of
-                # many profiles: take it again, and say so
-                say(f"phase 16 routing: torch.profiler saw no device activity in profile "
-                    f"{attempt} of {PROFILE_TRIES} at d_model {d_model}")
+                # many profiles, or some of it (a float32 forward's trace
+                # once held none of its three K1 launches): take it again,
+                # and say so
+                say(f"phase 16 routing: torch.profiler saw {len(names)} kernels and no "
+                    f"attention kernel in profile {attempt} of {PROFILE_TRIES} at d_model "
+                    f"{d_model}")
             ours = sorted({n[:40] for n in names if any(k in n for k in OUR_KERNELS)})
             finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
             key = f"d{d_model} {str(dtype).split('.')[-1]}"
@@ -3459,9 +3700,10 @@ def head_dim_routing(torch, dev, counted) -> None:
     for key, (counts, ours, finite, ran) in routing.items():
         # K2 on every fusion layer at head dims 128 and 256, else K1 in each
         # plain block; K1 on each box-decoder layer's query self-attention;
-        # every K1 launch (and K2's attention, on float32 q/k/v in both
-        # types) on the padded kernels where the head dim has no kernels of
-        # its own
+        # every K1 launch on the padded kernels where the head dim has no
+        # kernels of its own (the fusion encoders' at 136 and 192, the box
+        # decoders' 8 keys), K2's attention at 256 (float32 q/k/v in both
+        # types, past 16 keys) on attention_kernel_split_f32
         d_model, name = int(key.split()[0][1:]), "bf16" if key.endswith("bfloat16") else "fp32"
         k2 = block_head_dim_built(d_model, 4)
         want = (fusion, box_decoder) if k2 else (0, fusion + box_decoder)
@@ -3471,7 +3713,7 @@ def head_dim_routing(torch, dev, counted) -> None:
         if (got != want or not any("attention_kernel" in n for n in ours)
                 or not finite or sum(ran[0].values()) != got[1]
                 or (not exact and (ran[0] != {padded: got[1]}
-                                   or (k2 and ran[1] != {PADDED_F32: got[0]})))):
+                                   or (k2 and ran[1] != {SPLIT_F32: got[0]})))):
             fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
                  f"{want}; kernels in the trace {ours}; the C libraries' counts {ran}")
     say(f"phase 16.1 routing at {len(routing)} widths and types took "
@@ -3488,7 +3730,7 @@ def cogent(torch, np, dev, counted) -> dict:
     2. the protocol at its flagship width (``COGENT_FLAGSHIP``: d_model 192,
        3 fusion layers, ``box_roi``, cosine) at the CLI's sizes (80 A
        scenes, 20 per val, a pool of 40 B scenes, 6 questions each) with
-       a quarter of its steps (100 generator, 125 executor and 40 fine-tune
+       an eighth of its steps (50 generator, 63 executor and 20 fine-tune
        steps of the CLI's 400, 500 and 150), recorded by
        ``bench_cogent.ProtocolParts``: the wall time of each part (the card
        synchronized only at each part's start and end), the median ms per
@@ -4038,13 +4280,24 @@ def baselines(torch, np, dev, counted) -> dict:
     return by_path
 
 
+@contextlib.contextmanager
+def own_rng(torch, seed: int):
+    """The global CPU and CUDA generators (the models' dropout draws from
+    them) seeded with ``seed`` for the block and restored after it, so that
+    a model built and trained inside draws the same numbers whatever the
+    phases before it drew (fewer draws upstream once gave phase 17.5's
+    ``lstm_iqap`` other dropout masks and a diverging fixed batch)."""
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(seed)
+        yield
+
+
 def baseline_training(torch, np, dev, data) -> None:
     """Phase 17.5: one fixed batch of each baseline family at its preset's
-    width and batch, bf16, through ``Trainer.train_step``."""
+    width and batch, bf16, through ``Trainer.train_step``, each family with
+    the global generators of its own (``own_rng``, its preset's seed)."""
     from explainable_spatial_vqa_tpu_torch.core.config import get_preset
     from explainable_spatial_vqa_tpu_torch.train import pipelines
-    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
-    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
 
     features = data["features"]
     tokens, width = BASELINE_IMAGE
@@ -4069,41 +4322,51 @@ def baseline_training(torch, np, dev, data) -> None:
         cfg = get_preset(preset)
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **sizes),
                           train=dataclasses.replace(cfg.train, log_every=0))
-        pipe = build(cfg, arrays, feats, device=dev)
-        trainer = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
-                          checkpoint_dir=False, device=dev)
-        batch = to_device(next(iter(pipe.train_batches(0))), dev)
-        gen = torch.Generator().manual_seed(0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                 for _ in range(BASELINE_UPDATES + 1)]
-        losses = []
-        for start, end in marks:
-            start.record()
-            losses.append(trainer.train_step(batch, gen)["loss_sum"])
-            end.record()
-        losses = torch.stack(losses).tolist()  # waits for the card
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = statistics.median(start.elapsed_time(end) for start, end in marks[3:])
-        wall, prof = device_profile(torch, lambda: trainer.train_step(batch, gen))
-        kernels = "not measured" if prof is None else f"{prof[3]}"
-        busy = "not measured" if prof is None else f"{prof[0]:.3f}"
-        ratios = [x / losses[0] for x in losses]
-        below = next((i for i, r in enumerate(ratios) if r < 0.8), None)
-        params = sum(p.numel() for p in pipe.model.parameters())
-        say(f"phase 17.5 {preset} training ({str(pipelines.model_dtype(cfg, dev)).split('.')[-1]}, batch {cfg.train.batch_size}, lr "
-            f"{cfg.optim.learning_rate}, {params / 1e6:.1f}M parameters): {ms:.2f} ms per step "
-            f"(median of {BASELINE_UPDATES - 2} after 3, CUDA events); peak {peak:.2f} GiB; "
-            f"{kernels} kernels and copies per step, busy {busy} (one step under the profiler, "
-            f"{wall * 1e3:.1f} ms); fixed-batch loss step 0 {losses[0]:.4f}, step "
-            f"{BASELINE_UPDATES} {losses[-1]:.4f} ({ratios[-1]:.3f} of step 0), below 0.8 "
-            f"at update {below}; {time.perf_counter() - t0:.1f} s")
-        if not (all(math.isfinite(x) for x in losses) and below is not None):
-            fail(f"phase 17.5: the {preset} fixed batch's loss did not fall below 0.8 of its "
-                 f"first within {BASELINE_UPDATES} updates")
-        del trainer, pipe, batch
-        torch.cuda.empty_cache()
+        with own_rng(torch, cfg.train.seed):
+            baseline_fixed_batch(torch, dev, preset, build, cfg, arrays, feats, t0)
+
+
+def baseline_fixed_batch(torch, dev, preset, build, cfg, arrays, feats, t0) -> None:
+    """Phase 17.5 for one family: its fixed batch's updates, timed."""
+    from explainable_spatial_vqa_tpu_torch.train import pipelines
+    from explainable_spatial_vqa_tpu_torch.train.prefetch import to_device
+    from explainable_spatial_vqa_tpu_torch.train.trainer import Trainer
+
+    pipe = build(cfg, arrays, feats, device=dev)
+    trainer = Trainer(pipe.loss_fn, pipe.model, cfg.optim, cfg.train, pipe.steps_per_epoch,
+                      checkpoint_dir=False, device=dev)
+    batch = to_device(next(iter(pipe.train_batches(0))), dev)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(BASELINE_UPDATES + 1)]
+    losses = []
+    for start, end in marks:
+        start.record()
+        losses.append(trainer.train_step(batch, gen)["loss_sum"])
+        end.record()
+    losses = torch.stack(losses).tolist()  # waits for the card
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(start.elapsed_time(end) for start, end in marks[3:])
+    wall, prof = device_profile(torch, lambda: trainer.train_step(batch, gen))
+    kernels = "not measured" if prof is None else f"{prof[3]}"
+    busy = "not measured" if prof is None else f"{prof[0]:.3f}"
+    ratios = [x / losses[0] for x in losses]
+    below = next((i for i, r in enumerate(ratios) if r < 0.8), None)
+    params = sum(p.numel() for p in pipe.model.parameters())
+    say(f"phase 17.5 {preset} training ({str(pipelines.model_dtype(cfg, dev)).split('.')[-1]}, batch {cfg.train.batch_size}, lr "
+        f"{cfg.optim.learning_rate}, {params / 1e6:.1f}M parameters): {ms:.2f} ms per step "
+        f"(median of {BASELINE_UPDATES - 2} after 3, CUDA events); peak {peak:.2f} GiB; "
+        f"{kernels} kernels and copies per step, busy {busy} (one step under the profiler, "
+        f"{wall * 1e3:.1f} ms); fixed-batch loss step 0 {losses[0]:.4f}, step "
+        f"{BASELINE_UPDATES} {losses[-1]:.4f} ({ratios[-1]:.3f} of step 0), below 0.8 "
+        f"at update {below}; {time.perf_counter() - t0:.1f} s")
+    if not (all(math.isfinite(x) for x in losses) and below is not None):
+        fail(f"phase 17.5: the {preset} fixed batch's loss did not fall below 0.8 of its "
+             f"first within {BASELINE_UPDATES} updates")
+    del trainer, pipe, batch
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4148,7 +4411,13 @@ def timed_fixed_batch(torch, dev, trainer, batch, updates: int) -> dict:
     """``updates`` + 1 ``Trainer.train_step``s of one fixed batch, each
     between CUDA events: the median ms of 5 after the first (a warm-up), the
     peak GiB, the losses and the first update below 0.8 of the first loss;
-    then one step under the profiler (kernels and copies, busy share)."""
+    then one step under the profiler (kernels and copies, busy share).  The
+    steps draw from global generators of their own (``own_rng``, seed 0)."""
+    with own_rng(torch, 0):
+        return fixed_batch_steps(torch, trainer, batch, updates)
+
+
+def fixed_batch_steps(torch, trainer, batch, updates: int) -> dict:
     gen = torch.Generator().manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5442,10 +5711,10 @@ MATCHER_COST_TOL = 1e-5  # matched cost against scipy's optimum, relative: float
 # one takes ~30 s, as it waits on the card at every step); a shape held
 # once more with its state in global memory (the shared-memory cap set to 0)
 BLOCK_MATCHER_SHAPES = ((32, 32, 192), (33, 12, 192), (12, 40, 192), (64, 64, 96))
-BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (8, 300, 300))
+BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (4, 300, 300))
 BLOCK_MATCHER_GLOBAL = (64, 64)
 WIDE_QUERIES = 40  # 21.2's executor_roi step past the warp kernel's 31 columns
-STEP_ROUNDS = 4  # alternating timing rounds of 21.2's two matchers
+STEP_ROUNDS = 3  # alternating timing rounds of 21.2's two matchers
 STEPS_PER_ROUND = 5
 # 21.3: the accuracy table at d 512 (K2 and K1 in its chain runs) and each
 # other demo once, at reduced sizes
@@ -6233,8 +6502,8 @@ def new_widths(torch, np, dev, counted) -> dict:
        kernel in every fusion layer (the plain block's self-attention, L =
        208) and in the box decoder (L = 8), and no K2;
     2. the same at d_model 1024 (4 heads of 256): K2 on every fusion layer,
-       its attention on the padded kernel, and K1 on the padded kernel in the
-       box decoder;
+       its attention on ``attention_kernel_split_f32``, and K1 on the padded
+       kernel in the box decoder (8 keys);
        each at ``NEW_WIDTH_PROTOCOL``'s sizes and steps, the launches read
        from the wrappers and the C libraries' counters, no eligible
        self-attention on the plain path (``plain_self_attention_count``),
@@ -6242,13 +6511,16 @@ def new_widths(torch, np, dev, counted) -> dict:
        CPU's (``protocol_card_vs_cpu``);
     3. bf16 serving, ``InferencePipeline.run`` at bench.py's widths but the
        executor at d_model 1024 (4 heads): K2 3 and K1 2 launches a forward,
-       both on the padded kernels, on ``NEW_WIDTH_QUESTIONS`` synthetic
-       questions; questions/s, median of 3 runs after a warm-up;
+       K2's attention on ``attention_kernel_split_f32``, K1 on the padded
+       kernel (10 keys), on ``NEW_WIDTH_QUESTIONS`` synthetic questions;
+       questions/s, median of 3 runs after a warm-up;
     4. ``bench_block.main`` at d_model 1024 (B=128, K3 at one tiling), which
-       launches K2 and K3 through the block bench's entry point, their
-       attention on the padded kernel.
+       launches K2 and K3 through the block bench's entry point, K2's
+       attention on ``attention_kernel_split_f32`` and K3's on
+       ``attention_kernel_wgmma``; K2's and K3's ms printed.
 
-    Returns each path's wrapper launches, for the result line."""
+    Returns each path's wrapper launches, for the result line, and each
+    path's launches of the head-dim-256 kernels by the C libraries' counts."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
     from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
@@ -6261,7 +6533,11 @@ def new_widths(torch, np, dev, counted) -> dict:
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
 
     t_phase = time.perf_counter()
-    paths = {}
+    paths, wide = {}, {}
+
+    def wide_of(*counts):  # the head-dim-256 kernels' launches among C counts
+        return {n: sum(c.get(n, 0) for c in counts) for n in (SPLIT_F32, WGMMA)}
+
     for d_model in (100, 1024):
         t0 = time.perf_counter()
         read = c_counts(torch)
@@ -6277,18 +6553,19 @@ def new_widths(torch, np, dev, counted) -> dict:
             + ", ".join(f"{r['part'].split()[1]} K2 {r['K2']} K1 {r['K1']}" for r in rows)
             + f"; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
             f"self-attention calls {len(eligible)}")
-        want_k1 = {PADDED_F32: counts["fused_attention"]}
+        want_k1 = {PADDED_F32: counts["fused_attention"]}  # the box decoders' 8 keys
         if not (all(r["K1"] > 0 and (r["K2"] > 0) == k2 for r in rows)
                 and counts["fused_attention"] == sum(r["K1"] for r in rows)
                 and counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
                 and k1_c == want_k1 and len(eligible) == counts["fused_attention"]
-                and block_c == ({PADDED_F32: counts["fused_encoder_block"]} if k2 else {})):
-            fail(f"phase 23 check failed at d_model {d_model}: the evaluations launch "
-                 f"{'K2 and ' if k2 else ''}K1 on the padded kernels, and only they, and no "
-                 f"self-attention K1 takes runs the plain path")
+                and block_c == ({SPLIT_F32: counts["fused_encoder_block"]} if k2 else {})):
+            fail(f"phase 23 check failed at d_model {d_model}: the evaluations launch K1 on the "
+                 f"padded kernels{', K2 with attention_kernel_split_f32,' if k2 else ''} and only "
+                 f"they, and no self-attention K1 takes runs the plain path")
         protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
                              f"cogent-protocol --d_model {d_model}", phase=23)
         paths[f"cogent_protocol_d{d_model}"] = counts
+        wide[f"cogent_protocol_d{d_model}"] = wide_of(k1_c, block_c)
         del result, parts
         torch.cuda.empty_cache()
 
@@ -6342,9 +6619,10 @@ def new_widths(torch, np, dev, counted) -> dict:
         "K2 3 and K1 2 launches a forward": (
             counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
             and counts["fused_attention"] == exe_cfg.box_decoder_layers * once > 0),
-        "both on the padded kernels (K2's on float32 q/k/v)": (
+        "K1 on the padded kernel (10 keys), K2's attention (float32 q/k/v) on "
+        "attention_kernel_split_f32": (
             k1_c == {PADDED: counts["fused_attention"]}
-            and block_c == {PADDED_F32: counts["fused_encoder_block"]}),
+            and block_c == {SPLIT_F32: counts["fused_encoder_block"]}),
         "no self-attention K1 takes on the plain path": len(eligible) == counts["fused_attention"],
         "one answer per question in the token vocabulary": (
             served.answers.shape == (n,) and 0 <= served.answers.min()
@@ -6354,6 +6632,7 @@ def new_widths(torch, np, dev, counted) -> dict:
         if not ok:
             fail(f"phase 23 serving check failed: {name}")
     paths["serving_d1024"] = counts
+    wide["serving_d1024"] = wide_of(k1_c, block_c)
     del pipeline, runner, executor, generator, features_dev
     torch.cuda.empty_cache()
 
@@ -6366,15 +6645,19 @@ def new_widths(torch, np, dev, counted) -> dict:
         "--tiles 2 --d_model 1024 --heads 4, bf16, L=224, no mask): "
         + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s" for _b, name, ms, tflops in rows)
         + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}")
-    # K2's attention on float32 q/k/v, K3's on bf16
+    # K2's attention on float32 q/k/v (attention_kernel_split_f32), K3's on
+    # bf16 (L = 224: attention_kernel_wgmma)
     if not (counts["fused_encoder_block_tiled"] > 0
-            and block_c == {PADDED_F32: counts["fused_encoder_block"],
-                            PADDED: counts["fused_encoder_block_tiled"]}):
-        fail("phase 23: the block bench at d_model 1024 did not launch K2 and K3 on the padded "
-             "attention")
+            and block_c == {SPLIT_F32: counts["fused_encoder_block"],
+                            WGMMA: counts["fused_encoder_block_tiled"]}):
+        fail("phase 23: the block bench at d_model 1024 did not launch K2's attention on "
+             "attention_kernel_split_f32 and K3's on attention_kernel_wgmma")
     paths["block_bench_d1024"] = counts
+    wide["block_bench_d1024"] = wide_of(block_c)
+    say(f"phase 23 the head-dim-256 kernels' launches by path (the C libraries' counts): "
+        f"{wide}")
     say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
-    return paths
+    return paths, wide
 
 
 def free_port() -> int:

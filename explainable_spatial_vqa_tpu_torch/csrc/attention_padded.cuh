@@ -50,9 +50,17 @@
 // output at the box decoders' lengths, 4 L^2 D operations (in 3xTF32 for
 // float32) at the encoders'.  The padded columns and the element loads cost
 // work the bound does not count; a right kernel first (PERF.md §6).
+//
+// At padded depth 256 (head dims 225-256) attention_wide.cuh's kernels,
+// designed for Hopper, take the calls past 16 keys whose rows are whole
+// 16-byte chunks: float32 at any length (attention_kernel_split_f32), bf16
+// up to 256 keys (attention_kernel_wgmma).  The kernels here keep the rest:
+// the box decoders' rows of <= 16 keys, bf16 rows past 256 keys, and rows
+// that load element by element.
 #pragma once
 
 #include "attention.cuh"
+#include "attention_wide.cuh"
 
 namespace esv {
 
@@ -436,8 +444,10 @@ static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const flo
         q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
-// Head dim D, whose padded depth is DP: one group a block where L <= 16, else
-// 8 warps.  The pointers need only their types' alignment.
+// Head dim D, whose padded depth is DP: at depth 256 attention_wide.cuh's
+// kernels where they take the call (wide_takes); else one group a block
+// where L <= 16, else 8 warps.  The pointers need only their types'
+// alignment.
 template <int DP, typename T, typename TO>
 static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, const float* mask,
                                            TO* out, int B, int H, int L, int D, long long in_bs,
@@ -448,6 +458,11 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
   if (reinterpret_cast<uintptr_t>(q) % sizeof(T) || reinterpret_cast<uintptr_t>(k) % sizeof(T) ||
       reinterpret_cast<uintptr_t>(v) % sizeof(T) || reinterpret_cast<uintptr_t>(out) % sizeof(TO))
     return cudaErrorMisalignedAddress;
+  if constexpr (DP == 256) {
+    if (wide_takes<T, TO>(q, k, v, out, L, D, in_bs, in_rs, out_bs, out_rs))
+      return launch_attention_wide<T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
+                                          out_rs, stream);
+  }
   if (L <= 16)
     return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
                                          out_rs, stream);
@@ -457,7 +472,8 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
 
 // The attention of K2 (float32 q, k, v) and K3 (q, k, v in the weights'
 // type), TO the weights' type: head dim 128 on attention.cuh's kernels, 256 on
-// the padded ones.  Any other D returns cudaErrorInvalidValue.
+// attention_wide.cuh's (K2 past 16 keys, K3 from 17 to 256) or the padded
+// ones.  Any other D returns cudaErrorInvalidValue.
 template <typename T, typename TO>
 static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, const float* mask,
                                           TO* out, int B, int H, int L, int D, long long in_bs,

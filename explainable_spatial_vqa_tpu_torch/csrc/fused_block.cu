@@ -61,9 +61,10 @@
 //       compensated sum lies close to a bf16 tie, exact_fixup rounds it from
 //       the exact sum (float64) instead (see "K3's q, k and v" below);
 //   (b) the attention kernels of K1 (attention.cuh at head dim 128,
-//       attention_padded.cuh at 256, two warps sharing each 16-row group's
-//       depth): on K2's float32 q, k, v both products in 3xTF32 on the
-//       tensor cores with an online softmax, the output written in the
+//       attention_wide.cuh at 256: attention_kernel_split_f32 for K2 and
+//       attention_kernel_wgmma for K3, attention_padded.cuh's kernels at 16
+//       keys or fewer): on K2's float32 q, k, v both products in 3xTF32 on
+//       the tensor cores with an online softmax, the output written in the
 //       weights' type; on K3's q, k, v in the weights' type (the QKV GEMM's
 //       epilogue rounds them) float32 tensor-core scores and a bf16
 //       tensor-core P V;
@@ -102,12 +103,20 @@
 // QKV product: compensated sums, and with a bf16 C the correctly rounded
 // ones, with absmax (M + N floats and ceil(M N / 32) words) as scratch;
 // absmax is null otherwise.
+//   int esv_block_attention(q, k, v, mask, out, B, H, L, D, in_batch_stride,
+//                            in_row_stride, out_batch_stride, out_row_stride,
+//                            dtype, out_dtype, stream)
+// is the blocks' attention alone (launch_block_attention, D 128 or 256),
+// with esv_attention's arguments (fused_attention.cu): K2's on float32 q, k,
+// v from the (B, L, 3d) buffer, K3's on bf16 (dtype 1), timed apart by
+// chip_smoke.py and measure/attention_variants.py.
 //   const char* esv_block_attention_kernel(int i)
 //   long long esv_block_attention_launches(int i)
 // name the attention kernel function i (attention.cuh's AttnKernel: 0
 // attention_kernel_f32, 1 attention_kernel, 3 attention_kernel_padded_f32,
-// 4 attention_kernel_padded) and count the launches of it that this
-// library's blocks have made since it was loaded.
+// 4 attention_kernel_padded, 5 attention_kernel_split_f32, 6
+// attention_kernel_wgmma) and count the launches of it that this library's
+// blocks and esv_block_attention have made since it was loaded.
 // H is d / 128 or d / 256 (the attention's head dims), L at most
 // kAttnMaxLen.  Returns the first CUDA error of the launches (0 on success).
 
@@ -140,29 +149,6 @@ static_assert(kGemmBK * 2 == 128, "one 128-byte swizzle row per tile row");
 // the ring, its barriers, and 1 KB to align the ring to the swizzle's 1 KB atoms
 constexpr int kGemmSmem = kGemmStages * (kGemmABytes + kGemmWBytes) + 2 * kGemmStages * 8 + 1024;
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // box (64 K, 128 rows) at (k0, row0) of a 2-D tensor map into shared memory
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int k0, int row0) {
@@ -171,30 +157,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
       : "memory");
-}
-
-// wgmma descriptor of a K-major tile in TMA's 128-byte swizzle: rows of 128
-// bytes, 8-row atoms 1 KB apart (stride byte offset 64 x 16 B)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that writes them
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 16] W[128 x 16]^T; scale_d 0 overwrites d
@@ -666,33 +628,6 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
   return v;
 }
 
-// d (+)= A[64 x 8] W[128 x 8]^T in TF32, A from registers (this thread's
-// fragment: rows g and g + 8 of its warp's 16, columns t and t + 4), W from
-// shared memory; scale_d 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 // One block per SM walks the 128x128 output tiles, n fastest; warpgroup 2's
 // first thread produces, warpgroups 0 and 1 consume rows 0-63 and 64-127 of
 // every tile.  tma_whi and tma_wlo map the two (N, K) halves of W's split.
@@ -1088,6 +1023,24 @@ extern "C" int esv_block_gemm(const void* A, const void* W, const void* bias, vo
   if (a_dtype == esv::kFloat32 && c_dtype == esv::kBFloat16) { ESV_GEMM_RELU(float, bf16); }
 #undef ESV_GEMM_RELU
 #undef ESV_GEMM
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int esv_block_attention(const void* q, const void* k, const void* v, const void* mask,
+                                   void* out, int B, int H, int L, int D, long long in_bs,
+                                   long long in_rs, long long out_bs, long long out_rs, int dtype,
+                                   int out_dtype, void* stream) {
+  using esv::bf16;
+  const float* m = static_cast<const float*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ESV_BLOCK_ATTENTION(T, TO)                                                              \
+  return esv::launch_block_attention<T, TO>(static_cast<const T*>(q), static_cast<const T*>(k), \
+                                            static_cast<const T*>(v), m, static_cast<TO*>(out), \
+                                            B, H, L, D, in_bs, in_rs, out_bs, out_rs, s)
+  if (dtype == esv::kFloat32 && out_dtype == esv::kFloat32) { ESV_BLOCK_ATTENTION(float, float); }
+  if (dtype == esv::kFloat32 && out_dtype == esv::kBFloat16) { ESV_BLOCK_ATTENTION(float, bf16); }
+  if (dtype == esv::kBFloat16 && out_dtype == esv::kBFloat16) { ESV_BLOCK_ATTENTION(bf16, bf16); }
+#undef ESV_BLOCK_ATTENTION
   return cudaErrorInvalidValue;
 }
 

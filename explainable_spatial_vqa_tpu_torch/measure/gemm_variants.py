@@ -1,9 +1,11 @@
 """Variants of the float32 block GEMM (``gemm_tf32_wgmma`` in
 ``csrc/fused_block.cu``), each built from the shipped source by a textual
-patch and timed beside it on the card.
+patch and timed beside it on the card; and the block library as another
+checkout builds it, timed beside the shipped one.
 
     python -m explainable_spatial_vqa_tpu_torch.measure.gemm_variants
         [--rounds 4] [--iters 20] [--variants long_chain,one_product,...]
+        [--against LABEL=CSRC_DIR]
 
 Each variant asks one question of the shipped kernel (``VARIANTS``):
 
@@ -14,16 +16,25 @@ Each variant asks one question of the shipped kernel (``VARIANTS``):
 * ``no_lo_loads``: W_lo not loaded and W_hi read in its place, two thirds
   of the bytes for the same tensor work (wrong numbers likewise).
 
-The variants compile in parallel (``nvcc`` with the package's flags and
-``-I csrc``) into ``_build/variants/``.  K2's four products in float32 (B*L
-= 128 x 210, d 512, ffn 2048; the weights split once) and K2 in float32 at
-the fusion encoder's shape run through ``block_gemm`` and
-``fused_encoder_block`` with each library swapped in for ``fused_block``:
-first each one's largest error against the plain version, as a share of
-max|ref|, then ``--rounds`` rounds of CUDA-event means over ``--iters``
-calls, the libraries in turn (reversed every other round), and the medians.
-It prints one line per library and one JSON object (every round's time).
-It needs a card and ``nvcc``.
+``--against LABEL=CSRC_DIR`` adds ``fused_block`` built from another
+checkout's ``csrc/`` directory (say, the parent commit's, unpacked by ``git
+archive``), with the same flags, under LABEL: a change to the block library
+timed against what it replaces in one process.
+
+The variants compile in parallel (``measure.variants``: each a patched copy
+of ``csrc/``, built with the package's flags) into ``_build/variants/``, and
+each library's GEMM functions' registers and spilled bytes are printed from
+ptxas's report.  K2's four products in float32 (B*L = 128 x 210, d 512, ffn
+2048; the weights split once) and in bf16 (``gemm_bf16_wgmma``), and K2 in
+float32 at the fusion encoder's shape, run through ``block_gemm`` and
+``fused_encoder_block`` with each library swapped in for ``fused_block``,
+and K2 (L=210) and K3 (L=224, ``batch_tile=2, ffn_chunks=2``) at head dim
+256 (B=128, d_model 1024, 4 heads, ffn 4096, ragged), in bf16 and in
+float32.  First each one's largest error against
+the plain version, as a share of max|ref|, then ``--rounds`` rounds of
+CUDA-event means over ``--iters`` calls, the libraries in turn (reversed
+every other round), and the medians.  It prints one line per library and
+one JSON object (every round's time).  It needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,7 +43,6 @@ import argparse
 import contextlib
 import ctypes
 import statistics
-import subprocess
 from pathlib import Path
 from typing import Dict, Iterator, List, Sequence
 
@@ -40,76 +50,55 @@ import torch
 
 from explainable_spatial_vqa_tpu_torch.bench import emit_json
 from explainable_spatial_vqa_tpu_torch.device import card_line, resolve_device
+from explainable_spatial_vqa_tpu_torch.measure.variants import (
+    Edit,
+    build_variants,
+    mean_ms,
+    ptxas_usage,
+)
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
-__all__ = ["VARIANTS", "PRODUCTS", "variant_source", "build_variants", "main"]
+__all__ = ["VARIANTS", "PRODUCTS", "main"]
 
 # K2's four products at the fusion encoder's shape: name, N, K, ReLU
 PRODUCTS = (("qkv", 1536, 512, False), ("out", 512, 512, False), ("ffn1", 2048, 512, True),
             ("ffn2", 512, 2048, False))
 ROWS, D, FFN, HEADS, LENGTH = 128 * 210, 512, 2048, 4, 210
+# K2 and K3 at head dim 256: block, L, B, d_model, ffn
+BLOCKS_HD256 = (("K2", 210, 128, 1024, 4096), ("K3", 224, 128, 1024, 4096))
 
 _PRODUCTS_3 = (
     "          wgmma_m64n128k8_tf32(part, lo[kk], sw128_desc(whi + 32 * kk), kk > 0 ? 1 : 0);\n"
     "          wgmma_m64n128k8_tf32(part, hi[kk], sw128_desc(wlo + 32 * kk), 1);\n"
     "          wgmma_m64n128k8_tf32(part, hi[kk], sw128_desc(whi + 32 * kk), 1);\n")
 
-# name: (old, new) replacements, each old text found exactly once in the source
-VARIANTS: Dict[str, tuple] = {
+# name: (file, old, new) replacements, each old text found exactly once
+VARIANTS: Dict[str, Sequence[Edit]] = {
     "long_chain": (
-        ("        float part[64];\n        fence_operands(part);\n        wgmma_fence();\n",
+        ("fused_block.cu",
+         "        float part[64];\n        fence_operands(part);\n        wgmma_fence();\n",
          "        fence_operands(acc);\n        wgmma_fence();\n"),
-        (_PRODUCTS_3, _PRODUCTS_3.replace("(part,", "(acc,").replace("kk > 0 ? 1 : 0", "1")),
-        ("        wgmma_wait<0>();\n        fence_operands(part);\n"
+        ("fused_block.cu", _PRODUCTS_3,
+         _PRODUCTS_3.replace("(part,", "(acc,").replace("kk > 0 ? 1 : 0", "1")),
+        ("fused_block.cu",
+         "        wgmma_wait<0>();\n        fence_operands(part);\n"
          "        if (tid == 0) mbar_arrive(empty(stage));\n"
          "#pragma unroll\n        for (int e = 0; e < 64; ++e) acc[e] += part[e];\n",
          "        wgmma_wait<0>();\n        fence_operands(acc);\n"
          "        if (tid == 0) mbar_arrive(empty(stage));\n"),
     ),
-    "one_product": ((_PRODUCTS_3, "          wgmma_m64n128k8_tf32(part, hi[kk], "
-                                  "sw128_desc(whi + 32 * kk), kk > 0 ? 1 : 0);\n"),),
+    "one_product": (("fused_block.cu", _PRODUCTS_3,
+                     "          wgmma_m64n128k8_tf32(part, hi[kk], "
+                     "sw128_desc(whi + 32 * kk), kk > 0 ? 1 : 0);\n"),),
     "no_lo_loads": (
-        ("mbar_expect_tx(full(stage), 3 * kTf32Bytes);",
+        ("fused_block.cu", "mbar_expect_tx(full(stage), 3 * kTf32Bytes);",
          "mbar_expect_tx(full(stage), 2 * kTf32Bytes);"),
-        ("          tma_load_2d(lo_ring + stage * kTf32Bytes, &tma_wlo, full(stage), "
+        ("fused_block.cu",
+         "          tma_load_2d(lo_ring + stage * kTf32Bytes, &tma_wlo, full(stage), "
          "ks * kTf32BK, n0);\n", ""),
-        ("wlo = lo_ring + stage * kTf32Bytes;", "wlo = whi;"),
+        ("fused_block.cu", "wlo = lo_ring + stage * kTf32Bytes;", "wlo = whi;"),
     ),
 }
-
-
-def variant_source(name: str, source: str) -> str:
-    """``source`` (``csrc/fused_block.cu``'s text) with variant ``name``'s
-    replacements; raises ValueError where one does not match exactly once."""
-    for old, new in VARIANTS[name]:
-        if source.count(old) != 1:
-            raise ValueError(f"variant {name}: {old[:60]!r} occurs {source.count(old)} times "
-                             f"in fused_block.cu, not once")
-        source = source.replace(old, new)
-    return source
-
-
-def build_variants(names: Sequence[str], out_dir: Path) -> Dict[str, Path]:
-    """Compile each variant of ``fused_block.cu`` into ``out_dir``, all at
-    once; {name: library}.  Raises with the compiler's output on a failure."""
-    source = (_build.CSRC_DIR / "fused_block.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        src = out_dir / f"{name}.cu"
-        src.write_text(variant_source(name, source))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
-               str(out_dir / f"{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    failed = []
-    for name, proc in procs.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (exit {proc.returncode}) ---\n{output[-4000:]}")
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return {name: out_dir / f"{name}.so" for name in names}
 
 
 @contextlib.contextmanager
@@ -124,20 +113,35 @@ def _loaded(lib: ctypes.CDLL) -> Iterator[None]:
 
 
 def _cases(dev: torch.device):
-    """[(name, call, reference)]: K2's four float32 products and K2 in float32."""
+    """[(name, call, reference)]: K2's four products in float32 and in bf16,
+    K2 in float32, and K2 and K3 at ``BLOCKS_HD256``."""
     from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm, block_gemm_plain
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         BlockWeights,
         fused_encoder_block,
         fused_encoder_block_plain,
+        fused_encoder_block_tiled,
+        fused_encoder_block_tiled_plain,
         split_block_weights,
         split_tf32,
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def block_inputs(b, length, d, ffn, dtype):
+        """A ragged key mask, weights (matrices in ``dtype``) and x in ``dtype``."""
+        w = BlockWeights(randn(3 * d, d, scale=d ** -0.5, dtype=dtype), randn(3 * d, scale=0.02),
+                         randn(d, d, scale=d ** -0.5, dtype=dtype), randn(d, scale=0.02),
+                         randn(ffn, d, scale=d ** -0.5, dtype=dtype), randn(ffn, scale=0.02),
+                         randn(d, ffn, scale=ffn ** -0.5, dtype=dtype), randn(d, scale=0.02),
+                         1 + randn(d, scale=0.1), randn(d, scale=0.1), 1 + randn(d, scale=0.1),
+                         randn(d, scale=0.1))
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+        return keep, w, randn(b, length, d, dtype=dtype)
 
     cases = []
     for name, n, k, relu in PRODUCTS:
@@ -146,31 +150,28 @@ def _cases(dev: torch.device):
         cases.append((name, lambda a=a, w=w, b=bias, r=relu, s=split: block_gemm(a, w, b, r,
                                                                                   split=s),
                       block_gemm_plain(a, w, bias, relu)))
-    w = BlockWeights(randn(3 * D, D, scale=D ** -0.5), randn(3 * D, scale=0.02),
-                     randn(D, D, scale=D ** -0.5), randn(D, scale=0.02),
-                     randn(FFN, D, scale=D ** -0.5), randn(FFN, scale=0.02),
-                     randn(D, FFN, scale=FFN ** -0.5), randn(D, scale=0.02),
-                     1 + randn(D, scale=0.1), randn(D, scale=0.1), 1 + randn(D, scale=0.1),
-                     randn(D, scale=0.1))
-    x = randn(ROWS // LENGTH, LENGTH, D)
-    keep = torch.ones(ROWS // LENGTH, LENGTH, dtype=torch.bool, device=dev)
-    keep[:, LENGTH - 13:] = torch.rand(ROWS // LENGTH, 13, generator=gen, device=dev) < 0.6
+    for name, n, k, relu in PRODUCTS:
+        a, w = randn(ROWS, k, dtype=torch.bfloat16), randn(n, k, scale=k ** -0.5,
+                                                           dtype=torch.bfloat16)
+        bias = randn(n, scale=0.02)
+        cases.append((f"{name} bf16", lambda a=a, w=w, b=bias, r=relu: block_gemm(a, w, b, r),
+                      block_gemm_plain(a, w, bias, relu)))
+    keep, w, x = block_inputs(ROWS // LENGTH, LENGTH, D, FFN, torch.float32)
     split = split_block_weights(w)
-    cases.append(("K2", lambda: fused_encoder_block(x, keep, w, HEADS, split=split),
-                  fused_encoder_block_plain(x, keep, w, HEADS)))
+    cases.append(("K2", lambda x=x, keep=keep, w=w, s=split: fused_encoder_block(
+        x, keep, w, HEADS, split=s), fused_encoder_block_plain(x, keep, w, HEADS)))
+    for block, length, b, d, ffn in BLOCKS_HD256:
+        kernel, plain = ((fused_encoder_block, fused_encoder_block_plain) if block == "K2" else
+                         (fused_encoder_block_tiled, fused_encoder_block_tiled_plain))
+        tiling = {} if block == "K2" else dict(batch_tile=2, ffn_chunks=2)
+        for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            keep, w, x = block_inputs(b, length, d, ffn, dtype)
+            split = split_block_weights(w)
+            cases.append((f"{block} hd256 {label}",
+                          lambda x=x, keep=keep, w=w, s=split, k=kernel, t=tiling: k(
+                              x, keep, w, HEADS, split=s, **t),
+                          plain(x, keep, w, HEADS, **tiling)))
     return cases
-
-
-def _mean_ms(fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(argv: Sequence[str] = ()) -> dict:
@@ -178,6 +179,8 @@ def main(argv: Sequence[str] = ()) -> dict:
     parser.add_argument("--rounds", type=int, default=4)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--variants", default=",".join(VARIANTS))
+    parser.add_argument("--against", default="",
+                        help="LABEL=CSRC_DIR: fused_block built from that csrc/ too")
     args = parser.parse_args(list(argv))
     names = [v for v in args.variants.split(",") if v]
     unknown = sorted(set(names) - set(VARIANTS))
@@ -187,8 +190,21 @@ def main(argv: Sequence[str] = ()) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line(dev), flush=True)
     libs = {"shipped": _build.load("fused_block")}
-    for name, path in build_variants(names, _build.BUILD_DIR / "variants").items():
-        libs[name] = ctypes.CDLL(str(path))
+    logs = {"shipped": (_build.BUILD_DIR / "fused_block.log").read_text()}
+    out_dir = _build.BUILD_DIR / "variants"
+    jobs = {}
+    if args.against:
+        label, _, tree = args.against.partition("=")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        jobs[label] = ("fused_block", out_dir / f"{label}.so", Path(tree))
+    built = build_variants("fused_block", VARIANTS, names, out_dir, also=jobs)
+    for name, (path, log) in built.items():
+        libs[name], logs[name] = ctypes.CDLL(str(path)), log
+    for label, log in logs.items():
+        print(f"{label} GEMM functions (ptxas): " + "; ".join(
+            f"{fn} {regs} registers, {spill} bytes spilled"
+            for fn, (regs, spill) in sorted(ptxas_usage(log).items()) if "gemm_" in fn),
+            flush=True)
     cases = _cases(dev)
     errors: Dict[str, Dict[str, float]] = {}
     for label, lib in libs.items():
@@ -204,7 +220,7 @@ def main(argv: Sequence[str] = ()) -> dict:
         for label in order if r % 2 == 0 else order[::-1]:
             with _loaded(libs[label]):
                 for name, call, _ in cases:
-                    times[label][name].append(_mean_ms(call, args.iters))
+                    times[label][name].append(mean_ms(call, args.iters))
     result = {}
     for label in order:
         result[label] = {name: dict(ms=statistics.median(ts), rounds_ms=ts,

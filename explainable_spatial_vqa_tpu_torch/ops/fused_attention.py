@@ -34,7 +34,7 @@ from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 
 __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
            "shape_built", "padded_depth", "key_mask_f32", "kernel_launches", "bind_entry",
-           "call_entry", "HEAD_DIMS", "EXACT_HEAD_DIMS", "PADDED_DEPTHS", "MAX_LEN",
+           "call_entry", "call_rows", "HEAD_DIMS", "EXACT_HEAD_DIMS", "PADDED_DEPTHS", "MAX_LEN",
            "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,6 +163,29 @@ def call_entry(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def call_rows(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor], heads: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """One call of a bound entry with ``esv_attention``'s arguments (it, or
+    the block library's ``esv_block_attention``) on q, k, v given as (B, L,
+    H * D) CUDA views with one batch and row stride and unit column stride:
+    contiguous (B, L, H, D) tensors flattened, or the thirds of K2's and
+    K3's (B, L, 3d) projection buffer.  The output is a new (B, L, H * D)
+    tensor of ``out_dtype``.  Raises on a status other than 0."""
+    b, length, width = q.shape
+    mask_f = key_mask_f32(mask, b, length)
+    if mask_f is not None:
+        mask_f = mask_f.to(q.device)
+    out = torch.empty(b, length, width, dtype=out_dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if mask_f is None else mask_f.data_ptr(), out.data_ptr(),
+                    b, heads, length, width // heads, q.stride(0), q.stride(1),
+                    length * width, width, DTYPE_CODES[q.dtype], DTYPE_CODES[out_dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, fn.__name__)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_counters():
     return _build.launch_counters("fused_attention", "esv_attention_kernel",
@@ -174,8 +197,10 @@ def kernel_launches() -> Dict[str, int]:
     it was loaded: ``attention_kernel_f32``, ``attention_kernel``,
     ``attention_kernel_onepass`` (the head dims of :data:`EXACT_HEAD_DIMS`),
     ``attention_kernel_padded_f32`` and ``attention_kernel_padded`` (every
-    other head dim).  Which one a call takes is decided in
-    ``launch_attention_dim`` (``csrc/attention.cuh``) and
+    other head dim), and at padded depth 256 ``attention_kernel_split_f32``
+    and ``attention_kernel_wgmma`` (``csrc/attention_wide.cuh``).  Which one
+    a call takes is decided in ``launch_attention_dim``
+    (``csrc/attention.cuh``) and
     ``launch_attention_padded`` (``csrc/attention_padded.cuh``) alone; the
     difference of two readings says which ran.  Needs the library (a card and
     ``nvcc``)."""

@@ -348,8 +348,10 @@ def _launch_counters():
 def kernel_launches() -> Dict[str, int]:
     """The attention launches of K2 and K3, by kernel function, as the block
     library counts them since it was loaded: ``attention_kernel_f32`` and
-    ``attention_kernel`` at head dim 128, ``attention_kernel_padded_f32``
-    and ``attention_kernel_padded`` at 256 (``launch_block_attention`` in
+    ``attention_kernel`` at head dim 128, at 256 ``attention_kernel_split_f32``
+    (K2, float32 q/k/v, past 16 keys), ``attention_kernel_wgmma`` (K3, bf16,
+    17-256 keys) and ``attention_kernel_padded_f32`` and
+    ``attention_kernel_padded`` for the rest (``launch_block_attention`` in
     ``csrc/attention_padded.cuh`` picks).  Needs the library (a card and
     ``nvcc``)."""
     names, count = _launch_counters()

@@ -1,0 +1,210 @@
+"""The head-dim-256 attention kernels (``csrc/attention_wide.cuh``) on the CPU.
+
+``attention_kernel_split_f32`` (float32 q, k, v: K2's attention at d_model
+1024, K1 in float32 at the head dims of padded depth 256) runs on the card
+only.  Here its order of arithmetic is emulated in numpy from the source's
+own constants and held against JAX's Pallas kernel
+(``_fused_attention_bhld`` through ``fused_attention``, interpret mode) at
+D = 256, B = 2, H = 2, L = 210 with a ragged key mask, within
+``chip_smoke.k1_f32_tol``, the tolerance ``chip_smoke.py`` phase 3 holds the
+kernel to: each operand split once into TF32 hi and lo parts
+(``ops.fused_block.split_tf32``, the rule of ``split_tf32`` in
+``csrc/attention.cuh``; the tensor cores read lo's top bits), the scores as
+three products per 8-deep slice summed into a fresh accumulator and added in
+float32, each warp of a pair over half the depth and the halves added, the
+softmax online over tiles of ``kSplitKeys`` keys, P V in 3xTF32 per 8-key
+slice.  Both of the kernel's layouts are covered: K1's (B, L, H, D) and K2's
+(B, L, 3d) projection buffer read with its row stride.  One TF32 pass
+instead of three misses the tolerance.
+
+Also: ``chip_smoke``'s mirrors of the C routing (``k1_kernel``,
+``k1_bf16_kernel``, ``block_attention_kernel``) name the new kernel functions
+exactly where ``launch_attention_padded`` sends calls, checked against the
+names and limits parsed from the C sources.
+"""
+
+import os
+import re
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from explainable_spatial_vqa_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
+from explainable_spatial_vqa_tpu_torch.ops import _build
+from explainable_spatial_vqa_tpu_torch.ops.fused_attention import padded_depth
+from explainable_spatial_vqa_tpu_torch.ops.fused_block import split_tf32
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (its tolerance and routing mirrors; it imports nothing at the top)
+
+torch.set_num_threads(1)
+
+WIDE = (_build.CSRC_DIR / "attention_wide.cuh").read_text()
+B, H, D, L = 2, 2, 256, 210
+
+
+def _constant(name: str) -> str:
+    return re.search(rf"constexpr \w+ {name} = ([^;]+);", WIDE).group(1)
+
+
+KEYS = int(_constant("kSplitKeys"))  # the online softmax's tile
+# each warp of a pair sums the scores over half the depth (8-deep slices
+# 16 half .. 16 half + 15), and the pair adds the halves
+assert "kh + kSplitPlane, 16 * half, 16 * half + 16, s);" in WIDE
+
+
+def _split(x: np.ndarray):
+    """x's TF32 split as the kernel reads it: hi (exact in TF32) and lo with
+    its low 13 bits dropped, both float64."""
+    flat = x.reshape(-1, x.shape[-1])
+    hi, lo = (p.numpy() for p in split_tf32(torch.from_numpy(flat)).split(flat.shape[0]))
+    lo = (lo.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi.astype(np.float64).reshape(x.shape), lo.astype(np.float64).reshape(x.shape)
+
+
+def _three(a_hi, a_lo, b_hi, b_lo, one_pass: bool):
+    """a b^T in 3xTF32 (lo hi + hi lo + hi hi), or one TF32 pass (hi hi)."""
+    if one_pass:
+        return a_hi @ b_hi.T
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def _emulated_head(q, k, v, keep, one_pass=False):
+    """One (batch, head) of attention_kernel_split_f32 in the kernel's order:
+    q, k, v (L, D) float32, keep (L,) bool."""
+    f32 = np.float32
+    (qh, ql), (kh, kl) = _split(q), _split(k)
+    slices = D // 8
+    sums = []
+    for half in (range(slices // 2), range(slices // 2, slices)):
+        s = np.zeros((L, L), f32)
+        for kk in half:  # a fresh accumulator per 8-deep slice, added in float32
+            sl = slice(8 * kk, 8 * kk + 8)
+            s = (s + _three(qh[:, sl], ql[:, sl], kh[:, sl], kl[:, sl], one_pass).astype(f32))
+        sums.append(s)
+    s = sums[0] + sums[1]
+    s = np.where(keep[None, :], s * f32(1.0 / np.sqrt(f32(D))), f32(-1e30)).astype(f32)
+    m = np.full(L, -np.inf, f32)
+    total = np.zeros(L, f32)
+    o = np.zeros((L, D), f32)
+    for key0 in range(0, L, KEYS):  # the online softmax, a tile at a time
+        st = s[:, key0:key0 + KEYS]
+        mn = np.maximum(m, st.max(1))
+        alpha = np.exp(m - mn).astype(f32)
+        m = mn
+        p = np.exp(st - m[:, None]).astype(f32)
+        total = (total * alpha + p.sum(1, dtype=np.float64).astype(f32)).astype(f32)
+        o = (o * alpha[:, None]).astype(f32)
+        (ph, pl), (vth, vtl) = _split(p), _split(np.ascontiguousarray(v[key0:key0 + KEYS].T))
+        for n in range(0, p.shape[1], 8):  # P V, 8 keys at a time, into the running sum
+            sl = slice(n, n + 8)
+            o = (o + _three(ph[:, sl], pl[:, sl], vth[:, sl], vtl[:, sl], one_pass)).astype(f32)
+    return (o / (total + f32(1e-30))[:, None]).astype(f32)
+
+
+def _inputs(layout: str):
+    """q, k, v as (B, L, H, D) float32 and the ragged key mask (B, L): from
+    one (B, L, 3d) buffer for K2's layout, read as the kernel reads it (row
+    r of head h of batch b at b * L * 3d + r * 3d + h * D), else drawn apart."""
+    rng = np.random.RandomState(256)
+    if layout == "k2":
+        d = H * D
+        buf = rng.randn(B, L, 3 * d).astype(np.float32)
+        flat = buf.reshape(-1)
+        b, r, h, c = 1, 17, 1, 5
+        heads = []
+        for part in range(3):  # the kernel's strided reads, column offset part * d
+            t = buf[..., part * d:(part + 1) * d].reshape(B, L, H, D)
+            assert t[b, r, h, c] == flat[b * L * 3 * d + r * 3 * d + part * d + h * D + c]
+            heads.append(np.ascontiguousarray(t))
+        q, k, v = heads
+    else:
+        q, k, v = (rng.randn(B, L, H, D).astype(np.float32) for _ in range(3))
+    keep = np.ones((B, L), bool)
+    keep[:, L - 13:] = rng.rand(B, 13) < 0.6  # a ragged tail, as chip_smoke.py masks
+    return q, k, v, keep
+
+
+def _emulated(q, k, v, keep, one_pass=False):
+    out = np.zeros_like(q)
+    for b in range(B):
+        for h in range(H):
+            out[b, :, h] = _emulated_head(q[b, :, h], k[b, :, h], v[b, :, h], keep[b], one_pass)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["k1", "k2"])
+def test_emulated_split_f32_matches_jax(layout):
+    """The float32 kernel's arithmetic, emulated, within k1_f32_tol(210) of
+    JAX's kernel in interpret mode; one TF32 pass instead of three misses
+    it (the negative control)."""
+    q, k, v, keep = _inputs(layout)
+    ref = np.asarray(jax_fused_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                         jnp.asarray(keep[:, None, None, :]), interpret=True))
+    err = float(np.abs(_emulated(q, k, v, keep) - ref).max())
+    assert err <= chip_smoke.k1_f32_tol(L), err
+    control = float(np.abs(_emulated(q, k, v, keep, one_pass=True) - ref).max())
+    assert control > chip_smoke.k1_f32_tol(L), control
+
+
+def _names():
+    """kAttnKernelNames in csrc/attention.cuh, in the enum's order."""
+    src = (_build.CSRC_DIR / "attention.cuh").read_text()
+    body = re.search(r"kAttnKernelNames\[kAttnKernels\] = \{(.*?)\};", src, re.S).group(1)
+    names = re.findall(r'"(\w+)"', body)
+    enum = re.search(r"enum AttnKernel \{(.*?)\};", src, re.S).group(1)
+    kinds = [e.strip() for e in enum.split(",") if e.strip() and e.strip() != "kAttnKernels"]
+    assert len(kinds) == len(names)
+    return dict(zip(kinds, names))
+
+
+def _wide_rule():
+    """The limits of wide_takes and the kernel each branch of
+    launch_attention_wide counts, parsed from attention_wide.cuh; and
+    attention_padded.cuh's route to them at padded depth 256 only."""
+    takes = re.search(r"static bool wide_takes\(.*?\{(.*?)\n\}", WIDE, re.S).group(1)
+    assert "L > 16" in takes and "L <= kWgmmaMaxKeys" in takes
+    assert "(D * sizeof(T)) % 16 == 0" in takes
+    max_keys = int(_constant("kWgmmaMaxKeys"))
+    launch = re.search(r"launch_attention_wide\(.*?\n\}", WIDE, re.S).group(0)
+    counted = re.findall(r"counted_launch\((\w+)\)", launch)
+    padded = (_build.CSRC_DIR / "attention_padded.cuh").read_text()
+    assert re.search(r"if constexpr \(DP == 256\) \{\s*if \(wide_takes<T, TO>", padded)
+    return max_keys, set(counted)
+
+
+def test_routing_mirrors_name_the_c_kernels():
+    """For every head dim 1-256 and lengths around each split, in both
+    types, the mirrors name a kernel function of the C source's list, and the
+    head-dim-256 ones exactly where wide_takes sends a call (rows of whole
+    16-byte chunks past 16 keys at padded depth 256, bf16 up to
+    kWgmmaMaxKeys); K2's and K3's attention at head dims 128 and 256."""
+    names = _names()
+    max_keys, counted = _wide_rule()
+    split, wgmma = names["kAttnKernelSplitF32"], names["kAttnKernelWgmma"]
+    assert counted == {"kAttnKernelSplitF32", "kAttnKernelWgmma"}
+    assert (split, wgmma) == (chip_smoke.SPLIT_F32, chip_smoke.WGMMA)
+    lengths = (1, 8, 16, 17, 64, 208, 224, max_keys, max_keys + 1, 1025, 4096)
+    for d in range(1, 257):
+        exact = d % 8 == 0 and d <= 128
+        for length in lengths:
+            for kind, esize, new in (("bf16", 2, wgmma), ("fp32", 4, split)):
+                got = chip_smoke.k1_kernel(d, length, kind)
+                assert got in names.values(), (d, length, kind, got)
+                wide = (not exact and padded_depth(d) == 256 and d * esize % 16 == 0
+                        and length > 16 and (kind == "fp32" or length <= max_keys))
+                assert (got == new) == wide, (d, length, kind, got)
+                if not exact and not wide:
+                    assert got == names["kAttnKernelPadded" if kind == "bf16"
+                                        else "kAttnKernelPaddedF32"]
+                if kind == "bf16":
+                    assert chip_smoke.k1_bf16_kernel(d, length) == got
+    for length in lengths:
+        assert chip_smoke.block_attention_kernel(128, length, "fp32") == names["kAttnKernelF32"]
+        assert chip_smoke.block_attention_kernel(128, length, "bf16") == names["kAttnKernelRing"]
+        for kind in ("fp32", "bf16"):
+            assert (chip_smoke.block_attention_kernel(256, length, kind)
+                    == chip_smoke.k1_kernel(256, length, kind))

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from explainable_spatial_vqa_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
-from explainable_spatial_vqa_tpu_torch.measure import attention_variants
+from explainable_spatial_vqa_tpu_torch.measure import attention_variants, variants
 from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops import fused_attention as k1
 
@@ -128,14 +128,16 @@ def test_esv_attention_binds_each_entry_once(monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(attention_variants.VARIANTS))
 def test_attention_variants_patch_the_shipped_source(name):
-    """Each variant of the one-pass kernel is the shipped ``csrc/attention.cuh``
+    """Each variant of the attention kernels is the shipped ``csrc/`` (the
+    one-pass kernel's in ``attention.cuh``, the head-dim-256 kernels' in
+    ``attention_wide.cuh`` and their routing in ``attention_padded.cuh``)
     with its replacements, each matching exactly once: a source edit that
     moves a patched line fails here, not on the card."""
-    source = (_build.CSRC_DIR / "attention.cuh").read_text()
-    patched = attention_variants.variant_source(name, source)
-    assert patched != source
-    for old, new in attention_variants.VARIANTS[name]:
-        assert new in patched
+    patched = variants.variant_sources(attention_variants.VARIANTS, name)
+    for file, text in patched.items():
+        assert text != (_build.CSRC_DIR / file).read_text()
+    for file, _, new in attention_variants.VARIANTS[name]:
+        assert new in patched[file] or not new
 
 
 def test_attention_variants_need_a_card(monkeypatch):

@@ -37,6 +37,7 @@ from explainable_spatial_vqa_tpu_torch.measure import (  # noqa: E402
     profile_pipeline,
     profile_segments,
     roofline_step,
+    variants,
 )
 
 torch.set_num_threads(1)
@@ -216,11 +217,33 @@ def test_gemm_variants_patch_the_shipped_source(name):
     """Each variant of the float32 GEMM is the shipped ``csrc/fused_block.cu``
     with its replacements, each matching exactly once: a source edit that
     moves a patched line fails here, not on the card."""
+    patched = variants.variant_sources(gemm_variants.VARIANTS, name)
+    assert set(patched) == {"fused_block.cu"}
     source = (_build.CSRC_DIR / "fused_block.cu").read_text()
-    patched = gemm_variants.variant_source(name, source)
-    assert patched != source
-    for old, new in gemm_variants.VARIANTS[name]:
-        assert new in patched or not new
+    assert patched["fused_block.cu"] != source
+    for _, old, new in gemm_variants.VARIANTS[name]:
+        assert new in patched["fused_block.cu"] or not new
+
+
+def test_ptxas_usage_reads_each_function():
+    """The variant drivers' and ``chip_smoke.py``'s reading of ptxas's
+    report: each entry function's registers and spilled bytes, 0 spilled
+    where ptxas reports none, the last report of a function kept."""
+    log = "\n".join([
+        "--- fused_block.cu: exit 0, 70.1 s ---",
+        "ptxas info    : Compiling entry function '_ZN3esv15gemm_tf32_wgmmaIfLb0EE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3esv15gemm_tf32_wgmmaIfLb0EE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 536 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN3esv15gemm_bf16_wgmmaIfLb0ELb1EE' for 'sm_90a'",
+        "    144 bytes stack frame, 144 bytes spill stores, 144 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 540 bytes cmem[0]",
+        "ptxas info    : Compiling entry function 'add_layernorm' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, 380 bytes cmem[0]",
+    ])
+    assert variants.ptxas_usage(log) == {"_ZN3esv15gemm_tf32_wgmmaIfLb0EE": (168, 0),
+                                         "_ZN3esv15gemm_bf16_wgmmaIfLb0ELb1EE": (168, 144),
+                                         "add_layernorm": (32, 0)}
 
 
 def test_gemm_variants_need_a_card(monkeypatch):
@@ -232,3 +255,5 @@ def test_gemm_variants_need_a_card(monkeypatch):
         gemm_variants.main(["--variants", "long_chain"])
     with pytest.raises(ValueError, match="unknown variants"):
         gemm_variants.main(["--variants", "chain9"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gemm_variants.main(["--variants", "", "--against", "parent=csrc"])
