@@ -40,13 +40,16 @@ result:
    24, 48 and 64 at the models' lengths and where the bf16 paths split
    (``k1_head_dims``: L = 8, 17, 208, 224, 225, 243, 246, 256, 257, both
    types; each call's kernel function read from the C library's launch
-   counts and held to ``K1_CHECK_LENGTHS``'s, the ring at L=257 also named
-   by a profile), and at every other head dim (``K1_NEW_DIMS``) at L = 8,
-   16, 17, 208, 256, 257, masked and not, both types, each call's kernel
-   read the same way; then checked the same way and timed at each model's
-   shape and, at each other head dim, at the protocol's shapes at d_model
-   4 D (the fusion encoder, L=208, in both types; the box decoder, L=8),
-   the one-pass kernel named by a profile at the models' bf16 shapes; K1 on
+   counts and held to ``K1_CHECK_LENGTHS``'s, the two-pass wgmma kernel at
+   L=257 also named by a profile), and at every other head dim
+   (``K1_NEW_DIMS``) at L = 8, 16, 17, 208, 256, 257, masked and not, both
+   types, each call's kernel read the same way; then checked the same way
+   and timed at each model's shape and, at each other head dim, at the
+   protocol's shapes at d_model 4 D (the fusion encoder, L=208, in both
+   types; the box decoder, L=8), the one-pass kernel and the wgmma kernel
+   named by a profile at their bf16 shapes (the ring they replaced is
+   timed beside them by ``measure/attention_variants.py``'s variant
+   ``ring``); K1 on
    the padded kernels (``k1_padded_dims``) at ``K1_PADDED_DIMS`` (ragged
    head dims and 136-256, one or more at each padded depth) at L = 8, 17,
    208 and 1025, and every K1 kernel past the old 1024-key cap at
@@ -60,7 +63,15 @@ result:
    call's kernel read from the C libraries' counts, then timed at
    ``measure/attention_variants.py``'s ``WIDE_CASES`` beside the plain
    version, SDPA and the bound (the padded kernels they replace are timed
-   beside them by that driver's variant ``padded``); K2's own float32
+   beside them by that driver's variant ``padded``); the bf16 wgmma kernels
+   at head dims up to 128 (``wgmma_kernels``): ``attention_kernel_wgmma`` at
+   D = 72-128 (every multiple of 8) and L = 17, 208, 224, 256,
+   ``attention_kernel_wgmma_2pass`` at D = 8, 64, 72, 128 and L = 257, 1025,
+   4096, ragged and unmasked, in K1's layout and a (B, L, 3d) buffer's,
+   none on the ring (the C libraries' counts), a negative control (the
+   weights rounded before they are normalised, ``rounded_first``) that
+   must fail the bf16 check, and K3's attention at head dim 128 (L = 224
+   and 304) timed; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -84,7 +95,9 @@ result:
    K1 at the box decoders' shapes through its wrapper beside the kernel's
    device time and SDPA (``k1_wrapper_times``);
 5. the block-bench path: ``bench_block.main`` at B=128, which launches K3
-   through its entry point beside K2 and the unfused ``EncoderBlock``;
+   through its entry point beside K2 and the unfused ``EncoderBlock``, at
+   L=224 and at 304 (K3's attention on ``attention_kernel_wgmma`` and on
+   ``attention_kernel_wgmma_2pass``, by the block library's counts);
 6. the main path at full width (bench.py's widths, bf16, ``box_roi`` and
    per-function thresholds): ``InferencePipeline.run`` end to end through the
    128-slot pool on synthetic questions, timed over a few repeats.  The
@@ -320,19 +333,25 @@ K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 # K1 at the head dims below 128: each in both types at the lengths the models
 # run (phase 3, B=128, H=4), then timed at each model's shape in its type
 # (phase 4): label, head dim, B, L, key mask, type
-# The bf16 paths split at 16 (one warp), 224 (the ring's one-chunk rows),
-# 256 (the one-pass kernel's longest row) and 257 (the ring's two passes):
-# the lengths around each, with the kernel function each bf16 call must
-# launch (read from the C library's launch counts; float32 takes
-# attention_kernel_f32 at every length)
+# The bf16 paths split at 16 (one warp), 256 (the one-pass kernels' longest
+# row) and 257 (the two-pass kernel): the lengths around each and at the
+# models' rows, with the kernel function each bf16 call must launch (read
+# from the C library's launch counts; float32 takes attention_kernel_f32 at
+# every length)
 ONE_PASS, RING = "attention_kernel_onepass", "attention_kernel"
 PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
 # csrc/attention_wide.cuh: the head dims at padded depth 256 past 16 keys
+# (split_f32, and wgmma up to 256 keys), bf16 at head dims 72-128 up to 256
+# keys (wgmma) and at every multiple of 8 up to 128 past 256 keys (2pass)
 SPLIT_F32, WGMMA = "attention_kernel_split_f32", "attention_kernel_wgmma"
+WGMMA_2PASS = "attention_kernel_wgmma_2pass"
+WGMMA_DEPTHS = (80, 96, 112, 128, 256)  # attention_kernel_wgmma's padded depths
+WGMMA_2PASS_DEPTHS = (16, 32, 48, 64, 80, 96, 112, 128)  # and the two-pass kernel's
 K1_CHECK_LENGTHS = ((8, False, RING), (17, True, ONE_PASS), (208, True, ONE_PASS),
                     (224, False, ONE_PASS), (225, True, ONE_PASS), (243, True, ONE_PASS),
-                    (246, True, ONE_PASS), (256, False, ONE_PASS), (257, True, RING))
-RING_PROFILE = (64, 257)  # head dim and length where phase 3 also names the ring from a profile
+                    (246, True, ONE_PASS), (256, False, ONE_PASS), (257, True, WGMMA_2PASS))
+# head dim and length where phase 3 also names the two-pass kernel from a profile
+TWO_PASS_PROFILE = (64, 257)
 # every bf16 shape here must launch the one-pass kernel, named by its launch
 # count and by a profile in phase 4
 K1_MODEL_SHAPES = (
@@ -346,11 +365,13 @@ K1_MODEL_SHAPES = (
     ("protocol d 192 fusion encoder bf16", 48, 128, 208, True, "bf16"),
 )
 # K1 at the head dims no preset has (every other multiple of 8 up to 128):
-# phase 3 holds each at these lengths (L <= 16 one warp, 17-256 one pass at
-# D <= 64, 257 the ring's two passes), masked and not, in both types, at
-# B = K1_NEW_DIM_BATCH; phase 4 times each at the protocol's shapes at
-# d_model 4 D: the box decoder (L=8, float32) and the fusion encoder (B=128,
-# L=208, ragged) in float32 and bf16
+# phase 3 holds each at these lengths (L <= 16 one warp, 17-256 one pass:
+# attention_kernel_onepass at D <= 64, attention_kernel_wgmma past it; 257
+# attention_kernel_wgmma_2pass), masked and not, in both types, at B =
+# K1_NEW_DIM_BATCH (wgmma_kernels also holds the wgmma kernels at 17, 224,
+# 256 and past 256 keys, in a (B, L, 3d) buffer too); phase 4 times each at
+# the protocol's shapes at d_model 4 D: the box decoder (L=8, float32) and
+# the fusion encoder (B=128, L=208, ragged) in float32 and bf16
 K1_MODEL_DIMS = (24, 48, 64)
 K1_NEW_DIMS = (8, 16, 32, 40, 56, 72, 80, 88, 96, 104, 112, 120)
 K1_NEW_DIM_LENGTHS = (8, 16, 17, 208, 256, 257)
@@ -380,13 +401,18 @@ def wide_kernel(d_head: int, length: int, name: str):
 
 def k1_bf16_kernel(d_head: int, length: int) -> str:
     """The kernel function a bf16 K1 call launches (``launch_attention_dim``'s
-    routing): one warp's ring kernel at L <= 16, the one-pass kernel at D <=
-    64 and L <= 256, else the ring; at a head dim without kernels of its own
-    ``attention_kernel_wgmma`` where ``wide_kernel`` says so, else the padded
-    kernel (``launch_attention_padded``)."""
+    routing): one warp's ring kernel at L <= 16; up to 256 keys one pass, the
+    one-pass kernel at D <= 64 and ``attention_kernel_wgmma`` past it; past
+    256 keys ``attention_kernel_wgmma_2pass``; at a head dim without kernels
+    of its own ``attention_kernel_wgmma`` where ``wide_kernel`` says so, else
+    the padded kernel (``launch_attention_padded``)."""
     if d_head % 8 or d_head > 128:
         return wide_kernel(d_head, length, "bf16") or PADDED
-    return ONE_PASS if 16 < length <= 256 and d_head <= 64 else RING
+    if length <= 16:
+        return RING
+    if length > 256:
+        return WGMMA_2PASS
+    return ONE_PASS if d_head <= 64 else WGMMA
 
 
 def k1_kernel(d_head: int, length: int, name: str) -> str:
@@ -401,11 +427,9 @@ def k1_kernel(d_head: int, length: int, name: str) -> str:
 
 def block_attention_kernel(d_head: int, length: int, name: str) -> str:
     """The kernel function the attention of K2 (``name`` "fp32": float32 q,
-    k, v) or K3 ("bf16") launches (``launch_block_attention``): at head dim
-    128 attention.cuh's (``attention_kernel_f32``, the ring), at 256 the
-    wide kernels past 16 keys (bf16 up to 256), else the padded ones."""
-    if d_head == 128:
-        return RING if name == "bf16" else "attention_kernel_f32"
+    k, v) or K3 ("bf16") launches (``launch_block_attention``): K1's at head
+    dims 128 (``launch_attention_dim``: ``attention_kernel_f32``; in bf16 the
+    ring at L <= 16, the wgmma kernels past it) and 256."""
     return k1_kernel(d_head, length, name)
 
 
@@ -694,7 +718,7 @@ def block_mean_ulps(d: int) -> float:
     return MEAN_ULPS * math.sqrt(max(1.0, d / 512))
 
 
-def attention_agreement(torch, out, q, k, v, mask) -> dict:
+def attention_agreement(torch, out, q, k, v, mask, ref=None) -> dict:
     """How far a bf16 attention output lies from the plain version with its
     scores and softmax in float64, its weights then rounded to bf16 (the TPU
     kernel normalises, then rounds) and P V summed in float64 and rounded
@@ -703,7 +727,10 @@ def attention_agreement(torch, out, q, k, v, mask) -> dict:
     may lie within sum_j ulp(w_j) |v_j| (every weight one ulp off) +
     ulp(|ref|) (the output's rounding) + ulp(rms(ref)) of it, for any float32
     score order; and the mean error within ``MEAN_ULPS`` of the mean
-    ulp(|ref|).  The keys of ``bf16_agreement``."""
+    ulp(|ref|).  With ``ref`` (another output of the TPU kernel's arithmetic,
+    JAX's kernel's, say) ``out`` is held against it instead, within the same
+    limit: two float32 score orders round a weight to one of the same two
+    neighbouring bf16 values.  The keys of ``bf16_agreement``."""
     import numpy as np
 
     scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
@@ -713,7 +740,9 @@ def attention_agreement(torch, out, q, k, v, mask) -> dict:
     w = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     del scores
     w = (w / (w.sum(dim=-1, keepdim=True) + 1e-30)).to(q.dtype)
-    ref = torch.einsum("bhqk,bkhd->bqhd", w.double(), v.double()).float().to(q.dtype).float()
+    if ref is None:
+        ref = torch.einsum("bhqk,bkhd->bqhd", w.double(), v.double()).float().to(q.dtype)
+    ref = ref.float()
     _, w_exp = torch.frexp(w.float())
     w_ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w, dtype=torch.float64),
                                                  w_exp - 8))
@@ -999,8 +1028,10 @@ def k1_functions_missing(kernels: dict) -> list:
     """K1's kernel functions (``kernel_report``'s entries) that each head dim
     of ``EXACT_HEAD_DIMS`` must have, as (head dim, kernel, output type,
     warps), that are not built or run no HMMA: ``attention_kernel_f32`` to
-    float and bf16 at 1 and 14 warps, ``attention_kernel<bf16, bf16, D, W,
-    0>`` at 1 and 8, and ``attention_kernel_onepass<bf16, D, 4>`` up to 64."""
+    float and bf16 at 1 and 14 warps, ``attention_kernel<bf16, bf16, D, 1,
+    0>`` (L <= 16; past it bf16 runs on the one-pass and wgmma kernels, and
+    the 8-warp ring is built only for the FMA-chain variant at 128), and
+    ``attention_kernel_onepass<bf16, D, 4>`` up to 64."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import EXACT_HEAD_DIMS
 
     built = {}
@@ -1021,7 +1052,7 @@ def k1_functions_missing(kernels: dict) -> list:
     missing = []
     for d in EXACT_HEAD_DIMS:
         want = [(d, "attention_kernel_f32", to, w) for to in ("float", "bf16") for w in ("1", "14")]
-        want += [(d, "attention_kernel", "bf16", w) for w in ("1", "8")]
+        want += [(d, "attention_kernel", "bf16", "1")]
         want += [(d, "attention_kernel_onepass", "bf16", "4")] if d <= 64 else []
         missing += [key for key in want if not built.get(key)]
     return missing
@@ -1179,7 +1210,7 @@ def main() -> None:
     say(f"phase 2 K1 at head dims {EXACT_HEAD_DIMS[0]}-{EXACT_HEAD_DIMS[-1]} (every multiple of "
         f"8): each "
         f"built as attention_kernel_f32<float|bf16, "
-        f"D, 1|14>, attention_kernel<bf16, bf16, D, 1|8, 0> and, up to 64, "
+        f"D, 1|14>, attention_kernel<bf16, bf16, D, 1, 0> and, up to 64, "
         f"attention_kernel_onepass<bf16, D, 4>, every one with HMMA: "
         f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
     if missing:
@@ -1197,15 +1228,19 @@ def main() -> None:
     if missing:
         fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
              "PADDED_DEPTHS")
-    wide = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
+    wide = sorted((re.sub(r"\(int\)", "", k["short"].split("(const")[0].replace("void ", "")), k)
                   for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n)
-    say("phase 2 head-dim-256 K1, K2 and K3 attention (attention_wide.cuh, built into "
-        "fused_attention and fused_block): " + "; ".join(
+    say("phase 2 attention_wide.cuh's kernels (K1, K2 and K3 at head dim 256; bf16 K1 and K3 "
+        "on wgmma at 72-128 up to 256 keys and at every head dim up to 128 past them; built "
+        "into fused_attention and fused_block): " + "; ".join(
             f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HGMMA']} HGMMA, "
             f"{k['HMMA']} HMMA" for name, k in wide))
-    # the float32 kernel on mma.sync (HMMA) to float and bf16, the bf16 one on wgmma
-    want_wide = {f"{SPLIT_F32}<float>": "HMMA", f"{SPLIT_F32}<bf16>": "HMMA",
-                 f"{WGMMA}<bf16>": "HGMMA"}
+    # the float32 kernel on mma.sync (HMMA) to float and bf16, the bf16 ones on
+    # wgmma at each padded depth that launch_attention_dim and
+    # launch_attention_wide reach
+    want_wide = {f"{SPLIT_F32}<float>": "HMMA", f"{SPLIT_F32}<bf16>": "HMMA"}
+    want_wide.update({f"{WGMMA}<bf16, {dp}>": "HGMMA" for dp in WGMMA_DEPTHS})
+    want_wide.update({f"{WGMMA_2PASS}<bf16, {dp}>": "HGMMA" for dp in WGMMA_2PASS_DEPTHS})
     for fn, unit in want_wide.items():
         found = [k for name, k in wide if name == fn]
         if not found or not all(k[unit] > 0 for k in found):
@@ -1283,9 +1318,9 @@ def main() -> None:
             elems = b * length * h * d_head
             bnd, by = bound_ms({"bf16": 4.0 * b * h * length * length * d_head},
                                4 * elems * 2 + (b * length * 4 if masked else 0))
-            say(f"phase 4 K1 fused_attention bf16 L={length}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} ms "
-                f"({by})")
+            say(f"phase 4 K1 fused_attention bf16 L={length}: kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by})")
             results[f"K1_L{length}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                                             bound_by=by, library_ms=lib)
             if length == 10:
@@ -1296,6 +1331,7 @@ def main() -> None:
     k1_head_dims(torch, F, dev, results)
     k1_padded_dims(torch, F, dev, results)
     wide_kernels(torch, F, dev, results, parts)
+    wgmma_kernels(torch, F, dev, results, parts)
     k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
@@ -1561,9 +1597,9 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
     length of ``K1_CHECK_LENGTHS`` in float32 (within 1e-5) and bf16
     (``attention_agreement``), each call's kernel function read from the C
     library's launch counts (``ops.fused_attention.kernel_launches``) and
-    held to the table's (the one-pass kernel's edges 17 and 256, the ring's
-    two passes at 257), and at ``RING_PROFILE`` from a profile too; the same
-    at the head dims no preset has (``K1_NEW_DIMS``) at
+    held to the table's (the one-pass kernel's edges 17 and 256, the
+    two-pass kernel at 257), and at ``TWO_PASS_PROFILE`` from a profile too;
+    the same at the head dims no preset has (``K1_NEW_DIMS``) at
     ``K1_NEW_DIM_LENGTHS``, masked and not, on draws of their own; then at
     each shape of ``K1_MODEL_SHAPES`` the same check, the kernel through its
     wrapper, the plain version and ``scaled_dot_product_attention`` timed,
@@ -1598,7 +1634,7 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
                         f"mask={'ragged' if masked else 'none'}")
                 want = bf16_kernel if name == "bf16" else "attention_kernel_f32"
                 out, _ = k1_checked(torch, name, q, k, v, mask, want, head)
-                if name == "bf16" and (d_head, length) == RING_PROFILE:
+                if name == "bf16" and (d_head, length) == TWO_PASS_PROFILE:
                     k1_profiled(torch, q, k, v, mask, want, head)
                 del q, k, v, out
     t_new = time.perf_counter()
@@ -1620,9 +1656,10 @@ def k1_head_dims(torch, F, dev, results: dict) -> None:
     say(f"phase 3 K1 at the head dims {K1_NEW_DIMS}: {len(K1_NEW_DIMS)} x "
         f"{len(K1_NEW_DIM_LENGTHS)} lengths x 2 masks x 2 types checked in "
         f"{time.perf_counter() - t_new:.1f} s")
-    for shape in K1_MODEL_SHAPES:  # the models' bf16 shapes: a profile too
+    for shape in K1_MODEL_SHAPES:  # the models' bf16 shapes and the wgmma kernel's: a profile too
         k1_timed_shape(torch, F, randn, ragged_keep, results, shape,
-                       profile=shape[5] == "bf16" and shape[1] in K1_MODEL_DIMS)
+                       profile=shape[5] == "bf16" and (shape[1] in K1_MODEL_DIMS
+                                                       or k1_bf16_kernel(*shape[1:4:2]) == WGMMA))
     say(f"phases 3-4 K1 at head dims {K1_MODEL_DIMS} and {K1_NEW_DIMS} took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1681,7 +1718,8 @@ def k1_padded_dims(torch, F, dev, results: dict) -> None:
         f"checked in {time.perf_counter() - t_long:.1f} s")
     for shape in K1_NEW_SHAPES:
         k1_timed_shape(torch, F, randn, ragged_keep, results, shape,
-                       profile=shape[3] <= 208 and shape[1] in (25, 256))
+                       profile=(shape[3] <= 208 and shape[1] in (25, 256))
+                       or k1_kernel(*shape[1:4:2], shape[5]) == WGMMA_2PASS)
     say(f"phases 3-4 K1 on the padded kernels and past 1024 keys took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1702,22 +1740,25 @@ def wide_batch(length: int) -> int:
     return 32 if length <= 256 else 8 if length <= 1024 else 2
 
 
-def block_called(torch, fn, name, q, k, v, mask, out_dtype, head, want):
+def block_called(torch, fn, name, q, k, v, mask, out_dtype, head, want, counts=None):
     """One call of the blocks' attention alone (``esv_block_attention``, bound
-    as ``fn``) on q, k, v, the thirds of a (B, L, 3d) buffer: fail unless it
-    launched ``want`` (the block library's counts) and agrees with the plain
-    version (float32 outputs within ``k1_f32_tol``; bf16 outputs of float32
-    q/k/v by ``bf16_agreement`` against the plain version rounded, of bf16
-    q/k/v by ``attention_agreement``).  The output and its largest error."""
+    as ``fn``; or K1's ``esv_attention`` with ``counts`` its library's
+    ``kernel_launches``) on q, k, v, the thirds of a (B, L, 3d) buffer of 4
+    heads: fail unless it launched ``want`` (the library's counts, by default
+    the block library's) and agrees with the plain version (float32 outputs
+    within ``k1_f32_tol``; bf16 outputs of float32 q/k/v by
+    ``bf16_agreement`` against the plain version rounded, of bf16 q/k/v by
+    ``attention_agreement``).  The output and its largest error."""
     from explainable_spatial_vqa_tpu_torch.ops import fused_block
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import call_rows
 
+    counts = counts or fused_block.kernel_launches
     b, length, d = q.shape
     heads = [t.reshape(b, length, 4, d // 4) for t in (q, k, v)]
-    before = fused_block.kernel_launches()
+    before = counts()
     out = call_rows(fn, q, k, v, mask, 4, out_dtype)
-    moved = {n: c - before[n] for n, c in fused_block.kernel_launches().items() if c != before[n]}
+    moved = {n: c - before[n] for n, c in counts().items() if c != before[n]}
     ref = dot_product_attention(*heads, mask).reshape(b, length, d)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
@@ -1840,6 +1881,140 @@ def wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
                 **results[f"wide {label}"]))
         del q, k, v, heads, qt, kt, vt, out
     say(f"phases 3-4 the head-dim-256 kernels took {time.perf_counter() - t0:.1f} s")
+
+
+# The bf16 wgmma kernels at head dims up to 128 (csrc/attention_wide.cuh),
+# phases 3-4: attention_kernel_wgmma at each head dim of WGMMA_DIMS and
+# length of WGMMA_LENGTHS, attention_kernel_wgmma_2pass at TWO_PASS_DIMS x
+# TWO_PASS_LENGTHS, ragged and unmasked, in K1's (B, L, H, D) layout through
+# the wrapper and in K3's (B, L, 3d) buffer of 4 heads (esv_block_attention
+# at head dim 128, K1's esv_attention on the buffer's strides at the
+# others); the negative control at NEGATIVE_SHAPES; then K3's attention at
+# head dim 128 timed at K3_HD128_TIMED beside the plain version, SDPA and the
+# bound
+WGMMA_DIMS = tuple(range(72, 129, 8))
+WGMMA_LENGTHS = (17, 208, 224, 256)
+TWO_PASS_DIMS = (8, 64, 72, 128)
+TWO_PASS_LENGTHS = (257, 1025, 4096)
+NEGATIVE_SHAPES = ((72, 32, 208), (128, 8, 1025))  # head dim, B, L
+K3_HD128_TIMED = ((128, 224), (128, 304))  # B, L: the block bench's rows, past 256 keys at 304
+
+
+def rounded_first(torch, q, k, v, mask):
+    """The negative control of the bf16 check: the attention with its
+    weights rounded to bf16 before they are normalised (exp(s - max) rounded,
+    P V summed in float32 and then divided by the sum + 1e-30), which the
+    TPU kernel does not compute; (B, L, H, D) in and out."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", e.to(q.dtype).float(), v.float())
+    return (out / (e.sum(-1) + 1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def wgmma_kernels(torch, F, dev, results: dict, parts: list) -> None:
+    """Phases 3-4 for ``attention_kernel_wgmma`` (bf16, head dims 72-128,
+    17-256 keys) and ``attention_kernel_wgmma_2pass`` (bf16, every multiple
+    of 8 up to 128, past 256 keys): the checks above ``K3_HD128_TIMED``,
+    each call's kernel read from the C libraries' counts, where the ring must
+    not run; the negative control (``rounded_first``) must fail the bf16
+    check; then K3's attention at head dim 128 at ``K3_HD128_TIMED`` through
+    ``esv_block_attention`` beside the plain version,
+    ``scaled_dot_product_attention`` and the bound.  Results go to
+    ``results["wgmma <label>"]`` and ``parts``."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        bind_entry,
+        call_rows,
+        kernel_launches,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    t0 = time.perf_counter()
+    block_fn = bind_entry(_build.load("fused_block"), "esv_block_attention")
+    k1_fn = bind_entry(_build.load("fused_attention"))
+
+    def ragged(b, length):
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+        return keep[:, None, None, :]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    checks = 0
+    shapes = ([(d, length) for d in WGMMA_DIMS for length in WGMMA_LENGTHS]
+              + [(d, length) for d in TWO_PASS_DIMS for length in TWO_PASS_LENGTHS])
+    for d_head, length in shapes:
+        b = wide_batch(length)
+        want = k1_bf16_kernel(d_head, length)
+        if want not in (WGMMA, WGMMA_2PASS):
+            fail(f"the routing mirror names {want} for bf16 at D={d_head}, L={length}, not a "
+                 f"wgmma kernel")
+        for masked in (True, False):
+            mask = ragged(b, length) if masked else None
+            where = (f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}")
+            q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
+            k1_checked(torch, "bf16", q, k, v, mask, want, f"phase 3 K1 fused_attention bf16 {where}")
+            del q, k, v
+            d = 4 * d_head
+            q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
+            if d_head == 128:
+                block_called(torch, block_fn, "bf16", q, k, v, mask, torch.bfloat16,
+                             f"phase 3 K3 attention bf16 q/k/v from the (B, L, 3d) buffer, {where}",
+                             block_attention_kernel(d_head, length, "bf16"))
+            else:
+                block_called(torch, k1_fn, "bf16", q, k, v, mask, torch.bfloat16,
+                             f"phase 3 K1 esv_attention bf16 on a (B, L, 3d) buffer's strides, "
+                             f"{where}", want, counts=kernel_launches)
+            checks += 2
+            del q, k, v
+    say(f"phase 3 the wgmma kernels at head dims up to 128: {checks} calls (attention_kernel_wgmma "
+        f"at D = {WGMMA_DIMS[0]}-{WGMMA_DIMS[-1]}, L = {WGMMA_LENGTHS}; "
+        f"attention_kernel_wgmma_2pass at D = {TWO_PASS_DIMS}, L = {TWO_PASS_LENGTHS}; ragged "
+        f"and unmasked; K1's layout and a (B, L, 3d) buffer) checked, none on the ring, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for d_head, b, length in NEGATIVE_SHAPES:
+        q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
+        mask = ragged(b, length)
+        stats = attention_agreement(torch, rounded_first(torch, q, k, v, mask), q, k, v, mask)
+        say(f"phase 3 negative control, weights rounded to bf16 before they are normalised, "
+            f"B={b} H=4 L={length} D={d_head} ragged: {bf16_text(stats)}, {stats['outside']} "
+            f"outside: {'fails the check, as it must' if not bf16_ok(stats) else 'PASSES'}")
+        if bf16_ok(stats):
+            fail("the bf16 attention check passes weights rounded before they are normalised")
+        del q, k, v
+
+    for b, length in K3_HD128_TIMED:
+        label = f"K3 attention bf16 hd128 L={length}"
+        d, mask = 512, ragged(b, length)
+        q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
+        heads = [t.reshape(b, length, 4, 128) for t in (q, k, v)]
+        want = block_attention_kernel(128, length, "bf16")
+        out, err = block_called(torch, block_fn, "bf16", q, k, v, mask, torch.bfloat16,
+                                f"phase 4 {label} B={b} H=4 D=128", want)
+        ms = timed_ms(torch, lambda: call_rows(block_fn, q, k, v, mask, 4, torch.bfloat16))
+        plain = timed_ms(torch, lambda: dot_product_attention(*heads, mask))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in heads)
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        bnd, by = bound_ms(dot_ops("bf16", 4.0 * b * 4 * length * length * 128),
+                           4 * b * length * d * 2 + b * length * 4)
+        say(f"phase 4 {label} (B={b} H=4 D=128 ragged, {want}): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); max_abs_err {err:.3g}")
+        results[f"wgmma {label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                         bound_ms=bnd, bound_by=by, library_ms=lib, kernel=want,
+                                         shape=f"B={b} H=4 L={length} D=128 ragged")
+        parts.append(dict(name=f"attention_bf16_hd128_L{length}", route="cuda",
+                          source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
+                          replaces="explainable_spatial_vqa_tpu/ops/pallas_block.py:232",
+                          inside="fused_encoder_block_tiled", **results[f"wgmma {label}"]))
+        del q, k, v, heads, qt, kt, vt, out
+    say(f"phases 3-4 the wgmma kernels at head dims up to 128 took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def k1_wrapper_times(torch, F, dev, results: dict) -> None:
@@ -2163,14 +2338,27 @@ def main_path(torch, np, dev, results, parts) -> None:
     counted = launch_counter(torch)
 
     # ---- 5. the block-bench path: K3 through its entry point ----
-    bench_rows, bench_launches = counted(
-        lambda: bench_block.main(["--batches", "128", "--iters", "5"]))
-    say("phase 5 block bench, bench_block.main --batches 128 --iters 5 (bf16, L=224, no mask): "
-        + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s"
-                    for _b, name, ms, tflops in bench_rows)
-        + f"; launches {bench_launches}")
-    if not bench_launches["fused_encoder_block_tiled"] > 0:
-        fail("the block bench did not launch K3")
+    # K2's attention at head dim 128 on float32 q/k/v (attention_kernel_f32),
+    # K3's on bf16: attention_kernel_wgmma at L = 224, attention_kernel_
+    # wgmma_2pass past 256 keys (the C library's counts; none on the ring)
+    block_bench = {}
+    for length, argv in ((224, ["--batches", "128", "--iters", "5"]),
+                         (304, ["--batches", "128", "--iters", "2", "--tiles", "2", "--length",
+                                "304"])):
+        read = c_counts(torch)
+        rows, launches = counted(lambda: bench_block.main(argv))
+        _, block_c = read()
+        say(f"phase 5 block bench, bench_block.main {' '.join(argv)} (bf16, L={length}, no "
+            f"mask): " + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s"
+                                   for _b, name, ms, tflops in rows)
+            + f"; launches {launches}; the blocks' attention by the C library's counts {block_c}")
+        want = block_attention_kernel(128, length, "bf16")
+        if not (launches["fused_encoder_block_tiled"] > 0
+                and block_c == {"attention_kernel_f32": launches["fused_encoder_block"],
+                                want: launches["fused_encoder_block_tiled"]}):
+            fail(f"the block bench at L={length} did not launch K3, its attention on {want}")
+        block_bench[length] = (rows, launches, block_c)
+    bench_rows, bench_launches, _ = block_bench[224]
 
     # ---- 6. the main path at full width ----
     gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
@@ -2580,6 +2768,34 @@ def main_path(torch, np, dev, results, parts) -> None:
     if not all(k["launches"] for k in kernels[-6:]):
         fail("a padded kernel, K2 or K3 at head dim 256, or a head-dim-256 attention kernel "
              "never launched on its path")
+    # the wgmma kernels at head dims up to 128 (attention_wide.cuh): their
+    # launches in phase 5's block bench (K3's attention at head dim 128, the
+    # block library's counts) and through the models (K1 in phase 16.1's
+    # bf16 forwards at d_model 288-480, the K1 library's counts); K3's
+    # attention alone at L = 224 (one pass) and 304 (two passes), K1's shapes
+    # under at_shapes
+    for kernel, length, at_keys in (
+            (WGMMA, 224, [f"K1_D{d}_protocol d {4 * d} fusion encoder bf16"
+                          for d in WGMMA_DIMS if d < 128] + ["K1_L210"]),
+            (WGMMA_2PASS, 304, [f"K1_D128_{label}" for label, d, _b, length_, *_ in K1_NEW_SHAPES
+                                if d == 128 and length_ > 256])):
+        by_k1 = by_phase(f"K1 {kernel}")
+        in_bench = block_bench[length][2].get(kernel, 0)
+        kernels.append(dict(
+            name=f"{kernel}_hd128", route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
+            replaces="explainable_spatial_vqa_tpu/ops/pallas_block.py:232",
+            also_replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            launches=in_bench + sum(by_k1.values()),
+            **results[f"wgmma K3 attention bf16 hd128 L={length}"],
+            at_shapes={key[len("K1_"):]: results[key] for key in at_keys},
+            launches_by_path={f"block_bench_L{length}": in_bench, "K1_by_phase": by_k1}))
+    say("the wgmma kernels at head dims up to 128: " + "; ".join(
+        f"{k['name']} {k['ms']:.4f} ms (scaled_dot_product_attention "
+        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches "
+        f"{k['launches_by_path']}" for k in kernels[-2:]))
+    if not all(k["launches"] for k in kernels[-2:]):
+        fail("a wgmma kernel at head dims up to 128 never launched on its path")
     total = sum(PHASE_SECONDS.values())
     say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
         PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
@@ -3710,8 +3926,15 @@ def head_dim_routing(torch, dev, counted) -> None:
         got = (counts["fused_encoder_block"], counts["fused_attention"])
         padded = PADDED if name == "bf16" else PADDED_F32
         exact = d_model // 4 in EXACT_HEAD_DIMS
+        # at the head dims with kernels of their own the mirror's kernel for
+        # the fusion encoder's 208 keys and the box decoder's 8
+        by_kernel = {}
+        for length, calls in ((208, want[1] - box_decoder), (8, box_decoder)):
+            kernel = k1_kernel(d_model // 4, length, name)
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + calls
         if (got != want or not any("attention_kernel" in n for n in ours)
                 or not finite or sum(ran[0].values()) != got[1]
+                or (exact and ran[0] != {n: c for n, c in by_kernel.items() if c})
                 or (not exact and (ran[0] != {padded: got[1]}
                                    or (k2 and ran[1] != {SPLIT_F32: got[0]})))):
             fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "

@@ -3,12 +3,14 @@ counterpart of ``scripts/bench_pallas_block.py``.
 
     python -m explainable_spatial_vqa_tpu_torch.bench_block [--iters 20]
         [--batches 128,256,512] [--tiles 2,4,8] [--d_model 512] [--heads 4]
+        [--length 224]
 
 Shapes: d=512, 4 heads, ffn 2048, L=224 (the fusion encoder's 210 tokens
 padded to a multiple of 8), bf16 weights and activations, no mask, weights
 drawn from seed 0; ``--d_model`` and ``--heads`` widen the block (ffn 4 d,
 as at 512: d_model 1024 with 4 heads runs the blocks' attention at head dim
-256).  Rows, for each batch size:
+256); ``--length`` sets the rows' length (past 256 keys the blocks' bf16
+attention at head dim 128 takes its two passes).  Rows, for each batch size:
 
 * the port's ``EncoderBlock`` on its unfused path (train mode, dropout 0,
   under ``torch.no_grad``), the counterpart of the script's "xla bf16
@@ -46,11 +48,12 @@ D_MODEL, HEADS, FFN, LENGTH = 512, 4, 2048, 224
 Row = Tuple[int, str, float, float]  # batch, name, ms per application, TFLOP/s
 
 
-def block_flops(batch: int, d_model: int = D_MODEL, ffn: int = FFN) -> float:
+def block_flops(batch: int, d_model: int = D_MODEL, ffn: int = FFN,
+                length: int = LENGTH) -> float:
     """Forward matmul FLOPs (2*MACs) of one encoder block application."""
-    qkvo = 4 * 2 * LENGTH * d_model * d_model
-    attn = 2 * 2 * LENGTH * LENGTH * d_model
-    ffn = 2 * 2 * LENGTH * d_model * ffn
+    qkvo = 4 * 2 * length * d_model * d_model
+    attn = 2 * 2 * length * length * d_model
+    ffn = 2 * 2 * length * d_model * ffn
     return batch * (qkvo + attn + ffn)
 
 
@@ -87,6 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Row]:
     ap.add_argument("--tiles", default="2,4,8")
     ap.add_argument("--d_model", type=int, default=D_MODEL)
     ap.add_argument("--heads", type=int, default=HEADS)
+    ap.add_argument("--length", type=int, default=LENGTH)
     args = ap.parse_args(argv)
     d_model, heads, ffn = args.d_model, args.heads, 4 * args.d_model
 
@@ -99,9 +103,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Row]:
     rows: List[Row] = []
     with torch.no_grad():
         for batch in [int(b) for b in args.batches.split(",")]:
-            x = torch.from_numpy(rng.randn(batch, LENGTH, d_model).astype(np.float32)).to(
+            x = torch.from_numpy(rng.randn(batch, args.length, d_model).astype(np.float32)).to(
                 device=dev, dtype=torch.bfloat16)
-            gflop = block_flops(batch, d_model, ffn) / 1e9
+            gflop = block_flops(batch, d_model, ffn, args.length) / 1e9
 
             def report(name, ms, batch=batch, gflop=gflop):
                 rows.append((batch, name, ms, gflop / ms))

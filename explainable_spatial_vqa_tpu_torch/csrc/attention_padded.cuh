@@ -55,8 +55,9 @@
 // designed for Hopper, take the calls past 16 keys whose rows are whole
 // 16-byte chunks: float32 at any length (attention_kernel_split_f32), bf16
 // up to 256 keys (attention_kernel_wgmma).  The kernels here keep the rest:
-// the box decoders' rows of <= 16 keys, bf16 rows past 256 keys, and rows
-// that load element by element.
+// the box decoders' rows of <= 16 keys, bf16 rows past 256 keys (the
+// two-pass wgmma kernel stops at depth 128), and rows that load element by
+// element.
 #pragma once
 
 #include "attention.cuh"
@@ -471,9 +472,11 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
 }
 
 // The attention of K2 (float32 q, k, v) and K3 (q, k, v in the weights'
-// type), TO the weights' type: head dim 128 on attention.cuh's kernels, 256 on
-// attention_wide.cuh's (K2 past 16 keys, K3 from 17 to 256) or the padded
-// ones.  Any other D returns cudaErrorInvalidValue.
+// type), TO the weights' type: head dim 128 on launch_attention_dim's
+// kernels (K3 past 16 keys on attention_wide.cuh's wgmma kernels, one pass
+// up to 256 keys and two past it), 256 on attention_wide.cuh's (K2 past 16
+// keys, K3 from 17 to 256) or the padded ones.  Any other D returns
+// cudaErrorInvalidValue.
 template <typename T, typename TO>
 static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, const float* mask,
                                           TO* out, int B, int H, int L, int D, long long in_bs,

@@ -1,14 +1,22 @@
-// K1 at the head dims whose padded depth is 256 (225-256, among them 256: 4
-// heads at d_model 1024), and the attention of K2 and K3 at head dim 256, on
-// kernels designed for Hopper.  Replaces, at those head dims,
-// explainable_spatial_vqa_tpu/ops/pallas_attention.py:_fused_attention_bhld
-// and the per-head attention of ops/pallas_block.py:_block_kernel (:135-140,
-// float32 q, k, v) and :_tiled_kernel (q, k, v rounded to bf16).
+// Attention kernels designed for Hopper.  Replace, at the head dims and
+// lengths below, explainable_spatial_vqa_tpu/ops/pallas_attention.py:
+// _fused_attention_bhld and the per-head attention of ops/pallas_block.py:
+// _block_kernel (:135-140, float32 q, k, v) and :_tiled_kernel (q, k, v
+// rounded to bf16):
+//   * K1 at the head dims whose padded depth is 256 (225-256, among them
+//     256: 4 heads at d_model 1024), the attention of K2 and K3 at head dim
+//     256 (attention_kernel_split_f32, float32; attention_kernel_wgmma<…,
+//     256>, bf16 up to 256 keys);
+//   * K1 in bf16 at head dims 72-128 (multiples of 8) up to 256 keys and K3's
+//     attention at head dim 128 (attention_kernel_wgmma at padded depths 80,
+//     96, 112, 128), and K1 and K3 in bf16 past 256 keys at every multiple of
+//     8 up to 128 (attention_kernel_wgmma_2pass).
 //
-// Arithmetic: attention.cuh's, on the true head dim D (the columns D .. 255
-// of Q, K and V read as zeros): scores in float32 scaled by 1/sqrt(D), -1e30
-// on masked keys and -inf past L, a float32 softmax with sum + 1e-30; bf16
-// weights normalised and then rounded to bf16; P V summed in float32.
+// Arithmetic: attention.cuh's, on the true head dim D (the columns D .. DP - 1
+// of Q, K and V read as zeros, DP the padded depth): scores in float32
+// scaled by 1/sqrt(D), -1e30 on masked keys and -inf past L, a float32
+// softmax with sum + 1e-30; bf16 weights normalised and then rounded to
+// bf16; P V summed in float32.
 //
 // attention_kernel_split_f32: float32 q, k, v, any L (K2's attention at
 // d_model 1024, K1 in float32).  Both products in 3xTF32 on mma.sync, the
@@ -42,29 +50,58 @@
 // planes in shared memory, the key tiles stay at 16 (m64n16 score products)
 // and it ran 2x slower.
 //
-// attention_kernel_wgmma: bf16 q, k, v, 17 <= L <= 256 (K3's attention at
-// d_model 1024, K1 in bf16).  One pass, as attention_kernel_onepass does at
-// D <= 64, on wgmma.  Bound on the H100: the bytes of q, k, v and the output
-// (0.0651 ms at B=128, H=4, L=208), under the tensor cores' 4 L^2 D
-// operations at 989 TFLOP/s.  attention_padded.cuh's kernel (1.00 ms there) took
-// two passes over K (every score twice) with three to five block barriers a
-// 32-key tile.  Here a block is 128 query rows: two consumer warpgroups of 64
-// rows and a producer warpgroup that copies Q (in 64-column boxes) and then
-// K's tiles of 64 keys (two 128-column halves each) and V's (one half of the
-// columns at a time) by cp.async into a ring of 16 KB stages in the 128-byte
-// swizzle, each stage on full/empty mbarriers.  Each consumer holds its
-// rows' scores against every key in registers (wgmma m64n64k16, Q and K both
-// K-major from shared memory; at most 4 tiles, 128 floats a thread), takes
-// the exact row max and sum, normalises with div_by, rounds to bf16 straight
-// into wgmma's A-register fragments (64 registers), and multiplies by V as an
-// MN-major B operand (the transpose bit), one 128-column half of the output
-// at a time (64 floats a thread).  Rows past L read as zeros (cp.async's
-// zero fill), so a sequence never reads the next one's rows.
+// The bf16 kernels on wgmma.  Bound on the H100: the bytes of q, k, v and
+// the output (0.0651 ms at B=128, H=4, L=208, D=256; 0.0306 at D=120), under
+// the tensor cores' 4 L^2 D operations at 989 TFLOP/s up to ~1000 keys; past
+// that the operations (the two-pass kernel does 6 L^2 D: pass 2 recomputes
+// the scores).  What held the kernels they replace (PERF.md §6): the ring
+// (attention.cuh's attention_kernel, 2.3-3.8x SDPA at D = 72-128) spilled
+// 476-2664 bytes at 255 registers holding 224 keys' scores as mma.sync
+// fragments, with a block barrier per 32-key tile, and past 224 keys took
+// its two passes in 224-key chunks (3.6x SDPA at L = 1025); the padded
+// kernel at depth 256 took two passes over K with three to five block
+// barriers a 32-key tile.  Here a block is two consumer warpgroups of 64
+// query rows and a producer warpgroup that copies Q (in 64-column boxes) and
+// then K's and V's tiles of 64 keys by cp.async into a ring of kWgmmaStages
+// stages of 16 KB (two 64-column boxes) in the 128-byte swizzle, each stage
+// on full/empty mbarriers.  The score products are wgmma m64n64k16 over the
+// padded depth (Q and K both K-major from shared memory; DP / 16 of them a
+// tile, the columns past D zero-filled by cp.async); P V multiplies the
+// weights, rounded to bf16 straight into wgmma's A-register fragments, by V
+// as an MN-major B operand (the transpose bit), 64 columns a product (the
+// columns past D zeros and not stored).  Both hold their consumers to
+// ptxas's 168 registers a thread at 384 threads: past it ptxas spills and
+// serialises every wgmma (PERF.md §6).
+// The block's first step writes the key mask as bits in shared memory (a
+// warp's ballot a word), so each tile's masking reads two words: the
+// mask's float loads in the softmax took a third of the time (PERF.md §6).
+//   * attention_kernel_wgmma<TO, DP>: 17 <= L <= 256, one pass.  Each
+//     consumer issues every tile's score products before it waits, holds
+//     its rows' scores against every key in registers (at most 4 tiles, 128
+//     floats a thread), takes the exact row max and sum, normalises with
+//     div_by, rounds to bf16 (64 registers of A fragments) and issues every
+//     tile's P V before it waits, one 128-column half of the output at a
+//     time (64 floats a thread; one half below DP = 256).  At DP = 256 K's
+//     tiles come in two 128-column halves, a stage each.
+//   * attention_kernel_wgmma_2pass<TO, DP>: DP <= 128, L > 256, two passes
+//     over 64-key tiles.  Pass 1 takes each tile's scores, the running row
+//     max (the quad's) and the thread's share of the sum, rescaled when the
+//     max grows; pass 2 recomputes each tile's scores with the same products
+//     in the same order (so the same sums), normalises exp(s - max) against
+//     the final max and sum, rounds to bf16 into the A fragments and
+//     accumulates P V in float32 (32 or 64 floats a thread).  The producer
+//     sends K's tiles (pass 1), then K's and V's tile j in turn (pass 2).
+//     Tile j + 1's products in flight during tile j's arithmetic, a
+//     persistent block an SM, ran slower or no faster: ptxas serialised
+//     the pipelined wgmma, and persistence gained 0-3% (PERF.md §6).
+// Rows past L read as zeros (cp.async's zero fill), so a sequence never
+// reads the next one's rows.
 //
-// Both take rows whose elements are whole 16-byte chunks (D * sizeof(T) % 16
-// == 0, bases and strides aligned); attention_padded.cuh's launcher routes
-// everything else at padded depth 256, rows of <= 16 keys and bf16 rows past
-// 256 keys to the padded kernels.
+// All take rows whose elements are whole 16-byte chunks (D * sizeof(T) % 16
+// == 0, bases and strides aligned): launch_attention_dim (attention.cuh)
+// requires it at the head dims 8-128, and at padded depth 256
+// attention_padded.cuh's launcher sends everything else, rows of <= 16 keys
+// and bf16 rows past 256 keys to the padded kernels.
 #pragma once
 
 #include "attention.cuh"
@@ -408,18 +445,115 @@ __global__ void __launch_bounds__(kSplitThreads, 1) attention_kernel_split_f32(
   }
 }
 
-// ---- bf16: attention_kernel_wgmma ----
+// ---- bf16 on wgmma: attention_kernel_wgmma, attention_kernel_wgmma_2pass ----
 
 constexpr int kWgmmaKeys = 64;        // keys a tile (the N of the score products)
-constexpr int kWgmmaMaxKeys = 256;    // the longest row: scores of 4 tiles in registers
+constexpr int kWgmmaMaxKeys = 256;    // the one-pass kernel's longest row: 4 tiles' scores
 constexpr int kWgmmaStages = 8;       // ring stages of 16 KB
 constexpr int kWgmmaBox = 8192;       // 64 rows of 128 bytes, one swizzle box
 constexpr int kWgmmaStage = 2 * kWgmmaBox;
 constexpr int kWgmmaThreads = 3 * 128;  // two consumer warpgroups, one producer
-// Q's 128 rows (8 boxes), the ring, the mbarriers, and 1 KB to align the
-// boxes to the swizzle's 1 KB atoms
+constexpr int kWgmmaRows = 128;         // query rows an item (a warpgroup 64)
+static_assert(kWgmmaMaxKeys == kOnePassKeys, "launch_attention_dim's one-pass rows");
+
+// At padded depth DP (the head dim rounded up to 16): K's columns in halves
+// of 128 (two at DP = 256, a stage each), the 16-deep slices of a half, Q's
+// 64-column boxes a warpgroup, and V's 64-column boxes a half (P V's N is
+// 64 a box; past D the columns are zeros and not stored)
+template <int DP>
+__host__ __device__ constexpr int wgmma_halves() {
+  return DP > 128 ? 2 : 1;
+}
+template <int DP>
+__host__ __device__ constexpr int wgmma_slices() {
+  return DP / wgmma_halves<DP>() / 16;
+}
+template <int DP>
+__host__ __device__ constexpr int wgmma_qboxes() {
+  return (DP + 63) / 64;
+}
+template <int DP>
+__host__ __device__ constexpr int wgmma_vboxes() {
+  return DP > 64 ? 2 : 1;
+}
+// Q's 128 rows (2 Q-box groups), the ring, the mbarriers (Q's, and full
+// and empty per stage), the key mask's bits, and 1 KB to align the boxes to
+// the swizzle's 1 KB atoms
+template <int DP>
 constexpr size_t wgmma_smem_bytes() {
-  return 1024 + 8 * kWgmmaBox + (size_t)kWgmmaStages * kWgmmaStage + 8 * (1 + 2 * kWgmmaStages);
+  return 1024 + (size_t)2 * wgmma_qboxes<DP>() * kWgmmaBox + (size_t)kWgmmaStages * kWgmmaStage +
+         8 * (1 + 2 * kWgmmaStages) + 4 * (kAttnMaxLen / 32);
+}
+
+// The consumers' side of the ring: stages taken in the order the producer
+// fills them, and released in that order by every consumer warp once the
+// products that read them are done
+struct WgmmaRing {
+  uint32_t base, bars;  // the stages; full(s) at bars + 8 s, empty(s) at bars + 8 (S + s)
+  int taken, released;
+  __device__ uint32_t take() {  // the next stage, once filled
+    const int st = taken % kWgmmaStages;
+    mbar_wait_bounded(bars + 8 * st, (taken / kWgmmaStages) & 1);
+    fence_proxy_async();
+    ++taken;
+    return base + st * kWgmmaStage;
+  }
+  __device__ void release(int upto) {  // this warp is done with the stages taken before upto
+    __syncwarp();
+    for (; released < upto; ++released)
+      if (threadIdx.x % 32 == 0) mbar_arrive(bars + 8 * (kWgmmaStages + released % kWgmmaStages));
+  }
+};
+
+// A block's item, query rows q0 = kWgmmaRows blockIdx.x .. of head
+// blockIdx.y of batch blockIdx.z, and its shared memory: Q's boxes, the
+// ring's stages and the mbarriers by shared-window address, and the key
+// mask as bits (bit i of keep[w]: key 32 w + i lies below L and is kept)
+template <int DP>
+struct WgmmaBlock {
+  uint32_t qs, ring, bars;
+  const uint32_t* keep;
+  int b, h, q0;
+  __device__ uint32_t qfull() const { return bars; }
+  __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (1 + kWgmmaStages + s); }
+  __device__ WgmmaRing consumer_ring() const { return {ring, bars + 8, 0, 0}; }
+};
+
+// The block's layout in dynamic shared memory, its mbarriers initialised
+// (Q's and the ring's full by the producers' 128 cp.async arrivals, the
+// empties by the consumer warps) and its key mask's bits written, a warp's
+// ballot a word; ends with a block barrier
+template <int DP>
+__device__ __forceinline__ WgmmaBlock<DP> wgmma_block(unsigned char* smem, const float* mask,
+                                                      int L) {
+  WgmmaBlock<DP> blk;
+  blk.qs = (smem_u32(smem) + 1023) & ~1023u;                   // [warpgroup][QB boxes]
+  blk.ring = blk.qs + 2 * wgmma_qboxes<DP>() * kWgmmaBox;      // [S][2 boxes]
+  blk.bars = blk.ring + kWgmmaStages * kWgmmaStage;
+  uint32_t* keep = reinterpret_cast<uint32_t*>(
+      smem + (blk.bars + 8 * (1 + 2 * kWgmmaStages) - smem_u32(smem)));
+  blk.keep = keep;
+  blk.b = blockIdx.z;
+  blk.h = blockIdx.y;
+  blk.q0 = blockIdx.x * kWgmmaRows;
+  if (threadIdx.x == 0) {
+    mbar_init(blk.qfull(), 128);
+    for (int s = 0; s < kWgmmaStages; ++s) {
+      mbar_init(blk.full(s), 128);
+      mbar_init(blk.empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const float* mrow = mask == nullptr ? nullptr : mask + (long long)blk.b * L;
+  for (int w = threadIdx.x / 32; 32 * w < L; w += kWgmmaThreads / 32) {
+    const int key = 32 * w + threadIdx.x % 32;
+    const uint32_t bits =
+        __ballot_sync(0xffffffffu, key < L && (mrow == nullptr || __ldg(mrow + key) > 0.f));
+    if (threadIdx.x % 32 == 0) keep[w] = bits;
+  }
+  __syncthreads();
+  return blk;
 }
 
 #define ESV_ACC32                                                                              \
@@ -453,62 +587,165 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// bf16 q, k, v at a head dim D with padded depth 256 (D % 8 == 0), 16 < L <=
-// 256: one block of 128 query rows (the header's Design)
-template <typename TO>
+// The producer's copies, by cp.async in the 128-byte swizzle: element (row,
+// 16-byte chunk cc) of a box of 64 rows at row * 128 + (cc ^ row % 8) * 16.
+// Q's 128 rows from q0 (src: the head's first row), its DP / 8 chunks a row
+// in wgmma_qboxes boxes a 64-row warpgroup; rows past L and chunks past
+// `chunks` (D / 8) read as zeros
+template <int DP>
+__device__ __forceinline__ void wgmma_copy_q(uint32_t qs, const __nv_bfloat16* src, long long rs,
+                                             int q0, int L, int chunks, int tid) {
+  constexpr int QC = DP / 8, QB = wgmma_qboxes<DP>();
+  for (int i = tid; i < 128 * QC; i += 128) {
+    const int row = i / QC, cc = i % QC, r = row % 64;
+    const bool ok = q0 + row < L && cc < chunks;
+    cp_async16_to(qs + (row / 64 * QB + cc / 8) * kWgmmaBox + r * 128 + ((cc % 8 ^ r % 8) << 4),
+                  src + (ok ? (long long)(q0 + row) * rs + 8 * cc : 0), ok);
+  }
+}
+// A tile: keys key0 .. key0 + 63, columns from 128 cb, its first `width`
+// chunks (the two boxes of a stage hold 16); keys past L and chunks past
+// `chunks` read as zeros, chunks past `width` are not written
+__device__ __forceinline__ void wgmma_copy_tile(uint32_t dst, const __nv_bfloat16* src,
+                                                long long rs, int key0, int cb, int width, int L,
+                                                int chunks, int tid) {
+#pragma unroll
+  for (int e = tid; e < 64 * 16; e += 128) {
+    const int row = e / 16, cc = e % 16, key = key0 + row, col = 16 * cb + cc;
+    if (cc >= width) continue;
+    const bool ok = key < L && col < chunks;
+    cp_async16_to(dst + cc / 8 * kWgmmaBox + row * 128 + ((cc % 8 ^ row % 8) << 4),
+                  src + (ok ? (long long)key * rs + 8 * col : 0), ok);
+  }
+}
+
+// s (+)= the scores of the warpgroup's 64 rows (Q at qw) against a tile's 64
+// keys (K at kst) over half dh of the depth, one m64n64k16 product a 16-deep
+// slice, Q and K both K-major; the first slice of half 0 overwrites s.
+// Issued and committed as one group: the caller waits (wgmma_wait) before
+// it reads s.  The same products in the same order give the same sums (the
+// two-pass kernel relies on it).
+template <int DP>
+__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t qw, uint32_t kst, int dh) {
+  fence_operands(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < wgmma_slices<DP>(); ++kk)
+    wgmma_m64n64k16_ss(s, sw128_desc(qw + (2 * dh + kk / 4) * kWgmmaBox + 32 * (kk % 4)),
+                       sw128_desc(kst + kk / 4 * kWgmmaBox + 32 * (kk % 4)), dh > 0 || kk > 0);
+  wgmma_commit();
+}
+
+// s[4 n + 2 r + e], row g + 8 r against key key0 + 8 n + 2 t + e (key0 a
+// multiple of 64): scaled, -1e30 on masked keys (their bits clear in keep),
+// -inf past L
+__device__ __forceinline__ void wgmma_mask(float (&s)[32], int key0, int L, const uint32_t* keep,
+                                           float scale, int t) {
+  const uint32_t words[2] = {keep[key0 / 32], keep[key0 / 32 + 1]};  // past L: not read
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int key = key0 + 8 * n + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool past = key + e >= L;
+      const bool kp = (words[n / 4] >> (8 * n % 32 + 2 * t + e)) & 1u;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float& x = s[4 * n + 2 * r + e];
+        x = past ? -INFINITY : (kp ? x * scale : -1e30f);
+      }
+    }
+  }
+}
+
+// The weights of a tile normalised (div_by) and rounded to bf16 into P V's A
+// fragments: p[kk] holds keys 16 kk .., p[kk][a] row g + 8 (a % 2), keys
+// 16 kk + 8 (a / 2) + 2 t, + 1.  kExp: s holds the scores (exp(s - m) taken
+// here), else exp(s - m) already
+template <bool kExp>
+__device__ __forceinline__ void wgmma_weights(const float (&s)[32], const float (&m)[2],
+                                              const float (&denom)[2], const float (&inv)[2],
+                                              uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int c = 8 * kk + 2 * a, r = a % 2;
+      const float x0 = kExp ? expf(s[c] - m[r]) : s[c];
+      const float x1 = kExp ? expf(s[c + 1] - m[r]) : s[c + 1];
+      p[kk][a] = pack_bf16x2(div_by(x0, denom[r], inv[r]), div_by(x1, denom[r], inv[r]));
+    }
+}
+
+// o[nb] (+)= P[64 x 64 keys] V[64 keys x the nb-th 64-column box of the
+// stage at vst], V MN-major (the transpose bit); accumulate 0 overwrites o.
+// Issued and committed as one group; p and o are the products' until the
+// caller has waited for it.
+template <int NB>
+__device__ __forceinline__ void wgmma_pv(float (&o)[NB][32], const uint32_t (&p)[4][4],
+                                         uint32_t vst, bool accumulate) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) fence_operands(o[nb]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      wgmma_m64n64k16_rs_mn(o[nb], p[kk], sw128_desc_mn(vst + nb * kWgmmaBox + kk * 16 * 128,
+                                                        kWgmmaBox),
+                            accumulate || kk > 0);
+  wgmma_commit();
+}
+
+// o[nb][4 n + 2 r + e]: row `row` + 8 r, column col0 + 64 nb + 8 n + 2 t + e,
+// stored below L and D (D % 8 == 0)
+template <int NB, typename TO>
+__device__ __forceinline__ void wgmma_store(TO* op, long long out_rs, int row, int L, int D,
+                                            int col0, const float (&o)[NB][32], int t) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = col0 + 64 * nb + 8 * n + 2 * t;
+      if (col < D) {
+        if (row < L) store2(op + (long long)row * out_rs + col, o[nb][4 * n], o[nb][4 * n + 1]);
+        if (row + 8 < L)
+          store2(op + (long long)(row + 8) * out_rs + col, o[nb][4 * n + 2], o[nb][4 * n + 3]);
+      }
+    }
+}
+
+// bf16 q, k, v at a head dim D of padded depth DP (D % 8 == 0; DP 80-128 or
+// 256), 16 < L <= 256: a block of kWgmmaRows query rows, one pass (the
+// header's Design)
+template <typename TO, int DP>
 __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask, TO* __restrict__ out,
     int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
     float scale) {
   static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
+  static_assert(DP % 16 == 0 && DP > 64 && (DP <= 128 || DP == 256), "padded depth");
   constexpr int S = kWgmmaStages, kTiles = kWgmmaMaxKeys / kWgmmaKeys;
+  constexpr int HV = wgmma_halves<DP>(), QB = wgmma_qboxes<DP>(), NB = wgmma_vboxes<DP>();
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
-  const uint32_t qs = (smem_u32(wgmma_smem) + 1023) & ~1023u;  // [warpgroup][4 boxes]
-  const uint32_t ring = qs + 8 * kWgmmaBox;                     // [S][2 boxes]
-  const uint32_t qbar = ring + S * kWgmmaStage;
-  const auto full = [&](int s) { return qbar + 8 * (1 + s); };
-  const auto empty = [&](int s) { return qbar + 8 * (1 + S + s); };
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 128;
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const long long in_off = (long long)b * in_bs + (long long)h * D;
+  const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h, q0 = blk.q0;
   const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys, chunks = D / 8;
-  if (threadIdx.x == 0) {
-    mbar_init(qbar, 128);
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), 128);   // the producers' cp.async arrivals
-      mbar_init(empty(s), 8);    // each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  const long long in_off = (long long)b * in_bs + (long long)h * D;
 
-  if (wg == 2) {  // producer: Q, then K's tiles (two column halves each), then V's by half
+  if (wg == 2) {  // producer: Q, then K's tiles (HV column halves each), then V's by half
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    // element (row, 16-byte chunk cc) of a box of 64 rows at row * 128 + (cc ^ row % 8) * 16
-    for (int i = tid; i < 128 * 32; i += 128) {
-      const int row = i / 32, cc = i % 32, r = row % 64;
-      const bool ok = q0 + row < L && cc < chunks;
-      cp_async16_to(qs + (row / 64 * 4 + cc / 8) * kWgmmaBox + r * 128 + ((cc % 8 ^ r % 8) << 4),
-                    q + in_off + (ok ? (long long)(q0 + row) * in_rs + 8 * cc : 0), ok);
-    }
-    cp_async_arrive(qbar);
-    for (int i = 0; i < 4 * nt; ++i) {
-      const bool is_k = i < 2 * nt;
-      const int j = is_k ? i / 2 : (i - 2 * nt) % nt, cb = is_k ? i % 2 : (i - 2 * nt) / nt;
-      const __nv_bfloat16* src = (is_k ? k : v) + in_off;
-      const int stage = i % S;
-      mbar_wait_bounded(empty(stage), ((i / S) & 1) ^ 1);
-      const uint32_t dst = ring + stage * kWgmmaStage;
-#pragma unroll
-      for (int e = tid; e < 64 * 16; e += 128) {
-        const int row = e / 16, cc = e % 16, key = j * kWgmmaKeys + row, col = 16 * cb + cc;
-        const bool ok = key < L && col < chunks;
-        cp_async16_to(dst + cc / 8 * kWgmmaBox + row * 128 + ((cc % 8 ^ row % 8) << 4),
-                      src + (ok ? (long long)key * in_rs + 8 * col : 0), ok);
-      }
-      cp_async_arrive(full(stage));
+    wgmma_copy_q<DP>(blk.qs, q + in_off, in_rs, q0, L, chunks, tid);
+    cp_async_arrive(blk.qfull());
+    for (int n = 0; n < 2 * HV * nt; ++n) {
+      const bool is_k = n < HV * nt;
+      const int j = is_k ? n / HV : (n - HV * nt) % nt;
+      const int cb = is_k ? n % HV : (n - HV * nt) / nt, stage = n % S;
+      mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
+      wgmma_copy_tile(blk.ring + stage * kWgmmaStage, (is_k ? k : v) + in_off, in_rs,
+                      j * kWgmmaKeys, cb, is_k ? DP / HV / 8 : 8 * NB, L, chunks, tid);
+      cp_async_arrive(blk.full(stage));
     }
     cp_async_wait_all();
     return;
@@ -517,45 +754,27 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const bool active = q0 + 64 * wg < L;  // a warpgroup wholly past L keeps the barriers only
-  const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
-  const uint32_t qw = qs + wg * 4 * kWgmmaBox;
-  int stage = 0;
-  uint32_t phase = 0;
-  const auto release = [&]() {  // this warp is done with the stage
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(stage));
-    if (++stage == S) {
-      stage = 0;
-      phase ^= 1;
-    }
-  };
-  mbar_wait_bounded(qbar, 0);
+  const uint32_t qw = blk.qs + wg * QB * kWgmmaBox;
+  WgmmaRing ring = blk.consumer_ring();
+  mbar_wait_bounded(blk.qfull(), 0);
 
-  // scores: s[j][4n + 2r + e] is row 16 warp + g + 8r against key 64 j + 8n + 2t + e
+  // scores: s[j][4n + 2r + e] is row 16 warp + g + 8r against key 64 j + 8n + 2t + e;
+  // every tile's products issued before the first wait
   float s[kTiles][32];
 #pragma unroll
   for (int j = 0; j < kTiles; ++j) {
     if (j < nt) {
 #pragma unroll
-      for (int dh = 0; dh < 2; ++dh) {  // columns 128 dh ..
-        mbar_wait_bounded(full(stage), phase);
-        fence_proxy_async();
-        if (active) {
-          const uint32_t kst = ring + stage * kWgmmaStage;
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk)
-            wgmma_m64n64k16_ss(s[j], sw128_desc(qw + (2 * dh + kk / 4) * kWgmmaBox + 32 * (kk % 4)),
-                               sw128_desc(kst + kk / 4 * kWgmmaBox + 32 * (kk % 4)),
-                               dh > 0 || kk > 0);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_operands(s[j]);
-        }
-        release();
+      for (int dh = 0; dh < HV; ++dh) {  // columns 128 dh ..
+        const uint32_t kst = ring.take();
+        if (active) wgmma_scores<DP>(s[j], qw, kst, dh);
       }
     }
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) fence_operands(s[j]);
+  ring.release(ring.taken);
 
   // the exact row max and sum, the weights normalised (div_by) and rounded
   // to bf16 into P V's A fragments: p[j][kk] holds keys 64 j + 16 kk ..
@@ -565,21 +784,9 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       if (j < nt) {
+        wgmma_mask(s[j], j * kWgmmaKeys, L, blk.keep, scale, t);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int key = j * kWgmmaKeys + 8 * n + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool past = key + e >= L;
-            const bool kp = past || mrow == nullptr || __ldg(mrow + key + e) > 0.f;
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float& x = s[j][4 * n + 2 * r + e];
-              x = past ? -INFINITY : (kp ? x * scale : -1e30f);
-              m[r] = fmaxf(m[r], x);
-            }
-          }
-        }
+        for (int c = 0; c < 32; ++c) m[c % 4 / 2] = fmaxf(m[c % 4 / 2], s[j][c]);
       }
     }
     float sum[2] = {0.f, 0.f};
@@ -607,64 +814,136 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
       inv[r] = __frcp_rn(denom[r]);
     }
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      if (j < nt) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {  // a: n = 2 kk + a / 2, row g + 8 (a % 2)
-            const int c = 8 * kk + 2 * a, r = a % 2;
-            p[j][kk][a] = pack_bf16x2(div_by(s[j][c], denom[r], inv[r]),
-                                      div_by(s[j][c + 1], denom[r], inv[r]));
-          }
-      }
-    }
+    for (int j = 0; j < kTiles; ++j)
+      if (j < nt) wgmma_weights<false>(s[j], m, denom, inv, p[j]);
   }
 
-  // P V, one half of the output columns at a time: o[nb][4n + 2r + e] is row
-  // 16 warp + g + 8r, column 128 half + 64 nb + 8n + 2t + e
+  // P V, one half of the output columns at a time, every tile's products
+  // issued before the wait: o[nb][4n + 2r + e] is row 16 warp + g + 8r,
+  // column 128 half + 64 nb + 8n + 2t + e
   TO* op = out + (long long)b * out_bs + (long long)h * D;
   const int row = q0 + 64 * wg + 16 * warp + g;
 #pragma unroll 1
-  for (int half = 0; half < 2; ++half) {
-    float o[2][32];
+  for (int half = 0; half < HV; ++half) {
+    float o[NB][32];
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       if (j < nt) {
-        mbar_wait_bounded(full(stage), phase);
-        fence_proxy_async();
-        if (active) {
-          const uint32_t vst = ring + stage * kWgmmaStage;
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int nb = 0; nb < 2; ++nb)
-              wgmma_m64n64k16_rs_mn(o[nb], p[j][kk],
-                                    sw128_desc_mn(vst + nb * kWgmmaBox + kk * 16 * 128, kWgmmaBox),
-                                    j > 0 || kk > 0);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_operands(o[0]);
-          fence_operands(o[1]);
-        }
-        release();
+        const uint32_t vst = ring.take();
+        if (active) wgmma_pv<NB>(o, p[j], vst, j > 0);
       }
     }
-    if (active) {
+    wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int col = 128 * half + 64 * nb + 8 * n + 2 * t;  // D % 8 == 0
-          if (col < D) {
-            if (row < L) store2(op + (long long)row * out_rs + col, o[nb][4 * n], o[nb][4 * n + 1]);
-            if (row + 8 < L)
-              store2(op + (long long)(row + 8) * out_rs + col, o[nb][4 * n + 2], o[nb][4 * n + 3]);
-          }
-        }
-    }
+    for (int nb = 0; nb < NB; ++nb) fence_operands(o[nb]);
+    ring.release(ring.taken);
+    if (active) wgmma_store<NB>(op, out_rs, row, L, D, 128 * half, o, t);
   }
+}
+
+// bf16 q, k, v at a head dim D of padded depth DP (D % 8 == 0, DP <= 128),
+// rows past 256 keys: a block of kWgmmaRows query rows, two passes over K
+// (the header's Design)
+template <typename TO, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask, TO* __restrict__ out,
+    int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
+    float scale) {
+  static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
+  static_assert(DP % 16 == 0 && DP <= 128, "padded depth");
+  constexpr int S = kWgmmaStages, QB = wgmma_qboxes<DP>(), NB = wgmma_vboxes<DP>();
+  extern __shared__ __align__(1024) unsigned char wgmma_smem[];
+  const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h, q0 = blk.q0;
+  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys, chunks = D / 8;
+  const long long in_off = (long long)b * in_bs + (long long)h * D;
+
+  if (wg == 2) {  // producer: Q; K's tiles (pass 1); K's and V's tile j in turn (pass 2)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    wgmma_copy_q<DP>(blk.qs, q + in_off, in_rs, q0, L, chunks, tid);
+    cp_async_arrive(blk.qfull());
+    for (int n = 0; n < 3 * nt; ++n) {
+      const bool is_k = n < nt || (n - nt) % 2 == 0;
+      const int j = n < nt ? n : (n - nt) / 2, stage = n % S;
+      mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
+      wgmma_copy_tile(blk.ring + stage * kWgmmaStage, (is_k ? k : v) + in_off, in_rs,
+                      j * kWgmmaKeys, 0, is_k ? DP / 8 : 8 * NB, L, chunks, tid);
+      cp_async_arrive(blk.full(stage));
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const bool active = q0 + 64 * wg < L;  // a warpgroup wholly past L only takes stages
+  const uint32_t qw = blk.qs + wg * QB * kWgmmaBox;
+  WgmmaRing ring = blk.consumer_ring();
+  mbar_wait_bounded(blk.qfull(), 0);
+  // a tile's scores: s[4n + 2r + e] is row 16 warp + g + 8r against key
+  // 64 j + 8n + 2t + e, scaled and masked
+  const auto scores = [&](float (&s)[32], int j) {
+    const uint32_t kst = ring.take();
+    if (active) wgmma_scores<DP>(s, qw, kst, 0);
+    wgmma_wait<0>();
+    fence_operands(s);
+    ring.release(ring.taken);
+    if (active) wgmma_mask(s, j * kWgmmaKeys, L, blk.keep, scale, t);
+  };
+
+  // pass 1: the running row max (the quad's) and this thread's share of the
+  // sum, rescaled when the max grows
+  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int j = 0; j < nt; ++j) {
+    float s[32];
+    scores(s, j);
+    if (!active) continue;
+    float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < 32; ++c) tm[c % 4 / 2] = fmaxf(tm[c % 4 / 2], s[c]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+      const float mn = fmaxf(m[r], tm[r]);  // finite: tile j holds key 64 j < L
+      sum[r] *= expf(m[r] - mn);            // 0 on the first tile
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int c = 0; c < 32; ++c) sum[c % 4 / 2] += expf(s[c] - m[c % 4 / 2]);
+  }
+  float denom[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    denom[r] = sum[r] + 1e-30f;
+    inv[r] = __frcp_rn(denom[r]);
+  }
+
+  // pass 2: each tile's scores again (the same products in the same order),
+  // exp(s - max) normalised and rounded to bf16 into P V's A fragments,
+  // times V: o[nb][4n + 2r + e] is row 16 warp + g + 8r, column 64 nb + 8n
+  // + 2t + e
+  float o[NB][32];
+#pragma unroll 1
+  for (int j = 0; j < nt; ++j) {
+    float s[32];
+    scores(s, j);
+    uint32_t p[4][4];
+    if (active) wgmma_weights<true>(s, m, denom, inv, p);
+    const uint32_t vst = ring.take();
+    if (active) wgmma_pv<NB>(o, p, vst, j > 0);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_operands(o[nb]);
+    ring.release(ring.taken);
+  }
+  if (active)
+    wgmma_store<NB>(out + (long long)b * out_bs + (long long)h * D, out_rs,
+                    q0 + 64 * wg + 16 * warp + g, L, D, 0, o, t);
 }
 
 #undef ESV_ACC32
@@ -694,6 +973,49 @@ static cudaError_t wide_attribute() {
   });
 }
 
+// Kernel (attention_kernel_wgmma or attention_kernel_wgmma_2pass at depth
+// DP) on blocks of kWgmmaRows query rows, counted under `kind`
+template <auto Kernel, int DP, typename TO>
+static cudaError_t launch_wgmma_kernel(AttnKernel kind, const __nv_bfloat16* q,
+                                       const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                       const float* mask, TO* out, int B, int H, int L, int D,
+                                       long long in_bs, long long in_rs, long long out_bs,
+                                       long long out_rs, cudaStream_t stream) {
+  const cudaError_t err = wide_attribute<Kernel, wgmma_smem_bytes<DP>()>();
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
+  Kernel<<<dim3((L + kWgmmaRows - 1) / kWgmmaRows, H, B), kWgmmaThreads, wgmma_smem_bytes<DP>(),
+           stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale);
+  return counted_launch(kind);
+}
+
+// bf16 at a head dim D of padded depth DP, 16 < L <= kWgmmaMaxKeys, rows of
+// whole 16-byte chunks: one pass (launch_attention_dim at D = 72-128,
+// launch_attention_wide at 225-256)
+template <int DP, typename TO>
+static cudaError_t launch_attention_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v, const float* mask, TO* out,
+                                          int B, int H, int L, int D, long long in_bs,
+                                          long long in_rs, long long out_bs, long long out_rs,
+                                          cudaStream_t stream) {
+  return launch_wgmma_kernel<attention_kernel_wgmma<TO, DP>, DP, TO>(
+      kAttnKernelWgmma, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
+}
+
+// bf16 at a head dim D of padded depth DP <= 128, L > kWgmmaMaxKeys: two
+// passes (launch_attention_dim)
+template <int DP, typename TO>
+static cudaError_t launch_attention_wgmma_2pass(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                                const __nv_bfloat16* v, const float* mask,
+                                                TO* out, int B, int H, int L, int D,
+                                                long long in_bs, long long in_rs,
+                                                long long out_bs, long long out_rs,
+                                                cudaStream_t stream) {
+  return launch_wgmma_kernel<attention_kernel_wgmma_2pass<TO, DP>, DP, TO>(
+      kAttnKernelWgmma2Pass, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
+      stream);
+}
+
 // attention_kernel_split_f32 (float32 q, k, v) or attention_kernel_wgmma
 // (bf16) on a call wide_takes
 template <typename T, typename TO>
@@ -701,21 +1023,17 @@ static cudaError_t launch_attention_wide(const T* q, const T* k, const T* v, con
                                          TO* out, int B, int H, int L, int D, long long in_bs,
                                          long long in_rs, long long out_bs, long long out_rs,
                                          cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
   if constexpr (std::is_same<T, float>::value) {
     const cudaError_t err = wide_attribute<attention_kernel_split_f32<TO>, split_smem_bytes()>();
     if (err != cudaSuccess) return err;
+    const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
     const dim3 grid((L + 16 * kSplitGroups - 1) / (16 * kSplitGroups), H, B);
     attention_kernel_split_f32<TO><<<grid, kSplitThreads, split_smem_bytes(), stream>>>(
         q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale);
     return counted_launch(kAttnKernelSplitF32);
   } else {
-    const cudaError_t err = wide_attribute<attention_kernel_wgmma<TO>, wgmma_smem_bytes()>();
-    if (err != cudaSuccess) return err;
-    attention_kernel_wgmma<TO><<<dim3((L + 127) / 128, H, B), kWgmmaThreads, wgmma_smem_bytes(),
-                                 stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs,
-                                           scale);
-    return counted_launch(kAttnKernelWgmma);
+    return launch_attention_wgmma<256, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
+                                           out_rs, stream);
   }
 }
 

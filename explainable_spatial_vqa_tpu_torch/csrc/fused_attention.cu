@@ -19,14 +19,17 @@
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
-// L <= 16 the launch itself dominates.  The kernels are attention.cuh's:
-// mma.sync on the tensor cores (P V in bf16, or both products in 3xTF32 for
-// float32), each warp's 16 rows of scores in registers.  bf16 weights are
-// normalised before they are rounded, exactly as the TPU kernel does: at
-// D <= 64 and 16 < L <= 256 (the d 256 encoders) in one pass over K and V
-// held whole in shared memory (attention_kernel_onepass); otherwise K and V
-// stream through a cp.async ring, in two passes past 224 keys.  float32
-// weights are not rounded, and their softmax runs online.
+// L <= 16 the launch itself dominates.  The kernels are attention.cuh's
+// (mma.sync on the tensor cores: P V in bf16, or both products in 3xTF32
+// for float32, each warp's 16 rows of scores in registers) and
+// attention_wide.cuh's (wgmma).  bf16 weights are normalised before they are
+// rounded, exactly as the TPU kernel does: past 16 keys, at D <= 64 up to
+// 256 keys (the d 256 encoders) in one pass over K and V held whole in
+// shared memory (attention_kernel_onepass), at D = 72-128 up to 256 keys in
+// one pass on wgmma (attention_kernel_wgmma), and past 256 keys at every D
+// in two passes on wgmma (attention_kernel_wgmma_2pass); at L <= 16 one
+// warp's cp.async ring (attention_kernel).  float32 weights are not
+// rounded, and their softmax runs online.
 //
 // Translation units: this file is compiled once for the C entries below,
 // once for each group of one or two head dims (ops/_build.py:
@@ -50,7 +53,8 @@
 // Returns the CUDA error of the launch (0 on success; cudaErrorInvalidValue
 // for another D or L).
 //   int esv_attention_fma_scores(the same arguments)
-// is the bf16 kernel (bf16 q, k, v and output, D = 128 only) with its scores summed
+// runs every call past 16 keys on the ring (attention_kernel<bf16, bf16,
+// 128, 8>: bf16 q, k, v and output, D = 128 only) with its scores summed
 // in FMA chains on the CUDA cores instead of on the tensor cores: a variant
 // that no wrapper launches, kept so that chip_smoke.py can time it and hold
 // it against the plain version beside the kernel (PERF.md §6).
@@ -58,7 +62,9 @@
 //   long long esv_attention_launches(int i)
 // name K1's kernel function i (0: attention_kernel_f32, 1: attention_kernel,
 // 2: attention_kernel_onepass, 3: attention_kernel_padded_f32, 4:
-// attention_kernel_padded; null and -1 past the last) and count the
+// attention_kernel_padded, 5: attention_kernel_split_f32, 6:
+// attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass; null and -1 past
+// the last) and count the
 // launches of it that this library's entries have made since it was loaded:
 // which kernel a call takes is decided in launch_attention_dim and
 // launch_attention_padded alone, and the counts say which ran.

@@ -60,7 +60,9 @@
 //       sequence, so each q, k, v is the correctly rounded one: where its
 //       compensated sum lies close to a bf16 tie, exact_fixup rounds it from
 //       the exact sum (float64) instead (see "K3's q, k and v" below);
-//   (b) the attention kernels of K1 (attention.cuh at head dim 128,
+//   (b) the attention kernels of K1 (attention.cuh at head dim 128, K3's
+//       past 16 keys on attention_wide.cuh's attention_kernel_wgmma up to
+//       256 keys and attention_kernel_wgmma_2pass past them;
 //       attention_wide.cuh at 256: attention_kernel_split_f32 for K2 and
 //       attention_kernel_wgmma for K3, attention_padded.cuh's kernels at 16
 //       keys or fewer): on K2's float32 q, k, v both products in 3xTF32 on
@@ -115,7 +117,7 @@
 // name the attention kernel function i (attention.cuh's AttnKernel: 0
 // attention_kernel_f32, 1 attention_kernel, 3 attention_kernel_padded_f32,
 // 4 attention_kernel_padded, 5 attention_kernel_split_f32, 6
-// attention_kernel_wgmma) and count the launches of it that this library's
+// attention_kernel_wgmma, 7 attention_kernel_wgmma_2pass) and count the launches of it that this library's
 // blocks and esv_block_attention have made since it was loaded.
 // H is d / 128 or d / 256 (the attention's head dims), L at most
 // kAttnMaxLen.  Returns the first CUDA error of the launches (0 on success).

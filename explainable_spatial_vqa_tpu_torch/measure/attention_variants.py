@@ -4,21 +4,39 @@ on the card.
 
     python -m explainable_spatial_vqa_tpu_torch.measure.attention_variants
         [--rounds 6] [--iters 20] [--variants ring,warps8,...]
+        [--against LABEL=CSRC_DIR]
 
-Each variant asks one question of a shipped kernel (``VARIANTS``).  Of the
-one-pass bf16 kernel at head dims up to 64 (``attention_kernel_onepass`` in
-``csrc/attention.cuh``; timed at ``ONEPASS_CASES``, the ``fused_attention``
-library):
+Each variant asks one question of a shipped kernel (``VARIANTS``).  Of K1's
+bf16 kernels at head dims up to 128 (``csrc/attention.cuh``'s one-pass
+kernel at head dims up to 64, ``csrc/attention_wide.cuh``'s wgmma kernels
+past them and past 256 keys; timed at ``ONEPASS_CASES`` and
+``WGMMA_CASES``, the ``fused_attention`` library):
 
-* ``ring``: no one-pass kernel, so that these calls take the cp.async ring
-  (``attention_kernel<bf16, bf16, D, 8>``, two passes past 224 keys), the
-  kernel they took before the one-pass kernel was added;
+* ``ring``: every bf16 call past 16 keys on the cp.async ring
+  (``attention_kernel<bf16, bf16, D, 8>``, two passes past 224 keys;
+  ``launch_attention_dim``'s route for ``esv_attention_fma_scores`` taken at
+  every head dim, with the scores on the tensor cores): the kernel these
+  calls took before the one-pass and wgmma kernels;
 * ``warps8``: 8 warps a block (one block an SM at 218 registers a thread)
   instead of 4 (two blocks an SM);
 * ``ieee_division``: each weight divided by ``/`` (the compiler's division,
   with its per-element range check and slow-path branch) instead of
   ``div_by``'s reciprocal taken once a row and one correction;
-* ``fast_exp``: ``__expf`` (ex2.approx of x log2 e) instead of ``expf``.
+* ``fast_exp``: ``__expf`` (ex2.approx of x log2 e) instead of ``expf``;
+* ``wgmma_fast_exp``: the wgmma kernels' weights from ``__expf``
+  (ex2.approx of x log2 e) instead of ``expf``: how much of their time the
+  softmax's instructions take;
+* ``wgmma_two_pass_short``: the two-pass wgmma kernel for every bf16 call
+  past 16 keys, not only past 256 (at head dims up to 64 in place of the
+  one-pass kernel too);
+* ``wgmma_no_softmax``: the one-pass wgmma kernel without its softmax (no
+  max, exp, sum or normalisation; P V on unset fragments: wrong numbers);
+* ``wgmma_unmasked``: the wgmma kernels take no key mask (wrong numbers
+  where keys are masked): what the mask costs;
+* ``wgmma_no_fill``: the wgmma kernels' producer arrives on each stage
+  without copying Q, K or V (wrong numbers: the consumers alone);
+* ``wgmma_consumers_idle``: every consumer warpgroup of the wgmma kernels
+  takes and releases the stages only (wrong numbers: the producer alone).
 
 Of the head-dim-256 kernels (``csrc/attention_wide.cuh``; timed at
 ``WIDE_CASES``, K1's layout and K2's and K3's (B, L, 3d) buffer, through the
@@ -45,7 +63,13 @@ alone):
   barriers only (wrong numbers: the producers alone);
 * ``wgmma_stages4``: the bf16 kernel's ring at 4 stages of 16 KB, not 8.
 
-The variants compile in parallel into ``_build/attention_variants/``.  Each
+``--against LABEL=CSRC_DIR`` adds the libraries of the kinds asked for,
+built from another ``csrc/`` (the parent commit's, unpacked by ``git
+archive``) with the same flags, under LABEL: a change to the kernels timed
+against what it replaces in one process.
+
+The variants compile in parallel into ``_build/attention_variants/``, and
+ptxas's notes on wgmma it serialised are printed for each library.  Each
 library's entry runs every case of its kind: first its largest error against
 the plain version (``ops.attention.dot_product_attention``), then
 ``--rounds`` rounds of CUDA-event means over ``--iters`` calls, the libraries
@@ -58,8 +82,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import statistics
+from pathlib import Path
 from typing import Dict, List, Sequence
 
 import torch
@@ -69,8 +93,8 @@ from explainable_spatial_vqa_tpu_torch.device import card_line, resolve_device
 from explainable_spatial_vqa_tpu_torch.measure.variants import Edit, build_variants, mean_ms
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
-__all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "ONEPASS_CASES", "WIDE_CASES",
-           "main"]
+__all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "ONEPASS_CASES", "WGMMA_CASES",
+           "WIDE_CASES", "main"]
 
 # label, head dim, B, L, ragged key mask; H = 4, bf16
 ONEPASS_CASES = (("transformer_iqap encoder", 64, 512, 243, False),
@@ -78,6 +102,24 @@ ONEPASS_CASES = (("transformer_iqap encoder", 64, 512, 243, False),
                  ("hierarchical encoder", 64, 32, 196, False),
                  ("protocol d 192 fusion encoder", 48, 128, 208, True),
                  ("protocol d 96 fusion encoder", 24, 128, 208, True))
+# the rows the wgmma kernels took from the ring: label, layout ("K1" or
+# "block", as WIDE_CASES), head dim, B, L; H = 4, bf16, ragged key mask: the
+# protocol's fusion encoder at d_model 4 D, K1 at the fusion encoder's
+# length, rows past 1024 keys, K3's attention at head dim 128 (the block
+# bench's rows, and past 256 keys); then the edges of their routes: the
+# two-pass kernel at the narrow head dims (P V over 64 columns of V, zero
+# past D) and the one-pass kernel on rows of one or a few tiles
+WGMMA_CASES = tuple((f"protocol d {4 * d} fusion encoder", "K1", d, 128, 208)
+                    for d in range(72, 121, 8)) + (
+    ("fusion encoder L=210", "K1", 128, 128, 210),
+    ("1025-key row", "K1", 128, 16, 1025),
+    ("1025-key row D=64", "K1", 64, 16, 1025),
+    ("K3 attention hd128 L=224", "block", 128, 128, 224),
+    ("K3 attention hd128 L=304", "block", 128, 128, 304)) + tuple(
+    (f"{length}-key row D={d}", "K1", d, b, length)
+    for d in (8, 32, 56) for length, b in ((257, 128), (1025, 16), (4096, 2))) + tuple(
+    (f"{length}-key row D={d}", "K1", d, 128, length)
+    for d in (72, 128) for length in (17, 64))
 # label, layout ("K1": (B, L, H, D); "block": the thirds of a (B, L, 3d)
 # buffer), type of q/k/v, output type, B, L; H = 4, D = 256, ragged key mask
 WIDE_CASES = (("K1 bf16 L=208", "K1", "bf16", "bf16", 128, 208),
@@ -111,8 +153,8 @@ _PV = ("      mma_3xtf32(o[2 * cp], ahi, alo, bh0, bl0);\n"
 
 # name: (file, old, new) replacements, each old text found exactly once
 ONEPASS_VARIANTS: Dict[str, Sequence[Edit]] = {
-    "ring": (("attention.cuh", "    if constexpr (D <= 64 && !kFmaScores) {",
-              "    if constexpr (false) {"),),
+    "ring": (("attention.cuh", "    if constexpr (kFmaScores) {\n",
+              "    if constexpr (true) {\n"),),
     "warps8": (("attention.cuh", "constexpr int kOnePassWarps = 4;",
                 "constexpr int kOnePassWarps = 8;"),),
     "ieee_division": (("attention.cuh", _DIV,
@@ -120,6 +162,26 @@ ONEPASS_VARIANTS: Dict[str, Sequence[Edit]] = {
                        "                                s[kt][n][2 * r + 1] / denom[r]);\n"),),
     "fast_exp": (("attention.cuh", "s[kt][n][c] = expf(s[kt][n][c] - m[c / 2]);",
                   "s[kt][n][c] = __expf(s[kt][n][c] - m[c / 2]);"),),
+    "wgmma_fast_exp": tuple(("attention_wide.cuh", old, old.replace("expf(", "__expf(")) for old in (
+        "s[j][c] = expf(s[j][c] - m[c % 4 / 2]);", "kExp ? expf(s[c] - m[r])",
+        "kExp ? expf(s[c + 1] - m[r])", "sum[c % 4 / 2] += expf(s[c] - m[c % 4 / 2]);")),
+    "wgmma_two_pass_short": (("attention.cuh", "      if (L > kOnePassKeys)\n"
+                              "        return launch_attention_wgmma_2pass",
+                              "      if (L > 16)\n        return launch_attention_wgmma_2pass"),),
+    "wgmma_no_softmax": (("attention_wide.cuh", "  uint32_t p[kTiles][4][4];\n  if (active) {",
+                          "  uint32_t p[kTiles][4][4];\n  if (false) {"),),
+    "wgmma_unmasked": (("attention_wide.cuh",
+                        "const float* mrow = mask == nullptr ? nullptr : mask + (long long)blk.b * L;",
+                        "const float* mrow = nullptr;"),),
+    "wgmma_no_fill": (("attention_wide.cuh", "    if (cc >= width) continue;",
+                       "    if (cc >= width || true) continue;"),
+                      ("attention_wide.cuh", "    const bool ok = q0 + row < L && cc < chunks;\n",
+                       "    const bool ok = q0 + row < L && cc < chunks;\n    if (ok || !ok) continue;\n")),
+    "wgmma_consumers_idle": tuple(
+        ("attention_wide.cuh", f"const bool active = q0 + 64 * wg < L;  // {note}\n",
+         "const bool active = false;\n")
+        for note in ("a warpgroup wholly past L keeps the barriers only",
+                     "a warpgroup wholly past L only takes stages")),
 }
 WIDE_VARIANTS: Dict[str, Sequence[Edit]] = {
     "padded": (("attention_padded.cuh", "  if constexpr (DP == 256) {\n",
@@ -153,19 +215,35 @@ VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS}
 _TYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def _ragged(gen, dev, b: int, length: int):
+    keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+    keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+    return keep[:, None, None, :]
+
+
+def _rows(gen, dev, layout: str, b: int, length: int, d: int, dtype):
+    """q, k, v as (B, L, d) views: three tensors ("K1"), or the thirds of one
+    (B, L, 3d) buffer ("block")."""
+    if layout == "K1":
+        return tuple(torch.randn(b, length, d, generator=gen, device=dev).to(dtype)
+                     for _ in range(3))
+    return torch.randn(b, length, 3 * d, generator=gen, device=dev).to(dtype).split(d, dim=-1)
+
+
 def _onepass_inputs(dev: torch.device):
-    """[(label, (q, k, v, mask))] at ``ONEPASS_CASES``, from seed 0."""
+    """[(label, (q, k, v, mask, out type))] at ``ONEPASS_CASES`` (from seed
+    0) and ``WGMMA_CASES`` (seed 2), bf16 q, k, v as (B, L, H * D) views
+    (``ops.fused_attention.call_rows``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
     for label, d_head, b, length, masked in ONEPASS_CASES:
-        q, k, v = (torch.randn(b, length, HEADS, d_head, generator=gen, device=dev).bfloat16()
-                   for _ in range(3))
-        mask = None
-        if masked:
-            keep = torch.ones(b, length, dtype=torch.bool, device=dev)
-            keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
-            mask = keep[:, None, None, :]
-        out.append((label, (q, k, v, mask)))
+        q, k, v = _rows(gen, dev, "K1", b, length, HEADS * d_head, torch.bfloat16)
+        out.append((label, (q, k, v, _ragged(gen, dev, b, length) if masked else None,
+                            torch.bfloat16)))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for label, layout, d_head, b, length in WGMMA_CASES:
+        q, k, v = _rows(gen, dev, layout, b, length, HEADS * d_head, torch.bfloat16)
+        out.append((label, (q, k, v, _ragged(gen, dev, b, length), torch.bfloat16)))
     return out
 
 
@@ -173,18 +251,10 @@ def _wide_inputs(dev: torch.device):
     """[(label, (q, k, v, mask, out type))] at ``WIDE_CASES``, from seed 1:
     q, k, v as (B, L, H * D) views (``ops.fused_attention.call_rows``)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    d = HEADS * WIDE_DIM
     out = []
     for label, layout, name, out_name, b, length in WIDE_CASES:
-        if layout == "K1":
-            q, k, v = (torch.randn(b, length, d, generator=gen, device=dev).to(_TYPES[name])
-                       for _ in range(3))
-        else:
-            qkv = torch.randn(b, length, 3 * d, generator=gen, device=dev).to(_TYPES[name])
-            q, k, v = qkv.split(d, dim=-1)
-        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
-        keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
-        out.append((label, (q, k, v, keep[:, None, None, :], _TYPES[out_name])))
+        q, k, v = _rows(gen, dev, layout, b, length, HEADS * WIDE_DIM, _TYPES[name])
+        out.append((label, (q, k, v, _ragged(gen, dev, b, length), _TYPES[out_name])))
     return out
 
 
@@ -201,6 +271,8 @@ def main(argv: Sequence[str] = ()) -> dict:
     parser.add_argument("--rounds", type=int, default=6)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--variants", default=",".join(VARIANTS))
+    parser.add_argument("--against", default="",
+                        help="LABEL=CSRC_DIR: the libraries built from that csrc/ too")
     args = parser.parse_args(list(argv))
     names = [v for v in args.variants.split(",") if v]
     unknown = sorted(set(names) - set(VARIANTS))
@@ -208,42 +280,45 @@ def main(argv: Sequence[str] = ()) -> dict:
         raise ValueError(f"unknown variants {unknown}; known: {sorted(VARIANTS)}")
     dev = resolve_device("cuda")
     print(card_line(dev), flush=True)
-    from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
-        bind_entry,
-        call_entry,
-        call_rows,
-    )
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import bind_entry, call_rows
 
     out_dir = _build.BUILD_DIR / "attention_variants"
+    against, _, tree = args.against.partition("=")
     kinds = {"onepass": [n for n in names if n in ONEPASS_VARIANTS],
              "wide": [n for n in names if n in WIDE_VARIANTS]}
     libraries = {"onepass": ("fused_attention", ONEPASS_VARIANTS, "esv_attention"),
                  "wide": ("fused_block", WIDE_VARIANTS, "esv_block_attention")}
     calls: Dict[str, Dict[str, object]] = {}
     for kind, chosen in kinds.items():
-        if not chosen:
+        if not chosen and not args.against:
             continue
         library, variants, entry = libraries[kind]
         libs = {"shipped": _build.load(library)}
-        for name, (path, _) in build_variants(library, variants, chosen, out_dir).items():
-            libs[name] = ctypes.CDLL(str(path))
-        for label, lib in libs.items():
-            fn = bind_entry(lib, entry)
-            calls.setdefault(label, {})[kind] = (
-                functools.partial(call_entry, fn) if kind == "onepass"
-                else lambda q, k, v, mask, out_dtype, fn=fn: call_rows(fn, q, k, v, mask, HEADS,
-                                                                        out_dtype))
-    cases = {"onepass": _onepass_inputs(dev) if kinds["onepass"] else [],
-             "wide": _wide_inputs(dev) if kinds["wide"] else []}
-    plain = {"onepass": lambda q, k, v, mask: scaled_attention(q, k, v, mask, bf16_scores=False),
-             "wide": _plain}
-    errors: Dict[str, Dict[str, float]] = {label: {} for label in calls}
-    for label, by_kind in calls.items():
+        logs = {"shipped": (_build.BUILD_DIR / f"{library}.log").read_text()}
+        also = ({against: (library, out_dir / f"{against}-{library}.so", Path(tree))}
+                if args.against else None)
+        for name, (path, log) in build_variants(library, variants, chosen, out_dir,
+                                                also=also).items():
+            libs[name], logs[name] = ctypes.CDLL(str(path)), log
+        for name, log in logs.items():  # ptxas's notes on wgmma it serialised, and why
+            notes = sorted({line.split("Potential Performance Loss: ")[-1].strip()
+                            for line in log.splitlines() if "serialized" in line})
+            print(f"{name} ({library}): ptxas serialised wgmma in {len(notes)} functions"
+                  + "".join(f"\n  {note}" for note in notes), flush=True)
+        for name, lib in libs.items():
+            calls.setdefault(name, {})[kind] = (
+                lambda q, k, v, mask, out_dtype, fn=bind_entry(lib, entry): call_rows(
+                    fn, q, k, v, mask, HEADS, out_dtype))
+    if not calls:
+        raise ValueError("nothing to time: name a variant or --against")
+    cases = {"onepass": _onepass_inputs(dev) if "onepass" in calls["shipped"] else [],
+             "wide": _wide_inputs(dev) if "wide" in calls["shipped"] else []}
+    errors: Dict[str, Dict[str, float]] = {name: {} for name in calls}
+    for name, by_kind in calls.items():
         for kind, call in by_kind.items():
-            for name, args_ in cases[kind]:
-                out, ref = call(*args_), plain[kind](*args_)
-                errors[label][name] = float((out.float() - ref.float()).abs().max())
+            for case, args_ in cases[kind]:
+                out, ref = call(*args_), _plain(*args_)
+                errors[name][case] = float((out.float() - ref.float()).abs().max())
     times: Dict[str, Dict[str, List[float]]] = {
         label: {name: [] for kind in by_kind for name, _ in cases[kind]}
         for label, by_kind in calls.items()}
@@ -264,6 +339,8 @@ def main(argv: Sequence[str] = ()) -> dict:
     return emit_json(dict(card=card_line(dev), rounds=args.rounds, iters=args.iters,
                           onepass_cases=[dict(label=c[0], D=c[1], B=c[2], L=c[3], ragged=c[4],
                                               H=HEADS) for c in ONEPASS_CASES],
+                          wgmma_cases=[dict(label=c[0], layout=c[1], D=c[2], B=c[3], L=c[4],
+                                            H=HEADS, ragged=True) for c in WGMMA_CASES],
                           wide_cases=[dict(label=c[0], layout=c[1], type=c[2], out=c[3], B=c[4],
                                            L=c[5], H=HEADS, D=WIDE_DIM, ragged=True)
                                       for c in WIDE_CASES],

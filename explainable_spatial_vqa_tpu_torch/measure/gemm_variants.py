@@ -30,7 +30,8 @@ float32 at the fusion encoder's shape, run through ``block_gemm`` and
 ``fused_encoder_block`` with each library swapped in for ``fused_block``,
 and K2 (L=210) and K3 (L=224, ``batch_tile=2, ffn_chunks=2``) at head dim
 256 (B=128, d_model 1024, 4 heads, ffn 4096, ragged), in bf16 and in
-float32.  First each one's largest error against
+float32, and K3 in bf16 at head dim 128 (d_model 512, ffn 2048) at L = 224
+and 304 (its attention one pass and two).  First each one's largest error against
 the plain version, as a share of max|ref|, then ``--rounds`` rounds of
 CUDA-event means over ``--iters`` calls, the libraries in turn (reversed
 every other round), and the medians.  It prints one line per library and
@@ -66,6 +67,8 @@ PRODUCTS = (("qkv", 1536, 512, False), ("out", 512, 512, False), ("ffn1", 2048, 
 ROWS, D, FFN, HEADS, LENGTH = 128 * 210, 512, 2048, 4, 210
 # K2 and K3 at head dim 256: block, L, B, d_model, ffn
 BLOCKS_HD256 = (("K2", 210, 128, 1024, 4096), ("K3", 224, 128, 1024, 4096))
+# K3 in bf16 at head dim 128: L, B (d_model 512, ffn 2048)
+K3_HD128 = ((224, 128), (304, 128))
 
 _PRODUCTS_3 = (
     "          wgmma_m64n128k8_tf32(part, lo[kk], sw128_desc(whi + 32 * kk), kk > 0 ? 1 : 0);\n"
@@ -114,7 +117,7 @@ def _loaded(lib: ctypes.CDLL) -> Iterator[None]:
 
 def _cases(dev: torch.device):
     """[(name, call, reference)]: K2's four products in float32 and in bf16,
-    K2 in float32, and K2 and K3 at ``BLOCKS_HD256``."""
+    K2 in float32, K2 and K3 at ``BLOCKS_HD256``, and K3 at ``K3_HD128``."""
     from explainable_spatial_vqa_tpu_torch.ops.block_gemm import block_gemm, block_gemm_plain
     from explainable_spatial_vqa_tpu_torch.ops.fused_block import (
         BlockWeights,
@@ -171,6 +174,13 @@ def _cases(dev: torch.device):
                           lambda x=x, keep=keep, w=w, s=split, k=kernel, t=tiling: k(
                               x, keep, w, HEADS, split=s, **t),
                           plain(x, keep, w, HEADS, **tiling)))
+    for length, b in K3_HD128:
+        keep, w, x = block_inputs(b, length, D, FFN, torch.bfloat16)
+        cases.append((f"K3 hd128 bf16 L={length}",
+                      lambda x=x, keep=keep, w=w: fused_encoder_block_tiled(
+                          x, keep, w, HEADS, batch_tile=2, ffn_chunks=2),
+                      fused_encoder_block_tiled_plain(x, keep, w, HEADS, batch_tile=2,
+                                                      ffn_chunks=2)))
     return cases
 
 

@@ -136,9 +136,9 @@ def bind_entry(lib: ctypes.CDLL, entry: str = "esv_attention"):
 @functools.lru_cache(maxsize=None)
 def _esv_attention(entry: str = "esv_attention"):
     """The C entry ``entry`` of ``csrc/fused_attention.cu``: ``esv_attention``,
-    or ``esv_attention_fma_scores`` (its bf16 kernel with FMA-chain scores on
-    the CUDA cores, which no wrapper launches).  Bound once, on the first
-    call, after ``_build.load`` has built and loaded the library."""
+    or ``esv_attention_fma_scores`` (the ring with FMA-chain scores on the
+    CUDA cores, which no wrapper launches).  Bound once, on the first call,
+    after ``_build.load`` has built and loaded the library."""
     return bind_entry(_build.load("fused_attention"), entry)
 
 
@@ -197,8 +197,11 @@ def kernel_launches() -> Dict[str, int]:
     it was loaded: ``attention_kernel_f32``, ``attention_kernel``,
     ``attention_kernel_onepass`` (the head dims of :data:`EXACT_HEAD_DIMS`),
     ``attention_kernel_padded_f32`` and ``attention_kernel_padded`` (every
-    other head dim), and at padded depth 256 ``attention_kernel_split_f32``
-    and ``attention_kernel_wgmma`` (``csrc/attention_wide.cuh``).  Which one
+    other head dim), and on ``csrc/attention_wide.cuh``
+    ``attention_kernel_split_f32`` (float32 at padded depth 256),
+    ``attention_kernel_wgmma`` (bf16 up to 256 keys at head dims 72-128 and
+    at padded depth 256) and ``attention_kernel_wgmma_2pass`` (bf16 past 256
+    keys at the head dims of :data:`EXACT_HEAD_DIMS`).  Which one
     a call takes is decided in ``launch_attention_dim``
     (``csrc/attention.cuh``) and
     ``launch_attention_padded`` (``csrc/attention_padded.cuh``) alone; the

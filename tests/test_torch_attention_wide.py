@@ -18,9 +18,13 @@ slice.  Both of the kernel's layouts are covered: K1's (B, L, H, D) and K2's
 instead of three misses the tolerance.
 
 Also: ``chip_smoke``'s mirrors of the C routing (``k1_kernel``,
-``k1_bf16_kernel``, ``block_attention_kernel``) name the new kernel functions
-exactly where ``launch_attention_padded`` sends calls, checked against the
-names and limits parsed from the C sources.
+``k1_bf16_kernel``, ``block_attention_kernel``) name the kernel functions
+exactly where ``launch_attention_dim`` (the head dims 8-128: the one-pass
+kernels up to ``kOnePassKeys`` keys, ``attention_kernel_wgmma`` past head
+dim 64, ``attention_kernel_wgmma_2pass`` past ``kOnePassKeys`` keys) and
+``launch_attention_padded`` (every other head dim, the wide kernels at
+padded depth 256) send calls, checked against the names and limits parsed
+from the C sources.
 """
 
 import os
@@ -163,30 +167,81 @@ def _names():
 
 def _wide_rule():
     """The limits of wide_takes and the kernel each branch of
-    launch_attention_wide counts, parsed from attention_wide.cuh; and
-    attention_padded.cuh's route to them at padded depth 256 only."""
+    launch_attention_wide counts (the bf16 one through launch_attention_wgmma
+    at depth 256), parsed from attention_wide.cuh; and attention_padded.cuh's
+    route to them at padded depth 256 only."""
     takes = re.search(r"static bool wide_takes\(.*?\{(.*?)\n\}", WIDE, re.S).group(1)
     assert "L > 16" in takes and "L <= kWgmmaMaxKeys" in takes
     assert "(D * sizeof(T)) % 16 == 0" in takes
     max_keys = int(_constant("kWgmmaMaxKeys"))
     launch = re.search(r"launch_attention_wide\(.*?\n\}", WIDE, re.S).group(0)
-    counted = re.findall(r"counted_launch\((\w+)\)", launch)
+    counted = set(re.findall(r"counted_launch\((\w+)\)", launch))
+    if re.search(r"return launch_attention_wgmma<256, TO>\(", launch):
+        counted |= _wgmma_counts()["launch_attention_wgmma"]
     padded = (_build.CSRC_DIR / "attention_padded.cuh").read_text()
     assert re.search(r"if constexpr \(DP == 256\) \{\s*if \(wide_takes<T, TO>", padded)
-    return max_keys, set(counted)
+    return max_keys, counted
+
+
+def _wgmma_counts():
+    """{launcher: the AttnKernel it counts} for attention_wide.cuh's bf16
+    launchers, each a launch_wgmma_kernel of its kernel function"""
+    out = {}
+    for launcher, kernel in (("launch_attention_wgmma", "attention_kernel_wgmma"),
+                             ("launch_attention_wgmma_2pass", "attention_kernel_wgmma_2pass")):
+        body = re.search(rf"static cudaError_t {launcher}\(.*?\n\}}", WIDE, re.S).group(0)
+        found = re.search(rf"launch_wgmma_kernel<{kernel}<TO, DP>,[^>]*>\(\s*(\w+),", body)
+        out[launcher] = {found.group(1)}
+    return out
+
+
+def _dim_rule():
+    """launch_attention_dim's bf16 routing at the head dims 8-128, parsed
+    from attention.cuh: one warp's ring up to 16 keys, the two-pass wgmma
+    kernel past kOnePassKeys, the one-pass kernel up to a head dim and the
+    one-pass wgmma kernel past it; (kOnePassKeys, that head dim)."""
+    src = (_build.CSRC_DIR / "attention.cuh").read_text()
+    body = re.search(r"static cudaError_t launch_attention_dim\(.*?\n\}", src, re.S).group(0)
+    ring = re.search(r"if \(L <= (\d+)\)\s*return launch_attention_w<D, 1, attention_kernel<", body)
+    assert ring and int(ring.group(1)) == 16
+    assert re.search(r"if \(L > kOnePassKeys\)\s*return launch_attention_wgmma_2pass<DP, TO>",
+                     body)
+    onepass = re.search(r"if constexpr \(D <= (\d+)\)\s*return launch_attention_onepass<D, TO>",
+                        body)
+    assert re.search(r"else\s*return launch_attention_wgmma<DP, TO>", body)
+    keys = int(re.search(r"constexpr int kOnePassKeys = (\d+);", src).group(1))
+    return keys, int(onepass.group(1))
 
 
 def test_routing_mirrors_name_the_c_kernels():
     """For every head dim 1-256 and lengths around each split, in both
-    types, the mirrors name a kernel function of the C source's list, and the
+    types, the mirrors name a kernel function of the C source's list: at the
+    head dims 8-128 (multiples of 8) launch_attention_dim's (bf16: the ring
+    up to 16 keys, the one-pass kernel up to kOnePassKeys at head dims up to
+    64 and attention_kernel_wgmma past them, attention_kernel_wgmma_2pass
+    past kOnePassKeys; float32 attention_kernel_f32), elsewhere the
     head-dim-256 ones exactly where wide_takes sends a call (rows of whole
     16-byte chunks past 16 keys at padded depth 256, bf16 up to
-    kWgmmaMaxKeys); K2's and K3's attention at head dims 128 and 256."""
+    kWgmmaMaxKeys) and the padded ones otherwise; K2's and K3's attention at
+    head dims 128 and 256 as K1's."""
     names = _names()
     max_keys, counted = _wide_rule()
+    one_pass_keys, onepass_dims = _dim_rule()
     split, wgmma = names["kAttnKernelSplitF32"], names["kAttnKernelWgmma"]
+    two_pass = names["kAttnKernelWgmma2Pass"]
     assert counted == {"kAttnKernelSplitF32", "kAttnKernelWgmma"}
-    assert (split, wgmma) == (chip_smoke.SPLIT_F32, chip_smoke.WGMMA)
+    assert _wgmma_counts()["launch_attention_wgmma_2pass"] == {"kAttnKernelWgmma2Pass"}
+    assert (split, wgmma, two_pass) == (chip_smoke.SPLIT_F32, chip_smoke.WGMMA,
+                                        chip_smoke.WGMMA_2PASS)
+    assert (one_pass_keys, onepass_dims) == (max_keys, 64)
+
+    def exact_bf16(d, length):
+        if length <= 16:
+            return names["kAttnKernelRing"]
+        if length > one_pass_keys:
+            return two_pass
+        return names["kAttnKernelOnePass"] if d <= onepass_dims else wgmma
+
     lengths = (1, 8, 16, 17, 64, 208, 224, max_keys, max_keys + 1, 1025, 4096)
     for d in range(1, 257):
         exact = d % 8 == 0 and d <= 128
@@ -194,17 +249,21 @@ def test_routing_mirrors_name_the_c_kernels():
             for kind, esize, new in (("bf16", 2, wgmma), ("fp32", 4, split)):
                 got = chip_smoke.k1_kernel(d, length, kind)
                 assert got in names.values(), (d, length, kind, got)
-                wide = (not exact and padded_depth(d) == 256 and d * esize % 16 == 0
-                        and length > 16 and (kind == "fp32" or length <= max_keys))
-                assert (got == new) == wide, (d, length, kind, got)
-                if not exact and not wide:
-                    assert got == names["kAttnKernelPadded" if kind == "bf16"
-                                        else "kAttnKernelPaddedF32"]
                 if kind == "bf16":
                     assert chip_smoke.k1_bf16_kernel(d, length) == got
+                if exact:
+                    assert got == (exact_bf16(d, length) if kind == "bf16"
+                                   else names["kAttnKernelF32"]), (d, length, kind, got)
+                    continue
+                wide = (padded_depth(d) == 256 and d * esize % 16 == 0
+                        and length > 16 and (kind == "fp32" or length <= max_keys))
+                assert (got == new) == wide, (d, length, kind, got)
+                if not wide:
+                    assert got == names["kAttnKernelPadded" if kind == "bf16"
+                                        else "kAttnKernelPaddedF32"]
     for length in lengths:
         assert chip_smoke.block_attention_kernel(128, length, "fp32") == names["kAttnKernelF32"]
-        assert chip_smoke.block_attention_kernel(128, length, "bf16") == names["kAttnKernelRing"]
+        assert chip_smoke.block_attention_kernel(128, length, "bf16") == exact_bf16(128, length)
         for kind in ("fp32", "bf16"):
             assert (chip_smoke.block_attention_kernel(256, length, kind)
                     == chip_smoke.k1_kernel(256, length, kind))
