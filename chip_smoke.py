@@ -25,6 +25,10 @@ result:
    ``PADDED_DEPTHS``, each on a line of its own; the head-dim-256 kernels
    (``attention_wide.cuh``: ``attention_kernel_split_f32`` to float and bf16
    with HMMA, ``attention_kernel_wgmma`` with HGMMA) on a line of their own;
+   the deep kernels (every head dim of 257-512: ``attention_kernel_deep``,
+   ``attention_kernel_deep_f32``) at each padded depth past 256 in K1's
+   library and at head dims 384 and 512 in the block library, and K1's C
+   library's head-dim ceiling equal to ``MAX_HEAD_DIM``;
    the build's wall time beside the single-unit build's and each
    translation unit's (K1's head dims and padded depths compile in units of
    their own, all started together);
@@ -71,15 +75,23 @@ result:
    none on the ring (the C libraries' counts), a negative control (the
    weights rounded before they are normalised, ``rounded_first``) that
    must fail the bf16 check, and K3's attention at head dim 128 (L = 224
-   and 304) timed; K2's own float32
+   and 304) timed; the deep kernels (``deep_kernels``) at ``DEEP_DIMS`` (a
+   head dim or more at each padded depth past 256) and L = 8, 16, 17, 208,
+   256, 1025 and MAX_LEN in both types, K2's and K3's attention at head
+   dims 384 and 512 in the (B, L, 3d) buffer, K1 on a buffer's strides, a
+   negative control that must fail the bf16 check, and ``DEEP_TIMED``
+   (phase 24's shapes, and the bf16 padded kernel at head dim 192 past 16
+   keys) timed beside the plain version, SDPA (its backend named by a
+   profile) and the bound; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
    TF32 pass, ``torch.matmul`` with TF32 on, must miss it); K2 at the fusion
    encoder's shape on the draws ``BLOCK_DRAWS``; K3 at the block bench's
    (L=224, ``batch_tile=2, ffn_chunks=2``) on ``K3_DRAWS``; both again at
-   head dim 256 (``BLOCK_HD256``: d_model 1024, 4 heads, ffn 4096) on
-   ``BLOCK_DRAWS``, K3's exact q/k/v held there too.  In bf16, every
+   head dim 256 (``BLOCK_HD256``: d_model 1024, 4 heads, ffn 4096) and 512
+   (``BLOCK_HD512``: d_model 2048, 4 heads, ffn 8192) on ``BLOCK_DRAWS``,
+   K3's exact q/k/v held there too.  In bf16, every
    element and the mean error are held (``bf16_agreement``), and each block
    kernel's check has a negative control that must fail it: the other block
    kernel's plain version (K3 rounds q, k and v to bf16, K2 keeps them
@@ -156,7 +168,7 @@ result:
     once per fusion and box-decoder layer and no K2, at 512 and 1024 K2 and
     K1, the C libraries' counts naming the padded kernels at every head dim
     without kernels of its own; the protocol at its flagship
-    width (d_model 192, 3 layers, ``box_roi``, cosine; a quarter of the CLI's steps) with each part's wall
+    width (d_model 192, 3 layers, ``box_roi``, cosine; an eighth of the CLI's steps) with each part's wall
     time, the median ms per train step, its K1 launches (in the
     evaluations only), the four cells and accuracy by
     type; its fine-tuned models evaluated on valA on the card (K1 at head
@@ -235,7 +247,7 @@ result:
     tied integers and a third integers with NaNs; the C library's counts
     showing the block kernel ran), once with its state in global memory,
     under the sync check too, and timed at (B, Q, T) = (64, 32, 32), (64,
-    100, 100), (4, 300, 300); 21.2 one
+    100, 100), (2, 300, 300); 21.2 one
     ``executor_roi`` train step at full width, bf16, batch 16 and 128, with
     ``matcher="auto"`` (the kernel) and ``"hungarian"`` (scipy), in
     alternating rounds, with the host's waits per step and a falling fixed
@@ -265,7 +277,17 @@ result:
     forward, K2's attention on ``attention_kernel_split_f32``; the block
     bench at d_model 1024, K2's and K3's ms, K3's attention on
     ``attention_kernel_wgmma``: the head-dim-256 kernels' launches by the C
-    libraries' counts.
+    libraries' counts;
+24. the paths past head dim 256 (``past_256``): bf16 serving
+    (``InferencePipeline.run``) with the executor at d_model 2048 (4 heads
+    of 512), questions/s, K2 3 and K1 2 launches a forward;
+    ``run_cogent_protocol`` as ``cogent-protocol --d_model 1536`` runs it
+    (float32, 4 heads of 384), valA card vs CPU equal; an executor eval
+    forward at d_model 1100 (4 heads of 275, no K2) in float32 (card vs CPU)
+    and bf16, K1 on every fusion and box-decoder layer; the block bench at
+    d_model 2048: every K1 call and K2's and K3's attention on
+    ``attention_kernel_deep_f32`` or ``attention_kernel_deep`` by the C
+    libraries' counts, no eligible self-attention on the plain path.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
@@ -282,7 +304,11 @@ their launches on phases 16.1 and 23's paths, the head-dim-256 kernels
 ``attention_kernel_wgmma``: K3's at L=224; K1's layout under
 ``at_shapes``) with their launches on phase 23's paths
 by the C libraries' counts, and K1's rows past 1024 keys
-under ``long_rows``; then K1 at every head dim below 128 (``fused_attention_d{D}``),
+under ``long_rows``; the deep kernels (``attention_kernel_deep_f32``: K2's
+attention at d 2048; ``attention_kernel_deep``: K3's; K1's shapes under
+``at_shapes``) and K2 and K3 at head dim 512 (``fused_encoder_block_hd512``,
+``fused_encoder_block_tiled_hd512``) with their launches on phase 24's
+paths; then K1 at every head dim below 128 (``fused_attention_d{D}``),
 each at its first model's encoder shape (the protocol's fusion encoder at
 d_model 4 D for the head dims no preset has) with the rest under
 ``at_shapes`` and its launches through the models by phase, which must not
@@ -340,6 +366,9 @@ K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 # every length)
 ONE_PASS, RING = "attention_kernel_onepass", "attention_kernel"
 PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
+# the padded kernels past depth 256 (csrc/attention_padded.cuh): every head
+# dim of 257-512, K2's and K3's attention at 384 and 512
+DEEP, DEEP_F32 = "attention_kernel_deep", "attention_kernel_deep_f32"
 # csrc/attention_wide.cuh: the head dims at padded depth 256 past 16 keys
 # (split_f32, and wgmma up to 256 keys), bf16 at head dims 72-128 up to 256
 # keys (wgmma) and at every multiple of 8 up to 128 past 256 keys (2pass)
@@ -399,15 +428,24 @@ def wide_kernel(d_head: int, length: int, name: str):
     return SPLIT_F32
 
 
+def padded_kernel(d_head: int, name: str) -> str:
+    """The padded kernel a call of type ``name`` at a head dim without
+    kernels of its own launches where ``wide_kernel`` does not take it
+    (``launch_padded_r``): up to 256 the padded one, past it the deep one."""
+    if name == "bf16":
+        return DEEP if d_head > 256 else PADDED
+    return DEEP_F32 if d_head > 256 else PADDED_F32
+
+
 def k1_bf16_kernel(d_head: int, length: int) -> str:
     """The kernel function a bf16 K1 call launches (``launch_attention_dim``'s
     routing): one warp's ring kernel at L <= 16; up to 256 keys one pass, the
     one-pass kernel at D <= 64 and ``attention_kernel_wgmma`` past it; past
     256 keys ``attention_kernel_wgmma_2pass``; at a head dim without kernels
     of its own ``attention_kernel_wgmma`` where ``wide_kernel`` says so, else
-    the padded kernel (``launch_attention_padded``)."""
+    the padded kernel (``launch_attention_padded``: ``padded_kernel``)."""
     if d_head % 8 or d_head > 128:
-        return wide_kernel(d_head, length, "bf16") or PADDED
+        return wide_kernel(d_head, length, "bf16") or padded_kernel(d_head, "bf16")
     if length <= 16:
         return RING
     if length > 256:
@@ -421,7 +459,7 @@ def k1_kernel(d_head: int, length: int, name: str) -> str:
     if name == "bf16":
         return k1_bf16_kernel(d_head, length)
     if d_head % 8 or d_head > 128:
-        return wide_kernel(d_head, length, name) or PADDED_F32
+        return wide_kernel(d_head, length, name) or padded_kernel(d_head, name)
     return "attention_kernel_f32"
 
 
@@ -429,7 +467,8 @@ def block_attention_kernel(d_head: int, length: int, name: str) -> str:
     """The kernel function the attention of K2 (``name`` "fp32": float32 q,
     k, v) or K3 ("bf16") launches (``launch_block_attention``): K1's at head
     dims 128 (``launch_attention_dim``: ``attention_kernel_f32``; in bf16 the
-    ring at L <= 16, the wgmma kernels past it) and 256."""
+    ring at L <= 16, the wgmma kernels past it), 256, 384 and 512 (the deep
+    kernels at every length)."""
     return k1_kernel(d_head, length, name)
 
 
@@ -478,6 +517,40 @@ K1_NEW_SHAPES = (
     ("1025-key row", 64, 16, 1025, True, "fp32"),
     ("4096-key row", 256, 4, 4096, True, "fp32"),
 )
+# K1 past head dim 256, on the deep kernels (csrc/attention_padded.cuh):
+# phase 3 holds head dims at every deep depth (288: 257, 275; 336: 300, 336;
+# 384: 350, 384; 448: 385, 400, 448; 512: 449, 500, 512) at DEEP_LENGTHS in
+# both types (ragged masks; unmasked too at 208) at B = 8 (2 past 256
+# keys), and DEEP_LONG at MAX_LEN keys; K2's and K3's attention at head dims
+# 384 and 512 in the (B, L, 3d) buffer at DEEP_BLOCK_LENGTHS; K1 on a (B,
+# L, 3d) buffer's strides at DEEP_STRIDED (275 in bf16: rows of 550 bytes,
+# loaded element by element)
+DEEP_DIMS = (257, 275, 300, 336, 350, 384, 385, 400, 448, 449, 500, 512)
+DEEP_LENGTHS = (8, 16, 17, 208, 256, 1025)
+DEEP_LONG = (275, 300, 384, 400, 512)  # one at each deep depth
+DEEP_BLOCK_LENGTHS = (8, 10, 17, 210, 224, 1025)
+DEEP_STRIDED = (275, 400)
+# the head dims phase 24 runs through the models: 275 (d_model 1100), 384
+# (1536) and 512 (2048), each at 4 heads
+DEEP_MODEL_DIMS = (275, 384, 512)
+DEEP_NEGATIVE = ((512, 8, 208), (275, 2, 1025))  # head dim, B, L
+# phase 4 at phase 24's shapes: label, layout ("K1": the wrapper; "block":
+# esv_block_attention on the thirds of a (B, L, 3d) buffer), head dim, B,
+# L, key mask, q/k/v type, output type; and the bf16 padded kernel at head
+# dim 192 past 16 keys (padded depth 192, which no wgmma kernel takes)
+DEEP_TIMED = (
+    ("K2 attention d 2048", "block", 512, 128, 210, True, "fp32", "bf16"),  # 24.1
+    ("K2 attention d 1536 fp32", "block", 384, 128, 208, True, "fp32", "fp32"),  # 24.2
+    ("K3 attention d 2048", "block", 512, 128, 224, False, "bf16", "bf16"),  # 24.4
+    ("serving d 2048 box decoder", "K1", 512, 128, 10, False, "bf16", "bf16"),  # 24.1
+    ("protocol d 1536 box decoder", "K1", 384, 128, 8, False, "fp32", "fp32"),  # 24.2
+    ("d 1100 encoder", "K1", 275, 128, 210, True, "fp32", "fp32"),  # 24.3
+    ("d 1100 encoder bf16", "K1", 275, 128, 210, True, "bf16", "bf16"),  # 24.3
+    ("d 768 encoder bf16", "K1", 192, 128, 208, True, "bf16", "bf16"),
+)
+# K2 and K3 at head dim 512: d_model 2048, 4 heads, ffn 8192 (the executor at
+# d_model 2048), on BLOCK_DRAWS each
+BLOCK_HD512 = dict(d=2048, h=4, ffn=8192)
 # phase 16.1's widths past the head dims with kernels of their own: d_model
 # 4 D at these head dims (the protocol's --d_model 100, 144, 400, 544, 768
 # and 1024; at 1024 the fusion layers run K2 at head dim 256)
@@ -508,12 +581,12 @@ FP32_QUESTIONS = 64  # phase 14's float32 tally run, card against the CPU
 SCHEDULED_QUESTIONS = 160  # phase 15: 128 train (8 steps of 16), 16 validation
 SCHEDULED_STEPS = 30  # phase 15's fixed batch: most updates to fall below 0.8
 SCORE_ROUNDS = 10  # alternating timing rounds of the two bf16 score forms
-# phase 16: the CoGenT protocol at its flagship width (the CLI's sizes, a
-# quarter of its 400/500/150 steps: the run times the protocol and holds its
+# phase 16: the CoGenT protocol at its flagship width (the CLI's sizes, an
+# eighth of its 400/500/150 steps: the run times the protocol and holds its
 # models card against CPU), and at d_model 512 with fewer steps; the names
 # of our kernels in a profiler trace
 COGENT_FLAGSHIP = dict(d_model=192, encoder_layers=3, box_roi=True, lr_schedule="cosine",
-                       gen_steps=100, exe_steps=125, ft_steps=40)
+                       gen_steps=50, exe_steps=63, ft_steps=20)
 COGENT_KERNEL_PATH = dict(d_model=512, encoder_layers=2, box_roi=True, lr_schedule="cosine",
                           gen_steps=50, exe_steps=50, ft_steps=15)
 OUR_KERNELS = ("attention_kernel", "gemm_bf16_wgmma", "gemm_tf32_wgmma", "add_layernorm")
@@ -1058,29 +1131,65 @@ def k1_functions_missing(kernels: dict) -> list:
     return missing
 
 
+def padded_group(depth: int) -> int:
+    """The warps sharing a 16-row group at a padded depth
+    (``attention_padded.cuh: padded_group``): one up to 128, then one for
+    each 128 columns or part of them."""
+    return -(-depth // 128) if depth > 128 else 1
+
+
 def k1_padded_missing(kernels: dict) -> list:
     """The padded kernels (``csrc/attention_padded.cuh``) that each depth of
     ``PADDED_DEPTHS`` must have, as (kernel, output type, per-warp depth,
     warps a row group, row groups a block), that are not built or run no
     HMMA: ``attention_kernel_padded_f32`` to float and bf16 and
-    ``attention_kernel_padded`` to bf16, each with one row group (L <= 16)
-    and with 8 warps."""
+    ``attention_kernel_padded`` to bf16 (past depth 256 the deep ones), each
+    with one row group (L <= 16) and with 8 warps (2 groups past 256)."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import PADDED_DEPTHS
 
     built = {}
     for k in kernels.values():
-        found = re.search(r"(attention_kernel_padded(?:_f32)?)<([^>]*)>", k["short"])
+        found = re.search(r"(attention_kernel_(?:padded|deep)(?:_f32)?)<([^>]*)>", k["short"])
         if found:
             args = [re.sub(r"^\((?:int|bool)\)", "", a.strip()) for a in found.group(2).split(",")]
             built[(found.group(1), *args)] = k["HMMA"] > 0
     missing = []
     for depth in PADDED_DEPTHS:
-        g = 2 if depth > 128 else 1
+        g = padded_group(depth)
+        f32, bf16 = (DEEP_F32, DEEP) if depth > 256 else (PADDED_F32, PADDED)
         for groups in ("1", str(8 // g)):
             shape = (str(depth // g), str(g), groups)
-            want = [(PADDED_F32, to, *shape) for to in ("float", "bf16")]
-            want.append((PADDED, "bf16", *shape))
+            want = [(f32, to, *shape) for to in ("float", "bf16")]
+            want.append((bf16, "bf16", *shape))
             missing += [key for key in want if not built.get(key)]
+    return missing
+
+
+def block_deep_missing() -> list:
+    """The deep kernels the block library must build for K2's and K3's
+    attention at head dims 384 and 512 (``launch_block_attention``), as
+    (kernel, output type, per-warp depth, warps a row group, row groups a
+    block), that its ptxas report does not name: float32 q/k/v to float and
+    bf16 (K2; K3 with float32 weights) and bf16 to bf16 (K3), each with one
+    row group and with two."""
+    from explainable_spatial_vqa_tpu_torch.measure.variants import ptxas_usage
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+
+    built = set()
+    for fn in ptxas_usage((_build.BUILD_DIR / "fused_block.log").read_text()):
+        found = re.search(r"(attention_kernel_deep(?:_f32)?)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
+                          r"(\d+)E", fn)
+        if found:
+            kind, to, *shape = found.groups()
+            built.add((kind, "float" if to == "f" else "bf16", *shape))
+    missing = []
+    for depth in (384, 512):
+        g = padded_group(depth)
+        for groups in ("1", str(8 // g)):
+            shape = (str(depth // g), str(g), groups)
+            want = [(DEEP_F32, "float", *shape), (DEEP_F32, "bf16", *shape),
+                    (DEEP, "bf16", *shape)]
+            missing += [key for key in want if key not in built]
     return missing
 
 
@@ -1165,6 +1274,7 @@ def main() -> None:
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
         EXACT_HEAD_DIMS,
+        MAX_HEAD_DIM,
         PADDED_DEPTHS,
         fused_attention,
     )
@@ -1216,18 +1326,28 @@ def main() -> None:
     if missing:
         fail("phase 2: K1 is not built with HMMA at every head dim of EXACT_HEAD_DIMS")
     padded = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
-                    for n, k in kernels.items() if "attention_kernel_padded" in n)
+                    for n, k in kernels.items()
+                    if "attention_kernel_padded" in n or "attention_kernel_deep" in n)
     say("phase 2 padded K1 (attention_kernel_padded[_f32]<output type, per-warp depth, warps a "
-        "16-row group, groups a block>, every other head dim up to 256): " + "; ".join(
+        "16-row group, groups a block>, every other head dim up to 256; past it "
+        "attention_kernel_deep[_f32], the same code): " + "; ".join(
             f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
             for name, k in padded))
     missing = k1_padded_missing(kernels)
     say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 and to "
-        f"bf16 from bf16, one group and 8 warps a block, every one with HMMA: "
-        f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
+        f"bf16 from bf16, one group and 8 warps a block (2 groups past 256), every one with "
+        f"HMMA: {'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
     if missing:
         fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
              "PADDED_DEPTHS")
+    missing = block_deep_missing()
+    max_head_dim = _build.entry("fused_attention", "esv_attention_max_head_dim", ())()
+    say(f"phase 2 the block library's deep kernels (K2's and K3's attention at head dims 384 "
+        f"and 512) built: {'yes' if not missing else f'NO, missing {missing}'}; K1's C library "
+        f"takes head dims up to {max_head_dim} (MAX_HEAD_DIM {MAX_HEAD_DIM})")
+    if missing or max_head_dim != MAX_HEAD_DIM:
+        fail("phase 2: the deep kernels are not all built, or the C library's head-dim ceiling "
+             "is not MAX_HEAD_DIM")
     wide = sorted((re.sub(r"\(int\)", "", k["short"].split("(const")[0].replace("void ", "")), k)
                   for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n)
     say("phase 2 attention_wide.cuh's kernels (K1, K2 and K3 at head dim 256; bf16 K1 and K3 "
@@ -1332,12 +1452,14 @@ def main() -> None:
     k1_padded_dims(torch, F, dev, results)
     wide_kernels(torch, F, dev, results, parts)
     wgmma_kernels(torch, F, dev, results, parts)
+    deep_kernels(torch, F, dev, results, parts)
     k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
 
     block_checks(torch, dev, results, d=512, h=4, ffn=2048, k3_draws=K3_DRAWS)
     block_checks(torch, dev, results, **BLOCK_HD256, k3_draws=BLOCK_DRAWS, suffix="_hd256")
+    block_checks(torch, dev, results, **BLOCK_HD512, k3_draws=BLOCK_DRAWS, suffix="_hd512")
     k2_at_iqap_shape(torch, dev, results)
     k2_at_iqap_shape(torch, dev, results, K2_HIER_SHAPE, "K2_bf16_hier",
                      "HierarchicalGenerator's encoder shape")
@@ -1777,6 +1899,68 @@ def block_called(torch, fn, name, q, k, v, mask, out_dtype, head, want, counts=N
     return out, err
 
 
+def attention_case(torch, F, randn, ragged, block_fn, case, source: str, results: dict,
+                   parts: list, prefix: str) -> None:
+    """Phase 4 for one attention shape ``case`` (label, layout, head dim, B,
+    L, key mask, q/k/v type, output type; layout "K1": the wrapper on (B,
+    L, H, D) tensors, "block": ``esv_block_attention``, bound as
+    ``block_fn``, on the thirds of a (B, L, 3d) buffer, the attention of K2
+    (float32 q/k/v) or K3 (bf16)), 4 heads: checked by ``k1_checked`` or
+    ``block_called``, then timed beside the plain version,
+    ``scaled_dot_product_attention`` (its backend named, ``sdpa_backend``)
+    and the bound (4 L^2 D operations a head by ``dot_ops``; q, k, v, the
+    output and the mask each moved once).  The result goes to
+    ``results[prefix + " " + label]`` and, for a block layout, to ``parts``
+    with ``source``.  ``randn(*shape, dtype=)`` and ``ragged(B, L)`` draw
+    the inputs."""
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import call_rows, fused_attention
+
+    label, layout, d_head, b, length, masked, name, out_name = case
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    d, h = 4 * d_head, 4
+    dtype, out_dtype = types[name], types[out_name]
+    mask = ragged(b, length) if masked else None
+    where = f"B={b} H={h} L={length} D={d_head} {'ragged' if masked else 'no mask'}"
+    if layout == "K1":
+        q, k, v = (randn(b, length, d, dtype=dtype) for _ in range(3))
+    else:
+        q, k, v = randn(b, length, 3 * d, dtype=dtype).split(d, dim=-1)
+    heads = [t.reshape(b, length, h, d_head) for t in (q, k, v)]
+    want = (k1_kernel if layout == "K1" else block_attention_kernel)(d_head, length, name)
+    if layout == "K1":  # the wrapper the models call
+        out, err = k1_checked(torch, name, *heads, mask, want,
+                              f"phase 4 K1 fused_attention {name} {label} {where}")
+        call = lambda: fused_attention(*heads, mask)  # noqa: E731
+    else:
+        out, err = block_called(torch, block_fn, name, q, k, v, mask, out_dtype,
+                                f"phase 4 {label} {where}", want)
+        call = lambda: call_rows(block_fn, q, k, v, mask, h, out_dtype)  # noqa: E731
+    ms = timed_ms(torch, call)
+    plain = timed_ms(torch, lambda: dot_product_attention(*heads, mask).to(out_dtype))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in heads)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    lib = timed_ms(torch, sdpa)
+    backend = sdpa_backend(torch, sdpa)
+    esize, osize = (2 if name == "bf16" else 4), (2 if out_name == "bf16" else 4)
+    bnd, by = bound_ms(dot_ops(name, 4.0 * b * h * length * length * d_head),
+                       3 * b * length * d * esize + b * length * d * osize
+                       + (b * length * 4 if masked else 0))
+    say(f"phase 4 {label} ({where}, {name} q/k/v, {out_name} out, {want}): kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
+        f"(backend {backend}), bound {bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
+    key = f"{prefix} {label}"
+    results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=lib, library=backend, kernel=want, shape=where)
+    if layout == "block":
+        parts.append(dict(
+            name=f"attention_{name}_hd{d_head}_L{length}", route="cuda", source=source,
+            replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if name == "fp32"
+                      else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
+            inside=("fused_encoder_block" if name == "fp32" else "fused_encoder_block_tiled"),
+            **results[key]))
+
+
 def wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
     """Phases 3-4 for ``attention_kernel_split_f32`` (float32 q, k, v past 16
     keys) and ``attention_kernel_wgmma`` (bf16, 17-256 keys) at head dim 256:
@@ -1788,12 +1972,7 @@ def wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
     ``parts``."""
     from explainable_spatial_vqa_tpu_torch.measure.attention_variants import WIDE_CASES
     from explainable_spatial_vqa_tpu_torch.ops import _build
-    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
-        bind_entry,
-        call_rows,
-        fused_attention,
-    )
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import bind_entry
 
     gen = torch.Generator(device=dev).manual_seed(18)
     t0 = time.perf_counter()
@@ -1838,48 +2017,14 @@ def wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
         f"{WIDE_BF16_LENGTHS}, float32 L = {WIDE_F32_LENGTHS} checked in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
     for label, layout, name, out_name, b, length in WIDE_CASES:
-        d = 4 * 256
-        dtype, out_dtype = types[name], types[out_name]
-        mask = ragged(b, length)
-        if layout == "K1":
-            q, k, v = (torch.randn(b, length, d, generator=gen, device=dev).to(dtype)
-                       for _ in range(3))
-        else:
-            q, k, v = torch.randn(b, length, 3 * d, generator=gen, device=dev).to(dtype).split(
-                d, dim=-1)
-        heads = [t.reshape(b, length, 4, 256) for t in (q, k, v)]
-        want = (k1_kernel if layout == "K1" else block_attention_kernel)(256, length, name)
-        if layout == "K1":  # the wrapper the models call
-            out, err = k1_checked(torch, name, *heads, mask, want,
-                                  f"phase 4 K1 fused_attention {name} B={b} H=4 L={length} D=256")
-            call = lambda: fused_attention(*heads, mask)  # noqa: E731
-        else:
-            out, err = block_called(torch, block_fn, name, q, k, v, mask, out_dtype,
-                                    f"phase 4 {label} B={b} H=4 D=256", want)
-            call = lambda: call_rows(block_fn, q, k, v, mask, 4, out_dtype)  # noqa: E731
-        ms = timed_ms(torch, call)
-        plain = timed_ms(torch, lambda: dot_product_attention(*heads, mask).to(out_dtype))
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in heads)
-        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-        esize, osize = (2 if name == "bf16" else 4), (2 if out_name == "bf16" else 4)
-        bnd, by = bound_ms(dot_ops(name, 4.0 * b * 4 * length * length * 256),
-                           3 * b * length * d * esize + b * length * d * osize + b * length * 4)
-        say(f"phase 4 {label} (B={b} H=4 D=256 ragged, {want}): kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, scaled_dot_product_attention {name} {lib:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
-        results[f"wide {label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                                        bound_by=by, library_ms=lib,
-                                        kernel=want, shape=f"B={b} H=4 L={length} D=256 ragged")
-        if layout == "block":
-            parts.append(dict(
-                name=f"attention_{name}_hd256_L{length}", route="cuda",
-                source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
-                replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if name == "fp32"
-                          else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
-                inside=("fused_encoder_block" if name == "fp32" else "fused_encoder_block_tiled"),
-                **results[f"wide {label}"]))
-        del q, k, v, heads, qt, kt, vt, out
+        attention_case(torch, F, randn, ragged, block_fn,
+                       (label, layout, 256, b, length, True, name, out_name),
+                       "explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh", results,
+                       parts, "wide")
     say(f"phases 3-4 the head-dim-256 kernels took {time.perf_counter() - t0:.1f} s")
 
 
@@ -2015,6 +2160,128 @@ def wgmma_kernels(torch, F, dev, results: dict, parts: list) -> None:
         del q, k, v, heads, qt, kt, vt, out
     say(f"phases 3-4 the wgmma kernels at head dims up to 128 took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def sdpa_backend(torch, call) -> str:
+    """Which of ``scaled_dot_product_attention``'s backends one call of
+    ``call`` ran, named from the kernels a profile of it saw: cudnn, flash,
+    efficient (the memory-efficient CUTLASS kernels), or math (its plain
+    matmuls and softmax), with the longest kernel's name.  A profile that
+    sees no device activity is taken again, up to ``PROFILE_TRIES`` times."""
+    for _ in range(PROFILE_TRIES):
+        _, prof = device_profile(torch, call)
+        if prof is not None:
+            break
+    else:
+        return "not measured (the profile saw no device activity)"
+    names = [name for name, _ in prof[1]]
+    kind = next((label for key, label in (("cudnn", "cudnn"), ("flash", "flash"),
+                                          ("fmha", "efficient"), ("efficient", "efficient"),
+                                          ("mem_eff", "efficient"))
+                 if any(key in n.lower() for n in names)), "math")
+    return f"{kind} ({names[0][:60] if names else 'no kernel'})"
+
+
+def deep_kernels(torch, F, dev, results: dict, parts: list) -> None:
+    """Phases 3-4 for the deep kernels (``attention_kernel_deep_f32``,
+    ``attention_kernel_deep``: every head dim of 257-512, K2's and K3's
+    attention at 384 and 512): K1 at ``DEEP_DIMS`` x ``DEEP_LENGTHS`` and at
+    MAX_LEN keys, K2's and K3's attention at ``DEEP_BLOCK_LENGTHS`` through
+    ``esv_block_attention`` (float32 q/k/v to bf16 and to float32, bf16 to
+    bf16), K1 on a (B, L, 3d) buffer's strides, ragged and unmasked, each
+    call's kernel read from the C libraries' counts; the negative control
+    (``rounded_first``) must fail the bf16 check; then ``DEEP_TIMED``
+    checked and timed beside the plain version, ``scaled_dot_product_attention``
+    (its backend named) and the bound.  Results go to ``results["deep
+    <label>"]`` and, for K2's and K3's, to ``parts``."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        MAX_LEN,
+        bind_entry,
+        kernel_launches,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    t0 = time.perf_counter()
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    block_fn = bind_entry(_build.load("fused_block"), "esv_block_attention")
+    k1_fn = bind_entry(_build.load("fused_attention"))
+
+    def ragged(b, length):
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        tail = min(length, 13)
+        keep[:, length - tail:] = torch.rand(b, tail, generator=gen, device=dev) < 0.6
+        return keep[:, None, None, :]
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    checks = 0
+    shapes = [(d, length) for d in DEEP_DIMS for length in DEEP_LENGTHS]
+    shapes += [(d, MAX_LEN) for d in DEEP_LONG]
+    for d_head, length in shapes:
+        b = 8 if length <= 256 else 2 if length <= 1024 else 1
+        for masked in (True, False) if length == 208 else (True,):
+            mask = ragged(b, length) if masked else None
+            where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
+            for name, dtype in types.items():
+                q, k, v = (randn(b, length, 4, d_head, dtype=dtype) for _ in range(3))
+                k1_checked(torch, name, q, k, v, mask, k1_kernel(d_head, length, name),
+                           f"phase 3 K1 fused_attention {name} {where}")
+                checks += 1
+                del q, k, v
+    say(f"phase 3 K1 on the deep kernels at D = {DEEP_DIMS}, L = {DEEP_LENGTHS} and at D = "
+        f"{DEEP_LONG}, L = {MAX_LEN}: {checks} calls checked in {time.perf_counter() - t0:.1f} s")
+    t_block, checks = time.perf_counter(), 0
+    for d_head in (384, 512):
+        d = 4 * d_head
+        for length in DEEP_BLOCK_LENGTHS:
+            b = 8 if length <= 256 else 2
+            for masked in (True, False):
+                mask = ragged(b, length) if masked else None
+                where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
+                for name, outs in (("fp32", (torch.bfloat16, torch.float32)),
+                                   ("bf16", (torch.bfloat16,))):
+                    qkv = randn(b, length, 3 * d, dtype=types[name])
+                    for out_dtype in outs:
+                        block_called(torch, block_fn, name, *qkv.split(d, dim=-1), mask,
+                                     out_dtype,
+                                     f"phase 3 {'K2' if name == 'fp32' else 'K3'} attention "
+                                     f"{name} q/k/v from the (B, L, 3d) buffer, "
+                                     f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out, "
+                                     f"{where}", block_attention_kernel(d_head, length, name))
+                        checks += 1
+                    del qkv
+    for d_head in DEEP_STRIDED:
+        d, b, length = 4 * d_head, 8, 208
+        mask = ragged(b, length)
+        for name, dtype in types.items():
+            q, k, v = randn(b, length, 3 * d, dtype=dtype).split(d, dim=-1)
+            block_called(torch, k1_fn, name, q, k, v, mask, dtype,
+                         f"phase 3 K1 esv_attention {name} on a (B, L, 3d) buffer's strides, "
+                         f"B={b} H=4 L={length} D={d_head} mask=ragged",
+                         k1_kernel(d_head, length, name), counts=kernel_launches)
+            checks += 1
+            del q, k, v
+    say(f"phase 3 K2's and K3's attention on the deep kernels at D = 384 and 512, L = "
+        f"{DEEP_BLOCK_LENGTHS}, and K1 on a (B, L, 3d) buffer's strides at D = {DEEP_STRIDED}: "
+        f"{checks} calls checked in {time.perf_counter() - t_block:.1f} s")
+    for d_head, b, length in DEEP_NEGATIVE:
+        q, k, v = (randn(b, length, 4, d_head, dtype=torch.bfloat16) for _ in range(3))
+        mask = ragged(b, length)
+        stats = attention_agreement(torch, rounded_first(torch, q, k, v, mask), q, k, v, mask)
+        say(f"phase 3 negative control, weights rounded to bf16 before they are normalised, "
+            f"B={b} H=4 L={length} D={d_head} ragged: {bf16_text(stats)}, {stats['outside']} "
+            f"outside: {'fails the check, as it must' if not bf16_ok(stats) else 'PASSES'}")
+        if bf16_ok(stats):
+            fail("the bf16 attention check passes weights rounded before they are normalised")
+        del q, k, v
+
+    for case in DEEP_TIMED:
+        attention_case(torch, F, randn, ragged, block_fn, case,
+                       "explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh", results,
+                       parts, "deep")
+    say(f"phases 3-4 the deep kernels took {time.perf_counter() - t0:.1f} s")
 
 
 def k1_wrapper_times(torch, F, dev, results: dict) -> None:
@@ -2629,6 +2896,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     by_path.update(measurement_drivers(torch, counted))
     new_paths, wide_launches = new_widths(torch, np, dev, counted)
     by_path.update(new_paths)
+    past_paths, deep_launches = past_256(torch, np, dev, counted)
+    by_path.update(past_paths)
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
     layers.fused_encoder_block = fused_encoder_block
@@ -2637,8 +2906,9 @@ def main_path(torch, np, dev, results, parts) -> None:
     say(f"K2 launches with float32 weights (3xTF32 products) on the main path, by phase: "
         f"{fp32_k2}, {sum(fp32_k2.values())} in all")
     # the head dims the models run on the card: every one with kernels of its
-    # own (phases 16-18, 21) and those of phases 16.1 and 23 on the padded ones
-    model_dims = sorted(set(EXACT_HEAD_DIMS + K1_ROUTING_PADDED))
+    # own (phases 16-18, 21) and those of phases 16.1 and 23 on the padded
+    # ones, 24 on the deep ones
+    model_dims = sorted(set(EXACT_HEAD_DIMS + K1_ROUTING_PADDED + DEEP_MODEL_DIMS))
     k1_dims = {d: by_phase(f"K1 D={d}") for d in model_dims}
     say("K1 launches through the models by head dim, by phase: "
         + "; ".join(f"D={d} {c}, {sum(c.values())} in all" for d, c in k1_dims.items()))
@@ -2713,7 +2983,7 @@ def main_path(torch, np, dev, results, parts) -> None:
     for name, takes, first in (
             ("fused_attention_padded_ragged", lambda d: d % 8 != 0 and d < 128,
              "K1_D25_protocol d 100 fusion encoder"),
-            ("fused_attention_padded_wide", lambda d: d > 128,
+            ("fused_attention_padded_wide", lambda d: 128 < d <= 256,
              "K1_D256_serving d 1024 box decoder bf16")):
         dims = [d for d in model_dims if takes(d)]
         shapes = [f"K1_D{d}_{label}" for label, d, _b, length, *_ in K1_NEW_SHAPES
@@ -2726,6 +2996,8 @@ def main_path(torch, np, dev, results, parts) -> None:
             shape=first.split("_", 2)[2], head_dims=dims,
             at_shapes={key.split("_", 2)[2]: results[key] for key in shapes},
             launches_by_head_dim={d: k1_dims[d] for d in dims}))
+    # the bf16 padded kernel past 16 keys at padded depth 192
+    kernels[-1]["at_shapes"]["D192 d 768 encoder bf16"] = results["deep d 768 encoder bf16"]
     # rows past 1024 keys, on the kernels their head dims take
     kernels[0]["long_rows"] = {f"D{d}_{label}": results[f"K1_D{d}_{label}"]
                                for label, d, _b, length, *_ in K1_NEW_SHAPES if length > 1024}
@@ -2796,6 +3068,46 @@ def main_path(torch, np, dev, results, parts) -> None:
         f"{k['launches_by_path']}" for k in kernels[-2:]))
     if not all(k["launches"] for k in kernels[-2:]):
         fail("a wgmma kernel at head dims up to 128 never launched on its path")
+    # the deep kernels (attention_padded.cuh past depth 256): their launches
+    # on phase 24's paths by the C libraries' counts (deep_f32: K2's
+    # attention at d 2048 and 1536, K1 in float32 in the d 1536 protocol's
+    # box decoder and at d 1100; deep: K1 in bf16 in serving's d 2048 box
+    # decoder and at d 1100, K3's attention in the block bench), the numbers
+    # of K2's and K3's attention at d 2048, K1's shapes under at_shapes; then
+    # K2 and K3 at head dim 512 (d_model 2048), their launches on phase 24's
+    # serving and block-bench paths
+    for kernel, main_key, other_keys in (
+            (DEEP_F32, "K2 attention d 2048", ("K2 attention d 1536 fp32",
+                                               "protocol d 1536 box decoder", "d 1100 encoder")),
+            (DEEP, "K3 attention d 2048", ("serving d 2048 box decoder",
+                                           "d 1100 encoder bf16"))):
+        by_deep = {path: c[kernel] for path, c in deep_launches.items()}
+        kernels.append(dict(
+            name=kernel, route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh",
+            replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if kernel == DEEP_F32
+                      else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
+            also_replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            launches=sum(by_deep.values()), **results[f"deep {main_key}"],
+            at_shapes={key: results[f"deep {key}"] for key in other_keys},
+            launches_by_path=by_deep))
+    for name, src_name, key, path in (
+            ("fused_encoder_block_hd512", "fused_encoder_block", "K2_bf16_hd512", "serving_d2048"),
+            ("fused_encoder_block_tiled_hd512", "fused_encoder_block_tiled", "K3_bf16_hd512",
+             "block_bench_d2048")):
+        kernels.append(dict(
+            name=name, route="cuda", source="explainable_spatial_vqa_tpu_torch/csrc/fused_block.cu",
+            replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:113" if "tiled" not in name
+                      else "explainable_spatial_vqa_tpu/ops/pallas_block.py:197"),
+            launches=past_paths[path][src_name], **results[key], shape=f"d=2048 H=4 ({path})",
+            at_shapes={"fp32": results[key.replace("bf16", "fp32")]},
+            launches_by_path={p: c[src_name] for p, c in past_paths.items()}))
+    say("the deep kernels and K2 and K3 at head dim 512: " + "; ".join(
+        f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches on phase "
+        f"24's paths" for k in kernels[-4:]))
+    if not all(k["launches"] for k in kernels[-4:]):
+        fail("a deep kernel, or K2 or K3 at head dim 512, never launched on its path")
     total = sum(PHASE_SECONDS.values())
     say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
         PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
@@ -5934,7 +6246,7 @@ MATCHER_COST_TOL = 1e-5  # matched cost against scipy's optimum, relative: float
 # one takes ~30 s, as it waits on the card at every step); a shape held
 # once more with its state in global memory (the shared-memory cap set to 0)
 BLOCK_MATCHER_SHAPES = ((32, 32, 192), (33, 12, 192), (12, 40, 192), (64, 64, 96))
-BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (4, 300, 300))
+BLOCK_MATCHER_TIMED = ((64, 32, 32), (64, 100, 100), (2, 300, 300))
 BLOCK_MATCHER_GLOBAL = (64, 64)
 WIDE_QUERIES = 40  # 21.2's executor_roi step past the warp kernel's 31 columns
 STEP_ROUNDS = 3  # alternating timing rounds of 21.2's two matchers
@@ -6881,6 +7193,227 @@ def new_widths(torch, np, dev, counted) -> dict:
         f"{wide}")
     say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
     return paths, wide
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the paths past head dim 256 (the deep kernels)
+# ---------------------------------------------------------------------------
+
+PAST_256_ROWS = 4  # 24.3's batch, card against the CPU in float32 (phase 8's inputs)
+
+
+def past_256(torch, np, dev, counted) -> tuple:
+    """Phase 24, the paths past head dim 256, each driven through the entry
+    point a user calls, its launches read from the wrappers and from the C
+    libraries' counts (``c_counts``), which must name the deep kernels and
+    only them:
+
+    1. bf16 serving, ``InferencePipeline.run`` (pool) at bench.py's widths
+       with the executor at d_model 2048 (4 heads of 512, ffn 8192) on
+       ``NEW_WIDTH_QUESTIONS`` synthetic questions: K2 3 and K1 2 launches a
+       forward, K2's attention (float32 q/k/v) on
+       ``attention_kernel_deep_f32``, K1 (the box decoder's 10 keys) on
+       ``attention_kernel_deep``; questions/s, median of 3 runs after a
+       warm-up;
+    2. ``run_cogent_protocol`` as ``cogent-protocol --d_model 1536`` runs it
+       (float32, 4 heads of 384, ``NEW_WIDTH_PROTOCOL``'s sizes and steps):
+       its evaluations launch K2 on every fusion layer and K1 on the box
+       decoder, both on ``attention_kernel_deep_f32``, no eligible
+       self-attention on the plain path, and its fine-tuned models' valA
+       evaluation on the card equal to the CPU's (``protocol_card_vs_cpu``);
+    3. an executor eval forward at d_model 1100 (4 heads of 275, where K2
+       does not route) in float32 and in bf16 on phase 8's inputs: K1 on
+       every fusion layer (L = 210, ragged) and on the box decoder, on the
+       deep kernels; the float32 outputs against the CPU's within 1e-4;
+    4. ``bench_block.main`` at d_model 2048 (B=128, L=224, K3 at one
+       tiling): K2's attention on ``attention_kernel_deep_f32``, K3's on
+       ``attention_kernel_deep``; K2's and K3's ms printed.
+
+    Returns each path's wrapper launches and each path's launches of the
+    deep kernels by the C libraries' counts."""
+    from explainable_spatial_vqa_tpu_torch import bench_block
+    from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
+    from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
+    from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+
+    t_phase = time.perf_counter()
+    paths, deep = {}, {}
+
+    def deep_of(*counts):  # the deep kernels' launches among C counts
+        return {n: sum(c.get(n, 0) for c in counts) for n in (DEEP_F32, DEEP)}
+
+    # ---- 24.1 bf16 serving with the executor at d_model 2048 ----
+    gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=2048,
+                             num_heads=4)
+    generator = init_parameters(ProgramGenerator(gen_cfg, torch.bfloat16, device=dev), seed=1)
+    executor = init_parameters(ProgramExecutor(exe_cfg, torch.bfloat16, device=dev), seed=2)
+    thresholds = np.random.RandomState(3).uniform(0.3, 0.7, exe_cfg.vocab_size).astype(np.float32)
+    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
+                                 device=dev)
+    idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
+    token_ids = {t: i for i, t in idx_to_token.items()}
+    n = NEW_WIDTH_QUESTIONS
+    features, questions, chains = synth_questions(n, exe_cfg, max_steps=27, seed=0)
+    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
+    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
+                                 idx_to_token, FUNCTION_IDS, device=dev)
+    features_dev = torch.from_numpy(features).to(dev)
+    forwards = [0]
+    hook = executor.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    def run():
+        return pipeline.run(questions, features_dev, chains.image_index, chain_mode="pool")
+
+    run()  # warm-up
+    forwards[0] = 0
+    read = c_counts(torch)
+    with plain_self_attention_count() as eligible:
+        served, counts = counted(run)
+    k1_c, block_c = read()
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    hook.remove()
+    once = forwards[0] // 4  # the counted run and three timed ones
+    median = sorted(seconds)[1]
+    say(f"phase 24.1 bf16 serving, InferencePipeline.run (pool) at bench.py's widths with the "
+        f"executor at d_model 2048 (4 heads of 512, ffn 8192) on {n} questions: median of 3 "
+        f"runs {median:.3f} s = {n / median:.1f} questions/s (s: "
+        f"{', '.join(f'{t:.3f}' for t in seconds)}); {once} executor forwards a run; launches "
+        f"{counts}; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
+        f"self-attention calls {len(eligible)}; {int(served.answer_valid.sum())} token answers")
+    serving_checks = {
+        "K2 3 and K1 2 launches a forward": (
+            counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
+            and counts["fused_attention"] == exe_cfg.box_decoder_layers * once > 0),
+        "K1 (10 keys, bf16) on attention_kernel_deep, K2's attention (float32 q/k/v) on "
+        "attention_kernel_deep_f32": (
+            k1_c == {DEEP: counts["fused_attention"]}
+            and block_c == {DEEP_F32: counts["fused_encoder_block"]}),
+        "no self-attention K1 takes on the plain path": len(eligible) == counts["fused_attention"],
+        "one answer per question in the token vocabulary": (
+            served.answers.shape == (n,) and 0 <= served.answers.min()
+            and served.answers.max() < exe_cfg.token_classes),
+    }
+    for name, ok in serving_checks.items():
+        if not ok:
+            fail(f"phase 24.1 serving check failed: {name}")
+    paths["serving_d2048"] = counts
+    deep["serving_d2048"] = deep_of(k1_c, block_c)
+    del pipeline, runner, executor, generator, features_dev
+    torch.cuda.empty_cache()
+
+    # ---- 24.2 cogent-protocol --d_model 1536 ----
+    t0 = time.perf_counter()
+    read = c_counts(torch)
+    with ProtocolParts() as parts, plain_self_attention_count() as eligible:
+        result, counts = counted(lambda: run_cogent_protocol(
+            **NEW_WIDTH_PROTOCOL, d_model=1536, device=dev))
+    k1_c, block_c = read()
+    rows = [r for r in part_rows(parts) if r["part"].startswith("evaluation")]
+    say(f"phase 24.2 cogent-protocol --d_model 1536 (4 heads of 384), float32, "
+        f"{NEW_WIDTH_PROTOCOL}: {time.perf_counter() - t0:.1f} s; {result['report'].report()}; "
+        f"launches {counts}; per evaluation "
+        + ", ".join(f"{r['part'].split()[1]} K2 {r['K2']} K1 {r['K1']}" for r in rows)
+        + f"; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
+        f"self-attention calls {len(eligible)}")
+    if not (rows and all(r["K1"] > 0 and r["K2"] > 0 for r in rows)
+            and counts["fused_attention"] == sum(r["K1"] for r in rows)
+            and counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
+            and k1_c == {DEEP_F32: counts["fused_attention"]}
+            and block_c == {DEEP_F32: counts["fused_encoder_block"]}
+            and len(eligible) == counts["fused_attention"]):
+        fail("phase 24.2 check failed at d_model 1536: the evaluations launch K2 and K1, both "
+             "on attention_kernel_deep_f32 and only there, and no self-attention K1 takes runs "
+             "the plain path")
+    protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
+                         "cogent-protocol --d_model 1536", phase=24)
+    paths["cogent_protocol_d1536"] = counts
+    deep["cogent_protocol_d1536"] = deep_of(k1_c, block_c)
+    del result, parts
+    torch.cuda.empty_cache()
+
+    # ---- 24.3 K1 alone past 16 keys: the executor at d_model 1100 ----
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=1100,
+                             num_heads=4)
+    rng = np.random.RandomState(5)
+    lo = rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes, 2) * 0.6
+    inputs = [
+        rng.rand(PAST_256_ROWS, exe_cfg.num_image_tokens, exe_cfg.image_feature_dim).astype(
+            np.float32),
+        np.concatenate([lo, lo + rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes, 2) * 0.4],
+                       -1).astype(np.float32),
+        rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes) < 0.5,
+        rng.randint(0, exe_cfg.vocab_size, (PAST_256_ROWS, 3)),
+        np.array([[1, 1, 0], [1, 0, 1], [1, 1, 1], [1, 0, 0]], bool),
+    ]
+    per_forward = exe_cfg.encoder_layers + exe_cfg.box_decoder_layers
+    forward_counts = {}
+    for dtype, kernel in ((torch.float32, DEEP_F32), (torch.bfloat16, DEEP)):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        model = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=6).eval()
+        read = c_counts(torch)
+        with plain_self_attention_count() as eligible, torch.no_grad():
+            out, counts = counted(lambda: model(*(torch.from_numpy(a).to(dev) for a in inputs)))
+        k1_c, block_c = read()
+        text = (f"phase 24.3 {name} executor eval forward at d_model 1100 (4 heads of 275, B="
+                f"{PAST_256_ROWS}, fusion L = 210 ragged): launches {counts}; the C libraries' "
+                f"counts: K1 {k1_c}, K2's attention {block_c}; eligible self-attention calls "
+                f"{len(eligible)}")
+        ok = (counts["fused_attention"] == per_forward and counts["fused_encoder_block"] == 0
+              and k1_c == {kernel: per_forward} and not block_c
+              and len(eligible) == per_forward
+              and all(torch.isfinite(v.float()).all() for v in out.values()))
+        if dtype == torch.float32:
+            cpu_model = copy.deepcopy(model).to("cpu")
+            with torch.no_grad():
+                on_cpu = cpu_model(*(torch.from_numpy(a) for a in inputs))
+            worst = max(float((out[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu)
+            text += f"; card vs CPU max_abs_err {worst:.3g} (tol 1e-4) over {', '.join(on_cpu)}"
+            ok = ok and worst <= 1e-4
+            del cpu_model, on_cpu
+        say(text)
+        if not ok:
+            fail(f"phase 24.3 check failed in {name}: K1 on {kernel} at every fusion and "
+                 f"box-decoder layer, no K2, no eligible self-attention on the plain path, "
+                 f"finite outputs (float32: equal to the CPU's within 1e-4)")
+        forward_counts[name] = counts
+        deep[f"executor_d1100_{name}"] = deep_of(k1_c)
+        del model, out
+    paths["executor_d1100"] = {k: sum(c[k] for c in forward_counts.values())
+                               for k in forward_counts["fp32"]}
+    torch.cuda.empty_cache()
+
+    # ---- 24.4 the block bench at d_model 2048: K3 at head dim 512 ----
+    read = c_counts(torch)
+    rows, counts = counted(lambda: bench_block.main(
+        ["--batches", "128", "--iters", "2", "--tiles", "2", "--d_model", "2048", "--heads", "4"]))
+    _, block_c = read()
+    say("phase 24.4 block bench at d_model 2048, 4 heads (bench_block.main --batches 128 "
+        "--iters 2 --tiles 2 --d_model 2048 --heads 4, bf16, L=224, no mask): "
+        + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s" for _b, name, ms, tflops in rows)
+        + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}")
+    if not (counts["fused_encoder_block_tiled"] > 0
+            and block_c == {DEEP_F32: counts["fused_encoder_block"],
+                            DEEP: counts["fused_encoder_block_tiled"]}):
+        fail("phase 24.4: the block bench at d_model 2048 did not launch K2's attention on "
+             "attention_kernel_deep_f32 and K3's on attention_kernel_deep")
+    paths["block_bench_d2048"] = counts
+    deep["block_bench_d2048"] = deep_of(block_c)
+    say(f"phase 24 the deep kernels' launches by path (the C libraries' counts): {deep}")
+    say(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return paths, deep
 
 
 def free_port() -> int:

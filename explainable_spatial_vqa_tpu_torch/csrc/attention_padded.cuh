@@ -1,6 +1,7 @@
-// K1 at every head dim up to 256 that has no kernel of its own (attention.cuh
-// builds one per multiple of 8 up to 128), and the attention of K2 and K3 at
-// head dim 256.  Replaces, at those head dims,
+// K1 at every head dim up to kAttnMaxHeadDim (512) that has no kernel of its
+// own (attention.cuh builds one per multiple of 8 up to 128), and the
+// attention of K2 and K3 at head dims 256, 384 and 512.  Replaces, at those
+// head dims,
 // explainable_spatial_vqa_tpu/ops/pallas_attention.py:_fused_attention_bhld,
 // which the JAX package runs at any head dim, and the per-head loops of
 // ops/pallas_block.py:_block_kernel and :_tiled_kernel.
@@ -11,12 +12,13 @@
 // weights not rounded; P V summed in float32.
 //
 // Design.  One instantiation serves every head dim whose padded depth DP
-// (padded_depth: D rounded up to 16, or past 128 two halves each rounded up
-// to 16) is its own: D is a run-time argument, the columns D .. DP - 1 of
-// every row of Q, K and V in shared memory hold zeros (written once a
-// block), which add nothing to a score and make the extra output columns
-// zero, which are not stored.  So 12 depths (16, 32, ..., 128, 160, 192, 224,
-// 256) cover the 256 head dims.
+// (padded_depth: D rounded up to 16, or past 128 G = ceil(D / 128) slices
+// each rounded up to 16) is its own: D is a run-time argument, the columns
+// D .. DP - 1 of every row of Q, K and V in shared memory hold zeros
+// (written once a block), which add nothing to a score and make the extra
+// output columns zero, which are not stored.  So 17 depths (16, 32, ...,
+// 128, 160, 192, 224, 256; 288, 336, 384; 448, 512) cover the 512 head
+// dims.
 //   * Loads.  At a head dim whose rows are whole 16-byte chunks (and 16-byte
 //     aligned bases and strides) K and V stream through attention.cuh's ring
 //     of kAttnStages 32-key stages with cp.async, kAttnStages - 1 tiles
@@ -25,16 +27,25 @@
 //     the stage it fills was released by the barrier that ended its last
 //     tile.
 //   * Registers.  Each warp holds one 32-key tile's scores (16 floats a
-//     lane) and its share of a 16-row group's output.  Past 128 (DP = 160 to
-//     256) two warps share a group, each a half of the depth (DG = DP / 2,
-//     at most 128 columns, 64 output floats a lane): each sums the scores
-//     over its half of Q's and K's columns, the halves meet in shared memory
-//     (a 2 KB exchange a warp a tile), and both add them in the same order,
-//     so both hold the same scores and softmax state and multiply by their
-//     own half of V's columns.  At DP = 256 the float32 kernel's shared
-//     memory (Q's 64 rows, the ring, the exchange) is 211 KB, under the
-//     H100's 227 KB a block, where attention_kernel_f32's 14 warps would
-//     need 366 KB.
+//     lane) and its share of a 16-row group's output.  Past 128 G warps
+//     share a group (G = 2 at DP = 160-256, 3 at 288-384, 4 at 448-512),
+//     each a slice of the depth (DG = DP / G, at most 128 columns, 64
+//     output floats a lane): each sums the scores over its slice of Q's and
+//     K's columns, the slices meet in shared memory (a 2 KB exchange a warp
+//     a tile), and every warp of the group adds them in the same order, so
+//     all hold the same scores and softmax state and multiply by their own
+//     slice of V's columns.  At DP = 256 the float32 kernel's shared memory
+//     (Q's 64 rows, the ring, the exchange) is 211 KB, under the H100's 227
+//     KB a block, where attention_kernel_f32's 14 warps would need 366 KB.
+//   * Past 256 (the deep kernels, attention_kernel_deep_f32 and
+//     attention_kernel_deep: the same code under names of their own, so
+//     that the launch counts tell them apart) a block is 2 groups of 16
+//     rows (6 or 8 warps) and the ring keeps as many of its kAttnStages
+//     stages as fit (padded_stages): float32 at DP = 512 holds Q's 32 rows,
+//     two 32-key stages and the exchange in 210 KB; bf16 keeps four.  The
+//     bf16 weights are normalised once and rounded once, and every slice
+//     multiplies the same rounded weights (its warps hold equal scores),
+//     which is what the TPU kernel computes.
 //   * float32 q, k, v (attention_kernel_padded_f32): the online softmax of
 //     attention_kernel_f32, K's and V's tiles alternating in the ring, both
 //     products in 3xTF32.
@@ -43,8 +54,9 @@
 //     row's max and sum online, one tile at a time; a second recomputes each
 //     tile's scores (the same products in the same order), normalises,
 //     rounds to bf16 and multiplies by V on the tensor cores.
-//   * A block is 8 warps (4 groups of 16 rows past 128, 8 up to it), or one
-//     group where L <= 16 (the box decoders' L = 8 and 10).
+//   * A block is 8 warps up to 256 (4 groups of 16 rows past 128, 8 up to
+//     it), 2 groups past 256, or one group where L <= 16 (the box decoders'
+//     L = 8 and 10).
 //
 // Bound on the H100: as attention.cuh's kernels, the bytes of q, k, v and the
 // output at the box decoders' lengths, 4 L^2 D operations (in 3xTF32 for
@@ -65,25 +77,42 @@
 
 namespace esv {
 
-// The padded depth of head dim D (1 <= D <= 256): D rounded up to 16, or past
-// 128 twice its half rounded up to 16 (a depth slice of each of two warps)
+// The warps sharing a 16-row group at head dim D (1 <= D <= kAttnMaxHeadDim):
+// one up to 128, past it one for each 128 columns or part of them
+__host__ __device__ constexpr int padded_slices(int D) { return D > 128 ? (D + 127) / 128 : 1; }
+
+// The padded depth of head dim D: D rounded up to 16, or past 128 G =
+// padded_slices(D) times its G-th part rounded up to 16 (a depth slice of
+// each of G warps)
 __host__ __device__ constexpr int padded_depth(int D) {
-  return D > 128 ? 2 * (((D + 1) / 2 + 15) / 16 * 16) : (D + 15) / 16 * 16;
+  return padded_slices(D) * (((D + padded_slices(D) - 1) / padded_slices(D) + 15) / 16 * 16);
 }
 
-// warps sharing a 16-row group at depth DP: one up to 128, two past it
+// warps sharing a 16-row group at depth DP: one up to 128, then one for each
+// 128 columns or part of them (2 at 160-256, 3 at 288-384, 4 at 448-512)
 template <int DP>
 __host__ __device__ constexpr int padded_group() {
-  return DP > 128 ? 2 : 1;
+  return padded_slices(DP);
 }
 
-// The padded kernels' shared memory: Q's 16 R rows and the ring's stages, of
+// The padded kernels' shared memory: Q's 16 R rows and S ring stages, of
 // LD elements each, and past 128 the exchange of partial scores (16 x 32
 // floats a warp)
-template <typename T, int DP, int R>
-constexpr size_t padded_smem_bytes() {
-  return sizeof(T) * (size_t)(16 * R + kAttnStages * kAttnKeys) * attn_ld<T, DP>() +
+template <typename T, int DP, int R, int S = kAttnStages>
+__host__ __device__ constexpr size_t padded_smem_bytes() {
+  return sizeof(T) * (size_t)(16 * R + S * kAttnKeys) * attn_ld<T, DP>() +
          (padded_group<DP>() > 1 ? sizeof(float) * 16 * 32 * padded_group<DP>() * R : 0);
+}
+
+// The ring's stages at depth DP with R groups a block: kAttnStages where
+// they fit in the H100's 227 KB a block, else as many as fit (at least 2:
+// the tile in use and the next)
+constexpr size_t kPaddedSmemMax = 232448;
+template <typename T, int DP, int R>
+__host__ __device__ constexpr int padded_stages() {
+  return padded_smem_bytes<T, DP, R, kAttnStages>() <= kPaddedSmemMax ? kAttnStages
+         : padded_smem_bytes<T, DP, R, 3>() <= kPaddedSmemMax         ? 3
+                                                                      : 2;
 }
 
 // rows [row0, row0 + kRows) of a strided head of D columns into shared memory
@@ -123,10 +152,12 @@ __device__ __forceinline__ void padded_zero_cols(T* base, int rows, int D) {
     base[i / width * LD + D + i % width] = zero;
 }
 
-// K's and V's tiles through the ring, as attention.cuh's AttnStream, with the
-// rows loaded by padded_load_rows: with kAlternate tile i is K's (even i) or
-// V's (odd i) tile i / 2, else K's tile i
-template <typename T, int LD, int W, bool kAlternate>
+// K's and V's tiles through a ring of S stages, as attention.cuh's
+// AttnStream, with the rows loaded by padded_load_rows: with kAlternate tile
+// i is K's (even i) or V's (odd i) tile i / 2, else K's tile i.  Tile i +
+// S - 1 is issued into the stage of tile i - 1, which the barrier that
+// ended tile i - 1's use released.
+template <typename T, int LD, int W, bool kAlternate, int S>
 struct PaddedStream {
   T* ring;
   const T* k;
@@ -140,15 +171,15 @@ struct PaddedStream {
       : ring(ring_), k(k_), v(v_), rs(rs_), L(L_), D(D_), total(total_), issued(0),
         aligned(aligned_) {
 #pragma unroll
-    for (int i = 0; i < kAttnStages - 1; ++i) issue();
+    for (int i = 0; i < S - 1; ++i) issue();
   }
 
   __device__ __forceinline__ void issue() {
     if (issued < total) {
       const bool is_k = !kAlternate || issued % 2 == 0;
       const int kt = kAlternate ? issued / 2 : issued;
-      padded_load_rows<T, LD, kAttnKeys, W>(ring + (issued % kAttnStages) * kAttnKeys * LD,
-                                            is_k ? k : v, rs, kt * kAttnKeys, L, D, aligned);
+      padded_load_rows<T, LD, kAttnKeys, W>(ring + (issued % S) * kAttnKeys * LD, is_k ? k : v,
+                                            rs, kt * kAttnKeys, L, D, aligned);
     }
     cp_async_commit();
     ++issued;
@@ -156,16 +187,17 @@ struct PaddedStream {
 
   __device__ __forceinline__ const T* next(int i) {
     issue();
-    cp_async_wait<kAttnStages - 1>();
+    cp_async_wait<S - 1>();
     __syncthreads();
-    return ring + (i % kAttnStages) * kAttnKeys * LD;
+    return ring + (i % S) * kAttnKeys * LD;
   }
 };
 
-// Past 128 (G = 2): each warp of a group has summed its half of the depth
-// into s; the halves meet in xs ([warps][16][32] floats, fragment order) and
-// both warps take s = half 0 + half 1, the same sum in the same order.  Every
-// thread of the block reaches the barrier.
+// Past 128 (G = 2 to 4): each warp of a group has summed its slice of the
+// depth into s; the slices meet in xs ([warps][16][32] floats, fragment
+// order) and every warp of the group takes s = slice 0 + slice 1 + ..., the
+// same sum in the same order.  Every thread of the block reaches the
+// barrier.
 template <int G>
 __device__ __forceinline__ void group_scores(float (&s)[4][4], float* xs, bool active) {
   if constexpr (G > 1) {
@@ -222,18 +254,23 @@ __device__ __forceinline__ void padded_store(TO* op, long long out_rs, int row, 
     }
 }
 
+// The padded kernels' arguments, as launch_padded_kernel passes them
+#define ESV_PADDED_PARAMS(T)                                                                  \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,                  \
+      const float *__restrict__ mask, TO *__restrict__ out, int L, int D, long long in_bs,    \
+      long long in_rs, long long out_bs, long long out_rs, float scale, int aligned
+#define ESV_PADDED_ARGS q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale, aligned
+
 // float32 q, k, v at depth DG * G, R groups of 16 rows a block
 template <typename TO, int DG, int G, int R>
-__global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ mask, TO* __restrict__ out, int L, int D, long long in_bs,
-    long long in_rs, long long out_bs, long long out_rs, float scale, int aligned) {
+__device__ __forceinline__ void padded_attention_f32(ESV_PADDED_PARAMS(float)) {
   constexpr int W = G * R, DP = G * DG, LD = attn_ld<float, DP>();
-  static_assert(DG % 16 == 0 && DP <= 256, "depth");
+  constexpr int S = padded_stages<float, DP, R>();
+  static_assert(DG % 16 == 0 && DG <= 128 && DP <= kAttnMaxHeadDim, "depth");
   extern __shared__ __align__(16) unsigned char attn_smem[];
   float* qs = reinterpret_cast<float*>(attn_smem);   // [16 R][LD]
-  float* ring = qs + 16 * R * LD;                     // [kAttnStages][32][LD]
-  float* xs = ring + kAttnStages * kAttnKeys * LD;   // [W][16][32], G > 1
+  float* ring = qs + 16 * R * LD;                     // [S][32][LD]
+  float* xs = ring + S * kAttnKeys * LD;              // [W][16][32], G > 1
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 16 * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -242,12 +279,12 @@ __global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded_f32(
   const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
   const bool active = q0 + grp * 16 < L;
 
-  padded_zero_cols<float, LD, DP, W>(qs, 16 * R + kAttnStages * kAttnKeys, D);
+  padded_zero_cols<float, LD, DP, W>(qs, 16 * R + S * kAttnKeys, D);
   padded_load_rows<float, LD, 16 * R, W>(qs, q + in_off, in_rs, q0, L, D, aligned);
   cp_async_commit();
   const int ntiles = (L + kAttnKeys - 1) / kAttnKeys;
-  PaddedStream<float, LD, W, true> st(ring, k + in_off, v + in_off, in_rs, L, D, 2 * ntiles,
-                                      aligned);
+  PaddedStream<float, LD, W, true, S> st(ring, k + in_off, v + in_off, in_rs, L, D, 2 * ntiles,
+                                         aligned);
   const float* qw = qs + grp * 16 * LD + part * DG;
   AttnOut<float, DG> o;
   float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
@@ -312,18 +349,16 @@ __global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded_f32(
 // sum in a first pass over K's tiles, the normalised weights rounded to bf16
 // times V in a second
 template <typename TO, int DG, int G, int R>
-__global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask, TO* __restrict__ out,
-    int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
-    float scale, int aligned) {
+__device__ __forceinline__ void padded_attention_bf16(ESV_PADDED_PARAMS(__nv_bfloat16)) {
   using T = __nv_bfloat16;
   constexpr int W = G * R, DP = G * DG, LD = attn_ld<T, DP>();
-  static_assert(DG % 16 == 0 && DP <= 256 && attn_depth<T, DG>() == DG, "depth");
+  constexpr int S = padded_stages<T, DP, R>();
+  static_assert(DG % 16 == 0 && DG <= 128 && DP <= kAttnMaxHeadDim &&
+                    attn_depth<T, DG>() == DG, "depth");
   extern __shared__ __align__(16) unsigned char attn_smem[];
-  T* qs = reinterpret_cast<T*>(attn_smem);                                // [16 R][LD]
-  T* ring = qs + 16 * R * LD;                                             // [kAttnStages][32][LD]
-  float* xs = reinterpret_cast<float*>(ring + kAttnStages * kAttnKeys * LD);  // [W][16][32]
+  T* qs = reinterpret_cast<T*>(attn_smem);                              // [16 R][LD]
+  T* ring = qs + 16 * R * LD;                                           // [S][32][LD]
+  float* xs = reinterpret_cast<float*>(ring + S * kAttnKeys * LD);      // [W][16][32]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 16 * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -334,7 +369,7 @@ __global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded(
   const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
   const bool active = q0 + grp * 16 < L;
 
-  padded_zero_cols<T, LD, DP, W>(qs, 16 * R + kAttnStages * kAttnKeys, D);
+  padded_zero_cols<T, LD, DP, W>(qs, 16 * R + S * kAttnKeys, D);
   padded_load_rows<T, LD, 16 * R, W>(qs, q + in_off, in_rs, q0, L, D, aligned);
   cp_async_commit();
   const int ntiles = (L + kAttnKeys - 1) / kAttnKeys;
@@ -352,7 +387,7 @@ __global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded(
   // pass 1: each row's max and sum, online over the tiles
   float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
   {
-    PaddedStream<T, LD, W, false> st(ring, kb, vb, in_rs, L, D, ntiles, aligned);
+    PaddedStream<T, LD, W, false, S> st(ring, kb, vb, in_rs, L, D, ntiles, aligned);
     for (int kt = 0; kt < ntiles; ++kt) {
       float s[4][4];
       scores(st.next(kt), kt, s);
@@ -384,7 +419,7 @@ __global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded(
   for (int dn = 0; dn < DG / 8; ++dn)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
-  PaddedStream<T, LD, W, true> st(ring, kb, vb, in_rs, L, D, 2 * ntiles, aligned);
+  PaddedStream<T, LD, W, true, S> st(ring, kb, vb, in_rs, L, D, 2 * ntiles, aligned);
   for (int kt = 0; kt < ntiles; ++kt) {
     float s[4][4];
     scores(st.next(2 * kt), kt, s);
@@ -406,15 +441,50 @@ __global__ void __launch_bounds__(32 * G * R, 1) attention_kernel_padded(
                      L, D, part * DG + 2 * t, o);
 }
 
-// One instantiation, Kernel, of R groups a block; its shared-memory
-// attribute is set once per device
-template <int DP, int R, auto Kernel, typename T, typename TO>
+// The kernels: up to depth 256 (G <= 2) attention_kernel_padded_f32 and
+// attention_kernel_padded, past it (G = 3 or 4) the same code as
+// attention_kernel_deep_f32 and attention_kernel_deep, counted apart
+template <typename TO, int DG, int G, int R>
+__global__ void __launch_bounds__(32 * G * R, 1)
+    attention_kernel_padded_f32(ESV_PADDED_PARAMS(float)) {
+  static_assert(G <= 2, "past depth 256: attention_kernel_deep_f32");
+  padded_attention_f32<TO, DG, G, R>(ESV_PADDED_ARGS);
+}
+
+template <typename TO, int DG, int G, int R>
+__global__ void __launch_bounds__(32 * G * R, 1)
+    attention_kernel_deep_f32(ESV_PADDED_PARAMS(float)) {
+  static_assert(G > 2, "up to depth 256: attention_kernel_padded_f32");
+  padded_attention_f32<TO, DG, G, R>(ESV_PADDED_ARGS);
+}
+
+template <typename TO, int DG, int G, int R>
+__global__ void __launch_bounds__(32 * G * R, 1)
+    attention_kernel_padded(ESV_PADDED_PARAMS(__nv_bfloat16)) {
+  static_assert(G <= 2, "past depth 256: attention_kernel_deep");
+  padded_attention_bf16<TO, DG, G, R>(ESV_PADDED_ARGS);
+}
+
+template <typename TO, int DG, int G, int R>
+__global__ void __launch_bounds__(32 * G * R, 1)
+    attention_kernel_deep(ESV_PADDED_PARAMS(__nv_bfloat16)) {
+  static_assert(G > 2, "up to depth 256: attention_kernel_padded");
+  padded_attention_bf16<TO, DG, G, R>(ESV_PADDED_ARGS);
+}
+
+#undef ESV_PADDED_PARAMS
+#undef ESV_PADDED_ARGS
+
+// One instantiation, Kernel, of R groups a block, counted as Kind; its
+// shared-memory attribute is set once per device
+template <int DP, int R, auto Kernel, AttnKernel Kind, typename T, typename TO>
 static cudaError_t launch_padded_kernel(const T* q, const T* k, const T* v, const float* mask,
                                         TO* out, int B, int H, int L, int D, long long in_bs,
                                         long long in_rs, long long out_bs, long long out_rs,
                                         cudaStream_t stream) {
   constexpr int G = padded_group<DP>();
-  constexpr size_t smem = padded_smem_bytes<T, DP, R>();
+  constexpr size_t smem = padded_smem_bytes<T, DP, R, padded_stages<T, DP, R>()>();
+  static_assert(smem <= kPaddedSmemMax, "shared memory");
   int dev;
   const cudaError_t err = once_per_device<KernelSite<Kernel> >(&dev, [](int) {
     return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -427,34 +497,43 @@ static cudaError_t launch_padded_kernel(const T* q, const T* k, const T* v, cons
   const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
   Kernel<<<grid, 32 * G * R, smem, stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs,
                                              out_rs, scale, aligned ? 1 : 0);
-  return counted_launch(std::is_same<T, float>::value ? kAttnKernelPaddedF32 : kAttnKernelPadded);
+  return counted_launch(Kind);
 }
 
-// attention_kernel_padded_f32 for float32 q, k, v, attention_kernel_padded
-// for bf16, at depth DP with R groups a block
+// attention_kernel_padded_f32 (past depth 256 attention_kernel_deep_f32) for
+// float32 q, k, v, attention_kernel_padded (attention_kernel_deep) for bf16,
+// at depth DP with R groups a block
 template <int DP, int R, typename T, typename TO>
 static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const float* mask, TO* out,
                                    int B, int H, int L, int D, long long in_bs, long long in_rs,
                                    long long out_bs, long long out_rs, cudaStream_t stream) {
   constexpr int G = padded_group<DP>(), DG = DP / G;
-  if constexpr (std::is_same<T, float>::value)
-    return launch_padded_kernel<DP, R, attention_kernel_padded_f32<TO, DG, G, R> >(
+  if constexpr (std::is_same<T, float>::value && G <= 2)
+    return launch_padded_kernel<DP, R, attention_kernel_padded_f32<TO, DG, G, R>,
+                                kAttnKernelPaddedF32>(q, k, v, mask, out, B, H, L, D, in_bs,
+                                                      in_rs, out_bs, out_rs, stream);
+  else if constexpr (std::is_same<T, float>::value)
+    return launch_padded_kernel<DP, R, attention_kernel_deep_f32<TO, DG, G, R>,
+                                kAttnKernelDeepF32>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                                    out_bs, out_rs, stream);
+  else if constexpr (G <= 2)
+    return launch_padded_kernel<DP, R, attention_kernel_padded<TO, DG, G, R>, kAttnKernelPadded>(
         q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
   else
-    return launch_padded_kernel<DP, R, attention_kernel_padded<TO, DG, G, R> >(
+    return launch_padded_kernel<DP, R, attention_kernel_deep<TO, DG, G, R>, kAttnKernelDeep>(
         q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
 // Head dim D, whose padded depth is DP: at depth 256 attention_wide.cuh's
 // kernels where they take the call (wide_takes); else one group a block
-// where L <= 16, else 8 warps.  The pointers need only their types'
-// alignment.
+// where L <= 16, else 8 warps up to depth 256 and 2 groups (6 or 8 warps)
+// past it.  The pointers need only their types' alignment.
 template <int DP, typename T, typename TO>
 static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, const float* mask,
                                            TO* out, int B, int H, int L, int D, long long in_bs,
                                            long long in_rs, long long out_bs, long long out_rs,
                                            cudaStream_t stream) {
-  if (L < 1 || L > kAttnMaxLen || D < 1 || D > 256 || padded_depth(D) != DP)
+  if (L < 1 || L > kAttnMaxLen || D < 1 || D > kAttnMaxHeadDim || padded_depth(D) != DP)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(q) % sizeof(T) || reinterpret_cast<uintptr_t>(k) % sizeof(T) ||
       reinterpret_cast<uintptr_t>(v) % sizeof(T) || reinterpret_cast<uintptr_t>(out) % sizeof(TO))
@@ -471,12 +550,19 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
                                                             in_rs, out_bs, out_rs, stream);
 }
 
+// The head dims of K2's and K3's attention: the multiples of 128 up to
+// kAttnMaxHeadDim (JAX's fused block takes a head dim that is a multiple of
+// 128, models/layers.py:_fused_eligible)
+__host__ __device__ constexpr bool block_head_dim(int D) {
+  return D > 0 && D % 128 == 0 && D <= kAttnMaxHeadDim;
+}
+
 // The attention of K2 (float32 q, k, v) and K3 (q, k, v in the weights'
 // type), TO the weights' type: head dim 128 on launch_attention_dim's
 // kernels (K3 past 16 keys on attention_wide.cuh's wgmma kernels, one pass
 // up to 256 keys and two past it), 256 on attention_wide.cuh's (K2 past 16
-// keys, K3 from 17 to 256) or the padded ones.  Any other D returns
-// cudaErrorInvalidValue.
+// keys, K3 from 17 to 256) or the padded ones, 384 and 512 on the deep
+// kernels.  Any other D returns cudaErrorInvalidValue.
 template <typename T, typename TO>
 static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, const float* mask,
                                           TO* out, int B, int H, int L, int D, long long in_bs,
@@ -488,6 +574,13 @@ static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, co
                                             out_rs, stream);
   if (D == 256)
     return launch_attention_padded<256, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                               out_bs, out_rs, stream);
+  static_assert(kAttnMaxHeadDim == 512, "the multiples of 128 below");
+  if (D == 384)
+    return launch_attention_padded<384, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                               out_bs, out_rs, stream);
+  if (D == 512)
+    return launch_attention_padded<512, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
                                                out_bs, out_rs, stream);
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,7 @@
 // (batch, head) per grid cell with the whole (L, L) score tile in VMEM.
 //
 // The TPU kernel is generic in the head dim, and so is this one, from 1 to
-// 256.  Every multiple of 8 from 8 to 128 (ESV_K1_HEAD_DIMS) is an
+// kAttnMaxHeadDim (512, attention.cuh).  Every multiple of 8 from 8 to 128 (ESV_K1_HEAD_DIMS) is an
 // instantiation of its own of attention.cuh's kernels with its loads and
 // fragment loops folded to constants: the models' 24, 48, 64 and 128 (4
 // heads at d_model 96 and 192, the CoGenT protocol's executors; 256, the
@@ -14,8 +14,10 @@
 // d_model 32, ..., 480).  bf16 scores at D % 16 == 8 take their m16n8k16
 // products over a depth zero-padded by 8 in shared memory (attention.cuh:
 // attn_depth).  Every other head dim (25 at the protocol's --d_model 100, 256
-// at 1024) takes attention_padded.cuh's kernels at its padded depth
-// (ESV_K1_PAD_DEPTHS), with the head dim a run-time argument.
+// at 1024, 275 at 1100, 384 and 512 at 1536 and 2048) takes
+// attention_padded.cuh's kernels at its padded depth (ESV_K1_PAD_DEPTHS),
+// with the head dim a run-time argument: past 256 its deep kernels
+// (attention_kernel_deep_f32, attention_kernel_deep).
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
@@ -48,7 +50,7 @@
 //                     out_dtype, stream)
 // mask is a (B, L) float32 key mask (keep where > 0) or null; dtype is 0 for
 // float32, 1 for bfloat16 (q, k and v share it); out_dtype is the output's,
-// either float32 or dtype.  D is 1 to 256; at D in ESV_K1_HEAD_DIMS q, k, v
+// either float32 or dtype.  D is 1 to kAttnMaxHeadDim; at D in ESV_K1_HEAD_DIMS q, k, v
 // and their strides must be 16-byte aligned.  L is 1 to kAttnMaxLen.
 // Returns the CUDA error of the launch (0 on success; cudaErrorInvalidValue
 // for another D or L).
@@ -63,18 +65,21 @@
 // name K1's kernel function i (0: attention_kernel_f32, 1: attention_kernel,
 // 2: attention_kernel_onepass, 3: attention_kernel_padded_f32, 4:
 // attention_kernel_padded, 5: attention_kernel_split_f32, 6:
-// attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass; null and -1 past
-// the last) and count the
+// attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass, 8:
+// attention_kernel_deep_f32, 9: attention_kernel_deep; null and -1 past the
+// last) and count the
 // launches of it that this library's entries have made since it was loaded:
 // which kernel a call takes is decided in launch_attention_dim and
 // launch_attention_padded alone, and the counts say which ran.
 //   int esv_attention_max_len()
 // the longest row the entry takes (kAttnMaxLen).
+//   int esv_attention_max_head_dim()
+// the widest head dim the entry takes (kAttnMaxHeadDim).
 
 #include "attention_padded.cuh"
 
 #define ESV_K1_HEAD_DIMS 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 104, 112, 120, 128
-#define ESV_K1_PAD_DEPTHS 16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256
+#define ESV_K1_PAD_DEPTHS 16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256, 288, 336, 384, 448, 512
 
 namespace esv {
 
@@ -166,14 +171,14 @@ static cudaError_t attention_by_dim(const T* q, const T* k, const T* v, const fl
   return err;
 }
 
-// Every other head dim up to 256, at its padded depth (padded_depth) among
-// DPs
+// Every other head dim up to kAttnMaxHeadDim, at its padded depth
+// (padded_depth) among DPs
 template <typename T, typename TO, int... DPs>
 static cudaError_t attention_by_depth(const T* q, const T* k, const T* v, const float* mask,
                                       TO* out, int B, int H, int L, int D, long long in_bs,
                                       long long in_rs, long long out_bs, long long out_rs,
                                       cudaStream_t stream) {
-  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D < 1 || D > kAttnMaxHeadDim) return cudaErrorInvalidValue;
   const int dp = padded_depth(D);
   cudaError_t err = cudaErrorInvalidValue;
   (void)((dp == DPs && ((err = attention_at_depth<DPs, T, TO>(q, k, v, mask, out, B, H, L, D,
@@ -239,5 +244,7 @@ extern "C" long long esv_attention_launches(int i) {
 }
 
 extern "C" int esv_attention_max_len() { return esv::kAttnMaxLen; }
+
+extern "C" int esv_attention_max_head_dim() { return esv::kAttnMaxHeadDim; }
 
 #endif

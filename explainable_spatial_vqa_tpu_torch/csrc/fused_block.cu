@@ -65,7 +65,9 @@
 //       256 keys and attention_kernel_wgmma_2pass past them;
 //       attention_wide.cuh at 256: attention_kernel_split_f32 for K2 and
 //       attention_kernel_wgmma for K3, attention_padded.cuh's kernels at 16
-//       keys or fewer): on K2's float32 q, k, v both products in 3xTF32 on
+//       keys or fewer; at 384 and 512 attention_padded.cuh's deep kernels,
+//       attention_kernel_deep_f32 for K2 and attention_kernel_deep for K3,
+//       at every length): on K2's float32 q, k, v both products in 3xTF32 on
 //       the tensor cores with an online softmax, the output written in the
 //       weights' type; on K3's q, k, v in the weights' type (the QKV GEMM's
 //       epilogue rounds them) float32 tensor-core scores and a bf16
@@ -108,8 +110,8 @@
 //   int esv_block_attention(q, k, v, mask, out, B, H, L, D, in_batch_stride,
 //                            in_row_stride, out_batch_stride, out_row_stride,
 //                            dtype, out_dtype, stream)
-// is the blocks' attention alone (launch_block_attention, D 128 or 256),
-// with esv_attention's arguments (fused_attention.cu): K2's on float32 q, k,
+// is the blocks' attention alone (launch_block_attention, D 128, 256, 384 or
+// 512), with esv_attention's arguments (fused_attention.cu): K2's on float32 q, k,
 // v from the (B, L, 3d) buffer, K3's on bf16 (dtype 1), timed apart by
 // chip_smoke.py and measure/attention_variants.py.
 //   const char* esv_block_attention_kernel(int i)
@@ -117,10 +119,14 @@
 // name the attention kernel function i (attention.cuh's AttnKernel: 0
 // attention_kernel_f32, 1 attention_kernel, 3 attention_kernel_padded_f32,
 // 4 attention_kernel_padded, 5 attention_kernel_split_f32, 6
-// attention_kernel_wgmma, 7 attention_kernel_wgmma_2pass) and count the launches of it that this library's
-// blocks and esv_block_attention have made since it was loaded.
-// H is d / 128 or d / 256 (the attention's head dims), L at most
-// kAttnMaxLen.  Returns the first CUDA error of the launches (0 on success).
+// attention_kernel_wgmma, 7 attention_kernel_wgmma_2pass, 8
+// attention_kernel_deep_f32, 9 attention_kernel_deep) and count the launches
+// of it that this library's blocks and esv_block_attention have made since
+// it was loaded.
+// H is d / 128, d / 256, d / 384 or d / 512 (the attention's head dims: the
+// multiples of 128 up to kAttnMaxHeadDim, attention_padded.cuh:
+// block_head_dim), L at most kAttnMaxLen.  Returns the first CUDA error of
+// the launches (0 on success).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -884,7 +890,7 @@ cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const
                           float* proj, float* x1, TW* x1w, TW* hidden, int B, int L, int d, int H,
                           int ffn, cudaStream_t s) {
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
-  if (L < 1 || L > kAttnMaxLen || H < 1 || d % H || (d / H != 128 && d / H != 256))
+  if (L < 1 || L > kAttnMaxLen || H < 1 || d % H || !block_head_dim(d / H))
     return cudaErrorInvalidValue;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;
@@ -915,7 +921,7 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
                                 int ffn, int chunks, cudaStream_t s) {
   const int M = B * L, wd = std::is_same<TW, bf16>::value ? kBFloat16 : kFloat32;
   if (chunks < 1 || M % chunks || L < 1 || L > kAttnMaxLen || H < 1 || d % H ||
-      (d / H != 128 && d / H != 256))
+      !block_head_dim(d / H))
     return cudaErrorInvalidValue;
   TW* x1_copy = std::is_same<TW, bf16>::value ? x1w : nullptr;
   cudaError_t err;

@@ -11,11 +11,11 @@ plain attention rounds its scores to bf16 first).  LayerNorm uses eps 1e-6
 
 :class:`EncoderBlock` routes eligible calls (post-LN, eval mode, a key-padding
 mask or none, d_model a multiple of 128 and a head dim of
-``ops.fused_block.BLOCK_HEAD_DIMS``, 128 and 256) to the fused encoder block
+``ops.fused_block.BLOCK_HEAD_DIMS``, 128, 256, 384 and 512) to the fused encoder block
 K2, as ``_fused_eligible`` does in the JAX package (d_model and head dims
 that are multiples of 128); :class:`MultiHeadAttention` routes eligible
 self-attention (eval mode with no autograd graph, same length, a key-padding
-mask or none) to K1 at every head dim from 1 to 256
+mask or none) to K1 at every head dim from 1 to 512
 (``ops.fused_attention.HEAD_DIMS``), as JAX's attention dispatch does at
 any.  Both route only rows the kernels take (``shape_built`` and
 ``block_shape_built``, the wrappers' own checks: 1 to ``MAX_LEN`` keys).

@@ -50,9 +50,11 @@ CUDA_HOMES = ("/usr/local/cuda",)  # searched after $CUDA_HOME, before PATH
 K1_DIM_GROUPS = ((8, 128), (16, 120), (24, 112), (32, 104), (40, 96), (48, 88), (56, 80),
                  (64, 72))
 # the padded kernels' depths (``ops.fused_attention.PADDED_DEPTHS``), which
-# take every other head dim up to 256, two to a unit compiled with
-# -DESV_PAD_DEPTH_A and -DESV_PAD_DEPTH_B, a small and a large one together
-K1_PAD_GROUPS = ((16, 256), (32, 224), (48, 192), (64, 160), (80, 128), (96, 112))
+# take every other head dim up to ``MAX_HEAD_DIM``, two to a unit compiled
+# with -DESV_PAD_DEPTH_A and -DESV_PAD_DEPTH_B, a small and a large one
+# together; past 256 the deep kernels, two or one to a unit
+K1_PAD_GROUPS = ((16, 256), (32, 224), (48, 192), (64, 160), (80, 128), (96, 112), (288, 512),
+                 (336, 448), (384,))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

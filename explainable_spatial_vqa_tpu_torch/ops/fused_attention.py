@@ -10,7 +10,8 @@ which computes the same arithmetic.
 :func:`fused_attention` takes self-attention (``Lq == Lk``) with a key-padding
 mask or none, the calls :func:`attention_eligible` accepts.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises.  The TPU
-kernel takes any head dim, and so does K1 from 1 to 256 (:data:`HEAD_DIMS`):
+kernel takes any head dim, and so does K1 from 1 to :data:`MAX_HEAD_DIM`
+(512, :data:`HEAD_DIMS`):
 every multiple of 8 up to 128 has kernels of its own
 (:data:`EXACT_HEAD_DIMS`, one instantiation each), every other head dim runs
 the padded kernels at its padded depth (:func:`padded_depth`, one of
@@ -35,11 +36,15 @@ from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 __all__ = ["fused_attention", "attention_eligible", "check_attention", "head_dim_built",
            "shape_built", "padded_depth", "key_mask_f32", "kernel_launches", "bind_entry",
            "call_entry", "call_rows", "HEAD_DIMS", "EXACT_HEAD_DIMS", "PADDED_DEPTHS", "MAX_LEN",
-           "DTYPE_CODES"]
+           "MAX_HEAD_DIM", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K1's head dims on the card: every one from 1 to 256
-HEAD_DIMS = tuple(range(1, 257))
+# the widest head dim, csrc/attention.cuh's kAttnMaxHeadDim (the widest held
+# against the plain version on the card: 4 heads of d_model 2048); K2's and
+# K3's head dims are its multiples of 128 (ops.fused_block.BLOCK_HEAD_DIMS)
+MAX_HEAD_DIM = 512
+# K1's head dims on the card: every one from 1 to MAX_HEAD_DIM
+HEAD_DIMS = tuple(range(1, MAX_HEAD_DIM + 1))
 # the head dims with kernels of their own in csrc/fused_attention.cu
 # (ESV_K1_HEAD_DIMS; compiled in the groups of ops._build.K1_DIM_GROUPS):
 # every multiple of 8 up to 128, among them 4 heads of d_model 96 and 192
@@ -48,8 +53,8 @@ HEAD_DIMS = tuple(range(1, 257))
 EXACT_HEAD_DIMS = tuple(range(8, 129, 8))
 # the depths of the padded kernels (csrc/attention_padded.cuh;
 # ESV_K1_PAD_DEPTHS, compiled in the groups of ops._build.K1_PAD_GROUPS),
-# which take every other head dim
-PADDED_DEPTHS = tuple(range(16, 129, 16)) + (160, 192, 224, 256)
+# which take every other head dim: past 256 its deep kernels
+PADDED_DEPTHS = tuple(range(16, 129, 16)) + (160, 192, 224, 256, 288, 336, 384, 448, 512)
 # the longest row of keys, csrc/attention.cuh's kAttnMaxLen (the longest row
 # held against the plain version on the card; no kernel needs a cap)
 MAX_LEN = 4096
@@ -58,19 +63,18 @@ MAX_LEN = 4096
 def padded_depth(head_dim: int) -> int:
     """The depth of the padded kernel that takes ``head_dim``
     (``attention_padded.cuh: padded_depth``): up to 128 the head dim rounded
-    up to 16; past it two warps share a row group, each half the depth, so
-    twice its half rounded up to 16."""
-    if head_dim > 128:
-        return 2 * (((head_dim + 1) // 2 + 15) // 16 * 16)
-    return (head_dim + 15) // 16 * 16
+    up to 16; past it G = ceil(head_dim / 128) warps share a row group, each
+    a slice of the depth, so G times its G-th part rounded up to 16."""
+    slices = -(-head_dim // 128) if head_dim > 128 else 1
+    return slices * ((-(-head_dim // slices) + 15) // 16 * 16)
 
 
 def head_dim_built(d_model: int, num_heads: int) -> bool:
     """True when ``d_model`` splits into ``num_heads`` heads of a dim K1
-    takes (:data:`HEAD_DIMS`: 1 to 256).  JAX's dispatch
+    takes (:data:`HEAD_DIMS`: 1 to :data:`MAX_HEAD_DIM`).  JAX's dispatch
     (``ops/attention.py:51-59``) has no head-dim condition: its kernel takes
-    any; here every head dim a preset or a CLI width gives (up to d_model
-    1024 at 4 heads) is one."""
+    any; here every head dim a preset or a CLI width gives up to d_model
+    2048 at 4 heads is one."""
     return d_model % num_heads == 0 and d_model // num_heads in HEAD_DIMS
 
 
@@ -197,8 +201,10 @@ def kernel_launches() -> Dict[str, int]:
     it was loaded: ``attention_kernel_f32``, ``attention_kernel``,
     ``attention_kernel_onepass`` (the head dims of :data:`EXACT_HEAD_DIMS`),
     ``attention_kernel_padded_f32`` and ``attention_kernel_padded`` (every
-    other head dim), and on ``csrc/attention_wide.cuh``
-    ``attention_kernel_split_f32`` (float32 at padded depth 256),
+    other head dim up to 256), ``attention_kernel_deep_f32`` and
+    ``attention_kernel_deep`` (every other head dim past it), and on
+    ``csrc/attention_wide.cuh`` ``attention_kernel_split_f32`` (float32 at
+    padded depth 256),
     ``attention_kernel_wgmma`` (bf16 up to 256 keys at head dims 72-128 and
     at padded depth 256) and ``attention_kernel_wgmma_2pass`` (bf16 past 256
     keys at the head dims of :data:`EXACT_HEAD_DIMS`).  Which one

@@ -55,6 +55,7 @@ from explainable_spatial_vqa_tpu_torch.ops import _build
 from explainable_spatial_vqa_tpu_torch.ops.attention import scaled_attention
 from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
     DTYPE_CODES,
+    MAX_HEAD_DIM,
     MAX_LEN,
     key_mask_f32,
 )
@@ -66,12 +67,13 @@ __all__ = ["BlockWeights", "SplitWeights", "block_scratch", "fuse_encoder_params
            "kernel_launches", "BLOCK_HEAD_DIMS", "LN_EPS"]
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default, and ops/pallas_block.py:106
-# the head dims csrc/fused_block.cu runs its attention at (attention.cuh's
-# kernels at 128, attention_padded.cuh's at 256): the JAX package routes to
-# its fused block where d_model and the head dim are multiples of 128
-# (models/layers.py:_fused_eligible), which at the presets' 4 heads up to
-# d_model 1024 are these
-BLOCK_HEAD_DIMS = (128, 256)
+# the head dims csrc/fused_block.cu runs its attention at, the multiples of
+# 128 up to MAX_HEAD_DIM (attention_padded.cuh: block_head_dim; attention.cuh's
+# kernels at 128, attention_padded.cuh's at 256, its deep kernels at 384 and
+# 512): the JAX package routes to its fused block where d_model and the head
+# dim are multiples of 128 (models/layers.py:_fused_eligible), which at the
+# presets' 4 heads up to d_model 2048 are these
+BLOCK_HEAD_DIMS = tuple(range(128, MAX_HEAD_DIM + 1, 128))
 
 
 def block_head_dim_built(d_model: int, num_heads: int) -> bool:
@@ -351,9 +353,10 @@ def kernel_launches() -> Dict[str, int]:
     ``attention_kernel`` at head dim 128, at 256 ``attention_kernel_split_f32``
     (K2, float32 q/k/v, past 16 keys), ``attention_kernel_wgmma`` (K3, bf16,
     17-256 keys) and ``attention_kernel_padded_f32`` and
-    ``attention_kernel_padded`` for the rest (``launch_block_attention`` in
-    ``csrc/attention_padded.cuh`` picks).  Needs the library (a card and
-    ``nvcc``)."""
+    ``attention_kernel_padded`` for the rest, at 384 and 512
+    ``attention_kernel_deep_f32`` (K2) and ``attention_kernel_deep`` (K3)
+    (``launch_block_attention`` in ``csrc/attention_padded.cuh`` picks).
+    Needs the library (a card and ``nvcc``)."""
     names, count = _launch_counters()
     return {n: count(i) for i, n in enumerate(names)}
 

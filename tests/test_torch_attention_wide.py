@@ -214,7 +214,7 @@ def _dim_rule():
 
 
 def test_routing_mirrors_name_the_c_kernels():
-    """For every head dim 1-256 and lengths around each split, in both
+    """For every head dim 1-512 and lengths around each split, in both
     types, the mirrors name a kernel function of the C source's list: at the
     head dims 8-128 (multiples of 8) launch_attention_dim's (bf16: the ring
     up to 16 keys, the one-pass kernel up to kOnePassKeys at head dims up to
@@ -222,8 +222,8 @@ def test_routing_mirrors_name_the_c_kernels():
     past kOnePassKeys; float32 attention_kernel_f32), elsewhere the
     head-dim-256 ones exactly where wide_takes sends a call (rows of whole
     16-byte chunks past 16 keys at padded depth 256, bf16 up to
-    kWgmmaMaxKeys) and the padded ones otherwise; K2's and K3's attention at
-    head dims 128 and 256 as K1's."""
+    kWgmmaMaxKeys) and the padded ones otherwise (past 256 the deep ones);
+    K2's and K3's attention at head dims 128, 256, 384 and 512 as K1's."""
     names = _names()
     max_keys, counted = _wide_rule()
     one_pass_keys, onepass_dims = _dim_rule()
@@ -243,7 +243,7 @@ def test_routing_mirrors_name_the_c_kernels():
         return names["kAttnKernelOnePass"] if d <= onepass_dims else wgmma
 
     lengths = (1, 8, 16, 17, 64, 208, 224, max_keys, max_keys + 1, 1025, 4096)
-    for d in range(1, 257):
+    for d in range(1, 513):
         exact = d % 8 == 0 and d <= 128
         for length in lengths:
             for kind, esize, new in (("bf16", 2, wgmma), ("fp32", 4, split)):
@@ -259,11 +259,12 @@ def test_routing_mirrors_name_the_c_kernels():
                         and length > 16 and (kind == "fp32" or length <= max_keys))
                 assert (got == new) == wide, (d, length, kind, got)
                 if not wide:
-                    assert got == names["kAttnKernelPadded" if kind == "bf16"
-                                        else "kAttnKernelPaddedF32"]
+                    padded = "kAttnKernelDeep" if d > 256 else "kAttnKernelPadded"
+                    assert got == names[padded + ("" if kind == "bf16" else "F32")]
     for length in lengths:
         assert chip_smoke.block_attention_kernel(128, length, "fp32") == names["kAttnKernelF32"]
         assert chip_smoke.block_attention_kernel(128, length, "bf16") == exact_bf16(128, length)
         for kind in ("fp32", "bf16"):
-            assert (chip_smoke.block_attention_kernel(256, length, kind)
-                    == chip_smoke.k1_kernel(256, length, kind))
+            for d in (256, 384, 512):
+                assert (chip_smoke.block_attention_kernel(d, length, kind)
+                        == chip_smoke.k1_kernel(d, length, kind))

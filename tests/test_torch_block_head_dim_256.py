@@ -111,17 +111,19 @@ def test_k3_plain_matches_jax_kernel_at_head_dim_256(masked, batch_tile, ffn_chu
 
 def test_gate_follows_jax_rule():
     """``block_head_dim_built`` is JAX's rule (d_model and the head dim
-    multiples of 128) at every d_model of 1 to 8 heads up to 1024 whose head
-    dim is built (128 or 256); JAX's rule also holds at 384 and 512 (d_model
-    768 or 1024 at 2 heads or fewer), which K2 does not take."""
-    assert BLOCK_HEAD_DIMS == (128, 256)
+    multiples of 128) at every d_model of 1 to 8 heads up to 2048 whose head
+    dim is built (128, 256, 384 or 512); JAX's rule also holds at 640 and
+    past it (d_model 1280 at 2 heads, 2560 at 4), which K2 does not take."""
+    assert BLOCK_HEAD_DIMS == (128, 256, 384, 512)
     for heads in range(1, 9):
-        for d_model in range(heads, 1025, heads):
+        for d_model in range(heads, 2049, heads):
             jax_rule = d_model % 128 == 0 and (d_model // heads) % 128 == 0
             built = block_head_dim_built(d_model, heads)
             assert built == (jax_rule and d_model // heads in BLOCK_HEAD_DIMS), (d_model, heads)
     assert block_head_dim_built(512, 2) and block_head_dim_built(1024, 4)
-    assert not block_head_dim_built(768, 2) and not block_head_dim_built(1024, 2)
+    assert block_head_dim_built(768, 2) and block_head_dim_built(1024, 2)
+    assert block_head_dim_built(1536, 4) and block_head_dim_built(2048, 4)
+    assert not block_head_dim_built(1280, 2) and not block_head_dim_built(2560, 4)
 
 
 @pytest.mark.parametrize("length", [1025, MAX_LEN, MAX_LEN + 1])

@@ -1,7 +1,7 @@
 """K1 at every head dim, on the CPU against the JAX package.
 
 The TPU kernel (``explainable_spatial_vqa_tpu/ops/pallas_attention.py``) takes
-any head dim; the port's K1 takes every head dim from 1 to 256
+any head dim; the port's K1 takes every head dim from 1 to 512
 (``HEAD_DIMS``): every multiple of 8 from 8 to 128 has kernels of its own
 (``EXACT_HEAD_DIMS``; the C library's ``ESV_K1_HEAD_DIMS``, compiled in the
 units of ``ops._build.K1_DIM_GROUPS``), every other head dim the padded
@@ -84,27 +84,29 @@ def _key_mask(batch, length, seed):
 
 
 def test_head_dim_built_is_every_multiple_of_8_to_128():
-    """K1's gate: 4 heads of every head dim from 1 to 256 (d_model 4 to
-    1024), among them every multiple of 8 from 8 to 128 and 4, 25 and 136;
-    none past 256; K2's at 128 and 256."""
-    assert HEAD_DIMS == tuple(range(1, 257))
+    """K1's gate: 4 heads of every head dim from 1 to 512 (d_model 4 to
+    2048), among them every multiple of 8 from 8 to 128 and 4, 25, 136 and
+    257; none past 512; K2's at 128, 256, 384 and 512."""
+    assert HEAD_DIMS == tuple(range(1, 513))
     assert EXACT_HEAD_DIMS == tuple(range(8, 129, 8))
-    for head_dim in range(1, 257):
+    for head_dim in range(1, 513):
         assert head_dim_built(4 * head_dim, 4), head_dim
         assert head_dim_built(2 * head_dim, 2), head_dim
-    for head_dim in (4, 25, 136):
+    for head_dim in (4, 25, 136, 257):
         assert head_dim_built(4 * head_dim, 4), head_dim
-    assert not head_dim_built(4 * 257, 4)
+    assert not head_dim_built(4 * 513, 4)
     assert not head_dim_built(100, 3)  # no whole head dim
-    assert BLOCK_HEAD_DIMS == (128, 256)
-    assert [d for d in range(8, 257, 8) if block_head_dim_built(4 * d, 4)] == [128, 256]
+    assert BLOCK_HEAD_DIMS == (128, 256, 384, 512)
+    assert ([d for d in range(8, 641, 8) if block_head_dim_built(4 * d, 4)]
+            == [128, 256, 384, 512])
 
 
 @pytest.mark.parametrize("head_dim,ok", [(8, True), (72, True), (128, True), (4, True),
-                                          (25, True), (136, True), (257, False)])
+                                          (25, True), (136, True), (257, True), (512, True),
+                                          (513, False)])
 def test_wrapper_contract_follows_head_dims(head_dim, ok):
     """The wrapper's contract (checked before any launch on a CUDA tensor)
-    takes exactly the head dims of ``HEAD_DIMS``, 1 to 256."""
+    takes exactly the head dims of ``HEAD_DIMS``, 1 to 512."""
     q, k, v = (torch.zeros(2, 5, 2, head_dim) for _ in range(3))
     if ok:
         check_attention(q, k, v)
@@ -117,7 +119,7 @@ def test_source_and_build_name_the_same_head_dims(monkeypatch):
     """``csrc/fused_attention.cu``'s dispatch lists (ESV_K1_HEAD_DIMS,
     ESV_K1_PAD_DEPTHS), the build's units (each dim and depth in exactly one
     group) and ``EXACT_HEAD_DIMS`` and ``PADDED_DEPTHS`` agree, and every
-    other head dim up to 256 has its padded depth among them; the library's
+    other head dim up to 512 has its padded depth among them; the library's
     hash covers the units' flags, so regrouping rebuilds."""
     source = (_build.CSRC_DIR / "fused_attention.cu").read_text()
     listed = re.search(r"#define ESV_K1_HEAD_DIMS ([0-9, ]+)\n", source).group(1)

@@ -396,18 +396,18 @@ def test_block_gemm_float32_weights_take_any_alignment():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_limits_accept_what_they_did(dtype):
     """MAX_LEN and HEAD_DIMS did not shrink: the kernel's checks take 4096
-    keys at every head dim from 1 to 256 and refuse one key more, a head dim
-    past 256 (257, 384), and q/k/v at a head dim with kernels of its own
+    keys at every head dim from 1 to 512 and refuse one key more, a head dim
+    past 512 (513, 1024), and q/k/v at a head dim with kernels of its own
     (128) that do not start on a 16-byte boundary (cp.async copies 16
     bytes)."""
     assert MAX_LEN == 4096 and set(HEAD_DIMS) >= {24, 48, 64, 128}
-    assert HEAD_DIMS == tuple(range(1, 257))
+    assert HEAD_DIMS == tuple(range(1, 513))
     for head_dim in HEAD_DIMS:
         q = torch.zeros(1, MAX_LEN, 1, head_dim, dtype=dtype)
         check_attention(q, q, q)
     for bad, match in ((torch.zeros(1, MAX_LEN + 1, 1, 128, dtype=dtype), "length"),
-                       (torch.zeros(1, 16, 1, 257, dtype=dtype), "head dim"),
-                       (torch.zeros(1, 16, 1, 384, dtype=dtype), "head dim"),
+                       (torch.zeros(1, 16, 1, 513, dtype=dtype), "head dim"),
+                       (torch.zeros(1, 16, 1, 1024, dtype=dtype), "head dim"),
                        (_misaligned((1, 16, 1, 128), dtype), "16-byte")):
         with pytest.raises(ValueError, match=match):
             check_attention(bad, bad, bad)

@@ -100,19 +100,21 @@ def test_training_forward_never_routes(spies):
 @pytest.mark.parametrize("d_model, heads, built", [
     (512, 4, True), (256, 2, True), (128, 1, True), (96, 4, False), (192, 4, False),
     (384, 4, False), (512, 2, True), (500, 4, False), (130, 4, False), (1024, 4, True),
-    (768, 2, False), (640, 5, True)])
+    (768, 2, True), (640, 5, True), (1536, 4, True), (2048, 4, True), (2560, 4, False)])
 def test_head_dim_built(d_model, heads, built):
-    """K2's head dims: 128 and 256 (d_model 512 at 2 heads, 1024 at 4), with
-    d_model a multiple of 128; not 384 (768 at 2 heads), nor 96 or 48."""
+    """K2's head dims: 128, 256, 384 and 512 (d_model 512 at 2 heads, 1024,
+    1536 and 2048 at 4, 768 at 2), with d_model a multiple of 128; not 640
+    (2560 at 4 heads), nor 96 or 48."""
     assert block_head_dim_built(d_model, heads) is built
 
 
 @pytest.mark.parametrize("d_model, heads, built", [
     (96, 4, True), (192, 4, True), (256, 4, True), (512, 4, True), (384, 4, True),
     (512, 2, True), (130, 4, False), (100, 4, True), (544, 4, True), (16, 4, True),
-    (1028, 4, False), (100, 3, False)])
+    (1028, 4, True), (100, 3, False), (1100, 4, True), (2048, 4, True), (2052, 4, False)])
 def test_k1_head_dim_built(d_model, heads, built):
-    """K1's head dims: every one from 1 to 256, so 96 (384/4), 256 (512/2),
-    25 (100/4), 136 (544/4) and 4 (16/4) are built; 257 (1028/4) is not, nor
-    a width that does not split into whole heads."""
+    """K1's head dims: every one from 1 to 512, so 96 (384/4), 256 (512/2),
+    25 (100/4), 136 (544/4), 4 (16/4), 257 (1028/4), 275 (1100/4) and 512
+    (2048/4) are built; 513 (2052/4) is not, nor a width that does not split
+    into whole heads."""
     assert head_dim_built(d_model, heads) is built
