@@ -27,11 +27,16 @@ result:
    with HMMA, ``attention_kernel_wgmma`` with HGMMA) on a line of their own;
    the deep kernels (every head dim of 257-512: ``attention_kernel_deep``,
    ``attention_kernel_deep_f32``) at each padded depth past 256 in K1's
-   library and at head dims 384 and 512 in the block library, and K1's C
-   library's head-dim ceiling equal to ``MAX_HEAD_DIM``;
-   the build's wall time beside the single-unit build's and each
-   translation unit's (K1's head dims and padded depths compile in units of
-   their own, all started together);
+   library and at head dims 384 and 512 in the block library, the one-pass
+   wgmma kernels at every padded depth past 128 (``attention_kernel_wgmma``
+   to 256, ``attention_kernel_wgmma_deep`` past it, K3's at 384 and 512 in
+   the block library), and K1's C library's head-dim ceiling equal to
+   ``MAX_HEAD_DIM``; the build's wall time beside the parent's and the
+   single-unit build's and each translation unit's (K1's head dims and
+   padded depths, and the block library's attention at each head dim,
+   compile in units of their own, all started together); the SASS is listed
+   while phases 3-4 run, and its checks print after them
+   (``kernel_checks``);
 3. each kernel against its plain PyTorch version on the card, in bf16 and in
    float32 (TF32 off), with each error beside its tolerance: K1, whose bf16
    outputs are held by ``attention_agreement`` (against float64 scores and
@@ -80,9 +85,14 @@ result:
    256, 1025 and MAX_LEN in both types, K2's and K3's attention at head
    dims 384 and 512 in the (B, L, 3d) buffer, K1 on a buffer's strides, a
    negative control that must fail the bf16 check, and ``DEEP_TIMED``
-   (phase 24's shapes, and the bf16 padded kernel at head dim 192 past 16
-   keys) timed beside the plain version, SDPA (its backend named by a
-   profile) and the bound; K2's own float32
+   (phase 24's shapes) timed beside the plain version, SDPA (its backend
+   named by a profile) and the bound; the one-pass wgmma kernels past
+   depth 128 (``wgmma_padded_kernels``) at ``WGMMA_PADDED_DIMS`` (a head dim
+   or more at every padded depth 160-512) and L = 17, 64, 208, 224, 256 and
+   257 (the hand-off to the padded and deep kernels), ragged and unmasked,
+   on a buffer's strides, a negative control, and ``WGMMA_PADDED_TIMED``
+   (d_model 768's and 1280's fusion encoders, K3's attention at d_model
+   2048) timed the same way; K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -285,9 +295,17 @@ result:
     (float32, 4 heads of 384), valA card vs CPU equal; an executor eval
     forward at d_model 1100 (4 heads of 275, no K2) in float32 (card vs CPU)
     and bf16, K1 on every fusion and box-decoder layer; the block bench at
-    d_model 2048: every K1 call and K2's and K3's attention on
-    ``attention_kernel_deep_f32`` or ``attention_kernel_deep`` by the C
-    libraries' counts, no eligible self-attention on the plain path.
+    d_model 2048: every K1 call and K2's attention on
+    ``attention_kernel_deep_f32`` or ``attention_kernel_deep``, K3's on
+    ``attention_kernel_wgmma_deep``, by the C libraries' counts, no eligible
+    self-attention on the plain path;
+25. the one-pass wgmma kernels past depth 128 on the executor
+    (``wgmma_padded_paths``): bf16 serving (``InferencePipeline.run``) with
+    the executor at d_model 768 (4 heads of 192) and 1280 (4 heads of
+    320), questions/s, no K2, K1 on every fusion layer on
+    ``attention_kernel_wgmma`` and ``attention_kernel_wgmma_deep`` and on
+    the box decoder on the padded and deep kernels by the C library's
+    counts, no eligible self-attention on the plain path.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
@@ -308,7 +326,11 @@ under ``long_rows``; the deep kernels (``attention_kernel_deep_f32``: K2's
 attention at d 2048; ``attention_kernel_deep``: K3's; K1's shapes under
 ``at_shapes``) and K2 and K3 at head dim 512 (``fused_encoder_block_hd512``,
 ``fused_encoder_block_tiled_hd512``) with their launches on phase 24's
-paths; then K1 at every head dim below 128 (``fused_attention_d{D}``),
+paths; the one-pass wgmma kernels past depth 128
+(``attention_kernel_wgmma_past_depth_128``: d_model 768's fusion encoder;
+``attention_kernel_wgmma_deep``: K3's attention at d 2048, d_model 1280's
+under ``at_shapes``) with their launches on phases 24.4 and 25's paths;
+then K1 at every head dim below 128 (``fused_attention_d{D}``),
 each at its first model's encoder shape (the protocol's fusion encoder at
 d_model 4 D for the head dims no preset has) with the rest under
 ``at_shapes`` and its launches through the models by phase, which must not
@@ -370,11 +392,14 @@ PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
 # dim of 257-512, K2's and K3's attention at 384 and 512
 DEEP, DEEP_F32 = "attention_kernel_deep", "attention_kernel_deep_f32"
 # csrc/attention_wide.cuh: the head dims at padded depth 256 past 16 keys
-# (split_f32, and wgmma up to 256 keys), bf16 at head dims 72-128 up to 256
-# keys (wgmma) and at every multiple of 8 up to 128 past 256 keys (2pass)
+# (split_f32), bf16 of 17-256 keys at head dims 72-128 and, in rows of whole
+# 16-byte chunks, at padded depths 160-256 (wgmma) and 288-512 (wgmma_deep),
+# and bf16 at every multiple of 8 up to 128 past 256 keys (2pass)
 SPLIT_F32, WGMMA = "attention_kernel_split_f32", "attention_kernel_wgmma"
+WGMMA_DEEP = "attention_kernel_wgmma_deep"
 WGMMA_2PASS = "attention_kernel_wgmma_2pass"
-WGMMA_DEPTHS = (80, 96, 112, 128, 256)  # attention_kernel_wgmma's padded depths
+WGMMA_DEPTHS = (80, 96, 112, 128, 160, 192, 224, 256)  # attention_kernel_wgmma's padded depths
+WGMMA_DEEP_DEPTHS = (288, 336, 384, 448, 512)  # attention_kernel_wgmma_deep's
 WGMMA_2PASS_DEPTHS = (16, 32, 48, 64, 80, 96, 112, 128)  # and the two-pass kernel's
 K1_CHECK_LENGTHS = ((8, False, RING), (17, True, ONE_PASS), (208, True, ONE_PASS),
                     (224, False, ONE_PASS), (225, True, ONE_PASS), (243, True, ONE_PASS),
@@ -414,18 +439,21 @@ K1_MODEL_SHAPES += tuple(
 
 def wide_kernel(d_head: int, length: int, name: str):
     """The ``attention_wide.cuh`` kernel a call of type ``name`` at a head
-    dim of padded depth 256 (225-256) launches (``launch_attention_padded``'s
-    ``wide_takes``), or None where the padded kernel keeps it: rows of whole
+    dim without kernels of its own launches (``launch_attention_padded``'s
+    ``wide_takes``), or None where the padded kernels keep it: rows of whole
     16-byte chunks (with aligned bases and strides, as the wrappers' tensors
-    are) past 16 keys, bf16 up to 256."""
+    are) past 16 keys at a padded depth past 128; bf16 up to 256 keys (the
+    one-pass wgmma kernel, past depth 256 as ``attention_kernel_wgmma_deep``),
+    float32 at depth 256 alone (225-256)."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import padded_depth
 
+    depth = padded_depth(d_head)
     row_bytes = d_head * (2 if name == "bf16" else 4)
-    if padded_depth(d_head) != 256 or row_bytes % 16 or length <= 16:
+    if depth <= 128 or row_bytes % 16 or length <= 16:
         return None
     if name == "bf16":
-        return WGMMA if length <= 256 else None
-    return SPLIT_F32
+        return None if length > 256 else WGMMA_DEEP if depth > 256 else WGMMA
+    return SPLIT_F32 if depth == 256 else None
 
 
 def padded_kernel(d_head: int, name: str) -> str:
@@ -442,8 +470,9 @@ def k1_bf16_kernel(d_head: int, length: int) -> str:
     routing): one warp's ring kernel at L <= 16; up to 256 keys one pass, the
     one-pass kernel at D <= 64 and ``attention_kernel_wgmma`` past it; past
     256 keys ``attention_kernel_wgmma_2pass``; at a head dim without kernels
-    of its own ``attention_kernel_wgmma`` where ``wide_kernel`` says so, else
-    the padded kernel (``launch_attention_padded``: ``padded_kernel``)."""
+    of its own the kernel ``wide_kernel`` names (``attention_kernel_wgmma``,
+    past depth 256 ``attention_kernel_wgmma_deep``), else the padded kernel
+    (``launch_attention_padded``: ``padded_kernel``)."""
     if d_head % 8 or d_head > 128:
         return wide_kernel(d_head, length, "bf16") or padded_kernel(d_head, "bf16")
     if length <= 16:
@@ -528,25 +557,45 @@ K1_NEW_SHAPES = (
 DEEP_DIMS = (257, 275, 300, 336, 350, 384, 385, 400, 448, 449, 500, 512)
 DEEP_LENGTHS = (8, 16, 17, 208, 256, 1025)
 DEEP_LONG = (275, 300, 384, 400, 512)  # one at each deep depth
-DEEP_BLOCK_LENGTHS = (8, 10, 17, 210, 224, 1025)
+DEEP_BLOCK_LENGTHS = (8, 10, 17, 210, 224, 256, 257, 1025)
 DEEP_STRIDED = (275, 400)
 # the head dims phase 24 runs through the models: 275 (d_model 1100), 384
 # (1536) and 512 (2048), each at 4 heads
 DEEP_MODEL_DIMS = (275, 384, 512)
 DEEP_NEGATIVE = ((512, 8, 208), (275, 2, 1025))  # head dim, B, L
-# phase 4 at phase 24's shapes: label, layout ("K1": the wrapper; "block":
-# esv_block_attention on the thirds of a (B, L, 3d) buffer), head dim, B,
-# L, key mask, q/k/v type, output type; and the bf16 padded kernel at head
-# dim 192 past 16 keys (padded depth 192, which no wgmma kernel takes)
+# phase 4 at phase 24's shapes the deep kernels take: label, layout ("K1":
+# the wrapper; "block": esv_block_attention on the thirds of a (B, L, 3d)
+# buffer), head dim, B, L, key mask, q/k/v type, output type (K3's attention
+# at d 2048, bf16 of 224 keys, is attention_kernel_wgmma_deep's:
+# WGMMA_PADDED_TIMED)
 DEEP_TIMED = (
     ("K2 attention d 2048", "block", 512, 128, 210, True, "fp32", "bf16"),  # 24.1
     ("K2 attention d 1536 fp32", "block", 384, 128, 208, True, "fp32", "fp32"),  # 24.2
-    ("K3 attention d 2048", "block", 512, 128, 224, False, "bf16", "bf16"),  # 24.4
     ("serving d 2048 box decoder", "K1", 512, 128, 10, False, "bf16", "bf16"),  # 24.1
     ("protocol d 1536 box decoder", "K1", 384, 128, 8, False, "fp32", "fp32"),  # 24.2
     ("d 1100 encoder", "K1", 275, 128, 210, True, "fp32", "fp32"),  # 24.3
     ("d 1100 encoder bf16", "K1", 275, 128, 210, True, "bf16", "bf16"),  # 24.3
-    ("d 768 encoder bf16", "K1", 192, 128, 208, True, "bf16", "bf16"),
+)
+# The one-pass wgmma kernels at the padded depths past 128
+# (csrc/attention_wide.cuh: attention_kernel_wgmma at 160-256,
+# attention_kernel_wgmma_deep at 288-512), phases 3-4 (wgmma_padded_kernels):
+# K1 through the wrapper at a head dim of every depth (most of them not the
+# depth itself: 136 and 160 at 160, 176 and 192 at 192, 200 at 224, 264 at
+# 288, 320 at 336, 360 and 384 at 384, 392 at 448, 456 and 512 at 512) and
+# the lengths from 17 to 256 keys and 257 (the hand-off to the padded and
+# deep kernels), ragged and unmasked; K1 on a (B, L, 3d) buffer's strides at
+# WGMMA_STRIDED; the negative control at WGMMA_NEGATIVE; then
+# WGMMA_PADDED_TIMED checked and timed beside the plain version, SDPA and the
+# bound.  K3's attention at 384 and 512 is held in deep_kernels
+# (esv_block_attention at DEEP_BLOCK_LENGTHS).
+WGMMA_PADDED_DIMS = (136, 160, 176, 192, 200, 264, 320, 360, 384, 392, 456, 512)
+WGMMA_PADDED_LENGTHS = (17, 64, 208, 224, 256, 257)
+WGMMA_STRIDED = (192, 320, 512)
+WGMMA_NEGATIVE = ((192, 32, 208), (320, 32, 208))  # head dim, B, L
+WGMMA_PADDED_TIMED = (
+    ("d 768 encoder bf16", "K1", 192, 128, 208, True, "bf16", "bf16"),  # 25.1
+    ("d 1280 encoder bf16", "K1", 320, 128, 208, True, "bf16", "bf16"),  # 25.2
+    ("K3 attention d 2048", "block", 512, 128, 224, False, "bf16", "bf16"),  # 24.4
 )
 # K2 and K3 at head dim 512: d_model 2048, 4 heads, ffn 8192 (the executor at
 # d_model 2048), on BLOCK_DRAWS each
@@ -562,8 +611,10 @@ BLOCK_HD256 = dict(d=1024, h=4, ffn=4096)
 # around the launch costs more than the kernel: head dim, B, L, type
 K1_WRAPPER_SHAPES = ((24, 128, 8, "fp32"), (48, 128, 8, "fp32"), (128, 128, 10, "bf16"))
 # phase 2's build of the same three libraries on the H100 when K1 was one
-# translation unit at 4 head dims (PERF.md §6), printed beside this build's
+# translation unit at 4 head dims, and before the wgmma kernels took the
+# padded depths past 128 (PERF.md §6), printed beside this build's
 SINGLE_UNIT_BUILD_S = 71.4
+PARENT_BUILD_S = 86.1
 
 MAIN_QUESTIONS = 512
 SLOTS = 128  # the pool's default, as InferencePipeline.run uses it
@@ -1013,12 +1064,16 @@ def kernel_report(libs: dict) -> dict:
     bytes from ptxas's report (the build logs) and its count of HGMMA (wgmma)
     and HMMA (mma.sync) instructions in the SASS (``cuobjdump -sass``)."""
     import re
+    from concurrent.futures import ThreadPoolExecutor
 
     from explainable_spatial_vqa_tpu_torch.measure.variants import ptxas_usage
     from explainable_spatial_vqa_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     filt = Path(_build._nvcc()).with_name("cu++filt")
+    with ThreadPoolExecutor(len(libs)) as by_lib, ThreadPoolExecutor(SASS_PROCESSES) as pool:
+        sass = dict(zip(libs, by_lib.map(lambda lib: library_sass(cuobjdump, lib, pool),
+                                         libs.values())))
     out = {}
     for name, lib in libs.items():
         for fn, (registers, spill) in ptxas_usage(
@@ -1026,7 +1081,7 @@ def kernel_report(libs: dict) -> dict:
             out.setdefault(fn, dict(registers=0, spill=0, HGMMA=0, HMMA=0)).update(
                 registers=registers, spill=spill)
         for fn, body in re.findall(r"Function : (\S+)(.*?)(?=\n\s*Function : |\Z)",
-                                   library_sass(cuobjdump, lib), re.S):
+                                   sass[name], re.S):
             entry = out.setdefault(fn, dict(registers=0, spill=0, HGMMA=0, HMMA=0))
             entry["HGMMA"] = len(re.findall(r"\bHGMMA\.", body))
             entry["HMMA"] = len(re.findall(r"\bHMMA\.", body))
@@ -1171,7 +1226,8 @@ def block_deep_missing() -> list:
     (kernel, output type, per-warp depth, warps a row group, row groups a
     block), that its ptxas report does not name: float32 q/k/v to float and
     bf16 (K2; K3 with float32 weights) and bf16 to bf16 (K3), each with one
-    row group and with two."""
+    row group and with two; and ``attention_kernel_wgmma_deep`` (K3, bf16,
+    17-256 keys) at each depth, as (kernel, output type, depth)."""
     from explainable_spatial_vqa_tpu_torch.measure.variants import ptxas_usage
     from explainable_spatial_vqa_tpu_torch.ops import _build
 
@@ -1182,7 +1238,11 @@ def block_deep_missing() -> list:
         if found:
             kind, to, *shape = found.groups()
             built.add((kind, "float" if to == "f" else "bf16", *shape))
-    missing = []
+        found = re.search(r"(attention_kernel_wgmma_deep)I13__nv_bfloat16Li(\d+)E", fn)
+        if found:
+            built.add((found.group(1), "bf16", found.group(2)))
+    missing = [(WGMMA_DEEP, "bf16", str(depth)) for depth in (384, 512)
+               if (WGMMA_DEEP, "bf16", str(depth)) not in built]
     for depth in (384, 512):
         g = padded_group(depth)
         for groups in ("1", str(8 // g)):
@@ -1193,28 +1253,29 @@ def block_deep_missing() -> list:
     return missing
 
 
-def library_sass(cuobjdump, lib) -> str:
+SASS_PROCESSES = 6  # cuobjdump processes at once, of the chip host's 8 cores
+
+
+def library_sass(cuobjdump, lib, pool) -> str:
     """The SASS of every kernel in ``lib`` (``cuobjdump -sass``).  A library
     linked from several translation units holds one cubin each (K1's
-    head-dim units): they are extracted (``-xelf all``) and disassembled by
-    one process each, all at once, which takes a fraction of one pass over
-    the whole library."""
+    head-dim units, the block library's attention units): they are extracted
+    (``-xelf all``) and disassembled by one process each, on ``pool``'s
+    threads (``SASS_PROCESSES`` at once), which takes a fraction of one pass
+    over the whole library."""
     import tempfile
+
+    def disassemble(target):
+        done = subprocess.run([str(cuobjdump), "-sass", str(target)], capture_output=True,
+                              text=True, timeout=300)
+        if done.returncode != 0:
+            fail(f"cuobjdump -sass failed on {target}: {done.stderr.strip()[-500:]}")
+        return done.stdout
 
     with tempfile.TemporaryDirectory() as tmp:
         subprocess.run([str(cuobjdump), "-xelf", "all", str(lib)], cwd=tmp, capture_output=True,
                        timeout=300)
-        targets = sorted(Path(tmp).glob("*.cubin")) or [Path(lib)]
-        procs = []
-        for i, target in enumerate(targets):
-            with open(Path(tmp) / f"{i}.sass", "w") as sink:
-                procs.append(subprocess.Popen([str(cuobjdump), "-sass", str(target)],
-                                              stdout=sink, stderr=subprocess.PIPE, text=True))
-        for proc, target in zip(procs, targets):
-            _, err = proc.communicate(timeout=300)
-            if proc.returncode != 0:
-                fail(f"cuobjdump -sass failed on {target}: {err.strip()[-500:]}")
-        return "\n".join((Path(tmp) / f"{i}.sass").read_text() for i in range(len(targets)))
+        return "\n".join(pool.map(disassemble, sorted(Path(tmp).glob("*.cubin")) or [Path(lib)]))
 
 
 def postfix_ids(chains, token_ids: dict, function_ids: dict, length: int):
@@ -1270,14 +1331,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from explainable_spatial_vqa_tpu_torch.ops import _build
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
-    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
-        EXACT_HEAD_DIMS,
-        MAX_HEAD_DIM,
-        PADDED_DEPTHS,
-        fused_attention,
-    )
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import fused_attention
 
     dev = torch.device("cuda")
 
@@ -1294,97 +1352,17 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build(["fused_attention", "fused_block", "hungarian"])
     build_s = time.perf_counter() - t0
-    kernels = kernel_report(libs)
-    say(f"phase 2 build: {build_s:.1f} s for {', '.join(sorted(libs))} ({len(kernels)} kernels, "
-        f"at most {max(k['registers'] for k in kernels.values())} registers, "
-        f"{max(k['spill'] for k in kernels.values())} bytes spilled; the build of the same "
-        f"three libraries with K1 at 4 head dims in one nvcc process: {SINGLE_UNIT_BUILD_S} s)")
+    say(f"phase 2 build: {build_s:.1f} s for {', '.join(sorted(libs))} (the same three libraries "
+        f"before the wgmma kernels past depth 128: {PARENT_BUILD_S} s; with K1 at 4 head dims "
+        f"in one nvcc process: {SINGLE_UNIT_BUILD_S} s)")
     for name in sorted(libs):  # each unit's nvcc wall time, all started together
         heads = re.findall(r"^--- (.*): exit (-?\d+), ([0-9.]+) s ---$",
                            (_build.BUILD_DIR / f"{name}.log").read_text(), re.M)
         say(f"phase 2 {name} units: " + "; ".join(f"{what} {sec} s" for what, _, sec in heads))
-    for name, k in sorted(kernels.items()):
-        say(f"phase 2 kernel {k['short']}: {k['registers']} registers, {k['spill']} bytes "
-            f"spilled, SASS {k['HGMMA']} HGMMA (wgmma) and {k['HMMA']} HMMA (mma.sync)")
-    onepass = sorted((re.search(r"attention_kernel_onepass<([^>]*)>", k["short"]).group(1), k)
-                     for n, k in kernels.items() if "attention_kernel_onepass" in n)
-    say("phase 2 one-pass K1 (attention_kernel_onepass<output type, head dim, warps>, up to "
-        "256 keys' scores a warp): " + "; ".join(
-            f"<{args}> {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
-            for args, k in onepass))
-    onepass_dims = sorted(int(re.sub(r"\D", "", args.split(",")[1])) for args, _ in onepass)
-    if onepass_dims != [d for d in EXACT_HEAD_DIMS if d <= 64]:
-        fail(f"phase 2: the one-pass kernel is built at head dims {onepass_dims}, not at every "
-             f"head dim up to 64 of {EXACT_HEAD_DIMS}")
-    missing = k1_functions_missing(kernels)
-    say(f"phase 2 K1 at head dims {EXACT_HEAD_DIMS[0]}-{EXACT_HEAD_DIMS[-1]} (every multiple of "
-        f"8): each "
-        f"built as attention_kernel_f32<float|bf16, "
-        f"D, 1|14>, attention_kernel<bf16, bf16, D, 1, 0> and, up to 64, "
-        f"attention_kernel_onepass<bf16, D, 4>, every one with HMMA: "
-        f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
-    if missing:
-        fail("phase 2: K1 is not built with HMMA at every head dim of EXACT_HEAD_DIMS")
-    padded = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
-                    for n, k in kernels.items()
-                    if "attention_kernel_padded" in n or "attention_kernel_deep" in n)
-    say("phase 2 padded K1 (attention_kernel_padded[_f32]<output type, per-warp depth, warps a "
-        "16-row group, groups a block>, every other head dim up to 256; past it "
-        "attention_kernel_deep[_f32], the same code): " + "; ".join(
-            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
-            for name, k in padded))
-    missing = k1_padded_missing(kernels)
-    say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 and to "
-        f"bf16 from bf16, one group and 8 warps a block (2 groups past 256), every one with "
-        f"HMMA: {'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
-    if missing:
-        fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
-             "PADDED_DEPTHS")
-    missing = block_deep_missing()
-    max_head_dim = _build.entry("fused_attention", "esv_attention_max_head_dim", ())()
-    say(f"phase 2 the block library's deep kernels (K2's and K3's attention at head dims 384 "
-        f"and 512) built: {'yes' if not missing else f'NO, missing {missing}'}; K1's C library "
-        f"takes head dims up to {max_head_dim} (MAX_HEAD_DIM {MAX_HEAD_DIM})")
-    if missing or max_head_dim != MAX_HEAD_DIM:
-        fail("phase 2: the deep kernels are not all built, or the C library's head-dim ceiling "
-             "is not MAX_HEAD_DIM")
-    wide = sorted((re.sub(r"\(int\)", "", k["short"].split("(const")[0].replace("void ", "")), k)
-                  for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n)
-    say("phase 2 attention_wide.cuh's kernels (K1, K2 and K3 at head dim 256; bf16 K1 and K3 "
-        "on wgmma at 72-128 up to 256 keys and at every head dim up to 128 past them; built "
-        "into fused_attention and fused_block): " + "; ".join(
-            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HGMMA']} HGMMA, "
-            f"{k['HMMA']} HMMA" for name, k in wide))
-    # the float32 kernel on mma.sync (HMMA) to float and bf16, the bf16 ones on
-    # wgmma at each padded depth that launch_attention_dim and
-    # launch_attention_wide reach
-    want_wide = {f"{SPLIT_F32}<float>": "HMMA", f"{SPLIT_F32}<bf16>": "HMMA"}
-    want_wide.update({f"{WGMMA}<bf16, {dp}>": "HGMMA" for dp in WGMMA_DEPTHS})
-    want_wide.update({f"{WGMMA_2PASS}<bf16, {dp}>": "HGMMA" for dp in WGMMA_2PASS_DEPTHS})
-    for fn, unit in want_wide.items():
-        found = [k for name, k in wide if name == fn]
-        if not found or not all(k[unit] > 0 for k in found):
-            fail(f"phase 2: {fn} is not built with {unit}: {found}")
-    tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
-    say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
-    for name in libs:  # ptxas notes a wgmma it had to wait on before the next
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "wgmma" in line and "serialized" in line:
-                say(f"phase 2 ptxas ({name}): {line.strip()}")
-    tensor_core_checks = {
-        "every attention kernel runs HMMA (HGMMA: attention_kernel_wgmma)": all(
-            k["HGMMA" if WGMMA in n else "HMMA"] > 0
-            for n, k in kernels.items() if "attention_kernel" in n),
-        "every wgmma GEMM runs HGMMA": all(
-            k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_bf16_wgmma" in n),
-        "every float32 GEMM runs HGMMA": bool(tf32_gemms) and all(
-            k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_tf32_wgmma" in n),
-        "both are built": (any("attention_kernel" in n for n in kernels)
-                           and any("gemm_bf16_wgmma" in n for n in kernels)),
-    }
-    for name, ok in tensor_core_checks.items():
-        if not ok:
-            fail(f"phase 2 check failed: {name}")
+    # the SASS listing (cuobjdump: tens of seconds of the host's cores) runs
+    # while phases 3-4 run on the card; its checks (kernel_checks) follow them
+    listing = ThreadPoolExecutor(1)
+    report = listing.submit(kernel_report, libs)
 
     from explainable_spatial_vqa_tpu_torch.clevr import native
 
@@ -1453,6 +1431,7 @@ def main() -> None:
     wide_kernels(torch, F, dev, results, parts)
     wgmma_kernels(torch, F, dev, results, parts)
     deep_kernels(torch, F, dev, results, parts)
+    wgmma_padded_kernels(torch, F, dev, results, parts)
     k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
@@ -1463,8 +1442,115 @@ def main() -> None:
     k2_at_iqap_shape(torch, dev, results)
     k2_at_iqap_shape(torch, dev, results, K2_HIER_SHAPE, "K2_bf16_hier",
                      "HierarchicalGenerator's encoder shape")
+    kernel_checks(report.result(), libs)
+    listing.shutdown()
     torch.cuda.empty_cache()
     main_path(torch, np, dev, results, parts)
+
+
+def kernel_checks(kernels: dict, libs: dict) -> None:
+    """Phase 2's checks of the built kernels (``kernel_report``'s registers,
+    spills and SASS counts): each kernel's line, the one-pass, padded, deep
+    and attention_wide.cuh kernels built at every head dim and depth they
+    must take, each attention kernel and GEMM on the tensor cores, and
+    ptxas's notes on wgmma it serialised.  Fails on a missing kernel or one
+    without its tensor-core instructions."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        EXACT_HEAD_DIMS,
+        MAX_HEAD_DIM,
+        PADDED_DEPTHS,
+    )
+
+    say(f"phase 2 kernels: {len(kernels)} in {', '.join(sorted(libs))}, at most "
+        f"{max(k['registers'] for k in kernels.values())} registers, "
+        f"{max(k['spill'] for k in kernels.values())} bytes spilled (the SASS listed while "
+        f"phases 3-4 ran)")
+    for name, k in sorted(kernels.items()):
+        say(f"phase 2 kernel {k['short']}: {k['registers']} registers, {k['spill']} bytes "
+            f"spilled, SASS {k['HGMMA']} HGMMA (wgmma) and {k['HMMA']} HMMA (mma.sync)")
+    onepass = sorted((re.search(r"attention_kernel_onepass<([^>]*)>", k["short"]).group(1), k)
+                     for n, k in kernels.items() if "attention_kernel_onepass" in n)
+    say("phase 2 one-pass K1 (attention_kernel_onepass<output type, head dim, warps>, up to "
+        "256 keys' scores a warp): " + "; ".join(
+            f"<{args}> {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
+            for args, k in onepass))
+    onepass_dims = sorted(int(re.sub(r"\D", "", args.split(",")[1])) for args, _ in onepass)
+    if onepass_dims != [d for d in EXACT_HEAD_DIMS if d <= 64]:
+        fail(f"phase 2: the one-pass kernel is built at head dims {onepass_dims}, not at every "
+             f"head dim up to 64 of {EXACT_HEAD_DIMS}")
+    missing = k1_functions_missing(kernels)
+    say(f"phase 2 K1 at head dims {EXACT_HEAD_DIMS[0]}-{EXACT_HEAD_DIMS[-1]} (every multiple of "
+        f"8): each "
+        f"built as attention_kernel_f32<float|bf16, "
+        f"D, 1|14>, attention_kernel<bf16, bf16, D, 1, 0> and, up to 64, "
+        f"attention_kernel_onepass<bf16, D, 4>, every one with HMMA: "
+        f"{'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
+    if missing:
+        fail("phase 2: K1 is not built with HMMA at every head dim of EXACT_HEAD_DIMS")
+    padded = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
+                    for n, k in kernels.items()
+                    if "attention_kernel_padded" in n or "attention_kernel_deep" in n)
+    say("phase 2 padded K1 (attention_kernel_padded[_f32]<output type, per-warp depth, warps a "
+        "16-row group, groups a block>, every other head dim up to 256; past it "
+        "attention_kernel_deep[_f32], the same code): " + "; ".join(
+            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
+            for name, k in padded))
+    missing = k1_padded_missing(kernels)
+    say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 and to "
+        f"bf16 from bf16, one group and 8 warps a block (2 groups past 256), every one with "
+        f"HMMA: {'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
+    if missing:
+        fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
+             "PADDED_DEPTHS")
+    missing = block_deep_missing()
+    max_head_dim = _build.entry("fused_attention", "esv_attention_max_head_dim", ())()
+    say(f"phase 2 the block library's deep kernels (K2's and K3's attention at head dims 384 "
+        f"and 512, K3's on attention_kernel_wgmma_deep too) built: "
+        f"{'yes' if not missing else f'NO, missing {missing}'}; K1's C library "
+        f"takes head dims up to {max_head_dim} (MAX_HEAD_DIM {MAX_HEAD_DIM})")
+    if missing or max_head_dim != MAX_HEAD_DIM:
+        fail("phase 2: the deep kernels are not all built, or the C library's head-dim ceiling "
+             "is not MAX_HEAD_DIM")
+    wide = sorted((re.sub(r"\(int\)", "", k["short"].split("(const")[0].replace("void ", "")), k)
+                  for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n)
+    say("phase 2 attention_wide.cuh's kernels (float32 K1 and K2 at head dim 256; bf16 K1 and "
+        "K3 on wgmma at 72-128 and at the padded depths 160-512 up to 256 keys, past 256 as "
+        "attention_kernel_wgmma_deep, and at every head dim up to 128 past 256 keys; built "
+        "into fused_attention and fused_block): " + "; ".join(
+            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HGMMA']} HGMMA, "
+            f"{k['HMMA']} HMMA" for name, k in wide))
+    # the float32 kernel on mma.sync (HMMA) to float and bf16, the bf16 ones on
+    # wgmma at each padded depth that launch_attention_dim and
+    # launch_attention_wide reach
+    want_wide = {f"{SPLIT_F32}<float>": "HMMA", f"{SPLIT_F32}<bf16>": "HMMA"}
+    want_wide.update({f"{WGMMA}<bf16, {dp}>": "HGMMA" for dp in WGMMA_DEPTHS})
+    want_wide.update({f"{WGMMA_DEEP}<bf16, {dp}>": "HGMMA" for dp in WGMMA_DEEP_DEPTHS})
+    want_wide.update({f"{WGMMA_2PASS}<bf16, {dp}>": "HGMMA" for dp in WGMMA_2PASS_DEPTHS})
+    for fn, unit in want_wide.items():
+        found = [k for name, k in wide if name == fn]
+        if not found or not all(k[unit] > 0 for k in found):
+            fail(f"phase 2: {fn} is not built with {unit}: {found}")
+    tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
+    say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
+    for name in libs:  # ptxas notes a wgmma it had to wait on before the next
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "wgmma" in line and "serialized" in line:
+                say(f"phase 2 ptxas ({name}): {line.strip()}")
+    tensor_core_checks = {
+        "every attention kernel runs HMMA (HGMMA: attention_kernel_wgmma)": all(
+            k["HGMMA" if WGMMA in n else "HMMA"] > 0
+            for n, k in kernels.items() if "attention_kernel" in n),
+        "every wgmma GEMM runs HGMMA": all(
+            k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_bf16_wgmma" in n),
+        "every float32 GEMM runs HGMMA": bool(tf32_gemms) and all(
+            k["HGMMA"] > 0 for n, k in kernels.items() if "gemm_tf32_wgmma" in n),
+        "both are built": (any("attention_kernel" in n for n in kernels)
+                           and any("gemm_bf16_wgmma" in n for n in kernels)),
+    }
+    for name, ok in tensor_core_checks.items():
+        if not ok:
+            fail(f"phase 2 check failed: {name}")
 
 
 def block_checks(torch, dev, results: dict, d: int, h: int, ffn: int, k3_draws,
@@ -2284,6 +2370,94 @@ def deep_kernels(torch, F, dev, results: dict, parts: list) -> None:
     say(f"phases 3-4 the deep kernels took {time.perf_counter() - t0:.1f} s")
 
 
+def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
+    """Phases 3-4 for the one-pass wgmma kernels at the padded depths past
+    128 (``attention_kernel_wgmma`` at 160-256, ``attention_kernel_wgmma_deep``
+    at 288-512; bf16 rows of whole 16-byte chunks, 17-256 keys): K1 at
+    ``WGMMA_PADDED_DIMS`` x ``WGMMA_PADDED_LENGTHS``, ragged and unmasked,
+    and on a (B, L, 3d) buffer's strides at ``WGMMA_STRIDED``, each call's
+    kernel read from the C library's counts (at 257 keys the padded or deep
+    kernel); the negative control (``rounded_first``) at ``WGMMA_NEGATIVE``
+    must fail the bf16 check; then ``WGMMA_PADDED_TIMED`` checked and timed
+    beside the plain version, ``scaled_dot_product_attention`` (its backend
+    named) and the bound.  Results go to ``results["wgmma padded <label>"]``
+    and, for K3's attention, to ``parts``."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
+        bind_entry,
+        kernel_launches,
+        padded_depth,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    t0 = time.perf_counter()
+    block_fn = bind_entry(_build.load("fused_block"), "esv_block_attention")
+    k1_fn = bind_entry(_build.load("fused_attention"))
+
+    def ragged(b, length):
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        keep[:, length - 13:] = torch.rand(b, 13, generator=gen, device=dev) < 0.6
+        return keep[:, None, None, :]
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    checks, by_kernel = 0, {}
+    for d_head in WGMMA_PADDED_DIMS:
+        for length in WGMMA_PADDED_LENGTHS:
+            b = wide_batch(length)
+            want = k1_bf16_kernel(d_head, length)
+            if (want in (WGMMA, WGMMA_DEEP)) != (length <= 256):
+                fail(f"the routing mirror names {want} for bf16 at D={d_head}, L={length}")
+            for masked in (True, False):
+                mask = ragged(b, length) if masked else None
+                where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
+                q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
+                k1_checked(torch, "bf16", q, k, v, mask, want,
+                           f"phase 3 K1 fused_attention bf16 (padded depth "
+                           f"{padded_depth(d_head)}) {where}")
+                by_kernel.setdefault(want, set()).add(padded_depth(d_head))
+                checks += 1
+                del q, k, v
+    for d_head in WGMMA_STRIDED:
+        d, b, length = 4 * d_head, 32, 208
+        q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
+        block_called(torch, k1_fn, "bf16", q, k, v, ragged(b, length), torch.bfloat16,
+                     f"phase 3 K1 esv_attention bf16 on a (B, L, 3d) buffer's strides, B={b} H=4 "
+                     f"L={length} D={d_head} mask=ragged", k1_bf16_kernel(d_head, length),
+                     counts=kernel_launches)
+        checks += 1
+        del q, k, v
+    depths = {kernel: sorted(found) for kernel, found in sorted(by_kernel.items())}
+    say(f"phase 3 the wgmma kernels at the padded depths past 128: {checks} calls (K1 at D = "
+        f"{WGMMA_PADDED_DIMS}, L = {WGMMA_PADDED_LENGTHS}, ragged and unmasked; on a (B, L, 3d) "
+        f"buffer at D = {WGMMA_STRIDED}) checked, the padded depths by kernel {depths}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (set(depths.get(WGMMA, ())) >= {160, 192, 224}
+            and depths.get(WGMMA_DEEP) == list(WGMMA_DEEP_DEPTHS)):
+        fail("phase 3: the wgmma kernels were not held at every padded depth past 128")
+    for d_head, b, length in WGMMA_NEGATIVE:
+        q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
+        mask = ragged(b, length)
+        stats = attention_agreement(torch, rounded_first(torch, q, k, v, mask), q, k, v, mask)
+        say(f"phase 3 negative control, weights rounded to bf16 before they are normalised, "
+            f"B={b} H=4 L={length} D={d_head} ragged: {bf16_text(stats)}, {stats['outside']} "
+            f"outside: {'fails the check, as it must' if not bf16_ok(stats) else 'PASSES'}")
+        if bf16_ok(stats):
+            fail("the bf16 attention check passes weights rounded before they are normalised")
+        del q, k, v
+
+    def randn_typed(*shape, dtype):
+        return randn(*shape, dtype=dtype)
+
+    for case in WGMMA_PADDED_TIMED:
+        attention_case(torch, F, randn_typed, ragged, block_fn, case,
+                       "explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh", results,
+                       parts, "wgmma padded")
+    say(f"phases 3-4 the wgmma kernels at the padded depths past 128 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def k1_wrapper_times(torch, F, dev, results: dict) -> None:
     """Phase 4 for K1 at the box decoders' shapes (``K1_WRAPPER_SHAPES``),
     where the host's work around the launch costs more than the kernel: the
@@ -2898,6 +3072,8 @@ def main_path(torch, np, dev, results, parts) -> None:
     by_path.update(new_paths)
     past_paths, deep_launches = past_256(torch, np, dev, counted)
     by_path.update(past_paths)
+    wgmma_paths, wgmma_padded_launches = wgmma_padded_paths(torch, np, dev, counted)
+    by_path.update(wgmma_paths)
     # the matcher's main path is the demos' executor training: phase 21.3's run
     matcher_launches = demo_paths["demo_accuracy_table_d512"]
     layers.fused_encoder_block = fused_encoder_block
@@ -2996,8 +3172,6 @@ def main_path(torch, np, dev, results, parts) -> None:
             shape=first.split("_", 2)[2], head_dims=dims,
             at_shapes={key.split("_", 2)[2]: results[key] for key in shapes},
             launches_by_head_dim={d: k1_dims[d] for d in dims}))
-    # the bf16 padded kernel past 16 keys at padded depth 192
-    kernels[-1]["at_shapes"]["D192 d 768 encoder bf16"] = results["deep d 768 encoder bf16"]
     # rows past 1024 keys, on the kernels their head dims take
     kernels[0]["long_rows"] = {f"D{d}_{label}": results[f"K1_D{d}_{label}"]
                                for label, d, _b, length, *_ in K1_NEW_SHAPES if length > 1024}
@@ -3072,22 +3246,23 @@ def main_path(torch, np, dev, results, parts) -> None:
     # on phase 24's paths by the C libraries' counts (deep_f32: K2's
     # attention at d 2048 and 1536, K1 in float32 in the d 1536 protocol's
     # box decoder and at d 1100; deep: K1 in bf16 in serving's d 2048 box
-    # decoder and at d 1100, K3's attention in the block bench), the numbers
-    # of K2's and K3's attention at d 2048, K1's shapes under at_shapes; then
-    # K2 and K3 at head dim 512 (d_model 2048), their launches on phase 24's
-    # serving and block-bench paths
+    # decoder and at d 1100), the numbers of K2's attention at d 2048 and of
+    # K1 at d 1100 in bf16, the other shapes under at_shapes; then K2 and K3
+    # at head dim 512 (d_model 2048), their launches on phase 24's serving and
+    # block-bench paths
     for kernel, main_key, other_keys in (
             (DEEP_F32, "K2 attention d 2048", ("K2 attention d 1536 fp32",
                                                "protocol d 1536 box decoder", "d 1100 encoder")),
-            (DEEP, "K3 attention d 2048", ("serving d 2048 box decoder",
-                                           "d 1100 encoder bf16"))):
+            (DEEP, "d 1100 encoder bf16", ("serving d 2048 box decoder",))):
         by_deep = {path: c[kernel] for path, c in deep_launches.items()}
         kernels.append(dict(
             name=kernel, route="cuda",
             source="explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh",
             replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if kernel == DEEP_F32
-                      else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
-            also_replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+                      else "explainable_spatial_vqa_tpu/ops/pallas_attention.py:45"),
+            also_replaces=("explainable_spatial_vqa_tpu/ops/pallas_attention.py:45"
+                           if kernel == DEEP_F32
+                           else "explainable_spatial_vqa_tpu/ops/pallas_block.py:232"),
             launches=sum(by_deep.values()), **results[f"deep {main_key}"],
             at_shapes={key: results[f"deep {key}"] for key in other_keys},
             launches_by_path=by_deep))
@@ -3108,6 +3283,31 @@ def main_path(torch, np, dev, results, parts) -> None:
         f"24's paths" for k in kernels[-4:]))
     if not all(k["launches"] for k in kernels[-4:]):
         fail("a deep kernel, or K2 or K3 at head dim 512, never launched on its path")
+    # the one-pass wgmma kernels past depth 128 (attention_wide.cuh): their
+    # launches on phases 24.4 and 25 by the C libraries' counts (wgmma at
+    # depths 160-224: K1 in serving's fusion layers at d 768; wgmma_deep: K3's
+    # attention in the d 2048 block bench and K1 in serving's fusion layers at
+    # d 1280), the numbers at d 768 and of K3's attention at d 2048
+    for kernel, main_key, other_keys, path_launches in (
+            (WGMMA, "d 768 encoder bf16", (), wgmma_padded_launches),
+            (WGMMA_DEEP, "K3 attention d 2048", ("d 1280 encoder bf16",),
+             {**wgmma_padded_launches, "block_bench_d2048": deep_launches["block_bench_d2048"]})):
+        on_paths = {path: c.get(kernel, 0) for path, c in path_launches.items()}
+        kernels.append(dict(
+            name=f"{kernel}_past_depth_128" if kernel == WGMMA else kernel, route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
+            replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            also_replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:232"
+                           if kernel == WGMMA_DEEP else None),
+            launches=sum(on_paths.values()), **results[f"wgmma padded {main_key}"],
+            at_shapes={key: results[f"wgmma padded {key}"] for key in other_keys},
+            launches_by_path=on_paths))
+    say("the one-pass wgmma kernels past depth 128: " + "; ".join(
+        f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, scaled_dot_product_attention "
+        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches "
+        f"{k['launches_by_path']}" for k in kernels[-2:]))
+    if not all(k["launches"] for k in kernels[-2:]):
+        fail("a one-pass wgmma kernel past depth 128 never launched on its path")
     total = sum(PHASE_SECONDS.values())
     say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
         PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
@@ -4228,27 +4428,24 @@ def head_dim_routing(torch, dev, counted) -> None:
     for key, (counts, ours, finite, ran) in routing.items():
         # K2 on every fusion layer at head dims 128 and 256, else K1 in each
         # plain block; K1 on each box-decoder layer's query self-attention;
-        # every K1 launch on the padded kernels where the head dim has no
-        # kernels of its own (the fusion encoders' at 136 and 192, the box
-        # decoders' 8 keys), K2's attention at 256 (float32 q/k/v in both
-        # types, past 16 keys) on attention_kernel_split_f32
+        # each K1 launch on the kernel the mirror names for the fusion
+        # encoder's 208 keys and the box decoder's 8 (where the head dim has
+        # no kernels of its own: bf16 at 136 and 192 on attention_kernel_wgmma,
+        # the rest on the padded kernels), K2's attention at 256 (float32
+        # q/k/v in both types, past 16 keys) on attention_kernel_split_f32
         d_model, name = int(key.split()[0][1:]), "bf16" if key.endswith("bfloat16") else "fp32"
         k2 = block_head_dim_built(d_model, 4)
         want = (fusion, box_decoder) if k2 else (0, fusion + box_decoder)
         got = (counts["fused_encoder_block"], counts["fused_attention"])
-        padded = PADDED if name == "bf16" else PADDED_F32
         exact = d_model // 4 in EXACT_HEAD_DIMS
-        # at the head dims with kernels of their own the mirror's kernel for
-        # the fusion encoder's 208 keys and the box decoder's 8
         by_kernel = {}
         for length, calls in ((208, want[1] - box_decoder), (8, box_decoder)):
             kernel = k1_kernel(d_model // 4, length, name)
             by_kernel[kernel] = by_kernel.get(kernel, 0) + calls
         if (got != want or not any("attention_kernel" in n for n in ours)
                 or not finite or sum(ran[0].values()) != got[1]
-                or (exact and ran[0] != {n: c for n, c in by_kernel.items() if c})
-                or (not exact and (ran[0] != {padded: got[1]}
-                                   or (k2 and ran[1] != {SPLIT_F32: got[0]})))):
+                or ran[0] != {n: c for n, c in by_kernel.items() if c}
+                or (not exact and k2 and ran[1] != {SPLIT_F32: got[0]})):
             fail(f"phase 16 routing check failed at {key}: K2/K1 launches {got}, expected "
                  f"{want}; kernels in the trace {ours}; the C libraries' counts {ran}")
     say(f"phase 16.1 routing at {len(routing)} widths and types took "
@@ -6252,25 +6449,25 @@ WIDE_QUERIES = 40  # 21.2's executor_roi step past the warp kernel's 31 columns
 STEP_ROUNDS = 3  # alternating timing rounds of 21.2's two matchers
 STEPS_PER_ROUND = 5
 # 21.3: the accuracy table at d 512 (K2 and K1 in its chain runs) and each
-# other demo once, at reduced sizes
-DEMO_D512 = dict(DEMO_SCENES="60", DEMO_QPS="4", DEMO_GEN_STEPS="60", DEMO_EXE_STEPS="60",
+# other demo once, at sizes cut to keep the script within its time limit
+DEMO_D512 = dict(DEMO_SCENES="40", DEMO_QPS="4", DEMO_GEN_STEPS="30", DEMO_EXE_STEPS="30",
                  DEMO_DMODEL="512", DEMO_LAYERS="3", DEMO_LR_SCHEDULE="cosine")
 DEMO_SMALL = {
-    "end_to_end": dict(DEMO_SCENES="20", DEMO_GEN_STEPS="30", DEMO_EXE_STEPS="30"),
+    "end_to_end": dict(DEMO_SCENES="20", DEMO_GEN_STEPS="15", DEMO_EXE_STEPS="15"),
     "data_efficiency": {},  # no knobs: its STEPS is cut below
     "executor_data_efficiency": dict(DEMO_SCENES="20", DEMO_QPS="3", DEMO_SIZES="10,40",
-                                     DEMO_EXE_STEPS="30"),
-    "scheduled_sampling": dict(DEMO_SCENES="12", DEMO_GEN_STEPS="20", DEMO_EXE_STEPS="10"),
+                                     DEMO_EXE_STEPS="15"),
+    "scheduled_sampling": dict(DEMO_SCENES="12", DEMO_GEN_STEPS="10", DEMO_EXE_STEPS="10"),
     "scheduled_stats": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="10",
                             DEMO_EXE_STEPS="10", DEMO_EVAL_SCENES="4", DEMO_EVAL_QPS="3"),
     "scheduled_at_scale": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="10",
                                DEMO_EXE_STEPS="10", DEMO_EVAL_SCENES="4", DEMO_DMODEL="96",
                                DEMO_LAYERS="2"),
-    "diag_box_roi": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="30"),
-    "diag_roi_sim": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="30"),
-    "diag_count_embed": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="30"),
+    "diag_box_roi": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="15"),
+    "diag_roi_sim": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="15"),
+    "diag_count_embed": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="15"),
 }
-DEMO_DATA_EFFICIENCY_STEPS = 30
+DEMO_DATA_EFFICIENCY_STEPS = 10
 
 
 def matcher_problems(np, seed: int, q: int, t: int, n: int):
@@ -7029,6 +7226,77 @@ def c_counts(torch):
     return read
 
 
+def serving_run(torch, np, dev, counted, d_model: int) -> dict:
+    """bf16 serving, ``InferencePipeline.run`` (pool) at bench.py's widths with
+    the executor at ``d_model`` (4 heads) on ``NEW_WIDTH_QUESTIONS`` synthetic
+    questions: a warm-up, one run counted (its answers, the wrappers'
+    launches, the C libraries' counts and the self-attention calls K1 takes,
+    ``plain_self_attention_count``), then three timed on the host's clock.
+    Returns them by name, with the executor forwards of one run and the
+    executor's config."""
+    from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
+    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
+    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+
+    gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=d_model,
+                             num_heads=4)
+    generator = init_parameters(ProgramGenerator(gen_cfg, torch.bfloat16, device=dev), seed=1)
+    executor = init_parameters(ProgramExecutor(exe_cfg, torch.bfloat16, device=dev), seed=2)
+    thresholds = np.random.RandomState(3).uniform(0.3, 0.7, exe_cfg.vocab_size).astype(np.float32)
+    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
+                                 device=dev)
+    idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
+    token_ids = {t: i for i, t in idx_to_token.items()}
+    features, questions, chains = synth_questions(NEW_WIDTH_QUESTIONS, exe_cfg, max_steps=27,
+                                                  seed=0)
+    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
+    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
+                                 idx_to_token, FUNCTION_IDS, device=dev)
+    features_dev = torch.from_numpy(features).to(dev)
+    forwards = [0]
+    hook = executor.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    def run():
+        return pipeline.run(questions, features_dev, chains.image_index, chain_mode="pool")
+
+    run()  # warm-up
+    forwards[0] = 0
+    read = c_counts(torch)
+    with plain_self_attention_count() as eligible:
+        served, counts = counted(run)
+    found = read()
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    hook.remove()
+    return dict(served=served, counts=counts, c_counts=found, eligible=len(eligible),
+                forwards=forwards[0] // 4, seconds=seconds, config=exe_cfg)
+
+
+def serving_text(run: dict) -> str:
+    """``serving_run``'s result in words: its widths, questions/s (the median
+    of the three timed runs), forwards, launches and counts."""
+    cfg, seconds, n = run["config"], run["seconds"], NEW_WIDTH_QUESTIONS
+    median = sorted(seconds)[1]
+    k1_c, block_c = run["c_counts"]
+    return (f"InferencePipeline.run (pool) at bench.py's widths with the executor at d_model "
+            f"{cfg.d_model} (4 heads of {cfg.d_model // 4}) on {n} questions: median of 3 runs "
+            f"{median:.3f} s = {n / median:.1f} questions/s (s: "
+            f"{', '.join(f'{t:.3f}' for t in seconds)}); {run['forwards']} executor forwards a "
+            f"run; launches {run['counts']}; the C libraries' counts: K1 {k1_c}, K2's attention "
+            f"{block_c}; eligible self-attention calls {run['eligible']}; "
+            f"{int(run['served'].answer_valid.sum())} token answers")
+
+
 def new_widths(torch, np, dev, counted) -> dict:
     """Phase 23, the paths at the head dims without kernels of their own:
 
@@ -7058,14 +7326,7 @@ def new_widths(torch, np, dev, counted) -> dict:
     path's launches of the head-dim-256 kernels by the C libraries' counts."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
-    from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
-    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
-    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
-    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
-    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
-    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
-    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
 
     t_phase = time.perf_counter()
     paths, wide = {}, {}
@@ -7105,51 +7366,11 @@ def new_widths(torch, np, dev, counted) -> dict:
         torch.cuda.empty_cache()
 
     # ---- 23.3 bf16 serving with the executor at d_model 1024 ----
-    gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
-    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=1024,
-                             num_heads=4)
-    dtype = torch.bfloat16
-    generator = init_parameters(ProgramGenerator(gen_cfg, dtype, device=dev), seed=1)
-    executor = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=2)
-    thresholds = np.random.RandomState(3).uniform(0.3, 0.7, exe_cfg.vocab_size).astype(np.float32)
-    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
-                                 device=dev)
-    idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
-    token_ids = {t: i for i, t in idx_to_token.items()}
+    run = serving_run(torch, np, dev, counted, 1024)
+    served, counts, (k1_c, block_c), once, exe_cfg = (run[k] for k in (
+        "served", "counts", "c_counts", "forwards", "config"))
     n = NEW_WIDTH_QUESTIONS
-    features, questions, chains = synth_questions(n, exe_cfg, max_steps=27, seed=0)
-    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
-    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
-                                 idx_to_token, FUNCTION_IDS, device=dev)
-    features_dev = torch.from_numpy(features).to(dev)
-    forwards = [0]
-    hook = executor.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-
-    def run():
-        return pipeline.run(questions, features_dev, chains.image_index, chain_mode="pool")
-
-    run()  # warm-up
-    forwards[0] = 0
-    read = c_counts(torch)
-    with plain_self_attention_count() as eligible:
-        served, counts = counted(run)
-    k1_c, block_c = read()
-    seconds = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    hook.remove()
-    once = forwards[0] // 4  # the counted run and three timed ones
-    median = sorted(seconds)[1]
-    say(f"phase 23 bf16 serving, InferencePipeline.run (pool) at bench.py's widths with the "
-        f"executor at d_model 1024 (4 heads of 256) on {n} questions: median of 3 runs "
-        f"{median:.3f} s = {n / median:.1f} questions/s (s: "
-        f"{', '.join(f'{t:.3f}' for t in seconds)}); {once} executor forwards a run; launches "
-        f"{counts}; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
-        f"self-attention calls {len(eligible)}; {int(served.answer_valid.sum())} token answers")
+    say(f"phase 23 bf16 serving, {serving_text(run)}")
     serving_checks = {
         "K2 3 and K1 2 launches a forward": (
             counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
@@ -7158,7 +7379,7 @@ def new_widths(torch, np, dev, counted) -> dict:
         "attention_kernel_split_f32": (
             k1_c == {PADDED: counts["fused_attention"]}
             and block_c == {SPLIT_F32: counts["fused_encoder_block"]}),
-        "no self-attention K1 takes on the plain path": len(eligible) == counts["fused_attention"],
+        "no self-attention K1 takes on the plain path": run["eligible"] == counts["fused_attention"],
         "one answer per question in the token vocabulary": (
             served.answers.shape == (n,) and 0 <= served.answers.min()
             and served.answers.max() < exe_cfg.token_classes),
@@ -7168,7 +7389,6 @@ def new_widths(torch, np, dev, counted) -> dict:
             fail(f"phase 23 serving check failed: {name}")
     paths["serving_d1024"] = counts
     wide["serving_d1024"] = wide_of(k1_c, block_c)
-    del pipeline, runner, executor, generator, features_dev
     torch.cuda.empty_cache()
 
     # ---- 23.4 the block bench at d_model 1024: K3 at head dim 256 ----
@@ -7200,13 +7420,17 @@ def new_widths(torch, np, dev, counted) -> dict:
 # ---------------------------------------------------------------------------
 
 PAST_256_ROWS = 4  # 24.3's batch, card against the CPU in float32 (phase 8's inputs)
+# 24.4's K3 at d_model 2048 on the H100 with its attention on
+# attention_kernel_deep, before attention_kernel_wgmma_deep took it (PERF.md
+# §6, row "K3 hd 512"), printed beside this run's
+PARENT_K3_HD512_MS = {"K3 tiled TB=2 fc=1": 11.386, "K3 tiled TB=2 fc=2": 10.949}
 
 
 def past_256(torch, np, dev, counted) -> tuple:
     """Phase 24, the paths past head dim 256, each driven through the entry
     point a user calls, its launches read from the wrappers and from the C
-    libraries' counts (``c_counts``), which must name the deep kernels and
-    only them:
+    libraries' counts (``c_counts``), which must name the deep kernels (K3's
+    attention: ``attention_kernel_wgmma_deep``) and only them:
 
     1. bf16 serving, ``InferencePipeline.run`` (pool) at bench.py's widths
        with the executor at d_model 2048 (4 heads of 512, ffn 8192) on
@@ -7227,72 +7451,30 @@ def past_256(torch, np, dev, counted) -> tuple:
        deep kernels; the float32 outputs against the CPU's within 1e-4;
     4. ``bench_block.main`` at d_model 2048 (B=128, L=224, K3 at one
        tiling): K2's attention on ``attention_kernel_deep_f32``, K3's on
-       ``attention_kernel_deep``; K2's and K3's ms printed.
+       ``attention_kernel_wgmma_deep``; K2's and K3's ms printed, K3's beside
+       its time on the deep kernel (``PARENT_K3_HD512_MS``).
 
     Returns each path's wrapper launches and each path's launches of the
     deep kernels by the C libraries' counts."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
-    from explainable_spatial_vqa_tpu_torch.bench_data import FUNCTION_IDS, synth_questions
-    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig, GeneratorConfig
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
-    from explainable_spatial_vqa_tpu_torch.infer.chain import ExecutorChainRunner
-    from explainable_spatial_vqa_tpu_torch.infer.pipeline import InferencePipeline
     from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
-    from explainable_spatial_vqa_tpu_torch.models.generator import ProgramGenerator
     from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
 
     t_phase = time.perf_counter()
     paths, deep = {}, {}
 
     def deep_of(*counts):  # the deep kernels' launches among C counts
-        return {n: sum(c.get(n, 0) for c in counts) for n in (DEEP_F32, DEEP)}
+        return {n: sum(c.get(n, 0) for c in counts) for n in (DEEP_F32, DEEP, WGMMA_DEEP)}
 
     # ---- 24.1 bf16 serving with the executor at d_model 2048 ----
-    gen_cfg = GeneratorConfig(vocab_size=96, program_vocab_size=45, program_len=27)
-    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=2048,
-                             num_heads=4)
-    generator = init_parameters(ProgramGenerator(gen_cfg, torch.bfloat16, device=dev), seed=1)
-    executor = init_parameters(ProgramExecutor(exe_cfg, torch.bfloat16, device=dev), seed=2)
-    thresholds = np.random.RandomState(3).uniform(0.3, 0.7, exe_cfg.vocab_size).astype(np.float32)
-    runner = ExecutorChainRunner(executor, exe_cfg, max_steps=27, conf_thresholds=thresholds,
-                                 device=dev)
-    idx_to_token = dict(enumerate(["<NULL>", "<START>", "<END>"] + sorted(FUNCTION_IDS)))
-    token_ids = {t: i for i, t in idx_to_token.items()}
+    run = serving_run(torch, np, dev, counted, 2048)
+    served, counts, (k1_c, block_c), once, exe_cfg = (run[k] for k in (
+        "served", "counts", "c_counts", "forwards", "config"))
     n = NEW_WIDTH_QUESTIONS
-    features, questions, chains = synth_questions(n, exe_cfg, max_steps=27, seed=0)
-    scripted = postfix_ids(chains, token_ids, FUNCTION_IDS, gen_cfg.program_len)
-    pipeline = InferencePipeline(scripted_programs(torch, generator, scripted), runner,
-                                 idx_to_token, FUNCTION_IDS, device=dev)
-    features_dev = torch.from_numpy(features).to(dev)
-    forwards = [0]
-    hook = executor.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-
-    def run():
-        return pipeline.run(questions, features_dev, chains.image_index, chain_mode="pool")
-
-    run()  # warm-up
-    forwards[0] = 0
-    read = c_counts(torch)
-    with plain_self_attention_count() as eligible:
-        served, counts = counted(run)
-    k1_c, block_c = read()
-    seconds = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    hook.remove()
-    once = forwards[0] // 4  # the counted run and three timed ones
-    median = sorted(seconds)[1]
-    say(f"phase 24.1 bf16 serving, InferencePipeline.run (pool) at bench.py's widths with the "
-        f"executor at d_model 2048 (4 heads of 512, ffn 8192) on {n} questions: median of 3 "
-        f"runs {median:.3f} s = {n / median:.1f} questions/s (s: "
-        f"{', '.join(f'{t:.3f}' for t in seconds)}); {once} executor forwards a run; launches "
-        f"{counts}; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
-        f"self-attention calls {len(eligible)}; {int(served.answer_valid.sum())} token answers")
+    say(f"phase 24.1 bf16 serving (ffn 8192), {serving_text(run)}")
     serving_checks = {
         "K2 3 and K1 2 launches a forward": (
             counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
@@ -7301,7 +7483,7 @@ def past_256(torch, np, dev, counted) -> tuple:
         "attention_kernel_deep_f32": (
             k1_c == {DEEP: counts["fused_attention"]}
             and block_c == {DEEP_F32: counts["fused_encoder_block"]}),
-        "no self-attention K1 takes on the plain path": len(eligible) == counts["fused_attention"],
+        "no self-attention K1 takes on the plain path": run["eligible"] == counts["fused_attention"],
         "one answer per question in the token vocabulary": (
             served.answers.shape == (n,) and 0 <= served.answers.min()
             and served.answers.max() < exe_cfg.token_classes),
@@ -7311,7 +7493,6 @@ def past_256(torch, np, dev, counted) -> tuple:
             fail(f"phase 24.1 serving check failed: {name}")
     paths["serving_d2048"] = counts
     deep["serving_d2048"] = deep_of(k1_c, block_c)
-    del pipeline, runner, executor, generator, features_dev
     torch.cuda.empty_cache()
 
     # ---- 24.2 cogent-protocol --d_model 1536 ----
@@ -7403,17 +7584,77 @@ def past_256(torch, np, dev, counted) -> tuple:
     say("phase 24.4 block bench at d_model 2048, 4 heads (bench_block.main --batches 128 "
         "--iters 2 --tiles 2 --d_model 2048 --heads 4, bf16, L=224, no mask): "
         + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s" for _b, name, ms, tflops in rows)
-        + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}")
+        + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}; "
+        f"with K3's attention on attention_kernel_deep before (PERF.md §6): " + ", ".join(
+            f"{name} {ms} ms" for name, ms in PARENT_K3_HD512_MS.items()))
     if not (counts["fused_encoder_block_tiled"] > 0
             and block_c == {DEEP_F32: counts["fused_encoder_block"],
-                            DEEP: counts["fused_encoder_block_tiled"]}):
+                            WGMMA_DEEP: counts["fused_encoder_block_tiled"]}):
         fail("phase 24.4: the block bench at d_model 2048 did not launch K2's attention on "
-             "attention_kernel_deep_f32 and K3's on attention_kernel_deep")
+             "attention_kernel_deep_f32 and K3's on attention_kernel_wgmma_deep")
     paths["block_bench_d2048"] = counts
     deep["block_bench_d2048"] = deep_of(block_c)
     say(f"phase 24 the deep kernels' launches by path (the C libraries' counts): {deep}")
     say(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
     return paths, deep
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the executor at d_model 768 and 1280 (the one-pass wgmma kernels
+# at padded depths 192 and 336)
+# ---------------------------------------------------------------------------
+
+# d_model (4 heads), the kernel of the fusion layers' self-attention (L = 210)
+# and of the box decoder's (10 keys)
+WGMMA_PADDED_WIDTHS = ((768, WGMMA, PADDED), (1280, WGMMA_DEEP, DEEP))
+
+
+def wgmma_padded_paths(torch, np, dev, counted) -> tuple:
+    """Phase 25, bf16 serving (``serving_run``: ``InferencePipeline.run``,
+    pool, at bench.py's widths on ``NEW_WIDTH_QUESTIONS`` synthetic
+    questions) with the executor at each width of ``WGMMA_PADDED_WIDTHS``:
+    25.1 at d_model 768 (4 heads of 192, padded depth 192), 25.2 at 1280 (4
+    heads of 320, padded depth 336).  Their head dims are not multiples of
+    128, so no K2: K1 on the 3 fusion layers of every forward (210 keys,
+    ragged) on ``attention_kernel_wgmma`` or ``attention_kernel_wgmma_deep``
+    and on the 2 box-decoder layers (10 keys) on the padded or deep kernel,
+    by the C library's counts, and no eligible self-attention on the plain
+    path; questions/s, the median of 3 runs after a warm-up.  Returns each
+    path's wrapper launches and its launches by kernel (the C libraries'
+    counts)."""
+    t_phase = time.perf_counter()
+    paths, by_kernel = {}, {}
+    for part, (d_model, fusion, decoder) in enumerate(WGMMA_PADDED_WIDTHS, 1):
+        run = serving_run(torch, np, dev, counted, d_model)
+        served, counts, (k1_c, block_c), once, cfg = (run[k] for k in (
+            "served", "counts", "c_counts", "forwards", "config"))
+        n = NEW_WIDTH_QUESTIONS
+        say(f"phase 25.{part} bf16 serving, {serving_text(run)}")
+        checks = {
+            "no K2, K1 5 launches a forward": (
+                counts["fused_encoder_block"] == 0 and not block_c and once > 0
+                and counts["fused_attention"] == (cfg.encoder_layers
+                                                  + cfg.box_decoder_layers) * once),
+            f"K1 on {fusion} in the fusion layers (210 keys), on {decoder} in the box decoder "
+            f"(10 keys)": k1_c == {fusion: cfg.encoder_layers * once,
+                                   decoder: cfg.box_decoder_layers * once},
+            "no self-attention K1 takes on the plain path": (
+                run["eligible"] == counts["fused_attention"]),
+            "one answer per question in the token vocabulary": (
+                served.answers.shape == (n,) and 0 <= served.answers.min()
+                and served.answers.max() < cfg.token_classes),
+        }
+        for name, ok in checks.items():
+            if not ok:
+                fail(f"phase 25.{part} serving check failed at d_model {d_model}: {name}")
+        paths[f"serving_d{d_model}"] = counts
+        by_kernel[f"serving_d{d_model}"] = k1_c
+        del run, served
+        torch.cuda.empty_cache()
+    say(f"phase 25 the one-pass wgmma kernels past depth 128 on the executor, launches by path "
+        f"(the C library's counts): {by_kernel}; phase 25 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return paths, by_kernel
 
 
 def free_port() -> int:

@@ -63,13 +63,16 @@
 // float32) at the encoders'.  The padded columns and the element loads cost
 // work the bound does not count; a right kernel first (PERF.md §6).
 //
-// At padded depth 256 (head dims 225-256) attention_wide.cuh's kernels,
-// designed for Hopper, take the calls past 16 keys whose rows are whole
-// 16-byte chunks: float32 at any length (attention_kernel_split_f32), bf16
-// up to 256 keys (attention_kernel_wgmma).  The kernels here keep the rest:
-// the box decoders' rows of <= 16 keys, bf16 rows past 256 keys (the
-// two-pass wgmma kernel stops at depth 128), and rows that load element by
-// element.
+// Past padded depth 128 attention_wide.cuh's kernels, designed for Hopper,
+// take the calls past 16 keys whose rows are whole 16-byte chunks: bf16 up
+// to 256 keys at every depth (attention_kernel_wgmma at 160-256,
+// attention_kernel_wgmma_deep at 288-512: the executor's fusion layers at
+// d_model 768 and 1280, K3's attention at head dims 384 and 512), float32 at
+// depth 256 alone, at any length (attention_kernel_split_f32).  The kernels
+// here keep the rest: the box decoders' rows of <= 16 keys, bf16 rows past
+// 256 keys (the two-pass wgmma kernel stops at depth 128), float32 at every
+// other depth (K2's attention at 384 and 512), and rows that load element
+// by element (D = 275).
 #pragma once
 
 #include "attention.cuh"
@@ -107,7 +110,6 @@ __host__ __device__ constexpr size_t padded_smem_bytes() {
 // The ring's stages at depth DP with R groups a block: kAttnStages where
 // they fit in the H100's 227 KB a block, else as many as fit (at least 2:
 // the tile in use and the next)
-constexpr size_t kPaddedSmemMax = 232448;
 template <typename T, int DP, int R>
 __host__ __device__ constexpr int padded_stages() {
   return padded_smem_bytes<T, DP, R, kAttnStages>() <= kPaddedSmemMax ? kAttnStages
@@ -524,10 +526,11 @@ static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const flo
         q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
-// Head dim D, whose padded depth is DP: at depth 256 attention_wide.cuh's
-// kernels where they take the call (wide_takes); else one group a block
-// where L <= 16, else 8 warps up to depth 256 and 2 groups (6 or 8 warps)
-// past it.  The pointers need only their types' alignment.
+// Head dim D, whose padded depth is DP: past depth 128 attention_wide.cuh's
+// kernels where they take the call (wide_takes; bf16 at every depth, float32
+// at 256 alone); else one group a block where L <= 16, else 8 warps up to
+// depth 256 and 2 groups (6 or 8 warps) past it.  The pointers need only
+// their types' alignment.
 template <int DP, typename T, typename TO>
 static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, const float* mask,
                                            TO* out, int B, int H, int L, int D, long long in_bs,
@@ -538,10 +541,10 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
   if (reinterpret_cast<uintptr_t>(q) % sizeof(T) || reinterpret_cast<uintptr_t>(k) % sizeof(T) ||
       reinterpret_cast<uintptr_t>(v) % sizeof(T) || reinterpret_cast<uintptr_t>(out) % sizeof(TO))
     return cudaErrorMisalignedAddress;
-  if constexpr (DP == 256) {
+  if constexpr (DP > 128 && (DP == 256 || !std::is_same<T, float>::value)) {
     if (wide_takes<T, TO>(q, k, v, out, L, D, in_bs, in_rs, out_bs, out_rs))
-      return launch_attention_wide<T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
-                                          out_rs, stream);
+      return launch_attention_wide<DP, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                              out_bs, out_rs, stream);
   }
   if (L <= 16)
     return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
@@ -558,31 +561,26 @@ __host__ __device__ constexpr bool block_head_dim(int D) {
 }
 
 // The attention of K2 (float32 q, k, v) and K3 (q, k, v in the weights'
-// type), TO the weights' type: head dim 128 on launch_attention_dim's
-// kernels (K3 past 16 keys on attention_wide.cuh's wgmma kernels, one pass
-// up to 256 keys and two past it), 256 on attention_wide.cuh's (K2 past 16
-// keys, K3 from 17 to 256) or the padded ones, 384 and 512 on the deep
-// kernels.  Any other D returns cudaErrorInvalidValue.
-template <typename T, typename TO>
+// type), TO the weights' type, at one head dim D of block_head_dim: 128 on
+// launch_attention_dim's kernels (K3 past 16 keys on attention_wide.cuh's
+// wgmma kernels, one pass up to 256 keys and two past it), 256 on
+// attention_wide.cuh's (K2 past 16 keys, K3 from 17 to 256) or the padded
+// ones, 384 and 512 on the deep kernels (K3 from 17 to 256 keys on
+// attention_kernel_wgmma_deep).  fused_block.cu compiles each head dim in a
+// translation unit of its own and picks among them at run time.
+template <int D, typename T, typename TO>
 static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, const float* mask,
-                                          TO* out, int B, int H, int L, int D, long long in_bs,
+                                          TO* out, int B, int H, int L, long long in_bs,
                                           long long in_rs, long long out_bs, long long out_rs,
                                           cudaStream_t stream) {
+  static_assert(block_head_dim(D), "a head dim of K2 and K3");
   if (L > kAttnMaxLen) return cudaErrorInvalidValue;
-  if (D == 128)
+  if constexpr (D == 128)
     return launch_attention_dim<128, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
                                             out_rs, stream);
-  if (D == 256)
-    return launch_attention_padded<256, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
-                                               out_bs, out_rs, stream);
-  static_assert(kAttnMaxHeadDim == 512, "the multiples of 128 below");
-  if (D == 384)
-    return launch_attention_padded<384, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
-                                               out_bs, out_rs, stream);
-  if (D == 512)
-    return launch_attention_padded<512, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
-                                               out_bs, out_rs, stream);
-  return cudaErrorInvalidValue;
+  else
+    return launch_attention_padded<D, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                             out_bs, out_rs, stream);
 }
 
 }  // namespace esv

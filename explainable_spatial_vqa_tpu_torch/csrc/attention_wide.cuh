@@ -3,14 +3,16 @@
 // _fused_attention_bhld and the per-head attention of ops/pallas_block.py:
 // _block_kernel (:135-140, float32 q, k, v) and :_tiled_kernel (q, k, v
 // rounded to bf16):
-//   * K1 at the head dims whose padded depth is 256 (225-256, among them
-//     256: 4 heads at d_model 1024), the attention of K2 and K3 at head dim
-//     256 (attention_kernel_split_f32, float32; attention_kernel_wgmma<…,
-//     256>, bf16 up to 256 keys);
-//   * K1 in bf16 at head dims 72-128 (multiples of 8) up to 256 keys and K3's
-//     attention at head dim 128 (attention_kernel_wgmma at padded depths 80,
-//     96, 112, 128), and K1 and K3 in bf16 past 256 keys at every multiple of
-//     8 up to 128 (attention_kernel_wgmma_2pass).
+//   * K1 in float32 at the head dims whose padded depth is 256 (225-256,
+//     among them 256: 4 heads at d_model 1024) and K2's attention at head
+//     dim 256 (attention_kernel_split_f32);
+//   * K1 in bf16 of 17-256 keys at head dims 72-128 (multiples of 8) and, in
+//     rows of whole 16-byte chunks (D % 8 == 0), at every padded depth past
+//     128, and K3's attention at head dims 128-512 (attention_kernel_wgmma
+//     at padded depths 80-128 and 160-256; attention_kernel_wgmma_deep, the
+//     same code, at 288-512: d_model 768 and 1280 at 4 heads, K3 at d_model
+//     1536 and 2048), and K1 and K3 in bf16 past 256 keys at every multiple
+//     of 8 up to 128 (attention_kernel_wgmma_2pass).
 //
 // Arithmetic: attention.cuh's, on the true head dim D (the columns D .. DP - 1
 // of Q, K and V read as zeros, DP the padded depth): scores in float32
@@ -51,22 +53,29 @@
 // and it ran 2x slower.
 //
 // The bf16 kernels on wgmma.  Bound on the H100: the bytes of q, k, v and
-// the output (0.0651 ms at B=128, H=4, L=208, D=256; 0.0306 at D=120), under
-// the tensor cores' 4 L^2 D operations at 989 TFLOP/s up to ~1000 keys; past
-// that the operations (the two-pass kernel does 6 L^2 D: pass 2 recomputes
-// the scores).  What held the kernels they replace (PERF.md §6): the ring
-// (attention.cuh's attention_kernel, 2.3-3.8x SDPA at D = 72-128) spilled
-// 476-2664 bytes at 255 registers holding 224 keys' scores as mma.sync
-// fragments, with a block barrier per 32-key tile, and past 224 keys took
-// its two passes in 224-key chunks (3.6x SDPA at L = 1025); the padded
-// kernel at depth 256 took two passes over K with three to five block
-// barriers a 32-key tile.  Here a block is two consumer warpgroups of 64
-// query rows and a producer warpgroup that copies Q (in 64-column boxes) and
-// then K's and V's tiles of 64 keys by cp.async into a ring of kWgmmaStages
-// stages of 16 KB (two 64-column boxes) in the 128-byte swizzle, each stage
-// on full/empty mbarriers.  The score products are wgmma m64n64k16 over the
-// padded depth (Q and K both K-major from shared memory; DP / 16 of them a
-// tile, the columns past D zero-filled by cp.async); P V multiplies the
+// the output (0.0651 ms at B=128, H=4, L=208, D=256; 0.0306 at D=120; 0.1402
+// at K3's B=128, L=224, D=512), under the tensor cores' 4 L^2 D operations
+// at 989 TFLOP/s up to ~1000 keys; past that the operations (the two-pass
+// kernel does 6 L^2 D: pass 2 recomputes the scores).  What held the
+// kernels they replace (PERF.md §6): the ring (attention.cuh's
+// attention_kernel, 2.3-3.8x SDPA at D = 72-128) spilled 476-2664 bytes at
+// 255 registers holding 224 keys' scores as mma.sync fragments, with a block
+// barrier per 32-key tile, and past 224 keys took its two passes in 224-key
+// chunks (3.6x SDPA at L = 1025); the padded and deep kernels past depth 128
+// (attention_padded.cuh: 7.7x SDPA at D = 192, 3.4x at K3's 512) share a
+// 16-row group among two to four warps, each a slice of the depth, exchange
+// partial scores through shared memory and take two passes over K with
+// three to five block barriers a 32-key tile.  Here a block is two consumer
+// warpgroups of 64 query rows and a producer warpgroup that copies Q (in
+// 64-column boxes) and then K's and V's tiles of 64 keys by cp.async into a
+// ring of wgmma_stages stages of 16 KB (two 64-column boxes) in the 128-byte
+// swizzle, each stage on full/empty mbarriers: kWgmmaStages (8) up to depth
+// 384, 7 at 448 and 6 at 512, where Q's boxes take 112 and 128 KB of the
+// 227.  K's and V's rows come in pieces of 128 columns, a stage each (the
+// last piece narrower: 160 = 128 + 32, 336 = 2 x 128 + 80).  The score
+// products are wgmma m64n64k16 over the padded depth (Q and K both K-major
+// from shared memory; DP / 16 of them a tile, the pieces in order into one
+// accumulator, the columns past D zero-filled by cp.async); P V multiplies the
 // weights, rounded to bf16 straight into wgmma's A-register fragments, by V
 // as an MN-major B operand (the transpose bit), 64 columns a product (the
 // columns past D zeros and not stored).  Both hold their consumers to
@@ -75,14 +84,18 @@
 // The block's first step writes the key mask as bits in shared memory (a
 // warp's ballot a word), so each tile's masking reads two words: the
 // mask's float loads in the softmax took a third of the time (PERF.md §6).
-//   * attention_kernel_wgmma<TO, DP>: 17 <= L <= 256, one pass.  Each
-//     consumer issues every tile's score products before it waits, holds
-//     its rows' scores against every key in registers (at most 4 tiles, 128
-//     floats a thread), takes the exact row max and sum, normalises with
-//     div_by, rounds to bf16 (64 registers of A fragments) and issues every
-//     tile's P V before it waits, one 128-column half of the output at a
-//     time (64 floats a thread; one half below DP = 256).  At DP = 256 K's
-//     tiles come in two 128-column halves, a stage each.
+//   * attention_kernel_wgmma<TO, DP> (DP 80-256) and
+//     attention_kernel_wgmma_deep<TO, DP> (DP 288-512; the same code under
+//     a name of its own, so that the launch counts tell them apart): 17 <=
+//     L <= 256, one pass.  Each consumer issues every tile's score products
+//     before it waits (past depth 256, where a row's 4 tiles of 3 or 4
+//     pieces outnumber the stages, one product in flight: each wait frees
+//     the stage of the product before), holds its rows' scores against
+//     every key in registers (at most 4 tiles, 128 floats a thread), takes
+//     the exact row max and sum, normalises with div_by, rounds to bf16 (64
+//     registers of A fragments) and issues every tile's P V before it
+//     waits, one 128-column piece of the output at a time (64 floats a
+//     thread).  The register budget does not grow with the depth.
 //   * attention_kernel_wgmma_2pass<TO, DP>: DP <= 128, L > 256, two passes
 //     over 64-key tiles.  Pass 1 takes each tile's scores, the running row
 //     max (the quad's) and the thread's share of the sum, rescaled when the
@@ -99,9 +112,10 @@
 //
 // All take rows whose elements are whole 16-byte chunks (D * sizeof(T) % 16
 // == 0, bases and strides aligned): launch_attention_dim (attention.cuh)
-// requires it at the head dims 8-128, and at padded depth 256
-// attention_padded.cuh's launcher sends everything else, rows of <= 16 keys
-// and bf16 rows past 256 keys to the padded kernels.
+// requires it at the head dims 8-128, and past padded depth 128
+// attention_padded.cuh's launcher sends everything else, rows of <= 16 keys,
+// bf16 rows past 256 keys and float32 at depths other than 256 to the
+// padded and deep kernels.
 #pragma once
 
 #include "attention.cuh"
@@ -445,55 +459,76 @@ __global__ void __launch_bounds__(kSplitThreads, 1) attention_kernel_split_f32(
   }
 }
 
-// ---- bf16 on wgmma: attention_kernel_wgmma, attention_kernel_wgmma_2pass ----
+// ---- bf16 on wgmma: attention_kernel_wgmma[_deep], attention_kernel_wgmma_2pass ----
 
 constexpr int kWgmmaKeys = 64;        // keys a tile (the N of the score products)
 constexpr int kWgmmaMaxKeys = 256;    // the one-pass kernel's longest row: 4 tiles' scores
-constexpr int kWgmmaStages = 8;       // ring stages of 16 KB
+constexpr int kWgmmaStages = 8;       // ring stages of 16 KB, at most (wgmma_stages)
 constexpr int kWgmmaBox = 8192;       // 64 rows of 128 bytes, one swizzle box
 constexpr int kWgmmaStage = 2 * kWgmmaBox;
 constexpr int kWgmmaThreads = 3 * 128;  // two consumer warpgroups, one producer
 constexpr int kWgmmaRows = 128;         // query rows an item (a warpgroup 64)
+constexpr size_t kPaddedSmemMax = 232448;  // the H100's 227 KB of shared memory a block
 static_assert(kWgmmaMaxKeys == kOnePassKeys, "launch_attention_dim's one-pass rows");
 
-// At padded depth DP (the head dim rounded up to 16): K's columns in halves
-// of 128 (two at DP = 256, a stage each), the 16-deep slices of a half, Q's
-// 64-column boxes a warpgroup, and V's 64-column boxes a half (P V's N is
-// 64 a box; past D the columns are zeros and not stored)
+// At padded depth DP (the head dim rounded up to 16, or past 128
+// attention_padded.cuh's padded_depth): K's and V's columns in pieces of 128
+// (the last of DP - 128 (P - 1) columns: 160 = 128 + 32, 336 = 128 + 128 +
+// 80), a ring stage each; a piece's 16-deep slices; Q's 64-column boxes a
+// warpgroup; and a piece's V boxes of 64 columns (P V's N is 64 a box; past
+// D the columns are zeros and not stored)
 template <int DP>
-__host__ __device__ constexpr int wgmma_halves() {
-  return DP > 128 ? 2 : 1;
+__host__ __device__ constexpr int wgmma_pieces() {
+  return (DP + 127) / 128;
 }
 template <int DP>
-__host__ __device__ constexpr int wgmma_slices() {
-  return DP / wgmma_halves<DP>() / 16;
+__host__ __device__ constexpr int wgmma_width(int piece) {
+  return piece + 1 < wgmma_pieces<DP>() ? 128 : DP - 128 * (wgmma_pieces<DP>() - 1);
+}
+template <int DP>
+__host__ __device__ constexpr int wgmma_slices(int piece) {
+  return wgmma_width<DP>(piece) / 16;
 }
 template <int DP>
 __host__ __device__ constexpr int wgmma_qboxes() {
   return (DP + 63) / 64;
 }
 template <int DP>
-__host__ __device__ constexpr int wgmma_vboxes() {
-  return DP > 64 ? 2 : 1;
+__host__ __device__ constexpr int wgmma_vboxes(int piece) {
+  return (wgmma_width<DP>(piece) + 63) / 64;
 }
-// Q's 128 rows (2 Q-box groups), the ring, the mbarriers (Q's, and full
+// Q's 128 rows (2 Q-box groups), S ring stages, the mbarriers (Q's, and full
 // and empty per stage), the key mask's bits, and 1 KB to align the boxes to
 // the swizzle's 1 KB atoms
 template <int DP>
+constexpr size_t wgmma_smem_at(int S) {
+  return 1024 + (size_t)2 * wgmma_qboxes<DP>() * kWgmmaBox + (size_t)S * kWgmmaStage +
+         8 * (1 + 2 * (size_t)S) + 4 * (kAttnMaxLen / 32);
+}
+// The ring's stages at depth DP: kWgmmaStages where they fit in the 227 KB
+// (every depth up to 384), else as many as fit (7 at 448, 6 at 512: Q's
+// boxes take 112 and 128 KB there)
+template <int DP>
+constexpr int wgmma_stages() {
+  int s = kWgmmaStages;
+  while (s > 2 && wgmma_smem_at<DP>(s) > kPaddedSmemMax) --s;
+  return s;
+}
+template <int DP>
 constexpr size_t wgmma_smem_bytes() {
-  return 1024 + (size_t)2 * wgmma_qboxes<DP>() * kWgmmaBox + (size_t)kWgmmaStages * kWgmmaStage +
-         8 * (1 + 2 * kWgmmaStages) + 4 * (kAttnMaxLen / 32);
+  return wgmma_smem_at<DP>(wgmma_stages<DP>());
 }
 
-// The consumers' side of the ring: stages taken in the order the producer
-// fills them, and released in that order by every consumer warp once the
-// products that read them are done
+// The consumers' side of a ring of S stages: stages taken in the order the
+// producer fills them, and released in that order by every consumer warp
+// once the products that read them are done
+template <int S>
 struct WgmmaRing {
   uint32_t base, bars;  // the stages; full(s) at bars + 8 s, empty(s) at bars + 8 (S + s)
   int taken, released;
   __device__ uint32_t take() {  // the next stage, once filled
-    const int st = taken % kWgmmaStages;
-    mbar_wait_bounded(bars + 8 * st, (taken / kWgmmaStages) & 1);
+    const int st = taken % S;
+    mbar_wait_bounded(bars + 8 * st, (taken / S) & 1);
     fence_proxy_async();
     ++taken;
     return base + st * kWgmmaStage;
@@ -501,23 +536,24 @@ struct WgmmaRing {
   __device__ void release(int upto) {  // this warp is done with the stages taken before upto
     __syncwarp();
     for (; released < upto; ++released)
-      if (threadIdx.x % 32 == 0) mbar_arrive(bars + 8 * (kWgmmaStages + released % kWgmmaStages));
+      if (threadIdx.x % 32 == 0) mbar_arrive(bars + 8 * (S + released % S));
   }
 };
 
 // A block's item, query rows q0 = kWgmmaRows blockIdx.x .. of head
 // blockIdx.y of batch blockIdx.z, and its shared memory: Q's boxes, the
-// ring's stages and the mbarriers by shared-window address, and the key
+// ring's S stages and the mbarriers by shared-window address, and the key
 // mask as bits (bit i of keep[w]: key 32 w + i lies below L and is kept)
 template <int DP>
 struct WgmmaBlock {
+  static constexpr int S = wgmma_stages<DP>();
   uint32_t qs, ring, bars;
   const uint32_t* keep;
   int b, h, q0;
   __device__ uint32_t qfull() const { return bars; }
   __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (1 + kWgmmaStages + s); }
-  __device__ WgmmaRing consumer_ring() const { return {ring, bars + 8, 0, 0}; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (1 + S + s); }
+  __device__ WgmmaRing<S> consumer_ring() const { return {ring, bars + 8, 0, 0}; }
 };
 
 // The block's layout in dynamic shared memory, its mbarriers initialised
@@ -527,19 +563,20 @@ struct WgmmaBlock {
 template <int DP>
 __device__ __forceinline__ WgmmaBlock<DP> wgmma_block(unsigned char* smem, const float* mask,
                                                       int L) {
+  constexpr int S = WgmmaBlock<DP>::S;
   WgmmaBlock<DP> blk;
   blk.qs = (smem_u32(smem) + 1023) & ~1023u;                   // [warpgroup][QB boxes]
   blk.ring = blk.qs + 2 * wgmma_qboxes<DP>() * kWgmmaBox;      // [S][2 boxes]
-  blk.bars = blk.ring + kWgmmaStages * kWgmmaStage;
+  blk.bars = blk.ring + S * kWgmmaStage;
   uint32_t* keep = reinterpret_cast<uint32_t*>(
-      smem + (blk.bars + 8 * (1 + 2 * kWgmmaStages) - smem_u32(smem)));
+      smem + (blk.bars + 8 * (1 + 2 * S) - smem_u32(smem)));
   blk.keep = keep;
   blk.b = blockIdx.z;
   blk.h = blockIdx.y;
   blk.q0 = blockIdx.x * kWgmmaRows;
   if (threadIdx.x == 0) {
     mbar_init(blk.qfull(), 128);
-    for (int s = 0; s < kWgmmaStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(blk.full(s), 128);
       mbar_init(blk.empty(s), 8);
     }
@@ -603,9 +640,9 @@ __device__ __forceinline__ void wgmma_copy_q(uint32_t qs, const __nv_bfloat16* s
                   src + (ok ? (long long)(q0 + row) * rs + 8 * cc : 0), ok);
   }
 }
-// A tile: keys key0 .. key0 + 63, columns from 128 cb, its first `width`
-// chunks (the two boxes of a stage hold 16); keys past L and chunks past
-// `chunks` read as zeros, chunks past `width` are not written
+// A tile: keys key0 .. key0 + 63, columns from 128 cb (piece cb), its first
+// `width` chunks (the two boxes of a stage hold 16); keys past L and chunks
+// past `chunks` read as zeros, chunks past `width` are not written
 __device__ __forceinline__ void wgmma_copy_tile(uint32_t dst, const __nv_bfloat16* src,
                                                 long long rs, int key0, int cb, int width, int L,
                                                 int chunks, int tid) {
@@ -620,17 +657,18 @@ __device__ __forceinline__ void wgmma_copy_tile(uint32_t dst, const __nv_bfloat1
 }
 
 // s (+)= the scores of the warpgroup's 64 rows (Q at qw) against a tile's 64
-// keys (K at kst) over half dh of the depth, one m64n64k16 product a 16-deep
-// slice, Q and K both K-major; the first slice of half 0 overwrites s.
-// Issued and committed as one group: the caller waits (wgmma_wait) before
-// it reads s.  The same products in the same order give the same sums (the
-// two-pass kernel relies on it).
+// keys (K at kst) over piece dh of the depth (columns 128 dh ..), one
+// m64n64k16 product a 16-deep slice, Q and K both K-major; the first slice
+// of piece 0 overwrites s, so the pieces, taken in order, add every slice of
+// the depth in one chain.  Issued and committed as one group: the caller
+// waits (wgmma_wait) before it reads s.  The same products in the same
+// order give the same sums (the two-pass kernel relies on it).
 template <int DP>
 __device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t qw, uint32_t kst, int dh) {
   fence_operands(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < wgmma_slices<DP>(); ++kk)
+  for (int kk = 0; kk < wgmma_slices<DP>(dh); ++kk)
     wgmma_m64n64k16_ss(s, sw128_desc(qw + (2 * dh + kk / 4) * kWgmmaBox + 32 * (kk % 4)),
                        sw128_desc(kst + kk / 4 * kWgmmaBox + 32 * (kk % 4)), dh > 0 || kk > 0);
   wgmma_commit();
@@ -715,36 +753,46 @@ __device__ __forceinline__ void wgmma_store(TO* op, long long out_rs, int row, i
     }
 }
 
+// The wgmma kernels' arguments, as launch_wgmma_kernel passes them
+#define ESV_WGMMA_PARAMS                                                                      \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,                   \
+      const __nv_bfloat16 *__restrict__ v, const float *__restrict__ mask,                    \
+      TO *__restrict__ out, int L, int D, long long in_bs, long long in_rs, long long out_bs, \
+      long long out_rs, float scale
+#define ESV_WGMMA_ARGS q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale
+
 // bf16 q, k, v at a head dim D of padded depth DP (D % 8 == 0; DP 80-128 or
-// 256), 16 < L <= 256: a block of kWgmmaRows query rows, one pass (the
+// 160-512), 16 < L <= 256: a block of kWgmmaRows query rows, one pass (the
 // header's Design)
 template <typename TO, int DP>
-__global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask, TO* __restrict__ out,
-    int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
-    float scale) {
+__device__ __forceinline__ void wgmma_one_pass(ESV_WGMMA_PARAMS) {
   static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
-  static_assert(DP % 16 == 0 && DP > 64 && (DP <= 128 || DP == 256), "padded depth");
-  constexpr int S = kWgmmaStages, kTiles = kWgmmaMaxKeys / kWgmmaKeys;
-  constexpr int HV = wgmma_halves<DP>(), QB = wgmma_qboxes<DP>(), NB = wgmma_vboxes<DP>();
+  static_assert(DP % 16 == 0 && DP > 64 && DP <= kAttnMaxHeadDim, "padded depth");
+  constexpr int S = WgmmaBlock<DP>::S, kTiles = kWgmmaMaxKeys / kWgmmaKeys;
+  constexpr int P = wgmma_pieces<DP>(), QB = wgmma_qboxes<DP>();
+  // up to depth 256 every piece of K's tiles fits in the ring, and every
+  // score product is issued before the first wait; past it (3 or 4 pieces a
+  // tile, 6-8 stages) the ring streams them: each product's wait frees the
+  // stage of the one before
+  constexpr bool kStream = P * kTiles > S;
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
   const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h, q0 = blk.q0;
   const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys, chunks = D / 8;
   const long long in_off = (long long)b * in_bs + (long long)h * D;
 
-  if (wg == 2) {  // producer: Q, then K's tiles (HV column halves each), then V's by half
+  if (wg == 2) {  // producer: Q, then K's tiles (P column pieces each), then V's by piece
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     wgmma_copy_q<DP>(blk.qs, q + in_off, in_rs, q0, L, chunks, tid);
     cp_async_arrive(blk.qfull());
-    for (int n = 0; n < 2 * HV * nt; ++n) {
-      const bool is_k = n < HV * nt;
-      const int j = is_k ? n / HV : (n - HV * nt) % nt;
-      const int cb = is_k ? n % HV : (n - HV * nt) / nt, stage = n % S;
+    for (int n = 0; n < 2 * P * nt; ++n) {
+      const bool is_k = n < P * nt;
+      const int j = is_k ? n / P : (n - P * nt) % nt;
+      const int cb = is_k ? n % P : (n - P * nt) / nt, stage = n % S;
       mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
       wgmma_copy_tile(blk.ring + stage * kWgmmaStage, (is_k ? k : v) + in_off, in_rs,
-                      j * kWgmmaKeys, cb, is_k ? DP / HV / 8 : 8 * NB, L, chunks, tid);
+                      j * kWgmmaKeys, cb,
+                      is_k ? wgmma_width<DP>(cb) / 8 : 8 * wgmma_vboxes<DP>(cb), L, chunks, tid);
       cp_async_arrive(blk.full(stage));
     }
     cp_async_wait_all();
@@ -755,19 +803,24 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const bool active = q0 + 64 * wg < L;  // a warpgroup wholly past L keeps the barriers only
   const uint32_t qw = blk.qs + wg * QB * kWgmmaBox;
-  WgmmaRing ring = blk.consumer_ring();
+  WgmmaRing<S> ring = blk.consumer_ring();
   mbar_wait_bounded(blk.qfull(), 0);
 
   // scores: s[j][4n + 2r + e] is row 16 warp + g + 8r against key 64 j + 8n + 2t + e;
-  // every tile's products issued before the first wait
+  // every tile's products issued before the first wait (kStream: the one
+  // before each in flight)
   float s[kTiles][32];
 #pragma unroll
   for (int j = 0; j < kTiles; ++j) {
     if (j < nt) {
 #pragma unroll
-      for (int dh = 0; dh < HV; ++dh) {  // columns 128 dh ..
+      for (int dh = 0; dh < P; ++dh) {  // columns 128 dh ..
         const uint32_t kst = ring.take();
         if (active) wgmma_scores<DP>(s[j], qw, kst, dh);
+        if constexpr (kStream) {
+          wgmma_wait<1>();
+          ring.release(ring.taken - 1);
+        }
       }
     }
   }
@@ -818,13 +871,13 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
       if (j < nt) wgmma_weights<false>(s[j], m, denom, inv, p[j]);
   }
 
-  // P V, one half of the output columns at a time, every tile's products
-  // issued before the wait: o[nb][4n + 2r + e] is row 16 warp + g + 8r,
-  // column 128 half + 64 nb + 8n + 2t + e
+  // P V, one piece of the output columns at a time (NB 64-column boxes),
+  // every tile's products issued before the wait: o[nb][4n + 2r + e] is row
+  // 16 warp + g + 8r, column 128 half + 64 nb + 8n + 2t + e
   TO* op = out + (long long)b * out_bs + (long long)h * D;
   const int row = q0 + 64 * wg + 16 * warp + g;
-#pragma unroll 1
-  for (int half = 0; half < HV; ++half) {
+  const auto pv_piece = [&](auto boxes, int half) {
+    constexpr int NB = decltype(boxes)::value;
     float o[NB][32];
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
@@ -838,8 +891,31 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(
     for (int nb = 0; nb < NB; ++nb) fence_operands(o[nb]);
     ring.release(ring.taken);
     if (active) wgmma_store<NB>(op, out_rs, row, L, D, 128 * half, o, t);
-  }
+  };
+  // the pieces of 128 columns in a loop, then the last where it is narrower
+  constexpr int kWhole = wgmma_width<DP>(P - 1) == 128 ? P : P - 1;
+#pragma unroll 1
+  for (int half = 0; half < kWhole; ++half) pv_piece(std::integral_constant<int, 2>(), half);
+  if constexpr (kWhole < P)
+    pv_piece(std::integral_constant<int, wgmma_vboxes<DP>(P - 1)>(), P - 1);
 }
+
+// The one-pass kernel up to depth 256 (attention_kernel_wgmma) and past it
+// (attention_kernel_wgmma_deep): the same code under names of their own, so
+// that the launch counts tell them apart
+template <typename TO, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(ESV_WGMMA_PARAMS) {
+  static_assert(DP <= 256, "past depth 256: attention_kernel_wgmma_deep");
+  wgmma_one_pass<TO, DP>(ESV_WGMMA_ARGS);
+}
+
+template <typename TO, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    attention_kernel_wgmma_deep(ESV_WGMMA_PARAMS) {
+  static_assert(DP > 256, "up to depth 256: attention_kernel_wgmma");
+  wgmma_one_pass<TO, DP>(ESV_WGMMA_ARGS);
+}
+
 
 // bf16 q, k, v at a head dim D of padded depth DP (D % 8 == 0, DP <= 128),
 // rows past 256 keys: a block of kWgmmaRows query rows, two passes over K
@@ -851,8 +927,8 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass
     int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
     float scale) {
   static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
-  static_assert(DP % 16 == 0 && DP <= 128, "padded depth");
-  constexpr int S = kWgmmaStages, QB = wgmma_qboxes<DP>(), NB = wgmma_vboxes<DP>();
+  static_assert(DP % 16 == 0 && DP <= 128, "padded depth: one piece");
+  constexpr int S = WgmmaBlock<DP>::S, QB = wgmma_qboxes<DP>(), NB = wgmma_vboxes<DP>(0);
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
   const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h, q0 = blk.q0;
@@ -879,7 +955,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const bool active = q0 + 64 * wg < L;  // a warpgroup wholly past L only takes stages
   const uint32_t qw = blk.qs + wg * QB * kWgmmaBox;
-  WgmmaRing ring = blk.consumer_ring();
+  WgmmaRing<S> ring = blk.consumer_ring();
   mbar_wait_bounded(blk.qfull(), 0);
   // a tile's scores: s[4n + 2r + e] is row 16 warp + g + 8r against key
   // 64 j + 8n + 2t + e, scaled and masked
@@ -948,8 +1024,11 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass
 
 #undef ESV_ACC32
 #undef ESV_ACC32_OPERANDS
+#undef ESV_WGMMA_PARAMS
+#undef ESV_WGMMA_ARGS
 
-// Whether the kernels above take a call at padded depth 256: rows of whole
+// Whether the kernels above take a call at a padded depth past 128 (bf16 at
+// every one, float32 at 256 only: launch_attention_padded): rows of whole
 // 16-byte chunks (D * sizeof(T) % 16 == 0, q, k, v and their strides 16-byte
 // aligned), an output written two elements at a time, and L past 16 (bf16:
 // up to kWgmmaMaxKeys)
@@ -973,14 +1052,17 @@ static cudaError_t wide_attribute() {
   });
 }
 
-// Kernel (attention_kernel_wgmma or attention_kernel_wgmma_2pass at depth
-// DP) on blocks of kWgmmaRows query rows, counted under `kind`
+// Kernel (attention_kernel_wgmma[_deep] or attention_kernel_wgmma_2pass at
+// depth DP) on blocks of kWgmmaRows query rows, counted under `kind`
 template <auto Kernel, int DP, typename TO>
 static cudaError_t launch_wgmma_kernel(AttnKernel kind, const __nv_bfloat16* q,
                                        const __nv_bfloat16* k, const __nv_bfloat16* v,
                                        const float* mask, TO* out, int B, int H, int L, int D,
                                        long long in_bs, long long in_rs, long long out_bs,
                                        long long out_rs, cudaStream_t stream) {
+  // bytes: 181,896 at depths 160-192, 198,280 at 224, 214,664 at 288, 231,048
+  // at 336-384 (8 stages), 231,032 at 448 (7), 231,016 at 512 (6)
+  static_assert(wgmma_smem_bytes<DP>() <= kPaddedSmemMax, "shared memory");
   const cudaError_t err = wide_attribute<Kernel, wgmma_smem_bytes<DP>()>();
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
@@ -991,15 +1073,21 @@ static cudaError_t launch_wgmma_kernel(AttnKernel kind, const __nv_bfloat16* q,
 
 // bf16 at a head dim D of padded depth DP, 16 < L <= kWgmmaMaxKeys, rows of
 // whole 16-byte chunks: one pass (launch_attention_dim at D = 72-128,
-// launch_attention_wide at 225-256)
+// launch_attention_wide at depths 160-512), past depth 256 as
+// attention_kernel_wgmma_deep
 template <int DP, typename TO>
 static cudaError_t launch_attention_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, const float* mask, TO* out,
                                           int B, int H, int L, int D, long long in_bs,
                                           long long in_rs, long long out_bs, long long out_rs,
                                           cudaStream_t stream) {
-  return launch_wgmma_kernel<attention_kernel_wgmma<TO, DP>, DP, TO>(
-      kAttnKernelWgmma, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
+  if constexpr (DP > 256)
+    return launch_wgmma_kernel<attention_kernel_wgmma_deep<TO, DP>, DP, TO>(
+        kAttnKernelWgmmaDeep, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
+        stream);
+  else
+    return launch_wgmma_kernel<attention_kernel_wgmma<TO, DP>, DP, TO>(
+        kAttnKernelWgmma, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
 // bf16 at a head dim D of padded depth DP <= 128, L > kWgmmaMaxKeys: two
@@ -1016,14 +1104,15 @@ static cudaError_t launch_attention_wgmma_2pass(const __nv_bfloat16* q, const __
       stream);
 }
 
-// attention_kernel_split_f32 (float32 q, k, v) or attention_kernel_wgmma
-// (bf16) on a call wide_takes
-template <typename T, typename TO>
+// On a call wide_takes at padded depth DP: attention_kernel_split_f32
+// (float32 q, k, v; DP = 256 only) or the one-pass wgmma kernel (bf16)
+template <int DP, typename T, typename TO>
 static cudaError_t launch_attention_wide(const T* q, const T* k, const T* v, const float* mask,
                                          TO* out, int B, int H, int L, int D, long long in_bs,
                                          long long in_rs, long long out_bs, long long out_rs,
                                          cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
+    static_assert(DP == kSplitDepth, "float32: attention_kernel_split_f32's depth alone");
     const cudaError_t err = wide_attribute<attention_kernel_split_f32<TO>, split_smem_bytes()>();
     if (err != cudaSuccess) return err;
     const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
@@ -1032,8 +1121,8 @@ static cudaError_t launch_attention_wide(const T* q, const T* k, const T* v, con
         q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale);
     return counted_launch(kAttnKernelSplitF32);
   } else {
-    return launch_attention_wgmma<256, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
-                                           out_rs, stream);
+    return launch_attention_wgmma<DP, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
+                                          out_rs, stream);
   }
 }
 

@@ -17,7 +17,10 @@
 // at 1024, 275 at 1100, 384 and 512 at 1536 and 2048) takes
 // attention_padded.cuh's kernels at its padded depth (ESV_K1_PAD_DEPTHS),
 // with the head dim a run-time argument: past 256 its deep kernels
-// (attention_kernel_deep_f32, attention_kernel_deep).
+// (attention_kernel_deep_f32, attention_kernel_deep); bf16 rows of whole
+// 16-byte chunks and 17-256 keys past depth 128 go to attention_wide.cuh's
+// attention_kernel_wgmma (160-256) and attention_kernel_wgmma_deep
+// (288-512).
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
@@ -28,8 +31,10 @@
 // rounded, exactly as the TPU kernel does: past 16 keys, at D <= 64 up to
 // 256 keys (the d 256 encoders) in one pass over K and V held whole in
 // shared memory (attention_kernel_onepass), at D = 72-128 up to 256 keys in
-// one pass on wgmma (attention_kernel_wgmma), and past 256 keys at every D
-// in two passes on wgmma (attention_kernel_wgmma_2pass); at L <= 16 one
+// one pass on wgmma (attention_kernel_wgmma; so too past depth 128 in rows
+// of whole 16-byte chunks, past 256 as attention_kernel_wgmma_deep), and
+// past 256 keys at every D in two passes on wgmma
+// (attention_kernel_wgmma_2pass); at L <= 16 one
 // warp's cp.async ring (attention_kernel).  float32 weights are not
 // rounded, and their softmax runs online.
 //
@@ -66,8 +71,8 @@
 // 2: attention_kernel_onepass, 3: attention_kernel_padded_f32, 4:
 // attention_kernel_padded, 5: attention_kernel_split_f32, 6:
 // attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass, 8:
-// attention_kernel_deep_f32, 9: attention_kernel_deep; null and -1 past the
-// last) and count the
+// attention_kernel_deep_f32, 9: attention_kernel_deep, 10:
+// attention_kernel_wgmma_deep; null and -1 past the last) and count the
 // launches of it that this library's entries have made since it was loaded:
 // which kernel a call takes is decided in launch_attention_dim and
 // launch_attention_padded alone, and the counts say which ran.

@@ -65,10 +65,12 @@
 //       256 keys and attention_kernel_wgmma_2pass past them;
 //       attention_wide.cuh at 256: attention_kernel_split_f32 for K2 and
 //       attention_kernel_wgmma for K3, attention_padded.cuh's kernels at 16
-//       keys or fewer; at 384 and 512 attention_padded.cuh's deep kernels,
-//       attention_kernel_deep_f32 for K2 and attention_kernel_deep for K3,
-//       at every length): on K2's float32 q, k, v both products in 3xTF32 on
-//       the tensor cores with an online softmax, the output written in the
+//       keys or fewer; at 384 and 512 attention_padded.cuh's deep kernel
+//       attention_kernel_deep_f32 for K2 at every length, for K3
+//       attention_wide.cuh's attention_kernel_wgmma_deep from 17 to 256 keys
+//       and attention_kernel_deep at the others): on K2's float32 q, k, v
+//       both products in 3xTF32 on the tensor cores with an online softmax,
+//       the output written in the
 //       weights' type; on K3's q, k, v in the weights' type (the QKV GEMM's
 //       epilogue rounds them) float32 tensor-core scores and a bf16
 //       tensor-core P V;
@@ -110,7 +112,7 @@
 //   int esv_block_attention(q, k, v, mask, out, B, H, L, D, in_batch_stride,
 //                            in_row_stride, out_batch_stride, out_row_stride,
 //                            dtype, out_dtype, stream)
-// is the blocks' attention alone (launch_block_attention, D 128, 256, 384 or
+// is the blocks' attention alone (block_attention, D 128, 256, 384 or
 // 512), with esv_attention's arguments (fused_attention.cu): K2's on float32 q, k,
 // v from the (B, L, 3d) buffer, K3's on bf16 (dtype 1), timed apart by
 // chip_smoke.py and measure/attention_variants.py.
@@ -120,7 +122,8 @@
 // attention_kernel_f32, 1 attention_kernel, 3 attention_kernel_padded_f32,
 // 4 attention_kernel_padded, 5 attention_kernel_split_f32, 6
 // attention_kernel_wgmma, 7 attention_kernel_wgmma_2pass, 8
-// attention_kernel_deep_f32, 9 attention_kernel_deep) and count the launches
+// attention_kernel_deep_f32, 9 attention_kernel_deep, 10
+// attention_kernel_wgmma_deep) and count the launches
 // of it that this library's blocks and esv_block_attention have made since
 // it was loaded.
 // H is d / 128, d / 256, d / 384 or d / 512 (the attention's head dims: the
@@ -144,6 +147,69 @@
 namespace esv {
 
 using bf16 = __nv_bfloat16;
+
+// K2's and K3's attention at head dim D (attention_padded.cuh:
+// launch_block_attention): defined and instantiated for the blocks' three
+// type pairs in the translation unit of D (ops/_build.py:
+// BLOCK_ATTENTION_DIMS, -DESV_BLOCK_HEAD_DIM=<D>), so that each head dim's
+// attention kernels compile beside the rest of the library, not after it
+template <int D, typename T, typename TO>
+cudaError_t block_attention_at(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                               int B, int H, int L, long long in_bs, long long in_rs,
+                               long long out_bs, long long out_rs, cudaStream_t stream);
+
+}  // namespace esv
+
+#ifdef ESV_BLOCK_HEAD_DIM
+
+namespace esv {
+
+template <int D, typename T, typename TO>
+cudaError_t block_attention_at(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                               int B, int H, int L, long long in_bs, long long in_rs,
+                               long long out_bs, long long out_rs, cudaStream_t stream) {
+  return launch_block_attention<D, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                          out_rs, stream);
+}
+
+#define ESV_AT(T, TO)                                                                          \
+  template cudaError_t block_attention_at<ESV_BLOCK_HEAD_DIM, T, TO>(                          \
+      const T*, const T*, const T*, const float*, TO*, int, int, int, long long, long long,    \
+      long long, long long, cudaStream_t);
+ESV_AT(float, float)
+ESV_AT(float, bf16)
+ESV_AT(bf16, bf16)
+#undef ESV_AT
+
+}  // namespace esv
+
+#else
+
+namespace esv {
+
+// The blocks' attention at head dim D, one of block_head_dim's (each in its
+// own unit); any other D returns cudaErrorInvalidValue
+template <typename T, typename TO>
+static cudaError_t block_attention(const T* q, const T* k, const T* v, const float* mask, TO* out,
+                                   int B, int H, int L, int D, long long in_bs, long long in_rs,
+                                   long long out_bs, long long out_rs, cudaStream_t stream) {
+  static_assert(kAttnMaxHeadDim == 512, "the multiples of 128 below");
+  switch (D) {
+    case 128:
+      return block_attention_at<128, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                            out_rs, stream);
+    case 256:
+      return block_attention_at<256, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                            out_rs, stream);
+    case 384:
+      return block_attention_at<384, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                            out_rs, stream);
+    case 512:
+      return block_attention_at<512, T, TO>(q, k, v, mask, out, B, H, L, in_bs, in_rs, out_bs,
+                                            out_rs, stream);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // ---- (a) GEMM: C[m, n] = act(sum_k round_W(A[m, k]) * W[n, k] + bias[n]) ----
 
@@ -898,8 +964,8 @@ cudaError_t encoder_block(const TX* x, const float* mask, const TW* w_qkv, const
   // heads read q, k and v straight out of the (B, L, 3d) projection buffer;
   // the output is rounded to the weights' type, the out projection's rounding
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_block_attention<float, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L,
-                                               d / H, qkv_bs, qkv_rs, (long long)L * d, d, s)))
+  if ((err = block_attention<float, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
+                                        qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
   if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
@@ -930,8 +996,8 @@ cudaError_t encoder_block_tiled(const TX* x, const float* mask, const TW* w_qkv,
   // ceil(3 M d / 32) words, within M d for M >= 8)
   if ((err = qkv_gemm<true>(x, x1w, x1, w_qkv, b_qkv, qkv, M, d, proj, s))) return err;
   const long long qkv_bs = (long long)L * 3 * d, qkv_rs = 3 * d;
-  if ((err = launch_block_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
-                                            qkv_bs, qkv_rs, (long long)L * d, d, s)))
+  if ((err = block_attention<TW, TW>(qkv, qkv + d, qkv + 2 * d, mask, attn, B, H, L, d / H,
+                                     qkv_bs, qkv_rs, (long long)L * d, d, s)))
     return err;
   if ((err = gemm<TW, float, false>(attn, w_o, wd, b_o, proj, M, d, d, s))) return err;
   if ((err = layernorm<TX, float, TW>(x, proj, ln1_s, ln1_b, x1, x1_copy, M, d, s))) return err;
@@ -1041,10 +1107,10 @@ extern "C" int esv_block_attention(const void* q, const void* k, const void* v, 
   using esv::bf16;
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ESV_BLOCK_ATTENTION(T, TO)                                                              \
-  return esv::launch_block_attention<T, TO>(static_cast<const T*>(q), static_cast<const T*>(k), \
-                                            static_cast<const T*>(v), m, static_cast<TO*>(out), \
-                                            B, H, L, D, in_bs, in_rs, out_bs, out_rs, s)
+#define ESV_BLOCK_ATTENTION(T, TO)                                                         \
+  return esv::block_attention<T, TO>(static_cast<const T*>(q), static_cast<const T*>(k),   \
+                                     static_cast<const T*>(v), m, static_cast<TO*>(out), B, \
+                                     H, L, D, in_bs, in_rs, out_bs, out_rs, s)
   if (dtype == esv::kFloat32 && out_dtype == esv::kFloat32) { ESV_BLOCK_ATTENTION(float, float); }
   if (dtype == esv::kFloat32 && out_dtype == esv::kBFloat16) { ESV_BLOCK_ATTENTION(float, bf16); }
   if (dtype == esv::kBFloat16 && out_dtype == esv::kBFloat16) { ESV_BLOCK_ATTENTION(bf16, bf16); }
@@ -1059,3 +1125,5 @@ extern "C" const char* esv_block_attention_kernel(int i) {
 extern "C" long long esv_block_attention_launches(int i) {
   return i >= 0 && i < esv::kAttnKernels ? esv::attention_launches()[i].load() : -1;
 }
+
+#endif

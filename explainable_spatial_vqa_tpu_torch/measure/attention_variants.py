@@ -4,7 +4,7 @@ on the card.
 
     python -m explainable_spatial_vqa_tpu_torch.measure.attention_variants
         [--rounds 6] [--iters 20] [--variants ring,warps8,...]
-        [--against LABEL=CSRC_DIR]
+        [--kinds onepass,wide,past128] [--against LABEL=CSRC_DIR]
 
 Each variant asks one question of a shipped kernel (``VARIANTS``).  Of K1's
 bf16 kernels at head dims up to 128 (``csrc/attention.cuh``'s one-pass
@@ -63,10 +63,19 @@ alone):
   barriers only (wrong numbers: the producers alone);
 * ``wgmma_stages4``: the bf16 kernel's ring at 4 stages of 16 KB, not 8.
 
-``--against LABEL=CSRC_DIR`` adds the libraries of the kinds asked for,
-built from another ``csrc/`` (the parent commit's, unpacked by ``git
-archive``) with the same flags, under LABEL: a change to the kernels timed
-against what it replaces in one process.
+Of the one-pass wgmma kernels at the padded depths past 128
+(``attention_kernel_wgmma`` at 160-224, ``attention_kernel_wgmma_deep`` at
+288-512; timed at ``PAST128_CASES`` through the ``fused_attention``
+library's ``esv_attention``, beside ``scaled_dot_product_attention`` on the
+same inputs in every round, each case's bound printed):
+
+* ``wgmma_stages6``: the ring at 6 stages of 16 KB at every depth (8 up to
+  depth 384, 7 at 448 and 6 at 512 as shipped): what fewer stages cost.
+
+``--against LABEL=CSRC_DIR`` adds the libraries of the kinds asked for
+(``--kinds``, all by default), built from another ``csrc/`` (the parent
+commit's, unpacked by ``git archive``) with the same flags, under LABEL: a
+change to the kernels timed against what it replaces in one process.
 
 The variants compile in parallel into ``_build/attention_variants/``, and
 ptxas's notes on wgmma it serialised are printed for each library.  Each
@@ -93,8 +102,8 @@ from explainable_spatial_vqa_tpu_torch.device import card_line, resolve_device
 from explainable_spatial_vqa_tpu_torch.measure.variants import Edit, build_variants, mean_ms
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
-__all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "ONEPASS_CASES", "WGMMA_CASES",
-           "WIDE_CASES", "main"]
+__all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "PAST128_VARIANTS", "ONEPASS_CASES",
+           "WGMMA_CASES", "WIDE_CASES", "PAST128_CASES", "main"]
 
 # label, head dim, B, L, ragged key mask; H = 4, bf16
 ONEPASS_CASES = (("transformer_iqap encoder", 64, 512, 243, False),
@@ -127,6 +136,13 @@ WIDE_CASES = (("K1 bf16 L=208", "K1", "bf16", "bf16", 128, 208),
               ("K2 attention fp32 L=210, bf16 out", "block", "fp32", "bf16", 128, 210),
               ("K3 attention bf16 L=224", "block", "bf16", "bf16", 128, 224))
 HEADS, WIDE_DIM = 4, 256
+# the rows the one-pass wgmma kernels took from the padded and deep kernels
+# past depth 128: label, layout (as WIDE_CASES), head dim, B, L, ragged key
+# mask; H = 4, bf16: the executor's fusion layers at d_model 768 and 1280,
+# K3's attention at d_model 2048 (the block bench's rows)
+PAST128_CASES = (("d 768 encoder", "K1", 192, 128, 208, True),
+                 ("d 1280 encoder", "K1", 320, 128, 208, True),
+                 ("K3 attention d 2048", "block", 512, 128, 224, False))
 
 _DIV = ("          p[n][r] = pack_bf16x2(div_by(s[kt][n][2 * r], denom[r], inv[r]),\n"
         "                                div_by(s[kt][n][2 * r + 1], denom[r], inv[r]));\n")
@@ -184,7 +200,8 @@ ONEPASS_VARIANTS: Dict[str, Sequence[Edit]] = {
                      "a warpgroup wholly past L only takes stages")),
 }
 WIDE_VARIANTS: Dict[str, Sequence[Edit]] = {
-    "padded": (("attention_padded.cuh", "  if constexpr (DP == 256) {\n",
+    "padded": (("attention_padded.cuh",
+                "  if constexpr (DP > 128 && (DP == 256 || !std::is_same<T, float>::value)) {\n",
                 "  if constexpr (false) {\n"),),
     "full_depth_scores": (
         ("attention_wide.cuh", "kh + kSplitPlane, 16 * half, 16 * half + 16, s);",
@@ -210,7 +227,11 @@ WIDE_VARIANTS: Dict[str, Sequence[Edit]] = {
     "wgmma_stages4": (("attention_wide.cuh", "constexpr int kWgmmaStages = 8;",
                        "constexpr int kWgmmaStages = 4;"),),
 }
-VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS}
+PAST128_VARIANTS: Dict[str, Sequence[Edit]] = {
+    "wgmma_stages6": (("attention_wide.cuh", "constexpr int kWgmmaStages = 8;",
+                       "constexpr int kWgmmaStages = 6;"),),
+}
+VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS, **PAST128_VARIANTS}
 
 _TYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -258,6 +279,46 @@ def _wide_inputs(dev: torch.device):
     return out
 
 
+def _past128_inputs(dev: torch.device):
+    """[(label, (q, k, v, mask, out type))] at ``PAST128_CASES``, from seed
+    3: bf16 q, k, v as (B, L, H * D) views (``ops.fused_attention.call_rows``)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = []
+    for label, layout, d_head, b, length, masked in PAST128_CASES:
+        q, k, v = _rows(gen, dev, layout, b, length, HEADS * d_head, torch.bfloat16)
+        out.append((label, (q, k, v, _ragged(gen, dev, b, length) if masked else None,
+                            torch.bfloat16)))
+    return out
+
+
+def _sdpa_call():
+    """``scaled_dot_product_attention`` as a library's call: on (B, H, L, D)
+    copies of q, k and v made once per input; its (B, H, L, D) output."""
+    import torch.nn.functional as F
+
+    heads = {}
+
+    def call(q, k, v, mask, out_dtype):
+        if id(q) not in heads:
+            b, length, d = q.shape
+            heads[id(q)] = [t.reshape(b, length, HEADS, d // HEADS).transpose(1, 2).contiguous()
+                            for t in (q, k, v)]
+        return F.scaled_dot_product_attention(*heads[id(q)], attn_mask=mask)
+
+    return call
+
+
+def _bound_ms(q, mask) -> float:
+    """The least time of a bf16 attention call on the card: the larger of its
+    4 L^2 D operations a head at the bf16 rate and its bytes (q, k, v and
+    the output, and the mask, each moved once) at the memory rate."""
+    from explainable_spatial_vqa_tpu_torch.device import PEAK_BYTES, PEAK_OPS
+
+    b, length, d = q.shape
+    nbytes = 4 * b * length * d * 2 + (b * length * 4 if mask is not None else 0)
+    return 1e3 * max(4.0 * b * length * length * d / PEAK_OPS["bf16"], nbytes / PEAK_BYTES)
+
+
 def _plain(q, k, v, mask, out_dtype):
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
 
@@ -271,6 +332,8 @@ def main(argv: Sequence[str] = ()) -> dict:
     parser.add_argument("--rounds", type=int, default=6)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--variants", default=",".join(VARIANTS))
+    parser.add_argument("--kinds", default="onepass,wide,past128",
+                        help="the kinds of cases timed (their libraries built for --against)")
     parser.add_argument("--against", default="",
                         help="LABEL=CSRC_DIR: the libraries built from that csrc/ too")
     args = parser.parse_args(list(argv))
@@ -284,11 +347,13 @@ def main(argv: Sequence[str] = ()) -> dict:
 
     out_dir = _build.BUILD_DIR / "attention_variants"
     against, _, tree = args.against.partition("=")
-    kinds = {"onepass": [n for n in names if n in ONEPASS_VARIANTS],
-             "wide": [n for n in names if n in WIDE_VARIANTS]}
     libraries = {"onepass": ("fused_attention", ONEPASS_VARIANTS, "esv_attention"),
-                 "wide": ("fused_block", WIDE_VARIANTS, "esv_block_attention")}
+                 "wide": ("fused_block", WIDE_VARIANTS, "esv_block_attention"),
+                 "past128": ("fused_attention", PAST128_VARIANTS, "esv_attention")}
+    kinds = {kind: [n for n in names if n in libraries[kind][1]]
+             for kind in args.kinds.split(",") if kind}
     calls: Dict[str, Dict[str, object]] = {}
+    built_against: Dict[str, ctypes.CDLL] = {}  # by library: two kinds may share one
     for kind, chosen in kinds.items():
         if not chosen and not args.against:
             continue
@@ -296,10 +361,12 @@ def main(argv: Sequence[str] = ()) -> dict:
         libs = {"shipped": _build.load(library)}
         logs = {"shipped": (_build.BUILD_DIR / f"{library}.log").read_text()}
         also = ({against: (library, out_dir / f"{against}-{library}.so", Path(tree))}
-                if args.against else None)
+                if args.against and library not in built_against else None)
         for name, (path, log) in build_variants(library, variants, chosen, out_dir,
                                                 also=also).items():
             libs[name], logs[name] = ctypes.CDLL(str(path)), log
+        if args.against:
+            libs[against] = built_against.setdefault(library, libs.get(against))
         for name, log in logs.items():  # ptxas's notes on wgmma it serialised, and why
             notes = sorted({line.split("Potential Performance Loss: ")[-1].strip()
                             for line in log.splitlines() if "serialized" in line})
@@ -309,15 +376,18 @@ def main(argv: Sequence[str] = ()) -> dict:
             calls.setdefault(name, {})[kind] = (
                 lambda q, k, v, mask, out_dtype, fn=bind_entry(lib, entry): call_rows(
                     fn, q, k, v, mask, HEADS, out_dtype))
+        if kind == "past128":
+            calls.setdefault("scaled_dot_product_attention", {})[kind] = _sdpa_call()
     if not calls:
         raise ValueError("nothing to time: name a variant or --against")
-    cases = {"onepass": _onepass_inputs(dev) if "onepass" in calls["shipped"] else [],
-             "wide": _wide_inputs(dev) if "wide" in calls["shipped"] else []}
+    inputs = {"onepass": _onepass_inputs, "wide": _wide_inputs, "past128": _past128_inputs}
+    cases = {kind: inputs[kind](dev) if kind in calls["shipped"] else [] for kind in inputs}
     errors: Dict[str, Dict[str, float]] = {name: {} for name in calls}
     for name, by_kind in calls.items():
         for kind, call in by_kind.items():
             for case, args_ in cases[kind]:
                 out, ref = call(*args_), _plain(*args_)
+                out = out.transpose(1, 2).reshape(ref.shape) if out.dim() == 4 else out
                 errors[name][case] = float((out.float() - ref.float()).abs().max())
     times: Dict[str, Dict[str, List[float]]] = {
         label: {name: [] for kind in by_kind for name, _ in cases[kind]}
@@ -336,6 +406,10 @@ def main(argv: Sequence[str] = ()) -> dict:
         print(f"{label}: " + "; ".join(
             f"{name} {v['ms']:.4f} ms, max_abs_err {v['max_abs_err']:.3g} against the plain "
             f"version" for name, v in result[label].items()), flush=True)
+    bounds = {case: _bound_ms(args_[0], args_[3]) for case, args_ in cases["past128"]}
+    if bounds:
+        print("bounds: " + "; ".join(f"{case} {ms:.4f} ms" for case, ms in bounds.items()),
+              flush=True)
     return emit_json(dict(card=card_line(dev), rounds=args.rounds, iters=args.iters,
                           onepass_cases=[dict(label=c[0], D=c[1], B=c[2], L=c[3], ragged=c[4],
                                               H=HEADS) for c in ONEPASS_CASES],
@@ -344,6 +418,9 @@ def main(argv: Sequence[str] = ()) -> dict:
                           wide_cases=[dict(label=c[0], layout=c[1], type=c[2], out=c[3], B=c[4],
                                            L=c[5], H=HEADS, D=WIDE_DIM, ragged=True)
                                       for c in WIDE_CASES],
+                          past128_cases=[dict(label=c[0], layout=c[1], D=c[2], B=c[3], L=c[4],
+                                              H=HEADS, ragged=c[5], bound_ms=bounds.get(c[0]))
+                                         for c in PAST128_CASES],
                           variants=result))
 
 

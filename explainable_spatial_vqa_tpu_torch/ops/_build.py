@@ -2,11 +2,13 @@
 
 Each library is one shared object with a plain C interface,
 ``_build/<name>-<hash>.so`` inside the package (the directory is gitignored),
-built from its translation units (:func:`units`): ``csrc/<name>.cu`` alone,
-or, for K1's ``fused_attention``, its C entries plus one unit per group of
+built from its translation units (:func:`units`): ``csrc/<name>.cu`` alone;
+for K1's ``fused_attention``, its C entries plus one unit per group of
 head dims (:data:`K1_DIM_GROUPS`) and one per group of padded depths
-(:data:`K1_PAD_GROUPS`), each compiled by its own ``nvcc`` process and linked
-into the one library.  The hash covers every unit's source and
+(:data:`K1_PAD_GROUPS`); for K2's and K3's ``fused_block``, its GEMMs,
+blocks and C entries plus one unit per head dim of their attention
+(:data:`BLOCK_ATTENTION_DIMS`); each compiled by its own ``nvcc`` process
+and linked into the one library.  The hash covers every unit's source and
 flags, the headers in ``csrc/`` and the compiler flags, so an edited source
 builds anew and an unchanged one loads at once.  Every unit of every library
 being built compiles at once, in parallel.  Nothing is compiled when a
@@ -26,7 +28,8 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Sequence, Tuple
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "K1_DIM_GROUPS", "K1_PAD_GROUPS", "units",
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "K1_DIM_GROUPS", "K1_PAD_GROUPS",
+           "BLOCK_ATTENTION_DIMS", "units",
            "build", "compile_libraries", "load", "bind_entry", "entry", "launch_counters", "check"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -55,6 +58,10 @@ K1_DIM_GROUPS = ((8, 128), (16, 120), (24, 112), (32, 104), (40, 96), (48, 88), 
 # together; past 256 the deep kernels, two or one to a unit
 K1_PAD_GROUPS = ((16, 256), (32, 224), (48, 192), (64, 160), (80, 128), (96, 112), (288, 512),
                  (336, 448), (384,))
+# K2's and K3's attention at their head dims (``ops.fused_block.BLOCK_HEAD_DIMS``),
+# one unit of ``fused_block.cu`` each, compiled with -DESV_BLOCK_HEAD_DIM: in
+# one unit with the GEMMs they were the build's longest process
+BLOCK_ATTENTION_DIMS = (128, 256, 384, 512)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -67,6 +74,9 @@ def units(name: str) -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
             ("fused_attention.cu", tuple(f"-DESV_{what}_{ab}={d}" for ab, d in zip("AB", group)))
             for what, groups in (("HEAD_DIM", K1_DIM_GROUPS), ("PAD_DEPTH", K1_PAD_GROUPS))
             for group in groups)
+    if name == "fused_block":
+        return (("fused_block.cu", ()),) + tuple(
+            ("fused_block.cu", (f"-DESV_BLOCK_HEAD_DIM={d}",)) for d in BLOCK_ATTENTION_DIMS)
     return ((f"{name}.cu", ()),)
 
 

@@ -205,9 +205,11 @@ def kernel_launches() -> Dict[str, int]:
     ``attention_kernel_deep`` (every other head dim past it), and on
     ``csrc/attention_wide.cuh`` ``attention_kernel_split_f32`` (float32 at
     padded depth 256),
-    ``attention_kernel_wgmma`` (bf16 up to 256 keys at head dims 72-128 and
-    at padded depth 256) and ``attention_kernel_wgmma_2pass`` (bf16 past 256
-    keys at the head dims of :data:`EXACT_HEAD_DIMS`).  Which one
+    ``attention_kernel_wgmma`` (bf16 of 17-256 keys at head dims 72-128 and,
+    where rows are whole 16-byte chunks, at padded depths 160-256),
+    ``attention_kernel_wgmma_deep`` (the same at padded depths 288-512) and
+    ``attention_kernel_wgmma_2pass`` (bf16 past 256 keys at the head dims of
+    :data:`EXACT_HEAD_DIMS`).  Which one
     a call takes is decided in ``launch_attention_dim``
     (``csrc/attention.cuh``) and
     ``launch_attention_padded`` (``csrc/attention_padded.cuh``) alone; the

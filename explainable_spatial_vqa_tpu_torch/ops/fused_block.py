@@ -354,7 +354,8 @@ def kernel_launches() -> Dict[str, int]:
     (K2, float32 q/k/v, past 16 keys), ``attention_kernel_wgmma`` (K3, bf16,
     17-256 keys) and ``attention_kernel_padded_f32`` and
     ``attention_kernel_padded`` for the rest, at 384 and 512
-    ``attention_kernel_deep_f32`` (K2) and ``attention_kernel_deep`` (K3)
+    ``attention_kernel_deep_f32`` (K2), ``attention_kernel_wgmma_deep`` (K3,
+    17-256 keys) and ``attention_kernel_deep`` (K3's other lengths)
     (``launch_block_attention`` in ``csrc/attention_padded.cuh`` picks).
     Needs the library (a card and ``nvcc``)."""
     names, count = _launch_counters()

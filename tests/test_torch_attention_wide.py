@@ -22,9 +22,10 @@ Also: ``chip_smoke``'s mirrors of the C routing (``k1_kernel``,
 exactly where ``launch_attention_dim`` (the head dims 8-128: the one-pass
 kernels up to ``kOnePassKeys`` keys, ``attention_kernel_wgmma`` past head
 dim 64, ``attention_kernel_wgmma_2pass`` past ``kOnePassKeys`` keys) and
-``launch_attention_padded`` (every other head dim, the wide kernels at
-padded depth 256) send calls, checked against the names and limits parsed
-from the C sources.
+``launch_attention_padded`` (every other head dim: the wide kernels past
+padded depth 128, bf16 on ``attention_kernel_wgmma`` up to depth 256 and
+``attention_kernel_wgmma_deep`` past it, float32 at depth 256 alone) send
+calls, checked against the names and limits parsed from the C sources.
 """
 
 import os
@@ -166,33 +167,49 @@ def _names():
 
 
 def _wide_rule():
-    """The limits of wide_takes and the kernel each branch of
-    launch_attention_wide counts (the bf16 one through launch_attention_wgmma
-    at depth 256), parsed from attention_wide.cuh; and attention_padded.cuh's
-    route to them at padded depth 256 only."""
+    """The limits of wide_takes, the kernel each branch of
+    launch_attention_wide counts (the bf16 one through launch_attention_wgmma)
+    and the depths where attention_padded.cuh routes to it (bf16 past depth
+    128, float32 at 256 alone), parsed from the sources."""
     takes = re.search(r"static bool wide_takes\(.*?\{(.*?)\n\}", WIDE, re.S).group(1)
     assert "L > 16" in takes and "L <= kWgmmaMaxKeys" in takes
     assert "(D * sizeof(T)) % 16 == 0" in takes
     max_keys = int(_constant("kWgmmaMaxKeys"))
     launch = re.search(r"launch_attention_wide\(.*?\n\}", WIDE, re.S).group(0)
     counted = set(re.findall(r"counted_launch\((\w+)\)", launch))
-    if re.search(r"return launch_attention_wgmma<256, TO>\(", launch):
-        counted |= _wgmma_counts()["launch_attention_wgmma"]
+    assert "static_assert(DP == kSplitDepth" in launch and int(_constant("kSplitDepth")) == 256
+    if re.search(r"return launch_attention_wgmma<DP, TO>\(", launch):
+        counted |= set(_wgmma_counts()["launch_attention_wgmma"].values())
     padded = (_build.CSRC_DIR / "attention_padded.cuh").read_text()
-    assert re.search(r"if constexpr \(DP == 256\) \{\s*if \(wide_takes<T, TO>", padded)
+    assert re.search(r"if constexpr \(DP > 128 && \(DP == 256 \|\| !std::is_same<T, float>::value\)\)"
+                     r" \{\s*if \(wide_takes<T, TO>", padded)
     return max_keys, counted
 
 
 def _wgmma_counts():
-    """{launcher: the AttnKernel it counts} for attention_wide.cuh's bf16
-    launchers, each a launch_wgmma_kernel of its kernel function"""
+    """{launcher: {kernel function: the AttnKernel it counts}} for
+    attention_wide.cuh's bf16 launchers, each a launch_wgmma_kernel of its
+    kernel functions (launch_attention_wgmma: attention_kernel_wgmma up to
+    the depth it parses, attention_kernel_wgmma_deep past it)"""
     out = {}
-    for launcher, kernel in (("launch_attention_wgmma", "attention_kernel_wgmma"),
-                             ("launch_attention_wgmma_2pass", "attention_kernel_wgmma_2pass")):
+    for launcher, kernels in (("launch_attention_wgmma",
+                               ("attention_kernel_wgmma_deep", "attention_kernel_wgmma")),
+                              ("launch_attention_wgmma_2pass", ("attention_kernel_wgmma_2pass",))):
         body = re.search(rf"static cudaError_t {launcher}\(.*?\n\}}", WIDE, re.S).group(0)
-        found = re.search(rf"launch_wgmma_kernel<{kernel}<TO, DP>,[^>]*>\(\s*(\w+),", body)
-        out[launcher] = {found.group(1)}
+        out[launcher] = {}
+        for kernel in kernels:
+            found = re.search(rf"launch_wgmma_kernel<{kernel}<TO, DP>,[^>]*>\(\s*(\w+),", body)
+            out[launcher][kernel] = found.group(1)
     return out
+
+
+def _deep_depth():
+    """The depth past which launch_attention_wgmma launches
+    attention_kernel_wgmma_deep, parsed from attention_wide.cuh."""
+    body = re.search(r"static cudaError_t launch_attention_wgmma\(.*?\n\}", WIDE, re.S).group(0)
+    found = re.search(r"if constexpr \(DP > (\d+)\)\s*return launch_wgmma_kernel<"
+                      r"attention_kernel_wgmma_deep<TO, DP>", body)
+    return int(found.group(1))
 
 
 def _dim_rule():
@@ -220,19 +237,25 @@ def test_routing_mirrors_name_the_c_kernels():
     up to 16 keys, the one-pass kernel up to kOnePassKeys at head dims up to
     64 and attention_kernel_wgmma past them, attention_kernel_wgmma_2pass
     past kOnePassKeys; float32 attention_kernel_f32), elsewhere the
-    head-dim-256 ones exactly where wide_takes sends a call (rows of whole
-    16-byte chunks past 16 keys at padded depth 256, bf16 up to
-    kWgmmaMaxKeys) and the padded ones otherwise (past 256 the deep ones);
-    K2's and K3's attention at head dims 128, 256, 384 and 512 as K1's."""
+    attention_wide.cuh ones exactly where wide_takes sends a call (rows of
+    whole 16-byte chunks past 16 keys: bf16 up to kWgmmaMaxKeys at every
+    padded depth past 128, attention_kernel_wgmma up to depth 256 and
+    attention_kernel_wgmma_deep past it; float32 at padded depth 256 alone)
+    and the padded ones otherwise (past 256 the deep ones); K2's and K3's
+    attention at head dims 128, 256, 384 and 512 as K1's."""
     names = _names()
     max_keys, counted = _wide_rule()
     one_pass_keys, onepass_dims = _dim_rule()
     split, wgmma = names["kAttnKernelSplitF32"], names["kAttnKernelWgmma"]
-    two_pass = names["kAttnKernelWgmma2Pass"]
-    assert counted == {"kAttnKernelSplitF32", "kAttnKernelWgmma"}
-    assert _wgmma_counts()["launch_attention_wgmma_2pass"] == {"kAttnKernelWgmma2Pass"}
-    assert (split, wgmma, two_pass) == (chip_smoke.SPLIT_F32, chip_smoke.WGMMA,
-                                        chip_smoke.WGMMA_2PASS)
+    wgmma_deep, two_pass = names["kAttnKernelWgmmaDeep"], names["kAttnKernelWgmma2Pass"]
+    assert counted == {"kAttnKernelSplitF32", "kAttnKernelWgmma", "kAttnKernelWgmmaDeep"}
+    assert _wgmma_counts() == {
+        "launch_attention_wgmma": {wgmma_deep: "kAttnKernelWgmmaDeep", wgmma: "kAttnKernelWgmma"},
+        "launch_attention_wgmma_2pass": {two_pass: "kAttnKernelWgmma2Pass"}}
+    deep_depth = _deep_depth()
+    assert deep_depth == 256
+    assert (split, wgmma, wgmma_deep, two_pass) == (chip_smoke.SPLIT_F32, chip_smoke.WGMMA,
+                                                    chip_smoke.WGMMA_DEEP, chip_smoke.WGMMA_2PASS)
     assert (one_pass_keys, onepass_dims) == (max_keys, 64)
 
     def exact_bf16(d, length):
@@ -243,10 +266,12 @@ def test_routing_mirrors_name_the_c_kernels():
         return names["kAttnKernelOnePass"] if d <= onepass_dims else wgmma
 
     lengths = (1, 8, 16, 17, 64, 208, 224, max_keys, max_keys + 1, 1025, 4096)
+    routed = {}  # the new kernels' padded depths, each seen
     for d in range(1, 513):
         exact = d % 8 == 0 and d <= 128
+        depth = padded_depth(d)
         for length in lengths:
-            for kind, esize, new in (("bf16", 2, wgmma), ("fp32", 4, split)):
+            for kind, esize in (("bf16", 2), ("fp32", 4)):
                 got = chip_smoke.k1_kernel(d, length, kind)
                 assert got in names.values(), (d, length, kind, got)
                 if kind == "bf16":
@@ -255,12 +280,19 @@ def test_routing_mirrors_name_the_c_kernels():
                     assert got == (exact_bf16(d, length) if kind == "bf16"
                                    else names["kAttnKernelF32"]), (d, length, kind, got)
                     continue
-                wide = (padded_depth(d) == 256 and d * esize % 16 == 0
-                        and length > 16 and (kind == "fp32" or length <= max_keys))
+                wide = (depth > 128 and d * esize % 16 == 0 and length > 16
+                        and (depth == 256 if kind == "fp32" else length <= max_keys))
+                new = (split if kind == "fp32" else wgmma_deep if depth > deep_depth else wgmma)
                 assert (got == new) == wide, (d, length, kind, got)
-                if not wide:
+                if wide:
+                    routed.setdefault(got, set()).add(depth)
+                else:
                     padded = "kAttnKernelDeep" if d > 256 else "kAttnKernelPadded"
                     assert got == names[padded + ("" if kind == "bf16" else "F32")]
+    assert routed == {split: {256}, wgmma: {160, 192, 224, 256},
+                      wgmma_deep: {288, 336, 384, 448, 512}}
+    assert set(chip_smoke.WGMMA_DEPTHS) == {80, 96, 112, 128} | routed[wgmma]
+    assert set(chip_smoke.WGMMA_DEEP_DEPTHS) == routed[wgmma_deep]
     for length in lengths:
         assert chip_smoke.block_attention_kernel(128, length, "fp32") == names["kAttnKernelF32"]
         assert chip_smoke.block_attention_kernel(128, length, "bf16") == exact_bf16(128, length)

@@ -144,6 +144,24 @@ def test_source_and_build_name_the_same_head_dims(monkeypatch):
     assert _build._library_path("fused_attention") != before
 
 
+def test_block_attention_compiles_a_unit_per_head_dim():
+    """K2's and K3's attention compiles in a unit of ``fused_block.cu`` per
+    head dim (``_build.BLOCK_ATTENTION_DIMS``, ``BLOCK_HEAD_DIMS``), each
+    instantiating ``block_attention_at`` for the blocks' three type pairs,
+    and the library's ``block_attention`` picks among exactly those; the
+    main unit holds the rest."""
+    assert _build.BLOCK_ATTENTION_DIMS == BLOCK_HEAD_DIMS
+    assert _build.units("fused_block") == (("fused_block.cu", ()),) + tuple(
+        ("fused_block.cu", (f"-DESV_BLOCK_HEAD_DIM={d}",)) for d in BLOCK_HEAD_DIMS)
+    source = (_build.CSRC_DIR / "fused_block.cu").read_text()
+    unit = source.split("#ifdef ESV_BLOCK_HEAD_DIM", 1)[1].split("\n#else\n", 1)[0]
+    assert re.findall(r"^ESV_AT\((\w+), (\w+)\)$", unit, re.M) == [
+        ("float", "float"), ("float", "bf16"), ("bf16", "bf16")]
+    picked = re.search(r"static cudaError_t block_attention\(.*?\n\}", source, re.S).group(0)
+    cases = re.findall(r"case (\d+):\s*return block_attention_at<(\d+), T, TO>", picked)
+    assert all(a == b for a, b in cases) and tuple(int(a) for a, _ in cases) == BLOCK_HEAD_DIMS
+
+
 @pytest.mark.parametrize("head_dim", [8, 16, 24, 32, 48, 64, 96])
 @pytest.mark.parametrize("length", [8, 208, 243])
 @pytest.mark.parametrize("masked", [False, True])
