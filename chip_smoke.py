@@ -27,7 +27,9 @@ result:
    with HMMA, ``attention_kernel_wgmma`` with HGMMA) on a line of their own;
    the deep kernels (every head dim of 257-512: ``attention_kernel_deep``,
    ``attention_kernel_deep_f32``) at each padded depth past 256 in K1's
-   library and at head dims 384 and 512 in the block library, the one-pass
+   library and at head dims 384 and 512 in the block library, the short
+   kernels (``attention_kernel_short[_f32]``, L <= 16) at every padded depth
+   past 128 in K1's and at 256-512 in the block library's, the one-pass
    wgmma kernels at every padded depth past 128 (``attention_kernel_wgmma``
    to 256, ``attention_kernel_wgmma_deep`` past it, K3's at 384 and 512 in
    the block library), and K1's C library's head-dim ceiling equal to
@@ -90,9 +92,16 @@ result:
    depth 128 (``wgmma_padded_kernels``) at ``WGMMA_PADDED_DIMS`` (a head dim
    or more at every padded depth 160-512) and L = 17, 64, 208, 224, 256 and
    257 (the hand-off to the padded and deep kernels), ragged and unmasked,
-   on a buffer's strides, a negative control, and ``WGMMA_PADDED_TIMED``
-   (d_model 768's and 1280's fusion encoders, K3's attention at d_model
-   2048) timed the same way; K2's own float32
+   and, in rows that are not whole 16-byte chunks (the producer's narrow
+   copies), at ``WGMMA_NARROW_DIMS`` (odd and even head dims at every
+   padded depth 160-512) and L = 17, 208, 256, on a buffer's strides, a
+   negative control, and ``WGMMA_PADDED_TIMED`` (d_model 768's and 1280's
+   fusion encoders, K3's attention at d_model 2048) timed the same way; the
+   short kernels (``short_kernels``) at ``SHORT_DIMS`` (a head dim at every
+   padded depth past 128) and L = 8, 10, 16 in both types, K2's and K3's
+   attention at head dim 256 on 8 and 10 keys, and ``SHORT_TIMED`` (the d
+   768 and 1280 box decoders) timed with the device time by profile (as
+   are ``DEEP_TIMED`` and ``WGMMA_PADDED_TIMED``); K2's own float32
    attention on the (B, L, 3d) projection buffer (3xTF32); the block
    GEMM alone (``block_gemm``) at K2's four product shapes, in bf16 and in
    float32 (3xTF32), with a negative control for the float32 tolerance (one
@@ -279,15 +288,15 @@ result:
 23. the paths at the head dims without kernels of their own (``new_widths``):
     ``run_cogent_protocol`` as ``cogent-protocol --d_model 100`` and
     ``--d_model 1024`` run it (float32, ``NEW_WIDTH_PROTOCOL``'s sizes and
-    steps): K1 on the padded kernel at head dim 25 and 256 (the box
-    decoders' 8 keys), K2 at 256 with its attention on
+    steps): K1 on the padded kernel at head dim 25 and the short kernel at
+    256 (the box decoders' 8 keys), K2 at 256 with its attention on
     ``attention_kernel_split_f32``, no self-attention K1 takes on the plain
     path, valA card vs CPU equal; bf16 serving (``InferencePipeline.run``)
     with the executor at d_model 1024, questions/s: K2 3 and K1 2 launches a
     forward, K2's attention on ``attention_kernel_split_f32``; the block
     bench at d_model 1024, K2's and K3's ms, K3's attention on
-    ``attention_kernel_wgmma``: the head-dim-256 kernels' launches by the C
-    libraries' counts;
+    ``attention_kernel_wgmma``: the head-dim-256 and short kernels' launches
+    by the C libraries' counts;
 24. the paths past head dim 256 (``past_256``): bf16 serving
     (``InferencePipeline.run``) with the executor at d_model 2048 (4 heads
     of 512), questions/s, K2 3 and K1 2 launches a forward;
@@ -295,17 +304,18 @@ result:
     (float32, 4 heads of 384), valA card vs CPU equal; an executor eval
     forward at d_model 1100 (4 heads of 275, no K2) in float32 (card vs CPU)
     and bf16, K1 on every fusion and box-decoder layer; the block bench at
-    d_model 2048: every K1 call and K2's attention on
-    ``attention_kernel_deep_f32`` or ``attention_kernel_deep``, K3's on
-    ``attention_kernel_wgmma_deep``, by the C libraries' counts, no eligible
-    self-attention on the plain path;
+    d_model 2048: K2's attention and the float32 fusion layers' K1 on
+    ``attention_kernel_deep_f32``, the bf16 ones' and K3's attention on
+    ``attention_kernel_wgmma_deep``, the box decoders on the short kernels,
+    by the C libraries' counts, no eligible self-attention on the plain
+    path;
 25. the one-pass wgmma kernels past depth 128 on the executor
     (``wgmma_padded_paths``): bf16 serving (``InferencePipeline.run``) with
     the executor at d_model 768 (4 heads of 192) and 1280 (4 heads of
     320), questions/s, no K2, K1 on every fusion layer on
     ``attention_kernel_wgmma`` and ``attention_kernel_wgmma_deep`` and on
-    the box decoder on the padded and deep kernels by the C library's
-    counts, no eligible self-attention on the plain path.
+    the box decoder on the short kernel by the C library's counts, no
+    eligible self-attention on the plain path.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
@@ -323,13 +333,18 @@ their launches on phases 16.1 and 23's paths, the head-dim-256 kernels
 ``at_shapes``) with their launches on phase 23's paths
 by the C libraries' counts, and K1's rows past 1024 keys
 under ``long_rows``; the deep kernels (``attention_kernel_deep_f32``: K2's
-attention at d 2048; ``attention_kernel_deep``: K3's; K1's shapes under
-``at_shapes``) and K2 and K3 at head dim 512 (``fused_encoder_block_hd512``,
+attention at d 2048, K1's shapes under ``at_shapes``;
+``attention_kernel_deep``: a row past 256 keys, ``off_path``: no model
+sends it one) and K2 and K3 at head dim 512 (``fused_encoder_block_hd512``,
 ``fused_encoder_block_tiled_hd512``) with their launches on phase 24's
 paths; the one-pass wgmma kernels past depth 128
 (``attention_kernel_wgmma_past_depth_128``: d_model 768's fusion encoder;
 ``attention_kernel_wgmma_deep``: K3's attention at d 2048, d_model 1280's
-under ``at_shapes``) with their launches on phases 24.4 and 25's paths;
+and 1100's under ``at_shapes``) with their launches on phases 24.3, 24.4
+and 25's paths; the short kernels (``attention_kernel_short``: serving's
+d 2048 box decoder, the d 768-1280 ones under ``at_shapes``;
+``attention_kernel_short_f32``: the d 1536 protocol's) with their launches
+on phases 23-25's paths;
 then K1 at every head dim below 128 (``fused_attention_d{D}``),
 each at its first model's encoder shape (the protocol's fusion encoder at
 d_model 4 D for the head dims no preset has) with the rest under
@@ -391,10 +406,14 @@ PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
 # the padded kernels past depth 256 (csrc/attention_padded.cuh): every head
 # dim of 257-512, K2's and K3's attention at 384 and 512
 DEEP, DEEP_F32 = "attention_kernel_deep", "attention_kernel_deep_f32"
+# and its short kernels: rows of at most 16 keys past padded depth 128 (the
+# box decoders at d_model 768-2048; K2's and K3's attention at 256-512)
+SHORT, SHORT_F32 = "attention_kernel_short", "attention_kernel_short_f32"
 # csrc/attention_wide.cuh: the head dims at padded depth 256 past 16 keys
-# (split_f32), bf16 of 17-256 keys at head dims 72-128 and, in rows of whole
-# 16-byte chunks, at padded depths 160-256 (wgmma) and 288-512 (wgmma_deep),
-# and bf16 at every multiple of 8 up to 128 past 256 keys (2pass)
+# (split_f32, float32 rows of whole 16-byte chunks), bf16 of 17-256 keys at
+# head dims 72-128 and, in rows of any width, at padded depths 160-256
+# (wgmma) and 288-512 (wgmma_deep), and bf16 at every multiple of 8 up to
+# 128 past 256 keys (2pass)
 SPLIT_F32, WGMMA = "attention_kernel_split_f32", "attention_kernel_wgmma"
 WGMMA_DEEP = "attention_kernel_wgmma_deep"
 WGMMA_2PASS = "attention_kernel_wgmma_2pass"
@@ -440,26 +459,38 @@ K1_MODEL_SHAPES += tuple(
 def wide_kernel(d_head: int, length: int, name: str):
     """The ``attention_wide.cuh`` kernel a call of type ``name`` at a head
     dim without kernels of its own launches (``launch_attention_padded``'s
-    ``wide_takes``), or None where the padded kernels keep it: rows of whole
-    16-byte chunks (with aligned bases and strides, as the wrappers' tensors
-    are) past 16 keys at a padded depth past 128; bf16 up to 256 keys (the
-    one-pass wgmma kernel, past depth 256 as ``attention_kernel_wgmma_deep``),
-    float32 at depth 256 alone (225-256)."""
+    ``wide_takes``), or None where the padded kernels keep it: past 16 keys
+    at a padded depth past 128, bf16 up to 256 keys in rows of any width
+    (the one-pass wgmma kernel, past depth 256 as
+    ``attention_kernel_wgmma_deep``), float32 in rows of whole 16-byte
+    chunks (with aligned bases and strides, as the wrappers' tensors are) at
+    depth 256 alone (228-256, the multiples of 4)."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import padded_depth
 
     depth = padded_depth(d_head)
-    row_bytes = d_head * (2 if name == "bf16" else 4)
-    if depth <= 128 or row_bytes % 16 or length <= 16:
+    if depth <= 128 or length <= 16:
         return None
     if name == "bf16":
         return None if length > 256 else WGMMA_DEEP if depth > 256 else WGMMA
-    return SPLIT_F32 if depth == 256 else None
+    return SPLIT_F32 if depth == 256 and d_head * 4 % 16 == 0 else None
+
+
+def short_kernel(d_head: int, length: int, name: str):
+    """The short kernel a call of type ``name`` at a head dim without
+    kernels of its own launches (``launch_attention_padded``): rows of at
+    most 16 keys past padded depth 128; else None."""
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import padded_depth
+
+    if padded_depth(d_head) <= 128 or length > 16:
+        return None
+    return SHORT if name == "bf16" else SHORT_F32
 
 
 def padded_kernel(d_head: int, name: str) -> str:
     """The padded kernel a call of type ``name`` at a head dim without
-    kernels of its own launches where ``wide_kernel`` does not take it
-    (``launch_padded_r``): up to 256 the padded one, past it the deep one."""
+    kernels of its own launches where ``short_kernel`` and ``wide_kernel``
+    do not take it (``launch_padded_r``): up to 256 the padded one, past it
+    the deep one."""
     if name == "bf16":
         return DEEP if d_head > 256 else PADDED
     return DEEP_F32 if d_head > 256 else PADDED_F32
@@ -470,11 +501,14 @@ def k1_bf16_kernel(d_head: int, length: int) -> str:
     routing): one warp's ring kernel at L <= 16; up to 256 keys one pass, the
     one-pass kernel at D <= 64 and ``attention_kernel_wgmma`` past it; past
     256 keys ``attention_kernel_wgmma_2pass``; at a head dim without kernels
-    of its own the kernel ``wide_kernel`` names (``attention_kernel_wgmma``,
-    past depth 256 ``attention_kernel_wgmma_deep``), else the padded kernel
+    of its own the kernel ``short_kernel`` names (``attention_kernel_short``
+    at L <= 16 past depth 128) or ``wide_kernel`` does
+    (``attention_kernel_wgmma``, past depth 256
+    ``attention_kernel_wgmma_deep``), else the padded kernel
     (``launch_attention_padded``: ``padded_kernel``)."""
     if d_head % 8 or d_head > 128:
-        return wide_kernel(d_head, length, "bf16") or padded_kernel(d_head, "bf16")
+        return (short_kernel(d_head, length, "bf16") or wide_kernel(d_head, length, "bf16")
+                or padded_kernel(d_head, "bf16"))
     if length <= 16:
         return RING
     if length > 256:
@@ -488,7 +522,8 @@ def k1_kernel(d_head: int, length: int, name: str) -> str:
     if name == "bf16":
         return k1_bf16_kernel(d_head, length)
     if d_head % 8 or d_head > 128:
-        return wide_kernel(d_head, length, name) or padded_kernel(d_head, name)
+        return (short_kernel(d_head, length, name) or wide_kernel(d_head, length, name)
+                or padded_kernel(d_head, name))
     return "attention_kernel_f32"
 
 
@@ -496,8 +531,8 @@ def block_attention_kernel(d_head: int, length: int, name: str) -> str:
     """The kernel function the attention of K2 (``name`` "fp32": float32 q,
     k, v) or K3 ("bf16") launches (``launch_block_attention``): K1's at head
     dims 128 (``launch_attention_dim``: ``attention_kernel_f32``; in bf16 the
-    ring at L <= 16, the wgmma kernels past it), 256, 384 and 512 (the deep
-    kernels at every length)."""
+    ring at L <= 16, the wgmma kernels past it), 256, 384 and 512 (the short
+    kernels at L <= 16, past it the wide, padded and deep ones)."""
     return k1_kernel(d_head, length, name)
 
 
@@ -563,10 +598,14 @@ DEEP_STRIDED = (275, 400)
 # (1536) and 512 (2048), each at 4 heads
 DEEP_MODEL_DIMS = (275, 384, 512)
 DEEP_NEGATIVE = ((512, 8, 208), (275, 2, 1025))  # head dim, B, L
-# phase 4 at phase 24's shapes the deep kernels take: label, layout ("K1":
-# the wrapper; "block": esv_block_attention on the thirds of a (B, L, 3d)
-# buffer), head dim, B, L, key mask, q/k/v type, output type (K3's attention
-# at d 2048, bf16 of 224 keys, is attention_kernel_wgmma_deep's:
+# phase 4 at phase 24's shapes past depth 256: label, layout ("K1": the
+# wrapper; "block": esv_block_attention on the thirds of a (B, L, 3d)
+# buffer), head dim, B, L, key mask, q/k/v type, output type; each timed,
+# DEEP_PROFILED's with its device time by profile.  The box decoders (8 and
+# 10 keys) take the short kernels, d 1100's bf16 fusion encoder
+# attention_kernel_wgmma_deep (rows of 550 bytes), and attention_kernel_deep
+# is timed at a row past 256 keys, the only rows it keeps (K3's attention at
+# d 2048, bf16 of 224 keys, is attention_kernel_wgmma_deep's:
 # WGMMA_PADDED_TIMED)
 DEEP_TIMED = (
     ("K2 attention d 2048", "block", 512, 128, 210, True, "fp32", "bf16"),  # 24.1
@@ -575,7 +614,11 @@ DEEP_TIMED = (
     ("protocol d 1536 box decoder", "K1", 384, 128, 8, False, "fp32", "fp32"),  # 24.2
     ("d 1100 encoder", "K1", 275, 128, 210, True, "fp32", "fp32"),  # 24.3
     ("d 1100 encoder bf16", "K1", 275, 128, 210, True, "bf16", "bf16"),  # 24.3
+    ("rows past 256 keys d 2048 bf16", "K1", 512, 16, 1025, True, "bf16", "bf16"),
 )
+# the DEEP_TIMED shapes also named by a profile, which gives their device time
+DEEP_PROFILED = ("serving d 2048 box decoder", "protocol d 1536 box decoder", "d 1100 encoder",
+                 "d 1100 encoder bf16")
 # The one-pass wgmma kernels at the padded depths past 128
 # (csrc/attention_wide.cuh: attention_kernel_wgmma at 160-256,
 # attention_kernel_wgmma_deep at 288-512), phases 3-4 (wgmma_padded_kernels):
@@ -590,12 +633,32 @@ DEEP_TIMED = (
 # (esv_block_attention at DEEP_BLOCK_LENGTHS).
 WGMMA_PADDED_DIMS = (136, 160, 176, 192, 200, 264, 320, 360, 384, 392, 456, 512)
 WGMMA_PADDED_LENGTHS = (17, 64, 208, 224, 256, 257)
-WGMMA_STRIDED = (192, 320, 512)
+# and on rows that are not whole 16-byte chunks (the producer's narrow
+# copies): a head dim at every padded depth past 128, odd ones (every other
+# head starts 2 bytes off a 4-byte boundary: 151 and 255 at 160 and 256, 275
+# at 288, ...) and even ones (150, 300, 500: 4-byte aligned heads)
+WGMMA_NARROW_DIMS = (150, 151, 181, 211, 255, 275, 300, 301, 351, 391, 500, 501)
+WGMMA_NARROW_LENGTHS = (17, 208, 256)
+WGMMA_STRIDED = (192, 275, 320, 512)
 WGMMA_NEGATIVE = ((192, 32, 208), (320, 32, 208))  # head dim, B, L
 WGMMA_PADDED_TIMED = (
     ("d 768 encoder bf16", "K1", 192, 128, 208, True, "bf16", "bf16"),  # 25.1
     ("d 1280 encoder bf16", "K1", 320, 128, 208, True, "bf16", "bf16"),  # 25.2
     ("K3 attention d 2048", "block", 512, 128, 224, False, "bf16", "bf16"),  # 24.4
+)
+# The short kernels (csrc/attention_padded.cuh: rows of at most 16 keys past
+# padded depth 128), phases 3-4 (short_kernels): K1 at a head dim of every
+# padded depth past 128 (the models' 192, 256, 320 and 512, and odd ones,
+# whose odd bf16 heads load element by element) at SHORT_LENGTHS, ragged and
+# unmasked, in both types; K2's and K3's attention at head dim 256 on 8 and
+# 10 keys (at 384 and 512: deep_kernels, DEEP_BLOCK_LENGTHS); then
+# SHORT_TIMED, the box decoders of phase 25, checked and timed with the
+# device time by profile (the others: DEEP_TIMED, K1_NEW_SHAPES)
+SHORT_DIMS = (151, 192, 211, 256, 275, 320, 351, 391, 512)
+SHORT_LENGTHS = (8, 10, 16)
+SHORT_TIMED = (
+    ("serving d 768 box decoder bf16", "K1", 192, 128, 10, False, "bf16", "bf16"),  # 25.1
+    ("serving d 1280 box decoder bf16", "K1", 320, 128, 10, False, "bf16", "bf16"),  # 25.2
 )
 # K2 and K3 at head dim 512: d_model 2048, 4 heads, ffn 8192 (the executor at
 # d_model 2048), on BLOCK_DRAWS each
@@ -1193,18 +1256,30 @@ def padded_group(depth: int) -> int:
     return -(-depth // 128) if depth > 128 else 1
 
 
+def padded_rows(depth: int, name: str) -> int:
+    """The row groups a block of the padded kernels past 16 keys
+    (``attention_padded.cuh: padded_rows``): 8 warps up to depth 256, past
+    it 2 groups, 3 for float32 at three warps a group (depths 288-384)."""
+    g = padded_group(depth)
+    return 3 if name == "fp32" and g == 3 else 8 // g
+
+
 def k1_padded_missing(kernels: dict) -> list:
     """The padded kernels (``csrc/attention_padded.cuh``) that each depth of
     ``PADDED_DEPTHS`` must have, as (kernel, output type, per-warp depth,
-    warps a row group, row groups a block), that are not built or run no
+    warps a row group[, row groups a block]), that are not built or run no
     HMMA: ``attention_kernel_padded_f32`` to float and bf16 and
     ``attention_kernel_padded`` to bf16 (past depth 256 the deep ones), each
-    with one row group (L <= 16) and with 8 warps (2 groups past 256)."""
+    with 8 warps (past 256 ``padded_rows`` groups) and, up to depth 128, with one row
+    group (L <= 16); past 128, where the short kernels take L <= 16,
+    ``attention_kernel_short_f32`` to float and bf16 and
+    ``attention_kernel_short`` to bf16."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import PADDED_DEPTHS
 
     built = {}
     for k in kernels.values():
-        found = re.search(r"(attention_kernel_(?:padded|deep)(?:_f32)?)<([^>]*)>", k["short"])
+        found = re.search(r"(attention_kernel_(?:padded|deep|short)(?:_f32)?)<([^>]*)>",
+                          k["short"])
         if found:
             args = [re.sub(r"^\((?:int|bool)\)", "", a.strip()) for a in found.group(2).split(",")]
             built[(found.group(1), *args)] = k["HMMA"] > 0
@@ -1212,44 +1287,50 @@ def k1_padded_missing(kernels: dict) -> list:
     for depth in PADDED_DEPTHS:
         g = padded_group(depth)
         f32, bf16 = (DEEP_F32, DEEP) if depth > 256 else (PADDED_F32, PADDED)
-        for groups in ("1", str(8 // g)):
-            shape = (str(depth // g), str(g), groups)
-            want = [(f32, to, *shape) for to in ("float", "bf16")]
-            want.append((bf16, "bf16", *shape))
+        for name, kernel, outs in (("fp32", f32, ("float", "bf16")), ("bf16", bf16, ("bf16",))):
+            groups = ("1", "8") if depth <= 128 else (str(padded_rows(depth, name)),)
+            want = [(kernel, to, str(depth // g), str(g), r) for to in outs for r in groups]
+            if depth > 128:
+                want += [(SHORT_F32 if name == "fp32" else SHORT, to, str(depth // g), str(g))
+                         for to in outs]
             missing += [key for key in want if not built.get(key)]
     return missing
 
 
 def block_deep_missing() -> list:
-    """The deep kernels the block library must build for K2's and K3's
-    attention at head dims 384 and 512 (``launch_block_attention``), as
-    (kernel, output type, per-warp depth, warps a row group, row groups a
-    block), that its ptxas report does not name: float32 q/k/v to float and
-    bf16 (K2; K3 with float32 weights) and bf16 to bf16 (K3), each with one
-    row group and with two; and ``attention_kernel_wgmma_deep`` (K3, bf16,
-    17-256 keys) at each depth, as (kernel, output type, depth)."""
+    """The deep and short kernels the block library must build for K2's and
+    K3's attention at head dims 384 and 512 (``launch_block_attention``), as
+    (kernel, output type, per-warp depth, warps a row group[, row groups a
+    block]), that its ptxas report does not name: float32 q/k/v to float
+    and bf16 (K2; K3 with float32 weights) and bf16 to bf16 (K3), the deep
+    kernels with two row groups (past 16 keys), the short ones
+    (``attention_kernel_short[_f32]``, L <= 16; at 256 too); and
+    ``attention_kernel_wgmma_deep`` (K3, bf16, 17-256 keys) at each depth,
+    as (kernel, output type, depth)."""
     from explainable_spatial_vqa_tpu_torch.measure.variants import ptxas_usage
     from explainable_spatial_vqa_tpu_torch.ops import _build
 
     built = set()
     for fn in ptxas_usage((_build.BUILD_DIR / "fused_block.log").read_text()):
-        found = re.search(r"(attention_kernel_deep(?:_f32)?)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
-                          r"(\d+)E", fn)
+        found = re.search(r"(attention_kernel_(?:deep|short)(?:_f32)?)I(f|13__nv_bfloat16)"
+                          r"((?:Li\d+E)+)", fn)
         if found:
-            kind, to, *shape = found.groups()
-            built.add((kind, "float" if to == "f" else "bf16", *shape))
+            kind, to, ints = found.groups()
+            built.add((kind, "float" if to == "f" else "bf16", *re.findall(r"Li(\d+)E", ints)))
         found = re.search(r"(attention_kernel_wgmma_deep)I13__nv_bfloat16Li(\d+)E", fn)
         if found:
             built.add((found.group(1), "bf16", found.group(2)))
     missing = [(WGMMA_DEEP, "bf16", str(depth)) for depth in (384, 512)
                if (WGMMA_DEEP, "bf16", str(depth)) not in built]
-    for depth in (384, 512):
+    for depth in (256, 384, 512):
         g = padded_group(depth)
-        for groups in ("1", str(8 // g)):
-            shape = (str(depth // g), str(g), groups)
-            want = [(DEEP_F32, "float", *shape), (DEEP_F32, "bf16", *shape),
-                    (DEEP, "bf16", *shape)]
-            missing += [key for key in want if key not in built]
+        shape = (str(depth // g), str(g))
+        want = [(SHORT_F32, "float", *shape), (SHORT_F32, "bf16", *shape), (SHORT, "bf16", *shape)]
+        if depth > 256:
+            rows = {name: str(padded_rows(depth, name)) for name in ("fp32", "bf16")}
+            want += [(DEEP_F32, "float", *shape, rows["fp32"]),
+                     (DEEP_F32, "bf16", *shape, rows["fp32"]), (DEEP, "bf16", *shape, rows["bf16"])]
+        missing += [key for key in want if key not in built]
     return missing
 
 
@@ -1432,6 +1513,7 @@ def main() -> None:
     wgmma_kernels(torch, F, dev, results, parts)
     deep_kernels(torch, F, dev, results, parts)
     wgmma_padded_kernels(torch, F, dev, results, parts)
+    short_kernels(torch, F, dev, results, parts)
     k1_wrapper_times(torch, F, dev, results)
     k2_attention(torch, F, dev, randn, ragged_keep, parts)
     k2_gemms(torch, dev, randn, parts)
@@ -1490,30 +1572,37 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
         fail("phase 2: K1 is not built with HMMA at every head dim of EXACT_HEAD_DIMS")
     padded = sorted((k["short"].split("(const")[0].replace("void ", ""), k)
                     for n, k in kernels.items()
-                    if "attention_kernel_padded" in n or "attention_kernel_deep" in n)
+                    if any(f"attention_kernel_{kind}" in n for kind in ("padded", "deep", "short")))
     say("phase 2 padded K1 (attention_kernel_padded[_f32]<output type, per-warp depth, warps a "
         "16-row group, groups a block>, every other head dim up to 256; past it "
-        "attention_kernel_deep[_f32], the same code): " + "; ".join(
+        "attention_kernel_deep[_f32], the same code; past 128 at L <= 16 "
+        "attention_kernel_short[_f32]<output type, per-warp depth, warps>): " + "; ".join(
             f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
             for name, k in padded))
     missing = k1_padded_missing(kernels)
     say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 and to "
-        f"bf16 from bf16, one group and 8 warps a block (2 groups past 256), every one with "
+        f"bf16 from bf16, 8 warps a block (past 256 2 groups, 3 in float32 at 288-384) and one "
+        f"group up to 128, the short kernels past 128, every one with "
         f"HMMA: {'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
     if missing:
         fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
              "PADDED_DEPTHS")
     missing = block_deep_missing()
     max_head_dim = _build.entry("fused_attention", "esv_attention_max_head_dim", ())()
-    say(f"phase 2 the block library's deep kernels (K2's and K3's attention at head dims 384 "
-        f"and 512, K3's on attention_kernel_wgmma_deep too) built: "
+    say(f"phase 2 the block library's deep and short kernels (K2's and K3's attention at head "
+        f"dims 384 and 512, K3's on attention_kernel_wgmma_deep too; the short ones at 256 too) "
+        f"built: "
         f"{'yes' if not missing else f'NO, missing {missing}'}; K1's C library "
         f"takes head dims up to {max_head_dim} (MAX_HEAD_DIM {MAX_HEAD_DIM})")
     if missing or max_head_dim != MAX_HEAD_DIM:
         fail("phase 2: the deep kernels are not all built, or the C library's head-dim ceiling "
              "is not MAX_HEAD_DIM")
-    wide = sorted((re.sub(r"\(int\)", "", k["short"].split("(const")[0].replace("void ", "")), k)
-                  for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n)
+    # the one-pass wgmma kernels past depth 128 are built twice, the second
+    # (kNarrow, "(bool)1") with the producer's narrow copies: one name each
+    wide = sorted([(re.sub(r"\(int\)|, \(bool\)[01]", "",
+                           k["short"].split("(const")[0].replace("void ", "")), k)
+                   for n, k in kernels.items() if SPLIT_F32 in n or WGMMA in n],
+                  key=lambda e: e[0])
     say("phase 2 attention_wide.cuh's kernels (float32 K1 and K2 at head dim 256; bf16 K1 and "
         "K3 on wgmma at 72-128 and at the padded depths 160-512 up to 256 keys, past 256 as "
         "attention_kernel_wgmma_deep, and at every head dim up to 128 past 256 keys; built "
@@ -1531,6 +1620,12 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
         found = [k for name, k in wide if name == fn]
         if not found or not all(k[unit] > 0 for k in found):
             fail(f"phase 2: {fn} is not built with {unit}: {found}")
+    narrow = sorted({int(m.group(1)) for n, k in kernels.items() if WGMMA in n
+                     for m in [re.search(r"<bf16, \(int\)(\d+), \(bool\)1>", k["short"])] if m})
+    say(f"phase 2 the one-pass wgmma kernels with the producer's narrow copies (rows that are "
+        f"not whole 16-byte chunks) built at the padded depths {narrow}")
+    if narrow != sorted(WGMMA_DEPTHS[4:] + WGMMA_DEEP_DEPTHS):
+        fail("phase 2: the narrow-copy wgmma kernels are not built at every padded depth past 128")
     tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
     say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
     for name in libs:  # ptxas notes a wgmma it had to wait on before the next
@@ -1986,7 +2081,7 @@ def block_called(torch, fn, name, q, k, v, mask, out_dtype, head, want, counts=N
 
 
 def attention_case(torch, F, randn, ragged, block_fn, case, source: str, results: dict,
-                   parts: list, prefix: str) -> None:
+                   parts: list, prefix: str, profile: bool = False) -> None:
     """Phase 4 for one attention shape ``case`` (label, layout, head dim, B,
     L, key mask, q/k/v type, output type; layout "K1": the wrapper on (B,
     L, H, D) tensors, "block": ``esv_block_attention``, bound as
@@ -1995,10 +2090,11 @@ def attention_case(torch, F, randn, ragged, block_fn, case, source: str, results
     ``block_called``, then timed beside the plain version,
     ``scaled_dot_product_attention`` (its backend named, ``sdpa_backend``)
     and the bound (4 L^2 D operations a head by ``dot_ops``; q, k, v, the
-    output and the mask each moved once).  The result goes to
-    ``results[prefix + " " + label]`` and, for a block layout, to ``parts``
-    with ``source``.  ``randn(*shape, dtype=)`` and ``ragged(B, L)`` draw
-    the inputs."""
+    output and the mask each moved once); with ``profile`` the kernel named
+    by a profile, which gives its device time (``device_ms``).  The result
+    goes to ``results[prefix + " " + label]`` and, for a block layout, to
+    ``parts`` with ``source``.  ``randn(*shape, dtype=)`` and ``ragged(B,
+    L)`` draw the inputs."""
     from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import call_rows, fused_attention
 
@@ -2032,12 +2128,20 @@ def attention_case(torch, F, randn, ragged, block_fn, case, source: str, results
     bnd, by = bound_ms(dot_ops(name, 4.0 * b * h * length * length * d_head),
                        3 * b * length * d * esize + b * length * d * osize
                        + (b * length * 4 if masked else 0))
+    device = None
+    if profile:
+        ran, device = k1_launched(torch, call)
+        if ran != {want}:
+            fail(f"phase 4 {label} ({where}): the profile names {sorted(ran)}, not {want}")
     say(f"phase 4 {label} ({where}, {name} q/k/v, {out_name} out, {want}): kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
+        f"{ms:.4f} ms" + (f" (device time {device:.4f} ms by profile)" if profile else "")
+        + f", plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
         f"(backend {backend}), bound {bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
     key = f"{prefix} {label}"
     results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                         library_ms=lib, library=backend, kernel=want, shape=where)
+    if profile:
+        results[key]["device_ms"] = device
     if layout == "block":
         parts.append(dict(
             name=f"attention_{name}_hd{d_head}_L{length}", route="cuda", source=source,
@@ -2366,15 +2470,16 @@ def deep_kernels(torch, F, dev, results: dict, parts: list) -> None:
     for case in DEEP_TIMED:
         attention_case(torch, F, randn, ragged, block_fn, case,
                        "explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh", results,
-                       parts, "deep")
+                       parts, "deep", profile=case[0] in DEEP_PROFILED)
     say(f"phases 3-4 the deep kernels took {time.perf_counter() - t0:.1f} s")
 
 
 def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
     """Phases 3-4 for the one-pass wgmma kernels at the padded depths past
     128 (``attention_kernel_wgmma`` at 160-256, ``attention_kernel_wgmma_deep``
-    at 288-512; bf16 rows of whole 16-byte chunks, 17-256 keys): K1 at
-    ``WGMMA_PADDED_DIMS`` x ``WGMMA_PADDED_LENGTHS``, ragged and unmasked,
+    at 288-512; bf16 rows of 17-256 keys): K1 at ``WGMMA_PADDED_DIMS`` x
+    ``WGMMA_PADDED_LENGTHS`` and, in rows that are not whole 16-byte chunks,
+    at ``WGMMA_NARROW_DIMS`` x ``WGMMA_NARROW_LENGTHS``, ragged and unmasked,
     and on a (B, L, 3d) buffer's strides at ``WGMMA_STRIDED``, each call's
     kernel read from the C library's counts (at 257 keys the padded or deep
     kernel); the negative control (``rounded_first``) at ``WGMMA_NEGATIVE``
@@ -2402,23 +2507,26 @@ def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    checks, by_kernel = 0, {}
-    for d_head in WGMMA_PADDED_DIMS:
-        for length in WGMMA_PADDED_LENGTHS:
-            b = wide_batch(length)
-            want = k1_bf16_kernel(d_head, length)
-            if (want in (WGMMA, WGMMA_DEEP)) != (length <= 256):
-                fail(f"the routing mirror names {want} for bf16 at D={d_head}, L={length}")
-            for masked in (True, False):
-                mask = ragged(b, length) if masked else None
-                where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
-                q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
-                k1_checked(torch, "bf16", q, k, v, mask, want,
-                           f"phase 3 K1 fused_attention bf16 (padded depth "
-                           f"{padded_depth(d_head)}) {where}")
-                by_kernel.setdefault(want, set()).add(padded_depth(d_head))
-                checks += 1
-                del q, k, v
+    checks, by_kernel, narrow = 0, {}, {}
+    shapes = [(d, length) for d in WGMMA_PADDED_DIMS for length in WGMMA_PADDED_LENGTHS]
+    shapes += [(d, length) for d in WGMMA_NARROW_DIMS for length in WGMMA_NARROW_LENGTHS]
+    for d_head, length in shapes:
+        b = wide_batch(length)
+        want = k1_bf16_kernel(d_head, length)
+        if (want in (WGMMA, WGMMA_DEEP)) != (length <= 256):
+            fail(f"the routing mirror names {want} for bf16 at D={d_head}, L={length}")
+        for masked in (True, False):
+            mask = ragged(b, length) if masked else None
+            where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
+            q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
+            k1_checked(torch, "bf16", q, k, v, mask, want,
+                       f"phase 3 K1 fused_attention bf16 (padded depth "
+                       f"{padded_depth(d_head)}, rows of {2 * d_head} bytes) {where}")
+            by_kernel.setdefault(want, set()).add(padded_depth(d_head))
+            if d_head % 8:
+                narrow.setdefault(want, set()).add(padded_depth(d_head))
+            checks += 1
+            del q, k, v
     for d_head in WGMMA_STRIDED:
         d, b, length = 4 * d_head, 32, 208
         q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
@@ -2429,13 +2537,18 @@ def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
         checks += 1
         del q, k, v
     depths = {kernel: sorted(found) for kernel, found in sorted(by_kernel.items())}
+    narrow = {kernel: sorted(found) for kernel, found in sorted(narrow.items())}
     say(f"phase 3 the wgmma kernels at the padded depths past 128: {checks} calls (K1 at D = "
-        f"{WGMMA_PADDED_DIMS}, L = {WGMMA_PADDED_LENGTHS}, ragged and unmasked; on a (B, L, 3d) "
-        f"buffer at D = {WGMMA_STRIDED}) checked, the padded depths by kernel {depths}, in "
+        f"{WGMMA_PADDED_DIMS}, L = {WGMMA_PADDED_LENGTHS}, and in rows that are not whole 16-byte "
+        f"chunks at D = {WGMMA_NARROW_DIMS}, L = {WGMMA_NARROW_LENGTHS}, ragged and unmasked; on a "
+        f"(B, L, 3d) buffer at D = {WGMMA_STRIDED}) checked, the padded depths by kernel {depths}, "
+        f"those of the rows not whole 16-byte chunks {narrow}, in "
         f"{time.perf_counter() - t0:.1f} s")
     if not (set(depths.get(WGMMA, ())) >= {160, 192, 224}
-            and depths.get(WGMMA_DEEP) == list(WGMMA_DEEP_DEPTHS)):
-        fail("phase 3: the wgmma kernels were not held at every padded depth past 128")
+            and depths.get(WGMMA_DEEP) == list(WGMMA_DEEP_DEPTHS)
+            and narrow == {WGMMA: [160, 192, 224, 256], WGMMA_DEEP: list(WGMMA_DEEP_DEPTHS)}):
+        fail("phase 3: the wgmma kernels were not held at every padded depth past 128, in rows "
+             "of whole 16-byte chunks and in others")
     for d_head, b, length in WGMMA_NEGATIVE:
         q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
         mask = ragged(b, length)
@@ -2456,6 +2569,84 @@ def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
                        parts, "wgmma padded")
     say(f"phases 3-4 the wgmma kernels at the padded depths past 128 took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def short_kernels(torch, F, dev, results: dict, parts: list) -> None:
+    """Phases 3-4 for the short kernels (``attention_kernel_short_f32``,
+    ``attention_kernel_short``: rows of at most 16 keys past padded depth
+    128): K1 at ``SHORT_DIMS`` x ``SHORT_LENGTHS``, ragged and unmasked, in
+    both types, and K2's and K3's attention at head dim 256 on 8 and 10 keys
+    through ``esv_block_attention`` (float32 q/k/v to bf16 and to float32,
+    bf16 to bf16), each call's kernel read from the C libraries' counts;
+    fails unless both kernels were held at every padded depth past 128; then
+    ``SHORT_TIMED`` checked and timed beside the plain version,
+    ``scaled_dot_product_attention`` and the bound, with the device time by
+    profile.  Results go to ``results["short <label>"]``."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import bind_entry, padded_depth
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    t0 = time.perf_counter()
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    block_fn = bind_entry(_build.load("fused_block"), "esv_block_attention")
+
+    def ragged(b, length):
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        tail = min(length, 13)
+        keep[:, length - tail:] = torch.rand(b, tail, generator=gen, device=dev) < 0.6
+        return keep[:, None, None, :]
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    checks, held = 0, {}
+    for d_head in SHORT_DIMS:
+        for length in SHORT_LENGTHS:
+            for masked in (True, False):
+                mask = ragged(K1_NEW_DIM_BATCH, length) if masked else None
+                where = (f"B={K1_NEW_DIM_BATCH} H=4 L={length} D={d_head} "
+                         f"mask={'ragged' if masked else 'none'}")
+                for name, dtype in types.items():
+                    want = k1_kernel(d_head, length, name)
+                    if want not in (SHORT, SHORT_F32):
+                        fail(f"the routing mirror names {want} for {name} at D={d_head}, "
+                             f"L={length}")
+                    q, k, v = (randn(K1_NEW_DIM_BATCH, length, 4, d_head, dtype=dtype)
+                               for _ in range(3))
+                    k1_checked(torch, name, q, k, v, mask, want,
+                               f"phase 3 K1 fused_attention {name} (padded depth "
+                               f"{padded_depth(d_head)}) {where}")
+                    held.setdefault(want, set()).add(padded_depth(d_head))
+                    checks += 1
+                    del q, k, v
+    for length in (8, 10):
+        b, d = 8, 4 * 256
+        for masked in (True, False):
+            mask = ragged(b, length) if masked else None
+            where = f"B={b} H=4 L={length} D=256 mask={'ragged' if masked else 'none'}"
+            for name, outs in (("fp32", (torch.bfloat16, torch.float32)),
+                               ("bf16", (torch.bfloat16,))):
+                qkv = randn(b, length, 3 * d, dtype=types[name])
+                for out_dtype in outs:
+                    block_called(torch, block_fn, name, *qkv.split(d, dim=-1), mask, out_dtype,
+                                 f"phase 3 {'K2' if name == 'fp32' else 'K3'} attention {name} "
+                                 f"q/k/v from the (B, L, 3d) buffer, "
+                                 f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out, {where}",
+                                 block_attention_kernel(256, length, name))
+                    checks += 1
+                del qkv
+    held = {kernel: sorted(found) for kernel, found in sorted(held.items())}
+    say(f"phase 3 the short kernels: {checks} calls (K1 at D = {SHORT_DIMS}, L = {SHORT_LENGTHS}, "
+        f"ragged and unmasked, both types; K2's and K3's attention at head dim 256, L = 8 and 10) "
+        f"checked, the padded depths by kernel {held}, in {time.perf_counter() - t0:.1f} s")
+    depths = sorted(WGMMA_DEPTHS[4:] + WGMMA_DEEP_DEPTHS)  # 160-512
+    if held != {SHORT: depths, SHORT_F32: depths}:
+        fail("phase 3: the short kernels were not held at every padded depth past 128")
+    for case in SHORT_TIMED:
+        attention_case(torch, F, randn, ragged, block_fn, case,
+                       "explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh", results,
+                       parts, "short", profile=True)
+    say(f"phases 3-4 the short kernels took {time.perf_counter() - t0:.1f} s")
 
 
 def k1_wrapper_times(torch, F, dev, results: dict) -> None:
@@ -3244,16 +3435,15 @@ def main_path(torch, np, dev, results, parts) -> None:
         fail("a wgmma kernel at head dims up to 128 never launched on its path")
     # the deep kernels (attention_padded.cuh past depth 256): their launches
     # on phase 24's paths by the C libraries' counts (deep_f32: K2's
-    # attention at d 2048 and 1536, K1 in float32 in the d 1536 protocol's
-    # box decoder and at d 1100; deep: K1 in bf16 in serving's d 2048 box
-    # decoder and at d 1100), the numbers of K2's attention at d 2048 and of
-    # K1 at d 1100 in bf16, the other shapes under at_shapes; then K2 and K3
-    # at head dim 512 (d_model 2048), their launches on phase 24's serving and
+    # attention at d 2048 and 1536, K1 in float32 at d 1100's fusion layers;
+    # deep, bf16, keeps only rows past 256 keys, which no model sends: 0
+    # launches, timed at such a row), the numbers of K2's attention
+    # at d 2048, the other shapes under at_shapes; then K2 and K3 at head dim
+    # 512 (d_model 2048), their launches on phase 24's serving and
     # block-bench paths
     for kernel, main_key, other_keys in (
-            (DEEP_F32, "K2 attention d 2048", ("K2 attention d 1536 fp32",
-                                               "protocol d 1536 box decoder", "d 1100 encoder")),
-            (DEEP, "d 1100 encoder bf16", ("serving d 2048 box decoder",))):
+            (DEEP_F32, "K2 attention d 2048", ("K2 attention d 1536 fp32", "d 1100 encoder")),
+            (DEEP, "rows past 256 keys d 2048 bf16", ())):
         by_deep = {path: c[kernel] for path, c in deep_launches.items()}
         kernels.append(dict(
             name=kernel, route="cuda",
@@ -3266,6 +3456,8 @@ def main_path(torch, np, dev, results, parts) -> None:
             launches=sum(by_deep.values()), **results[f"deep {main_key}"],
             at_shapes={key: results[f"deep {key}"] for key in other_keys},
             launches_by_path=by_deep))
+    kernels[-1]["off_path"] = ("bf16 rows past 256 keys at padded depths 288-512: no model sends "
+                               "them (phase 3 holds it at 257 and 1025 keys)")
     for name, src_name, key, path in (
             ("fused_encoder_block_hd512", "fused_encoder_block", "K2_bf16_hd512", "serving_d2048"),
             ("fused_encoder_block_tiled_hd512", "fused_encoder_block_tiled", "K3_bf16_hd512",
@@ -3281,26 +3473,31 @@ def main_path(torch, np, dev, results, parts) -> None:
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
         f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches on phase "
         f"24's paths" for k in kernels[-4:]))
-    if not all(k["launches"] for k in kernels[-4:]):
+    if not all(k["launches"] for k in kernels[-4:] if "off_path" not in k):
         fail("a deep kernel, or K2 or K3 at head dim 512, never launched on its path")
     # the one-pass wgmma kernels past depth 128 (attention_wide.cuh): their
-    # launches on phases 24.4 and 25 by the C libraries' counts (wgmma at
-    # depths 160-224: K1 in serving's fusion layers at d 768; wgmma_deep: K3's
-    # attention in the d 2048 block bench and K1 in serving's fusion layers at
-    # d 1280), the numbers at d 768 and of K3's attention at d 2048
-    for kernel, main_key, other_keys, path_launches in (
-            (WGMMA, "d 768 encoder bf16", (), wgmma_padded_launches),
-            (WGMMA_DEEP, "K3 attention d 2048", ("d 1280 encoder bf16",),
-             {**wgmma_padded_launches, "block_bench_d2048": deep_launches["block_bench_d2048"]})):
-        on_paths = {path: c.get(kernel, 0) for path, c in path_launches.items()}
+    # launches on phases 24.3, 24.4 and 25 by the C libraries' counts (wgmma
+    # at depths 160-224: K1 in serving's fusion layers at d 768; wgmma_deep:
+    # K3's attention in the d 2048 block bench, K1 in serving's fusion layers
+    # at d 1280 and in bf16 at d 1100's, rows of 550 bytes), the numbers at d
+    # 768 and of K3's attention at d 2048
+    on_wgmma = {**wgmma_padded_launches,
+                **{path: deep_launches[path]
+                   for path in ("block_bench_d2048", "executor_d1100_bf16")}}
+    for kernel, main_key, other_keys in (
+            (WGMMA, "wgmma padded d 768 encoder bf16", ()),
+            (WGMMA_DEEP, "wgmma padded K3 attention d 2048", ("wgmma padded d 1280 encoder bf16",
+                                                              "deep d 1100 encoder bf16"))):
+        on_paths = {path: c.get(kernel, 0) for path, c in on_wgmma.items()}
         kernels.append(dict(
             name=f"{kernel}_past_depth_128" if kernel == WGMMA else kernel, route="cuda",
             source="explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh",
             replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
             also_replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:232"
                            if kernel == WGMMA_DEEP else None),
-            launches=sum(on_paths.values()), **results[f"wgmma padded {main_key}"],
-            at_shapes={key: results[f"wgmma padded {key}"] for key in other_keys},
+            launches=sum(on_paths.values()), **results[main_key],
+            at_shapes={key.split(" ", 1)[1].removeprefix("padded "): results[key]
+                       for key in other_keys},
             launches_by_path=on_paths))
     say("the one-pass wgmma kernels past depth 128: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, scaled_dot_product_attention "
@@ -3308,6 +3505,38 @@ def main_path(torch, np, dev, results, parts) -> None:
         f"{k['launches_by_path']}" for k in kernels[-2:]))
     if not all(k["launches"] for k in kernels[-2:]):
         fail("a one-pass wgmma kernel past depth 128 never launched on its path")
+    # the short kernels (attention_padded.cuh, rows of at most 16 keys past
+    # depth 128): their launches on phases 23-25 by the C libraries' counts
+    # (short: the bf16 serving box decoders at d 768-2048 and K1 in bf16 at
+    # d 1100's; short_f32: the float32 box decoders of the d 1024 and 1536
+    # protocols and of d 1100), the numbers at serving's d 2048 box decoder
+    # and the d 1536 protocol's, the other box decoders under at_shapes
+    on_short = {**wide_launches, **deep_launches, **wgmma_padded_launches}
+    for kernel, main_key, other_keys in (
+            (SHORT, "deep serving d 2048 box decoder",
+             ("K1_D256_serving d 1024 box decoder bf16", "short serving d 768 box decoder bf16",
+              "short serving d 1280 box decoder bf16")),
+            (SHORT_F32, "deep protocol d 1536 box decoder",
+             ("K1_D256_protocol d 1024 box decoder",))):
+        on_paths = {path: c.get(kernel, 0) for path, c in on_short.items()}
+        kernels.append(dict(
+            name=kernel, route="cuda",
+            source="explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh",
+            replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+            also_replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:232" if kernel == SHORT
+                           else "explainable_spatial_vqa_tpu/ops/pallas_block.py:135"),
+            launches=sum(on_paths.values()), **results[main_key],
+            at_shapes={key.split(" ", 1)[1] if key.startswith("short ") else key[len("K1_"):]:
+                       results[key] for key in other_keys},
+            launches_by_path=on_paths))
+    say("the short kernels: " + "; ".join(
+        f"{k['name']} {k['ms']:.4f} ms (device "
+        + (f"{k['device_ms']:.4f}" if "device_ms" in k else "not measured")
+        + f", plain {k['plain_ms']:.4f}, scaled_dot_product_attention {k['library_ms']:.4f}, "
+        f"bound {k['bound_ms']:.4f}), {k['launches']} launches {k['launches_by_path']}"
+        for k in kernels[-2:]))
+    if not all(k["launches"] for k in kernels[-2:]):
+        fail("a short kernel never launched on its path")
     total = sum(PHASE_SECONDS.values())
     say("seconds by phase: " + ", ".join(f"{p} {sec:.1f}" for p, sec in sorted(
         PHASE_SECONDS.items())) + f"; {total:.1f} s in all, {time.perf_counter() - T_START:.1f} s "
@@ -6458,10 +6687,10 @@ DEMO_SMALL = {
     "executor_data_efficiency": dict(DEMO_SCENES="20", DEMO_QPS="3", DEMO_SIZES="10,40",
                                      DEMO_EXE_STEPS="15"),
     "scheduled_sampling": dict(DEMO_SCENES="12", DEMO_GEN_STEPS="10", DEMO_EXE_STEPS="10"),
-    "scheduled_stats": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="10",
-                            DEMO_EXE_STEPS="10", DEMO_EVAL_SCENES="4", DEMO_EVAL_QPS="3"),
-    "scheduled_at_scale": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="10",
-                               DEMO_EXE_STEPS="10", DEMO_EVAL_SCENES="4", DEMO_DMODEL="96",
+    "scheduled_stats": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="6",
+                            DEMO_EXE_STEPS="6", DEMO_EVAL_SCENES="4", DEMO_EVAL_QPS="3"),
+    "scheduled_at_scale": dict(DEMO_SEEDS="2", DEMO_SCENES="8", DEMO_GEN_STEPS="6",
+                               DEMO_EXE_STEPS="6", DEMO_EVAL_SCENES="4", DEMO_DMODEL="96",
                                DEMO_LAYERS="2"),
     "diag_box_roi": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="15"),
     "diag_roi_sim": dict(DIAG_SCENES="20", DIAG_QPS="3", DIAG_STEPS="15"),
@@ -7305,7 +7534,7 @@ def new_widths(torch, np, dev, counted) -> dict:
        kernel in every fusion layer (the plain block's self-attention, L =
        208) and in the box decoder (L = 8), and no K2;
     2. the same at d_model 1024 (4 heads of 256): K2 on every fusion layer,
-       its attention on ``attention_kernel_split_f32``, and K1 on the padded
+       its attention on ``attention_kernel_split_f32``, and K1 on the short
        kernel in the box decoder (8 keys);
        each at ``NEW_WIDTH_PROTOCOL``'s sizes and steps, the launches read
        from the wrappers and the C libraries' counters, no eligible
@@ -7314,7 +7543,7 @@ def new_widths(torch, np, dev, counted) -> dict:
        CPU's (``protocol_card_vs_cpu``);
     3. bf16 serving, ``InferencePipeline.run`` at bench.py's widths but the
        executor at d_model 1024 (4 heads): K2 3 and K1 2 launches a forward,
-       K2's attention on ``attention_kernel_split_f32``, K1 on the padded
+       K2's attention on ``attention_kernel_split_f32``, K1 on the short
        kernel (10 keys), on ``NEW_WIDTH_QUESTIONS`` synthetic questions;
        questions/s, median of 3 runs after a warm-up;
     4. ``bench_block.main`` at d_model 1024 (B=128, K3 at one tiling), which
@@ -7323,7 +7552,8 @@ def new_widths(torch, np, dev, counted) -> dict:
        ``attention_kernel_wgmma``; K2's and K3's ms printed.
 
     Returns each path's wrapper launches, for the result line, and each
-    path's launches of the head-dim-256 kernels by the C libraries' counts."""
+    path's launches of the head-dim-256 and short kernels by the C
+    libraries' counts."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
@@ -7331,8 +7561,8 @@ def new_widths(torch, np, dev, counted) -> dict:
     t_phase = time.perf_counter()
     paths, wide = {}, {}
 
-    def wide_of(*counts):  # the head-dim-256 kernels' launches among C counts
-        return {n: sum(c.get(n, 0) for c in counts) for n in (SPLIT_F32, WGMMA)}
+    def wide_of(*counts):  # the head-dim-256 and short kernels' launches among C counts
+        return {n: sum(c.get(n, 0) for c in counts) for n in (SPLIT_F32, WGMMA, SHORT, SHORT_F32)}
 
     for d_model in (100, 1024):
         t0 = time.perf_counter()
@@ -7349,15 +7579,16 @@ def new_widths(torch, np, dev, counted) -> dict:
             + ", ".join(f"{r['part'].split()[1]} K2 {r['K2']} K1 {r['K1']}" for r in rows)
             + f"; the C libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible "
             f"self-attention calls {len(eligible)}")
-        want_k1 = {PADDED_F32: counts["fused_attention"]}  # the box decoders' 8 keys
+        # the box decoders' 8 keys: the padded kernel at d 100, the short one at 1024
+        want_k1 = {k1_kernel(d_model // 4, 8, "fp32"): counts["fused_attention"]}
         if not (all(r["K1"] > 0 and (r["K2"] > 0) == k2 for r in rows)
                 and counts["fused_attention"] == sum(r["K1"] for r in rows)
                 and counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
                 and k1_c == want_k1 and len(eligible) == counts["fused_attention"]
                 and block_c == ({SPLIT_F32: counts["fused_encoder_block"]} if k2 else {})):
-            fail(f"phase 23 check failed at d_model {d_model}: the evaluations launch K1 on the "
-                 f"padded kernels{', K2 with attention_kernel_split_f32,' if k2 else ''} and only "
-                 f"they, and no self-attention K1 takes runs the plain path")
+            fail(f"phase 23 check failed at d_model {d_model}: the evaluations launch K1 on "
+                 f"{list(want_k1)}{', K2 with attention_kernel_split_f32,' if k2 else ''} and "
+                 f"only they, and no self-attention K1 takes runs the plain path")
         protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
                              f"cogent-protocol --d_model {d_model}", phase=23)
         paths[f"cogent_protocol_d{d_model}"] = counts
@@ -7375,9 +7606,9 @@ def new_widths(torch, np, dev, counted) -> dict:
         "K2 3 and K1 2 launches a forward": (
             counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
             and counts["fused_attention"] == exe_cfg.box_decoder_layers * once > 0),
-        "K1 on the padded kernel (10 keys), K2's attention (float32 q/k/v) on "
+        "K1 on the short kernel (10 keys), K2's attention (float32 q/k/v) on "
         "attention_kernel_split_f32": (
-            k1_c == {PADDED: counts["fused_attention"]}
+            k1_c == {SHORT: counts["fused_attention"]}
             and block_c == {SPLIT_F32: counts["fused_encoder_block"]}),
         "no self-attention K1 takes on the plain path": run["eligible"] == counts["fused_attention"],
         "one answer per question in the token vocabulary": (
@@ -7409,8 +7640,8 @@ def new_widths(torch, np, dev, counted) -> dict:
              "attention_kernel_split_f32 and K3's on attention_kernel_wgmma")
     paths["block_bench_d1024"] = counts
     wide["block_bench_d1024"] = wide_of(block_c)
-    say(f"phase 23 the head-dim-256 kernels' launches by path (the C libraries' counts): "
-        f"{wide}")
+    say(f"phase 23 the head-dim-256 and short kernels' launches by path (the C libraries' "
+        f"counts): {wide}")
     say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
     return paths, wide
 
@@ -7429,26 +7660,29 @@ PARENT_K3_HD512_MS = {"K3 tiled TB=2 fc=1": 11.386, "K3 tiled TB=2 fc=2": 10.949
 def past_256(torch, np, dev, counted) -> tuple:
     """Phase 24, the paths past head dim 256, each driven through the entry
     point a user calls, its launches read from the wrappers and from the C
-    libraries' counts (``c_counts``), which must name the deep kernels (K3's
-    attention: ``attention_kernel_wgmma_deep``) and only them:
+    libraries' counts (``c_counts``), which must name the kernels past depth
+    256 (the deep, wgmma and short ones) and only them:
 
     1. bf16 serving, ``InferencePipeline.run`` (pool) at bench.py's widths
        with the executor at d_model 2048 (4 heads of 512, ffn 8192) on
        ``NEW_WIDTH_QUESTIONS`` synthetic questions: K2 3 and K1 2 launches a
        forward, K2's attention (float32 q/k/v) on
        ``attention_kernel_deep_f32``, K1 (the box decoder's 10 keys) on
-       ``attention_kernel_deep``; questions/s, median of 3 runs after a
+       ``attention_kernel_short``; questions/s, median of 3 runs after a
        warm-up;
     2. ``run_cogent_protocol`` as ``cogent-protocol --d_model 1536`` runs it
        (float32, 4 heads of 384, ``NEW_WIDTH_PROTOCOL``'s sizes and steps):
-       its evaluations launch K2 on every fusion layer and K1 on the box
-       decoder, both on ``attention_kernel_deep_f32``, no eligible
-       self-attention on the plain path, and its fine-tuned models' valA
-       evaluation on the card equal to the CPU's (``protocol_card_vs_cpu``);
+       its evaluations launch K2 on every fusion layer, its attention on
+       ``attention_kernel_deep_f32``, and K1 on the box decoder, on
+       ``attention_kernel_short_f32``, no eligible self-attention on the
+       plain path, and its fine-tuned models' valA evaluation on the card
+       equal to the CPU's (``protocol_card_vs_cpu``);
     3. an executor eval forward at d_model 1100 (4 heads of 275, where K2
        does not route) in float32 and in bf16 on phase 8's inputs: K1 on
-       every fusion layer (L = 210, ragged) and on the box decoder, on the
-       deep kernels; the float32 outputs against the CPU's within 1e-4;
+       every fusion layer (L = 210, ragged: ``attention_kernel_deep_f32``,
+       in bf16 ``attention_kernel_wgmma_deep``, rows of 550 bytes) and on
+       the box decoder (the short kernels); the float32 outputs against the
+       CPU's within 1e-4;
     4. ``bench_block.main`` at d_model 2048 (B=128, L=224, K3 at one
        tiling): K2's attention on ``attention_kernel_deep_f32``, K3's on
        ``attention_kernel_wgmma_deep``; K2's and K3's ms printed, K3's beside
@@ -7466,8 +7700,9 @@ def past_256(torch, np, dev, counted) -> tuple:
     t_phase = time.perf_counter()
     paths, deep = {}, {}
 
-    def deep_of(*counts):  # the deep kernels' launches among C counts
-        return {n: sum(c.get(n, 0) for c in counts) for n in (DEEP_F32, DEEP, WGMMA_DEEP)}
+    def deep_of(*counts):  # the deep, wgmma and short kernels' launches among C counts
+        return {n: sum(c.get(n, 0) for c in counts)
+                for n in (DEEP_F32, DEEP, WGMMA_DEEP, SHORT, SHORT_F32)}
 
     # ---- 24.1 bf16 serving with the executor at d_model 2048 ----
     run = serving_run(torch, np, dev, counted, 2048)
@@ -7479,9 +7714,9 @@ def past_256(torch, np, dev, counted) -> tuple:
         "K2 3 and K1 2 launches a forward": (
             counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
             and counts["fused_attention"] == exe_cfg.box_decoder_layers * once > 0),
-        "K1 (10 keys, bf16) on attention_kernel_deep, K2's attention (float32 q/k/v) on "
+        "K1 (10 keys, bf16) on attention_kernel_short, K2's attention (float32 q/k/v) on "
         "attention_kernel_deep_f32": (
-            k1_c == {DEEP: counts["fused_attention"]}
+            k1_c == {SHORT: counts["fused_attention"]}
             and block_c == {DEEP_F32: counts["fused_encoder_block"]}),
         "no self-attention K1 takes on the plain path": run["eligible"] == counts["fused_attention"],
         "one answer per question in the token vocabulary": (
@@ -7512,12 +7747,12 @@ def past_256(torch, np, dev, counted) -> tuple:
     if not (rows and all(r["K1"] > 0 and r["K2"] > 0 for r in rows)
             and counts["fused_attention"] == sum(r["K1"] for r in rows)
             and counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
-            and k1_c == {DEEP_F32: counts["fused_attention"]}
+            and k1_c == {SHORT_F32: counts["fused_attention"]}
             and block_c == {DEEP_F32: counts["fused_encoder_block"]}
             and len(eligible) == counts["fused_attention"]):
-        fail("phase 24.2 check failed at d_model 1536: the evaluations launch K2 and K1, both "
-             "on attention_kernel_deep_f32 and only there, and no self-attention K1 takes runs "
-             "the plain path")
+        fail("phase 24.2 check failed at d_model 1536: the evaluations launch K2, its attention "
+             "on attention_kernel_deep_f32, and K1 on attention_kernel_short_f32, only there, "
+             "and no self-attention K1 takes runs the plain path")
     protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
                          "cogent-protocol --d_model 1536", phase=24)
     paths["cogent_protocol_d1536"] = counts
@@ -7541,8 +7776,11 @@ def past_256(torch, np, dev, counted) -> tuple:
     ]
     per_forward = exe_cfg.encoder_layers + exe_cfg.box_decoder_layers
     forward_counts = {}
-    for dtype, kernel in ((torch.float32, DEEP_F32), (torch.bfloat16, DEEP)):
+    for dtype in (torch.float32, torch.bfloat16):
         name = "fp32" if dtype == torch.float32 else "bf16"
+        # the fusion layers' 210 keys and the box decoder's 10
+        kernels = {k1_kernel(275, 210, name): exe_cfg.encoder_layers,
+                   k1_kernel(275, 10, name): exe_cfg.box_decoder_layers}
         model = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=6).eval()
         read = c_counts(torch)
         with plain_self_attention_count() as eligible, torch.no_grad():
@@ -7553,7 +7791,7 @@ def past_256(torch, np, dev, counted) -> tuple:
                 f"counts: K1 {k1_c}, K2's attention {block_c}; eligible self-attention calls "
                 f"{len(eligible)}")
         ok = (counts["fused_attention"] == per_forward and counts["fused_encoder_block"] == 0
-              and k1_c == {kernel: per_forward} and not block_c
+              and k1_c == kernels and not block_c
               and len(eligible) == per_forward
               and all(torch.isfinite(v.float()).all() for v in out.values()))
         if dtype == torch.float32:
@@ -7566,8 +7804,8 @@ def past_256(torch, np, dev, counted) -> tuple:
             del cpu_model, on_cpu
         say(text)
         if not ok:
-            fail(f"phase 24.3 check failed in {name}: K1 on {kernel} at every fusion and "
-                 f"box-decoder layer, no K2, no eligible self-attention on the plain path, "
+            fail(f"phase 24.3 check failed in {name}: K1 {kernels} at the fusion and "
+                 f"box-decoder layers, no K2, no eligible self-attention on the plain path, "
                  f"finite outputs (float32: equal to the CPU's within 1e-4)")
         forward_counts[name] = counts
         deep[f"executor_d1100_{name}"] = deep_of(k1_c)
@@ -7594,7 +7832,8 @@ def past_256(torch, np, dev, counted) -> tuple:
              "attention_kernel_deep_f32 and K3's on attention_kernel_wgmma_deep")
     paths["block_bench_d2048"] = counts
     deep["block_bench_d2048"] = deep_of(block_c)
-    say(f"phase 24 the deep kernels' launches by path (the C libraries' counts): {deep}")
+    say(f"phase 24 the deep, wgmma and short kernels' launches by path (the C libraries' "
+        f"counts): {deep}")
     say(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
     return paths, deep
 
@@ -7606,7 +7845,7 @@ def past_256(torch, np, dev, counted) -> tuple:
 
 # d_model (4 heads), the kernel of the fusion layers' self-attention (L = 210)
 # and of the box decoder's (10 keys)
-WGMMA_PADDED_WIDTHS = ((768, WGMMA, PADDED), (1280, WGMMA_DEEP, DEEP))
+WGMMA_PADDED_WIDTHS = ((768, WGMMA, SHORT), (1280, WGMMA_DEEP, SHORT))
 
 
 def wgmma_padded_paths(torch, np, dev, counted) -> tuple:
@@ -7617,7 +7856,7 @@ def wgmma_padded_paths(torch, np, dev, counted) -> tuple:
     heads of 320, padded depth 336).  Their head dims are not multiples of
     128, so no K2: K1 on the 3 fusion layers of every forward (210 keys,
     ragged) on ``attention_kernel_wgmma`` or ``attention_kernel_wgmma_deep``
-    and on the 2 box-decoder layers (10 keys) on the padded or deep kernel,
+    and on the 2 box-decoder layers (10 keys) on the short kernel,
     by the C library's counts, and no eligible self-attention on the plain
     path; questions/s, the median of 3 runs after a warm-up.  Returns each
     path's wrapper launches and its launches by kernel (the C libraries'

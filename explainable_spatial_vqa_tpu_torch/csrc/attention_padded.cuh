@@ -19,13 +19,17 @@
 // output columns zero, which are not stored.  So 17 depths (16, 32, ...,
 // 128, 160, 192, 224, 256; 288, 336, 384; 448, 512) cover the 512 head
 // dims.
-//   * Loads.  At a head dim whose rows are whole 16-byte chunks (and 16-byte
-//     aligned bases and strides) K and V stream through attention.cuh's ring
-//     of kAttnStages 32-key stages with cp.async, kAttnStages - 1 tiles
-//     ahead.  Elsewhere (D = 25: a bf16 head starts every 50 bytes) a warp
-//     copies a row element by element, synchronously, into the same ring:
-//     the stage it fills was released by the barrier that ended its last
-//     tile.
+//   * Loads.  K and V stream through attention.cuh's ring of kAttnStages
+//     32-key stages with cp.async, kAttnStages - 1 tiles ahead
+//     (padded_copy): 16 bytes a copy at a head dim whose rows are whole
+//     16-byte chunks (and 16-byte aligned bases and strides).  Elsewhere the
+//     deep float32 kernels (D = 275's rows of 1100 bytes) shift each row in
+//     shared memory to its source's offset from a 16-byte boundary and copy
+//     its middle 16 bytes at a time, its ends 4 (the short kernels too).
+//     Every other row that is not whole 16-byte chunks (D = 25: a bf16 head
+//     starts every 50 bytes; bf16 rows past 256 keys at odd D) a warp copies
+//     element by element, synchronously, into the same ring: the stage it
+//     fills was released by the barrier that ended its last tile.
 //   * Registers.  Each warp holds one 32-key tile's scores (16 floats a
 //     lane) and its share of a 16-row group's output.  Past 128 G warps
 //     share a group (G = 2 at DP = 160-256, 3 at 288-384, 4 at 448-512),
@@ -40,8 +44,9 @@
 //   * Past 256 (the deep kernels, attention_kernel_deep_f32 and
 //     attention_kernel_deep: the same code under names of their own, so
 //     that the launch counts tell them apart) a block is 2 groups of 16
-//     rows (6 or 8 warps) and the ring keeps as many of its kAttnStages
-//     stages as fit (padded_stages): float32 at DP = 512 holds Q's 32 rows,
+//     rows (8 warps at four a group), in float32 at three a group (288-384)
+//     3 groups, 9 warps (padded_rows), and the ring keeps as many of its
+//     kAttnStages stages as fit (padded_stages): float32 at DP = 512 holds Q's 32 rows,
 //     two 32-key stages and the exchange in 210 KB; bf16 keeps four.  The
 //     bf16 weights are normalised once and rounded once, and every slice
 //     multiplies the same rounded weights (its warps hold equal scores),
@@ -55,24 +60,36 @@
 //     tile's scores (the same products in the same order), normalises,
 //     rounds to bf16 and multiplies by V on the tensor cores.
 //   * A block is 8 warps up to 256 (4 groups of 16 rows past 128, 8 up to
-//     it), 2 groups past 256, or one group where L <= 16 (the box decoders'
-//     L = 8 and 10).
+//     it), 2 or 3 groups past 256, or one group where L <= 16 (the box decoders'
+//     L = 8 and 10) up to depth 128.
+//   * Past 128, rows of at most 16 keys (the box decoders at d_model
+//     768-2048; K2's and K3's attention at 256-512 on such rows) take the
+//     short kernels (attention_kernel_short_f32, attention_kernel_short): a
+//     block of G warps per (batch, head) whose shared memory holds only Q's,
+//     K's and V's 16 rows and the exchange (58 KB in bf16 at depth 512, 103
+//     KB in float32, where the padded kernels reserved the whole ring,
+//     158-173 KB, and one block filled an SM), copied in one batch, and one
+//     16-key tile: 2-7 blocks an SM, at most two waves at B = 128, H = 4.
+//     bf16 takes one pass, its row max and sum from the tile's scores in
+//     registers: over a single tile the padded kernel's first pass ends with
+//     sum * exp(-inf) + cs = cs, so the result is the padded kernel's, bit
+//     for bit.
 //
 // Bound on the H100: as attention.cuh's kernels, the bytes of q, k, v and the
 // output at the box decoders' lengths, 4 L^2 D operations (in 3xTF32 for
-// float32) at the encoders'.  The padded columns and the element loads cost
+// float32) at the encoders'.  The padded columns and the narrow loads cost
 // work the bound does not count; a right kernel first (PERF.md §6).
 //
 // Past padded depth 128 attention_wide.cuh's kernels, designed for Hopper,
-// take the calls past 16 keys whose rows are whole 16-byte chunks: bf16 up
-// to 256 keys at every depth (attention_kernel_wgmma at 160-256,
+// take the calls past 16 keys: bf16 up to 256 keys at every depth, in rows
+// of any width and offset (attention_kernel_wgmma at 160-256,
 // attention_kernel_wgmma_deep at 288-512: the executor's fusion layers at
-// d_model 768 and 1280, K3's attention at head dims 384 and 512), float32 at
-// depth 256 alone, at any length (attention_kernel_split_f32).  The kernels
-// here keep the rest: the box decoders' rows of <= 16 keys, bf16 rows past
-// 256 keys (the two-pass wgmma kernel stops at depth 128), float32 at every
-// other depth (K2's attention at 384 and 512), and rows that load element
-// by element (D = 275).
+// d_model 768, 1100 and 1280, K3's attention at head dims 384 and 512),
+// float32 in rows of whole 16-byte chunks at depth 256 alone, at any length
+// (attention_kernel_split_f32).  The kernels here keep the rest: rows of
+// <= 16 keys (the short kernels past depth 128), bf16 rows past 256 keys
+// (the two-pass wgmma kernel stops at depth 128), and float32 at every
+// other depth (K2's attention at 384 and 512, D = 275).
 #pragma once
 
 #include "attention.cuh"
@@ -98,6 +115,16 @@ __host__ __device__ constexpr int padded_group() {
   return padded_slices(DP);
 }
 
+// Row groups a block past 16 keys: 8 warps up to depth 256 (8 / G groups);
+// past it 2 groups, but 3 for float32 at three warps a group (depths
+// 288-384: 9 warps; fewer copies of K's and V's tiles per query row took
+// D = 275, L = 210 from 1.85 to 1.48 ms on the H100, K2's attention at 384
+// from 1.75 to 1.59: PERF.md §6)
+template <int DP, typename T>
+__host__ __device__ constexpr int padded_rows() {
+  return std::is_same<T, float>::value && padded_group<DP>() == 3 ? 3 : 8 / padded_group<DP>();
+}
+
 // The padded kernels' shared memory: Q's 16 R rows and S ring stages, of
 // LD elements each, and past 128 the exchange of partial scores (16 x 32
 // floats a warp)
@@ -117,30 +144,69 @@ __host__ __device__ constexpr int padded_stages() {
                                                                       : 2;
 }
 
-// rows [row0, row0 + kRows) of a strided head of D columns into shared memory
-// rows of stride LD, a warp a row; rows at or past L read as zeros.  aligned:
-// 16-byte cp.async copies (D * sizeof(T) % 16 == 0, bases and strides
-// aligned); else element by element, synchronously
-template <typename T, int LD, int kRows, int W>
-__device__ __forceinline__ void padded_load_rows(T* dst, const T* src, long long rs, int row0,
-                                                 int L, int D, bool aligned) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (aligned) {
+// How a block copies its head's rows (padded_copy, padded_load_rows):
+//   * kCopyWhole: every row is whole 16-byte chunks on 16-byte boundaries
+//     (the launch's `aligned`), 16-byte cp.async copies;
+//   * kCopyMiddle (float32, kNarrow): the rows of q, k and v all start
+//     `shift` floats past a 16-byte boundary (rs * 4 % 16 == 0): each row
+//     lands `shift` floats into its shared-memory row, so its middle copies
+//     16 bytes at a time, both sides on 16-byte boundaries, and its ends 4;
+//     the kernels read every row from column `shift` (columns 0 .. shift - 1
+//     are never written or read; LD leaves 4 columns past DP);
+//   * kCopyElements (every other row): element by element, synchronously.
+// kNarrow (kCopyMiddle) is compiled into the deep float32 kernels (D = 275)
+// and the short kernels alone: its code took the padded kernels at depth 32
+// past 128 registers a thread and doubled D = 25's time (PERF.md §6).
+enum PaddedCopy : int { kCopyElements = 0, kCopyWhole = 1, kCopyMiddle = 2 };
+struct PaddedRows {
+  int copy, shift;
+};
+
+template <bool kNarrow, typename T>
+__device__ __forceinline__ PaddedRows padded_copy(int aligned, const T* q, const T* k, const T* v,
+                                                  long long rs) {
+  const uintptr_t a[3] = {reinterpret_cast<uintptr_t>(q), reinterpret_cast<uintptr_t>(k),
+                          reinterpret_cast<uintptr_t>(v)};
+  if (aligned) return {kCopyWhole, 0};
+  if (kNarrow && std::is_same<T, float>::value && (rs * 4) % 16 == 0 &&
+      a[0] % 16 == a[1] % 16 && a[1] % 16 == a[2] % 16)
+    return {kCopyMiddle, (int)(a[0] % 16 / 4)};
+  return {kCopyElements, 0};
+}
+
+// One row of D elements from s into shared memory at d by `rows`
+// (padded_copy), a warp's lanes in turn; zeros where !ok
+template <bool kNarrow, typename T>
+__device__ __forceinline__ void padded_copy_one(T* d, const T* s, bool ok, int D, PaddedRows rows,
+                                                int lane) {
+  if (rows.copy == kCopyWhole) {
     constexpr int kPer = 16 / (int)sizeof(T);
-    const int chunks = D / kPer;
-    for (int r = warp; r < kRows; r += W) {
-      const int row = row0 + r;
-      const bool ok = row < L;
-      const T* s = src + (long long)(ok ? row : 0) * rs;
-      for (int c = lane; c < chunks; c += 32) cp_async16(dst + r * LD + c * kPer, s + c * kPer, ok);
-    }
+    for (int c = lane; c < D / kPer; c += 32) cp_async16(d + c * kPer, s + c * kPer, ok);
+  } else if (kNarrow && std::is_same<T, float>::value && rows.copy == kCopyMiddle) {
+    // 4-byte ends, a 16-byte middle
+    const int head = min((4 - rows.shift) % 4, D), chunks = (D - head) / 4;
+    const int tail = head + 4 * chunks;  // the ends: at most 3 floats each
+    d += rows.shift;
+    if (lane < head) cp_async4_fill(d + lane, s + lane, ok ? 4 : 0);
+    for (int c = lane; c < chunks; c += 32) cp_async16(d + head + 4 * c, s + head + 4 * c, ok);
+    if (lane < D - tail) cp_async4_fill(d + tail + lane, s + tail + lane, ok ? 4 : 0);
   } else {
     const T zero = from_float<T>(0.f);
-    for (int r = warp; r < kRows; r += W) {
-      const int row = row0 + r;
-      const T* s = src + (long long)row * rs;
-      for (int c = lane; c < D; c += 32) dst[r * LD + c] = row < L ? s[c] : zero;
-    }
+    for (int c = lane; c < D; c += 32) d[c] = ok ? s[c] : zero;
+  }
+}
+
+// rows [row0, row0 + kRows) of a strided head of D columns into shared memory
+// rows of stride LD, a warp a row, by `rows` (padded_copy); rows at or past L
+// read as zeros
+template <typename T, int LD, int kRows, int W, bool kNarrow>
+__device__ __forceinline__ void padded_load_rows(T* dst, const T* src, long long rs, int row0,
+                                                 int L, int D, PaddedRows rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kRows; r += W) {
+    const bool ok = row0 + r < L;
+    padded_copy_one<kNarrow>(dst + r * LD, src + (long long)(ok ? row0 + r : 0) * rs, ok, D, rows,
+                             lane);
   }
 }
 
@@ -159,19 +225,19 @@ __device__ __forceinline__ void padded_zero_cols(T* base, int rows, int D) {
 // i is K's (even i) or V's (odd i) tile i / 2, else K's tile i.  Tile i +
 // S - 1 is issued into the stage of tile i - 1, which the barrier that
 // ended tile i - 1's use released.
-template <typename T, int LD, int W, bool kAlternate, int S>
+template <typename T, int LD, int W, bool kAlternate, int S, bool kNarrow>
 struct PaddedStream {
   T* ring;
   const T* k;
   const T* v;
   long long rs;
   int L, D, total, issued;
-  bool aligned;
+  PaddedRows rows;
 
   __device__ __forceinline__ PaddedStream(T* ring_, const T* k_, const T* v_, long long rs_,
-                                          int L_, int D_, int total_, bool aligned_)
+                                          int L_, int D_, int total_, PaddedRows rows_)
       : ring(ring_), k(k_), v(v_), rs(rs_), L(L_), D(D_), total(total_), issued(0),
-        aligned(aligned_) {
+        rows(rows_) {
 #pragma unroll
     for (int i = 0; i < S - 1; ++i) issue();
   }
@@ -180,8 +246,9 @@ struct PaddedStream {
     if (issued < total) {
       const bool is_k = !kAlternate || issued % 2 == 0;
       const int kt = kAlternate ? issued / 2 : issued;
-      padded_load_rows<T, LD, kAttnKeys, W>(ring + (issued % S) * kAttnKeys * LD, is_k ? k : v,
-                                            rs, kt * kAttnKeys, L, D, aligned);
+      padded_load_rows<T, LD, kAttnKeys, W, kNarrow>(ring + (issued % S) * kAttnKeys * LD,
+                                                     is_k ? k : v,
+                                            rs, kt * kAttnKeys, L, D, rows);
     }
     cp_async_commit();
     ++issued;
@@ -196,41 +263,43 @@ struct PaddedStream {
 };
 
 // Past 128 (G = 2 to 4): each warp of a group has summed its slice of the
-// depth into s; the slices meet in xs ([warps][16][32] floats, fragment
-// order) and every warp of the group takes s = slice 0 + slice 1 + ..., the
-// same sum in the same order.  Every thread of the block reaches the
-// barrier.
-template <int G>
-__device__ __forceinline__ void group_scores(float (&s)[4][4], float* xs, bool active) {
+// depth into s (NT 8-key fragments); the slices meet in xs ([warps][4 NT][32]
+// floats, fragment order) and every warp of the group takes s = slice 0 +
+// slice 1 + ..., the same sum in the same order.  Every thread of the block
+// reaches the barrier.
+template <int G, int NT>
+__device__ __forceinline__ void group_scores(float (&s)[NT][4], float* xs, bool active) {
   if constexpr (G > 1) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, first = warp - warp % G;
     if (active) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) xs[(warp * 16 + n * 4 + c) * 32 + lane] = s[n][c];
+        for (int c = 0; c < 4; ++c) xs[(warp * 4 * NT + n * 4 + c) * 32 + lane] = s[n][c];
     }
     __syncthreads();
     if (active) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          float acc = xs[(first * 16 + n * 4 + c) * 32 + lane];
+          float acc = xs[(first * 4 * NT + n * 4 + c) * 32 + lane];
 #pragma unroll
-          for (int j = 1; j < G; ++j) acc += xs[((first + j) * 16 + n * 4 + c) * 32 + lane];
+          for (int j = 1; j < G; ++j) acc += xs[((first + j) * 4 * NT + n * 4 + c) * 32 + lane];
           s[n][c] = acc;
         }
     }
   }
 }
 
-// s scaled and masked for key tile kt: -inf past L, -1e30 on masked keys
-__device__ __forceinline__ void padded_mask(float (&s)[4][4], const float* mrow, int kt, int L,
+// s scaled and masked for key tile kt (of 32 keys; its first 16 where NT =
+// 2): -inf past L, -1e30 on masked keys
+template <int NT>
+__device__ __forceinline__ void padded_mask(float (&s)[NT][4], const float* mrow, int kt, int L,
                                             float scale) {
   const int t = threadIdx.x % 4;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int key = kt * kAttnKeys + n * 8 + 2 * t + (c & 1);
@@ -280,14 +349,19 @@ __device__ __forceinline__ void padded_attention_f32(ESV_PADDED_PARAMS(float)) {
   const long long in_off = (long long)b * in_bs + (long long)h * D;
   const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
   const bool active = q0 + grp * 16 < L;
+  // the narrow copies (rows shifted in shared memory) in the deep kernels alone
+  constexpr bool kNarrow = G > 2;
+  const PaddedRows rows = padded_copy<kNarrow>(aligned, q + in_off, k + in_off, v + in_off, in_rs);
+  const int shift = kNarrow ? rows.shift : 0;
+  const int col0 = shift + part * DG;  // this warp's slice of each row in shared memory
 
-  padded_zero_cols<float, LD, DP, W>(qs, 16 * R + S * kAttnKeys, D);
-  padded_load_rows<float, LD, 16 * R, W>(qs, q + in_off, in_rs, q0, L, D, aligned);
+  padded_zero_cols<float, LD, DP, W>(qs + shift, 16 * R + S * kAttnKeys, D);
+  padded_load_rows<float, LD, 16 * R, W, kNarrow>(qs, q + in_off, in_rs, q0, L, D, rows);
   cp_async_commit();
   const int ntiles = (L + kAttnKeys - 1) / kAttnKeys;
-  PaddedStream<float, LD, W, true, S> st(ring, k + in_off, v + in_off, in_rs, L, D, 2 * ntiles,
-                                         aligned);
-  const float* qw = qs + grp * 16 * LD + part * DG;
+  PaddedStream<float, LD, W, true, S, kNarrow> st(ring, k + in_off, v + in_off, in_rs, L, D,
+                                                  2 * ntiles, rows);
+  const float* qw = qs + grp * 16 * LD + col0;
   AttnOut<float, DG> o;
   float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -297,7 +371,7 @@ __device__ __forceinline__ void padded_attention_f32(ESV_PADDED_PARAMS(float)) {
   for (int kt = 0; kt < ntiles; ++kt) {
     float s[4][4];
     const float* ks = st.next(2 * kt);
-    if (active) tile_scores<DG, LD>(qw, ks + part * DG, s);
+    if (active) tile_scores<DG, LD>(qw, ks + col0, s);
     group_scores<G>(s, xs, active);
     __syncthreads();
     if (active) {
@@ -328,7 +402,7 @@ __device__ __forceinline__ void padded_attention_f32(ESV_PADDED_PARAMS(float)) {
         for (int c = 0; c < 4; ++c) o[dn][c] *= alpha[c / 2];
     }
     const float* vs = st.next(2 * kt + 1);
-    if (active) tile_pv<DG, LD>(s, vs + part * DG, o);
+    if (active) tile_pv<DG, LD>(s, vs + col0, o);
     __syncthreads();
   }
   if (!active) return;
@@ -370,9 +444,10 @@ __device__ __forceinline__ void padded_attention_bf16(ESV_PADDED_PARAMS(__nv_bfl
   const T* vb = v + in_off;
   const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
   const bool active = q0 + grp * 16 < L;
+  const PaddedRows rows = padded_copy<false>(aligned, q + in_off, kb, vb, in_rs);
 
   padded_zero_cols<T, LD, DP, W>(qs, 16 * R + S * kAttnKeys, D);
-  padded_load_rows<T, LD, 16 * R, W>(qs, q + in_off, in_rs, q0, L, D, aligned);
+  padded_load_rows<T, LD, 16 * R, W, false>(qs, q + in_off, in_rs, q0, L, D, rows);
   cp_async_commit();
   const int ntiles = (L + kAttnKeys - 1) / kAttnKeys;
   const T* qw = qs + grp * 16 * LD + part * DG;
@@ -389,7 +464,7 @@ __device__ __forceinline__ void padded_attention_bf16(ESV_PADDED_PARAMS(__nv_bfl
   // pass 1: each row's max and sum, online over the tiles
   float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
   {
-    PaddedStream<T, LD, W, false, S> st(ring, kb, vb, in_rs, L, D, ntiles, aligned);
+    PaddedStream<T, LD, W, false, S, false> st(ring, kb, vb, in_rs, L, D, ntiles, rows);
     for (int kt = 0; kt < ntiles; ++kt) {
       float s[4][4];
       scores(st.next(kt), kt, s);
@@ -421,7 +496,7 @@ __device__ __forceinline__ void padded_attention_bf16(ESV_PADDED_PARAMS(__nv_bfl
   for (int dn = 0; dn < DG / 8; ++dn)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
-  PaddedStream<T, LD, W, true, S> st(ring, kb, vb, in_rs, L, D, 2 * ntiles, aligned);
+  PaddedStream<T, LD, W, true, S, false> st(ring, kb, vb, in_rs, L, D, 2 * ntiles, rows);
   for (int kt = 0; kt < ntiles; ++kt) {
     float s[4][4];
     scores(st.next(2 * kt), kt, s);
@@ -474,8 +549,142 @@ __global__ void __launch_bounds__(32 * G * R, 1)
   padded_attention_bf16<TO, DG, G, R>(ESV_PADDED_ARGS);
 }
 
+// The short kernels' shared memory at depth DP: Q's, K's and V's 16 rows and
+// the exchange of partial scores (16 x 16 floats a warp)
+template <typename T, int DP>
+__host__ __device__ constexpr size_t short_smem_bytes() {
+  return sizeof(T) * (size_t)3 * 16 * attn_ld<T, DP>() +
+         sizeof(float) * 16 * 16 * (size_t)padded_group<DP>();
+}
+
+// q, k, v of type T at depth DG * G past 128, L <= 16: one (batch, head) a
+// block of G warps, each a slice of the depth (the header's Design).  The
+// padded kernels' arithmetic over their one tile, on its 16 keys: float32
+// the online softmax (its rescaling by exp(-inf) = 0 of nothing), bf16 the
+// row max and sum from the tile's scores, the weights normalised, rounded
+// and times V in the same pass (the padded kernel's first pass ends with
+// sum = 0 * exp(-inf) + cs = cs, its second recomputes the same scores: its
+// weights and output bit for bit)
+template <typename T, typename TO, int DG, int G>
+__device__ __forceinline__ void short_attention(ESV_PADDED_PARAMS(T)) {
+  constexpr int DP = G * DG, LD = attn_ld<T, DP>();
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(G > 1 && DG % 16 == 0 && DG <= 128 && DP <= kAttnMaxHeadDim &&
+                    attn_depth<T, DG>() == DG, "depth");
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  T* qs = reinterpret_cast<T*>(attn_smem);              // [16][LD]
+  T* ks = qs + 16 * LD;                                 // [16][LD]
+  T* vs = ks + 16 * LD;                                 // [16][LD]
+  float* xs = reinterpret_cast<float*>(vs + 16 * LD);   // [G][8][32]
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int part = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const long long in_off = (long long)b * in_bs + (long long)h * D;
+  const float* mrow = mask == nullptr ? nullptr : mask + (long long)b * L;
+  const PaddedRows rows = padded_copy<true>(aligned, q + in_off, k + in_off, v + in_off, in_rs);
+  const int col0 = rows.shift + part * DG;  // this warp's slice of each row in shared memory
+
+  // Q's, K's and V's rows (contiguous in shared memory) in one batch of
+  // copies, a warp a row; rows past L read as zeros
+  padded_zero_cols<T, LD, DP, G>(qs + rows.shift, 3 * 16, D);
+  for (int r = part; r < 3 * 16; r += G) {
+    const bool ok = r % 16 < L;
+    const T* src = r < 16 ? q : r < 32 ? k : v;
+    padded_copy_one<true>(qs + r * LD, src + in_off + (long long)(ok ? r % 16 : 0) * in_rs, ok, D,
+                          rows, lane);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the scores of the 16 rows against the 16 keys, summed over the slices
+  float s[2][4];
+  if constexpr (kF32) tile_scores<DG, LD>(qs + col0, ks + col0, s);
+  else tile_scores_tc<DG, LD>(qs + col0, ks + col0, s);
+  group_scores<G>(s, xs, true);
+  padded_mask(s, mrow, 0, L, scale);
+  float m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float tm = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) tm = fmaxf(tm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    m[r] = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));  // finite: key 0 < L
+  }
+  AttnOut<T, DG> o;
+#pragma unroll
+  for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
+  float denom[2];
+  if constexpr (kF32) {
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = expf(s[n][c] - m[c / 2]);
+        sum[c / 2] += s[n][c];
+      }
+    tile_pv<DG, LD>(s, vs + col0, o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      denom[r] = sum[r] + 1e-30f;
+    }
+#pragma unroll
+    for (int dn = 0; dn < DG / 8; ++dn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[dn][c] /= denom[c / 2];
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float cs = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) cs += expf(s[n][2 * r] - m[r]) + expf(s[n][2 * r + 1] - m[r]);
+      cs += __shfl_xor_sync(0xffffffffu, cs, 1);
+      cs += __shfl_xor_sync(0xffffffffu, cs, 2);
+      denom[r] = cs + 1e-30f;
+    }
+    uint32_t p[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        p[n][r] = pack_bf16x2(expf(s[n][2 * r] - m[r]) / denom[r],
+                              expf(s[n][2 * r + 1] - m[r]) / denom[r]);
+    tile_pv<DG, LD>(p, vs + col0, o);
+  }
+  padded_store<DG>(out + (long long)b * out_bs + (long long)h * D, out_rs, g, L, D,
+                   part * DG + 2 * t, o);
+}
+
+// The short kernels: float32 q, k, v (attention_kernel_short_f32) and bf16
+// (attention_kernel_short), counted apart
+template <typename TO, int DG, int G>
+__global__ void __launch_bounds__(32 * G) attention_kernel_short_f32(ESV_PADDED_PARAMS(float)) {
+  short_attention<float, TO, DG, G>(ESV_PADDED_ARGS);
+}
+
+template <typename TO, int DG, int G>
+__global__ void __launch_bounds__(32 * G)
+    attention_kernel_short(ESV_PADDED_PARAMS(__nv_bfloat16)) {
+  short_attention<__nv_bfloat16, TO, DG, G>(ESV_PADDED_ARGS);
+}
+
 #undef ESV_PADDED_PARAMS
 #undef ESV_PADDED_ARGS
+
+// 1 where every row of every head is whole 16-byte chunks on 16-byte
+// boundaries (the kernels' `aligned`: 16-byte copies), else 0
+template <typename T>
+static int padded_aligned(const T* q, const T* k, const T* v, int D, long long in_bs,
+                          long long in_rs) {
+  return aligned16(q) && aligned16(k) && aligned16(v) && (D * sizeof(T)) % 16 == 0 &&
+         (in_bs * sizeof(T)) % 16 == 0 && (in_rs * sizeof(T)) % 16 == 0;
+}
 
 // One instantiation, Kernel, of R groups a block, counted as Kind; its
 // shared-memory attribute is set once per device
@@ -492,14 +701,55 @@ static cudaError_t launch_padded_kernel(const T* q, const T* k, const T* v, cons
     return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   });
   if (err != cudaSuccess) return err;
-  // 16-byte copies where every row of every head is whole 16-byte chunks
-  const bool aligned = aligned16(q) && aligned16(k) && aligned16(v) && (D * sizeof(T)) % 16 == 0 &&
-                       (in_bs * sizeof(T)) % 16 == 0 && (in_rs * sizeof(T)) % 16 == 0;
   const dim3 grid((L + 16 * R - 1) / (16 * R), H, B);
   const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
   Kernel<<<grid, 32 * G * R, smem, stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs,
-                                             out_rs, scale, aligned ? 1 : 0);
+                                             out_rs, scale,
+                                             padded_aligned(q, k, v, D, in_bs, in_rs));
   return counted_launch(Kind);
+}
+
+// Kernel, a short kernel at depth DP past 128 (L <= 16), counted as Kind: a
+// block of G warps per (batch, head); its shared-memory attribute and the
+// whole of the SM's 228 KB as shared memory (so that 2-7 blocks share an SM)
+// set once per device
+template <int DP, auto Kernel, AttnKernel Kind, typename T, typename TO>
+static cudaError_t launch_short_kernel(const T* q, const T* k, const T* v, const float* mask,
+                                       TO* out, int B, int H, int L, int D, long long in_bs,
+                                       long long in_rs, long long out_bs, long long out_rs,
+                                       cudaStream_t stream) {
+  constexpr size_t smem = short_smem_bytes<T, DP>();
+  static_assert(DP > 128 && smem <= kPaddedSmemMax, "depth, shared memory");
+  int dev;
+  const cudaError_t err = once_per_device<KernelSite<Kernel> >(&dev, [](int) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  });
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
+  Kernel<<<dim3(1, H, B), 32 * padded_group<DP>(), smem, stream>>>(
+      q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale,
+      padded_aligned(q, k, v, D, in_bs, in_rs));
+  return counted_launch(Kind);
+}
+
+// attention_kernel_short_f32 for float32 q, k, v, attention_kernel_short for
+// bf16, at depth DP past 128
+template <int DP, typename T, typename TO>
+static cudaError_t launch_attention_short(const T* q, const T* k, const T* v, const float* mask,
+                                          TO* out, int B, int H, int L, int D, long long in_bs,
+                                          long long in_rs, long long out_bs, long long out_rs,
+                                          cudaStream_t stream) {
+  constexpr int G = padded_group<DP>(), DG = DP / G;
+  if constexpr (std::is_same<T, float>::value)
+    return launch_short_kernel<DP, attention_kernel_short_f32<TO, DG, G>, kAttnKernelShortF32>(
+        q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
+  else
+    return launch_short_kernel<DP, attention_kernel_short<TO, DG, G>, kAttnKernelShort>(
+        q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
 // attention_kernel_padded_f32 (past depth 256 attention_kernel_deep_f32) for
@@ -526,10 +776,11 @@ static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const flo
         q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
-// Head dim D, whose padded depth is DP: past depth 128 attention_wide.cuh's
-// kernels where they take the call (wide_takes; bf16 at every depth, float32
-// at 256 alone); else one group a block where L <= 16, else 8 warps up to
-// depth 256 and 2 groups (6 or 8 warps) past it.  The pointers need only
+// Head dim D, whose padded depth is DP: past depth 128 the short kernels
+// where L <= 16, and attention_wide.cuh's kernels where they take the call
+// (wide_takes; bf16 at every depth up to 256 keys, float32 at 256 alone);
+// else one group a block where L <= 16 (depths up to 128), else 8 warps up
+// to depth 256 and 2 or 3 groups past it (padded_rows).  The pointers need only
 // their types' alignment.
 template <int DP, typename T, typename TO>
 static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, const float* mask,
@@ -541,16 +792,23 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
   if (reinterpret_cast<uintptr_t>(q) % sizeof(T) || reinterpret_cast<uintptr_t>(k) % sizeof(T) ||
       reinterpret_cast<uintptr_t>(v) % sizeof(T) || reinterpret_cast<uintptr_t>(out) % sizeof(TO))
     return cudaErrorMisalignedAddress;
+  if constexpr (DP > 128) {
+    if (L <= 16)
+      return launch_attention_short<DP, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                               out_bs, out_rs, stream);
+  }
   if constexpr (DP > 128 && (DP == 256 || !std::is_same<T, float>::value)) {
     if (wide_takes<T, TO>(q, k, v, out, L, D, in_bs, in_rs, out_bs, out_rs))
       return launch_attention_wide<DP, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
                                               out_bs, out_rs, stream);
   }
-  if (L <= 16)
-    return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
-                                         out_rs, stream);
-  return launch_padded_r<DP, 8 / padded_group<DP>(), T, TO>(q, k, v, mask, out, B, H, L, D, in_bs,
-                                                            in_rs, out_bs, out_rs, stream);
+  if constexpr (DP <= 128) {
+    if (L <= 16)
+      return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
+                                           out_rs, stream);
+  }
+  return launch_padded_r<DP, padded_rows<DP, T>(), T, TO>(q, k, v, mask, out, B, H, L, D, in_bs,
+                                                          in_rs, out_bs, out_rs, stream);
 }
 
 // The head dims of K2's and K3's attention: the multiples of 128 up to
@@ -566,8 +824,9 @@ __host__ __device__ constexpr bool block_head_dim(int D) {
 // wgmma kernels, one pass up to 256 keys and two past it), 256 on
 // attention_wide.cuh's (K2 past 16 keys, K3 from 17 to 256) or the padded
 // ones, 384 and 512 on the deep kernels (K3 from 17 to 256 keys on
-// attention_kernel_wgmma_deep).  fused_block.cu compiles each head dim in a
-// translation unit of its own and picks among them at run time.
+// attention_kernel_wgmma_deep); past 128 the short kernels at L <= 16.
+// fused_block.cu compiles each head dim in a translation unit of its own and
+// picks among them at run time.
 template <int D, typename T, typename TO>
 static cudaError_t launch_block_attention(const T* q, const T* k, const T* v, const float* mask,
                                           TO* out, int B, int H, int L, long long in_bs,

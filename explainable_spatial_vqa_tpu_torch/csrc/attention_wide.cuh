@@ -6,13 +6,13 @@
 //   * K1 in float32 at the head dims whose padded depth is 256 (225-256,
 //     among them 256: 4 heads at d_model 1024) and K2's attention at head
 //     dim 256 (attention_kernel_split_f32);
-//   * K1 in bf16 of 17-256 keys at head dims 72-128 (multiples of 8) and, in
-//     rows of whole 16-byte chunks (D % 8 == 0), at every padded depth past
-//     128, and K3's attention at head dims 128-512 (attention_kernel_wgmma
-//     at padded depths 80-128 and 160-256; attention_kernel_wgmma_deep, the
-//     same code, at 288-512: d_model 768 and 1280 at 4 heads, K3 at d_model
-//     1536 and 2048), and K1 and K3 in bf16 past 256 keys at every multiple
-//     of 8 up to 128 (attention_kernel_wgmma_2pass).
+//   * K1 in bf16 of 17-256 keys at head dims 72-128 (multiples of 8) and at
+//     every padded depth past 128, in rows of any width and offset, and
+//     K3's attention at head dims 128-512 (attention_kernel_wgmma at padded
+//     depths 80-128 and 160-256; attention_kernel_wgmma_deep, the same code,
+//     at 288-512: d_model 768, 1100 and 1280 at 4 heads, K3 at d_model 1536
+//     and 2048), and K1 and K3 in bf16 past 256 keys at every multiple of 8
+//     up to 128 (attention_kernel_wgmma_2pass).
 //
 // Arithmetic: attention.cuh's, on the true head dim D (the columns D .. DP - 1
 // of Q, K and V read as zeros, DP the padded depth): scores in float32
@@ -65,18 +65,33 @@
 // (attention_padded.cuh: 7.7x SDPA at D = 192, 3.4x at K3's 512) share a
 // 16-row group among two to four warps, each a slice of the depth, exchange
 // partial scores through shared memory and take two passes over K with
-// three to five block barriers a 32-key tile.  Here a block is two consumer
-// warpgroups of 64 query rows and a producer warpgroup that copies Q (in
-// 64-column boxes) and then K's and V's tiles of 64 keys by cp.async into a
-// ring of wgmma_stages stages of 16 KB (two 64-column boxes) in the 128-byte
-// swizzle, each stage on full/empty mbarriers: kWgmmaStages (8) up to depth
-// 384, 7 at 448 and 6 at 512, where Q's boxes take 112 and 128 KB of the
-// 227.  K's and V's rows come in pieces of 128 columns, a stage each (the
-// last piece narrower: 160 = 128 + 32, 336 = 2 x 128 + 80).  The score
-// products are wgmma m64n64k16 over the padded depth (Q and K both K-major
-// from shared memory; DP / 16 of them a tile, the pieces in order into one
-// accumulator, the columns past D zero-filled by cp.async); P V multiplies the
-// weights, rounded to bf16 straight into wgmma's A-register fragments, by V
+// three to five block barriers a 32-key tile, and copied rows that are not
+// whole 16-byte chunks (D = 275: a bf16 head of 550 bytes, every other one
+// 2 bytes off a 4-byte boundary) element by element, synchronously, with
+// nothing to overlap (4.17 ms at d_model 1100, 1.8x the plain version).
+// Here a block is two consumer warpgroups of 64 query rows and a producer
+// warpgroup that copies Q (in 64-column boxes) and then K's and V's tiles of
+// 64 keys into a ring of wgmma_stages stages of 16 KB (two 64-column boxes)
+// in the 128-byte swizzle, each stage on full/empty mbarriers: kWgmmaStages
+// (8) up to depth 384, 7 at 448 and 6 at 512, where Q's boxes take 112 and
+// 128 KB of the 227.  Rows of whole 16-byte chunks on 16-byte boundaries
+// come by cp.async, 16 bytes a copy, which arrives on the stage's barrier
+// itself.  Past depth 128 any other row (D % 8 != 0, as D = 275's, or a base
+// or stride off 16 bytes) takes a second instantiation of the same kernel
+// (kNarrow, which launch_attention_wgmma picks at run time, in the same
+// translation unit): its producer builds each swizzled 16-byte chunk from
+// the 4-byte words of its aligned floor (4 or 5, realigned by __byte_perm
+// where the row starts 2 bytes off a word), kNarrowBatch chunks' loads in
+// flight at once, stores it in one 16-byte write, fences the async proxy
+// and arrives: its loads wait in the producer warpgroup while the
+// consumers' products run; its output goes out element by element where a
+// head's rows start off a pair's boundary (odd D).
+// K's and V's rows come in pieces of 128 columns, a stage each (the last
+// piece narrower: 160 = 128 + 32, 336 = 2 x 128 + 80).  The score products
+// are wgmma m64n64k16 over the padded depth (Q and K both K-major from
+// shared memory; DP / 16 of them a tile, the pieces in order into one
+// accumulator, the columns past D zero-filled by the copies); P V multiplies
+// the weights, rounded to bf16 straight into wgmma's A-register fragments, by V
 // as an MN-major B operand (the transpose bit), 64 columns a product (the
 // columns past D zeros and not stored).  Both hold their consumers to
 // ptxas's 168 registers a thread at 384 threads: past it ptxas spills and
@@ -107,15 +122,15 @@
 //     Tile j + 1's products in flight during tile j's arithmetic, a
 //     persistent block an SM, ran slower or no faster: ptxas serialised
 //     the pipelined wgmma, and persistence gained 0-3% (PERF.md §6).
-// Rows past L read as zeros (cp.async's zero fill), so a sequence never
-// reads the next one's rows.
+// Rows past L read as zeros (cp.async's zero fill, or no load), so a
+// sequence never reads the next one's rows.
 //
-// All take rows whose elements are whole 16-byte chunks (D * sizeof(T) % 16
-// == 0, bases and strides aligned): launch_attention_dim (attention.cuh)
-// requires it at the head dims 8-128, and past padded depth 128
-// attention_padded.cuh's launcher sends everything else, rows of <= 16 keys,
-// bf16 rows past 256 keys and float32 at depths other than 256 to the
-// padded and deep kernels.
+// The float32 kernel takes rows whose elements are whole 16-byte chunks (D
+// * sizeof(T) % 16 == 0, bases and strides aligned), as launch_attention_dim
+// (attention.cuh) requires at the head dims 8-128; the bf16 ones take any
+// row past padded depth 128.  attention_padded.cuh's launcher sends
+// everything else, rows of <= 16 keys (its short kernels), bf16 rows past
+// 256 keys and float32 at depths other than 256, to its own kernels.
 #pragma once
 
 #include "attention.cuh"
@@ -624,35 +639,145 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// The producer's copies, by cp.async in the 128-byte swizzle: element (row,
-// 16-byte chunk cc) of a box of 64 rows at row * 128 + (cc ^ row % 8) * 16.
+// ---- the producer's copies ----
+
+// chunks whose loads a producer thread has in flight at once: 4 spilled
+// 48-68 bytes at the producer's 40 registers and slowed the cp.async path of
+// the same kernels by 21-31% (PERF.md §6)
+constexpr int kNarrowBatch = 2;
+
+// The 4-byte words from the aligned floor of src (a bf16 row's element, at
+// a 2-byte boundary) that hold its first `valid` elements (at most 8: a
+// 16-byte chunk), 4 or 5 of them; no load and 0 for the others
+__device__ __forceinline__ void narrow_load(uint32_t (&w)[5], const __nv_bfloat16* src,
+                                            int valid) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+  const int last = valid > 0 ? ((int)(a >> 1 & 1) + min(valid, 8) - 1) / 2 : -1;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) w[j] = j <= last ? __ldg(p + j) : 0u;
+}
+
+// The chunk narrow_load fetched for src, realigned where src lies 2 bytes
+// past a word (each element pair the high half of one word and the low half
+// of the next), its elements at or past `valid` zeros, stored in one 16-byte
+// write at the shared-window address dst
+__device__ __forceinline__ void narrow_store(uint32_t dst, const uint32_t (&w)[5],
+                                             const __nv_bfloat16* src, int valid) {
+  const bool odd = reinterpret_cast<uintptr_t>(src) & 2;
+  uint32_t x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t y = odd ? __byte_perm(w[i], w[i + 1], 0x5432) : w[i];
+    x[i] = 2 * i + 1 < valid ? y : 2 * i < valid ? y & 0xffffu : 0u;
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(x[0]), "r"(x[1]),
+               "r"(x[2]), "r"(x[3])
+               : "memory");
+}
+
+// This thread's n narrow chunks, the loads of kNarrowBatch in flight before
+// their stores: at(j, dst, src, valid) gives chunk j's shared-window
+// address, its first element (an address in the tensor, also where nothing
+// is read) and its elements below D (0 past L)
+template <typename At>
+__device__ __forceinline__ void narrow_copy(int n, At at) {
+  for (int j0 = 0; j0 < n; j0 += kNarrowBatch) {
+    uint32_t w[kNarrowBatch][5];
+#pragma unroll
+    for (int i = 0; i < kNarrowBatch; ++i) {
+      uint32_t dst;
+      const __nv_bfloat16* src;
+      int valid;
+      at(j0 + i, dst, src, valid);
+      narrow_load(w[i], src, j0 + i < n ? valid : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kNarrowBatch; ++i) {
+      if (j0 + i < n) {
+        uint32_t dst;
+        const __nv_bfloat16* src;
+        int valid;
+        at(j0 + i, dst, src, valid);
+        narrow_store(dst, w[i], src, valid);
+      }
+    }
+  }
+}
+
+// The producer's copies in the 128-byte swizzle: element (row, 16-byte
+// chunk cc) of a box of 64 rows at row * 128 + (cc ^ row % 8) * 16; by
+// cp.async, or narrow (kNarrow: the header's Design), each compiled apart.
 // Q's 128 rows from q0 (src: the head's first row), its DP / 8 chunks a row
-// in wgmma_qboxes boxes a 64-row warpgroup; rows past L and chunks past
-// `chunks` (D / 8) read as zeros
-template <int DP>
+// in wgmma_qboxes boxes a 64-row warpgroup; rows past L and columns at or
+// past D read as zeros
+template <int DP, bool kNarrow>
 __device__ __forceinline__ void wgmma_copy_q(uint32_t qs, const __nv_bfloat16* src, long long rs,
-                                             int q0, int L, int chunks, int tid) {
+                                             int q0, int L, int D, int tid) {
   constexpr int QC = DP / 8, QB = wgmma_qboxes<DP>();
-  for (int i = tid; i < 128 * QC; i += 128) {
-    const int row = i / QC, cc = i % QC, r = row % 64;
-    const bool ok = q0 + row < L && cc < chunks;
-    cp_async16_to(qs + (row / 64 * QB + cc / 8) * kWgmmaBox + r * 128 + ((cc % 8 ^ r % 8) << 4),
-                  src + (ok ? (long long)(q0 + row) * rs + 8 * cc : 0), ok);
+  const auto at = [&](int i, int& row, int& cc) {
+    row = i / QC;
+    cc = i % QC;
+    return qs + (row / 64 * QB + cc / 8) * kWgmmaBox + row % 64 * 128 +
+           ((cc % 8 ^ row % 8) << 4);
+  };
+  if constexpr (kNarrow) {
+    narrow_copy(QC, [&](int j, uint32_t& dst, const __nv_bfloat16*& s, int& valid) {
+      int row, cc;
+      dst = at(tid + 128 * j, row, cc);
+      s = src + (long long)min(q0 + row, L - 1) * rs + 8 * cc;
+      valid = q0 + row < L ? D - 8 * cc : 0;
+    });
+  } else {
+    const int chunks = D / 8;
+    for (int i = tid; i < 128 * QC; i += 128) {
+      int row, cc;
+      const uint32_t dst = at(i, row, cc);
+      const bool ok = q0 + row < L && cc < chunks;
+      cp_async16_to(dst, src + (ok ? (long long)(q0 + row) * rs + 8 * cc : 0), ok);
+    }
   }
 }
 // A tile: keys key0 .. key0 + 63, columns from 128 cb (piece cb), its first
-// `width` chunks (the two boxes of a stage hold 16); keys past L and chunks
-// past `chunks` read as zeros, chunks past `width` are not written
+// `width` chunks (the two boxes of a stage hold 16); keys past L and columns
+// at or past D read as zeros, chunks past `width` are not written.  Thread
+// tid takes chunk tid % 16 of rows tid / 16 + 8 j.
+template <bool kNarrow>
 __device__ __forceinline__ void wgmma_copy_tile(uint32_t dst, const __nv_bfloat16* src,
                                                 long long rs, int key0, int cb, int width, int L,
-                                                int chunks, int tid) {
+                                                int D, int tid) {
+  if constexpr (kNarrow) {
+    const int cc = tid % 16, col = 8 * (16 * cb + cc);
+    if (cc < width)
+      narrow_copy(8, [&](int j, uint32_t& d, const __nv_bfloat16*& s, int& valid) {
+        const int row = tid / 16 + 8 * j, key = key0 + row;
+        d = dst + cc / 8 * kWgmmaBox + row * 128 + ((cc % 8 ^ row % 8) << 4);
+        s = src + (long long)min(key, L - 1) * rs + col;
+        valid = key < L ? D - col : 0;
+      });
+  } else {
+    const int chunks = D / 8;
 #pragma unroll
-  for (int e = tid; e < 64 * 16; e += 128) {
-    const int row = e / 16, cc = e % 16, key = key0 + row, col = 16 * cb + cc;
-    if (cc >= width) continue;
-    const bool ok = key < L && col < chunks;
-    cp_async16_to(dst + cc / 8 * kWgmmaBox + row * 128 + ((cc % 8 ^ row % 8) << 4),
-                  src + (ok ? (long long)key * rs + 8 * col : 0), ok);
+    for (int e = tid; e < 64 * 16; e += 128) {
+      const int row = e / 16, cc = e % 16, key = key0 + row, col = 16 * cb + cc;
+      if (cc >= width) continue;
+      const bool ok = key < L && col < chunks;
+      cp_async16_to(dst + cc / 8 * kWgmmaBox + row * 128 + ((cc % 8 ^ row % 8) << 4),
+                    src + (ok ? (long long)key * rs + 8 * col : 0), ok);
+    }
+  }
+}
+// This producer thread's arrival on a stage's (or Q's) barrier, one of its
+// 128, once its copies are in: cp.async's own arrival (.noinc), or after the
+// narrow copies' stores a proxy fence (the consumers' wgmma reads through
+// the async proxy) and a plain arrival
+template <bool kNarrow>
+__device__ __forceinline__ void wgmma_filled(uint32_t bar) {
+  if constexpr (kNarrow) {
+    fence_proxy_async();
+    mbar_arrive(bar);
+  } else {
+    cp_async_arrive(bar);
   }
 }
 
@@ -736,21 +861,66 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[NB][32], const uint32_t (&p)
 }
 
 // o[nb][4 n + 2 r + e]: row `row` + 8 r, column col0 + 64 nb + 8 n + 2 t + e,
-// stored below L and D (D % 8 == 0)
-template <int NB, typename TO>
+// stored below L and D: two elements a store (D % 8 == 0) where !kNarrow;
+// else a pair a store where `pairs` (every row of the head starts on a
+// pair's boundary; at odd D the last column alone), else an element a store
+template <int NB, bool kNarrow, typename TO>
 __device__ __forceinline__ void wgmma_store(TO* op, long long out_rs, int row, int L, int D,
-                                            int col0, const float (&o)[NB][32], int t) {
+                                            int col0, const float (&o)[NB][32], int t,
+                                            bool pairs) {
+  if (!kNarrow || pairs) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = col0 + 64 * nb + 8 * n + 2 * t;
+        if (kNarrow ? col + 1 < D : col < D) {
+          if (row < L) store2(op + (long long)row * out_rs + col, o[nb][4 * n], o[nb][4 * n + 1]);
+          if (row + 8 < L)
+            store2(op + (long long)(row + 8) * out_rs + col, o[nb][4 * n + 2], o[nb][4 * n + 3]);
+        } else if (kNarrow && col < D) {
+          if (row < L) op[(long long)row * out_rs + col] = from_float<TO>(o[nb][4 * n]);
+          if (row + 8 < L)
+            op[(long long)(row + 8) * out_rs + col] = from_float<TO>(o[nb][4 * n + 2]);
+        }
+      }
+    return;
+  }
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = col0 + 64 * nb + 8 * n + 2 * t;
-      if (col < D) {
-        if (row < L) store2(op + (long long)row * out_rs + col, o[nb][4 * n], o[nb][4 * n + 1]);
-        if (row + 8 < L)
-          store2(op + (long long)(row + 8) * out_rs + col, o[nb][4 * n + 2], o[nb][4 * n + 3]);
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 64 * nb + 8 * n + 2 * t + e % 2, r = row + 8 * (e / 2);
+        if (col < D && r < L) op[(long long)r * out_rs + col] = from_float<TO>(o[nb][4 * n + e]);
       }
-    }
+}
+
+// The one-pass kernel's producer warpgroup: Q, then K's tiles (P column
+// pieces each), then V's by piece, by cp.async or narrow (kNarrow), each
+// stage once the consumers have released it
+template <int DP, bool kNarrow>
+__device__ __forceinline__ void wgmma_one_pass_produce(const WgmmaBlock<DP>& blk,
+                                                       const __nv_bfloat16* q,
+                                                       const __nv_bfloat16* k,
+                                                       const __nv_bfloat16* v, long long rs,
+                                                       int L, int D, int tid) {
+  constexpr int S = WgmmaBlock<DP>::S, P = wgmma_pieces<DP>();
+  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys;
+  wgmma_copy_q<DP, kNarrow>(blk.qs, q, rs, blk.q0, L, D, tid);
+  wgmma_filled<kNarrow>(blk.qfull());
+  for (int n = 0; n < 2 * P * nt; ++n) {
+    const bool is_k = n < P * nt;
+    const int j = is_k ? n / P : (n - P * nt) % nt;
+    const int cb = is_k ? n % P : (n - P * nt) / nt, stage = n % S;
+    mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
+    wgmma_copy_tile<kNarrow>(blk.ring + stage * kWgmmaStage, is_k ? k : v, rs, j * kWgmmaKeys,
+                             cb, is_k ? wgmma_width<DP>(cb) / 8 : 8 * wgmma_vboxes<DP>(cb), L,
+                             D, tid);
+    wgmma_filled<kNarrow>(blk.full(stage));
+  }
+  cp_async_wait_all();
 }
 
 // The wgmma kernels' arguments, as launch_wgmma_kernel passes them
@@ -761,10 +931,13 @@ __device__ __forceinline__ void wgmma_store(TO* op, long long out_rs, int row, i
       long long out_rs, float scale
 #define ESV_WGMMA_ARGS q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale
 
-// bf16 q, k, v at a head dim D of padded depth DP (D % 8 == 0; DP 80-128 or
-// 160-512), 16 < L <= 256: a block of kWgmmaRows query rows, one pass (the
-// header's Design)
-template <typename TO, int DP>
+// bf16 q, k, v at a head dim D of padded depth DP (DP 80-128 or 160-512; at
+// 80-128 D % 8 == 0), 16 < L <= 256: a block of kWgmmaRows query rows, one
+// pass (the header's Design).  kNarrow (past depth 128): rows that are not
+// whole 16-byte chunks, the producer's narrow copies; compiled apart, for
+// the narrow producer's code in the same kernel cost the cp.async path 6-10%
+// at depth 336 (PERF.md §6)
+template <typename TO, int DP, bool kNarrow>
 __device__ __forceinline__ void wgmma_one_pass(ESV_WGMMA_PARAMS) {
   static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
   static_assert(DP % 16 == 0 && DP > 64 && DP <= kAttnMaxHeadDim, "padded depth");
@@ -778,24 +951,13 @@ __device__ __forceinline__ void wgmma_one_pass(ESV_WGMMA_PARAMS) {
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
   const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h, q0 = blk.q0;
-  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys, chunks = D / 8;
+  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys;
   const long long in_off = (long long)b * in_bs + (long long)h * D;
 
-  if (wg == 2) {  // producer: Q, then K's tiles (P column pieces each), then V's by piece
+  static_assert(!kNarrow || DP > 128, "narrow rows only past depth 128");
+  if (wg == 2) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    wgmma_copy_q<DP>(blk.qs, q + in_off, in_rs, q0, L, chunks, tid);
-    cp_async_arrive(blk.qfull());
-    for (int n = 0; n < 2 * P * nt; ++n) {
-      const bool is_k = n < P * nt;
-      const int j = is_k ? n / P : (n - P * nt) % nt;
-      const int cb = is_k ? n % P : (n - P * nt) / nt, stage = n % S;
-      mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
-      wgmma_copy_tile(blk.ring + stage * kWgmmaStage, (is_k ? k : v) + in_off, in_rs,
-                      j * kWgmmaKeys, cb,
-                      is_k ? wgmma_width<DP>(cb) / 8 : 8 * wgmma_vboxes<DP>(cb), L, chunks, tid);
-      cp_async_arrive(blk.full(stage));
-    }
-    cp_async_wait_all();
+    wgmma_one_pass_produce<DP, kNarrow>(blk, q + in_off, k + in_off, v + in_off, in_rs, L, D, tid);
     return;
   }
 
@@ -875,6 +1037,10 @@ __device__ __forceinline__ void wgmma_one_pass(ESV_WGMMA_PARAMS) {
   // every tile's products issued before the wait: o[nb][4n + 2r + e] is row
   // 16 warp + g + 8r, column 128 half + 64 nb + 8n + 2t + e
   TO* op = out + (long long)b * out_bs + (long long)h * D;
+  // rows of whole 16-byte chunks: an output of pairs (wide_takes' and
+  // launch_attention_dim's calls); else pairs where this head's rows allow
+  const bool pairs = !kNarrow || (reinterpret_cast<uintptr_t>(op) % (2 * sizeof(TO)) == 0 &&
+                                  out_rs % 2 == 0);
   const int row = q0 + 64 * wg + 16 * warp + g;
   const auto pv_piece = [&](auto boxes, int half) {
     constexpr int NB = decltype(boxes)::value;
@@ -890,7 +1056,7 @@ __device__ __forceinline__ void wgmma_one_pass(ESV_WGMMA_PARAMS) {
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) fence_operands(o[nb]);
     ring.release(ring.taken);
-    if (active) wgmma_store<NB>(op, out_rs, row, L, D, 128 * half, o, t);
+    if (active) wgmma_store<NB, kNarrow>(op, out_rs, row, L, D, 128 * half, o, t, pairs);
   };
   // the pieces of 128 columns in a loop, then the last where it is narrower
   constexpr int kWhole = wgmma_width<DP>(P - 1) == 128 ? P : P - 1;
@@ -903,17 +1069,17 @@ __device__ __forceinline__ void wgmma_one_pass(ESV_WGMMA_PARAMS) {
 // The one-pass kernel up to depth 256 (attention_kernel_wgmma) and past it
 // (attention_kernel_wgmma_deep): the same code under names of their own, so
 // that the launch counts tell them apart
-template <typename TO, int DP>
+template <typename TO, int DP, bool kNarrow = false>
 __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma(ESV_WGMMA_PARAMS) {
   static_assert(DP <= 256, "past depth 256: attention_kernel_wgmma_deep");
-  wgmma_one_pass<TO, DP>(ESV_WGMMA_ARGS);
+  wgmma_one_pass<TO, DP, kNarrow>(ESV_WGMMA_ARGS);
 }
 
-template <typename TO, int DP>
+template <typename TO, int DP, bool kNarrow = false>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
     attention_kernel_wgmma_deep(ESV_WGMMA_PARAMS) {
   static_assert(DP > 256, "up to depth 256: attention_kernel_wgmma");
-  wgmma_one_pass<TO, DP>(ESV_WGMMA_ARGS);
+  wgmma_one_pass<TO, DP, kNarrow>(ESV_WGMMA_ARGS);
 }
 
 
@@ -921,31 +1087,28 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
 // rows past 256 keys: a block of kWgmmaRows query rows, two passes over K
 // (the header's Design)
 template <typename TO, int DP>
-__global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask, TO* __restrict__ out,
-    int L, int D, long long in_bs, long long in_rs, long long out_bs, long long out_rs,
-    float scale) {
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    attention_kernel_wgmma_2pass(ESV_WGMMA_PARAMS) {
   static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
   static_assert(DP % 16 == 0 && DP <= 128, "padded depth: one piece");
   constexpr int S = WgmmaBlock<DP>::S, QB = wgmma_qboxes<DP>(), NB = wgmma_vboxes<DP>(0);
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
   const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h, q0 = blk.q0;
-  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys, chunks = D / 8;
+  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys;
   const long long in_off = (long long)b * in_bs + (long long)h * D;
 
   if (wg == 2) {  // producer: Q; K's tiles (pass 1); K's and V's tile j in turn (pass 2)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    wgmma_copy_q<DP>(blk.qs, q + in_off, in_rs, q0, L, chunks, tid);
-    cp_async_arrive(blk.qfull());
+    wgmma_copy_q<DP, false>(blk.qs, q + in_off, in_rs, q0, L, D, tid);
+    wgmma_filled<false>(blk.qfull());
     for (int n = 0; n < 3 * nt; ++n) {
       const bool is_k = n < nt || (n - nt) % 2 == 0;
       const int j = n < nt ? n : (n - nt) / 2, stage = n % S;
       mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
-      wgmma_copy_tile(blk.ring + stage * kWgmmaStage, (is_k ? k : v) + in_off, in_rs,
-                      j * kWgmmaKeys, 0, is_k ? DP / 8 : 8 * NB, L, chunks, tid);
-      cp_async_arrive(blk.full(stage));
+      wgmma_copy_tile<false>(blk.ring + stage * kWgmmaStage, (is_k ? k : v) + in_off, in_rs,
+                             j * kWgmmaKeys, 0, is_k ? DP / 8 : 8 * NB, L, D, tid);
+      wgmma_filled<false>(blk.full(stage));
     }
     cp_async_wait_all();
     return;
@@ -1017,9 +1180,9 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass
     for (int nb = 0; nb < NB; ++nb) fence_operands(o[nb]);
     ring.release(ring.taken);
   }
-  if (active)
-    wgmma_store<NB>(out + (long long)b * out_bs + (long long)h * D, out_rs,
-                    q0 + 64 * wg + 16 * warp + g, L, D, 0, o, t);
+  if (active)  // launch_attention_dim's rows: whole 16-byte chunks, an aligned output
+    wgmma_store<NB, false>(out + (long long)b * out_bs + (long long)h * D, out_rs,
+                           q0 + 64 * wg + 16 * warp + g, L, D, 0, o, t, true);
 }
 
 #undef ESV_ACC32
@@ -1028,17 +1191,17 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) attention_kernel_wgmma_2pass
 #undef ESV_WGMMA_ARGS
 
 // Whether the kernels above take a call at a padded depth past 128 (bf16 at
-// every one, float32 at 256 only: launch_attention_padded): rows of whole
-// 16-byte chunks (D * sizeof(T) % 16 == 0, q, k, v and their strides 16-byte
-// aligned), an output written two elements at a time, and L past 16 (bf16:
-// up to kWgmmaMaxKeys)
+// every one, float32 at 256 only: launch_attention_padded) past 16 keys:
+// bf16 up to kWgmmaMaxKeys in rows of any width and offset (launch_wgmma_kernel
+// picks the copy); float32 in rows of whole 16-byte chunks (D * sizeof(T) %
+// 16 == 0, q, k, v and their strides 16-byte aligned) and an output written
+// two elements at a time
 template <typename T, typename TO>
 static bool wide_takes(const T* q, const T* k, const T* v, const TO* out, int L, int D,
                        long long in_bs, long long in_rs, long long out_bs, long long out_rs) {
-  const bool f32 = std::is_same<T, float>::value;
-  return L > 16 && (f32 || L <= kWgmmaMaxKeys) && (D * sizeof(T)) % 16 == 0 && aligned16(q) &&
-         aligned16(k) && aligned16(v) && (in_bs * sizeof(T)) % 16 == 0 &&
-         (in_rs * sizeof(T)) % 16 == 0 &&
+  if (!std::is_same<T, float>::value) return L > 16 && L <= kWgmmaMaxKeys;
+  return L > 16 && (D * sizeof(T)) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+         (in_bs * sizeof(T)) % 16 == 0 && (in_rs * sizeof(T)) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 && out_bs % 2 == 0 &&
          out_rs % 2 == 0;
 }
@@ -1071,16 +1234,32 @@ static cudaError_t launch_wgmma_kernel(AttnKernel kind, const __nv_bfloat16* q,
   return counted_launch(kind);
 }
 
-// bf16 at a head dim D of padded depth DP, 16 < L <= kWgmmaMaxKeys, rows of
-// whole 16-byte chunks: one pass (launch_attention_dim at D = 72-128,
-// launch_attention_wide at depths 160-512), past depth 256 as
-// attention_kernel_wgmma_deep
+// bf16 at a head dim D of padded depth DP, 16 < L <= kWgmmaMaxKeys: one pass
+// (launch_attention_dim at D = 72-128, launch_attention_wide at depths
+// 160-512 in rows of any width), past depth 256 as
+// attention_kernel_wgmma_deep; rows that are not whole 16-byte chunks on
+// 16-byte boundaries (past depth 128 only) on the instantiation with the
+// producer's narrow copies, chosen here
 template <int DP, typename TO>
 static cudaError_t launch_attention_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, const float* mask, TO* out,
                                           int B, int H, int L, int D, long long in_bs,
                                           long long in_rs, long long out_bs, long long out_rs,
                                           cudaStream_t stream) {
+  if constexpr (DP > 128) {
+    if (!(D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && in_bs % 8 == 0 &&
+          in_rs % 8 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 &&
+          out_bs % 2 == 0 && out_rs % 2 == 0)) {
+      if constexpr (DP > 256)
+        return launch_wgmma_kernel<attention_kernel_wgmma_deep<TO, DP, true>, DP, TO>(
+            kAttnKernelWgmmaDeep, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
+            stream);
+      else
+        return launch_wgmma_kernel<attention_kernel_wgmma<TO, DP, true>, DP, TO>(
+            kAttnKernelWgmma, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
+            stream);
+    }
+  }
   if constexpr (DP > 256)
     return launch_wgmma_kernel<attention_kernel_wgmma_deep<TO, DP>, DP, TO>(
         kAttnKernelWgmmaDeep, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,

@@ -17,10 +17,11 @@
 // at 1024, 275 at 1100, 384 and 512 at 1536 and 2048) takes
 // attention_padded.cuh's kernels at its padded depth (ESV_K1_PAD_DEPTHS),
 // with the head dim a run-time argument: past 256 its deep kernels
-// (attention_kernel_deep_f32, attention_kernel_deep); bf16 rows of whole
-// 16-byte chunks and 17-256 keys past depth 128 go to attention_wide.cuh's
-// attention_kernel_wgmma (160-256) and attention_kernel_wgmma_deep
-// (288-512).
+// (attention_kernel_deep_f32, attention_kernel_deep), past 128 its short
+// kernels at L <= 16 (attention_kernel_short_f32, attention_kernel_short:
+// the box decoders at d_model 768-2048); bf16 rows of 17-256 keys past
+// depth 128, of any width, go to attention_wide.cuh's attention_kernel_wgmma
+// (160-256) and attention_kernel_wgmma_deep (288-512).
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
@@ -35,8 +36,9 @@
 // of whole 16-byte chunks, past 256 as attention_kernel_wgmma_deep), and
 // past 256 keys at every D in two passes on wgmma
 // (attention_kernel_wgmma_2pass); at L <= 16 one
-// warp's cp.async ring (attention_kernel).  float32 weights are not
-// rounded, and their softmax runs online.
+// warp's cp.async ring (attention_kernel), past depth 128 a block of G
+// warps per (batch, head) (attention_kernel_short).  float32 weights are
+// not rounded, and their softmax runs online.
 //
 // Translation units: this file is compiled once for the C entries below,
 // once for each group of one or two head dims (ops/_build.py:
@@ -72,7 +74,8 @@
 // attention_kernel_padded, 5: attention_kernel_split_f32, 6:
 // attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass, 8:
 // attention_kernel_deep_f32, 9: attention_kernel_deep, 10:
-// attention_kernel_wgmma_deep; null and -1 past the last) and count the
+// attention_kernel_wgmma_deep, 11: attention_kernel_short_f32, 12:
+// attention_kernel_short; null and -1 past the last) and count the
 // launches of it that this library's entries have made since it was loaded:
 // which kernel a call takes is decided in launch_attention_dim and
 // launch_attention_padded alone, and the counts say which ran.

@@ -4,7 +4,7 @@ on the card.
 
     python -m explainable_spatial_vqa_tpu_torch.measure.attention_variants
         [--rounds 6] [--iters 20] [--variants ring,warps8,...]
-        [--kinds onepass,wide,past128] [--against LABEL=CSRC_DIR]
+        [--kinds onepass,wide,past128,narrow,short] [--against LABEL=CSRC_DIR]
 
 Each variant asks one question of a shipped kernel (``VARIANTS``).  Of K1's
 bf16 kernels at head dims up to 128 (``csrc/attention.cuh``'s one-pass
@@ -72,6 +72,29 @@ same inputs in every round, each case's bound printed):
 * ``wgmma_stages6``: the ring at 6 stages of 16 KB at every depth (8 up to
   depth 384, 7 at 448 and 6 at 512 as shipped): what fewer stages cost.
 
+Of the rows that are not whole 16-byte chunks (``NARROW_CASES``: d_model
+1100's fusion encoder, D = 275, in float32 on ``attention_kernel_deep_f32``'s
+4-byte ``cp.async`` and in bf16 on ``attention_kernel_wgmma_deep``'s narrow
+copies; the d 100 protocol's, D = 25, on the padded kernels; K2's attention
+at 384 and 512, whose 16-byte copies share the changed loader), the
+``fused_attention`` library's ``esv_attention``:
+
+* ``wgmma_narrow_batch4``: the wgmma kernels' producer with the loads of 4
+  chunks in flight at once instead of ``kNarrowBatch`` (2);
+* ``padded_no_middle``: the deep float32 kernels copy rows that are not
+  whole 16-byte chunks element by element, as the padded kernels do,
+  instead of shifting each row in shared memory to copy its middle 16
+  bytes at a time.
+
+Of the rows of at most 16 keys past padded depth 128 (``SHORT_CASES``: the
+box decoders at d_model 768-2048, on the short kernels), the same library;
+with ``--against`` each case's output is also compared with the other
+library's bit for bit (the bf16 short kernel takes one pass where the padded
+kernel took two, over one tile: the same weights).  These two kinds time each
+library also by its kernels' device time (``measure.variants.device_ms``,
+torch.profiler), in the same rounds: a box decoder's kernel takes
+microseconds and its call through ctypes more.
+
 ``--against LABEL=CSRC_DIR`` adds the libraries of the kinds asked for
 (``--kinds``, all by default), built from another ``csrc/`` (the parent
 commit's, unpacked by ``git archive``) with the same flags, under LABEL: a
@@ -80,11 +103,12 @@ change to the kernels timed against what it replaces in one process.
 The variants compile in parallel into ``_build/attention_variants/``, and
 ptxas's notes on wgmma it serialised are printed for each library.  Each
 library's entry runs every case of its kind: first its largest error against
-the plain version (``ops.attention.dot_product_attention``), then
+the plain version (``ops.attention.dot_product_attention``, itself timed
+beside the kernels of the ``narrow`` and ``short`` kinds), then
 ``--rounds`` rounds of CUDA-event means over ``--iters`` calls, the libraries
-in turn (reversed every other round), and the medians.  It prints one line
-per library and one JSON object (every round's time).  It needs a card and
-``nvcc``.
+in turn (reversed every other round), and the medians with the spread
+(the least and largest round).  It prints one line per library and one JSON
+object (every round's time).  It needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -93,17 +117,24 @@ import argparse
 import ctypes
 import statistics
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from explainable_spatial_vqa_tpu_torch.bench import emit_json
 from explainable_spatial_vqa_tpu_torch.device import card_line, resolve_device
-from explainable_spatial_vqa_tpu_torch.measure.variants import Edit, build_variants, mean_ms
+from explainable_spatial_vqa_tpu_torch.measure.variants import (
+    Edit,
+    build_variants,
+    device_ms,
+    mean_ms,
+    ptxas_usage,
+)
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
-__all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "PAST128_VARIANTS", "ONEPASS_CASES",
-           "WGMMA_CASES", "WIDE_CASES", "PAST128_CASES", "main"]
+__all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "PAST128_VARIANTS",
+           "NARROW_VARIANTS", "SHORT_VARIANTS", "ONEPASS_CASES", "WGMMA_CASES", "WIDE_CASES",
+           "PAST128_CASES", "NARROW_CASES", "SHORT_CASES", "main"]
 
 # label, head dim, B, L, ragged key mask; H = 4, bf16
 ONEPASS_CASES = (("transformer_iqap encoder", 64, 512, 243, False),
@@ -143,6 +174,27 @@ HEADS, WIDE_DIM = 4, 256
 PAST128_CASES = (("d 768 encoder", "K1", 192, 128, 208, True),
                  ("d 1280 encoder", "K1", 320, 128, 208, True),
                  ("K3 attention d 2048", "block", 512, 128, 224, False))
+# the rows whose loads changed when the kernels stopped copying rows that are
+# not whole 16-byte chunks element by element: label, layout (as
+# WIDE_CASES), type of q/k/v, output type, head dim, B, L, ragged key mask;
+# H = 4
+NARROW_CASES = (("d 1100 encoder", "K1", "fp32", "fp32", 275, 128, 210, True),
+                ("d 1100 encoder bf16", "K1", "bf16", "bf16", 275, 128, 210, True),
+                ("protocol d 100 fusion encoder", "K1", "fp32", "fp32", 25, 128, 208, True),
+                ("protocol d 100 fusion encoder bf16", "K1", "bf16", "bf16", 25, 128, 208, True),
+                ("K2 attention d 1536 fp32", "block", "fp32", "fp32", 384, 128, 208, True),
+                ("K2 attention d 2048", "block", "fp32", "bf16", 512, 128, 210, True))
+# the box decoders past padded depth 128 (rows of at most 16 keys, no mask),
+# as NARROW_CASES
+SHORT_CASES = (("serving d 2048 box decoder", "K1", "bf16", "bf16", 512, 128, 10, False),
+               ("serving d 1280 box decoder bf16", "K1", "bf16", "bf16", 320, 128, 10, False),
+               ("serving d 1024 box decoder bf16", "K1", "bf16", "bf16", 256, 128, 10, False),
+               ("serving d 768 box decoder bf16", "K1", "bf16", "bf16", 192, 128, 10, False),
+               ("protocol d 2048 box decoder", "K1", "fp32", "fp32", 512, 128, 8, False),
+               ("protocol d 1536 box decoder", "K1", "fp32", "fp32", 384, 128, 8, False),
+               ("protocol d 1024 box decoder", "K1", "fp32", "fp32", 256, 128, 8, False))
+# the kinds timed by device time too, in the same rounds
+DEVICE_TIMED = ("narrow", "short")
 
 _DIV = ("          p[n][r] = pack_bf16x2(div_by(s[kt][n][2 * r], denom[r], inv[r]),\n"
         "                                div_by(s[kt][n][2 * r + 1], denom[r], inv[r]));\n")
@@ -189,10 +241,11 @@ ONEPASS_VARIANTS: Dict[str, Sequence[Edit]] = {
     "wgmma_unmasked": (("attention_wide.cuh",
                         "const float* mrow = mask == nullptr ? nullptr : mask + (long long)blk.b * L;",
                         "const float* mrow = nullptr;"),),
-    "wgmma_no_fill": (("attention_wide.cuh", "    if (cc >= width) continue;",
-                       "    if (cc >= width || true) continue;"),
-                      ("attention_wide.cuh", "    const bool ok = q0 + row < L && cc < chunks;\n",
-                       "    const bool ok = q0 + row < L && cc < chunks;\n    if (ok || !ok) continue;\n")),
+    "wgmma_no_fill": (("attention_wide.cuh", "      if (cc >= width) continue;",
+                       "      if (cc >= width || true) continue;"),
+                      ("attention_wide.cuh", "      const bool ok = q0 + row < L && cc < chunks;\n",
+                       "      const bool ok = q0 + row < L && cc < chunks;\n"
+                       "      if (ok || !ok) continue;\n")),
     "wgmma_consumers_idle": tuple(
         ("attention_wide.cuh", f"const bool active = q0 + 64 * wg < L;  // {note}\n",
          "const bool active = false;\n")
@@ -231,7 +284,17 @@ PAST128_VARIANTS: Dict[str, Sequence[Edit]] = {
     "wgmma_stages6": (("attention_wide.cuh", "constexpr int kWgmmaStages = 8;",
                        "constexpr int kWgmmaStages = 6;"),),
 }
-VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS, **PAST128_VARIANTS}
+NARROW_VARIANTS: Dict[str, Sequence[Edit]] = {
+    "wgmma_narrow_batch4": (("attention_wide.cuh", "constexpr int kNarrowBatch = 2;",
+                             "constexpr int kNarrowBatch = 4;"),),
+    "padded_no_middle": (("attention_padded.cuh",
+                          "  if (kNarrow && std::is_same<T, float>::value && (rs * 4) % 16 == 0 &&",
+                          "  if (false && (rs * 4) % 16 == 0 &&"),),
+
+}
+SHORT_VARIANTS: Dict[str, Sequence[Edit]] = {}
+VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS, **PAST128_VARIANTS,
+                                       **NARROW_VARIANTS, **SHORT_VARIANTS}
 
 _TYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -291,6 +354,19 @@ def _past128_inputs(dev: torch.device):
     return out
 
 
+def _typed_inputs(dev: torch.device, table, seed: int):
+    """[(label, (q, k, v, mask, out type))] at ``table``'s cases
+    (``NARROW_CASES``, ``SHORT_CASES``), from ``seed``: q, k, v as (B, L, H *
+    D) views (``ops.fused_attention.call_rows``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for label, layout, name, out_name, d_head, b, length, masked in table:
+        q, k, v = _rows(gen, dev, layout, b, length, HEADS * d_head, _TYPES[name])
+        out.append((label, (q, k, v, _ragged(gen, dev, b, length) if masked else None,
+                            _TYPES[out_name])))
+    return out
+
+
 def _sdpa_call():
     """``scaled_dot_product_attention`` as a library's call: on (B, H, L, D)
     copies of q, k and v made once per input; its (B, H, L, D) output."""
@@ -308,15 +384,19 @@ def _sdpa_call():
     return call
 
 
-def _bound_ms(q, mask) -> float:
-    """The least time of a bf16 attention call on the card: the larger of its
-    4 L^2 D operations a head at the bf16 rate and its bytes (q, k, v and
-    the output, and the mask, each moved once) at the memory rate."""
+def _bound_ms(q, mask, out_dtype=torch.bfloat16) -> float:
+    """The least time of an attention call on the card: the larger of its 4
+    L^2 D operations a head (bf16 at its rate; float32 as 3xTF32, three TF32
+    products each) and its bytes (q, k, v, the output and the mask each
+    moved once) at the memory rate."""
     from explainable_spatial_vqa_tpu_torch.device import PEAK_BYTES, PEAK_OPS
 
     b, length, d = q.shape
-    nbytes = 4 * b * length * d * 2 + (b * length * 4 if mask is not None else 0)
-    return 1e3 * max(4.0 * b * length * length * d / PEAK_OPS["bf16"], nbytes / PEAK_BYTES)
+    nbytes = (3 * q.element_size() + torch.empty((), dtype=out_dtype).element_size()) \
+        * b * length * d + (b * length * 4 if mask is not None else 0)
+    ops = 4.0 * b * length * length * d
+    t_ops = ops / PEAK_OPS["bf16"] if q.dtype == torch.bfloat16 else 3 * ops / PEAK_OPS["tf32"]
+    return 1e3 * max(t_ops, nbytes / PEAK_BYTES)
 
 
 def _plain(q, k, v, mask, out_dtype):
@@ -332,7 +412,7 @@ def main(argv: Sequence[str] = ()) -> dict:
     parser.add_argument("--rounds", type=int, default=6)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--variants", default=",".join(VARIANTS))
-    parser.add_argument("--kinds", default="onepass,wide,past128",
+    parser.add_argument("--kinds", default="onepass,wide,past128,narrow,short",
                         help="the kinds of cases timed (their libraries built for --against)")
     parser.add_argument("--against", default="",
                         help="LABEL=CSRC_DIR: the libraries built from that csrc/ too")
@@ -349,7 +429,9 @@ def main(argv: Sequence[str] = ()) -> dict:
     against, _, tree = args.against.partition("=")
     libraries = {"onepass": ("fused_attention", ONEPASS_VARIANTS, "esv_attention"),
                  "wide": ("fused_block", WIDE_VARIANTS, "esv_block_attention"),
-                 "past128": ("fused_attention", PAST128_VARIANTS, "esv_attention")}
+                 "past128": ("fused_attention", PAST128_VARIANTS, "esv_attention"),
+                 "narrow": ("fused_attention", NARROW_VARIANTS, "esv_attention"),
+                 "short": ("fused_attention", SHORT_VARIANTS, "esv_attention")}
     kinds = {kind: [n for n in names if n in libraries[kind][1]]
              for kind in args.kinds.split(",") if kind}
     calls: Dict[str, Dict[str, object]] = {}
@@ -370,27 +452,46 @@ def main(argv: Sequence[str] = ()) -> dict:
         for name, log in logs.items():  # ptxas's notes on wgmma it serialised, and why
             notes = sorted({line.split("Potential Performance Loss: ")[-1].strip()
                             for line in log.splitlines() if "serialized" in line})
+            spills = {fn: spill for fn, (_, spill) in ptxas_usage(log).items()
+                      if spill and "attention_kernel" in fn}
             print(f"{name} ({library}): ptxas serialised wgmma in {len(notes)} functions"
-                  + "".join(f"\n  {note}" for note in notes), flush=True)
+                  + "".join(f"\n  {note}" for note in notes)
+                  + f"; attention kernels that spill: {spills or 'none'}", flush=True)
         for name, lib in libs.items():
             calls.setdefault(name, {})[kind] = (
                 lambda q, k, v, mask, out_dtype, fn=bind_entry(lib, entry): call_rows(
                     fn, q, k, v, mask, HEADS, out_dtype))
-        if kind == "past128":
+        if kind in ("past128",) + DEVICE_TIMED:
             calls.setdefault("scaled_dot_product_attention", {})[kind] = _sdpa_call()
+        if kind in DEVICE_TIMED:  # the port's plain version, which the kernels must beat
+            calls.setdefault("plain", {})[kind] = _plain
     if not calls:
         raise ValueError("nothing to time: name a variant or --against")
-    inputs = {"onepass": _onepass_inputs, "wide": _wide_inputs, "past128": _past128_inputs}
+    inputs = {"onepass": _onepass_inputs, "wide": _wide_inputs, "past128": _past128_inputs,
+              "narrow": lambda d: _typed_inputs(d, NARROW_CASES, 4),
+              "short": lambda d: _typed_inputs(d, SHORT_CASES, 5)}
     cases = {kind: inputs[kind](dev) if kind in calls["shipped"] else [] for kind in inputs}
     errors: Dict[str, Dict[str, float]] = {name: {} for name in calls}
+    outputs: Dict[str, Dict[str, torch.Tensor]] = {name: {} for name in calls}
     for name, by_kind in calls.items():
         for kind, call in by_kind.items():
             for case, args_ in cases[kind]:
                 out, ref = call(*args_), _plain(*args_)
                 out = out.transpose(1, 2).reshape(ref.shape) if out.dim() == 4 else out
                 errors[name][case] = float((out.float() - ref.float()).abs().max())
+                if kind == "short":
+                    outputs[name][case] = out
+    if args.against and cases["short"]:  # the short kernels against the padded ones, bit for bit
+        same = {case: bool(torch.equal(outputs["shipped"][case], outputs[against][case]))
+                for case, _ in cases["short"]}
+        print(f"shipped against {against}, bit for bit: " + "; ".join(
+            f"{case} {'equal' if ok else 'DIFFERENT'}" for case, ok in same.items()), flush=True)
+    del outputs
     times: Dict[str, Dict[str, List[float]]] = {
         label: {name: [] for kind in by_kind for name, _ in cases[kind]}
+        for label, by_kind in calls.items()}
+    device: Dict[str, Dict[str, List[Optional[float]]]] = {
+        label: {name: [] for kind in by_kind if kind in DEVICE_TIMED for name, _ in cases[kind]}
         for label, by_kind in calls.items()}
     order = list(calls)
     for r in range(args.rounds):
@@ -398,15 +499,31 @@ def main(argv: Sequence[str] = ()) -> dict:
             for kind, call in calls[label].items():
                 for name, args_ in cases[kind]:
                     times[label][name].append(mean_ms(lambda: call(*args_), args.iters))
+                    if kind in DEVICE_TIMED:  # SDPA, plain: every kernel of the call
+                        ms = device_ms(lambda: call(*args_), args.iters,
+                                       "" if label in ("scaled_dot_product_attention", "plain")
+                                       else "attention_kernel")
+                        device[label][name].append(ms)  # None: the profile saw none
     result = {}
     for label in order:
-        result[label] = {name: dict(ms=statistics.median(ts), rounds_ms=ts,
-                                    max_abs_err=errors[label][name])
+        result[label] = {name: dict(ms=statistics.median(ts), spread_ms=[min(ts), max(ts)],
+                                    rounds_ms=ts, max_abs_err=errors[label][name])
                          for name, ts in times[label].items()}
+        for name, seen in device[label].items():
+            ts = [t for t in seen if t is not None]
+            if ts:
+                result[label][name].update(device_ms=statistics.median(ts),
+                                           device_spread_ms=[min(ts), max(ts)],
+                                           device_rounds_ms=ts,
+                                           device_rounds_unseen=len(seen) - len(ts))
         print(f"{label}: " + "; ".join(
-            f"{name} {v['ms']:.4f} ms, max_abs_err {v['max_abs_err']:.3g} against the plain "
-            f"version" for name, v in result[label].items()), flush=True)
-    bounds = {case: _bound_ms(args_[0], args_[3]) for case, args_ in cases["past128"]}
+            f"{name} {v['ms']:.4f} ms ({v['spread_ms'][0]:.4f}-{v['spread_ms'][1]:.4f})"
+            + (f", device {v['device_ms']:.4f} ms ({v['device_spread_ms'][0]:.4f}-"
+               f"{v['device_spread_ms'][1]:.4f})" if "device_ms" in v else "")
+            + f", max_abs_err {v['max_abs_err']:.3g} against the plain version"
+            for name, v in result[label].items()), flush=True)
+    bounds = {case: _bound_ms(args_[0], args_[3], args_[4])
+              for kind in ("past128",) + DEVICE_TIMED for case, args_ in cases[kind]}
     if bounds:
         print("bounds: " + "; ".join(f"{case} {ms:.4f} ms" for case, ms in bounds.items()),
               flush=True)
@@ -421,6 +538,11 @@ def main(argv: Sequence[str] = ()) -> dict:
                           past128_cases=[dict(label=c[0], layout=c[1], D=c[2], B=c[3], L=c[4],
                                               H=HEADS, ragged=c[5], bound_ms=bounds.get(c[0]))
                                          for c in PAST128_CASES],
+                          **{f"{kind}_cases": [dict(label=c[0], layout=c[1], type=c[2], out=c[3],
+                                                    D=c[4], B=c[5], L=c[6], H=HEADS, ragged=c[7],
+                                                    bound_ms=bounds.get(c[0])) for c in table]
+                             for kind, table in (("narrow", NARROW_CASES),
+                                                 ("short", SHORT_CASES))},
                           variants=result))
 
 

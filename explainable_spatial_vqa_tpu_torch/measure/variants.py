@@ -4,7 +4,8 @@ replacements, each (file, old text, new text) matching exactly once; it is
 written whole into a directory of its own, so that every header the units
 include is the variant's, and compiled there by ``_build.compile_libraries``
 with the package's flags, every unit of every variant at once.  ``mean_ms``
-times a call by CUDA events.
+times a call by CUDA events, ``device_ms`` by the kernels' own time on the
+card (torch.profiler).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
 __all__ = ["Edit", "variant_sources", "variant_tree", "build_variants", "ptxas_usage",
-           "mean_ms"]
+           "mean_ms", "device_ms"]
 
 Edit = Tuple[str, str, str]  # (file in csrc/, old text, new text)
 
@@ -95,3 +96,30 @@ def mean_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, match: str = "") -> Optional[float]:
+    """``fn``'s device time a call, under torch.profiler (CPU and CUDA
+    activity) over ``iters`` calls after 3 warm-up calls: with ``match``, the
+    mean time of the kernels whose names hold it (one a call), else every
+    kernel's time summed over the calls; None where the profiler saw none.
+    (A profile can miss some of a run's kernels; the mean of those it saw
+    stands.)  Where a call costs the host more than the card (a kernel of
+    microseconds behind a ctypes call), ``mean_ms`` times the host and this
+    the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name]
+    if not spans:
+        return None
+    return sum(spans) / 1e3 / (len(spans) if match else iters)

@@ -55,7 +55,8 @@ K1_DIM_GROUPS = ((8, 128), (16, 120), (24, 112), (32, 104), (40, 96), (48, 88), 
 # the padded kernels' depths (``ops.fused_attention.PADDED_DEPTHS``), which
 # take every other head dim up to ``MAX_HEAD_DIM``, two to a unit compiled
 # with -DESV_PAD_DEPTH_A and -DESV_PAD_DEPTH_B, a small and a large one
-# together; past 256 the deep kernels, two or one to a unit
+# together; past 256 the deep kernels, two or one to a unit (each depth's
+# unit holds its padded or deep kernels, past 128 its short and wgmma ones)
 K1_PAD_GROUPS = ((16, 256), (32, 224), (48, 192), (64, 160), (80, 128), (96, 112), (288, 512),
                  (336, 448), (384,))
 # K2's and K3's attention at their head dims (``ops.fused_block.BLOCK_HEAD_DIMS``),

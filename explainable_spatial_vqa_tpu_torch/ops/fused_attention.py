@@ -109,7 +109,12 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     one shape, dtype and device, a dtype of :data:`DTYPE_CODES`, a head dim
     of :data:`HEAD_DIMS` and a shape :func:`shape_built` takes, contiguous,
     and at a head dim of :data:`EXACT_HEAD_DIMS` 16-byte aligned (those
-    kernels copy 16 bytes at a time; the padded ones take any base)."""
+    kernels copy 16 bytes at a time).  Every other head dim takes any base:
+    its kernels copy 16 bytes at a time where a head's rows are whole
+    16-byte chunks on 16-byte boundaries, and elsewhere the wgmma kernels
+    build 16-byte chunks from 4-byte words, the deep float32 and short
+    kernels copy each row's 16-byte middle into a row shifted in shared
+    memory, and the padded kernels load element by element."""
     b, length, heads, head_dim = q.shape
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -202,11 +207,13 @@ def kernel_launches() -> Dict[str, int]:
     ``attention_kernel_onepass`` (the head dims of :data:`EXACT_HEAD_DIMS`),
     ``attention_kernel_padded_f32`` and ``attention_kernel_padded`` (every
     other head dim up to 256), ``attention_kernel_deep_f32`` and
-    ``attention_kernel_deep`` (every other head dim past it), and on
-    ``csrc/attention_wide.cuh`` ``attention_kernel_split_f32`` (float32 at
-    padded depth 256),
-    ``attention_kernel_wgmma`` (bf16 of 17-256 keys at head dims 72-128 and,
-    where rows are whole 16-byte chunks, at padded depths 160-256),
+    ``attention_kernel_deep`` (every other head dim past it),
+    ``attention_kernel_short_f32`` and ``attention_kernel_short`` (rows of
+    at most 16 keys past padded depth 128: the box decoders at d_model
+    768-2048), and on ``csrc/attention_wide.cuh``
+    ``attention_kernel_split_f32`` (float32 at padded depth 256),
+    ``attention_kernel_wgmma`` (bf16 of 17-256 keys at head dims 72-128 and
+    at padded depths 160-256, in rows of any width),
     ``attention_kernel_wgmma_deep`` (the same at padded depths 288-512) and
     ``attention_kernel_wgmma_2pass`` (bf16 past 256 keys at the head dims of
     :data:`EXACT_HEAD_DIMS`).  Which one

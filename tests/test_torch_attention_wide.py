@@ -22,10 +22,12 @@ Also: ``chip_smoke``'s mirrors of the C routing (``k1_kernel``,
 exactly where ``launch_attention_dim`` (the head dims 8-128: the one-pass
 kernels up to ``kOnePassKeys`` keys, ``attention_kernel_wgmma`` past head
 dim 64, ``attention_kernel_wgmma_2pass`` past ``kOnePassKeys`` keys) and
-``launch_attention_padded`` (every other head dim: the wide kernels past
-padded depth 128, bf16 on ``attention_kernel_wgmma`` up to depth 256 and
-``attention_kernel_wgmma_deep`` past it, float32 at depth 256 alone) send
-calls, checked against the names and limits parsed from the C sources.
+``launch_attention_padded`` (every other head dim: past padded depth 128 the
+short kernels on rows of at most 16 keys and the wide kernels past them,
+bf16 on ``attention_kernel_wgmma`` up to depth 256 and
+``attention_kernel_wgmma_deep`` past it in rows of any width, float32 at
+depth 256 alone in rows of whole 16-byte chunks) send calls, checked
+against the names and limits parsed from the C sources.
 """
 
 import os
@@ -172,8 +174,11 @@ def _wide_rule():
     and the depths where attention_padded.cuh routes to it (bf16 past depth
     128, float32 at 256 alone), parsed from the sources."""
     takes = re.search(r"static bool wide_takes\(.*?\{(.*?)\n\}", WIDE, re.S).group(1)
-    assert "L > 16" in takes and "L <= kWgmmaMaxKeys" in takes
-    assert "(D * sizeof(T)) % 16 == 0" in takes
+    # bf16 at any row width and offset up to kWgmmaMaxKeys keys; float32 in
+    # rows of whole 16-byte chunks
+    assert re.search(r"if \(!std::is_same<T, float>::value\) return L > 16 && L <= kWgmmaMaxKeys;",
+                     takes)
+    assert "L > 16" in takes and "(D * sizeof(T)) % 16 == 0" in takes
     max_keys = int(_constant("kWgmmaMaxKeys"))
     launch = re.search(r"launch_attention_wide\(.*?\n\}", WIDE, re.S).group(0)
     counted = set(re.findall(r"counted_launch\((\w+)\)", launch))
@@ -184,6 +189,25 @@ def _wide_rule():
     assert re.search(r"if constexpr \(DP > 128 && \(DP == 256 \|\| !std::is_same<T, float>::value\)\)"
                      r" \{\s*if \(wide_takes<T, TO>", padded)
     return max_keys, counted
+
+
+def _short_rule():
+    """launch_attention_padded's route to the short kernels, parsed from
+    attention_padded.cuh: (the depth past which rows of at most the parsed
+    number of keys take them, that number), checked to come before the wide
+    kernels' route, and the AttnKernel each type counts."""
+    padded = (_build.CSRC_DIR / "attention_padded.cuh").read_text()
+    body = re.search(r"static cudaError_t launch_attention_padded\(.*?\n\}", padded, re.S).group(0)
+    found = re.search(r"if constexpr \(DP > (\d+)\) \{\s*if \(L <= (\d+)\)\s*"
+                      r"return launch_attention_short<DP, T, TO>", body)
+    assert found and body.index("launch_attention_short") < body.index("wide_takes")
+    launcher = re.search(r"static cudaError_t launch_attention_short\(.*?\n\}", padded,
+                         re.S).group(0)
+    counts = dict(re.findall(r"launch_short_kernel<DP, (attention_kernel_short(?:_f32)?)<TO, DG, "
+                             r"G>, (\w+)>", launcher))
+    assert counts == {"attention_kernel_short_f32": "kAttnKernelShortF32",
+                      "attention_kernel_short": "kAttnKernelShort"}
+    return int(found.group(1)), int(found.group(2))
 
 
 def _wgmma_counts():
@@ -236,15 +260,19 @@ def test_routing_mirrors_name_the_c_kernels():
     head dims 8-128 (multiples of 8) launch_attention_dim's (bf16: the ring
     up to 16 keys, the one-pass kernel up to kOnePassKeys at head dims up to
     64 and attention_kernel_wgmma past them, attention_kernel_wgmma_2pass
-    past kOnePassKeys; float32 attention_kernel_f32), elsewhere the
-    attention_wide.cuh ones exactly where wide_takes sends a call (rows of
-    whole 16-byte chunks past 16 keys: bf16 up to kWgmmaMaxKeys at every
-    padded depth past 128, attention_kernel_wgmma up to depth 256 and
-    attention_kernel_wgmma_deep past it; float32 at padded depth 256 alone)
-    and the padded ones otherwise (past 256 the deep ones); K2's and K3's
-    attention at head dims 128, 256, 384 and 512 as K1's."""
+    past kOnePassKeys; float32 attention_kernel_f32), elsewhere past padded
+    depth 128 the short kernels on rows of at most 16 keys, the
+    attention_wide.cuh ones exactly where wide_takes sends a call (past 16
+    keys: bf16 up to kWgmmaMaxKeys at every padded depth past 128, in rows of
+    any width, attention_kernel_wgmma up to depth 256 and
+    attention_kernel_wgmma_deep past it; float32 in rows of whole 16-byte
+    chunks at padded depth 256 alone) and the padded ones otherwise (past
+    256 the deep ones); K2's and K3's attention at head dims 128, 256, 384
+    and 512 as K1's."""
     names = _names()
     max_keys, counted = _wide_rule()
+    short_depth, short_keys = _short_rule()
+    assert (short_depth, short_keys) == (128, 16)
     one_pass_keys, onepass_dims = _dim_rule()
     split, wgmma = names["kAttnKernelSplitF32"], names["kAttnKernelWgmma"]
     wgmma_deep, two_pass = names["kAttnKernelWgmmaDeep"], names["kAttnKernelWgmma2Pass"]
@@ -280,8 +308,14 @@ def test_routing_mirrors_name_the_c_kernels():
                     assert got == (exact_bf16(d, length) if kind == "bf16"
                                    else names["kAttnKernelF32"]), (d, length, kind, got)
                     continue
-                wide = (depth > 128 and d * esize % 16 == 0 and length > 16
-                        and (depth == 256 if kind == "fp32" else length <= max_keys))
+                if depth > short_depth and length <= short_keys:
+                    short = names["kAttnKernelShort" + ("" if kind == "bf16" else "F32")]
+                    assert got == short, (d, length, kind, got)
+                    routed.setdefault(got, set()).add(depth)
+                    continue
+                wide = (depth > 128 and length > 16
+                        and (depth == 256 and d * esize % 16 == 0 if kind == "fp32"
+                             else length <= max_keys))
                 new = (split if kind == "fp32" else wgmma_deep if depth > deep_depth else wgmma)
                 assert (got == new) == wide, (d, length, kind, got)
                 if wide:
@@ -289,8 +323,12 @@ def test_routing_mirrors_name_the_c_kernels():
                 else:
                     padded = "kAttnKernelDeep" if d > 256 else "kAttnKernelPadded"
                     assert got == names[padded + ("" if kind == "bf16" else "F32")]
+    past_128 = {160, 192, 224, 256, 288, 336, 384, 448, 512}
     assert routed == {split: {256}, wgmma: {160, 192, 224, 256},
-                      wgmma_deep: {288, 336, 384, 448, 512}}
+                      wgmma_deep: {288, 336, 384, 448, 512},
+                      names["kAttnKernelShort"]: past_128, names["kAttnKernelShortF32"]: past_128}
+    assert (names["kAttnKernelShort"], names["kAttnKernelShortF32"]) == (chip_smoke.SHORT,
+                                                                         chip_smoke.SHORT_F32)
     assert set(chip_smoke.WGMMA_DEPTHS) == {80, 96, 112, 128} | routed[wgmma]
     assert set(chip_smoke.WGMMA_DEEP_DEPTHS) == routed[wgmma_deep]
     for length in lengths:
