@@ -88,7 +88,14 @@ result:
    dims 384 and 512 in the (B, L, 3d) buffer, K1 on a buffer's strides, a
    negative control that must fail the bf16 check, and ``DEEP_TIMED``
    (phase 24's shapes) timed beside the plain version, SDPA (its backend
-   named by a profile) and the bound; the one-pass wgmma kernels past
+   named by a profile) and the bound; ``attention_kernel_wide_f32``
+   (``f32_wide_kernels``: float32 past 16 keys at the padded depths 160-224
+   and 288-512) at ``F32_WIDE_DIMS`` (a head dim or more at each of those
+   depths) and L = 17, 208, 256, 257, 1025 and 4096, ragged and unmasked,
+   K2's attention at head dims 384 and 512 on the (B, L, 3d) buffer's
+   strides, a negative control (one TF32 pass) that must miss the float32
+   tolerance, and ``F32_WIDE_TIMED`` (d_model 768's and 1280's float32
+   fusion encoders) timed the same way; the one-pass wgmma kernels past
    depth 128 (``wgmma_padded_kernels``) at ``WGMMA_PADDED_DIMS`` (a head dim
    or more at every padded depth 160-512) and L = 17, 64, 208, 224, 256 and
    257 (the hand-off to the padded and deep kernels), ragged and unmasked,
@@ -304,7 +311,8 @@ result:
     (float32, 4 heads of 384), valA card vs CPU equal; an executor eval
     forward at d_model 1100 (4 heads of 275, no K2) in float32 (card vs CPU)
     and bf16, K1 on every fusion and box-decoder layer; the block bench at
-    d_model 2048: K2's attention and the float32 fusion layers' K1 on
+    d_model 2048: K2's attention on ``attention_kernel_wide_f32``, the
+    float32 fusion layers' K1 at d 1100 (rows of 1100 bytes) on
     ``attention_kernel_deep_f32``, the bf16 ones' and K3's attention on
     ``attention_kernel_wgmma_deep``, the box decoders on the short kernels,
     by the C libraries' counts, no eligible self-attention on the plain
@@ -315,7 +323,10 @@ result:
     320), questions/s, no K2, K1 on every fusion layer on
     ``attention_kernel_wgmma`` and ``attention_kernel_wgmma_deep`` and on
     the box decoder on the short kernel by the C library's counts, no
-    eligible self-attention on the plain path.
+    eligible self-attention on the plain path; then one float32 executor
+    eval forward at each width, card vs CPU, K1's fusion layers on
+    ``attention_kernel_wide_f32`` and its box decoder on
+    ``attention_kernel_short_f32``.
 
 The line before the last is a JSON object with one entry per kernel
 (``kernels``: K1, K2, K3 and the matcher, with its launches on the main path
@@ -332,10 +343,13 @@ their launches on phases 16.1 and 23's paths, the head-dim-256 kernels
 ``attention_kernel_wgmma``: K3's at L=224; K1's layout under
 ``at_shapes``) with their launches on phase 23's paths
 by the C libraries' counts, and K1's rows past 1024 keys
-under ``long_rows``; the deep kernels (``attention_kernel_deep_f32``: K2's
-attention at d 2048, K1's shapes under ``at_shapes``;
+under ``long_rows``; the deep kernels (``attention_kernel_deep_f32``: K1
+at d 1100's float32 fusion encoder;
 ``attention_kernel_deep``: a row past 256 keys, ``off_path``: no model
-sends it one) and K2 and K3 at head dim 512 (``fused_encoder_block_hd512``,
+sends it one), ``attention_kernel_wide_f32`` (K2's attention at d 2048, at
+d 1536 and K1's float32 fusion encoders at d_model 544, 768 and 1280 under
+``at_shapes``, its launches on phases 24 and 25's paths) and K2 and K3 at
+head dim 512 (``fused_encoder_block_hd512``,
 ``fused_encoder_block_tiled_hd512``) with their launches on phase 24's
 paths; the one-pass wgmma kernels past depth 128
 (``attention_kernel_wgmma_past_depth_128``: d_model 768's fusion encoder;
@@ -416,6 +430,11 @@ SHORT, SHORT_F32 = "attention_kernel_short", "attention_kernel_short_f32"
 # 128 past 256 keys (2pass)
 SPLIT_F32, WGMMA = "attention_kernel_split_f32", "attention_kernel_wgmma"
 WGMMA_DEEP = "attention_kernel_wgmma_deep"
+# csrc/attention_f32_wide.cuh: float32 rows of whole 16-byte chunks past 16
+# keys at the padded depths past 128 but 256 (the padded and deep float32
+# kernels keep the other rows)
+WIDE_F32 = "attention_kernel_wide_f32"
+WIDE_F32_DEPTHS = (160, 192, 224, 288, 336, 384, 448, 512)
 WGMMA_2PASS = "attention_kernel_wgmma_2pass"
 WGMMA_DEPTHS = (80, 96, 112, 128, 160, 192, 224, 256)  # attention_kernel_wgmma's padded depths
 WGMMA_DEEP_DEPTHS = (288, 336, 384, 448, 512)  # attention_kernel_wgmma_deep's
@@ -457,14 +476,16 @@ K1_MODEL_SHAPES += tuple(
 
 
 def wide_kernel(d_head: int, length: int, name: str):
-    """The ``attention_wide.cuh`` kernel a call of type ``name`` at a head
-    dim without kernels of its own launches (``launch_attention_padded``'s
-    ``wide_takes``), or None where the padded kernels keep it: past 16 keys
-    at a padded depth past 128, bf16 up to 256 keys in rows of any width
-    (the one-pass wgmma kernel, past depth 256 as
+    """The ``attention_wide.cuh`` or ``attention_f32_wide.cuh`` kernel a
+    call of type ``name`` at a head dim without kernels of its own launches
+    (``launch_attention_padded``'s ``wide_takes``), or None where the padded
+    kernels keep it: past 16 keys at a padded depth past 128, bf16 up to 256
+    keys in rows of any width (the one-pass wgmma kernel, past depth 256 as
     ``attention_kernel_wgmma_deep``), float32 in rows of whole 16-byte
-    chunks (with aligned bases and strides, as the wrappers' tensors are) at
-    depth 256 alone (228-256, the multiples of 4)."""
+    chunks (with aligned bases and strides, as the wrappers' tensors are:
+    the head dims that are multiples of 4) at any length,
+    ``attention_kernel_split_f32`` at depth 256 (228-256) and
+    ``attention_kernel_wide_f32`` at every other depth."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import padded_depth
 
     depth = padded_depth(d_head)
@@ -472,7 +493,9 @@ def wide_kernel(d_head: int, length: int, name: str):
         return None
     if name == "bf16":
         return None if length > 256 else WGMMA_DEEP if depth > 256 else WGMMA
-    return SPLIT_F32 if depth == 256 and d_head * 4 % 16 == 0 else None
+    if d_head * 4 % 16:
+        return None
+    return SPLIT_F32 if depth == 256 else WIDE_F32
 
 
 def short_kernel(d_head: int, length: int, name: str):
@@ -581,7 +604,8 @@ K1_NEW_SHAPES = (
     ("1025-key row", 64, 16, 1025, True, "fp32"),
     ("4096-key row", 256, 4, 4096, True, "fp32"),
 )
-# K1 past head dim 256, on the deep kernels (csrc/attention_padded.cuh):
+# K1 past head dim 256, on the deep kernels (csrc/attention_padded.cuh) and
+# the kernels that took their calls since (k1_kernel names each call's):
 # phase 3 holds head dims at every deep depth (288: 257, 275; 336: 300, 336;
 # 384: 350, 384; 448: 385, 400, 448; 512: 449, 500, 512) at DEEP_LENGTHS in
 # both types (ragged masks; unmasked too at 208) at B = 8 (2 past 256
@@ -617,8 +641,28 @@ DEEP_TIMED = (
     ("rows past 256 keys d 2048 bf16", "K1", 512, 16, 1025, True, "bf16", "bf16"),
 )
 # the DEEP_TIMED shapes also named by a profile, which gives their device time
-DEEP_PROFILED = ("serving d 2048 box decoder", "protocol d 1536 box decoder", "d 1100 encoder",
-                 "d 1100 encoder bf16")
+DEEP_PROFILED = ("K2 attention d 2048", "K2 attention d 1536 fp32", "serving d 2048 box decoder",
+                 "protocol d 1536 box decoder", "d 1100 encoder", "d 1100 encoder bf16")
+# attention_kernel_wide_f32 (csrc/attention_f32_wide.cuh: float32 rows of
+# whole 16-byte chunks past 16 keys at the padded depths past 128 but 256),
+# phases 3-4 (f32_wide_kernels): K1 through the wrapper at a head dim of
+# every depth it takes (136 and 160 at 160, 192, 200 at 224, 264 at 288, 320
+# at 336, 384, 400 and 448 at 448, 512) at F32_WIDE_LENGTHS, ragged and
+# unmasked, and at F32_WIDE_LONG; K2's attention on the (B, L, 3d) buffer's
+# strides at 384 and 512 (esv_block_attention, float32 and bf16 out) at
+# F32_WIDE_BLOCK_LENGTHS, with a negative control (the same attention in one
+# TF32 pass) that must miss the tolerance; then F32_WIDE_TIMED (the float32
+# fusion encoders at d_model 768 and 1280, phase 25's) checked and timed with
+# the device time by profile beside the plain version, SDPA and the bound
+# (K2's attention at d 2048 and 1536: DEEP_TIMED; d 544's: K1_NEW_SHAPES)
+F32_WIDE_DIMS = (136, 160, 192, 200, 264, 320, 384, 400, 448, 512)
+F32_WIDE_LENGTHS = (17, 208, 256, 257, 1025)
+F32_WIDE_LONG = ((192, 4096), (512, 4096))  # head dim, L
+F32_WIDE_BLOCK_LENGTHS = (17, 208, 210, 257)
+F32_WIDE_TIMED = (
+    ("d 768 encoder", "K1", 192, 128, 208, True, "fp32", "fp32"),  # 25.3
+    ("d 1280 encoder", "K1", 320, 128, 208, True, "fp32", "fp32"),  # 25.4
+)
 # The one-pass wgmma kernels at the padded depths past 128
 # (csrc/attention_wide.cuh: attention_kernel_wgmma at 160-256,
 # attention_kernel_wgmma_deep at 288-512), phases 3-4 (wgmma_padded_kernels):
@@ -1512,6 +1556,7 @@ def main() -> None:
     wide_kernels(torch, F, dev, results, parts)
     wgmma_kernels(torch, F, dev, results, parts)
     deep_kernels(torch, F, dev, results, parts)
+    f32_wide_kernels(torch, F, dev, results, parts)
     wgmma_padded_kernels(torch, F, dev, results, parts)
     short_kernels(torch, F, dev, results, parts)
     k1_wrapper_times(torch, F, dev, results)
@@ -1620,6 +1665,18 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
         found = [k for name, k in wide if name == fn]
         if not found or not all(k[unit] > 0 for k in found):
             fail(f"phase 2: {fn} is not built with {unit}: {found}")
+    f32_wide = sorted(
+        [(re.sub(r"\(int\)", "", k["short"].split("(const")[0].replace("void ", "")), k)
+         for n, k in kernels.items() if WIDE_F32 in n], key=lambda e: e[0])
+    say("phase 2 attention_f32_wide.cuh's kernel (float32 K1 past 16 keys at the padded depths "
+        "160-224 and 288-512, K2's attention at 384 and 512; built into fused_attention and "
+        "fused_block): " + "; ".join(
+            f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
+            for name, k in f32_wide))
+    for fn in (f"{WIDE_F32}<{to}, {dp}>" for dp in WIDE_F32_DEPTHS for to in ("float", "bf16")):
+        found = [k for name, k in f32_wide if name == fn]
+        if not found or not all(k["HMMA"] > 0 for k in found):
+            fail(f"phase 2: {fn} is not built with HMMA: {found}")
     narrow = sorted({int(m.group(1)) for n, k in kernels.items() if WGMMA in n
                      for m in [re.search(r"<bf16, \(int\)(\d+), \(bool\)1>", k["short"])] if m})
     say(f"phase 2 the one-pass wgmma kernels with the producer's narrow copies (rows that are "
@@ -2021,7 +2078,7 @@ def k1_padded_dims(torch, F, dev, results: dict) -> None:
         f"checked in {time.perf_counter() - t_long:.1f} s")
     for shape in K1_NEW_SHAPES:
         k1_timed_shape(torch, F, randn, ragged_keep, results, shape,
-                       profile=(shape[3] <= 208 and shape[1] in (25, 256))
+                       profile=(shape[3] <= 208 and shape[1] in (25, 136, 256))
                        or k1_kernel(*shape[1:4:2], shape[5]) == WGMMA_2PASS)
     say(f"phases 3-4 K1 on the padded kernels and past 1024 keys took "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2373,9 +2430,12 @@ def sdpa_backend(torch, call) -> str:
 
 
 def deep_kernels(torch, F, dev, results: dict, parts: list) -> None:
-    """Phases 3-4 for the deep kernels (``attention_kernel_deep_f32``,
-    ``attention_kernel_deep``: every head dim of 257-512, K2's and K3's
-    attention at 384 and 512): K1 at ``DEEP_DIMS`` x ``DEEP_LENGTHS`` and at
+    """Phases 3-4 for the head dims past 256 (``attention_kernel_deep_f32``,
+    ``attention_kernel_deep``, and the kernels that took their calls since:
+    ``attention_kernel_wide_f32`` float32 rows of whole 16-byte chunks past
+    16 keys, the wgmma and short kernels; K2's and K3's attention at 384 and
+    512), each call's kernel as ``k1_kernel`` names it: K1 at ``DEEP_DIMS`` x
+    ``DEEP_LENGTHS`` and at
     MAX_LEN keys, K2's and K3's attention at ``DEEP_BLOCK_LENGTHS`` through
     ``esv_block_attention`` (float32 q/k/v to bf16 and to float32, bf16 to
     bf16), K1 on a (B, L, 3d) buffer's strides, ragged and unmasked, each
@@ -2472,6 +2532,98 @@ def deep_kernels(torch, F, dev, results: dict, parts: list) -> None:
                        "explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh", results,
                        parts, "deep", profile=case[0] in DEEP_PROFILED)
     say(f"phases 3-4 the deep kernels took {time.perf_counter() - t0:.1f} s")
+
+
+def one_tf32_pass(torch, q, k, v, mask):
+    """The plain attention with TF32 on for its products (one TF32 pass, as
+    torch.matmul takes them with ``allow_tf32``): the float32 kernels' negative
+    control, which must miss ``k1_f32_tol``."""
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return dot_product_attention(q, k, v, mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def f32_wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
+    """Phases 3-4 for ``attention_kernel_wide_f32`` (float32 q, k, v past 16
+    keys at the padded depths 160-224 and 288-512, rows of whole 16-byte
+    chunks): K1 at ``F32_WIDE_DIMS`` x ``F32_WIDE_LENGTHS`` and at
+    ``F32_WIDE_LONG``, ragged and unmasked, K2's attention at 384 and 512
+    through ``esv_block_attention`` on the (B, L, 3d) buffer's strides
+    (float32 q/k/v to float32 and bf16), each call's kernel read from the C
+    libraries' counts and held within ``k1_f32_tol`` (bf16 out: the bf16
+    check against the plain version rounded); the negative control
+    (``one_tf32_pass``) must miss the tolerance; then ``F32_WIDE_TIMED``
+    checked and timed beside the plain version, SDPA and the bound, the
+    kernel named by a profile (its device time).  Results go to
+    ``results["f32wide <label>"]``."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build
+    from explainable_spatial_vqa_tpu_torch.ops.attention import dot_product_attention
+    from explainable_spatial_vqa_tpu_torch.ops.fused_attention import bind_entry
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    t0 = time.perf_counter()
+    block_fn = bind_entry(_build.load("fused_block"), "esv_block_attention")
+
+    def ragged(b, length):
+        keep = torch.ones(b, length, dtype=torch.bool, device=dev)
+        tail = min(length, 13)
+        keep[:, length - tail:] = torch.rand(b, tail, generator=gen, device=dev) < 0.6
+        return keep[:, None, None, :]
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    checks = 0
+    shapes = [(d, length) for d in F32_WIDE_DIMS for length in F32_WIDE_LENGTHS]
+    for d_head, length in shapes + list(F32_WIDE_LONG):
+        b = 8 if length <= 256 else 2 if length <= 1025 else 1
+        for masked in (True, False):
+            mask = ragged(b, length) if masked else None
+            where = f"B={b} H=4 L={length} D={d_head} mask={'ragged' if masked else 'none'}"
+            q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
+            want = k1_kernel(d_head, length, "fp32")
+            if want != WIDE_F32:
+                fail(f"phase 3: K1 float32 at D={d_head}, L={length} is not routed to {WIDE_F32}")
+            k1_checked(torch, "fp32", q, k, v, mask, want,
+                       f"phase 3 K1 fused_attention fp32 {where}")
+            checks += 1
+            del q, k, v
+    for d_head in (384, 512):
+        d = 4 * d_head
+        for length in F32_WIDE_BLOCK_LENGTHS:
+            b = 8
+            mask = ragged(b, length)
+            where = f"B={b} H=4 L={length} D={d_head} mask=ragged"
+            q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                block_called(torch, block_fn, "fp32", q, k, v, mask, out_dtype,
+                             f"phase 3 K2 attention fp32 q/k/v from the (B, L, 3d) buffer, "
+                             f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out, {where}",
+                             block_attention_kernel(d_head, length, "fp32"))
+                checks += 1
+            if length == 210:  # the negative control on the same inputs
+                heads = [t.reshape(b, length, 4, d_head) for t in (q, k, v)]
+                err = float((one_tf32_pass(torch, *heads, mask)
+                             - dot_product_attention(*heads, mask)).abs().max())
+                say(f"phase 3 negative control, K2's attention at D={d_head} in one TF32 pass, "
+                    f"{where}: max_abs_err {err:.3g} against the plain version (tol "
+                    f"{k1_f32_tol_text(length)}): "
+                    f"{'misses it, as it must' if err > k1_f32_tol(length) else 'PASSES'}")
+                if err <= k1_f32_tol(length):
+                    fail("the float32 attention tolerance passes one TF32 pass")
+            del q, k, v
+    say(f"phase 3 attention_kernel_wide_f32: K1 at D = {F32_WIDE_DIMS}, L = {F32_WIDE_LENGTHS} "
+        f"and at {F32_WIDE_LONG}, K2's attention at D = 384 and 512, L = "
+        f"{F32_WIDE_BLOCK_LENGTHS}: {checks} calls checked in {time.perf_counter() - t0:.1f} s")
+    for case in F32_WIDE_TIMED:
+        attention_case(torch, F, randn, ragged, block_fn, case,
+                       "explainable_spatial_vqa_tpu_torch/csrc/attention_f32_wide.cuh", results,
+                       parts, "f32wide", profile=True)
+    say(f"phases 3-4 attention_kernel_wide_f32 took {time.perf_counter() - t0:.1f} s")
 
 
 def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
@@ -3434,15 +3586,15 @@ def main_path(torch, np, dev, results, parts) -> None:
     if not all(k["launches"] for k in kernels[-2:]):
         fail("a wgmma kernel at head dims up to 128 never launched on its path")
     # the deep kernels (attention_padded.cuh past depth 256): their launches
-    # on phase 24's paths by the C libraries' counts (deep_f32: K2's
-    # attention at d 2048 and 1536, K1 in float32 at d 1100's fusion layers;
+    # on phase 24's paths by the C libraries' counts (deep_f32: K1 in float32
+    # at d 1100's fusion layers, rows of 1100 bytes;
     # deep, bf16, keeps only rows past 256 keys, which no model sends: 0
     # launches, timed at such a row), the numbers of K2's attention
     # at d 2048, the other shapes under at_shapes; then K2 and K3 at head dim
     # 512 (d_model 2048), their launches on phase 24's serving and
     # block-bench paths
     for kernel, main_key, other_keys in (
-            (DEEP_F32, "K2 attention d 2048", ("K2 attention d 1536 fp32", "d 1100 encoder")),
+            (DEEP_F32, "d 1100 encoder", ()),
             (DEEP, "rows past 256 keys d 2048 bf16", ())):
         by_deep = {path: c[kernel] for path, c in deep_launches.items()}
         kernels.append(dict(
@@ -3458,6 +3610,23 @@ def main_path(torch, np, dev, results, parts) -> None:
             launches_by_path=by_deep))
     kernels[-1]["off_path"] = ("bf16 rows past 256 keys at padded depths 288-512: no model sends "
                                "them (phase 3 holds it at 257 and 1025 keys)")
+    # attention_kernel_wide_f32 (attention_f32_wide.cuh): its launches on
+    # phase 24's paths (K2's attention at d 2048 and 1536) and phase 25's
+    # float32 forwards (K1's fusion layers at d 768 and 1280) by the C
+    # libraries' counts, the numbers of K2's attention at d 2048, the other
+    # shapes under at_shapes
+    on_f32_wide = {path: c.get(WIDE_F32, 0)
+                   for path, c in {**deep_launches, **wgmma_padded_launches}.items()}
+    kernels.append(dict(
+        name=WIDE_F32, route="cuda",
+        source="explainable_spatial_vqa_tpu_torch/csrc/attention_f32_wide.cuh",
+        replaces="explainable_spatial_vqa_tpu/ops/pallas_block.py:135",
+        also_replaces="explainable_spatial_vqa_tpu/ops/pallas_attention.py:45",
+        launches=sum(on_f32_wide.values()), **results["deep K2 attention d 2048"],
+        at_shapes={"K2 attention d 1536 fp32": results["deep K2 attention d 1536 fp32"],
+                   "d 544 encoder": results["K1_D136_d 544 encoder"],
+                   **{label: results[f"f32wide {label}"] for label, *_ in F32_WIDE_TIMED}},
+        launches_by_path=on_f32_wide))
     for name, src_name, key, path in (
             ("fused_encoder_block_hd512", "fused_encoder_block", "K2_bf16_hd512", "serving_d2048"),
             ("fused_encoder_block_tiled_hd512", "fused_encoder_block_tiled", "K3_bf16_hd512",
@@ -3469,12 +3638,13 @@ def main_path(torch, np, dev, results, parts) -> None:
             launches=past_paths[path][src_name], **results[key], shape=f"d=2048 H=4 ({path})",
             at_shapes={"fp32": results[key.replace("bf16", "fp32")]},
             launches_by_path={p: c[src_name] for p, c in past_paths.items()}))
-    say("the deep kernels and K2 and K3 at head dim 512: " + "; ".join(
+    say("the deep kernels, attention_kernel_wide_f32 and K2 and K3 at head dim 512: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
-        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches on phase "
-        f"24's paths" for k in kernels[-4:]))
-    if not all(k["launches"] for k in kernels[-4:] if "off_path" not in k):
-        fail("a deep kernel, or K2 or K3 at head dim 512, never launched on its path")
+        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches on phases "
+        f"24-25's paths" for k in kernels[-5:]))
+    if not all(k["launches"] for k in kernels[-5:] if "off_path" not in k):
+        fail("a deep kernel, attention_kernel_wide_f32, or K2 or K3 at head dim 512, never "
+             "launched on its path")
     # the one-pass wgmma kernels past depth 128 (attention_wide.cuh): their
     # launches on phases 24.3, 24.4 and 25 by the C libraries' counts (wgmma
     # at depths 160-224: K1 in serving's fusion layers at d 768; wgmma_deep:
@@ -4660,7 +4830,8 @@ def head_dim_routing(torch, dev, counted) -> None:
         # each K1 launch on the kernel the mirror names for the fusion
         # encoder's 208 keys and the box decoder's 8 (where the head dim has
         # no kernels of its own: bf16 at 136 and 192 on attention_kernel_wgmma,
-        # the rest on the padded kernels), K2's attention at 256 (float32
+        # float32 there on attention_kernel_wide_f32, the rest on the padded
+        # kernels), K2's attention at 256 (float32
         # q/k/v in both types, past 16 keys) on attention_kernel_split_f32
         d_model, name = int(key.split()[0][1:]), "bf16" if key.endswith("bfloat16") else "fp32"
         k2 = block_head_dim_built(d_model, 4)
@@ -7657,6 +7828,68 @@ PAST_256_ROWS = 4  # 24.3's batch, card against the CPU in float32 (phase 8's in
 PARENT_K3_HD512_MS = {"K3 tiled TB=2 fc=1": 11.386, "K3 tiled TB=2 fc=2": 10.949}
 
 
+def executor_forward(torch, np, dev, counted, d_model: int, dtype, phase: str):
+    """One executor eval forward at ``d_model`` (4 heads, box RoI, a head dim
+    that is not a multiple of 128, so no K2) in ``dtype`` on ``PAST_256_ROWS``
+    synthetic rows: fails unless K1 ran on every fusion layer (L = 210,
+    ragged) and every box-decoder layer (10 keys) on the kernels
+    ``k1_kernel`` names, by the C library's counts, with no eligible
+    self-attention on the plain path and finite outputs, in float32 equal to
+    the CPU's within 1e-4.  Returns the wrapper launches and the C library's
+    counts."""
+    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
+    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
+    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
+
+    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=d_model,
+                             num_heads=4)
+    d_head = d_model // 4
+    rng = np.random.RandomState(5)
+    lo = rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes, 2) * 0.6
+    inputs = [
+        rng.rand(PAST_256_ROWS, exe_cfg.num_image_tokens, exe_cfg.image_feature_dim).astype(
+            np.float32),
+        np.concatenate([lo, lo + rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes, 2) * 0.4],
+                       -1).astype(np.float32),
+        rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes) < 0.5,
+        rng.randint(0, exe_cfg.vocab_size, (PAST_256_ROWS, 3)),
+        np.array([[1, 1, 0], [1, 0, 1], [1, 1, 1], [1, 0, 0]], bool),
+    ]
+    per_forward = exe_cfg.encoder_layers + exe_cfg.box_decoder_layers
+    name = "fp32" if dtype == torch.float32 else "bf16"
+    # the fusion layers' 210 keys and the box decoder's 10
+    kernels = {k1_kernel(d_head, 210, name): exe_cfg.encoder_layers,
+               k1_kernel(d_head, 10, name): exe_cfg.box_decoder_layers}
+    model = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=6).eval()
+    read = c_counts(torch)
+    with plain_self_attention_count() as eligible, torch.no_grad():
+        out, counts = counted(lambda: model(*(torch.from_numpy(a).to(dev) for a in inputs)))
+    k1_c, block_c = read()
+    text = (f"phase {phase} {name} executor eval forward at d_model {d_model} (4 heads of "
+            f"{d_head}, B={PAST_256_ROWS}, fusion L = 210 ragged): launches {counts}; the C "
+            f"libraries' counts: K1 {k1_c}, K2's attention {block_c}; eligible self-attention "
+            f"calls {len(eligible)}")
+    ok = (counts["fused_attention"] == per_forward and counts["fused_encoder_block"] == 0
+          and k1_c == kernels and not block_c
+          and len(eligible) == per_forward
+          and all(torch.isfinite(v.float()).all() for v in out.values()))
+    if dtype == torch.float32:
+        cpu_model = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            on_cpu = cpu_model(*(torch.from_numpy(a) for a in inputs))
+        worst = max(float((out[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu)
+        text += f"; card vs CPU max_abs_err {worst:.3g} (tol 1e-4) over {', '.join(on_cpu)}"
+        ok = ok and worst <= 1e-4
+        del cpu_model, on_cpu
+    say(text)
+    if not ok:
+        fail(f"phase {phase} check failed in {name}: K1 {kernels} at the fusion and "
+             f"box-decoder layers, no K2, no eligible self-attention on the plain path, "
+             f"finite outputs (float32: equal to the CPU's within 1e-4)")
+    del model, out
+    return counts, k1_c
+
+
 def past_256(torch, np, dev, counted) -> tuple:
     """Phase 24, the paths past head dim 256, each driven through the entry
     point a user calls, its launches read from the wrappers and from the C
@@ -7667,13 +7900,13 @@ def past_256(torch, np, dev, counted) -> tuple:
        with the executor at d_model 2048 (4 heads of 512, ffn 8192) on
        ``NEW_WIDTH_QUESTIONS`` synthetic questions: K2 3 and K1 2 launches a
        forward, K2's attention (float32 q/k/v) on
-       ``attention_kernel_deep_f32``, K1 (the box decoder's 10 keys) on
+       ``attention_kernel_wide_f32``, K1 (the box decoder's 10 keys) on
        ``attention_kernel_short``; questions/s, median of 3 runs after a
        warm-up;
     2. ``run_cogent_protocol`` as ``cogent-protocol --d_model 1536`` runs it
        (float32, 4 heads of 384, ``NEW_WIDTH_PROTOCOL``'s sizes and steps):
        its evaluations launch K2 on every fusion layer, its attention on
-       ``attention_kernel_deep_f32``, and K1 on the box decoder, on
+       ``attention_kernel_wide_f32``, and K1 on the box decoder, on
        ``attention_kernel_short_f32``, no eligible self-attention on the
        plain path, and its fine-tuned models' valA evaluation on the card
        equal to the CPU's (``protocol_card_vs_cpu``);
@@ -7684,25 +7917,23 @@ def past_256(torch, np, dev, counted) -> tuple:
        the box decoder (the short kernels); the float32 outputs against the
        CPU's within 1e-4;
     4. ``bench_block.main`` at d_model 2048 (B=128, L=224, K3 at one
-       tiling): K2's attention on ``attention_kernel_deep_f32``, K3's on
+       tiling): K2's attention on ``attention_kernel_wide_f32``, K3's on
        ``attention_kernel_wgmma_deep``; K2's and K3's ms printed, K3's beside
        its time on the deep kernel (``PARENT_K3_HD512_MS``).
 
     Returns each path's wrapper launches and each path's launches of the
-    deep kernels by the C libraries' counts."""
+    kernels past depth 256 (deep, wide_f32, wgmma_deep, short) by the C
+    libraries' counts."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
-    from explainable_spatial_vqa_tpu_torch.core.config import ExecutorConfig
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
-    from explainable_spatial_vqa_tpu_torch.models.executor import ProgramExecutor
-    from explainable_spatial_vqa_tpu_torch.models.layers import init_parameters
 
     t_phase = time.perf_counter()
     paths, deep = {}, {}
 
-    def deep_of(*counts):  # the deep, wgmma and short kernels' launches among C counts
+    def deep_of(*counts):  # the kernels past depth 256's launches among C counts
         return {n: sum(c.get(n, 0) for c in counts)
-                for n in (DEEP_F32, DEEP, WGMMA_DEEP, SHORT, SHORT_F32)}
+                for n in (DEEP_F32, WIDE_F32, DEEP, WGMMA_DEEP, SHORT, SHORT_F32)}
 
     # ---- 24.1 bf16 serving with the executor at d_model 2048 ----
     run = serving_run(torch, np, dev, counted, 2048)
@@ -7715,9 +7946,10 @@ def past_256(torch, np, dev, counted) -> tuple:
             counts["fused_encoder_block"] == exe_cfg.encoder_layers * once
             and counts["fused_attention"] == exe_cfg.box_decoder_layers * once > 0),
         "K1 (10 keys, bf16) on attention_kernel_short, K2's attention (float32 q/k/v) on "
-        "attention_kernel_deep_f32": (
+        "attention_kernel_wide_f32": (
             k1_c == {SHORT: counts["fused_attention"]}
-            and block_c == {DEEP_F32: counts["fused_encoder_block"]}),
+            and block_c == {block_attention_kernel(512, 210, "fp32"):
+                            counts["fused_encoder_block"]}),
         "no self-attention K1 takes on the plain path": run["eligible"] == counts["fused_attention"],
         "one answer per question in the token vocabulary": (
             served.answers.shape == (n,) and 0 <= served.answers.min()
@@ -7748,10 +7980,11 @@ def past_256(torch, np, dev, counted) -> tuple:
             and counts["fused_attention"] == sum(r["K1"] for r in rows)
             and counts["fused_encoder_block"] == sum(r["K2"] for r in rows)
             and k1_c == {SHORT_F32: counts["fused_attention"]}
-            and block_c == {DEEP_F32: counts["fused_encoder_block"]}
+            and block_c == {block_attention_kernel(384, 208, "fp32"):
+                            counts["fused_encoder_block"]}
             and len(eligible) == counts["fused_attention"]):
         fail("phase 24.2 check failed at d_model 1536: the evaluations launch K2, its attention "
-             "on attention_kernel_deep_f32, and K1 on attention_kernel_short_f32, only there, "
+             "on attention_kernel_wide_f32, and K1 on attention_kernel_short_f32, only there, "
              "and no self-attention K1 takes runs the plain path")
     protocol_card_vs_cpu(torch, np, parts.of("evaluate_pipeline_synthetic")[2],
                          "cogent-protocol --d_model 1536", phase=24)
@@ -7761,55 +7994,12 @@ def past_256(torch, np, dev, counted) -> tuple:
     torch.cuda.empty_cache()
 
     # ---- 24.3 K1 alone past 16 keys: the executor at d_model 1100 ----
-    exe_cfg = ExecutorConfig(vocab_size=64, token_classes=32, box_roi=True, d_model=1100,
-                             num_heads=4)
-    rng = np.random.RandomState(5)
-    lo = rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes, 2) * 0.6
-    inputs = [
-        rng.rand(PAST_256_ROWS, exe_cfg.num_image_tokens, exe_cfg.image_feature_dim).astype(
-            np.float32),
-        np.concatenate([lo, lo + rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes, 2) * 0.4],
-                       -1).astype(np.float32),
-        rng.rand(PAST_256_ROWS, exe_cfg.max_input_boxes) < 0.5,
-        rng.randint(0, exe_cfg.vocab_size, (PAST_256_ROWS, 3)),
-        np.array([[1, 1, 0], [1, 0, 1], [1, 1, 1], [1, 0, 0]], bool),
-    ]
-    per_forward = exe_cfg.encoder_layers + exe_cfg.box_decoder_layers
     forward_counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "fp32" if dtype == torch.float32 else "bf16"
-        # the fusion layers' 210 keys and the box decoder's 10
-        kernels = {k1_kernel(275, 210, name): exe_cfg.encoder_layers,
-                   k1_kernel(275, 10, name): exe_cfg.box_decoder_layers}
-        model = init_parameters(ProgramExecutor(exe_cfg, dtype, device=dev), seed=6).eval()
-        read = c_counts(torch)
-        with plain_self_attention_count() as eligible, torch.no_grad():
-            out, counts = counted(lambda: model(*(torch.from_numpy(a).to(dev) for a in inputs)))
-        k1_c, block_c = read()
-        text = (f"phase 24.3 {name} executor eval forward at d_model 1100 (4 heads of 275, B="
-                f"{PAST_256_ROWS}, fusion L = 210 ragged): launches {counts}; the C libraries' "
-                f"counts: K1 {k1_c}, K2's attention {block_c}; eligible self-attention calls "
-                f"{len(eligible)}")
-        ok = (counts["fused_attention"] == per_forward and counts["fused_encoder_block"] == 0
-              and k1_c == kernels and not block_c
-              and len(eligible) == per_forward
-              and all(torch.isfinite(v.float()).all() for v in out.values()))
-        if dtype == torch.float32:
-            cpu_model = copy.deepcopy(model).to("cpu")
-            with torch.no_grad():
-                on_cpu = cpu_model(*(torch.from_numpy(a) for a in inputs))
-            worst = max(float((out[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu)
-            text += f"; card vs CPU max_abs_err {worst:.3g} (tol 1e-4) over {', '.join(on_cpu)}"
-            ok = ok and worst <= 1e-4
-            del cpu_model, on_cpu
-        say(text)
-        if not ok:
-            fail(f"phase 24.3 check failed in {name}: K1 {kernels} at the fusion and "
-                 f"box-decoder layers, no K2, no eligible self-attention on the plain path, "
-                 f"finite outputs (float32: equal to the CPU's within 1e-4)")
-        forward_counts[name] = counts
+        forward_counts[name], k1_c = executor_forward(torch, np, dev, counted, 1100, dtype,
+                                                      "24.3")
         deep[f"executor_d1100_{name}"] = deep_of(k1_c)
-        del model, out
     paths["executor_d1100"] = {k: sum(c[k] for c in forward_counts.values())
                                for k in forward_counts["fp32"]}
     torch.cuda.empty_cache()
@@ -7826,14 +8016,14 @@ def past_256(torch, np, dev, counted) -> tuple:
         f"with K3's attention on attention_kernel_deep before (PERF.md §6): " + ", ".join(
             f"{name} {ms} ms" for name, ms in PARENT_K3_HD512_MS.items()))
     if not (counts["fused_encoder_block_tiled"] > 0
-            and block_c == {DEEP_F32: counts["fused_encoder_block"],
+            and block_c == {block_attention_kernel(512, 224, "fp32"): counts["fused_encoder_block"],
                             WGMMA_DEEP: counts["fused_encoder_block_tiled"]}):
         fail("phase 24.4: the block bench at d_model 2048 did not launch K2's attention on "
-             "attention_kernel_deep_f32 and K3's on attention_kernel_wgmma_deep")
+             "attention_kernel_wide_f32 and K3's on attention_kernel_wgmma_deep")
     paths["block_bench_d2048"] = counts
     deep["block_bench_d2048"] = deep_of(block_c)
-    say(f"phase 24 the deep, wgmma and short kernels' launches by path (the C libraries' "
-        f"counts): {deep}")
+    say(f"phase 24 the kernels past depth 256's launches by path (the C libraries' counts): "
+        f"{deep}")
     say(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
     return paths, deep
 
@@ -7858,7 +8048,11 @@ def wgmma_padded_paths(torch, np, dev, counted) -> tuple:
     ragged) on ``attention_kernel_wgmma`` or ``attention_kernel_wgmma_deep``
     and on the 2 box-decoder layers (10 keys) on the short kernel,
     by the C library's counts, and no eligible self-attention on the plain
-    path; questions/s, the median of 3 runs after a warm-up.  Returns each
+    path; questions/s, the median of 3 runs after a warm-up.  Then 25.3 and
+    25.4, one float32 executor eval forward at each width
+    (``executor_forward``): K1's fusion layers on
+    ``attention_kernel_wide_f32``, its box decoder on
+    ``attention_kernel_short_f32``, card against the CPU.  Returns each
     path's wrapper launches and its launches by kernel (the C libraries'
     counts)."""
     t_phase = time.perf_counter()
@@ -7890,9 +8084,16 @@ def wgmma_padded_paths(torch, np, dev, counted) -> tuple:
         by_kernel[f"serving_d{d_model}"] = k1_c
         del run, served
         torch.cuda.empty_cache()
-    say(f"phase 25 the one-pass wgmma kernels past depth 128 on the executor, launches by path "
-        f"(the C library's counts): {by_kernel}; phase 25 took "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    # float32: the fusion layers on attention_kernel_wide_f32, the box decoder
+    # on attention_kernel_short_f32
+    for part, (d_model, _, _) in enumerate(WGMMA_PADDED_WIDTHS, len(WGMMA_PADDED_WIDTHS) + 1):
+        counts, k1_c = executor_forward(torch, np, dev, counted, d_model, torch.float32,
+                                        f"25.{part}")
+        paths[f"executor_d{d_model}_fp32"] = counts
+        by_kernel[f"executor_d{d_model}_fp32"] = k1_c
+    torch.cuda.empty_cache()
+    say(f"phase 25 the executor at d_model 768 and 1280, launches by path (the C library's "
+        f"counts): {by_kernel}; phase 25 took {time.perf_counter() - t_phase:.1f} s")
     return paths, by_kernel
 
 

@@ -86,13 +86,17 @@
 // attention_kernel_wgmma_deep at 288-512: the executor's fusion layers at
 // d_model 768, 1100 and 1280, K3's attention at head dims 384 and 512),
 // float32 in rows of whole 16-byte chunks at depth 256 alone, at any length
-// (attention_kernel_split_f32).  The kernels here keep the rest: rows of
-// <= 16 keys (the short kernels past depth 128), bf16 rows past 256 keys
-// (the two-pass wgmma kernel stops at depth 128), and float32 at every
-// other depth (K2's attention at 384 and 512, D = 275).
+// (attention_kernel_split_f32); attention_f32_wide.cuh's
+// attention_kernel_wide_f32 takes float32 rows of whole 16-byte chunks past
+// 16 keys at every other depth past 128 (K2's attention at 384 and 512, K1
+// at d_model 544-2048).  The kernels here keep the rest: rows of <= 16 keys
+// (the short kernels past depth 128), bf16 rows past 256 keys (the two-pass
+// wgmma kernel stops at depth 128), and float32 rows that are not whole
+// 16-byte chunks (D = 275's).
 #pragma once
 
 #include "attention.cuh"
+#include "attention_f32_wide.cuh"
 #include "attention_wide.cuh"
 
 namespace esv {
@@ -778,7 +782,8 @@ static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const flo
 
 // Head dim D, whose padded depth is DP: past depth 128 the short kernels
 // where L <= 16, and attention_wide.cuh's kernels where they take the call
-// (wide_takes; bf16 at every depth up to 256 keys, float32 at 256 alone);
+// (wide_takes; bf16 at every depth up to 256 keys, float32 at 256 alone),
+// attention_f32_wide.cuh's kernel float32 at the other depths (wide_takes);
 // else one group a block where L <= 16 (depths up to 128), else 8 warps up
 // to depth 256 and 2 or 3 groups past it (padded_rows).  The pointers need only
 // their types' alignment.
@@ -802,6 +807,11 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
       return launch_attention_wide<DP, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
                                               out_bs, out_rs, stream);
   }
+  if constexpr (DP > 128 && DP != 256 && std::is_same<T, float>::value) {
+    if (wide_takes<T, TO>(q, k, v, out, L, D, in_bs, in_rs, out_bs, out_rs))
+      return launch_attention_wide_f32<DP, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                               out_bs, out_rs, stream);
+  }
   if constexpr (DP <= 128) {
     if (L <= 16)
       return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
@@ -823,8 +833,10 @@ __host__ __device__ constexpr bool block_head_dim(int D) {
 // launch_attention_dim's kernels (K3 past 16 keys on attention_wide.cuh's
 // wgmma kernels, one pass up to 256 keys and two past it), 256 on
 // attention_wide.cuh's (K2 past 16 keys, K3 from 17 to 256) or the padded
-// ones, 384 and 512 on the deep kernels (K3 from 17 to 256 keys on
-// attention_kernel_wgmma_deep); past 128 the short kernels at L <= 16.
+// ones, 384 and 512 on attention_f32_wide.cuh's kernel (K2 past 16 keys),
+// attention_wide.cuh's attention_kernel_wgmma_deep (K3 from 17 to 256 keys)
+// and the deep kernel (K3 past 256 keys); past 128 the short kernels at
+// L <= 16.
 // fused_block.cu compiles each head dim in a translation unit of its own and
 // picks among them at run time.
 template <int D, typename T, typename TO>

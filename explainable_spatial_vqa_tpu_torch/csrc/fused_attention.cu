@@ -17,7 +17,9 @@
 // at 1024, 275 at 1100, 384 and 512 at 1536 and 2048) takes
 // attention_padded.cuh's kernels at its padded depth (ESV_K1_PAD_DEPTHS),
 // with the head dim a run-time argument: past 256 its deep kernels
-// (attention_kernel_deep_f32, attention_kernel_deep), past 128 its short
+// (attention_kernel_deep_f32, attention_kernel_deep; float32 rows of whole
+// 16-byte chunks past 16 keys at every padded depth past 128 but 256 go to
+// attention_f32_wide.cuh's attention_kernel_wide_f32), past 128 its short
 // kernels at L <= 16 (attention_kernel_short_f32, attention_kernel_short:
 // the box decoders at d_model 768-2048); bf16 rows of 17-256 keys past
 // depth 128, of any width, go to attention_wide.cuh's attention_kernel_wgmma
@@ -75,7 +77,8 @@
 // attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass, 8:
 // attention_kernel_deep_f32, 9: attention_kernel_deep, 10:
 // attention_kernel_wgmma_deep, 11: attention_kernel_short_f32, 12:
-// attention_kernel_short; null and -1 past the last) and count the
+// attention_kernel_short, 13: attention_kernel_wide_f32; null and -1 past
+// the last) and count the
 // launches of it that this library's entries have made since it was loaded:
 // which kernel a call takes is decided in launch_attention_dim and
 // launch_attention_padded alone, and the counts say which ran.

@@ -4,7 +4,7 @@ on the card.
 
     python -m explainable_spatial_vqa_tpu_torch.measure.attention_variants
         [--rounds 6] [--iters 20] [--variants ring,warps8,...]
-        [--kinds onepass,wide,past128,narrow,short] [--against LABEL=CSRC_DIR]
+        [--kinds onepass,wide,past128,narrow,short,f32wide] [--against LABEL=CSRC_DIR]
 
 Each variant asks one question of a shipped kernel (``VARIANTS``).  Of K1's
 bf16 kernels at head dims up to 128 (``csrc/attention.cuh``'s one-pass
@@ -86,6 +86,30 @@ at 384 and 512, whose 16-byte copies share the changed loader), the
   instead of shifting each row in shared memory to copy its middle 16
   bytes at a time.
 
+Of the float32 rows past padded depth 128 but 256 (``F32WIDE_CASES``: K2's
+attention at d_model 2048 and 1536, the float32 fusion encoders at d_model
+544, 768 and 1280; ``attention_kernel_wide_f32`` in
+``csrc/attention_f32_wide.cuh``), the ``fused_attention`` library's
+``esv_attention``, each case also by its kernel's device time
+(``measure.variants.device_ms``), beside SDPA, the plain version and the
+bound; the parent's ``attention_kernel_padded_f32`` and
+``attention_kernel_deep_f32`` under ``--against``.  Its variants are design
+probes, not shipped code:
+
+* ``f32wide_warps12``: 12 warps a block (168 registers a thread) at every
+  depth instead of 16 (128 registers) at two and four warps a row group: 4
+  and 2 row groups there;
+* ``f32wide_warps16``: 16 warps at three warps a row group too (the 4
+  more are producers) instead of 12;
+* ``f32wide_rows2``: 2 row groups (32 query rows) a block at three and four
+  warps a group instead of 3 (the producers take the warps left);
+* ``f32wide_rows6``: 6 row groups (96 query rows: three blocks at 208 keys)
+  at two warps a group instead of 7 (112: two blocks), 4 producers;
+* ``f32wide_no_fill``: the producers arrive on each stage without copying
+  or splitting it (wrong numbers: the consumers alone);
+* ``f32wide_consumers_idle``: every row group takes and releases the stages
+  only (wrong numbers: the producers alone).
+
 Of the rows of at most 16 keys past padded depth 128 (``SHORT_CASES``: the
 box decoders at d_model 768-2048, on the short kernels), the same library;
 with ``--against`` each case's output is also compared with the other
@@ -133,8 +157,9 @@ from explainable_spatial_vqa_tpu_torch.measure.variants import (
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
 __all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "PAST128_VARIANTS",
-           "NARROW_VARIANTS", "SHORT_VARIANTS", "ONEPASS_CASES", "WGMMA_CASES", "WIDE_CASES",
-           "PAST128_CASES", "NARROW_CASES", "SHORT_CASES", "main"]
+           "NARROW_VARIANTS", "SHORT_VARIANTS", "F32WIDE_VARIANTS", "ONEPASS_CASES",
+           "WGMMA_CASES", "WIDE_CASES", "PAST128_CASES", "NARROW_CASES", "SHORT_CASES",
+           "F32WIDE_CASES", "main"]
 
 # label, head dim, B, L, ragged key mask; H = 4, bf16
 ONEPASS_CASES = (("transformer_iqap encoder", 64, 512, 243, False),
@@ -193,8 +218,17 @@ SHORT_CASES = (("serving d 2048 box decoder", "K1", "bf16", "bf16", 512, 128, 10
                ("protocol d 2048 box decoder", "K1", "fp32", "fp32", 512, 128, 8, False),
                ("protocol d 1536 box decoder", "K1", "fp32", "fp32", 384, 128, 8, False),
                ("protocol d 1024 box decoder", "K1", "fp32", "fp32", 256, 128, 8, False))
+# the float32 rows attention_kernel_wide_f32 took from the padded and deep
+# float32 kernels, as NARROW_CASES: K2's attention at d_model 2048 (bf16
+# weights) and 1536 (float32), the float32 fusion encoders at d_model 544,
+# 768 and 1280 (K1 at head dims 136, 192 and 320)
+F32WIDE_CASES = (("K2 attention d 2048", "block", "fp32", "bf16", 512, 128, 210, True),
+                 ("K2 attention d 1536 fp32", "block", "fp32", "fp32", 384, 128, 208, True),
+                 ("d 544 encoder", "K1", "fp32", "fp32", 136, 128, 208, True),
+                 ("d 768 encoder fp32", "K1", "fp32", "fp32", 192, 128, 208, True),
+                 ("d 1280 encoder fp32", "K1", "fp32", "fp32", 320, 128, 208, True))
 # the kinds timed by device time too, in the same rounds
-DEVICE_TIMED = ("narrow", "short")
+DEVICE_TIMED = ("narrow", "short", "f32wide")
 
 _DIV = ("          p[n][r] = pack_bf16x2(div_by(s[kt][n][2 * r], denom[r], inv[r]),\n"
         "                                div_by(s[kt][n][2 * r + 1], denom[r], inv[r]));\n")
@@ -293,8 +327,28 @@ NARROW_VARIANTS: Dict[str, Sequence[Edit]] = {
 
 }
 SHORT_VARIANTS: Dict[str, Sequence[Edit]] = {}
+_F32W = "attention_f32_wide.cuh"
+_F32W_ROWS = "  return f32w_group<DP>() == 2 ? 7 : 3;"
+_F32W_WARPS = "  return f32w_group<DP>() == 3 ? 12 : 16;"
+F32WIDE_VARIANTS: Dict[str, Sequence[Edit]] = {
+    "f32wide_warps12": ((_F32W, _F32W_WARPS, "  return 12;"),
+                        (_F32W, _F32W_ROWS,
+                         "  return f32w_group<DP>() == 3 ? 3 : 8 / f32w_group<DP>();")),
+    "f32wide_warps16": ((_F32W, _F32W_WARPS, "  return 16;"),),
+    "f32wide_rows2": ((_F32W, _F32W_ROWS, "  return f32w_group<DP>() == 2 ? 7 : 2;"),),
+    "f32wide_rows6": ((_F32W, _F32W_ROWS, "  return f32w_group<DP>() == 2 ? 6 : 3;"),),
+    "f32wide_no_fill": (
+        (_F32W, "        if (key_of[i] < T) cp_async16(", "        if (false) cp_async16("),
+        (_F32W, "    const auto split = [&](int n) {  // this thread's copies of piece n landed\n",
+         "    const auto split = [&](int n) {  // this thread's copies of piece n landed\n"
+         "      if (true) {\n        __syncwarp();\n"
+         "        if (lane == 0) mbar_arrive(full(n % S));\n        return;\n      }\n")),
+    "f32wide_consumers_idle": (
+        (_F32W, "  const bool active = q0 + 16 * grp < L;  // a group wholly",
+         "  const bool active = false;  // a group wholly"),),
+}
 VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS, **PAST128_VARIANTS,
-                                       **NARROW_VARIANTS, **SHORT_VARIANTS}
+                                       **NARROW_VARIANTS, **SHORT_VARIANTS, **F32WIDE_VARIANTS}
 
 _TYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -412,7 +466,7 @@ def main(argv: Sequence[str] = ()) -> dict:
     parser.add_argument("--rounds", type=int, default=6)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--variants", default=",".join(VARIANTS))
-    parser.add_argument("--kinds", default="onepass,wide,past128,narrow,short",
+    parser.add_argument("--kinds", default="onepass,wide,past128,narrow,short,f32wide",
                         help="the kinds of cases timed (their libraries built for --against)")
     parser.add_argument("--against", default="",
                         help="LABEL=CSRC_DIR: the libraries built from that csrc/ too")
@@ -431,7 +485,8 @@ def main(argv: Sequence[str] = ()) -> dict:
                  "wide": ("fused_block", WIDE_VARIANTS, "esv_block_attention"),
                  "past128": ("fused_attention", PAST128_VARIANTS, "esv_attention"),
                  "narrow": ("fused_attention", NARROW_VARIANTS, "esv_attention"),
-                 "short": ("fused_attention", SHORT_VARIANTS, "esv_attention")}
+                 "short": ("fused_attention", SHORT_VARIANTS, "esv_attention"),
+                 "f32wide": ("fused_attention", F32WIDE_VARIANTS, "esv_attention")}
     kinds = {kind: [n for n in names if n in libraries[kind][1]]
              for kind in args.kinds.split(",") if kind}
     calls: Dict[str, Dict[str, object]] = {}
@@ -469,7 +524,8 @@ def main(argv: Sequence[str] = ()) -> dict:
         raise ValueError("nothing to time: name a variant or --against")
     inputs = {"onepass": _onepass_inputs, "wide": _wide_inputs, "past128": _past128_inputs,
               "narrow": lambda d: _typed_inputs(d, NARROW_CASES, 4),
-              "short": lambda d: _typed_inputs(d, SHORT_CASES, 5)}
+              "short": lambda d: _typed_inputs(d, SHORT_CASES, 5),
+              "f32wide": lambda d: _typed_inputs(d, F32WIDE_CASES, 6)}
     cases = {kind: inputs[kind](dev) if kind in calls["shipped"] else [] for kind in inputs}
     errors: Dict[str, Dict[str, float]] = {name: {} for name in calls}
     outputs: Dict[str, Dict[str, torch.Tensor]] = {name: {} for name in calls}
@@ -542,7 +598,8 @@ def main(argv: Sequence[str] = ()) -> dict:
                                                     D=c[4], B=c[5], L=c[6], H=HEADS, ragged=c[7],
                                                     bound_ms=bounds.get(c[0])) for c in table]
                              for kind, table in (("narrow", NARROW_CASES),
-                                                 ("short", SHORT_CASES))},
+                                                 ("short", SHORT_CASES),
+                                                 ("f32wide", F32WIDE_CASES))},
                           variants=result))
 
 

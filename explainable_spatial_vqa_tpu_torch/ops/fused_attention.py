@@ -216,7 +216,9 @@ def kernel_launches() -> Dict[str, int]:
     at padded depths 160-256, in rows of any width),
     ``attention_kernel_wgmma_deep`` (the same at padded depths 288-512) and
     ``attention_kernel_wgmma_2pass`` (bf16 past 256 keys at the head dims of
-    :data:`EXACT_HEAD_DIMS`).  Which one
+    :data:`EXACT_HEAD_DIMS`), and on ``csrc/attention_f32_wide.cuh``
+    ``attention_kernel_wide_f32`` (float32 past 16 keys at the padded depths
+    160-224 and 288-512, rows of whole 16-byte chunks).  Which one
     a call takes is decided in ``launch_attention_dim``
     (``csrc/attention.cuh``) and
     ``launch_attention_padded`` (``csrc/attention_padded.cuh``) alone; the

@@ -354,7 +354,7 @@ def kernel_launches() -> Dict[str, int]:
     (K2, float32 q/k/v, past 16 keys), ``attention_kernel_wgmma`` (K3, bf16,
     17-256 keys) and ``attention_kernel_padded`` (K3 past 256 keys), at 384
     and 512
-    ``attention_kernel_deep_f32`` (K2), ``attention_kernel_wgmma_deep`` (K3,
+    ``attention_kernel_wide_f32`` (K2), ``attention_kernel_wgmma_deep`` (K3,
     17-256 keys) and ``attention_kernel_deep`` (K3 past 256 keys), and at
     256-512 ``attention_kernel_short_f32`` (K2) and ``attention_kernel_short``
     (K3) on rows of at most 16 keys

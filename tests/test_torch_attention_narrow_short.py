@@ -60,8 +60,9 @@ f32 = torch.float32
 def _parent_kernel(d: int, length: int, name: str) -> str:
     """The kernel function a K1 call launched before the narrow copies and
     the short kernels: rows of whole 16-byte chunks alone on the wide
-    kernels past depth 128, past 16 keys; the padded and deep kernels at
-    every other head dim's other calls."""
+    kernels past depth 128, past 16 keys (float32 at depths other than 256
+    on attention_kernel_wide_f32, which took them later); the padded and
+    deep kernels at every other head dim's other calls."""
     bf16 = name == "bf16"
     if d % 8 == 0 and d <= 128:
         if not bf16:
@@ -77,7 +78,7 @@ def _parent_kernel(d: int, length: int, name: str) -> str:
         if bf16:
             wide = None if length > 256 else chip_smoke.WGMMA_DEEP if depth > 256 else chip_smoke.WGMMA
         else:
-            wide = chip_smoke.SPLIT_F32 if depth == 256 else None
+            wide = chip_smoke.SPLIT_F32 if depth == 256 else chip_smoke.WIDE_F32
     if bf16:
         return wide or (chip_smoke.DEEP if d > 256 else chip_smoke.PADDED)
     return wide or (chip_smoke.DEEP_F32 if d > 256 else chip_smoke.PADDED_F32)

@@ -266,15 +266,17 @@ def test_routing_mirrors_name_the_c_kernels():
     keys: bf16 up to kWgmmaMaxKeys at every padded depth past 128, in rows of
     any width, attention_kernel_wgmma up to depth 256 and
     attention_kernel_wgmma_deep past it; float32 in rows of whole 16-byte
-    chunks at padded depth 256 alone) and the padded ones otherwise (past
-    256 the deep ones); K2's and K3's attention at head dims 128, 256, 384
-    and 512 as K1's."""
+    chunks, attention_kernel_split_f32 at padded depth 256 and
+    attention_kernel_wide_f32 at the other depths, csrc/attention_f32_wide.cuh)
+    and the padded ones otherwise (past 256 the deep ones); K2's and K3's
+    attention at head dims 128, 256, 384 and 512 as K1's."""
     names = _names()
     max_keys, counted = _wide_rule()
     short_depth, short_keys = _short_rule()
     assert (short_depth, short_keys) == (128, 16)
     one_pass_keys, onepass_dims = _dim_rule()
     split, wgmma = names["kAttnKernelSplitF32"], names["kAttnKernelWgmma"]
+    wide_f32 = names["kAttnKernelWideF32"]
     wgmma_deep, two_pass = names["kAttnKernelWgmmaDeep"], names["kAttnKernelWgmma2Pass"]
     assert counted == {"kAttnKernelSplitF32", "kAttnKernelWgmma", "kAttnKernelWgmmaDeep"}
     assert _wgmma_counts() == {
@@ -314,9 +316,9 @@ def test_routing_mirrors_name_the_c_kernels():
                     routed.setdefault(got, set()).add(depth)
                     continue
                 wide = (depth > 128 and length > 16
-                        and (depth == 256 and d * esize % 16 == 0 if kind == "fp32"
-                             else length <= max_keys))
-                new = (split if kind == "fp32" else wgmma_deep if depth > deep_depth else wgmma)
+                        and (d * esize % 16 == 0 if kind == "fp32" else length <= max_keys))
+                new = ((split if depth == 256 else wide_f32) if kind == "fp32"
+                       else wgmma_deep if depth > deep_depth else wgmma)
                 assert (got == new) == wide, (d, length, kind, got)
                 if wide:
                     routed.setdefault(got, set()).add(depth)
@@ -325,6 +327,7 @@ def test_routing_mirrors_name_the_c_kernels():
                     assert got == names[padded + ("" if kind == "bf16" else "F32")]
     past_128 = {160, 192, 224, 256, 288, 336, 384, 448, 512}
     assert routed == {split: {256}, wgmma: {160, 192, 224, 256},
+                      wide_f32: {160, 192, 224, 288, 336, 384, 448, 512},
                       wgmma_deep: {288, 336, 384, 448, 512},
                       names["kAttnKernelShort"]: past_128, names["kAttnKernelShortF32"]: past_128}
     assert (names["kAttnKernelShort"], names["kAttnKernelShortF32"]) == (chip_smoke.SHORT,
