@@ -25,14 +25,17 @@ result:
    ``PADDED_DEPTHS``, each on a line of its own; the head-dim-256 kernels
    (``attention_wide.cuh``: ``attention_kernel_split_f32`` to float and bf16
    with HMMA, ``attention_kernel_wgmma`` with HGMMA) on a line of their own;
-   the deep kernels (every head dim of 257-512: ``attention_kernel_deep``,
+   the deep float32 kernel (every head dim of 257-512:
    ``attention_kernel_deep_f32``) at each padded depth past 256 in K1's
    library and at head dims 384 and 512 in the block library, the short
    kernels (``attention_kernel_short[_f32]``, L <= 16) at every padded depth
    past 128 in K1's and at 256-512 in the block library's, the one-pass
    wgmma kernels at every padded depth past 128 (``attention_kernel_wgmma``
    to 256, ``attention_kernel_wgmma_deep`` past it, K3's at 384 and 512 in
-   the block library), and K1's C library's head-dim ceiling equal to
+   the block library), the two-pass wgmma kernel past depth 128
+   (``attention_kernel_wgmma_2pass_deep``, with and without the narrow
+   copies) at every padded depth past 128 (K3's at 256-512 in the block
+   library), and K1's C library's head-dim ceiling equal to
    ``MAX_HEAD_DIM``; the build's wall time beside the parent's and the
    single-unit build's and each translation unit's (K1's head dims and
    padded depths, and the block library's attention at each head dim,
@@ -95,14 +98,17 @@ result:
    K2's attention at head dims 384 and 512 on the (B, L, 3d) buffer's
    strides, a negative control (one TF32 pass) that must miss the float32
    tolerance, and ``F32_WIDE_TIMED`` (d_model 768's and 1280's float32
-   fusion encoders) timed the same way; the one-pass wgmma kernels past
-   depth 128 (``wgmma_padded_kernels``) at ``WGMMA_PADDED_DIMS`` (a head dim
-   or more at every padded depth 160-512) and L = 17, 64, 208, 224, 256 and
-   257 (the hand-off to the padded and deep kernels), ragged and unmasked,
+   fusion encoders) timed the same way; the wgmma kernels past depth 128
+   (``wgmma_padded_kernels``: one pass up to 256 keys, two past them on
+   ``attention_kernel_wgmma_2pass_deep``) at ``WGMMA_PADDED_DIMS`` (a head
+   dim or more at every padded depth 160-512) and L = 17, 64, 208, 224,
+   256, 257, 1025 and 4096 (256 too past 256 keys), ragged and unmasked,
    and, in rows that are not whole 16-byte chunks (the producer's narrow
    copies), at ``WGMMA_NARROW_DIMS`` (odd and even head dims at every
-   padded depth 160-512) and L = 17, 208, 256, on a buffer's strides, a
-   negative control, and ``WGMMA_PADDED_TIMED`` (d_model 768's and 1280's
+   padded depth 160-512) and L = 17, 208, 256, 257, 1025, on a buffer's
+   strides at 208 and 1025 keys, K3's attention at head dim 256 past 256
+   keys, no call on ``attention_kernel_padded``, a negative control, and
+   ``WGMMA_PADDED_TIMED`` (d_model 768's and 1280's
    fusion encoders, K3's attention at d_model 2048) timed the same way; the
    short kernels (``short_kernels``) at ``SHORT_DIMS`` (a head dim at every
    padded depth past 128) and L = 8, 10, 16 in both types, K2's and K3's
@@ -343,10 +349,11 @@ their launches on phases 16.1 and 23's paths, the head-dim-256 kernels
 ``attention_kernel_wgmma``: K3's at L=224; K1's layout under
 ``at_shapes``) with their launches on phase 23's paths
 by the C libraries' counts, and K1's rows past 1024 keys
-under ``long_rows``; the deep kernels (``attention_kernel_deep_f32``: K1
+under ``long_rows``; the deep float32 kernel (``attention_kernel_deep_f32``: K1
 at d 1100's float32 fusion encoder;
-``attention_kernel_deep``: a row past 256 keys, ``off_path``: no model
-sends it one), ``attention_kernel_wide_f32`` (K2's attention at d 2048, at
+``attention_kernel_wgmma_2pass_deep``: a 1025-key row at D = 512, D = 256
+under ``at_shapes``, its launches K3's in phase 24.4's block bench at L =
+304, ``off_path``: no model sends such rows), ``attention_kernel_wide_f32`` (K2's attention at d 2048, at
 d 1536 and K1's float32 fusion encoders at d_model 544, 768 and 1280 under
 ``at_shapes``, its launches on phases 24 and 25's paths) and K2 and K3 at
 head dim 512 (``fused_encoder_block_hd512``,
@@ -417,9 +424,9 @@ K3_DRAWS = BLOCK_DRAWS + ((0, 1184),)
 # every length)
 ONE_PASS, RING = "attention_kernel_onepass", "attention_kernel"
 PADDED, PADDED_F32 = "attention_kernel_padded", "attention_kernel_padded_f32"
-# the padded kernels past depth 256 (csrc/attention_padded.cuh): every head
-# dim of 257-512, K2's and K3's attention at 384 and 512
-DEEP, DEEP_F32 = "attention_kernel_deep", "attention_kernel_deep_f32"
+# the float32 padded kernel past depth 256 (csrc/attention_padded.cuh): the
+# head dims of 257-512 in rows that are not whole 16-byte chunks (D = 275)
+DEEP_F32 = "attention_kernel_deep_f32"
 # and its short kernels: rows of at most 16 keys past padded depth 128 (the
 # box decoders at d_model 768-2048; K2's and K3's attention at 256-512)
 SHORT, SHORT_F32 = "attention_kernel_short", "attention_kernel_short_f32"
@@ -436,9 +443,13 @@ WGMMA_DEEP = "attention_kernel_wgmma_deep"
 WIDE_F32 = "attention_kernel_wide_f32"
 WIDE_F32_DEPTHS = (160, 192, 224, 288, 336, 384, 448, 512)
 WGMMA_2PASS = "attention_kernel_wgmma_2pass"
+# bf16 past 256 keys at the padded depths past 128, rows of any width (K3's
+# attention at 256-512 too): the padded and deep bf16 kernels before
+WGMMA_2PASS_DEEP = "attention_kernel_wgmma_2pass_deep"
 WGMMA_DEPTHS = (80, 96, 112, 128, 160, 192, 224, 256)  # attention_kernel_wgmma's padded depths
 WGMMA_DEEP_DEPTHS = (288, 336, 384, 448, 512)  # attention_kernel_wgmma_deep's
-WGMMA_2PASS_DEPTHS = (16, 32, 48, 64, 80, 96, 112, 128)  # and the two-pass kernel's
+WGMMA_2PASS_DEPTHS = (16, 32, 48, 64, 80, 96, 112, 128)  # and the two-pass kernels'
+WGMMA_2PASS_DEEP_DEPTHS = WGMMA_DEPTHS[4:] + WGMMA_DEEP_DEPTHS
 K1_CHECK_LENGTHS = ((8, False, RING), (17, True, ONE_PASS), (208, True, ONE_PASS),
                     (224, False, ONE_PASS), (225, True, ONE_PASS), (243, True, ONE_PASS),
                     (246, True, ONE_PASS), (256, False, ONE_PASS), (257, True, WGMMA_2PASS))
@@ -479,9 +490,10 @@ def wide_kernel(d_head: int, length: int, name: str):
     """The ``attention_wide.cuh`` or ``attention_f32_wide.cuh`` kernel a
     call of type ``name`` at a head dim without kernels of its own launches
     (``launch_attention_padded``'s ``wide_takes``), or None where the padded
-    kernels keep it: past 16 keys at a padded depth past 128, bf16 up to 256
-    keys in rows of any width (the one-pass wgmma kernel, past depth 256 as
-    ``attention_kernel_wgmma_deep``), float32 in rows of whole 16-byte
+    kernels keep it: past 16 keys at a padded depth past 128, bf16 in rows
+    of any width (up to 256 keys the one-pass wgmma kernel, past depth 256
+    as ``attention_kernel_wgmma_deep``; past 256 keys
+    ``attention_kernel_wgmma_2pass_deep``), float32 in rows of whole 16-byte
     chunks (with aligned bases and strides, as the wrappers' tensors are:
     the head dims that are multiples of 4) at any length,
     ``attention_kernel_split_f32`` at depth 256 (228-256) and
@@ -492,7 +504,7 @@ def wide_kernel(d_head: int, length: int, name: str):
     if depth <= 128 or length <= 16:
         return None
     if name == "bf16":
-        return None if length > 256 else WGMMA_DEEP if depth > 256 else WGMMA
+        return WGMMA_2PASS_DEEP if length > 256 else WGMMA_DEEP if depth > 256 else WGMMA
     if d_head * 4 % 16:
         return None
     return SPLIT_F32 if depth == 256 else WIDE_F32
@@ -512,10 +524,11 @@ def short_kernel(d_head: int, length: int, name: str):
 def padded_kernel(d_head: int, name: str) -> str:
     """The padded kernel a call of type ``name`` at a head dim without
     kernels of its own launches where ``short_kernel`` and ``wide_kernel``
-    do not take it (``launch_padded_r``): up to 256 the padded one, past it
-    the deep one."""
+    do not take it (``launch_padded_r``): bf16 the padded one (head dims up
+    to 128: past them ``wide_kernel`` takes every bf16 row past 16 keys),
+    float32 the padded one up to 256 and the deep one past it."""
     if name == "bf16":
-        return DEEP if d_head > 256 else PADDED
+        return PADDED
     return DEEP_F32 if d_head > 256 else PADDED_F32
 
 
@@ -527,7 +540,8 @@ def k1_bf16_kernel(d_head: int, length: int) -> str:
     of its own the kernel ``short_kernel`` names (``attention_kernel_short``
     at L <= 16 past depth 128) or ``wide_kernel`` does
     (``attention_kernel_wgmma``, past depth 256
-    ``attention_kernel_wgmma_deep``), else the padded kernel
+    ``attention_kernel_wgmma_deep``, past 256 keys
+    ``attention_kernel_wgmma_2pass_deep``), else the padded kernel
     (``launch_attention_padded``: ``padded_kernel``)."""
     if d_head % 8 or d_head > 128:
         return (short_kernel(d_head, length, "bf16") or wide_kernel(d_head, length, "bf16")
@@ -555,7 +569,8 @@ def block_attention_kernel(d_head: int, length: int, name: str) -> str:
     k, v) or K3 ("bf16") launches (``launch_block_attention``): K1's at head
     dims 128 (``launch_attention_dim``: ``attention_kernel_f32``; in bf16 the
     ring at L <= 16, the wgmma kernels past it), 256, 384 and 512 (the short
-    kernels at L <= 16, past it the wide, padded and deep ones)."""
+    kernels at L <= 16, past it the wide ones, float32 at 256 the split one;
+    bf16 past 256 keys ``attention_kernel_wgmma_2pass_deep``)."""
     return k1_kernel(d_head, length, name)
 
 
@@ -604,8 +619,9 @@ K1_NEW_SHAPES = (
     ("1025-key row", 64, 16, 1025, True, "fp32"),
     ("4096-key row", 256, 4, 4096, True, "fp32"),
 )
-# K1 past head dim 256, on the deep kernels (csrc/attention_padded.cuh) and
-# the kernels that took their calls since (k1_kernel names each call's):
+# K1 past head dim 256, on the deep float32 kernel (csrc/attention_padded.cuh)
+# and the kernels that took the deep kernels' calls since (k1_kernel names
+# each call's; bf16 past 256 keys attention_kernel_wgmma_2pass_deep):
 # phase 3 holds head dims at every deep depth (288: 257, 275; 336: 300, 336;
 # 384: 350, 384; 448: 385, 400, 448; 512: 449, 500, 512) at DEEP_LENGTHS in
 # both types (ragged masks; unmasked too at 208) at B = 8 (2 past 256
@@ -627,10 +643,10 @@ DEEP_NEGATIVE = ((512, 8, 208), (275, 2, 1025))  # head dim, B, L
 # buffer), head dim, B, L, key mask, q/k/v type, output type; each timed,
 # DEEP_PROFILED's with its device time by profile.  The box decoders (8 and
 # 10 keys) take the short kernels, d 1100's bf16 fusion encoder
-# attention_kernel_wgmma_deep (rows of 550 bytes), and attention_kernel_deep
-# is timed at a row past 256 keys, the only rows it keeps (K3's attention at
-# d 2048, bf16 of 224 keys, is attention_kernel_wgmma_deep's:
-# WGMMA_PADDED_TIMED)
+# attention_kernel_wgmma_deep (rows of 550 bytes), and bf16 rows past 256
+# keys (no model sends them) attention_kernel_wgmma_2pass_deep, timed at D =
+# 512 and 256 (K3's attention at d 2048, bf16 of 224 keys, is
+# attention_kernel_wgmma_deep's: WGMMA_PADDED_TIMED)
 DEEP_TIMED = (
     ("K2 attention d 2048", "block", 512, 128, 210, True, "fp32", "bf16"),  # 24.1
     ("K2 attention d 1536 fp32", "block", 384, 128, 208, True, "fp32", "fp32"),  # 24.2
@@ -639,10 +655,12 @@ DEEP_TIMED = (
     ("d 1100 encoder", "K1", 275, 128, 210, True, "fp32", "fp32"),  # 24.3
     ("d 1100 encoder bf16", "K1", 275, 128, 210, True, "bf16", "bf16"),  # 24.3
     ("rows past 256 keys d 2048 bf16", "K1", 512, 16, 1025, True, "bf16", "bf16"),
+    ("rows past 256 keys d 1024 bf16", "K1", 256, 16, 1025, True, "bf16", "bf16"),
 )
 # the DEEP_TIMED shapes also named by a profile, which gives their device time
 DEEP_PROFILED = ("K2 attention d 2048", "K2 attention d 1536 fp32", "serving d 2048 box decoder",
-                 "protocol d 1536 box decoder", "d 1100 encoder", "d 1100 encoder bf16")
+                 "protocol d 1536 box decoder", "d 1100 encoder", "d 1100 encoder bf16",
+                 "rows past 256 keys d 2048 bf16", "rows past 256 keys d 1024 bf16")
 # attention_kernel_wide_f32 (csrc/attention_f32_wide.cuh: float32 rows of
 # whole 16-byte chunks past 16 keys at the padded depths past 128 but 256),
 # phases 3-4 (f32_wide_kernels): K1 through the wrapper at a head dim of
@@ -669,12 +687,14 @@ F32_WIDE_TIMED = (
 # K1 through the wrapper at a head dim of every depth (most of them not the
 # depth itself: 136 and 160 at 160, 176 and 192 at 192, 200 at 224, 264 at
 # 288, 320 at 336, 360 and 384 at 384, 392 at 448, 456 and 512 at 512) and
-# the lengths from 17 to 256 keys and 257 (the hand-off to the padded and
-# deep kernels), ragged and unmasked; K1 on a (B, L, 3d) buffer's strides at
-# WGMMA_STRIDED; the negative control at WGMMA_NEGATIVE; then
-# WGMMA_PADDED_TIMED checked and timed beside the plain version, SDPA and the
-# bound.  K3's attention at 384 and 512 is held in deep_kernels
-# (esv_block_attention at DEEP_BLOCK_LENGTHS).
+# the lengths from 17 to 256 keys and past them (the two-pass kernel,
+# attention_kernel_wgmma_2pass_deep: 257, and with 256 at TWO_PASS_LENGTHS'
+# 257, 1025 and MAX_LEN), ragged and unmasked; K1 on a (B, L, 3d) buffer's
+# strides at WGMMA_STRIDED (208 and 1025 keys); K3's attention at head dim
+# 256 past 256 keys (WGMMA_2PASS_BLOCK_LENGTHS); the negative control at
+# WGMMA_NEGATIVE; then WGMMA_PADDED_TIMED checked and timed beside the plain
+# version, SDPA and the bound.  K3's attention at 384 and 512 is held in
+# deep_kernels (esv_block_attention at DEEP_BLOCK_LENGTHS).
 WGMMA_PADDED_DIMS = (136, 160, 176, 192, 200, 264, 320, 360, 384, 392, 456, 512)
 WGMMA_PADDED_LENGTHS = (17, 64, 208, 224, 256, 257)
 # and on rows that are not whole 16-byte chunks (the producer's narrow
@@ -682,9 +702,11 @@ WGMMA_PADDED_LENGTHS = (17, 64, 208, 224, 256, 257)
 # head starts 2 bytes off a 4-byte boundary: 151 and 255 at 160 and 256, 275
 # at 288, ...) and even ones (150, 300, 500: 4-byte aligned heads)
 WGMMA_NARROW_DIMS = (150, 151, 181, 211, 255, 275, 300, 301, 351, 391, 500, 501)
-WGMMA_NARROW_LENGTHS = (17, 208, 256)
+WGMMA_NARROW_LENGTHS = (17, 208, 256, 257, 1025)
 WGMMA_STRIDED = (192, 275, 320, 512)
-WGMMA_NEGATIVE = ((192, 32, 208), (320, 32, 208))  # head dim, B, L
+WGMMA_STRIDED_LENGTHS = (208, 1025)
+WGMMA_2PASS_BLOCK_LENGTHS = (257, 1025)
+WGMMA_NEGATIVE = ((192, 32, 208), (320, 32, 208), (256, 2, 1025))  # head dim, B, L
 WGMMA_PADDED_TIMED = (
     ("d 768 encoder bf16", "K1", 192, 128, 208, True, "bf16", "bf16"),  # 25.1
     ("d 1280 encoder bf16", "K1", 320, 128, 208, True, "bf16", "bf16"),  # 25.2
@@ -1312,12 +1334,13 @@ def k1_padded_missing(kernels: dict) -> list:
     """The padded kernels (``csrc/attention_padded.cuh``) that each depth of
     ``PADDED_DEPTHS`` must have, as (kernel, output type, per-warp depth,
     warps a row group[, row groups a block]), that are not built or run no
-    HMMA: ``attention_kernel_padded_f32`` to float and bf16 and
-    ``attention_kernel_padded`` to bf16 (past depth 256 the deep ones), each
-    with 8 warps (past 256 ``padded_rows`` groups) and, up to depth 128, with one row
-    group (L <= 16); past 128, where the short kernels take L <= 16,
-    ``attention_kernel_short_f32`` to float and bf16 and
-    ``attention_kernel_short`` to bf16."""
+    HMMA: ``attention_kernel_padded_f32`` to float and bf16 (past depth 256
+    the deep one), each with 8 warps (past 256 ``padded_rows`` groups) and,
+    up to depth 128, with one row group (L <= 16), and up to depth 128
+    ``attention_kernel_padded`` to bf16 likewise (past it the wgmma kernels
+    take bf16 past 16 keys: ``kernel_checks``); past 128, where the short
+    kernels take L <= 16, ``attention_kernel_short_f32`` to float and bf16
+    and ``attention_kernel_short`` to bf16."""
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import PADDED_DEPTHS
 
     built = {}
@@ -1330,10 +1353,11 @@ def k1_padded_missing(kernels: dict) -> list:
     missing = []
     for depth in PADDED_DEPTHS:
         g = padded_group(depth)
-        f32, bf16 = (DEEP_F32, DEEP) if depth > 256 else (PADDED_F32, PADDED)
-        for name, kernel, outs in (("fp32", f32, ("float", "bf16")), ("bf16", bf16, ("bf16",))):
+        f32 = DEEP_F32 if depth > 256 else PADDED_F32
+        for name, kernel, outs in (("fp32", f32, ("float", "bf16")), ("bf16", PADDED, ("bf16",))):
             groups = ("1", "8") if depth <= 128 else (str(padded_rows(depth, name)),)
-            want = [(kernel, to, str(depth // g), str(g), r) for to in outs for r in groups]
+            want = ([(kernel, to, str(depth // g), str(g), r) for to in outs for r in groups]
+                    if name == "fp32" or depth <= 128 else [])
             if depth > 128:
                 want += [(SHORT_F32 if name == "fp32" else SHORT, to, str(depth // g), str(g))
                          for to in outs]
@@ -1346,11 +1370,12 @@ def block_deep_missing() -> list:
     K3's attention at head dims 384 and 512 (``launch_block_attention``), as
     (kernel, output type, per-warp depth, warps a row group[, row groups a
     block]), that its ptxas report does not name: float32 q/k/v to float
-    and bf16 (K2; K3 with float32 weights) and bf16 to bf16 (K3), the deep
-    kernels with two row groups (past 16 keys), the short ones
+    and bf16 (K2; K3 with float32 weights) and, for the short kernels, bf16
+    to bf16 (K3); the deep float32 kernel (past 16 keys), the short ones
     (``attention_kernel_short[_f32]``, L <= 16; at 256 too); and
-    ``attention_kernel_wgmma_deep`` (K3, bf16, 17-256 keys) at each depth,
-    as (kernel, output type, depth)."""
+    ``attention_kernel_wgmma_deep`` (K3, bf16, 17-256 keys) at each depth
+    and ``attention_kernel_wgmma_2pass_deep`` (K3, bf16, past 256 keys) at
+    256 too, as (kernel, output type, depth)."""
     from explainable_spatial_vqa_tpu_torch.measure.variants import ptxas_usage
     from explainable_spatial_vqa_tpu_torch.ops import _build
 
@@ -1361,11 +1386,13 @@ def block_deep_missing() -> list:
         if found:
             kind, to, ints = found.groups()
             built.add((kind, "float" if to == "f" else "bf16", *re.findall(r"Li(\d+)E", ints)))
-        found = re.search(r"(attention_kernel_wgmma_deep)I13__nv_bfloat16Li(\d+)E", fn)
+        found = re.search(r"(attention_kernel_wgmma(?:_2pass)?_deep)I13__nv_bfloat16Li(\d+)E", fn)
         if found:
             built.add((found.group(1), "bf16", found.group(2)))
     missing = [(WGMMA_DEEP, "bf16", str(depth)) for depth in (384, 512)
                if (WGMMA_DEEP, "bf16", str(depth)) not in built]
+    missing += [(WGMMA_2PASS_DEEP, "bf16", str(depth)) for depth in (256, 384, 512)
+                if (WGMMA_2PASS_DEEP, "bf16", str(depth)) not in built]
     for depth in (256, 384, 512):
         g = padded_group(depth)
         shape = (str(depth // g), str(g))
@@ -1373,7 +1400,7 @@ def block_deep_missing() -> list:
         if depth > 256:
             rows = {name: str(padded_rows(depth, name)) for name in ("fp32", "bf16")}
             want += [(DEEP_F32, "float", *shape, rows["fp32"]),
-                     (DEEP_F32, "bf16", *shape, rows["fp32"]), (DEEP, "bf16", *shape, rows["bf16"])]
+                     (DEEP_F32, "bf16", *shape, rows["fp32"])]
         missing += [key for key in want if key not in built]
     return missing
 
@@ -1619,15 +1646,15 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
                     for n, k in kernels.items()
                     if any(f"attention_kernel_{kind}" in n for kind in ("padded", "deep", "short")))
     say("phase 2 padded K1 (attention_kernel_padded[_f32]<output type, per-warp depth, warps a "
-        "16-row group, groups a block>, every other head dim up to 256; past it "
-        "attention_kernel_deep[_f32], the same code; past 128 at L <= 16 "
+        "16-row group, groups a block>, every other head dim up to 256, bf16 up to 128; past "
+        "256 attention_kernel_deep_f32, the same code; past 128 at L <= 16 "
         "attention_kernel_short[_f32]<output type, per-warp depth, warps>): " + "; ".join(
             f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HMMA']} HMMA"
             for name, k in padded))
     missing = k1_padded_missing(kernels)
-    say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 and to "
-        f"bf16 from bf16, 8 warps a block (past 256 2 groups, 3 in float32 at 288-384) and one "
-        f"group up to 128, the short kernels past 128, every one with "
+    say(f"phase 2 padded K1 at the depths {PADDED_DEPTHS}, to float and bf16 from float32 (and "
+        f"to bf16 from bf16 up to 128), 8 warps a block (past 256 2 groups, 3 in float32 at "
+        f"288-384) and one group up to 128, the short kernels past 128, every one with "
         f"HMMA: {'yes' if not missing else f'NO, missing or without HMMA {missing}'}")
     if missing:
         fail("phase 2: K1's padded kernels are not built with HMMA at every depth of "
@@ -1635,8 +1662,8 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
     missing = block_deep_missing()
     max_head_dim = _build.entry("fused_attention", "esv_attention_max_head_dim", ())()
     say(f"phase 2 the block library's deep and short kernels (K2's and K3's attention at head "
-        f"dims 384 and 512, K3's on attention_kernel_wgmma_deep too; the short ones at 256 too) "
-        f"built: "
+        f"dims 384 and 512, K3's on attention_kernel_wgmma_deep too; the short ones and K3's on "
+        f"attention_kernel_wgmma_2pass_deep at 256 too) built: "
         f"{'yes' if not missing else f'NO, missing {missing}'}; K1's C library "
         f"takes head dims up to {max_head_dim} (MAX_HEAD_DIM {MAX_HEAD_DIM})")
     if missing or max_head_dim != MAX_HEAD_DIM:
@@ -1650,8 +1677,10 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
                   key=lambda e: e[0])
     say("phase 2 attention_wide.cuh's kernels (float32 K1 and K2 at head dim 256; bf16 K1 and "
         "K3 on wgmma at 72-128 and at the padded depths 160-512 up to 256 keys, past 256 as "
-        "attention_kernel_wgmma_deep, and at every head dim up to 128 past 256 keys; built "
-        "into fused_attention and fused_block): " + "; ".join(
+        "attention_kernel_wgmma_deep, and past 256 keys at every head dim up to 128 "
+        "(attention_kernel_wgmma_2pass) and every padded depth 160-512 "
+        "(attention_kernel_wgmma_2pass_deep); built into fused_attention and fused_block): "
+        + "; ".join(
             f"{name} {k['registers']} registers, {k['spill']} bytes spilled, {k['HGMMA']} HGMMA, "
             f"{k['HMMA']} HMMA" for name, k in wide))
     # the float32 kernel on mma.sync (HMMA) to float and bf16, the bf16 ones on
@@ -1661,6 +1690,8 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
     want_wide.update({f"{WGMMA}<bf16, {dp}>": "HGMMA" for dp in WGMMA_DEPTHS})
     want_wide.update({f"{WGMMA_DEEP}<bf16, {dp}>": "HGMMA" for dp in WGMMA_DEEP_DEPTHS})
     want_wide.update({f"{WGMMA_2PASS}<bf16, {dp}>": "HGMMA" for dp in WGMMA_2PASS_DEPTHS})
+    want_wide.update({f"{WGMMA_2PASS_DEEP}<bf16, {dp}>": "HGMMA"
+                      for dp in WGMMA_2PASS_DEEP_DEPTHS})
     for fn, unit in want_wide.items():
         found = [k for name, k in wide if name == fn]
         if not found or not all(k[unit] > 0 for k in found):
@@ -1677,11 +1708,15 @@ def kernel_checks(kernels: dict, libs: dict) -> None:
         found = [k for name, k in f32_wide if name == fn]
         if not found or not all(k["HMMA"] > 0 for k in found):
             fail(f"phase 2: {fn} is not built with HMMA: {found}")
-    narrow = sorted({int(m.group(1)) for n, k in kernels.items() if WGMMA in n
-                     for m in [re.search(r"<bf16, \(int\)(\d+), \(bool\)1>", k["short"])] if m})
-    say(f"phase 2 the one-pass wgmma kernels with the producer's narrow copies (rows that are "
-        f"not whole 16-byte chunks) built at the padded depths {narrow}")
-    if narrow != sorted(WGMMA_DEPTHS[4:] + WGMMA_DEEP_DEPTHS):
+    narrow = {kernel: sorted({int(m.group(1)) for n, k in kernels.items()
+                              if k["short"].startswith(f"void {kernel}<")
+                              for m in [re.search(r"<bf16, \(int\)(\d+), \(bool\)1>",
+                                                  k["short"])] if m})
+              for kernel in (WGMMA, WGMMA_DEEP, WGMMA_2PASS_DEEP)}
+    say(f"phase 2 the wgmma kernels with the producer's narrow copies (rows that are not whole "
+        f"16-byte chunks) built at the padded depths {narrow}")
+    if (narrow[WGMMA] + narrow[WGMMA_DEEP] != list(WGMMA_2PASS_DEEP_DEPTHS)
+            or narrow[WGMMA_2PASS_DEEP] != list(WGMMA_2PASS_DEEP_DEPTHS)):
         fail("phase 2: the narrow-copy wgmma kernels are not built at every padded depth past 128")
     tf32_gemms = sorted(k["short"] for n, k in kernels.items() if "gemm_tf32_wgmma" in n)
     say(f"phase 2 float32 GEMM instantiations (3xTF32): {', '.join(tf32_gemms) or 'none'}")
@@ -2431,10 +2466,12 @@ def sdpa_backend(torch, call) -> str:
 
 def deep_kernels(torch, F, dev, results: dict, parts: list) -> None:
     """Phases 3-4 for the head dims past 256 (``attention_kernel_deep_f32``,
-    ``attention_kernel_deep``, and the kernels that took their calls since:
+    and the kernels that took the deep kernels' calls since:
     ``attention_kernel_wide_f32`` float32 rows of whole 16-byte chunks past
-    16 keys, the wgmma and short kernels; K2's and K3's attention at 384 and
-    512), each call's kernel as ``k1_kernel`` names it: K1 at ``DEEP_DIMS`` x
+    16 keys, the wgmma kernels (bf16 past 256 keys
+    ``attention_kernel_wgmma_2pass_deep``) and the short ones; K2's and K3's
+    attention at 384 and 512), each call's kernel as ``k1_kernel`` names
+    it: K1 at ``DEEP_DIMS`` x
     ``DEEP_LENGTHS`` and at
     MAX_LEN keys, K2's and K3's attention at ``DEEP_BLOCK_LENGTHS`` through
     ``esv_block_attention`` (float32 q/k/v to bf16 and to float32, bf16 to
@@ -2627,19 +2664,24 @@ def f32_wide_kernels(torch, F, dev, results: dict, parts: list) -> None:
 
 
 def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
-    """Phases 3-4 for the one-pass wgmma kernels at the padded depths past
-    128 (``attention_kernel_wgmma`` at 160-256, ``attention_kernel_wgmma_deep``
-    at 288-512; bf16 rows of 17-256 keys): K1 at ``WGMMA_PADDED_DIMS`` x
-    ``WGMMA_PADDED_LENGTHS`` and, in rows that are not whole 16-byte chunks,
-    at ``WGMMA_NARROW_DIMS`` x ``WGMMA_NARROW_LENGTHS``, ragged and unmasked,
-    and on a (B, L, 3d) buffer's strides at ``WGMMA_STRIDED``, each call's
-    kernel read from the C library's counts (at 257 keys the padded or deep
-    kernel); the negative control (``rounded_first``) at ``WGMMA_NEGATIVE``
-    must fail the bf16 check; then ``WGMMA_PADDED_TIMED`` checked and timed
-    beside the plain version, ``scaled_dot_product_attention`` (its backend
-    named) and the bound.  Results go to ``results["wgmma padded <label>"]``
-    and, for K3's attention, to ``parts``."""
-    from explainable_spatial_vqa_tpu_torch.ops import _build
+    """Phases 3-4 for the wgmma kernels at the padded depths past 128 (one
+    pass up to 256 keys: ``attention_kernel_wgmma`` at 160-256,
+    ``attention_kernel_wgmma_deep`` at 288-512; two past them:
+    ``attention_kernel_wgmma_2pass_deep`` at 160-512): K1 at
+    ``WGMMA_PADDED_DIMS`` x ``WGMMA_PADDED_LENGTHS``, those and 256 at
+    ``TWO_PASS_LENGTHS`` (257, 1025, 4096: MAX_LEN) and, in rows that are not whole
+    16-byte chunks, at ``WGMMA_NARROW_DIMS`` x ``WGMMA_NARROW_LENGTHS``,
+    ragged and unmasked, on a (B, L, 3d) buffer's strides at
+    ``WGMMA_STRIDED`` x ``WGMMA_STRIDED_LENGTHS``, and K3's attention at
+    head dim 256 at ``WGMMA_2PASS_BLOCK_LENGTHS`` (``esv_block_attention``),
+    each call's kernel read from the C libraries' counts (no call on
+    ``attention_kernel_padded``); the negative control (``rounded_first``) at
+    ``WGMMA_NEGATIVE`` must fail the bf16 check; then ``WGMMA_PADDED_TIMED``
+    checked and timed beside the plain version,
+    ``scaled_dot_product_attention`` (its backend named) and the bound.
+    Results go to ``results["wgmma padded <label>"]`` and, for K3's
+    attention, to ``parts``."""
+    from explainable_spatial_vqa_tpu_torch.ops import _build, fused_block
     from explainable_spatial_vqa_tpu_torch.ops.fused_attention import (
         bind_entry,
         kernel_launches,
@@ -2660,12 +2702,16 @@ def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     checks, by_kernel, narrow = 0, {}, {}
+    padded_before = (kernel_launches().get(PADDED, 0), fused_block.kernel_launches().get(PADDED, 0))
     shapes = [(d, length) for d in WGMMA_PADDED_DIMS for length in WGMMA_PADDED_LENGTHS]
+    shapes += [(d, length) for d in WGMMA_PADDED_DIMS + (256,)
+               for length in TWO_PASS_LENGTHS if (d, length) not in shapes]
     shapes += [(d, length) for d in WGMMA_NARROW_DIMS for length in WGMMA_NARROW_LENGTHS]
     for d_head, length in shapes:
         b = wide_batch(length)
         want = k1_bf16_kernel(d_head, length)
-        if (want in (WGMMA, WGMMA_DEEP)) != (length <= 256):
+        if want != ((WGMMA, WGMMA_DEEP)[padded_depth(d_head) > 256] if length <= 256
+                    else WGMMA_2PASS_DEEP):
             fail(f"the routing mirror names {want} for bf16 at D={d_head}, L={length}")
         for masked in (True, False):
             mask = ragged(b, length) if masked else None
@@ -2680,27 +2726,48 @@ def wgmma_padded_kernels(torch, F, dev, results: dict, parts: list) -> None:
             checks += 1
             del q, k, v
     for d_head in WGMMA_STRIDED:
-        d, b, length = 4 * d_head, 32, 208
-        q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
-        block_called(torch, k1_fn, "bf16", q, k, v, ragged(b, length), torch.bfloat16,
-                     f"phase 3 K1 esv_attention bf16 on a (B, L, 3d) buffer's strides, B={b} H=4 "
-                     f"L={length} D={d_head} mask=ragged", k1_bf16_kernel(d_head, length),
-                     counts=kernel_launches)
-        checks += 1
-        del q, k, v
+        for length in WGMMA_STRIDED_LENGTHS:
+            d, b = 4 * d_head, wide_batch(length)
+            q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
+            block_called(torch, k1_fn, "bf16", q, k, v, ragged(b, length), torch.bfloat16,
+                         f"phase 3 K1 esv_attention bf16 on a (B, L, 3d) buffer's strides, B={b} "
+                         f"H=4 L={length} D={d_head} mask=ragged", k1_bf16_kernel(d_head, length),
+                         counts=kernel_launches)
+            checks += 1
+            del q, k, v
+    for length in WGMMA_2PASS_BLOCK_LENGTHS:  # K3's attention at head dim 256 past 256 keys
+        d, b = 4 * 256, wide_batch(length)
+        for masked in (True, False):
+            q, k, v = randn(b, length, 3 * d).split(d, dim=-1)
+            block_called(torch, block_fn, "bf16", q, k, v, ragged(b, length) if masked else None,
+                         torch.bfloat16,
+                         f"phase 3 K3 attention bf16 q/k/v from the (B, L, 3d) buffer, B={b} H=4 "
+                         f"L={length} D=256 mask={'ragged' if masked else 'none'}",
+                         block_attention_kernel(256, length, "bf16"))
+            checks += 1
+            del q, k, v
+    padded_calls = [c.get(PADDED, 0) - was for c, was in zip(
+        (kernel_launches(), fused_block.kernel_launches()), padded_before)]
     depths = {kernel: sorted(found) for kernel, found in sorted(by_kernel.items())}
     narrow = {kernel: sorted(found) for kernel, found in sorted(narrow.items())}
     say(f"phase 3 the wgmma kernels at the padded depths past 128: {checks} calls (K1 at D = "
-        f"{WGMMA_PADDED_DIMS}, L = {WGMMA_PADDED_LENGTHS}, and in rows that are not whole 16-byte "
-        f"chunks at D = {WGMMA_NARROW_DIMS}, L = {WGMMA_NARROW_LENGTHS}, ragged and unmasked; on a "
-        f"(B, L, 3d) buffer at D = {WGMMA_STRIDED}) checked, the padded depths by kernel {depths}, "
-        f"those of the rows not whole 16-byte chunks {narrow}, in "
+        f"{WGMMA_PADDED_DIMS}, L = {WGMMA_PADDED_LENGTHS}, those and 256 at L = "
+        f"{TWO_PASS_LENGTHS}, and in rows that are not whole 16-byte chunks at "
+        f"D = {WGMMA_NARROW_DIMS}, L = {WGMMA_NARROW_LENGTHS}, ragged and unmasked; on a (B, L, "
+        f"3d) buffer at D = {WGMMA_STRIDED}, L = {WGMMA_STRIDED_LENGTHS}; K3's attention at head "
+        f"dim 256, L = {WGMMA_2PASS_BLOCK_LENGTHS}) checked, the padded depths by kernel "
+        f"{depths}, those of the rows not whole 16-byte chunks {narrow}; "
+        f"{PADDED} launches by the two C libraries {padded_calls}, in "
         f"{time.perf_counter() - t0:.1f} s")
     if not (set(depths.get(WGMMA, ())) >= {160, 192, 224}
             and depths.get(WGMMA_DEEP) == list(WGMMA_DEEP_DEPTHS)
-            and narrow == {WGMMA: [160, 192, 224, 256], WGMMA_DEEP: list(WGMMA_DEEP_DEPTHS)}):
+            and depths.get(WGMMA_2PASS_DEEP) == list(WGMMA_2PASS_DEEP_DEPTHS)
+            and narrow == {WGMMA: [160, 192, 224, 256], WGMMA_DEEP: list(WGMMA_DEEP_DEPTHS),
+                           WGMMA_2PASS_DEEP: list(WGMMA_2PASS_DEEP_DEPTHS)}):
         fail("phase 3: the wgmma kernels were not held at every padded depth past 128, in rows "
              "of whole 16-byte chunks and in others")
+    if padded_calls != [0, 0]:
+        fail(f"phase 3: bf16 calls past depth 128 launched {PADDED}")
     for d_head, b, length in WGMMA_NEGATIVE:
         q, k, v = (randn(b, length, 4, d_head) for _ in range(3))
         mask = ragged(b, length)
@@ -3585,21 +3652,24 @@ def main_path(torch, np, dev, results, parts) -> None:
         f"{k['launches_by_path']}" for k in kernels[-2:]))
     if not all(k["launches"] for k in kernels[-2:]):
         fail("a wgmma kernel at head dims up to 128 never launched on its path")
-    # the deep kernels (attention_padded.cuh past depth 256): their launches
-    # on phase 24's paths by the C libraries' counts (deep_f32: K1 in float32
-    # at d 1100's fusion layers, rows of 1100 bytes;
-    # deep, bf16, keeps only rows past 256 keys, which no model sends: 0
-    # launches, timed at such a row), the numbers of K2's attention
-    # at d 2048, the other shapes under at_shapes; then K2 and K3 at head dim
-    # 512 (d_model 2048), their launches on phase 24's serving and
-    # block-bench paths
+    # the deep float32 kernel (attention_padded.cuh past depth 256: K1 in
+    # float32 at d 1100's fusion layers, rows of 1100 bytes) and the two-pass
+    # wgmma kernel past depth 128 (attention_wide.cuh: bf16 past 256 keys, K3's
+    # attention in the d 2048 block bench at L = 304; no model sends such
+    # rows): their launches on phase 24's paths by the C libraries' counts,
+    # the numbers at d 1100 and at a 1025-key row of D = 512 (D = 256's under
+    # at_shapes); then K2 and K3 at head dim 512 (d_model 2048), their
+    # launches on phase 24's serving and block-bench paths
     for kernel, main_key, other_keys in (
             (DEEP_F32, "d 1100 encoder", ()),
-            (DEEP, "rows past 256 keys d 2048 bf16", ())):
+            (WGMMA_2PASS_DEEP, "rows past 256 keys d 2048 bf16",
+             ("rows past 256 keys d 1024 bf16",))):
         by_deep = {path: c[kernel] for path, c in deep_launches.items()}
         kernels.append(dict(
             name=kernel, route="cuda",
-            source="explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh",
+            source=("explainable_spatial_vqa_tpu_torch/csrc/attention_padded.cuh"
+                    if kernel == DEEP_F32 else
+                    "explainable_spatial_vqa_tpu_torch/csrc/attention_wide.cuh"),
             replaces=("explainable_spatial_vqa_tpu/ops/pallas_block.py:135" if kernel == DEEP_F32
                       else "explainable_spatial_vqa_tpu/ops/pallas_attention.py:45"),
             also_replaces=("explainable_spatial_vqa_tpu/ops/pallas_attention.py:45"
@@ -3608,8 +3678,10 @@ def main_path(torch, np, dev, results, parts) -> None:
             launches=sum(by_deep.values()), **results[f"deep {main_key}"],
             at_shapes={key: results[f"deep {key}"] for key in other_keys},
             launches_by_path=by_deep))
-    kernels[-1]["off_path"] = ("bf16 rows past 256 keys at padded depths 288-512: no model sends "
-                               "them (phase 3 holds it at 257 and 1025 keys)")
+    kernels[-1]["off_path"] = ("bf16 rows past 256 keys at padded depths 160-512: no model sends "
+                               "them; its launches are K3's attention in phase 24.4's block "
+                               "bench at L = 304 only (phase 3 holds it at 257, 1025 and 4096 "
+                               "keys)")
     # attention_kernel_wide_f32 (attention_f32_wide.cuh): its launches on
     # phase 24's paths (K2's attention at d 2048 and 1536) and phase 25's
     # float32 forwards (K1's fusion layers at d 768 and 1280) by the C
@@ -3638,13 +3710,14 @@ def main_path(torch, np, dev, results, parts) -> None:
             launches=past_paths[path][src_name], **results[key], shape=f"d=2048 H=4 ({path})",
             at_shapes={"fp32": results[key.replace("bf16", "fp32")]},
             launches_by_path={p: c[src_name] for p, c in past_paths.items()}))
-    say("the deep kernels, attention_kernel_wide_f32 and K2 and K3 at head dim 512: " + "; ".join(
+    say("the deep float32 kernel, the two-pass wgmma kernel past depth 128, "
+        "attention_kernel_wide_f32 and K2 and K3 at head dim 512: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
         f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}), {k['launches']} launches on phases "
         f"24-25's paths" for k in kernels[-5:]))
-    if not all(k["launches"] for k in kernels[-5:] if "off_path" not in k):
-        fail("a deep kernel, attention_kernel_wide_f32, or K2 or K3 at head dim 512, never "
-             "launched on its path")
+    if not all(k["launches"] for k in kernels[-5:]):
+        fail("the deep float32 kernel, the two-pass wgmma kernel past depth 128, "
+             "attention_kernel_wide_f32, or K2 or K3 at head dim 512, never launched on its path")
     # the one-pass wgmma kernels past depth 128 (attention_wide.cuh): their
     # launches on phases 24.3, 24.4 and 25 by the C libraries' counts (wgmma
     # at depths 160-224: K1 in serving's fusion layers at d 768; wgmma_deep:
@@ -7919,11 +7992,12 @@ def past_256(torch, np, dev, counted) -> tuple:
     4. ``bench_block.main`` at d_model 2048 (B=128, L=224, K3 at one
        tiling): K2's attention on ``attention_kernel_wide_f32``, K3's on
        ``attention_kernel_wgmma_deep``; K2's and K3's ms printed, K3's beside
-       its time on the deep kernel (``PARENT_K3_HD512_MS``).
+       its time on the deep kernel (``PARENT_K3_HD512_MS``); then at L=304,
+       K3's attention on ``attention_kernel_wgmma_2pass_deep``.
 
     Returns each path's wrapper launches and each path's launches of the
-    kernels past depth 256 (deep, wide_f32, wgmma_deep, short) by the C
-    libraries' counts."""
+    kernels past depth 256 (deep_f32, wide_f32, wgmma_deep, wgmma_2pass_deep,
+    short) by the C libraries' counts."""
     from explainable_spatial_vqa_tpu_torch import bench_block
     from explainable_spatial_vqa_tpu_torch.bench_cogent import ProtocolParts, part_rows
     from explainable_spatial_vqa_tpu_torch.evalsuite.cogent import run_cogent_protocol
@@ -7933,7 +8007,7 @@ def past_256(torch, np, dev, counted) -> tuple:
 
     def deep_of(*counts):  # the kernels past depth 256's launches among C counts
         return {n: sum(c.get(n, 0) for c in counts)
-                for n in (DEEP_F32, WIDE_F32, DEEP, WGMMA_DEEP, SHORT, SHORT_F32)}
+                for n in (DEEP_F32, WIDE_F32, WGMMA_DEEP, WGMMA_2PASS_DEEP, SHORT, SHORT_F32)}
 
     # ---- 24.1 bf16 serving with the executor at d_model 2048 ----
     run = serving_run(torch, np, dev, counted, 2048)
@@ -8005,23 +8079,30 @@ def past_256(torch, np, dev, counted) -> tuple:
     torch.cuda.empty_cache()
 
     # ---- 24.4 the block bench at d_model 2048: K3 at head dim 512 ----
-    read = c_counts(torch)
-    rows, counts = counted(lambda: bench_block.main(
-        ["--batches", "128", "--iters", "2", "--tiles", "2", "--d_model", "2048", "--heads", "4"]))
-    _, block_c = read()
-    say("phase 24.4 block bench at d_model 2048, 4 heads (bench_block.main --batches 128 "
-        "--iters 2 --tiles 2 --d_model 2048 --heads 4, bf16, L=224, no mask): "
-        + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s" for _b, name, ms, tflops in rows)
-        + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}; "
-        f"with K3's attention on attention_kernel_deep before (PERF.md §6): " + ", ".join(
-            f"{name} {ms} ms" for name, ms in PARENT_K3_HD512_MS.items()))
-    if not (counts["fused_encoder_block_tiled"] > 0
-            and block_c == {block_attention_kernel(512, 224, "fp32"): counts["fused_encoder_block"],
-                            WGMMA_DEEP: counts["fused_encoder_block_tiled"]}):
-        fail("phase 24.4: the block bench at d_model 2048 did not launch K2's attention on "
-             "attention_kernel_wide_f32 and K3's on attention_kernel_wgmma_deep")
-    paths["block_bench_d2048"] = counts
-    deep["block_bench_d2048"] = deep_of(block_c)
+    # at L = 224 (K3's attention on attention_kernel_wgmma_deep) and 304
+    # (past 256 keys: attention_kernel_wgmma_2pass_deep)
+    for length, path in ((224, "block_bench_d2048"), (304, "block_bench_d2048_L304")):
+        argv = ["--batches", "128", "--iters", "2", "--tiles", "2", "--d_model", "2048",
+                "--heads", "4"] + (["--length", str(length)] if length != 224 else [])
+        read = c_counts(torch)
+        rows, counts = counted(lambda: bench_block.main(argv))
+        _, block_c = read()
+        say(f"phase 24.4 block bench at d_model 2048, 4 heads (bench_block.main {' '.join(argv)}, "
+            f"bf16, L={length}, no mask): "
+            + "; ".join(f"{name} {ms:.3f} ms {tflops:.1f} TFLOP/s" for _b, name, ms, tflops in rows)
+            + f"; launches {counts}; K2's and K3's attention by the C library's counts {block_c}"
+            + ("; with K3's attention on attention_kernel_deep before (PERF.md §6): " + ", ".join(
+                f"{name} {ms} ms" for name, ms in PARENT_K3_HD512_MS.items())
+               if length == 224 else ""))
+        want = block_attention_kernel(512, length, "bf16")
+        if not (counts["fused_encoder_block_tiled"] > 0
+                and block_c == {block_attention_kernel(512, length, "fp32"):
+                                counts["fused_encoder_block"],
+                                want: counts["fused_encoder_block_tiled"]}):
+            fail(f"phase 24.4: the block bench at d_model 2048, L={length}, did not launch K2's "
+                 f"attention on attention_kernel_wide_f32 and K3's on {want}")
+        paths[path] = counts
+        deep[path] = deep_of(block_c)
     say(f"phase 24 the kernels past depth 256's launches by path (the C libraries' counts): "
         f"{deep}")
     say(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")

@@ -41,24 +41,22 @@
 //     slice of V's columns.  At DP = 256 the float32 kernel's shared memory
 //     (Q's 64 rows, the ring, the exchange) is 211 KB, under the H100's 227
 //     KB a block, where attention_kernel_f32's 14 warps would need 366 KB.
-//   * Past 256 (the deep kernels, attention_kernel_deep_f32 and
-//     attention_kernel_deep: the same code under names of their own, so
-//     that the launch counts tell them apart) a block is 2 groups of 16
+//   * Past 256 (the deep kernel, attention_kernel_deep_f32: the same code
+//     as attention_kernel_padded_f32 under a name of its own, so that the
+//     launch counts tell them apart) a block is 2 groups of 16
 //     rows (8 warps at four a group), in float32 at three a group (288-384)
 //     3 groups, 9 warps (padded_rows), and the ring keeps as many of its
 //     kAttnStages stages as fit (padded_stages): float32 at DP = 512 holds Q's 32 rows,
-//     two 32-key stages and the exchange in 210 KB; bf16 keeps four.  The
-//     bf16 weights are normalised once and rounded once, and every slice
-//     multiplies the same rounded weights (its warps hold equal scores),
-//     which is what the TPU kernel computes.
+//     two 32-key stages and the exchange in 210 KB.
 //   * float32 q, k, v (attention_kernel_padded_f32): the online softmax of
 //     attention_kernel_f32, K's and V's tiles alternating in the ring, both
 //     products in 3xTF32.
-//   * bf16 q, k, v (attention_kernel_padded): the weights are rounded, so
-//     they are normalised first: a first pass over K's tiles takes each
-//     row's max and sum online, one tile at a time; a second recomputes each
-//     tile's scores (the same products in the same order), normalises,
-//     rounds to bf16 and multiplies by V on the tensor cores.
+//   * bf16 q, k, v (attention_kernel_padded, depths up to 128; past 128
+//     attention_wide.cuh's wgmma kernels take every row): the weights are
+//     rounded, so they are normalised first: a first pass over K's tiles
+//     takes each row's max and sum online, one tile at a time; a second
+//     recomputes each tile's scores (the same products in the same order),
+//     normalises, rounds to bf16 and multiplies by V on the tensor cores.
 //   * A block is 8 warps up to 256 (4 groups of 16 rows past 128, 8 up to
 //     it), 2 or 3 groups past 256, or one group where L <= 16 (the box decoders'
 //     L = 8 and 10) up to depth 128.
@@ -81,17 +79,17 @@
 // work the bound does not count; a right kernel first (PERF.md §6).
 //
 // Past padded depth 128 attention_wide.cuh's kernels, designed for Hopper,
-// take the calls past 16 keys: bf16 up to 256 keys at every depth, in rows
-// of any width and offset (attention_kernel_wgmma at 160-256,
+// take the calls past 16 keys: bf16 at every depth, in rows of any width
+// and offset, up to 256 keys in one pass (attention_kernel_wgmma at 160-256,
 // attention_kernel_wgmma_deep at 288-512: the executor's fusion layers at
-// d_model 768, 1100 and 1280, K3's attention at head dims 384 and 512),
+// d_model 768, 1100 and 1280, K3's attention at head dims 384 and 512) and
+// past them in two (attention_kernel_wgmma_2pass_deep),
 // float32 in rows of whole 16-byte chunks at depth 256 alone, at any length
 // (attention_kernel_split_f32); attention_f32_wide.cuh's
 // attention_kernel_wide_f32 takes float32 rows of whole 16-byte chunks past
 // 16 keys at every other depth past 128 (K2's attention at 384 and 512, K1
 // at d_model 544-2048).  The kernels here keep the rest: rows of <= 16 keys
-// (the short kernels past depth 128), bf16 rows past 256 keys (the two-pass
-// wgmma kernel stops at depth 128), and float32 rows that are not whole
+// (the short kernels past depth 128), and float32 rows that are not whole
 // 16-byte chunks (D = 275's).
 #pragma once
 
@@ -522,9 +520,10 @@ __device__ __forceinline__ void padded_attention_bf16(ESV_PADDED_PARAMS(__nv_bfl
                      L, D, part * DG + 2 * t, o);
 }
 
-// The kernels: up to depth 256 (G <= 2) attention_kernel_padded_f32 and
-// attention_kernel_padded, past it (G = 3 or 4) the same code as
-// attention_kernel_deep_f32 and attention_kernel_deep, counted apart
+// The kernels: float32 up to depth 256 (G <= 2) attention_kernel_padded_f32,
+// past it (G = 3 or 4) the same code as attention_kernel_deep_f32, counted
+// apart; bf16 up to depth 128 attention_kernel_padded (past it
+// attention_wide.cuh's wgmma kernels take every row past 16 keys)
 template <typename TO, int DG, int G, int R>
 __global__ void __launch_bounds__(32 * G * R, 1)
     attention_kernel_padded_f32(ESV_PADDED_PARAMS(float)) {
@@ -542,14 +541,7 @@ __global__ void __launch_bounds__(32 * G * R, 1)
 template <typename TO, int DG, int G, int R>
 __global__ void __launch_bounds__(32 * G * R, 1)
     attention_kernel_padded(ESV_PADDED_PARAMS(__nv_bfloat16)) {
-  static_assert(G <= 2, "past depth 256: attention_kernel_deep");
-  padded_attention_bf16<TO, DG, G, R>(ESV_PADDED_ARGS);
-}
-
-template <typename TO, int DG, int G, int R>
-__global__ void __launch_bounds__(32 * G * R, 1)
-    attention_kernel_deep(ESV_PADDED_PARAMS(__nv_bfloat16)) {
-  static_assert(G > 2, "up to depth 256: attention_kernel_padded");
+  static_assert(G == 1, "past depth 128: attention_wide.cuh's wgmma kernels");
   padded_attention_bf16<TO, DG, G, R>(ESV_PADDED_ARGS);
 }
 
@@ -757,8 +749,8 @@ static cudaError_t launch_attention_short(const T* q, const T* k, const T* v, co
 }
 
 // attention_kernel_padded_f32 (past depth 256 attention_kernel_deep_f32) for
-// float32 q, k, v, attention_kernel_padded (attention_kernel_deep) for bf16,
-// at depth DP with R groups a block
+// float32 q, k, v, attention_kernel_padded for bf16 (depths up to 128), at
+// depth DP with R groups a block
 template <int DP, int R, typename T, typename TO>
 static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const float* mask, TO* out,
                                    int B, int H, int L, int D, long long in_bs, long long in_rs,
@@ -772,17 +764,15 @@ static cudaError_t launch_padded_r(const T* q, const T* k, const T* v, const flo
     return launch_padded_kernel<DP, R, attention_kernel_deep_f32<TO, DG, G, R>,
                                 kAttnKernelDeepF32>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
                                                     out_bs, out_rs, stream);
-  else if constexpr (G <= 2)
-    return launch_padded_kernel<DP, R, attention_kernel_padded<TO, DG, G, R>, kAttnKernelPadded>(
-        q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
   else
-    return launch_padded_kernel<DP, R, attention_kernel_deep<TO, DG, G, R>, kAttnKernelDeep>(
+    return launch_padded_kernel<DP, R, attention_kernel_padded<TO, DG, G, R>, kAttnKernelPadded>(
         q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs, stream);
 }
 
 // Head dim D, whose padded depth is DP: past depth 128 the short kernels
 // where L <= 16, and attention_wide.cuh's kernels where they take the call
 // (wide_takes; bf16 at every depth up to 256 keys, float32 at 256 alone),
+// bf16 past 256 keys on attention_wide.cuh's two-pass kernel at every depth,
 // attention_f32_wide.cuh's kernel float32 at the other depths (wide_takes);
 // else one group a block where L <= 16 (depths up to 128), else 8 warps up
 // to depth 256 and 2 or 3 groups past it (padded_rows).  The pointers need only
@@ -807,18 +797,24 @@ static cudaError_t launch_attention_padded(const T* q, const T* k, const T* v, c
       return launch_attention_wide<DP, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
                                               out_bs, out_rs, stream);
   }
-  if constexpr (DP > 128 && DP != 256 && std::is_same<T, float>::value) {
-    if (wide_takes<T, TO>(q, k, v, out, L, D, in_bs, in_rs, out_bs, out_rs))
-      return launch_attention_wide_f32<DP, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
-                                               out_bs, out_rs, stream);
+  if constexpr (DP > 128 && !std::is_same<T, float>::value) {
+    // bf16 past kWgmmaMaxKeys keys, rows of any width and offset
+    return launch_attention_wgmma_2pass_deep<DP, TO>(q, k, v, mask, out, B, H, L, D, in_bs,
+                                                     in_rs, out_bs, out_rs, stream);
+  } else {
+    if constexpr (DP > 128 && DP != 256 && std::is_same<T, float>::value) {
+      if (wide_takes<T, TO>(q, k, v, out, L, D, in_bs, in_rs, out_bs, out_rs))
+        return launch_attention_wide_f32<DP, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                                 out_bs, out_rs, stream);
+    }
+    if constexpr (DP <= 128) {
+      if (L <= 16)
+        return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs,
+                                             out_bs, out_rs, stream);
+    }
+    return launch_padded_r<DP, padded_rows<DP, T>(), T, TO>(q, k, v, mask, out, B, H, L, D,
+                                                            in_bs, in_rs, out_bs, out_rs, stream);
   }
-  if constexpr (DP <= 128) {
-    if (L <= 16)
-      return launch_padded_r<DP, 1, T, TO>(q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs,
-                                           out_rs, stream);
-  }
-  return launch_padded_r<DP, padded_rows<DP, T>(), T, TO>(q, k, v, mask, out, B, H, L, D, in_bs,
-                                                          in_rs, out_bs, out_rs, stream);
 }
 
 // The head dims of K2's and K3's attention: the multiples of 128 up to
@@ -835,8 +831,8 @@ __host__ __device__ constexpr bool block_head_dim(int D) {
 // attention_wide.cuh's (K2 past 16 keys, K3 from 17 to 256) or the padded
 // ones, 384 and 512 on attention_f32_wide.cuh's kernel (K2 past 16 keys),
 // attention_wide.cuh's attention_kernel_wgmma_deep (K3 from 17 to 256 keys)
-// and the deep kernel (K3 past 256 keys); past 128 the short kernels at
-// L <= 16.
+// and attention_kernel_wgmma_2pass_deep (K3 past 256 keys, at 256 too); past
+// 128 the short kernels at L <= 16.
 // fused_block.cu compiles each head dim in a translation unit of its own and
 // picks among them at run time.
 template <int D, typename T, typename TO>

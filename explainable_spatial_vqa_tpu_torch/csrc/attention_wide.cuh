@@ -12,7 +12,9 @@
 //     depths 80-128 and 160-256; attention_kernel_wgmma_deep, the same code,
 //     at 288-512: d_model 768, 1100 and 1280 at 4 heads, K3 at d_model 1536
 //     and 2048), and K1 and K3 in bf16 past 256 keys at every multiple of 8
-//     up to 128 (attention_kernel_wgmma_2pass).
+//     up to 128 (attention_kernel_wgmma_2pass) and at every padded depth
+//     past 128, in rows of any width (attention_kernel_wgmma_2pass_deep; K3's
+//     attention at head dims 256-512).
 //
 // Arithmetic: attention.cuh's, on the true head dim D (the columns D .. DP - 1
 // of Q, K and V read as zeros, DP the padded depth): scores in float32
@@ -122,15 +124,29 @@
 //     Tile j + 1's products in flight during tile j's arithmetic, a
 //     persistent block an SM, ran slower or no faster: ptxas serialised
 //     the pipelined wgmma, and persistence gained 0-3% (PERF.md §6).
+//   * attention_kernel_wgmma_2pass_deep<TO, DP[, kNarrow]>: DP 160-512, L >
+//     256, rows of any width (the one-pass kernel's producer copies, narrow
+//     ones included).  The same two passes, each tile's score products
+//     chained over the 128-column pieces of K in order, one in flight while
+//     the next stage is taken (each wait frees the stage of the piece
+//     before), in both passes alike.  What limits it is registers: a
+//     warpgroup's float32 output over DP columns is DP / 2 floats a thread
+//     (256 at depth 512) beside a tile's 32 scores and 16 words of weights,
+//     and the consumers have 232, so a warpgroup holds at most two pieces
+//     (128 floats a thread) of the output.  Up to depth 256 that is every
+//     column; past it two blocks share 128 query rows, each over half of
+//     the output columns and both score passes (layout (A): 10 L^2 D
+//     operations against the bound's 4 at depth 512; two_pass_deep_chunks).
 // Rows past L read as zeros (cp.async's zero fill, or no load), so a
 // sequence never reads the next one's rows.
 //
 // The float32 kernel takes rows whose elements are whole 16-byte chunks (D
 // * sizeof(T) % 16 == 0, bases and strides aligned), as launch_attention_dim
 // (attention.cuh) requires at the head dims 8-128; the bf16 ones take any
-// row past padded depth 128.  attention_padded.cuh's launcher sends
-// everything else, rows of <= 16 keys (its short kernels), bf16 rows past
-// 256 keys and float32 at depths other than 256, to its own kernels.
+// row past padded depth 128.  attention_padded.cuh's launcher sends bf16
+// rows past 256 keys past depth 128 to attention_kernel_wgmma_2pass_deep, and
+// everything else, rows of <= 16 keys (its short kernels) and float32 at
+// depths other than 256, to its own kernels or attention_f32_wide.cuh's.
 #pragma once
 
 #include "attention.cuh"
@@ -787,7 +803,7 @@ __device__ __forceinline__ void wgmma_filled(uint32_t bar) {
 // of piece 0 overwrites s, so the pieces, taken in order, add every slice of
 // the depth in one chain.  Issued and committed as one group: the caller
 // waits (wgmma_wait) before it reads s.  The same products in the same
-// order give the same sums (the two-pass kernel relies on it).
+// order give the same sums (the two-pass kernels rely on it).
 template <int DP>
 __device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t qw, uint32_t kst, int dh) {
   fence_operands(s);
@@ -838,6 +854,39 @@ __device__ __forceinline__ void wgmma_weights(const float (&s)[32], const float 
       const float x1 = kExp ? expf(s[c + 1] - m[r]) : s[c + 1];
       p[kk][a] = pack_bf16x2(div_by(x0, denom[r], inv[r]), div_by(x1, denom[r], inv[r]));
     }
+}
+
+// The two-pass kernels' first pass over a tile's scores s: the running row
+// max m (the quad's) and this thread's share of the sum, rescaled when the
+// max grows
+__device__ __forceinline__ void wgmma_running_sum(const float (&s)[32], float (&m)[2],
+                                                  float (&sum)[2]) {
+  float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < 32; ++c) tm[c % 4 / 2] = fmaxf(tm[c % 4 / 2], s[c]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+    tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+    const float mn = fmaxf(m[r], tm[r]);  // finite: a tile holds a key below L
+    sum[r] *= expf(m[r] - mn);            // 0 on the first tile
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) sum[c % 4 / 2] += expf(s[c] - m[c % 4 / 2]);
+}
+
+// The quad's shares of a row's sum added, denom = sum + 1e-30 and its
+// reciprocal (div_by's)
+__device__ __forceinline__ void wgmma_denominators(float (&sum)[2], float (&denom)[2],
+                                                   float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    denom[r] = sum[r] + 1e-30f;
+    inv[r] = __frcp_rn(denom[r]);
+  }
 }
 
 // o[nb] (+)= P[64 x 64 keys] V[64 keys x the nb-th 64-column box of the
@@ -1131,36 +1180,16 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
     if (active) wgmma_mask(s, j * kWgmmaKeys, L, blk.keep, scale, t);
   };
 
-  // pass 1: the running row max (the quad's) and this thread's share of the
-  // sum, rescaled when the max grows
+  // pass 1: each row's running max and sum (wgmma_running_sum)
   float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll 1
   for (int j = 0; j < nt; ++j) {
     float s[32];
     scores(s, j);
-    if (!active) continue;
-    float tm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int c = 0; c < 32; ++c) tm[c % 4 / 2] = fmaxf(tm[c % 4 / 2], s[c]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
-      const float mn = fmaxf(m[r], tm[r]);  // finite: tile j holds key 64 j < L
-      sum[r] *= expf(m[r] - mn);            // 0 on the first tile
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int c = 0; c < 32; ++c) sum[c % 4 / 2] += expf(s[c] - m[c % 4 / 2]);
+    if (active) wgmma_running_sum(s, m, sum);
   }
   float denom[2], inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    denom[r] = sum[r] + 1e-30f;
-    inv[r] = __frcp_rn(denom[r]);
-  }
+  wgmma_denominators(sum, denom, inv);
 
   // pass 2: each tile's scores again (the same products in the same order),
   // exp(s - max) normalised and rounded to bf16 into P V's A fragments,
@@ -1183,6 +1212,159 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
   if (active)  // launch_attention_dim's rows: whole 16-byte chunks, an aligned output
     wgmma_store<NB, false>(out + (long long)b * out_bs + (long long)h * D, out_rs,
                            q0 + 64 * wg + 16 * warp + g, L, D, 0, o, t, true);
+}
+
+// The two-pass kernel past depth 128 (layout (A), PERF.md §6): a block is
+// kWgmmaRows query rows, a warpgroup 64 of them, over the output's columns
+// in chunks of kTwoPassDeepPieces pieces (64 P V accumulators a thread each;
+// the registers hold no more), two_pass_deep_chunks blocks an item, each
+// taking both score passes over the whole depth: one block up to depth 256,
+// two past it.  measure/attention_variants.py's twopass_deep_shared is the
+// layout it was timed against (two warpgroups on 64 rows, each over half of
+// the pieces, their partial scores added in shared memory).
+constexpr int kTwoPassDeepPieces = 2;
+template <int DP>
+__host__ __device__ constexpr int two_pass_deep_chunks() {
+  return (wgmma_pieces<DP>() + kTwoPassDeepPieces - 1) / kTwoPassDeepPieces;
+}
+
+// attention_kernel_wgmma_2pass_deep's producer warpgroup: Q's 128 rows from
+// q0, then K's pieces of every tile (pass 1), then each tile's K pieces and
+// the block's `pieces` V pieces from c0 (pass 2), each a stage once the
+// consumers have released it, by cp.async or narrow (kNarrow); V's two
+// 64-column boxes whole (past D zeros)
+template <int DP, bool kNarrow>
+__device__ __forceinline__ void wgmma_two_pass_produce(const WgmmaBlock<DP>& blk,
+                                                       const __nv_bfloat16* q,
+                                                       const __nv_bfloat16* k,
+                                                       const __nv_bfloat16* v, long long rs,
+                                                       int q0, int c0, int pieces, int L, int D,
+                                                       int tid) {
+  constexpr int S = WgmmaBlock<DP>::S, P = wgmma_pieces<DP>();
+  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys, per = P + pieces;
+  wgmma_copy_q<DP, kNarrow>(blk.qs, q, rs, q0, L, D, tid);
+  wgmma_filled<kNarrow>(blk.qfull());
+  for (int n = 0; n < nt * (P + per); ++n) {
+    const int m = n - P * nt;  // pass 2's stages from 0
+    const int j = m < 0 ? n / P : m / per, i = m < 0 ? n % P : m % per;
+    const int cb = i < P ? i : c0 + i - P, stage = n % S;
+    mbar_wait_bounded(blk.empty(stage), ((n / S) & 1) ^ 1);
+    wgmma_copy_tile<kNarrow>(blk.ring + stage * kWgmmaStage, i < P ? k : v, rs, j * kWgmmaKeys,
+                             cb, i < P ? wgmma_width<DP>(cb) / 8 : 16, L, D, tid);
+    wgmma_filled<kNarrow>(blk.full(stage));
+  }
+  cp_async_wait_all();
+}
+
+// bf16 q, k, v at a head dim D of padded depth DP (160-512, rows of any width
+// and offset), rows past kWgmmaMaxKeys keys: attention_kernel_wgmma_2pass's
+// arithmetic over K's and V's pieces of 128 columns (the header's Design),
+// in layout (A) above.  Block blockIdx.x is query rows kWgmmaRows (blockIdx.x
+// / C) .. and output column chunk blockIdx.x % C.  The producer sends K's
+// pieces of every tile (pass 1), then K's pieces of tile j and V's pieces
+// of the block's columns in turn (pass 2), each a ring stage that both
+// consumer warpgroups take and release in order.  Every tile's score
+// products chain over the pieces in order, each wait freeing the stage of
+// the piece before: both passes take the same products in the same order,
+// the same sums, bit for bit.  kNarrow: rows that are not whole 16-byte
+// chunks, the producer's narrow copies (compiled apart, as
+// attention_kernel_wgmma's)
+template <typename TO, int DP, bool kNarrow = false>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    attention_kernel_wgmma_2pass_deep(ESV_WGMMA_PARAMS) {
+  static_assert(std::is_same<TO, __nv_bfloat16>::value, "bf16 out");
+  static_assert(DP % 16 == 0 && DP > 128 && DP <= kAttnMaxHeadDim, "padded depth past 128");
+  constexpr int S = WgmmaBlock<DP>::S, P = wgmma_pieces<DP>(), QB = wgmma_qboxes<DP>();
+  constexpr int C = two_pass_deep_chunks<DP>();
+  // the output pieces a block holds
+  constexpr int PC = P < kTwoPassDeepPieces ? P : kTwoPassDeepPieces;
+  static_assert(S >= PC, "pass 2 holds every V piece of a tile at once");
+  extern __shared__ __align__(1024) unsigned char wgmma_smem[];
+  const WgmmaBlock<DP> blk = wgmma_block<DP>(wgmma_smem, mask, L);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, b = blk.b, h = blk.h;
+  const int q0 = blockIdx.x / C * kWgmmaRows, c0 = PC * (blockIdx.x % C);
+  const int pieces = min(PC, P - c0);  // the block's output pieces, from c0
+  const int nt = (L + kWgmmaKeys - 1) / kWgmmaKeys;
+  const long long in_off = (long long)b * in_bs + (long long)h * D;
+
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    wgmma_two_pass_produce<DP, kNarrow>(blk, q + in_off, k + in_off, v + in_off, in_rs, q0, c0,
+                                        pieces, L, D, tid);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * wg;
+  const bool active = row0 < L;  // else the warpgroup only takes the stages
+  const uint32_t qw = blk.qs + wg * QB * kWgmmaBox;
+  WgmmaRing<S> ring = blk.consumer_ring();
+  mbar_wait_bounded(blk.qfull(), 0);
+  // a tile's scores: s[4n + 2r + e] is row 16 warp + g + 8r against key
+  // 64 j + 8n + 2t + e, scaled and masked; the pieces chained in order, one
+  // product in flight while the next stage is taken
+  const auto scores = [&](float (&s)[32], int j) {
+#pragma unroll
+    for (int dh = 0; dh < P; ++dh) {
+      const uint32_t kst = ring.take();
+      if (active) wgmma_scores<DP>(s, qw, kst, dh);
+      wgmma_wait<1>();
+      ring.release(ring.taken - 1);
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+    ring.release(ring.taken);
+    if (active) wgmma_mask(s, j * kWgmmaKeys, L, blk.keep, scale, t);
+  };
+
+  // pass 1: each row's running max and sum (wgmma_running_sum)
+  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int j = 0; j < nt; ++j) {
+    float s[32];
+    scores(s, j);
+    if (active) wgmma_running_sum(s, m, sum);
+  }
+  float denom[2], inv[2];
+  wgmma_denominators(sum, denom, inv);
+
+  // pass 2: each tile's scores again, exp(s - max) normalised and rounded to
+  // bf16 into P V's A fragments, times V's pieces of the block's columns:
+  // o[i][nb][4n + 2r + e] is row 16 warp + g + 8r, column 128 (c0 + i) +
+  // 64 nb + 8n + 2t + e
+  float o[PC][2][32];
+#pragma unroll 1
+  for (int j = 0; j < nt; ++j) {
+    float s[32];
+    scores(s, j);
+    uint32_t p[4][4];
+    if (active) wgmma_weights<true>(s, m, denom, inv, p);
+#pragma unroll
+    for (int i = 0; i < PC; ++i) {  // V's stages, in the producer's order
+      if (i < pieces) {
+        const uint32_t vst = ring.take();
+        if (active) wgmma_pv<2>(o[i], p, vst, j > 0);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < PC; ++i)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) fence_operands(o[i][nb]);
+    ring.release(ring.taken);
+  }
+  if (!active) return;
+  TO* op = out + (long long)b * out_bs + (long long)h * D;
+  // rows of whole 16-byte chunks: an output of pairs; else pairs where this
+  // head's rows allow
+  const bool pairs = !kNarrow || (reinterpret_cast<uintptr_t>(op) % (2 * sizeof(TO)) == 0 &&
+                                  out_rs % 2 == 0);
+#pragma unroll
+  for (int i = 0; i < PC; ++i)
+    if (i < pieces)
+      wgmma_store<2, kNarrow>(op, out_rs, row0 + 16 * warp + g, L, D, 128 * (c0 + i), o[i], t,
+                              pairs);
 }
 
 #undef ESV_ACC32
@@ -1215,9 +1397,10 @@ static cudaError_t wide_attribute() {
   });
 }
 
-// Kernel (attention_kernel_wgmma[_deep] or attention_kernel_wgmma_2pass at
-// depth DP) on blocks of kWgmmaRows query rows, counted under `kind`
-template <auto Kernel, int DP, typename TO>
+// Kernel (attention_kernel_wgmma[_deep] or attention_kernel_wgmma_2pass[_deep]
+// at depth DP) on blocks of kWgmmaRows query rows, C blocks an item (the
+// column chunks of attention_kernel_wgmma_2pass_deep), counted under `kind`
+template <auto Kernel, int DP, typename TO, int C = 1>
 static cudaError_t launch_wgmma_kernel(AttnKernel kind, const __nv_bfloat16* q,
                                        const __nv_bfloat16* k, const __nv_bfloat16* v,
                                        const float* mask, TO* out, int B, int H, int L, int D,
@@ -1229,9 +1412,22 @@ static cudaError_t launch_wgmma_kernel(AttnKernel kind, const __nv_bfloat16* q,
   const cudaError_t err = wide_attribute<Kernel, wgmma_smem_bytes<DP>()>();
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);  // of the true head dim, as the TPU kernel's
-  Kernel<<<dim3((L + kWgmmaRows - 1) / kWgmmaRows, H, B), kWgmmaThreads, wgmma_smem_bytes<DP>(),
-           stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs, out_rs, scale);
+  Kernel<<<dim3((L + kWgmmaRows - 1) / kWgmmaRows * C, H, B), kWgmmaThreads,
+           wgmma_smem_bytes<DP>(), stream>>>(q, k, v, mask, out, L, D, in_bs, in_rs, out_bs,
+                                             out_rs, scale);
   return counted_launch(kind);
+}
+
+// Whether a bf16 call past depth 128 takes the wgmma kernels' cp.async copies
+// (rows of whole 16-byte chunks on 16-byte boundaries, an output written two
+// elements at a time), not the instantiation with the producer's narrow copies
+template <typename TO>
+static bool wgmma_whole_chunks(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                               const __nv_bfloat16* v, const TO* out, int D, long long in_bs,
+                               long long in_rs, long long out_bs, long long out_rs) {
+  return D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && in_bs % 8 == 0 &&
+         in_rs % 8 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 &&
+         out_bs % 2 == 0 && out_rs % 2 == 0;
 }
 
 // bf16 at a head dim D of padded depth DP, 16 < L <= kWgmmaMaxKeys: one pass
@@ -1247,9 +1443,7 @@ static cudaError_t launch_attention_wgmma(const __nv_bfloat16* q, const __nv_bfl
                                           long long in_rs, long long out_bs, long long out_rs,
                                           cudaStream_t stream) {
   if constexpr (DP > 128) {
-    if (!(D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && in_bs % 8 == 0 &&
-          in_rs % 8 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 &&
-          out_bs % 2 == 0 && out_rs % 2 == 0)) {
+    if (!wgmma_whole_chunks(q, k, v, out, D, in_bs, in_rs, out_bs, out_rs)) {
       if constexpr (DP > 256)
         return launch_wgmma_kernel<attention_kernel_wgmma_deep<TO, DP, true>, DP, TO>(
             kAttnKernelWgmmaDeep, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
@@ -1280,6 +1474,28 @@ static cudaError_t launch_attention_wgmma_2pass(const __nv_bfloat16* q, const __
                                                 cudaStream_t stream) {
   return launch_wgmma_kernel<attention_kernel_wgmma_2pass<TO, DP>, DP, TO>(
       kAttnKernelWgmma2Pass, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
+      stream);
+}
+
+// bf16 at a head dim D of padded depth DP past 128, L > kWgmmaMaxKeys, rows
+// of any width and offset: two passes (launch_attention_padded), on the
+// instantiation with the producer's narrow copies where the rows are not
+// whole 16-byte chunks on 16-byte boundaries
+template <int DP, typename TO>
+static cudaError_t launch_attention_wgmma_2pass_deep(const __nv_bfloat16* q,
+                                                     const __nv_bfloat16* k,
+                                                     const __nv_bfloat16* v, const float* mask,
+                                                     TO* out, int B, int H, int L, int D,
+                                                     long long in_bs, long long in_rs,
+                                                     long long out_bs, long long out_rs,
+                                                     cudaStream_t stream) {
+  constexpr int C = two_pass_deep_chunks<DP>();  // blocks an item
+  if (!wgmma_whole_chunks(q, k, v, out, D, in_bs, in_rs, out_bs, out_rs))
+    return launch_wgmma_kernel<attention_kernel_wgmma_2pass_deep<TO, DP, true>, DP, TO, C>(
+        kAttnKernelWgmma2PassDeep, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
+        stream);
+  return launch_wgmma_kernel<attention_kernel_wgmma_2pass_deep<TO, DP>, DP, TO, C>(
+      kAttnKernelWgmma2PassDeep, q, k, v, mask, out, B, H, L, D, in_bs, in_rs, out_bs, out_rs,
       stream);
 }
 

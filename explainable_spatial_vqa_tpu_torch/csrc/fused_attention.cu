@@ -16,14 +16,15 @@
 // attn_depth).  Every other head dim (25 at the protocol's --d_model 100, 256
 // at 1024, 275 at 1100, 384 and 512 at 1536 and 2048) takes
 // attention_padded.cuh's kernels at its padded depth (ESV_K1_PAD_DEPTHS),
-// with the head dim a run-time argument: past 256 its deep kernels
-// (attention_kernel_deep_f32, attention_kernel_deep; float32 rows of whole
-// 16-byte chunks past 16 keys at every padded depth past 128 but 256 go to
+// with the head dim a run-time argument: past 256 its deep kernel in
+// float32 (attention_kernel_deep_f32; float32 rows of whole 16-byte chunks
+// past 16 keys at every padded depth past 128 but 256 go to
 // attention_f32_wide.cuh's attention_kernel_wide_f32), past 128 its short
 // kernels at L <= 16 (attention_kernel_short_f32, attention_kernel_short:
-// the box decoders at d_model 768-2048); bf16 rows of 17-256 keys past
-// depth 128, of any width, go to attention_wide.cuh's attention_kernel_wgmma
-// (160-256) and attention_kernel_wgmma_deep (288-512).
+// the box decoders at d_model 768-2048); bf16 rows past 16 keys past depth
+// 128, of any width, go to attention_wide.cuh's attention_kernel_wgmma
+// (160-256) and attention_kernel_wgmma_deep (288-512) up to 256 keys, and
+// past them to attention_kernel_wgmma_2pass_deep (160-512).
 //
 // Bound on the H100: the bytes of q, k, v and the output at the models'
 // lengths (L = 8 or 10 in the box decoders, 196-246 in the encoders); at
@@ -37,7 +38,8 @@
 // one pass on wgmma (attention_kernel_wgmma; so too past depth 128 in rows
 // of whole 16-byte chunks, past 256 as attention_kernel_wgmma_deep), and
 // past 256 keys at every D in two passes on wgmma
-// (attention_kernel_wgmma_2pass); at L <= 16 one
+// (attention_kernel_wgmma_2pass, past depth 128
+// attention_kernel_wgmma_2pass_deep); at L <= 16 one
 // warp's cp.async ring (attention_kernel), past depth 128 a block of G
 // warps per (batch, head) (attention_kernel_short).  float32 weights are
 // not rounded, and their softmax runs online.
@@ -75,10 +77,10 @@
 // 2: attention_kernel_onepass, 3: attention_kernel_padded_f32, 4:
 // attention_kernel_padded, 5: attention_kernel_split_f32, 6:
 // attention_kernel_wgmma, 7: attention_kernel_wgmma_2pass, 8:
-// attention_kernel_deep_f32, 9: attention_kernel_deep, 10:
-// attention_kernel_wgmma_deep, 11: attention_kernel_short_f32, 12:
-// attention_kernel_short, 13: attention_kernel_wide_f32; null and -1 past
-// the last) and count the
+// attention_kernel_deep_f32, 9: attention_kernel_wgmma_deep, 10:
+// attention_kernel_short_f32, 11: attention_kernel_short, 12:
+// attention_kernel_wide_f32, 13: attention_kernel_wgmma_2pass_deep; null
+// and -1 past the last) and count the
 // launches of it that this library's entries have made since it was loaded:
 // which kernel a call takes is decided in launch_attention_dim and
 // launch_attention_padded alone, and the counts say which ran.

@@ -70,7 +70,8 @@
 //       attention_f32_wide.cuh's attention_kernel_wide_f32 for K2 past 16
 //       keys, for K3 attention_wide.cuh's
 //       attention_kernel_wgmma_deep from 17 to 256 keys and
-//       attention_kernel_deep past them): on K2's float32 q, k, v
+//       attention_kernel_wgmma_2pass_deep past them, at 256 too): on K2's
+//       float32 q, k, v
 //       both products in 3xTF32 on the tensor cores with an online softmax,
 //       the output written in the
 //       weights' type; on K3's q, k, v in the weights' type (the QKV GEMM's
@@ -124,9 +125,10 @@
 // attention_kernel_f32, 1 attention_kernel, 3 attention_kernel_padded_f32,
 // 4 attention_kernel_padded, 5 attention_kernel_split_f32, 6
 // attention_kernel_wgmma, 7 attention_kernel_wgmma_2pass, 8
-// attention_kernel_deep_f32, 9 attention_kernel_deep, 10
-// attention_kernel_wgmma_deep, 11 attention_kernel_short_f32, 12
-// attention_kernel_short, 13 attention_kernel_wide_f32) and count the launches
+// attention_kernel_deep_f32, 9 attention_kernel_wgmma_deep, 10
+// attention_kernel_short_f32, 11 attention_kernel_short, 12
+// attention_kernel_wide_f32, 13 attention_kernel_wgmma_2pass_deep) and count
+// the launches
 // of it that this library's blocks and esv_block_attention have made since
 // it was loaded.
 // H is d / 128, d / 256, d / 384 or d / 512 (the attention's head dims: the

@@ -4,7 +4,8 @@ on the card.
 
     python -m explainable_spatial_vqa_tpu_torch.measure.attention_variants
         [--rounds 6] [--iters 20] [--variants ring,warps8,...]
-        [--kinds onepass,wide,past128,narrow,short,f32wide] [--against LABEL=CSRC_DIR]
+        [--kinds onepass,wide,past128,narrow,short,f32wide,twopass_deep]
+        [--against LABEL=CSRC_DIR]
 
 Each variant asks one question of a shipped kernel (``VARIANTS``).  Of K1's
 bf16 kernels at head dims up to 128 (``csrc/attention.cuh``'s one-pass
@@ -110,6 +111,23 @@ probes, not shipped code:
 * ``f32wide_consumers_idle``: every row group takes and releases the stages
   only (wrong numbers: the producers alone).
 
+Of the bf16 rows past 256 keys at the padded depths past 128
+(``TWOPASS_DEEP_CASES``: 1025-key rows at D = 192, 256, 275, 320 and 512,
+K3's attention at head dim 512 on 1024 keys of a (B, L, 3d) buffer;
+``attention_kernel_wgmma_2pass_deep`` in ``csrc/attention_wide.cuh``), the
+``fused_attention`` library's ``esv_attention``, by device time too, beside
+SDPA, the plain version and the bound; the parent's
+``attention_kernel_padded`` and ``attention_kernel_deep`` under
+``--against``:
+
+* ``twopass_deep_shared``: layout (B) past depth 256 in rows of whole
+  16-byte chunks, two warpgroups on the same 64 rows, each chaining a
+  tile's scores over half of the pieces and holding half of the output,
+  their partial scores added in shared memory, every score taken once,
+  instead of the shipped layout (A), the output in column chunks of
+  ``kTwoPassDeepPieces`` pieces, a block each, every block taking both
+  score passes over the whole depth.
+
 Of the rows of at most 16 keys past padded depth 128 (``SHORT_CASES``: the
 box decoders at d_model 768-2048, on the short kernels), the same library;
 with ``--against`` each case's output is also compared with the other
@@ -157,9 +175,9 @@ from explainable_spatial_vqa_tpu_torch.measure.variants import (
 from explainable_spatial_vqa_tpu_torch.ops import _build
 
 __all__ = ["VARIANTS", "ONEPASS_VARIANTS", "WIDE_VARIANTS", "PAST128_VARIANTS",
-           "NARROW_VARIANTS", "SHORT_VARIANTS", "F32WIDE_VARIANTS", "ONEPASS_CASES",
-           "WGMMA_CASES", "WIDE_CASES", "PAST128_CASES", "NARROW_CASES", "SHORT_CASES",
-           "F32WIDE_CASES", "main"]
+           "NARROW_VARIANTS", "SHORT_VARIANTS", "F32WIDE_VARIANTS", "TWOPASS_DEEP_VARIANTS",
+           "ONEPASS_CASES", "WGMMA_CASES", "WIDE_CASES", "PAST128_CASES", "NARROW_CASES",
+           "SHORT_CASES", "F32WIDE_CASES", "TWOPASS_DEEP_CASES", "main"]
 
 # label, head dim, B, L, ragged key mask; H = 4, bf16
 ONEPASS_CASES = (("transformer_iqap encoder", 64, 512, 243, False),
@@ -227,8 +245,16 @@ F32WIDE_CASES = (("K2 attention d 2048", "block", "fp32", "bf16", 512, 128, 210,
                  ("d 544 encoder", "K1", "fp32", "fp32", 136, 128, 208, True),
                  ("d 768 encoder fp32", "K1", "fp32", "fp32", 192, 128, 208, True),
                  ("d 1280 encoder fp32", "K1", "fp32", "fp32", 320, 128, 208, True))
+# the bf16 rows past 256 keys attention_kernel_wgmma_2pass_deep took from the
+# padded and deep kernels, as NARROW_CASES: one head dim at each of five
+# padded depths (192, 256, 288 in rows of 550 bytes, 336, 512) at 1025 keys,
+# and K3's attention at d_model 2048 on 1024 keys
+TWOPASS_DEEP_CASES = tuple(
+    (f"D={d} L=1025", "K1", "bf16", "bf16", d, 16, 1025, True)
+    for d in (512, 256, 192, 275, 320)) + (
+    ("K3 attention d 2048 L=1024", "block", "bf16", "bf16", 512, 16, 1024, False),)
 # the kinds timed by device time too, in the same rounds
-DEVICE_TIMED = ("narrow", "short", "f32wide")
+DEVICE_TIMED = ("narrow", "short", "f32wide", "twopass_deep")
 
 _DIV = ("          p[n][r] = pack_bf16x2(div_by(s[kt][n][2 * r], denom[r], inv[r]),\n"
         "                                div_by(s[kt][n][2 * r + 1], denom[r], inv[r]));\n")
@@ -347,8 +373,133 @@ F32WIDE_VARIANTS: Dict[str, Sequence[Edit]] = {
         (_F32W, "  const bool active = q0 + 16 * grp < L;  // a group wholly",
          "  const bool active = false;  // a group wholly"),),
 }
+_AW = "attention_wide.cuh"
+# layout (B) of attention_kernel_wgmma_2pass_deep past depth 256 in rows of
+# whole 16-byte chunks: a block is 64 query rows, its two warpgroups the same
+# rows, warpgroup 0 the pieces [0, H) of K and of the output, warpgroup 1 [H,
+# P) (H = (P + 1) / 2); each chains a tile's scores over its own pieces, the
+# partial sums meet in Q's second 64-row group (not loaded), own + other
+_SHARED_ROWS = (
+    "template <int DP, bool kNarrow>\n"
+    "__host__ __device__ constexpr bool two_pass_deep_shares_rows() {\n"
+    "  return DP > 256 && !kNarrow;\n"
+    "}\n"
+    "template <int DP, bool kNarrow>\n"
+    "__host__ __device__ constexpr int two_pass_deep_chunks() {\n"
+    "  return two_pass_deep_shares_rows<DP, kNarrow>()\n"
+    "             ? 1\n"
+    "             : (wgmma_pieces<DP>() + kTwoPassDeepPieces - 1) / kTwoPassDeepPieces;\n"
+    "}\n"
+    "template <int DP, bool kNarrow>\n"
+    "__host__ __device__ constexpr int two_pass_deep_rows() {\n"
+    "  return two_pass_deep_shares_rows<DP, kNarrow>() ? 64 : kWgmmaRows;\n"
+    "}\n")
+_SHARED_SCORES = (
+    "    if constexpr (kShared) {  // own + other, the same sum in both warpgroups\n"
+    "      float* mine = xs + wg * 32 * 128;\n"
+    "      const float* other = xs + (wg ^ 1) * 32 * 128;\n"
+    "#pragma unroll\n"
+    "      for (int c = 0; c < 32; ++c) mine[c * 128 + tid] = s[c];\n"
+    "      asm volatile(\"bar.sync 1, 256;\\n\" ::: \"memory\");\n"
+    "#pragma unroll\n"
+    "      for (int c = 0; c < 32; ++c) s[c] += other[c * 128 + tid];\n"
+    "      asm volatile(\"bar.sync 1, 256;\\n\" ::: \"memory\");  // read before the next tile's\n"
+    "    }\n")
+TWOPASS_DEEP_VARIANTS: Dict[str, Sequence[Edit]] = {
+    "twopass_deep_shared": (
+        (_AW, "template <int DP, bool kNarrow>\n__device__ __forceinline__ void wgmma_copy_q(",
+         "template <int DP, bool kNarrow, int kRows = kWgmmaRows>\n"
+         "__device__ __forceinline__ void wgmma_copy_q("),
+        (_AW, "    narrow_copy(QC, [&](int j,", "    narrow_copy(kRows * QC / 128, [&](int j,"),
+        (_AW, "for (int i = tid; i < 128 * QC; i += 128) {",
+         "for (int i = tid; i < kRows * QC; i += 128) {"),
+        (_AW, "void wgmma_scores(float (&s)[32], uint32_t qw, uint32_t kst, int dh) {",
+         "void wgmma_scores(float (&s)[32], uint32_t qw, uint32_t kst, int dh,\n"
+         "                                             int first = 0) {"),
+        (_AW, "32 * (kk % 4)), dh > 0 || kk > 0);", "32 * (kk % 4)), dh > first || kk > 0);"),
+        (_AW, "template <int DP>\n__host__ __device__ constexpr int two_pass_deep_chunks() {\n"
+              "  return (wgmma_pieces<DP>() + kTwoPassDeepPieces - 1) / kTwoPassDeepPieces;\n}\n",
+         _SHARED_ROWS),
+        (_AW, "template <int DP, bool kNarrow>\n"
+              "__device__ __forceinline__ void wgmma_two_pass_produce(",
+         "template <int DP, bool kNarrow, int kRows>\n"
+         "__device__ __forceinline__ void wgmma_two_pass_produce("),
+        (_AW, "  wgmma_copy_q<DP, kNarrow>(blk.qs, q, rs, q0, L, D, tid);",
+         "  wgmma_copy_q<DP, kNarrow, kRows>(blk.qs, q, rs, q0, L, D, tid);"),
+        (_AW, "  constexpr int C = two_pass_deep_chunks<DP>();\n  // the output pieces a block holds\n"
+              "  constexpr int PC = P < kTwoPassDeepPieces ? P : kTwoPassDeepPieces;\n"
+              "  static_assert(S >= PC,",
+         "  constexpr bool kShared = two_pass_deep_shares_rows<DP, kNarrow>();\n"
+         "  constexpr int C = two_pass_deep_chunks<DP, kNarrow>();\n"
+         "  constexpr int R = two_pass_deep_rows<DP, kNarrow>(), H = (P + 1) / 2;\n"
+         "  constexpr int PC = kShared ? H : P < kTwoPassDeepPieces ? P : kTwoPassDeepPieces;\n"
+         "  static_assert(!kShared || (P > 2 && H <= 2 && 2 * 64 * 64 * 4 <= QB * kWgmmaBox),\n"
+         "                \"at most two pieces a warpgroup, the exchange in Q's second rows\");\n"
+         "  static_assert(S >= (kShared ? P : PC),"),
+        (_AW, "  const int q0 = blockIdx.x / C * kWgmmaRows, c0 = PC * (blockIdx.x % C);\n"
+              "  const int pieces = min(PC, P - c0);",
+         "  const int q0 = blockIdx.x / C * R, c0 = PC * (blockIdx.x % C);\n"
+         "  const int pieces = kShared ? P : min(PC, P - c0);"),
+        (_AW, "    wgmma_two_pass_produce<DP, kNarrow>(blk,",
+         "    wgmma_two_pass_produce<DP, kNarrow, R>(blk,"),
+        (_AW, "  const int row0 = q0 + 64 * wg;\n"
+              "  const bool active = row0 < L;  // else the warpgroup only takes the stages\n"
+              "  const uint32_t qw = blk.qs + wg * QB * kWgmmaBox;\n",
+         "  const int row0 = q0 + (kShared ? 0 : 64 * wg);\n"
+         "  const int own0 = kShared && wg == 1 ? H : 0, own1 = kShared && wg == 0 ? H : P;\n"
+         "  const bool active = row0 < L;  // else the warpgroup only takes the stages\n"
+         "  const uint32_t qw = blk.qs + (kShared ? 0 : wg * QB * kWgmmaBox);\n"
+         "  float* xs = reinterpret_cast<float*>(wgmma_smem + (blk.qs + QB * kWgmmaBox -\n"
+         "                                                     smem_u32(wgmma_smem)));\n"),
+        (_AW, "      if (active) wgmma_scores<DP>(s, qw, kst, dh);\n",
+         "      if (active && own0 <= dh && dh < own1) wgmma_scores<DP>(s, qw, kst, dh, own0);\n"),
+        (_AW, "    ring.release(ring.taken);\n"
+              "    if (active) wgmma_mask(s, j * kWgmmaKeys, L, blk.keep, scale, t);\n  };\n"
+              "\n  // pass 1: each row's running max and sum (wgmma_running_sum)\n"
+              "  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};\n"
+              "#pragma unroll 1\n  for (int j = 0; j < nt; ++j) {\n    float s[32];\n"
+              "    scores(s, j);\n    if (active) wgmma_running_sum(s, m, sum);\n  }\n"
+              "  float denom[2], inv[2];\n  wgmma_denominators(sum, denom, inv);\n\n"
+              "  // pass 2: each tile's scores again, exp(s - max)",
+         "    ring.release(ring.taken);\n" + _SHARED_SCORES +
+         "    if (active) wgmma_mask(s, j * kWgmmaKeys, L, blk.keep, scale, t);\n  };\n"
+         "\n  // pass 1: each row's running max and sum (wgmma_running_sum)\n"
+         "  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};\n"
+         "#pragma unroll 1\n  for (int j = 0; j < nt; ++j) {\n    float s[32];\n"
+         "    scores(s, j);\n    if (active) wgmma_running_sum(s, m, sum);\n  }\n"
+         "  float denom[2], inv[2];\n  wgmma_denominators(sum, denom, inv);\n\n"
+         "  // pass 2: each tile's scores again, exp(s - max)"),
+        (_AW, "    for (int i = 0; i < PC; ++i) {  // V's stages, in the producer's order\n"
+              "      if (i < pieces) {\n        const uint32_t vst = ring.take();\n"
+              "        if (active) wgmma_pv<2>(o[i], p, vst, j > 0);\n",
+         "    for (int i = 0; i < (kShared ? P : PC); ++i) {  // V's stages, in the producer's order\n"
+         "      if (kShared || i < pieces) {\n        const uint32_t vst = ring.take();\n"
+         "        const bool own = !kShared || (i < H) == (wg == 0);\n"
+         "        if (active && own) wgmma_pv<2>(o[kShared && i >= H ? i - H : i], p, vst, j > 0);\n"),
+        (_AW, "    if (i < pieces)\n"
+              "      wgmma_store<2, kNarrow>(op, out_rs, row0 + 16 * warp + g, L, D, 128 * (c0 + i),",
+         "    if (kShared ? own0 + i < own1 : i < pieces)\n"
+         "      wgmma_store<2, kNarrow>(op, out_rs, row0 + 16 * warp + g, L, D,\n"
+         "                              128 * (c0 + own0 + i),"),
+        (_AW, "template <auto Kernel, int DP, typename TO, int C = 1>\n",
+         "template <auto Kernel, int DP, typename TO, int C = 1, int R = kWgmmaRows>\n"),
+        (_AW, "  Kernel<<<dim3((L + kWgmmaRows - 1) / kWgmmaRows * C, H, B), kWgmmaThreads,",
+         "  Kernel<<<dim3((L + R - 1) / R * C, H, B), kWgmmaThreads,"),
+        (_AW, "  constexpr int C = two_pass_deep_chunks<DP>();  // blocks an item\n"
+              "  if (!wgmma_whole_chunks(q, k, v, out, D, in_bs, in_rs, out_bs, out_rs))\n"
+              "    return launch_wgmma_kernel<attention_kernel_wgmma_2pass_deep<TO, DP, true>, DP, TO, C>(",
+         "  constexpr int CN = two_pass_deep_chunks<DP, true>(), RN = two_pass_deep_rows<DP, true>();\n"
+         "  constexpr int C = two_pass_deep_chunks<DP, false>(), R = two_pass_deep_rows<DP, false>();\n"
+         "  if (!wgmma_whole_chunks(q, k, v, out, D, in_bs, in_rs, out_bs, out_rs))\n"
+         "    return launch_wgmma_kernel<attention_kernel_wgmma_2pass_deep<TO, DP, true>, DP, TO, CN,\n"
+         "                               RN>("),
+        (_AW, "  return launch_wgmma_kernel<attention_kernel_wgmma_2pass_deep<TO, DP>, DP, TO, C>(",
+         "  return launch_wgmma_kernel<attention_kernel_wgmma_2pass_deep<TO, DP>, DP, TO, C, R>("),
+    ),
+}
 VARIANTS: Dict[str, Sequence[Edit]] = {**ONEPASS_VARIANTS, **WIDE_VARIANTS, **PAST128_VARIANTS,
-                                       **NARROW_VARIANTS, **SHORT_VARIANTS, **F32WIDE_VARIANTS}
+                                       **NARROW_VARIANTS, **SHORT_VARIANTS, **F32WIDE_VARIANTS,
+                                       **TWOPASS_DEEP_VARIANTS}
 
 _TYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -466,7 +617,8 @@ def main(argv: Sequence[str] = ()) -> dict:
     parser.add_argument("--rounds", type=int, default=6)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--variants", default=",".join(VARIANTS))
-    parser.add_argument("--kinds", default="onepass,wide,past128,narrow,short,f32wide",
+    parser.add_argument("--kinds", default="onepass,wide,past128,narrow,short,f32wide,"
+                                           "twopass_deep",
                         help="the kinds of cases timed (their libraries built for --against)")
     parser.add_argument("--against", default="",
                         help="LABEL=CSRC_DIR: the libraries built from that csrc/ too")
@@ -486,7 +638,8 @@ def main(argv: Sequence[str] = ()) -> dict:
                  "past128": ("fused_attention", PAST128_VARIANTS, "esv_attention"),
                  "narrow": ("fused_attention", NARROW_VARIANTS, "esv_attention"),
                  "short": ("fused_attention", SHORT_VARIANTS, "esv_attention"),
-                 "f32wide": ("fused_attention", F32WIDE_VARIANTS, "esv_attention")}
+                 "f32wide": ("fused_attention", F32WIDE_VARIANTS, "esv_attention"),
+                 "twopass_deep": ("fused_attention", TWOPASS_DEEP_VARIANTS, "esv_attention")}
     kinds = {kind: [n for n in names if n in libraries[kind][1]]
              for kind in args.kinds.split(",") if kind}
     calls: Dict[str, Dict[str, object]] = {}
@@ -525,7 +678,8 @@ def main(argv: Sequence[str] = ()) -> dict:
     inputs = {"onepass": _onepass_inputs, "wide": _wide_inputs, "past128": _past128_inputs,
               "narrow": lambda d: _typed_inputs(d, NARROW_CASES, 4),
               "short": lambda d: _typed_inputs(d, SHORT_CASES, 5),
-              "f32wide": lambda d: _typed_inputs(d, F32WIDE_CASES, 6)}
+              "f32wide": lambda d: _typed_inputs(d, F32WIDE_CASES, 6),
+              "twopass_deep": lambda d: _typed_inputs(d, TWOPASS_DEEP_CASES, 7)}
     cases = {kind: inputs[kind](dev) if kind in calls["shipped"] else [] for kind in inputs}
     errors: Dict[str, Dict[str, float]] = {name: {} for name in calls}
     outputs: Dict[str, Dict[str, torch.Tensor]] = {name: {} for name in calls}
@@ -599,7 +753,8 @@ def main(argv: Sequence[str] = ()) -> dict:
                                                     bound_ms=bounds.get(c[0])) for c in table]
                              for kind, table in (("narrow", NARROW_CASES),
                                                  ("short", SHORT_CASES),
-                                                 ("f32wide", F32WIDE_CASES))},
+                                                 ("f32wide", F32WIDE_CASES),
+                                                 ("twopass_deep", TWOPASS_DEEP_CASES))},
                           variants=result))
 
 

@@ -205,9 +205,9 @@ def kernel_launches() -> Dict[str, int]:
     """K1's launches by kernel function, as the C library counts them since
     it was loaded: ``attention_kernel_f32``, ``attention_kernel``,
     ``attention_kernel_onepass`` (the head dims of :data:`EXACT_HEAD_DIMS`),
-    ``attention_kernel_padded_f32`` and ``attention_kernel_padded`` (every
-    other head dim up to 256), ``attention_kernel_deep_f32`` and
-    ``attention_kernel_deep`` (every other head dim past it),
+    ``attention_kernel_padded_f32`` (every other head dim up to 256) and
+    ``attention_kernel_padded`` (bf16, every other head dim up to 128),
+    ``attention_kernel_deep_f32`` (every other head dim past 256),
     ``attention_kernel_short_f32`` and ``attention_kernel_short`` (rows of
     at most 16 keys past padded depth 128: the box decoders at d_model
     768-2048), and on ``csrc/attention_wide.cuh``
@@ -216,7 +216,9 @@ def kernel_launches() -> Dict[str, int]:
     at padded depths 160-256, in rows of any width),
     ``attention_kernel_wgmma_deep`` (the same at padded depths 288-512) and
     ``attention_kernel_wgmma_2pass`` (bf16 past 256 keys at the head dims of
-    :data:`EXACT_HEAD_DIMS`), and on ``csrc/attention_f32_wide.cuh``
+    :data:`EXACT_HEAD_DIMS`) and ``attention_kernel_wgmma_2pass_deep`` (bf16
+    past 256 keys at the padded depths 160-512, in rows of any width), and on
+    ``csrc/attention_f32_wide.cuh``
     ``attention_kernel_wide_f32`` (float32 past 16 keys at the padded depths
     160-224 and 288-512, rows of whole 16-byte chunks).  Which one
     a call takes is decided in ``launch_attention_dim``

@@ -352,10 +352,9 @@ def kernel_launches() -> Dict[str, int]:
     library counts them since it was loaded: ``attention_kernel_f32`` and
     ``attention_kernel`` at head dim 128, at 256 ``attention_kernel_split_f32``
     (K2, float32 q/k/v, past 16 keys), ``attention_kernel_wgmma`` (K3, bf16,
-    17-256 keys) and ``attention_kernel_padded`` (K3 past 256 keys), at 384
-    and 512
-    ``attention_kernel_wide_f32`` (K2), ``attention_kernel_wgmma_deep`` (K3,
-    17-256 keys) and ``attention_kernel_deep`` (K3 past 256 keys), and at
+    17-256 keys), at 384 and 512 ``attention_kernel_wide_f32`` (K2) and
+    ``attention_kernel_wgmma_deep`` (K3, 17-256 keys), at 256-512
+    ``attention_kernel_wgmma_2pass_deep`` (K3 past 256 keys), and at
     256-512 ``attention_kernel_short_f32`` (K2) and ``attention_kernel_short``
     (K3) on rows of at most 16 keys
     (``launch_block_attention`` in ``csrc/attention_padded.cuh`` picks).

@@ -10,8 +10,9 @@ on the card only.  Here:
   wgmma kernels (``attention_kernel_wgmma`` up to depth 256,
   ``attention_kernel_wgmma_deep`` past it); rows of at most 16 keys past
   depth 128 take the short kernels in both types, in K1 and in K2's and K3's
-  attention; every other call takes the kernel it took before (the parent's
-  mirror, written out here);
+  attention; bf16 rows past 256 keys past depth 128, of any width, take
+  ``attention_kernel_wgmma_2pass_deep``; every other call takes the kernel it
+  took before (the mirror before these routes, written out here);
 * the short kernel's one-pass bf16 arithmetic, emulated in torch, equals the
   padded kernels' two-pass form over a single tile bit for bit (weights,
   denominators and outputs): over one tile the first pass ends with sum *
@@ -80,7 +81,7 @@ def _parent_kernel(d: int, length: int, name: str) -> str:
         else:
             wide = chip_smoke.SPLIT_F32 if depth == 256 else chip_smoke.WIDE_F32
     if bf16:
-        return wide or (chip_smoke.DEEP if d > 256 else chip_smoke.PADDED)
+        return wide or ("attention_kernel_deep" if d > 256 else chip_smoke.PADDED)
     return wide or (chip_smoke.DEEP_F32 if d > 256 else chip_smoke.PADDED_F32)
 
 
@@ -88,14 +89,14 @@ def _parent_kernel(d: int, length: int, name: str) -> str:
 def test_bf16_rows_not_whole_chunks_take_the_wgmma_kernels(length):
     """Every head dim 129-512 whose bf16 row is not whole 16-byte chunks, at
     17-256 keys: attention_kernel_wgmma up to padded depth 256,
-    attention_kernel_wgmma_deep past it; at 257 keys the padded or deep
-    kernel, as before."""
+    attention_kernel_wgmma_deep past it; at 257 keys the two-pass wgmma
+    kernel past depth 128, attention_kernel_wgmma_2pass_deep."""
     dims = [d for d in range(129, 513) if 2 * d % 16]
     assert len(dims) == 336
     for d in dims:
         want = chip_smoke.WGMMA_DEEP if padded_depth(d) > 256 else chip_smoke.WGMMA
         assert chip_smoke.k1_bf16_kernel(d, length) == want, d
-        assert chip_smoke.k1_bf16_kernel(d, 257) == _parent_kernel(d, 257, "bf16"), d
+        assert chip_smoke.k1_bf16_kernel(d, 257) == chip_smoke.WGMMA_2PASS_DEEP, d
 
 
 @pytest.mark.parametrize("length", range(1, 17))
@@ -116,8 +117,10 @@ def test_rows_of_at_most_16_keys_past_depth_128_take_the_short_kernels(length):
 
 
 def test_every_other_call_keeps_its_kernel():
-    """Outside the two new routes, every head dim 1-512 at lengths around
-    each split, in both types, takes the kernel it took before."""
+    """Outside the new routes (the short kernels, the narrow rows, and bf16
+    past 256 keys past depth 128 on attention_kernel_wgmma_2pass_deep, named
+    there), every head dim 1-512 at lengths around each split, in both
+    types, takes the kernel it took before."""
     lengths = (1, 8, 16, 17, 64, 208, 224, 255, 256, 257, 1025, 4096)
     changed = 0
     for d in range(1, 513):
@@ -128,9 +131,13 @@ def test_every_other_call_keeps_its_kernel():
                 if deep_enough and (length <= 16 or narrow):
                     changed += 1
                     continue
+                if deep_enough and name == "bf16" and length > 256:
+                    assert chip_smoke.k1_kernel(d, length, name) == chip_smoke.WGMMA_2PASS_DEEP
+                    changed += 1
+                    continue
                 assert chip_smoke.k1_kernel(d, length, name) == _parent_kernel(d, length, name), \
                     (d, length, name)
-    assert changed == 384 * 3 * 2 + 336 * 6
+    assert changed == 384 * 3 * 2 + 336 * 6 + 384 * 3
 
 
 # ---------------------------------------------------------------------------

@@ -218,13 +218,27 @@ def _wgmma_counts():
     out = {}
     for launcher, kernels in (("launch_attention_wgmma",
                                ("attention_kernel_wgmma_deep", "attention_kernel_wgmma")),
-                              ("launch_attention_wgmma_2pass", ("attention_kernel_wgmma_2pass",))):
+                              ("launch_attention_wgmma_2pass", ("attention_kernel_wgmma_2pass",)),
+                              ("launch_attention_wgmma_2pass_deep",
+                               ("attention_kernel_wgmma_2pass_deep",))):
         body = re.search(rf"static cudaError_t {launcher}\(.*?\n\}}", WIDE, re.S).group(0)
         out[launcher] = {}
         for kernel in kernels:
             found = re.search(rf"launch_wgmma_kernel<{kernel}<TO, DP>,[^>]*>\(\s*(\w+),", body)
             out[launcher][kernel] = found.group(1)
     return out
+
+
+def _two_pass_deep_rule():
+    """Whether launch_attention_padded sends every bf16 call past padded
+    depth 128 that neither the short kernels nor wide_takes took (rows past
+    kWgmmaMaxKeys keys) to launch_attention_wgmma_2pass_deep, ahead of the
+    float32 and padded routes, parsed from attention_padded.cuh."""
+    padded = (_build.CSRC_DIR / "attention_padded.cuh").read_text()
+    body = re.search(r"static cudaError_t launch_attention_padded\(.*?\n\}", padded, re.S).group(0)
+    found = re.search(r"if constexpr \(DP > 128 && !std::is_same<T, float>::value\) \{\s*"
+                      r"(?://[^\n]*\s*)*return launch_attention_wgmma_2pass_deep<DP, TO>", body)
+    return bool(found) and body.index("wide_takes") < found.start() < body.index("launch_padded_r")
 
 
 def _deep_depth():
@@ -267,9 +281,11 @@ def test_routing_mirrors_name_the_c_kernels():
     any width, attention_kernel_wgmma up to depth 256 and
     attention_kernel_wgmma_deep past it; float32 in rows of whole 16-byte
     chunks, attention_kernel_split_f32 at padded depth 256 and
-    attention_kernel_wide_f32 at the other depths, csrc/attention_f32_wide.cuh)
-    and the padded ones otherwise (past 256 the deep ones); K2's and K3's
-    attention at head dims 128, 256, 384 and 512 as K1's."""
+    attention_kernel_wide_f32 at the other depths, csrc/attention_f32_wide.cuh),
+    bf16 past kWgmmaMaxKeys keys at every padded depth past 128
+    attention_kernel_wgmma_2pass_deep, and the padded ones otherwise (bf16 up
+    to depth 128; float32 past 256 the deep one); K2's and K3's attention at
+    head dims 128, 256, 384 and 512 as K1's."""
     names = _names()
     max_keys, counted = _wide_rule()
     short_depth, short_keys = _short_rule()
@@ -278,14 +294,19 @@ def test_routing_mirrors_name_the_c_kernels():
     split, wgmma = names["kAttnKernelSplitF32"], names["kAttnKernelWgmma"]
     wide_f32 = names["kAttnKernelWideF32"]
     wgmma_deep, two_pass = names["kAttnKernelWgmmaDeep"], names["kAttnKernelWgmma2Pass"]
+    two_pass_deep = names["kAttnKernelWgmma2PassDeep"]
     assert counted == {"kAttnKernelSplitF32", "kAttnKernelWgmma", "kAttnKernelWgmmaDeep"}
     assert _wgmma_counts() == {
         "launch_attention_wgmma": {wgmma_deep: "kAttnKernelWgmmaDeep", wgmma: "kAttnKernelWgmma"},
-        "launch_attention_wgmma_2pass": {two_pass: "kAttnKernelWgmma2Pass"}}
+        "launch_attention_wgmma_2pass": {two_pass: "kAttnKernelWgmma2Pass"},
+        "launch_attention_wgmma_2pass_deep": {two_pass_deep: "kAttnKernelWgmma2PassDeep"}}
+    assert _two_pass_deep_rule()
+    assert "kAttnKernelDeep" not in names  # the deep bf16 kernel is no longer built
     deep_depth = _deep_depth()
     assert deep_depth == 256
-    assert (split, wgmma, wgmma_deep, two_pass) == (chip_smoke.SPLIT_F32, chip_smoke.WGMMA,
-                                                    chip_smoke.WGMMA_DEEP, chip_smoke.WGMMA_2PASS)
+    assert (split, wgmma, wgmma_deep, two_pass, two_pass_deep) == (
+        chip_smoke.SPLIT_F32, chip_smoke.WGMMA, chip_smoke.WGMMA_DEEP, chip_smoke.WGMMA_2PASS,
+        chip_smoke.WGMMA_2PASS_DEEP)
     assert (one_pass_keys, onepass_dims) == (max_keys, 64)
 
     def exact_bf16(d, length):
@@ -315,6 +336,10 @@ def test_routing_mirrors_name_the_c_kernels():
                     assert got == short, (d, length, kind, got)
                     routed.setdefault(got, set()).add(depth)
                     continue
+                if kind == "bf16" and depth > 128 and length > max_keys:
+                    assert got == two_pass_deep, (d, length, kind, got)
+                    routed.setdefault(got, set()).add(depth)
+                    continue
                 wide = (depth > 128 and length > 16
                         and (d * esize % 16 == 0 if kind == "fp32" else length <= max_keys))
                 new = ((split if depth == 256 else wide_f32) if kind == "fp32"
@@ -322,18 +347,21 @@ def test_routing_mirrors_name_the_c_kernels():
                 assert (got == new) == wide, (d, length, kind, got)
                 if wide:
                     routed.setdefault(got, set()).add(depth)
+                elif kind == "bf16":
+                    assert depth <= 128 and got == names["kAttnKernelPadded"], (d, length, got)
                 else:
-                    padded = "kAttnKernelDeep" if d > 256 else "kAttnKernelPadded"
-                    assert got == names[padded + ("" if kind == "bf16" else "F32")]
+                    padded = "kAttnKernelDeepF32" if d > 256 else "kAttnKernelPaddedF32"
+                    assert got == names[padded], (d, length, kind, got)
     past_128 = {160, 192, 224, 256, 288, 336, 384, 448, 512}
     assert routed == {split: {256}, wgmma: {160, 192, 224, 256},
                       wide_f32: {160, 192, 224, 288, 336, 384, 448, 512},
-                      wgmma_deep: {288, 336, 384, 448, 512},
+                      wgmma_deep: {288, 336, 384, 448, 512}, two_pass_deep: past_128,
                       names["kAttnKernelShort"]: past_128, names["kAttnKernelShortF32"]: past_128}
     assert (names["kAttnKernelShort"], names["kAttnKernelShortF32"]) == (chip_smoke.SHORT,
                                                                          chip_smoke.SHORT_F32)
     assert set(chip_smoke.WGMMA_DEPTHS) == {80, 96, 112, 128} | routed[wgmma]
     assert set(chip_smoke.WGMMA_DEEP_DEPTHS) == routed[wgmma_deep]
+    assert set(chip_smoke.WGMMA_2PASS_DEEP_DEPTHS) == routed[two_pass_deep]
     for length in lengths:
         assert chip_smoke.block_attention_kernel(128, length, "fp32") == names["kAttnKernelF32"]
         assert chip_smoke.block_attention_kernel(128, length, "bf16") == exact_bf16(128, length)
